@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+1. Require CUDA; print the card's name and power limit (nvidia-smi).
+2. Build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a).
+3. Kernels: at every WRN-28-10 stage shape (C = 160, 320, 640 at 32x32,
+   16x16, 8x8; batch 128) hold each kernel against its plain PyTorch
+   version on the same CUDA tensors, every epilogue mode of the int8
+   kernel included, and time the kernel, the plain version and cuDNN's
+   bf16 ``F.conv2d`` (channels-last) at the same shape.
+4. Serving, the port's main path: a run directory with the WRN-28-10 recipe
+   (models_dir/wrn-28-10-dropout_cifar10/config.yaml at full width, random
+   weights from the config's seed, Synthetic CIFAR-shaped data), served
+   through ``load_predictor(config)`` and ``load_predictor(config,
+   quantize="int8")``, answering requests that include ragged batches.
+   The launch counts, zeroed just before, must show 22 bf16-conv launches
+   per calibration batch and 22 int8-conv launches per serving batch.
+   Logits must be finite; int8 serving through the kernels must match the
+   same int8 walk through the plain versions with the same scales; the
+   float walk through the bf16 kernel must match the float model.
+5. Print one JSON line of per-kernel numbers, then the result line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WRN_CONFIG = os.path.join(REPO, "models_dir", "wrn-28-10-dropout_cifar10",
+                          "config.yaml")
+BATCH = 128
+STAGES = [(160, 32, 32), (320, 16, 16), (640, 8, 8)]  # (C, H, W)
+SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3.cu"
+REPLACES = {"conv3x3_bf16": "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:185",
+            "conv3x3_int8_requant":
+                "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:314"}
+# dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s), NVIDIA data sheets
+PEAKS = {"SXM": (989e12, 1979e12, 3.35e12),
+         "PCIe": (756e12, 1513e12, 2.0e12),
+         "NVL": (835e12, 1671e12, 3.9e12)}
+
+
+def card_peaks(name: str):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return PEAKS[key]
+    return PEAKS["SXM"]
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_ulp(ref):
+    import torch
+
+    mag = ref.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# --- phase 3: kernels ---------------------------------------------------------
+
+def kernel_phase(peaks):
+    """Per (kernel, stage, mode): max error against the plain version and
+    the kernel / plain / cuDNN / bound times of one launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+
+    flops_bf16, ops_int8, bw = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for c, h, w in STAGES:
+        n = BATCH * h * w
+        macs = 9 * c * c * n
+
+        def cudnn_ms():
+            x4 = torch.randn(BATCH, c, h, w, device=dev, generator=g,
+                             dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            w4 = torch.randn(c, c, 3, 3, device=dev, generator=g,
+                             dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            return time_ms(lambda: F.conv2d(x4, w4, padding=1), 20)
+
+        lib_ms = cudnn_ms()
+
+        # bf16 conv: bf16 in, f32 accumulate, bf16 out
+        x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+        wp = (torch.randn(c, 9 * c, device=dev, generator=g)
+              / (9 * c) ** 0.5).to(torch.bfloat16)
+        got = k.conv3x3_bf16(x, wp, h=h, w_img=w).float()
+        ref = k.conv3x3_bf16_plain(x, wp, h=h, w_img=w).float()
+        d = (got - ref).abs()
+        beyond = (d > bf16_ulp(ref)).float().mean().item()
+        assert beyond <= 1e-3 and d.max().item() <= 2 ** -6 * \
+            ref.abs().max().item(), (c, beyond, d.max().item())
+        byts = 2 * (2 * c * n + 9 * c * c)
+        rows.append(dict(
+            name="conv3x3_bf16", c=c, h=h, w=w, n=n, mode="bf16",
+            max_abs_err=d.max().item(), share_beyond_1ulp=beyond,
+            ms=time_ms(lambda: k.conv3x3_bf16(x, wp, h=h, w_img=w), 20),
+            plain_ms=time_ms(
+                lambda: k.conv3x3_bf16_plain(x, wp, h=h, w_img=w), 3),
+            library_ms=lib_ms,
+            ops_ms=2 * macs / flops_bf16 * 1e3, bytes_ms=byts / bw * 1e3))
+
+        # int8 conv + requant epilogue, every mode
+        xq = torch.randint(-127, 128, (c, n), device=dev, generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (c, 9 * c), device=dev, generator=g,
+                           dtype=torch.int8)
+        sigma = (127.0 ** 2 / 3) * (9 * c) ** 0.5  # std of the s32 sums
+
+        def vec(lo, hi):
+            return torch.rand(c, device=dev, generator=g) * (hi - lo) + lo
+
+        scale = vec(0.5, 1.5) / sigma
+        shift = vec(-0.5, 0.5)
+        res = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+        dual = (vec(0.5, 1.5) * 127 / 4, vec(-5.0, 5.0))
+        modes = {
+            "int8": ((None, None), dict(relu=True, inv_out_scale=127 / 4)),
+            "bf16": ((None, None), dict(relu=True)),
+            "bf16+res": ((res, None), dict(relu=False)),
+            "bf16+res+dual": ((res, dual), dict(relu=False)),
+        }
+        for mode, ((r, du), kw) in modes.items():
+            def run(fn=k.conv3x3_int8_requant):
+                return fn(xq, wq, scale, shift, r, du, h=h, w_img=w, **kw)
+
+            outs = run()
+            refs = run(k.conv3x3_int8_requant_plain)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            refs = refs if isinstance(refs, tuple) else (refs,)
+            err = 0.0
+            for o, rf in zip(outs, refs):
+                assert o.dtype == rf.dtype and o.shape == rf.shape
+                d = (o.float() - rf.float()).abs()
+                if o.dtype == torch.int8:
+                    flips = (d > 0).float().mean().item()
+                    assert d.max().item() <= 1 and flips <= 1e-3, \
+                        (c, mode, d.max().item(), flips)
+                    assert rf.unique().numel() > 50, (c, mode)
+                else:
+                    assert torch.equal(o, rf), (c, mode, d.max().item())
+                err = max(err, d.max().item())
+            byts = (c * n + 9 * c * c + 4 * c * (4 if du else 2)
+                    + c * n * (1 if "int8" in mode else 2)
+                    + (2 * c * n if r is not None else 0)
+                    + (c * n if du else 0))
+            rows.append(dict(
+                name="conv3x3_int8_requant", c=c, h=h, w=w, n=n, mode=mode,
+                max_abs_err=err, ms=time_ms(run, 20),
+                plain_ms=time_ms(
+                    lambda: run(k.conv3x3_int8_requant_plain), 3),
+                library_ms=lib_ms,
+                ops_ms=2 * macs / ops_int8 * 1e3, bytes_ms=byts / bw * 1e3))
+        del x, xq, wq, res
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+# --- phase 4: serving -----------------------------------------------------------
+
+def serving_phase(workdir):
+    import numpy as np
+    import torch
+    import yaml
+
+    from pytorch_ddp_resnet_tpu_torch.algos.predict import load_predictor
+    from pytorch_ddp_resnet_tpu_torch.data.datasets import load_synthetic
+    from pytorch_ddp_resnet_tpu_torch.models.quantize import Int8Inference
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
+    from pytorch_ddp_resnet_tpu_torch.utils.config import get_config
+
+    with open(WRN_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset_cls_name"] = "Synthetic"  # CIFAR is not on the machine
+    run = os.path.join(workdir, "models_dir", "wrn-28-10")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    config = get_config(os.path.join(workdir, "models_dir"), "wrn-28-10",
+                        data_dir=os.path.join(workdir, "data"),
+                        verbose=False)
+    assert config["batch_size"] == BATCH
+    test_x = load_synthetic(None, train=False).x  # 256 images
+    calib = load_synthetic(None, train=True).x    # 512, as load_predictor
+    requests = [test_x[:128], test_x[:200], test_x[200:237]]  # 2 ragged
+    n_serve = sum(-(-len(r) // BATCH) for r in requests)
+    n_calib = -(-len(calib) // BATCH)
+
+    # the main path, with the launch counts zeroed just before
+    conv3x3.reset_launches()
+    t0 = time.perf_counter()
+    fp = load_predictor(config)
+    fl = [fp.logits(r) for r in requests]
+    qp = load_predictor(config, quantize="int8")
+    ql = [qp.logits(r) for r in requests]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(conv3x3.launches)
+    shapes = dict(conv3x3.launch_shapes)
+
+    assert qp.n_quantized == 22, qp.n_quantized
+    assert launches.get("conv3x3_bf16") == 22 * n_calib, launches
+    assert launches.get("conv3x3_int8_requant") == 22 * n_serve, launches
+    for a, b, r in zip(fl, ql, requests):
+        assert a.shape == b.shape == (len(r), 10)
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+
+    # the same int8 walk through the plain versions, same scales: the
+    # int8 codes agree up to rare 1-level tie flips (kernel phase), so the
+    # logits may move by a small fraction of their range
+    xp = qp._prep(test_x[:BATCH])
+    with torch.no_grad():
+        q_kernel = qp._fwd(xp).float()
+        q_plain = Int8Inference(qp._model, plain=True).serve_fn(
+            qp.act_scales)(xp).float()
+        # the float walk through the bf16 kernel vs the float model (cuDNN)
+        f_kernel, _ = Int8Inference(qp._model).calibrate_fn()(xp)
+        f_model = qp._model(xp).float()
+    int8_err = (q_kernel - q_plain).abs().max().item()
+    float_err = (f_kernel.float() - f_model).abs().max().item()
+    assert int8_err <= 1e-2 * q_plain.abs().max().item(), int8_err
+    assert float_err <= 5e-2 * f_model.abs().max().item() + 2e-2, float_err
+
+    all_f = fp.logits(test_x)
+    all_q = qp.logits(test_x)
+    agree = float((all_f.argmax(-1) == all_q.argmax(-1)).mean())
+
+    bench = np.concatenate([test_x] * 4)  # 1024 images, 8 batches
+
+    def img_per_s(pred):
+        pred.logits(bench[:BATCH])  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred.logits(bench)
+        return len(bench) / (time.perf_counter() - t)
+
+    return dict(
+        launches=launches, shapes=shapes, n_calib=n_calib, n_serve=n_serve,
+        main_path_s=main_s, int8_vs_plain_max_abs=int8_err,
+        float_walk_vs_model_max_abs=float_err, top1_agreement=agree,
+        logit_absmax=float(np.abs(all_f).max()),
+        float_img_per_s=img_per_s(fp), int8_img_per_s=img_per_s(qp),
+        n_folded=fp.n_folded)
+
+
+def kernel_summary(rows, serving):
+    """One entry per kernel: the main path's launches, and per-batch times
+    (calibration batch for the bf16 conv, serving batch for the int8 conv)
+    summed over the (shape, mode) mix the main path launched."""
+    per_batch = {"conv3x3_bf16": serving["n_calib"],
+                 "conv3x3_int8_requant": serving["n_serve"]}
+    out = []
+    for name in ("conv3x3_bf16", "conv3x3_int8_requant"):
+        mine = [r for r in rows if r["name"] == name]
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   ops_ms=0.0, bytes_ms=0.0)
+        for (kname, cin, cout, n, mode), count in serving["shapes"].items():
+            if kname != name:
+                continue
+            row = next(r for r in mine if r["c"] == cin and r["n"] == n
+                       and r["mode"] == mode)
+            for key in tot:
+                tot[key] += row[key] * count / per_batch[name]
+        out.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            launches=serving["launches"].get(name, 0),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=tot["bound_ms"],
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=tot["library_ms"],
+            per=("calibration batch" if name == "conv3x3_bf16"
+                 else "serving batch") + f" of {BATCH}",
+            stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run.", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for line in build.build_log("conv3x3").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    rows = kernel_phase(peaks)
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")}))
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    try:
+        t0 = time.perf_counter()
+        serving = serving_phase(workdir)
+        print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("serving: " + json.dumps(
+        {k: v for k, v in serving.items() if k != "shapes"}))
+    print(f"card: {nvidia_smi()}")
+    print(json.dumps({"kernels": kernel_summary(rows, serving)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

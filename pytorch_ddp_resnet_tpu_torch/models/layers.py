@@ -1,0 +1,225 @@
+"""Layer modules in NHWC layout, eval behaviour only (counterpart of
+pytorch_ddp_resnet_tpu/models/layers.py).
+
+Activations are NHWC tensors at every module's surface, as in the JAX
+package. A conv permutes its input to an NCHW *view* (channels-last
+strides, no copy) for ``F.conv2d`` and permutes the result back.
+
+Rounding follows the JAX layers: convs and the dense head take inputs and
+weights in ``compute_dtype`` and accumulate in f32 (the library kernels
+do so for bf16), the conv result is rounded to ``compute_dtype`` and a
+bias is added in ``compute_dtype``; BatchNorm evaluates
+``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 and rounds to
+``compute_dtype``; the dense head returns f32 logits.
+
+Training behaviour (batch statistics, dropout masks) waits for the
+training slice: a module switched to ``train()`` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pytorch_ddp_resnet_tpu_torch.ops import initializers as init_lib
+
+TRAINING_TODO = ("training mode is not ported yet (ROADMAP.md Queue 1, the "
+                 "training slice)")
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class EvalOnly(nn.Module):
+    """Base of the port's layers: eval mode from construction on."""
+
+    def __init__(self):
+        super().__init__()
+        self.train(False)
+
+    def _check_eval(self):
+        if self.training:
+            raise NotImplementedError(TRAINING_TODO)
+
+
+class Conv(EvalOnly):
+    """2-D convolution, NHWC in and out, weight ``[Cout, Cin, K, K]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, use_bias: bool = True,
+                 kernel_init: str = "torch_default",
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.use_bias = use_bias
+        self.kernel_init = kernel_init
+        self.compute_dtype = compute_dtype
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        self.bias = (nn.Parameter(torch.empty(out_channels)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        k = self.kernel_size
+        fan_in = k * k * self.in_channels
+        with torch.no_grad():
+            if self.kernel_init == "kaiming_normal":
+                w = init_lib.kaiming_normal(self.weight.shape, fan_in,
+                                            generator)
+            else:
+                w = init_lib.torch_default_uniform(self.weight.shape, fan_in,
+                                                   generator)
+            self.weight.copy_(w)
+            if self.bias is not None:
+                self.bias.copy_(init_lib.torch_default_uniform(
+                    self.bias.shape, fan_in, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        y = F.conv2d(nhwc_to_nchw(x.to(cd)), self.weight.to(cd),
+                     stride=self.stride, padding=self.padding)
+        y = nchw_to_nhwc(y)
+        if self.bias is not None:
+            y = y + self.bias.to(cd)
+        return y
+
+
+class BatchNorm(EvalOnly):
+    """Eval-mode BatchNorm over NHWC channels. Parameters ``scale`` and
+    ``bias``; buffers ``mean``, ``var`` and ``count`` (the JAX state,
+    one to one)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        f = num_features
+        self.scale = nn.Parameter(torch.ones(f))
+        self.bias = nn.Parameter(torch.zeros(f))
+        self.register_buffer("mean", torch.zeros(f))
+        self.register_buffer("var", torch.ones(f))
+        self.register_buffer("count", torch.zeros((), dtype=torch.int32))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+            self.count.zero_()
+
+    def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(inv, shift) with BN(x) = x * inv + shift."""
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        return inv, self.bias - self.mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_eval()
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        y = (x.to(torch.float32) - self.mean) * inv + self.bias
+        return y.to(self.compute_dtype)
+
+
+class ReLU(EvalOnly):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp_min(x, 0)
+
+
+class MaxPool(EvalOnly):
+    """MaxPool2d(K, S, P); padding contributes -inf."""
+
+    def __init__(self, kernel_size: int, stride: int, padding: int = 0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.max_pool2d(nhwc_to_nchw(x), self.kernel_size, self.stride,
+                         self.padding)
+        return nchw_to_nhwc(y)
+
+
+class AvgPool(EvalOnly):
+    """AvgPool2d(K, S, P), padding counted (count_include_pad), summed in
+    f32 and returned in the input dtype."""
+
+    def __init__(self, kernel_size: int, stride: int, padding: int = 0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.avg_pool2d(nhwc_to_nchw(x.to(torch.float32)), self.kernel_size,
+                         self.stride, self.padding, count_include_pad=True)
+        return nchw_to_nhwc(y).to(x.dtype)
+
+
+class Dropout(EvalOnly):
+    """Inverted dropout; the identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_eval()
+        return x
+
+
+class Dense(EvalOnly):
+    """Flatten (H, W, C order) + Linear; weight ``[out, in]``; f32
+    logits."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        fan_in = self.in_features
+        with torch.no_grad():
+            self.weight.copy_(init_lib.torch_default_uniform(
+                self.weight.shape, fan_in, generator))
+            self.bias.copy_(init_lib.torch_default_uniform(
+                self.bias.shape, fan_in, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        xb = x.reshape(x.shape[0], -1).to(cd)
+        y = F.linear(xb, self.weight.to(cd))
+        return y.to(torch.float32) + self.bias.to(torch.float32)
+
+
+class Sequential(EvalOnly):
+    """Ordered composite of named layers (the model spine and each residual
+    stack). Names are the JAX pytree keys ('00_conv', 'block0', ...)."""
+
+    def __init__(self, layers: Iterable[Tuple[str, nn.Module]]):
+        super().__init__()
+        for name, layer in layers:
+            self.add_module(name, layer)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x

@@ -1,0 +1,162 @@
+"""Spec-string-driven residual networks (counterpart of
+pytorch_ddp_resnet_tpu/models/resnet.py).
+
+Space-separated components:
+  cI,O,K,S,P   convolution          mpK,S,P   max pool
+  apK,S,P      average pool         rD        stack of D basic blocks
+  rD,O,S       D basic blocks, first one to O channels at stride S
+  n            batch norm           a         ReLU
+  fI,O         flatten + linear     bD...     bottleneck stack (not ported)
+
+Rules kept from the JAX package: the letter prefix is matched by
+``[a-z]+`` (``fc64,10`` parses as ``f64,10``); a legacy ``rD`` stack whose
+previous token is a stack of the same kind downsamples 2x and doubles the
+channels in its first block; top-level convs get kaiming-normal init,
+block convs torch's default.
+
+``ResNet`` is a ``Sequential`` whose children carry the JAX pytree names
+('00_conv', '01_stack' -> 'block0', ...), so its ``state_dict`` keys are
+the JAX key paths joined with '.'. Activations are NHWC at its surface.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from pytorch_ddp_resnet_tpu_torch.models.blocks import (
+    BOTTLENECK_TODO,
+    ResidualBlock,
+)
+from pytorch_ddp_resnet_tpu_torch.models.layers import (
+    AvgPool,
+    BatchNorm,
+    Conv,
+    Dense,
+    MaxPool,
+    ReLU,
+    Sequential,
+)
+from pytorch_ddp_resnet_tpu_torch.utils.types import Device, resolve_device
+
+_COMPONENT_RE = re.compile(r"([a-z]+)((?:[0-9]+)(?:,[0-9]+)*)?$")
+
+
+def extract_int_list(token: str, allowed_counts) -> Tuple[int, ...]:
+    m = _COMPONENT_RE.match(token)
+    if m is None or m.group(2) is None:
+        raise ValueError(f"Cannot parse spec component {token!r}.")
+    ints = tuple(int(v) for v in m.group(2).split(","))
+    if len(ints) not in allowed_counts:
+        raise ValueError(
+            f"Spec component {token!r} carries {len(ints)} ints, expected one "
+            f"of {sorted(allowed_counts)}.")
+    return ints
+
+
+def extract_ints(token: str, num: int):
+    ints = extract_int_list(token, {num})
+    return ints[0] if num == 1 else ints
+
+
+def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
+               dropout_prob: float,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               ) -> List[Tuple[str, nn.Module]]:
+    """Token list -> [(name, layer)], threading the channel count."""
+    tokens = architecture_spec.split()
+    entries: List[Tuple[str, nn.Module]] = []
+    channels: Optional[int] = None
+    cd = compute_dtype
+
+    def block_stack(n: int, tok: str) -> Sequential:
+        nonlocal channels
+        ints = extract_int_list(tok, {1, 3})
+        cin = channels
+        if len(ints) == 1:
+            depth = ints[0]
+            downsample = n > 0 and tokens[n - 1].startswith("r")
+            cout = 2 * channels if downsample else channels
+            first, rest = {}, {}
+        else:
+            depth, cout, stride = ints
+            downsample = False
+            rest = {"out_channels_override": cout, "stride_override": 1}
+            first = {**rest, "stride_override": stride}
+        blocks = []
+        for ell in range(depth):
+            blocks.append((f"block{ell}", ResidualBlock(
+                channels=cin if ell == 0 else cout,
+                downsample=downsample if ell == 0 else False,
+                preact=preact, use_proj=use_proj, dropout_prob=dropout_prob,
+                compute_dtype=cd, **(first if ell == 0 else rest))))
+        channels = cout
+        return Sequential(blocks)
+
+    for n, tok in enumerate(tokens):
+        if tok.startswith("c"):
+            i, o, k, s, p = extract_ints(tok, 5)
+            layer = Conv(i, o, k, stride=s, padding=p, use_bias=True,
+                         kernel_init="kaiming_normal", compute_dtype=cd)
+            channels = o
+            name = f"{n:02d}_conv"
+        elif tok.startswith("mp"):
+            layer = MaxPool(*extract_ints(tok, 3))
+            name = f"{n:02d}_maxpool"
+        elif tok.startswith("ap"):
+            layer = AvgPool(*extract_ints(tok, 3))
+            name = f"{n:02d}_avgpool"
+        elif tok.startswith("r"):
+            layer = block_stack(n, tok)
+            name = f"{n:02d}_stack"
+        elif tok.startswith("b"):
+            raise NotImplementedError(f"{tok!r}: {BOTTLENECK_TODO}")
+        elif tok.startswith("n"):
+            layer = BatchNorm(channels, compute_dtype=cd)
+            name = f"{n:02d}_bn"
+        elif tok.startswith("a"):
+            layer = ReLU()
+            name = f"{n:02d}_relu"
+        elif tok.startswith("f"):
+            layer = Dense(*extract_ints(tok, 2), compute_dtype=cd)
+            name = f"{n:02d}_fc"
+        else:
+            raise ValueError(f"Unknown component {tok!r} in architecture "
+                             f"spec.")
+        entries.append((name, layer))
+    return entries
+
+
+class ResNet(Sequential):
+    """A residual network built from an architecture spec string, eval
+    mode. Weights are drawn from ``generator`` (a CPU ``torch.Generator``;
+    ``None`` draws from torch's default one) and then moved to ``device``
+    (default the card: raises when there is none)."""
+
+    def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
+                 dropout_prob: float,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None,
+                 device: Device = "cuda"):
+        dev = resolve_device(device)
+        super().__init__(parse_spec(architecture_spec, preact, use_proj,
+                                    dropout_prob, compute_dtype))
+        self.architecture_spec = architecture_spec
+        self.preact = preact
+        self.use_proj = use_proj
+        self.dropout_prob = dropout_prob
+        self.compute_dtype = compute_dtype
+        self.reset_parameters(generator)
+        self.to(dev)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Draw every layer's weights in module order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())

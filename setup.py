@@ -10,12 +10,16 @@ setup(
     # native/fastimage.cpp is compiled on demand at runtime (native/__init__)
     # with the system toolchain; ship the source so installed packages can
     # build it, and degrade to PIL when g++/libjpeg are absent.
-    package_data={"pytorch_ddp_resnet_tpu.native": ["*.cpp"]},
+    # the PyTorch port's CUDA kernels are compiled with nvcc at first use
+    # (pytorch_ddp_resnet_tpu_torch/ops/cuda/build.py): ship the sources
+    package_data={"pytorch_ddp_resnet_tpu.native": ["*.cpp"],
+                  "pytorch_ddp_resnet_tpu_torch.ops.cuda": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
         "numpy",
         "pyyaml",
+        "torch",
     ],
     extras_require={
         "data": ["filelock", "pillow"],

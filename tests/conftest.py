@@ -44,6 +44,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: integration tier, skipped by default "
         "(RUN_SLOW_TESTS=1 or -m to include)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

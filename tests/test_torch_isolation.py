@@ -1,0 +1,57 @@
+"""The port stands alone: every module of pytorch_ddp_resnet_tpu_torch, and
+chip_smoke.py, imports in a fresh interpreter in which ``jax`` and the JAX
+package cannot be imported."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "pytorch_ddp_resnet_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import pytorch_ddp_resnet_tpu_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (import only; main() needs a card)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 15  # every module was walked
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
