@@ -11,7 +11,11 @@ Phases, each fatal on failure:
    version on the same CUDA tensors, every epilogue mode of the int8
    kernel included, and time the kernel, the plain version and cuDNN's
    bf16 ``F.conv2d`` (channels-last) at the same shape.
-4. Serving, the port's main path: a run directory with the WRN-28-10 recipe
+   The augment kernel (ops/cuda/csrc/augment.cu) against its plain version
+   at batch 128 and 512, mirror and zero padding, with and without
+   whitening (bit-equal), timed beside the plain version and the port's
+   torch transform chain with the same draws.
+4. Serving, the first main path: a run directory with the WRN-28-10 recipe
    (models_dir/wrn-28-10-dropout_cifar10/config.yaml at full width, random
    weights from the config's seed, Synthetic CIFAR-shaped data), served
    through ``load_predictor(config)`` and ``load_predictor(config,
@@ -21,7 +25,19 @@ Phases, each fatal on failure:
    Logits must be finite; int8 serving through the kernels must match the
    same int8 walk through the plain versions with the same scales; the
    float walk through the bf16 kernel must match the float model.
-5. Print one JSON line of per-kernel numbers, then the result line.
+5. Training, the second main path: a run directory with the recipe
+   models_dir/wrn-28-10-dropout_synthspectral-hard/config.yaml (full width,
+   50,000 SyntheticSpectral images resident on the card, batch 128, SGD
+   Nesterov) plus ``use_pallas_augment: True``, built by ``setup(config)``
+   and trained for 10 steps through the train step. With the launch counts
+   zeroed just before, each step must launch the augment kernel once and
+   no other kernel of the port; losses must be finite, every parameter
+   must change and every BatchNorm count must equal the steps. One step's
+   augmented batch through the kernel must equal the plain version's with
+   the same draws. Prints the step time and img/s after warm-up, the
+   augment kernel's share of the step, and a torch.profiler breakdown of
+   three more steps.
+6. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -37,16 +53,27 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WRN_CONFIG = os.path.join(REPO, "models_dir", "wrn-28-10-dropout_cifar10",
                           "config.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "models_dir",
+                            "wrn-28-10-dropout_synthspectral-hard",
+                            "config.yaml")
 BATCH = 128
+TRAIN_STEPS, WARM_STEPS, PROFILE_STEPS = 10, 3, 3
+AUG_KEYS = ("b", "mirror", "whiten", "ms", "call_ms", "plain_ms",
+            "plain_call_ms", "chain_ms", "chain_call_ms", "bound_ms",
+            "bound_by", "max_abs_err")
 STAGES = [(160, 32, 32), (320, 16, 16), (640, 8, 8)]  # (C, H, W)
 SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3.cu"
+AUG_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/augment.cu"
 REPLACES = {"conv3x3_bf16": "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:185",
             "conv3x3_int8_requant":
-                "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:314"}
-# dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s), NVIDIA data sheets
-PEAKS = {"SXM": (989e12, 1979e12, 3.35e12),
-         "PCIe": (756e12, 1513e12, 2.0e12),
-         "NVL": (835e12, 1671e12, 3.9e12)}
+                "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:314",
+            "augment_batch":
+                "pytorch_ddp_resnet_tpu/ops/pallas/augment.py:156"}
+# dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
+# the tensor cores), NVIDIA data sheets
+PEAKS = {"SXM": (989e12, 1979e12, 3.35e12, 67e12),
+         "PCIe": (756e12, 1513e12, 2.0e12, 51e12),
+         "NVL": (835e12, 1671e12, 3.9e12, 60e12)}
 
 
 def card_peaks(name: str):
@@ -81,6 +108,35 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _dev_us(event) -> float:
+    """Self device time of a profiler event, in us (the attribute's name
+    changed across torch versions)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def _cuda_events(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and _dev_us(e) > 0]
+
+
+def device_ms(fn, reps: int):
+    """Mean device time per call of ``fn``: the summed device time of every
+    kernel it launches (torch.profiler), over ``reps`` calls after one
+    warm-up call. None when the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_dev_us(e) for e in _cuda_events(prof))
+    return total / 1e3 / reps if total else None
+
+
 def bf16_ulp(ref):
     import torch
 
@@ -98,7 +154,7 @@ def kernel_phase(peaks):
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
 
-    flops_bf16, ops_int8, bw = peaks
+    flops_bf16, ops_int8, bw, _ = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -197,29 +253,128 @@ def kernel_phase(peaks):
     return rows
 
 
+def augment_phase(peaks):
+    """Per (batch, padding, whitening): the augment kernel against its plain
+    version (bit-equal) and against the port's torch transform chain with
+    the same draws, and the kernel / plain / chain / bound times."""
+    import numpy as np
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.data import transforms as T
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment as aug
+
+    _, _, bw, flops_f32 = peaks
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n, hw, c, pad, crop = 50000, 32, 3, 4, 32  # the recipe's geometry
+    shape = (hw, hw, c)
+    data = torch.from_numpy(rng.integers(0, 256, (n,) + shape,
+                                         dtype=np.uint8)).to(dev)
+    stats = (rng.uniform(0.3, 0.7, shape).astype(np.float32),
+             rng.uniform(0.2, 0.3, shape).astype(np.float32))
+    rows = []
+    for b in (BATCH, 4 * BATCH):
+        idx, top, left, flip = (torch.from_numpy(v.astype(np.int32)).to(dev)
+                                for v in (rng.integers(0, n, b),
+                                          rng.integers(0, 2 * pad + 1, b),
+                                          rng.integers(0, 2 * pad + 1, b),
+                                          rng.integers(0, 2, b)))
+        for mirror in (True, False):
+            for whiten in (True, False):
+                mean, std = stats if whiten else (
+                    np.zeros(shape, np.float32), np.ones(shape, np.float32))
+                mean_t = torch.from_numpy(mean).to(dev)
+                inv_t = torch.from_numpy(np.float32(1.0) / std).to(dev)
+                args = (data, idx, top, left, flip, mean_t, inv_t)
+                kw = dict(pad=pad, crop=crop, mirror=mirror)
+                got = aug.augment_batch(*args, **kw)
+                ref = aug.augment_batch_plain(*args, **kw)
+                assert torch.equal(got, ref), (b, mirror, whiten)
+
+                st = T.StandardizeWhiteningTransform(shape)
+                st.mean = mean_t
+                st.stddev = torch.from_numpy(std).to(dev)
+                st.fitted = True
+                steps = [T.ToTensorTransform(shape)] + (
+                    [st] if whiten else [])
+                flip_t = T.FlipTransform(shape, 0.5)
+                pad_t = T.PaddingTransform(shape, pad,
+                                           "mirror" if mirror else "zero")
+                crop_t = T.RandomCropTransform(pad_t.output_shape, crop)
+
+                def chain():  # the transform chain with the same draws
+                    x = data[idx.long()]
+                    for t in steps:
+                        x = t.apply_batch(x)
+                    x = pad_t.apply_batch(flip_t.apply_batch(x, flip=flip))
+                    return crop_t.apply_batch(x, tops=top, lefts=left)
+
+                # the chain divides by the stddev where the kernel
+                # multiplies by its reciprocal: one bf16 rounding apart
+                ch = chain()
+                chain_err = (ch - got.float()).abs().max().item()
+                assert chain_err <= 2.0 ** -7 * ch.abs().max().item(), \
+                    (b, mirror, whiten, chain_err)
+                byts = (b * hw * hw * c + 2 * 4 * hw * hw * c + 4 * 4 * b
+                        + 2 * b * crop * crop * c)
+                fns = {"": lambda: aug.augment_batch(*args, **kw),
+                       "plain_": lambda: aug.augment_batch_plain(*args,
+                                                                 **kw),
+                       "chain_": chain}
+                row = dict(
+                    name="augment_batch", b=b, mirror=mirror, whiten=whiten,
+                    max_abs_err=(got.float() - ref.float()).abs().max()
+                    .item(),
+                    chain_max_abs_diff=chain_err,
+                    bytes_ms=byts / bw * 1e3,
+                    ops_ms=2 * b * crop * crop * c / flops_f32 * 1e3)
+                for pre, fn in fns.items():
+                    # device time of the kernels a call launches, and the
+                    # time per call of back-to-back calls (CUDA events),
+                    # which the host's dispatch bounds at this size
+                    row[f"{pre}call_ms"] = time_ms(fn, 50)
+                    row[f"{pre}ms"] = device_ms(fn, 20)
+                rows.append(row)
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
 # --- phase 4: serving -----------------------------------------------------------
+
+def write_run(workdir: str, run_name: str, recipe: str, **overrides):
+    """A run directory under ``workdir`` holding a copy of ``recipe`` with
+    ``overrides``, read back as the port reads a run. The keys keep their
+    order: a transform pipeline is an ordered mapping."""
+    import yaml
+
+    from pytorch_ddp_resnet_tpu_torch.utils.config import get_config
+
+    with open(recipe) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(overrides)
+    run = os.path.join(workdir, "models_dir", run_name)
+    os.makedirs(run)
+    with open(os.path.join(run, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return get_config(os.path.join(workdir, "models_dir"), run_name,
+                      data_dir=os.path.join(workdir, "data"), verbose=False)
+
 
 def serving_phase(workdir):
     import numpy as np
     import torch
-    import yaml
 
     from pytorch_ddp_resnet_tpu_torch.algos.predict import load_predictor
     from pytorch_ddp_resnet_tpu_torch.data.datasets import load_synthetic
     from pytorch_ddp_resnet_tpu_torch.models.quantize import Int8Inference
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
-    from pytorch_ddp_resnet_tpu_torch.utils.config import get_config
 
-    with open(WRN_CONFIG) as f:
-        cfg = yaml.safe_load(f)
-    cfg["dataset_cls_name"] = "Synthetic"  # CIFAR is not on the machine
-    run = os.path.join(workdir, "models_dir", "wrn-28-10")
-    os.makedirs(run)
-    with open(os.path.join(run, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f)
-    config = get_config(os.path.join(workdir, "models_dir"), "wrn-28-10",
-                        data_dir=os.path.join(workdir, "data"),
-                        verbose=False)
+    # CIFAR is not on the machine
+    config = write_run(workdir, "wrn-28-10", WRN_CONFIG,
+                       dataset_cls_name="Synthetic")
     assert config["batch_size"] == BATCH
     test_x = load_synthetic(None, train=False).x  # 256 images
     calib = load_synthetic(None, train=True).x    # 512, as load_predictor
@@ -284,10 +439,156 @@ def serving_phase(workdir):
         n_folded=fp.n_folded)
 
 
+# --- phase 5: training ------------------------------------------------------
+
+# kernel-name patterns of the train step's kinds of device work
+KERNEL_KINDS = [
+    ("augment", ("augment",)),
+    ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm")),
+    ("matmul", ("gemm", "cublas")),
+    ("reduction", ("reduce_kernel",)),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("copy / cast", ("copy",)),
+    ("elementwise", ("elementwise", "Functor")),
+]
+
+
+def _profile_steps(run_steps, steps: int):
+    """Device time per step by kind of kernel over ``run_steps()``
+    (torch.profiler), or None when the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_steps()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _cuda_events(prof)
+    if not events:
+        return None
+    dev_ms = sum(_dev_us(e) for e in events) / 1e3
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(p in e.key for p in pats)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + _dev_us(e) / 1e3 / steps
+    top = sorted(events, key=lambda e: -_dev_us(e))[:12]
+    return dict(
+        steps=steps, wall_ms_per_step=wall_ms / steps,
+        device_ms_per_step=dev_ms / steps, busy_share=dev_ms / wall_ms,
+        kernels_per_step=sum(e.count for e in events) / steps,
+        device_ms_per_step_by_kind=dict(
+            sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        top=[dict(kernel=e.key[:80], ms=_dev_us(e) / 1e3, calls=e.count)
+             for e in top])
+
+
+def training_phase(workdir, aug_rows):
+    import math
+
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.algos.steps import make_train_step
+    from pytorch_ddp_resnet_tpu_torch.algos.train import setup
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment, conv3x3
+    from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
+
+    config = write_run(workdir, "wrn-28-10-train", TRAIN_CONFIG,
+                       use_pallas_augment=True)
+    assert config["batch_size"] == BATCH
+
+    t0 = time.perf_counter()
+    ls = setup(config, verbose=False)
+    setup_s = time.perf_counter() - t0
+    model, pipeline, ts = ls["model"], ls["pipeline"], ls["train_state"]
+    fused = ls["augment_fn"]
+    assert isinstance(fused, augment.FusedAugment), type(fused)
+    assert ls["augment_pass_indices"]
+    assert model.param_count() == 36688330, model.param_count()
+    step = pipeline.bind_train_step(
+        make_train_step(model, ls["optimizer"], ls["num_microbatches"],
+                        augment_fn=fused),
+        pass_indices=True)
+    root = Key(config.get("seed", 0))
+    feeds = [idx for _, (idx,) in pipeline.train_feed(
+        0, budget=TRAIN_STEPS + PROFILE_STEPS)]
+    lr = ls["scheduler"].get_lr()
+    before = {k: v.detach().clone() for k, v in ts["params"].items()}
+
+    # the main path, with the launch counts zeroed just before
+    conv3x3.reset_launches()
+    augment.reset_launches()
+    metrics = []
+    for gs in range(WARM_STEPS):
+        ts, m = step(ts, feeds[gs], lr, root.fold_in(gs))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gs in range(WARM_STEPS, TRAIN_STEPS):
+        ts, m = step(ts, feeds[gs], lr, root.fold_in(gs))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
+    launches = {**conv3x3.launches, **augment.launches}
+
+    losses = [float(m["loss"]) for m in metrics]
+    assert launches == {"augment_batch": TRAIN_STEPS}, launches
+    assert all(math.isfinite(v) for v in losses), losses
+    for k, v in ts["params"].items():
+        assert not torch.equal(v, before[k]), f"{k} did not change"
+    counts = {int(b) for n, b in ts["model_state"].items()
+              if n.endswith("count")}
+    assert counts == {TRAIN_STEPS}, counts
+
+    # the first step's augmented batch, kernel vs plain, same draws
+    key = root.fold_in(0).fold_in(0)  # the step's augment key (M = 1)
+    batch = fused(feeds[0][0], key)
+    assert torch.equal(batch, fused(feeds[0][0], key,
+                                    fn=augment.augment_batch_plain))
+    assert batch.shape == (BATCH, 32, 32, 3)
+
+    def more_steps():
+        nonlocal ts
+        for gs in range(TRAIN_STEPS, TRAIN_STEPS + PROFILE_STEPS):
+            ts, _ = step(ts, feeds[gs], lr, root.fold_in(gs))
+
+    profile = _profile_steps(more_steps, PROFILE_STEPS)
+    main = next(r for r in aug_rows if r["b"] == BATCH and r["mirror"]
+                and r["whiten"])
+    aug_ms = main["ms"] if main["ms"] is not None else main["call_ms"]
+    return dict(
+        launches=launches, steps=TRAIN_STEPS, losses=losses, lr=lr,
+        setup_s=setup_s, step_ms=step_ms, img_per_s=BATCH / step_ms * 1e3,
+        augment_kernel_ms=aug_ms, augment_share_of_step=aug_ms / step_ms,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        profile=profile)
+
+
+def augment_summary(aug_rows, training):
+    """The augment kernel's entry: the training run's launches and the times
+    at the recipe's configuration (batch 128, mirror pad, whitening)."""
+    main = next(r for r in aug_rows if r["b"] == BATCH and r["mirror"]
+                and r["whiten"])
+    return dict(
+        name="augment_batch", route="cuda", source=AUG_SOURCE,
+        replaces=REPLACES["augment_batch"],
+        launches=training["launches"].get("augment_batch", 0),
+        max_abs_err=max(r["max_abs_err"] for r in aug_rows),
+        ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, chain_ms=main["chain_ms"],
+        call_ms=main["call_ms"], plain_call_ms=main["plain_call_ms"],
+        chain_call_ms=main["chain_call_ms"],
+        per=f"training batch of {BATCH}; ms = device time per launch",
+        cases=[{k: r[k] for k in AUG_KEYS} for r in aug_rows])
+
+
 def kernel_summary(rows, serving):
-    """One entry per kernel: the main path's launches, and per-batch times
-    (calibration batch for the bf16 conv, serving batch for the int8 conv)
-    summed over the (shape, mode) mix the main path launched."""
+    """One entry per conv kernel: the serving path's launches, and
+    per-batch times (calibration batch for the bf16 conv, serving batch for
+    the int8 conv) summed over the (shape, mode) mix that path launched."""
     per_batch = {"conv3x3_bf16": serving["n_calib"],
                  "conv3x3_int8_requant": serving["n_serve"]}
     out = []
@@ -342,23 +643,42 @@ def main() -> int:
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     rows = kernel_phase(peaks)
+    aug_rows = augment_phase(peaks)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")}))
+    for r in aug_rows:
+        print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
+                                 + ("chain_max_abs_diff",)}))
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
     try:
         t0 = time.perf_counter()
         serving = serving_phase(workdir)
         print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        print("serving: " + json.dumps(
+            {k: v for k, v in serving.items() if k != "shapes"}), flush=True)
+        t0 = time.perf_counter()
+        training = training_phase(workdir, aug_rows)
+        print(f"training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print("serving: " + json.dumps(
-        {k: v for k, v in serving.items() if k != "shapes"}))
+    print("training: " + json.dumps(
+        {k: v for k, v in training.items() if k != "profile"}))
+    prof = training["profile"]
+    if prof is None:
+        print("training profile: not measured (no device time reported)")
+    else:
+        print("training profile: " + json.dumps(
+            {k: v for k, v in prof.items() if k != "top"}))
+        for row in prof["top"]:
+            print("  " + json.dumps(row))
     print(f"card: {nvidia_smi()}")
-    print(json.dumps({"kernels": kernel_summary(rows, serving)}))
+    print(json.dumps({"kernels": kernel_summary(rows, serving)
+                      + [augment_summary(aug_rows, training)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

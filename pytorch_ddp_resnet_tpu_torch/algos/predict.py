@@ -25,7 +25,7 @@ import torch
 
 from pytorch_ddp_resnet_tpu_torch.convert import state_dict_from_jax
 from pytorch_ddp_resnet_tpu_torch.data.datasets import get_dataset
-from pytorch_ddp_resnet_tpu_torch.data.pipeline import build_test_transforms
+from pytorch_ddp_resnet_tpu_torch.data.pipeline import build_transforms
 from pytorch_ddp_resnet_tpu_torch.data.transforms import make_batch_augment_fn
 from pytorch_ddp_resnet_tpu_torch.models.fold import fold_batchnorm
 from pytorch_ddp_resnet_tpu_torch.models.quantize import (
@@ -34,10 +34,11 @@ from pytorch_ddp_resnet_tpu_torch.models.quantize import (
 )
 from pytorch_ddp_resnet_tpu_torch.models.resnet import ResNet
 from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import load_checkpoint
-from pytorch_ddp_resnet_tpu_torch.utils.types import Device, resolve_device
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+from pytorch_ddp_resnet_tpu_torch.utils.types import (
+    DTYPES,
+    Device,
+    resolve_device,
+)
 
 _REQUIRED_KEYS = ("dataset_cls_name", "architecture_spec", "preact",
                   "use_proj", "dropout_prob", "batch_size")
@@ -127,9 +128,12 @@ def load_predictor(config, batch_size: Optional[int] = None,
     dataset_args = config.get("dataset_args") or {}
     name, data_dir = config.get("dataset_cls_name"), config.get("data_dir")
     dataset_train = get_dataset(name, data_dir, train=True, **dataset_args)
-    transforms = build_test_transforms(
+    # the test pipeline's fittables come from the train run's checkpoint,
+    # else are fitted in memory; serving writes nothing into the run
+    transforms = build_transforms(
         dataset_train, config.get("data_aug_test"),
-        config.get("checkpoint_dir"), dev, verbose=verbose)
+        config.get("checkpoint_dir"), is_train=True, device=dev, save=False,
+        verbose=verbose)
     model = ResNet(
         architecture_spec=config.get("architecture_spec"),
         preact=config.get("preact"),
@@ -146,7 +150,7 @@ def load_predictor(config, batch_size: Optional[int] = None,
             print(f"Loaded classifier checkpoint at step {step}.")
     elif verbose:
         print("Warning: no checkpoint found; predicting with fresh init.")
-    pred = Predictor(model, make_batch_augment_fn(transforms),
+    pred = Predictor(model, make_batch_augment_fn(list(transforms.values())),
                      batch_size=batch_size or config.get("batch_size", 256),
                      fold_bn=fold_bn, device=dev)
     if quantize == "int8":

@@ -1,5 +1,5 @@
-"""Residual blocks, eval forward (counterpart of pytorch_ddp_resnet_tpu/
-models/blocks.py ``ResidualBlock``).
+"""Residual blocks, float forward in eval and train mode (counterpart of
+pytorch_ddp_resnet_tpu/models/blocks.py ``ResidualBlock._forward``).
 
 - ``preact=True``: ResNet-v2 ordering (norm -> relu -> dropout -> conv,
   identity add, no post-activation); ``preact=False``: v1 ordering
@@ -9,7 +9,12 @@ models/blocks.py ``ResidualBlock``).
   the subsample plus zero-padded channels.
 - The residual add is ``shortcut.to(main.dtype) + main``, as in JAX.
 
-Bottleneck blocks (spec token ``b``) are not ported yet.
+- In train mode sublayer i of the JAX ``_sublayers`` order (conv1, conv2,
+  norm1, norm2, drop1, drop2, proj) draws from ``key.fold_in(i)``.
+
+Bottleneck blocks (spec token ``b``) and the JAX package's kernel-path
+flags of ``ResidualBlock`` (fused, int8 and lane paths, remat) are not
+ported yet: ``check_unported_flags`` raises for each.
 """
 
 from __future__ import annotations
@@ -23,11 +28,32 @@ from pytorch_ddp_resnet_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     Dropout,
-    EvalOnly,
+    Layer,
 )
 
 BOTTLENECK_TODO = ("bottleneck blocks are not ported yet (ROADMAP.md Queue "
                    "2, bottleneck int8 serving on bneck_nv)")
+
+# config flag -> where ROADMAP.md schedules its port
+_UNPORTED_FLAGS = {
+    "int8_train": "slice 3, int8 FQT training",
+    "int8_train_bwd": "slice 3, int8 FQT training",
+    "fused_block": "Queue 2 item 7, a later slice",
+    "inkernel_dropout": "Queue 2 item 7, a later slice",
+    "lane_transition": "Queue 2 item 8, a later slice",
+    "pallas_conv": "Queue 2 item 9, a later slice",
+    "remat": "Queue 1 item 11, a later slice",
+}
+
+
+def check_unported_flags(**flags) -> None:
+    """Raise for any set kernel-path flag of the JAX ``ResidualBlock``: the
+    port runs the float layer path only and never ignores a flag."""
+    for name, value in flags.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}=True is not ported yet (ROADMAP.md "
+                f"{_UNPORTED_FLAGS[name]})")
 
 
 def subsample(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -43,7 +69,7 @@ def zero_pad_channels(x: torch.Tensor, extra: int) -> torch.Tensor:
     return F.pad(x, (0, extra))
 
 
-class ResidualBlock(EvalOnly):
+class ResidualBlock(Layer):
     """Basic two-conv residual block. Children in the JAX sublayer order:
     conv1, conv2, norm1, norm2, drop1, drop2 (+ proj)."""
 
@@ -107,14 +133,20 @@ class ResidualBlock(EvalOnly):
             return self.proj(i)
         return zero_pad_channels(i, self.out_channels - self.in_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        def sub(i):  # the JAX sublayer index: drop1 is 4, drop2 is 5
+            return None if key is None else key.fold_in(i)
+
         i = x
         if self.preact:
-            x = self.conv1(self.drop1(torch.clamp_min(self.norm1(x), 0)))
-            x = self.conv2(self.drop2(torch.clamp_min(self.norm2(x), 0)))
+            x = self.conv1(self.drop1(torch.clamp_min(self.norm1(x), 0),
+                                      sub(4)))
+            x = self.conv2(self.drop2(torch.clamp_min(self.norm2(x), 0),
+                                      sub(5)))
         else:
-            x = torch.clamp_min(self.norm1(self.conv1(self.drop1(x))), 0)
-            x = self.norm2(self.conv2(self.drop2(x)))
+            x = torch.clamp_min(self.norm1(self.conv1(self.drop1(x, sub(4)))),
+                                0)
+            x = self.norm2(self.conv2(self.drop2(x, sub(5))))
         h = self.shortcut(i).to(x.dtype) + x
         if not self.preact:
             h = torch.clamp_min(h, 0)

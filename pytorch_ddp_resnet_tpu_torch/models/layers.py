@@ -1,4 +1,4 @@
-"""Layer modules in NHWC layout, eval behaviour only (counterpart of
+"""Layer modules in NHWC layout (counterpart of
 pytorch_ddp_resnet_tpu/models/layers.py).
 
 Activations are NHWC tensors at every module's surface, as in the JAX
@@ -12,8 +12,21 @@ bias is added in ``compute_dtype``; BatchNorm evaluates
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 and rounds to
 ``compute_dtype``; the dense head returns f32 logits.
 
-Training behaviour (batch statistics, dropout masks) waits for the
-training slice: a module switched to ``train()`` raises.
+Modules start in eval mode (the serving default); ``train()`` switches on
+the training behaviour of the JAX layers' ``train=True``:
+
+- BatchNorm normalizes with the batch statistics, taken in f32 as
+  ``mean = E[x]`` and ``var = E[x^2] - mean^2`` (not torch's two-pass
+  variance), with the biased variance and eps 1e-5, and updates its
+  buffers in place: an EMA with momentum 0.1 of the mean and of the
+  unbiased variance (factor n/(n-1)), and ``count += 1``;
+- Dropout keeps an element iff its uint8 random bit is below
+  ``thresh = round((1 - rate) * 256)`` and scales the kept values by
+  ``1 / (thresh / 256)`` in the input's dtype.
+
+Every ``forward`` takes an optional ``key`` (utils/rng.py ``Key``); a
+``Sequential`` hands its i-th child ``key.fold_in(i)``, as the JAX
+``Sequential`` folds its rng, so each dropout layer draws its own bits.
 """
 
 from __future__ import annotations
@@ -26,9 +39,6 @@ from torch import nn
 
 from pytorch_ddp_resnet_tpu_torch.ops import initializers as init_lib
 
-TRAINING_TODO = ("training mode is not ported yet (ROADMAP.md Queue 1, the "
-                 "training slice)")
-
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -38,19 +48,15 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-class EvalOnly(nn.Module):
+class Layer(nn.Module):
     """Base of the port's layers: eval mode from construction on."""
 
     def __init__(self):
         super().__init__()
         self.train(False)
 
-    def _check_eval(self):
-        if self.training:
-            raise NotImplementedError(TRAINING_TODO)
 
-
-class Conv(EvalOnly):
+class Conv(Layer):
     """2-D convolution, NHWC in and out, weight ``[Cout, Cin, K, K]``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -86,7 +92,7 @@ class Conv(EvalOnly):
                 self.bias.copy_(init_lib.torch_default_uniform(
                     self.bias.shape, fan_in, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         cd = self.compute_dtype
         y = F.conv2d(nhwc_to_nchw(x.to(cd)), self.weight.to(cd),
                      stride=self.stride, padding=self.padding)
@@ -96,10 +102,10 @@ class Conv(EvalOnly):
         return y
 
 
-class BatchNorm(EvalOnly):
-    """Eval-mode BatchNorm over NHWC channels. Parameters ``scale`` and
-    ``bias``; buffers ``mean``, ``var`` and ``count`` (the JAX state,
-    one to one)."""
+class BatchNorm(Layer):
+    """BatchNorm over NHWC channels. Parameters ``scale`` and ``bias``;
+    buffers ``mean``, ``var`` and ``count`` (the JAX state, one to one),
+    updated in place in train mode."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5,
@@ -129,19 +135,31 @@ class BatchNorm(EvalOnly):
         inv = torch.rsqrt(self.var + self.eps) * self.scale
         return inv, self.bias - self.mean * inv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.to(torch.float32) - self.mean) * inv + self.bias
-        return y.to(self.compute_dtype)
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if not self.training:
+            inv = torch.rsqrt(self.var + self.eps) * self.scale
+            return ((xf - self.mean) * inv + self.bias).to(self.compute_dtype)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.square(xf).mean(dim=(0, 1, 2)) - torch.square(mean)
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        y = ((xf - mean) * inv + self.bias).to(self.compute_dtype)
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.mean.copy_((1 - m) * self.mean + m * mean)
+            self.var.copy_((1 - m) * self.var + m * unbiased)
+            self.count.add_(1)
+        return y
 
 
-class ReLU(EvalOnly):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+class ReLU(Layer):
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         return torch.clamp_min(x, 0)
 
 
-class MaxPool(EvalOnly):
+class MaxPool(Layer):
     """MaxPool2d(K, S, P); padding contributes -inf."""
 
     def __init__(self, kernel_size: int, stride: int, padding: int = 0):
@@ -149,13 +167,13 @@ class MaxPool(EvalOnly):
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
                                                        padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         y = F.max_pool2d(nhwc_to_nchw(x), self.kernel_size, self.stride,
                          self.padding)
         return nchw_to_nhwc(y)
 
 
-class AvgPool(EvalOnly):
+class AvgPool(Layer):
     """AvgPool2d(K, S, P), padding counted (count_include_pad), summed in
     f32 and returned in the input dtype."""
 
@@ -164,25 +182,42 @@ class AvgPool(EvalOnly):
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
                                                        padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         y = F.avg_pool2d(nhwc_to_nchw(x.to(torch.float32)), self.kernel_size,
                          self.stride, self.padding, count_include_pad=True)
         return nchw_to_nhwc(y).to(x.dtype)
 
 
-class Dropout(EvalOnly):
-    """Inverted dropout; the identity in eval."""
+class Dropout(Layer):
+    """Inverted dropout on 8 random bits per element; the identity in eval.
+    The bits come from ``key`` or are passed in as ``bits`` (uint8, the
+    shape of x)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        return x
+    def forward(self, x: torch.Tensor, key=None,
+                bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        thresh = int(round((1.0 - self.rate) * 256.0))  # keep iff bits <
+        if thresh <= 0:
+            return torch.zeros_like(x)
+        if thresh >= 256:
+            return x
+        if bits is None:
+            if key is None:
+                raise ValueError("Training with dropout requires a key.")
+            bits = key.bits(x.shape, x.device)
+        # thresh/256 has at most 8 significant bits, so it is exact in x's
+        # dtype; a tensor divisor (not a Python float, which the card turns
+        # into a reciprocal multiply) divides as the JAX x / keep_q does
+        keep_q = torch.tensor(thresh / 256.0, dtype=x.dtype, device=x.device)
+        return torch.where(bits < thresh, x / keep_q, torch.zeros_like(x))
 
 
-class Dense(EvalOnly):
+class Dense(Layer):
     """Flatten (H, W, C order) + Linear; weight ``[out, in]``; f32
     logits."""
 
@@ -203,14 +238,14 @@ class Dense(EvalOnly):
             self.bias.copy_(init_lib.torch_default_uniform(
                 self.bias.shape, fan_in, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         cd = self.compute_dtype
         xb = x.reshape(x.shape[0], -1).to(cd)
         y = F.linear(xb, self.weight.to(cd))
         return y.to(torch.float32) + self.bias.to(torch.float32)
 
 
-class Sequential(EvalOnly):
+class Sequential(Layer):
     """Ordered composite of named layers (the model spine and each residual
     stack). Names are the JAX pytree keys ('00_conv', 'block0', ...)."""
 
@@ -219,7 +254,7 @@ class Sequential(EvalOnly):
         for name, layer in layers:
             self.add_module(name, layer)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.children():
-            x = layer(x)
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        for i, layer in enumerate(self.children()):
+            x = layer(x, key=None if key is None else key.fold_in(i))
         return x

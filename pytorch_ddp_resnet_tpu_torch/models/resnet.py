@@ -30,6 +30,7 @@ from torch import nn
 from pytorch_ddp_resnet_tpu_torch.models.blocks import (
     BOTTLENECK_TODO,
     ResidualBlock,
+    check_unported_flags,
 )
 from pytorch_ddp_resnet_tpu_torch.models.layers import (
     AvgPool,
@@ -131,16 +132,30 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
 
 
 class ResNet(Sequential):
-    """A residual network built from an architecture spec string, eval
-    mode. Weights are drawn from ``generator`` (a CPU ``torch.Generator``;
-    ``None`` draws from torch's default one) and then moved to ``device``
-    (default the card: raises when there is none)."""
+    """A residual network built from an architecture spec string, in eval
+    mode until ``train()``. Weights are drawn from ``generator`` (a CPU
+    ``torch.Generator``; ``None`` draws from torch's default one) and then
+    moved to ``device`` (default the card: raises when there is none).
+
+    ``forward(x, key)``: x NHWC, f32 logits. In train mode with dropout a
+    ``Key`` is required (the JAX ``apply`` requires an rng); BatchNorm
+    buffers update in place. The keyword flags are the JAX constructor's
+    kernel-path switches; each raises NotImplementedError when set."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", *, remat: bool = False,
+                 pallas_conv: bool = False, fused_block: bool = False,
+                 int8_train: bool = False, int8_train_bwd: bool = False,
+                 inkernel_dropout: bool = False,
+                 lane_transition: bool = False):
+        check_unported_flags(
+            int8_train=int8_train, int8_train_bwd=int8_train_bwd,
+            fused_block=fused_block, inkernel_dropout=inkernel_dropout,
+            lane_transition=lane_transition, pallas_conv=pallas_conv,
+            remat=remat)
         dev = resolve_device(device)
         super().__init__(parse_spec(architecture_spec, preact, use_proj,
                                     dropout_prob, compute_dtype))
@@ -157,6 +172,11 @@ class ResNet(Sequential):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        if self.training and self.dropout_prob > 0.0 and key is None:
+            raise ValueError("Training with dropout requires a key.")
+        return super().forward(x, key)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

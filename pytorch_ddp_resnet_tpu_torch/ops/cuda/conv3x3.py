@@ -31,6 +31,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
+    check_rc,
+    on_cpu,
+    require_cuda,
+)
+
 launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
 
@@ -159,41 +165,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _require_cuda(name: str, tensors, dtypes) -> None:
-    dev = tensors[0].device
-    for t, dt in zip(tensors, dtypes):
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != dt:
-            raise ValueError(f"{name}: expected {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
-
-
-def _check_rc(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{rc}")
-
-
-def _on_cpu(x) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return False
-
-
 def conv3x3_bf16(x_cs, w_packed, *, h: int, w_img: int) -> torch.Tensor:
     """Stride-1 SAME 3x3 conv, x [Cin, N] x w [Cout, 9*Cin] -> [Cout, N].
     On the card: bf16 only, Cin a multiple of 32."""
     cin, cout, n = _shapes(x_cs, w_packed, h, w_img)
-    if _on_cpu(x_cs):
+    if on_cpu(x_cs):
         return conv3x3_bf16_plain(x_cs, w_packed, h=h, w_img=w_img)
     name = "conv3x3_bf16"
-    _require_cuda(name, [x_cs, w_packed], [torch.bfloat16] * 2)
+    require_cuda(name, [x_cs, w_packed], [torch.bfloat16] * 2)
     if cin % 32:
         raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
     out = torch.empty((cout, n), dtype=torch.bfloat16, device=x_cs.device)
@@ -201,7 +180,7 @@ def conv3x3_bf16(x_cs, w_packed, *, h: int, w_img: int) -> torch.Tensor:
     rc = _library().conv3x3_bf16_launch(
         x_cs.data_ptr(), w_packed.data_ptr(), out.data_ptr(), cin, cout, n,
         h, w_img, stream)
-    _check_rc(name, rc)
+    check_rc(name, rc)
     launches[name] += 1
     launch_shapes[(name, cin, cout, n, "bf16")] += 1
     return out
@@ -233,7 +212,7 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
     cin, cout, n = _shapes(x_q, w_q, h, w_img)
     if dual is not None and inv_out_scale is not None:
         raise ValueError("dual output requires the bf16-carrier mode")
-    if _on_cpu(x_q):
+    if on_cpu(x_q):
         return conv3x3_int8_requant_plain(
             x_q, w_q, scale, shift, res, dual, h=h, w_img=w_img, relu=relu,
             inv_out_scale=inv_out_scale)
@@ -257,7 +236,7 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
         sb, tb = (v.to(f32).contiguous() for v in dual)
         tensors += [sb, tb]
         dtypes += [f32, f32]
-    _require_cuda(name, tensors, dtypes)
+    require_cuda(name, tensors, dtypes)
     out_int8 = inv_out_scale is not None
     out = torch.empty((cout, n), device=x_q.device,
                       dtype=torch.int8 if out_int8 else torch.bfloat16)
@@ -273,7 +252,7 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
         ptr(res), ptr(sb), ptr(tb), out.data_ptr(), ptr(out2), cin, cout, n,
         h, w_img, int(relu), int(out_int8),
         float(inv_out_scale) if out_int8 else 0.0, stream)
-    _check_rc(name, rc)
+    check_rc(name, rc)
     launches[name] += 1
     launch_shapes[(name, cin, cout, n,
                    _requant_mode(res, dual, inv_out_scale))] += 1

@@ -1,5 +1,7 @@
-"""Checkpoint reading (counterpart of pytorch_ddp_resnet_tpu/utils/
-checkpoint.py, read side only; writing waits for the training slice).
+"""Checkpoint files (counterpart of pytorch_ddp_resnet_tpu/utils/
+checkpoint.py: reading, and the single-file write that fitted transforms
+use; manifests, retention GC and the async writer wait for ROADMAP.md
+Queue 1 item 4).
 
 The JAX package writes one ``{kind}_{steps}.ckpt`` per kind and step in a
 flat checkpoint directory: an ``.npz`` of the flattened pytree with
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -66,3 +68,26 @@ def load_checkpoint(checkpoint_dir: str, kind: str,
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     return unflatten(flat), steps
+
+
+def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[str, np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield "/".join(prefix + (str(k),)), np.asarray(v)
+
+
+def save_checkpoint(checkpoint_dir: str, kind: str, state: Dict[str, Any],
+                    steps: int) -> str:
+    """Write ``{kind}_{steps}.ckpt``: an ``.npz`` of the nested dict with
+    '/'-joined keys, the file the JAX package writes and reads, written to a
+    temporary name and renamed into place."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = os.path.join(checkpoint_dir, format_name(kind, steps))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:  # a handle: savez would append .npz
+        np.savez(f, **dict(_flatten(state)))
+    os.replace(tmp, path)
+    return path

@@ -9,6 +9,8 @@ import torch
 StateDict = Dict[str, torch.Tensor]
 PyTree = Any                     # nested dict of numpy arrays (JAX side)
 Device = Union[str, torch.device]
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}  # the config's compute_dtype names
 
 
 def resolve_device(device: Device) -> torch.device:

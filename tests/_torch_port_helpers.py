@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: build a JAX model with non-trivial BatchNorm statistics and carry
-its weights into the port's model."""
+its weights into the port's model, and hand the port the JAX package's
+random draws."""
 
 import jax
 import jax.numpy as jnp
@@ -54,3 +55,32 @@ def port_model(spec, preact, use_proj, params, state, dtype="bfloat16"):
 def images(n, hw=8, seed=1):
     return np.random.default_rng(seed).standard_normal(
         (n, hw, hw, 3)).astype(np.float32)
+
+
+class JaxKey:
+    """Stands in for the port's ``Key`` (utils/rng.py) and answers with the
+    JAX package's draws: ``fold_in`` and ``split`` follow the JAX key
+    chain, and each draw is the ``jax.random`` call the JAX code makes at
+    that point. So the port, given ``JaxKey(k)`` where JAX was given ``k``,
+    sees the same dropout bits, crop corners and flips."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def fold_in(self, data):
+        return JaxKey(jax.random.fold_in(self.key, data))
+
+    def split(self, num=2):
+        return tuple(JaxKey(k) for k in jax.random.split(self.key, num))
+
+    def bits(self, shape, device):
+        return torch.from_numpy(np.array(jax.random.bits(
+            self.key, tuple(shape), jnp.uint8))).to(device)
+
+    def randint(self, shape, low, high, device):
+        return torch.from_numpy(np.array(jax.random.randint(
+            self.key, tuple(shape), low, high), np.int32)).to(device)
+
+    def bernoulli(self, p, shape, device):
+        return torch.from_numpy(np.array(jax.random.bernoulli(
+            self.key, p, tuple(shape)))).to(device)

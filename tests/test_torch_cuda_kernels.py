@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py): each
-kernel against its plain PyTorch version on the same CUDA tensors.
+"""Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py and
+ops/cuda/augment.py): each kernel against its plain PyTorch version on the
+same CUDA tensors.
 
 Marked ``cuda``; without a card every test skips (decided in the fixture,
 never at import). Run them on the machine with the card (no JAX there, so
@@ -13,14 +14,17 @@ agree exactly except where a value lands on a rounding tie after a
 different float contraction (allowed: 1 level on <= 0.1% of elements);
 the bf16 conv sums in f32 in another order than the float64 plain
 version, so outputs may differ by 1 bf16 ulp (2^-8 relative) on a small
-share of elements.
+share of elements. The augment kernel rounds exactly where its plain
+version does (one FMA, one multiply, one bf16 rounding): bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment as aug
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +106,55 @@ def test_cuda_tensor_never_falls_back(dev):
     w = torch.zeros((16, 9 * 16), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiple of 32"):
         k.conv3x3_bf16(x, w, h=8, w_img=8)
+
+
+def _augment_inputs(dev, b, n=600, hw=32, c=3, pad=4, crop=32, seed=0):
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, c),
+                                         dtype=np.uint8)).to(dev)
+    corner = hw + 2 * pad - crop + 1
+    draws = [rng.integers(0, n, b), rng.integers(0, corner, b),
+             rng.integers(0, corner, b), rng.integers(0, 2, b)]
+    idx, top, left, flip = (torch.from_numpy(d.astype(np.int32)).to(dev)
+                            for d in draws)
+    mean = torch.from_numpy(rng.uniform(0.3, 0.7, (hw, hw, c)).astype(
+        np.float32)).to(dev)
+    std = rng.uniform(0.2, 0.3, (hw, hw, c)).astype(np.float32)
+    inv_std = torch.from_numpy(np.float32(1.0) / std).to(dev)
+    return data, idx, top, left, flip, mean, inv_std
+
+
+@pytest.mark.parametrize("b", [128, 512])
+@pytest.mark.parametrize("mirror", [False, True])
+@pytest.mark.parametrize("whiten", [False, True])
+def test_augment_kernel_matches_plain(dev, b, mirror, whiten):
+    data, idx, top, left, flip, mean, inv_std = _augment_inputs(dev, b)
+    if not whiten:
+        mean, inv_std = torch.zeros_like(mean), torch.ones_like(inv_std)
+    kw = dict(pad=4, crop=32, mirror=mirror)
+    before = aug.launches["augment_batch"]
+    got = aug.augment_batch(data, idx, top, left, flip, mean, inv_std, **kw)
+    ref = aug.augment_batch_plain(data, idx, top, left, flip, mean, inv_std,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert aug.launches["augment_batch"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 32, 32, 3)
+    assert torch.equal(got, ref)
+
+
+def test_fused_augment_draws_on_the_card(dev):
+    data, *_ = _augment_inputs(dev, 8)
+    std = np.full((32, 32, 3), 0.25, np.float32)
+    fused = aug.make_pallas_augment_fn(data, np.zeros_like(std), std, 0.5, 4,
+                                       28, True, device=dev)
+    idx = torch.arange(64, device=dev, dtype=torch.int32)
+    got = fused(idx, Key(3))
+    assert torch.equal(got, fused(idx, Key(3), fn=aug.augment_batch_plain))
+    assert not torch.equal(got, fused(idx, Key(4)))
+
+
+def test_augment_cuda_tensor_never_falls_back(dev):
+    data, idx, top, left, flip, mean, inv_std = _augment_inputs(dev, 8)
+    with pytest.raises(ValueError, match="int32"):
+        aug.augment_batch(data, idx.long(), top, left, flip, mean, inv_std,
+                          pad=4, crop=32, mirror=True)

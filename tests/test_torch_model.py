@@ -133,7 +133,14 @@ def test_state_dict_keys_are_jax_key_paths():
 
 
 def test_modules_are_eval_only():
+    """Modules start in eval mode (the serving default) and only ``train()``
+    switches on batch statistics."""
     tm = ResNet(*NETS[0], 0.0, device="cpu")
-    tm.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        tm(torch.zeros(1, 8, 8, 3))
+    assert not any(m.training for m in tm.modules())
+    x = torch.from_numpy(images(2))
+    with torch.no_grad():
+        y_eval = tm(x)
+        y_train = tm.train()(x)
+    assert not torch.equal(y_eval, y_train)
+    assert all(int(b) == 1 for n, b in tm.named_buffers()
+               if n.endswith("count"))

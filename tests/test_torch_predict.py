@@ -32,7 +32,7 @@ from pytorch_ddp_resnet_tpu_torch.algos.predict import (
     load_predictor,
 )
 from pytorch_ddp_resnet_tpu_torch.data.datasets import get_dataset
-from pytorch_ddp_resnet_tpu_torch.data.pipeline import build_test_transforms
+from pytorch_ddp_resnet_tpu_torch.data.pipeline import build_transforms
 from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import load_checkpoint
 from pytorch_ddp_resnet_tpu_torch.utils.config import get_config
 
@@ -131,14 +131,16 @@ def test_in_memory_fit_matches_the_jax_fit(run_dir, tmp_path):
     config = _port_config(run_dir)
     train = get_dataset("Synthetic", None, train=True,
                         **CONFIG["dataset_args"])
-    loaded = build_test_transforms(train, CONFIG["data_aug_test"],
-                                   config["checkpoint_dir"],
-                                   torch.device("cpu"))
-    fitted = build_test_transforms(train, CONFIG["data_aug_test"],
-                                   str(tmp_path), torch.device("cpu"))
+    loaded = build_transforms(train, CONFIG["data_aug_test"],
+                              config["checkpoint_dir"], is_train=True,
+                              save=False)
+    fitted = build_transforms(train, CONFIG["data_aug_test"], str(tmp_path),
+                              is_train=True, save=False)
+    assert not any(tmp_path.iterdir())  # serving writes nothing
+    name = "StandardizeWhiteningTransform"
     for attr in ("mean", "stddev"):
-        np.testing.assert_allclose(getattr(fitted[1], attr).numpy(),
-                                   getattr(loaded[1], attr).numpy(),
+        np.testing.assert_allclose(getattr(fitted[name], attr).numpy(),
+                                   getattr(loaded[name], attr).numpy(),
                                    rtol=1e-5, atol=1e-6)
 
 
