@@ -37,7 +37,29 @@ Phases, each fatal on failure:
    the same draws. Prints the step time and img/s after warm-up, the
    augment kernel's share of the step, and a torch.profiler breakdown of
    three more steps.
-6. Print one JSON line of per-kernel numbers, then the result line.
+6. Int8 FQT kernels: at every WRN-28-10 stage shape (batch 128) hold the
+   fused block-half kernels (ops/cuda/csrc/fused_block.cu) against their
+   plain versions on the same CUDA tensors: the forward in all four
+   (residual, BatchNorm sums) modes, the backward's shared quantization
+   and dgrad and the wgrad with and without stats cotangents; and the
+   stem kernels (ops/cuda/csrc/stem.cu) at 3 -> 160 channels, 32x32.
+   Int8 codes, group absmaxes, bf16 outputs and the weight gradient must
+   be equal, f32 sums over positions within 1e-5 of their largest value.
+   Each is timed beside its plain version and cuDNN's bf16 forward, input
+   gradient and weight gradient (channels-last) at the same shape.
+7. Training, the third main path: the recipe
+   models_dir/wrn-28-10-dropout_synthspectral-hard-int8/config.yaml (int8
+   fully quantized training) plus ``use_pallas_augment: True``, through
+   ``setup(config)`` as in phase 5. With the launch counts zeroed just
+   before, each step must launch the stem forward and weight gradient
+   once, the fused half's forward, backward quantization, dgrad and wgrad
+   22 times each (FQT_PER_STEP), the augment kernel once and no serving
+   kernel; losses finite, every parameter changed, every BatchNorm count
+   equal to the steps. The first fused half of the first step, on its live
+   inputs and cotangents, must reproduce its output and equal its plain
+   versions. The first step's halves, counted by (width, residual,
+   BatchNorm sums), weigh phase 6's per-call times into per-step figures.
+8. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -56,6 +78,9 @@ WRN_CONFIG = os.path.join(REPO, "models_dir", "wrn-28-10-dropout_cifar10",
 TRAIN_CONFIG = os.path.join(REPO, "models_dir",
                             "wrn-28-10-dropout_synthspectral-hard",
                             "config.yaml")
+FQT_CONFIG = os.path.join(REPO, "models_dir",
+                          "wrn-28-10-dropout_synthspectral-hard-int8",
+                          "config.yaml")
 BATCH = 128
 TRAIN_STEPS, WARM_STEPS, PROFILE_STEPS = 10, 3, 3
 AUG_KEYS = ("b", "mirror", "whiten", "ms", "call_ms", "plain_ms",
@@ -64,11 +89,29 @@ AUG_KEYS = ("b", "mirror", "whiten", "ms", "call_ms", "plain_ms",
 STAGES = [(160, 32, 32), (320, 16, 16), (640, 8, 8)]  # (C, H, W)
 SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 AUG_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/augment.cu"
-REPLACES = {"conv3x3_bf16": "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:185",
-            "conv3x3_int8_requant":
-                "pytorch_ddp_resnet_tpu/ops/pallas/conv.py:314",
-            "augment_batch":
-                "pytorch_ddp_resnet_tpu/ops/pallas/augment.py:156"}
+FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
+STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
+_PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
+REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
+            "conv3x3_int8_requant": _PALLAS + "conv.py:314",
+            "augment_batch": _PALLAS + "augment.py:156",
+            "stem_fwd": _PALLAS + "stem.py:119",
+            "stem_wgrad": _PALLAS + "stem.py:149",
+            "fused_half_fwd": _PALLAS + "fused_block.py:380",
+            "fused_half_dgrad": _PALLAS + "fused_block.py:588, "
+                                + _PALLAS + "fused_block.py:992",
+            "fused_half_wgrad": _PALLAS + "fused_block.py:763, "
+                                + _PALLAS + "fused_block.py:992"}
+# launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
+# emitting BatchNorm sums (conv1 of the 10 identity blocks)
+FQT_PER_STEP = {
+    "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
+    "fused_half_fwd.amax": 22, "fused_half_fwd.quant": 22,
+    "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
+    "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
+    "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
+    "fused_half_wgrad": 22, "fused_half_wgrad.sum": 22}
+F32_SUMS = ("ysum", "yssq", "ds", "dt", "db", "dw_stem")
 # dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
 # the tensor cores), NVIDIA data sheets
 PEAKS = {"SXM": (989e12, 1979e12, 3.35e12, 67e12),
@@ -135,6 +178,30 @@ def device_ms(fn, reps: int):
         torch.cuda.synchronize()
     total = sum(_dev_us(e) for e in _cuda_events(prof))
     return total / 1e3 / reps if total else None
+
+
+def port_modules():
+    """The port's kernel modules, each with its own launch counter."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import (
+        augment,
+        conv3x3,
+        fused_block,
+        stem,
+    )
+
+    return augment, conv3x3, fused_block, stem
+
+
+def reset_launches() -> None:
+    for mod in port_modules():
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in port_modules():
+        out.update({k: v for k, v in mod.launches.items() if v})
+    return out
 
 
 def bf16_ulp(ref):
@@ -383,7 +450,7 @@ def serving_phase(workdir):
     n_calib = -(-len(calib) // BATCH)
 
     # the main path, with the launch counts zeroed just before
-    conv3x3.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     fp = load_predictor(config)
     fl = [fp.logits(r) for r in requests]
@@ -391,10 +458,12 @@ def serving_phase(workdir):
     ql = [qp.logits(r) for r in requests]
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(conv3x3.launches)
+    launches = all_launches()
     shapes = dict(conv3x3.launch_shapes)
 
     assert qp.n_quantized == 22, qp.n_quantized
+    assert set(launches) == {"conv3x3_bf16", "conv3x3_int8_requant"}, \
+        launches
     assert launches.get("conv3x3_bf16") == 22 * n_calib, launches
     assert launches.get("conv3x3_int8_requant") == 22 * n_serve, launches
     for a, b, r in zip(fl, ql, requests):
@@ -444,6 +513,10 @@ def serving_phase(workdir):
 # kernel-name patterns of the train step's kinds of device work
 KERNEL_KINDS = [
     ("augment", ("augment",)),
+    ("stem (port)", ("stem_",)),
+    ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
+                                "quant_kernel", "wgrad_kernel",
+                                "partial_sum")),
     ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm")),
     ("matmul", ("gemm", "cublas")),
     ("reduction", ("reduce_kernel",)),
@@ -475,7 +548,12 @@ def _profile_steps(run_steps, steps: int):
                      if any(p in e.key for p in pats)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + _dev_us(e) / 1e3 / steps
     top = sorted(events, key=lambda e: -_dev_us(e))[:12]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
     return dict(
+        host_top=[dict(op=e.key[:60], self_ms=e.self_cpu_time_total / 1e3
+                       / steps, calls=e.count / steps) for e in host],
         steps=steps, wall_ms_per_step=wall_ms / steps,
         device_ms_per_step=dev_ms / steps, busy_share=dev_ms / wall_ms,
         kernels_per_step=sum(e.count for e in events) / steps,
@@ -485,18 +563,25 @@ def _profile_steps(run_steps, steps: int):
              for e in top])
 
 
-def training_phase(workdir, aug_rows):
+def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
+                   run_name="wrn-28-10-train", per_step=None,
+                   first_step=None):
+    """Train the full-width recipe for TRAIN_STEPS steps through setup and
+    the train step. ``per_step``: the launches each step must make (default
+    the augment kernel only); ``first_step``: a context manager wrapped
+    around the first step (phase 7 records a fused half there)."""
+    import contextlib
     import math
 
     import torch
 
     from pytorch_ddp_resnet_tpu_torch.algos.steps import make_train_step
     from pytorch_ddp_resnet_tpu_torch.algos.train import setup
-    from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment, conv3x3
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment
     from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
-    config = write_run(workdir, "wrn-28-10-train", TRAIN_CONFIG,
-                       use_pallas_augment=True)
+    per_step = per_step or {"augment_batch": 1}
+    config = write_run(workdir, run_name, recipe, use_pallas_augment=True)
     assert config["batch_size"] == BATCH
 
     t0 = time.perf_counter()
@@ -516,13 +601,15 @@ def training_phase(workdir, aug_rows):
         0, budget=TRAIN_STEPS + PROFILE_STEPS)]
     lr = ls["scheduler"].get_lr()
     before = {k: v.detach().clone() for k, v in ts["params"].items()}
+    torch.cuda.reset_peak_memory_stats()
 
     # the main path, with the launch counts zeroed just before
-    conv3x3.reset_launches()
-    augment.reset_launches()
+    reset_launches()
     metrics = []
     for gs in range(WARM_STEPS):
-        ts, m = step(ts, feeds[gs], lr, root.fold_in(gs))
+        with (first_step if gs == 0 and first_step is not None
+              else contextlib.nullcontext()):
+            ts, m = step(ts, feeds[gs], lr, root.fold_in(gs))
         metrics.append(m)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -531,10 +618,12 @@ def training_phase(workdir, aug_rows):
         metrics.append(m)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
-    launches = {**conv3x3.launches, **augment.launches}
+    launches = all_launches()
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = [float(m["loss"]) for m in metrics]
-    assert launches == {"augment_batch": TRAIN_STEPS}, launches
+    assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
+        launches
     assert all(math.isfinite(v) for v in losses), losses
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), f"{k} did not change"
@@ -562,8 +651,266 @@ def training_phase(workdir, aug_rows):
         launches=launches, steps=TRAIN_STEPS, losses=losses, lr=lr,
         setup_s=setup_s, step_ms=step_ms, img_per_s=BATCH / step_ms * 1e3,
         augment_kernel_ms=aug_ms, augment_share_of_step=aug_ms / step_ms,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        profile=profile)
+        peak_mem_gib=peak_mem, profile=profile)
+
+
+# --- phases 6 and 7: int8 fully quantized training ------------------------------
+
+def _half_fwd(fb, x, wq, ws, scale, shift, bits, res, thresh, tile, h, w,
+              want_stats, plain):
+    """The fused half's forward through its kernels or plain versions."""
+    quant, conv = ((fb.fwd_quantize_plain, fb.fwd_conv_plain) if plain
+                   else (fb.fwd_quantize, fb.fwd_conv))
+    d_q, amax = quant(x, scale, shift, bits, thresh=thresh, tile=tile)
+    y, ysum, yssq = conv(d_q, amax, wq, ws, res, tile=tile, h=h, w_img=w,
+                         want_stats=want_stats)
+    return dict(d_q=d_q, amax=amax, y=y, ysum=ysum, yssq=yssq)
+
+
+def _half_dgrad(fb, dy, y, dysum, dyssq, x, wdg, wsin, scale, shift, bits,
+                thresh, tile, h, w, emit_res, plain):
+    """The shared backward quantization and the input gradient."""
+    quant, dgrad = ((fb.bwd_quantize_plain, fb.dgrad_conv_plain) if plain
+                    else (fb.bwd_quantize, fb.dgrad_conv))
+    g_q, g_amax, d_q, d_amax, dres = quant(
+        dy, y, dysum, dyssq, x, scale, shift, bits, thresh=thresh, tile=tile,
+        emit_res=emit_res)
+    dx, ds, dt = dgrad(g_q, g_amax, wdg, wsin, x, scale, shift, bits,
+                       thresh=thresh, tile=tile, h=h, w_img=w)
+    return dict(g_q=g_q, g_amax=g_amax, d_q=d_q, d_amax=d_amax, dres=dres,
+                dx=dx, ds=ds, dt=dt)
+
+
+def _half_wgrad(fb, ops, tile, h, w, plain):
+    fn = fb.wgrad_plain if plain else fb.wgrad
+    return dict(dw=fn(ops["g_q"], ops["g_amax"], ops["d_q"], ops["d_amax"],
+                      tile=tile, h=h, w_img=w))
+
+
+def _agree(got: dict, want: dict, what) -> float:
+    """Kernel outputs against the plain version's: equal, except f32 sums
+    over positions (1e-5 of the largest value). Returns the max abs
+    difference."""
+    import torch
+
+    err = 0.0
+    for k, ref in want.items():
+        out = got[k]
+        if ref is None:
+            assert out is None, (what, k)
+            continue
+        assert out.dtype == ref.dtype and out.shape == ref.shape, (what, k)
+        d = (out.float() - ref.float()).abs().max().item()
+        if k in F32_SUMS:
+            assert d <= 1e-5 * ref.float().abs().max().item(), (what, k, d)
+        else:
+            assert torch.equal(out, ref), (what, k, d)
+        err = max(err, d)
+    return err
+
+
+def fqt_kernel_phase(peaks):
+    """Rows per (kernel, shape, mode): max error against the plain version,
+    and the kernel / plain / cuDNN-bf16 / bound times of one call."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pack_weights
+
+    flops_bf16, ops_int8, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    def cudnn(c_in, c_out, h, w, k):
+        """cuDNN bf16 channels-last forward, input and weight gradient."""
+        x4 = randn(BATCH, c_in, h, w).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        w4 = randn(c_out, c_in, k, k).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        dy4 = randn(BATCH, c_out, h, w).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        p = k // 2
+        return (time_ms(lambda: F.conv2d(x4, w4, padding=p), 10),
+                time_ms(lambda: conv2d_input(x4.shape, w4, dy4, padding=p),
+                        10),
+                time_ms(lambda: conv2d_weight(x4, w4.shape, dy4, padding=p),
+                        10))
+
+    def row(name, c, h, w, mode, err, fn, plain_fn, lib, ops, byts,
+            ops_peak):
+        rows.append(dict(
+            name=name, c=c, h=h, w=w, n=BATCH * h * w, mode=mode,
+            max_abs_err=err, ms=time_ms(fn, 10), plain_ms=time_ms(plain_fn, 2),
+            library_ms=lib, ops_ms=ops / ops_peak * 1e3,
+            bytes_ms=byts / bw * 1e3))
+
+    for c, h, w in STAGES:
+        n = BATCH * h * w
+        x = randn(c, n).to(torch.bfloat16)
+        wt = randn(c, c, 3, 3, s=(9 * c) ** -0.5)
+        scale, shift = randn(c).abs() + 0.5, randn(c, s=0.3)
+        bits = torch.randint(0, 256, (c, n), device=dev, generator=g,
+                             dtype=torch.uint8)
+        thresh = fb.dropout_thresh(0.3)
+        res = randn(c, n).to(torch.bfloat16)
+        tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+        wq, ws = fb.quantize_pack_weights(wt)
+        wdg, wsin = fb.quantize_pack_weights_dgrad(wt)
+        lib_f, lib_d, lib_w = cudnn(c, c, h, w, 3)
+        macs = 9 * c * c * n
+        cn = c * n
+        for use_res, stats in ((False, True), (True, False), (False, False),
+                               (True, True)):
+            r = res if use_res else None
+            args = (x, wq, ws, scale, shift, bits, r, thresh, tile, h, w,
+                    stats)
+            err = _agree(_half_fwd(fb, *args, plain=False),
+                         _half_fwd(fb, *args, plain=True), ("fwd", c))
+            row("fused_half_fwd", c, h, w,
+                ("res" if use_res else "") + ("+stats" if stats else ""),
+                err, lambda: _half_fwd(fb, *args, plain=False),
+                lambda: _half_fwd(fb, *args, plain=True), lib_f, 2 * macs,
+                5 * cn + 36 * c * c + (2 * cn if use_res else 0), ops_int8)
+        y = _half_fwd(fb, x, wq, ws, scale, shift, bits, None, thresh, tile,
+                      h, w, True, plain=True)["y"]
+        dy = randn(c, n, s=1e-3).to(torch.bfloat16)
+        for ct in (True, False):
+            cts = ((y, randn(c, s=1e-4), randn(c, s=1e-4)) if ct
+                   else (None, None, None))
+            args = (dy, *cts, x, wdg, wsin, scale, shift, bits, thresh, btile,
+                    h, w, ct)
+            ops_p = _half_dgrad(fb, *args, plain=True)
+            err = _agree(_half_dgrad(fb, *args, plain=False), ops_p,
+                         ("dgrad", c, ct))
+            ins = 5 * cn + (2 * cn if ct else 0)  # dy, x, bits (+ y)
+            row("fused_half_dgrad", c, h, w, "stats" if ct else "", err,
+                lambda: _half_dgrad(fb, *args, plain=False),
+                lambda: _half_dgrad(fb, *args, plain=True), lib_d, 2 * macs,
+                ins + 2 * cn + 36 * c * c + (2 * cn if ct else 0), ops_int8)
+            wargs = (ops_p, btile, h, w)
+            err = _agree(_half_wgrad(fb, *wargs, plain=False),
+                         _half_wgrad(fb, *wargs, plain=True),
+                         ("wgrad", c, ct))
+            # the wgrad reads the int8 operands the dgrad row's
+            # quantization wrote (charged there once) and writes f32 dW
+            row("fused_half_wgrad", c, h, w, "stats" if ct else "", err,
+                lambda: _half_wgrad(fb, *wargs, plain=False),
+                lambda: _half_wgrad(fb, *wargs, plain=True), lib_w, 2 * macs,
+                2 * cn + 36 * c * c, ops_int8)
+        del x, bits, res, y, dy
+        torch.cuda.empty_cache()
+
+    # the stem: 3 -> 160 channels at 32x32
+    c_in, c, h, w = 3, 160, 32, 32
+    n = BATCH * h * w
+    x = randn(c_in, n).to(torch.bfloat16)
+    wp = pack_weights(randn(c, c_in, 3, 3, s=0.3).to(torch.bfloat16))
+    b = randn(c, s=0.1)
+    dy = randn(c, n).to(torch.bfloat16)
+    lib_f, _, lib_w = cudnn(c_in, c, h, w, 3)
+    ops = 2 * 9 * c_in * c * n
+    err = _agree({"y": st.stem_fwd(x, wp, b, h=h, w_img=w)},
+                 {"y": st.stem_fwd_plain(x, wp, b, h=h, w_img=w)}, "stem")
+    row("stem_fwd", c, h, w, "cin=3", err,
+        lambda: st.stem_fwd(x, wp, b, h=h, w_img=w),
+        lambda: st.stem_fwd_plain(x, wp, b, h=h, w_img=w), lib_f, ops,
+        2 * (c_in + c) * n + 2 * 27 * c, flops_bf16)
+    got, want = (st.stem_wgrad(dy, x, h=h, w_img=w),
+                 st.stem_wgrad_plain(dy, x, h=h, w_img=w))
+    err = _agree({"dw_stem": got[0], "db": got[1]},
+                 {"dw_stem": want[0], "db": want[1]}, "stem wgrad")
+    row("stem_wgrad", c, h, w, "cin=3", err,
+        lambda: st.stem_wgrad(dy, x, h=h, w_img=w),
+        lambda: st.stem_wgrad_plain(dy, x, h=h, w_img=w), lib_w, ops,
+        2 * (c_in + c) * n + 4 * 28 * c, flops_bf16)
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+class RecordFirstHalf:
+    """Around the first train step: count the step's fused halves by
+    (width, residual, BatchNorm sums), and record the first half's live
+    inputs and, through gradient hooks, its live cotangents."""
+
+    def __init__(self):
+        self.rec = {}
+        self.halves = {}
+
+    def __enter__(self):
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+
+        self.fb, self.orig = fb, fb.fused_half_int8
+        rec, orig, halves = self.rec, self.orig, self.halves
+
+        def recording(x_cs, w, scale, shift, bits=None, res=None, **kw):
+            out = orig(x_cs, w, scale, shift, bits, res, **kw)
+            mode = (x_cs.shape[0], res is not None, kw["want_stats"])
+            halves[mode] = halves.get(mode, 0) + 1
+            if not rec:
+                # copies: the optimizer updates the weight in place
+                rec.update(args=[None if t is None else t.detach().clone()
+                                 for t in (x_cs, w, scale, shift, bits,
+                                           res)], kw=kw,
+                           out=[None if t is None else t.detach().clone()
+                                for t in out])
+                for name, t in zip(("dy", "dysum", "dyssq"), out):
+                    if t is not None:
+                        t.register_hook(
+                            lambda g, name=name: rec.__setitem__(
+                                name, g.detach().clone()))
+            return out
+
+        fb.fused_half_int8 = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.fb.fused_half_int8 = self.orig
+        return False
+
+
+def live_half_check(rec):
+    """The recorded half, forward and backward, kernels against the plain
+    versions on the live tensors; the kernels also reproduce the live
+    output."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+
+    x, wt, scale, shift, bits, res = rec["args"]
+    kw = rec["kw"]
+    h, w, stats = kw["h"], kw["w_img"], kw["want_stats"]
+    thresh = fb.dropout_thresh(kw["dropout_rate"]) if bits is not None \
+        else None
+    c, n = x.shape
+    tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+    wq, ws = fb.quantize_pack_weights(wt)
+    args = (x, wq, ws, scale, shift, bits, res, thresh, tile, h, w, stats)
+    got = _half_fwd(fb, *args, plain=False)
+    assert torch.equal(got["y"], rec["out"][0])
+    err = _agree(got, _half_fwd(fb, *args, plain=True), "live fwd")
+    wdg, wsin = fb.quantize_pack_weights_dgrad(wt)
+    cts = ((rec["out"][0], rec["dysum"], rec["dyssq"]) if stats
+           else (None, None, None))
+    args = (rec["dy"].contiguous(), *cts, x, wdg, wsin, scale, shift, bits,
+            thresh, btile, h, w, stats and res is not None)
+    ops = _half_dgrad(fb, *args, plain=True)
+    err = max(err, _agree(_half_dgrad(fb, *args, plain=False), ops,
+                          "live dgrad"))
+    err = max(err, _agree(_half_wgrad(fb, ops, btile, h, w, plain=False),
+                          _half_wgrad(fb, ops, btile, h, w, plain=True),
+                          "live wgrad"))
+    return dict(c=c, n=n, h=h, w=w, want_stats=stats, max_abs_err=err,
+                g_amax=ops["g_amax"].tolist())
 
 
 def augment_summary(aug_rows, training):
@@ -621,6 +968,63 @@ def kernel_summary(rows, serving):
     return out
 
 
+def fqt_summary(rows, training, halves):
+    """One entry per FQT kernel: the int8 training run's launches and the
+    device time per train step: phase 6's per-call times summed over the
+    halves one step of the main path ran (``halves``: count per (width,
+    residual, BatchNorm sums), recorded by RecordFirstHalf)."""
+    def mode(name, res, stats):
+        if name == "fused_half_fwd":
+            return ("res" if res else "") + ("+stats" if stats else "")
+        return "stats" if stats else ""
+
+    out = []
+    for name in ("stem_fwd", "stem_wgrad", "fused_half_fwd",
+                 "fused_half_dgrad", "fused_half_wgrad"):
+        mine = [r for r in rows if r["name"] == name]
+        mix = [(mine[0], 1)] if name.startswith("stem") else [
+            (next(r for r in mine
+                  if r["c"] == c and r["mode"] == mode(name, res, stats)),
+             count)
+            for (c, res, stats), count in halves.items()]
+        tot = {k: sum(r[k] * cnt for r, cnt in mix)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "ops_ms", "bytes_ms")}
+        out.append(dict(
+            name=name, route="cuda",
+            source=STEM_SOURCE if name.startswith("stem") else FQT_SOURCE,
+            replaces=REPLACES[name], launches=training["launches"].get(
+                name, 0),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=tot["library_ms"],
+            per=f"training step of {BATCH} (ms per call summed over the "
+                "step's calls; launches over the run)",
+            stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    return out
+
+
+def print_training(label, training):
+    print(f"{label}: " + json.dumps(
+        {k: v for k, v in training.items() if k != "profile"}))
+    prof = training["profile"]
+    if prof is None:
+        print(f"{label} profile: not measured (no device time reported)")
+        return
+    print(f"{label} profile: " + json.dumps(
+        {k: v for k, v in prof.items() if k not in ("top", "host_top")}))
+    for row in prof["top"]:
+        print("  " + json.dumps(row))
+    print(f"{label} host ops by self time per step:")
+    for row in prof["host_top"]:
+        print("  " + json.dumps(row))
+
+
 def main() -> int:
     import torch
 
@@ -634,18 +1038,25 @@ def main() -> int:
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    build.build_all()
+    libs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in build.build_log("conv3x3").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name in libs:
+        log = build.build_log(name)
+        regs = [int(t.split()[0]) for t in log.split("Used ")[1:]
+                if t.split()[1].startswith("registers")]
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        print(f"  ptxas {name}: {len(regs)} kernels, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, "
+              f"{len(spills)} with spills")
 
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     rows = kernel_phase(peaks)
     aug_rows = augment_phase(peaks)
-    print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    for r in rows:
+    fqt_rows = fqt_kernel_phase(peaks)
+    print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in rows + fqt_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")}))
@@ -664,21 +1075,32 @@ def main() -> int:
         training = training_phase(workdir, aug_rows)
         print(f"training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        record = RecordFirstHalf()
+        fqt = training_phase(workdir, aug_rows, FQT_CONFIG,
+                             "wrn-28-10-int8-train", FQT_PER_STEP, record)
+        fqt["live_half"] = live_half_check(record.rec)
+        assert sum(record.halves.values()) == 22, record.halves
+        fqt["halves_per_step"] = [list(k) + [v] for k, v in
+                                  sorted(record.halves.items())]
+        print(f"int8 training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print("training: " + json.dumps(
-        {k: v for k, v in training.items() if k != "profile"}))
-    prof = training["profile"]
-    if prof is None:
-        print("training profile: not measured (no device time reported)")
-    else:
-        print("training profile: " + json.dumps(
-            {k: v for k, v in prof.items() if k != "top"}))
-        for row in prof["top"]:
-            print("  " + json.dumps(row))
+    print_training("training", training)
+    print_training("int8 training", fqt)
+    fqt_kernels = fqt_summary(fqt_rows, fqt, record.halves)
+    if fqt["profile"] is not None:
+        kinds = fqt["profile"]["device_ms_per_step_by_kind"]
+        profiled = (kinds.get("fused int8 half (port)", 0.0)
+                    + kinds.get("stem (port)", 0.0))
+        print("int8 training: port kernels per step, phase 6 per-call "
+              f"times summed {sum(k['ms'] for k in fqt_kernels)} ms, "
+              f"profiled {profiled} ms")
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"kernels": kernel_summary(rows, serving)
-                      + [augment_summary(aug_rows, training)]}))
+                      + [augment_summary(aug_rows, training)]
+                      + fqt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

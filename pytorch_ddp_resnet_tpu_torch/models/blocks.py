@@ -12,14 +12,32 @@ pytorch_ddp_resnet_tpu/models/blocks.py ``ResidualBlock._forward``).
 - In train mode sublayer i of the JAX ``_sublayers`` order (conv1, conv2,
   norm1, norm2, drop1, drop2, proj) draws from ``key.fold_in(i)``.
 
-Bottleneck blocks (spec token ``b``) and the JAX package's kernel-path
-flags of ``ResidualBlock`` (fused, int8 and lane paths, remat) are not
-ported yet: ``check_unported_flags`` raises for each.
+Int8 fully quantized training (``int8_train`` with ``int8_train_bwd``, the
+JAX config flags ``use_int8_train_bwd``): in train mode a preact block
+whose shapes pass the JAX gates runs in the channel-major lane layout
+[C, B*H*W] on ``fused_half_int8`` (ops/cuda/fused_block.py), one call per
+conv:
+
+- an identity block (``lane_eligible``/``apply_lane``): norm1 from the sums
+  of its input, conv1's half emitting norm2's sums, conv2's half adding
+  the residual;
+- a stage-transition block (``lane_entry_eligible``/``apply_to_lane``):
+  norm1/drop1/conv1/proj on the layer path, conv2's half at the output
+  geometry with the shortcut as its residual, emitting the lane layout.
+
+BatchNorm's batch statistics fold into the halves' (scale, shift) and its
+buffers update in place exactly as the layer does (``_fold_bn_batch_and_
+ema``). The dropout bits of a half are drawn over the lane shape (C, N).
+``models/layers.py`` ``Sequential`` threads the lane layout from block to
+block. Bottleneck blocks (spec token ``b``) and the other kernel-path
+flags of the JAX ``ResidualBlock`` (the QAT backward, fused bf16 blocks,
+in-kernel dropout, strided-lane transitions, remat) are not ported yet:
+``check_unported_flags`` raises for each.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,15 +47,19 @@ from pytorch_ddp_resnet_tpu_torch.models.layers import (
     Conv,
     Dropout,
     Layer,
+    from_lane,
+    to_lane,
 )
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
 
 BOTTLENECK_TODO = ("bottleneck blocks are not ported yet (ROADMAP.md Queue "
                    "2, bottleneck int8 serving on bneck_nv)")
 
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
-    "int8_train": "slice 3, int8 FQT training",
-    "int8_train_bwd": "slice 3, int8 FQT training",
+    "int8_train": ("Queue 2 item 7: int8_train without int8_train_bwd is "
+                   "the QAT mode, whose backward runs the bf16 kernels"),
     "fused_block": "Queue 2 item 7, a later slice",
     "inkernel_dropout": "Queue 2 item 7, a later slice",
     "lane_transition": "Queue 2 item 8, a later slice",
@@ -46,9 +68,12 @@ _UNPORTED_FLAGS = {
 }
 
 
-def check_unported_flags(**flags) -> None:
-    """Raise for any set kernel-path flag of the JAX ``ResidualBlock``: the
-    port runs the float layer path only and never ignores a flag."""
+def check_unported_flags(int8_train: bool = False,
+                        int8_train_bwd: bool = False, **flags) -> None:
+    """Raise for any set kernel-path flag of the JAX ``ResidualBlock`` that
+    the port lacks: it never ignores a flag. Of the int8 modes only fully
+    quantized training (int8_train with int8_train_bwd) is ported."""
+    flags["int8_train"] = int8_train and not int8_train_bwd
     for name, value in flags.items():
         if value:
             raise NotImplementedError(
@@ -69,6 +94,25 @@ def zero_pad_channels(x: torch.Tensor, extra: int) -> torch.Tensor:
     return F.pad(x, (0, extra))
 
 
+# the JAX sublayer order: sublayer i draws from key.fold_in(i)
+_SUB = {"conv1": 0, "conv2": 1, "norm1": 2, "norm2": 3, "drop1": 4,
+        "drop2": 5, "proj": 6}
+
+
+def _fold_bn_batch_and_ema(bn: BatchNorm, mean, var, n: int):
+    """Fold batch statistics into the (scale, shift) of a fused half
+    (differentiable) and update the BatchNorm's buffers in place as the
+    JAX helper of the same name does: biased variance to normalize, an EMA
+    of the mean and of the unbiased variance, count + 1."""
+    scale, shift = fb.fold_bn(bn.scale, bn.bias, mean, var, bn.eps)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.mean.copy_((1 - m) * bn.mean + m * mean)
+        bn.var.copy_((1 - m) * bn.var + m * var * (n / max(n - 1, 1)))
+        bn.count.add_(1)
+    return scale, shift
+
+
 class ResidualBlock(Layer):
     """Basic two-conv residual block. Children in the JAX sublayer order:
     conv1, conv2, norm1, norm2, drop1, drop2 (+ proj)."""
@@ -77,8 +121,13 @@ class ResidualBlock(Layer):
                  use_proj: bool, dropout_prob: float,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  out_channels_override: Optional[int] = None,
-                 stride_override: Optional[int] = None):
+                 stride_override: Optional[int] = None,
+                 int8_train: bool = False, int8_train_bwd: bool = False):
         super().__init__()
+        check_unported_flags(int8_train=int8_train,
+                             int8_train_bwd=int8_train_bwd)
+        self.int8_train = int8_train
+        self.int8_train_bwd = int8_train_bwd
         self.channels = channels
         self.downsample = downsample
         self.preact = preact
@@ -134,6 +183,14 @@ class ResidualBlock(Layer):
         return zero_pad_channels(i, self.out_channels - self.in_channels)
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        shape = tuple(x.shape)
+        if self.lane_eligible(shape, self.training):
+            y_cs = self._forward_lane(to_lane(x, self.compute_dtype), shape,
+                                      key)
+            return from_lane(y_cs, shape)
+        if self.lane_entry_eligible(shape, self.training):
+            return from_lane(*self._transition_lane(x, key))
+
         def sub(i):  # the JAX sublayer index: drop1 is 4, drop2 is 5
             return None if key is None else key.fold_in(i)
 
@@ -151,3 +208,126 @@ class ResidualBlock(Layer):
         if not self.preact:
             h = torch.clamp_min(h, 0)
         return h
+
+    # --- the int8 lane path ------------------------------------------------
+
+    def _fused_eligible(self, x_shape, train: bool) -> bool:
+        """Copy of the JAX gate: a train-mode preact identity block whose
+        shapes the JAX kernel tiles (channels % 32, whole images per
+        128-multiple lane tile)."""
+        if not (self.int8_train and self.preact and train
+                and not self.transforms_shortcut):
+            return False
+        if fb.dropout_thresh(self.dropout_prob) <= 0:
+            return False
+        b, h, w, c = x_shape
+        if c % 32 != 0:
+            return False
+        try:
+            pick_tile(h * w, b * h * w, c)
+        except ValueError:
+            return False
+        return True
+
+    def lane_eligible(self, x_shape, train: bool) -> bool:
+        """Sequential's lane protocol: True when this block runs in the
+        lane layout for ``x_shape``."""
+        return len(x_shape) == 4 and self._fused_eligible(x_shape, train)
+
+    def apply_lane(self, x_cs: torch.Tensor, x_shape, key=None):
+        """The block on an activation already in the lane layout."""
+        return self._forward_lane(x_cs, x_shape, key)
+
+    def lane_entry_eligible(self, x_shape, train: bool) -> bool:
+        """Copy of the JAX gate: a train-mode preact stage-transition block
+        whose conv2 the int8 half takes at the output geometry; it consumes
+        NHWC and emits the lane layout."""
+        if not (self.int8_train and self.preact and train
+                and self.transforms_shortcut):
+            return False
+        if fb.dropout_thresh(self.dropout_prob) <= 0 or len(x_shape) != 4:
+            return False
+        b, h, w, _ = x_shape
+        s, cout = self.stride, self.out_channels
+        oh, ow = (h - 1) // s + 1, (w - 1) // s + 1
+        if cout % 32 != 0:
+            return False
+        try:
+            pick_tile(oh * ow, b * oh * ow, cout)
+        except ValueError:
+            return False
+        return True
+
+    def apply_to_lane(self, x: torch.Tensor, key=None):
+        """Transition block, NHWC in, lane out: (y_cs, out_shape)."""
+        return self._transition_lane(x, key)
+
+    def _transition_lane(self, x: torch.Tensor, key):
+        def sub(name):
+            return None if key is None else key.fold_in(_SUB[name])
+
+        z = self.conv1(self.drop1(torch.clamp_min(self.norm1(x), 0),
+                                  sub("drop1")))
+        b, oh, ow, cout = z.shape
+        n = b * oh * ow
+        # norm2's batch statistics from conv1's output
+        zf = z.to(torch.float32)
+        mean = zf.mean(dim=(0, 1, 2))
+        var = torch.square(zf).mean(dim=(0, 1, 2)) - torch.square(mean)
+        s2, t2 = _fold_bn_batch_and_ema(self.norm2, mean, var, n)
+        cd = self.compute_dtype
+        y_cs, _, _ = self._run_half(
+            to_lane(z, cd), self.conv2.weight, s2, t2, self._drop_key(
+                sub("drop2")), to_lane(self.shortcut(x), cd), False, oh, ow,
+            cout)
+        return y_cs, (b, oh, ow, cout)
+
+    def _drop_key(self, key):
+        """The half's dropout key, or None when the rate keeps every
+        element."""
+        if fb.dropout_thresh(self.dropout_prob) >= 256:
+            return None
+        if key is None:
+            raise ValueError("Training with dropout requires a key.")
+        return key
+
+    def _forward_lane(self, x_cs: torch.Tensor, x_shape, key):
+        """The preact chain, both halves fused: norm1 from the sums of the
+        input, conv1's half emitting norm2's sums, conv2's half adding the
+        residual. Returns y [C, N]."""
+        b, h, w, c = x_shape
+        n = b * h * w
+
+        def fold_and_ema(bn, ssum, sssq):
+            mean = ssum / n
+            var = sssq / n - torch.square(mean)
+            return _fold_bn_batch_and_ema(bn, mean, var, n)
+
+        def drop_key(name):
+            return self._drop_key(None if key is None
+                                  else key.fold_in(_SUB[name]))
+
+        x_cs = x_cs.to(self.compute_dtype)
+        xf = x_cs.to(torch.float32)
+        s1, t1 = fold_and_ema(self.norm1, xf.sum(dim=1),
+                              torch.square(xf).sum(dim=1))
+        z_cs, zsum, zssq = self._run_half(
+            x_cs, self.conv1.weight, s1, t1, drop_key("drop1"), None, True,
+            h, w, c)
+        s2, t2 = fold_and_ema(self.norm2, zsum, zssq)
+        y_cs, _, _ = self._run_half(
+            z_cs, self.conv2.weight, s2, t2, drop_key("drop2"), x_cs, False,
+            h, w, c)
+        return y_cs
+
+    def _dropout_bits(self, key, c: int, n: int, device) -> torch.Tensor:
+        """A half's dropout bits: uint8 [c, n] over the lane shape."""
+        return key.bits((c, n), device)
+
+    def _run_half(self, x_in, w_conv, s, t, key, res, want_stats: bool,
+                  h: int, w: int, c: int):
+        bits = (self._dropout_bits(key, c, x_in.shape[1], x_in.device)
+                if key is not None else None)
+        return fb.fused_half_int8(
+            x_in, w_conv, s, t, bits, res, dropout_rate=self.dropout_prob,
+            h=h, w_img=w, want_stats=want_stats)

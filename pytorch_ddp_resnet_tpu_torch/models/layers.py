@@ -27,6 +27,15 @@ the training behaviour of the JAX layers' ``train=True``:
 Every ``forward`` takes an optional ``key`` (utils/rng.py ``Key``); a
 ``Sequential`` hands its i-th child ``key.fold_in(i)``, as the JAX
 ``Sequential`` folds its rng, so each dropout layer draws its own bits.
+
+The lane protocol of the int8 training path (JAX ``Sequential.
+_apply_loop``): in train mode a run of layers that take the channel-major
+lane layout [C, B*H*W] passes it from one to the next without an NHWC
+round trip. A layer joins a run through ``lane_eligible``/``apply_lane``
+(a fused residual block), starts one from NHWC through
+``lane_entry_eligible``/``apply_to_lane`` (the lane stem, a transition
+block), and a nested ``Sequential`` whose first block takes the lane
+layout continues the run; any other layer closes it back to NHWC.
 """
 
 from __future__ import annotations
@@ -38,6 +47,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_ddp_resnet_tpu_torch.ops import initializers as init_lib
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.stem import (
+    CIN_MAX,
+    stem_conv_lane,
+    stem_lane_tile,
+)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +60,19 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def to_lane(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """NHWC -> the lane layout [C, B*H*W] (image-major), in ``dtype``,
+    contiguous (the kernels take dense rows)."""
+    b, h, w, c = x.shape
+    return x.to(dtype).permute(3, 0, 1, 2).reshape(c, b * h * w).contiguous()
+
+
+def from_lane(x_cs: torch.Tensor, shape) -> torch.Tensor:
+    """The lane layout back to NHWC of ``shape`` (b, h, w, c)."""
+    b, h, w, c = shape
+    return x_cs.reshape(c, b, h, w).permute(1, 2, 3, 0)
 
 
 class Layer(nn.Module):
@@ -62,8 +89,12 @@ class Conv(Layer):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
                  kernel_init: str = "torch_default",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 lane_stem: bool = False):
         super().__init__()
+        # set by the spec parser for the stem of an int8-trained preact net:
+        # in train mode the conv then emits the lane layout (ops/cuda/stem.py)
+        self.lane_stem = lane_stem
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = kernel_size
@@ -100,6 +131,30 @@ class Conv(Layer):
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y
+
+    def lane_entry_eligible(self, x_shape, train: bool) -> bool:
+        """Copy of the JAX gate: the lane stem in train mode, a 3x3 stride-1
+        padding-1 conv with bias from at most 8 channels, whose geometry
+        the JAX picker tiles."""
+        if not (self.lane_stem and train and len(x_shape) == 4
+                and self.kernel_size == 3 and self.stride == 1
+                and self.padding == 1 and self.use_bias
+                and self.in_channels <= CIN_MAX
+                and self.out_channels % 16 == 0):
+            return False
+        b, h, w, _ = x_shape
+        try:
+            stem_lane_tile(h, w, b * h * w, self.out_channels)
+        except ValueError:
+            return False
+        return True
+
+    def apply_to_lane(self, x: torch.Tensor, key=None):
+        """NHWC in, lane layout out: (y_cs, out_shape)."""
+        b, h, w, _ = x.shape
+        y_cs = stem_conv_lane(to_lane(x, self.compute_dtype), self.weight,
+                              self.bias, h=h, w_img=w)
+        return y_cs, (b, h, w, self.out_channels)
 
 
 class BatchNorm(Layer):
@@ -255,6 +310,39 @@ class Sequential(Layer):
             self.add_module(name, layer)
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        x, lane = self._apply_loop(x, None, key)
+        return from_lane(*lane) if lane is not None else x
+
+    def _lane_accepts(self, x_shape, train: bool) -> bool:
+        """True when this (nested) Sequential can start from the lane
+        layout: its first layer is a lane-run block for ``x_shape``."""
+        first = next(iter(self.children()), None)
+        return (first is not None and hasattr(first, "apply_lane")
+                and first.lane_eligible(x_shape, train))
+
+    def _apply_loop(self, x, lane, key):
+        """Run the children; ``lane`` is an open run (x_cs, NHWC shape) or
+        None. Returns (x, lane), the run still open when the last child
+        left it open."""
+        train = self.training
         for i, layer in enumerate(self.children()):
-            x = layer(x, key=None if key is None else key.fold_in(i))
-        return x
+            k = None if key is None else key.fold_in(i)
+            shape = lane[1] if lane is not None else tuple(x.shape)
+            if (hasattr(layer, "apply_lane")
+                    and layer.lane_eligible(shape, train)):
+                if lane is None:
+                    lane = (to_lane(x, layer.compute_dtype), shape)
+                lane = (layer.apply_lane(lane[0], shape, key=k), shape)
+            elif (hasattr(layer, "apply_to_lane")
+                  and layer.lane_entry_eligible(shape, train)):
+                if lane is not None:
+                    x, lane = from_lane(*lane), None
+                lane = layer.apply_to_lane(x, key=k)
+            elif (isinstance(layer, Sequential) and lane is not None
+                  and layer._lane_accepts(shape, train)):
+                x, lane = layer._apply_loop(None, lane, k)
+            else:
+                if lane is not None:
+                    x, lane = from_lane(*lane), None
+                x = layer(x, key=k)
+        return x, lane

@@ -66,6 +66,7 @@ def extract_ints(token: str, num: int):
 def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                dropout_prob: float,
                compute_dtype: torch.dtype = torch.bfloat16,
+               int8_train: bool = False, int8_train_bwd: bool = False,
                ) -> List[Tuple[str, nn.Module]]:
     """Token list -> [(name, layer)], threading the channel count."""
     tokens = architecture_spec.split()
@@ -93,15 +94,21 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                 channels=cin if ell == 0 else cout,
                 downsample=downsample if ell == 0 else False,
                 preact=preact, use_proj=use_proj, dropout_prob=dropout_prob,
-                compute_dtype=cd, **(first if ell == 0 else rest))))
+                compute_dtype=cd, int8_train=int8_train,
+                int8_train_bwd=int8_train_bwd,
+                **(first if ell == 0 else rest))))
         channels = cout
         return Sequential(blocks)
 
     for n, tok in enumerate(tokens):
         if tok.startswith("c"):
             i, o, k, s, p = extract_ints(tok, 5)
+            # the int8 trunk runs in the lane layout: an eligible stem
+            # emits it directly (ops/cuda/stem.py)
             layer = Conv(i, o, k, stride=s, padding=p, use_bias=True,
-                         kernel_init="kaiming_normal", compute_dtype=cd)
+                         kernel_init="kaiming_normal", compute_dtype=cd,
+                         lane_stem=(preact and int8_train and k == 3
+                                    and s == 1 and p == 1))
             channels = o
             name = f"{n:02d}_conv"
         elif tok.startswith("mp"):
@@ -140,7 +147,9 @@ class ResNet(Sequential):
     ``forward(x, key)``: x NHWC, f32 logits. In train mode with dropout a
     ``Key`` is required (the JAX ``apply`` requires an rng); BatchNorm
     buffers update in place. The keyword flags are the JAX constructor's
-    kernel-path switches; each raises NotImplementedError when set."""
+    kernel-path switches: ``int8_train`` with ``int8_train_bwd`` trains the
+    preact trunk in int8 on the fused kernels (models/blocks.py); every
+    other set flag, and ``int8_train`` alone, raises NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,
@@ -158,12 +167,16 @@ class ResNet(Sequential):
             remat=remat)
         dev = resolve_device(device)
         super().__init__(parse_spec(architecture_spec, preact, use_proj,
-                                    dropout_prob, compute_dtype))
+                                    dropout_prob, compute_dtype,
+                                    int8_train=int8_train,
+                                    int8_train_bwd=int8_train_bwd))
         self.architecture_spec = architecture_spec
         self.preact = preact
         self.use_proj = use_proj
         self.dropout_prob = dropout_prob
         self.compute_dtype = compute_dtype
+        self.int8_train = int8_train
+        self.int8_train_bwd = int8_train_bwd
         self.reset_parameters(generator)
         self.to(dev)
 

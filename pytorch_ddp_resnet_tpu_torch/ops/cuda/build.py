@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 
 Builds happen at first use, into ``_build/`` beside this file (listed in
 ``.gitignore``), from the sources in the checkout only. A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one
+name carries a hash of its source, of the shared headers ``csrc/*.cuh``
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 """
 
@@ -45,9 +46,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

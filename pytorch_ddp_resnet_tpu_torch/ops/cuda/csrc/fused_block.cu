@@ -1,0 +1,687 @@
+// Fused preact block-half with an int8 conv core and a fully quantized
+// backward, in the channel-major layout [C, B*H*W], written for Hopper
+// (sm_90a) and bound to Python through a plain C interface
+// (ops/cuda/fused_block.py loads this file's library with ctypes).
+//
+// What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/fused_block.py,
+// fused_half_int8 with quant_bwd=True):
+//   fwd_amax, fwd_quant, fwd_conv   <- _fwd_call -> _fwd_kernel (quant)
+//   bwd_amax, bwd_quant             <- the cotangent fold and per-tile
+//                                      quantization that _bwd_kernel,
+//                                      _dgrad_kernel and _wgrad_kernel
+//                                      each begin with (one shared copy)
+//   dgrad_conv                      <- _dgrad_call -> _dgrad_kernel, and
+//                                      the dgrad half of _bwd_kernel
+//   wgrad                           <- _wgrad_call -> _wgrad_kernel, and
+//                                      the wgrad half of _bwd_kernel
+//   partial_sum                     <- the TPU kernels' sums carried
+//                                      across their sequential grid
+//
+// Scale groups: the activations and cotangents are quantized per group of
+// `tile` lanes (whole images, the JAX pickers' tile), each with its own
+// absmax. An absmax must be complete before any element of its group is
+// quantized, and the card has no sequential grid, so each quantization is
+// two launches: *_amax writes one partial maximum per (group, slice) block,
+// *_quant reduces its group's partials, quantizes into an int8 buffer and
+// records the group's absmax. The convs then read int8.
+//
+// What bounds them on an H100 (WRN-28-10, batch 128, C = 160/320/640):
+// each conv is 60.4 G int8 operations (30.5 us at 1,979 TOP/s) against
+// 30-45 MB of operands; the amax/quant passes are memory passes over
+// x (bf16), bits (uint8) and the int8 result.
+//
+// Design:
+// - fwd_conv and dgrad_conv are the row-tile implicit GEMM of
+//   conv3x3_rows.cuh (the serving kernel's mainloop, s8 x s8 -> s32 with
+//   mma.sync) with new epilogues on the block's accumulator tile in shared
+//   memory: the dequantization, bf16 output and residual add, and the
+//   next BatchNorm's sums (fwd); the relu/dropout masks recomputed from
+//   (x, scale, shift, bits), dx, and the d(scale)/d(shift) sums (dgrad).
+//   A block's per-channel sums go to its own slot of a partial buffer
+//   (warp butterflies, then the warps in order), and partial_sum adds the
+//   slots in order: deterministic.
+// - wgrad is a GEMM over positions: dW[co, (tap, ci)] = sum_n g[co, n] *
+//   d[ci, n + shift(tap)], masked at the image borders. A block owns 64
+//   output channels x (9 taps x 32 input channels) of one scale group and
+//   walks the group in chunks of 256 positions. Per chunk it stages g
+//   [64][256] and, for its 32 input channels, three copies of the chunk's
+//   rows of d plus a halo row above and below, each shifted by one column
+//   (dw = 0, 1, 2) with zeros where the column leaves the image; every tap
+//   is then an aligned 4-byte read at a row offset, and the group's sum
+//   stays exact in s32. At the end of the group the s32 tile times the
+//   group's scale goes to the group's slot of a partial buffer, and
+//   partial_sum adds the groups in order, as the TPU kernel's sequential
+//   accumulation does.
+//
+// Rounding points (the reference as XLA computes it on the CPU, where the
+// tests run it; tests/test_torch_fused_block.py pins each): the prologue
+// x * scale + shift is one fma; dropout keeps r * f32(256/thresh); the
+// stats fold (dy + dysum) + (2y) * dyssq is one fma; every other product
+// and sum rounds on its own (__fmul_rn / __fadd_rn, so nvcc cannot
+// contract them), rintf rounds half to even, and s32 -> f32 rounds to
+// nearest.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "conv3x3_rows.cuh"
+
+using namespace conv3x3;
+
+namespace {
+
+// --- elementwise operands of the quantizers ------------------------------
+
+// 8 consecutive bf16 as f32
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, size_t off,
+                                      float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p + off);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
+}
+
+// 8 consecutive uint8 (0 where there are no bits)
+__device__ __forceinline__ void load8(const unsigned char* p, size_t off,
+                                      unsigned char (&v)[8]) {
+  if (p == nullptr) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = 0;
+    return;
+  }
+  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
+  const unsigned char* e = reinterpret_cast<const unsigned char*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = e[k];
+}
+
+// d = dropout(relu(x * scale + shift)); bits == nullptr: no dropout
+struct Prologue {
+  const __nv_bfloat16* x;
+  const float* scale;
+  const float* shift;
+  const unsigned char* bits;
+  int thresh;
+  float keep;  // f32(256 / thresh)
+
+  __device__ __forceinline__ void operator()(int row, int n, size_t off,
+                                             float (&v)[8]) const {
+    float xv[8];
+    unsigned char b[8];
+    load8(x, (size_t)row * n + off, xv);
+    load8(bits, (size_t)row * n + off, b);
+    const float sc = scale[row], sh = shift[row];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float r = fmaxf(__fmaf_rn(xv[k], sc, sh), 0.f);
+      v[k] = bits == nullptr ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
+    }
+  }
+};
+
+// gf = (dy + dysum) + (2y) * dyssq, or dy without stats cotangents
+struct Cotangent {
+  const __nv_bfloat16* dy;
+  const __nv_bfloat16* y;  // null: no stats cotangents
+  const float* dysum;
+  const float* dyssq;
+
+  __device__ __forceinline__ void operator()(int row, int n, size_t off,
+                                             float (&v)[8]) const {
+    load8(dy, (size_t)row * n + off, v);
+    if (y == nullptr) return;
+    float yv[8];
+    load8(y, (size_t)row * n + off, yv);
+    const float s = dysum[row], q = dyssq[row];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __fmaf_rn(2.f * yv[k], q, __fadd_rn(v[k], s));
+  }
+};
+
+// The (row, 8-lane chunk) units of one scale group: group g covers lanes
+// [g * tile, (g + 1) * tile) of every row; block s of `slices` takes every
+// slices-th unit.
+struct GroupWalk {
+  int n, tile, slices;
+  __device__ __forceinline__ long units(int rows) const {
+    return (long)rows * (tile / 8);
+  }
+  __device__ __forceinline__ void at(long u, int g, int& row,
+                                     size_t& off) const {
+    const int per_row = tile / 8;
+    row = (int)(u / per_row);
+    off = (size_t)g * tile + (size_t)(u % per_row) * 8;
+  }
+};
+
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float red[8];
+  m = common::warp_max(m);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  float r = red[0];
+  for (int k = 1; k < (int)blockDim.x / 32; ++k) r = fmaxf(r, red[k]);
+  return r;
+}
+
+// partial maxima of |f| per (group, slice) block: part[g * slices + s]
+template <typename Fn>
+__device__ __forceinline__ void amax_body(const Fn& fn, int rows,
+                                          const GroupWalk& walk,
+                                          float* __restrict__ part) {
+  const int s = blockIdx.x, g = blockIdx.y;
+  float m = 0.f;
+  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
+       u += (long)walk.slices * blockDim.x) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) part[g * walk.slices + s] = m;
+}
+
+// q = s8(clip(rint(f * 127 / max(amax, floor)))) per group, the group's
+// absmax into amax[g], and bf16(f) into copy when it is not null
+template <typename Fn>
+__device__ __forceinline__ void quant_body(const Fn& fn, int rows,
+                                           const GroupWalk& walk,
+                                           const float* __restrict__ part,
+                                           float floor,
+                                           signed char* __restrict__ q,
+                                           float* __restrict__ amax,
+                                           __nv_bfloat16* __restrict__ copy) {
+  const int s = blockIdx.x, g = blockIdx.y;
+  float a = part[g * walk.slices];
+  for (int k = 1; k < walk.slices; ++k)
+    a = fmaxf(a, part[g * walk.slices + k]);
+  const float inv = __fdiv_rn(127.f, fmaxf(a, floor));
+  if (s == 0 && threadIdx.x == 0) amax[g] = a;
+  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
+       u += (long)walk.slices * blockDim.x) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+    uint2 packed;
+    signed char* o = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = quant_s8(__fmul_rn(v[k], inv));
+    const size_t idx = (size_t)row * walk.n + off;
+    *reinterpret_cast<uint2*>(q + idx) = packed;
+    if (copy != nullptr) {
+      uint4 raw;
+      __nv_bfloat16* c = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) c[k] = __float2bfloat16_rn(v[k]);
+      *reinterpret_cast<uint4*>(copy + idx) = raw;
+    }
+  }
+}
+
+// One launch quantizes one or two operands over the same scale groups:
+// blockIdx.z selects the operand (z = 0: fn0 over rows0; z = 1: fn1).
+template <typename Fn0, typename Fn1>
+__global__ void __launch_bounds__(256)
+amax_kernel(Fn0 fn0, int rows0, Fn1 fn1, int rows1, GroupWalk walk,
+            float* __restrict__ part) {
+  const int groups = gridDim.y;
+  if (blockIdx.z == 0)
+    amax_body(fn0, rows0, walk, part);
+  else
+    amax_body(fn1, rows1, walk, part + groups * walk.slices);
+}
+
+struct QuantOut {
+  float floor;
+  signed char* q;
+  float* amax;
+  __nv_bfloat16* copy;
+};
+
+template <typename Fn0, typename Fn1>
+__global__ void __launch_bounds__(256)
+quant_kernel(Fn0 fn0, int rows0, QuantOut out0, Fn1 fn1, int rows1,
+             QuantOut out1, GroupWalk walk, const float* __restrict__ part) {
+  const int groups = gridDim.y;
+  if (blockIdx.z == 0)
+    quant_body(fn0, rows0, walk, part, out0.floor, out0.q, out0.amax,
+               out0.copy);
+  else
+    quant_body(fn1, rows1, walk, part + groups * walk.slices, out1.floor,
+               out1.q, out1.amax, out1.copy);
+}
+
+constexpr float kFwdFloor = 1e-12f;
+constexpr float kBwdFloor = 1e-30f;
+
+// --- conv epilogues ------------------------------------------------------
+
+// Per-channel sums of two values over the block's tile, deterministically:
+// each warp's 32 consecutive elements lie in one row (bn % 32 == 0), so a
+// warp butterfly and then the warps' slots in order. Row r's sums go to
+// part[blockIdx.x][m0 + r] and part[blockIdx.x][cout + m0 + r].
+template <typename Elem>
+__device__ __forceinline__ void tile_with_sums(int bn, int m0, int n0,
+                                               int cout, int n,
+                                               float* __restrict__ part,
+                                               const Elem& elem) {
+  __shared__ float red[2][BM][8];
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < BM * bn; i += THREADS) {
+    const int r = i / bn;
+    const int c = i - r * bn;
+    float s1 = 0.f, s2 = 0.f;
+    if (m0 + r < cout && n0 + c < n) elem(r, c, s1, s2);
+    s1 = common::warp_sum(s1);
+    s2 = common::warp_sum(s2);
+    if (lane == 0 && part != nullptr) {
+      red[0][r][c / 32] = s1;
+      red[1][r][c / 32] = s2;
+    }
+  }
+  if (part == nullptr) return;
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r < BM && m0 + r < cout) {
+    float s1 = red[0][r][0], s2 = red[1][r][0];
+    for (int k = 1; k < bn / 32; ++k) {
+      s1 = __fadd_rn(s1, red[0][r][k]);
+      s2 = __fadd_rn(s2, red[1][r][k]);
+    }
+    part[(size_t)blockIdx.x * 2 * cout + m0 + r] = s1;
+    part[(size_t)blockIdx.x * 2 * cout + cout + m0 + r] = s2;
+  }
+}
+
+// y = bf16(f32(acc) * (ws[co] * (amax * 1/127))) (+ res in bf16); sums of
+// y and y^2 of the stored bf16 values
+struct FwdEpi {
+  const float* amax;  // [G] forward group absmax
+  const float* ws;    // [Cout] per-output-channel weight scales
+  const __nv_bfloat16* res;
+  __nv_bfloat16* y;
+  float* part;        // [n / BN][2 * Cout] or null (no stats)
+  int lanes;          // lanes per forward scale group
+
+  __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
+                                       int n0, int cout, int n) const {
+    const float a = __fmul_rn(amax[n0 / lanes], common::kInv127);
+    tile_with_sums(bn, m0, n0, cout, n, part,
+                   [&](int r, int c, float& s1, float& s2) {
+      const int co = m0 + r;
+      const size_t idx = (size_t)co * n + n0 + c;
+      const float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
+                                __fmul_rn(ws[co], a));
+      __nv_bfloat16 o = __float2bfloat16_rn(v);
+      if (res != nullptr)
+        o = __float2bfloat16_rn(
+            __fadd_rn(__bfloat162float(res[idx]), __bfloat162float(o)));
+      y[idx] = o;
+      const float f = __bfloat162float(o);
+      s1 = f;
+      s2 = __fmul_rn(f, f);
+    });
+  }
+};
+
+// acc_f = f32(acc) * (ws_in[ci] * (g_amax * 1/127)); the masks recomputed
+// from x: live = x * scale + shift > 0 (one fma) and bits < thresh;
+// dn = live ? acc_f * keep : 0; dx = bf16(dn * scale); sums of dn * x, dn
+struct DgradEpi {
+  const float* g_amax;  // [G] backward group absmax of the cotangent
+  const float* ws_in;   // [Cin] per-input-channel weight scales
+  const __nv_bfloat16* x;
+  const float* scale;
+  const float* shift;
+  const unsigned char* bits;
+  __nv_bfloat16* dx;
+  float* part;          // [n / BN][2 * Cin]
+  int lanes;            // lanes per backward scale group
+  int thresh;
+  float keep;
+
+  __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
+                                       int n0, int cin, int n) const {
+    const float a = __fmul_rn(g_amax[n0 / lanes], common::kInv127);
+    tile_with_sums(bn, m0, n0, cin, n, part,
+                   [&](int r, int c, float& s1, float& s2) {
+      const int ci = m0 + r;
+      const size_t idx = (size_t)ci * n + n0 + c;
+      float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
+                          __fmul_rn(ws_in[ci], a));
+      const float xf = __bfloat162float(x[idx]);
+      bool live = __fmaf_rn(xf, scale[ci], shift[ci]) > 0.f;
+      if (bits != nullptr) {
+        live = live && bits[idx] < thresh;
+        v = __fmul_rn(v, keep);
+      }
+      const float dn = live ? v : 0.f;
+      dx[idx] = __float2bfloat16_rn(__fmul_rn(dn, scale[ci]));
+      s1 = __fmul_rn(dn, xf);
+      s2 = dn;
+    });
+  }
+};
+
+// --- wgrad: a GEMM over the positions of each scale group ------------------
+
+constexpr int WG_CI = 32;             // input channels per block
+constexpr int WG_KC = 256;            // positions per staging chunk
+constexpr int WG_APITCH = WG_KC + 16; // bytes per row of the g tile
+
+// Chunk geometry: rc image rows of ic images (rc * wi * ic == WG_KC).
+struct Chunk {
+  int rc, ic;
+};
+
+__host__ __device__ inline Chunk chunk_of(int h, int wi) {
+  const int hw = h * wi;
+  return hw >= WG_KC ? Chunk{WG_KC / wi, 1} : Chunk{h, WG_KC / hw};
+}
+
+// bytes per (dw, ci) row of the shifted copies: ic * (rc + 2) rows of wi,
+// padded to 4 mod 32 words so the fragment reads of a warp hit distinct
+// banks
+__host__ __device__ inline int copy_pitch(Chunk k, int wi) {
+  int words = (k.ic * (k.rc + 2) * wi + 3) / 4;
+  words += (4 - words % 32 + 32) % 32;
+  return words * 4;
+}
+
+__global__ void __launch_bounds__(THREADS)
+wgrad_kernel(const signed char* __restrict__ g,
+             const float* __restrict__ g_amax,
+             const signed char* __restrict__ d,
+             const float* __restrict__ d_amax, float* __restrict__ part,
+             int cout, int cin, int n, int h, int wi, int tile) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Chunk ck = chunk_of(h, wi);
+  const int bpitch = copy_pitch(ck, wi);
+  unsigned char* As = smem;                          // [BM][WG_APITCH]
+  unsigned char* Bs = smem + BM * WG_APITCH;         // [3][WG_CI][bpitch]
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int warp_m = warp / 4;
+  const int warp_n = warp % 4;
+  const int ci0 = blockIdx.x * WG_CI;
+  const int m0 = blockIdx.y * BM;
+  const int grp = blockIdx.z;
+  const int hw = h * wi;
+  const int slot_rows = ck.rc + 2;
+
+  // ldmatrix rows of A (as conv3x3_rows.cuh) and the shifted-copy address
+  // of each of this warp's 9 B fragments (fragment F = tap * 4 + ci octet)
+  const int q = lane / 8;
+  const int a_row = warp_m * 32 + (q & 1) * 8 + lane % 8;
+  const int a_byte = (q >> 1) * 16;
+  int b_base[9];
+#pragma unroll
+  for (int f = 0; f < 9; ++f) {
+    const int F = warp_n * 9 + f;
+    const int tap = F / 4;
+    const int dh = tap / 3, dw = tap % 3;
+    b_base[f] = (dw * WG_CI + (F % 4) * 8 + lane / 4) * bpitch + dh * wi +
+                (lane % 4) * 4;
+  }
+
+  int acc[2][9][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int f = 0; f < 9; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][f][e] = 0;
+
+  for (int p0 = grp * tile; p0 < (grp + 1) * tile; p0 += WG_KC) {
+    __syncthreads();
+    // g chunk: [64 output channels][256 positions], 16 bytes per load
+    for (int i = tid; i < BM * (WG_KC / 16); i += THREADS) {
+      const int row = i / (WG_KC / 16);
+      const int piece = i % (WG_KC / 16);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (m0 + row < cout)
+        v = *reinterpret_cast<const uint4*>(g + (size_t)(m0 + row) * n + p0 +
+                                            piece * 16);
+      *reinterpret_cast<uint4*>(As + row * WG_APITCH + piece * 16) = v;
+    }
+    // shifted copies of d: unit = (ci, image slot row); each loads one image
+    // row (wi bytes) and writes it shifted by dw - 1 columns, zero-filled
+    const int img0 = p0 / hw;
+    const int row0 = (p0 - img0 * hw) / wi;
+    const int nw = wi / 4;
+    const int units = WG_CI * ck.ic * slot_rows;
+    for (int i = tid; i < units; i += THREADS) {
+      const int sr = i % (ck.ic * slot_rows);
+      const int ci = i / (ck.ic * slot_rows);
+      const int img = img0 + sr / slot_rows;
+      const int ir = row0 - 1 + sr % slot_rows;
+      // w[1 + k] = columns 4k .. 4k+3 of the row; w[0], w[nw + 1] = 0
+      uint32_t w[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) w[k] = 0;
+      if (ir >= 0 && ir < h) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            d + (size_t)(ci0 + ci) * n + (size_t)img * hw + ir * wi);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k < nw) w[k + 1] = src[k];
+      }
+      unsigned char* dst = Bs + ci * bpitch + sr * wi;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nw) {
+          // dw = 0 reads column c - 1, dw = 2 column c + 1 (little endian:
+          // byte j of a word is column 4k + j)
+          *reinterpret_cast<uint32_t*>(dst + 4 * k) =
+              __funnelshift_l(w[k], w[k + 1], 8);
+          *reinterpret_cast<uint32_t*>(dst + WG_CI * bpitch + 4 * k) = w[k + 1];
+          *reinterpret_cast<uint32_t*>(dst + 2 * WG_CI * bpitch + 4 * k) =
+              __funnelshift_r(w[k + 1], w[k + 2], 8);
+        }
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int ks = 0; ks < WG_KC / 32; ++ks) {
+      // positions ks*32 .. ks*32+31 lie in one image slot of the copies
+      const int koff = ks * 32 + ((ks * 32) / (ck.rc * wi)) * 2 * wi;
+      uint32_t a[2][4];
+      const uint32_t a_base = smem_addr(As + a_row * WG_APITCH + a_byte) +
+                              ks * 32;
+      ldmatrix_x4(a[0], a_base);
+      ldmatrix_x4(a[1], a_base + 16 * WG_APITCH);
+#pragma unroll
+      for (int f = 0; f < 9; ++f) {
+        const unsigned char* bp = Bs + b_base[f] + koff;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
+        mma_step(acc[0][f], a[0], b0, b1);
+        mma_step(acc[1][f], a[1], b0, b1);
+      }
+    }
+  }
+
+  // the group's tile: f32(s32) * (d_amax * g_amax) / 127^2, into the
+  // group's slot of the partial buffer; columns (dh, dw, ci) as JAX's
+  // [Cout, 9 * Cin] weight-gradient layout
+  const float ts = __fmul_rn(__fmul_rn(d_amax[grp], g_amax[grp]),
+                             common::kInv16129);
+  const size_t kdim = (size_t)9 * cin;
+  float* out = part + (size_t)grp * cout * kdim;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+      const int F = warp_n * 9 + f;
+      const int col = (F / 4) * cin + ci0 + (F % 4) * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = m0 + warp_m * 32 + mi * 16 + lane / 4 + hi * 8;
+        if (row < cout) {
+          out[row * kdim + col] =
+              __fmul_rn(__int2float_rn(acc[mi][f][2 * hi]), ts);
+          out[row * kdim + col + 1] =
+              __fmul_rn(__int2float_rn(acc[mi][f][2 * hi + 1]), ts);
+        }
+      }
+    }
+}
+
+int launch_wgrad(const signed char* g, const float* g_amax,
+                 const signed char* d, const float* d_amax, float* part,
+                 int cout, int cin, int n, int h, int wi, int tile,
+                 cudaStream_t stream) {
+  static int smem_set = 0;
+  const int bytes = BM * WG_APITCH +
+                    3 * WG_CI * copy_pitch(chunk_of(h, wi), wi);
+  if (bytes > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = bytes;
+  }
+  const dim3 grid(cin / WG_CI, (cout + BM - 1) / BM, n / tile);
+  wgrad_kernel<<<grid, THREADS, bytes, stream>>>(g, g_amax, d, d_amax, part,
+                                                 cout, cin, n, h, wi, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+template <typename T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
+}
+
+Prologue prologue(const void* x, const void* scale, const void* shift,
+                  const void* bits, int thresh, float keep) {
+  return Prologue{in<__nv_bfloat16>(x), in<float>(scale), in<float>(shift),
+                  in<unsigned char>(bits), thresh, keep};
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shapes: x [c, n] bf16, bits [c, n] uint8 or null, scale/shift [c] f32;
+// n a multiple of tile, tile a multiple of 8; part [n / tile * slices].
+int fwd_amax_launch(const void* x, const void* scale, const void* shift,
+                    const void* bits, void* part, int c, int n, int tile,
+                    int slices, int thresh, float keep, void* stream) {
+  const Prologue pr = prologue(x, scale, shift, bits, thresh, keep);
+  amax_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
+      pr, c, pr, c, GroupWalk{n, tile, slices}, static_cast<float*>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [c, n] int8, amax [n / tile] f32
+int fwd_quant_launch(const void* x, const void* scale, const void* shift,
+                     const void* bits, const void* part, void* q, void* amax,
+                     int c, int n, int tile, int slices, int thresh,
+                     float keep, void* stream) {
+  const Prologue pr = prologue(x, scale, shift, bits, thresh, keep);
+  const QuantOut out{kFwdFloor, static_cast<signed char*>(q),
+                     static_cast<float*>(amax), nullptr};
+  quant_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
+      pr, c, out, pr, c, out, GroupWalk{n, tile, slices}, in<float>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [cin, n] int8, w [cout, 9 * cin] int8, amax [n / tile], ws [cout] f32,
+// res [cout, n] bf16 or null, y [cout, n] bf16, part [n / BN][2 * cout]
+// f32 or null (no stats); cin % 32 == 0, wi % 8 == 0, tile a multiple of
+// h * wi.
+int fwd_conv_launch(const void* q, const void* w, const void* amax,
+                    const void* ws, const void* res, void* y, void* part,
+                    int cin, int cout, int n, int h, int wi, int tile,
+                    void* stream) {
+  FwdEpi epi{in<float>(amax), in<float>(ws), in<__nv_bfloat16>(res),
+             static_cast<__nv_bfloat16*>(y), static_cast<float*>(part), tile};
+  return launch_row_tiles<signed char>(q, w, epi, cin, cout, n, h, wi,
+                                       as_stream(stream));
+}
+
+// The backward's amax pass over both quantized operands: the cotangent
+// gf [cout, n] (y/dysum/dyssq null: no stats cotangents) and the
+// recomputed activation [cin, n]; part [2][n / tile][slices].
+int bwd_amax_launch(const void* dy, const void* y, const void* dysum,
+                    const void* dyssq, const void* x, const void* scale,
+                    const void* shift, const void* bits, void* part,
+                    int cout, int cin, int n, int tile, int slices,
+                    int thresh, float keep, void* stream) {
+  const Cotangent ct{in<__nv_bfloat16>(dy), in<__nv_bfloat16>(y),
+                     in<float>(dysum), in<float>(dyssq)};
+  amax_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
+      ct, cout, prologue(x, scale, shift, bits, thresh, keep), cin,
+      GroupWalk{n, tile, slices}, static_cast<float*>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g_q [cout, n], d_q [cin, n] int8; g_amax, d_amax [n / tile] f32 (the
+// cotangent's and the activation's group absmax); dres [cout, n] bf16 =
+// bf16(gf), or null.
+int bwd_quant_launch(const void* dy, const void* y, const void* dysum,
+                     const void* dyssq, const void* x, const void* scale,
+                     const void* shift, const void* bits, const void* part,
+                     void* g_q, void* d_q, void* g_amax, void* d_amax,
+                     void* dres, int cout, int cin, int n, int tile,
+                     int slices, int thresh, float keep, void* stream) {
+  const Cotangent ct{in<__nv_bfloat16>(dy), in<__nv_bfloat16>(y),
+                     in<float>(dysum), in<float>(dyssq)};
+  const QuantOut g_out{kBwdFloor, static_cast<signed char*>(g_q),
+                       static_cast<float*>(g_amax),
+                       static_cast<__nv_bfloat16*>(dres)};
+  const QuantOut d_out{kBwdFloor, static_cast<signed char*>(d_q),
+                       static_cast<float*>(d_amax), nullptr};
+  quant_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
+      ct, cout, g_out, prologue(x, scale, shift, bits, thresh, keep), cin,
+      d_out, GroupWalk{n, tile, slices}, in<float>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g_q [cout, n] int8, w_dg [cin, 9 * cout] int8 (dgrad-packed), g_amax
+// [n / tile], ws_in [cin], x [cin, n] bf16, scale/shift [cin], bits
+// [cin, n] or null; dx [cin, n] bf16, part [n / BN][2 * cin].
+int dgrad_conv_launch(const void* g_q, const void* w_dg, const void* g_amax,
+                      const void* ws_in, const void* x, const void* scale,
+                      const void* shift, const void* bits, void* dx,
+                      void* part, int cout, int cin, int n, int h, int wi,
+                      int tile, int thresh, float keep, void* stream) {
+  DgradEpi epi{in<float>(g_amax), in<float>(ws_in), in<__nv_bfloat16>(x),
+               in<float>(scale), in<float>(shift), in<unsigned char>(bits),
+               static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part),
+               tile, thresh, keep};
+  return launch_row_tiles<signed char>(g_q, w_dg, epi, cout, cin, n, h, wi,
+                                       as_stream(stream));
+}
+
+// g_q [cout, n], d_q [cin, n] int8, g_amax/d_amax [n / tile]; part
+// [n / tile][cout][9 * cin] f32. cin % 32 == 0, wi % 8 == 0, wi <= 32,
+// tile a multiple of 256, and 256 a multiple of h * wi or the reverse.
+int wgrad_launch(const void* g_q, const void* g_amax, const void* d_q,
+                 const void* d_amax, void* part, int cout, int cin, int n,
+                 int h, int wi, int tile, void* stream) {
+  return launch_wgrad(in<signed char>(g_q), in<float>(g_amax),
+                      in<signed char>(d_q), in<float>(d_amax),
+                      static_cast<float*>(part), cout, cin, n, h, wi, tile,
+                      as_stream(stream));
+}
+
+// out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)
+int partial_sum_launch(const void* part, void* out, int j, int m,
+                       void* stream) {
+  return common::partial_sum(in<float>(part), static_cast<float*>(out), j, m,
+                             as_stream(stream));
+}
+
+}  // extern "C"

@@ -62,3 +62,12 @@ def test_failed_compile_raises_with_its_log(fake_build):
     with pytest.raises(RuntimeError, match="broken source"):
         build.build_all(["k"])
     assert not os.path.exists(build.library_path("k"))
+
+
+def test_a_changed_header_rebuilds(fake_build):
+    csrc, calls = fake_build
+    (csrc / "shared.cuh").write_text("// header v1\n")
+    path = build.build_all()["k"]
+    (csrc / "shared.cuh").write_text("// header v2\n")
+    new = build.build_all()["k"]
+    assert new != path and os.path.exists(new) and _n_calls(calls) == 2

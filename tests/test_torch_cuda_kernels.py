@@ -1,6 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py and
-ops/cuda/augment.py): each kernel against its plain PyTorch version on the
-same CUDA tensors.
+"""Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py,
+ops/cuda/augment.py, ops/cuda/fused_block.py and ops/cuda/stem.py): each
+kernel against its plain PyTorch version on the same CUDA tensors.
 
 Marked ``cuda``; without a card every test skips (decided in the fixture,
 never at import). Run them on the machine with the card (no JAX there, so
@@ -15,7 +15,12 @@ different float contraction (allowed: 1 level on <= 0.1% of elements);
 the bf16 conv sums in f32 in another order than the float64 plain
 version, so outputs may differ by 1 bf16 ulp (2^-8 relative) on a small
 share of elements. The augment kernel rounds exactly where its plain
-version does (one FMA, one multiply, one bf16 rounding): bit-equal.
+version does (one FMA, one multiply, one bf16 rounding): bit-equal. The
+fused int8 half and the stem: int8 codes, group absmaxes, bf16 outputs,
+the weight gradient (exact s32 per group, group sums in the same order)
+and the stem forward are equal; sums over positions (BatchNorm sums,
+d(scale), d(shift), the stem's weight and bias gradients) are f32 sums in
+another order: 1e-5 of the largest value.
 """
 
 import numpy as np
@@ -24,6 +29,8 @@ import torch
 
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment as aug
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
 from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +165,130 @@ def test_augment_cuda_tensor_never_falls_back(dev):
     with pytest.raises(ValueError, match="int32"):
         aug.augment_batch(data, idx.long(), top, left, flip, mean, inv_std,
                           pad=4, crop=32, mirror=True)
+
+
+def _same(got, want, sums=False):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if sums:
+        d = (got - want).abs().max().item()
+        assert d <= 1e-5 * want.abs().max().item(), d
+    else:
+        assert torch.equal(got, want)
+
+
+# (c, h, w, b): the WRN-28-10 stages at batch 128, and small shapes
+FQT_SHAPES = [(32, 8, 8, 128), (64, 16, 16, 16), (160, 32, 32, 128),
+              (320, 16, 16, 128), (640, 8, 8, 128)]
+
+
+@pytest.mark.parametrize("c,h,w,b", FQT_SHAPES)
+@pytest.mark.parametrize("rate,use_res,stats", [(0.3, False, True),
+                                                (0.3, True, False),
+                                                (0.0, True, True)])
+def test_fused_half_kernels_match_plain(dev, c, h, w, b, rate, use_res,
+                                        stats):
+    g = torch.Generator(device=dev).manual_seed(c + b)
+    n = b * h * w
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * (9 * c) ** -0.5
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    thresh = fb.dropout_thresh(rate) if rate else None
+    bits = (torch.randint(0, 256, (c, n), device=dev, generator=g,
+                          dtype=torch.uint8) if rate else None)
+    res = (torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+           if use_res else None)
+    tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+    wq, ws = fb.quantize_pack_weights(wt)
+    got = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh, tile=tile)
+    want = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                 tile=tile)
+    for a, b_ in zip(got, want):
+        _same(a, b_)
+    y = fb.fwd_conv(*want, wq, ws, res, tile=tile, h=h, w_img=w,
+                    want_stats=stats)
+    y_p = fb.fwd_conv_plain(*want, wq, ws, res, tile=tile, h=h, w_img=w,
+                            want_stats=stats)
+    _same(y[0], y_p[0])
+    if stats:
+        _same(y[1], y_p[1], sums=True)
+        _same(y[2], y_p[2], sums=True)
+    dy = (torch.randn(c, n, device=dev, generator=g) * 1e-3).to(
+        torch.bfloat16)
+    cts = ((y_p[0], torch.randn(c, device=dev, generator=g) * 1e-4,
+            torch.randn(c, device=dev, generator=g) * 1e-4) if stats
+           else (None, None, None))
+    kw = dict(thresh=thresh, tile=btile, emit_res=stats and use_res)
+    got = fb.bwd_quantize(dy, *cts, x, scale, shift, bits, **kw)
+    want = fb.bwd_quantize_plain(dy, *cts, x, scale, shift, bits, **kw)
+    for a, b_ in zip(got, want):
+        if b_ is None:
+            assert a is None
+        else:
+            _same(a, b_)
+    g_q, g_amax, d_q, d_amax, _ = want
+    wdg, wsin = fb.quantize_pack_weights_dgrad(wt)
+    args = (g_q, g_amax, wdg, wsin, x, scale, shift, bits)
+    got = fb.dgrad_conv(*args, thresh=thresh, tile=btile, h=h, w_img=w)
+    want = fb.dgrad_conv_plain(*args, thresh=thresh, tile=btile, h=h,
+                               w_img=w)
+    _same(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    _same(fb.wgrad(g_q, g_amax, d_q, d_amax, tile=btile, h=h, w_img=w),
+          fb.wgrad_plain(g_q, g_amax, d_q, d_amax, tile=btile, h=h, w_img=w))
+    torch.cuda.synchronize()
+
+
+def test_fused_half_op_launches_its_kernels(dev):
+    c, h, w, n = 32, 8, 8, 8192
+    x = torch.randn(c, n, device=dev).to(torch.bfloat16).requires_grad_()
+    wt = (torch.randn(c, c, 3, 3, device=dev) * 0.05).requires_grad_()
+    scale = (torch.rand(c, device=dev) + 0.5).requires_grad_()
+    shift = torch.zeros(c, device=dev, requires_grad=True)
+    bits = torch.randint(0, 256, (c, n), device=dev, dtype=torch.uint8)
+    fb.reset_launches()
+    y, ys, yq = fb.fused_half_int8(x, wt, scale, shift, bits,
+                                   dropout_rate=0.3, h=h, w_img=w)
+    (y.float().sum() + ys.sum() + yq.sum()).backward()
+    torch.cuda.synchronize()
+    assert dict(fb.launches) == {
+        name: 1 for name in (
+            "fused_half_fwd.amax", "fused_half_fwd.quant", "fused_half_fwd",
+            "fused_half_fwd.sum", "fused_half_bwd.amax",
+            "fused_half_bwd.quant", "fused_half_dgrad", "fused_half_dgrad.sum",
+            "fused_half_wgrad", "fused_half_wgrad.sum")}
+    for t in (x, wt, scale, shift):
+        assert torch.isfinite(t.grad).all()
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", [(3, 32, 8, 8, 8),
+                                            (3, 160, 32, 32, 128),
+                                            (1, 16, 16, 16, 4)])
+def test_stem_kernels_match_plain(dev, cin, cout, h, w, b):
+    g = torch.Generator(device=dev).manual_seed(cout)
+    n = b * h * w
+    x = torch.randn(cin, n, device=dev, generator=g).to(torch.bfloat16)
+    wp = k.pack_weights((torch.randn(cout, cin, 3, 3, device=dev,
+                                     generator=g) * 0.3).to(torch.bfloat16))
+    bias = torch.randn(cout, device=dev, generator=g) * 0.1
+    _same(st.stem_fwd(x, wp, bias, h=h, w_img=w),
+          st.stem_fwd_plain(x, wp, bias, h=h, w_img=w))
+    dy = torch.randn(cout, n, device=dev, generator=g).to(torch.bfloat16)
+    for a, b_ in zip(st.stem_wgrad(dy, x, h=h, w_img=w),
+                     st.stem_wgrad_plain(dy, x, h=h, w_img=w)):
+        _same(a, b_, sums=True)
+    torch.cuda.synchronize()
+
+
+def test_fused_and_stem_never_fall_back(dev):
+    q = torch.zeros((48, 8192), dtype=torch.int8, device=dev)
+    w = torch.zeros((48, 9 * 48), dtype=torch.int8, device=dev)
+    a = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fb.fwd_conv(q, a, w, torch.ones(48, device=dev), None, tile=4096,
+                    h=8, w_img=8, want_stats=True)
+    x = torch.zeros((3, 8192), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        st.stem_fwd(x, torch.zeros((16, 27), device=dev),
+                    torch.zeros(16, device=dev), h=8, w_img=8)

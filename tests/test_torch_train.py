@@ -108,8 +108,8 @@ def test_train_mode_needs_a_key_and_updates_counts():
 
 
 def test_kernel_path_flags_raise():
-    for flag, where in (("int8_train_bwd", "slice 3"),
-                        ("int8_train", "slice 3"),
+    for flag, where in (("inkernel_dropout", "Queue 2 item 7"),
+                        ("int8_train", "Queue 2 item 7"),
                         ("fused_block", "Queue 2 item 7"),
                         ("remat", "Queue 1 item 11")):
         with pytest.raises(NotImplementedError, match=where):
@@ -263,8 +263,8 @@ def test_setup_trains_two_steps_on_cpu(tmp_path):
     assert ls["scheduler"].get_lr() == 0.1  # MultiStepLR, epoch unit
 
 
-@pytest.mark.parametrize("flag,where", [("use_int8_train_bwd", "slice 3"),
-                                        ("use_int8_train", "slice 3"),
+@pytest.mark.parametrize("flag,where", [("use_fused_block", "Queue 2 item 7"),
+                                        ("use_int8_train", "Queue 2 item 7"),
                                         ("use_lane_transition",
                                          "Queue 2 item 8")])
 def test_setup_raises_for_unported_flags(tmp_path, flag, where):
