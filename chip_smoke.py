@@ -59,7 +59,28 @@ Phases, each fatal on failure:
    inputs and cotangents, must reproduce its output and equal its plain
    versions. The first step's halves, counted by (width, residual,
    BatchNorm sums), weigh phase 6's per-call times into per-step figures.
-8. Print one JSON line of per-kernel numbers, then the result line.
+8. NV kernels: at every ResNet-50 stage shape at batch 128 (identity
+   56x56/256/64, 28x28/512/128, 14x14/1024/256, 7x7/2048/512; transition
+   56x56 64->64->256 at stride 1, then 56->28, 28->14 and 14->7 at
+   stride 2) and at WRN-50-2's widest, stage 4 at width 1024, hold
+   ``bneck_block_nv`` / ``bneck_transition_nv`` (ops/cuda/csrc/
+   bneck_nv.cu) against their plain versions on the same CUDA tensors,
+   int8 and bf16 outputs (equal), and time each beside its plain version
+   and the same block in bf16 on cuDNN (channels-last convs, f32 BN
+   affines: the JAX tools/bench_bneck.py yardstick).
+9. Serving, the fourth main path: a run directory with the ResNet-50
+   recipe (models_dir/resnet-50_ilsvrc2012/config.yaml at full width,
+   random weights from the config's seed, Synthetic 224x224x3 data with
+   1000 classes, the test transforms cut to ToTensor + Standardize,
+   batch 128), served through ``load_predictor(config)`` and
+   ``load_predictor(config, quantize="int8")`` (``fused_bneck="nv"``),
+   with a ragged request. With the launch counts zeroed just before,
+   each serving batch must launch the identity block's three kernels 12
+   times and the transition's 4 times, and no other port kernel; logits
+   finite; the int8 walk through the kernels must equal the same walk
+   through the plain versions. Prints float and int8 img/s (uint8 in,
+   logits out) and a torch.profiler split of one int8 batch.
+10. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -81,6 +102,8 @@ TRAIN_CONFIG = os.path.join(REPO, "models_dir",
 FQT_CONFIG = os.path.join(REPO, "models_dir",
                           "wrn-28-10-dropout_synthspectral-hard-int8",
                           "config.yaml")
+R50_CONFIG = os.path.join(REPO, "models_dir", "resnet-50_ilsvrc2012",
+                          "config.yaml")
 BATCH = 128
 TRAIN_STEPS, WARM_STEPS, PROFILE_STEPS = 10, 3, 3
 AUG_KEYS = ("b", "mirror", "whiten", "ms", "call_ms", "plain_ms",
@@ -91,6 +114,7 @@ SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 AUG_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/augment.cu"
 FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
 STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
+NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
 REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv3x3_int8_requant": _PALLAS + "conv.py:314",
@@ -101,7 +125,24 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "fused_half_dgrad": _PALLAS + "fused_block.py:588, "
                                 + _PALLAS + "fused_block.py:992",
             "fused_half_wgrad": _PALLAS + "fused_block.py:763, "
-                                + _PALLAS + "fused_block.py:992"}
+                                + _PALLAS + "fused_block.py:992",
+            "bneck_block_nv": _PALLAS + "bneck_nv.py:321",
+            "bneck_transition_nv": _PALLAS + "bneck_nv.py:600"}
+# (kind, h, w, cin, width, cout, stride) at batch 128: the ResNet-50
+# stages, then WRN-50-2's stage 4 (its widest operands)
+NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
+             ("identity", 28, 28, 512, 128, 512, 1),
+             ("identity", 14, 14, 1024, 256, 1024, 1),
+             ("identity", 7, 7, 2048, 512, 2048, 1),
+             ("transition", 56, 56, 64, 64, 256, 1),
+             ("transition", 56, 56, 256, 128, 512, 2),
+             ("transition", 28, 28, 512, 256, 1024, 2),
+             ("transition", 14, 14, 1024, 512, 2048, 2),
+             ("identity", 7, 7, 2048, 1024, 2048, 1),
+             ("transition", 14, 14, 1024, 1024, 2048, 2)]
+NV_NAMES = ("bneck_block_nv", "bneck_transition_nv")
+# ResNet-50: 12 identity and 4 transition blocks per serving batch
+NV_PER_BATCH = {"bneck_block_nv": 12, "bneck_transition_nv": 4}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
 # emitting BatchNorm sums (conv1 of the 10 identity blocks)
 FQT_PER_STEP = {
@@ -184,12 +225,13 @@ def port_modules():
     """The port's kernel modules, each with its own launch counter."""
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import (
         augment,
+        bneck_nv,
         conv3x3,
         fused_block,
         stem,
     )
 
-    return augment, conv3x3, fused_block, stem
+    return augment, bneck_nv, conv3x3, fused_block, stem
 
 
 def reset_launches() -> None:
@@ -513,6 +555,7 @@ def serving_phase(workdir):
 # kernel-name patterns of the train step's kinds of device work
 KERNEL_KINDS = [
     ("augment", ("augment",)),
+    ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("stem (port)", ("stem_",)),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
@@ -1009,6 +1052,236 @@ def fqt_summary(rows, training, halves):
     return out
 
 
+# --- phases 8 and 9: int8 bottleneck serving ----------------------------------
+
+def nv_kernel_phase(peaks):
+    """Rows per (NV kernel, shape, output type): max error against the
+    plain version, and the kernel / plain / cuDNN-bf16-block / bound times
+    of one block."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv as nv
+
+    _, ops_int8, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+
+    def vec(c, lo, hi):
+        return torch.rand(c, device=dev, generator=g) * (hi - lo) + lo
+
+    def sc(c, fan):  # about 40 int8 levels per std of an s32 sum
+        return vec(c, 0.5, 1.5) * 40 / (fan ** 0.5 * 127 ** 2 / 3)
+
+    def bf16_block(x4, w1, w2, w3, wp, aff, stride):
+        """The block in bf16 on cuDNN, channels-last; BN affines and
+        relus in f32 (tools/bench_bneck.py's yardstick)."""
+        def conv(a, w, s=1, p=0):
+            return F.conv2d(a.to(torch.bfloat16), w, stride=s,
+                            padding=p).float()
+
+        xf = x4.float()
+        a1 = torch.relu(conv(xf, w1) * aff[0] + aff[1])
+        a2 = torch.relu(conv(a1, w2, stride, 1) * aff[2] + aff[3])
+        z3 = conv(a2, w3) * aff[4] + aff[5]
+        sc_ = xf if wp is None else conv(xf[:, :, ::stride, ::stride], wp)
+        return torch.relu(sc_ + z3).to(torch.bfloat16)
+
+    for kind, h, w, cin, wdt, cout, stride in NV_SHAPES:
+        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+        proj = kind == "transition"
+        name = "bneck_transition_nv" if proj else "bneck_block_nv"
+        x = i8(BATCH, h, w, cin)
+        ws = [i8(wdt, cin), i8(wdt, 9 * wdt), i8(cout, wdt)] + (
+            [i8(cout, cin)] if proj else [])
+        vecs = [sc(wdt, cin), vec(wdt, -2, 2), sc(wdt, 9 * wdt),
+                vec(wdt, -2, 2), sc(cout, wdt), vec(cout, -2, 2)]
+        res = sc(cout, cin) if proj else 0.37
+        macs = BATCH * (h * w * cin * wdt + oh * ow * (
+            9 * wdt * wdt + wdt * cout + (cin * cout if proj else 0)))
+        wbytes = sum(t.numel() for t in ws) + 4 * (4 * wdt + 3 * cout)
+
+        # the yardstick: the same block in bf16 on cuDNN
+        def cl(t):
+            return t.to(memory_format=torch.channels_last)
+
+        x4 = cl(torch.randn(BATCH, cin, h, w, device=dev, generator=g)
+                .to(torch.bfloat16))
+        w4 = [cl((torch.randn(o, i, k, k, device=dev, generator=g)
+                  * (i * k * k) ** -0.5).to(torch.bfloat16))
+              for o, i, k in [(wdt, cin, 1), (wdt, wdt, 3), (cout, wdt, 1)]
+              + ([(cout, cin, 1)] if proj else [])]
+        aff = [v.view(1, -1, 1, 1) for v in
+               (vec(wdt, 0.5, 1.5), vec(wdt, -0.1, 0.1), vec(wdt, 0.5, 1.5),
+                vec(wdt, -0.1, 0.1), vec(cout, 0.5, 1.5),
+                vec(cout, -0.1, 0.1))]
+        lib_ms = time_ms(lambda: bf16_block(
+            x4, *w4[:3], w4[3] if proj else None, aff, stride), 10)
+        del x4, w4
+
+        for out_int8 in (True, False):
+            def run(fn):
+                if proj:
+                    return fn(x, *ws, *vecs, res, stride=stride,
+                              out_int8=out_int8)
+                return fn(x, *ws, *vecs, res, out_int8=out_int8)
+
+            kernel = getattr(nv, name)
+            plain = getattr(nv, name + "_plain")
+            got, ref = run(kernel), run(plain)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype and got.shape == ref.shape == (
+                BATCH, oh, ow, cout), (name, h, out_int8)
+            err = (got.float() - ref.float()).abs().max().item()
+            assert torch.equal(got, ref), (name, h, cin, wdt, out_int8, err)
+            assert ref.unique().numel() > 50, (name, h, out_int8)
+            byts = (x.numel() + BATCH * oh * ow * cout * (1 if out_int8
+                                                         else 2) + wbytes)
+            rows.append(dict(
+                name=name, kind=kind, h=h, w=w, cin=cin, wdt=wdt, cout=cout,
+                stride=stride, out_int8=out_int8, max_abs_err=err,
+                ms=time_ms(lambda: run(kernel), 10),
+                plain_ms=time_ms(lambda: run(plain), 2),
+                library_ms=lib_ms, ops_ms=2 * macs / ops_int8 * 1e3,
+                bytes_ms=byts / bw * 1e3))
+            del got, ref
+        del x, ws
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+def bneck_serving_phase(workdir):
+    """Full-width ResNet-50 served through load_predictor, float and int8
+    on the NV trunk."""
+    import numpy as np
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.algos.predict import load_predictor
+    from pytorch_ddp_resnet_tpu_torch.data.datasets import load_synthetic
+    from pytorch_ddp_resnet_tpu_torch.models.quantize import Int8Inference
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv
+
+    shape = [224, 224, 3]
+    # ImageNet is not on the machine; the streaming transforms are not
+    # ported (RandomScale is host-only in JAX): ToTensor + Standardize
+    config = write_run(
+        workdir, "resnet-50", R50_CONFIG, dataset_cls_name="Synthetic",
+        dataset_args={"shape": shape, "num_classes": 1000, "n_train": 512},
+        data_aug_test={"ToTensorTransform": {},
+                       "StandardizeWhiteningTransform": {}},
+        batch_size=BATCH)
+    test_x = load_synthetic(None, train=False, shape=tuple(shape),
+                            num_classes=1000).x  # 256 images
+    requests = [test_x[:128], test_x[128:237]]  # the second ragged
+    n_serve = sum(-(-len(r) // BATCH) for r in requests)
+
+    # the main path, with the launch counts zeroed just before
+    reset_launches()
+    t0 = time.perf_counter()
+    fp = load_predictor(config)
+    fl = [fp.logits(r) for r in requests]
+    qp = load_predictor(config, quantize="int8")
+    ql = [qp.logits(r) for r in requests]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = all_launches()
+    shapes = dict(bneck_nv.launch_shapes)
+
+    assert qp._model.param_count() == 25549416
+    assert fp.n_folded == 49, fp.n_folded  # stem BN + 3 in each block
+    assert qp.n_quantized == 48, qp.n_quantized
+    want = {}
+    for name, k in NV_PER_BATCH.items():
+        for part in (".conv1", ".conv2", ""):
+            want[name + part] = k * n_serve
+    assert launches == want, launches
+    for a, b, r in zip(fl, ql, requests):
+        assert a.shape == b.shape == (len(r), 1000)
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+
+    # the same int8 walk through the plain versions, same scales
+    xp = qp._prep(test_x[:BATCH])
+    with torch.no_grad():
+        q_kernel = qp._fwd(xp).float()
+        q_plain = Int8Inference(qp._model, fused_bneck="nv",
+                                plain=True).serve_fn(qp.act_scales)(xp)
+    int8_err = (q_kernel - q_plain.float()).abs().max().item()
+    assert torch.equal(q_kernel, q_plain.float()), int8_err
+    f_all, q_all = fp.logits(test_x), qp.logits(test_x)
+    agree = float((f_all.argmax(-1) == q_all.argmax(-1)).mean())
+
+    bench = np.concatenate([test_x] * 4)  # 1024 images, 8 batches
+
+    def img_per_s(pred):
+        pred.logits(bench[:BATCH])  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred.logits(bench)
+        return len(bench) / (time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    float_ips, int8_ips = img_per_s(fp), img_per_s(qp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = _profile_steps(lambda: qp.logits(test_x[:BATCH]), 1)
+    return dict(
+        launches=launches, shapes=shapes, n_serve=n_serve,
+        main_path_s=main_s, int8_vs_plain_max_abs=int8_err,
+        top1_agreement=agree, logit_absmax=float(np.abs(f_all).max()),
+        float_img_per_s=float_ips, int8_img_per_s=int8_ips,
+        peak_mem_gib=peak, n_folded=fp.n_folded,
+        n_quantized=qp.n_quantized, profile=profile)
+
+
+def nv_summary(rows, serving):
+    """One entry per NV kernel: the serving path's launches of its output
+    kernel (its conv1 and conv2 launches beside), and per-batch times:
+    the kernel phase's per-block times summed over the (shape, output
+    type) mix the main path launched, per serving batch."""
+    out = []
+    for name in NV_NAMES:
+        mine = [r for r in rows if r["name"] == name]
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                   bytes_ms=0.0)
+        for (kname, _, h, w, cin, wdt, cout, stride, out_int8), count in \
+                serving["shapes"].items():
+            if kname != name:
+                continue
+            row = next(r for r in mine if (r["h"], r["cin"], r["wdt"],
+                                           r["stride"], r["out_int8"])
+                       == (h, cin, wdt, stride, out_int8))
+            for key in tot:
+                tot[key] += row[key] * count / serving["n_serve"]
+        out.append(dict(
+            name=name, route="cuda", source=NV_SOURCE,
+            replaces=REPLACES[name],
+            launches=serving["launches"].get(name, 0),
+            split_launches={k: v for k, v in serving["launches"].items()
+                            if k.startswith(name)},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=tot["library_ms"],
+            per=f"ResNet-50 serving batch of {BATCH} (ms per block summed "
+                "over the batch's blocks; launches over the run)",
+            stages=[{k: r[k] for k in ("kind", "h", "cin", "wdt", "cout",
+                                       "stride", "out_int8", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    return out
+
+
 def print_training(label, training):
     print(f"{label}: " + json.dumps(
         {k: v for k, v in training.items() if k != "profile"}))
@@ -1055,11 +1328,17 @@ def main() -> int:
     rows = kernel_phase(peaks)
     aug_rows = augment_phase(peaks)
     fqt_rows = fqt_kernel_phase(peaks)
+    nv_rows = nv_kernel_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows + fqt_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")}))
+    for r in nv_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "h", "cin", "wdt", "cout", "stride", "out_int8", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}))
     for r in aug_rows:
         print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
                                  + ("chain_max_abs_diff",)}))
@@ -1085,10 +1364,16 @@ def main() -> int:
                                   sorted(record.halves.items())]
         print(f"int8 training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        r50 = bneck_serving_phase(workdir)
+        print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print_training("training", training)
     print_training("int8 training", fqt)
+    print_training("resnet-50 serving", {
+        k: v for k, v in r50.items() if k != "shapes"})
     fqt_kernels = fqt_summary(fqt_rows, fqt, record.halves)
     if fqt["profile"] is not None:
         kinds = fqt["profile"]["device_ms_per_step_by_kind"]
@@ -1100,7 +1385,7 @@ def main() -> int:
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"kernels": kernel_summary(rows, serving)
                       + [augment_summary(aug_rows, training)]
-                      + fqt_kernels}))
+                      + fqt_kernels + nv_summary(nv_rows, r50)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

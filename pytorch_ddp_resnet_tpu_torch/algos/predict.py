@@ -66,22 +66,26 @@ class Predictor:
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         return self._preprocess(x) if self._preprocess else x
 
-    def quantize_int8(self, calib_images: np.ndarray) -> int:
+    def quantize_int8(self, calib_images: np.ndarray,
+                      fused_bneck="nv") -> int:
         """Switch the serving forward to the w8a8 post-training-quantized
         path (models/quantize.py). ``calib_images``: raw uint8 NHWC images,
         calibrated at the serving batch geometry so scale placement and
-        int8 eligibility match serving exactly.
+        int8 eligibility match serving exactly. ``fused_bneck``: "nv" (the
+        JAX default) runs post-act bottleneck trunks, identity and
+        transition blocks, on the NV kernels (ops/cuda/bneck_nv.py); False
+        serves identity bottlenecks on the NHWC int8 products.
 
         Returns the number of quantized convs; raises ValueError when the
         model has none (channel counts not divisible by 32)."""
-        inf = Int8Inference(self._model)
+        inf = Int8Inference(self._model, fused_bneck=fused_bneck)
         batches = [self._prep(c) for c in self._padded_chunks(calib_images)]
         scales = calibrate(inf, batches)
         if not scales:
             raise ValueError(
                 "int8 quantization: no eligible convs in this model "
-                "(needs basic residual blocks and channel counts divisible "
-                "by 32).")
+                "(needs basic residual blocks with identity shortcuts and "
+                "channel counts divisible by 32).")
         self._fwd = inf.serve_fn(scales)
         self.act_scales = scales
         self.n_quantized = len(scales)

@@ -29,10 +29,15 @@ BatchNorm's batch statistics fold into the halves' (scale, shift) and its
 buffers update in place exactly as the layer does (``_fold_bn_batch_and_
 ema``). The dropout bits of a half are drawn over the lane shape (C, N).
 ``models/layers.py`` ``Sequential`` threads the lane layout from block to
-block. Bottleneck blocks (spec token ``b``) and the other kernel-path
-flags of the JAX ``ResidualBlock`` (the QAT backward, fused bf16 blocks,
-in-kernel dropout, strided-lane transitions, remat) are not ported yet:
-``check_unported_flags`` raises for each.
+block. The other kernel-path flags of the JAX ``ResidualBlock`` (the QAT
+backward, fused bf16 blocks, in-kernel dropout, strided-lane transitions,
+remat) are not ported yet: ``check_unported_flags`` raises for each.
+
+``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
+1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
+forward in eval and train mode. Its int8 serving path lives in
+models/quantize.py (the NV kernels); its int8 training path (JAX
+``NVLane``) is not ported yet, so ``int8_train`` raises.
 """
 
 from __future__ import annotations
@@ -53,9 +58,6 @@ from pytorch_ddp_resnet_tpu_torch.models.layers import (
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
 
-BOTTLENECK_TODO = ("bottleneck blocks are not ported yet (ROADMAP.md Queue "
-                   "2, bottleneck int8 serving on bneck_nv)")
-
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
     "int8_train": ("Queue 2 item 7: int8_train without int8_train_bwd is "
@@ -66,6 +68,9 @@ _UNPORTED_FLAGS = {
     "pallas_conv": "Queue 2 item 9, a later slice",
     "remat": "Queue 1 item 11, a later slice",
 }
+BOTTLENECK_INT8_TRAIN_TODO = (
+    "int8_train on bottleneck blocks is not ported yet (ROADMAP.md Queue 2 "
+    "item 6: the NV int8 training kernels of bneck_nv_train.py)")
 
 
 def check_unported_flags(int8_train: bool = False,
@@ -113,7 +118,56 @@ def _fold_bn_batch_and_ema(bn: BatchNorm, mean, var, n: int):
     return scale, shift
 
 
-class ResidualBlock(Layer):
+class _BlockBase(Layer):
+    """Geometry and shortcut shared by both block types (the JAX dataclass
+    fields of the same names)."""
+
+    channels: int
+    downsample: bool
+    use_proj: bool
+    out_channels_override: Optional[int]
+    stride_override: Optional[int]
+
+    @property
+    def in_channels(self) -> int:
+        return self.channels
+
+    @property
+    def out_channels(self) -> int:
+        if self.out_channels_override is not None:
+            return self.out_channels_override
+        return self.channels * 2 if self.downsample else self.channels
+
+    @property
+    def stride(self) -> int:
+        if self.stride_override is not None:
+            return self.stride_override
+        return 2 if self.downsample else 1
+
+    @property
+    def transforms_shortcut(self) -> bool:
+        return self.stride != 1 or self.out_channels != self.in_channels
+
+    def _check_shortcut(self, kind: str, hint: str) -> None:
+        if (self.transforms_shortcut and not self.use_proj
+                and self.out_channels < self.in_channels):
+            raise ValueError(
+                f"{kind} block maps {self.in_channels} -> "
+                f"{self.out_channels} channels with use_proj=False: the "
+                f"option-A zero-pad shortcut cannot SHRINK channels. "
+                f"{hint}")
+
+    def shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        """The shortcut branch on the raw block input."""
+        if not self.transforms_shortcut:
+            return x
+        i = subsample(x, self.stride)
+        if self.proj is not None:
+            return self.proj(i)
+        return zero_pad_channels(i, self.out_channels - self.in_channels)
+
+
+class ResidualBlock(_BlockBase):
     """Basic two-conv residual block. Children in the JAX sublayer order:
     conv1, conv2, norm1, norm2, drop1, drop2 (+ proj)."""
 
@@ -137,11 +191,7 @@ class ResidualBlock(Layer):
         self.out_channels_override = out_channels_override
         self.stride_override = stride_override
         cin, cout, cd = self.in_channels, self.out_channels, compute_dtype
-        if self.transforms_shortcut and not use_proj and cout < cin:
-            raise ValueError(
-                f"Residual block maps {cin} -> {cout} channels with "
-                f"use_proj=False: the option-A zero-pad shortcut cannot "
-                f"SHRINK channels. Use use_proj=True.")
+        self._check_shortcut("Residual", "Use use_proj=True.")
         self.conv1 = Conv(cin, cout, 3, stride=self.stride, padding=1,
                           use_bias=False, compute_dtype=cd)
         self.conv2 = Conv(cout, cout, 3, stride=1, padding=1, use_bias=False,
@@ -152,35 +202,6 @@ class ResidualBlock(Layer):
         self.drop2 = Dropout(dropout_prob)
         self.proj = (Conv(cin, cout, 1, use_bias=False, compute_dtype=cd)
                      if self.transforms_shortcut and use_proj else None)
-
-    @property
-    def in_channels(self) -> int:
-        return self.channels
-
-    @property
-    def out_channels(self) -> int:
-        if self.out_channels_override is not None:
-            return self.out_channels_override
-        return self.channels * 2 if self.downsample else self.channels
-
-    @property
-    def stride(self) -> int:
-        if self.stride_override is not None:
-            return self.stride_override
-        return 2 if self.downsample else 1
-
-    @property
-    def transforms_shortcut(self) -> bool:
-        return self.stride != 1 or self.out_channels != self.in_channels
-
-    def shortcut(self, x: torch.Tensor) -> torch.Tensor:
-        """The shortcut branch on the raw block input."""
-        if not self.transforms_shortcut:
-            return x
-        i = subsample(x, self.stride)
-        if self.proj is not None:
-            return self.proj(i)
-        return zero_pad_channels(i, self.out_channels - self.in_channels)
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         shape = tuple(x.shape)
@@ -331,3 +352,77 @@ class ResidualBlock(Layer):
         return fb.fused_half_int8(
             x_in, w_conv, s, t, bits, res, dropout_rate=self.dropout_prob,
             h=h, w_img=w, want_stats=want_stats)
+
+
+# the JAX sublayer order of the bottleneck block
+_BSUB = {"conv1": 0, "conv2": 1, "conv3": 2, "norm1": 3, "norm2": 4,
+         "norm3": 5, "drop1": 6, "drop2": 7, "drop3": 8, "proj": 9}
+
+
+class BottleneckResidualBlock(_BlockBase):
+    """Bottleneck residual block (JAX ``BottleneckResidualBlock``). Children
+    in the JAX sublayer order: conv1 (1x1), conv2 (3x3 at the block's
+    stride, padding 1), conv3 (1x1), norm1-3, drop1-3 (+ proj). The inner
+    width is ``width_override``, else ``channels // 4``, or ``// 2`` when
+    downsampling."""
+
+    def __init__(self, channels: int, downsample: bool, preact: bool,
+                 use_proj: bool, dropout_prob: float,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 out_channels_override: Optional[int] = None,
+                 width_override: Optional[int] = None,
+                 stride_override: Optional[int] = None,
+                 int8_train: bool = False, int8_train_bwd: bool = False):
+        super().__init__()
+        if int8_train or int8_train_bwd:
+            raise NotImplementedError(BOTTLENECK_INT8_TRAIN_TODO)
+        self.channels = channels
+        self.downsample = downsample
+        self.preact = preact
+        self.use_proj = use_proj
+        self.dropout_prob = dropout_prob
+        self.compute_dtype = compute_dtype
+        self.out_channels_override = out_channels_override
+        self.width_override = width_override
+        self.stride_override = stride_override
+        self._check_shortcut("Bottleneck", "Use use_proj=True for "
+                             "channel-reducing stack tokens.")
+        cin, cb, cout, cd = (self.in_channels, self.bottleneck_channels,
+                             self.out_channels, compute_dtype)
+        self.conv1 = Conv(cin, cb, 1, use_bias=False, compute_dtype=cd)
+        self.conv2 = Conv(cb, cb, 3, stride=self.stride, padding=1,
+                          use_bias=False, compute_dtype=cd)
+        self.conv3 = Conv(cb, cout, 1, use_bias=False, compute_dtype=cd)
+        self.norm1 = BatchNorm(cin if preact else cb, compute_dtype=cd)
+        self.norm2 = BatchNorm(cb, compute_dtype=cd)
+        self.norm3 = BatchNorm(cb if preact else cout, compute_dtype=cd)
+        self.drop1 = Dropout(dropout_prob)
+        self.drop2 = Dropout(dropout_prob)
+        self.drop3 = Dropout(dropout_prob)
+        self.proj = (Conv(cin, cout, 1, use_bias=False, compute_dtype=cd)
+                     if self.transforms_shortcut and use_proj else None)
+
+    @property
+    def bottleneck_channels(self) -> int:
+        if self.width_override is not None:
+            return self.width_override
+        return self.channels // 2 if self.downsample else self.channels // 4
+
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        def sub(name):  # drop1-3 draw from key.fold_in(6, 7, 8)
+            return None if key is None else key.fold_in(_BSUB[name])
+
+        def relu(t):
+            return torch.clamp_min(t, 0)
+
+        i = x
+        if self.preact:
+            x = self.conv1(self.drop1(relu(self.norm1(x)), sub("drop1")))
+            x = self.conv2(self.drop2(relu(self.norm2(x)), sub("drop2")))
+            x = self.conv3(self.drop3(relu(self.norm3(x)), sub("drop3")))
+        else:
+            x = relu(self.norm1(self.conv1(self.drop1(x, sub("drop1")))))
+            x = relu(self.norm2(self.conv2(self.drop2(x, sub("drop2")))))
+            x = self.norm3(self.conv3(self.drop3(x, sub("drop3"))))
+        h = self.shortcut(i).to(x.dtype) + x
+        return h if self.preact else relu(h)

@@ -9,8 +9,9 @@ so its eval affine folds into the conv:
 
 The conv weight becomes ``W * inv`` (its bias zero) and the BatchNorm a
 pure bias-add: ``scale=1, mean=0, var=1-eps`` and the folded constant in
-``bias``. Pre-activation (v2) blocks put the BN before the conv with a
-ReLU between and are skipped.
+``bias``. In a post-act block that is conv1/norm1, conv2/norm2 and, in a
+bottleneck block, conv3/norm3. Pre-activation (v2) blocks put the BN
+before the conv with a ReLU between and are skipped.
 """
 
 from __future__ import annotations
@@ -21,12 +22,18 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
+from pytorch_ddp_resnet_tpu_torch.models.blocks import (
+    BottleneckResidualBlock,
+    ResidualBlock,
+)
 from pytorch_ddp_resnet_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
     Sequential,
 )
+
+
+_BLOCK_PAIRS = (("conv1", "norm1"), ("conv2", "norm2"), ("conv3", "norm3"))
 
 
 @torch.no_grad()
@@ -54,10 +61,15 @@ def fold_batchnorm(model: nn.Module) -> Tuple[nn.Module, int]:
     for i, (_, layer) in enumerate(entries):
         if isinstance(layer, Sequential):  # a residual stack
             for block in layer.children():
-                if isinstance(block, ResidualBlock) and not block.preact:
-                    _fold_pair(block.conv1, block.norm1)
-                    _fold_pair(block.conv2, block.norm2)
-                    n += 2
+                if (not isinstance(block, (ResidualBlock,
+                                           BottleneckResidualBlock))
+                        or block.preact):
+                    continue
+                for cname, nname in _BLOCK_PAIRS:
+                    if hasattr(block, cname):
+                        _fold_pair(getattr(block, cname),
+                                   getattr(block, nname))
+                        n += 1
         elif isinstance(layer, BatchNorm) and i > 0:
             prev = entries[i - 1][1]
             if isinstance(prev, Conv):

@@ -6,13 +6,15 @@ Space-separated components:
   apK,S,P      average pool         rD        stack of D basic blocks
   rD,O,S       D basic blocks, first one to O channels at stride S
   n            batch norm           a         ReLU
-  fI,O         flatten + linear     bD...     bottleneck stack (not ported)
+  fI,O         flatten + linear     bD        stack of D bottleneck blocks
+  bD,O,W,S     D bottleneck blocks, first one to O channels at stride S,
+               inner width W
 
 Rules kept from the JAX package: the letter prefix is matched by
-``[a-z]+`` (``fc64,10`` parses as ``f64,10``); a legacy ``rD`` stack whose
-previous token is a stack of the same kind downsamples 2x and doubles the
-channels in its first block; top-level convs get kaiming-normal init,
-block convs torch's default.
+``[a-z]+`` (``fc64,10`` parses as ``f64,10``); a legacy ``rD`` or ``bD``
+stack whose previous token is a stack of the same kind downsamples 2x and
+doubles the channels in its first block; top-level convs get
+kaiming-normal init, block convs torch's default.
 
 ``ResNet`` is a ``Sequential`` whose children carry the JAX pytree names
 ('00_conv', '01_stack' -> 'block0', ...), so its ``state_dict`` keys are
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 
 from pytorch_ddp_resnet_tpu_torch.models.blocks import (
-    BOTTLENECK_TODO,
+    BottleneckResidualBlock,
     ResidualBlock,
     check_unported_flags,
 )
@@ -74,23 +76,31 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
     channels: Optional[int] = None
     cd = compute_dtype
 
-    def block_stack(n: int, tok: str) -> Sequential:
+    def block_stack(kind: str, n: int, tok: str) -> Sequential:
         nonlocal channels
-        ints = extract_int_list(tok, {1, 3})
+        cls = ResidualBlock if kind == "r" else BottleneckResidualBlock
+        ints = extract_int_list(tok, {1, 3} if kind == "r" else {1, 4})
         cin = channels
         if len(ints) == 1:
+            # legacy semantics: the adjacency downsampling rule
             depth = ints[0]
-            downsample = n > 0 and tokens[n - 1].startswith("r")
+            downsample = n > 0 and tokens[n - 1].startswith(kind)
             cout = 2 * channels if downsample else channels
             first, rest = {}, {}
         else:
-            depth, cout, stride = ints
+            # extended stage plan: explicit out-channels / width / stride
+            if kind == "r":
+                depth, cout, stride = ints
+                rest = {}
+            else:
+                depth, cout, width, stride = ints
+                rest = {"width_override": width}
             downsample = False
-            rest = {"out_channels_override": cout, "stride_override": 1}
+            rest.update(out_channels_override=cout, stride_override=1)
             first = {**rest, "stride_override": stride}
         blocks = []
         for ell in range(depth):
-            blocks.append((f"block{ell}", ResidualBlock(
+            blocks.append((f"block{ell}", cls(
                 channels=cin if ell == 0 else cout,
                 downsample=downsample if ell == 0 else False,
                 preact=preact, use_proj=use_proj, dropout_prob=dropout_prob,
@@ -117,11 +127,9 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
         elif tok.startswith("ap"):
             layer = AvgPool(*extract_ints(tok, 3))
             name = f"{n:02d}_avgpool"
-        elif tok.startswith("r"):
-            layer = block_stack(n, tok)
+        elif tok.startswith(("r", "b")):
+            layer = block_stack(tok[0], n, tok)
             name = f"{n:02d}_stack"
-        elif tok.startswith("b"):
-            raise NotImplementedError(f"{tok!r}: {BOTTLENECK_TODO}")
         elif tok.startswith("n"):
             layer = BatchNorm(channels, compute_dtype=cd)
             name = f"{n:02d}_bn"
@@ -148,8 +156,9 @@ class ResNet(Sequential):
     ``Key`` is required (the JAX ``apply`` requires an rng); BatchNorm
     buffers update in place. The keyword flags are the JAX constructor's
     kernel-path switches: ``int8_train`` with ``int8_train_bwd`` trains the
-    preact trunk in int8 on the fused kernels (models/blocks.py); every
-    other set flag, and ``int8_train`` alone, raises NotImplementedError."""
+    preact basic-block trunk in int8 on the fused kernels
+    (models/blocks.py); every other set flag, ``int8_train`` alone, and
+    either on a bottleneck stack raise NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,

@@ -115,8 +115,9 @@ def conv3x3_s32_plain(x_q, w_q, *, h: int, w_img: int) -> torch.Tensor:
     return _conv_f64(x_q, w_q, h, w_img).to(torch.int32)
 
 
-def _quant_s8(v: torch.Tensor) -> torch.Tensor:
-    # torch.round is half-to-even, as jnp.round
+def quant_s8(v: torch.Tensor) -> torch.Tensor:
+    """clip(round(v), -127, 127) as int8; torch.round is half to even, as
+    jnp.round."""
     return torch.clamp(torch.round(v), -127.0, 127.0).to(torch.int8)
 
 
@@ -133,14 +134,14 @@ def conv3x3_int8_requant_plain(x_q, w_q, scale, shift, res=None, dual=None,
         y = y + res.to(torch.bfloat16).to(torch.float32)
     if relu:
         y = torch.clamp_min(y, 0.0)
-    out = (_quant_s8(y * float(inv_out_scale))
+    out = (quant_s8(y * float(inv_out_scale))
            if inv_out_scale is not None else y.to(torch.bfloat16))
     if dual is None:
         return out
     sb, tb = dual
     g = torch.clamp_min(y * sb.to(torch.float32)[:, None]
                         + tb.to(torch.float32)[:, None], 0.0)
-    return out, _quant_s8(g)
+    return out, quant_s8(g)
 
 
 # --- kernels -------------------------------------------------------------------

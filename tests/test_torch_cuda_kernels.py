@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py,
-ops/cuda/augment.py, ops/cuda/fused_block.py and ops/cuda/stem.py): each
-kernel against its plain PyTorch version on the same CUDA tensors.
+ops/cuda/augment.py, ops/cuda/fused_block.py, ops/cuda/stem.py and
+ops/cuda/bneck_nv.py): each kernel against its plain PyTorch version on
+the same CUDA tensors.
 
 Marked ``cuda``; without a card every test skips (decided in the fixture,
 never at import). Run them on the machine with the card (no JAX there, so
@@ -20,7 +21,9 @@ fused int8 half and the stem: int8 codes, group absmaxes, bf16 outputs,
 the weight gradient (exact s32 per group, group sums in the same order)
 and the stem forward are equal; sums over positions (BatchNorm sums,
 d(scale), d(shift), the stem's weight and bias gradients) are f32 sums in
-another order: 1e-5 of the largest value.
+another order: 1e-5 of the largest value. The NV bottleneck kernels: exact
+s32 sums and the reference's rounding points in both versions, so int8
+and bf16 outputs are equal.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment as aug
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv as nv
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
@@ -292,3 +296,88 @@ def test_fused_and_stem_never_fall_back(dev):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         st.stem_fwd(x, torch.zeros((16, 27), device=dev),
                     torch.zeros(16, device=dev), h=8, w_img=8)
+
+
+# (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,
+# 32-channel widths, a batch that is not a power of two), then ResNet-50
+# stage shapes at batch 128
+NV_SHAPES = [(6, 5, 32, 32, 32, 1, 3), (7, 7, 64, 32, 64, 1, 8),
+             (6, 6, 32, 32, 96, 2, 4), (5, 7, 64, 32, 128, 2, 2),
+             (8, 8, 32, 64, 64, 1, 2),
+             (28, 28, 512, 128, 512, 1, 128), (7, 7, 2048, 512, 2048, 1, 128),
+             (56, 56, 64, 64, 256, 1, 128), (14, 14, 1024, 512, 2048, 2, 128)]
+
+
+@pytest.mark.parametrize("h,w,cin,wdt,cout,stride,b", NV_SHAPES)
+@pytest.mark.parametrize("out_int8", [True, False])
+def test_nv_kernels_match_plain(dev, h, w, cin, wdt, cout, stride, b,
+                                out_int8):
+    g = torch.Generator(device=dev).manual_seed(h * cin + cout)
+    proj = cout != cin or stride != 1
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+
+    def sc(c, fan):
+        return ((torch.rand(c, device=dev, generator=g) + 0.5) * 40
+                / (fan ** 0.5 * 127 ** 2 / 3))
+
+    def off(c):
+        return torch.rand(c, device=dev, generator=g) * 4 - 2
+
+    x = i8(b, h, w, cin)
+    ws = [i8(wdt, cin), i8(wdt, 9 * wdt), i8(cout, wdt)]
+    vecs = [sc(wdt, cin), off(wdt), sc(wdt, 9 * wdt), off(wdt),
+            sc(cout, wdt), off(cout)]
+    name = "bneck_transition_nv" if proj else "bneck_block_nv"
+    nv.reset_launches()
+    if proj:
+        args = (x, *ws, i8(cout, cin), *vecs, sc(cout, cin))
+        kw = dict(stride=stride, out_int8=out_int8)
+        got = nv.bneck_transition_nv(*args, **kw)
+        want = nv.bneck_transition_nv_plain(*args, **kw)
+    else:
+        args = (x, *ws, *vecs, 0.37)
+        got = nv.bneck_block_nv(*args, out_int8=out_int8)
+        want = nv.bneck_block_nv_plain(*args, out_int8=out_int8)
+    torch.cuda.synchronize()
+    assert dict(nv.launches) == {f"{name}.conv1": 1, f"{name}.conv2": 1,
+                                 name: 1}
+    assert want.unique().numel() > 20
+    _same(got, want)
+
+
+def test_nv_cuda_tensor_never_falls_back(dev):
+    x = torch.zeros((2, 4, 4, 48), dtype=torch.int8, device=dev)
+    ws = [torch.zeros(s, dtype=torch.int8, device=dev)
+          for s in ((48, 48), (48, 9 * 48), (48, 48))]
+    v = torch.ones(48, device=dev)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        nv.bneck_block_nv(x, *ws, v, v, v, v, v, v, 1.0)
+    x32 = torch.zeros((2, 4, 4, 32), dtype=torch.int8, device=dev)
+    w32 = [torch.zeros(s, dtype=torch.int8, device=dev)
+           for s in ((32, 32), (32, 9 * 32), (32, 32))]
+    with pytest.raises(ValueError, match="contiguous"):
+        nv.bneck_block_nv(x32.transpose(1, 2), *w32, *[v[:32]] * 6, 1.0)
+
+
+def test_bneck_nhwc_int8_products_match_plain(dev):
+    """The NHWC path's exact int8 1x1 products (torch._int_mm on the card)
+    against the float64 products of ``plain=True``: equal logits."""
+    from pytorch_ddp_resnet_tpu_torch.models.quantize import (
+        Int8Inference,
+        calibrate,
+    )
+    from pytorch_ddp_resnet_tpu_torch.models.resnet import ResNet
+
+    model = ResNet("c3,64,3,1,1 b2 n a ap8,1,0 fc64,10", True, True, 0.0,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn(32, 8, 8, 3, device=dev)
+    inf = Int8Inference(model, fused_bneck=False)
+    scales = calibrate(inf, [x])
+    assert len(scales) == 6
+    got = inf.serve_fn(scales)(x)
+    want = Int8Inference(model, fused_bneck=False, plain=True).serve_fn(
+        scales)(x)
+    assert torch.equal(got, want)

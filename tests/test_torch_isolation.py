@@ -42,7 +42,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 29  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 33  # every module was walked
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
