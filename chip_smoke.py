@@ -80,7 +80,31 @@ Phases, each fatal on failure:
    finite; the int8 walk through the kernels must equal the same walk
    through the plain versions. Prints float and int8 img/s (uint8 in,
    logits out) and a torch.profiler split of one int8 batch.
-10. Print one JSON line of per-kernel numbers, then the result line.
+10. NV training kernels: at every ResNet-50 identity-block geometry the
+   NV training gate admits (stages 1-3 at batch 128, stage 4 at batch 64)
+   and every kind of half (conv1 in identity and entry mode, conv2 3x3,
+   conv3), hold the forward, dgrad and wgrad of ops/cuda/csrc/
+   bneck_nv_train.cu against their plain versions on the same CUDA
+   tensors, with non-zero stats cotangents (and dx_res in entry mode), at
+   the JAX pickers' row chunks: row absmaxes, y, x_res, dx, dres and dW
+   equal, the f32 sums within 1e-5 of their largest value. Each stage is
+   timed beside its plain version and cuDNN's bf16 forward, input gradient
+   and weight gradient (channels-last) at the same shape.
+11. Training, the fifth main path: the ResNet-50 recipe at full width
+   (Synthetic 224x224x3 data, 1,024 resident images, the training
+   transforms cut to ToTensor + Flip + Standardize, batch 128) with
+   ``use_int8_train_bwd``, through ``setup(config)`` as in phase 5. With the
+   launch counts zeroed just before, each step must launch 30 NV halves
+   (3 identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each
+   one forward, dgrad and wgrad (NV_TRAIN_PER_STEP), and no other port
+   kernel; losses finite, every parameter changed, every BatchNorm count
+   equal to the steps. The first half of each kind in the first step, on
+   its live inputs and cotangents, must reproduce its outputs and equal
+   its plain versions. The same recipe without the flag (bf16 on cuDNN)
+   runs as the yardstick; both print step time, img/s, peak memory and a
+   profile, and the halves' per-step time from phase 10's per-call times
+   is printed beside the profiled one.
+12. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -115,6 +139,7 @@ AUG_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/augment.cu"
 FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
 STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
 NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
+NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
 REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv3x3_int8_requant": _PALLAS + "conv.py:314",
@@ -127,7 +152,10 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "fused_half_wgrad": _PALLAS + "fused_block.py:763, "
                                 + _PALLAS + "fused_block.py:992",
             "bneck_block_nv": _PALLAS + "bneck_nv.py:321",
-            "bneck_transition_nv": _PALLAS + "bneck_nv.py:600"}
+            "bneck_transition_nv": _PALLAS + "bneck_nv.py:600",
+            "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
+            "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
+            "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928"}
 # (kind, h, w, cin, width, cout, stride) at batch 128: the ResNet-50
 # stages, then WRN-50-2's stage 4 (its widest operands)
 NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
@@ -143,6 +171,21 @@ NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
 NV_NAMES = ("bneck_block_nv", "bneck_transition_nv")
 # ResNet-50: 12 identity and 4 transition blocks per serving batch
 NV_PER_BATCH = {"bneck_block_nv": 12, "bneck_transition_nv": 4}
+# (batch, h, w, cin, width, cout): the identity bottleneck blocks of
+# ResNet-50 that the NV training gate admits, stages 1-3 at batch 128 (the
+# main path's) and stage 4 at batch 64 (the largest batch it admits there)
+NVT_GEOMETRIES = [(128, 56, 56, 256, 64, 256), (128, 28, 28, 512, 128, 512),
+                  (128, 14, 14, 1024, 256, 1024), (64, 7, 7, 2048, 512, 2048)]
+NVT_NAMES = ("nv_half_fwd", "nv_half_dgrad", "nv_half_wgrad")
+# launches of one ResNet-50 FQT train step at batch 128: 30 NV halves (3
+# identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each one
+# forward, one dgrad and one wgrad; identity-mode dgrads have no d(s)/d(t)
+NVT_HALVES_PER_STEP = {("1x1", "identity"): 3, ("1x1", "entry"): 7,
+                       ("3x3", "affine"): 10, ("1x1", "affine"): 10}
+NV_TRAIN_PER_STEP = {
+    "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
+    "nv_half_bwd.amax": 30, "nv_half_dgrad": 30, "nv_half_dgrad.sum": 27,
+    "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
 # emitting BatchNorm sums (conv1 of the 10 identity blocks)
 FQT_PER_STEP = {
@@ -152,7 +195,7 @@ FQT_PER_STEP = {
     "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
     "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
     "fused_half_wgrad": 22, "fused_half_wgrad.sum": 22}
-F32_SUMS = ("ysum", "yssq", "ds", "dt", "db", "dw_stem")
+F32_SUMS = ("ysum", "yssq", "zsum", "zssq", "ds", "dt", "db", "dw_stem")
 # dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
 # the tensor cores), NVIDIA data sheets
 PEAKS = {"SXM": (989e12, 1979e12, 3.35e12, 67e12),
@@ -226,12 +269,13 @@ def port_modules():
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import (
         augment,
         bneck_nv,
+        bneck_nv_train,
         conv3x3,
         fused_block,
         stem,
     )
 
-    return augment, bneck_nv, conv3x3, fused_block, stem
+    return augment, bneck_nv, bneck_nv_train, conv3x3, fused_block, stem
 
 
 def reset_launches() -> None:
@@ -556,6 +600,7 @@ def serving_phase(workdir):
 KERNEL_KINDS = [
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
+    ("nv train halves (port)", ("nvt_",)),
     ("stem (port)", ("stem_",)),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
@@ -1282,6 +1327,351 @@ def nv_summary(rows, serving):
     return out
 
 
+# --- phases 10 and 11: int8 bottleneck FQT training -------------------------
+
+def _nvt_halves(cin, cb, cout):
+    """(conv, mode, Cin, Cout) of the four kinds of half in a block."""
+    return [("1x1", "identity", cin, cb), ("1x1", "entry", cin, cb),
+            ("3x3", "affine", cb, cb), ("1x1", "affine", cb, cout)]
+
+
+def _nvt_operands(g, n, h, w, ci, co, conv, mode):
+    import torch
+
+    dev = torch.device("cuda")
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    k = 3 if conv == "3x3" else 1
+    x = rn(n, h, w, ci).to(torch.bfloat16)
+    return dict(
+        x=x.abs() if mode == "identity" else x,
+        w=rn(co, ci, k, k, s=(k * k * ci) ** -0.5),
+        s=rn(ci, s=0.5) + 1.0 if mode != "identity" else None,
+        t=rn(ci, s=0.2) if mode != "identity" else None,
+        res=rn(n, h, w, ci).to(torch.bfloat16) if mode == "entry" else None,
+        dy=rn(n, h, w, co, s=1e-3).to(torch.bfloat16),
+        dzsum=rn(co, s=1e-4), dzssq=rn(co, s=1e-5),
+        dxout=(rn(n, h, w, ci, s=1e-3).to(torch.bfloat16)
+               if mode == "entry" else None))
+
+
+def _nvt_stage_fns(nvt, o, conv, mode, rch, plain):
+    """The three stages of one half as separate callables (forward: row
+    absmax + conv; dgrad: the cotangent's row absmax + conv; wgrad), on
+    the operands of ``o`` and the y of one forward."""
+    pick = (lambda name: getattr(nvt, name + "_plain")) if plain else (
+        lambda name: getattr(nvt, name))
+    three = conv == "3x3"
+    wq, ws = (nvt.quantize_w_3x3 if three else nvt.quantize_w_1x1)(o["w"])
+    wdg, wsin = (nvt.quantize_w_3x3_dgrad if three
+                 else nvt.quantize_w_1x1_dgrad)(o["w"])
+    x, s, t, res = o["x"], o["s"], o["t"], o["res"]
+    kw = dict(conv=conv, mode=mode)
+    rowmax_a = nvt.fwd_rowmax(x, s, t, res, mode=mode)[0]
+    y = nvt.fwd_conv(x, s, t, res, rowmax_a, wq, ws, rch=rch[0], **kw)[0]
+    cts = (o["dy"], y, o["dzsum"], o["dzssq"])
+    rowmax_g = nvt.bwd_rowmax(*cts)
+
+    def fwd():
+        ra = pick("fwd_rowmax")(x, s, t, res, mode=mode)[0]
+        return pick("fwd_conv")(x, s, t, res, ra, wq, ws, rch=rch[0], **kw)
+
+    def dgrad():
+        rg = pick("bwd_rowmax")(*cts)
+        return pick("dgrad_conv")(*cts, rg, wdg, wsin, x, s, t, res,
+                                  o["dxout"], rch=rch[1], **kw)
+
+    def wgrad():
+        return pick("wgrad")(*cts, rowmax_g, x, s, t, res, rowmax_a,
+                             rch=rch[2], **kw)
+
+    return dict(nv_half_fwd=fwd, nv_half_dgrad=dgrad, nv_half_wgrad=wgrad)
+
+
+def nv_train_kernel_phase(peaks):
+    """Rows per (NV training stage, geometry, half): max error of the half
+    against its plain version, and the kernel / plain / cuDNN-bf16 / bound
+    times of one call of the stage."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
+
+    _, ops_int8, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for n, h, w, cin, cb, cout in NVT_GEOMETRIES:
+        p = n * h * w
+        for conv, mode, ci, co in _nvt_halves(cin, cb, cout):
+            o = _nvt_operands(g, n, h, w, ci, co, conv, mode)
+            rch = nvt.pick_chunk_rows(h, w, n, ci, co, conv, mode)
+            err = _agree(
+                nvt.half_stages(**o, conv=conv, mode=mode, rch=rch),
+                nvt.half_stages(**o, conv=conv, mode=mode, rch=rch,
+                                plain=True), (h, conv, mode))
+            k = 3 if conv == "3x3" else 1
+            taps = k * k
+            cl = dict(memory_format=torch.channels_last)
+            x4 = torch.randn(n, ci, h, w, device=dev, generator=g).to(
+                torch.bfloat16).to(**cl)
+            w4 = torch.randn(co, ci, k, k, device=dev, generator=g).to(
+                torch.bfloat16).to(**cl)
+            dy4 = torch.randn(n, co, h, w, device=dev, generator=g).to(
+                torch.bfloat16).to(**cl)
+            pad = k // 2
+            lib = dict(
+                nv_half_fwd=time_ms(lambda: F.conv2d(x4, w4, padding=pad),
+                                    10),
+                nv_half_dgrad=time_ms(lambda: conv2d_input(
+                    x4.shape, w4, dy4, padding=pad), 10),
+                nv_half_wgrad=time_ms(lambda: conv2d_weight(
+                    x4, w4.shape, dy4, padding=pad), 10))
+            del x4, w4, dy4
+            kern = _nvt_stage_fns(nvt, o, conv, mode, rch, plain=False)
+            plain = _nvt_stage_fns(nvt, o, conv, mode, rch, plain=True)
+            entry, affine = mode == "entry", mode != "identity"
+            wbytes = taps * ci * co
+            byts = dict(  # each input read once, each output written once
+                nv_half_fwd=2 * p * (ci + co) + wbytes
+                + (4 * p * ci if entry else 0),
+                nv_half_dgrad=2 * p * (2 * co + ci) + wbytes
+                + (2 * p * ci if affine else 0)
+                + (6 * p * ci if entry else 0),
+                nv_half_wgrad=2 * p * (2 * co + ci) + 4 * wbytes
+                + (2 * p * ci if entry else 0))
+            for name in NVT_NAMES:
+                rows.append(dict(
+                    name=name, n=n, h=h, w=w, cin=ci, cout=co, conv=conv,
+                    mode=mode, rch=list(rch), max_abs_err=err,
+                    ms=time_ms(kern[name], 10),
+                    plain_ms=time_ms(plain[name], 1),
+                    library_ms=lib[name],
+                    ops_ms=2 * p * taps * ci * co / ops_int8 * 1e3,
+                    bytes_ms=byts[name] / bw * 1e3))
+            del o, kern, plain
+            torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+class RecordNVHalves:
+    """Around the first train step: record the first NV half of each kind
+    (conv, mode), its live inputs and, through gradient hooks, its live
+    cotangents."""
+
+    def __init__(self):
+        self.rec = {}
+
+    def __enter__(self):
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train
+
+        self.mod = bneck_nv_train
+        self.orig = (bneck_nv_train.nv_half_1x1, bneck_nv_train.nv_half_3x3)
+        rec = self.rec
+
+        def clone(t):
+            return None if t is None else t.detach().clone()
+
+        def wrap(orig, conv):
+            def recording(x, w, s=None, t=None, res=None, **kw):
+                out = (orig(x, w, s, t, res, **kw) if conv == "1x1"
+                       else orig(x, w, s, t, **kw))
+                key = (conv, kw["mode"])
+                if key not in rec:
+                    # copies: the optimizer updates the weight in place
+                    r = rec[key] = dict(
+                        x=clone(x), w=clone(w), s=clone(s), t=clone(t),
+                        res=clone(res), out=[clone(o) for o in out])
+                    for name, o in zip(("dy", "dzsum", "dzssq", "dxout"),
+                                       out):
+                        o.register_hook(lambda gr, name=name, r=r:
+                                        r.__setitem__(name, clone(gr)))
+                return out
+            return recording
+
+        bneck_nv_train.nv_half_1x1 = wrap(self.orig[0], "1x1")
+        bneck_nv_train.nv_half_3x3 = wrap(self.orig[1], "3x3")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.nv_half_1x1, self.mod.nv_half_3x3 = self.orig
+        return False
+
+
+def live_nv_check(rec):
+    """Each recorded half, forward and backward through the kernels on its
+    live tensors: reproduces the live outputs and equals the plain
+    versions."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
+
+    out = []
+    for (conv, mode), r in sorted(rec.items()):
+        n, h, w, ci = r["x"].shape
+        co = r["out"][0].shape[-1]
+        rch = nvt.pick_chunk_rows(h, w, n, ci, co, conv, mode)
+        ops = {k: r[k] for k in ("x", "w", "s", "t", "res", "dy", "dzsum",
+                                 "dzssq")}
+        ops["dy"] = ops["dy"].contiguous()
+        ops["dxout"] = (r["dxout"].contiguous() if mode == "entry"
+                        else None)
+        got = nvt.half_stages(**ops, conv=conv, mode=mode, rch=rch)
+        assert torch.equal(got["y"], r["out"][0]), (conv, mode)
+        if mode == "entry":
+            assert torch.equal(got["x_res"], r["out"][3])
+        err = _agree(got, nvt.half_stages(**ops, conv=conv, mode=mode,
+                                              rch=rch, plain=True),
+                         ("live", conv, mode))
+        out.append(dict(conv=conv, mode=mode, n=n, h=h, w=w, cin=ci,
+                        cout=co, rch=list(rch), max_abs_err=err))
+    return out
+
+
+def bneck_training_phase(workdir, fqt: bool):
+    """Full-width ResNet-50 training through setup and the train step,
+    Synthetic 224x224 data, batch 128: with ``use_int8_train_bwd`` (the NV
+    training halves) or without (bf16 on cuDNN, the yardstick)."""
+    import contextlib
+    import math
+
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.algos.steps import make_train_step
+    from pytorch_ddp_resnet_tpu_torch.algos.train import setup
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
+    from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
+
+    shape = [224, 224, 3]
+    # ImageNet is not on the machine; the training transforms cut to those
+    # the port has (RandomScale is host-only in JAX, Color not ported;
+    # RandomCrop at 224 of a 224 image is the identity)
+    config = write_run(
+        workdir, "resnet-50-train" + ("-int8" if fqt else ""), R50_CONFIG,
+        dataset_cls_name="Synthetic",
+        dataset_args={"shape": shape, "num_classes": 1000, "n_train": 1024,
+                      "n_test": 128},
+        data_aug_train={"ToTensorTransform": {}, "FlipTransform": {"p": 0.5},
+                        "StandardizeWhiteningTransform": {}},
+        data_aug_test={"ToTensorTransform": {},
+                       "StandardizeWhiteningTransform": {}},
+        batch_size=BATCH, use_int8_train_bwd=fqt)
+    t0 = time.perf_counter()
+    ls = setup(config, verbose=False)
+    setup_s = time.perf_counter() - t0
+    model, pipeline, ts = ls["model"], ls["pipeline"], ls["train_state"]
+    assert model.param_count() == 25549416, model.param_count()
+    step = pipeline.bind_train_step(
+        make_train_step(model, ls["optimizer"], ls["num_microbatches"],
+                        augment_fn=ls["augment_fn"]),
+        pass_indices=ls["augment_pass_indices"])
+    root = Key(config.get("seed", 0))
+    # 1024 images are 8 steps an epoch: two epochs' feeds
+    feeds = [b for e in (0, 1) for _, b in pipeline.train_feed(e)][
+        :TRAIN_STEPS + PROFILE_STEPS]
+    lr = ls["scheduler"].get_lr()
+    before = {k: v.detach().clone() for k, v in ts["params"].items()}
+    record = RecordNVHalves() if fqt else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, with the launch counts zeroed just before
+    reset_launches()
+    metrics = []
+    for gs in range(TRAIN_STEPS):
+        if gs == WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        with (record if gs == 0 and record is not None
+              else contextlib.nullcontext()):
+            ts, m = step(ts, *feeds[gs], lr, root.fold_in(gs))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
+    launches = all_launches()
+    shapes = dict(nvt.launch_shapes)
+    peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    losses = [float(m["loss"]) for m in metrics]
+    want = ({k: v * TRAIN_STEPS for k, v in NV_TRAIN_PER_STEP.items()}
+            if fqt else {})
+    assert launches == want, launches
+    if fqt:
+        halves = {}
+        for (stage, conv, mode, *_), c in shapes.items():
+            if stage == "fwd":
+                halves[(conv, mode)] = halves.get((conv, mode), 0) + c
+        assert halves == {k: v * TRAIN_STEPS
+                          for k, v in NVT_HALVES_PER_STEP.items()}, halves
+    assert all(math.isfinite(v) for v in losses), losses
+    for k, v in ts["params"].items():
+        assert not torch.equal(v, before[k]), f"{k} did not change"
+    counts = {int(b) for n, b in ts["model_state"].items()
+              if n.endswith("count")}
+    assert counts == {TRAIN_STEPS}, counts
+    live = live_nv_check(record.rec) if fqt else None
+
+    def more_steps():
+        nonlocal ts
+        for gs in range(TRAIN_STEPS, TRAIN_STEPS + PROFILE_STEPS):
+            ts, _ = step(ts, *feeds[gs], lr, root.fold_in(gs))
+
+    profile = _profile_steps(more_steps, PROFILE_STEPS)
+    return dict(
+        launches=launches, shapes=shapes, steps=TRAIN_STEPS, losses=losses,
+        lr=lr, setup_s=setup_s, step_ms=step_ms,
+        img_per_s=BATCH / step_ms * 1e3, peak_mem_gib=peak_mem,
+        live_halves=live, profile=profile)
+
+
+def nv_train_summary(rows, training):
+    """One entry per NV training stage kernel: the FQT run's launches, and
+    the device time per train step: phase 10's per-call times summed over
+    the halves the main path ran (``training["shapes"]``)."""
+    out = []
+    for name in NVT_NAMES:
+        stage = name.split("_")[-1]
+        mine = [r for r in rows if r["name"] == name]
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                   bytes_ms=0.0)
+        for (st, conv, mode, n, h, w, cin, cout), count in \
+                training["shapes"].items():
+            if st != stage:
+                continue
+            row = next(r for r in mine if (r["n"], r["h"], r["conv"],
+                                           r["mode"], r["cin"], r["cout"])
+                       == (n, h, conv, mode, cin, cout))
+            for key in tot:
+                tot[key] += row[key] * count / training["steps"]
+        out.append(dict(
+            name=name, route="cuda", source=NVT_SOURCE,
+            replaces=REPLACES[name],
+            launches=training["launches"].get(name, 0),
+            split_launches={k: v for k, v in training["launches"].items()
+                            if k.startswith(name)
+                            or (stage != "fwd" and k == "nv_half_bwd.amax")},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=tot["library_ms"],
+            per=f"ResNet-50 FQT train step at batch {BATCH} (ms per call "
+                "summed over the step's halves; launches over the run)",
+            stages=[{k: r[k] for k in ("n", "h", "conv", "mode", "cin",
+                                       "cout", "rch", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by",
+                                       "max_abs_err")} for r in mine]))
+    return out
+
+
 def print_training(label, training):
     print(f"{label}: " + json.dumps(
         {k: v for k, v in training.items() if k != "profile"}))
@@ -1329,6 +1719,7 @@ def main() -> int:
     aug_rows = augment_phase(peaks)
     fqt_rows = fqt_kernel_phase(peaks)
     nv_rows = nv_kernel_phase(peaks)
+    nvt_rows = nv_train_kernel_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows + fqt_rows:
         print("  " + json.dumps({k: r[k] for k in (
@@ -1337,6 +1728,11 @@ def main() -> int:
     for r in nv_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "h", "cin", "wdt", "cout", "stride", "out_int8", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}))
+    for r in nvt_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}))
     for r in aug_rows:
@@ -1368,12 +1764,27 @@ def main() -> int:
         r50 = bneck_serving_phase(workdir)
         print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        r50_fqt = bneck_training_phase(workdir, fqt=True)
+        r50_bf16 = bneck_training_phase(workdir, fqt=False)
+        print(f"bottleneck training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print_training("training", training)
     print_training("int8 training", fqt)
     print_training("resnet-50 serving", {
         k: v for k, v in r50.items() if k != "shapes"})
+    for label, run in (("resnet-50 int8 training", r50_fqt),
+                       ("resnet-50 bf16 training", r50_bf16)):
+        print_training(label, {k: v for k, v in run.items()
+                               if k != "shapes"})
+    nvt_kernels = nv_train_summary(nvt_rows, r50_fqt)
+    if r50_fqt["profile"] is not None:
+        kinds = r50_fqt["profile"]["device_ms_per_step_by_kind"]
+        print("resnet-50 int8 training: NV halves per step, phase 10 "
+              f"per-call times summed {sum(k['ms'] for k in nvt_kernels)} "
+              f"ms, profiled {kinds.get('nv train halves (port)', 0.0)} ms")
     fqt_kernels = fqt_summary(fqt_rows, fqt, record.halves)
     if fqt["profile"] is not None:
         kinds = fqt["profile"]["device_ms_per_step_by_kind"]
@@ -1385,7 +1796,8 @@ def main() -> int:
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"kernels": kernel_summary(rows, serving)
                       + [augment_summary(aug_rows, training)]
-                      + fqt_kernels + nv_summary(nv_rows, r50)}))
+                      + fqt_kernels + nv_summary(nv_rows, r50)
+                      + nvt_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

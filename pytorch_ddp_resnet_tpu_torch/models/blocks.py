@@ -36,13 +36,23 @@ remat) are not ported yet: ``check_unported_flags`` raises for each.
 ``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
 1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
 forward in eval and train mode. Its int8 serving path lives in
-models/quantize.py (the NV kernels); its int8 training path (JAX
-``NVLane``) is not ported yet, so ``int8_train`` raises.
+models/quantize.py (the NV kernels). Its int8 fully quantized training
+(JAX ``NVLane``, ``blocks.py:944-1039``): in train mode a post-act
+identity block whose geometry passes the JAX gate runs its three convs on
+``nv_half_1x1``/``nv_half_3x3`` (ops/cuda/bneck_nv_train.py), BatchNorm
+folded from each half's sums. ``Sequential`` carries an ``NVLane`` from
+block to block (as in JAX, only ``Sequential`` takes the NV path; the
+block's own ``forward`` is the float one): each block leaves its conv3
+epilogue (BN3 affine, residual add, relu) pending, and the next block's
+conv1 applies it in its entry prologue, or ``materialize`` applies it
+where the run closes. Every other bottleneck block (preact, a transition,
+a batch the gate refuses) trains on the float layer path, as in JAX; the
+QAT mode raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,8 +65,10 @@ from pytorch_ddp_resnet_tpu_torch.models.layers import (
     from_lane,
     to_lane,
 )
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.nv_common import fma_f32
 
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
@@ -68,9 +80,6 @@ _UNPORTED_FLAGS = {
     "pallas_conv": "Queue 2 item 9, a later slice",
     "remat": "Queue 1 item 11, a later slice",
 }
-BOTTLENECK_INT8_TRAIN_TODO = (
-    "int8_train on bottleneck blocks is not ported yet (ROADMAP.md Queue 2 "
-    "item 6: the NV int8 training kernels of bneck_nv_train.py)")
 
 
 def check_unported_flags(int8_train: bool = False,
@@ -116,6 +125,29 @@ def _fold_bn_batch_and_ema(bn: BatchNorm, mean, var, n: int):
         bn.var.copy_((1 - m) * bn.var + m * var * (n / max(n - 1, 1)))
         bn.count.add_(1)
     return scale, shift
+
+
+class NVLane(NamedTuple):
+    """An open NV run (Sequential's lane payload for int8 bottleneck
+    training; JAX ``NVLane``). ``x``: the current block input, the
+    materialized residual carrier, NHWC bf16. ``acc3``/``s3``/``t3``: the
+    previous block's raw conv3 output and folded BN3 affine, whose epilogue
+    is still pending (None at a run's start)."""
+
+    x: torch.Tensor
+    acc3: Optional[torch.Tensor] = None
+    s3: Optional[torch.Tensor] = None
+    t3: Optional[torch.Tensor] = None
+
+    def materialize(self) -> torch.Tensor:
+        """Close the run: relu(acc3*s3 + t3 + x) in bf16, NHWC. ``acc3*s3 +
+        t3`` is one fused multiply-add, as the reference computes it under
+        jit."""
+        if self.acc3 is None:
+            return self.x
+        y = fma_f32(self.acc3, self.s3, self.t3)
+        return torch.clamp_min(y + self.x.to(torch.float32),
+                               0.0).to(self.x.dtype)
 
 
 class _BlockBase(Layer):
@@ -374,8 +406,10 @@ class BottleneckResidualBlock(_BlockBase):
                  stride_override: Optional[int] = None,
                  int8_train: bool = False, int8_train_bwd: bool = False):
         super().__init__()
-        if int8_train or int8_train_bwd:
-            raise NotImplementedError(BOTTLENECK_INT8_TRAIN_TODO)
+        check_unported_flags(int8_train=int8_train,
+                             int8_train_bwd=int8_train_bwd)
+        self.int8_train = int8_train
+        self.int8_train_bwd = int8_train_bwd
         self.channels = channels
         self.downsample = downsample
         self.preact = preact
@@ -426,3 +460,62 @@ class BottleneckResidualBlock(_BlockBase):
             x = self.norm3(self.conv3(self.drop3(x, sub("drop3"))))
         h = self.shortcut(i).to(x.dtype) + x
         return h if self.preact else relu(h)
+
+    # --- the NV int8 training path (Sequential's lane protocol) -------------
+
+    def lane_eligible(self, x_shape, train: bool) -> bool:
+        """Copy of the JAX gate: a train-mode post-act identity block at
+        stride 1 under ``int8_train``, no dropout, bf16, a batch that is a
+        power of two and a multiple of 32, channels and width multiples of
+        8, and a geometry every half's row-chunk picker admits."""
+        if not (self.int8_train and train and not self.preact):
+            return False
+        if self.transforms_shortcut or self.stride != 1:
+            return False
+        if self.dropout_prob != 0.0 or self.compute_dtype != torch.bfloat16:
+            return False
+        if len(x_shape) != 4:
+            return False
+        b, h, w, c = x_shape
+        if c != self.in_channels:
+            return False
+        if b < 32 or b % 32 or b & (b - 1):
+            return False
+        if c % 8 or self.bottleneck_channels % 8:
+            return False
+        return nvt.nv_train_fits(h, w, b, c, self.bottleneck_channels,
+                                 self.out_channels)
+
+    def lane_from_nhwc(self, x: torch.Tensor) -> NVLane:
+        """Open an NV run from a materialized NHWC activation."""
+        return NVLane(x.to(self.compute_dtype).contiguous())
+
+    def apply_lane(self, nv: NVLane, x_shape, key=None) -> NVLane:
+        """One identity block on the NV run: three int8 halves and the
+        BatchNorm vector math; its own conv3 epilogue is left pending in
+        the returned NVLane (no dropout on this path: gated)."""
+        del key
+        b, h, w, _ = x_shape
+        cnt = b * h * w
+
+        def bn_fold(bn, zsum, zssq):
+            mean = zsum / cnt
+            var = zssq / cnt - torch.square(mean)
+            return _fold_bn_batch_and_ema(bn, mean, var, cnt)
+
+        if nv.acc3 is None:
+            y1, z1s, z1q = nvt.nv_half_1x1(nv.x, self.conv1.weight,
+                                           mode="identity", w_img=w)
+            x_mat = nv.x
+        else:
+            y1, z1s, z1q, x_mat = nvt.nv_half_1x1(
+                nv.acc3, self.conv1.weight, nv.s3, nv.t3, res=nv.x,
+                mode="entry", w_img=w)
+        s1, t1 = bn_fold(self.norm1, z1s, z1q)
+        y2, z2s, z2q = nvt.nv_half_3x3(y1, self.conv2.weight, s1, t1,
+                                       mode="affine", w_img=w)
+        s2, t2 = bn_fold(self.norm2, z2s, z2q)
+        y3, z3s, z3q = nvt.nv_half_1x1(y2, self.conv3.weight, s2, t2,
+                                       mode="affine", w_img=w)
+        s3, t3 = bn_fold(self.norm3, z3s, z3q)
+        return NVLane(x_mat, y3, s3, t3)

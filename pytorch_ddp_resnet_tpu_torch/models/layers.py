@@ -35,7 +35,10 @@ round trip. A layer joins a run through ``lane_eligible``/``apply_lane``
 (a fused residual block), starts one from NHWC through
 ``lane_entry_eligible``/``apply_to_lane`` (the lane stem, a transition
 block), and a nested ``Sequential`` whose first block takes the lane
-layout continues the run; any other layer closes it back to NHWC.
+layout continues the run; any other layer closes it back to NHWC. A layer
+with ``lane_from_nhwc`` opens its run itself, and a payload with
+``materialize`` closes itself (the int8 bottleneck trunk's ``NVLane``,
+models/blocks.py); the lane layout is the other payload.
 """
 
 from __future__ import annotations
@@ -73,6 +76,13 @@ def from_lane(x_cs: torch.Tensor, shape) -> torch.Tensor:
     """The lane layout back to NHWC of ``shape`` (b, h, w, c)."""
     b, h, w, c = shape
     return x_cs.reshape(c, b, h, w).permute(1, 2, 3, 0)
+
+
+def _delane(payload, shape) -> torch.Tensor:
+    """Close an open run back to NHWC (JAX ``_delane``)."""
+    if hasattr(payload, "materialize"):
+        return payload.materialize()
+    return from_lane(payload, shape)
 
 
 class Layer(nn.Module):
@@ -311,7 +321,7 @@ class Sequential(Layer):
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         x, lane = self._apply_loop(x, None, key)
-        return from_lane(*lane) if lane is not None else x
+        return _delane(*lane) if lane is not None else x
 
     def _lane_accepts(self, x_shape, train: bool) -> bool:
         """True when this (nested) Sequential can start from the lane
@@ -331,18 +341,20 @@ class Sequential(Layer):
             if (hasattr(layer, "apply_lane")
                     and layer.lane_eligible(shape, train)):
                 if lane is None:
-                    lane = (to_lane(x, layer.compute_dtype), shape)
+                    lane = ((layer.lane_from_nhwc(x)
+                             if hasattr(layer, "lane_from_nhwc")
+                             else to_lane(x, layer.compute_dtype)), shape)
                 lane = (layer.apply_lane(lane[0], shape, key=k), shape)
             elif (hasattr(layer, "apply_to_lane")
                   and layer.lane_entry_eligible(shape, train)):
                 if lane is not None:
-                    x, lane = from_lane(*lane), None
+                    x, lane = _delane(*lane), None
                 lane = layer.apply_to_lane(x, key=k)
             elif (isinstance(layer, Sequential) and lane is not None
                   and layer._lane_accepts(shape, train)):
                 x, lane = layer._apply_loop(None, lane, k)
             else:
                 if lane is not None:
-                    x, lane = from_lane(*lane), None
+                    x, lane = _delane(*lane), None
                 x = layer(x, key=k)
         return x, lane

@@ -156,9 +156,10 @@ class ResNet(Sequential):
     ``Key`` is required (the JAX ``apply`` requires an rng); BatchNorm
     buffers update in place. The keyword flags are the JAX constructor's
     kernel-path switches: ``int8_train`` with ``int8_train_bwd`` trains the
-    preact basic-block trunk in int8 on the fused kernels
-    (models/blocks.py); every other set flag, ``int8_train`` alone, and
-    either on a bottleneck stack raise NotImplementedError."""
+    preact basic-block trunk in int8 on the fused kernels and the post-act
+    bottleneck trunk on the NV training halves (models/blocks.py), each
+    block the JAX gates admit; every other set flag and ``int8_train``
+    alone (QAT) raise NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,

@@ -1,0 +1,837 @@
+"""Int8 training halves of the post-act bottleneck trunk, forward and fully
+quantized backward (counterpart of
+``pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py`` with
+``quant=True, quant_bwd=True``).
+
+One half is one conv of an identity bottleneck block with the previous
+BatchNorm folded into its prologue:
+
+    a   = x                         "identity" (a run's first conv1)
+        = relu(x*s + t)             "affine"   (conv2, conv3)
+        = relu(x*s + t + res)       "entry"    (a mid-run conv1; a is also
+                                                 emitted as x_res, bf16)
+    y   = bf16(f32(conv(q(a), wq)) * (ws * scale))   1x1 or 3x3 SAME
+    zsum, zssq = per-channel f32 sums of y and y^2   (the next BN's stats)
+
+and its backward folds the stats cotangents into ``g = dy + dzsum +
+2*y*dzssq``, quantizes g against per-input-channel int8 weights (dgrad,
+then the prologue's backward: dx, d(s), d(t), and in entry mode dres),
+and quantizes both a and g for the weight gradient.
+
+Tensors are NHWC: x [N, h, w, Cin] bf16, y [N, h, w, Cout] bf16, with no
+border columns (the JAX kernels take the TPU's [h, wp, N, C] carrier;
+tests convert). Weights are the port's OIHW; the quantizers return the
+kernels' layouts with the contraction innermost.
+
+**Scale groups.** Chunk k of a stage is image rows [k*rch, (k+1)*rch) of
+every image, with that stage's own rch (the JAX row-chunk pickers, copied
+here with their TPU budget because they decide the numbers). A 3x3
+stage's activation group (forward, wgrad) and cotangent group (dgrad)
+also cover the halo rows k*rch-1 and (k+1)*rch inside the image; the
+wgrad's cotangent group has none. Each group is quantized with its own
+absmax: ``q = clip(rint(v * f32(127 / max(amax, 1e-30))), +-127)``,
+``scale = amax * f32(1/127)``. An absmax is exact in any order, so one
+pass writes the per-image-row maxima of |a| (forward, kept for the
+wgrad) and of |g| (backward, shared by dgrad and wgrad), and every
+kernel reduces them over its own groups.
+
+Rounding points, as the reference computes them where the tests run it
+(interpret mode, lowered by XLA on the CPU; pinned by
+tests/test_torch_bneck_nv_train.py): ``x*s + t`` is one fused
+multiply-add, ``+ res`` rounds on its own; the fold ``(dy + dzsum) +
+(2y)*dzssq`` is one fused multiply-add; ``ws * scale`` rounds to f32
+before it multiplies f32(acc), and in the entry dgrad that product and
+``+ dx_res`` are one fused multiply-add; every bf16 output is the f32
+value rounded once more; the wgrad adds each chunk's ``f32(s32) *
+((amax_a * amax_g) * f32(1/127^2))`` into dW in chunk order (XLA
+reassociates the two 1/127 factors).
+
+Layers of this module, each a CPU-or-card wrapper beside its plain
+version (a CPU tensor runs the plain PyTorch version; a CUDA tensor
+launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
+
+- ``fwd_rowmax``   (launches ``nv_half_fwd.amax``)
+- ``fwd_conv``     (``nv_half_fwd``, ``nv_half_fwd.sum``)
+- ``bwd_rowmax``   (``nv_half_bwd.amax``)
+- ``dgrad_conv``   (``nv_half_dgrad``, and ``nv_half_dgrad.sum`` unless
+                    the mode is identity)
+- ``wgrad``        (``nv_half_wgrad``, ``nv_half_wgrad.sum``)
+
+and ``nv_half_1x1`` / ``nv_half_3x3``, the differentiable ops over them.
+``launches`` counts each kernel launch by name and ``launch_shapes`` each
+op call by (stage, conv, mode, N, h, w, Cin, Cout); plain calls count
+nothing. The plain versions compute every int8 product sum exactly in
+float64.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
+    check_rc,
+    on_cpu,
+    require_cuda,
+)
+
+launches: collections.Counter = collections.Counter()
+launch_shapes: collections.Counter = collections.Counter()
+
+MODES = ("identity", "affine", "entry")
+QAT_TODO = ("ROADMAP.md Queue 2 item 7: the QAT mode (quant_bwd=False) and "
+            "the quant=False bodies of the NV training halves run bf16 "
+            "kernels not ported yet")
+INV_127 = float(np.float32(1.0 / 127.0))  # the reference's f32(1/127)
+INV_127_SQ = float(np.float32(INV_127) * np.float32(INV_127))
+FLOOR = 1e-30                              # absmax floor of every group
+
+f32 = torch.float32
+f64 = torch.float64
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    launches.clear()
+    launch_shapes.clear()
+
+
+# --- the chunk model (copies of the JAX pickers) -----------------------------
+
+def nv_geometry(h: int, w: int) -> int:
+    """wp of the JAX NV carrier for an [h, w] plane: the smallest power of
+    two >= w + 2, at least 8. The port has no border columns; the pickers
+    take wp because it sizes the JAX kernels' row chunks."""
+    if h < 1 or w < 1:
+        raise ValueError(f"degenerate plane {h}x{w}")
+    wp = 8
+    while wp < w + 2:
+        wp *= 2
+    return wp
+
+
+def _pick_rch(h: int, row_bytes: int, fixed: int,
+              budget: int = 100 * 1024 * 1024) -> int:
+    """Largest row chunk R dividing h with R * row_bytes + fixed within the
+    budget (the TPU kernels' VMEM budget; it decides the scale groups)."""
+    best = None
+    for r in range(1, h + 1):
+        if h % r == 0 and r * row_bytes + fixed <= budget:
+            best = r
+    if best is None:
+        raise ValueError(
+            f"NV train geometry does not fit the VMEM budget even at "
+            f"1-row chunks: est {(row_bytes + fixed) / 2**20:.1f} MB vs "
+            f"{budget / 2**20:.0f} MB — shrink the batch or image plane")
+    return best
+
+
+def _lanes(c: int) -> int:
+    return -(-c // 128) * 128
+
+
+def _w_fixed(taps, cin, cout):
+    return taps * cin * _lanes(cout) * 2
+
+
+def _sliver_fixed(wp, n, c):
+    return wp * n * _lanes(c) * (2 * 4 + 2 * 5)
+
+
+def _rows_fwd1x1(wp, n, cin, cout, entry):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * ci + 4 * ci + ci + 4 * co + 4 * co
+                     + (12 * ci if entry else 0))
+
+
+def _rows_fwd3x3(wp, n, cin, cout):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * ci + 4 * ci + ci + 4 * co + 4 * co)
+
+
+def _rows_dgrad1x1(wp, n, cin, cout, entry):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * co * 2 + 4 * co + co + 4 * ci + 4 * ci + 4 * ci
+                     + 4 * ci + (8 * ci if entry else 0))
+
+
+def _rows_dgrad3x3(wp, n, cin, cout):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * co * 2 + 4 * co + co + 4 * ci + 4 * ci + 4 * ci
+                     + 4 * ci)
+
+
+def _rows_wgrad1x1(wp, n, cin, cout, entry):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * co * 2 + 4 * co + co + 4 * ci + 4 * ci + ci
+                     + (4 * ci if entry else 0))
+
+
+def _rows_wgrad3x3(wp, n, cin, cout):
+    ci, co = _lanes(cin), _lanes(cout)
+    return wp * n * (4 * co * 2 + 4 * co + co + 4 * ci + 4 * ci + ci)
+
+
+def _rch_fwd(h, wp, n, cin, cout, conv, entry):
+    if conv == "1x1":
+        return _pick_rch(h, _rows_fwd1x1(wp, n, cin, cout, entry),
+                         _w_fixed(1, cin, cout))
+    return _pick_rch(h, _rows_fwd3x3(wp, n, cin, cout),
+                     _w_fixed(9, cin, cout) + _sliver_fixed(wp, n, cin))
+
+
+def _rch_dgrad(h, wp, n, cin, cout, conv, entry):
+    if conv == "1x1":
+        return _pick_rch(h, _rows_dgrad1x1(wp, n, cin, cout, entry),
+                         _w_fixed(1, cout, cin))
+    return _pick_rch(h, _rows_dgrad3x3(wp, n, cin, cout),
+                     _w_fixed(9, cout, cin) + 2 * _sliver_fixed(wp, n, cout))
+
+
+def _rch_wgrad(h, wp, n, cin, cout, conv, entry):
+    if conv == "1x1":
+        return _pick_rch(h, _rows_wgrad1x1(wp, n, cin, cout, entry),
+                         cin * _lanes(cout) * 4 * 2)
+    return _pick_rch(h, _rows_wgrad3x3(wp, n, cin, cout),
+                     9 * cin * _lanes(cout) * 4 * 2
+                     + _sliver_fixed(wp, n, cin))
+
+
+@functools.lru_cache(maxsize=None)
+def nv_train_fits(h: int, w_img: int, n: int, cin: int, cb: int,
+                  cout: int) -> bool:
+    """True when every half of an identity bottleneck block at this
+    geometry gets a row chunk from all three pickers (the JAX gate)."""
+    wp = nv_geometry(h, w_img)
+    try:
+        for ci, co, conv, entry in ((cin, cb, "1x1", True),
+                                    (cb, cb, "3x3", False),
+                                    (cb, cout, "1x1", False)):
+            _rch_fwd(h, wp, n, ci, co, conv, entry)
+            _rch_dgrad(h, wp, n, ci, co, conv, entry)
+            _rch_wgrad(h, wp, n, ci, co, conv, entry)
+    except ValueError:
+        return False
+    return True
+
+
+def pick_chunk_rows(h: int, w_img: int, n: int, cin: int, cout: int,
+                    conv: str, mode: str):
+    """The (fwd, dgrad, wgrad) row chunks of one half."""
+    wp, entry = nv_geometry(h, w_img), mode == "entry"
+    return tuple(f(h, wp, n, cin, cout, conv, entry)
+                 for f in (_rch_fwd, _rch_dgrad, _rch_wgrad))
+
+
+# --- weights -----------------------------------------------------------------
+
+def _quant_w(wf: torch.Tensor, dims, shape):
+    # a tensor divisor: a true f32 division on the card too (a Python float
+    # divisor becomes a multiply by its reciprocal there)
+    ws = torch.clamp_min(wf.abs().amax(dim=dims), 1e-12) / torch.tensor(
+        127.0, dtype=f32, device=wf.device)
+    q = torch.clamp(torch.round(wf / ws.reshape(shape)), -127, 127)
+    return q.to(torch.int8), ws
+
+
+def quantize_w_1x1(w: torch.Tensor):
+    """OIHW [Cout, Cin, 1, 1] -> (wq [Cout, Cin] int8, ws [Cout] f32),
+    per output channel (JAX ``quantize_w_1x1``)."""
+    wf = w.to(f32)[:, :, 0, 0]
+    q, ws = _quant_w(wf, 1, (-1, 1))
+    return q.contiguous(), ws
+
+
+def quantize_w_1x1_dgrad(w: torch.Tensor):
+    """OIHW [Cout, Cin, 1, 1] -> (wq [Cin, Cout] int8, ws [Cin] f32), per
+    input channel: the transposed contraction runs over Cout."""
+    wf = w.to(f32)[:, :, 0, 0]
+    q, ws = _quant_w(wf, 0, (1, -1))
+    return q.t().contiguous(), ws
+
+
+def quantize_w_3x3(w: torch.Tensor):
+    """OIHW [Cout, Cin, 3, 3] -> (wq [Cout, 9*Cin] int8, taps row-major in
+    (dy, dx) then input channel; ws [Cout] f32)."""
+    wf = w.to(f32)
+    q, ws = _quant_w(wf, (1, 2, 3), (-1, 1, 1, 1))
+    return q.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous(), ws
+
+
+def quantize_w_3x3_dgrad(w: torch.Tensor):
+    """OIHW [Cout, Cin, 3, 3] -> (wq [Cin, 9*Cout] int8, wq[ci, (dy, dx,
+    co)] = q(w[co, ci, dy, dx]) in FORWARD tap coordinates (the dgrad's
+    gather shifts by them); ws [Cin] f32), per input channel."""
+    wf = w.to(f32)
+    q, ws = _quant_w(wf, (0, 2, 3), (1, -1, 1, 1))
+    return q.permute(1, 2, 3, 0).reshape(w.shape[1], -1).contiguous(), ws
+
+
+# --- plain versions ----------------------------------------------------------
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32(a*b + c) rounded once: a is bf16 (or twice a bf16) or an
+    integer below 2^24 and b f32, so the product is exact in float64, and
+    so is the sum unless the exponents lie far apart."""
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+
+def prologue_plain(x, s, t, res, mode: str) -> torch.Tensor:
+    """a in f32: x, relu(x*s + t) or relu(x*s + t + res)."""
+    if mode == "identity":
+        return x.to(f32)
+    u = _fma(x, s.to(f32), t.to(f32))
+    if mode == "entry":
+        u = u + res.to(f32)
+    return torch.clamp_min(u, 0.0)
+
+
+def fold_plain(dy, y, dzsum, dzssq) -> torch.Tensor:
+    """g = (dy + dzsum) + (2y) * dzssq in f32 (one fused multiply-add)."""
+    return _fma(2.0 * y.to(f32), dzssq.to(f32), dy.to(f32) + dzsum.to(f32))
+
+
+def _row_absmax(v: torch.Tensor) -> torch.Tensor:
+    return v.abs().amax(dim=(0, 2, 3))
+
+
+def chunk_amax(rowmax: torch.Tensor, rch: int, halo: int) -> torch.Tensor:
+    """Per chunk: the max of the row maxima over rows [k*rch - halo,
+    (k+1)*rch + halo) inside the plane."""
+    h = rowmax.shape[0]
+    out = [rowmax[max(k - halo, 0):min(k + rch + halo, h)].amax()
+           for k in range(0, h, rch)]
+    return torch.stack(out)
+
+
+def _quant_params(amax: torch.Tensor):
+    """(inv, scale) of each group: f32(127 / max(amax, 1e-30)), amax *
+    f32(1/127)."""
+    inv = torch.tensor(127.0, dtype=f32, device=amax.device) / torch.clamp_min(
+        amax, FLOOR)
+    return inv, amax * INV_127
+
+
+def _q(v: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """clip(rint(v * inv)) as float64 (exact small integers)."""
+    return torch.clamp(torch.round(v * inv), -127.0, 127.0).to(f64)
+
+
+def _slabs(v: torch.Tensor, rch: int, halo: int) -> torch.Tensor:
+    """[N, h, w, C] -> [K, N, rch + 2*halo, w, C]: chunk k's rows with its
+    halo, zero outside the plane."""
+    n, h, w, c = v.shape
+    rows = torch.arange(0, h, rch)[:, None] + torch.arange(
+        -halo, rch + halo)[None, :]
+    inside = (rows >= 0) & (rows < h)
+    g = v[:, rows.clamp(0, h - 1).reshape(-1)].reshape(
+        n, rows.shape[0], rows.shape[1], w, c).transpose(0, 1)
+    return g * inside[:, None, :, None, None].to(device=v.device,
+                                                 dtype=v.dtype)
+
+
+def _dequant(acc, ws, scale, rch, add=None):
+    """f32(acc) * f32(ws[c] * scale[k]) on the rows of chunk k (+ add, in
+    the same rounding)."""
+    fac = ws.to(f32)[None, :] * scale[:, None]        # [K, C]
+    fac = fac.repeat_interleave(rch, 0)[None, :, None, :]
+    if add is None:
+        return acc.to(f32) * fac
+    return _fma(acc.to(f32), fac, add)
+
+
+def _conv_chunks(v, rowmax, rch, halo, wq, taps, cin):
+    """The exact s32 sums of every output position: v [N, h, w, Cin] f32
+    quantized per chunk (with halo) and contracted with wq [Cout,
+    taps*Cin] (taps row-major in (dy, dx)), in float64; and the chunks'
+    scales."""
+    n, h, w, _ = v.shape
+    inv, scale = _quant_params(chunk_amax(rowmax, rch, halo))
+    cout = wq.shape[0]
+    if taps == 1:
+        q = _q(v, inv.repeat_interleave(rch).reshape(1, h, 1, 1))
+        return q @ wq.to(f64).t(), scale
+    slab = _q(_slabs(v, rch, 1), inv.reshape(-1, 1, 1, 1, 1))
+    kk = slab.shape[0]
+    k4 = wq.to(f64).reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    acc = F.conv2d(slab.reshape(kk * n, rch + 2, w, cin).permute(0, 3, 1, 2),
+                   k4, padding=(0, 1))
+    acc = acc.reshape(kk, n, cout, rch, w).permute(1, 0, 3, 4, 2)
+    return acc.reshape(n, h, w, cout), scale
+
+
+def _ordered_sum(v: torch.Tensor, rch: int) -> torch.Tensor:
+    """Per-channel f32 sum of [N, h, w, C]: per chunk, then across chunks
+    in order."""
+    n, h, w, c = v.shape
+    parts = v.reshape(n, h // rch, rch, w, c).sum(dim=(0, 2, 3))
+    out = parts[0].clone()
+    for k in range(1, parts.shape[0]):
+        out = out + parts[k]
+    return out
+
+
+def fwd_rowmax_plain(x, s, t, res, *, mode):
+    """(the row maxima of |a| [h] f32, x_res = bf16(a) in entry mode)."""
+    a = prologue_plain(x, s, t, res, mode)
+    return _row_absmax(a), (a.to(torch.bfloat16) if mode == "entry"
+                            else None)
+
+
+def fwd_conv_plain(x, s, t, res, rowmax, wq, ws, *, conv, mode, rch):
+    """(y [N, h, w, Cout] bf16, zsum, zssq [Cout] f32)."""
+    a = prologue_plain(x, s, t, res, mode)
+    taps = 9 if conv == "3x3" else 1
+    acc, scale = _conv_chunks(a, rowmax, rch, taps // 9, wq, taps,
+                              x.shape[-1])
+    y = _dequant(acc, ws, scale, rch).to(torch.bfloat16)
+    yb = y.to(f32)
+    return y, _ordered_sum(yb, rch), _ordered_sum(yb * yb, rch)
+
+
+def bwd_rowmax_plain(dy, y, dzsum, dzssq):
+    """The row maxima of |g| [h] f32."""
+    return _row_absmax(fold_plain(dy, y, dzsum, dzssq))
+
+
+def dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t,
+                     res, dxout, *, conv, mode, rch):
+    """(dx [N, h, w, Cin] bf16, ds, dt [Cin] f32 or None, dres bf16 or
+    None)."""
+    g = fold_plain(dy, y, dzsum, dzssq)
+    cin, cout = x.shape[-1], dy.shape[-1]
+    if conv == "3x3":
+        # da(r, c) = sum g(r - dy + 1, c - dx + 1) . w[dy, dx]^T: a SAME
+        # correlation with the taps mirrored
+        wq_dg = wq_dg.reshape(cin, 3, 3, cout).flip(1, 2).reshape(cin, -1)
+    taps = 9 if conv == "3x3" else 1
+    acc, scale = _conv_chunks(g, rowmax_g, rch, taps // 9, wq_dg, taps, cout)
+    if mode == "entry":   # f32(acc) * fac + dx_res: one fused multiply-add
+        da = _dequant(acc, ws_in, scale, rch, add=dxout.to(f32))
+    else:
+        da = _dequant(acc, ws_in, scale, rch)
+    if mode == "identity":
+        return da.to(torch.bfloat16), None, None, None
+    xf = x.to(f32)
+    u = _fma(x, s.to(f32), t.to(f32))
+    if mode == "entry":
+        u = u + res.to(f32)
+    du = torch.where(u > 0, da, torch.zeros_like(da))
+    dx = (du * s.to(f32)).to(torch.bfloat16)
+    dres = du.to(torch.bfloat16) if mode == "entry" else None
+    return dx, _ordered_sum(du * xf, rch), _ordered_sum(du, rch), dres
+
+
+def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
+                conv, mode, rch):
+    """dW [taps*Cin, Cout] f32 (rows in (dy, dx, ci) order: JAX's
+    [3, 3, Cin, Cout] flattened): per chunk the exact s32 contraction (in
+    float64) times (amax_a * amax_g) * f32(1/127^2), added in chunk
+    order."""
+    a = prologue_plain(x, s, t, res, mode)
+    g = fold_plain(dy, y, dzsum, dzssq)
+    n, h, w, cin = x.shape
+    halo = 1 if conv == "3x3" else 0
+    inv_a, _ = _quant_params(chunk_amax(rowmax_a, rch, halo))
+    inv_g, _ = _quant_params(chunk_amax(rowmax_g, rch, 0))
+    gq = _q(_slabs(g, rch, 0), inv_g.reshape(-1, 1, 1, 1, 1))
+    aq = _q(_slabs(a, rch, halo), inv_a.reshape(-1, 1, 1, 1, 1))
+    if conv == "1x1":
+        acc = torch.einsum("knrwc,knrwd->kcd", aq, gq)
+    else:
+        ap = F.pad(aq, (0, 0, 1, 1))
+        acc = torch.cat([torch.einsum(
+            "knrwc,knrwd->kcd", ap[:, :, dy:dy + rch, dx:dx + w], gq)
+            for dy in range(3) for dx in range(3)], dim=1)
+    # XLA reassociates (amax_a * c) * (amax_g * c) into (amax_a * amax_g) *
+    # f32(c * c)
+    ts = (chunk_amax(rowmax_a, rch, halo) * chunk_amax(rowmax_g, rch, 0)
+          ) * INV_127_SQ
+    out = acc[0].to(f32) * ts[0]
+    for k in range(1, acc.shape[0]):
+        out = out + acc[k].to(f32) * ts[k]
+    return out
+
+
+# --- kernels -----------------------------------------------------------------
+
+_lib: Optional[ctypes.CDLL] = None
+_BM = 128  # output rows per block of the GEMM kernels (csrc/bneck_nv_train.cu)
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("bneck_nv_train")
+        sigs = {
+            "nvt_rowmax_act_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5
+            + [_P],
+            "nvt_rowmax_cot_launch": [_P] * 5 + [_I] * 5 + [_P],
+            "nvt_fwd_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
+            "nvt_dgrad_launch": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7
+            + [_P],
+            "nvt_wgrad_launch": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8
+            + [_P],
+            "nvt_wgrad_sum_launch": [_P] * 4 + [_I] * 6 + [_P],
+            "nvt_sum_launch": [_P, _P, _I, _I, _P],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(name: str, fn, *args) -> None:
+    check_rc(name, fn(*args))
+    launches[name] += 1
+
+
+def _vecs(*vs):
+    """f32, contiguous and 16-byte aligned (a slice of a sums buffer may
+    not be)."""
+    out = []
+    for v in vs:
+        if v is not None:
+            v = v.to(f32).contiguous()
+            if v.data_ptr() % 16:
+                v = v.clone()
+        out.append(v)
+    return out
+
+
+def _require(name, x, mode, s, t, res, extra=(), extra_dtypes=()):
+    """The kernels' needs of a half's prologue operands: bf16 NHWC x (and
+    res), f32 s/t, channels a multiple of 8, all contiguous and aligned."""
+    n, h, w, c = x.shape
+    if c % 8:
+        raise ValueError(f"{name}: C={c} is not a multiple of 8")
+    tensors, dtypes = [x], [torch.bfloat16]
+    if mode != "identity":
+        tensors += [s, t]
+        dtypes += [f32, f32]
+    if mode == "entry":
+        tensors.append(res)
+        dtypes.append(torch.bfloat16)
+    require_cuda(name, tensors + list(extra), dtypes + list(extra_dtypes))
+
+
+def _taps(conv: str) -> int:
+    return 9 if conv == "3x3" else 1
+
+
+def _check_rch(name: str, h: int, rch: int) -> None:
+    if rch < 1 or h % rch:
+        raise ValueError(f"{name}: row chunk {rch} does not divide h={h}")
+
+
+def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum over j of part[j, i] in f32, in a fixed tree."""
+    j, m = part.shape
+    out = torch.empty(m, dtype=f32, device=part.device)
+    _launch(name, _library().nvt_sum_launch, part.data_ptr(), out.data_ptr(),
+            j, m, _stream(part))
+    return out
+
+
+def _wgrad_splits(n, h, w, cin, cout, taps, rch) -> int:
+    """Blocks per chunk of the wgrad: about four waves of blocks in all
+    (two blocks on each of the card's 132 SMs a wave), so the last wave's
+    idle share stays small, at least 8 K steps each."""
+    tiles = -(-taps * cin // _BM) * -(-cout // 64) * (h // rch)
+    steps = -(-n * rch * w // 32)
+    return max(1, min(-(-4 * 264 // tiles), steps // 8))
+
+
+def fwd_rowmax(x, s, t, res, *, mode):
+    """The row maxima of |a| ([h] f32, exact) and, in entry mode, x_res =
+    bf16(a)."""
+    if on_cpu(x):
+        return fwd_rowmax_plain(x, s, t, res, mode=mode)
+    name = "nv_half_fwd.amax"
+    s, t = _vecs(s, t)
+    _require(name, x, mode, s, t, res)
+    n, h, w, c = x.shape
+    rowmax = torch.zeros(h, dtype=f32, device=x.device)
+    x_res = torch.empty_like(x) if mode == "entry" else None
+    _launch(name, _library().nvt_rowmax_act_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), _ptr(x_res),
+            rowmax.data_ptr(), n, h, w, c, max(1, -(-528 // h)), _stream(x))
+    return rowmax, x_res
+
+
+def fwd_conv(x, s, t, res, rowmax, wq, ws, *, conv, mode, rch):
+    """The forward half on its activation's row maxima: (y [N, h, w, Cout]
+    bf16, zsum, zssq [Cout] f32)."""
+    if on_cpu(x):
+        return fwd_conv_plain(x, s, t, res, rowmax, wq, ws, conv=conv,
+                              mode=mode, rch=rch)
+    name = "nv_half_fwd"
+    n, h, w, cin = x.shape
+    cout, taps = wq.shape[0], _taps(conv)
+    if tuple(wq.shape) != (cout, taps * cin) or cout % 8:
+        raise ValueError(f"{name}: weights {tuple(wq.shape)} vs Cin {cin}")
+    _check_rch(name, h, rch)
+    s, t, ws = _vecs(s, t, ws)
+    _require(name, x, mode, s, t, res, [rowmax, wq, ws],
+             [f32, torch.int8, f32])
+    y = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((-(-n * h * w // _BM), 2 * cout), dtype=f32,
+                       device=x.device)
+    _launch(name, _library().nvt_fwd_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), rowmax.data_ptr(),
+            wq.data_ptr(), ws.data_ptr(), y.data_ptr(), part.data_ptr(), n, h,
+            w, cin, cout, taps, rch, _stream(x))
+    sums = _sums(f"{name}.sum", part)
+    return y, sums[:cout], sums[cout:]
+
+
+def _require_cot(name, dy, y, dzsum, dzssq):
+    if dy.shape != y.shape or dy.shape[-1] % 8:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} vs y "
+                         f"{tuple(y.shape)}")
+    require_cuda(name, [dy, y, dzsum, dzssq],
+                 [torch.bfloat16, torch.bfloat16, f32, f32])
+
+
+def bwd_rowmax(dy, y, dzsum, dzssq):
+    """The row maxima of |g| ([h] f32), g = (dy + dzsum) + (2y) * dzssq."""
+    if on_cpu(dy):
+        return bwd_rowmax_plain(dy, y, dzsum, dzssq)
+    name = "nv_half_bwd.amax"
+    dzsum, dzssq = _vecs(dzsum, dzssq)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    n, h, w, c = dy.shape
+    rowmax = torch.zeros(h, dtype=f32, device=dy.device)
+    _launch(name, _library().nvt_rowmax_cot_launch, dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            rowmax.data_ptr(), n, h, w, c, max(1, -(-528 // h)), _stream(dy))
+    return rowmax
+
+
+def dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t, res,
+               dxout, *, conv, mode, rch):
+    """The input gradient through the prologue: (dx [N, h, w, Cin] bf16,
+    ds, dt [Cin] f32 (None in identity mode), dres bf16 (entry mode))."""
+    if on_cpu(dy):
+        return dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in,
+                                x, s, t, res, dxout, conv=conv, mode=mode,
+                                rch=rch)
+    name = "nv_half_dgrad"
+    n, h, w, cin = x.shape
+    cout, taps = dy.shape[-1], _taps(conv)
+    if tuple(wq_dg.shape) != (cin, taps * cout):
+        raise ValueError(f"{name}: weights {tuple(wq_dg.shape)} vs Cout "
+                         f"{cout}")
+    _check_rch(name, h, rch)
+    dzsum, dzssq, s, t, ws_in = _vecs(dzsum, dzssq, s, t, ws_in)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    extra, dts = [rowmax_g, wq_dg, ws_in], [f32, torch.int8, f32]
+    if mode == "entry":
+        extra.append(dxout)
+        dts.append(torch.bfloat16)
+    _require(name, x, mode, s, t, res, extra, dts)
+    dev = x.device
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(x) if mode == "entry" else None
+    part = (torch.empty((-(-n * h * w // _BM), 2 * cin), dtype=f32,
+                        device=dev) if mode != "identity" else None)
+    _launch(name, _library().nvt_dgrad_launch, dy.data_ptr(), y.data_ptr(),
+            dzsum.data_ptr(), dzssq.data_ptr(), rowmax_g.data_ptr(),
+            wq_dg.data_ptr(), ws_in.data_ptr(), x.data_ptr(), _ptr(res),
+            _ptr(dxout), _ptr(s), _ptr(t), MODES.index(mode), dx.data_ptr(),
+            _ptr(dres), _ptr(part), n, h, w, cin, cout, taps, rch,
+            _stream(x))
+    if mode == "identity":
+        return dx, None, None, None
+    sums = _sums(f"{name}.sum", part)
+    return dx, sums[:cin], sums[cin:], dres
+
+
+def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,
+          mode, rch):
+    """dW [taps*Cin, Cout] f32, rows in (dy, dx, ci) order: each chunk's
+    exact s32 contraction times its scale, added in chunk order."""
+    if on_cpu(dy):
+        return wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res,
+                           rowmax_a, conv=conv, mode=mode, rch=rch)
+    name = "nv_half_wgrad"
+    n, h, w, cin = x.shape
+    cout, taps = dy.shape[-1], _taps(conv)
+    _check_rch(name, h, rch)
+    dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    _require(name, x, mode, s, t, res, [rowmax_a, rowmax_g], [f32, f32])
+    if h > 256:
+        raise ValueError(f"{name}: h={h} rows exceed the 256 chunks the "
+                         f"ordered sum holds")
+    splits = _wgrad_splits(n, h, w, cin, cout, taps, rch)
+    part = torch.empty((h // rch * splits, taps * cin * cout),
+                       dtype=torch.int32, device=x.device)
+    dw = torch.empty((taps * cin, cout), dtype=f32, device=x.device)
+    lib, stream = _library(), _stream(x)
+    _launch(name, lib.nvt_wgrad_launch, x.data_ptr(), _ptr(res), _ptr(s),
+            _ptr(t), MODES.index(mode), rowmax_a.data_ptr(), dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            rowmax_g.data_ptr(), part.data_ptr(), n, h, w, cin, cout, taps,
+            rch, splits, stream)
+    _launch(f"{name}.sum", lib.nvt_wgrad_sum_launch, part.data_ptr(),
+            rowmax_a.data_ptr(), rowmax_g.data_ptr(), dw.data_ptr(), h, cin,
+            cout, taps, rch, splits, stream)
+    return dw
+
+
+def half_stages(x, w, s, t, res, dy, dzsum, dzssq, dxout, *, conv, mode,
+                rch, plain=False):
+    """One half's forward and backward stages on given cotangents, through
+    the wrappers (kernels on the card) or, with ``plain``, their plain
+    versions: every intermediate and output by name. ``rch``: the (fwd,
+    dgrad, wgrad) row chunks."""
+    stages = ((fwd_rowmax_plain, fwd_conv_plain, bwd_rowmax_plain,
+               dgrad_conv_plain, wgrad_plain) if plain else
+              (fwd_rowmax, fwd_conv, bwd_rowmax, dgrad_conv, wgrad))
+    f_rowmax, f_conv, b_rowmax, b_dgrad, b_wgrad = stages
+    three = conv == "3x3"
+    wq, ws = (quantize_w_3x3 if three else quantize_w_1x1)(w)
+    wq_dg, ws_in = (quantize_w_3x3_dgrad if three
+                    else quantize_w_1x1_dgrad)(w)
+    kw = dict(conv=conv, mode=mode)
+    rowmax_a, x_res = f_rowmax(x, s, t, res, mode=mode)
+    y, zsum, zssq = f_conv(x, s, t, res, rowmax_a, wq, ws, rch=rch[0], **kw)
+    rowmax_g = b_rowmax(dy, y, dzsum, dzssq)
+    dx, ds, dt, dres = b_dgrad(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in,
+                               x, s, t, res, dxout, rch=rch[1], **kw)
+    dw = b_wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
+                 rch=rch[2], **kw)
+    return dict(rowmax_a=rowmax_a, x_res=x_res, y=y, zsum=zsum, zssq=zssq,
+                rowmax_g=rowmax_g, dx=dx, ds=ds, dt=dt, dres=dres, dw=dw)
+
+
+# --- the differentiable op ---------------------------------------------------
+
+class _NVHalf(torch.autograd.Function):
+    """Forward and fully quantized backward of one half. ``rch`` is the
+    (fwd, dgrad, wgrad) row chunks."""
+
+    @staticmethod
+    def forward(ctx, x, res, w, s, t, conv, mode, rch):
+        quant_w = quantize_w_3x3 if conv == "3x3" else quantize_w_1x1
+        wq, ws = quant_w(w.detach())
+        rowmax_a, x_res = fwd_rowmax(x, s, t, res, mode=mode)
+        y, zsum, zssq = fwd_conv(x, s, t, res, rowmax_a, wq, ws, conv=conv,
+                                 mode=mode, rch=rch[0])
+        ctx.save_for_backward(x, res, w, s, t, y, rowmax_a)
+        ctx.cfg = (conv, mode, rch)
+        _record("fwd", conv, mode, x, y)
+        return (y, zsum, zssq, x_res) if mode == "entry" else (y, zsum, zssq)
+
+    @staticmethod
+    def backward(ctx, dy, dzsum, dzssq, dxout=None):
+        x, res, w, s, t, y, rowmax_a = ctx.saved_tensors
+        conv, mode, rch = ctx.cfg
+        cout = y.shape[-1]
+
+        def zeros(g, like, shape):
+            return torch.zeros(shape, dtype=like, device=y.device) \
+                if g is None else g
+
+        dy = zeros(dy, torch.bfloat16, y.shape).contiguous()
+        dzsum = zeros(dzsum, f32, (cout,))
+        dzssq = zeros(dzssq, f32, (cout,))
+        if mode == "entry":
+            dxout = zeros(dxout, torch.bfloat16, x.shape).contiguous()
+        quant_dg = quantize_w_3x3_dgrad if conv == "3x3" \
+            else quantize_w_1x1_dgrad
+        wq_dg, ws_in = quant_dg(w.detach())
+        rowmax_g = bwd_rowmax(dy, y, dzsum, dzssq)
+        dx, ds, dt, dres = dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg,
+                                      ws_in, x, s, t, res, dxout, conv=conv,
+                                      mode=mode, rch=rch[1])
+        dw = wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
+                   conv=conv, mode=mode, rch=rch[2])
+        _record("dgrad", conv, mode, x, y)
+        _record("wgrad", conv, mode, x, y)
+        cin = x.shape[-1]
+        if conv == "3x3":   # [(dy, dx, ci), co] -> OIHW
+            dw = dw.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+        else:
+            dw = dw.t()[:, :, None, None]
+        return (dx, dres, dw.to(w.dtype), ds, dt, None, None, None)
+
+
+def _record(stage: str, conv: str, mode: str, x, y) -> None:
+    if not on_cpu(x):
+        n, h, w, cin = x.shape
+        launch_shapes[(stage, conv, mode, n, h, w, cin, y.shape[-1])] += 1
+
+
+def _checks(x, w_img, quant, quant_bwd):
+    if not (quant and quant_bwd):
+        raise NotImplementedError(f"quant={quant}, quant_bwd={quant_bwd} is "
+                                  f"not ported yet ({QAT_TODO})")
+    n, h, w, _ = x.shape
+    if w_img != w:
+        raise ValueError(f"w_img={w_img} but x is NHWC with w={w}")
+    if n % 32 or n & (n - 1):
+        raise ValueError(f"N={n} must be a pow2 multiple of 32 (the JAX "
+                         f"kernels' int8 sublane tile)")
+    return n, h, w
+
+
+def _half(conv, x, w, s, t, res, mode, w_img, quant, quant_bwd, chunk_rows):
+    n, h, w_ = _checks(x, w_img, quant, quant_bwd)
+    cin, cout = w.shape[1], w.shape[0]
+    if x.shape[-1] != cin:
+        raise ValueError(f"x has {x.shape[-1]} channels, w takes {cin}")
+    rch = ((chunk_rows,) * 3 if chunk_rows else
+           pick_chunk_rows(h, w_, n, cin, cout, conv, mode))
+    if mode != "identity":
+        s, t = s.to(f32), t.to(f32)
+    return _NVHalf.apply(x.contiguous(), res, w, s, t, conv, mode, rch)
+
+
+def nv_half_1x1(x, w, s=None, t=None, res=None, *, mode: str = "affine",
+                w_img: int, quant: bool = True, quant_bwd: bool = True,
+                chunk_rows: Optional[int] = None):
+    """Differentiable 1x1-conv half (JAX ``nv_half_1x1``). x [N, h, w,
+    Cin] bf16: the previous half's raw output, or a materialized
+    activation in identity/entry modes; w [Cout, Cin, 1, 1] (OIHW); s, t
+    [Cin] f32 (affine/entry); res [N, h, w, Cin] bf16 (entry). Returns (y
+    [N, h, w, Cout] bf16, zsum, zssq [Cout] f32), plus x_res = bf16(relu(
+    x*s + t + res)) in entry mode. ``chunk_rows`` forces one row chunk on
+    all three stages (else the JAX pickers choose)."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r} not in {MODES}")
+    if mode == "entry" and res is None:
+        raise ValueError("entry mode needs a residual carrier")
+    return _half("1x1", x, w, s, t, res if mode == "entry" else None, mode,
+                 w_img, quant, quant_bwd, chunk_rows)
+
+
+def nv_half_3x3(x, w, s=None, t=None, *, mode: str = "affine", w_img: int,
+                quant: bool = True, quant_bwd: bool = True,
+                chunk_rows: Optional[int] = None):
+    """Differentiable stride-1 SAME 3x3-conv half (JAX ``nv_half_3x3``; no
+    entry mode). w [Cout, Cin, 3, 3] (OIHW)."""
+    if mode not in ("identity", "affine"):
+        raise ValueError(f"3x3 half supports identity/affine, got {mode!r}")
+    return _half("3x3", x, w, s, t, None, mode, w_img, quant, quant_bwd,
+                 chunk_rows)

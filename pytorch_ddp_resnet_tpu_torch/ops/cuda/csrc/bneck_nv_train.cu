@@ -1,0 +1,935 @@
+// Int8 training halves of the post-act bottleneck trunk (forward, input
+// gradient, weight gradient), written for Hopper (sm_90a) and bound to
+// Python through a plain C interface (ops/cuda/bneck_nv_train.py loads
+// this file's shared library with ctypes).
+//
+// What they replace (pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py,
+// quant=True, quant_bwd=True):
+//   rowmax_act, fwd_conv      <- _fwd_call -> _fwd1x1_kernel, _fwd3x3_kernel
+//   rowmax_cot, dgrad_conv    <- _dgrad_call -> _dgrad1x1_kernel,
+//                                _dgrad3x3_kernel
+//   wgrad, wgrad_sum          <- _wgrad_call -> _wgrad1x1_kernel,
+//                                _wgrad3x3_kernel
+//   sum                       <- the TPU kernels' sums carried across
+//                                their sequential grid
+//
+// Tensors are NHWC bf16 [N, h, w, C] with no border columns (the TPU
+// kernels' [h, wp, N, C] carrier, halo slivers and column masks serve
+// Mosaic). A position outside the image is zero AFTER the prologue.
+//
+// Scale groups: chunk k of a stage is image rows [k*rch, (k+1)*rch) of
+// every image; a 3x3 stage's activation (fwd, wgrad) or cotangent (dgrad)
+// group adds the halo rows k*rch-1 and (k+1)*rch inside the image. So one
+// image row is quantized at two scales where two chunks share it, and no
+// single int8 copy of an operand can serve a 3x3 stage: every GEMM here
+// quantizes in its gather, with the scale of the chunk of the output row
+// it computes (fwd, dgrad) or of the chunk it contracts (wgrad). The
+// absmax of a group is exact in any order: rowmax_* writes the maximum of
+// |value| per image row (atomicMax on the float's bits, which order as
+// integers for values >= 0), and each kernel reduces its group's rows.
+//
+// The GEMM core: a 128x64 output tile per block, 8 warps (4 along M x 2
+// along N), ldmatrix + mma.sync m16n8k32 s8 x s8 -> s32 in registers, K
+// walked 32 bytes at a time through two shared-memory buffers. The
+// producer loads step k+1's bf16 operands into registers while the tensor
+// cores run step k, then applies the prologue, quantizes and stores them:
+//   fwd:   M = positions, N = Cout, K = (tap, ci); a gathered at
+//          (r + dy - 1, c + dx - 1);
+//   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
+//          (r - dy + 1, c - dx + 1) against per-input-channel weights in
+//          forward tap coordinates;
+//   wgrad: M = (tap, ci), N = Cout, K = a run of the positions of one
+//          chunk (grid z = (chunk, split)). Both operands are NHWC,
+//          channel-contiguous, and
+//          mma.sync wants K contiguous: each thread quantizes a 4 x 4
+//          (positions x channels) block and packs each channel's four
+//          positions into one 32-bit word, four shared stores.
+// Epilogues run on the accumulators in registers: the dequant
+// f32(acc) * f32(ws * scale) (fwd, dgrad), the bf16 outputs, the prologue's
+// backward (dgrad), and per-block per-channel sums (warp butterflies, then
+// the four M-warps in order) into a partial buffer that nvt_sum reduces in
+// a fixed tree. The wgrad splits each chunk's positions over blocks (the
+// chunk's s32 sum is the same integer in any split), and nvt_wgrad_sum
+// adds each chunk's f32(s32) * (amax_a * amax_g / 127^2) into dW in chunk
+// order, as the TPU kernel's sequential grid does: dW is reproducible bit
+// for bit.
+//
+// What bounds them on an H100: at ResNet-50's stages 1-3 (batch 128) a
+// half is 2*N*h*w*taps*Cin*Cout int8 operations, 3.3-30 GOP, 1.7-15 us at
+// 1979 TOP/s, against 2-4 bf16 tensors of 51-205 MB in and out, 15-120 us
+// at 3.35 TB/s: the 1x1 halves and the stage-1 halves are bound by bytes.
+// What the design does about it: each operand is read once per output
+// tile column (N / 64 times; K / 32 steps per tile), the quantized
+// operands never reach device memory, and no s32 accumulator does either.
+// Left for later: the producer's synchronous loads (no cp.async/TMA
+// ring), mma.sync instead of wgmma, a 64-wide N tile that re-reads A
+// Cout/64 times, and the halo rows' recomputed prologue.
+//
+// Rounding points (the reference as XLA computes it on the CPU, where the
+// tests run it; tests/test_torch_bneck_nv_train.py pins each): x*s + t is
+// one fma and + res rounds on its own; the fold (dy + dzsum) + (2y)*dzssq
+// is one fma; ws * scale rounds before it meets f32(acc), and the entry
+// dgrad's f32(acc) * (ws * scale) + dx_res is one fma; the wgrad's
+// chunk scale is (amax_a * amax_g) * f32(1/127^2) (XLA reassociates the
+// two 1/127 factors); every other product and sum rounds on its own
+// (__fmul_rn / __fadd_rn, so nvcc cannot contract them); rintf rounds
+// half to even; s32 -> f32 rounds to nearest; bf16 outputs round the f32
+// value once more (__float2bfloat16_rn).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
+
+using conv3x3::ldmatrix_x4;
+using conv3x3::mma_step;
+using conv3x3::quant_s8;
+using conv3x3::smem_addr;
+
+namespace {
+
+constexpr int BM = 128;       // output rows per block
+constexpr int BN = 64;        // output columns per block
+constexpr int BK = 32;        // contraction bytes per step
+constexpr int ROW = BK + 16;  // smem row stride: conflict-free ldmatrix
+constexpr int THREADS = 256;
+constexpr int A_BYTES = BM * ROW;
+constexpr int TILE_BYTES = (BM + BN) * ROW;  // one buffer: A then B
+constexpr float kFloor = 1e-30f;
+
+enum Mode { IDENTITY = 0, AFFINE = 1, ENTRY = 2 };
+
+typedef __nv_bfloat16 bf16;
+
+// --- bf16 vectors -----------------------------------------------------------
+
+template <int VN> struct BfVec;
+template <> struct BfVec<4> { using type = uint2; };
+template <> struct BfVec<8> { using type = uint4; };
+
+template <int VN>
+struct Raw {  // two bf16 vectors of VN channels (x & res, or dy & y)
+  typename BfVec<VN>::type a, b;
+};
+
+template <int VN>
+__device__ __forceinline__ typename BfVec<VN>::type ld_bf(const bf16* p) {
+  return *reinterpret_cast<const typename BfVec<VN>::type*>(p);
+}
+
+template <int VN>
+__device__ __forceinline__ void unpack(const typename BfVec<VN>::type& raw,
+                                       float (&v)[VN]) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int k = 0; k < VN; ++k) v[k] = __bfloat162float(e[k]);
+}
+
+// VN consecutive f32 of a per-channel vector (16-byte aligned: c0 % 4 == 0)
+template <int VN>
+__device__ __forceinline__ void ld_f32(const float* p, float (&v)[VN]) {
+#pragma unroll
+  for (int k = 0; k < VN; k += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + k);
+    v[k] = q.x;
+    v[k + 1] = q.y;
+    v[k + 2] = q.z;
+    v[k + 3] = q.w;
+  }
+}
+
+// --- value sources: the quantized operands before quantization --------------
+
+// a = x | relu(fma(x, s, t)) | relu(fma(x, s, t) + res)
+struct Act {
+  const bf16* x;
+  const bf16* res;
+  const float* s;
+  const float* t;
+  int c;
+  int mode;
+
+  template <int VN>
+  __device__ __forceinline__ void fetch(size_t p, int c0, Raw<VN>& r) const {
+    r.a = ld_bf<VN>(x + p * c + c0);
+    if (mode == ENTRY) r.b = ld_bf<VN>(res + p * c + c0);
+  }
+  template <int VN>
+  __device__ __forceinline__ void value(const Raw<VN>& r, int c0,
+                                        float (&v)[VN]) const {
+    unpack<VN>(r.a, v);
+    if (mode == IDENTITY) return;
+    float rv[VN], sv[VN], tv[VN];
+    if (mode == ENTRY) unpack<VN>(r.b, rv);
+    ld_f32<VN>(s + c0, sv);
+    ld_f32<VN>(t + c0, tv);
+#pragma unroll
+    for (int k = 0; k < VN; ++k) {
+      float u = __fmaf_rn(v[k], sv[k], tv[k]);
+      if (mode == ENTRY) u = __fadd_rn(u, rv[k]);
+      v[k] = fmaxf(u, 0.f);
+    }
+  }
+};
+
+// g = fma(2y, dzssq, dy + dzsum)
+struct Cot {
+  const bf16* dy;
+  const bf16* y;
+  const float* dzsum;
+  const float* dzssq;
+  int c;
+
+  template <int VN>
+  __device__ __forceinline__ void fetch(size_t p, int c0, Raw<VN>& r) const {
+    r.a = ld_bf<VN>(dy + p * c + c0);
+    r.b = ld_bf<VN>(y + p * c + c0);
+  }
+  template <int VN>
+  __device__ __forceinline__ void value(const Raw<VN>& r, int c0,
+                                        float (&v)[VN]) const {
+    float yv[VN], sv[VN], qv[VN];
+    unpack<VN>(r.a, v);
+    unpack<VN>(r.b, yv);
+    ld_f32<VN>(dzsum + c0, sv);
+    ld_f32<VN>(dzssq + c0, qv);
+#pragma unroll
+    for (int k = 0; k < VN; ++k)
+      v[k] = __fmaf_rn(2.f * yv[k], qv[k], __fadd_rn(v[k], sv[k]));
+  }
+};
+
+// --- scale groups -----------------------------------------------------------
+
+__device__ __forceinline__ float chunk_amax(const float* __restrict__ rowmax,
+                                            int k, int rch, int halo, int h) {
+  const int r0 = max(k * rch - halo, 0);
+  const int r1 = min((k + 1) * rch + halo, h);
+  float m = rowmax[r0];
+  for (int r = r0 + 1; r < r1; ++r) m = fmaxf(m, rowmax[r]);
+  return m;
+}
+
+__device__ __forceinline__ float inv_of(float amax) {
+  return __fdiv_rn(127.f, fmaxf(amax, kFloor));
+}
+
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c,
+                                          float d) {
+  return (uint32_t)(uint8_t)quant_s8(a) |
+         ((uint32_t)(uint8_t)quant_s8(b) << 8) |
+         ((uint32_t)(uint8_t)quant_s8(c) << 16) |
+         ((uint32_t)(uint8_t)quant_s8(d) << 24);
+}
+
+// --- row absmax (and the entry mode's x_res) --------------------------------
+
+// rowmax[r] = max |value| over images, columns and channels of row r;
+// copy (not null) = bf16(value). Grid (h, slices); rowmax zeroed before.
+template <typename Src>
+__global__ void __launch_bounds__(256)
+nvt_rowmax_kernel(Src src, int n, int h, int w, int c,
+                  bf16* __restrict__ copy, float* __restrict__ rowmax) {
+  const int r = blockIdx.x;
+  const int groups = c / 8;
+  const long units = (long)n * w * groups;
+  float m = 0.f;
+  for (long u = (long)blockIdx.y * blockDim.x + threadIdx.x; u < units;
+       u += (long)gridDim.y * blockDim.x) {
+    const int g = (int)(u % groups);
+    const long pc = u / groups;  // image * w + column
+    const int img = (int)(pc / w);
+    const size_t p = ((size_t)img * h + r) * w + (pc - (long)img * w);
+    Raw<8> raw;
+    float v[8];
+    src.template fetch<8>(p, 8 * g, raw);
+    src.template value<8>(raw, 8 * g, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
+    if (copy != nullptr) {
+      uint4 out;
+      bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
+      *reinterpret_cast<uint4*>(copy + p * c + 8 * g) = out;
+    }
+  }
+  __shared__ float red[8];
+  m = common::warp_max(m);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < (int)blockDim.x / 32; ++k) m = fmaxf(m, red[k]);
+    m = fmaxf(red[0], m);
+    atomicMax(reinterpret_cast<int*>(rowmax) + r, __float_as_int(m));
+  }
+}
+
+// --- the GEMM core ----------------------------------------------------------
+
+// acc += A[BM][32] . B[BN][32]^T of one buffer (A rows, then B rows).
+__device__ __forceinline__ void mma_tile(int (&acc)[2][4][4],
+                                         const unsigned char* buf) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int q = lane / 8;
+  const int j = lane % 8;
+  const uint32_t st = smem_addr(buf);
+  const uint32_t a_off = ((warp / 2) * 32 + (q & 1) * 8 + j) * ROW +
+                         (q >> 1) * 16;
+  const uint32_t b_off = A_BYTES + ((warp % 2) * 32 + (q >> 1) * 8 + j) * ROW +
+                         (q & 1) * 16;
+  uint32_t af[2][4];
+  ldmatrix_x4(af[0], st + a_off);
+  ldmatrix_x4(af[1], st + a_off + 16 * ROW);
+#pragma unroll
+  for (int f2 = 0; f2 < 2; ++f2) {
+    uint32_t bf[4];
+    ldmatrix_x4(bf, st + b_off + f2 * 16 * ROW);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      mma_step(acc[mi][2 * f2], af[mi], bf[0], bf[1]);
+      mma_step(acc[mi][2 * f2 + 1], af[mi], bf[2], bf[3]);
+    }
+  }
+}
+
+// The block's product over steps [kt0, kt1); the loader's fetch(kt, regs)
+// issues step kt's global loads, store(regs, buf) quantizes them into a
+// buffer. Step kt+1 is fetched before step kt's products and stored after.
+template <typename Loader>
+__device__ __forceinline__ void gemm(int (&acc)[2][4][4], const Loader& ld,
+                                     unsigned char* smem, int kt0, int kt1) {
+  typename Loader::Regs regs;
+  ld.fetch(kt0, regs);
+  ld.store(regs, smem);
+  __syncthreads();
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const bool more = kt + 1 < kt1;
+    if (more) ld.fetch(kt + 1, regs);
+    mma_tile(acc, smem + ((kt - kt0) & 1) * TILE_BYTES);
+    if (more) ld.store(regs, smem + ((kt - kt0 + 1) & 1) * TILE_BYTES);
+    __syncthreads();
+  }
+}
+
+// --- conv loader (fwd, dgrad): M = positions, K = (tap, channel) ------------
+
+struct ConvGeo {
+  int n, h, w;
+  int c;       // channels of the gathered operand (the contraction's)
+  int taps;    // 1 or 9
+  int nout;    // output channels (rows of the weights)
+  int rch, halo;
+};
+
+template <typename Src, bool MIRROR>
+struct ConvLoader {
+  Src src;
+  const signed char* wq;  // [nout][taps * c] int8
+  ConvGeo g;
+  // per thread
+  int img, oy, ox, r, half;
+  bool row_ok;
+  float inv;
+  const signed char* b_row;
+  bool b_ok;
+  int csteps;
+
+  struct Regs {
+    Raw<8> a[2];
+    bool av[2];
+    int c0;
+    uint2 b[2];
+  };
+
+  __device__ ConvLoader(const Src& s, const signed char* w, const ConvGeo& geo,
+                        const float* rowmax, int m0, int n0)
+      : src(s), wq(w), g(geo) {
+    const int tid = threadIdx.x;
+    r = tid >> 1;
+    half = tid & 1;
+    const int m = m0 + r;
+    const int M = g.n * g.h * g.w;
+    row_ok = m < M;
+    const int mm = row_ok ? m : 0;
+    img = mm / (g.h * g.w);
+    const int rem = mm - img * g.h * g.w;
+    oy = rem / g.w;
+    ox = rem - oy * g.w;
+    inv = inv_of(chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h));
+    const int rb = n0 + r;
+    b_ok = tid < 2 * BN && rb < g.nout;
+    b_row = wq + (size_t)(b_ok ? rb : 0) * g.taps * g.c;
+    csteps = (g.c + BK - 1) / BK;
+  }
+
+  __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
+    const int tap = kt / csteps;
+    const int cs = kt - tap * csteps;
+    const int dy = g.taps == 9 ? tap / 3 : 1;
+    const int dx = g.taps == 9 ? tap % 3 : 1;
+    const int iy = MIRROR ? oy - dy + 1 : oy + dy - 1;
+    const int ix = MIRROR ? ox - dx + 1 : ox + dx - 1;
+    const bool ok = row_ok && (unsigned)iy < (unsigned)g.h &&
+                    (unsigned)ix < (unsigned)g.w;
+    const size_t p = ((size_t)img * g.h + iy) * g.w + ix;
+    rg.c0 = cs * BK + half * 16;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int cj = rg.c0 + 8 * j;
+      rg.av[j] = ok && cj < g.c;
+      if (rg.av[j]) src.template fetch<8>(p, cj, rg.a[j]);
+      const bool bv = b_ok && cj < g.c;
+      rg.b[j] = bv ? *reinterpret_cast<const uint2*>(b_row + tap * g.c + cj)
+                   : make_uint2(0, 0);
+    }
+  }
+
+  __device__ __forceinline__ void store(const Regs& rg,
+                                        unsigned char* buf) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint2 q = make_uint2(0, 0);
+      if (rg.av[j]) {
+        float v[8];
+        src.template value<8>(rg.a[j], rg.c0 + 8 * j, v);
+        q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
+                    __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
+        q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
+                    __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
+      }
+      *reinterpret_cast<uint2*>(buf + r * ROW + half * 16 + 8 * j) = q;
+      if (threadIdx.x < 2 * BN)
+        *reinterpret_cast<uint2*>(buf + A_BYTES + r * ROW + half * 16 +
+                                  8 * j) = rg.b[j];
+    }
+  }
+};
+
+// --- epilogue helpers -------------------------------------------------------
+
+// Visit the block's outputs: fn(m, n, acc(m, n), acc(m, n + 1)) for the
+// thread's valid rows m and column pairs (n, n + 1).
+template <typename Fn>
+__device__ __forceinline__ void each_pair(const int (&acc)[2][4][4], int m0,
+                                          int n0, int M, int nout, Fn&& fn) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = n0 + (warp % 2) * 32 + ni * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + (warp / 2) * 32 + mi * 16 + lane / 4 + hr * 8;
+        if (m < M && n < nout)
+          fn(mi, ni, hr, m, n, acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
+      }
+    }
+}
+
+// Per-channel sums of two quantities over the block's rows, in a fixed
+// order: s[q][ni][e] holds the thread's sums (its 4 rows) for column
+// (ni, e); warp butterflies over the 8 row lanes, then the 4 M-warps in
+// order; part[blockIdx.x][n] and part[blockIdx.x][nout + n].
+__device__ __forceinline__ void block_sums(float (&s)[2][4][2], int n0,
+                                           int nout, float* __restrict__ part) {
+  __shared__ float red[2][4][BN];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = s[q][ni][e];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        if (lane < 4)
+          red[q][warp / 2][(warp % 2) * 32 + ni * 8 + lane * 2 + e] = v;
+      }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < 2 * BN) {
+    const int q = t / BN, col = t % BN;
+    if (n0 + col < nout) {
+      float v = red[q][0][col];
+      for (int k = 1; k < 4; ++k) v = __fadd_rn(v, red[q][k][col]);
+      part[(size_t)blockIdx.x * 2 * nout + q * nout + n0 + col] = v;
+    }
+  }
+}
+
+// scale = amax * f32(1/127) of the chunk of each of the thread's 4 rows
+__device__ __forceinline__ void row_scales(float (&sc)[2][2],
+                                           const float* __restrict__ rowmax,
+                                           int m0, const ConvGeo& g) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + (warp / 2) * 32 + mi * 16 + lane / 4 + hr * 8;
+      const int oy = (m / g.w) % g.h;
+      sc[mi][hr] = __fmul_rn(
+          chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h),
+          common::kInv127);
+    }
+}
+
+// --- forward ----------------------------------------------------------------
+
+struct FwdArgs {
+  Act act;
+  const signed char* wq;   // [cout][taps * cin]
+  const float* ws;         // [cout]
+  const float* rowmax;     // [h] of |a|
+  bf16* y;                 // [M][cout]
+  float* part;             // [M / BM][2 * cout]
+  ConvGeo g;
+};
+
+__global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
+  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
+  const ConvGeo g = args.g;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = g.n * g.h * g.w;
+  int acc[2][4][4] = {};
+  const ConvLoader<Act, false> ld(args.act, args.wq, g, args.rowmax, m0, n0);
+  gemm(acc, ld, smem, 0, g.taps * ((g.c + BK - 1) / BK));
+
+  // y = bf16(f32(acc) * f32(ws * scale)); sums of f32(y) and its square
+  float rs[2][2];
+  row_scales(rs, args.rowmax, m0, g);
+  float s[2][4][2] = {};
+  each_pair(acc, m0, n0, M, g.nout,
+            [&](int mi, int ni, int hr, int m, int n, int v0, int v1) {
+    const float sc = rs[mi][hr];
+    const float y0 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
+        __int2float_rn(v0), __fmul_rn(args.ws[n], sc))));
+    const float y1 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
+        __int2float_rn(v1), __fmul_rn(args.ws[n + 1], sc))));
+    *reinterpret_cast<__nv_bfloat162*>(args.y + (size_t)m * g.nout + n) =
+        __floats2bfloat162_rn(y0, y1);
+    s[0][ni][0] = __fadd_rn(s[0][ni][0], y0);
+    s[0][ni][1] = __fadd_rn(s[0][ni][1], y1);
+    s[1][ni][0] = __fadd_rn(s[1][ni][0], __fmul_rn(y0, y0));
+    s[1][ni][1] = __fadd_rn(s[1][ni][1], __fmul_rn(y1, y1));
+  });
+  block_sums(s, n0, g.nout, args.part);
+}
+
+// --- input gradient ---------------------------------------------------------
+
+struct DgradArgs {
+  Cot cot;
+  const signed char* wq;   // [cin][taps * cout], forward tap coordinates
+  const float* ws_in;      // [cin]
+  const float* rowmax;     // [h] of |g|
+  const bf16* x;           // [M][cin] (the half's input)
+  const bf16* res;         // entry: [M][cin]
+  const bf16* dxout;       // entry: the x_res cotangent [M][cin]
+  const float* s;
+  const float* t;
+  int mode;
+  bf16* dx;
+  bf16* dres;              // entry
+  float* part;             // [M / BM][2 * cin] (not identity)
+  ConvGeo g;               // c = cout (contracted), nout = cin
+};
+
+__global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
+  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
+  const ConvGeo g = args.g;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = g.n * g.h * g.w;
+  const int cin = g.nout;
+  int acc[2][4][4] = {};
+  const ConvLoader<Cot, true> ld(args.cot, args.wq, g, args.rowmax, m0, n0);
+  gemm(acc, ld, smem, 0, g.taps * ((g.c + BK - 1) / BK));
+
+  // da = f32(acc) * f32(ws_in * scale); identity: dx = bf16(da); else
+  // u = fma(x, s, t) (+ res), da (entry: fma(f32(acc), ws_in * scale,
+  // dxout)), du = u > 0 ? da : 0,
+  // dx = bf16(du * s), dres = bf16(du); sums of du * x and du
+  float rs[2][2];
+  row_scales(rs, args.rowmax, m0, g);
+  float s[2][4][2] = {};
+  each_pair(acc, m0, n0, M, cin,
+            [&](int mi, int ni, int hr, int m, int n, int v0, int v1) {
+    const float sc = rs[mi][hr];
+    const size_t i = (size_t)m * cin + n;
+    const float fac[2] = {__fmul_rn(args.ws_in[n], sc),
+                          __fmul_rn(args.ws_in[n + 1], sc)};
+    const float acc_f[2] = {__int2float_rn(v0), __int2float_rn(v1)};
+    float da[2] = {__fmul_rn(acc_f[0], fac[0]), __fmul_rn(acc_f[1], fac[1])};
+    if (args.mode == IDENTITY) {
+      *reinterpret_cast<__nv_bfloat162*>(args.dx + i) =
+          __floats2bfloat162_rn(da[0], da[1]);
+      return;
+    }
+    const __nv_bfloat162 x2 =
+        *reinterpret_cast<const __nv_bfloat162*>(args.x + i);
+    const float xv[2] = {__low2float(x2), __high2float(x2)};
+    float rv[2] = {0.f, 0.f}, ov[2] = {0.f, 0.f};
+    if (args.mode == ENTRY) {
+      const __nv_bfloat162 r2 =
+          *reinterpret_cast<const __nv_bfloat162*>(args.res + i);
+      const __nv_bfloat162 o2 =
+          *reinterpret_cast<const __nv_bfloat162*>(args.dxout + i);
+      rv[0] = __low2float(r2);
+      rv[1] = __high2float(r2);
+      ov[0] = __low2float(o2);
+      ov[1] = __high2float(o2);
+    }
+    float du[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float u = __fmaf_rn(xv[e], args.s[n + e], args.t[n + e]);
+      float d = da[e];
+      if (args.mode == ENTRY) {
+        u = __fadd_rn(u, rv[e]);
+        d = __fmaf_rn(acc_f[e], fac[e], ov[e]);
+      }
+      du[e] = u > 0.f ? d : 0.f;
+      s[0][ni][e] = __fadd_rn(s[0][ni][e], __fmul_rn(du[e], xv[e]));
+      s[1][ni][e] = __fadd_rn(s[1][ni][e], du[e]);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(args.dx + i) = __floats2bfloat162_rn(
+        __fmul_rn(du[0], args.s[n]), __fmul_rn(du[1], args.s[n + 1]));
+    if (args.mode == ENTRY)
+      *reinterpret_cast<__nv_bfloat162*>(args.dres + i) =
+          __floats2bfloat162_rn(du[0], du[1]);
+  });
+  if (args.mode != IDENTITY) block_sums(s, n0, cin, args.part);
+}
+
+// --- weight gradient --------------------------------------------------------
+
+struct WgradArgs {
+  Act act;
+  Cot cot;
+  const float* rowmax_a;
+  const float* rowmax_g;
+  int* part;               // [h / rch][splits][taps * cin][cout] s32
+  int n, h, w, cin, cout, taps, rch, splits;
+};
+
+// Blocks of 4 positions x 4 channels, quantized and transposed so that
+// each of the 4 channel rows holds its 4 positions in one 32-bit word.
+struct WgradLoader {
+  WgradArgs a;
+  int k;            // chunk
+  float inv_a, inv_g;
+  int kb, rb;       // this thread's position block and channel block
+  int tap, ci;      // A: the block's tap and first input channel
+  bool a_ok, b_ok;
+  int co;           // B: first output channel
+
+  struct Regs {
+    Raw<4> a[4], b[4];
+    bool av[4], bv[4];
+  };
+
+  __device__ WgradLoader(const WgradArgs& args, int k_, int m0, int n0)
+      : a(args), k(k_) {
+    const int halo = a.taps == 9 ? 1 : 0;
+    inv_a = inv_of(chunk_amax(a.rowmax_a, k, a.rch, halo, a.h));
+    inv_g = inv_of(chunk_amax(a.rowmax_g, k, a.rch, 0, a.h));
+    kb = threadIdx.x % 8;
+    rb = threadIdx.x / 8;
+    const int m = m0 + 4 * rb;
+    a_ok = m < a.taps * a.cin;
+    tap = a_ok ? m / a.cin : 0;
+    ci = a_ok ? m - tap * a.cin : 0;
+    co = n0 + 4 * rb;
+    b_ok = threadIdx.x < 16 * 8 && co < a.cout;
+  }
+
+  __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
+    const int total = a.n * a.rch * a.w;
+    const int dy = a.taps == 9 ? tap / 3 : 1;
+    const int dx = a.taps == 9 ? tap % 3 : 1;
+    // the block's first position kk0 of the chunk -> (image, row, column),
+    // then the next three by stepping the column
+    const int kk0 = kt * BK + 4 * kb;
+    const int per = a.rch * a.w;
+    int img = kk0 / per;
+    const int rem = kk0 - img * per;
+    int r = rem / a.w;
+    int c = rem - r * a.w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in_chunk = kk0 + i < total;
+      const int ry = k * a.rch + r;
+      const int iy = ry + dy - 1, ix = c + dx - 1;
+      rg.av[i] = a_ok && in_chunk && (unsigned)iy < (unsigned)a.h &&
+                 (unsigned)ix < (unsigned)a.w;
+      if (rg.av[i])
+        a.act.fetch<4>(((size_t)img * a.h + iy) * a.w + ix, ci, rg.a[i]);
+      rg.bv[i] = b_ok && in_chunk;
+      if (rg.bv[i])
+        a.cot.fetch<4>(((size_t)img * a.h + ry) * a.w + c, co, rg.b[i]);
+      if (++c == a.w) {
+        c = 0;
+        if (++r == a.rch) {
+          r = 0;
+          ++img;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Regs& rg,
+                                        unsigned char* buf) const {
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rg.av[i]) {
+        a.act.value<4>(rg.a[i], ci, v[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(buf + (4 * rb + j) * ROW + 4 * kb) =
+          pack4(__fmul_rn(v[0][j], inv_a), __fmul_rn(v[1][j], inv_a),
+                __fmul_rn(v[2][j], inv_a), __fmul_rn(v[3][j], inv_a));
+    if (!(threadIdx.x < 16 * 8)) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rg.bv[i]) {
+        a.cot.value<4>(rg.b[i], co, v[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(buf + A_BYTES + (4 * rb + j) * ROW +
+                                   4 * kb) =
+          pack4(__fmul_rn(v[0][j], inv_g), __fmul_rn(v[1][j], inv_g),
+                __fmul_rn(v[2][j], inv_g), __fmul_rn(v[3][j], inv_g));
+  }
+};
+
+// Grid (M / BM, Cout / BN, chunks * splits): block z takes split z % splits
+// of chunk z / splits, a contiguous run of its K steps; the s32 tile goes
+// to its slot (exact: the chunk's sum in any split is the same integer).
+__global__ void __launch_bounds__(THREADS) nvt_wgrad_kernel(WgradArgs args) {
+  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = args.taps * args.cin;
+  const int k = blockIdx.z / args.splits, split = blockIdx.z % args.splits;
+  const int steps = (args.n * args.rch * args.w + BK - 1) / BK;
+  const int per = (steps + args.splits - 1) / args.splits;
+  const int kt0 = split * per, kt1 = min(steps, kt0 + per);
+  int acc[2][4][4] = {};
+  if (kt0 < kt1) {
+    const WgradLoader ld(args, k, m0, n0);
+    gemm(acc, ld, smem, kt0, kt1);
+  }
+  int* out = args.part + (size_t)blockIdx.z * M * args.cout;
+  each_pair(acc, m0, n0, M, args.cout,
+            [&](int, int, int, int m, int n, int v0, int v1) {
+    *reinterpret_cast<int2*>(out + (size_t)m * args.cout + n) =
+        make_int2(v0, v1);
+  });
+}
+
+// dW[i] = sum over chunks k in order of f32(s32_k[i]) * ts_k, s32_k[i] the
+// exact sum of the chunk's splits and ts_k = (amax_a * amax_g) *
+// f32(1/127^2), amax_a over the chunk's rows (+ halo) of |a|.
+__global__ void __launch_bounds__(256)
+nvt_wgrad_sum_kernel(const int* __restrict__ part,
+                     const float* __restrict__ rowmax_a,
+                     const float* __restrict__ rowmax_g,
+                     float* __restrict__ out, long mn, int chunks, int splits,
+                     int h, int rch, int halo_a) {
+  __shared__ float ts[256];
+  if ((int)threadIdx.x < chunks)
+    ts[threadIdx.x] = __fmul_rn(
+        __fmul_rn(chunk_amax(rowmax_a, threadIdx.x, rch, halo_a, h),
+                  chunk_amax(rowmax_g, threadIdx.x, rch, 0, h)),
+        common::kInv16129);
+  __syncthreads();
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float d = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    int sum = 0;
+    for (int sp = 0; sp < splits; ++sp)
+      sum += part[((size_t)k * splits + sp) * mn + i];
+    const float c = __fmul_rn(__int2float_rn(sum), ts[k]);
+    d = k == 0 ? c : __fadd_rn(d, c);
+  }
+  out[i] = d;
+}
+
+// --- sums across blocks -----------------------------------------------------
+
+// out[i] = sum over k < j of part[k][i] in a fixed tree: 16 strided
+// partial sums per column, then those in order.
+__global__ void nvt_sum_kernel(const float* __restrict__ part,
+                               float* __restrict__ out, int j, int m) {
+  __shared__ float red[16][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (col < m)
+    for (int k = threadIdx.y; k < j; k += 16)
+      s = __fadd_rn(s, part[(size_t)k * m + col]);
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < m) {
+    float t = red[0][threadIdx.x];
+    for (int y = 1; y < 16; ++y) t = __fadd_rn(t, red[y][threadIdx.x]);
+    out[col] = t;
+  }
+}
+
+cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+template <typename T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
+}
+
+Act act_of(const void* x, const void* res, const void* s, const void* t,
+           int c, int mode) {
+  return Act{in<bf16>(x), in<bf16>(res), in<float>(s), in<float>(t), c,
+             mode};
+}
+
+Cot cot_of(const void* dy, const void* y, const void* dzsum,
+           const void* dzssq, int c) {
+  return Cot{in<bf16>(dy), in<bf16>(y), in<float>(dzsum), in<float>(dzssq),
+             c};
+}
+
+dim3 conv_grid(int m, int nout) {
+  return dim3((m + BM - 1) / BM, (nout + BN - 1) / BN);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every channel count a multiple of 8; pointers 16-byte aligned; tensors
+// contiguous. mode: 0 identity, 1 affine, 2 entry. Each returns the
+// launch's cudaError_t.
+
+// rowmax [h] f32, zeroed by the caller, <- max |a| per image row of
+// x [n, h, w, c] bf16 (res [n, h, w, c] in entry mode, s/t [c] f32 unless
+// identity); copy [n, h, w, c] bf16 = bf16(a) or null.
+int nvt_rowmax_act_launch(const void* x, const void* res, const void* s,
+                          const void* t, int mode, void* copy, void* rowmax,
+                          int n, int h, int w, int c, int slices,
+                          void* stream) {
+  nvt_rowmax_kernel<<<dim3(h, slices), 256, 0, as_stream(stream)>>>(
+      act_of(x, res, s, t, c, mode), n, h, w, c, static_cast<bf16*>(copy),
+      static_cast<float*>(rowmax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rowmax [h] <- max |g| per image row, g = fma(2y, dzssq, dy + dzsum).
+int nvt_rowmax_cot_launch(const void* dy, const void* y, const void* dzsum,
+                          const void* dzssq, void* rowmax, int n, int h,
+                          int w, int c, int slices, void* stream) {
+  nvt_rowmax_kernel<<<dim3(h, slices), 256, 0, as_stream(stream)>>>(
+      cot_of(dy, y, dzsum, dzssq, c), n, h, w, c, nullptr,
+      static_cast<float*>(rowmax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y [n, h, w, cout] bf16 and part [ceil(n*h*w / 128)][2 * cout] f32 (the
+// per-block sums of y and y^2) <- the forward half: wq [cout][taps * cin]
+// int8, ws [cout] f32, rowmax [h] of |a|, rch the forward's row chunk.
+int nvt_fwd_launch(const void* x, const void* res, const void* s,
+                   const void* t, int mode, const void* rowmax,
+                   const void* wq, const void* ws, void* y, void* part, int n,
+                   int h, int w, int cin, int cout, int taps, int rch,
+                   void* stream) {
+  FwdArgs args{act_of(x, res, s, t, cin, mode), in<signed char>(wq),
+               in<float>(ws), in<float>(rowmax), static_cast<bf16*>(y),
+               static_cast<float*>(part),
+               ConvGeo{n, h, w, cin, taps, cout, rch, taps == 9 ? 1 : 0}};
+  nvt_fwd_kernel<<<conv_grid(n * h * w, cout), THREADS, 0,
+                   as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx [n, h, w, cin] bf16 (dres likewise in entry mode; part
+// [ceil(n*h*w / 128)][2 * cin] the per-block sums of du * x and du unless
+// identity) <- the input gradient: dy/y [n, h, w, cout] bf16, dzsum/dzssq
+// [cout], rowmax [h] of |g|, wq [cin][taps * cout] int8 in forward tap
+// coordinates, ws_in [cin]; x/res/dxout [n, h, w, cin], s/t [cin].
+int nvt_dgrad_launch(const void* dy, const void* y, const void* dzsum,
+                     const void* dzssq, const void* rowmax, const void* wq,
+                     const void* ws_in, const void* x, const void* res,
+                     const void* dxout, const void* s, const void* t,
+                     int mode, void* dx, void* dres, void* part, int n, int h,
+                     int w, int cin, int cout, int taps, int rch,
+                     void* stream) {
+  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), in<signed char>(wq),
+                 in<float>(ws_in), in<float>(rowmax), in<bf16>(x),
+                 in<bf16>(res), in<bf16>(dxout), in<float>(s), in<float>(t),
+                 mode, static_cast<bf16*>(dx), static_cast<bf16*>(dres),
+                 static_cast<float*>(part),
+                 ConvGeo{n, h, w, cout, taps, cin, rch, taps == 9 ? 1 : 0}};
+  nvt_dgrad_kernel<<<conv_grid(n * h * w, cin), THREADS, 0,
+                     as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight gradient, two launches. nvt_wgrad: part [h / rch][splits]
+// [taps * cin][cout] s32 <- the per-(chunk, split) products of the
+// activation (from x/res/s/t as the forward computes it) and the
+// cotangent (from dy/y/dzsum/dzssq), rowmax_a/rowmax_g [h] their row
+// absmaxes. nvt_wgrad_sum: dW [taps * cin][cout] f32 (rows (dy, dx, ci))
+// <- the chunks' scaled sums, in chunk order.
+int nvt_wgrad_launch(const void* x, const void* res, const void* s,
+                     const void* t, int mode, const void* rowmax_a,
+                     const void* dy, const void* y, const void* dzsum,
+                     const void* dzssq, const void* rowmax_g, void* part,
+                     int n, int h, int w, int cin, int cout, int taps,
+                     int rch, int splits, void* stream) {
+  WgradArgs args{act_of(x, res, s, t, cin, mode),
+                 cot_of(dy, y, dzsum, dzssq, cout), in<float>(rowmax_a),
+                 in<float>(rowmax_g), static_cast<int*>(part), n, h, w, cin,
+                 cout, taps, rch, splits};
+  const dim3 grid((taps * cin + BM - 1) / BM, (cout + BN - 1) / BN,
+                  h / rch * splits);
+  nvt_wgrad_kernel<<<grid, THREADS, 0, as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nvt_wgrad_sum_launch(const void* part, const void* rowmax_a,
+                         const void* rowmax_g, void* dw, int h, int cin,
+                         int cout, int taps, int rch, int splits,
+                         void* stream) {
+  const long mn = (long)taps * cin * cout;
+  nvt_wgrad_sum_kernel<<<(mn + 255) / 256, 256, 0, as_stream(stream)>>>(
+      in<int>(part), in<float>(rowmax_a), in<float>(rowmax_g),
+      static_cast<float*>(dw), mn, h / rch, splits, h, rch,
+      taps == 9 ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = sum over k < j of part[k][i] (part [j][m] f32), fixed tree.
+int nvt_sum_launch(const void* part, void* out, int j, int m, void* stream) {
+  nvt_sum_kernel<<<(m + 31) / 32, dim3(32, 16), 0, as_stream(stream)>>>(
+      in<float>(part), static_cast<float*>(out), j, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

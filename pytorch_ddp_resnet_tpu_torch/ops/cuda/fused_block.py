@@ -126,12 +126,18 @@ def bwd_tile(h: int, w_img: int, n: int, cin: int, cout: int) -> int:
 
 # --- weights --------------------------------------------------------------------
 
+def _f32_127(like: torch.Tensor) -> torch.Tensor:
+    """127 as a tensor divisor: a true f32 division on the card too (a
+    Python float divisor becomes a multiply by its reciprocal there)."""
+    return torch.tensor(127.0, dtype=_F32, device=like.device)
+
+
 def quantize_pack_weights(w: torch.Tensor):
     """Per-output-channel symmetric int8 of an OIHW 3x3 kernel, packed for
     the conv: (w_q [Cout, 9*Cin] int8, ws [Cout] f32)."""
     wf = w.to(_F32)
     absmax = wf.abs().amax(dim=(1, 2, 3))
-    ws = torch.clamp_min(absmax, 1e-12) / 127.0
+    ws = torch.clamp_min(absmax, 1e-12) / _f32_127(absmax)
     w_q = torch.clamp(torch.round(wf / ws[:, None, None, None]), -127, 127)
     return pack_weights(w_q.to(torch.int8)), ws
 
@@ -142,7 +148,7 @@ def quantize_pack_weights_dgrad(w: torch.Tensor):
     (w_q [Cin, 9*Cout] int8, ws [Cin] f32)."""
     wf = w.to(_F32)
     absmax = wf.abs().amax(dim=(0, 2, 3))
-    ws = torch.clamp_min(absmax, 1e-12) / 127.0
+    ws = torch.clamp_min(absmax, 1e-12) / _f32_127(absmax)
     w_q = torch.clamp(torch.round(wf / ws[None, :, None, None]), -127, 127)
     w_rot = w_q.to(torch.int8).flip(2, 3).transpose(0, 1)  # [Cin, Cout, 3, 3]
     return pack_weights(w_rot), ws

@@ -1,7 +1,7 @@
 """Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py,
-ops/cuda/augment.py, ops/cuda/fused_block.py, ops/cuda/stem.py and
-ops/cuda/bneck_nv.py): each kernel against its plain PyTorch version on
-the same CUDA tensors.
+ops/cuda/augment.py, ops/cuda/fused_block.py, ops/cuda/stem.py,
+ops/cuda/bneck_nv.py and ops/cuda/bneck_nv_train.py): each kernel against
+its plain PyTorch version on the same CUDA tensors.
 
 Marked ``cuda``; without a card every test skips (decided in the fixture,
 never at import). Run them on the machine with the card (no JAX there, so
@@ -23,7 +23,10 @@ and the stem forward are equal; sums over positions (BatchNorm sums,
 d(scale), d(shift), the stem's weight and bias gradients) are f32 sums in
 another order: 1e-5 of the largest value. The NV bottleneck kernels: exact
 s32 sums and the reference's rounding points in both versions, so int8
-and bf16 outputs are equal.
+and bf16 outputs are equal. The NV training halves: row absmaxes, bf16
+outputs and the weight gradient (exact s32 per chunk, chunks added in
+order) are equal; the BatchNorm sums, d(s) and d(t) are f32 sums in
+another order: 1e-5 of the largest value.
 """
 
 import numpy as np
@@ -32,6 +35,7 @@ import torch
 
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment as aug
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv as nv
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
@@ -381,3 +385,116 @@ def test_bneck_nhwc_int8_products_match_plain(dev):
     want = Int8Inference(model, fused_bneck=False, plain=True).serve_fn(
         scales)(x)
     assert torch.equal(got, want)
+
+
+# --- the NV bottleneck training halves ------------------------------------------
+
+NVT_HALVES = [("1x1", "identity"), ("1x1", "affine"), ("1x1", "entry"),
+              ("3x3", "identity"), ("3x3", "affine")]
+# (n, h, w, cin, cout, (fwd, dgrad, wgrad) row chunks): several chunks and
+# 3x3 halos across chunk boundaries, channels that are multiples of 8 but
+# not of 32, and ResNet-50's stage-3 widths at batch 128
+NVT_SHAPES = [(32, 8, 8, 64, 32, (2, 4, 1)), (64, 7, 7, 32, 64, (7, 1, 1)),
+              (32, 6, 5, 40, 24, (3, 2, 6)),
+              (128, 14, 14, 1024, 256, (2, 1, 2))]
+NVT_SUMS = ("zsum", "zssq", "ds", "dt")
+
+
+def _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if conv == "3x3":
+        cin = cout = min(cin, 256)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = rn(n, h, w, cin).to(torch.bfloat16)
+    if mode == "identity":
+        x = x.abs()
+    k = 3 if conv == "3x3" else 1
+    return dict(
+        x=x, w=rn(cout, cin, k, k, s=(k * k * cin) ** -0.5),
+        s=rn(cin, s=0.5) + 1.0 if mode != "identity" else None,
+        t=rn(cin, s=0.2) if mode != "identity" else None,
+        res=rn(n, h, w, cin).to(torch.bfloat16) if mode == "entry" else None,
+        dy=rn(n, h, w, cout).to(torch.bfloat16), dzsum=rn(cout, s=0.01),
+        dzssq=rn(cout, s=0.001),
+        dxout=(rn(n, h, w, cin).to(torch.bfloat16) if mode == "entry"
+               else None))
+
+
+@pytest.mark.parametrize("conv,mode", NVT_HALVES)
+@pytest.mark.parametrize("n,h,w,cin,cout,rch", NVT_SHAPES)
+def test_nv_train_kernels_match_plain(dev, conv, mode, n, h, w, cin, cout,
+                                      rch):
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, cin + h)
+    nvt.reset_launches()
+    got = nvt.half_stages(**ops, conv=conv, mode=mode, rch=rch)
+    torch.cuda.synchronize()
+    assert {k.split(".")[0] for k in nvt.launches} == {
+        "nv_half_fwd", "nv_half_bwd", "nv_half_dgrad", "nv_half_wgrad"}
+    want = nvt.half_stages(**ops, conv=conv, mode=mode, rch=rch, plain=True)
+    assert want["y"].unique().numel() > 100
+    for name, ref in want.items():
+        if ref is None:
+            assert got[name] is None, name
+            continue
+        _same(got[name], ref, sums=name in NVT_SUMS)
+
+
+def test_nv_half_op_launches_its_kernels(dev):
+    """The differentiable entry half on the card: one launch of each
+    kernel, and the same outputs and gradients as the op on the CPU."""
+    ops = _nvt_inputs(dev, "1x1", "entry", 32, 8, 8, 64, 32, 1)
+
+    def run(device):
+        leaves = {k: ops[k].detach().to(device).requires_grad_()
+                  for k in ("x", "w", "s", "t", "res")}
+        out = nvt.nv_half_1x1(leaves["x"], leaves["w"], leaves["s"],
+                              leaves["t"], leaves["res"], mode="entry",
+                              w_img=8)
+        loss = ((out[0].float() * ops["dy"].float().to(device)).sum()
+                + (out[1] * ops["dzsum"].to(device)).sum()
+                + (out[2] * ops["dzssq"].to(device)).sum()
+                + (out[3].float() * ops["dxout"].float().to(device)).sum())
+        loss.backward()
+        return [o.detach().cpu() for o in out] + [
+            leaves[k].grad.cpu() for k in ("x", "w", "s", "t", "res")]
+
+    nvt.reset_launches()
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert dict(nvt.launches) == {name: 1 for name in (
+        "nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum",
+        "nv_half_bwd.amax", "nv_half_dgrad", "nv_half_dgrad.sum",
+        "nv_half_wgrad", "nv_half_wgrad.sum")}
+    want = run("cpu")
+    for i, (a, b) in enumerate(zip(got, want)):
+        _same(a, b, sums=i in (1, 2, 6, 7))   # zsum, zssq, d(s), d(t)
+
+
+def test_nv_train_never_falls_back(dev):
+    x = torch.zeros((32, 4, 4, 64), device=dev)
+    w = torch.zeros((32, 64, 1, 1), device=dev)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        nvt.nv_half_1x1(x, w, mode="identity", w_img=4)
+    x12 = torch.zeros((32, 4, 4, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.nv_half_1x1(x12, torch.zeros((32, 12, 1, 1), device=dev),
+                        mode="identity", w_img=4)
+
+
+def test_weight_scales_on_the_card_equal_the_cpu(dev):
+    """The int8 weight quantizers divide by 127 truly on the card too (the
+    CPU tests hold the CPU's scales equal to JAX's); a Python-float divisor
+    would be a multiply by f32(1/127) there and move some scales by an
+    ulp."""
+    g = torch.Generator().manual_seed(0)
+    w1 = torch.randn(512, 1024, 1, 1, generator=g) * 0.05
+    w3 = torch.randn(256, 256, 3, 3, generator=g) * 0.05
+    for fn, w in ((nvt.quantize_w_1x1, w1), (nvt.quantize_w_1x1_dgrad, w1),
+                  (nvt.quantize_w_3x3, w3), (nvt.quantize_w_3x3_dgrad, w3),
+                  (fb.quantize_pack_weights, w3),
+                  (fb.quantize_pack_weights_dgrad, w3)):
+        for a, b in zip(fn(w.to(dev)), fn(w)):
+            assert torch.equal(a.cpu(), b), fn.__name__
