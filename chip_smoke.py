@@ -104,12 +104,41 @@ Phases, each fatal on failure:
    runs as the yardstick; both print step time, img/s, peak memory and a
    profile, and the halves' per-step time from phase 10's per-call times
    is printed beside the profiled one.
-12. Print one JSON line of per-kernel numbers, then the result line.
+12. Fused bf16 half kernels: at every WRN-28-10 stage shape (batch 128)
+   hold the bf16 forward, dgrad and wgrad (ops/cuda/csrc/
+   fused_block_bf16.cu) against their plain versions on the same CUDA
+   tensors, with and without residual and BatchNorm sums, with materialized
+   dropout bits and with a seed (the hash of csrc/seed_bits.cuh rebuilt in
+   registers): bf16 outputs within 2 bf16 ulps of the tensor's largest
+   value, dres equal, f32 sums over the tensor cores' accumulators within
+   1e-4 of their largest value (``_agree_bf16`` says why) and the
+   BatchNorm sums within 1e-5 of the sums of the kernel's own y. The int8
+   core's quantizers and dgrad in seed mode equal their plain versions and
+   themselves fed the expanded bits; ``seed_bits_expand`` is bit-equal to
+   the plain ``seed_bits`` for seeds across the int32 range. Each is timed
+   beside its plain version and cuDNN's bf16 forward, input gradient and
+   weight gradient (channels-last) at the same shape.
+13. Training, the sixth main path: the bf16 recipe of phase 5 with
+   ``use_fused_block: True`` through ``setup(config)``. With the launch
+   counts zeroed just before, each step must launch the stem, the augment
+   kernel and 8 fused bf16 halves (the 4 identity blocks of stage 1), each
+   one forward, dgrad and wgrad (FUSED_PER_STEP); losses finite, every
+   parameter changed, every BatchNorm count equal to the steps.
+14. Training, the seventh main path: the ``-int8`` recipe with
+   ``use_int8_train: True``, ``use_int8_train_bwd: False`` (QAT) and
+   ``use_inkernel_dropout: True``: 22 halves per step on the int8 forward
+   and the bf16 backward (QAT_PER_STEP), 15 of them (stages 1 and 2)
+   rebuilding their dropout masks from a seed, so no uint8 bits tensor is
+   drawn for them, and the 7 at C=640 on drawn bits. In phases 13 and 14
+   the first half of each bits mode in the first step, on its live inputs
+   and cotangents, must reproduce its output and equal its plain versions.
+15. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -140,6 +169,8 @@ FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
 STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
 NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
+BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
+               "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
 REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv3x3_int8_requant": _PALLAS + "conv.py:314",
@@ -155,7 +186,31 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "bneck_transition_nv": _PALLAS + "bneck_nv.py:600",
             "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
-            "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928"}
+            "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
+            "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
+            "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
+            "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763"}
+BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
+              "fused_half_bf16_wgrad")
+# launches of one fused-bf16 WRN-28-10 step: the stem, and 8 bf16 halves
+# (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums
+FUSED_PER_STEP = {
+    "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
+    "fused_half_bf16_fwd": 8, "fused_half_bf16_fwd.sum": 4,
+    "fused_half_bf16_dgrad": 8, "fused_half_bf16_dgrad.sum": 8,
+    "fused_half_bf16_wgrad": 8, "fused_half_bf16_wgrad.sum": 8}
+# launches of one QAT step: 22 halves on the int8 forward and the bf16
+# backward; with in-kernel dropout the 15 halves at C = 160 and 320 rebuild
+# their masks from a seed (QAT_SEED_PER_STEP)
+QAT_PER_STEP = {
+    "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
+    "fused_half_fwd.amax": 22, "fused_half_fwd.quant": 22,
+    "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
+    "fused_half_bf16_dgrad": 22, "fused_half_bf16_dgrad.sum": 22,
+    "fused_half_bf16_wgrad": 22, "fused_half_bf16_wgrad.sum": 22}
+QAT_SEED_PER_STEP = {"fused_half_fwd.amax": 15, "fused_half_fwd.quant": 15,
+                     "fused_half_bf16_dgrad": 15,
+                     "fused_half_bf16_wgrad": 15}
 # (kind, h, w, cin, width, cout, stride) at batch 128: the ResNet-50
 # stages, then WRN-50-2's stage 4 (its widest operands)
 NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
@@ -602,6 +657,7 @@ KERNEL_KINDS = [
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("nv train halves (port)", ("nvt_",)),
     ("stem (port)", ("stem_",)),
+    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad", "Bf16Prologue")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
                                 "partial_sum")),
@@ -653,11 +709,14 @@ def _profile_steps(run_steps, steps: int):
 
 def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                    run_name="wrn-28-10-train", per_step=None,
-                   first_step=None):
-    """Train the full-width recipe for TRAIN_STEPS steps through setup and
-    the train step. ``per_step``: the launches each step must make (default
-    the augment kernel only); ``first_step``: a context manager wrapped
-    around the first step (phase 7 records a fused half there)."""
+                   first_step=None, seed_per_step=None, **overrides):
+    """Train the full-width recipe (with the config ``overrides``) for
+    TRAIN_STEPS steps through setup and the train step. ``per_step``: the
+    launches each step must make (default the augment kernel only);
+    ``seed_per_step``: those of them that must rebuild their dropout masks
+    from a seed (default none); ``first_step``: a context manager wrapped
+    around the first step (phases 7, 13 and 14 record fused halves
+    there)."""
     import contextlib
     import math
 
@@ -666,10 +725,12 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
     from pytorch_ddp_resnet_tpu_torch.algos.steps import make_train_step
     from pytorch_ddp_resnet_tpu_torch.algos.train import setup
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
     from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
     per_step = per_step or {"augment_batch": 1}
-    config = write_run(workdir, run_name, recipe, use_pallas_augment=True)
+    config = write_run(workdir, run_name, recipe, use_pallas_augment=True,
+                       **overrides)
     assert config["batch_size"] == BATCH
 
     t0 = time.perf_counter()
@@ -707,11 +768,14 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
     launches = all_launches()
+    seeded = dict(fb.seed_launches)
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = [float(m["loss"]) for m in metrics]
     assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
         launches
+    assert seeded == {k: v * TRAIN_STEPS
+                      for k, v in (seed_per_step or {}).items()}, seeded
     assert all(math.isfinite(v) for v in losses), losses
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), f"{k} did not change"
@@ -736,10 +800,11 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                 and r["whiten"])
     aug_ms = main["ms"] if main["ms"] is not None else main["call_ms"]
     return dict(
-        launches=launches, steps=TRAIN_STEPS, losses=losses, lr=lr,
-        setup_s=setup_s, step_ms=step_ms, img_per_s=BATCH / step_ms * 1e3,
-        augment_kernel_ms=aug_ms, augment_share_of_step=aug_ms / step_ms,
-        peak_mem_gib=peak_mem, profile=profile)
+        launches=launches, seed_launches=seeded, steps=TRAIN_STEPS,
+        losses=losses, lr=lr, setup_s=setup_s, step_ms=step_ms,
+        img_per_s=BATCH / step_ms * 1e3, augment_kernel_ms=aug_ms,
+        augment_share_of_step=aug_ms / step_ms, peak_mem_gib=peak_mem,
+        profile=profile)
 
 
 # --- phases 6 and 7: int8 fully quantized training ------------------------------
@@ -797,12 +862,31 @@ def _agree(got: dict, want: dict, what) -> float:
     return err
 
 
+def cudnn_times(g, c_in, c_out, h, w, k):
+    """cuDNN bf16 channels-last forward, input and weight gradient of a
+    k x k SAME conv at batch BATCH: ms per call."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    dev = torch.device("cuda")
+
+    def rn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(
+            torch.bfloat16).to(memory_format=torch.channels_last)
+
+    x4, w4, dy4 = rn(BATCH, c_in, h, w), rn(c_out, c_in, k, k), rn(
+        BATCH, c_out, h, w)
+    p = k // 2
+    return (time_ms(lambda: F.conv2d(x4, w4, padding=p), 10),
+            time_ms(lambda: conv2d_input(x4.shape, w4, dy4, padding=p), 10),
+            time_ms(lambda: conv2d_weight(x4, w4.shape, dy4, padding=p), 10))
+
+
 def fqt_kernel_phase(peaks):
     """Rows per (kernel, shape, mode): max error against the plain version,
     and the kernel / plain / cuDNN-bf16 / bound times of one call."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.grad import conv2d_input, conv2d_weight
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
@@ -817,19 +901,7 @@ def fqt_kernel_phase(peaks):
         return torch.randn(*shape, device=dev, generator=g) * s
 
     def cudnn(c_in, c_out, h, w, k):
-        """cuDNN bf16 channels-last forward, input and weight gradient."""
-        x4 = randn(BATCH, c_in, h, w).to(torch.bfloat16).to(
-            memory_format=torch.channels_last)
-        w4 = randn(c_out, c_in, k, k).to(torch.bfloat16).to(
-            memory_format=torch.channels_last)
-        dy4 = randn(BATCH, c_out, h, w).to(torch.bfloat16).to(
-            memory_format=torch.channels_last)
-        p = k // 2
-        return (time_ms(lambda: F.conv2d(x4, w4, padding=p), 10),
-                time_ms(lambda: conv2d_input(x4.shape, w4, dy4, padding=p),
-                        10),
-                time_ms(lambda: conv2d_weight(x4, w4.shape, dy4, padding=p),
-                        10))
+        return cudnn_times(g, c_in, c_out, h, w, k)
 
     def row(name, c, h, w, mode, err, fn, plain_fn, lib, ops, byts,
             ops_peak):
@@ -925,44 +997,49 @@ def fqt_kernel_phase(peaks):
     return rows
 
 
-class RecordFirstHalf:
-    """Around the first train step: count the step's fused halves by
-    (width, residual, BatchNorm sums), and record the first half's live
-    inputs and, through gradient hooks, its live cotangents."""
+class RecordHalves:
+    """Around the first train step: count the step's fused halves of
+    ``fb.<op>`` by (width, residual, BatchNorm sums, bits mode), and record
+    the first half of each bits mode: its live inputs and, through gradient
+    hooks, its live cotangents (phases 7, 13 and 14)."""
 
-    def __init__(self):
+    def __init__(self, op: str):
+        self.op = op
         self.rec = {}
         self.halves = {}
 
     def __enter__(self):
         from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 
-        self.fb, self.orig = fb, fb.fused_half_int8
+        self.fb, self.orig = fb, getattr(fb, self.op)
         rec, orig, halves = self.rec, self.orig, self.halves
+
+        def clone(t):
+            return None if t is None else t.detach().clone()
 
         def recording(x_cs, w, scale, shift, bits=None, res=None, **kw):
             out = orig(x_cs, w, scale, shift, bits, res, **kw)
-            mode = (x_cs.shape[0], res is not None, kw["want_stats"])
-            halves[mode] = halves.get(mode, 0) + 1
-            if not rec:
+            kind = ("seed" if fb.is_seed(bits) else
+                    "none" if bits is None else "bits")
+            key = (x_cs.shape[0], res is not None, kw["want_stats"], kind)
+            halves[key] = halves.get(key, 0) + 1
+            if kind not in rec:
                 # copies: the optimizer updates the weight in place
-                rec.update(args=[None if t is None else t.detach().clone()
-                                 for t in (x_cs, w, scale, shift, bits,
-                                           res)], kw=kw,
-                           out=[None if t is None else t.detach().clone()
-                                for t in out])
+                r = rec[kind] = dict(
+                    args=[clone(t) for t in (x_cs, w, scale, shift, bits,
+                                             res)], kw=kw,
+                    out=[clone(t) for t in out])
                 for name, t in zip(("dy", "dysum", "dyssq"), out):
                     if t is not None:
-                        t.register_hook(
-                            lambda g, name=name: rec.__setitem__(
-                                name, g.detach().clone()))
+                        t.register_hook(lambda gr, name=name, r=r:
+                                        r.__setitem__(name, clone(gr)))
             return out
 
-        fb.fused_half_int8 = recording
+        setattr(fb, self.op, recording)
         return self
 
     def __exit__(self, *exc):
-        self.fb.fused_half_int8 = self.orig
+        setattr(self.fb, self.op, self.orig)
         return False
 
 
@@ -1060,7 +1137,7 @@ def fqt_summary(rows, training, halves):
     """One entry per FQT kernel: the int8 training run's launches and the
     device time per train step: phase 6's per-call times summed over the
     halves one step of the main path ran (``halves``: count per (width,
-    residual, BatchNorm sums), recorded by RecordFirstHalf)."""
+    residual, BatchNorm sums, bits mode), recorded by RecordHalves)."""
     def mode(name, res, stats):
         if name == "fused_half_fwd":
             return ("res" if res else "") + ("+stats" if stats else "")
@@ -1074,7 +1151,7 @@ def fqt_summary(rows, training, halves):
             (next(r for r in mine
                   if r["c"] == c and r["mode"] == mode(name, res, stats)),
              count)
-            for (c, res, stats), count in halves.items()]
+            for (c, res, stats, _), count in halves.items()]
         tot = {k: sum(r[k] * cnt for r, cnt in mix)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "ops_ms", "bytes_ms")}
@@ -1090,6 +1167,305 @@ def fqt_summary(rows, training, halves):
             library_ms=tot["library_ms"],
             per=f"training step of {BATCH} (ms per call summed over the "
                 "step's calls; launches over the run)",
+            stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    return out
+
+
+# --- phases 12 to 14: fused bf16 halves, QAT, in-kernel dropout --------------
+
+SEED_VALUES = (0, -1, 2 ** 31 - 1, -2 ** 31, 123456789, -987654321)
+BF16_SUMS = ("ysum", "yssq", "ds", "dt", "dw")
+
+
+def _agree_bf16(got: dict, want: dict, what) -> float:
+    """A bf16 kernel's outputs against the plain version's: bf16 tensors
+    within 2 bf16 ulps of the tensor's largest value (f32 against float64
+    accumulation), dres equal; the f32 sums over the tensor cores' f32
+    accumulators within 1e-4 of their largest value (that accumulation
+    does not round to nearest: at K = 5,760 it left y's squares 1.6e-5 low
+    of the float64 plain version's), and the BatchNorm sums within 1e-5 of
+    the sums of the kernel's own y. Returns the max abs difference."""
+    import torch
+
+    err = 0.0
+    for k, ref in want.items():
+        out = got[k]
+        if ref is None:
+            assert out is None, (what, k)
+            continue
+        assert out.dtype == ref.dtype and out.shape == ref.shape, (what, k)
+        d = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        if k in ("ysum", "yssq"):
+            yd = got["y"].double()
+            own = yd.sum(1) if k == "ysum" else (yd * yd).sum(1)
+            assert (out.double() - own).abs().max().item() <= \
+                1e-5 * own.abs().max().item(), (what, k)
+        if k in BF16_SUMS:
+            assert d <= 1e-4 * top, (what, k, d, top)
+        elif k == "dres":
+            assert torch.equal(out, ref), (what, k, d)
+        else:
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+            assert d <= 2 * ulp, (what, k, d, top)
+        err = max(err, d)
+    return err
+
+
+def _bf16_fns(fb, x, wp, wdg, scale, shift, bits, res, stats, ct, thresh,
+              h, w, plain):
+    """The bf16 half's three stages as callables returning dicts."""
+    fwd, dgrad, wgrad = ((fb.fwd_bf16_plain, fb.dgrad_bf16_plain,
+                          fb.wgrad_bf16_plain) if plain
+                         else (fb.fwd_bf16, fb.dgrad_bf16, fb.wgrad_bf16))
+    kw = dict(thresh=thresh, h=h, w_img=w)
+    dy, cts = ct[0], ct[1:]
+
+    def f():
+        y, ys, yq = fwd(x, wp, scale, shift, bits, res, want_stats=stats,
+                        **kw)
+        return dict(y=y, ysum=ys, yssq=yq)
+
+    def d():
+        dx, ds, dt, dres = dgrad(dy, *cts, wdg, x, scale, shift, bits,
+                                 emit_res=cts[0] is not None
+                                 and res is not None, **kw)
+        return dict(dx=dx, ds=ds, dt=dt, dres=dres)
+
+    def wg():
+        return dict(dw=wgrad(dy, *cts, x, scale, shift, bits, **kw))
+
+    return f, d, wg
+
+
+def bf16_kernel_phase(peaks):
+    """Rows per (bf16 kernel, stage, mode): max error against the plain
+    version and the kernel / plain / cuDNN bf16 / bound times of one call;
+    seed rows: the int8 core's kernels in seed mode against bits mode."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pack_weights
+
+    flops_bf16, _, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows, seed_rows = [], []
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    for c, h, w in STAGES:
+        n = BATCH * h * w
+        for v in SEED_VALUES:
+            seed = torch.tensor(v, dtype=torch.int32, device=dev)
+            assert torch.equal(fb.seed_bits_expand(seed, c, n),
+                               fb.seed_bits(seed, c, n, 0, n)), (c, v)
+
+    for c, h, w in STAGES:
+        n = BATCH * h * w
+        cn = c * n
+        x = randn(c, n).to(torch.bfloat16)
+        wt = randn(c, c, 3, 3, s=(9 * c) ** -0.5)
+        wp = pack_weights(wt.to(torch.bfloat16))
+        wdg = fb.pack_weights_dgrad(wt.to(torch.bfloat16))
+        scale, shift = randn(c).abs() + 0.5, randn(c, s=0.3)
+        thresh = fb.dropout_thresh(0.3)
+        res = randn(c, n).to(torch.bfloat16)
+        drops = {"bits": torch.randint(0, 256, (c, n), device=dev,
+                                       generator=g, dtype=torch.uint8),
+                 "seed": torch.tensor(-1234567, dtype=torch.int32,
+                                      device=dev)}
+        lib_f, lib_d, lib_w = cudnn_times(g, c, c, h, w, 3)
+        ops_ms = 2 * 9 * c * c * n / flops_bf16 * 1e3
+        y0 = fb.fwd_bf16_plain(x, wp, scale, shift, drops["bits"], None,
+                               thresh=thresh, h=h, w_img=w,
+                               want_stats=True)[0]
+        dy = randn(c, n, s=1e-3).to(torch.bfloat16)
+        cts = {True: (dy, y0, randn(c, s=1e-4), randn(c, s=1e-4)),
+               False: (dy, None, None, None)}
+
+        def add(name, mode, kern, plain, lib, byts):
+            err = _agree_bf16(kern(), plain(), (name, c, mode))
+            rows.append(dict(
+                name=name, c=c, h=h, w=w, n=n, mode=mode, max_abs_err=err,
+                ms=time_ms(kern, 10), plain_ms=time_ms(plain, 1),
+                library_ms=lib, ops_ms=ops_ms, bytes_ms=byts / bw * 1e3))
+
+        for kind, bits in drops.items():
+            bits_b = cn if kind == "bits" else 0
+            for use_res, stats in ((False, True), (True, False),
+                                   (False, False), (True, True)):
+                r = res if use_res else None
+                fns = [_bf16_fns(fb, x, wp, wdg, scale, shift, bits, r,
+                                 stats, cts[stats], thresh, h, w, plain)
+                       for plain in (False, True)]
+                mode = kind + ("+res" if use_res else "") + (
+                    "+stats" if stats else "")
+                add("fused_half_bf16_fwd", mode, fns[0][0], fns[1][0], lib_f,
+                    4 * cn + 18 * c * c + 8 * c + bits_b
+                    + (2 * cn if use_res else 0) + (8 * c if stats else 0))
+                if not use_res:
+                    continue
+                # the backward of a half with a residual (dres = g when the
+                # stats cotangents are folded in)
+                ct = 2 * cn + 8 * c if stats else 0
+                add("fused_half_bf16_dgrad", kind + ("+stats" if stats
+                                                    else ""),
+                    fns[0][1], fns[1][1], lib_d,
+                    6 * cn + 18 * c * c + 16 * c + bits_b + ct
+                    + (2 * cn if stats else 0))
+                add("fused_half_bf16_wgrad", kind + ("+stats" if stats
+                                                    else ""),
+                    fns[0][2], fns[1][2], lib_w,
+                    4 * cn + 36 * c * c + 8 * c + bits_b + ct)
+
+        # the int8 core's kernels in seed mode: equal to their plain versions
+        # and to themselves on the expanded bits; timed in both modes
+        tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+        wdq, wsin = fb.quantize_pack_weights_dgrad(wt)
+        expanded = fb.seed_bits(drops["seed"], c, n, 0, n)
+        outs = {}
+        for kind, bits in (("seed", drops["seed"]), ("bits", expanded)):
+            def fq(bits=bits):
+                return fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
+                                       tile=tile)
+
+            def bq(bits=bits):
+                return fb.bwd_quantize(dy, None, None, None, x, scale, shift,
+                                       bits, thresh=thresh, tile=btile,
+                                       emit_res=False)
+
+            g_q, g_amax = bq()[:2]
+
+            def dg(bits=bits):
+                return fb.dgrad_conv(g_q, g_amax, wdq, wsin, x, scale, shift,
+                                     bits, thresh=thresh, tile=btile, h=h,
+                                     w_img=w)
+
+            outs[kind] = [*fq(), *bq()[:4], *dg()]
+            plain = [*fb.fwd_quantize_plain(x, scale, shift, bits,
+                                            thresh=thresh, tile=tile),
+                     *fb.dgrad_conv_plain(g_q, g_amax, wdq, wsin, x, scale,
+                                          shift, bits, thresh=thresh,
+                                          tile=btile, h=h, w_img=w)]
+            mine = outs[kind][:2] + outs[kind][6:]
+            for i, (a, b) in enumerate(zip(mine, plain)):
+                if i >= 3:  # d(scale), d(shift): f32 sums in another order
+                    d = (a - b).abs().max().item()
+                    assert d <= 1e-5 * b.abs().max().item(), (c, kind, i)
+                else:
+                    assert torch.equal(a, b), (c, kind, i)
+            seed_rows.append(dict(
+                name="int8 quantizers + dgrad", c=c, mode=kind,
+                fwd_quantize_ms=time_ms(fq, 10),
+                bwd_quantize_ms=time_ms(bq, 10), dgrad_conv_ms=time_ms(dg,
+                                                                       10)))
+        for a, b in zip(outs["seed"], outs["bits"]):
+            assert torch.equal(a, b), c
+        del x, res, drops, y0, dy, cts, expanded, outs
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows, seed_rows
+
+
+def live_bf16_check(rec, quant: bool):
+    """Each recorded half through the kernels on its live tensors: the
+    forward reproduces the live output and equals its plain version (the
+    bf16 forward, or with ``quant`` the int8 one), and the bf16 backward
+    equals its plain version on the live cotangents."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pack_weights
+
+    out = []
+    for kind, r in sorted(rec.items()):
+        x, wt, scale, shift, bits, res = r["args"]
+        kw = r["kw"]
+        h, w, stats = kw["h"], kw["w_img"], kw["want_stats"]
+        thresh = (fb.dropout_thresh(kw["dropout_rate"]) if bits is not None
+                  else None)
+        c, n = x.shape
+        if quant:
+            tile = fb.lane_tile(h, w, n, c, c)
+            wq, ws = fb.quantize_pack_weights(wt)
+            args = (x, wq, ws, scale, shift, bits, res, thresh, tile, h, w,
+                    stats)
+            got = _half_fwd(fb, *args, plain=False)
+            err = _agree(got, _half_fwd(fb, *args, plain=True),
+                         ("live fwd", kind))
+        else:
+            wp = pack_weights(wt.to(torch.bfloat16))
+            fns = [_bf16_fns(fb, x, wp, None, scale, shift, bits, res, stats,
+                             (None,) * 4, thresh, h, w, plain)
+                   for plain in (False, True)]
+            got = fns[0][0]()
+            err = _agree_bf16(got, fns[1][0](), ("live fwd", kind))
+        assert torch.equal(got["y"], r["out"][0]), kind
+        ct = ((r["dy"].contiguous(), r["out"][0], r["dysum"], r["dyssq"])
+              if stats else (r["dy"].contiguous(), None, None, None))
+        wdg = fb.pack_weights_dgrad(wt.to(torch.bfloat16))
+        fns = [_bf16_fns(fb, x, None, wdg, scale, shift, bits, res, stats,
+                         ct, thresh, h, w, plain) for plain in (False, True)]
+        for i, what in ((1, "live dgrad"), (2, "live wgrad")):
+            err = max(err, _agree_bf16(fns[0][i](), fns[1][i](),
+                                       (what, kind)))
+        out.append(dict(kind=kind, c=c, n=n, h=h, w=w, want_stats=stats,
+                        residual=res is not None, max_abs_err=err))
+    return out
+
+
+def _bf16_mix(rows, name, halves):
+    """Phase 12's per-call numbers of kernel ``name`` summed over
+    ``halves`` (count per (width, residual, BatchNorm sums, bits mode));
+    the backward rows were taken with a residual."""
+    def mode(res, stats, kind):
+        if name == "fused_half_bf16_fwd":
+            return kind + ("+res" if res else "") + (
+                "+stats" if stats else "")
+        return kind + ("+stats" if stats else "")
+
+    mine = [r for r in rows if r["name"] == name]
+    mix = [(next(r for r in mine if r["c"] == c
+                 and r["mode"] == mode(res, stats, kind)), cnt)
+           for (c, res, stats, kind), cnt in halves.items()]
+    return {k: sum(r[k] * cnt for r, cnt in mix)
+            for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")}
+
+
+def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
+    """One entry per bf16 kernel: the launches of the two training runs
+    that use it (phases 13 and 14), and the device time per train step:
+    phase 12's per-call times summed over the halves one step ran (the
+    forward over the fused-bf16 step's, the backward over the QAT step's)."""
+    out = []
+    for name in BF16_NAMES:
+        fwd = name == "fused_half_bf16_fwd"
+        tot = _bf16_mix(rows, name, fused_halves if fwd else qat_halves)
+        runs = {"fused_bf16": fused["launches"].get(name, 0),
+                "qat_inkernel_dropout": qat["launches"].get(name, 0)}
+        mine = [r for r in rows if r["name"] == name]
+        out.append(dict(
+            name=name, route="cuda", source=BF16_SOURCE,
+            replaces=REPLACES[name], launches=sum(runs.values()),
+            split_launches=runs,
+            seed_launches=qat["seed_launches"].get(name, 0),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=tot["library_ms"],
+            per=("fused-bf16" if fwd else "QAT + in-kernel dropout")
+            + f" train step at batch {BATCH} (ms per call summed over the "
+              "step's halves; launches over both runs)",
             stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}
@@ -1720,7 +2096,17 @@ def main() -> int:
     fqt_rows = fqt_kernel_phase(peaks)
     nv_rows = nv_kernel_phase(peaks)
     nvt_rows = nv_train_kernel_phase(peaks)
+    bf16_rows, seed_rows = bf16_kernel_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("seed_bits_expand: bit-equal to the plain seed_bits at "
+          f"C x N = {[(c, BATCH * h * w) for c, h, w in STAGES]} for seeds "
+          f"{list(SEED_VALUES)}")
+    for r in bf16_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")}))
+    for r in seed_rows:
+        print("  " + json.dumps(r))
     for r in rows + fqt_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1751,15 +2137,43 @@ def main() -> int:
         print(f"training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        record = RecordFirstHalf()
+        record = RecordHalves("fused_half_int8")
         fqt = training_phase(workdir, aug_rows, FQT_CONFIG,
                              "wrn-28-10-int8-train", FQT_PER_STEP, record)
-        fqt["live_half"] = live_half_check(record.rec)
+        fqt["live_half"] = live_half_check(record.rec["bits"])
         assert sum(record.halves.values()) == 22, record.halves
         fqt["halves_per_step"] = [list(k) + [v] for k, v in
                                   sorted(record.halves.items())]
         print(f"int8 training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        rec_fused = RecordHalves("fused_half")
+        fused = training_phase(workdir, aug_rows, TRAIN_CONFIG,
+                               "wrn-28-10-fused", FUSED_PER_STEP, rec_fused,
+                               use_fused_block=True)
+        fused["live_halves"] = live_bf16_check(rec_fused.rec, quant=False)
+        assert sum(rec_fused.halves.values()) == 8, rec_fused.halves
+        assert {k[0] for k in rec_fused.halves} == {160}, rec_fused.halves
+        fused["halves_per_step"] = [list(k) + [v] for k, v in
+                                    sorted(rec_fused.halves.items())]
+        print(f"fused bf16 training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        rec_qat = RecordHalves("fused_half_int8")
+        qat = training_phase(
+            workdir, aug_rows, FQT_CONFIG, "wrn-28-10-qat", QAT_PER_STEP,
+            rec_qat, QAT_SEED_PER_STEP, use_int8_train=True,
+            use_int8_train_bwd=False, use_inkernel_dropout=True)
+        qat["live_halves"] = live_bf16_check(rec_qat.rec, quant=True)
+        by_kind = {}
+        for (c, _, _, kind), v in rec_qat.halves.items():
+            by_kind[kind] = by_kind.get(kind, 0) + v
+            assert (kind == "seed") == (c <= 320), rec_qat.halves
+        assert by_kind == {"seed": 15, "bits": 7}, rec_qat.halves
+        qat["halves_per_step"] = [list(k) + [v] for k, v in
+                                  sorted(rec_qat.halves.items())]
+        print(f"QAT + in-kernel dropout training phase: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         r50 = bneck_serving_phase(workdir)
         print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
@@ -1773,6 +2187,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     print_training("training", training)
     print_training("int8 training", fqt)
+    print_training("fused bf16 training", fused)
+    print_training("QAT + in-kernel dropout training", qat)
     print_training("resnet-50 serving", {
         k: v for k, v in r50.items() if k != "shapes"})
     for label, run in (("resnet-50 int8 training", r50_fqt),
@@ -1793,11 +2209,25 @@ def main() -> int:
         print("int8 training: port kernels per step, phase 6 per-call "
               f"times summed {sum(k['ms'] for k in fqt_kernels)} ms, "
               f"profiled {profiled} ms")
+    bf16_kernels = bf16_summary(bf16_rows, fused, qat, rec_fused.halves,
+                                rec_qat.halves)
+    for label, run, halves in (("fused bf16 training", fused,
+                                rec_fused.halves),
+                               ("QAT + in-kernel dropout training", qat,
+                                rec_qat.halves)):
+        if run["profile"] is not None:
+            kinds = run["profile"]["device_ms_per_step_by_kind"]
+            names = BF16_NAMES if run is fused else BF16_NAMES[1:]
+            summed = sum(_bf16_mix(bf16_rows, nm, halves)["ms"]
+                         for nm in names)
+            print(f"{label}: bf16 half kernels per step, phase 12 per-call "
+                  f"times summed {summed} ms, profiled "
+                  f"{kinds.get('fused bf16 half (port)', 0.0)} ms")
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"kernels": kernel_summary(rows, serving)
                       + [augment_summary(aug_rows, training)]
                       + fqt_kernels + nv_summary(nv_rows, r50)
-                      + nvt_kernels}))
+                      + nvt_kernels + bf16_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,7 +33,10 @@ from pytorch_ddp_resnet_tpu_torch.models.quantize import (
     calibrate,
 )
 from pytorch_ddp_resnet_tpu_torch.models.resnet import ResNet
-from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import load_checkpoint
+from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    resume_step,
+)
 from pytorch_ddp_resnet_tpu_torch.utils.types import (
     DTYPES,
     Device,
@@ -115,12 +118,23 @@ class Predictor:
         return np.argmax(self.logits(images), axis=-1)
 
 
+def train_kinds(config):
+    """The checkpoint kinds the JAX ``setup`` loads together (its
+    ``maybe_load_checkpoints`` call): the scheduler only when there is
+    one."""
+    kinds = ["checkpoint_strategy", "classifier", "optimizer"]
+    if config.get("scheduler_cls_name") not in (None, "None"):
+        kinds.append("scheduler")
+    return kinds
+
+
 def load_predictor(config, batch_size: Optional[int] = None,
                    verbose: bool = False, fold_bn: bool = True,
                    quantize: Optional[str] = None, calib_samples: int = 512,
                    device: Device = "cuda") -> Predictor:
-    """Build a Predictor from a run directory: config, model, the latest
-    classifier checkpoint the JAX package wrote (else a fresh init from
+    """Build a Predictor from a run directory: config, model, the classifier
+    of the step the JAX package's ``setup`` resumes from (the newest
+    complete save of its checkpoint kinds; else a fresh init from
     ``seed``), the test-time transforms and, for ``quantize='int8'``,
     ``calib_samples`` calibration images from the training set."""
     dev = resolve_device(device)
@@ -146,7 +160,10 @@ def load_predictor(config, batch_size: Optional[int] = None,
         compute_dtype=DTYPES[config.get("compute_dtype", "bfloat16")],
         generator=torch.Generator().manual_seed(config.get("seed", 0)),
         device=dev)
-    state, step = load_checkpoint(config.get("checkpoint_dir"), "classifier")
+    ckpt_dir = config.get("checkpoint_dir")
+    step = resume_step(ckpt_dir, train_kinds(config))
+    state, step = (load_checkpoint(ckpt_dir, "classifier", step)
+                   if step is not None else (None, 0))
     if state is not None:
         model.load_state_dict(state_dict_from_jax(state["params"],
                                                   state["model_state"]))

@@ -12,26 +12,36 @@ pytorch_ddp_resnet_tpu/models/blocks.py ``ResidualBlock._forward``).
 - In train mode sublayer i of the JAX ``_sublayers`` order (conv1, conv2,
   norm1, norm2, drop1, drop2, proj) draws from ``key.fold_in(i)``.
 
-Int8 fully quantized training (``int8_train`` with ``int8_train_bwd``, the
-JAX config flags ``use_int8_train_bwd``): in train mode a preact block
-whose shapes pass the JAX gates runs in the channel-major lane layout
-[C, B*H*W] on ``fused_half_int8`` (ops/cuda/fused_block.py), one call per
-conv:
+The fused lane path (the JAX config flags ``use_fused_block``,
+``use_int8_train`` and ``use_int8_train_bwd``): in train mode a preact
+block whose shapes pass the JAX gates runs in the channel-major lane layout
+[C, B*H*W], one fused half per conv (ops/cuda/fused_block.py):
+
+- ``fused_block`` alone: ``fused_half``, the bf16 conv core, on identity
+  blocks above the JAX crossover ``h*w >= 2c`` (stage 1 of WRN-28-10);
+- ``int8_train``: ``fused_half_int8``, the int8 conv core, with its
+  backward fully quantized under ``int8_train_bwd`` (FQT) and the bf16
+  straight-through backward without it (QAT); no crossover, and the
+  stage-transition blocks take it for their conv2.
+
+The halves are wired as in JAX:
 
 - an identity block (``lane_eligible``/``apply_lane``): norm1 from the sums
   of its input, conv1's half emitting norm2's sums, conv2's half adding
   the residual;
-- a stage-transition block (``lane_entry_eligible``/``apply_to_lane``):
-  norm1/drop1/conv1/proj on the layer path, conv2's half at the output
-  geometry with the shortcut as its residual, emitting the lane layout.
+- a stage-transition block (``lane_entry_eligible``/``apply_to_lane``,
+  int8 only): norm1/drop1/conv1/proj on the layer path, conv2's half at
+  the output geometry with the shortcut as its residual, emitting the lane
+  layout.
 
 BatchNorm's batch statistics fold into the halves' (scale, shift) and its
 buffers update in place exactly as the layer does (``_fold_bn_batch_and_
-ema``). The dropout bits of a half are drawn over the lane shape (C, N).
+ema``). The dropout bits of a half are drawn over the lane shape (C, N),
+or, under ``inkernel_dropout`` where C <= 320 and C*N < 2^31, replaced by
+one int32 seed from which the kernels rebuild the mask in registers.
 ``models/layers.py`` ``Sequential`` threads the lane layout from block to
-block. The other kernel-path flags of the JAX ``ResidualBlock`` (the QAT
-backward, fused bf16 blocks, in-kernel dropout, strided-lane transitions,
-remat) are not ported yet: ``check_unported_flags`` raises for each.
+block. Strided-lane transitions, the Pallas conv and remat are not ported
+yet: ``check_unported_flags`` raises for each.
 
 ``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
 1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
@@ -47,7 +57,9 @@ epilogue (BN3 affine, residual add, relu) pending, and the next block's
 conv1 applies it in its entry prologue, or ``materialize`` applies it
 where the run closes. Every other bottleneck block (preact, a transition,
 a batch the gate refuses) trains on the float layer path, as in JAX; the
-QAT mode raises.
+QAT mode raises (ROADMAP.md Queue 2 item 7b); ``fused_block`` and
+``inkernel_dropout`` are basic-trunk features it accepts and ignores, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -72,22 +84,18 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.nv_common import fma_f32
 
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
-    "int8_train": ("Queue 2 item 7: int8_train without int8_train_bwd is "
-                   "the QAT mode, whose backward runs the bf16 kernels"),
-    "fused_block": "Queue 2 item 7, a later slice",
-    "inkernel_dropout": "Queue 2 item 7, a later slice",
     "lane_transition": "Queue 2 item 8, a later slice",
     "pallas_conv": "Queue 2 item 9, a later slice",
     "remat": "Queue 1 item 11, a later slice",
 }
+_BNECK_QAT = ("Queue 2 item 7b: int8_train without int8_train_bwd on a "
+              "bottleneck block is the QAT mode, whose backward runs the NV "
+              "halves' bf16 bodies")
 
 
-def check_unported_flags(int8_train: bool = False,
-                        int8_train_bwd: bool = False, **flags) -> None:
+def check_unported_flags(**flags) -> None:
     """Raise for any set kernel-path flag of the JAX ``ResidualBlock`` that
-    the port lacks: it never ignores a flag. Of the int8 modes only fully
-    quantized training (int8_train with int8_train_bwd) is ported."""
-    flags["int8_train"] = int8_train and not int8_train_bwd
+    the port lacks: it never ignores a flag."""
     for name, value in flags.items():
         if value:
             raise NotImplementedError(
@@ -208,12 +216,13 @@ class ResidualBlock(_BlockBase):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  out_channels_override: Optional[int] = None,
                  stride_override: Optional[int] = None,
-                 int8_train: bool = False, int8_train_bwd: bool = False):
+                 int8_train: bool = False, int8_train_bwd: bool = False,
+                 fused_block: bool = False, inkernel_dropout: bool = False):
         super().__init__()
-        check_unported_flags(int8_train=int8_train,
-                             int8_train_bwd=int8_train_bwd)
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
+        self.fused_block = fused_block
+        self.inkernel_dropout = inkernel_dropout
         self.channels = channels
         self.downsample = downsample
         self.preact = preact
@@ -262,19 +271,23 @@ class ResidualBlock(_BlockBase):
             h = torch.clamp_min(h, 0)
         return h
 
-    # --- the int8 lane path ------------------------------------------------
+    # --- the fused lane path -----------------------------------------------
 
     def _fused_eligible(self, x_shape, train: bool) -> bool:
         """Copy of the JAX gate: a train-mode preact identity block whose
-        shapes the JAX kernel tiles (channels % 32, whole images per
-        128-multiple lane tile)."""
-        if not (self.int8_train and self.preact and train
-                and not self.transforms_shortcut):
+        shapes the JAX kernel tiles (channels % 32 with dropout bits or the
+        int8 core, else % 16; whole images per 128-multiple lane tile);
+        the bf16 core only above the crossover h*w >= 2c."""
+        if not ((self.fused_block or self.int8_train) and self.preact
+                and train and not self.transforms_shortcut):
             return False
-        if fb.dropout_thresh(self.dropout_prob) <= 0:
+        thresh = fb.dropout_thresh(self.dropout_prob)
+        if thresh <= 0:
             return False
         b, h, w, c = x_shape
-        if c % 32 != 0:
+        if c % (32 if (thresh < 256 or self.int8_train) else 16) != 0:
+            return False
+        if not self.int8_train and h * w < 2 * c:
             return False
         try:
             pick_tile(h * w, b * h * w, c)
@@ -374,16 +387,26 @@ class ResidualBlock(_BlockBase):
         return y_cs
 
     def _dropout_bits(self, key, c: int, n: int, device) -> torch.Tensor:
-        """A half's dropout bits: uint8 [c, n] over the lane shape."""
+        """A half's dropout bits: uint8 [c, n] over the lane shape, or, with
+        ``inkernel_dropout`` where c <= 320 and c * n < 2^31 (the JAX
+        rule), a 0-d int32 seed that the kernels expand in registers."""
+        if (self.inkernel_dropout and c <= 320
+                and c * n < fb.SEED_INDEX_LIMIT):
+            return key.dropout_seed(device)
         return key.bits((c, n), device)
 
     def _run_half(self, x_in, w_conv, s, t, key, res, want_stats: bool,
                   h: int, w: int, c: int):
+        """One fused half: the int8 core under ``int8_train`` (FQT or QAT
+        backward), else the bf16 core."""
         bits = (self._dropout_bits(key, c, x_in.shape[1], x_in.device)
                 if key is not None else None)
-        return fb.fused_half_int8(
-            x_in, w_conv, s, t, bits, res, dropout_rate=self.dropout_prob,
-            h=h, w_img=w, want_stats=want_stats)
+        kw = dict(dropout_rate=self.dropout_prob, h=h, w_img=w,
+                  want_stats=want_stats)
+        if self.int8_train:
+            return fb.fused_half_int8(x_in, w_conv, s, t, bits, res,
+                                      quant_bwd=self.int8_train_bwd, **kw)
+        return fb.fused_half(x_in, w_conv, s, t, bits, res, **kw)
 
 
 # the JAX sublayer order of the bottleneck block
@@ -404,10 +427,14 @@ class BottleneckResidualBlock(_BlockBase):
                  out_channels_override: Optional[int] = None,
                  width_override: Optional[int] = None,
                  stride_override: Optional[int] = None,
-                 int8_train: bool = False, int8_train_bwd: bool = False):
+                 int8_train: bool = False, int8_train_bwd: bool = False,
+                 fused_block: bool = False, inkernel_dropout: bool = False):
         super().__init__()
-        check_unported_flags(int8_train=int8_train,
-                             int8_train_bwd=int8_train_bwd)
+        del fused_block, inkernel_dropout  # basic-trunk features, as in JAX
+        if int8_train and not int8_train_bwd:
+            raise NotImplementedError(
+                f"int8_train=True is not ported yet (ROADMAP.md "
+                f"{_BNECK_QAT})")
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
         self.channels = channels

@@ -28,7 +28,7 @@ Every ``forward`` takes an optional ``key`` (utils/rng.py ``Key``); a
 ``Sequential`` hands its i-th child ``key.fold_in(i)``, as the JAX
 ``Sequential`` folds its rng, so each dropout layer draws its own bits.
 
-The lane protocol of the int8 training path (JAX ``Sequential.
+The lane protocol of the fused training paths (JAX ``Sequential.
 _apply_loop``): in train mode a run of layers that take the channel-major
 lane layout [C, B*H*W] passes it from one to the next without an NHWC
 round trip. A layer joins a run through ``lane_eligible``/``apply_lane``
@@ -102,7 +102,7 @@ class Conv(Layer):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  lane_stem: bool = False):
         super().__init__()
-        # set by the spec parser for the stem of an int8-trained preact net:
+        # set by the spec parser for the stem of a fused-trunk preact net:
         # in train mode the conv then emits the lane layout (ops/cuda/stem.py)
         self.lane_stem = lane_stem
         self.in_channels = in_channels

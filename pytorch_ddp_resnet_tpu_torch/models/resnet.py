@@ -69,6 +69,7 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                dropout_prob: float,
                compute_dtype: torch.dtype = torch.bfloat16,
                int8_train: bool = False, int8_train_bwd: bool = False,
+               fused_block: bool = False, inkernel_dropout: bool = False,
                ) -> List[Tuple[str, nn.Module]]:
     """Token list -> [(name, layer)], threading the channel count."""
     tokens = architecture_spec.split()
@@ -105,7 +106,8 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                 downsample=downsample if ell == 0 else False,
                 preact=preact, use_proj=use_proj, dropout_prob=dropout_prob,
                 compute_dtype=cd, int8_train=int8_train,
-                int8_train_bwd=int8_train_bwd,
+                int8_train_bwd=int8_train_bwd, fused_block=fused_block,
+                inkernel_dropout=inkernel_dropout,
                 **(first if ell == 0 else rest))))
         channels = cout
         return Sequential(blocks)
@@ -113,12 +115,12 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
     for n, tok in enumerate(tokens):
         if tok.startswith("c"):
             i, o, k, s, p = extract_ints(tok, 5)
-            # the int8 trunk runs in the lane layout: an eligible stem
+            # the fused trunk runs in the lane layout: an eligible stem
             # emits it directly (ops/cuda/stem.py)
             layer = Conv(i, o, k, stride=s, padding=p, use_bias=True,
                          kernel_init="kaiming_normal", compute_dtype=cd,
-                         lane_stem=(preact and int8_train and k == 3
-                                    and s == 1 and p == 1))
+                         lane_stem=(preact and (int8_train or fused_block)
+                                    and k == 3 and s == 1 and p == 1))
             channels = o
             name = f"{n:02d}_conv"
         elif tok.startswith("mp"):
@@ -155,11 +157,15 @@ class ResNet(Sequential):
     ``forward(x, key)``: x NHWC, f32 logits. In train mode with dropout a
     ``Key`` is required (the JAX ``apply`` requires an rng); BatchNorm
     buffers update in place. The keyword flags are the JAX constructor's
-    kernel-path switches: ``int8_train`` with ``int8_train_bwd`` trains the
-    preact basic-block trunk in int8 on the fused kernels and the post-act
-    bottleneck trunk on the NV training halves (models/blocks.py), each
-    block the JAX gates admit; every other set flag and ``int8_train``
-    alone (QAT) raise NotImplementedError."""
+    kernel-path switches (models/blocks.py), each taken by the blocks the
+    JAX gates admit: ``fused_block`` trains the preact basic-block trunk on
+    the fused bf16 halves, ``int8_train`` on the fused int8 halves with the
+    bf16 straight-through backward (QAT) or, with ``int8_train_bwd``, the
+    fully quantized one; ``inkernel_dropout`` gives those halves a seed in
+    place of materialized dropout bits. ``int8_train_bwd`` trains the
+    post-act bottleneck trunk on the NV training halves. ``lane_transition``,
+    ``pallas_conv``, ``remat`` and QAT on a bottleneck block raise
+    NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,
@@ -170,16 +176,15 @@ class ResNet(Sequential):
                  int8_train: bool = False, int8_train_bwd: bool = False,
                  inkernel_dropout: bool = False,
                  lane_transition: bool = False):
-        check_unported_flags(
-            int8_train=int8_train, int8_train_bwd=int8_train_bwd,
-            fused_block=fused_block, inkernel_dropout=inkernel_dropout,
-            lane_transition=lane_transition, pallas_conv=pallas_conv,
-            remat=remat)
+        check_unported_flags(lane_transition=lane_transition,
+                             pallas_conv=pallas_conv, remat=remat)
         dev = resolve_device(device)
         super().__init__(parse_spec(architecture_spec, preact, use_proj,
                                     dropout_prob, compute_dtype,
                                     int8_train=int8_train,
-                                    int8_train_bwd=int8_train_bwd))
+                                    int8_train_bwd=int8_train_bwd,
+                                    fused_block=fused_block,
+                                    inkernel_dropout=inkernel_dropout))
         self.architecture_spec = architecture_spec
         self.preact = preact
         self.use_proj = use_proj
@@ -187,6 +192,8 @@ class ResNet(Sequential):
         self.compute_dtype = compute_dtype
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
+        self.fused_block = fused_block
+        self.inkernel_dropout = inkernel_dropout
         self.reset_parameters(generator)
         self.to(dev)
 

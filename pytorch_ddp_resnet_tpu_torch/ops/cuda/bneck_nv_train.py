@@ -85,7 +85,7 @@ launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
 
 MODES = ("identity", "affine", "entry")
-QAT_TODO = ("ROADMAP.md Queue 2 item 7: the QAT mode (quant_bwd=False) and "
+QAT_TODO = ("ROADMAP.md Queue 2 item 7b: the QAT mode (quant_bwd=False) and "
             "the quant=False bodies of the NV training halves run bf16 "
             "kernels not ported yet")
 INV_127 = float(np.float32(1.0 / 127.0))  # the reference's f32(1/127)

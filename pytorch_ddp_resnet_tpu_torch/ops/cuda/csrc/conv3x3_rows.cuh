@@ -10,6 +10,14 @@
 // tile [64][BN] sits in shared memory and the kernel calls
 // epi.tile(Cs, cld, bn, m0, n0, cout, n), where column c of row r is
 // output channel m0 + r at position n0 + c.
+//
+// The operand load is a functor too: load(ch, pos, own) returns the 8
+// elements of input channel ch at positions pos .. pos + 7 (one image row
+// segment). RawLoad reads them from x; a fused kernel computes them (a
+// BatchNorm/relu/dropout prologue, a cotangent fold). ``own`` is true for
+// exactly one load of each (channel, position) over the whole grid: the
+// tile's own rows (not its halo), in the blocks of the first channel
+// tile, so a loader may also store what it computed.
 
 #pragma once
 
@@ -36,6 +44,18 @@ __device__ __forceinline__ signed char quant_s8(float v) {
   const float q = fminf(fmaxf(rintf(v), -127.f), 127.f);
   return (signed char)__float2int_rn(q);
 }
+
+// The default operand load: 8 contiguous elements of x [C, n].
+template <typename T>
+struct RawLoad {
+  const T* x;
+  int n;
+  __device__ __forceinline__ typename Vec8<T>::type operator()(
+      int ch, int pos, bool) const {
+    return *reinterpret_cast<const typename Vec8<T>::type*>(
+        x + (size_t)ch * n + pos);
+  }
+};
 
 // Apply a per-element epilogue epi(acc, co, idx) to a [BM, bn] accumulator
 // tile Cs (row stride cld) whose column c is position n0 + c; threads walk
@@ -102,9 +122,9 @@ int row_tile_smem_bytes(int wi) {
   return a + x > c ? a + x : c;
 }
 
-template <typename T, int BN, typename Epi>
+template <typename T, int BN, typename Epi, typename Load>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_rows_kernel(Load load, const T* __restrict__ w,
                     Epi epi, int cin, int cout, int n, int h, int wi) {
   using AccT = typename Acc<T>::type;
   using V8 = typename Vec8<T>::type;
@@ -180,12 +200,13 @@ conv3x3_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int g = i / ((wi / 8) * (rows + 2));
       const int ir = r0 - 1 + pr;            // image row
       if (ir < 0 || ir >= h) continue;       // stays zero
-      const T* src = x + (size_t)(c0 + g * CPW) * n + img0 + ir * wi + seg * 8;
+      const int pos = img0 + ir * wi + seg * 8;
+      const bool own = blockIdx.y == 0 && pr >= 1 && pr <= rows;
       uint32_t word[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
       for (int c = 0; c < CPW; ++c) {
         // 8 elements of this channel: 16 bytes of bf16 or 8 bytes of int8
-        const V8 v = *reinterpret_cast<const V8*>(src + (size_t)c * n);
+        const V8 v = load(c0 + g * CPW + c, pos, own);
         const unsigned char* e = reinterpret_cast<const unsigned char*>(&v);
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
@@ -262,39 +283,48 @@ inline int row_tile(int h, int wi) {
   return best;
 }
 
-template <typename T, int BN, typename Epi>
-int launch_rows(const void* x, const void* w, const Epi& epi, int cin,
+template <typename T, int BN, typename Epi, typename Load>
+int launch_rows(const Load& load, const void* w, const Epi& epi, int cin,
                 int cout, int n, int h, int wi, cudaStream_t stream) {
   static int smem_set = 0;  // dynamic shared memory opted into so far
   const int bytes = row_tile_smem_bytes<T, BN>(wi);
   if (bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_rows_kernel<T, BN, Epi>,
+        conv3x3_rows_kernel<T, BN, Epi, Load>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = bytes;
   }
   const dim3 grid(n / BN, (cout + BM - 1) / BM);
-  conv3x3_rows_kernel<T, BN, Epi><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), epi, cin, cout, n,
-      h, wi);
+  conv3x3_rows_kernel<T, BN, Epi, Load><<<grid, THREADS, bytes, stream>>>(
+      load, static_cast<const T*>(w), epi, cin, cout, n, h, wi);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The row-tile launch for this geometry, or -1 when W % 8 != 0.
-template <typename T, typename Epi>
-int launch_row_tiles(const void* x, const void* w, const Epi& epi, int cin,
-                     int cout, int n, int h, int wi, cudaStream_t stream) {
+// The row-tile launch for this geometry with the operand loader ``load``,
+// or -1 when W % 8 != 0.
+template <typename T, typename Epi, typename Load>
+int launch_row_tiles_with(const Load& load, const void* w, const Epi& epi,
+                          int cin, int cout, int n, int h, int wi,
+                          cudaStream_t stream) {
   switch (row_tile(h, wi)) {
     case 256:
-      return launch_rows<T, 256>(x, w, epi, cin, cout, n, h, wi, stream);
+      return launch_rows<T, 256>(load, w, epi, cin, cout, n, h, wi, stream);
     case 128:
-      return launch_rows<T, 128>(x, w, epi, cin, cout, n, h, wi, stream);
+      return launch_rows<T, 128>(load, w, epi, cin, cout, n, h, wi, stream);
     case 64:
-      return launch_rows<T, 64>(x, w, epi, cin, cout, n, h, wi, stream);
+      return launch_rows<T, 64>(load, w, epi, cin, cout, n, h, wi, stream);
     default:
       return -1;
   }
+}
+
+// ... reading the operand x [cin, n] as it is.
+template <typename T, typename Epi>
+int launch_row_tiles(const void* x, const void* w, const Epi& epi, int cin,
+                     int cout, int n, int h, int wi, cudaStream_t stream) {
+  return launch_row_tiles_with<T>(RawLoad<T>{static_cast<const T*>(x), n},
+                                  w, epi, cin, cout, n, h, wi, stream);
 }
 
 }  // namespace conv3x3

@@ -53,6 +53,13 @@
 //   partial_sum adds the groups in order, as the TPU kernel's sequential
 //   accumulation does.
 //
+// Dropout bits are read from a [C, N] uint8 tensor or, in seed mode,
+// computed in registers from one int32 seed at the element's global
+// (channel, lane) (seed_bits.cuh), so every kernel rebuilds the same mask
+// whatever its blocking. The bf16 core of the same half (the backward of
+// QAT included) is fused_block_bf16.cu; fused_half.cuh holds what the two
+// share.
+//
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_fused_block.py pins each): the prologue
 // x * scale + shift is one fma; dropout keeps r * f32(256/thresh); the
@@ -67,42 +74,22 @@
 
 #include "common.cuh"
 #include "conv3x3_rows.cuh"
+#include "fused_half.cuh"
 
 using namespace conv3x3;
+using namespace fused_half;
+using dropout::DropBits;
 
 namespace {
 
 // --- elementwise operands of the quantizers ------------------------------
 
-// 8 consecutive bf16 as f32
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, size_t off,
-                                      float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p + off);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
-}
-
-// 8 consecutive uint8 (0 where there are no bits)
-__device__ __forceinline__ void load8(const unsigned char* p, size_t off,
-                                      unsigned char (&v)[8]) {
-  if (p == nullptr) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = 0;
-    return;
-  }
-  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
-  const unsigned char* e = reinterpret_cast<const unsigned char*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = e[k];
-}
-
-// d = dropout(relu(x * scale + shift)); bits == nullptr: no dropout
+// d = dropout(relu(x * scale + shift)) in f32; no bits: no dropout
 struct Prologue {
   const __nv_bfloat16* x;
   const float* scale;
   const float* shift;
-  const unsigned char* bits;
+  DropBits bits;
   int thresh;
   float keep;  // f32(256 / thresh)
 
@@ -111,32 +98,14 @@ struct Prologue {
     float xv[8];
     unsigned char b[8];
     load8(x, (size_t)row * n + off, xv);
-    load8(bits, (size_t)row * n + off, b);
+    bits.load8(row, (int)off, b);
     const float sc = scale[row], sh = shift[row];
+    const bool drop = bits.active();
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const float r = fmaxf(__fmaf_rn(xv[k], sc, sh), 0.f);
-      v[k] = bits == nullptr ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
+      v[k] = !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
     }
-  }
-};
-
-// gf = (dy + dysum) + (2y) * dyssq, or dy without stats cotangents
-struct Cotangent {
-  const __nv_bfloat16* dy;
-  const __nv_bfloat16* y;  // null: no stats cotangents
-  const float* dysum;
-  const float* dyssq;
-
-  __device__ __forceinline__ void operator()(int row, int n, size_t off,
-                                             float (&v)[8]) const {
-    load8(dy, (size_t)row * n + off, v);
-    if (y == nullptr) return;
-    float yv[8];
-    load8(y, (size_t)row * n + off, yv);
-    const float s = dysum[row], q = dyssq[row];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = __fmaf_rn(2.f * yv[k], q, __fadd_rn(v[k], s));
   }
 };
 
@@ -264,43 +233,6 @@ constexpr float kBwdFloor = 1e-30f;
 
 // --- conv epilogues ------------------------------------------------------
 
-// Per-channel sums of two values over the block's tile, deterministically:
-// each warp's 32 consecutive elements lie in one row (bn % 32 == 0), so a
-// warp butterfly and then the warps' slots in order. Row r's sums go to
-// part[blockIdx.x][m0 + r] and part[blockIdx.x][cout + m0 + r].
-template <typename Elem>
-__device__ __forceinline__ void tile_with_sums(int bn, int m0, int n0,
-                                               int cout, int n,
-                                               float* __restrict__ part,
-                                               const Elem& elem) {
-  __shared__ float red[2][BM][8];
-  const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < BM * bn; i += THREADS) {
-    const int r = i / bn;
-    const int c = i - r * bn;
-    float s1 = 0.f, s2 = 0.f;
-    if (m0 + r < cout && n0 + c < n) elem(r, c, s1, s2);
-    s1 = common::warp_sum(s1);
-    s2 = common::warp_sum(s2);
-    if (lane == 0 && part != nullptr) {
-      red[0][r][c / 32] = s1;
-      red[1][r][c / 32] = s2;
-    }
-  }
-  if (part == nullptr) return;
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < BM && m0 + r < cout) {
-    float s1 = red[0][r][0], s2 = red[1][r][0];
-    for (int k = 1; k < bn / 32; ++k) {
-      s1 = __fadd_rn(s1, red[0][r][k]);
-      s2 = __fadd_rn(s2, red[1][r][k]);
-    }
-    part[(size_t)blockIdx.x * 2 * cout + m0 + r] = s1;
-    part[(size_t)blockIdx.x * 2 * cout + cout + m0 + r] = s2;
-  }
-}
-
 // y = bf16(f32(acc) * (ws[co] * (amax * 1/127))) (+ res in bf16); sums of
 // y and y^2 of the stored bf16 values
 struct FwdEpi {
@@ -341,7 +273,7 @@ struct DgradEpi {
   const __nv_bfloat16* x;
   const float* scale;
   const float* shift;
-  const unsigned char* bits;
+  DropBits bits;
   __nv_bfloat16* dx;
   float* part;          // [n / BN][2 * Cin]
   int lanes;            // lanes per backward scale group
@@ -359,8 +291,8 @@ struct DgradEpi {
                           __fmul_rn(ws_in[ci], a));
       const float xf = __bfloat162float(x[idx]);
       bool live = __fmaf_rn(xf, scale[ci], shift[ci]) > 0.f;
-      if (bits != nullptr) {
-        live = live && bits[idx] < thresh;
+      if (bits.active()) {
+        live = live && bits.at(ci, n0 + c) < thresh;
         v = __fmul_rn(v, keep);
       }
       const float dn = live ? v : 0.f;
@@ -563,22 +495,29 @@ const T* in(const void* p) {
   return static_cast<const T*>(p);
 }
 
+DropBits drop_bits(const void* bits, const void* seed, int n) {
+  return DropBits{in<unsigned char>(bits), in<int>(seed), n};
+}
+
 Prologue prologue(const void* x, const void* scale, const void* shift,
-                  const void* bits, int thresh, float keep) {
+                  const void* bits, const void* seed, int n, int thresh,
+                  float keep) {
   return Prologue{in<__nv_bfloat16>(x), in<float>(scale), in<float>(shift),
-                  in<unsigned char>(bits), thresh, keep};
+                  drop_bits(bits, seed, n), thresh, keep};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes: x [c, n] bf16, bits [c, n] uint8 or null, scale/shift [c] f32;
-// n a multiple of tile, tile a multiple of 8; part [n / tile * slices].
+// Shapes: x [c, n] bf16, bits [c, n] uint8 or null, seed one int32 on the
+// device or null (at most one of the two), scale/shift [c] f32; n a
+// multiple of tile, tile a multiple of 8; part [n / tile * slices].
 int fwd_amax_launch(const void* x, const void* scale, const void* shift,
-                    const void* bits, void* part, int c, int n, int tile,
-                    int slices, int thresh, float keep, void* stream) {
-  const Prologue pr = prologue(x, scale, shift, bits, thresh, keep);
+                    const void* bits, const void* seed, void* part, int c,
+                    int n, int tile, int slices, int thresh, float keep,
+                    void* stream) {
+  const Prologue pr = prologue(x, scale, shift, bits, seed, n, thresh, keep);
   amax_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
       pr, c, pr, c, GroupWalk{n, tile, slices}, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
@@ -586,10 +525,10 @@ int fwd_amax_launch(const void* x, const void* scale, const void* shift,
 
 // q [c, n] int8, amax [n / tile] f32
 int fwd_quant_launch(const void* x, const void* scale, const void* shift,
-                     const void* bits, const void* part, void* q, void* amax,
-                     int c, int n, int tile, int slices, int thresh,
-                     float keep, void* stream) {
-  const Prologue pr = prologue(x, scale, shift, bits, thresh, keep);
+                     const void* bits, const void* seed, const void* part,
+                     void* q, void* amax, int c, int n, int tile, int slices,
+                     int thresh, float keep, void* stream) {
+  const Prologue pr = prologue(x, scale, shift, bits, seed, n, thresh, keep);
   const QuantOut out{kFwdFloor, static_cast<signed char*>(q),
                      static_cast<float*>(amax), nullptr};
   quant_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
@@ -616,13 +555,13 @@ int fwd_conv_launch(const void* q, const void* w, const void* amax,
 // recomputed activation [cin, n]; part [2][n / tile][slices].
 int bwd_amax_launch(const void* dy, const void* y, const void* dysum,
                     const void* dyssq, const void* x, const void* scale,
-                    const void* shift, const void* bits, void* part,
-                    int cout, int cin, int n, int tile, int slices,
-                    int thresh, float keep, void* stream) {
+                    const void* shift, const void* bits, const void* seed,
+                    void* part, int cout, int cin, int n, int tile,
+                    int slices, int thresh, float keep, void* stream) {
   const Cotangent ct{in<__nv_bfloat16>(dy), in<__nv_bfloat16>(y),
                      in<float>(dysum), in<float>(dyssq)};
   amax_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
-      ct, cout, prologue(x, scale, shift, bits, thresh, keep), cin,
+      ct, cout, prologue(x, scale, shift, bits, seed, n, thresh, keep), cin,
       GroupWalk{n, tile, slices}, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
 }
@@ -632,10 +571,11 @@ int bwd_amax_launch(const void* dy, const void* y, const void* dysum,
 // bf16(gf), or null.
 int bwd_quant_launch(const void* dy, const void* y, const void* dysum,
                      const void* dyssq, const void* x, const void* scale,
-                     const void* shift, const void* bits, const void* part,
-                     void* g_q, void* d_q, void* g_amax, void* d_amax,
-                     void* dres, int cout, int cin, int n, int tile,
-                     int slices, int thresh, float keep, void* stream) {
+                     const void* shift, const void* bits, const void* seed,
+                     const void* part, void* g_q, void* d_q, void* g_amax,
+                     void* d_amax, void* dres, int cout, int cin, int n,
+                     int tile, int slices, int thresh, float keep,
+                     void* stream) {
   const Cotangent ct{in<__nv_bfloat16>(dy), in<__nv_bfloat16>(y),
                      in<float>(dysum), in<float>(dyssq)};
   const QuantOut g_out{kBwdFloor, static_cast<signed char*>(g_q),
@@ -644,21 +584,22 @@ int bwd_quant_launch(const void* dy, const void* y, const void* dysum,
   const QuantOut d_out{kBwdFloor, static_cast<signed char*>(d_q),
                        static_cast<float*>(d_amax), nullptr};
   quant_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
-      ct, cout, g_out, prologue(x, scale, shift, bits, thresh, keep), cin,
-      d_out, GroupWalk{n, tile, slices}, in<float>(part));
+      ct, cout, g_out, prologue(x, scale, shift, bits, seed, n, thresh, keep),
+      cin, d_out, GroupWalk{n, tile, slices}, in<float>(part));
   return static_cast<int>(cudaGetLastError());
 }
 
 // g_q [cout, n] int8, w_dg [cin, 9 * cout] int8 (dgrad-packed), g_amax
 // [n / tile], ws_in [cin], x [cin, n] bf16, scale/shift [cin], bits
-// [cin, n] or null; dx [cin, n] bf16, part [n / BN][2 * cin].
+// [cin, n] or null, seed or null; dx [cin, n] bf16, part [n / BN][2 * cin].
 int dgrad_conv_launch(const void* g_q, const void* w_dg, const void* g_amax,
                       const void* ws_in, const void* x, const void* scale,
-                      const void* shift, const void* bits, void* dx,
-                      void* part, int cout, int cin, int n, int h, int wi,
-                      int tile, int thresh, float keep, void* stream) {
+                      const void* shift, const void* bits, const void* seed,
+                      void* dx, void* part, int cout, int cin, int n, int h,
+                      int wi, int tile, int thresh, float keep,
+                      void* stream) {
   DgradEpi epi{in<float>(g_amax), in<float>(ws_in), in<__nv_bfloat16>(x),
-               in<float>(scale), in<float>(shift), in<unsigned char>(bits),
+               in<float>(scale), in<float>(shift), drop_bits(bits, seed, n),
                static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part),
                tile, thresh, keep};
   return launch_row_tiles<signed char>(g_q, w_dg, epi, cout, cin, n, h, wi,

@@ -1,48 +1,78 @@
-"""Fused preact block-half with an int8 conv core, forward and fully
-quantized backward, in the channel-major layout [C, B*H*W] (counterpart of
-``pytorch_ddp_resnet_tpu/ops/pallas/fused_block.py`` ``fused_half_int8``
-with ``quant_bwd=True``).
+"""Fused preact block-half in the channel-major layout [C, B*H*W], with a
+bf16 or an int8 conv core (counterpart of
+``pytorch_ddp_resnet_tpu/ops/pallas/fused_block.py``: ``fused_half``, and
+``fused_half_int8`` with either backward).
 
 One half computes, for x [Cin, N] (N = B*H*W image-major), the folded
-BatchNorm affine (scale, shift) [Cin] f32, uint8 dropout bits [Cin, N] and
-an optional residual [Cout, N]:
+BatchNorm affine (scale, shift) [Cin] f32, dropout bits and an optional
+residual [Cout, N]:
 
-    d  = dropout(relu(x * scale + shift))             f32
+    d  = dropout(relu(x * scale + shift))
+    y  = conv3x3(d, w) (+ res, in bf16)
+    ysum, yssq = per-channel f32 sums of y            (the next BN's stats)
+
+Dropout bits are a [Cin, N] uint8 tensor, or a 0-d int32 seed from which
+every kernel rebuilds the same mask in registers (``seed_bits``, the
+reference's ``_seed_bits``): a murmur3 hash of each element's global index
+row * N + lane, so the mask does not depend on any kernel's tiling.
+
+**bf16 core** (``fused_half``, JAX ``quant=False``): d is rounded to bf16
+after the affine and the dropout is taken in bf16; the conv accumulates in
+f32 and y = bf16(acc). The backward folds the stats cotangents into
+``gf = dy + dysum + 2*y*dyssq``, takes g = bf16(gf) (also the residual's
+cotangent), runs the transposed conv against the rot180/swapped bf16
+weights, masks it with ``x * scale + shift > 0`` (f32, unrounded) and the
+kept bits, and contracts g with the recomputed bf16 d for dW in f32.
+The int8 core with ``quant_bwd=False`` (QAT) uses this backward too, at
+the unquantized point: the original weights cast to bf16 and the y of its
+own int8 forward.
+
+**int8 core** (``fused_half_int8``): the prologue in f32, then
+
     dq = s8(clip(rint(d * 127 / amax(group))))        per scale group
     y  = bf16(f32(conv3x3(dq, wq)) * ws * amax/127) (+ res, in bf16)
-    ysum, yssq = per-channel f32 sums of y            (the next BN's stats)
 
 A *scale group* is a run of whole images: ``lane_tile`` lanes in the
 forward, ``bwd_tile`` lanes in the backward, copies of the JAX pickers.
 The tile decides the numbers, so every kernel honours it whatever its own
-blocking. The backward folds the stats cotangents into
-``gf = dy + dysum + 2*y*dyssq``, quantizes it once per group (floor 1e-30)
-and feeds the same int8 cotangent to the dgrad (against per-input-channel
-int8 weights, with the relu/dropout masks recomputed from x) and to the
-wgrad (against the recomputed activation, quantized per group). JAX fuses
-the two into one TPU kernel where Cin <= 320 only to save TPU memory
-reads; the function is the same on both of its routes.
+blocking. With ``quant_bwd=True`` (fully quantized training) the backward
+quantizes gf once per group (floor 1e-30) and feeds the same int8
+cotangent to the dgrad (against per-input-channel int8 weights, with the
+relu/dropout masks recomputed from x) and to the wgrad (against the
+recomputed activation, quantized per group). JAX fuses the two into one
+TPU kernel where Cin <= 320 only to save TPU memory reads; the function is
+the same on both of its routes.
 
 Rounding points, as the reference computes them where the tests run it
 (the JAX kernel in interpret mode, lowered by XLA on the CPU; pinned by
-tests/test_torch_fused_block.py): ``x * scale + shift`` is one fused
-multiply-add; the dropout keeps ``r * f32(256/thresh)`` (XLA rewrites the
-kernel's division by the constant ``thresh/256`` as this multiply); the
-stats fold ``(dy + dysum) + (2y) * dyssq`` is one fused multiply-add; the
-quantizers, dequantizers and the bf16 residual add round each operation.
+tests/test_torch_fused_block.py and tests/test_torch_fused_half_bf16.py):
+``x * scale + shift`` is one fused multiply-add (then rounded to bf16 in
+the bf16 core); the dropout keeps ``r * f32(256/thresh)`` (XLA rewrites
+the kernel's division by the constant ``thresh/256`` as this multiply; in
+bf16 the two round alike for every value); the stats fold ``(dy + dysum)
++ (2y) * dyssq`` is one fused multiply-add; the quantizers, dequantizers
+and the bf16 residual add round each operation.
 
 Layers of this module, each a CPU-or-card wrapper beside its plain version
 (a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
-kernel of ``csrc/fused_block.cu`` or raises):
+kernel of ``csrc/fused_block.cu`` or ``csrc/fused_block_bf16.cu`` or
+raises):
 
 - ``fwd_quantize``  (launches ``fused_half_fwd.amax``, ``.quant``)
 - ``fwd_conv``      (launches ``fused_half_fwd``, ``.sum`` with stats)
 - ``bwd_quantize``  (launches ``fused_half_bwd.amax``, ``.quant``)
 - ``dgrad_conv``    (launches ``fused_half_dgrad``, ``.sum``)
 - ``wgrad``         (launches ``fused_half_wgrad``, ``.sum``)
+- ``fwd_bf16``      (launches ``fused_half_bf16_fwd``, ``.sum`` with stats)
+- ``dgrad_bf16``    (launches ``fused_half_bf16_dgrad``, ``.sum``)
+- ``wgrad_bf16``    (launches ``fused_half_bf16_wgrad``, ``.sum``)
+- ``seed_bits_expand`` (launches ``seed_bits_expand``: the hash written out,
+  for the card check only)
 
-and ``fused_half_int8``, the differentiable op over them. ``launches``
-counts each kernel launch by name; plain calls count nothing.
+and ``fused_half`` and ``fused_half_int8``, the differentiable ops over
+them. ``launches`` counts each kernel launch by name, ``seed_launches``
+the launches that rebuilt their mask from a seed; plain calls count
+nothing.
 """
 
 from __future__ import annotations
@@ -68,6 +98,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
 )
 
 launches: collections.Counter = collections.Counter()
+seed_launches: collections.Counter = collections.Counter()
 
 # the reference's f32 constants (Python floats in JAX are weak-typed f32)
 INV_127 = float(np.float32(1.0 / 127.0))
@@ -84,6 +115,7 @@ _F32 = torch.float32
 
 def reset_launches() -> None:
     launches.clear()
+    seed_launches.clear()
 
 
 def dropout_thresh(rate: float) -> int:
@@ -105,6 +137,73 @@ def fold_bn(gamma, beta, mean, var, eps: float = 1e-5):
     scale = torch.rsqrt(var.to(_F32) + eps) * gamma.to(_F32)
     shift = beta.to(_F32) - mean.to(_F32) * scale
     return scale, shift
+
+
+# --- in-kernel dropout bits ------------------------------------------------------
+
+SEED_INDEX_LIMIT = 2 ** 31  # the reference hashes row * N + lane in int32
+_M32 = 0xFFFFFFFF
+
+
+def is_seed(bits) -> bool:
+    """True for a 0-d int32 tensor (seed mode), False for None or a
+    [Cin, N] tensor (materialized bits); raises for anything else scalar,
+    as the reference's ``_is_seed`` does."""
+    if bits is None:
+        return False
+    if isinstance(bits, (int, float)):
+        raise ValueError(
+            "bits must be a 0-d int32 tensor (seed mode) or a [Cin, N] "
+            f"uint8 tensor (materialized mode); got python "
+            f"{type(bits).__name__}: wrap seeds as torch.tensor(seed, "
+            "dtype=torch.int32).")
+    if bits.dim() != 0:
+        return False
+    if bits.dtype != torch.int32:
+        raise ValueError("a 0-d bits seed must be int32; got "
+                         f"{bits.dtype}.")
+    return True
+
+
+def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """(a * k) mod 2^32 for int64 a in [0, 2^32): in two 16-bit halves of
+    k, so no product leaves int64."""
+    return ((a * (k & 0xFFFF)) + (((a * (k >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix(h: torch.Tensor, mixed: Optional[torch.Tensor] = None):
+    h = h ^ (h >> 16)
+    if mixed is not None:
+        h = h ^ mixed
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def seed_bits(seed: torch.Tensor, cin: int, n_total: int, lane0: int,
+              tile: int) -> torch.Tensor:
+    """The plain version of the reference's ``_seed_bits``, bit for bit:
+    uint8 [cin, tile] bits of lanes lane0 .. lane0 + tile - 1 of a
+    [cin, n_total] tensor. uint32 arithmetic is int64 masked to 32 bits
+    (torch has no uint32 multiply on the CPU); it wraps as the reference's
+    int32 arithmetic with logical shifts."""
+    s = seed.to(torch.int64).reshape(()) & _M32
+    mixed = _fmix(s)
+    dev = seed.device
+    row = torch.arange(cin, dtype=torch.int64, device=dev)[:, None]
+    lane = torch.arange(lane0, lane0 + tile, dtype=torch.int64,
+                        device=dev)[None, :]
+    h = (row * n_total + lane) & _M32
+    h = (_mul32(h, 0x9E3779B1) + s) & _M32
+    return (_fmix(h, mixed) >> 24).to(torch.uint8)
+
+
+def mask_bits(bits, cin: int, n: int) -> Optional[torch.Tensor]:
+    """The [cin, n] uint8 bits a half reads: ``bits`` itself, or the ones
+    a seed expands to."""
+    return seed_bits(bits, cin, n, 0, n) if is_seed(bits) else bits
+
 
 
 # --- scale groups (copies of the JAX tile pickers) ----------------------------
@@ -169,8 +268,10 @@ def _vec(v: torch.Tensor) -> torch.Tensor:
 
 
 def prologue_plain(x, scale, shift, bits, thresh: Optional[int]):
-    """d = dropout(relu(x * scale + shift)) in f32."""
+    """d = dropout(relu(x * scale + shift)) in f32; bits a [Cin, N] uint8
+    tensor, a seed, or None."""
     r = torch.clamp_min(_fma(x, _vec(scale), _vec(shift)), 0.0)
+    bits = mask_bits(bits, *x.shape)
     if bits is None:
         return r
     return torch.where(bits.to(torch.int32) < thresh, r * inv_keep(thresh),
@@ -247,14 +348,21 @@ def dgrad_conv_plain(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *,
     acc = _conv_f64(g_q, w_dg, h, w_img).to(_F32)
     a = _per_group(acc, tile, ws_in.to(_F32)[:, None]
                    * (g_amax * INV_127)[None, :])
-    xf = x.to(_F32)
+    dn = _masked(a, x, scale, shift, bits, thresh)
+    dx = (dn * _vec(scale)).to(x.dtype)
+    return dx, _group_sums(dn * x.to(_F32), tile), _group_sums(dn, tile)
+
+
+def _masked(a, x, scale, shift, bits, thresh):
+    """The dgrad through the prologue's masks, recomputed from x in f32
+    (``x * scale + shift > 0`` unrounded, one fma) and the kept bits: dn =
+    live ? a * f32(256/thresh) : 0."""
     live = _fma(x, _vec(scale), _vec(shift)) > 0
+    bits = mask_bits(bits, *x.shape)
     if bits is not None:
         live = live & (bits.to(torch.int32) < thresh)
         a = a * inv_keep(thresh)
-    dn = torch.where(live, a, torch.zeros_like(a))
-    dx = (dn * _vec(scale)).to(x.dtype)
-    return dx, _group_sums(dn * xf, tile), _group_sums(dn, tile)
+    return torch.where(live, a, torch.zeros_like(a))
 
 
 def _patches_f64(q: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
@@ -284,6 +392,63 @@ def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     return out
 
 
+def pack_weights_dgrad(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW 3x3 kernel packed for the input gradient (rot180, in/out
+    swapped: w'[ci, (dh, dw, co)] = w[co, ci, 2-dh, 2-dw]): [Cin, 9*Cout]."""
+    return pack_weights(w.flip(2, 3).transpose(0, 1))
+
+
+def prologue_bf16_plain(x, scale, shift, bits, thresh: Optional[int]):
+    """d = dropout(relu(round(x * scale + shift))) in x's dtype: the affine
+    is one fma rounded to x's dtype, and a kept value is round(r *
+    f32(256/thresh))."""
+    r = torch.clamp_min(_fma(x, _vec(scale), _vec(shift)).to(x.dtype), 0)
+    bits = mask_bits(bits, *x.shape)
+    if bits is None:
+        return r
+    kept = (r.to(_F32) * inv_keep(thresh)).to(x.dtype)
+    return torch.where(bits.to(torch.int32) < thresh, kept,
+                       torch.zeros_like(r))
+
+
+def fwd_bf16_plain(x, w_packed, scale, shift, bits, res, *, thresh, h,
+                   w_img, want_stats):
+    """y = round(conv3x3(d)) (+ res, rounded) in x's dtype, and with
+    ``want_stats`` the per-channel f32 sums of y and y^2."""
+    d = prologue_bf16_plain(x, scale, shift, bits, thresh)
+    y = _conv_f64(d, w_packed, h, w_img).to(_F32).to(x.dtype)
+    if res is not None:
+        y = res.to(x.dtype) + y
+    if not want_stats:
+        return y, None, None
+    yf = y.to(_F32)
+    return y, yf.sum(dim=1), (yf * yf).sum(dim=1)
+
+
+def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
+                     thresh, h, w_img, emit_res):
+    """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32, dres): the
+    transposed conv of g = round(gf) through the masks; dres = g when
+    ``emit_res``."""
+    g = fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype)
+    acc = _conv_f64(g, w_dg, h, w_img).to(_F32)
+    dn = _masked(acc, x, scale, shift, bits, thresh)
+    dx = (dn * _vec(scale)).to(x.dtype)
+    return (dx, (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1),
+            g if emit_res else None)
+
+
+def wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
+                     h, w_img):
+    """dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order: g = round(gf)
+    (dy itself without stats cotangents) against the recomputed d, over
+    all positions."""
+    g = (dy if y is None
+         else fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype))
+    d = prologue_bf16_plain(x, scale, shift, bits, thresh)
+    return (g.to(torch.float64) @ _patches_f64(d, h, w_img).T).to(_F32)
+
+
 # --- kernels -------------------------------------------------------------------------
 
 _lib: Optional[ctypes.CDLL] = None
@@ -296,12 +461,12 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("fused_block")
         sigs = {
-            "fwd_amax_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
-            "fwd_quant_launch": [_P] * 7 + [_I] * 5 + [_F, _P],
+            "fwd_amax_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
+            "fwd_quant_launch": [_P] * 8 + [_I] * 5 + [_F, _P],
             "fwd_conv_launch": [_P] * 7 + [_I] * 6 + [_P],
-            "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
-            "bwd_quant_launch": [_P] * 14 + [_I] * 6 + [_F, _P],
-            "dgrad_conv_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+            "bwd_amax_launch": [_P] * 10 + [_I] * 6 + [_F, _P],
+            "bwd_quant_launch": [_P] * 15 + [_I] * 6 + [_F, _P],
+            "dgrad_conv_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
             "wgrad_launch": [_P] * 5 + [_I] * 6 + [_P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
         }
@@ -337,18 +502,35 @@ def _check_geometry(name: str, c: int, n: int, tile: int, h: int,
                          f"{tile} is not supported by the kernel")
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, seed: bool = False) -> None:
     check_rc(name, fn(*args))
     launches[name] += 1
+    if seed:
+        seed_launches[name] += 1
 
 
-def _partial_sum(name: str, part: torch.Tensor) -> torch.Tensor:
+def _partial_sum(name: str, part: torch.Tensor, lib=None) -> torch.Tensor:
     """out[i] = sum over j of part[j, i], in order, in f32."""
     j, m = part.shape
     out = torch.empty(m, dtype=_F32, device=part.device)
-    _launch(name, _library().partial_sum_launch, part.data_ptr(),
+    _launch(name, (lib or _library()).partial_sum_launch, part.data_ptr(),
             out.data_ptr(), j, m, _stream(part))
     return out
+
+
+def _drop_args(bits, tensors: list, dtypes: list):
+    """(bits pointer, seed pointer, seed mode) of a half's dropout bits,
+    the tensor added to the ones the launch checks: a [Cin, N] uint8
+    tensor, a 0-d int32 seed on the device (read by the kernel through
+    its pointer, so the host never waits for it), or None."""
+    if bits is None:
+        return None, None, False
+    tensors.append(bits)
+    if is_seed(bits):
+        dtypes.append(torch.int32)
+        return None, bits.data_ptr(), True
+    dtypes.append(torch.uint8)
+    return bits.data_ptr(), None, False
 
 
 def fwd_quantize(x, scale, shift, bits, *, thresh, tile):
@@ -361,9 +543,7 @@ def fwd_quantize(x, scale, shift, bits, *, thresh, tile):
     cin, n = x.shape
     scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
     tensors, dtypes = [x, scale, shift], [torch.bfloat16, _F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
+    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
     require_cuda(name, tensors, dtypes)
     if n % tile or tile % 8:
         raise ValueError(f"{name}: tile {tile} vs N={n}")
@@ -373,14 +553,15 @@ def fwd_quantize(x, scale, shift, bits, *, thresh, tile):
     keep = inv_keep(thresh) if bits is not None else 1.0
     st = _stream(x)
     _launch(f"{name}.amax", _library().fwd_amax_launch, x.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), _ptr(bits), part.data_ptr(),
-            cin, n, tile, s, thresh or 256, keep, st)
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            part.data_ptr(), cin, n, tile, s, thresh or 256, keep, st,
+            seed=seeded)
     d_q = torch.empty((cin, n), dtype=torch.int8, device=x.device)
     amax = torch.empty(groups, dtype=_F32, device=x.device)
     _launch(f"{name}.quant", _library().fwd_quant_launch, x.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), _ptr(bits), part.data_ptr(),
-            d_q.data_ptr(), amax.data_ptr(), cin, n, tile, s, thresh or 256,
-            keep, st)
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            part.data_ptr(), d_q.data_ptr(), amax.data_ptr(), cin, n, tile,
+            s, thresh or 256, keep, st, seed=seeded)
     return d_q, amax
 
 
@@ -453,9 +634,7 @@ def bwd_quantize(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
         dyssq = dyssq.to(_F32).contiguous()
         tensors += [y, dysum, dyssq]
         dtypes += [torch.bfloat16, _F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
+    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
     require_cuda(name, tensors, dtypes)
     if n % tile or tile % 8:
         raise ValueError(f"{name}: tile {tile} vs N={n}")
@@ -468,7 +647,8 @@ def bwd_quantize(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
     common = (cout, cin, n, tile, s, thresh or 256, keep, st)
     _launch(f"{name}.amax", lib.bwd_amax_launch, dy.data_ptr(), _ptr(y),
             _ptr(dysum), _ptr(dyssq), x.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), _ptr(bits), part.data_ptr(), *common)
+            shift.data_ptr(), bits_p, seed_p, part.data_ptr(), *common,
+            seed=seeded)
     g_q = torch.empty((cout, n), dtype=torch.int8, device=dev)
     d_q = torch.empty((cin, n), dtype=torch.int8, device=dev)
     g_amax = torch.empty(groups, dtype=_F32, device=dev)
@@ -477,9 +657,9 @@ def bwd_quantize(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
             if emit_res else None)
     _launch(f"{name}.quant", lib.bwd_quant_launch, dy.data_ptr(), _ptr(y),
             _ptr(dysum), _ptr(dyssq), x.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), _ptr(bits), part.data_ptr(), g_q.data_ptr(),
-            d_q.data_ptr(), g_amax.data_ptr(), d_amax.data_ptr(), _ptr(dres),
-            *common)
+            shift.data_ptr(), bits_p, seed_p, part.data_ptr(),
+            g_q.data_ptr(), d_q.data_ptr(), g_amax.data_ptr(),
+            d_amax.data_ptr(), _ptr(dres), *common, seed=seeded)
     return g_q, g_amax, d_q, d_amax, dres
 
 
@@ -501,9 +681,7 @@ def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
     ws_in = ws_in.to(_F32).contiguous()
     tensors = [g_q, w_dg, g_amax, ws_in, x, scale, shift]
     dtypes = [torch.int8, torch.int8, _F32, _F32, torch.bfloat16, _F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
+    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
     require_cuda(name, tensors, dtypes)
     dx = torch.empty((cin, n), dtype=torch.bfloat16, device=g_q.device)
     part = torch.empty((_conv_blocks(n, h, w_img), 2 * cin), dtype=_F32,
@@ -511,9 +689,9 @@ def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
     keep = inv_keep(thresh) if bits is not None else 1.0
     _launch(name, _library().dgrad_conv_launch, g_q.data_ptr(),
             w_dg.data_ptr(), g_amax.data_ptr(), ws_in.data_ptr(),
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), _ptr(bits),
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
             dx.data_ptr(), part.data_ptr(), cout, cin, n, h, w_img, tile,
-            thresh or 256, keep, _stream(g_q))
+            thresh or 256, keep, _stream(g_q), seed=seeded)
     sums = _partial_sum(f"{name}.sum", part)
     return dx, sums[:cin], sums[cin:]
 
@@ -542,15 +720,299 @@ def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     return _partial_sum(f"{name}.sum", part).reshape(cout, 9 * cin)
 
 
-# --- the differentiable op -------------------------------------------------------
+# --- bf16 kernels -----------------------------------------------------------------
 
-class _FusedHalfInt8(torch.autograd.Function):
-    """Forward and fully quantized backward of one half. The bits carry no
-    gradient; without stats outputs the residual's cotangent is dy."""
+WG_SPLIT_TARGET = 528  # wgrad blocks to aim for: four per SM of an H100
+_lib_bf16: Optional[ctypes.CDLL] = None
+
+
+def _library_bf16() -> ctypes.CDLL:
+    global _lib_bf16
+    if _lib_bf16 is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("fused_block_bf16")
+        sigs = {
+            "fwd_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+            "dgrad_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
+            "wgrad_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+            "seed_bits_expand_launch": [_P, _P, _I, _I, _P],
+            "partial_sum_launch": [_P, _P, _I, _I, _P],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = _I
+        _lib_bf16 = lib
+    return _lib_bf16
+
+
+def _check_bf16_geometry(name: str, c: int, n: int, h: int,
+                         w_img: int) -> None:
+    """The conv kernels' own shape needs: the contraction in 32-channel
+    chunks, and row tiles of whole image rows."""
+    if c % 32:
+        raise ValueError(f"{name}: C={c} is not a multiple of 32")
+    if w_img % 8 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "supported by the kernel")
+    _conv_blocks(n, h, w_img)
+
+
+def wgrad_splits(cin: int, cout: int, n: int) -> int:
+    """Position splits of the bf16 wgrad's grid: the largest power of two
+    that divides the 256-position chunks and keeps the grid near
+    WG_SPLIT_TARGET blocks (csrc/fused_block_bf16.cu)."""
+    blocks = (cin // 32) * -(-cout // 64)
+    chunks = n // KCHUNK
+    s = 1
+    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
+        s *= 2
+    return s
+
+
+def _bf16_operands(name, x, scale, shift, bits, extra, extra_dtypes):
+    """The checked common operands of a bf16 launch: (scale, shift, bits
+    pointer, seed pointer, seed mode)."""
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors = [x, scale, shift] + extra
+    dtypes = [torch.bfloat16, _F32, _F32] + extra_dtypes
+    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
+    require_cuda(name, tensors, dtypes)
+    return scale, shift, bits_p, seed_p, seeded
+
+
+def fwd_bf16(x, w_packed, scale, shift, bits, res, *, thresh, h, w_img,
+             want_stats):
+    """The bf16 half's forward: y = bf16(conv3x3(d)) (+ res in bf16), d =
+    dropout(relu(bf16(x * scale + shift))) in bf16, and with
+    ``want_stats`` the per-channel f32 sums of y and y^2."""
+    if on_cpu(x):
+        return fwd_bf16_plain(x, w_packed, scale, shift, bits, res,
+                              thresh=thresh, h=h, w_img=w_img,
+                              want_stats=want_stats)
+    name = "fused_half_bf16_fwd"
+    cin, n = x.shape
+    cout = w_packed.shape[0]
+    if tuple(w_packed.shape) != (cout, 9 * cin):
+        raise ValueError(f"{name}: weights {tuple(w_packed.shape)} vs Cin "
+                         f"{cin}")
+    _check_bf16_geometry(name, cin, n, h, w_img)
+    extra, extra_dt = [w_packed], [torch.bfloat16]
+    if res is not None:
+        if tuple(res.shape) != (cout, n):
+            raise ValueError(f"{name}: res {tuple(res.shape)}")
+        extra.append(res)
+        extra_dt.append(torch.bfloat16)
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, extra, extra_dt)
+    y = torch.empty((cout, n), dtype=torch.bfloat16, device=x.device)
+    part = (torch.empty((_conv_blocks(n, h, w_img), 2 * cout), dtype=_F32,
+                        device=x.device) if want_stats else None)
+    lib = _library_bf16()
+    _launch(name, lib.fwd_launch, x.data_ptr(), w_packed.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p, _ptr(res),
+            y.data_ptr(), _ptr(part), cin, cout, n, h, w_img, thresh or 256,
+            inv_keep(thresh) if bits is not None else 1.0, _stream(x),
+            seed=seeded)
+    if not want_stats:
+        return y, None, None
+    sums = _partial_sum(f"{name}.sum", part, lib)
+    return y, sums[:cout], sums[cout:]
+
+
+def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
+               h, w_img, emit_res):
+    """The bf16 half's input gradient: (dx [Cin, N] bf16, d(scale),
+    d(shift) [Cin] f32, dres = bf16(gf) [Cout, N] or None)."""
+    if on_cpu(dy):
+        return dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift,
+                                bits, thresh=thresh, h=h, w_img=w_img,
+                                emit_res=emit_res)
+    name = "fused_half_bf16_dgrad"
+    cout, n = dy.shape
+    cin = x.shape[0]
+    if tuple(w_dg.shape) != (cin, 9 * cout):
+        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
+    _check_bf16_geometry(name, cout, n, h, w_img)
+    extra, extra_dt = [dy, w_dg], [torch.bfloat16, torch.bfloat16]
+    if y is not None:
+        dysum = dysum.to(_F32).contiguous()
+        dyssq = dyssq.to(_F32).contiguous()
+        extra += [y, dysum, dyssq]
+        extra_dt += [torch.bfloat16, _F32, _F32]
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, extra, extra_dt)
+    dev = dy.device
+    dx = torch.empty((cin, n), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((_conv_blocks(n, h, w_img), 2 * cin), dtype=_F32,
+                       device=dev)
+    dres = (torch.empty((cout, n), dtype=torch.bfloat16, device=dev)
+            if emit_res else None)
+    lib = _library_bf16()
+    _launch(name, lib.dgrad_launch, dy.data_ptr(), _ptr(y), _ptr(dysum),
+            _ptr(dyssq), w_dg.data_ptr(), x.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), bits_p, seed_p, dx.data_ptr(), part.data_ptr(),
+            _ptr(dres), cout, cin, n, h, w_img, thresh or 256,
+            inv_keep(thresh) if bits is not None else 1.0, _stream(dy),
+            seed=seeded)
+    sums = _partial_sum(f"{name}.sum", part, lib)
+    return dx, sums[:cin], sums[cin:], dres
+
+
+def wgrad_bf16(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh, h,
+               w_img):
+    """The bf16 half's weight gradient: dW [Cout, 9*Cin] f32, columns in
+    (dh, dw, ci) order, summed over every position."""
+    if on_cpu(dy):
+        return wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits,
+                                thresh=thresh, h=h, w_img=w_img)
+    name = "fused_half_bf16_wgrad"
+    cout, n = dy.shape
+    cin = x.shape[0]
+    _check_bf16_geometry(name, cin, n, h, w_img)
+    hw = h * w_img
+    if (n % KCHUNK or w_img > 32 or KCHUNK % w_img
+            or (KCHUNK % hw and hw % KCHUNK)):
+        raise ValueError(f"{name}: N={n} / image {h}x{w_img} vs the "
+                         f"{KCHUNK}-position staging chunk")
+    extra, extra_dt = [dy], [torch.bfloat16]
+    if y is not None:
+        dysum = dysum.to(_F32).contiguous()
+        dyssq = dyssq.to(_F32).contiguous()
+        extra += [y, dysum, dyssq]
+        extra_dt += [torch.bfloat16, _F32, _F32]
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, extra, extra_dt)
+    splits = wgrad_splits(cin, cout, n)
+    part = torch.empty((splits, cout * 9 * cin), dtype=_F32,
+                       device=dy.device)
+    lib = _library_bf16()
+    _launch(name, lib.wgrad_launch, dy.data_ptr(), _ptr(y), _ptr(dysum),
+            _ptr(dyssq), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            bits_p, seed_p, part.data_ptr(), cout, cin, n, h, w_img, splits,
+            thresh or 256, inv_keep(thresh) if bits is not None else 1.0,
+            _stream(dy), seed=seeded)
+    return _partial_sum(f"{name}.sum", part, lib).reshape(cout, 9 * cin)
+
+
+def seed_bits_expand(seed: torch.Tensor, cin: int, n: int) -> torch.Tensor:
+    """The [cin, n] uint8 bits of a seed, written out by the card's hash
+    (csrc/seed_bits.cuh); the plain version is ``seed_bits``. Only the card
+    check uses it: the halves rebuild their masks in registers."""
+    if on_cpu(seed):
+        return seed_bits(seed, cin, n, 0, n)
+    name = "seed_bits_expand"
+    if not is_seed(seed):
+        raise ValueError(f"{name}: expected a 0-d int32 seed")
+    require_cuda(name, [seed], [torch.int32])
+    out = torch.empty((cin, n), dtype=torch.uint8, device=seed.device)
+    _launch(name, _library_bf16().seed_bits_expand_launch, seed.data_ptr(),
+            out.data_ptr(), cin, n, _stream(seed))
+    return out
+
+
+# --- the differentiable ops -------------------------------------------------------
+
+def _bf16_backward(dy, dysum, dyssq, x_cs, w, scale, shift, bits, y,
+                   thresh, h, w_img, want_stats, use_res):
+    """The bf16 backward of a half (the reference's ``_make_op`` backward
+    without ``quant_bwd``), at the weights ``w`` cast to bf16: (dx, dw
+    OIHW in w's dtype, d(scale), d(shift), dres)."""
+    cout, cin = w.shape[:2]
+    dy = dy.contiguous()
+    emit_res = use_res and want_stats
+    w_dg = pack_weights_dgrad(w.detach().to(x_cs.dtype))
+    dx, ds, dt, dres = dgrad_bf16(dy, y, dysum, dyssq, w_dg, x_cs, scale,
+                                  shift, bits, thresh=thresh, h=h,
+                                  w_img=w_img, emit_res=emit_res)
+    dw = wgrad_bf16(dy, y, dysum, dyssq, x_cs, scale, shift, bits,
+                    thresh=thresh, h=h, w_img=w_img)
+    dw = dw.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).to(w.dtype)
+    if use_res and not emit_res:
+        dres = dy
+    return dx, dw, ds.to(scale.dtype), dt.to(shift.dtype), dres
+
+
+class _FusedHalf(torch.autograd.Function):
+    """Forward and backward of one bf16 half. The bits carry no gradient;
+    without stats outputs the residual's cotangent is dy."""
 
     @staticmethod
     def forward(ctx, x_cs, w, scale, shift, bits, res, thresh, h, w_img,
                 want_stats):
+        wp = pack_weights(w.detach().to(x_cs.dtype))
+        y, ysum, yssq = fwd_bf16(x_cs, wp, scale, shift, bits, res,
+                                 thresh=thresh, h=h, w_img=w_img,
+                                 want_stats=want_stats)
+        ctx.save_for_backward(x_cs, w, scale, shift, bits,
+                              y if want_stats else None)
+        ctx.cfg = (thresh, h, w_img, want_stats, res is not None)
+        return (y, ysum, yssq) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, dy, dysum=None, dyssq=None):
+        x_cs, w, scale, shift, bits, y = ctx.saved_tensors
+        thresh, h, w_img, want_stats, use_res = ctx.cfg
+        dx, dw, ds, dt, dres = _bf16_backward(
+            dy, dysum, dyssq, x_cs, w, scale, shift, bits, y, thresh, h,
+            w_img, want_stats, use_res)
+        return (dx, dw, ds, dt, None, dres if use_res else None, None, None,
+                None, None)
+
+
+def _check_bits(dropout_rate: float, bits, x_cs: torch.Tensor, h: int,
+                w_img: int):
+    """The reference's argument checks: (thresh or None, bits or None)."""
+    thresh = dropout_thresh(dropout_rate)
+    if thresh >= 256:
+        bits = None
+    elif thresh <= 0:
+        raise ValueError("dropout_rate >= 1 zeroes the activations; the "
+                         "fused kernel does not support it.")
+    elif bits is None:
+        raise ValueError(f"dropout_rate={dropout_rate} needs a bits array.")
+    if is_seed(bits) and x_cs.shape[0] * x_cs.shape[1] >= SEED_INDEX_LIMIT:
+        raise ValueError("in-kernel dropout bits index in i32: Cin * N "
+                         "must be < 2^31 (pass a bits tensor instead).")
+    if x_cs.shape[1] % (h * w_img):
+        raise ValueError(f"N={x_cs.shape[1]} is not a multiple of "
+                         f"H*W={h * w_img}")
+    return (thresh if bits is not None else None), bits
+
+
+def fused_half(x_cs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+               shift: torch.Tensor, bits: Optional[torch.Tensor] = None,
+               res: Optional[torch.Tensor] = None, *,
+               dropout_rate: float = 0.0, h: int, w_img: int,
+               want_stats: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.Tensor]]:
+    """Differentiable fused preact block-half with a bf16 conv core.
+
+    x_cs [Cin, N] (N = B*H*W, image-major), w [Cout, Cin, 3, 3] (OIHW),
+    taken as ``w.to(x_cs.dtype)`` in both directions; scale/shift [Cin]
+    f32 (``fold_bn``); bits a [Cin, N] uint8 tensor or a 0-d int32 seed
+    (Cin * N < 2^31), required iff the dropout rate rounds to a keep
+    threshold below 256; res [Cout, N] added after the bf16 rounding.
+    Returns (y [Cout, N], ysum, yssq), or (y, None, None) when
+    ``want_stats`` is False (a block's last conv)."""
+    thresh, bits = _check_bits(dropout_rate, bits, x_cs, h, w_img)
+    out = _FusedHalf.apply(x_cs, w, scale, shift, bits, res, thresh, h,
+                           w_img, want_stats)
+    return out if want_stats else (out, None, None)
+
+
+
+class _FusedHalfInt8(torch.autograd.Function):
+    """Forward of one int8 half, and its backward: fully quantized with
+    ``quant_bwd``, else the bf16 straight-through backward at the
+    unquantized point (QAT). The bits carry no gradient; without stats
+    outputs the residual's cotangent is dy."""
+
+    @staticmethod
+    def forward(ctx, x_cs, w, scale, shift, bits, res, thresh, h, w_img,
+                want_stats, quant_bwd):
         cin, n = x_cs.shape
         cout = w.shape[0]
         tile = lane_tile(h, w_img, n, cin, cout)
@@ -561,13 +1023,19 @@ class _FusedHalfInt8(torch.autograd.Function):
                                  w_img=w_img, want_stats=want_stats)
         ctx.save_for_backward(x_cs, w, scale, shift, bits,
                               y if want_stats else None)
-        ctx.cfg = (thresh, h, w_img, want_stats, res is not None)
+        ctx.cfg = (thresh, h, w_img, want_stats, res is not None, quant_bwd)
         return (y, ysum, yssq) if want_stats else y
 
     @staticmethod
     def backward(ctx, dy, dysum=None, dyssq=None):
         x_cs, w, scale, shift, bits, y = ctx.saved_tensors
-        thresh, h, w_img, want_stats, use_res = ctx.cfg
+        thresh, h, w_img, want_stats, use_res, quant_bwd = ctx.cfg
+        if not quant_bwd:
+            dx, dw, ds, dt, dres = _bf16_backward(
+                dy, dysum, dyssq, x_cs, w, scale, shift, bits, y, thresh, h,
+                w_img, want_stats, use_res)
+            return (dx, dw, ds, dt, None, dres if use_res else None, None,
+                    None, None, None, None)
         cin, n = x_cs.shape
         cout = w.shape[0]
         tile = bwd_tile(h, w_img, n, cin, cout)
@@ -585,7 +1053,7 @@ class _FusedHalfInt8(torch.autograd.Function):
         if use_res and not emit_res:
             dres = dy
         return (dx, dw, ds.to(scale.dtype), dt.to(shift.dtype), None,
-                dres if use_res else None, None, None, None, None)
+                dres if use_res else None, None, None, None, None, None)
 
 
 def fused_half_int8(x_cs: torch.Tensor, w: torch.Tensor,
@@ -593,29 +1061,21 @@ def fused_half_int8(x_cs: torch.Tensor, w: torch.Tensor,
                     bits: Optional[torch.Tensor] = None,
                     res: Optional[torch.Tensor] = None, *,
                     dropout_rate: float = 0.0, h: int, w_img: int,
-                    want_stats: bool = True
+                    want_stats: bool = True, quant_bwd: bool = True
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                Optional[torch.Tensor]]:
-    """Differentiable fused preact block-half with an int8 conv core and a
-    fully quantized backward.
+    """Differentiable fused preact block-half with an int8 conv core: the
+    backward fully quantized with ``quant_bwd`` (FQT), else the bf16
+    straight-through backward at the unquantized point (QAT: the original
+    weights cast to bf16, the bf16 prologue recomputed).
 
     x_cs [Cin, N] (N = B*H*W, image-major), w [Cout, Cin, 3, 3] (OIHW),
-    scale/shift [Cin] f32 (``fold_bn``), bits [Cin, N] uint8 (required iff
-    the dropout rate rounds to a keep threshold below 256), res [Cout, N]
-    added after the bf16 rounding. Returns (y [Cout, N], ysum, yssq), or
-    (y, None, None) when ``want_stats`` is False (a block's last conv)."""
-    thresh = dropout_thresh(dropout_rate)
-    if thresh >= 256:
-        bits = None
-    elif thresh <= 0:
-        raise ValueError("dropout_rate >= 1 zeroes the activations; the "
-                         "fused kernel does not support it.")
-    elif bits is None:
-        raise ValueError(f"dropout_rate={dropout_rate} needs a bits array.")
-    cin, n = x_cs.shape
-    if n % (h * w_img):
-        raise ValueError(f"N={n} is not a multiple of H*W={h * w_img}")
-    out = _FusedHalfInt8.apply(x_cs, w, scale, shift, bits, res,
-                               thresh if bits is not None else None, h,
-                               w_img, want_stats)
+    scale/shift [Cin] f32 (``fold_bn``), bits a [Cin, N] uint8 tensor or a
+    0-d int32 seed (Cin * N < 2^31), required iff the dropout rate rounds
+    to a keep threshold below 256, res [Cout, N] added after the bf16
+    rounding. Returns (y [Cout, N], ysum, yssq), or (y, None, None) when
+    ``want_stats`` is False (a block's last conv)."""
+    thresh, bits = _check_bits(dropout_rate, bits, x_cs, h, w_img)
+    out = _FusedHalfInt8.apply(x_cs, w, scale, shift, bits, res, thresh, h,
+                               w_img, want_stats, quant_bwd)
     return out if want_stats else (out, None, None)

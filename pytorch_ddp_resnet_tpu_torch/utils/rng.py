@@ -9,7 +9,7 @@ the augmentation takes ``fold_in(step, 0)`` and the model
 streams themselves are torch's: a node seeds a ``torch.Generator`` from its
 path. The numbers differ from JAX's for the same seed (PARITY.md divergence
 6); the tests hand the port a key that answers with the JAX draws instead
-(``tests/_torch_port_helpers.py`` ``JaxKey``), through the same four draw
+(``tests/_torch_port_helpers.py`` ``JaxKey``), through the same five draw
 methods below.
 """
 
@@ -54,6 +54,14 @@ class Key:
         """Uniform uint8 bits (dropout masks)."""
         return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
                              generator=self.generator(device), device=device)
+
+    def dropout_seed(self, device) -> torch.Tensor:
+        """A uniform 32-bit draw as a 0-d int32 tensor on ``device`` (the
+        in-kernel dropout seed; it stays on the device, and the kernels
+        read it through its pointer)."""
+        return torch.randint(-2 ** 31, 2 ** 31, (), dtype=torch.int64,
+                             generator=self.generator(device),
+                             device=device).to(torch.int32)
 
     def randint(self, shape: Sequence[int], low: int, high: int,
                 device) -> torch.Tensor:

@@ -77,6 +77,13 @@ class JaxKey:
         return torch.from_numpy(np.array(jax.random.bits(
             self.key, tuple(shape), jnp.uint8))).to(device)
 
+    def dropout_seed(self, device):
+        """The in-kernel dropout seed JAX draws (``blocks.py``
+        ``_dropout_bits``): 32 random bits bitcast to int32."""
+        return torch.tensor(int(jax.lax.bitcast_convert_type(
+            jax.random.bits(self.key, (), jnp.uint32), jnp.int32)),
+            dtype=torch.int32, device=device)
+
     def randint(self, shape, low, high, device):
         return torch.from_numpy(np.array(jax.random.randint(
             self.key, tuple(shape), low, high), np.int32)).to(device)

@@ -26,7 +26,13 @@ s32 sums and the reference's rounding points in both versions, so int8
 and bf16 outputs are equal. The NV training halves: row absmaxes, bf16
 outputs and the weight gradient (exact s32 per chunk, chunks added in
 order) are equal; the BatchNorm sums, d(s) and d(t) are f32 sums in
-another order: 1e-5 of the largest value.
+another order: 1e-5 of the largest value. The fused bf16 half: bf16
+outputs (y, dx) within 2 bf16 ulps of the tensor's largest value (f32
+against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
+of the sums of the kernel's own y, and the sums over the tensor cores'
+accumulators (BatchNorm sums, d(scale), d(shift), dW) within 1e-4 of the
+plain version's largest value (``_mma_sums`` says why); the seed expansion
+and the int8 kernels in seed mode are bit-equal.
 """
 
 import numpy as np
@@ -300,6 +306,183 @@ def test_fused_and_stem_never_fall_back(dev):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         st.stem_fwd(x, torch.zeros((16, 27), device=dev),
                     torch.zeros(16, device=dev), h=8, w_img=8)
+
+
+# --- the bf16 fused half and the dropout hash ----------------------------------
+
+def _bf16_close(got, want):
+    """bf16 outputs: within 2 bf16 ulps of the tensor's largest value (the
+    kernel sums the conv in f32, the plain version in float64)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= 2 * ulp
+
+
+def _mma_sums(got, want):
+    """f32 sums over the bf16 tensor cores' f32 accumulators (BatchNorm
+    sums, d(scale), d(shift), dW): within 1e-4 of the largest value. The
+    tensor cores' f32 accumulation does not round to nearest: at K = 5,760
+    (C = 640) it left y's squares 1.6e-5 of their largest sum below the
+    float64 plain version's, every channel low."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    d = (got - want).abs().max().item()
+    assert d <= 1e-4 * want.abs().max().item(), d
+
+
+SEEDS = [0, -1, 2 ** 31 - 1, -2 ** 31, 123456789, -987654321]
+
+
+@pytest.mark.parametrize("c,n", [(160, 128 * 1024), (33, 1000), (8, 8)])
+def test_seed_bits_expand_is_bit_equal(dev, c, n):
+    for s in SEEDS:
+        seed = torch.tensor(s, dtype=torch.int32, device=dev)
+        assert torch.equal(fb.seed_bits_expand(seed, c, n),
+                           fb.seed_bits(seed, c, n, 0, n))
+    torch.cuda.synchronize()
+
+
+def _drop(mode, dev, g, c, n):
+    """(thresh, bits) of a bits mode on the card."""
+    if mode == "none":
+        return None, None
+    if mode == "seed":
+        return fb.dropout_thresh(0.3), torch.tensor(
+            -2 ** 31 + 17, dtype=torch.int32, device=dev)
+    return fb.dropout_thresh(0.3), torch.randint(
+        0, 256, (c, n), device=dev, generator=g, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("c,h,w,b", FQT_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "bits", "seed"])
+@pytest.mark.parametrize("use_res,stats", [(False, True), (True, False),
+                                           (True, True)])
+def test_fused_half_bf16_kernels_match_plain(dev, c, h, w, b, mode, use_res,
+                                             stats):
+    g = torch.Generator(device=dev).manual_seed(c + b + 1)
+    n = b * h * w
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * (9 * c) ** -0.5
+    wp = k.pack_weights(wt.to(torch.bfloat16))
+    wdg = fb.pack_weights_dgrad(wt.to(torch.bfloat16))
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    thresh, bits = _drop(mode, dev, g, c, n)
+    res = (torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+           if use_res else None)
+    kw = dict(thresh=thresh, h=h, w_img=w)
+    got = fb.fwd_bf16(x, wp, scale, shift, bits, res, want_stats=stats, **kw)
+    want = fb.fwd_bf16_plain(x, wp, scale, shift, bits, res,
+                             want_stats=stats, **kw)
+    _bf16_close(got[0], want[0])
+    if stats:
+        yd = got[0].double()
+        for s_, own, ref in ((got[1], yd.sum(1), want[1]),
+                             (got[2], (yd * yd).sum(1), want[2])):
+            _mma_sums(s_, ref)
+            d = (s_.double() - own).abs().max().item()
+            assert d <= 1e-5 * own.abs().max().item(), d
+    dy = (torch.randn(c, n, device=dev, generator=g) * 1e-3).to(
+        torch.bfloat16)
+    cts = ((want[0], torch.randn(c, device=dev, generator=g) * 1e-4,
+            torch.randn(c, device=dev, generator=g) * 1e-4) if stats
+           else (None, None, None))
+    args = (dy, *cts, wdg, x, scale, shift, bits)
+    got = fb.dgrad_bf16(*args, emit_res=stats and use_res, **kw)
+    want = fb.dgrad_bf16_plain(*args, emit_res=stats and use_res, **kw)
+    _bf16_close(got[0], want[0])
+    _mma_sums(got[1], want[1])
+    _mma_sums(got[2], want[2])
+    if stats and use_res:
+        _same(got[3], want[3])
+    else:
+        assert got[3] is None and want[3] is None
+    args = (dy, *cts, x, scale, shift, bits)
+    _mma_sums(fb.wgrad_bf16(*args, **kw), fb.wgrad_bf16_plain(*args, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("c,h,w,b", FQT_SHAPES)
+def test_int8_kernels_in_seed_mode_match_plain(dev, c, h, w, b):
+    """The int8 core's quantizers and dgrad rebuild the mask from a seed: equal to
+    their plain versions, and to themselves fed the expanded bits."""
+    g = torch.Generator(device=dev).manual_seed(c + b + 2)
+    n = b * h * w
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * (9 * c) ** -0.5
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    thresh, seed = _drop("seed", dev, g, c, n)
+    expanded = fb.seed_bits(seed, c, n, 0, n)
+    tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+    outs = []
+    for bits in (seed, expanded):
+        d_q, amax = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
+                                    tile=tile)
+        dy = (torch.randn(c, n, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              7)) * 1e-3).to(torch.bfloat16)
+        ops = fb.bwd_quantize(dy, None, None, None, x, scale, shift, bits,
+                              thresh=thresh, tile=btile, emit_res=False)
+        wdg, wsin = fb.quantize_pack_weights_dgrad(wt)
+        dg = fb.dgrad_conv(ops[0], ops[1], wdg, wsin, x, scale, shift, bits,
+                           thresh=thresh, tile=btile, h=h, w_img=w)
+        outs.append([d_q, amax, *ops[:4], *dg])
+        want = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                     tile=tile)
+        _same(d_q, want[0])
+        _same(amax, want[1])
+        want = fb.dgrad_conv_plain(ops[0], ops[1], wdg, wsin, x, scale,
+                                   shift, bits, thresh=thresh, tile=btile,
+                                   h=h, w_img=w)
+        _same(dg[0], want[0])
+        _same(dg[1], want[1], sums=True)
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+    torch.cuda.synchronize()
+
+
+def test_fused_half_bf16_op_launches_its_kernels(dev):
+    c, h, w, n = 32, 8, 8, 8192
+    for op, kw in ((fb.fused_half, {}),
+                   (fb.fused_half_int8, {"quant_bwd": False})):
+        x = torch.randn(c, n, device=dev).to(torch.bfloat16).requires_grad_()
+        wt = (torch.randn(c, c, 3, 3, device=dev) * 0.05).requires_grad_()
+        scale = (torch.rand(c, device=dev) + 0.5).requires_grad_()
+        shift = torch.zeros(c, device=dev, requires_grad=True)
+        seed = torch.tensor(5, dtype=torch.int32, device=dev)
+        fb.reset_launches()
+        y, ys, yq = op(x, wt, scale, shift, seed, dropout_rate=0.3, h=h,
+                       w_img=w, **kw)
+        (y.float().sum() + ys.sum() + yq.sum()).backward()
+        torch.cuda.synchronize()
+        bwd = ("fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
+               "fused_half_bf16_wgrad", "fused_half_bf16_wgrad.sum")
+        fwd = (("fused_half_bf16_fwd", "fused_half_bf16_fwd.sum") if not kw
+               else ("fused_half_fwd.amax", "fused_half_fwd.quant",
+                     "fused_half_fwd", "fused_half_fwd.sum"))
+        assert dict(fb.launches) == {name: 1 for name in fwd + bwd}
+        seeded = {name for name in fwd + bwd if not name.endswith(".sum")
+                  and name != "fused_half_fwd"}
+        assert dict(fb.seed_launches) == {name: 1 for name in seeded}
+        for t in (x, wt, scale, shift):
+            assert torch.isfinite(t.grad).all()
+
+
+def test_fused_half_bf16_never_falls_back(dev):
+    x = torch.zeros((32, 8192), dtype=torch.float32, device=dev)
+    w = torch.zeros((32, 9 * 32), dtype=torch.bfloat16, device=dev)
+    one = torch.ones(32, device=dev)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fb.fwd_bf16(x, w, one, one, None, None, thresh=None, h=8, w_img=8,
+                    want_stats=True)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fb.fwd_bf16(x[:48].to(torch.bfloat16).repeat(2, 1)[:48],
+                    torch.zeros((48, 9 * 48), dtype=torch.bfloat16,
+                                device=dev), torch.ones(48, device=dev),
+                    torch.ones(48, device=dev), None, None, thresh=None,
+                    h=8, w_img=8, want_stats=True)
 
 
 # (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,

@@ -281,12 +281,17 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
 # --- refusals and setup --------------------------------------------------------------
 
 def test_qat_and_other_kernel_flags_raise():
-    for flags, where in (({"int8_train": True}, "Queue 2 item 7"),
-                         ({**FQT, "lane_transition": True}, "Queue 2 item 8"),
-                         ({**FQT, "pallas_conv": True}, "Queue 2 item 9"),
-                         ({**FQT, "remat": True}, "Queue 1 item 11")):
+    """QAT on a bottleneck net (its NV halves' bf16 bodies are a later
+    slice) and the flags still to port raise; QAT on the basic trunk
+    builds (tests/test_torch_qat_train.py)."""
+    bneck = "c3,64,3,1,1 b2 n a ap8,1,0 fc64,10"
+    for spec, flags, where in (
+            (bneck, {"int8_train": True}, "Queue 2 item 7b"),
+            (SPEC, {**FQT, "lane_transition": True}, "Queue 2 item 8"),
+            (SPEC, {**FQT, "pallas_conv": True}, "Queue 2 item 9"),
+            (SPEC, {**FQT, "remat": True}, "Queue 1 item 11")):
         with pytest.raises(NotImplementedError, match=where):
-            ResNet(SPEC, True, True, 0.3, device="cpu", **flags)
+            ResNet(spec, True, True, 0.3, device="cpu", **flags)
 
 
 def _int8_config(tmp_path, **overrides):

@@ -11,6 +11,8 @@ of the logit range, as tests/test_torch_quantize.py argues (each package
 calibrates on its own, and the scales agree to ~1e-7 relative).
 """
 
+import shutil
+
 import jax
 import numpy as np
 import pytest
@@ -24,16 +26,22 @@ from pytorch_ddp_resnet_tpu.algos.train import setup
 from pytorch_ddp_resnet_tpu.data.datasets import load_synthetic
 from pytorch_ddp_resnet_tpu.utils.checkpoint import (
     PytreeCheckpointable,
+    save_checkpoint,
     save_checkpoints,
 )
 from pytorch_ddp_resnet_tpu.utils.config import get_config as jax_get_config
 from pytorch_ddp_resnet_tpu_torch.algos.predict import (
     Predictor,
     load_predictor,
+    train_kinds,
 )
 from pytorch_ddp_resnet_tpu_torch.data.datasets import get_dataset
 from pytorch_ddp_resnet_tpu_torch.data.pipeline import build_transforms
-from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import load_checkpoint
+from pytorch_ddp_resnet_tpu_torch.utils.checkpoint import (
+    latest_step,
+    load_checkpoint,
+    resume_step,
+)
 from pytorch_ddp_resnet_tpu_torch.utils.config import get_config
 
 from _torch_port_helpers import _randomize_bn
@@ -162,3 +170,28 @@ def test_entry_points_default_to_the_card(run_dir):
         load_predictor(_port_config(run_dir))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(torch.nn.Identity(), None)
+
+
+def test_serving_skips_a_torn_save(run_dir, tmp_path):
+    """A save torn at step 5: only ``classifier_5.ckpt`` landed (other
+    BatchNorm statistics), no optimizer file and no manifest. JAX resumes
+    from the complete save of step 3, so serving must too: logits within
+    1e-4 of the range of JAX's."""
+    root = tmp_path / "models_dir"
+    shutil.copytree(run_dir["root"], root)
+    jcfg = jax_get_config(str(root), "run", data_dir=run_dir["data_dir"],
+                          verbose=False)
+    ts = jax.device_get(setup(jcfg, verbose=False)["train_state"])
+    _randomize_bn(ts["params"], ts["model_state"], np.random.default_rng(9))
+    save_checkpoint(jcfg["checkpoint_dir"], "classifier", PytreeCheckpointable(
+        {"params": ts["params"], "model_state": ts["model_state"]}), steps=5)
+    ref = jax_load_predictor(jcfg, batch_size=16).logits(run_dir["images"])
+    config = get_config(str(root), "run", data_dir=run_dir["data_dir"],
+                        verbose=False)
+    got = load_predictor(config, batch_size=16, device="cpu").logits(
+        run_dir["images"])
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+    ckpt = config["checkpoint_dir"]
+    assert latest_step(ckpt, "classifier") == 5
+    assert resume_step(ckpt, train_kinds(config)) == 3
