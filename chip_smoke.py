@@ -132,7 +132,40 @@ Phases, each fatal on failure:
    drawn for them, and the 7 at C=640 on drawn bits. In phases 13 and 14
    the first half of each bits mode in the first step, on its live inputs
    and cotangents, must reproduce its output and equal its plain versions.
-15. Print one JSON line of per-kernel numbers, then the result line.
+   Phase 12 also holds ``fused_half`` at C = 48 without dropout (the gate's
+   C % 16 case, zero-padded to 64 channels for the kernels) against the
+   plain versions of the unpadded half.
+15. Transition kernels: at WRN-28-10's two stage transitions at batch 128
+   (160 -> 320 channels, 32x32 -> 16x16; 320 -> 640, 16x16 -> 8x8) hold
+   the transition half's kernels (ops/cuda/csrc/transition.cu) against
+   their plain versions on the same CUDA tensors: the forward (the fused
+   half's quantizer at the transition's scale groups, then the stride-2
+   int8 conv with the projection) with dropout bits, without, and with the
+   option-A shortcut at stage 2; the FQT quantizers and the
+   straight-through fold (the rounded cotangent and the bf16 prologue);
+   the dgrad and the wgrad (with dWp) of both bodies. Int8 codes, group
+   absmaxes, z, the fold and the FQT dW equal; res and dx within 2 bf16
+   ulps; f32 sums within 1e-5 (1e-4 over bf16 tensor-core accumulators). Each is timed beside its plain version and
+   cuDNN's bf16 stride-2 3x3 conv plus the 1x1 stride-2 projection
+   (forward, input gradient, weight gradient; channels-last).
+16. Training, the eighth main path: the ``-int8`` recipe of phase 7 with
+   ``use_lane_transition: True``. With the launch counts zeroed just
+   before, each step must launch the transition kernels twice each (the
+   two stage transitions), the 22 fused halves' kernels as in phase 7
+   (the quantizer twice more: it serves the transitions too), the stem
+   and the augment kernel (LANE_FQT_PER_STEP); in the first step the lane
+   run must stay open from the stem to the head (one NHWC -> lane entry at
+   the stem, one close before the head, no block converting). Losses
+   finite, every parameter changed, every BatchNorm count equal to the
+   steps; the first transition half of the first step, on its live inputs
+   and cotangents, must reproduce its outputs and equal its plain
+   versions. Then the same in QAT with in-kernel dropout, as phase 14
+   (``use_int8_train`` and ``use_inkernel_dropout``, 6 steps:
+   LANE_QAT_PER_STEP, the 15 halves at C <= 320 seeded as in phase 14; the
+   transitions' bits stay drawn, as in the reference). Both print step
+   time, img/s, peak memory and the profile beside phase 7's FQT and phase
+   14's QAT step, which differ from them in the one flag.
+17. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -250,6 +283,22 @@ FQT_PER_STEP = {
     "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
     "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
     "fused_half_wgrad": 22, "fused_half_wgrad.sum": 22}
+# launches of one lane-transition step: the 22 halves as above, plus the
+# two transition halves (each one forward, its quantizer on the fused half's
+# fused_half_fwd.amax/.quant, one backward fold or quantizer, dgrad, wgrad
+# and dWp, with their ordered sums)
+_TR_STEP = {"transition_fwd": 2, "transition_fwd.sum": 2,
+            "transition_dgrad": 2, "transition_dgrad.sum": 2,
+            "transition_wgrad": 2, "transition_wgrad.sum": 2,
+            "transition_wgrad.proj": 2, "transition_wgrad.proj_sum": 2}
+LANE_FQT_PER_STEP = {
+    **FQT_PER_STEP, **_TR_STEP, "fused_half_fwd.amax": 24,
+    "fused_half_fwd.quant": 24, "transition_bwd.amax": 2,
+    "transition_bwd.quant": 2}
+LANE_QAT_PER_STEP = {
+    **QAT_PER_STEP, **_TR_STEP, "fused_half_fwd.amax": 24,
+    "fused_half_fwd.quant": 24, "transition_bwd.fold": 2}
+LANE_QAT_STEPS = 6
 F32_SUMS = ("ysum", "yssq", "zsum", "zssq", "ds", "dt", "db", "dw_stem")
 # dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
 # the tensor cores), NVIDIA data sheets
@@ -328,9 +377,11 @@ def port_modules():
         conv3x3,
         fused_block,
         stem,
+        transition,
     )
 
-    return augment, bneck_nv, bneck_nv_train, conv3x3, fused_block, stem
+    return (augment, bneck_nv, bneck_nv_train, conv3x3, fused_block, stem,
+            transition)
 
 
 def reset_launches() -> None:
@@ -657,6 +708,9 @@ KERNEL_KINDS = [
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("nv train halves (port)", ("nvt_",)),
     ("stem (port)", ("stem_",)),
+    ("transition (port)", ("fwd_kernel<", "dgrad_kernel<",
+                           "bwd_amax_kernel", "bwd_quant_kernel",
+                           "bwd_fold_kernel", "wgrad_kernel<")),
     ("fused bf16 half (port)", ("FwdLoad", "DgradLoad", "Bf16Prologue")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
@@ -709,13 +763,14 @@ def _profile_steps(run_steps, steps: int):
 
 def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                    run_name="wrn-28-10-train", per_step=None,
-                   first_step=None, seed_per_step=None, **overrides):
+                   first_step=None, seed_per_step=None, steps=TRAIN_STEPS,
+                   **overrides):
     """Train the full-width recipe (with the config ``overrides``) for
-    TRAIN_STEPS steps through setup and the train step. ``per_step``: the
+    ``steps`` steps through setup and the train step. ``per_step``: the
     launches each step must make (default the augment kernel only);
     ``seed_per_step``: those of them that must rebuild their dropout masks
     from a seed (default none); ``first_step``: a context manager wrapped
-    around the first step (phases 7, 13 and 14 record fused halves
+    around the first step (phases 7, 13, 14 and 16 record halves
     there)."""
     import contextlib
     import math
@@ -747,7 +802,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
         pass_indices=True)
     root = Key(config.get("seed", 0))
     feeds = [idx for _, (idx,) in pipeline.train_feed(
-        0, budget=TRAIN_STEPS + PROFILE_STEPS)]
+        0, budget=steps + PROFILE_STEPS)]
     lr = ls["scheduler"].get_lr()
     before = {k: v.detach().clone() for k, v in ts["params"].items()}
     torch.cuda.reset_peak_memory_stats()
@@ -762,26 +817,26 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
         metrics.append(m)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for gs in range(WARM_STEPS, TRAIN_STEPS):
+    for gs in range(WARM_STEPS, steps):
         ts, m = step(ts, feeds[gs], lr, root.fold_in(gs))
         metrics.append(m)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - WARM_STEPS)
     launches = all_launches()
     seeded = dict(fb.seed_launches)
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = [float(m["loss"]) for m in metrics]
-    assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
+    assert launches == {k: v * steps for k, v in per_step.items()}, \
         launches
-    assert seeded == {k: v * TRAIN_STEPS
+    assert seeded == {k: v * steps
                       for k, v in (seed_per_step or {}).items()}, seeded
     assert all(math.isfinite(v) for v in losses), losses
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), f"{k} did not change"
     counts = {int(b) for n, b in ts["model_state"].items()
               if n.endswith("count")}
-    assert counts == {TRAIN_STEPS}, counts
+    assert counts == {steps}, counts
 
     # the first step's augmented batch, kernel vs plain, same draws
     key = root.fold_in(0).fold_in(0)  # the step's augment key (M = 1)
@@ -792,7 +847,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
 
     def more_steps():
         nonlocal ts
-        for gs in range(TRAIN_STEPS, TRAIN_STEPS + PROFILE_STEPS):
+        for gs in range(steps, steps + PROFILE_STEPS):
             ts, _ = step(ts, feeds[gs], lr, root.fold_in(gs))
 
     profile = _profile_steps(more_steps, PROFILE_STEPS)
@@ -800,7 +855,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                 and r["whiten"])
     aug_ms = main["ms"] if main["ms"] is not None else main["call_ms"]
     return dict(
-        launches=launches, seed_launches=seeded, steps=TRAIN_STEPS,
+        launches=launches, seed_launches=seeded, steps=steps,
         losses=losses, lr=lr, setup_s=setup_s, step_ms=step_ms,
         img_per_s=BATCH / step_ms * 1e3, augment_kernel_ms=aug_ms,
         augment_share_of_step=aug_ms / step_ms, peak_mem_gib=peak_mem,
@@ -1368,11 +1423,65 @@ def bf16_kernel_phase(peaks):
             assert torch.equal(a, b), c
         del x, res, drops, y0, dy, cts, expanded, outs
         torch.cuda.empty_cache()
+    rows.append(_padded_half_row(fb, g, flops_bf16, bw))
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes")
     return rows, seed_rows
+
+
+def _padded_half_row(fb, g, flops_bf16, bw):
+    """The gate's C % 16 case, C = 48 without dropout at 32x32, batch 128:
+    the differentiable ``fused_half`` zero-pads to 64 channels for the
+    kernels; its output and gradients against the plain versions of the
+    unpadded half on the same CUDA tensors."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pack_weights
+
+    dev = torch.device("cuda")
+    c, h, w = 48, 32, 32
+    n = BATCH * h * w
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = randn(c, n).to(torch.bfloat16)
+    wt = randn(c, c, 3, 3, s=(9 * c) ** -0.5)
+    scale, shift = randn(c).abs() + 0.5, randn(c, s=0.3)
+    res = randn(c, n).to(torch.bfloat16)
+    dy = randn(c, n, s=1e-3).to(torch.bfloat16)
+    dysum, dyssq = randn(c, s=1e-4), randn(c, s=1e-4)
+    kw = dict(thresh=None, h=h, w_img=w)
+
+    def kern():
+        ins = [t.clone().requires_grad_() for t in (x, wt, scale, shift)]
+        y, ys, yq = fb.fused_half(*ins, None, res, h=h, w_img=w)
+        grads = torch.autograd.grad((y, ys, yq), ins, (dy, dysum, dyssq))
+        return dict(y=y.detach(), ysum=ys.detach(), yssq=yq.detach(),
+                    dx=grads[0], dw=grads[1], ds=grads[2], dt=grads[3])
+
+    def plain():
+        y, ys, yq = fb.fwd_bf16_plain(x, pack_weights(wt.to(torch.bfloat16)),
+                                      scale, shift, None, res,
+                                      want_stats=True, **kw)
+        ct = (dy, y, dysum, dyssq)
+        dx, ds, dt, _ = fb.dgrad_bf16_plain(
+            *ct, fb.pack_weights_dgrad(wt.to(torch.bfloat16)), x, scale,
+            shift, None, emit_res=False, **kw)
+        dw = fb.wgrad_bf16_plain(*ct, x, scale, shift, None, **kw)
+        return dict(y=y, ysum=ys, yssq=yq, dx=dx,
+                    dw=dw.reshape(c, 3, 3, c).permute(0, 3, 1, 2), ds=ds,
+                    dt=dt)
+
+    err = _agree_bf16(kern(), plain(), ("padded half", c))
+    return dict(name="fused_half (C=48, zero-padded to 64)", c=c, h=h, w=w,
+                n=n, mode="none+res+stats", max_abs_err=err,
+                ms=time_ms(kern, 5), plain_ms=time_ms(plain, 1),
+                library_ms=None,
+                ops_ms=3 * 2 * 9 * c * c * n / flops_bf16 * 1e3,
+                bytes_ms=(12 * c * n) / bw * 1e3)
 
 
 def live_bf16_check(rec, quant: bool):
@@ -1467,6 +1576,411 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
             + f" train step at batch {BATCH} (ms per call summed over the "
               "step's halves; launches over both runs)",
             stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+                    for r in mine]))
+    return out
+
+
+# --- phases 15 and 16: lane-through stage transitions --------------------------
+
+TR_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/transition.cu"
+TR_NAMES = ("transition_fwd", "transition_bwd", "transition_dgrad",
+            "transition_wgrad")
+# (stage, cin, cout, h, w): the inputs of WRN-28-10's two stage transitions
+TR_SHAPES = [(2, 160, 320, 32, 32), (3, 320, 640, 16, 16)]
+# the FQT step's rows of each kernel (the recipe's case: projection, bits)
+TR_STEP_MODE = {"transition_fwd": "proj+bits", "transition_bwd": "fqt",
+                "transition_dgrad": "fqt+proj", "transition_wgrad": "fqt"}
+
+
+def _agree_tr(got: dict, want: dict, tol: dict, what) -> float:
+    """Kernel outputs against the plain version's, key by key: ``"eq"``
+    equal, ``"ulp"`` within 2 bf16 ulps of the tensor's largest value (bf16
+    products summed by the tensor cores in f32 against float64), a float
+    within that fraction of the largest value (f32 sums: 1e-5, or 1e-4
+    over bf16 tensor-core accumulators). Returns the max abs difference."""
+    import torch
+
+    err = 0.0
+    for k, ref in want.items():
+        out = got[k]
+        assert out.dtype == ref.dtype and out.shape == ref.shape, (what, k)
+        d = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        if tol[k] == "eq":
+            assert torch.equal(out, ref), (what, k, d)
+        elif tol[k] == "ulp":
+            assert d <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), \
+                (what, k, d, top)
+        else:
+            assert d <= tol[k] * top, (what, k, d, top)
+        err = max(err, d)
+    return err
+
+
+def cudnn_s2_times(g, cin, cout, h, w, batch=BATCH):
+    """cuDNN bf16 channels-last stride-2 3x3 conv plus the 1x1 stride-2
+    projection at batch ``batch``: ms per call of the forward, the input
+    gradient and the weight gradient."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    dev = torch.device("cuda")
+
+    def rn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(
+            torch.bfloat16).to(memory_format=torch.channels_last)
+
+    x4, w4, wp4 = rn(batch, cin, h, w), rn(cout, cin, 3, 3), rn(cout, cin,
+                                                                  1, 1)
+    dy4 = rn(batch, cout, h // 2, w // 2)
+    return dict(
+        fwd=time_ms(lambda: (F.conv2d(x4, w4, stride=2, padding=1),
+                             F.conv2d(x4, wp4, stride=2)), 10),
+        dgrad=time_ms(lambda: (
+            conv2d_input(x4.shape, w4, dy4, stride=2, padding=1),
+            conv2d_input(x4.shape, wp4, dy4, stride=2)), 10),
+        wgrad=time_ms(lambda: (
+            conv2d_weight(x4, w4.shape, dy4, stride=2, padding=1),
+            conv2d_weight(x4, wp4.shape, dy4, stride=2)), 10))
+
+
+def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
+    """Rows per (transition kernel, stage, mode): max error against the
+    plain version on the same CUDA tensors, and the kernel / plain / cuDNN
+    bf16 / bound times of one call."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
+
+    flops_bf16, ops_int8, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    bf = torch.bfloat16
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    for stage, cin, cout, h, w in shapes:
+        oh, ow = h // 2, w // 2
+        n, n_out = batch * h * w, batch * oh * ow
+        x = randn(cin, n).to(bf)
+        w1 = randn(cout, cin, 3, 3, s=(9 * cin) ** -0.5)
+        wp = randn(cout, cin, s=cin ** -0.5).to(bf)
+        wpt = wp.t().contiguous()
+        scale, shift = randn(cin).abs() + 0.5, randn(cin, s=0.3)
+        bits = tr.parity_unpack(torch.randint(
+            0, 256, (4 * cin, n_out), device=dev, generator=g,
+            dtype=torch.uint8), h, w)
+        thresh = fb.dropout_thresh(0.3)
+        tile = tr.transition_tile(oh, ow, n_out, cin, cout)
+        wq, ws = fb.quantize_pack_weights(w1)
+        wdq, wsin = tr.quant_pack_w_dgrad(w1)
+        wdb = tr.pack_w_dgrad(w1.to(bf))
+        lib = cudnn_s2_times(g, cin, cout, h, w, batch)
+        macs, pmacs = 9 * cin * cout * n_out, cin * cout * n_out
+        kw = dict(h=h, w_img=w)
+        optas = (True, False) if cout >= cin and stage == shapes[0][0] \
+            else (False,)
+
+        def add(name, mode, kern, plain, tol, lib_ms, byts, ops_ms):
+            err = _agree_tr(kern(), plain(), tol, (name, stage, mode))
+            rows.append(dict(
+                name=name, stage=stage, cin=cin, cout=cout, h=h, w=w,
+                n=n, mode=mode, tile=tile, max_abs_err=err,
+                ms=time_ms(kern, 10), plain_ms=time_ms(plain, 1),
+                library_ms=lib_ms, ops_ms=ops_ms,
+                bytes_ms=byts / bw * 1e3))
+
+        def fwd(bits_, wp_, plain):
+            q, conv = ((fb.fwd_quantize_plain, tr.fwd_conv_plain) if plain
+                       else (fb.fwd_quantize, tr.fwd_conv))
+            th = thresh if bits_ is not None else None
+            d_q, amax = q(x, scale, shift, bits_, thresh=th, tile=4 * tile)
+            z, zs, zq, res = conv(d_q, amax, wq, ws, x, wp_, tile=tile, **kw)
+            return dict(d_q=d_q, amax=amax, z=z, zsum=zs, zssq=zq, res=res)
+
+        fwd_tol = dict(d_q="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5,
+                       res="ulp")
+        for opt_a in optas:
+            for b_ in ((bits, None) if not opt_a else (bits,)):
+                wp_ = None if opt_a else wp
+                mode = ("optA" if opt_a else "proj") + (
+                    "+bits" if b_ is not None else "")
+                add("transition_fwd", mode,
+                    lambda b_=b_, wp_=wp_: fwd(b_, wp_, False),
+                    lambda b_=b_, wp_=wp_: fwd(b_, wp_, True),
+                    dict(fwd_tol, res="eq" if opt_a else "ulp"),
+                    lib["fwd"] if not opt_a else None,
+                    2 * cin * n + (cin * n if b_ is not None else 0)
+                    + 4 * cout * n_out + 9 * cin * cout
+                    + (2 * cin * cout if wp_ is not None else 0),
+                    2 * macs / ops_int8 * 1e3
+                    + (2 * pmacs / flops_bf16 * 1e3 if wp_ is not None
+                       else 0))
+
+        z = fwd(bits, wp, True)["z"]
+        dz = randn(cout, n_out, s=1e-3).to(bf)
+        dzsum, dzssq = randn(cout, s=1e-4), randn(cout, s=1e-4)
+        dres = randn(cout, n_out, s=1e-3).to(bf)
+        ct = (dz, z, dzsum, dzssq)
+        scb = (x, scale, shift, bits)
+
+        # FQT: the quantizers, then the int8 dgrad and wgrad on the plain
+        # version's operands (equal to the kernel's, checked first)
+        ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile)
+        add("transition_bwd", "fqt",
+            lambda: dict(zip(("g_q", "g_amax", "d_q", "d_amax"),
+                             tr.bwd_quantize(*ct, *scb, thresh=thresh,
+                                             tile=tile))),
+            lambda: dict(zip(("g_q", "g_amax", "d_q", "d_amax"),
+                             tr.bwd_quantize_plain(*ct, *scb, thresh=thresh,
+                                                   tile=tile))),
+            dict(g_q="eq", g_amax="eq", d_q="eq", d_amax="eq"), None,
+            4 * cout * n_out + 3 * cin * n + cout * n_out + cin * n, 0.0)
+        g_q, g_amax, d_q, d_amax = ops_p
+        gb, db = tr.bwd_fold_plain(*ct, *scb, thresh=thresh)
+        add("transition_bwd", "qat",
+            lambda: dict(zip(("g", "d"), tr.bwd_fold(*ct, *scb,
+                                                     thresh=thresh))),
+            lambda: dict(zip(("g", "d"), tr.bwd_fold_plain(
+                *ct, *scb, thresh=thresh))), dict(g="eq", d="eq"), None,
+            6 * cout * n_out + 5 * cin * n, 0.0)
+        for opt_a in optas:
+            wpt_ = None if opt_a else wpt
+            sfx = "+optA" if opt_a else "+proj"
+            for body, args, ops_ms, gbytes in (
+                    ("fqt", (g_q, g_amax, wdq, wsin), 2 * macs / ops_int8,
+                     cout * n_out + 9 * cin * cout),
+                    ("qat", (gb, None, wdb, None), 2 * macs / flops_bf16,
+                     2 * cout * n_out + 18 * cin * cout)):
+                dargs = (*args, *scb, dres, wpt_)
+                add("transition_dgrad", body + sfx,
+                    lambda dargs=dargs: dict(zip(("dx", "ds", "dt"), tr.dgrad(
+                        *dargs, thresh=thresh, tile=tile, **kw))),
+                    lambda dargs=dargs: dict(zip(
+                        ("dx", "ds", "dt"), tr.dgrad_plain(
+                            *dargs, thresh=thresh, tile=tile, **kw))),
+                    dict(dx="ulp", ds=1e-5 if body == "fqt" else 1e-4,
+                         dt=1e-5 if body == "fqt" else 1e-4),
+                    lib["dgrad"] if not opt_a else None,
+                    gbytes + 5 * cin * n + 2 * cout * n_out
+                    + (2 * cin * cout if wpt_ is not None else 0),
+                    (ops_ms + (2 * pmacs / flops_bf16 if wpt_ is not None
+                               else 0)) * 1e3)
+            if opt_a:
+                continue
+
+            def wg(plain, body):
+                if body == "fqt":
+                    fn = tr.wgrad_plain if plain else tr.wgrad
+                    dw = fn(g_q, g_amax, d_q, d_amax, tile=tile, **kw)
+                else:
+                    fn = tr.wgrad_bf16_plain if plain else tr.wgrad_bf16
+                    dw = fn(gb, db, **kw)
+                fn = tr.wgrad_proj_plain if plain else tr.wgrad_proj
+                return dict(dw=dw, dwp=fn(dres, x, **kw))
+
+            for body in ("fqt", "qat"):
+                add("transition_wgrad", body,
+                    lambda body=body: wg(False, body),
+                    lambda body=body: wg(True, body),
+                    dict(dw="eq" if body == "fqt" else 1e-4, dwp=1e-4),
+                    lib["wgrad"],
+                    (cout * n_out + cin * n if body == "fqt"
+                     else 2 * cout * n_out + 2 * cin * n)
+                    + 2 * cout * n_out + 2 * cin * n_out + 40 * cin * cout,
+                    (2 * macs / (ops_int8 if body == "fqt" else flops_bf16)
+                     + 2 * pmacs / flops_bf16) * 1e3)
+        del x, bits, z, dz, dres, ops_p, gb, db, g_q, d_q
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+class RecordTransition:
+    """Around the first train step of a lane-transition run: count the
+    step's transition halves and the trunk's layout conversions (the stem's
+    NHWC -> lane entry, a closing run, a block's own conversions), and
+    record the first transition half: its live inputs and, through
+    gradient hooks, its live cotangents (phase 16)."""
+
+    def __init__(self):
+        self.rec = None
+        self.calls = 0
+        self.layouts = {}
+
+    def __enter__(self):
+        from pytorch_ddp_resnet_tpu_torch.models import blocks, layers
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
+
+        self.patched = []
+
+        def patch(mod, name, wrap):
+            orig = getattr(mod, name)
+            self.patched.append((mod, name, orig))
+            setattr(mod, name, wrap(orig))
+
+        def counting(key):
+            def wrap(orig):
+                def fn(*a, **k):
+                    self.layouts[key] = self.layouts.get(key, 0) + 1
+                    return orig(*a, **k)
+                return fn
+            return wrap
+
+        def clone(t):
+            return None if t is None else t.detach().clone()
+
+        def recording(orig):
+            def fn(x_cs, w1, wp, scale, shift, bits=None, **kw):
+                out = orig(x_cs, w1, wp, scale, shift, bits, **kw)
+                self.calls += 1
+                if self.rec is None:
+                    r = self.rec = dict(
+                        args=[clone(t) for t in (x_cs, w1, wp, scale, shift,
+                                                 bits)], kw=kw,
+                        out=[clone(t) for t in out])
+                    for name, t in zip(("dz", "dzsum", "dzssq", "dres"), out):
+                        t.register_hook(lambda gr, name=name, r=r:
+                                        r.__setitem__(name, clone(gr)))
+                return out
+            return fn
+
+        patch(layers, "to_lane", counting("layers.to_lane"))
+        patch(layers, "_delane", counting("layers._delane"))
+        patch(blocks, "to_lane", counting("blocks.to_lane"))
+        patch(blocks, "from_lane", counting("blocks.from_lane"))
+        patch(tr, "transition_half_int8", recording)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self.patched):
+            setattr(mod, name, orig)
+        return False
+
+
+def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
+               quant_bwd, plain):
+    """The transition half's stages as dicts: the forward (quantizer and
+    conv) and the backward of one body (quantizers or fold, dgrad, wgrad
+    and dWp), through the kernels or the plain versions."""
+    cin, n = x.shape
+    cout = w1.shape[0]
+    tile = tr.transition_tile(h // 2, w // 2, n // 4, cin, cout)
+    kw = dict(h=h, w_img=w)
+    wq, ws = fb.quantize_pack_weights(w1)
+    wp_c = None if wp is None else wp.reshape(cout, cin).to(
+        x.dtype).contiguous()
+    q, conv = ((fb.fwd_quantize_plain, tr.fwd_conv_plain) if plain
+               else (fb.fwd_quantize, tr.fwd_conv))
+    d_q, amax = q(x, scale, shift, bits, thresh=thresh, tile=4 * tile)
+    z, zs, zq, res = conv(d_q, amax, wq, ws, x, wp_c, tile=tile, **kw)
+    out = dict(d_q=d_q, amax=amax, z=z, zsum=zs, zssq=zq, res=res)
+    wpt = None if wp is None else wp_c.t().contiguous()
+    dz, dzsum, dzssq, dres = ct
+    cts = (dz, z, dzsum, dzssq)
+    if quant_bwd:
+        g, g_amax, d_q2, d_amax = (tr.bwd_quantize_plain if plain
+                                   else tr.bwd_quantize)(
+            *cts, x, scale, shift, bits, thresh=thresh, tile=tile)
+        out.update(g_q=g, g_amax=g_amax, d_q2=d_q2, d_amax=d_amax)
+        w_dg, ws_in = tr.quant_pack_w_dgrad(w1)
+    else:
+        g, d = (tr.bwd_fold_plain if plain else tr.bwd_fold)(
+            *cts, x, scale, shift, bits, thresh=thresh)
+        out.update(g=g, d=d)
+        g_amax, w_dg, ws_in = None, tr.pack_w_dgrad(w1.to(x.dtype)), None
+    dx, ds, dt = (tr.dgrad_plain if plain else tr.dgrad)(
+        g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt,
+        thresh=thresh, tile=tile, **kw)
+    out.update(dx=dx, ds=ds, dt=dt)
+    if quant_bwd:
+        out["dw"] = (tr.wgrad_plain if plain else tr.wgrad)(
+            g, g_amax, d_q2, d_amax, tile=tile, **kw)
+    else:
+        out["dw"] = (tr.wgrad_bf16_plain if plain else tr.wgrad_bf16)(
+            g, d, **kw)
+    if wp is not None:
+        out["dwp"] = (tr.wgrad_proj_plain if plain else tr.wgrad_proj)(
+            dres, x, **kw)
+    return out
+
+
+def live_transition_check(rec, quant_bwd: bool):
+    """The recorded transition half through the kernels on its live
+    tensors: the forward reproduces the live outputs, and every stage
+    equals its plain version (``_agree_tr``'s tolerances)."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
+
+    x, w1, wp, scale, shift, bits = rec["args"]
+    kw = rec["kw"]
+    h, w = kw["h"], kw["w_img"]
+    thresh = fb.dropout_thresh(kw["dropout_rate"])
+    bits = tr.parity_unpack(bits, h, w)
+    ct = (rec["dz"].contiguous(), rec["dzsum"], rec["dzssq"],
+          rec["dres"].contiguous())
+    got, want = (_tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh,
+                            h, w, ct, quant_bwd, plain)
+                 for plain in (False, True))
+    for name, live in zip(("z", "zsum", "zssq", "res"), rec["out"]):
+        assert torch.equal(got[name], live), name
+    tol = dict(d_q="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5, res="ulp",
+               g_q="eq", g_amax="eq", d_q2="eq", d_amax="eq", g="eq", d="eq",
+               dx="ulp", ds=1e-5 if quant_bwd else 1e-4,
+               dt=1e-5 if quant_bwd else 1e-4,
+               dw="eq" if quant_bwd else 1e-4, dwp=1e-4)
+    err = _agree_tr(got, want, tol, ("live transition", quant_bwd))
+    return dict(cin=x.shape[0], cout=w1.shape[0], n=x.shape[1], h=h, w=w,
+                quant_bwd=quant_bwd, max_abs_err=err)
+
+
+def transition_summary(rows, lane_fqt, lane_qat):
+    """One entry per transition kernel: the launches of the two
+    lane-transition runs (phase 16, FQT and QAT), and the device time per FQT
+    train step: phase 15's per-call times of the recipe's case summed over
+    the step's two transitions."""
+    launch_names = {
+        "transition_fwd": ("transition_fwd",),
+        "transition_bwd": ("transition_bwd.amax", "transition_bwd.fold"),
+        "transition_dgrad": ("transition_dgrad",),
+        "transition_wgrad": ("transition_wgrad",)}
+    out = []
+    for name in TR_NAMES:
+        mine = [r for r in rows if r["name"] == name]
+        step = [r for r in mine if r["mode"] == TR_STEP_MODE[name]]
+        tot = {k: sum(r[k] for r in step)
+               for k in ("ms", "plain_ms", "ops_ms", "bytes_ms")}
+        libs = [r["library_ms"] for r in step]
+        runs = {label: sum(run["launches"].get(k, 0)
+                           for k in launch_names[name])
+                for label, run in (("lane_fqt", lane_fqt),
+                                   ("lane_qat", lane_qat))}
+        out.append(dict(
+            name=name, route="cuda", source=TR_SOURCE,
+            replaces=_PALLAS + ("transition.py:357" if name ==
+                                "transition_fwd" else "transition.py:619"),
+            launches=sum(runs.values()), split_launches=runs,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+            bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                      else "bytes"),
+            library_ms=(None if None in libs else sum(libs)),
+            per=f"FQT train step at batch {BATCH} (ms per call of the "
+                f"{TR_STEP_MODE[name]} case summed over the step's two "
+                "transitions; launches over both lane runs)",
+            stages=[{k: r[k] for k in ("stage", "cin", "cout", "mode", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}
                     for r in mine]))
@@ -2097,7 +2611,12 @@ def main() -> int:
     nv_rows = nv_kernel_phase(peaks)
     nvt_rows = nv_train_kernel_phase(peaks)
     bf16_rows, seed_rows = bf16_kernel_phase(peaks)
+    tr_rows = transition_kernel_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in tr_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "stage", "cin", "cout", "mode", "tile", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")}))
     print("seed_bits_expand: bit-equal to the plain seed_bits at "
           f"C x N = {[(c, BATCH * h * w) for c, h, w in STAGES]} for seeds "
           f"{list(SEED_VALUES)}")
@@ -2175,6 +2694,30 @@ def main() -> int:
         print(f"QAT + in-kernel dropout training phase: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
+        rec_lane = RecordTransition()
+        lane = training_phase(workdir, aug_rows, FQT_CONFIG,
+                              "wrn-28-10-lane-fqt", LANE_FQT_PER_STEP,
+                              rec_lane, use_lane_transition=True)
+        rec_lane_qat = RecordTransition()
+        lane_qat = training_phase(
+            workdir, aug_rows, FQT_CONFIG, "wrn-28-10-lane-qat",
+            LANE_QAT_PER_STEP, rec_lane_qat, QAT_SEED_PER_STEP,
+            steps=LANE_QAT_STEPS, use_int8_train=True,
+            use_int8_train_bwd=False, use_inkernel_dropout=True,
+            use_lane_transition=True)
+        for run, rec, quant_bwd in ((lane, rec_lane, True),
+                                    (lane_qat, rec_lane_qat, False)):
+            # the run stays open from the stem to the head: the stem's
+            # entry, one close before the head, no block converting
+            assert rec.calls == 2, rec.calls
+            assert rec.layouts == {"layers.to_lane": 1,
+                                   "layers._delane": 1}, rec.layouts
+            run["layout_conversions_first_step"] = rec.layouts
+            run["live_transition"] = live_transition_check(rec.rec,
+                                                           quant_bwd)
+        print(f"lane-transition training phases: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
         r50 = bneck_serving_phase(workdir)
         print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -2189,6 +2732,23 @@ def main() -> int:
     print_training("int8 training", fqt)
     print_training("fused bf16 training", fused)
     print_training("QAT + in-kernel dropout training", qat)
+    print_training("lane-transition FQT training", lane)
+    print_training("lane-transition QAT training", lane_qat)
+    for label, run, base in (("FQT", lane, fqt), ("QAT", lane_qat, qat)):
+        line = dict(step_ms=(run["step_ms"], base["step_ms"]),
+                    img_per_s=(run["img_per_s"], base["img_per_s"]),
+                    peak_mem_gib=(run["peak_mem_gib"],
+                                  base["peak_mem_gib"]))
+        if run["profile"] is not None and base["profile"] is not None:
+            a = run["profile"]["device_ms_per_step_by_kind"]
+            b = base["profile"]["device_ms_per_step_by_kind"]
+            line["device_ms_per_step"] = (
+                run["profile"]["device_ms_per_step"],
+                base["profile"]["device_ms_per_step"])
+            line["by_kind"] = {k: (a.get(k, 0.0), b.get(k, 0.0))
+                               for k in sorted(set(a) | set(b))}
+        print(f"lane transitions vs phase {7 if label == 'FQT' else 14} "
+              f"({label}; with, without the flag): " + json.dumps(line))
     print_training("resnet-50 serving", {
         k: v for k, v in r50.items() if k != "shapes"})
     for label, run in (("resnet-50 int8 training", r50_fqt),
@@ -2227,7 +2787,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_summary(rows, serving)
                       + [augment_summary(aug_rows, training)]
                       + fqt_kernels + nv_summary(nv_rows, r50)
-                      + nvt_kernels + bf16_kernels}))
+                      + nvt_kernels + bf16_kernels
+                      + transition_summary(tr_rows, lane, lane_qat)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

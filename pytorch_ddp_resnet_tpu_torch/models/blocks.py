@@ -34,14 +34,23 @@ The halves are wired as in JAX:
   the output geometry with the shortcut as its residual, emitting the lane
   layout.
 
+- with ``lane_transition`` (int8 only), a stride-2 transition block that
+  an open lane run reaches (``lane_through_eligible``/
+  ``apply_lane_through``): norm1 from the sums of its lane input, the
+  transition half (ops/cuda/transition.py: prologue, int8 stride-2 conv1,
+  the projection or option-A shortcut, norm2's sums), then conv2's half
+  with that shortcut as its residual; lane in and lane out, so the run
+  stays open across the stage boundary.
+
 BatchNorm's batch statistics fold into the halves' (scale, shift) and its
 buffers update in place exactly as the layer does (``_fold_bn_batch_and_
 ema``). The dropout bits of a half are drawn over the lane shape (C, N),
 or, under ``inkernel_dropout`` where C <= 320 and C*N < 2^31, replaced by
-one int32 seed from which the kernels rebuild the mask in registers.
-``models/layers.py`` ``Sequential`` threads the lane layout from block to
-block. Strided-lane transitions, the Pallas conv and remat are not ported
-yet: ``check_unported_flags`` raises for each.
+one int32 seed from which the kernels rebuild the mask in registers; the
+transition half's are always drawn, over the parity-packed shape
+(4*Cin, N/4). ``models/layers.py`` ``Sequential`` threads the lane layout
+from block to block. The Pallas conv and remat are not ported yet:
+``check_unported_flags`` raises for each.
 
 ``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
 1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
@@ -57,9 +66,9 @@ epilogue (BN3 affine, residual add, relu) pending, and the next block's
 conv1 applies it in its entry prologue, or ``materialize`` applies it
 where the run closes. Every other bottleneck block (preact, a transition,
 a batch the gate refuses) trains on the float layer path, as in JAX; the
-QAT mode raises (ROADMAP.md Queue 2 item 7b); ``fused_block`` and
-``inkernel_dropout`` are basic-trunk features it accepts and ignores, as
-in JAX.
+QAT mode raises (ROADMAP.md Queue 2 item 7b); ``fused_block``,
+``inkernel_dropout`` and ``lane_transition`` are basic-trunk features it
+accepts and ignores, as in JAX.
 """
 
 from __future__ import annotations
@@ -79,12 +88,12 @@ from pytorch_ddp_resnet_tpu_torch.models.layers import (
 )
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.nv_common import fma_f32
 
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
-    "lane_transition": "Queue 2 item 8, a later slice",
     "pallas_conv": "Queue 2 item 9, a later slice",
     "remat": "Queue 1 item 11, a later slice",
 }
@@ -217,12 +226,14 @@ class ResidualBlock(_BlockBase):
                  out_channels_override: Optional[int] = None,
                  stride_override: Optional[int] = None,
                  int8_train: bool = False, int8_train_bwd: bool = False,
-                 fused_block: bool = False, inkernel_dropout: bool = False):
+                 fused_block: bool = False, inkernel_dropout: bool = False,
+                 lane_transition: bool = False):
         super().__init__()
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
         self.fused_block = fused_block
         self.inkernel_dropout = inkernel_dropout
+        self.lane_transition = lane_transition
         self.channels = channels
         self.downsample = downsample
         self.preact = preact
@@ -348,6 +359,70 @@ class ResidualBlock(_BlockBase):
             cout)
         return y_cs, (b, oh, ow, cout)
 
+    def lane_through_eligible(self, x_shape, train: bool) -> bool:
+        """Copy of the JAX gate: a train-mode preact stride-2 transition
+        block under ``lane_transition`` and ``int8_train``, a dropout rate
+        below 1, even H and W, Cout and 4*Cin multiples of 32, option A
+        only where it widens, and both the transition's and conv2's tile
+        pickers passing (one device: the whole batch is local)."""
+        if not (self.lane_transition and self.int8_train and self.preact
+                and train and self.transforms_shortcut
+                and self.stride == 2):
+            return False
+        if fb.dropout_thresh(self.dropout_prob) <= 0 or len(x_shape) != 4:
+            return False
+        b, h, w, cin = x_shape
+        if h % 2 or w % 2 or cin != self.in_channels:
+            return False
+        cout = self.out_channels
+        if cout % 32 != 0 or (4 * cin) % 32 != 0:
+            return False
+        if not self.use_proj and cout < cin:
+            return False
+        oh, ow = h // 2, w // 2
+        try:
+            tr.transition_tile(oh, ow, b * oh * ow, cin, cout)
+            pick_tile(oh * ow, b * oh * ow, cout)  # conv2's tiling
+        except ValueError:
+            return False
+        return True
+
+    def apply_lane_through(self, x_cs: torch.Tensor, x_shape, key=None):
+        """Transition block, lane in and lane out: (y_cs, out_shape). norm1
+        from the f32 sums of the lane input, the transition half (conv1,
+        the shortcut and norm2's sums), norm2 folded from those sums, and
+        conv2's int8 half with the shortcut as its residual."""
+        b, h, w, cin = x_shape
+        oh, ow, cout = h // 2, w // 2, self.out_channels
+        n_in, n_out = b * h * w, b * oh * ow
+
+        def fold_and_ema(bn, ssum, sssq, n):
+            mean = ssum / n
+            var = sssq / n - torch.square(mean)
+            return _fold_bn_batch_and_ema(bn, mean, var, n)
+
+        def drop_key(name):
+            return self._drop_key(None if key is None
+                                  else key.fold_in(_SUB[name]))
+
+        xf = x_cs.to(torch.float32)
+        s1, t1 = fold_and_ema(self.norm1, xf.sum(dim=1),
+                              torch.square(xf).sum(dim=1), n_in)
+        key1 = drop_key("drop1")
+        # the reference's draw shape: the parity-packed layout
+        bits = (key1.bits((4 * cin, n_in // 4), x_cs.device)
+                if key1 is not None else None)
+        z_cs, zsum, zssq, res_cs = tr.transition_half_int8(
+            x_cs, self.conv1.weight,
+            self.proj.weight if self.proj is not None else None, s1, t1,
+            bits, dropout_rate=self.dropout_prob, h=h, w_img=w,
+            quant_bwd=self.int8_train_bwd)
+        s2, t2 = fold_and_ema(self.norm2, zsum, zssq, n_out)
+        y_cs, _, _ = self._run_half(z_cs, self.conv2.weight, s2, t2,
+                                    drop_key("drop2"), res_cs, False, oh, ow,
+                                    cout)
+        return y_cs, (b, oh, ow, cout)
+
     def _drop_key(self, key):
         """The half's dropout key, or None when the rate keeps every
         element."""
@@ -428,9 +503,11 @@ class BottleneckResidualBlock(_BlockBase):
                  width_override: Optional[int] = None,
                  stride_override: Optional[int] = None,
                  int8_train: bool = False, int8_train_bwd: bool = False,
-                 fused_block: bool = False, inkernel_dropout: bool = False):
+                 fused_block: bool = False, inkernel_dropout: bool = False,
+                 lane_transition: bool = False):
         super().__init__()
-        del fused_block, inkernel_dropout  # basic-trunk features, as in JAX
+        # basic-trunk features, as in JAX
+        del fused_block, inkernel_dropout, lane_transition
         if int8_train and not int8_train_bwd:
             raise NotImplementedError(
                 f"int8_train=True is not ported yet (ROADMAP.md "

@@ -34,8 +34,11 @@ lane layout [C, B*H*W] passes it from one to the next without an NHWC
 round trip. A layer joins a run through ``lane_eligible``/``apply_lane``
 (a fused residual block), starts one from NHWC through
 ``lane_entry_eligible``/``apply_to_lane`` (the lane stem, a transition
-block), and a nested ``Sequential`` whose first block takes the lane
-layout continues the run; any other layer closes it back to NHWC. A layer
+block), carries it across a stage boundary through
+``lane_through_eligible``/``apply_lane_through`` (a transition block under
+``lane_transition``, lane in and lane out), and a nested ``Sequential``
+whose first block takes the lane layout continues the run; any other
+layer closes it back to NHWC. A layer
 with ``lane_from_nhwc`` opens its run itself, and a payload with
 ``materialize`` closes itself (the int8 bottleneck trunk's ``NVLane``,
 models/blocks.py); the lane layout is the other payload.
@@ -327,8 +330,15 @@ class Sequential(Layer):
         """True when this (nested) Sequential can start from the lane
         layout: its first layer is a lane-run block for ``x_shape``."""
         first = next(iter(self.children()), None)
-        return (first is not None and hasattr(first, "apply_lane")
-                and first.lane_eligible(x_shape, train))
+        if first is None:
+            return False
+        if hasattr(first, "apply_lane") and first.lane_eligible(x_shape,
+                                                                 train):
+            return True
+        # a stage whose first block is a lane-through transition also takes
+        # the open run
+        return (hasattr(first, "apply_lane_through")
+                and first.lane_through_eligible(x_shape, train))
 
     def _apply_loop(self, x, lane, key):
         """Run the children; ``lane`` is an open run (x_cs, NHWC shape) or
@@ -345,6 +355,10 @@ class Sequential(Layer):
                              if hasattr(layer, "lane_from_nhwc")
                              else to_lane(x, layer.compute_dtype)), shape)
                 lane = (layer.apply_lane(lane[0], shape, key=k), shape)
+            elif (hasattr(layer, "apply_lane_through") and lane is not None
+                  and layer.lane_through_eligible(shape, train)):
+                # a transition block on the open run: lane in, lane out
+                lane = layer.apply_lane_through(lane[0], shape, key=k)
             elif (hasattr(layer, "apply_to_lane")
                   and layer.lane_entry_eligible(shape, train)):
                 if lane is not None:

@@ -70,6 +70,7 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                compute_dtype: torch.dtype = torch.bfloat16,
                int8_train: bool = False, int8_train_bwd: bool = False,
                fused_block: bool = False, inkernel_dropout: bool = False,
+               lane_transition: bool = False,
                ) -> List[Tuple[str, nn.Module]]:
     """Token list -> [(name, layer)], threading the channel count."""
     tokens = architecture_spec.split()
@@ -108,6 +109,7 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                 compute_dtype=cd, int8_train=int8_train,
                 int8_train_bwd=int8_train_bwd, fused_block=fused_block,
                 inkernel_dropout=inkernel_dropout,
+                lane_transition=lane_transition,
                 **(first if ell == 0 else rest))))
         channels = cout
         return Sequential(blocks)
@@ -162,10 +164,11 @@ class ResNet(Sequential):
     the fused bf16 halves, ``int8_train`` on the fused int8 halves with the
     bf16 straight-through backward (QAT) or, with ``int8_train_bwd``, the
     fully quantized one; ``inkernel_dropout`` gives those halves a seed in
-    place of materialized dropout bits. ``int8_train_bwd`` trains the
-    post-act bottleneck trunk on the NV training halves. ``lane_transition``,
-    ``pallas_conv``, ``remat`` and QAT on a bottleneck block raise
-    NotImplementedError."""
+    place of materialized dropout bits; ``lane_transition`` runs the int8
+    trunk's stride-2 transitions lane in, lane out on the transition half.
+    ``int8_train_bwd`` trains the post-act bottleneck trunk on the NV
+    training halves. ``pallas_conv``, ``remat`` and QAT on a bottleneck
+    block raise NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,
@@ -176,15 +179,15 @@ class ResNet(Sequential):
                  int8_train: bool = False, int8_train_bwd: bool = False,
                  inkernel_dropout: bool = False,
                  lane_transition: bool = False):
-        check_unported_flags(lane_transition=lane_transition,
-                             pallas_conv=pallas_conv, remat=remat)
+        check_unported_flags(pallas_conv=pallas_conv, remat=remat)
         dev = resolve_device(device)
         super().__init__(parse_spec(architecture_spec, preact, use_proj,
                                     dropout_prob, compute_dtype,
                                     int8_train=int8_train,
                                     int8_train_bwd=int8_train_bwd,
                                     fused_block=fused_block,
-                                    inkernel_dropout=inkernel_dropout))
+                                    inkernel_dropout=inkernel_dropout,
+                                    lane_transition=lane_transition))
         self.architecture_spec = architecture_spec
         self.preact = preact
         self.use_proj = use_proj
@@ -194,6 +197,7 @@ class ResNet(Sequential):
         self.int8_train_bwd = int8_train_bwd
         self.fused_block = fused_block
         self.inkernel_dropout = inkernel_dropout
+        self.lane_transition = lane_transition
         self.reset_parameters(generator)
         self.to(dev)
 

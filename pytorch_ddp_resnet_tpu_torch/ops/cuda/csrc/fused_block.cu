@@ -82,155 +82,6 @@ using dropout::DropBits;
 
 namespace {
 
-// --- elementwise operands of the quantizers ------------------------------
-
-// d = dropout(relu(x * scale + shift)) in f32; no bits: no dropout
-struct Prologue {
-  const __nv_bfloat16* x;
-  const float* scale;
-  const float* shift;
-  DropBits bits;
-  int thresh;
-  float keep;  // f32(256 / thresh)
-
-  __device__ __forceinline__ void operator()(int row, int n, size_t off,
-                                             float (&v)[8]) const {
-    float xv[8];
-    unsigned char b[8];
-    load8(x, (size_t)row * n + off, xv);
-    bits.load8(row, (int)off, b);
-    const float sc = scale[row], sh = shift[row];
-    const bool drop = bits.active();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float r = fmaxf(__fmaf_rn(xv[k], sc, sh), 0.f);
-      v[k] = !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
-    }
-  }
-};
-
-// The (row, 8-lane chunk) units of one scale group: group g covers lanes
-// [g * tile, (g + 1) * tile) of every row; block s of `slices` takes every
-// slices-th unit.
-struct GroupWalk {
-  int n, tile, slices;
-  __device__ __forceinline__ long units(int rows) const {
-    return (long)rows * (tile / 8);
-  }
-  __device__ __forceinline__ void at(long u, int g, int& row,
-                                     size_t& off) const {
-    const int per_row = tile / 8;
-    row = (int)(u / per_row);
-    off = (size_t)g * tile + (size_t)(u % per_row) * 8;
-  }
-};
-
-__device__ __forceinline__ float block_max(float m) {
-  __shared__ float red[8];
-  m = common::warp_max(m);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
-  __syncthreads();
-  float r = red[0];
-  for (int k = 1; k < (int)blockDim.x / 32; ++k) r = fmaxf(r, red[k]);
-  return r;
-}
-
-// partial maxima of |f| per (group, slice) block: part[g * slices + s]
-template <typename Fn>
-__device__ __forceinline__ void amax_body(const Fn& fn, int rows,
-                                          const GroupWalk& walk,
-                                          float* __restrict__ part) {
-  const int s = blockIdx.x, g = blockIdx.y;
-  float m = 0.f;
-  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
-       u += (long)walk.slices * blockDim.x) {
-    int row;
-    size_t off;
-    walk.at(u, g, row, off);
-    float v[8];
-    fn(row, walk.n, off, v);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
-  }
-  m = block_max(m);
-  if (threadIdx.x == 0) part[g * walk.slices + s] = m;
-}
-
-// q = s8(clip(rint(f * 127 / max(amax, floor)))) per group, the group's
-// absmax into amax[g], and bf16(f) into copy when it is not null
-template <typename Fn>
-__device__ __forceinline__ void quant_body(const Fn& fn, int rows,
-                                           const GroupWalk& walk,
-                                           const float* __restrict__ part,
-                                           float floor,
-                                           signed char* __restrict__ q,
-                                           float* __restrict__ amax,
-                                           __nv_bfloat16* __restrict__ copy) {
-  const int s = blockIdx.x, g = blockIdx.y;
-  float a = part[g * walk.slices];
-  for (int k = 1; k < walk.slices; ++k)
-    a = fmaxf(a, part[g * walk.slices + k]);
-  const float inv = __fdiv_rn(127.f, fmaxf(a, floor));
-  if (s == 0 && threadIdx.x == 0) amax[g] = a;
-  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
-       u += (long)walk.slices * blockDim.x) {
-    int row;
-    size_t off;
-    walk.at(u, g, row, off);
-    float v[8];
-    fn(row, walk.n, off, v);
-    uint2 packed;
-    signed char* o = reinterpret_cast<signed char*>(&packed);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = quant_s8(__fmul_rn(v[k], inv));
-    const size_t idx = (size_t)row * walk.n + off;
-    *reinterpret_cast<uint2*>(q + idx) = packed;
-    if (copy != nullptr) {
-      uint4 raw;
-      __nv_bfloat16* c = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) c[k] = __float2bfloat16_rn(v[k]);
-      *reinterpret_cast<uint4*>(copy + idx) = raw;
-    }
-  }
-}
-
-// One launch quantizes one or two operands over the same scale groups:
-// blockIdx.z selects the operand (z = 0: fn0 over rows0; z = 1: fn1).
-template <typename Fn0, typename Fn1>
-__global__ void __launch_bounds__(256)
-amax_kernel(Fn0 fn0, int rows0, Fn1 fn1, int rows1, GroupWalk walk,
-            float* __restrict__ part) {
-  const int groups = gridDim.y;
-  if (blockIdx.z == 0)
-    amax_body(fn0, rows0, walk, part);
-  else
-    amax_body(fn1, rows1, walk, part + groups * walk.slices);
-}
-
-struct QuantOut {
-  float floor;
-  signed char* q;
-  float* amax;
-  __nv_bfloat16* copy;
-};
-
-template <typename Fn0, typename Fn1>
-__global__ void __launch_bounds__(256)
-quant_kernel(Fn0 fn0, int rows0, QuantOut out0, Fn1 fn1, int rows1,
-             QuantOut out1, GroupWalk walk, const float* __restrict__ part) {
-  const int groups = gridDim.y;
-  if (blockIdx.z == 0)
-    quant_body(fn0, rows0, walk, part, out0.floor, out0.q, out0.amax,
-               out0.copy);
-  else
-    quant_body(fn1, rows1, walk, part + groups * walk.slices, out1.floor,
-               out1.q, out1.amax, out1.copy);
-}
-
-constexpr float kFwdFloor = 1e-12f;
-constexpr float kBwdFloor = 1e-30f;
-
 // --- conv epilogues ------------------------------------------------------
 
 // y = bf16(f32(acc) * (ws[co] * (amax * 1/127))) (+ res in bf16); sums of
@@ -246,8 +97,8 @@ struct FwdEpi {
   __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
                                        int n0, int cout, int n) const {
     const float a = __fmul_rn(amax[n0 / lanes], common::kInv127);
-    tile_with_sums(bn, m0, n0, cout, n, part,
-                   [&](int r, int c, float& s1, float& s2) {
+    tile_sums(bn, m0, cout, n - n0, blockIdx.x, part,
+              [&](int r, int c, float& s1, float& s2) {
       const int co = m0 + r;
       const size_t idx = (size_t)co * n + n0 + c;
       const float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
@@ -283,8 +134,8 @@ struct DgradEpi {
   __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
                                        int n0, int cin, int n) const {
     const float a = __fmul_rn(g_amax[n0 / lanes], common::kInv127);
-    tile_with_sums(bn, m0, n0, cin, n, part,
-                   [&](int r, int c, float& s1, float& s2) {
+    tile_sums(bn, m0, cin, n - n0, blockIdx.x, part,
+              [&](int r, int c, float& s1, float& s2) {
       const int ci = m0 + r;
       const size_t idx = (size_t)ci * n + n0 + c;
       float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
@@ -518,8 +369,9 @@ int fwd_amax_launch(const void* x, const void* scale, const void* shift,
                     int n, int tile, int slices, int thresh, float keep,
                     void* stream) {
   const Prologue pr = prologue(x, scale, shift, bits, seed, n, thresh, keep);
+  const GroupWalk walk{n, tile, slices};
   amax_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
-      pr, c, pr, c, GroupWalk{n, tile, slices}, static_cast<float*>(part));
+      pr, c, walk, pr, c, walk, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,8 +383,9 @@ int fwd_quant_launch(const void* x, const void* scale, const void* shift,
   const Prologue pr = prologue(x, scale, shift, bits, seed, n, thresh, keep);
   const QuantOut out{kFwdFloor, static_cast<signed char*>(q),
                      static_cast<float*>(amax), nullptr};
+  const GroupWalk walk{n, tile, slices};
   quant_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
-      pr, c, out, pr, c, out, GroupWalk{n, tile, slices}, in<float>(part));
+      pr, c, walk, out, pr, c, walk, out, in<float>(part));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,9 +413,10 @@ int bwd_amax_launch(const void* dy, const void* y, const void* dysum,
                     int slices, int thresh, float keep, void* stream) {
   const Cotangent ct{in<__nv_bfloat16>(dy), in<__nv_bfloat16>(y),
                      in<float>(dysum), in<float>(dyssq)};
+  const GroupWalk walk{n, tile, slices};
   amax_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
-      ct, cout, prologue(x, scale, shift, bits, seed, n, thresh, keep), cin,
-      GroupWalk{n, tile, slices}, static_cast<float*>(part));
+      ct, cout, walk, prologue(x, scale, shift, bits, seed, n, thresh, keep),
+      cin, walk, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,9 +437,11 @@ int bwd_quant_launch(const void* dy, const void* y, const void* dysum,
                        static_cast<__nv_bfloat16*>(dres)};
   const QuantOut d_out{kBwdFloor, static_cast<signed char*>(d_q),
                        static_cast<float*>(d_amax), nullptr};
+  const GroupWalk walk{n, tile, slices};
   quant_kernel<<<dim3(slices, n / tile, 2), 256, 0, as_stream(stream)>>>(
-      ct, cout, g_out, prologue(x, scale, shift, bits, seed, n, thresh, keep),
-      cin, d_out, GroupWalk{n, tile, slices}, in<float>(part));
+      ct, cout, walk, g_out,
+      prologue(x, scale, shift, bits, seed, n, thresh, keep), cin, walk,
+      d_out, in<float>(part));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -76,35 +76,6 @@ namespace {
 
 using V8 = uint4;  // 8 bf16
 
-// d = dropout(relu(bf16(x * scale + shift))) in bf16, 8 at a time
-struct Bf16Prologue {
-  const __nv_bfloat16* x;
-  const float* scale;
-  const float* shift;
-  DropBits bits;
-  int thresh;
-  float keep;  // f32(256 / thresh)
-  int n;
-
-  __device__ __forceinline__ void operator()(int ch, int pos,
-                                             __nv_bfloat16 (&d)[8]) const {
-    float xv[8];
-    unsigned char b[8];
-    load8(x, (size_t)ch * n + pos, xv);
-    bits.load8(ch, pos, b);
-    const float sc = scale[ch], sh = shift[ch];
-    const bool drop = bits.active();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float r = fmaxf(
-          __bfloat162float(__float2bfloat16_rn(__fmaf_rn(xv[k], sc, sh))),
-          0.f);
-      d[k] = __float2bfloat16_rn(
-          !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f));
-    }
-  }
-};
-
 // the forward's operand: the prologue computed while the halo is staged
 struct FwdLoad {
   Bf16Prologue pro;
@@ -143,8 +114,8 @@ struct FwdEpi {
   __device__ __forceinline__ void tile(const float* Cs, int cld, int bn,
                                        int m0, int n0, int cout,
                                        int n) const {
-    tile_with_sums(bn, m0, n0, cout, n, part,
-                   [&](int r, int c, float& s1, float& s2) {
+    tile_sums(bn, m0, cout, n - n0, blockIdx.x, part,
+              [&](int r, int c, float& s1, float& s2) {
       const size_t idx = (size_t)(m0 + r) * n + n0 + c;
       __nv_bfloat16 o = __float2bfloat16_rn(Cs[r * cld + c]);
       if (res != nullptr)
@@ -174,8 +145,8 @@ struct DgradEpi {
   __device__ __forceinline__ void tile(const float* Cs, int cld, int bn,
                                        int m0, int n0, int cin,
                                        int n) const {
-    tile_with_sums(bn, m0, n0, cin, n, part,
-                   [&](int r, int c, float& s1, float& s2) {
+    tile_sums(bn, m0, cin, n - n0, blockIdx.x, part,
+              [&](int r, int c, float& s1, float& s2) {
       const int ci = m0 + r;
       const size_t idx = (size_t)ci * n + n0 + c;
       float v = Cs[r * cld + c];

@@ -1,7 +1,8 @@
 // Pieces shared by the fused block-half kernels (fused_block.cu, the int8
-// conv core; fused_block_bf16.cu, the bf16 one): 8-wide bf16 loads, the
-// stats-cotangent fold, and the deterministic per-channel sums of an
-// epilogue tile.
+// conv core; fused_block_bf16.cu, the bf16 one) and the stage-transition
+// half (transition.cu): 8-wide bf16 loads, the stats-cotangent fold, the
+// deterministic per-channel sums of an epilogue tile, the f32 and bf16
+// prologues, and the per-group int8 quantizer (amax pass, quant pass).
 
 #pragma once
 
@@ -57,22 +58,25 @@ struct Cotangent {
   }
 };
 
-// Per-channel sums of two values over the block's tile, deterministically:
-// each warp's 32 consecutive elements lie in one row (bn % 32 == 0), so a
-// warp butterfly and then the warps' slots in order. Row r's sums go to
-// part[blockIdx.x][m0 + r] and part[blockIdx.x][cout + m0 + r].
+// Per-channel sums of two values over the block's [BM, bn] tile,
+// deterministically: each warp's 32 consecutive elements lie in one row
+// (bn % 32 == 0), so a warp butterfly and then the warps' slots in order.
+// elem(r, c, s1, s2) runs for rows m0 + r < rows and columns c < cols; row
+// r's sums go to slot `slot` of part ([slots][2 * rows]): part[slot][m0 +
+// r] and part[slot][rows + m0 + r]. part null: elem runs, no sums. The
+// caller syncs the block before, when elem reads what other threads wrote.
 template <typename Elem>
-__device__ __forceinline__ void tile_with_sums(int bn, int m0, int n0,
-                                               int cout, int n,
-                                               float* __restrict__ part,
-                                               const Elem& elem) {
+__device__ __forceinline__ void tile_sums(int bn, int m0, int rows, int cols,
+                                          size_t slot,
+                                          float* __restrict__ part,
+                                          const Elem& elem) {
   __shared__ float red[2][BM][8];
   const int lane = threadIdx.x % 32;
   for (int i = threadIdx.x; i < BM * bn; i += THREADS) {
     const int r = i / bn;
     const int c = i - r * bn;
     float s1 = 0.f, s2 = 0.f;
-    if (m0 + r < cout && n0 + c < n) elem(r, c, s1, s2);
+    if (m0 + r < rows && c < cols) elem(r, c, s1, s2);
     s1 = common::warp_sum(s1);
     s2 = common::warp_sum(s2);
     if (lane == 0 && part != nullptr) {
@@ -83,15 +87,197 @@ __device__ __forceinline__ void tile_with_sums(int bn, int m0, int n0,
   if (part == nullptr) return;
   __syncthreads();
   const int r = threadIdx.x;
-  if (r < BM && m0 + r < cout) {
+  if (r < BM && m0 + r < rows) {
     float s1 = red[0][r][0], s2 = red[1][r][0];
     for (int k = 1; k < bn / 32; ++k) {
       s1 = __fadd_rn(s1, red[0][r][k]);
       s2 = __fadd_rn(s2, red[1][r][k]);
     }
-    part[(size_t)blockIdx.x * 2 * cout + m0 + r] = s1;
-    part[(size_t)blockIdx.x * 2 * cout + cout + m0 + r] = s2;
+    part[slot * 2 * rows + m0 + r] = s1;
+    part[slot * 2 * rows + rows + m0 + r] = s2;
   }
 }
+
+// --- elementwise operands of the quantizers ------------------------------
+
+// d = dropout(relu(x * scale + shift)) in f32; no bits: no dropout
+struct Prologue {
+  const __nv_bfloat16* x;
+  const float* scale;
+  const float* shift;
+  dropout::DropBits bits;
+  int thresh;
+  float keep;  // f32(256 / thresh)
+
+  __device__ __forceinline__ void operator()(int row, int n, size_t off,
+                                             float (&v)[8]) const {
+    float xv[8];
+    unsigned char b[8];
+    load8(x, (size_t)row * n + off, xv);
+    bits.load8(row, (int)off, b);
+    const float sc = scale[row], sh = shift[row];
+    const bool drop = bits.active();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float r = fmaxf(__fmaf_rn(xv[k], sc, sh), 0.f);
+      v[k] = !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
+    }
+  }
+};
+
+// The (row, 8-lane chunk) units of one scale group: group g covers lanes
+// [g * tile, (g + 1) * tile) of every row; block s of `slices` takes every
+// slices-th unit.
+struct GroupWalk {
+  int n, tile, slices;
+  __device__ __forceinline__ long units(int rows) const {
+    return (long)rows * (tile / 8);
+  }
+  __device__ __forceinline__ void at(long u, int g, int& row,
+                                     size_t& off) const {
+    const int per_row = tile / 8;
+    row = (int)(u / per_row);
+    off = (size_t)g * tile + (size_t)(u % per_row) * 8;
+  }
+};
+
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float red[8];
+  m = common::warp_max(m);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  float r = red[0];
+  for (int k = 1; k < (int)blockDim.x / 32; ++k) r = fmaxf(r, red[k]);
+  return r;
+}
+
+// partial maxima of |f| per (group, slice) block: part[g * slices + s]
+template <typename Fn>
+__device__ __forceinline__ void amax_body(const Fn& fn, int rows,
+                                          const GroupWalk& walk,
+                                          float* __restrict__ part) {
+  const int s = blockIdx.x, g = blockIdx.y;
+  float m = 0.f;
+  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
+       u += (long)walk.slices * blockDim.x) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) part[g * walk.slices + s] = m;
+}
+
+// q = s8(clip(rint(f * 127 / max(amax, floor)))) per group, the group's
+// absmax into amax[g], and bf16(f) into copy when it is not null
+template <typename Fn>
+__device__ __forceinline__ void quant_body(const Fn& fn, int rows,
+                                           const GroupWalk& walk,
+                                           const float* __restrict__ part,
+                                           float floor,
+                                           signed char* __restrict__ q,
+                                           float* __restrict__ amax,
+                                           __nv_bfloat16* __restrict__ copy) {
+  const int s = blockIdx.x, g = blockIdx.y;
+  float a = part[g * walk.slices];
+  for (int k = 1; k < walk.slices; ++k)
+    a = fmaxf(a, part[g * walk.slices + k]);
+  const float inv = __fdiv_rn(127.f, fmaxf(a, floor));
+  if (s == 0 && threadIdx.x == 0) amax[g] = a;
+  for (long u = (long)s * blockDim.x + threadIdx.x; u < walk.units(rows);
+       u += (long)walk.slices * blockDim.x) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+    uint2 packed;
+    signed char* o = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = conv3x3::quant_s8(__fmul_rn(v[k], inv));
+    const size_t idx = (size_t)row * walk.n + off;
+    *reinterpret_cast<uint2*>(q + idx) = packed;
+    if (copy != nullptr) {
+      uint4 raw;
+      __nv_bfloat16* c = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) c[k] = __float2bfloat16_rn(v[k]);
+      *reinterpret_cast<uint4*>(copy + idx) = raw;
+    }
+  }
+}
+
+// One launch quantizes one or two operands over the same scale groups
+// (group g of each operand covers the same images; its lanes per group may
+// differ, as the stride-2 transition's input and output do): blockIdx.z
+// selects the operand (z = 0: fn0 over rows0 and walk0; z = 1: fn1). Both
+// walks take the grid's slices.
+template <typename Fn0, typename Fn1>
+__global__ void __launch_bounds__(256)
+amax_kernel(Fn0 fn0, int rows0, GroupWalk walk0, Fn1 fn1, int rows1,
+            GroupWalk walk1, float* __restrict__ part) {
+  const int groups = gridDim.y;
+  if (blockIdx.z == 0)
+    amax_body(fn0, rows0, walk0, part);
+  else
+    amax_body(fn1, rows1, walk1, part + groups * walk0.slices);
+}
+
+struct QuantOut {
+  float floor;
+  signed char* q;
+  float* amax;
+  __nv_bfloat16* copy;
+};
+
+template <typename Fn0, typename Fn1>
+__global__ void __launch_bounds__(256)
+quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0, Fn1 fn1,
+             int rows1, GroupWalk walk1, QuantOut out1,
+             const float* __restrict__ part) {
+  const int groups = gridDim.y;
+  if (blockIdx.z == 0)
+    quant_body(fn0, rows0, walk0, part, out0.floor, out0.q, out0.amax,
+               out0.copy);
+  else
+    quant_body(fn1, rows1, walk1, part + groups * walk0.slices, out1.floor,
+               out1.q, out1.amax, out1.copy);
+}
+
+constexpr float kFwdFloor = 1e-12f;
+constexpr float kBwdFloor = 1e-30f;
+
+// d = dropout(relu(bf16(x * scale + shift))) in bf16, 8 at a time
+struct Bf16Prologue {
+  const __nv_bfloat16* x;
+  const float* scale;
+  const float* shift;
+  dropout::DropBits bits;
+  int thresh;
+  float keep;  // f32(256 / thresh)
+  int n;
+
+  __device__ __forceinline__ void operator()(int ch, int pos,
+                                             __nv_bfloat16 (&d)[8]) const {
+    float xv[8];
+    unsigned char b[8];
+    load8(x, (size_t)ch * n + pos, xv);
+    bits.load8(ch, pos, b);
+    const float sc = scale[ch], sh = shift[ch];
+    const bool drop = bits.active();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float r = fmaxf(
+          __bfloat162float(__float2bfloat16_rn(__fmaf_rn(xv[k], sc, sh))),
+          0.f);
+      d[k] = __float2bfloat16_rn(
+          !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f));
+    }
+  }
+};
 
 }  // namespace fused_half

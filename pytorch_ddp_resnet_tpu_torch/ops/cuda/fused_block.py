@@ -996,11 +996,33 @@ def fused_half(x_cs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (Cin * N < 2^31), required iff the dropout rate rounds to a keep
     threshold below 256; res [Cout, N] added after the bf16 rounding.
     Returns (y [Cout, N], ysum, yssq), or (y, None, None) when
-    ``want_stats`` is False (a block's last conv)."""
+    ``want_stats`` is False (a block's last conv). Widths that are not
+    multiples of 32 (the gate admits C % 16 without dropout) run zero-padded
+    to the next multiple: the kernels contract in 32-channel chunks."""
     thresh, bits = _check_bits(dropout_rate, bits, x_cs, h, w_img)
+    cin, cout = x_cs.shape[0], w.shape[0]
+    pin, pout = -cin % 32, -cout % 32
+    if pin or pout:
+        # zero channels are exact (zero weights, scale and shift contribute
+        # nothing, a zero row of x stays masked) and are sliced off again;
+        # autograd carries the gradients through the pad and the slices
+        x_cs, scale, shift = (_pad_rows(t, pin) for t in (x_cs, scale,
+                                                          shift))
+        if bits is not None and not is_seed(bits):
+            bits = _pad_rows(bits, pin)
+        if res is not None:
+            res = _pad_rows(res, pout)
+        w = F.pad(w, (0, 0, 0, 0, 0, pin, 0, pout))
     out = _FusedHalf.apply(x_cs, w, scale, shift, bits, res, thresh, h,
                            w_img, want_stats)
-    return out if want_stats else (out, None, None)
+    if not want_stats:
+        return out[:cout], None, None
+    return tuple(t[:cout] for t in out)
+
+
+def _pad_rows(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """``t`` with ``extra`` zero rows appended on dim 0."""
+    return F.pad(t, (0, 0) * (t.dim() - 1) + (0, extra)) if extra else t
 
 
 

@@ -1,0 +1,750 @@
+"""Stage-transition half with an int8 stride-2 conv core, lane layout in and
+lane layout out (counterpart of
+``pytorch_ddp_resnet_tpu/ops/pallas/transition.py`` ``transition_half_int8``).
+
+For x [Cin, N] (N = B*H*W image-major, H and W even), the folded norm1
+affine (scale, shift) [Cin] f32 and dropout bits, at the output geometry
+(OH, OW) = (H/2, W/2) with N' = N/4:
+
+    d   = dropout(relu(x * scale + shift))            (f32)
+    z   = bf16(conv3x3_stride2_pad1(dq, wq) * ws * amax/127)     [Cout, N']
+    res = bf16(Wp @ x[::2, ::2])  |  x[::2, ::2] with zero channels added
+    zsum, zssq = per-channel f32 sums of z                (norm2's stats)
+
+The padding is symmetric (torch's ``Conv2d(stride=2, padding=1)``): output
+(oh, ow) reads input (2oh + dh - 1, 2ow + dw - 1). d is quantized per
+*scale group*: the images of one ``transition_tile`` of output lanes, with
+one absmax over all their pixels (the reference's joint absmax over its
+four parity planes). A group covers the same whole images at the input
+geometry with 4x as many lanes, so the forward quantizer is the fused
+half's ``fused_block.fwd_quantize`` run at ``tile = 4 * transition_tile``.
+
+The backward folds the stats cotangents, ``gf = dz + dzsum + 2z * dzssq``,
+and has two bodies, as the reference's ``quant_bwd``:
+
+- FQT: gf and the recomputed d are quantized per group (floor 1e-30); the
+  dgrad runs the transposed stride-2 conv of the int8 cotangent against
+  per-input-channel int8 weights, the wgrad contracts the two int8
+  operands per group;
+- straight-through: g = bf16(gf), the original weights in bf16 and the
+  bf16 prologue recomputed, f32 accumulation.
+
+Both then mask the dgrad with ``x * scale + shift > 0`` and the kept bits,
+add the shortcut's cotangent on the even-even pixels (``Wp^T @ dres`` in
+bf16 with f32 accumulation, or dres's first Cin rows for option A), and
+sum d(scale) and d(shift); ``dWp = dres @ x[::2, ::2]^T`` in f32.
+
+The reference lays the input out as four parity planes, a TPU lane trick;
+here the kernels index the stride-2 taps directly, and the only parity
+layout left is the dropout bits' [4*Cin, N'] (plane-major rows, the
+reference's draw), re-laid once to [Cin, N] by ``parity_unpack``.
+
+Layers of this module, each a CPU-or-card wrapper beside its plain version
+(a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
+kernel of ``csrc/transition.cu`` or raises):
+
+- ``fwd_conv``      (launches ``transition_fwd``, ``.sum``)
+- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT)
+- ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
+  the rounded cotangent and the bf16 prologue)
+- ``dgrad``         (launches ``transition_dgrad``, ``.sum``)
+- ``wgrad``         (launches ``transition_wgrad``, ``.sum``; FQT)
+- ``wgrad_bf16``    (launches ``transition_wgrad``, ``.sum``)
+- ``wgrad_proj``    (launches ``transition_wgrad.proj``, ``.proj_sum``)
+
+and ``transition_half_int8``, the differentiable op over them (its
+forward quantizer launches ``fused_half_fwd.amax`` and ``.quant``, counted
+in ``fused_block.launches``). Weights are the port's OIHW tensors: conv1
+[Cout, Cin, 3, 3], the projection [Cout, Cin, 1, 1].
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.nn.grad import conv2d_input, conv2d_weight
+
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
+    check_rc,
+    on_cpu,
+    require_cuda,
+)
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import _ptr, _stream
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
+
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_F32 = torch.float32
+_F64 = torch.float64
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+# --- the parity layout (the dropout bits' layout, and the tests') -------------
+
+def parity_planes(x_cs: torch.Tensor, h: int, w_img: int):
+    """[C, B*H*W] -> the four planes [C, B*(H/2)*(W/2)], plane p = 2*(h%2)
+    + (w%2), each in the lane layout of the output geometry."""
+    c, n = x_cs.shape
+    v = x_cs.reshape(c, n // (h * w_img), h, w_img)
+    return tuple(v[:, :, ph::2, pw::2].reshape(c, n // 4)
+                 for ph in (0, 1) for pw in (0, 1))
+
+
+def parity_interleave(planes, h: int, w_img: int) -> torch.Tensor:
+    """Inverse of ``parity_planes``: 4 x [C, N/4] -> [C, B*H*W]."""
+    c, q = planes[0].shape
+    b = q // ((h // 2) * (w_img // 2))
+    out = planes[0].new_empty((c, b, h, w_img))
+    for p, pln in enumerate(planes):
+        out[:, :, p // 2::2, p % 2::2] = pln.reshape(c, b, h // 2, w_img // 2)
+    return out.reshape(c, b * h * w_img)
+
+
+def parity_pack(x_cs: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """The four planes stacked plane-major on rows: [4*C, N/4]."""
+    return torch.cat(parity_planes(x_cs, h, w_img), dim=0)
+
+
+def parity_unpack(xp: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """Inverse of ``parity_pack``: [4*C, N/4] -> [C, N], contiguous."""
+    c = xp.shape[0] // 4
+    return parity_interleave(tuple(xp[p * c:(p + 1) * c] for p in range(4)),
+                             h, w_img)
+
+
+def _tap_plane(dh: int, dw: int) -> int:
+    """The parity plane of the input pixels tap (dh, dw) reads: dh = 1
+    reads even rows, dh = 0 and 2 odd ones (likewise dw)."""
+    return 2 * (dh != 1) + (dw != 1)
+
+
+# the taps of each plane, row-major: the dgrad's weight blocks, in order
+PLANE_TAPS = tuple(tuple((dh, dw) for dh in range(3) for dw in range(3)
+                         if _tap_plane(dh, dw) == p) for p in range(4))
+
+
+def transition_tile(oh: int, ow: int, n_out: int, cin: int,
+                    cout: int) -> int:
+    """The scale group at the output geometry (JAX ``transition_tile``):
+    ``_pick_tile(oh*ow, n_out, max(4*cin, cout) // 2, max_tile=4096)``."""
+    return pick_tile(oh * ow, n_out, max(4 * cin, cout) // 2, max_tile=4096)
+
+
+# --- weights (OIHW) ------------------------------------------------------------
+
+def pack_w_dgrad(w: torch.Tensor) -> torch.Tensor:
+    """conv1 packed for the dgrad, plane-major (JAX
+    ``pack_weights_transition_dgrad``): per plane, per tap (dh, dw) of
+    ``PLANE_TAPS``, the block w[:, :, dh, dw]^T [Cin, Cout]; [Cin, 9*Cout]."""
+    blocks = [w[:, :, dh, dw].t() for taps in PLANE_TAPS for dh, dw in taps]
+    return torch.cat(blocks, dim=1).contiguous()
+
+
+def quant_pack_w_dgrad(w: torch.Tensor):
+    """Per-input-channel int8 of conv1, dgrad-packed: (w_q [Cin, 9*Cout]
+    int8, ws [Cin] f32) (JAX ``_quant_pack_w_dgrad``)."""
+    wf = w.to(_F32)
+    absmax = wf.abs().amax(dim=(0, 2, 3))
+    ws = torch.clamp_min(absmax, 1e-12) / fb._f32_127(absmax)
+    w_q = torch.clamp(torch.round(wf / ws[None, :, None, None]), -127, 127)
+    return pack_w_dgrad(w_q.to(torch.int8)), ws
+
+
+def _unpack_w_dgrad(w_dg: torch.Tensor) -> torch.Tensor:
+    """[Cin, 9*Cout] plane-major -> OIHW [Cout, Cin, 3, 3]."""
+    cin, k = w_dg.shape
+    cout = k // 9
+    w = w_dg.new_zeros((cout, cin, 3, 3))
+    col = 0
+    for taps in PLANE_TAPS:
+        for dh, dw in taps:
+            w[:, :, dh, dw] = w_dg[:, col:col + cout].t()
+            col += cout
+    return w
+
+
+# --- plain versions --------------------------------------------------------------
+
+def _nchw(v: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """[C, B*h*w] -> [B, C, h, w] in float64."""
+    c, n = v.shape
+    return v.to(_F64).reshape(c, n // (h * w_img), h, w_img).transpose(0, 1)
+
+
+def _lanes(v: torch.Tensor) -> torch.Tensor:
+    """[B, C, h, w] -> [C, B*h*w]."""
+    return v.transpose(0, 1).reshape(v.shape[1], -1)
+
+
+def _even(x: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """x[:, ::2, ::2] of [C, B*h*w]: [C, B*(h/2)*(w/2)]."""
+    return parity_planes(x, h, w_img)[0]
+
+
+def _s2conv_f64(d: torch.Tensor, w: torch.Tensor, h: int,
+                w_img: int) -> torch.Tensor:
+    """Stride-2 pad-1 3x3 conv of d [Cin, N] by w OIHW, in float64:
+    [Cout, N/4] (exact for int8 operands)."""
+    return _lanes(F.conv2d(_nchw(d, h, w_img), w.to(_F64), stride=2,
+                           padding=1))
+
+
+def _unpack_w_fwd(w_q: torch.Tensor) -> torch.Tensor:
+    cout, k = w_q.shape
+    return w_q.reshape(cout, 3, 3, k // 9).permute(0, 3, 1, 2)
+
+
+def _shortcut_plain(x, wp_c, cout, h, w_img):
+    """res: bf16(f32(Wp @ x_ee)) with f32 accumulation (float64 here), or
+    x_ee with zero channels added, in x's dtype."""
+    raw0 = _even(x, h, w_img)
+    if wp_c is not None:
+        acc = wp_c.to(_F64) @ raw0.to(_F64)
+        return acc.to(_F32).to(x.dtype)
+    return F.pad(raw0, (0, 0, 0, cout - raw0.shape[0]))
+
+
+def fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, *, tile, h, w_img):
+    """(z, zsum, zssq, res): the int8 conv of the quantized prologue d_q
+    [Cin, N] (group absmax ``amax``, groups of ``tile`` output lanes), the
+    shortcut from the raw x, and the f32 sums of z."""
+    acc = _s2conv_f64(d_q, _unpack_w_fwd(w_q), h, w_img).to(_F32)
+    fac = ws.to(_F32)[:, None] * (amax * fb.INV_127)[None, :]
+    z = fb._per_group(acc, tile, fac).to(x.dtype)
+    zf = z.to(_F32)
+    res = _shortcut_plain(x, wp_c, w_q.shape[0], h, w_img)
+    return z, fb._group_sums(zf, tile), fb._group_sums(zf * zf, tile), res
+
+
+def bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *,
+                       thresh, tile):
+    """FQT operands per group: (g_q [Cout, N'], g_amax, d_q [Cin, N],
+    d_amax); the cotangent's groups are ``tile`` lanes, the activation's
+    ``4 * tile`` (the same images), both with floor 1e-30."""
+    gf = fb.fold_cotangent_plain(dz, z, dzsum, dzssq)
+    g_q, g_amax = fb.quantize_groups_plain(gf, tile, fb.BWD_FLOOR)
+    d_q, d_amax = fb.quantize_groups_plain(
+        fb.prologue_plain(x, scale, shift, bits, thresh), 4 * tile,
+        fb.BWD_FLOOR)
+    return g_q, g_amax, d_q, d_amax
+
+
+def bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh):
+    """The straight-through operands: g = round(gf) in dz's dtype and the
+    prologue d recomputed in x's dtype (``prologue_bf16_plain``)."""
+    return (fb.fold_cotangent_plain(dz, z, dzsum, dzssq).to(dz.dtype),
+            fb.prologue_bf16_plain(x, scale, shift, bits, thresh))
+
+
+def dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
+                thresh, tile, h, w_img):
+    """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32). g is the
+    int8 cotangent with its group absmax and ``ws_in`` the per-input-channel
+    weight scales (FQT), or the rounded cotangent with both None. On the
+    even-even pixels dx adds the shortcut's cotangent: ``wpt`` [Cin, Cout]
+    @ dres, or dres's first Cin rows (``wpt`` None)."""
+    cin, n = x.shape
+    b = n // (h * w_img)
+    acc = _lanes(conv2d_input((b, cin, h, w_img), _unpack_w_dgrad(w_dg).to(
+        _F64), _nchw(g, h // 2, w_img // 2), stride=2, padding=1)).to(_F32)
+    if g_amax is not None:
+        acc = fb._per_group(acc, 4 * tile, ws_in.to(_F32)[:, None]
+                            * (g_amax * fb.INV_127)[None, :])
+    dn = fb._masked(acc, x, scale, shift, bits, thresh)
+    if wpt is not None:
+        sc = (wpt.to(_F64) @ dres.to(_F64)).to(_F32)
+    else:
+        sc = dres[:cin].to(_F32)
+    planes = parity_planes(dn * fb._vec(scale), h, w_img)
+    ee = fb._fma(parity_planes(dn, h, w_img)[0], fb._vec(scale), sc)
+    dx = parity_interleave((ee,) + planes[1:], h, w_img)
+    return (dx.to(x.dtype), (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1))
+
+
+def _wgrad_f64(g, d, h, w_img):
+    """sum over positions of g [Cout, N'] x the stride-2 patches of d
+    [Cin, N], float64, as [Cout, 9*Cin] in (dh, dw, ci) order."""
+    cout = g.shape[0]
+    cin, n = d.shape
+    b = n // (h * w_img)
+    dw = conv2d_weight(_nchw(d, h, w_img), (cout, cin, 3, 3),
+                       _nchw(g, h // 2, w_img // 2), stride=2, padding=1)
+    return dw.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+
+
+def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
+    """FQT dW [Cout, 9*Cin] f32: per group the exact s32 contraction times
+    (d_amax * g_amax) / 127^2, summed over the groups in order."""
+    out = None
+    for grp in range(g_q.shape[1] // tile):
+        lo, hi = grp * tile, (grp + 1) * tile
+        acc = _wgrad_f64(g_q[:, lo:hi], d_q[:, 4 * lo:4 * hi], h, w_img)
+        contrib = acc.to(_F32) * ((d_amax[grp] * g_amax[grp])
+                                  * fb.INV_16129)
+        out = contrib if out is None else out + contrib
+    return out
+
+
+def wgrad_bf16_plain(g, d, *, h, w_img):
+    """Straight-through dW [Cout, 9*Cin] f32: the rounded cotangent
+    against the recomputed prologue d, over every position."""
+    return _wgrad_f64(g, d, h, w_img).to(_F32)
+
+
+def wgrad_proj_plain(dres, x, *, h, w_img):
+    """dWp = dres @ x_ee^T [Cout, Cin] f32."""
+    return (dres.to(_F64) @ _even(x, h, w_img).to(_F64).t()).to(_F32)
+
+
+# --- kernels -------------------------------------------------------------------------
+
+WG_SPLIT_TARGET = 528   # wgrad blocks to aim for: four per SM of an H100
+WG_KC = {torch.int8: 128, torch.bfloat16: 64}  # positions per wgrad chunk
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("transition")
+        sigs = {
+            "fwd_launch": [_P] * 9 + [_I] * 6 + [_P],
+            "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+            "bwd_quant_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
+            "bwd_fold_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
+            "dgrad_launch": [_P] * 12 + [_I] * 8 + [_F, _P],
+            "wgrad_launch": [_P] * 5 + [_I] * 7 + [_P],
+            "partial_sum_launch": [_P, _P, _I, _I, _P],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _launch(name: str, fn, *args) -> None:
+    check_rc(name, fn(*args))
+    launches[name] += 1
+
+
+def _partial_sum(name: str, part: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum over j of part[j, i], in order, in f32."""
+    j, m = part.shape
+    out = torch.empty(m, dtype=_F32, device=part.device)
+    _launch(name, _library().partial_sum_launch, part.data_ptr(),
+            out.data_ptr(), j, m, _stream(part))
+    return out
+
+
+def row_tile(oh: int, ow: int) -> int:
+    """Output positions per block of the conv kernels: 64 or 128, whole
+    rows of one image (csrc/transition.cu ``out_row_tile``), or 0 for
+    none."""
+    if ow % 8:
+        return 0
+    best = 0
+    for r in range(1, oh + 1):
+        bn = r * ow
+        if oh % r == 0 and bn in (64, 128) and bn > best:
+            best = bn
+    return best
+
+
+def check_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
+                   n: int, tile: int) -> None:
+    """The kernels' own shape needs (the block's gate admits more): the
+    contractions in 32-channel chunks (Cin for the forward and the weight
+    gradient, Cout for the dgrad), rows of 8 output pixels and a row tile
+    of whole output rows that divides the scale group ``tile``."""
+    oh, ow = h // 2, w_img // 2
+    if cin % 32 or cout % 32:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout} are not multiples "
+                         "of 32")
+    if h % 2 or w_img % 2 or n % (h * w_img) or row_tile(oh, ow) == 0:
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "supported by the kernel")
+    if tile is not None and ((n // 4) % tile or tile % row_tile(oh, ow)):
+        raise ValueError(f"{name}: tile {tile} vs N'={n // 4} and the row "
+                         f"tile {row_tile(oh, ow)}")
+
+
+def fwd_conv(d_q, amax, w_q, ws, x, wp_c, *, tile, h, w_img):
+    """z = bf16(conv_s2(d_q, w_q) * ws * amax/127), the shortcut res from
+    the raw x (``wp_c`` [Cout, Cin] bf16, or None for option A) and the
+    f32 sums of z."""
+    if on_cpu(d_q):
+        return fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, tile=tile, h=h,
+                              w_img=w_img)
+    name = "transition_fwd"
+    cin, n = d_q.shape
+    cout = w_q.shape[0]
+    if tuple(w_q.shape) != (cout, 9 * cin):
+        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin {cin}")
+    check_geometry(name, cin, cout, h, w_img, n, tile)
+    n_out = n // 4
+    ws = ws.to(_F32).contiguous()
+    tensors = [d_q, w_q, amax, ws, x]
+    dtypes = [torch.int8, torch.int8, _F32, _F32, torch.bfloat16]
+    if wp_c is not None:
+        tensors.append(wp_c)
+        dtypes.append(torch.bfloat16)
+    require_cuda(name, tensors, dtypes)
+    dev = d_q.device
+    z = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
+    res = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
+    bn = row_tile(h // 2, w_img // 2)
+    part = torch.empty((n_out // bn, 2 * cout), dtype=_F32, device=dev)
+    _launch(name, _library().fwd_launch, d_q.data_ptr(), w_q.data_ptr(),
+            amax.data_ptr(), ws.data_ptr(), x.data_ptr(), _ptr(wp_c),
+            z.data_ptr(), res.data_ptr(), part.data_ptr(), cin, cout, n, h,
+            w_img, tile, _stream(d_q))
+    sums = _partial_sum(f"{name}.sum", part)
+    return z, sums[:cout], sums[cout:], res
+
+
+def _cotangent_args(dz, z, dzsum, dzssq):
+    dzsum = dzsum.to(_F32).contiguous()
+    dzssq = dzssq.to(_F32).contiguous()
+    return ([dz, z, dzsum, dzssq],
+            [torch.bfloat16, torch.bfloat16, _F32, _F32], dzsum, dzssq)
+
+
+def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
+                 tile):
+    """The FQT backward's operands: the folded cotangent quantized per group
+    of ``tile`` output lanes, the recomputed activation per group of
+    ``4 * tile`` input lanes (floor 1e-30): (g_q, g_amax, d_q, d_amax)."""
+    if on_cpu(dz):
+        return bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
+                                  thresh=thresh, tile=tile)
+    name = "transition_bwd"
+    cout, n_out = dz.shape
+    cin, n = x.shape
+    if n != 4 * n_out or n_out % tile or tile % 8:
+        raise ValueError(f"{name}: N={n}, N'={n_out}, tile {tile}")
+    tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors += [x, scale, shift]
+    dtypes += [torch.bfloat16, _F32, _F32]
+    if bits is not None:
+        tensors.append(bits)
+        dtypes.append(torch.uint8)
+    require_cuda(name, tensors, dtypes)
+    groups = n_out // tile
+    s = fb._slices(groups)
+    dev = dz.device
+    part = torch.empty(2 * groups * s, dtype=_F32, device=dev)
+    keep = fb.inv_keep(thresh) if bits is not None else 1.0
+    lib, st = _library(), _stream(dz)
+    ct = (dz.data_ptr(), z.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr())
+    pro = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), _ptr(bits))
+    common = (cout, cin, n_out, tile, s, thresh or 256, keep, st)
+    _launch(f"{name}.amax", lib.bwd_amax_launch, *ct, *pro, part.data_ptr(),
+            *common)
+    g_q = torch.empty((cout, n_out), dtype=torch.int8, device=dev)
+    d_q = torch.empty((cin, n), dtype=torch.int8, device=dev)
+    g_amax = torch.empty(groups, dtype=_F32, device=dev)
+    d_amax = torch.empty(groups, dtype=_F32, device=dev)
+    _launch(f"{name}.quant", lib.bwd_quant_launch, *ct, *pro,
+            part.data_ptr(), g_q.data_ptr(), d_q.data_ptr(),
+            g_amax.data_ptr(), d_amax.data_ptr(), *common)
+    return g_q, g_amax, d_q, d_amax
+
+
+def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh):
+    """The straight-through operands: g = bf16(gf) [Cout, N'] and the bf16
+    prologue d [Cin, N] (dropout(relu(bf16(x * scale + shift))))."""
+    if on_cpu(dz):
+        return bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
+                              thresh=thresh)
+    name = "transition_bwd.fold"
+    cout, n_out = dz.shape
+    cin, n = x.shape
+    if n != 4 * n_out or n_out % 8:
+        raise ValueError(f"{name}: N={n}, N'={n_out}")
+    tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors += [x, scale, shift]
+    dtypes += [torch.bfloat16, _F32, _F32]
+    if bits is not None:
+        tensors.append(bits)
+        dtypes.append(torch.uint8)
+    require_cuda(name, tensors, dtypes)
+    g = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dz.device)
+    d = torch.empty((cin, n), dtype=torch.bfloat16, device=dz.device)
+    _launch(name, _library().bwd_fold_launch, dz.data_ptr(), z.data_ptr(),
+            dzsum.data_ptr(), dzssq.data_ptr(), x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _ptr(bits), g.data_ptr(),
+            d.data_ptr(), cout, cin, n_out, thresh or 256,
+            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(dz))
+    return g, d
+
+
+def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
+          thresh, tile, h, w_img):
+    """The input gradient through the masks, plus the shortcut's cotangent
+    on the even-even pixels: (dx [Cin, N] bf16, d(scale), d(shift) [Cin]
+    f32). FQT: g int8 with ``g_amax`` and ``ws_in``; straight-through: g
+    bf16, both None."""
+    if on_cpu(g):
+        return dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits,
+                           dres, wpt, thresh=thresh, tile=tile, h=h,
+                           w_img=w_img)
+    name = "transition_dgrad"
+    cout, n_out = g.shape
+    cin, n = x.shape
+    quant = g_amax is not None
+    if tuple(w_dg.shape) != (cin, 9 * cout):
+        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
+    if n != 4 * n_out:
+        raise ValueError(f"{name}: N={n} vs N'={n_out}")
+    check_geometry(name, cin, cout, h, w_img, n, tile)
+    el = torch.int8 if quant else torch.bfloat16
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors = [g, w_dg, x, scale, shift, dres]
+    dtypes = [el, el, torch.bfloat16, _F32, _F32, torch.bfloat16]
+    if quant:
+        ws_in = ws_in.to(_F32).contiguous()
+        tensors += [g_amax, ws_in]
+        dtypes += [_F32, _F32]
+    if bits is not None:
+        tensors.append(bits)
+        dtypes.append(torch.uint8)
+    if wpt is not None:
+        tensors.append(wpt)
+        dtypes.append(torch.bfloat16)
+    require_cuda(name, tensors, dtypes)
+    dev = g.device
+    dx = torch.empty((cin, n), dtype=torch.bfloat16, device=dev)
+    bn = row_tile(h // 2, w_img // 2)
+    part = torch.empty((4 * (n_out // bn), 2 * cin), dtype=_F32, device=dev)
+    keep = fb.inv_keep(thresh) if bits is not None else 1.0
+    _launch(name, _library().dgrad_launch, g.data_ptr(), w_dg.data_ptr(),
+            _ptr(g_amax), _ptr(ws_in if quant else None), x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _ptr(bits), dres.data_ptr(),
+            _ptr(wpt), dx.data_ptr(), part.data_ptr(), int(quant), cout,
+            cin, n, h, w_img, tile, thresh or 256, keep, _stream(g))
+    sums = _partial_sum(f"{name}.sum", part)
+    return dx, sums[:cin], sums[cin:]
+
+
+def wgrad_splits(cin: int, cout: int, n_out: int, kc: int) -> int:
+    """Position splits of a straight-through weight gradient: the largest
+    power of two that divides the chunks and keeps the grid near
+    WG_SPLIT_TARGET blocks."""
+    blocks = (cin // 32) * -(-cout // 64)
+    chunks = n_out // kc
+    s = 1
+    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
+        s *= 2
+    return s
+
+
+# wgrad_launch modes (csrc/transition.cu)
+_WG_INT8, _WG_BF16, _WG_PROJ = 0, 1, 2
+
+
+def _wgrad_launch(name, mode, a, b, g_amax, d_amax, cout, cin, n_out, h,
+                  w_img, spans):
+    """One weight-gradient launch: f32 partials per span of positions, then
+    their ordered sum: [Cout, K] with K = 9*Cin, or Cin for the
+    projection."""
+    k = cin if mode == _WG_PROJ else 9 * cin
+    part = torch.empty((spans, cout * k), dtype=_F32, device=a.device)
+    _launch(name, _library().wgrad_launch, a.data_ptr(), b.data_ptr(),
+            _ptr(g_amax), _ptr(d_amax), part.data_ptr(), mode, cout, cin,
+            n_out, h, w_img, spans, _stream(a))
+    sum_name = ("transition_wgrad.proj_sum" if mode == _WG_PROJ
+                else "transition_wgrad.sum")
+    return _partial_sum(sum_name, part).reshape(cout, k)
+
+
+def _check_wgrad(name, cin, cout, h, w_img, n_out, span):
+    check_geometry(name, cin, cout, h, w_img, 4 * n_out, None)
+    if n_out % span:
+        raise ValueError(f"{name}: N'={n_out} vs span {span}")
+
+
+def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
+    """FQT dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order."""
+    if on_cpu(g_q):
+        return wgrad_plain(g_q, g_amax, d_q, d_amax, tile=tile, h=h,
+                           w_img=w_img)
+    name = "transition_wgrad"
+    cout, n_out = g_q.shape
+    cin = d_q.shape[0]
+    _check_wgrad(name, cin, cout, h, w_img, n_out, tile)
+    if tile % WG_KC[torch.int8]:
+        raise ValueError(f"{name}: tile {tile} vs the "
+                         f"{WG_KC[torch.int8]}-position chunk")
+    require_cuda(name, [g_q, g_amax, d_q, d_amax],
+                 [torch.int8, _F32, torch.int8, _F32])
+    return _wgrad_launch(name, _WG_INT8, g_q, d_q, g_amax, d_amax, cout,
+                         cin, n_out, h, w_img, n_out // tile)
+
+
+def wgrad_bf16(g, d, *, h, w_img):
+    """Straight-through dW [Cout, 9*Cin] f32: g bf16 against the bf16
+    prologue d of ``bwd_fold``."""
+    if on_cpu(g):
+        return wgrad_bf16_plain(g, d, h=h, w_img=w_img)
+    name = "transition_wgrad"
+    cout, n_out = g.shape
+    cin = d.shape[0]
+    kc = WG_KC[torch.bfloat16]
+    splits = wgrad_splits(cin, cout, n_out, kc)
+    _check_wgrad(name, cin, cout, h, w_img, n_out, kc * splits)
+    require_cuda(name, [g, d], [torch.bfloat16, torch.bfloat16])
+    return _wgrad_launch(name, _WG_BF16, g, d, None, None, cout, cin, n_out,
+                         h, w_img, splits)
+
+
+def wgrad_proj(dres, x, *, h, w_img):
+    """dWp = dres @ x_ee^T [Cout, Cin] f32 (bf16 products, f32 sums)."""
+    if on_cpu(dres):
+        return wgrad_proj_plain(dres, x, h=h, w_img=w_img)
+    name = "transition_wgrad.proj"
+    cout, n_out = dres.shape
+    cin = x.shape[0]
+    kc = WG_KC[torch.bfloat16]
+    splits = wgrad_splits(cin, cout, n_out, kc)
+    _check_wgrad(name, cin, cout, h, w_img, n_out, kc * splits)
+    require_cuda(name, [dres, x], [torch.bfloat16, torch.bfloat16])
+    return _wgrad_launch(name, _WG_PROJ, dres, x, None, None, cout, cin,
+                         n_out, h, w_img, splits)
+
+
+# --- the differentiable op --------------------------------------------------------
+
+class _TransitionHalf(torch.autograd.Function):
+    """Forward and backward of one transition half. The bits carry no
+    gradient; ``bits`` here is already in the [Cin, N] lane order."""
+
+    @staticmethod
+    def forward(ctx, x_cs, w1, wp, scale, shift, bits, thresh, h, w_img,
+                quant_bwd, tile):
+        cin = x_cs.shape[0]
+        cout = w1.shape[0]
+        # the reference's _quant_pack_w_fwd is the fused half's quantizer
+        w_q, ws = fb.quantize_pack_weights(w1.detach())
+        d_q, amax = fb.fwd_quantize(x_cs, scale, shift, bits, thresh=thresh,
+                                    tile=4 * tile)
+        wp_c = (None if wp is None else
+                wp.detach().reshape(cout, cin).to(x_cs.dtype).contiguous())
+        z, zsum, zssq, res = fwd_conv(d_q, amax, w_q, ws, x_cs, wp_c,
+                                      tile=tile, h=h, w_img=w_img)
+        ctx.save_for_backward(x_cs, w1, wp, scale, shift, bits, z)
+        ctx.cfg = (thresh, h, w_img, quant_bwd, tile)
+        return z, zsum, zssq, res
+
+    @staticmethod
+    def backward(ctx, dz, dzsum, dzssq, dres):
+        x_cs, w1, wp, scale, shift, bits, z = ctx.saved_tensors
+        thresh, h, w_img, quant_bwd, tile = ctx.cfg
+        cout, cin = w1.shape[:2]
+        dz, dres = dz.contiguous(), dres.contiguous()
+        wpt = (None if wp is None else
+               wp.detach().reshape(cout, cin).t().to(x_cs.dtype).contiguous())
+        kw = dict(thresh=thresh, h=h, w_img=w_img)
+        if quant_bwd:
+            w_dg, ws_in = quant_pack_w_dgrad(w1.detach())
+            g, g_amax, d_q, d_amax = bwd_quantize(
+                dz, z, dzsum, dzssq, x_cs, scale, shift, bits, thresh=thresh,
+                tile=tile)
+            dx, ds, dt = dgrad(g, g_amax, w_dg, ws_in, x_cs, scale, shift,
+                               bits, dres, wpt, tile=tile, **kw)
+            dw = wgrad(g, g_amax, d_q, d_amax, tile=tile, h=h, w_img=w_img)
+        else:
+            g, d = bwd_fold(dz, z, dzsum, dzssq, x_cs, scale, shift, bits,
+                            thresh=thresh)
+            w_dg = pack_w_dgrad(w1.detach().to(x_cs.dtype))
+            dx, ds, dt = dgrad(g, None, w_dg, None, x_cs, scale, shift, bits,
+                               dres, wpt, tile=tile, **kw)
+            dw = wgrad_bf16(g, d, h=h, w_img=w_img)
+        dw = dw.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).to(w1.dtype)
+        dwp = (None if wp is None else
+               wgrad_proj(dres, x_cs, h=h, w_img=w_img).reshape(
+                   wp.shape).to(wp.dtype))
+        return (dx, dw, dwp, ds.to(scale.dtype), dt.to(shift.dtype), None,
+                None, None, None, None, None)
+
+
+def transition_half_int8(x_cs: torch.Tensor, w1: torch.Tensor,
+                         wp: Optional[torch.Tensor], scale: torch.Tensor,
+                         shift: torch.Tensor,
+                         bits: Optional[torch.Tensor] = None, *,
+                         dropout_rate: float = 0.0, h: int, w_img: int,
+                         quant_bwd: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Differentiable stage-transition half with an int8 stride-2 conv
+    core, lane in and lane out (the reference's ``transition_half_int8``).
+
+    x_cs [Cin, B*h*w] (whole images, image-major), w1 [Cout, Cin, 3, 3],
+    wp [Cout, Cin, 1, 1] (or [Cout, Cin]) or None for the option-A
+    shortcut (Cout >= Cin), scale/shift [Cin] f32 (``fold_bn``), bits
+    [4*Cin, N/4] uint8 over the parity-packed layout (``parity_pack``
+    order; no seed mode), required iff the dropout rate rounds to a keep
+    threshold below 256. ``quant_bwd``: the fully quantized backward
+    (FQT), else the bf16 straight-through one.
+
+    Returns (z_cs [Cout, N/4], zsum [Cout] f32, zssq [Cout] f32, res_cs
+    [Cout, N/4]) at the output geometry (h/2, w/2). A Cin that is not a
+    multiple of 32 (the gate admits Cin % 8) runs zero-padded to the next
+    multiple, at the scale groups of the unpadded Cin: the kernels contract
+    in 32-channel chunks."""
+    thresh = fb.dropout_thresh(dropout_rate)
+    if thresh >= 256:
+        bits = None
+    elif thresh <= 0:
+        raise ValueError("dropout_rate >= 1 zeroes the activations; the "
+                         "transition kernel does not support it.")
+    elif bits is None:
+        raise ValueError(f"dropout_rate={dropout_rate} needs a bits array.")
+    if bits is not None and bits.dim() == 0:
+        raise ValueError("transition_half_int8 takes materialized bits "
+                         "only (no in-kernel seed mode).")
+    if h % 2 or w_img % 2:
+        raise ValueError(f"stride-2 transition needs even H, W; got "
+                         f"{(h, w_img)}")
+    if wp is None and w1.shape[0] < x_cs.shape[0]:
+        raise ValueError("option-A shortcut cannot shrink channels")
+    if x_cs.shape[1] % (h * w_img):
+        raise ValueError(f"N={x_cs.shape[1]} is not a multiple of "
+                         f"H*W={h * w_img}")
+    cin, n = x_cs.shape
+    cout = w1.shape[0]
+    tile = transition_tile(h // 2, w_img // 2, n // 4, cin, cout)
+    if bits is not None:
+        bits = parity_unpack(bits, h, w_img)
+    pin = -cin % 32
+    if pin:
+        # zero channels are exact: d = relu(0 * 0 + 0) = 0 leaves every
+        # group absmax as it is, zero weights add nothing to z, res or the
+        # sums, and the padded rows of dx, d(scale), d(shift) and the
+        # weight gradients are sliced off by autograd through the pads
+        x_cs, scale, shift = (fb._pad_rows(t, pin) for t in (x_cs, scale,
+                                                             shift))
+        if bits is not None:
+            bits = fb._pad_rows(bits, pin)
+        w1 = F.pad(w1, (0, 0, 0, 0, 0, pin))
+        if wp is not None:
+            wp = F.pad(wp, (0, 0) * (wp.dim() - 2) + (0, pin))
+    return _TransitionHalf.apply(x_cs, w1, wp, scale, shift, bits,
+                                 thresh if bits is not None else None, h,
+                                 w_img, quant_bwd, tile)

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py,
 ops/cuda/augment.py, ops/cuda/fused_block.py, ops/cuda/stem.py,
-ops/cuda/bneck_nv.py and ops/cuda/bneck_nv_train.py): each kernel against
-its plain PyTorch version on the same CUDA tensors.
+ops/cuda/bneck_nv.py, ops/cuda/bneck_nv_train.py and
+ops/cuda/transition.py): each kernel against its plain PyTorch version on
+the same CUDA tensors.
 
 Marked ``cuda``; without a card every test skips (decided in the fixture,
 never at import). Run them on the machine with the card (no JAX there, so
@@ -32,7 +33,10 @@ against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
 of the sums of the kernel's own y, and the sums over the tensor cores'
 accumulators (BatchNorm sums, d(scale), d(shift), dW) within 1e-4 of the
 plain version's largest value (``_mma_sums`` says why); the seed expansion
-and the int8 kernels in seed mode are bit-equal.
+and the int8 kernels in seed mode are bit-equal. The transition half: int8
+codes, group absmaxes, z, the cotangent fold and the FQT weight gradient
+are equal; res and dx (bf16 products summed in f32 on the card) within 2
+bf16 ulps; the sums as the fused half's.
 """
 
 import numpy as np
@@ -45,6 +49,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
 from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
 pytestmark = pytest.mark.cuda
@@ -681,3 +686,240 @@ def test_weight_scales_on_the_card_equal_the_cpu(dev):
                   (fb.quantize_pack_weights_dgrad, w3)):
         for a, b in zip(fn(w.to(dev)), fn(w)):
             assert torch.equal(a.cpu(), b), fn.__name__
+
+
+def test_fused_half_takes_the_widths_the_gate_admits(dev):
+    """C = 48 without dropout (the gate's C % 16 case): the half runs
+    zero-padded to 64 channels on the kernels, and its output and
+    gradients equal the same op's on CPU copies (plain versions; on the
+    CPU the padded half equals the unpadded one exactly:
+    tests/test_torch_fused_half_bf16.py)."""
+    c, h, w, n = 48, 8, 8, 1024
+    g = torch.Generator(device=dev).manual_seed(48)
+    card = [torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16),
+            torch.randn(c, c, 3, 3, device=dev, generator=g) * 0.05,
+            torch.rand(c, device=dev, generator=g) + 0.5,
+            torch.randn(c, device=dev, generator=g) * 0.3,
+            torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)]
+    cpu = [t.cpu() for t in card]
+    outs = []
+    for ts, dvc in ((card, dev), (cpu, torch.device("cpu"))):
+        ts = [t.clone().requires_grad_() for t in ts]
+        x, wt, scale, shift, res = ts
+        fb.reset_launches()
+        y, ys, yq = fb.fused_half(x, wt, scale, shift, None, res, h=h,
+                                  w_img=w)
+        dy = torch.linspace(-1e-2, 1e-2, c * n, device=dvc).reshape(c, n)
+        ((y.float() * dy).sum() + ys.sum() * 1e-3
+         + yq.sum() * 1e-4).backward(inputs=ts)
+        outs.append([t.detach().cpu() for t in (y, ys, yq)]
+                    + [t.grad.cpu() for t in ts])
+        if dvc == dev:
+            torch.cuda.synchronize()
+            assert fb.launches["fused_half_bf16_fwd"] == 1
+            assert fb.launches["fused_half_bf16_dgrad"] == 1
+    got, want = outs
+    _bf16_close(got[0], want[0])
+    _mma_sums(got[1], want[1])
+    _mma_sums(got[2], want[2])
+    for a, b in zip(got[3:], want[3:]):
+        assert a.shape == b.shape
+        assert (a.float() - b.float()).abs().max() <= 1e-2 * b.float().abs(
+        ).max()
+
+
+# --- the lane-through stage transition ---------------------------------------------
+
+# (batch, h, w, cin, cout): the test shape, then WRN-28-10's two transitions
+# at small batches
+TR_SHAPES = [(8, 16, 16, 32, 64), (4, 32, 32, 160, 320),
+             (8, 16, 16, 320, 640)]
+
+
+def _tr_inputs(dev, b, h, w, cin, cout, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = b * h * w
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    bits = torch.randint(0, 256, (4 * cin, n // 4), device=dev, generator=g,
+                         dtype=torch.uint8)
+    return dict(x=rn(cin, n).to(torch.bfloat16),
+                w1=rn(cout, cin, 3, 3, s=(9 * cin) ** -0.5),
+                wp=rn(cout, cin, s=cin ** -0.5).to(torch.bfloat16),
+                scale=rn(cin).abs() + 0.5, shift=rn(cin, s=0.3),
+                bits=tr.parity_unpack(bits, h, w),
+                dz=rn(cout, n // 4, s=1e-3).to(torch.bfloat16),
+                dzsum=rn(cout, s=1e-4), dzssq=rn(cout, s=1e-4),
+                dres=rn(cout, n // 4, s=1e-3).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", TR_SHAPES)
+@pytest.mark.parametrize("use_proj,rate", [(True, 0.3), (True, 0.0),
+                                           (False, 0.3)])
+def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
+                                        rate):
+    """Forward, both backward bodies and dWp against their plain versions
+    on the same CUDA tensors: int8 codes, group absmaxes, z and the FQT dW
+    equal; res and dx within 2 bf16 ulps; f32 sums within 1e-5 (1e-4 over
+    bf16 tensor-core accumulators)."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, b + cin)
+    x, scale, shift = t["x"], t["scale"], t["shift"]
+    bits = t["bits"] if rate > 0 else None
+    thresh = fb.dropout_thresh(rate) if rate > 0 else None
+    wp = t["wp"] if use_proj else None
+    wpt = wp.t().contiguous() if use_proj else None
+    n = x.shape[1]
+    tile = tr.transition_tile(h // 2, w // 2, n // 4, cin, cout)
+    kw = dict(h=h, w_img=w)
+    wq, ws = fb.quantize_pack_weights(t["w1"])
+    d_q, amax = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
+                                tile=4 * tile)
+    pd_q, pamax = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                        tile=4 * tile)
+    _same(d_q, pd_q)
+    _same(amax, pamax)
+    got = tr.fwd_conv(d_q, amax, wq, ws, x, wp, tile=tile, **kw)
+    want = tr.fwd_conv_plain(d_q, amax, wq, ws, x, wp, tile=tile, **kw)
+    _same(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    (_bf16_close if use_proj else _same)(got[3], want[3])
+    ct = (t["dz"], want[0], t["dzsum"], t["dzssq"])
+    scb = (x, scale, shift, bits)
+    ops = tr.bwd_quantize(*ct, *scb, thresh=thresh, tile=tile)
+    ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile)
+    for a, b_ in zip(ops, ops_p):
+        _same(a, b_)
+    g_q, g_amax, dq2, d_amax = ops_p
+    wdq, wsin = tr.quant_pack_w_dgrad(t["w1"])
+    dargs = (g_q, g_amax, wdq, wsin, *scb, t["dres"], wpt)
+    got = tr.dgrad(*dargs, thresh=thresh, tile=tile, **kw)
+    want = tr.dgrad_plain(*dargs, thresh=thresh, tile=tile, **kw)
+    _bf16_close(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    _same(tr.wgrad(g_q, g_amax, dq2, d_amax, tile=tile, **kw),
+          tr.wgrad_plain(g_q, g_amax, dq2, d_amax, tile=tile, **kw))
+    gb, db = tr.bwd_fold(*ct, *scb, thresh=thresh)
+    pgb, pdb = tr.bwd_fold_plain(*ct, *scb, thresh=thresh)
+    _same(gb, pgb)
+    _same(db, pdb)
+    dargs = (gb, None, tr.pack_w_dgrad(t["w1"].to(torch.bfloat16)), None,
+             *scb, t["dres"], wpt)
+    got = tr.dgrad(*dargs, thresh=thresh, tile=tile, **kw)
+    want = tr.dgrad_plain(*dargs, thresh=thresh, tile=tile, **kw)
+    _bf16_close(got[0], want[0])
+    _mma_sums(got[1], want[1])
+    _mma_sums(got[2], want[2])
+    _mma_sums(tr.wgrad_bf16(gb, db, **kw), tr.wgrad_bf16_plain(gb, db, **kw))
+    _mma_sums(tr.wgrad_proj(t["dres"], x, **kw),
+              tr.wgrad_proj_plain(t["dres"], x, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("quant_bwd", [True, False])
+def test_transition_op_launches_its_kernels(dev, quant_bwd):
+    """The differentiable op on the card: one launch of each kernel, and
+    outputs and gradients as the same op on the CPU (plain versions)."""
+    b, h, w, cin, cout = TR_SHAPES[0]
+    t = _tr_inputs(dev, b, h, w, cin, cout, 3)
+    bits = tr.parity_pack(t["bits"], h, w)
+    res = []
+    for dvc in (dev, torch.device("cpu")):
+        ins = [v.to(dvc).clone().requires_grad_() for v in (
+            t["x"], t["w1"], t["wp"].float().reshape(cout, cin, 1, 1),
+            t["scale"], t["shift"])]
+        tr.reset_launches()
+        fb.reset_launches()
+        out = tr.transition_half_int8(*ins, bits.to(dvc), dropout_rate=0.3,
+                                      h=h, w_img=w, quant_bwd=quant_bwd)
+        cts = [t[k].to(dvc) for k in ("dz", "dzsum", "dzssq", "dres")]
+        grads = torch.autograd.grad(out, ins, cts)
+        res.append([v.detach().cpu() for v in out]
+                   + [v.cpu() for v in grads])
+        if dvc == dev:
+            torch.cuda.synchronize()
+            bwd = (("transition_bwd.amax", "transition_bwd.quant")
+                   if quant_bwd else ("transition_bwd.fold",))
+            assert dict(tr.launches) == {name: 1 for name in (
+                "transition_fwd", "transition_fwd.sum", "transition_dgrad",
+                "transition_dgrad.sum", "transition_wgrad",
+                "transition_wgrad.sum", "transition_wgrad.proj",
+                "transition_wgrad.proj_sum") + bwd}
+            assert dict(fb.launches) == {"fused_half_fwd.amax": 1,
+                                         "fused_half_fwd.quant": 1}
+        else:
+            assert not tr.launches and not fb.launches
+    got, want = res
+    _same(got[0], want[0])
+    for a, b_ in zip(got[1:], want[1:]):
+        assert a.shape == b_.shape and a.dtype == b_.dtype
+        assert (a.float() - b_.float()).abs().max() <= 1e-2 * b_.float(
+        ).abs().max()
+
+
+@pytest.mark.parametrize("cin,cout,use_proj", [(16, 32, True),
+                                               (8, 64, False)])
+def test_transition_op_pads_narrow_inputs(dev, cin, cout, use_proj):
+    """A Cin off the 32-channel chunks (the gate admits Cin % 8) runs
+    zero-padded on the card: outputs and gradients as the same op on the
+    CPU (the plain versions, held to JAX at these widths by
+    tests/test_torch_transition.py)."""
+    b, h, w = 8, 16, 16
+    t = _tr_inputs(dev, b, h, w, cin, cout, 5)
+    bits = tr.parity_pack(t["bits"], h, w)
+    res = []
+    for dvc in (dev, torch.device("cpu")):
+        ins = [v.to(dvc).clone().requires_grad_() for v in (
+            t["x"], t["w1"], t["wp"].float().reshape(cout, cin, 1, 1),
+            t["scale"], t["shift"])]
+        if not use_proj:
+            ins[2] = None
+        out = tr.transition_half_int8(*ins, bits.to(dvc), dropout_rate=0.3,
+                                      h=h, w_img=w, quant_bwd=use_proj)
+        cts = [t[k].to(dvc) for k in ("dz", "dzsum", "dzssq", "dres")]
+        leaves = [v for v in ins if v is not None]
+        grads = torch.autograd.grad(out, leaves, cts)
+        res.append([v.detach().cpu() for v in out]
+                   + [v.cpu() for v in grads])
+    got, want = res
+    _same(got[0], want[0])
+    for a, b_ in zip(got[1:], want[1:]):
+        assert a.shape == b_.shape and a.dtype == b_.dtype
+        assert (a.float() - b_.float()).abs().max() <= 1e-2 * b_.float(
+        ).abs().max()
+
+
+def test_transition_never_falls_back(dev):
+    """A CUDA tensor launches the kernels or raises: f32 activations, an
+    output width off the 32-channel chunks (the gate admits Cout % 32 only;
+    a narrow Cin is padded), rows narrower than 8 output pixels."""
+    t = _tr_inputs(dev, 8, 16, 16, 32, 64, 4)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        tr.transition_half_int8(t["x"].float(), t["w1"], None, t["scale"],
+                                t["shift"], h=16, w_img=16)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tr.transition_half_int8(t["x"], t["w1"][:48].contiguous(), None,
+                                t["scale"], t["shift"], h=16, w_img=16)
+    x = torch.zeros((32, 32 * 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="geometry"):
+        tr.transition_half_int8(x, t["w1"], None, t["scale"], t["shift"],
+                                h=8, w_img=8)
+
+
+def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
+    """The fused gate admits 6x6 images at batch 64 (a 2,304-lane tile);
+    the half kernels tile whole rows of 8 and raise, naming the geometry
+    (ROADMAP Queue 3 item 6), instead of computing something else."""
+    from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
+
+    c, b, h, w = 32, 64, 6, 6
+    block = ResidualBlock(c, False, True, True, 0.0, int8_train=True)
+    assert block.lane_eligible((b, h, w, c), True)
+    x = torch.zeros((c, b * h * w), dtype=torch.bfloat16, device=dev)
+    wt = torch.zeros(c, c, 3, 3, device=dev)
+    one = torch.ones(c, device=dev)
+    with pytest.raises(ValueError, match="geometry"):
+        fb.fused_half_int8(x, wt, one, one, h=h, w_img=w)

@@ -289,3 +289,50 @@ def test_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match="multiple of H\\*W"):
         fb.fused_half(*args, torch.from_numpy(bits), dropout_rate=0.3, h=H,
                       w_img=W + 1)
+
+
+@pytest.mark.parametrize("c", [16, 48, 80, 112])
+def test_every_width_the_gate_admits_reaches_the_kernels_whole(c,
+                                                               monkeypatch):
+    """The gate admits C % 16 without dropout (ROADMAP Queue 2 item 7a);
+    the card's kernels contract in 32-channel chunks. ``fused_half`` pads
+    such a width with zero channels, so every kernel-facing stage gets a
+    shape the card's own check accepts, and the padded half's output and
+    gradients equal the unpadded half's."""
+    from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
+
+    b, h, w = 4, 16, 16
+    n = b * h * w
+    block = ResidualBlock(c, False, True, True, 0.0, fused_block=True)
+    assert block.lane_eligible((b, h, w, c), True)
+    x, wt, scale, shift, _, res = _inputs(c, n)
+
+    def run(op):
+        ins = [_t(x, torch.bfloat16), _t(wt.transpose(3, 2, 0, 1)),
+               _t(scale), _t(shift), _t(res, torch.bfloat16)]
+        ins = [t.requires_grad_() for t in ins]
+        y, ys, yq = op(*ins[:4], None, ins[4], h=h, w_img=w)
+        loss = ((y.float() * torch.linspace(-1, 1, c * n).reshape(c, n)
+                 ).sum() + ys.sum() * 1e-3 + yq.sum() * 1e-4)
+        return [y, ys, yq] + list(torch.autograd.grad(loss, ins))
+
+    want = run(lambda *a, **k: fb._FusedHalf.apply(*a[:6], None, h, w,
+                                                   True))
+    seen = []
+    for name in ("fwd_bf16", "dgrad_bf16", "wgrad_bf16"):
+        orig = getattr(fb, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            rows = [t.shape[0] for t in a
+                    if isinstance(t, torch.Tensor) and t.dim() == 2]
+            for r in rows:
+                fb._check_bf16_geometry(_name, r, n, h, w)
+            seen.append(_name)
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(fb, name, spy)
+    got = run(fb.fused_half)
+    assert sorted(seen) == ["dgrad_bf16", "fwd_bf16", "wgrad_bf16"]
+    for a, b_ in zip(got, want):
+        assert a.shape == b_.shape
+        assert torch.equal(a.detach(), b_.detach())

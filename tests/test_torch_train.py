@@ -110,10 +110,9 @@ def test_train_mode_needs_a_key_and_updates_counts():
 def test_kernel_path_flags_raise():
     """The flags still to port raise; QAT raises on a bottleneck net only
     (the fused bf16, QAT and in-kernel dropout paths of the basic block
-    build: tests/test_torch_qat_train.py)."""
+    build: tests/test_torch_qat_train.py; so do lane transitions:
+    tests/test_torch_transition.py)."""
     for spec, flag, where in (
-            ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "lane_transition",
-             "Queue 2 item 8"),
             ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "pallas_conv",
              "Queue 2 item 9"),
             ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "remat",
@@ -222,6 +221,7 @@ def test_unported_names_raise():
 RECIPE = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                       "models_dir", "wrn-28-10-dropout_synthspectral-hard",
                       "config.yaml")
+INT8_RECIPE = RECIPE.replace("-hard", "-hard-int8")
 
 
 def _config(tmp_path, **overrides):
@@ -272,12 +272,30 @@ def test_setup_trains_two_steps_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag,where", [("use_pallas_conv", "Queue 2 item 9"),
                                         ("remat", "Queue 1 item 11"),
-                                        ("use_lane_transition",
-                                         "Queue 2 item 8")])
+                                        ("use_lane_transition", None)])
 def test_setup_raises_for_unported_flags(tmp_path, flag, where):
-    with pytest.raises(NotImplementedError, match=where):
-        setup(_config(tmp_path, **{flag: True}), device="cpu",
-              verbose=False)
+    """The flags still to port raise; ``use_lane_transition`` (``where``
+    None), ported, builds the -hard-int8 recipe whose two stage
+    transitions report ``lane_through_eligible``."""
+    if where is not None:
+        with pytest.raises(NotImplementedError, match=where):
+            setup(_config(tmp_path, **{flag: True}), device="cpu",
+                  verbose=False)
+        return
+    with open(INT8_RECIPE) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(dataset_args={**cfg["dataset_args"], "n_train": 40,
+                             "n_test": 16}, **{flag: True})
+    ls = setup(_config(tmp_path, **cfg), device="cpu", verbose=False)
+    model = ls["model"]
+    assert model.lane_transition and model.int8_train_bwd
+    shapes = {"02_stack": (128, 32, 32, 160), "03_stack": (128, 16, 16, 320)}
+    for stage in ("01_stack", "02_stack", "03_stack"):
+        block = model.get_submodule(f"{stage}.block0")
+        assert block.lane_transition
+        assert block.lane_through_eligible(
+            shapes.get(stage, (128, 32, 32, 160)), True) == (
+                stage in shapes), stage
 
 
 def test_setup_defaults_to_the_card(tmp_path):
