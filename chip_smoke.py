@@ -165,7 +165,35 @@ Phases, each fatal on failure:
    transitions' bits stay drawn, as in the reference). Both print step
    time, img/s, peak memory and the profile beside phase 7's FQT and phase
    14's QAT step, which differ from them in the one flag.
-17. Print one JSON line of per-kernel numbers, then the result line.
+17. conv3x3_same (``use_pallas_conv``): at the three WRN-28-10 stage shapes
+   and ResNet-v1-20's first (C = 16 at 32x32, zero-padded to 32 channels
+   for the kernels), batch 128, hold the op's forward and dgrad
+   (``conv3x3_bf16``, bf16 within 2 ulps) and its weight gradient
+   (``conv3x3_wgrad``, ops/cuda/csrc/conv3x3_wgrad.cu, f32 within 1e-4)
+   against their plain versions on the op's own operands, each timed
+   beside its plain version and cuDNN's bf16 forward, input gradient and
+   weight gradient (channels-last); and the whole op, value and both
+   gradients, against the plain versions of the unpadded conv.
+18. The int8 1x1 conv (``conv1x1_lanes_requant``,
+   ops/cuda/csrc/conv1x1.cu), a tested op no main path runs: at
+   ResNet-50's 1x1 shapes at batch 128 (four stages, down and up), in the
+   int8-out, bf16-out and bf16 + residual + dual modes, int8 and bf16
+   outputs equal to the plain version's, timed beside the plain version,
+   ``torch._int_mm`` with the epilogue in torch ops, and cuDNN's bf16 1x1
+   conv.
+19. Training, the ninth main path: the bf16 recipe of phase 5 with
+   ``use_pallas_conv: True``. With the launch counts zeroed just before,
+   each step must make 22 conv3x3_same calls, each one forward and one
+   dgrad on ``conv3x3_bf16`` and one wgrad with its ordered sum
+   (PALLAS_PER_STEP, PALLAS_CALLS_PER_STEP: 8 at C = 160, 7 at 320, 7 at
+   640); the first step leaves only the stem, the two stride-2 conv1s and
+   the two projections on ``F.conv2d``. The first conv's live forward and
+   the dgrad and wgrad of the first conv the backward reaches, on their
+   live operands, reproduce their outputs and agree with their plain
+   versions. Losses finite, every parameter changed, every BatchNorm count
+   equal to the steps; prints the step time, img/s, peak memory and the
+   profile beside phase 5's.
+20. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -222,9 +250,29 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
-            "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763"}
+            "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
+            "conv3x3_wgrad": _PALLAS + "conv.py:412",
+            "conv1x1_lanes_requant": _PALLAS + "conv1x1.py:158"}
 BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
               "fused_half_bf16_wgrad")
+SAME_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
+C1_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv1x1.cu"
+# (C, H, W) of conv3x3_same's kernel phase: the WRN-28-10 stages, then
+# ResNet-v1-20's first stage (C = 16, zero-padded to 32 for the kernels)
+SAME_SHAPES = STAGES + [(16, 32, 32)]
+# launches of one use_pallas_conv WRN-28-10 step: 22 conv3x3_same calls
+# (the blocks' stride-1 3x3 convs), each a forward and a dgrad on
+# conv3x3_bf16 and one wgrad with its ordered sum
+PALLAS_PER_STEP = {"augment_batch": 1, "conv3x3_bf16": 44,
+                   "conv3x3_wgrad": 22, "conv3x3_wgrad.sum": 22}
+PALLAS_CALLS_PER_STEP = {"forward": 22, "backward": 22}
+PALLAS_MIX = {160: 8, 320: 7, 640: 7}  # conv3x3_same calls per step by C
+# ResNet-50's 1x1 convs at batch 128 (tools/bench_conv1x1.py "r50"): (h,
+# w, block channels, inner width); each runs down (channels -> width) and
+# up (width -> channels)
+C1_STAGES = [(56, 56, 256, 64), (28, 28, 512, 128), (14, 14, 1024, 256),
+             (7, 7, 2048, 512)]
+C1_MODES = ("int8", "bf16", "bf16+res+dual")
 # launches of one fused-bf16 WRN-28-10 step: the stem, and 8 bf16 halves
 # (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums
 FUSED_PER_STEP = {
@@ -374,14 +422,15 @@ def port_modules():
         augment,
         bneck_nv,
         bneck_nv_train,
+        conv1x1,
         conv3x3,
         fused_block,
         stem,
         transition,
     )
 
-    return (augment, bneck_nv, bneck_nv_train, conv3x3, fused_block, stem,
-            transition)
+    return (augment, bneck_nv, bneck_nv_train, conv1x1, conv3x3,
+            fused_block, stem, transition)
 
 
 def reset_launches() -> None:
@@ -708,10 +757,12 @@ KERNEL_KINDS = [
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("nv train halves (port)", ("nvt_",)),
     ("stem (port)", ("stem_",)),
+    ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
+    ("conv3x3_same wgrad (port)", ("RawRows",)),
+    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad", "WgradG")),
     ("transition (port)", ("fwd_kernel<", "dgrad_kernel<",
                            "bwd_amax_kernel", "bwd_quant_kernel",
                            "bwd_fold_kernel", "wgrad_kernel<")),
-    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad", "Bf16Prologue")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
                                 "partial_sum")),
@@ -764,14 +815,15 @@ def _profile_steps(run_steps, steps: int):
 def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                    run_name="wrn-28-10-train", per_step=None,
                    first_step=None, seed_per_step=None, steps=TRAIN_STEPS,
-                   **overrides):
+                   calls_per_step=None, **overrides):
     """Train the full-width recipe (with the config ``overrides``) for
     ``steps`` steps through setup and the train step. ``per_step``: the
     launches each step must make (default the augment kernel only);
     ``seed_per_step``: those of them that must rebuild their dropout masks
-    from a seed (default none); ``first_step``: a context manager wrapped
-    around the first step (phases 7, 13, 14 and 16 record halves
-    there)."""
+    from a seed (default none); ``calls_per_step``: the conv3x3_same
+    passes each step must make (default none); ``first_step``: a context
+    manager wrapped around the first step (phases 7, 13, 14, 16 and 19
+    record there)."""
     import contextlib
     import math
 
@@ -780,6 +832,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
     from pytorch_ddp_resnet_tpu_torch.algos.steps import make_train_step
     from pytorch_ddp_resnet_tpu_torch.algos.train import setup
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import augment
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
     from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 
@@ -824,6 +877,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
     step_ms = (time.perf_counter() - t0) * 1e3 / (steps - WARM_STEPS)
     launches = all_launches()
     seeded = dict(fb.seed_launches)
+    same_calls = dict(conv3x3.same_calls)
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = [float(m["loss"]) for m in metrics]
@@ -831,6 +885,9 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
         launches
     assert seeded == {k: v * steps
                       for k, v in (seed_per_step or {}).items()}, seeded
+    assert same_calls == {k: v * steps
+                          for k, v in (calls_per_step or {}).items()}, \
+        same_calls
     assert all(math.isfinite(v) for v in losses), losses
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), f"{k} did not change"
@@ -855,7 +912,8 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
                 and r["whiten"])
     aug_ms = main["ms"] if main["ms"] is not None else main["call_ms"]
     return dict(
-        launches=launches, seed_launches=seeded, steps=steps,
+        launches=launches, seed_launches=seeded, same_calls=same_calls,
+        steps=steps,
         losses=losses, lr=lr, setup_s=setup_s, step_ms=step_ms,
         img_per_s=BATCH / step_ms * 1e3, augment_kernel_ms=aug_ms,
         augment_share_of_step=aug_ms / step_ms, peak_mem_gib=peak_mem,
@@ -2562,6 +2620,351 @@ def nv_train_summary(rows, training):
     return out
 
 
+# --- phases 17 to 19: use_pallas_conv's conv3x3_same, the int8 1x1 conv ------
+
+def _bf16_err(got, want, what) -> float:
+    """bf16 outputs: within 2 bf16 ulps of the tensor's largest value (the
+    tensor cores sum in f32, the plain version in float64)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    d = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    assert d <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), (what, d, top)
+    return d
+
+
+def _sum_err(got, want, what) -> float:
+    """f32 sums over the tensor cores' f32 accumulators: within 1e-4 of the
+    largest value (that accumulation does not round to nearest)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    d = (got - want).abs().max().item()
+    assert d <= 1e-4 * want.abs().max().item(), (what, d)
+    return d
+
+
+def _same_passes(k, x_cs, dy_cs, w_pad, h, w, plain):
+    """conv3x3_same's three passes on its lane operands (the op's own
+    padding), through the kernels or the plain versions."""
+    conv, wgrad = ((k.conv3x3_bf16_plain, k.conv3x3_wgrad_plain) if plain
+                   else (k.conv3x3_bf16, k.conv3x3_wgrad))
+    wp, wdg = k.pack_weights(w_pad), k.pack_weights_dgrad(w_pad)
+    return {"fwd": lambda: conv(x_cs, wp, h=h, w_img=w),
+            "dgrad": lambda: conv(dy_cs, wdg, h=h, w_img=w),
+            "wgrad": lambda: wgrad(x_cs, dy_cs, h=h, w_img=w)}
+
+
+def same_kernel_phase(peaks):
+    """Rows per (pass, shape) of conv3x3_same at batch 128: the forward and
+    dgrad (conv3x3_bf16) and the wgrad (conv3x3_wgrad) on the op's own
+    operands against their plain versions, timed beside the plain version,
+    cuDNN's bf16 forward, input gradient and weight gradient (channels-last)
+    and the bound of the unpadded conv; and the whole op, value and both
+    gradients, against the plain versions of the unpadded conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+
+    flops_bf16, _, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows, ops = [], []
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * s).to(
+            torch.bfloat16)
+
+    for c, h, w in SAME_SHAPES:
+        n = BATCH * h * w
+        x, dy = randn(BATCH, h, w, c), randn(BATCH, h, w, c)
+        wt = randn(c, c, 3, 3, s=(9 * c) ** -0.5)
+        pad = -c % 32  # the op's zero channels
+        w_pad = F.pad(wt, (0, 0, 0, 0, 0, pad, 0, pad))
+        x_cs = k.pad_rows(k.nhwc_to_lanes(x), pad)
+        dy_cs = k.pad_rows(k.nhwc_to_lanes(dy), pad)
+        kern = _same_passes(k, x_cs, dy_cs, w_pad, h, w, plain=False)
+        plain = _same_passes(k, x_cs, dy_cs, w_pad, h, w, plain=True)
+        lib = dict(zip(("fwd", "dgrad", "wgrad"),
+                       cudnn_times(g, c, c, h, w, 3)))
+        ops_ms = 2 * 9 * c * c * n / flops_bf16 * 1e3
+        byts = {"fwd": 2 * (2 * c * n + 9 * c * c),
+                "dgrad": 2 * (2 * c * n + 9 * c * c),
+                "wgrad": 2 * 2 * c * n + 4 * 9 * c * c}
+        for name in ("fwd", "dgrad", "wgrad"):
+            check = _sum_err if name == "wgrad" else _bf16_err
+            err = check(kern[name](), plain[name](), (name, c))
+            rows.append(dict(
+                name="conv3x3_wgrad" if name == "wgrad" else "conv3x3_bf16",
+                pass_=name, c=c, h=h, w=w, n=n, padded_c=x_cs.shape[0],
+                max_abs_err=err, ms=time_ms(kern[name], 10),
+                plain_ms=time_ms(plain[name], 1), library_ms=lib[name],
+                ops_ms=ops_ms, bytes_ms=byts[name] / bw * 1e3))
+
+        # the op itself, padding and slicing included, against the plain
+        # versions of the unpadded conv
+        xr, wr = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        y = k.conv3x3_same(xr, wr)
+        y.backward(dy)
+        xu, dyu = k.nhwc_to_lanes(x), k.nhwc_to_lanes(dy)
+        want_y = k.conv3x3_bf16_plain(xu, k.pack_weights(wt), h=h, w_img=w)
+        want_dx = k.conv3x3_bf16_plain(dyu, k.pack_weights_dgrad(wt), h=h,
+                                       w_img=w)
+        want_dw = k.conv3x3_wgrad_plain(xu, dyu, h=h, w_img=w).reshape(
+            c, 3, 3, c).permute(0, 3, 1, 2).to(torch.bfloat16)
+        ops.append(dict(c=c, h=h, w=w, max_abs_err=max(
+            _bf16_err(k.nhwc_to_lanes(y.detach()), want_y, ("op y", c)),
+            _bf16_err(k.nhwc_to_lanes(xr.grad), want_dx, ("op dx", c)),
+            _bf16_err(wr.grad, want_dw, ("op dw", c)))))
+        del x, dy, x_cs, dy_cs, kern, plain, xr, wr, y
+        torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows, ops
+
+
+def conv1x1_phase(peaks):
+    """Rows per (shape, direction, epilogue mode): the int8 1x1 kernel at
+    ResNet-50's 1x1 shapes (batch 128) against its plain version (int8 and
+    bf16 outputs equal), timed beside the plain version, one
+    ``torch._int_mm`` with the same epilogue in torch ops, cuDNN's bf16 1x1
+    conv (channels-last) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv1x1 as c1
+
+    _, ops_int8, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+
+    def uniform(m, lo, hi):
+        return torch.rand(m, device=dev, generator=g) * (hi - lo) + lo
+
+    for h, w, ch, wd in C1_STAGES:
+        n = BATCH * h * w
+        for cin, cout in ((ch, wd), (wd, ch)):
+            xq = torch.randint(-127, 128, (cin, n), device=dev, generator=g,
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (cout, cin), device=dev,
+                               generator=g, dtype=torch.int8)
+            sigma = (127.0 ** 2 / 3) * cin ** 0.5  # std of the s32 sums
+            scale, shift = uniform(cout, 0.5, 1.5) / sigma, uniform(
+                cout, -0.5, 0.5)
+            res = torch.randn(cout, n, device=dev, generator=g).to(
+                torch.bfloat16)
+            sb, tb = uniform(cout, 10.0, 40.0), uniform(cout, -5.0, 5.0)
+            x4 = torch.randn(BATCH, cin, h, w, device=dev, generator=g).to(
+                torch.bfloat16).to(memory_format=torch.channels_last)
+            w4 = torch.randn(cout, cin, 1, 1, device=dev, generator=g).to(
+                torch.bfloat16).to(memory_format=torch.channels_last)
+            cudnn_ms = time_ms(lambda: F.conv2d(x4, w4), 10)
+            del x4, w4
+            # the yardstick's layout: positions major, as cuBLASLt's int8
+            # product takes it (x^T row-major, W^T column-major)
+            x_t, res_t = xq.t().contiguous(), res.t().contiguous()
+            for mode in C1_MODES:
+                args = [xq, wq, scale, shift]
+                kw = dict(relu=mode != "bf16+res+dual")
+                if mode == "int8":
+                    kw["inv_out_scale"] = 127 / 4
+                if mode == "bf16+res+dual":
+                    args += [res, (sb, tb)]
+
+                def run(fn=c1.conv1x1_lanes_requant, args=args, kw=kw):
+                    return fn(*args, **kw)
+
+                def library(mode=mode, kw=kw):
+                    y = torch._int_mm(x_t, wq.t()).float() * scale + shift
+                    if mode == "bf16+res+dual":
+                        y = y + res_t.float()
+                        q = torch.clamp(torch.round(torch.clamp_min(
+                            y * sb + tb, 0.0)), -127, 127).to(torch.int8)
+                        return y.to(torch.bfloat16), q
+                    y = torch.clamp_min(y, 0.0)
+                    if mode == "int8":
+                        return torch.clamp(torch.round(
+                            y * kw["inv_out_scale"]), -127, 127).to(
+                                torch.int8)
+                    return y.to(torch.bfloat16)
+
+                got = run()
+                want = run(c1.conv1x1_lanes_requant_plain)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for o, r in zip(got, want):
+                    assert o.dtype == r.dtype and o.shape == r.shape
+                    assert torch.equal(o, r), (cin, cout, mode, (
+                        o.float() - r.float()).abs().max().item())
+                    assert r.unique().numel() > 50, (cin, cout, mode)
+                byts = (cin * n + cin * cout + 8 * cout
+                        + cout * n * (1 if mode == "int8" else 2)
+                        + (3 * cout * n + 8 * cout if mode.endswith("dual")
+                           else 0))
+                rows.append(dict(
+                    name="conv1x1_lanes_requant", h=h, w=w, cin=cin,
+                    cout=cout, n=n, mode=mode, max_abs_err=0.0,
+                    ms=time_ms(run, 10),
+                    plain_ms=time_ms(
+                        lambda: run(c1.conv1x1_lanes_requant_plain), 1),
+                    library_ms=time_ms(library, 10), cudnn_bf16_ms=cudnn_ms,
+                    ops_ms=2 * cin * cout * n / ops_int8 * 1e3,
+                    bytes_ms=byts / bw * 1e3))
+            del xq, wq, res, x_t, res_t
+            torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+class RecordSame:
+    """Around the first use_pallas_conv train step (phase 19): the operands
+    and outputs of the step's first conv3x3_same forward, and of the dgrad
+    and wgrad of the first conv the backward reaches (the op builds fresh
+    operands for every call and the kernels write fresh outputs, so
+    references suffice); and the convs the step still leaves on
+    ``F.conv2d``, by (kernel size, stride, Cin)."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+
+        self.k, self.orig = k, (k.conv3x3_bf16, k.conv3x3_wgrad)
+        orig_conv, orig_wgrad = self.orig
+        rec, last = {}, {}
+        self.rec = rec
+
+        def conv(x_cs, w_packed, *, h, w_img):
+            out = orig_conv(x_cs, w_packed, h=h, w_img=w_img)
+            last["conv"] = dict(args=(x_cs, w_packed), out=out, h=h,
+                                w=w_img)
+            rec.setdefault("fwd", last["conv"])
+            return out
+
+        def wgrad(x_cs, dy_cs, *, h, w_img):
+            out = orig_wgrad(x_cs, dy_cs, h=h, w_img=w_img)
+            if "wgrad" not in rec:
+                rec["wgrad"] = dict(args=(x_cs, dy_cs), out=out, h=h,
+                                    w=w_img)
+                rec["dgrad"] = last["conv"]
+            return out
+
+        k.conv3x3_bf16, k.conv3x3_wgrad = conv, wgrad
+        # the convs the step leaves on the library: (kernel, stride, Cin)
+        self.library = {}
+        self.conv2d = F.conv2d
+
+        def counting(x, weight, *args, stride=1, **kw):
+            key = (weight.shape[-1], stride, weight.shape[1])
+            self.library[key] = self.library.get(key, 0) + 1
+            return self.conv2d(x, weight, *args, stride=stride, **kw)
+
+        F.conv2d = counting
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        self.k.conv3x3_bf16, self.k.conv3x3_wgrad = self.orig
+        F.conv2d = self.conv2d
+        return False
+
+
+def live_same_check(rec):
+    """The recorded passes through the kernels on their live operands: each
+    reproduces its live output and agrees with its plain version."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+
+    out = {}
+    for name in ("fwd", "dgrad", "wgrad"):
+        r = rec[name]
+        kw = dict(h=r["h"], w_img=r["w"])
+        kern, plain = ((k.conv3x3_wgrad, k.conv3x3_wgrad_plain)
+                       if name == "wgrad"
+                       else (k.conv3x3_bf16, k.conv3x3_bf16_plain))
+        got = kern(*r["args"], **kw)
+        assert torch.equal(got, r["out"]), name
+        check = _sum_err if name == "wgrad" else _bf16_err
+        out[name] = dict(c=r["args"][0].shape[0], n=r["args"][0].shape[1],
+                         max_abs_err=check(got, plain(*r["args"], **kw),
+                                           ("live", name)))
+    return out
+
+
+def same_summary(rows, pallas, mix):
+    """The entries of conv3x3_wgrad (new) and of conv3x3_bf16 on the
+    use_pallas_conv path: phase 17's per-call times summed over the step's
+    22 calls (``mix``: calls per step by width), launches of phase 19."""
+    def step_sum(name, passes):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                   bytes_ms=0.0)
+        for r in rows:
+            if r["name"] == name and r["pass_"] in passes and r["c"] in mix:
+                for key in tot:
+                    tot[key] += r[key] * mix[r["c"]]
+        tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
+        tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                           else "bytes")
+        return tot
+
+    keys = ("pass_", "c", "h", "w", "padded_c", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    wg = step_sum("conv3x3_wgrad", ("wgrad",))
+    conv = step_sum("conv3x3_bf16", ("fwd", "dgrad"))
+    per = (f"use_pallas_conv train step at batch {BATCH} (ms per call "
+           "summed over the step's 22 calls; launches over the run)")
+    wgrad_entry = dict(
+        name="conv3x3_wgrad", route="cuda", source=SAME_SOURCE,
+        replaces=REPLACES["conv3x3_wgrad"],
+        launches=pallas["launches"].get("conv3x3_wgrad", 0),
+        max_abs_err=max(r["max_abs_err"] for r in rows
+                        if r["name"] == "conv3x3_wgrad"),
+        ms=wg["ms"], plain_ms=wg["plain_ms"], bound_ms=wg["bound_ms"],
+        bound_by=wg["bound_by"], library_ms=wg["library_ms"], per=per,
+        stages=[{key: r[key] for key in keys} for r in rows
+                if r["name"] == "conv3x3_wgrad"])
+    conv_path = dict(
+        launches=pallas["launches"].get("conv3x3_bf16", 0), per=per,
+        ms=conv["ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
+        bound_by=conv["bound_by"], library_ms=conv["library_ms"],
+        stages=[{key: r[key] for key in keys} for r in rows
+                if r["name"] == "conv3x3_bf16"])
+    return wgrad_entry, conv_path
+
+
+def conv1x1_summary(rows):
+    """The int8 1x1 conv's entry: a tested op that no main path runs (0
+    launches there); ms summed over ResNet-50's eight 1x1 shapes in the
+    int8-out mode."""
+    mine = [r for r in rows if r["mode"] == "int8"]
+    tot = {key: sum(r[key] for r in mine)
+           for key in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
+                       "ops_ms", "bytes_ms")}
+    return dict(
+        name="conv1x1_lanes_requant", route="cuda", source=C1_SOURCE,
+        replaces=REPLACES["conv1x1_lanes_requant"], launches=0,
+        main_path=None,
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
+        bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                  else "bytes"),
+        library_ms=tot["library_ms"], cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+        per=(f"ResNet-50's eight 1x1 shapes at batch {BATCH}, int8 out "
+             "(summed); no main path calls the op, so no launches there; "
+             "library = torch._int_mm + the epilogue in torch ops"),
+        stages=[{key: r[key] for key in (
+            "h", "cin", "cout", "mode", "ms", "plain_ms", "library_ms",
+            "cudnn_bf16_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for r in rows])
+
+
 def print_training(label, training):
     print(f"{label}: " + json.dumps(
         {k: v for k, v in training.items() if k != "profile"}))
@@ -2612,7 +3015,20 @@ def main() -> int:
     nvt_rows = nv_train_kernel_phase(peaks)
     bf16_rows, seed_rows = bf16_kernel_phase(peaks)
     tr_rows = transition_kernel_phase(peaks)
+    same_rows, same_ops = same_kernel_phase(peaks)
+    c1_rows = conv1x1_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in same_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "pass_", "c", "padded_c", "h", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")}))
+    print("conv3x3_same, the op against the unpadded plain conv: "
+          + json.dumps(same_ops))
+    for r in c1_rows:
+        print("  " + json.dumps({k: r[k] for k in (
+            "name", "h", "cin", "cout", "mode", "ms", "plain_ms",
+            "library_ms", "cudnn_bf16_ms", "bound_ms", "bound_by",
+            "max_abs_err")}))
     for r in tr_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "stage", "cin", "cout", "mode", "tile", "ms", "plain_ms",
@@ -2718,6 +3134,30 @@ def main() -> int:
         print(f"lane-transition training phases: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
+
+        rec_same = RecordSame()
+        pallas = training_phase(
+            workdir, aug_rows, TRAIN_CONFIG, "wrn-28-10-pallas-conv",
+            PALLAS_PER_STEP, rec_same, calls_per_step=PALLAS_CALLS_PER_STEP,
+            use_pallas_conv=True)
+        mix = {}
+        for (name, cin, _, _, _), v in conv3x3.launch_shapes.items():
+            if name == "conv3x3_wgrad":
+                mix[cin] = mix.get(cin, 0) + v // (TRAIN_STEPS
+                                                   + PROFILE_STEPS)
+        assert mix == PALLAS_MIX, mix
+        # on the library: the stem (3 -> 160), the two stride-2 conv1s and
+        # the two 1x1 projections; no stride-1 3x3 conv of a block
+        assert rec_same.library == {(3, 1, 3): 1, (3, 2, 160): 1,
+                                    (3, 2, 320): 1, (1, 1, 160): 1,
+                                    (1, 1, 320): 1}, rec_same.library
+        pallas["library_convs_first_step"] = [
+            list(key) + [v] for key, v in sorted(rec_same.library.items())]
+        pallas["live_conv"] = live_same_check(rec_same.rec)
+        print(f"pallas-conv training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
         r50 = bneck_serving_phase(workdir)
         print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -2749,6 +3189,20 @@ def main() -> int:
                                for k in sorted(set(a) | set(b))}
         print(f"lane transitions vs phase {7 if label == 'FQT' else 14} "
               f"({label}; with, without the flag): " + json.dumps(line))
+    print_training("pallas-conv training", pallas)
+    line = dict(step_ms=(pallas["step_ms"], training["step_ms"]),
+                img_per_s=(pallas["img_per_s"], training["img_per_s"]),
+                peak_mem_gib=(pallas["peak_mem_gib"],
+                              training["peak_mem_gib"]))
+    if pallas["profile"] is not None and training["profile"] is not None:
+        a = pallas["profile"]["device_ms_per_step_by_kind"]
+        b = training["profile"]["device_ms_per_step_by_kind"]
+        for key in ("device_ms_per_step", "busy_share", "kernels_per_step"):
+            line[key] = (pallas["profile"][key], training["profile"][key])
+        line["by_kind"] = {k: (a.get(k, 0.0), b.get(k, 0.0))
+                           for k in sorted(set(a) | set(b))}
+    print("use_pallas_conv vs phase 5 (bf16; with, without the flag): "
+          + json.dumps(line))
     print_training("resnet-50 serving", {
         k: v for k, v in r50.items() if k != "shapes"})
     for label, run in (("resnet-50 int8 training", r50_fqt),
@@ -2783,12 +3237,28 @@ def main() -> int:
             print(f"{label}: bf16 half kernels per step, phase 12 per-call "
                   f"times summed {summed} ms, profiled "
                   f"{kinds.get('fused bf16 half (port)', 0.0)} ms")
+    conv_kernels = kernel_summary(rows, serving)
+    wgrad_entry, conv_path = same_summary(same_rows, pallas, mix)
+    if pallas["profile"] is not None:
+        kinds = pallas["profile"]["device_ms_per_step_by_kind"]
+        print("pallas-conv training: conv3x3_same kernels per step, phase 17 "
+              f"per-call times summed {conv_path['ms']} + "
+              f"{wgrad_entry['ms']} ms, profiled "
+              f"{kinds.get('conv3x3_same fwd + dgrad (port)', 0.0)} + "
+              f"{kinds.get('conv3x3_same wgrad (port)', 0.0)} ms")
+    entry = conv_kernels[0]
+    assert entry["name"] == "conv3x3_bf16"
+    entry["split_launches"] = {"serving": entry["launches"],
+                               "pallas_conv_training": conv_path["launches"]}
+    entry["launches"] = sum(entry["split_launches"].values())
+    entry["pallas_conv_step"] = conv_path
     print(f"card: {nvidia_smi()}")
-    print(json.dumps({"kernels": kernel_summary(rows, serving)
+    print(json.dumps({"kernels": conv_kernels
                       + [augment_summary(aug_rows, training)]
                       + fqt_kernels + nv_summary(nv_rows, r50)
                       + nvt_kernels + bf16_kernels
-                      + transition_summary(tr_rows, lane, lane_qat)}))
+                      + transition_summary(tr_rows, lane, lane_qat)
+                      + [wgrad_entry, conv1x1_summary(c1_rows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

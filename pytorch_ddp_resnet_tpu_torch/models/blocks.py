@@ -49,8 +49,12 @@ or, under ``inkernel_dropout`` where C <= 320 and C*N < 2^31, replaced by
 one int32 seed from which the kernels rebuild the mask in registers; the
 transition half's are always drawn, over the parity-packed shape
 (4*Cin, N/4). ``models/layers.py`` ``Sequential`` threads the lane layout
-from block to block. The Pallas conv and remat are not ported yet:
-``check_unported_flags`` raises for each.
+from block to block.
+
+``pallas_conv`` (both block types, as in JAX): the block's stride-1 3x3
+convs on the layer path run ``conv3x3_same`` (``Conv(pallas=True)``); the
+lane and fused paths above take precedence where their gates admit the
+block. Remat is not ported yet: ``check_unported_flags`` raises for it.
 
 ``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
 1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
@@ -94,7 +98,6 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.nv_common import fma_f32
 
 # config flag -> where ROADMAP.md schedules its port
 _UNPORTED_FLAGS = {
-    "pallas_conv": "Queue 2 item 9, a later slice",
     "remat": "Queue 1 item 11, a later slice",
 }
 _BNECK_QAT = ("Queue 2 item 7b: int8_train without int8_train_bwd on a "
@@ -104,9 +107,9 @@ _BNECK_QAT = ("Queue 2 item 7b: int8_train without int8_train_bwd on a "
 
 def check_unported_flags(**flags) -> None:
     """Raise for any set kernel-path flag of the JAX ``ResidualBlock`` that
-    the port lacks: it never ignores a flag."""
+    the port lacks (``_UNPORTED_FLAGS``): it never ignores a flag."""
     for name, value in flags.items():
-        if value:
+        if value and name in _UNPORTED_FLAGS:
             raise NotImplementedError(
                 f"{name}=True is not ported yet (ROADMAP.md "
                 f"{_UNPORTED_FLAGS[name]})")
@@ -227,8 +230,9 @@ class ResidualBlock(_BlockBase):
                  stride_override: Optional[int] = None,
                  int8_train: bool = False, int8_train_bwd: bool = False,
                  fused_block: bool = False, inkernel_dropout: bool = False,
-                 lane_transition: bool = False):
+                 lane_transition: bool = False, pallas_conv: bool = False):
         super().__init__()
+        self.pallas_conv = pallas_conv
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
         self.fused_block = fused_block
@@ -245,9 +249,10 @@ class ResidualBlock(_BlockBase):
         cin, cout, cd = self.in_channels, self.out_channels, compute_dtype
         self._check_shortcut("Residual", "Use use_proj=True.")
         self.conv1 = Conv(cin, cout, 3, stride=self.stride, padding=1,
-                          use_bias=False, compute_dtype=cd)
+                          use_bias=False, compute_dtype=cd,
+                          pallas=pallas_conv)
         self.conv2 = Conv(cout, cout, 3, stride=1, padding=1, use_bias=False,
-                          compute_dtype=cd)
+                          compute_dtype=cd, pallas=pallas_conv)
         self.norm1 = BatchNorm(cin if preact else cout, compute_dtype=cd)
         self.norm2 = BatchNorm(cout, compute_dtype=cd)
         self.drop1 = Dropout(dropout_prob)
@@ -504,8 +509,9 @@ class BottleneckResidualBlock(_BlockBase):
                  stride_override: Optional[int] = None,
                  int8_train: bool = False, int8_train_bwd: bool = False,
                  fused_block: bool = False, inkernel_dropout: bool = False,
-                 lane_transition: bool = False):
+                 lane_transition: bool = False, pallas_conv: bool = False):
         super().__init__()
+        self.pallas_conv = pallas_conv
         # basic-trunk features, as in JAX
         del fused_block, inkernel_dropout, lane_transition
         if int8_train and not int8_train_bwd:
@@ -529,7 +535,8 @@ class BottleneckResidualBlock(_BlockBase):
                              self.out_channels, compute_dtype)
         self.conv1 = Conv(cin, cb, 1, use_bias=False, compute_dtype=cd)
         self.conv2 = Conv(cb, cb, 3, stride=self.stride, padding=1,
-                          use_bias=False, compute_dtype=cd)
+                          use_bias=False, compute_dtype=cd,
+                          pallas=pallas_conv)
         self.conv3 = Conv(cb, cout, 1, use_bias=False, compute_dtype=cd)
         self.norm1 = BatchNorm(cin if preact else cb, compute_dtype=cd)
         self.norm2 = BatchNorm(cb, compute_dtype=cd)

@@ -53,6 +53,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_ddp_resnet_tpu_torch.ops import initializers as init_lib
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
+    conv3x3_same,
+    lanes_to_nhwc,
+    nhwc_to_lanes,
+)
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.stem import (
     CIN_MAX,
     stem_conv_lane,
@@ -71,14 +76,12 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def to_lane(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """NHWC -> the lane layout [C, B*H*W] (image-major), in ``dtype``,
     contiguous (the kernels take dense rows)."""
-    b, h, w, c = x.shape
-    return x.to(dtype).permute(3, 0, 1, 2).reshape(c, b * h * w).contiguous()
+    return nhwc_to_lanes(x.to(dtype))
 
 
 def from_lane(x_cs: torch.Tensor, shape) -> torch.Tensor:
     """The lane layout back to NHWC of ``shape`` (b, h, w, c)."""
-    b, h, w, c = shape
-    return x_cs.reshape(c, b, h, w).permute(1, 2, 3, 0)
+    return lanes_to_nhwc(x_cs, *shape[:3])
 
 
 def _delane(payload, shape) -> torch.Tensor:
@@ -97,14 +100,20 @@ class Layer(nn.Module):
 
 
 class Conv(Layer):
-    """2-D convolution, NHWC in and out, weight ``[Cout, Cin, K, K]``."""
+    """2-D convolution, NHWC in and out, weight ``[Cout, Cin, K, K]``.
+    ``pallas`` (the ``use_pallas_conv`` flag): a 3x3 stride-1 padding-1
+    conv runs ``conv3x3_same`` (ops/cuda/conv3x3.py: the hand kernels for
+    the forward and both gradients), in train and eval mode, as the JAX
+    ``Conv`` runs its Pallas kernel; every other conv stays on
+    ``F.conv2d``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
                  kernel_init: str = "torch_default",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 lane_stem: bool = False):
+                 pallas: bool = False, lane_stem: bool = False):
         super().__init__()
+        self.pallas = pallas
         # set by the spec parser for the stem of a fused-trunk preact net:
         # in train mode the conv then emits the lane layout (ops/cuda/stem.py)
         self.lane_stem = lane_stem
@@ -138,9 +147,14 @@ class Conv(Layer):
 
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         cd = self.compute_dtype
-        y = F.conv2d(nhwc_to_nchw(x.to(cd)), self.weight.to(cd),
-                     stride=self.stride, padding=self.padding)
-        y = nchw_to_nhwc(y)
+        if (self.pallas and self.kernel_size == 3 and self.stride == 1
+                and self.padding == 1):
+            y = conv3x3_same(x.to(cd), self.weight.to(cd))
+        else:
+            y = nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x.to(cd)),
+                                      self.weight.to(cd),
+                                      stride=self.stride,
+                                      padding=self.padding))
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y

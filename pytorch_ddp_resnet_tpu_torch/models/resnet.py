@@ -70,7 +70,7 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                compute_dtype: torch.dtype = torch.bfloat16,
                int8_train: bool = False, int8_train_bwd: bool = False,
                fused_block: bool = False, inkernel_dropout: bool = False,
-               lane_transition: bool = False,
+               lane_transition: bool = False, pallas_conv: bool = False,
                ) -> List[Tuple[str, nn.Module]]:
     """Token list -> [(name, layer)], threading the channel count."""
     tokens = architecture_spec.split()
@@ -109,7 +109,7 @@ def parse_spec(architecture_spec: str, preact: bool, use_proj: bool,
                 compute_dtype=cd, int8_train=int8_train,
                 int8_train_bwd=int8_train_bwd, fused_block=fused_block,
                 inkernel_dropout=inkernel_dropout,
-                lane_transition=lane_transition,
+                lane_transition=lane_transition, pallas_conv=pallas_conv,
                 **(first if ell == 0 else rest))))
         channels = cout
         return Sequential(blocks)
@@ -167,8 +167,10 @@ class ResNet(Sequential):
     place of materialized dropout bits; ``lane_transition`` runs the int8
     trunk's stride-2 transitions lane in, lane out on the transition half.
     ``int8_train_bwd`` trains the post-act bottleneck trunk on the NV
-    training halves. ``pallas_conv``, ``remat`` and QAT on a bottleneck
-    block raise NotImplementedError."""
+    training halves. ``pallas_conv`` runs the blocks' stride-1 3x3 convs
+    on the layer path through ``conv3x3_same`` (not the stem's, as in
+    JAX). ``remat`` and QAT on a bottleneck block raise
+    NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,
                  dropout_prob: float,
@@ -179,7 +181,7 @@ class ResNet(Sequential):
                  int8_train: bool = False, int8_train_bwd: bool = False,
                  inkernel_dropout: bool = False,
                  lane_transition: bool = False):
-        check_unported_flags(pallas_conv=pallas_conv, remat=remat)
+        check_unported_flags(remat=remat)
         dev = resolve_device(device)
         super().__init__(parse_spec(architecture_spec, preact, use_proj,
                                     dropout_prob, compute_dtype,
@@ -187,7 +189,8 @@ class ResNet(Sequential):
                                     int8_train_bwd=int8_train_bwd,
                                     fused_block=fused_block,
                                     inkernel_dropout=inkernel_dropout,
-                                    lane_transition=lane_transition))
+                                    lane_transition=lane_transition,
+                                    pallas_conv=pallas_conv))
         self.architecture_spec = architecture_spec
         self.preact = preact
         self.use_proj = use_proj
@@ -198,6 +201,7 @@ class ResNet(Sequential):
         self.fused_block = fused_block
         self.inkernel_dropout = inkernel_dropout
         self.lane_transition = lane_transition
+        self.pallas_conv = pallas_conv
         self.reset_parameters(generator)
         self.to(dev)
 

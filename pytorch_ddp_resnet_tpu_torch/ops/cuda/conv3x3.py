@@ -9,6 +9,13 @@ so the tests compare like with like.
   calibration pass of int8 serving). Replaces ``conv3x3_lanes``.
 - ``conv3x3_int8_requant``: s8 x s8 -> s32 with the requantization
   epilogue fused in. Replaces ``conv3x3_lanes_requant``.
+- ``conv3x3_wgrad``: the weight gradient of the bf16 conv, dW [Cout,
+  9*Cin] = dy [Cout, N] @ patches(x)^T in f32 (kernel in
+  ``csrc/conv3x3_wgrad.cu``). Replaces ``conv3x3_wgrad_lanes``.
+- ``conv3x3_same``: the differentiable stride-1 SAME 3x3 conv of the
+  ``use_pallas_conv`` flag, NHWC x OIHW -> NHWC: forward and input
+  gradient on ``conv3x3_bf16``, weight gradient on ``conv3x3_wgrad``.
+  Counterpart of the JAX ``conv3x3_same`` (custom VJP).
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to
 the plain PyTorch version beside it; a CUDA tensor launches the kernel in
@@ -39,6 +46,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
 
 launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
+same_calls: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +55,7 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     launches.clear()
     launch_shapes.clear()
+    same_calls.clear()
 
 
 def pick_tile(hw: int, n: int, c: int = 160, max_tile: int = 2048) -> int:
@@ -76,6 +85,14 @@ def pack_weights(w_oihw: torch.Tensor) -> torch.Tensor:
     if (kh, kw) != (3, 3):
         raise ValueError("pack_weights expects a 3x3 kernel.")
     return w_oihw.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
+
+
+def pack_weights_dgrad(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW 3x3 kernel packed for the input gradient (rot180, in/out
+    swapped: w'[ci, (dh, dw, co)] = w[co, ci, 2-dh, 2-dw]): [Cin, 9*Cout].
+    The input gradient is then the forward conv of dy with it (JAX
+    ``pack_weights_dgrad``)."""
+    return pack_weights(w.flip(2, 3).transpose(0, 1))
 
 
 def _shapes(x_cs, w_packed, h: int, w_img: int) -> Tuple[int, int, int]:
@@ -121,17 +138,27 @@ def quant_s8(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(v), -127.0, 127.0).to(torch.int8)
 
 
-def conv3x3_int8_requant_plain(x_q, w_q, scale, shift, res=None, dual=None,
-                               *, h: int, w_img: int, relu: bool = False,
-                               inv_out_scale: Optional[float] = None):
-    """Plain version of ``conv3x3_int8_requant``."""
-    if dual is not None and inv_out_scale is not None:
-        raise ValueError("dual output requires the bf16-carrier mode")
-    acc = conv3x3_s32_plain(x_q, w_q, h=h, w_img=w_img)
-    y = acc.to(torch.float32) * scale.to(torch.float32)[:, None] \
-        + shift.to(torch.float32)[:, None]
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32(a*b + c) rounded once, as the reference's ``a * b + c`` is
+    contracted into one FMA: the f32 operands' product is exact in
+    float64."""
+    f32, f64 = torch.float32, torch.float64
+    return (a.to(f32).to(f64) * torch.as_tensor(b).to(f32).to(f64)
+            + torch.as_tensor(c).to(f32).to(f64)).to(f32)
+
+
+def requant_epilogue(acc, scale, shift, res=None, dual=None, *,
+                     relu: bool = False,
+                     inv_out_scale: Optional[float] = None):
+    """The int8 convs' epilogue on an s32 accumulator [Cout, N] in f32, at
+    the reference's rounding points (its kernels as XLA computes them):
+    ``acc * scale + shift`` and the dual ``y * sb + tb`` are each one
+    fused multiply-add, the residual add and the output scaling round on
+    their own."""
+    f32 = torch.float32
+    y = fma_f32(acc.to(f32), scale[:, None], shift[:, None])
     if res is not None:
-        y = y + res.to(torch.bfloat16).to(torch.float32)
+        y = y + res.to(torch.bfloat16).to(f32)
     if relu:
         y = torch.clamp_min(y, 0.0)
     out = (quant_s8(y * float(inv_out_scale))
@@ -139,9 +166,48 @@ def conv3x3_int8_requant_plain(x_q, w_q, scale, shift, res=None, dual=None,
     if dual is None:
         return out
     sb, tb = dual
-    g = torch.clamp_min(y * sb.to(torch.float32)[:, None]
-                        + tb.to(torch.float32)[:, None], 0.0)
-    return out, quant_s8(g)
+    return out, quant_s8(torch.clamp_min(
+        fma_f32(y, sb[:, None], tb[:, None]), 0.0))
+
+
+def conv3x3_int8_requant_plain(x_q, w_q, scale, shift, res=None, dual=None,
+                               *, h: int, w_img: int, relu: bool = False,
+                               inv_out_scale: Optional[float] = None):
+    """Plain version of ``conv3x3_int8_requant``."""
+    if dual is not None and inv_out_scale is not None:
+        raise ValueError("dual output requires the bf16-carrier mode")
+    acc = conv3x3_s32_plain(x_q, w_q, h=h, w_img=w_img)
+    return requant_epilogue(acc, scale, shift, res, dual, relu=relu,
+                            inv_out_scale=inv_out_scale)
+
+
+def patches_f64(q: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """[C, T] whole images -> the 3x3 SAME patch matrix [9*C, T] in
+    float64, rows in (dh, dw, c) order."""
+    c, t = q.shape
+    b = t // (h * w_img)
+    img = q.to(torch.float64).reshape(c, b, h, w_img).transpose(0, 1)
+    cols = F.unfold(img, 3, padding=1)              # [b, c*9, h*w]
+    cols = cols.reshape(b, c, 9, h * w_img).permute(2, 1, 0, 3)
+    return cols.reshape(9 * c, t)
+
+
+def _wgrad_shapes(x_cs, dy_cs, h: int, w_img: int) -> Tuple[int, int, int]:
+    cin, n = x_cs.shape
+    cout = dy_cs.shape[0]
+    if n % (h * w_img) != 0 or dy_cs.shape[1] != n:
+        raise ValueError(f"bad shapes x={tuple(x_cs.shape)} "
+                         f"dy={tuple(dy_cs.shape)}")
+    return cin, cout, n
+
+
+def conv3x3_wgrad_plain(x_cs, dy_cs, *, h: int, w_img: int) -> torch.Tensor:
+    """Plain version of ``conv3x3_wgrad``: the float64 sum over every
+    position, returned as f32 [Cout, 9*Cin], columns in (dh, dw, ci)
+    order (``pack_weights``'s)."""
+    _wgrad_shapes(x_cs, dy_cs, h, w_img)
+    return (dy_cs.to(torch.float64) @ patches_f64(x_cs, h, w_img).T).to(
+        torch.float32)
 
 
 # --- kernels -------------------------------------------------------------------
@@ -258,3 +324,156 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
     launch_shapes[(name, cin, cout, n,
                    _requant_mode(res, dual, inv_out_scale))] += 1
     return out if out2 is None else (out, out2)
+
+
+# --- the weight gradient ------------------------------------------------------
+
+WG_CHUNK = 256         # positions per staging chunk (csrc/wgrad_bf16.cuh)
+WG_SPLIT_TARGET = 528  # wgrad blocks to aim for: four per SM of an H100
+
+_lib_wgrad: Optional[ctypes.CDLL] = None
+
+
+def _library_wgrad() -> ctypes.CDLL:
+    global _lib_wgrad
+    if _lib_wgrad is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("conv3x3_wgrad")
+        lib.conv3x3_wgrad_launch.argtypes = [_P, _P, _P] + [_I] * 6 + [_P]
+        lib.conv3x3_wgrad_launch.restype = _I
+        lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
+        lib.partial_sum_launch.restype = _I
+        _lib_wgrad = lib
+    return _lib_wgrad
+
+
+def check_wgrad_geometry(name: str, cin: int, n: int, h: int,
+                         w_img: int) -> None:
+    """The bf16 wgrad kernels' own shape needs (csrc/wgrad_bf16.cuh): the
+    contraction's input channels in 32-channel blocks, image rows of at
+    most 32 positions in 8-position pieces, and whole rows or images per
+    256-position staging chunk."""
+    if cin % 32:
+        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
+    hw = h * w_img
+    if (n % hw or n % WG_CHUNK or w_img % 8 or w_img > 32
+            or WG_CHUNK % w_img or (WG_CHUNK % hw and hw % WG_CHUNK)):
+        raise ValueError(f"{name}: N={n} / image {h}x{w_img} vs the "
+                         f"{WG_CHUNK}-position staging chunk")
+
+
+def wgrad_splits(cin: int, cout: int, n: int) -> int:
+    """Position splits of the bf16 wgrad's grid: the largest power of two
+    that divides the 256-position chunks and keeps the grid near
+    WG_SPLIT_TARGET blocks."""
+    blocks = (cin // 32) * -(-cout // 64)
+    chunks = n // WG_CHUNK
+    s = 1
+    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
+        s *= 2
+    return s
+
+
+def conv3x3_wgrad(x_cs, dy_cs, *, h: int, w_img: int) -> torch.Tensor:
+    """Weight gradient of the stride-1 SAME 3x3 conv: x [Cin, N], dy [Cout,
+    N] (N = B*H*W, whole images) -> dW [Cout, 9*Cin] f32, columns in (dh,
+    dw, ci) order. On the card: bf16 operands, Cin a multiple of 32, the
+    geometry of ``check_wgrad_geometry``; one kernel launch over position
+    splits and one ordered sum of the splits (``conv3x3_wgrad.sum``)."""
+    cin, cout, n = _wgrad_shapes(x_cs, dy_cs, h, w_img)
+    if on_cpu(x_cs):
+        return conv3x3_wgrad_plain(x_cs, dy_cs, h=h, w_img=w_img)
+    name = "conv3x3_wgrad"
+    require_cuda(name, [x_cs, dy_cs], [torch.bfloat16] * 2)
+    check_wgrad_geometry(name, cin, n, h, w_img)
+    splits = wgrad_splits(cin, cout, n)
+    dev = x_cs.device
+    part = torch.empty((splits, cout * 9 * cin), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty(cout * 9 * cin, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _library_wgrad()
+    check_rc(name, lib.conv3x3_wgrad_launch(
+        x_cs.data_ptr(), dy_cs.data_ptr(), part.data_ptr(), cin, cout, n, h,
+        w_img, splits, stream))
+    launches[name] += 1
+    launch_shapes[(name, cin, cout, n, "bf16")] += 1
+    check_rc(f"{name}.sum", lib.partial_sum_launch(
+        part.data_ptr(), out.data_ptr(), splits, cout * 9 * cin, stream))
+    launches[f"{name}.sum"] += 1
+    return out.reshape(cout, 9 * cin)
+
+
+# --- the differentiable conv of ``use_pallas_conv`` ----------------------------
+
+def nhwc_to_lanes(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [C, B*H*W], contiguous."""
+    b, h, w, c = x.shape
+    return x.permute(3, 0, 1, 2).reshape(c, b * h * w).contiguous()
+
+
+def lanes_to_nhwc(y_cs: torch.Tensor, b: int, h: int, w: int):
+    """[C, B*H*W] -> a [B, H, W, C] view."""
+    return y_cs.reshape(y_cs.shape[0], b, h, w).permute(1, 2, 3, 0)
+
+
+def pad_rows(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """``t`` with ``extra`` zero rows appended on dim 0."""
+    return F.pad(t, (0, 0) * (t.dim() - 1) + (0, extra)) if extra else t
+
+
+class _Conv3x3Same(torch.autograd.Function):
+    """NHWC x, OIHW w (both in one dtype) -> NHWC y. Widths run zero-padded
+    to multiples of 32 (the kernels contract in 32-channel chunks): zero
+    channels add nothing and are sliced off again, so the result is
+    exact."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        b, h, w_img, cin = x.shape
+        cout = w.shape[0]
+        w_p = F.pad(w, (0, 0, 0, 0, 0, -cin % 32, 0, -cout % 32))
+        x_cs = pad_rows(nhwc_to_lanes(x), -cin % 32)
+        y = conv3x3_bf16(x_cs, pack_weights(w_p), h=h, w_img=w_img)
+        # the lane-layout x is saved: the wgrad consumes it (JAX does so)
+        ctx.save_for_backward(x_cs, w_p)
+        ctx.dims = (b, h, w_img, cin, cout)
+        same_calls["forward"] += 1
+        return lanes_to_nhwc(y[:cout], b, h, w_img)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_cs, w_p = ctx.saved_tensors
+        b, h, w_img, cin, cout = ctx.dims
+        dy_cs = pad_rows(nhwc_to_lanes(dy.to(x_cs.dtype)), -cout % 32)
+        dx = conv3x3_bf16(dy_cs, pack_weights_dgrad(w_p), h=h, w_img=w_img)
+        dw = conv3x3_wgrad(x_cs, dy_cs, h=h, w_img=w_img)
+        # [Cout, (dh, dw, ci)] -> OIHW, rounded to the weight's dtype as
+        # the reference's VJP rounds it
+        dw = dw.reshape(w_p.shape[0], 3, 3, w_p.shape[1]).permute(0, 3, 1, 2)
+        same_calls["backward"] += 1
+        return (lanes_to_nhwc(dx[:cin], b, h, w_img),
+                dw[:cout, :cin].to(w_p.dtype))
+
+
+def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-1 SAME 3x3 conv, x [B, H, W, Cin] (NHWC) and w
+    [Cout, Cin, 3, 3] (OIHW) in one dtype -> y [B, H, W, Cout]: the
+    forward and the input gradient on ``conv3x3_bf16`` (the input gradient
+    with ``pack_weights_dgrad``), the weight gradient on ``conv3x3_wgrad``
+    rounded to w's dtype. Takes the shapes the JAX kernel takes (its lane
+    tile picker raises the same ``ValueError`` for the others); on the
+    card only bfloat16."""
+    b, h, w_img, cin = x.shape
+    cout = w.shape[0]
+    if tuple(w.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"conv3x3_same: weights {tuple(w.shape)} vs Cin "
+                         f"{cin}")
+    if x.dtype != w.dtype:
+        raise ValueError(f"conv3x3_same: x is {x.dtype}, w is {w.dtype}")
+    if not on_cpu(x) and x.dtype != torch.bfloat16:
+        raise ValueError(f"conv3x3_same: the card kernels take bfloat16, "
+                         f"not {x.dtype} (compute_dtype)")
+    pick_tile(h * w_img, b * h * w_img, max(cin, cout))
+    return _Conv3x3Same.apply(x, w)

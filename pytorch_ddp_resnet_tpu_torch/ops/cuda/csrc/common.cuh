@@ -26,7 +26,9 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // out[i] = part[0][i] + part[1][i] + ... in order, in f32: the second pass
 // of every cross-block sum, so the result does not depend on which block
-// finished first.
+// finished first. ``Tag`` only names the kernel, so that a profile can
+// tell whose sum it is.
+template <typename Tag>
 __global__ void partial_sum_kernel(const float* __restrict__ part,
                                    float* __restrict__ out, int j, int m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -36,9 +38,11 @@ __global__ void partial_sum_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+template <typename Tag = void>
 inline int partial_sum(const float* part, float* out, int j, int m,
                        cudaStream_t stream) {
-  partial_sum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(part, out, j, m);
+  partial_sum_kernel<Tag><<<(m + 255) / 256, 256, 0, stream>>>(part, out, j,
+                                                               m);
   return static_cast<int>(cudaGetLastError());
 }
 

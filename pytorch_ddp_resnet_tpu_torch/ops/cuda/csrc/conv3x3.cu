@@ -45,10 +45,7 @@
 // and VMEM choices and are not carried over. Not done yet (later work):
 // wgmma, TMA and a multi-stage shared-memory pipeline.
 //
-// Rounding follows the JAX reference: the epilogue multiplies and adds with
-// __fmul_rn/__fadd_rn (no FMA contraction, as the reference's separate
-// f32 ops), rounds half to even with rintf, and converts s32 -> f32 with
-// round-to-nearest.
+// Rounding follows the JAX reference at its rounding points (requant.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +53,7 @@
 #include <stdint.h>
 
 #include "conv3x3_rows.cuh"
+#include "requant.cuh"
 
 using namespace nvcuda;
 using namespace conv3x3;
@@ -64,49 +62,10 @@ namespace {
 
 // --- epilogues: one output element from its accumulator ----------------------
 
-// The row kernel's tile epilogue of a per-element functor.
-template <typename Derived>
-struct PerElement {
-  template <typename AccT>
-  __device__ __forceinline__ void tile(const AccT* Cs, int cld, int bn,
-                                       int m0, int n0, int cout,
-                                       int n) const {
-    epilogue(Cs, cld, bn, m0, n0, cout, n, static_cast<const Derived&>(*this));
-  }
-};
-
 struct Bf16Out : PerElement<Bf16Out> {
   __nv_bfloat16* out;
   __device__ __forceinline__ void operator()(float acc, int, size_t idx) const {
     out[idx] = __float2bfloat16_rn(acc);
-  }
-};
-
-struct Requant : PerElement<Requant> {
-  const float* scale;
-  const float* shift;
-  const __nv_bfloat16* res;  // or null
-  const float* sb;           // dual mode: sb, tb, out2 non-null
-  const float* tb;
-  void* out;                 // int8 when out_int8, else bf16
-  signed char* out2;
-  int relu;
-  int out_int8;
-  float inv_out_scale;
-
-  __device__ __forceinline__ void operator()(int acc, int co,
-                                             size_t idx) const {
-    float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale[co]), shift[co]);
-    if (res != nullptr) y = __fadd_rn(y, __bfloat162float(res[idx]));
-    if (relu) y = fmaxf(y, 0.f);
-    if (out_int8) {
-      static_cast<signed char*>(out)[idx] =
-          quant_s8(__fmul_rn(y, inv_out_scale));
-    } else {
-      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
-    }
-    if (out2 != nullptr)
-      out2[idx] = quant_s8(fmaxf(__fadd_rn(__fmul_rn(y, sb[co]), tb[co]), 0.f));
   }
 };
 
@@ -263,17 +222,8 @@ int conv3x3_int8_requant_launch(const void* x, const void* w,
                                 int cin, int cout, int n, int h, int wi,
                                 int relu, int out_int8, float inv_out_scale,
                                 void* stream) {
-  Requant epi;
-  epi.scale = static_cast<const float*>(scale);
-  epi.shift = static_cast<const float*>(shift);
-  epi.res = static_cast<const __nv_bfloat16*>(res);
-  epi.sb = static_cast<const float*>(sb);
-  epi.tb = static_cast<const float*>(tb);
-  epi.out = out;
-  epi.out2 = static_cast<signed char*>(out2);
-  epi.relu = relu;
-  epi.out_int8 = out_int8;
-  epi.inv_out_scale = inv_out_scale;
+  const Requant epi = make_requant(scale, shift, res, sb, tb, out, out2,
+                                   relu, out_int8, inv_out_scale);
   return launch<signed char>(x, w, epi, cin, cout, n, h, wi, stream);
 }
 

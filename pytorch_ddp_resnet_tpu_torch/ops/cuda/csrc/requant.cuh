@@ -1,0 +1,84 @@
+// The requantization epilogue of the int8 convolutions, one output element
+// from its s32 accumulator, shared by conv3x3.cu (serving) and conv1x1.cu:
+//
+//   y = acc * scale[co] + shift[co] (+ res)
+//   if relu: y = max(y, 0)
+//   out = s8(clip(rint(y * inv_out_scale)))  or  bf16(y)
+//   out2 = s8(clip(rint(max(y * sb[co] + tb[co], 0))))   (dual mode)
+//
+// Rounding follows the JAX reference as XLA computes it on the CPU, where
+// the tests run it (probed by tests/test_torch_conv1x1.py and
+// tests/test_torch_conv3x3.py): acc * scale + shift and y * sb + tb are
+// each one fused multiply-add (__fmaf_rn), the residual add and the output
+// scaling round on their own (__fadd_rn, __fmul_rn), rint rounds half to
+// even as jnp.round, and s32 -> f32 rounds to nearest.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "conv3x3_rows.cuh"
+
+namespace conv3x3 {
+
+// The tile epilogue (conv3x3_rows.cuh ``epilogue``) of a per-element
+// functor.
+template <typename Derived>
+struct PerElement {
+  template <typename AccT>
+  __device__ __forceinline__ void tile(const AccT* Cs, int cld, int bn,
+                                       int m0, int n0, int cout,
+                                       int n) const {
+    epilogue(Cs, cld, bn, m0, n0, cout, n, static_cast<const Derived&>(*this));
+  }
+};
+
+struct Requant : PerElement<Requant> {
+  const float* scale;
+  const float* shift;
+  const __nv_bfloat16* res;  // or null
+  const float* sb;           // dual mode: sb, tb, out2 non-null
+  const float* tb;
+  void* out;                 // int8 when out_int8, else bf16
+  signed char* out2;
+  int relu;
+  int out_int8;
+  float inv_out_scale;
+
+  __device__ __forceinline__ void operator()(int acc, int co,
+                                             size_t idx) const {
+    float y = __fmaf_rn(__int2float_rn(acc), scale[co], shift[co]);
+    if (res != nullptr) y = __fadd_rn(y, __bfloat162float(res[idx]));
+    if (relu) y = fmaxf(y, 0.f);
+    if (out_int8) {
+      static_cast<signed char*>(out)[idx] =
+          quant_s8(__fmul_rn(y, inv_out_scale));
+    } else {
+      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
+    }
+    if (out2 != nullptr)
+      out2[idx] = quant_s8(fmaxf(__fmaf_rn(y, sb[co], tb[co]), 0.f));
+  }
+};
+
+// The epilogue's arguments as the C interfaces take them.
+inline Requant make_requant(const void* scale, const void* shift,
+                            const void* res, const void* sb, const void* tb,
+                            void* out, void* out2, int relu, int out_int8,
+                            float inv_out_scale) {
+  Requant epi;
+  epi.scale = static_cast<const float*>(scale);
+  epi.shift = static_cast<const float*>(shift);
+  epi.res = static_cast<const __nv_bfloat16*>(res);
+  epi.sb = static_cast<const float*>(sb);
+  epi.tb = static_cast<const float*>(tb);
+  epi.out = out;
+  epi.out2 = static_cast<signed char*>(out2);
+  epi.relu = relu;
+  epi.out_int8 = out_int8;
+  epi.inv_out_scale = inv_out_scale;
+  return epi;
+}
+
+}  // namespace conv3x3

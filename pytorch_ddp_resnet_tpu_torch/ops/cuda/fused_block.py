@@ -93,8 +93,13 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
 )
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
     _conv_f64,
+    check_wgrad_geometry,
     pack_weights,
+    pack_weights_dgrad,
+    pad_rows,
+    patches_f64,
     pick_tile,
+    wgrad_splits,
 )
 
 launches: collections.Counter = collections.Counter()
@@ -365,17 +370,6 @@ def _masked(a, x, scale, shift, bits, thresh):
     return torch.where(live, a, torch.zeros_like(a))
 
 
-def _patches_f64(q: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
-    """[C, T] whole images -> the 3x3 SAME patch matrix [9*C, T] in
-    float64, rows in (dh, dw, c) order."""
-    c, t = q.shape
-    b = t // (h * w_img)
-    img = q.to(torch.float64).reshape(c, b, h, w_img).transpose(0, 1)
-    cols = F.unfold(img, 3, padding=1)              # [b, c*9, h*w]
-    cols = cols.reshape(b, c, 9, h * w_img).permute(2, 1, 0, 3)
-    return cols.reshape(9 * c, t)
-
-
 def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     """dW [Cout, 9*Cin] f32: per group the exact s32 contraction (in
     float64), times (d_amax * g_amax) / 127^2, summed over the groups in
@@ -384,18 +378,12 @@ def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     out = None
     for g in range(n // tile):
         lanes = slice(g * tile, (g + 1) * tile)
-        acc = g_q[:, lanes].to(torch.float64) @ _patches_f64(
+        acc = g_q[:, lanes].to(torch.float64) @ patches_f64(
             d_q[:, lanes], h, w_img).T
         ts = (d_amax[g] * g_amax[g]) * INV_16129
         contrib = acc.to(_F32) * ts
         out = contrib if out is None else out + contrib
     return out
-
-
-def pack_weights_dgrad(w: torch.Tensor) -> torch.Tensor:
-    """An OIHW 3x3 kernel packed for the input gradient (rot180, in/out
-    swapped: w'[ci, (dh, dw, co)] = w[co, ci, 2-dh, 2-dw]): [Cin, 9*Cout]."""
-    return pack_weights(w.flip(2, 3).transpose(0, 1))
 
 
 def prologue_bf16_plain(x, scale, shift, bits, thresh: Optional[int]):
@@ -446,7 +434,7 @@ def wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
     g = (dy if y is None
          else fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype))
     d = prologue_bf16_plain(x, scale, shift, bits, thresh)
-    return (g.to(torch.float64) @ _patches_f64(d, h, w_img).T).to(_F32)
+    return (g.to(torch.float64) @ patches_f64(d, h, w_img).T).to(_F32)
 
 
 # --- kernels -------------------------------------------------------------------------
@@ -722,7 +710,6 @@ def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
 
 # --- bf16 kernels -----------------------------------------------------------------
 
-WG_SPLIT_TARGET = 528  # wgrad blocks to aim for: four per SM of an H100
 _lib_bf16: Optional[ctypes.CDLL] = None
 
 
@@ -757,18 +744,6 @@ def _check_bf16_geometry(name: str, c: int, n: int, h: int,
         raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
                          "supported by the kernel")
     _conv_blocks(n, h, w_img)
-
-
-def wgrad_splits(cin: int, cout: int, n: int) -> int:
-    """Position splits of the bf16 wgrad's grid: the largest power of two
-    that divides the 256-position chunks and keeps the grid near
-    WG_SPLIT_TARGET blocks (csrc/fused_block_bf16.cu)."""
-    blocks = (cin // 32) * -(-cout // 64)
-    chunks = n // KCHUNK
-    s = 1
-    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
-        s *= 2
-    return s
 
 
 def _bf16_operands(name, x, scale, shift, bits, extra, extra_dtypes):
@@ -871,11 +846,7 @@ def wgrad_bf16(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh, h,
     cout, n = dy.shape
     cin = x.shape[0]
     _check_bf16_geometry(name, cin, n, h, w_img)
-    hw = h * w_img
-    if (n % KCHUNK or w_img > 32 or KCHUNK % w_img
-            or (KCHUNK % hw and hw % KCHUNK)):
-        raise ValueError(f"{name}: N={n} / image {h}x{w_img} vs the "
-                         f"{KCHUNK}-position staging chunk")
+    check_wgrad_geometry(name, cin, n, h, w_img)
     extra, extra_dt = [dy], [torch.bfloat16]
     if y is not None:
         dysum = dysum.to(_F32).contiguous()
@@ -1006,23 +977,18 @@ def fused_half(x_cs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         # zero channels are exact (zero weights, scale and shift contribute
         # nothing, a zero row of x stays masked) and are sliced off again;
         # autograd carries the gradients through the pad and the slices
-        x_cs, scale, shift = (_pad_rows(t, pin) for t in (x_cs, scale,
+        x_cs, scale, shift = (pad_rows(t, pin) for t in (x_cs, scale,
                                                           shift))
         if bits is not None and not is_seed(bits):
-            bits = _pad_rows(bits, pin)
+            bits = pad_rows(bits, pin)
         if res is not None:
-            res = _pad_rows(res, pout)
+            res = pad_rows(res, pout)
         w = F.pad(w, (0, 0, 0, 0, 0, pin, 0, pout))
     out = _FusedHalf.apply(x_cs, w, scale, shift, bits, res, thresh, h,
                            w_img, want_stats)
     if not want_stats:
         return out[:cout], None, None
     return tuple(t[:cout] for t in out)
-
-
-def _pad_rows(t: torch.Tensor, extra: int) -> torch.Tensor:
-    """``t`` with ``extra`` zero rows appended on dim 0."""
-    return F.pad(t, (0, 0) * (t.dim() - 1) + (0, extra)) if extra else t
 
 
 

@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import quant_s8
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import fma_f32, quant_s8
 
 f32 = torch.float32
 f64 = torch.float64
@@ -75,14 +75,6 @@ def fold_transition_scales(s_in: float, s2: float, s3: float, s_out,
     wps = _vec(wps)
     pp = wps * _f32(float(s_in) / float(s_out), wps)
     return p1, q1, p2, q2, p3, q3, pp
-
-
-def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """f32(a*b + c) rounded once, as the reference's ``a * b + c`` is
-    contracted into one FMA: the f32 operands' product is exact in
-    float64."""
-    return (a.to(f32).to(f64) * torch.as_tensor(b).to(f32).to(f64)
-            + torch.as_tensor(c).to(f32).to(f64)).to(f32)
 
 
 def requant(acc: torch.Tensor, p: torch.Tensor,

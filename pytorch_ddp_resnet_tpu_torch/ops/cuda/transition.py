@@ -75,7 +75,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
     require_cuda,
 )
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import _ptr, _stream
-from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pick_tile
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pad_rows, pick_tile
 
 launches: collections.Counter = collections.Counter()
 
@@ -738,10 +738,10 @@ def transition_half_int8(x_cs: torch.Tensor, w1: torch.Tensor,
         # group absmax as it is, zero weights add nothing to z, res or the
         # sums, and the padded rows of dx, d(scale), d(shift) and the
         # weight gradients are sliced off by autograd through the pads
-        x_cs, scale, shift = (fb._pad_rows(t, pin) for t in (x_cs, scale,
+        x_cs, scale, shift = (pad_rows(t, pin) for t in (x_cs, scale,
                                                              shift))
         if bits is not None:
-            bits = fb._pad_rows(bits, pin)
+            bits = pad_rows(bits, pin)
         w1 = F.pad(w1, (0, 0, 0, 0, 0, pin))
         if wp is not None:
             wp = F.pad(wp, (0, 0) * (wp.dim() - 2) + (0, pin))

@@ -1,6 +1,6 @@
 """Card-only tests of the port's CUDA kernels (ops/cuda/conv3x3.py,
-ops/cuda/augment.py, ops/cuda/fused_block.py, ops/cuda/stem.py,
-ops/cuda/bneck_nv.py, ops/cuda/bneck_nv_train.py and
+ops/cuda/conv1x1.py, ops/cuda/augment.py, ops/cuda/fused_block.py,
+ops/cuda/stem.py, ops/cuda/bneck_nv.py, ops/cuda/bneck_nv_train.py and
 ops/cuda/transition.py): each kernel against its plain PyTorch version on
 the same CUDA tensors.
 
@@ -36,7 +36,9 @@ plain version's largest value (``_mma_sums`` says why); the seed expansion
 and the int8 kernels in seed mode are bit-equal. The transition half: int8
 codes, group absmaxes, z, the cotangent fold and the FQT weight gradient
 are equal; res and dx (bf16 products summed in f32 on the card) within 2
-bf16 ulps; the sums as the fused half's.
+bf16 ulps; the sums as the fused half's. The 3x3 weight gradient: f32
+sums over the tensor cores' accumulators, 1e-4; ``conv3x3_same``'s y, dx
+and bf16 dW within 2 bf16 ulps of the CPU op's. The int8 1x1 conv: equal.
 """
 
 import numpy as np
@@ -923,3 +925,112 @@ def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
     one = torch.ones(c, device=dev)
     with pytest.raises(ValueError, match="geometry"):
         fb.fused_half_int8(x, wt, one, one, h=h, w_img=w)
+
+
+# --- the conv of use_pallas_conv and the int8 1x1 conv ----------------------------
+
+WGRAD_SHAPES = [(160, 160, 32, 32, 2), (320, 320, 16, 16, 4),
+                (640, 640, 8, 8, 8), (32, 48, 8, 8, 4), (96, 64, 16, 8, 2)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", WGRAD_SHAPES)
+def test_conv3x3_wgrad_kernel_matches_plain(dev, cin, cout, h, w, b):
+    """dW in f32 against the float64 plain version: within 1e-4 of its
+    largest value (sums over the tensor cores' f32 accumulators)."""
+    rng = np.random.default_rng(7)
+    n = b * h * w
+    x = torch.from_numpy(rng.standard_normal((cin, n), dtype=np.float32))
+    dy = torch.from_numpy(rng.standard_normal((cout, n), dtype=np.float32))
+    x, dy = x.to(dev, torch.bfloat16), dy.to(dev, torch.bfloat16)
+    before = k.launches["conv3x3_wgrad"]
+    got = k.conv3x3_wgrad(x, dy, h=h, w_img=w)
+    want = k.conv3x3_wgrad_plain(x, dy, h=h, w_img=w)
+    torch.cuda.synchronize()
+    assert k.launches["conv3x3_wgrad"] == before + 1
+    _mma_sums(got, want)
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", [(16, 16, 32, 32, 2),
+                                            (32, 48, 16, 16, 2),
+                                            (48, 32, 8, 8, 4),
+                                            (160, 160, 32, 32, 2)])
+def test_conv3x3_same_on_the_card(dev, cin, cout, h, w, b):
+    """The op at a zero-padded width (16), at Cin != Cout both ways, and at
+    a WRN width: y, dx and dW (rounded to bf16) on the card against the
+    same op on the CPU (plain versions), one forward, one dgrad and one
+    wgrad launch (with its ordered sum) per call."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, cin),
+                                             dtype=np.float32))
+    wt = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3),
+                                              dtype=np.float32) * 0.1)
+    dy = torch.from_numpy(rng.standard_normal((b, h, w, cout),
+                                              dtype=np.float32))
+    outs = {}
+    for d in ("cpu", dev):
+        xt = x.to(d, torch.bfloat16).requires_grad_()
+        wd = wt.to(d, torch.bfloat16).requires_grad_()
+        k.reset_launches()
+        y = k.conv3x3_same(xt, wd)
+        y.backward(dy.to(d, torch.bfloat16))
+        outs[str(d)] = (y.detach(), xt.grad, wd.grad)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert dict(k.launches) == {"conv3x3_bf16": 2,
+                                        "conv3x3_wgrad": 1,
+                                        "conv3x3_wgrad.sum": 1}
+            assert k.same_calls == {"forward": 1, "backward": 1}
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        _bf16_close(got.cpu(), want)
+
+
+def test_conv3x3_same_never_falls_back(dev):
+    """f32 on the card, and geometries the wgrad kernel cannot stage
+    (image rows wider than 32, rows off the 8-position pieces), raise."""
+    with pytest.raises(ValueError, match="float32"):
+        k.conv3x3_same(torch.zeros(2, 8, 8, 32, device=dev),
+                       torch.zeros(32, 32, 3, 3, device=dev))
+    for h, w, b in ((64, 64, 2), (12, 12, 16)):
+        x = torch.zeros((32, b * h * w), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="staging chunk"):
+            k.conv3x3_wgrad(x, x, h=h, w_img=w)
+
+
+C1_SHAPES = [(256, 64, 56 * 56 * 2), (64, 256, 56 * 56 * 2),
+             (2048, 512, 7 * 7 * 128), (48, 40, 384)]
+
+
+@pytest.mark.parametrize("cin,cout,n", C1_SHAPES)
+@pytest.mark.parametrize("mode", ["int8", "bf16", "bf16+res+dual"])
+def test_conv1x1_kernel_matches_plain(dev, cin, cout, n, mode):
+    """Equal to the plain version in every epilogue mode (exact s32, the
+    same rounding points), a Cin off the 32-channel chunk zero-padded."""
+    rng = np.random.default_rng(9)
+    xq = torch.from_numpy(rng.integers(-127, 128, (cin, n), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, cin),
+                                       dtype=np.int8))
+    sigma = (127.0 ** 2 / 3) * cin ** 0.5
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(
+        np.float32)) / sigma
+    shift = torch.from_numpy(rng.uniform(-0.5, 0.5, cout).astype(np.float32))
+    args = [t.to(dev) for t in (xq, wq, scale, shift)]
+    kw = dict(relu=mode != "bf16+res+dual")
+    if mode == "int8":
+        kw["inv_out_scale"] = 127 / 4
+    if mode == "bf16+res+dual":
+        args.append(torch.from_numpy(rng.standard_normal(
+            (cout, n), dtype=np.float32)).to(dev, torch.bfloat16))
+        args.append(tuple(torch.from_numpy(rng.uniform(lo, hi, cout).astype(
+            np.float32)).to(dev) for lo, hi in ((10, 40), (-5, 5))))
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv1x1 as c1
+
+    before = c1.launches["conv1x1_lanes_requant"]
+    got = c1.conv1x1_lanes_requant(*args, **kw)
+    want = c1.conv1x1_lanes_requant_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert c1.launches["conv1x1_lanes_requant"] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max().item()

@@ -283,12 +283,12 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
 def test_qat_and_other_kernel_flags_raise():
     """QAT on a bottleneck net (its NV halves' bf16 bodies are a later
     slice) and the flags still to port raise; QAT on the basic trunk
-    (tests/test_torch_qat_train.py) and lane transitions
-    (tests/test_torch_transition.py) build."""
+    (tests/test_torch_qat_train.py), lane transitions
+    (tests/test_torch_transition.py) and the Pallas conv
+    (tests/test_torch_conv3x3_same.py) build."""
     bneck = "c3,64,3,1,1 b2 n a ap8,1,0 fc64,10"
     for spec, flags, where in (
             (bneck, {"int8_train": True}, "Queue 2 item 7b"),
-            (SPEC, {**FQT, "pallas_conv": True}, "Queue 2 item 9"),
             (SPEC, {**FQT, "remat": True}, "Queue 1 item 11")):
         with pytest.raises(NotImplementedError, match=where):
             ResNet(spec, True, True, 0.3, device="cpu", **flags)

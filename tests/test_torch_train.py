@@ -111,10 +111,9 @@ def test_kernel_path_flags_raise():
     """The flags still to port raise; QAT raises on a bottleneck net only
     (the fused bf16, QAT and in-kernel dropout paths of the basic block
     build: tests/test_torch_qat_train.py; so do lane transitions:
-    tests/test_torch_transition.py)."""
+    tests/test_torch_transition.py, and the Pallas conv:
+    tests/test_torch_conv3x3_same.py)."""
     for spec, flag, where in (
-            ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "pallas_conv",
-             "Queue 2 item 9"),
             ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "remat",
              "Queue 1 item 11"),
             ("c3,64,3,1,1 b2 n a ap8,1,0 fc64,10", "int8_train",
@@ -270,24 +269,34 @@ def test_setup_trains_two_steps_on_cpu(tmp_path):
     assert ls["scheduler"].get_lr() == 0.1  # MultiStepLR, epoch unit
 
 
-@pytest.mark.parametrize("flag,where", [("use_pallas_conv", "Queue 2 item 9"),
+@pytest.mark.parametrize("flag,where", [("use_pallas_conv", None),
                                         ("remat", "Queue 1 item 11"),
                                         ("use_lane_transition", None)])
 def test_setup_raises_for_unported_flags(tmp_path, flag, where):
-    """The flags still to port raise; ``use_lane_transition`` (``where``
-    None), ported, builds the -hard-int8 recipe whose two stage
-    transitions report ``lane_through_eligible``."""
+    """The flags still to port raise; the ported ones (``where`` None)
+    build their recipe: ``use_lane_transition`` the -hard-int8 recipe,
+    whose two stage transitions report ``lane_through_eligible``;
+    ``use_pallas_conv`` the -hard recipe, whose 22 stride-1 3x3 block
+    convs take the kernel (not the stem, the stride-2 convs or the
+    projections)."""
     if where is not None:
         with pytest.raises(NotImplementedError, match=where):
             setup(_config(tmp_path, **{flag: True}), device="cpu",
                   verbose=False)
         return
-    with open(INT8_RECIPE) as f:
+    with open(INT8_RECIPE if flag == "use_lane_transition" else RECIPE) as f:
         cfg = yaml.safe_load(f)
     cfg.update(dataset_args={**cfg["dataset_args"], "n_train": 40,
                              "n_test": 16}, **{flag: True})
     ls = setup(_config(tmp_path, **cfg), device="cpu", verbose=False)
     model = ls["model"]
+    if flag == "use_pallas_conv":
+        assert model.pallas_conv and not model.get_submodule("00_conv").pallas
+        taken = [n for n, m in model.named_modules()
+                 if getattr(m, "pallas", False) and m.kernel_size == 3
+                 and m.stride == 1]
+        assert len(taken) == 22, taken
+        return
     assert model.lane_transition and model.int8_train_bwd
     shapes = {"02_stack": (128, 32, 32, 160), "03_stack": (128, 16, 16, 320)}
     for stage in ("01_stack", "02_stack", "03_stack"):
