@@ -193,7 +193,31 @@ Phases, each fatal on failure:
    versions. Losses finite, every parameter changed, every BatchNorm count
    equal to the steps; prints the step time, img/s, peak memory and the
    profile beside phase 5's.
-20. Print one JSON line of per-kernel numbers, then the result line.
+20. NV training bf16 bodies: at every geometry and kind of half of phase
+   10, with the same non-zero stats cotangents and dx_res, hold the bf16
+   forward, dgrad and wgrad of ops/cuda/csrc/bneck_nv_train.cu against
+   their plain versions on the same CUDA tensors (the backward on the
+   kernel's y): bf16 outputs (y, dx, dres) within 2 bf16 ulps of the
+   tensor's largest value, x_res equal, the f32 sums and dW over the
+   tensor cores' accumulators within 1e-4 of their largest value (the
+   BatchNorm sums also within 1e-5 of the sums of the kernel's own y).
+   Each is timed beside its plain version, cuDNN's bf16 forward, input
+   gradient and weight gradient (channels-last) and phase 10's int8 kernel
+   at the same shape.
+21. Training, the tenth main path: the ResNet-50 recipe of phase 11 with
+   ``use_int8_train`` alone (QAT), through ``setup(config)``. With the
+   launch counts zeroed just before, each step must launch the 30 halves'
+   int8 forward (with its row absmax and sums) and their bf16 dgrad and
+   wgrad (with their sums; NV_QAT_PER_STEP): no cotangent absmax, no int8
+   dgrad or wgrad, no other port kernel. The first half of each kind in
+   the first step, on its live inputs and cotangents, must reproduce its
+   outputs and agree with its plain versions (phase 20's tolerances for
+   the bf16 backward). Losses finite, every parameter changed, every
+   BatchNorm count equal to the steps. Prints the step time, img/s, peak
+   memory and the profile, and the halves' per-step time from phases 10
+   and 20 beside the profiled one, next to phase 11's FQT and bf16 runs
+   (not rerun).
+22. Print one JSON line of per-kernel numbers, then the result line.
 """
 
 from __future__ import annotations
@@ -248,6 +272,9 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
+            "nv_half_fwd_bf16": _PALLAS + "bneck_nv_train.py:797",
+            "nv_half_dgrad_bf16": _PALLAS + "bneck_nv_train.py:866",
+            "nv_half_wgrad_bf16": _PALLAS + "bneck_nv_train.py:928",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
             "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
@@ -322,6 +349,15 @@ NV_TRAIN_PER_STEP = {
     "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
     "nv_half_bwd.amax": 30, "nv_half_dgrad": 30, "nv_half_dgrad.sum": 27,
     "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
+NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
+                  "nv_half_wgrad_bf16")
+# launches of one ResNet-50 QAT train step at batch 128: the same 30 halves
+# on the int8 forward (with its row absmax) and the bf16 dgrad and wgrad,
+# which need no absmax of the cotangent
+NV_QAT_PER_STEP = {
+    "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
+    "nv_half_dgrad_bf16": 30, "nv_half_dgrad_bf16.sum": 27,
+    "nv_half_wgrad_bf16": 30, "nv_half_wgrad_bf16.sum": 30}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
 # emitting BatchNorm sums (conv1 of the 10 identity blocks)
 FQT_PER_STEP = {
@@ -2338,13 +2374,46 @@ def _nvt_stage_fns(nvt, o, conv, mode, rch, plain):
     return dict(nv_half_fwd=fwd, nv_half_dgrad=dgrad, nv_half_wgrad=wgrad)
 
 
+def _nvt_bytes(p, ci, co, taps, mode, w_size, names):
+    """Bytes of each stage of a half (forward, dgrad, wgrad, named by
+    ``names``) over ``p`` positions: each input read once, each output
+    written once; weights of ``w_size`` bytes, dW in f32."""
+    entry, affine = mode == "entry", mode != "identity"
+    wn = taps * ci * co
+    return dict(zip(names, (
+        2 * p * (ci + co) + w_size * wn + (4 * p * ci if entry else 0),
+        2 * p * (2 * co + ci) + w_size * wn + (2 * p * ci if affine else 0)
+        + (6 * p * ci if entry else 0),
+        2 * p * (2 * co + ci) + 4 * wn + (2 * p * ci if entry else 0))))
+
+
+def _cudnn_half_times(g, n, h, w, ci, co, k, names):
+    """cuDNN's bf16 channels-last forward, input gradient and weight
+    gradient of the half's conv (ms per call), keyed by ``names``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    dev = torch.device("cuda")
+    cl = dict(memory_format=torch.channels_last)
+    x4 = torch.randn(n, ci, h, w, device=dev, generator=g).to(
+        torch.bfloat16).to(**cl)
+    w4 = torch.randn(co, ci, k, k, device=dev, generator=g).to(
+        torch.bfloat16).to(**cl)
+    dy4 = torch.randn(n, co, h, w, device=dev, generator=g).to(
+        torch.bfloat16).to(**cl)
+    pad = k // 2
+    return dict(zip(names, (
+        time_ms(lambda: F.conv2d(x4, w4, padding=pad), 10),
+        time_ms(lambda: conv2d_input(x4.shape, w4, dy4, padding=pad), 10),
+        time_ms(lambda: conv2d_weight(x4, w4.shape, dy4, padding=pad), 10))))
+
+
 def nv_train_kernel_phase(peaks):
     """Rows per (NV training stage, geometry, half): max error of the half
     against its plain version, and the kernel / plain / cuDNN-bf16 / bound
     times of one call of the stage."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.grad import conv2d_input, conv2d_weight
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 
@@ -2363,34 +2432,10 @@ def nv_train_kernel_phase(peaks):
                                 plain=True), (h, conv, mode))
             k = 3 if conv == "3x3" else 1
             taps = k * k
-            cl = dict(memory_format=torch.channels_last)
-            x4 = torch.randn(n, ci, h, w, device=dev, generator=g).to(
-                torch.bfloat16).to(**cl)
-            w4 = torch.randn(co, ci, k, k, device=dev, generator=g).to(
-                torch.bfloat16).to(**cl)
-            dy4 = torch.randn(n, co, h, w, device=dev, generator=g).to(
-                torch.bfloat16).to(**cl)
-            pad = k // 2
-            lib = dict(
-                nv_half_fwd=time_ms(lambda: F.conv2d(x4, w4, padding=pad),
-                                    10),
-                nv_half_dgrad=time_ms(lambda: conv2d_input(
-                    x4.shape, w4, dy4, padding=pad), 10),
-                nv_half_wgrad=time_ms(lambda: conv2d_weight(
-                    x4, w4.shape, dy4, padding=pad), 10))
-            del x4, w4, dy4
+            lib = _cudnn_half_times(g, n, h, w, ci, co, k, NVT_NAMES)
             kern = _nvt_stage_fns(nvt, o, conv, mode, rch, plain=False)
             plain = _nvt_stage_fns(nvt, o, conv, mode, rch, plain=True)
-            entry, affine = mode == "entry", mode != "identity"
-            wbytes = taps * ci * co
-            byts = dict(  # each input read once, each output written once
-                nv_half_fwd=2 * p * (ci + co) + wbytes
-                + (4 * p * ci if entry else 0),
-                nv_half_dgrad=2 * p * (2 * co + ci) + wbytes
-                + (2 * p * ci if affine else 0)
-                + (6 * p * ci if entry else 0),
-                nv_half_wgrad=2 * p * (2 * co + ci) + 4 * wbytes
-                + (2 * p * ci if entry else 0))
+            byts = _nvt_bytes(p, ci, co, taps, mode, 1, NVT_NAMES)
             for name in NVT_NAMES:
                 rows.append(dict(
                     name=name, n=n, h=h, w=w, cin=ci, cout=co, conv=conv,
@@ -2401,6 +2446,126 @@ def nv_train_kernel_phase(peaks):
                     ops_ms=2 * p * taps * ci * co / ops_int8 * 1e3,
                     bytes_ms=byts[name] / bw * 1e3))
             del o, kern, plain
+            torch.cuda.empty_cache()
+    for r in rows:
+        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+        r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes")
+    return rows
+
+
+# --- phases 20 and 21: the NV halves' bf16 bodies, ResNet-50 QAT --------------
+
+NVT_FWD_KEYS = ("rowmax_a", "x_res", "y", "zsum", "zssq")
+
+
+def _agree_nv_train(got: dict, want: dict, what, quant=True,
+                    quant_bwd=True) -> float:
+    """A half's stage outputs against the plain versions', each by its
+    body: an int8 body's as ``_agree`` (equal, sums over positions 1e-5);
+    a bf16 body's bf16 tensors (y, dx, dres) within 2 bf16 ulps of the
+    tensor's largest value (dres = bf16(du), du carrying the f32 product),
+    x_res equal (the same f32 prologue, rounded once), the f32 sums (zsum,
+    zssq, ds, dt) and dW over the tensor cores' accumulators within 1e-4,
+    and the BatchNorm sums within 1e-5 of the sums of the kernel's own y.
+    Returns the max abs difference."""
+    import torch
+
+    err = 0.0
+    for k, ref in want.items():
+        out = got[k]
+        if ref is None:
+            assert out is None, (what, k)
+            continue
+        if (quant if k in NVT_FWD_KEYS else quant_bwd):
+            err = max(err, _agree({k: out}, {k: ref}, what))
+            continue
+        if k == "x_res":
+            assert torch.equal(out, ref), (what, k)
+            d = 0.0
+        elif ref.dtype == torch.bfloat16:
+            d = _bf16_err(out, ref, (what, k))
+        else:
+            d = _sum_err(out, ref, (what, k))
+        if k in ("zsum", "zssq"):
+            yd = got["y"].double().reshape(-1, ref.shape[0])
+            own = yd.sum(0) if k == "zsum" else (yd * yd).sum(0)
+            assert (out.double() - own).abs().max().item() <= \
+                1e-5 * own.abs().max().item(), (what, k)
+        err = max(err, d)
+    return err
+
+
+def _nvt_bf16_fns(nvt, o, conv, mode, rch, plain, y_bwd):
+    """The bf16 forward, dgrad and wgrad of one half as callables returning
+    dicts, through the kernels or the plain versions; the backward takes
+    ``y_bwd`` (the kernel's y), so both sides see the same inputs."""
+    def pick(name):
+        return getattr(nvt, f"{name}_plain" if plain else name)
+
+    x, s, t, res = o["x"], o["s"], o["t"], o["res"]
+    kw = dict(conv=conv, mode=mode)
+    wb, wdg = nvt.pack_w_bf16(o["w"]), nvt.pack_w_bf16_dgrad(o["w"])
+    cts = (o["dy"], y_bwd, o["dzsum"], o["dzssq"])
+
+    def fwd():
+        return dict(zip(("y", "zsum", "zssq", "x_res"), pick(
+            "fwd_conv_bf16")(x, s, t, res, wb, rch=rch[0], **kw)))
+
+    def dgrad():
+        return dict(zip(("dx", "ds", "dt", "dres"), pick("dgrad_conv_bf16")(
+            *cts, wdg, x, s, t, res, o["dxout"], rch=rch[1], **kw)))
+
+    def wgrad():
+        return {"dw": pick("wgrad_bf16")(*cts, x, s, t, res, rch=rch[2],
+                                         **kw)}
+
+    return dict(zip(NVT_BF16_NAMES, (fwd, dgrad, wgrad)))
+
+
+def nv_train_bf16_kernel_phase(peaks, nvt_rows):
+    """Rows per (bf16 stage, geometry, half) as phase 10's: max error of
+    the kernel against its plain version on the same CUDA tensors, and the
+    kernel / plain / cuDNN-bf16 / bound times of one call, beside phase
+    10's int8 kernel at the same shape (``int8_ms``)."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
+
+    flops_bf16, _, bw, _ = peaks
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    rows = []
+    for n, h, w, cin, cb, cout in NVT_GEOMETRIES:
+        p = n * h * w
+        for conv, mode, ci, co in _nvt_halves(cin, cb, cout):
+            o = _nvt_operands(g, n, h, w, ci, co, conv, mode)
+            rch = nvt.pick_chunk_rows(h, w, n, ci, co, conv, mode)
+            k = 3 if conv == "3x3" else 1
+            taps = k * k
+            y = nvt.fwd_conv_bf16(o["x"], o["s"], o["t"], o["res"],
+                                  nvt.pack_w_bf16(o["w"]), conv=conv,
+                                  mode=mode, rch=rch[0])[0]
+            kern = _nvt_bf16_fns(nvt, o, conv, mode, rch, False, y)
+            plain = _nvt_bf16_fns(nvt, o, conv, mode, rch, True, y)
+            lib = _cudnn_half_times(g, n, h, w, ci, co, k, NVT_BF16_NAMES)
+            byts = _nvt_bytes(p, ci, co, taps, mode, 2, NVT_BF16_NAMES)
+            for name in NVT_BF16_NAMES:
+                err = _agree_nv_train(kern[name](), plain[name](),
+                                      (name, h, conv, mode), False, False)
+                int8 = next(r for r in nvt_rows if (
+                    r["name"], r["n"], r["h"], r["conv"], r["mode"],
+                    r["cin"], r["cout"]) == (name[:-5], n, h, conv, mode,
+                                             ci, co))
+                rows.append(dict(
+                    name=name, n=n, h=h, w=w, cin=ci, cout=co, conv=conv,
+                    mode=mode, rch=list(rch), max_abs_err=err,
+                    ms=time_ms(kern[name], 10),
+                    plain_ms=time_ms(plain[name], 1),
+                    library_ms=lib[name], int8_ms=int8["ms"],
+                    ops_ms=2 * p * taps * ci * co / flops_bf16 * 1e3,
+                    bytes_ms=byts[name] / bw * 1e3))
+            del o, y, kern, plain
             torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
@@ -2453,9 +2618,10 @@ class RecordNVHalves:
         return False
 
 
-def live_nv_check(rec):
+def live_nv_check(rec, quant_bwd=True):
     """Each recorded half, forward and backward through the kernels on its
-    live tensors: reproduces the live outputs and equals the plain
+    live tensors (the int8 forward; the FQT or, without ``quant_bwd``, the
+    bf16 backward): reproduces the live outputs and agrees with the plain
     versions."""
     import torch
 
@@ -2471,22 +2637,30 @@ def live_nv_check(rec):
         ops["dy"] = ops["dy"].contiguous()
         ops["dxout"] = (r["dxout"].contiguous() if mode == "entry"
                         else None)
-        got = nvt.half_stages(**ops, conv=conv, mode=mode, rch=rch)
+        kw = dict(conv=conv, mode=mode, rch=rch, quant_bwd=quant_bwd)
+        got = nvt.half_stages(**ops, **kw)
         assert torch.equal(got["y"], r["out"][0]), (conv, mode)
         if mode == "entry":
             assert torch.equal(got["x_res"], r["out"][3])
-        err = _agree(got, nvt.half_stages(**ops, conv=conv, mode=mode,
-                                              rch=rch, plain=True),
-                         ("live", conv, mode))
+        err = _agree_nv_train(got, nvt.half_stages(**ops, **kw, plain=True),
+                              ("live", conv, mode), True, quant_bwd)
         out.append(dict(conv=conv, mode=mode, n=n, h=h, w=w, cin=ci,
                         cout=co, rch=list(rch), max_abs_err=err))
     return out
 
 
-def bneck_training_phase(workdir, fqt: bool):
+# the ResNet-50 training runs: mode -> (config flags, launches per step)
+R50_MODES = {"fqt": ({"use_int8_train_bwd": True}, NV_TRAIN_PER_STEP),
+             "qat": ({"use_int8_train": True}, NV_QAT_PER_STEP),
+             "bf16": ({}, {})}
+
+
+def bneck_training_phase(workdir, mode: str):
     """Full-width ResNet-50 training through setup and the train step,
-    Synthetic 224x224 data, batch 128: with ``use_int8_train_bwd`` (the NV
-    training halves) or without (bf16 on cuDNN, the yardstick)."""
+    Synthetic 224x224 data, batch 128: with ``use_int8_train_bwd`` (FQT on
+    the NV training halves), with ``use_int8_train`` alone (QAT: their int8
+    forward and bf16 backward) or with neither (bf16 on cuDNN, the
+    yardstick)."""
     import contextlib
     import math
 
@@ -2501,8 +2675,10 @@ def bneck_training_phase(workdir, fqt: bool):
     # ImageNet is not on the machine; the training transforms cut to those
     # the port has (RandomScale is host-only in JAX, Color not ported;
     # RandomCrop at 224 of a 224 image is the identity)
+    flags, per_step = R50_MODES[mode]
+    nv = bool(flags)
     config = write_run(
-        workdir, "resnet-50-train" + ("-int8" if fqt else ""), R50_CONFIG,
+        workdir, f"resnet-50-train-{mode}", R50_CONFIG,
         dataset_cls_name="Synthetic",
         dataset_args={"shape": shape, "num_classes": 1000, "n_train": 1024,
                       "n_test": 128},
@@ -2510,7 +2686,7 @@ def bneck_training_phase(workdir, fqt: bool):
                         "StandardizeWhiteningTransform": {}},
         data_aug_test={"ToTensorTransform": {},
                        "StandardizeWhiteningTransform": {}},
-        batch_size=BATCH, use_int8_train_bwd=fqt)
+        batch_size=BATCH, **flags)
     t0 = time.perf_counter()
     ls = setup(config, verbose=False)
     setup_s = time.perf_counter() - t0
@@ -2526,7 +2702,7 @@ def bneck_training_phase(workdir, fqt: bool):
         :TRAIN_STEPS + PROFILE_STEPS]
     lr = ls["scheduler"].get_lr()
     before = {k: v.detach().clone() for k, v in ts["params"].items()}
-    record = RecordNVHalves() if fqt else None
+    record = RecordNVHalves() if nv else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2548,23 +2724,27 @@ def bneck_training_phase(workdir, fqt: bool):
     peak_mem = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = [float(m["loss"]) for m in metrics]
-    want = ({k: v * TRAIN_STEPS for k, v in NV_TRAIN_PER_STEP.items()}
-            if fqt else {})
-    assert launches == want, launches
-    if fqt:
-        halves = {}
-        for (stage, conv, mode, *_), c in shapes.items():
-            if stage == "fwd":
-                halves[(conv, mode)] = halves.get((conv, mode), 0) + c
-        assert halves == {k: v * TRAIN_STEPS
-                          for k, v in NVT_HALVES_PER_STEP.items()}, halves
+    assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
+        launches
+    if nv:   # every half one int8 forward, one backward of the mode's body
+        body = "" if mode == "fqt" else "_bf16"
+        for stage in ("fwd", "dgrad" + body, "wgrad" + body):
+            halves = {}
+            for (st, conv, kind, *_), c in shapes.items():
+                if st == stage:
+                    halves[(conv, kind)] = halves.get((conv, kind), 0) + c
+            assert halves == {k: v * TRAIN_STEPS for k, v in
+                              NVT_HALVES_PER_STEP.items()}, (stage, halves)
+        assert {st for st, *_ in shapes} == {"fwd", "dgrad" + body,
+                                             "wgrad" + body}, shapes
     assert all(math.isfinite(v) for v in losses), losses
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), f"{k} did not change"
     counts = {int(b) for n, b in ts["model_state"].items()
               if n.endswith("count")}
     assert counts == {TRAIN_STEPS}, counts
-    live = live_nv_check(record.rec) if fqt else None
+    live = (live_nv_check(record.rec, quant_bwd=mode == "fqt") if nv
+            else None)
 
     def more_steps():
         nonlocal ts
@@ -2579,13 +2759,17 @@ def bneck_training_phase(workdir, fqt: bool):
         live_halves=live, profile=profile)
 
 
-def nv_train_summary(rows, training):
-    """One entry per NV training stage kernel: the FQT run's launches, and
-    the device time per train step: phase 10's per-call times summed over
-    the halves the main path ran (``training["shapes"]``)."""
+def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
+    """One entry per NV training stage kernel: the run's launches, and the
+    device time per train step: the kernel phase's per-call times summed
+    over the halves the main path ran (``training["shapes"]``). A stage the
+    run did not launch (the bf16 forward in QAT) is summed over the halves
+    of the run's forward."""
     out = []
-    for name in NVT_NAMES:
-        stage = name.split("_")[-1]
+    for name in names:
+        stage = name[len("nv_half_"):]
+        if not any(k[0] == stage for k in training["shapes"]):
+            stage = stage.split("_")[0]
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
@@ -2603,16 +2787,17 @@ def nv_train_summary(rows, training):
             replaces=REPLACES[name],
             launches=training["launches"].get(name, 0),
             split_launches={k: v for k, v in training["launches"].items()
-                            if k.startswith(name)
-                            or (stage != "fwd" and k == "nv_half_bwd.amax")},
+                            if k.split(".")[0] == name
+                            or (stage in ("dgrad", "wgrad")
+                                and k == "nv_half_bwd.amax")},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=tot["library_ms"],
-            per=f"ResNet-50 FQT train step at batch {BATCH} (ms per call "
-                "summed over the step's halves; launches over the run)",
+            per=f"ResNet-50 {run} train step at batch {BATCH} (ms per "
+                "call summed over the step's halves; launches over the run)",
             stages=[{k: r[k] for k in ("n", "h", "conv", "mode", "cin",
                                        "cout", "rch", "ms", "plain_ms",
                                        "library_ms", "bound_ms", "bound_by",
@@ -3013,6 +3198,7 @@ def main() -> int:
     fqt_rows = fqt_kernel_phase(peaks)
     nv_rows = nv_kernel_phase(peaks)
     nvt_rows = nv_train_kernel_phase(peaks)
+    nvt_bf16_rows = nv_train_bf16_kernel_phase(peaks, nvt_rows)
     bf16_rows, seed_rows = bf16_kernel_phase(peaks)
     tr_rows = transition_kernel_phase(peaks)
     same_rows, same_ops = same_kernel_phase(peaks)
@@ -3051,11 +3237,11 @@ def main() -> int:
             "name", "h", "cin", "wdt", "cout", "stride", "out_int8", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}))
-    for r in nvt_rows:
+    for r in nvt_rows + nvt_bf16_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")}))
+            "max_abs_err") + (("int8_ms",) if "int8_ms" in r else ())}))
     for r in aug_rows:
         print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
                                  + ("chain_max_abs_diff",)}))
@@ -3162,10 +3348,14 @@ def main() -> int:
         print(f"bottleneck serving phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
-        r50_fqt = bneck_training_phase(workdir, fqt=True)
-        r50_bf16 = bneck_training_phase(workdir, fqt=False)
+        r50_fqt = bneck_training_phase(workdir, "fqt")
+        r50_bf16 = bneck_training_phase(workdir, "bf16")
         print(f"bottleneck training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        r50_qat = bneck_training_phase(workdir, "qat")
+        print(f"bottleneck QAT training phase: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print_training("training", training)
@@ -3206,7 +3396,8 @@ def main() -> int:
     print_training("resnet-50 serving", {
         k: v for k, v in r50.items() if k != "shapes"})
     for label, run in (("resnet-50 int8 training", r50_fqt),
-                       ("resnet-50 bf16 training", r50_bf16)):
+                       ("resnet-50 bf16 training", r50_bf16),
+                       ("resnet-50 QAT training", r50_qat)):
         print_training(label, {k: v for k, v in run.items()
                                if k != "shapes"})
     nvt_kernels = nv_train_summary(nvt_rows, r50_fqt)
@@ -3215,6 +3406,31 @@ def main() -> int:
         print("resnet-50 int8 training: NV halves per step, phase 10 "
               f"per-call times summed {sum(k['ms'] for k in nvt_kernels)} "
               f"ms, profiled {kinds.get('nv train halves (port)', 0.0)} ms")
+    nvt_bf16_kernels = nv_train_summary(nvt_bf16_rows, r50_qat,
+                                        NVT_BF16_NAMES, "QAT")
+    # the QAT step's halves: phase 10's int8 forward, phase 20's bf16
+    # dgrad and wgrad, each summed over the halves the QAT run launched
+    qat_halves = nv_train_summary(nvt_rows, r50_qat, NVT_NAMES[:1], "QAT")
+    qat_line = dict(
+        halves_per_step_summed_ms=qat_halves[0]["ms"] + sum(
+            k["ms"] for k in nvt_bf16_kernels[1:]),
+        step_ms=(r50_qat["step_ms"], r50_fqt["step_ms"],
+                 r50_bf16["step_ms"]),
+        img_per_s=(r50_qat["img_per_s"], r50_fqt["img_per_s"],
+                   r50_bf16["img_per_s"]),
+        peak_mem_gib=(r50_qat["peak_mem_gib"], r50_fqt["peak_mem_gib"],
+                      r50_bf16["peak_mem_gib"]))
+    runs = (r50_qat, r50_fqt, r50_bf16)
+    if all(r["profile"] is not None for r in runs):
+        kinds = [r["profile"]["device_ms_per_step_by_kind"] for r in runs]
+        qat_line["halves_profiled_ms"] = kinds[0].get(
+            "nv train halves (port)", 0.0)
+        for key in ("device_ms_per_step", "busy_share", "kernels_per_step"):
+            qat_line[key] = tuple(r["profile"][key] for r in runs)
+        qat_line["by_kind"] = {k: tuple(d.get(k, 0.0) for d in kinds)
+                               for k in sorted(set().union(*kinds))}
+    print("resnet-50 QAT vs phase 11's FQT and bf16 runs (QAT, FQT, bf16): "
+          + json.dumps(qat_line))
     fqt_kernels = fqt_summary(fqt_rows, fqt, record.halves)
     if fqt["profile"] is not None:
         kinds = fqt["profile"]["device_ms_per_step_by_kind"]
@@ -3256,7 +3472,7 @@ def main() -> int:
     print(json.dumps({"kernels": conv_kernels
                       + [augment_summary(aug_rows, training)]
                       + fqt_kernels + nv_summary(nv_rows, r50)
-                      + nvt_kernels + bf16_kernels
+                      + nvt_kernels + nvt_bf16_kernels + bf16_kernels
                       + transition_summary(tr_rows, lane, lane_qat)
                       + [wgrad_entry, conv1x1_summary(c1_rows)]}))
     print(json.dumps({"ok": True, "device": {

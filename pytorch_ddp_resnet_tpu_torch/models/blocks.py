@@ -59,18 +59,20 @@ block. Remat is not ported yet: ``check_unported_flags`` raises for it.
 ``BottleneckResidualBlock`` (spec token ``b``, JAX ``blocks.py:816-940``):
 1x1 -> 3x3 (at the block's stride) -> 1x1 in either ordering, the float
 forward in eval and train mode. Its int8 serving path lives in
-models/quantize.py (the NV kernels). Its int8 fully quantized training
-(JAX ``NVLane``, ``blocks.py:944-1039``): in train mode a post-act
-identity block whose geometry passes the JAX gate runs its three convs on
-``nv_half_1x1``/``nv_half_3x3`` (ops/cuda/bneck_nv_train.py), BatchNorm
-folded from each half's sums. ``Sequential`` carries an ``NVLane`` from
+models/quantize.py (the NV kernels). Its int8 training (JAX ``NVLane``,
+``blocks.py:944-1039``): in train mode a post-act identity block whose
+geometry passes the JAX gate runs its three convs on
+``nv_half_1x1``/``nv_half_3x3`` (ops/cuda/bneck_nv_train.py) with the
+int8 forward and, under ``int8_train_bwd``, the fully quantized backward
+(FQT), else the bf16 straight-through one (QAT), BatchNorm folded from
+each half's sums. ``Sequential`` carries an ``NVLane`` from
 block to block (as in JAX, only ``Sequential`` takes the NV path; the
 block's own ``forward`` is the float one): each block leaves its conv3
 epilogue (BN3 affine, residual add, relu) pending, and the next block's
 conv1 applies it in its entry prologue, or ``materialize`` applies it
 where the run closes. Every other bottleneck block (preact, a transition,
-a batch the gate refuses) trains on the float layer path, as in JAX; the
-QAT mode raises (ROADMAP.md Queue 2 item 7b); ``fused_block``,
+a batch the gate refuses) trains on the float layer path, as in JAX;
+``fused_block``,
 ``inkernel_dropout`` and ``lane_transition`` are basic-trunk features it
 accepts and ignores, as in JAX.
 """
@@ -100,9 +102,6 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.nv_common import fma_f32
 _UNPORTED_FLAGS = {
     "remat": "Queue 1 item 11, a later slice",
 }
-_BNECK_QAT = ("Queue 2 item 7b: int8_train without int8_train_bwd on a "
-              "bottleneck block is the QAT mode, whose backward runs the NV "
-              "halves' bf16 bodies")
 
 
 def check_unported_flags(**flags) -> None:
@@ -514,10 +513,6 @@ class BottleneckResidualBlock(_BlockBase):
         self.pallas_conv = pallas_conv
         # basic-trunk features, as in JAX
         del fused_block, inkernel_dropout, lane_transition
-        if int8_train and not int8_train_bwd:
-            raise NotImplementedError(
-                f"int8_train=True is not ported yet (ROADMAP.md "
-                f"{_BNECK_QAT})")
         self.int8_train = int8_train
         self.int8_train_bwd = int8_train_bwd
         self.channels = channels
@@ -602,12 +597,14 @@ class BottleneckResidualBlock(_BlockBase):
         return NVLane(x.to(self.compute_dtype).contiguous())
 
     def apply_lane(self, nv: NVLane, x_shape, key=None) -> NVLane:
-        """One identity block on the NV run: three int8 halves and the
-        BatchNorm vector math; its own conv3 epilogue is left pending in
-        the returned NVLane (no dropout on this path: gated)."""
+        """One identity block on the NV run: three halves on the int8
+        forward (and the FQT or QAT backward, as ``int8_train_bwd`` says)
+        and the BatchNorm vector math; its own conv3 epilogue is left
+        pending in the returned NVLane (no dropout on this path: gated)."""
         del key
         b, h, w, _ = x_shape
         cnt = b * h * w
+        kw = dict(w_img=w, quant=True, quant_bwd=self.int8_train_bwd)
 
         def bn_fold(bn, zsum, zssq):
             mean = zsum / cnt
@@ -616,17 +613,17 @@ class BottleneckResidualBlock(_BlockBase):
 
         if nv.acc3 is None:
             y1, z1s, z1q = nvt.nv_half_1x1(nv.x, self.conv1.weight,
-                                           mode="identity", w_img=w)
+                                           mode="identity", **kw)
             x_mat = nv.x
         else:
             y1, z1s, z1q, x_mat = nvt.nv_half_1x1(
                 nv.acc3, self.conv1.weight, nv.s3, nv.t3, res=nv.x,
-                mode="entry", w_img=w)
+                mode="entry", **kw)
         s1, t1 = bn_fold(self.norm1, z1s, z1q)
         y2, z2s, z2q = nvt.nv_half_3x3(y1, self.conv2.weight, s1, t1,
-                                       mode="affine", w_img=w)
+                                       mode="affine", **kw)
         s2, t2 = bn_fold(self.norm2, z2s, z2q)
         y3, z3s, z3q = nvt.nv_half_1x1(y2, self.conv3.weight, s2, t2,
-                                       mode="affine", w_img=w)
+                                       mode="affine", **kw)
         s3, t3 = bn_fold(self.norm3, z3s, z3q)
         return NVLane(x_mat, y3, s3, t3)

@@ -161,15 +161,15 @@ class ResNet(Sequential):
     buffers update in place. The keyword flags are the JAX constructor's
     kernel-path switches (models/blocks.py), each taken by the blocks the
     JAX gates admit: ``fused_block`` trains the preact basic-block trunk on
-    the fused bf16 halves, ``int8_train`` on the fused int8 halves with the
-    bf16 straight-through backward (QAT) or, with ``int8_train_bwd``, the
-    fully quantized one; ``inkernel_dropout`` gives those halves a seed in
-    place of materialized dropout bits; ``lane_transition`` runs the int8
-    trunk's stride-2 transitions lane in, lane out on the transition half.
-    ``int8_train_bwd`` trains the post-act bottleneck trunk on the NV
-    training halves. ``pallas_conv`` runs the blocks' stride-1 3x3 convs
-    on the layer path through ``conv3x3_same`` (not the stem's, as in
-    JAX). ``remat`` and QAT on a bottleneck block raise
+    the fused bf16 halves; ``int8_train`` trains it on the fused int8
+    halves, and the post-act bottleneck trunk's identity blocks on the NV
+    training halves, both with the bf16 straight-through backward (QAT)
+    or, with ``int8_train_bwd``, the fully quantized one;
+    ``inkernel_dropout`` gives the fused halves a seed in place of
+    materialized dropout bits; ``lane_transition`` runs the int8 trunk's
+    stride-2 transitions lane in, lane out on the transition half.
+    ``pallas_conv`` runs the blocks' stride-1 3x3 convs on the layer path
+    through ``conv3x3_same`` (not the stem's, as in JAX). ``remat`` raises
     NotImplementedError."""
 
     def __init__(self, architecture_spec: str, preact: bool, use_proj: bool,

@@ -1,7 +1,6 @@
-"""Int8 training halves of the post-act bottleneck trunk, forward and fully
-quantized backward (counterpart of
-``pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py`` with
-``quant=True, quant_bwd=True``).
+"""Training halves of the post-act bottleneck trunk, forward and backward,
+int8 and bf16 bodies (counterpart of
+``pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py``).
 
 One half is one conv of an identity bottleneck block with the previous
 BatchNorm folded into its prologue:
@@ -10,58 +9,73 @@ BatchNorm folded into its prologue:
         = relu(x*s + t)             "affine"   (conv2, conv3)
         = relu(x*s + t + res)       "entry"    (a mid-run conv1; a is also
                                                  emitted as x_res, bf16)
-    y   = bf16(f32(conv(q(a), wq)) * (ws * scale))   1x1 or 3x3 SAME
+    y   = bf16(f32(conv(q(a), wq)) * (ws * scale))   int8 (``quant``)
+        = bf16(conv(bf16(a), bf16(w)))               bf16, f32 accumulation
     zsum, zssq = per-channel f32 sums of y and y^2   (the next BN's stats)
 
 and its backward folds the stats cotangents into ``g = dy + dzsum +
-2*y*dzssq``, quantizes g against per-input-channel int8 weights (dgrad,
-then the prologue's backward: dx, d(s), d(t), and in entry mode dres),
-and quantizes both a and g for the weight gradient.
+2*y*dzssq``, then (``quant_bwd``, FQT) quantizes g against per-input-channel
+int8 weights (dgrad, then the prologue's backward: dx, d(s), d(t), and in
+entry mode dres) and quantizes both a and g for the weight gradient, or
+(straight-through, QAT) contracts bf16(g) with bf16(w) and bf16(a) with
+bf16(g) at the unquantized point. ``quant`` and ``quant_bwd`` are set
+apart, as in JAX; the models run (True, True) (FQT) and (True, False)
+(QAT).
 
 Tensors are NHWC: x [N, h, w, Cin] bf16, y [N, h, w, Cout] bf16, with no
 border columns (the JAX kernels take the TPU's [h, wp, N, C] carrier;
-tests convert). Weights are the port's OIHW; the quantizers return the
-kernels' layouts with the contraction innermost.
+tests convert). Weights are the port's OIHW; the quantizers and packers
+return the kernels' layouts with the contraction innermost.
 
-**Scale groups.** Chunk k of a stage is image rows [k*rch, (k+1)*rch) of
-every image, with that stage's own rch (the JAX row-chunk pickers, copied
-here with their TPU budget because they decide the numbers). A 3x3
-stage's activation group (forward, wgrad) and cotangent group (dgrad)
-also cover the halo rows k*rch-1 and (k+1)*rch inside the image; the
-wgrad's cotangent group has none. Each group is quantized with its own
-absmax: ``q = clip(rint(v * f32(127 / max(amax, 1e-30))), +-127)``,
-``scale = amax * f32(1/127)``. An absmax is exact in any order, so one
-pass writes the per-image-row maxima of |a| (forward, kept for the
-wgrad) and of |g| (backward, shared by dgrad and wgrad), and every
-kernel reduces them over its own groups.
+**Scale groups** (int8 bodies). Chunk k of a stage is image rows [k*rch,
+(k+1)*rch) of every image, with that stage's own rch (the JAX row-chunk
+pickers, copied here with their TPU budget because they decide the
+numbers). A 3x3 stage's activation group (forward, wgrad) and cotangent
+group (dgrad) also cover the halo rows k*rch-1 and (k+1)*rch inside the
+image; the wgrad's cotangent group has none. Each group is quantized with
+its own absmax: ``q = clip(rint(v * f32(127 / max(amax, 1e-30))),
++-127)``, ``scale = amax * f32(1/127)``. An absmax is exact in any order,
+so one pass writes the per-image-row maxima of |a| (forward, kept for the
+wgrad) and of |g| (backward, shared by dgrad and wgrad), and every kernel
+reduces them over its own groups. The bf16 bodies use the chunks only for
+the order of their sums: the wgrad adds each chunk's f32 contraction into
+dW in chunk order.
 
 Rounding points, as the reference computes them where the tests run it
 (interpret mode, lowered by XLA on the CPU; pinned by
-tests/test_torch_bneck_nv_train.py): ``x*s + t`` is one fused
+tests/test_torch_bneck_nv_train.py and
+tests/test_torch_bneck_nv_train_bf16.py): ``x*s + t`` is one fused
 multiply-add, ``+ res`` rounds on its own; the fold ``(dy + dzsum) +
-(2y)*dzssq`` is one fused multiply-add; ``ws * scale`` rounds to f32
-before it multiplies f32(acc), and in the entry dgrad that product and
-``+ dx_res`` are one fused multiply-add; every bf16 output is the f32
-value rounded once more; the wgrad adds each chunk's ``f32(s32) *
-((amax_a * amax_g) * f32(1/127^2))`` into dW in chunk order (XLA
-reassociates the two 1/127 factors).
+(2y)*dzssq`` is one fused multiply-add; int8: ``ws * scale`` rounds to
+f32 before it multiplies f32(acc), and in the entry dgrad that product and
+``+ dx_res`` are one fused multiply-add; the wgrad adds each chunk's
+``f32(s32) * ((amax_a * amax_g) * f32(1/127^2))`` into dW in chunk order
+(XLA reassociates the two 1/127 factors); bf16: the operands round to bf16
+once, the products sum in f32, and the entry dgrad's ``da + dx_res`` is a
+plain f32 add; every bf16 output is the f32 value rounded once more.
 
 Layers of this module, each a CPU-or-card wrapper beside its plain
 version (a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
 
-- ``fwd_rowmax``   (launches ``nv_half_fwd.amax``)
-- ``fwd_conv``     (``nv_half_fwd``, ``nv_half_fwd.sum``)
-- ``bwd_rowmax``   (``nv_half_bwd.amax``)
-- ``dgrad_conv``   (``nv_half_dgrad``, and ``nv_half_dgrad.sum`` unless
-                    the mode is identity)
-- ``wgrad``        (``nv_half_wgrad``, ``nv_half_wgrad.sum``)
+- ``fwd_rowmax``       (launches ``nv_half_fwd.amax``)
+- ``fwd_conv``         (``nv_half_fwd``, ``nv_half_fwd.sum``)
+- ``fwd_conv_bf16``    (``nv_half_fwd_bf16``, ``nv_half_fwd_bf16.sum``)
+- ``bwd_rowmax``       (``nv_half_bwd.amax``)
+- ``dgrad_conv``       (``nv_half_dgrad``, and ``nv_half_dgrad.sum`` unless
+                        the mode is identity)
+- ``dgrad_conv_bf16``  (``nv_half_dgrad_bf16``, ``nv_half_dgrad_bf16.sum``
+                        likewise)
+- ``wgrad``            (``nv_half_wgrad``, ``nv_half_wgrad.sum``)
+- ``wgrad_bf16``       (``nv_half_wgrad_bf16``, ``nv_half_wgrad_bf16.sum``)
 
 and ``nv_half_1x1`` / ``nv_half_3x3``, the differentiable ops over them.
 ``launches`` counts each kernel launch by name and ``launch_shapes`` each
-op call by (stage, conv, mode, N, h, w, Cin, Cout); plain calls count
-nothing. The plain versions compute every int8 product sum exactly in
-float64.
+op call by (stage, conv, mode, N, h, w, Cin, Cout), the stage ``fwd``,
+``dgrad``, ``wgrad`` or, for a bf16 body, ``fwd_bf16``, ``dgrad_bf16``,
+``wgrad_bf16``; plain calls count nothing. The plain versions compute
+every product sum in float64 (exact for the int8 products) and round it
+to f32 where the reference's accumulator holds it.
 """
 
 from __future__ import annotations
@@ -85,9 +99,6 @@ launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
 
 MODES = ("identity", "affine", "entry")
-QAT_TODO = ("ROADMAP.md Queue 2 item 7b: the QAT mode (quant_bwd=False) and "
-            "the quant=False bodies of the NV training halves run bf16 "
-            "kernels not ported yet")
 INV_127 = float(np.float32(1.0 / 127.0))  # the reference's f32(1/127)
 INV_127_SQ = float(np.float32(INV_127) * np.float32(INV_127))
 FLOOR = 1e-30                              # absmax floor of every group
@@ -274,6 +285,22 @@ def quantize_w_3x3_dgrad(w: torch.Tensor):
     return q.permute(1, 2, 3, 0).reshape(w.shape[1], -1).contiguous(), ws
 
 
+def pack_w_bf16(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, Cin, k, k] -> bf16 [Cout, k*k*Cin], taps row-major in
+    (dy, dx) then input channel: the bf16 forward's weights (JAX
+    ``quant_fwd_w`` with ``quant=False``)."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).to(
+        torch.bfloat16).contiguous()
+
+
+def pack_w_bf16_dgrad(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Cout, Cin, k, k] -> bf16 [Cin, k*k*Cout], wb[ci, (dy, dx, co)]
+    = bf16(w[co, ci, dy, dx]) in forward tap coordinates: the bf16 dgrad's
+    weights (JAX ``quant_dgrad_w`` with ``quant_bwd=False``)."""
+    return w.permute(1, 2, 3, 0).reshape(w.shape[1], -1).to(
+        torch.bfloat16).contiguous()
+
+
 # --- plain versions ----------------------------------------------------------
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -378,6 +405,36 @@ def _ordered_sum(v: torch.Tensor, rch: int) -> torch.Tensor:
     return out
 
 
+def _wgrad_chunks(a_slabs, g_slabs, rch, halo):
+    """[K, taps*Cin, Cout] float64: per chunk, the contraction over its
+    positions of a's slab [K, N, rch + 2*halo, w, Cin] (zero outside the
+    plane) at each tap's shift with g's [K, N, rch, w, Cout]."""
+    if not halo:
+        return torch.einsum("knrwc,knrwd->kcd", a_slabs, g_slabs)
+    w = a_slabs.shape[3]
+    ap = F.pad(a_slabs, (0, 0, 1, 1))
+    return torch.cat([torch.einsum(
+        "knrwc,knrwd->kcd", ap[:, :, dy:dy + rch, dx:dx + w], g_slabs)
+        for dy in range(3) for dx in range(3)], dim=1)
+
+
+def _bf64(v: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16, as float64."""
+    return v.to(torch.bfloat16).to(f64)
+
+
+def _conv_bf16(v, wb, taps, cin):
+    """f32 of the float64 SAME conv of bf16(v) [N, h, w, Cin] with wb
+    [Cout, taps*Cin] bf16 (taps row-major in (dy, dx)): each product is
+    exact, so this is the reference's f32 accumulation up to its order."""
+    vb, cout = _bf64(v), wb.shape[0]
+    if taps == 1:
+        return (vb @ wb.to(f64).t()).to(f32)
+    k4 = wb.to(f64).reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    out = F.conv2d(vb.permute(0, 3, 1, 2), k4, padding=1)
+    return out.permute(0, 2, 3, 1).to(f32).contiguous()
+
+
 def fwd_rowmax_plain(x, s, t, res, *, mode):
     """(the row maxima of |a| [h] f32, x_res = bf16(a) in entry mode)."""
     a = prologue_plain(x, s, t, res, mode)
@@ -394,6 +451,16 @@ def fwd_conv_plain(x, s, t, res, rowmax, wq, ws, *, conv, mode, rch):
     y = _dequant(acc, ws, scale, rch).to(torch.bfloat16)
     yb = y.to(f32)
     return y, _ordered_sum(yb, rch), _ordered_sum(yb * yb, rch)
+
+
+def fwd_conv_bf16_plain(x, s, t, res, wb, *, conv, mode, rch):
+    """The bf16 forward: (y [N, h, w, Cout] bf16, zsum, zssq [Cout] f32,
+    x_res = bf16(a) in entry mode, else None)."""
+    a = prologue_plain(x, s, t, res, mode)
+    y = _conv_bf16(a, wb, _taps(conv), x.shape[-1]).to(torch.bfloat16)
+    yb = y.to(f32)
+    return (y, _ordered_sum(yb, rch), _ordered_sum(yb * yb, rch),
+            a.to(torch.bfloat16) if mode == "entry" else None)
 
 
 def bwd_rowmax_plain(dy, y, dzsum, dzssq):
@@ -417,6 +484,12 @@ def dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t,
         da = _dequant(acc, ws_in, scale, rch, add=dxout.to(f32))
     else:
         da = _dequant(acc, ws_in, scale, rch)
+    return _prologue_bwd(da, x, s, t, res, mode, rch)
+
+
+def _prologue_bwd(da, x, s, t, res, mode, rch):
+    """From da = the f32 gradient of a (dx_res added in entry mode): (dx
+    bf16, ds, dt f32 or None, dres bf16 or None)."""
     if mode == "identity":
         return da.to(torch.bfloat16), None, None, None
     xf = x.to(f32)
@@ -429,6 +502,37 @@ def dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t,
     return dx, _ordered_sum(du * xf, rch), _ordered_sum(du, rch), dres
 
 
+def dgrad_conv_bf16_plain(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout,
+                          *, conv, mode, rch):
+    """The bf16 input gradient: bf16(g) against wb_dg [Cin, taps*Cout] bf16
+    (forward tap coordinates), then the prologue's backward, dx_res added
+    to the f32 product in entry mode: (dx, ds, dt, dres) as
+    ``dgrad_conv_plain``."""
+    g = fold_plain(dy, y, dzsum, dzssq)
+    cin, cout = x.shape[-1], dy.shape[-1]
+    if conv == "3x3":   # the taps mirrored, as in dgrad_conv_plain
+        wb_dg = wb_dg.reshape(cin, 3, 3, cout).flip(1, 2).reshape(cin, -1)
+    da = _conv_bf16(g, wb_dg, _taps(conv), cout)
+    if mode == "entry":
+        da = da + dxout.to(f32)
+    return _prologue_bwd(da, x, s, t, res, mode, rch)
+
+
+def wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode,
+                     rch):
+    """The bf16 weight gradient, dW [taps*Cin, Cout] f32 in the rows of
+    ``wgrad_plain``: per chunk the contraction of bf16(a) with bf16(g) (in
+    float64, rounded to f32), added in chunk order."""
+    halo = 1 if conv == "3x3" else 0
+    a = _bf64(prologue_plain(x, s, t, res, mode))
+    g = _bf64(fold_plain(dy, y, dzsum, dzssq))
+    acc = _wgrad_chunks(_slabs(a, rch, halo), _slabs(g, rch, 0), rch, halo)
+    out = acc[0].to(f32)
+    for k in range(1, acc.shape[0]):
+        out = out + acc[k].to(f32)
+    return out
+
+
 def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
                 conv, mode, rch):
     """dW [taps*Cin, Cout] f32 (rows in (dy, dx, ci) order: JAX's
@@ -437,19 +541,12 @@ def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
     order."""
     a = prologue_plain(x, s, t, res, mode)
     g = fold_plain(dy, y, dzsum, dzssq)
-    n, h, w, cin = x.shape
     halo = 1 if conv == "3x3" else 0
     inv_a, _ = _quant_params(chunk_amax(rowmax_a, rch, halo))
     inv_g, _ = _quant_params(chunk_amax(rowmax_g, rch, 0))
     gq = _q(_slabs(g, rch, 0), inv_g.reshape(-1, 1, 1, 1, 1))
     aq = _q(_slabs(a, rch, halo), inv_a.reshape(-1, 1, 1, 1, 1))
-    if conv == "1x1":
-        acc = torch.einsum("knrwc,knrwd->kcd", aq, gq)
-    else:
-        ap = F.pad(aq, (0, 0, 1, 1))
-        acc = torch.cat([torch.einsum(
-            "knrwc,knrwd->kcd", ap[:, :, dy:dy + rch, dx:dx + w], gq)
-            for dy in range(3) for dx in range(3)], dim=1)
+    acc = _wgrad_chunks(aq, gq, rch, halo)
     # XLA reassociates (amax_a * c) * (amax_g * c) into (amax_a * amax_g) *
     # f32(c * c)
     ts = (chunk_amax(rowmax_a, rch, halo) * chunk_amax(rowmax_g, rch, 0)
@@ -483,6 +580,13 @@ def _library() -> ctypes.CDLL:
             + [_P],
             "nvt_wgrad_sum_launch": [_P] * 4 + [_I] * 6 + [_P],
             "nvt_sum_launch": [_P, _P, _I, _I, _P],
+            "nvt_fwd_bf16_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6
+            + [_P],
+            "nvt_dgrad_bf16_launch": [_P] * 10 + [_I] + [_P] * 3 + [_I] * 6
+            + [_P],
+            "nvt_wgrad_bf16_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 8
+            + [_P],
+            "nvt_wgrad_bf16_sum_launch": [_P] * 2 + [_I] * 6 + [_P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -552,12 +656,12 @@ def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _wgrad_splits(n, h, w, cin, cout, taps, rch) -> int:
+def _wgrad_splits(n, h, w, cin, cout, taps, rch, kv=32) -> int:
     """Blocks per chunk of the wgrad: about four waves of blocks in all
     (two blocks on each of the card's 132 SMs a wave), so the last wave's
-    idle share stays small, at least 8 K steps each."""
+    idle share stays small, at least 8 K steps of ``kv`` positions each."""
     tiles = -(-taps * cin // _BM) * -(-cout // 64) * (h // rch)
-    steps = -(-n * rch * w // 32)
+    steps = -(-n * rch * w // kv)
     return max(1, min(-(-4 * 264 // tiles), steps // 8))
 
 
@@ -602,6 +706,35 @@ def fwd_conv(x, s, t, res, rowmax, wq, ws, *, conv, mode, rch):
             w, cin, cout, taps, rch, _stream(x))
     sums = _sums(f"{name}.sum", part)
     return y, sums[:cout], sums[cout:]
+
+
+def fwd_conv_bf16(x, s, t, res, wb, *, conv, mode, rch):
+    """The bf16 forward half: (y [N, h, w, Cout] bf16, zsum, zssq [Cout]
+    f32, x_res bf16 in entry mode, else None). ``rch`` orders the plain
+    version's sums; the kernel has no chunks."""
+    if on_cpu(x):
+        return fwd_conv_bf16_plain(x, s, t, res, wb, conv=conv, mode=mode,
+                                   rch=rch)
+    name = "nv_half_fwd_bf16"
+    n, h, w, cin = x.shape
+    cout, taps = wb.shape[0], _taps(conv)
+    if tuple(wb.shape) != (cout, taps * cin) or cout % 8:
+        raise ValueError(f"{name}: weights {tuple(wb.shape)} vs Cin {cin}")
+    if mode == "entry" and taps != 1:
+        raise ValueError(f"{name}: entry mode is a 1x1 half")
+    _check_rch(name, h, rch)
+    s, t = _vecs(s, t)
+    _require(name, x, mode, s, t, res, [wb], [torch.bfloat16])
+    y = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    x_res = torch.empty_like(x) if mode == "entry" else None
+    part = torch.empty((-(-n * h * w // _BM), 2 * cout), dtype=f32,
+                       device=x.device)
+    _launch(name, _library().nvt_fwd_bf16_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), wb.data_ptr(), y.data_ptr(),
+            part.data_ptr(), _ptr(x_res), n, h, w, cin, cout, taps,
+            _stream(x))
+    sums = _sums(f"{name}.sum", part)
+    return y, sums[:cout], sums[cout:], x_res
 
 
 def _require_cot(name, dy, y, dzsum, dzssq):
@@ -666,6 +799,71 @@ def dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t, res,
     return dx, sums[:cin], sums[cin:], dres
 
 
+def dgrad_conv_bf16(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout, *,
+                    conv, mode, rch):
+    """The bf16 input gradient through the prologue: (dx, ds, dt, dres) as
+    ``dgrad_conv``'s, from wb_dg [Cin, taps*Cout] bf16."""
+    if on_cpu(dy):
+        return dgrad_conv_bf16_plain(dy, y, dzsum, dzssq, wb_dg, x, s, t,
+                                     res, dxout, conv=conv, mode=mode,
+                                     rch=rch)
+    name = "nv_half_dgrad_bf16"
+    n, h, w, cin = x.shape
+    cout, taps = dy.shape[-1], _taps(conv)
+    if tuple(wb_dg.shape) != (cin, taps * cout):
+        raise ValueError(f"{name}: weights {tuple(wb_dg.shape)} vs Cout "
+                         f"{cout}")
+    _check_rch(name, h, rch)
+    dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    extra, dts = [wb_dg], [torch.bfloat16]
+    if mode == "entry":
+        extra.append(dxout)
+        dts.append(torch.bfloat16)
+    _require(name, x, mode, s, t, res, extra, dts)
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(x) if mode == "entry" else None
+    part = (torch.empty((-(-n * h * w // _BM), 2 * cin), dtype=f32,
+                        device=x.device) if mode != "identity" else None)
+    _launch(name, _library().nvt_dgrad_bf16_launch, dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            wb_dg.data_ptr(), x.data_ptr(), _ptr(res), _ptr(dxout), _ptr(s),
+            _ptr(t), MODES.index(mode), dx.data_ptr(), _ptr(dres),
+            _ptr(part), n, h, w, cin, cout, taps, _stream(x))
+    if mode == "identity":
+        return dx, None, None, None
+    sums = _sums(f"{name}.sum", part)
+    return dx, sums[:cin], sums[cin:], dres
+
+
+def wgrad_bf16(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode, rch):
+    """The bf16 weight gradient, dW [taps*Cin, Cout] f32 in ``wgrad``'s
+    rows: each chunk's f32 contraction of bf16(a) with bf16(g), added in
+    chunk order."""
+    if on_cpu(dy):
+        return wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res,
+                                conv=conv, mode=mode, rch=rch)
+    name = "nv_half_wgrad_bf16"
+    n, h, w, cin = x.shape
+    cout, taps = dy.shape[-1], _taps(conv)
+    _check_rch(name, h, rch)
+    dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    _require(name, x, mode, s, t, res)
+    splits = _wgrad_splits(n, h, w, cin, cout, taps, rch, kv=16)
+    part = torch.empty((h // rch * splits, taps * cin * cout), dtype=f32,
+                       device=x.device)
+    dw = torch.empty((taps * cin, cout), dtype=f32, device=x.device)
+    lib, stream = _library(), _stream(x)
+    _launch(name, lib.nvt_wgrad_bf16_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), dy.data_ptr(), y.data_ptr(),
+            dzsum.data_ptr(), dzssq.data_ptr(), part.data_ptr(), n, h, w,
+            cin, cout, taps, rch, splits, stream)
+    _launch(f"{name}.sum", lib.nvt_wgrad_bf16_sum_launch, part.data_ptr(),
+            dw.data_ptr(), h, cin, cout, taps, rch, splits, stream)
+    return dw
+
+
 def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,
           mode, rch):
     """dW [taps*Cin, Cout] f32, rows in (dy, dx, ci) order: each chunk's
@@ -699,54 +897,88 @@ def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,
     return dw
 
 
+def _stage(name: str, plain: bool):
+    return globals()[f"{name}_plain" if plain else name]
+
+
 def half_stages(x, w, s, t, res, dy, dzsum, dzssq, dxout, *, conv, mode,
-                rch, plain=False):
+                rch, quant=True, quant_bwd=True, plain=False):
     """One half's forward and backward stages on given cotangents, through
     the wrappers (kernels on the card) or, with ``plain``, their plain
-    versions: every intermediate and output by name. ``rch``: the (fwd,
-    dgrad, wgrad) row chunks."""
-    stages = ((fwd_rowmax_plain, fwd_conv_plain, bwd_rowmax_plain,
-               dgrad_conv_plain, wgrad_plain) if plain else
-              (fwd_rowmax, fwd_conv, bwd_rowmax, dgrad_conv, wgrad))
-    f_rowmax, f_conv, b_rowmax, b_dgrad, b_wgrad = stages
-    three = conv == "3x3"
-    wq, ws = (quantize_w_3x3 if three else quantize_w_1x1)(w)
-    wq_dg, ws_in = (quantize_w_3x3_dgrad if three
-                    else quantize_w_1x1_dgrad)(w)
+    versions: every intermediate and output by name (``rowmax_a`` and
+    ``rowmax_g`` where an int8 body runs). ``rch``: the (fwd, dgrad, wgrad)
+    row chunks; ``quant``/``quant_bwd`` pick the bodies as in the op."""
     kw = dict(conv=conv, mode=mode)
-    rowmax_a, x_res = f_rowmax(x, s, t, res, mode=mode)
-    y, zsum, zssq = f_conv(x, s, t, res, rowmax_a, wq, ws, rch=rch[0], **kw)
-    rowmax_g = b_rowmax(dy, y, dzsum, dzssq)
-    dx, ds, dt, dres = b_dgrad(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in,
-                               x, s, t, res, dxout, rch=rch[1], **kw)
-    dw = b_wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
-                 rch=rch[2], **kw)
-    return dict(rowmax_a=rowmax_a, x_res=x_res, y=y, zsum=zsum, zssq=zssq,
-                rowmax_g=rowmax_g, dx=dx, ds=ds, dt=dt, dres=dres, dw=dw)
+    out = {}
+    if quant:
+        wq, ws = _quant_w_fwd(conv)(w)
+        rowmax_a, x_res = _stage("fwd_rowmax", plain)(x, s, t, res,
+                                                       mode=mode)
+        y, zsum, zssq = _stage("fwd_conv", plain)(
+            x, s, t, res, rowmax_a, wq, ws, rch=rch[0], **kw)
+        out["rowmax_a"] = rowmax_a
+    else:
+        y, zsum, zssq, x_res = _stage("fwd_conv_bf16", plain)(
+            x, s, t, res, pack_w_bf16(w), rch=rch[0], **kw)
+    cts = (dy, y, dzsum, dzssq)
+    if quant_bwd:
+        if not quant:   # the int8 wgrad's activation groups
+            out["rowmax_a"] = _stage("fwd_rowmax", plain)(x, s, t, res,
+                                                          mode=mode)[0]
+        wq_dg, ws_in = _quant_w_dgrad(conv)(w)
+        rowmax_g = _stage("bwd_rowmax", plain)(*cts)
+        dx, ds, dt, dres = _stage("dgrad_conv", plain)(
+            *cts, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, rch=rch[1],
+            **kw)
+        dw = _stage("wgrad", plain)(*cts, rowmax_g, x, s, t, res,
+                                    out["rowmax_a"], rch=rch[2], **kw)
+        out["rowmax_g"] = rowmax_g
+    else:
+        dx, ds, dt, dres = _stage("dgrad_conv_bf16", plain)(
+            *cts, pack_w_bf16_dgrad(w), x, s, t, res, dxout, rch=rch[1],
+            **kw)
+        dw = _stage("wgrad_bf16", plain)(*cts, x, s, t, res, rch=rch[2],
+                                         **kw)
+    out.update(x_res=x_res, y=y, zsum=zsum, zssq=zssq, dx=dx, ds=ds, dt=dt,
+               dres=dres, dw=dw)
+    return out
+
+
+def _quant_w_fwd(conv):
+    return quantize_w_3x3 if conv == "3x3" else quantize_w_1x1
+
+
+def _quant_w_dgrad(conv):
+    return quantize_w_3x3_dgrad if conv == "3x3" else quantize_w_1x1_dgrad
 
 
 # --- the differentiable op ---------------------------------------------------
 
 class _NVHalf(torch.autograd.Function):
-    """Forward and fully quantized backward of one half. ``rch`` is the
-    (fwd, dgrad, wgrad) row chunks."""
+    """Forward and backward of one half: the int8 or bf16 forward
+    (``quant``), the fully quantized or bf16 straight-through backward
+    (``quant_bwd``). ``rch`` is the (fwd, dgrad, wgrad) row chunks."""
 
     @staticmethod
-    def forward(ctx, x, res, w, s, t, conv, mode, rch):
-        quant_w = quantize_w_3x3 if conv == "3x3" else quantize_w_1x1
-        wq, ws = quant_w(w.detach())
-        rowmax_a, x_res = fwd_rowmax(x, s, t, res, mode=mode)
-        y, zsum, zssq = fwd_conv(x, s, t, res, rowmax_a, wq, ws, conv=conv,
-                                 mode=mode, rch=rch[0])
+    def forward(ctx, x, res, w, s, t, conv, mode, rch, quant, quant_bwd):
+        kw = dict(conv=conv, mode=mode, rch=rch[0])
+        if quant:
+            wq, ws = _quant_w_fwd(conv)(w.detach())
+            rowmax_a, x_res = fwd_rowmax(x, s, t, res, mode=mode)
+            y, zsum, zssq = fwd_conv(x, s, t, res, rowmax_a, wq, ws, **kw)
+        else:
+            rowmax_a = None
+            y, zsum, zssq, x_res = fwd_conv_bf16(
+                x, s, t, res, pack_w_bf16(w.detach()), **kw)
         ctx.save_for_backward(x, res, w, s, t, y, rowmax_a)
-        ctx.cfg = (conv, mode, rch)
-        _record("fwd", conv, mode, x, y)
+        ctx.cfg = (conv, mode, rch, quant_bwd)
+        _record("fwd" if quant else "fwd_bf16", conv, mode, x, y)
         return (y, zsum, zssq, x_res) if mode == "entry" else (y, zsum, zssq)
 
     @staticmethod
     def backward(ctx, dy, dzsum, dzssq, dxout=None):
         x, res, w, s, t, y, rowmax_a = ctx.saved_tensors
-        conv, mode, rch = ctx.cfg
+        conv, mode, rch, quant_bwd = ctx.cfg
         cout = y.shape[-1]
 
         def zeros(g, like, shape):
@@ -758,23 +990,32 @@ class _NVHalf(torch.autograd.Function):
         dzssq = zeros(dzssq, f32, (cout,))
         if mode == "entry":
             dxout = zeros(dxout, torch.bfloat16, x.shape).contiguous()
-        quant_dg = quantize_w_3x3_dgrad if conv == "3x3" \
-            else quantize_w_1x1_dgrad
-        wq_dg, ws_in = quant_dg(w.detach())
-        rowmax_g = bwd_rowmax(dy, y, dzsum, dzssq)
-        dx, ds, dt, dres = dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg,
-                                      ws_in, x, s, t, res, dxout, conv=conv,
-                                      mode=mode, rch=rch[1])
-        dw = wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
-                   conv=conv, mode=mode, rch=rch[2])
-        _record("dgrad", conv, mode, x, y)
-        _record("wgrad", conv, mode, x, y)
+        cts = (dy, y, dzsum, dzssq)
+        kw = dict(conv=conv, mode=mode)
+        if quant_bwd:
+            if rowmax_a is None:   # a bf16 forward wrote no row maxima
+                rowmax_a = fwd_rowmax(x, s, t, res, mode=mode)[0]
+            wq_dg, ws_in = _quant_w_dgrad(conv)(w.detach())
+            rowmax_g = bwd_rowmax(*cts)
+            dx, ds, dt, dres = dgrad_conv(*cts, rowmax_g, wq_dg, ws_in, x, s,
+                                          t, res, dxout, rch=rch[1], **kw)
+            dw = wgrad(*cts, rowmax_g, x, s, t, res, rowmax_a, rch=rch[2],
+                       **kw)
+        else:
+            dx, ds, dt, dres = dgrad_conv_bf16(
+                *cts, pack_w_bf16_dgrad(w.detach()), x, s, t, res, dxout,
+                rch=rch[1], **kw)
+            dw = wgrad_bf16(*cts, x, s, t, res, rch=rch[2], **kw)
+        body = "" if quant_bwd else "_bf16"
+        _record("dgrad" + body, conv, mode, x, y)
+        _record("wgrad" + body, conv, mode, x, y)
         cin = x.shape[-1]
         if conv == "3x3":   # [(dy, dx, ci), co] -> OIHW
             dw = dw.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
         else:
             dw = dw.t()[:, :, None, None]
-        return (dx, dres, dw.to(w.dtype), ds, dt, None, None, None)
+        return (dx, dres, dw.to(w.dtype), ds, dt, None, None, None, None,
+                None)
 
 
 def _record(stage: str, conv: str, mode: str, x, y) -> None:
@@ -783,10 +1024,7 @@ def _record(stage: str, conv: str, mode: str, x, y) -> None:
         launch_shapes[(stage, conv, mode, n, h, w, cin, y.shape[-1])] += 1
 
 
-def _checks(x, w_img, quant, quant_bwd):
-    if not (quant and quant_bwd):
-        raise NotImplementedError(f"quant={quant}, quant_bwd={quant_bwd} is "
-                                  f"not ported yet ({QAT_TODO})")
+def _checks(x, w_img):
     n, h, w, _ = x.shape
     if w_img != w:
         raise ValueError(f"w_img={w_img} but x is NHWC with w={w}")
@@ -797,7 +1035,7 @@ def _checks(x, w_img, quant, quant_bwd):
 
 
 def _half(conv, x, w, s, t, res, mode, w_img, quant, quant_bwd, chunk_rows):
-    n, h, w_ = _checks(x, w_img, quant, quant_bwd)
+    n, h, w_ = _checks(x, w_img)
     cin, cout = w.shape[1], w.shape[0]
     if x.shape[-1] != cin:
         raise ValueError(f"x has {x.shape[-1]} channels, w takes {cin}")
@@ -805,7 +1043,8 @@ def _half(conv, x, w, s, t, res, mode, w_img, quant, quant_bwd, chunk_rows):
            pick_chunk_rows(h, w_, n, cin, cout, conv, mode))
     if mode != "identity":
         s, t = s.to(f32), t.to(f32)
-    return _NVHalf.apply(x.contiguous(), res, w, s, t, conv, mode, rch)
+    return _NVHalf.apply(x.contiguous(), res, w, s, t, conv, mode, rch,
+                         bool(quant), bool(quant_bwd))
 
 
 def nv_half_1x1(x, w, s=None, t=None, res=None, *, mode: str = "affine",
@@ -816,8 +1055,10 @@ def nv_half_1x1(x, w, s=None, t=None, res=None, *, mode: str = "affine",
     activation in identity/entry modes; w [Cout, Cin, 1, 1] (OIHW); s, t
     [Cin] f32 (affine/entry); res [N, h, w, Cin] bf16 (entry). Returns (y
     [N, h, w, Cout] bf16, zsum, zssq [Cout] f32), plus x_res = bf16(relu(
-    x*s + t + res)) in entry mode. ``chunk_rows`` forces one row chunk on
-    all three stages (else the JAX pickers choose)."""
+    x*s + t + res)) in entry mode. ``quant``: the int8 forward, else bf16;
+    ``quant_bwd``: the fully quantized backward, else the bf16
+    straight-through one. ``chunk_rows`` forces one row chunk on all three
+    stages (else the JAX pickers choose)."""
     if mode not in MODES:
         raise ValueError(f"mode={mode!r} not in {MODES}")
     if mode == "entry" and res is None:

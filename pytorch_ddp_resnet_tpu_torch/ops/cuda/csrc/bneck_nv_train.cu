@@ -1,15 +1,18 @@
-// Int8 training halves of the post-act bottleneck trunk (forward, input
-// gradient, weight gradient), written for Hopper (sm_90a) and bound to
-// Python through a plain C interface (ops/cuda/bneck_nv_train.py loads
-// this file's shared library with ctypes).
+// Training halves of the post-act bottleneck trunk (forward, input
+// gradient, weight gradient), int8 and bf16 bodies, written for Hopper
+// (sm_90a) and bound to Python through a plain C interface
+// (ops/cuda/bneck_nv_train.py loads this file's shared library with ctypes).
 //
-// What they replace (pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py,
-// quant=True, quant_bwd=True):
+// What they replace (pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py):
 //   rowmax_act, fwd_conv      <- _fwd_call -> _fwd1x1_kernel, _fwd3x3_kernel
+//                                (quant=True: the int8 body)
+//   fwd_bf16                  <- the same kernels' quant=False body
 //   rowmax_cot, dgrad_conv    <- _dgrad_call -> _dgrad1x1_kernel,
-//                                _dgrad3x3_kernel
+//                                _dgrad3x3_kernel (quant_bwd=True)
+//   dgrad_bf16                <- the same kernels' quant_bwd=False body
 //   wgrad, wgrad_sum          <- _wgrad_call -> _wgrad1x1_kernel,
-//                                _wgrad3x3_kernel
+//                                _wgrad3x3_kernel (quant_bwd=True)
+//   wgrad_bf16, wgrad_bf16_sum <- the same kernels' quant_bwd=False body
 //   sum                       <- the TPU kernels' sums carried across
 //                                their sequential grid
 //
@@ -17,22 +20,26 @@
 // kernels' [h, wp, N, C] carrier, halo slivers and column masks serve
 // Mosaic). A position outside the image is zero AFTER the prologue.
 //
-// Scale groups: chunk k of a stage is image rows [k*rch, (k+1)*rch) of
-// every image; a 3x3 stage's activation (fwd, wgrad) or cotangent (dgrad)
-// group adds the halo rows k*rch-1 and (k+1)*rch inside the image. So one
-// image row is quantized at two scales where two chunks share it, and no
-// single int8 copy of an operand can serve a 3x3 stage: every GEMM here
-// quantizes in its gather, with the scale of the chunk of the output row
-// it computes (fwd, dgrad) or of the chunk it contracts (wgrad). The
-// absmax of a group is exact in any order: rowmax_* writes the maximum of
-// |value| per image row (atomicMax on the float's bits, which order as
-// integers for values >= 0), and each kernel reduces its group's rows.
+// Scale groups (int8 bodies): chunk k of a stage is image rows [k*rch,
+// (k+1)*rch) of every image; a 3x3 stage's activation (fwd, wgrad) or
+// cotangent (dgrad) group adds the halo rows k*rch-1 and (k+1)*rch inside
+// the image. So one image row is quantized at two scales where two chunks
+// share it, and no single int8 copy of an operand can serve a 3x3 stage:
+// every int8 GEMM here quantizes in its gather, with the scale of the chunk
+// of the output row it computes (fwd, dgrad) or of the chunk it contracts
+// (wgrad). The absmax of a group is exact in any order: rowmax_* writes the
+// maximum of |value| per image row (atomicMax on the float's bits, which
+// order as integers for values >= 0), and each kernel reduces its group's
+// rows. The bf16 bodies have no groups: their gather rounds the prologue's
+// (or the fold's) f32 value to bf16.
 //
-// The GEMM core: a 128x64 output tile per block, 8 warps (4 along M x 2
-// along N), ldmatrix + mma.sync m16n8k32 s8 x s8 -> s32 in registers, K
-// walked 32 bytes at a time through two shared-memory buffers. The
-// producer loads step k+1's bf16 operands into registers while the tensor
-// cores run step k, then applies the prologue, quantizes and stores them:
+// The GEMM core, one template over the operand type: a 128x64 output tile
+// per block, 8 warps (4 along M x 2 along N), ldmatrix + mma.sync (s8
+// m16n8k32 -> s32, or bf16 m16n8k16 -> f32) in registers, K walked 32
+// bytes at a time (32 int8 or 16 bf16 values) through two shared-memory
+// buffers. The producer loads step k+1's bf16 operands into registers
+// while the tensor cores run step k, then applies the prologue, quantizes
+// or rounds them and stores them:
 //   fwd:   M = positions, N = Cout, K = (tap, ci); a gathered at
 //          (r + dy - 1, c + dx - 1);
 //   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
@@ -40,41 +47,45 @@
 //          forward tap coordinates;
 //   wgrad: M = (tap, ci), N = Cout, K = a run of the positions of one
 //          chunk (grid z = (chunk, split)). Both operands are NHWC,
-//          channel-contiguous, and
-//          mma.sync wants K contiguous: each thread quantizes a 4 x 4
-//          (positions x channels) block and packs each channel's four
-//          positions into one 32-bit word, four shared stores.
+//          channel-contiguous, and mma.sync wants K contiguous: each
+//          thread converts a 4 x 4 (positions x channels) block and packs
+//          each channel's four positions into one 32-bit word (int8) or
+//          one 64-bit pair (bf16), four shared stores.
 // Epilogues run on the accumulators in registers: the dequant
-// f32(acc) * f32(ws * scale) (fwd, dgrad), the bf16 outputs, the prologue's
-// backward (dgrad), and per-block per-channel sums (warp butterflies, then
-// the four M-warps in order) into a partial buffer that nvt_sum reduces in
-// a fixed tree. The wgrad splits each chunk's positions over blocks (the
-// chunk's s32 sum is the same integer in any split), and nvt_wgrad_sum
-// adds each chunk's f32(s32) * (amax_a * amax_g / 127^2) into dW in chunk
-// order, as the TPU kernel's sequential grid does: dW is reproducible bit
-// for bit.
+// f32(acc) * f32(ws * scale) (int8 fwd, dgrad), the bf16 outputs, the
+// prologue's backward (dgrad), and per-block per-channel sums (warp
+// butterflies, then the four M-warps in order) into a partial buffer that
+// nvt_sum reduces in a fixed tree. The wgrad splits each chunk's positions
+// over blocks; the int8 sum adds each chunk's f32(exact s32 over its
+// splits) * (amax_a * amax_g / 127^2), the bf16 sum each chunk's f32 split
+// tiles in split order, into dW in chunk order, as the TPU kernel's
+// sequential grid does: dW is reproducible bit for bit.
 //
 // What bounds them on an H100: at ResNet-50's stages 1-3 (batch 128) a
-// half is 2*N*h*w*taps*Cin*Cout int8 operations, 3.3-30 GOP, 1.7-15 us at
-// 1979 TOP/s, against 2-4 bf16 tensors of 51-205 MB in and out, 15-120 us
-// at 3.35 TB/s: the 1x1 halves and the stage-1 halves are bound by bytes.
-// What the design does about it: each operand is read once per output
-// tile column (N / 64 times; K / 32 steps per tile), the quantized
-// operands never reach device memory, and no s32 accumulator does either.
+// half is 2*N*h*w*taps*Cin*Cout operations, 3.3-30 G, 1.7-15 us at 1979
+// int8 TOP/s or 3.4-30 us at 989 bf16 TFLOP/s, against 2-4 bf16 tensors of
+// 51-205 MB in and out, 15-120 us at 3.35 TB/s: the 1x1 halves and the
+// stage-1 halves are bound by bytes. What the design does about it: each
+// operand is read once per output tile column (N / 64 times; K / 32 bytes
+// steps per tile), the quantized or rounded operands never reach device
+// memory, and no accumulator does either (but the wgrad's split tiles).
 // Left for later: the producer's synchronous loads (no cp.async/TMA
 // ring), mma.sync instead of wgmma, a 64-wide N tile that re-reads A
 // Cout/64 times, and the halo rows' recomputed prologue.
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
-// tests run it; tests/test_torch_bneck_nv_train.py pins each): x*s + t is
-// one fma and + res rounds on its own; the fold (dy + dzsum) + (2y)*dzssq
-// is one fma; ws * scale rounds before it meets f32(acc), and the entry
-// dgrad's f32(acc) * (ws * scale) + dx_res is one fma; the wgrad's
-// chunk scale is (amax_a * amax_g) * f32(1/127^2) (XLA reassociates the
-// two 1/127 factors); every other product and sum rounds on its own
-// (__fmul_rn / __fadd_rn, so nvcc cannot contract them); rintf rounds
-// half to even; s32 -> f32 rounds to nearest; bf16 outputs round the f32
-// value once more (__float2bfloat16_rn).
+// tests run it; tests/test_torch_bneck_nv_train.py and
+// tests/test_torch_bneck_nv_train_bf16.py pin each): x*s + t is one fma and
+// + res rounds on its own; the fold (dy + dzsum) + (2y)*dzssq is one fma;
+// int8: ws * scale rounds before it meets f32(acc), and the entry dgrad's
+// f32(acc) * (ws * scale) + dx_res is one fma; the wgrad's chunk scale is
+// (amax_a * amax_g) * f32(1/127^2) (XLA reassociates the two 1/127
+// factors); bf16: the gathered operands round to bf16 once, the products
+// accumulate in f32, and the entry dgrad's da + dx_res is a plain add;
+// every other product and sum rounds on its own (__fmul_rn / __fadd_rn,
+// so nvcc cannot contract them); rintf rounds half to even; s32 -> f32
+// rounds to nearest; bf16 outputs round the f32 value once more
+// (__float2bfloat16_rn).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +235,11 @@ __device__ __forceinline__ uint32_t pack4(float a, float b, float c,
          ((uint32_t)(uint8_t)quant_s8(d) << 24);
 }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // --- row absmax (and the entry mode's x_res) --------------------------------
 
 // rowmax[r] = max |value| over images, columns and channels of row r;
@@ -269,8 +285,18 @@ nvt_rowmax_kernel(Src src, int n, int h, int w, int c,
 
 // --- the GEMM core ----------------------------------------------------------
 
-// acc += A[BM][32] . B[BN][32]^T of one buffer (A rows, then B rows).
-__device__ __forceinline__ void mma_tile(int (&acc)[2][4][4],
+// The operand type T (signed char: the int8 bodies, bf16: the bf16 ones)
+// sets the accumulator (s32 / f32), the mma.sync shape and the values per
+// 32-byte step; the shared-memory layout is the same bytes for both.
+template <typename T> using AccT = typename conv3x3::Acc<T>::type;
+template <typename T>
+__host__ __device__ constexpr int kvals() { return BK / (int)sizeof(T); }
+
+// acc += A[BM][32 bytes] . B[BN][32 bytes]^T of one buffer (A rows, then B
+// rows); the fragments of s8 m16n8k32 and bf16 m16n8k16 hold the same
+// bytes, so one ldmatrix layout serves both.
+template <typename Acc>
+__device__ __forceinline__ void mma_tile(Acc (&acc)[2][4][4],
                                          const unsigned char* buf) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -297,10 +323,10 @@ __device__ __forceinline__ void mma_tile(int (&acc)[2][4][4],
 }
 
 // The block's product over steps [kt0, kt1); the loader's fetch(kt, regs)
-// issues step kt's global loads, store(regs, buf) quantizes them into a
+// issues step kt's global loads, store(regs, buf) converts them into a
 // buffer. Step kt+1 is fetched before step kt's products and stored after.
-template <typename Loader>
-__device__ __forceinline__ void gemm(int (&acc)[2][4][4], const Loader& ld,
+template <typename Acc, typename Loader>
+__device__ __forceinline__ void gemm(Acc (&acc)[2][4][4], const Loader& ld,
                                      unsigned char* smem, int kt0, int kt1) {
   typename Loader::Regs regs;
   ld.fetch(kt0, regs);
@@ -325,29 +351,40 @@ struct ConvGeo {
   int rch, halo;
 };
 
-template <typename Src, bool MIRROR>
+__device__ __forceinline__ int conv_steps(const ConvGeo& g, int kv) {
+  return g.taps * ((g.c + kv - 1) / kv);
+}
+
+// Each row of a step holds 32 bytes of K, two threads 16 bytes each: two
+// 8-channel vectors quantized to int8, or one rounded to bf16.
+template <typename Src, bool MIRROR, typename T>
 struct ConvLoader {
+  static constexpr int KV = kvals<T>();
+  static constexpr int NV = 2 / (int)sizeof(T);  // 8-channel vectors a thread
+  using WVec = typename conv3x3::Vec8<T>::type;
   Src src;
-  const signed char* wq;  // [nout][taps * c] int8
+  const T* wt;  // [nout][taps * c]
   ConvGeo g;
+  bf16* copy;   // bf16 forward, entry mode: x_res = bf16(a) (1x1 only)
   // per thread
   int img, oy, ox, r, half;
   bool row_ok;
   float inv;
-  const signed char* b_row;
+  const T* b_row;
   bool b_ok;
   int csteps;
 
   struct Regs {
-    Raw<8> a[2];
-    bool av[2];
+    Raw<8> a[NV];
+    bool av[NV];
     int c0;
-    uint2 b[2];
+    WVec b[NV];
   };
 
-  __device__ ConvLoader(const Src& s, const signed char* w, const ConvGeo& geo,
-                        const float* rowmax, int m0, int n0)
-      : src(s), wq(w), g(geo) {
+  __device__ ConvLoader(const Src& s, const T* w, const ConvGeo& geo,
+                        const float* rowmax, int m0, int n0,
+                        bf16* copy_ = nullptr)
+      : src(s), wt(w), g(geo), copy(copy_) {
     const int tid = threadIdx.x;
     r = tid >> 1;
     half = tid & 1;
@@ -359,11 +396,12 @@ struct ConvLoader {
     const int rem = mm - img * g.h * g.w;
     oy = rem / g.w;
     ox = rem - oy * g.w;
-    inv = inv_of(chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h));
+    if constexpr (sizeof(T) == 1)
+      inv = inv_of(chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h));
     const int rb = n0 + r;
     b_ok = tid < 2 * BN && rb < g.nout;
-    b_row = wq + (size_t)(b_ok ? rb : 0) * g.taps * g.c;
-    csteps = (g.c + BK - 1) / BK;
+    b_row = wt + (size_t)(b_ok ? rb : 0) * g.taps * g.c;
+    csteps = (g.c + KV - 1) / KV;
   }
 
   __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
@@ -376,35 +414,46 @@ struct ConvLoader {
     const bool ok = row_ok && (unsigned)iy < (unsigned)g.h &&
                     (unsigned)ix < (unsigned)g.w;
     const size_t p = ((size_t)img * g.h + iy) * g.w + ix;
-    rg.c0 = cs * BK + half * 16;
+    rg.c0 = cs * KV + half * 8 * NV;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NV; ++j) {
       const int cj = rg.c0 + 8 * j;
       rg.av[j] = ok && cj < g.c;
       if (rg.av[j]) src.template fetch<8>(p, cj, rg.a[j]);
       const bool bv = b_ok && cj < g.c;
-      rg.b[j] = bv ? *reinterpret_cast<const uint2*>(b_row + tap * g.c + cj)
-                   : make_uint2(0, 0);
+      rg.b[j] = bv ? *reinterpret_cast<const WVec*>(b_row + tap * g.c + cj)
+                   : WVec{};
     }
   }
 
   __device__ __forceinline__ void store(const Regs& rg,
                                         unsigned char* buf) const {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint2 q = make_uint2(0, 0);
+    for (int j = 0; j < NV; ++j) {
+      WVec q{};
       if (rg.av[j]) {
         float v[8];
         src.template value<8>(rg.a[j], rg.c0 + 8 * j, v);
-        q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
-                    __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
-        q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
-                    __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
+        if constexpr (sizeof(T) == 1) {
+          q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
+                      __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
+          q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
+                      __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
+        } else {
+          bf16* e = reinterpret_cast<bf16*>(&q);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
+          // the 1x1 gathers each position once per column of blocks
+          if (copy != nullptr && blockIdx.y == 0)
+            *reinterpret_cast<WVec*>(
+                copy + (((size_t)img * g.h + oy) * g.w + ox) * g.c + rg.c0) =
+                q;
+        }
       }
-      *reinterpret_cast<uint2*>(buf + r * ROW + half * 16 + 8 * j) = q;
+      const int off = r * ROW + half * 16 + j * (int)sizeof(WVec);
+      *reinterpret_cast<WVec*>(buf + off) = q;
       if (threadIdx.x < 2 * BN)
-        *reinterpret_cast<uint2*>(buf + A_BYTES + r * ROW + half * 16 +
-                                  8 * j) = rg.b[j];
+        *reinterpret_cast<WVec*>(buf + A_BYTES + off) = rg.b[j];
     }
   }
 };
@@ -413,8 +462,8 @@ struct ConvLoader {
 
 // Visit the block's outputs: fn(m, n, acc(m, n), acc(m, n + 1)) for the
 // thread's valid rows m and column pairs (n, n + 1).
-template <typename Fn>
-__device__ __forceinline__ void each_pair(const int (&acc)[2][4][4], int m0,
+template <typename Acc, typename Fn>
+__device__ __forceinline__ void each_pair(const Acc (&acc)[2][4][4], int m0,
                                           int n0, int M, int nout, Fn&& fn) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -488,34 +537,45 @@ __device__ __forceinline__ void row_scales(float (&sc)[2][2],
 
 struct FwdArgs {
   Act act;
-  const signed char* wq;   // [cout][taps * cin]
-  const float* ws;         // [cout]
-  const float* rowmax;     // [h] of |a|
+  const void* w;           // [cout][taps * cin] int8 or bf16
+  const float* ws;         // int8: [cout]
+  const float* rowmax;     // int8: [h] of |a|
   bf16* y;                 // [M][cout]
   float* part;             // [M / BM][2 * cout]
+  bf16* x_res;             // bf16, entry mode: [M][cin]
   ConvGeo g;
 };
 
+// int8: y = bf16(f32(acc) * f32(ws * scale)); bf16: y = bf16(acc); sums
+// of f32(y) and its square
+template <typename T>
 __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
   __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
   const ConvGeo g = args.g;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = g.n * g.h * g.w;
-  int acc[2][4][4] = {};
-  const ConvLoader<Act, false> ld(args.act, args.wq, g, args.rowmax, m0, n0);
-  gemm(acc, ld, smem, 0, g.taps * ((g.c + BK - 1) / BK));
+  AccT<T> acc[2][4][4] = {};
+  const ConvLoader<Act, false, T> ld(args.act, static_cast<const T*>(args.w),
+                                     g, args.rowmax, m0, n0, args.x_res);
+  gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
-  // y = bf16(f32(acc) * f32(ws * scale)); sums of f32(y) and its square
   float rs[2][2];
-  row_scales(rs, args.rowmax, m0, g);
+  if constexpr (sizeof(T) == 1) row_scales(rs, args.rowmax, m0, g);
   float s[2][4][2] = {};
   each_pair(acc, m0, n0, M, g.nout,
-            [&](int mi, int ni, int hr, int m, int n, int v0, int v1) {
-    const float sc = rs[mi][hr];
-    const float y0 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
-        __int2float_rn(v0), __fmul_rn(args.ws[n], sc))));
-    const float y1 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
-        __int2float_rn(v1), __fmul_rn(args.ws[n + 1], sc))));
+            [&](int mi, int ni, int hr, int m, int n, AccT<T> v0,
+                AccT<T> v1) {
+    float y0, y1;
+    if constexpr (sizeof(T) == 1) {
+      const float sc = rs[mi][hr];
+      y0 = __fmul_rn(__int2float_rn(v0), __fmul_rn(args.ws[n], sc));
+      y1 = __fmul_rn(__int2float_rn(v1), __fmul_rn(args.ws[n + 1], sc));
+    } else {
+      y0 = v0;
+      y1 = v1;
+    }
+    y0 = __bfloat162float(__float2bfloat16_rn(y0));
+    y1 = __bfloat162float(__float2bfloat16_rn(y1));
     *reinterpret_cast<__nv_bfloat162*>(args.y + (size_t)m * g.nout + n) =
         __floats2bfloat162_rn(y0, y1);
     s[0][ni][0] = __fadd_rn(s[0][ni][0], y0);
@@ -530,9 +590,9 @@ __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
 
 struct DgradArgs {
   Cot cot;
-  const signed char* wq;   // [cin][taps * cout], forward tap coordinates
-  const float* ws_in;      // [cin]
-  const float* rowmax;     // [h] of |g|
+  const void* w;           // [cin][taps * cout] int8 or bf16, forward taps
+  const float* ws_in;      // int8: [cin]
+  const float* rowmax;     // int8: [h] of |g|
   const bf16* x;           // [M][cin] (the half's input)
   const bf16* res;         // entry: [M][cin]
   const bf16* dxout;       // entry: the x_res cotangent [M][cin]
@@ -545,31 +605,42 @@ struct DgradArgs {
   ConvGeo g;               // c = cout (contracted), nout = cin
 };
 
+// da = f32(acc) * f32(ws_in * scale) (int8) or acc (bf16); identity: dx =
+// bf16(da); else u = fma(x, s, t) (+ res), da (entry, int8: fma(f32(acc),
+// ws_in * scale, dxout); entry, bf16: da + dxout), du = u > 0 ? da : 0,
+// dx = bf16(du * s), dres = bf16(du); sums of du * x and du
+template <typename T>
 __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
   __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
   const ConvGeo g = args.g;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = g.n * g.h * g.w;
   const int cin = g.nout;
-  int acc[2][4][4] = {};
-  const ConvLoader<Cot, true> ld(args.cot, args.wq, g, args.rowmax, m0, n0);
-  gemm(acc, ld, smem, 0, g.taps * ((g.c + BK - 1) / BK));
+  AccT<T> acc[2][4][4] = {};
+  const ConvLoader<Cot, true, T> ld(args.cot, static_cast<const T*>(args.w),
+                                    g, args.rowmax, m0, n0);
+  gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
-  // da = f32(acc) * f32(ws_in * scale); identity: dx = bf16(da); else
-  // u = fma(x, s, t) (+ res), da (entry: fma(f32(acc), ws_in * scale,
-  // dxout)), du = u > 0 ? da : 0,
-  // dx = bf16(du * s), dres = bf16(du); sums of du * x and du
   float rs[2][2];
-  row_scales(rs, args.rowmax, m0, g);
+  if constexpr (sizeof(T) == 1) row_scales(rs, args.rowmax, m0, g);
   float s[2][4][2] = {};
   each_pair(acc, m0, n0, M, cin,
-            [&](int mi, int ni, int hr, int m, int n, int v0, int v1) {
-    const float sc = rs[mi][hr];
+            [&](int mi, int ni, int hr, int m, int n, AccT<T> v0,
+                AccT<T> v1) {
     const size_t i = (size_t)m * cin + n;
-    const float fac[2] = {__fmul_rn(args.ws_in[n], sc),
-                          __fmul_rn(args.ws_in[n + 1], sc)};
-    const float acc_f[2] = {__int2float_rn(v0), __int2float_rn(v1)};
-    float da[2] = {__fmul_rn(acc_f[0], fac[0]), __fmul_rn(acc_f[1], fac[1])};
+    float acc_f[2], fac[2], da[2];
+    if constexpr (sizeof(T) == 1) {
+      const float sc = rs[mi][hr];
+      fac[0] = __fmul_rn(args.ws_in[n], sc);
+      fac[1] = __fmul_rn(args.ws_in[n + 1], sc);
+      acc_f[0] = __int2float_rn(v0);
+      acc_f[1] = __int2float_rn(v1);
+      da[0] = __fmul_rn(acc_f[0], fac[0]);
+      da[1] = __fmul_rn(acc_f[1], fac[1]);
+    } else {
+      da[0] = v0;
+      da[1] = v1;
+    }
     if (args.mode == IDENTITY) {
       *reinterpret_cast<__nv_bfloat162*>(args.dx + i) =
           __floats2bfloat162_rn(da[0], da[1]);
@@ -596,7 +667,10 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
       float d = da[e];
       if (args.mode == ENTRY) {
         u = __fadd_rn(u, rv[e]);
-        d = __fmaf_rn(acc_f[e], fac[e], ov[e]);
+        if constexpr (sizeof(T) == 1)
+          d = __fmaf_rn(acc_f[e], fac[e], ov[e]);
+        else
+          d = __fadd_rn(d, ov[e]);
       }
       du[e] = u > 0.f ? d : 0.f;
       s[0][ni][e] = __fadd_rn(s[0][ni][e], __fmul_rn(du[e], xv[e]));
@@ -618,11 +692,11 @@ struct WgradArgs {
   Cot cot;
   const float* rowmax_a;
   const float* rowmax_g;
-  int* part;               // [h / rch][splits][taps * cin][cout] s32
+  void* part;              // [h / rch][splits][taps * cin][cout] s32 or f32
   int n, h, w, cin, cout, taps, rch, splits;
 };
 
-// Blocks of 4 positions x 4 channels, quantized and transposed so that
+// int8: blocks of 4 positions x 4 channels, quantized and transposed so that
 // each of the 4 channel rows holds its 4 positions in one 32-bit word.
 struct WgradLoader {
   WgradArgs a;
@@ -739,7 +813,8 @@ __global__ void __launch_bounds__(THREADS) nvt_wgrad_kernel(WgradArgs args) {
     const WgradLoader ld(args, k, m0, n0);
     gemm(acc, ld, smem, kt0, kt1);
   }
-  int* out = args.part + (size_t)blockIdx.z * M * args.cout;
+  int* out = static_cast<int*>(args.part) +
+             (size_t)blockIdx.z * M * args.cout;
   each_pair(acc, m0, n0, M, args.cout,
             [&](int, int, int, int m, int n, int v0, int v1) {
     *reinterpret_cast<int2*>(out + (size_t)m * args.cout + n) =
@@ -771,6 +846,143 @@ nvt_wgrad_sum_kernel(const int* __restrict__ part,
     for (int sp = 0; sp < splits; ++sp)
       sum += part[((size_t)k * splits + sp) * mn + i];
     const float c = __fmul_rn(__int2float_rn(sum), ts[k]);
+    d = k == 0 ? c : __fadd_rn(d, c);
+  }
+  out[i] = d;
+}
+
+// bf16: K = 16 positions a step. Threads 0-127 take A's 32 channel blocks
+// of 4 (the activation), threads 128-191 B's 16 (the cotangent), each at
+// the 4 position blocks of 4; each rounds its 4 x 4 block to bf16 and
+// stores each channel's four positions as one 64-bit pair.
+struct WgradLoaderBf16 {
+  WgradArgs a;
+  int k;            // chunk
+  int kb, rb;       // this thread's position block and channel block
+  bool is_a, ok;
+  int tap, ch;      // A: the block's tap and first input channel; B: channel
+
+  struct Regs {
+    Raw<4> v[4];
+    bool vv[4];
+  };
+
+  __device__ WgradLoaderBf16(const WgradArgs& args, int k_, int m0, int n0)
+      : a(args), k(k_) {
+    const int tid = threadIdx.x;
+    kb = tid % 4;
+    is_a = tid < 128;
+    rb = is_a ? tid / 4 : (tid - 128) / 4;
+    if (is_a) {
+      const int m = m0 + 4 * rb;
+      ok = m < a.taps * a.cin;
+      tap = ok ? m / a.cin : 0;
+      ch = ok ? m - tap * a.cin : 0;
+    } else {
+      tap = 0;
+      ch = n0 + 4 * rb;
+      ok = tid < 192 && ch < a.cout;
+    }
+  }
+
+  __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
+    const int total = a.n * a.rch * a.w;
+    const int dy = a.taps == 9 ? tap / 3 : 1;
+    const int dx = a.taps == 9 ? tap % 3 : 1;
+    const int kk0 = kt * 16 + 4 * kb;
+    const int per = a.rch * a.w;
+    int img = kk0 / per;
+    const int rem = kk0 - img * per;
+    int r = rem / a.w;
+    int c = rem - r * a.w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ry = k * a.rch + r;
+      const int iy = is_a ? ry + dy - 1 : ry, ix = is_a ? c + dx - 1 : c;
+      rg.vv[i] = ok && kk0 + i < total && (unsigned)iy < (unsigned)a.h &&
+                 (unsigned)ix < (unsigned)a.w;
+      if (rg.vv[i]) {
+        const size_t p = ((size_t)img * a.h + iy) * a.w + ix;
+        if (is_a)
+          a.act.fetch<4>(p, ch, rg.v[i]);
+        else
+          a.cot.fetch<4>(p, ch, rg.v[i]);
+      }
+      if (++c == a.w) {
+        c = 0;
+        if (++r == a.rch) {
+          r = 0;
+          ++img;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Regs& rg,
+                                        unsigned char* buf) const {
+    if (threadIdx.x >= 192) return;
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rg.vv[i]) {
+        if (is_a)
+          a.act.value<4>(rg.v[i], ch, v[i]);
+        else
+          a.cot.value<4>(rg.v[i], ch, v[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+      }
+    }
+    unsigned char* base = buf + (is_a ? 0 : A_BYTES);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint2 q;
+      q.x = pack_bf16x2(v[0][j], v[1][j]);
+      q.y = pack_bf16x2(v[2][j], v[3][j]);
+      *reinterpret_cast<uint2*>(base + (4 * rb + j) * ROW + 8 * kb) = q;
+    }
+  }
+};
+
+// Grid as nvt_wgrad_kernel's: the f32 tile of split z % splits of chunk
+// z / splits goes to its slot.
+__global__ void __launch_bounds__(THREADS)
+nvt_wgrad_bf16_kernel(WgradArgs args) {
+  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = args.taps * args.cin;
+  const int k = blockIdx.z / args.splits, split = blockIdx.z % args.splits;
+  const int steps = (args.n * args.rch * args.w + 15) / 16;
+  const int per = (steps + args.splits - 1) / args.splits;
+  const int kt0 = split * per, kt1 = min(steps, kt0 + per);
+  float acc[2][4][4] = {};
+  if (kt0 < kt1) {
+    const WgradLoaderBf16 ld(args, k, m0, n0);
+    gemm(acc, ld, smem, kt0, kt1);
+  }
+  float* out = static_cast<float*>(args.part) +
+               (size_t)blockIdx.z * M * args.cout;
+  each_pair(acc, m0, n0, M, args.cout,
+            [&](int, int, int, int m, int n, float v0, float v1) {
+    *reinterpret_cast<float2*>(out + (size_t)m * args.cout + n) =
+        make_float2(v0, v1);
+  });
+}
+
+// dW[i] = sum over chunks k in order of (the chunk's split tiles added in
+// split order), in f32.
+__global__ void __launch_bounds__(256)
+nvt_wgrad_bf16_sum_kernel(const float* __restrict__ part,
+                          float* __restrict__ out, long mn, int chunks,
+                          int splits) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float d = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    float c = part[(size_t)k * splits * mn + i];
+    for (int sp = 1; sp < splits; ++sp)
+      c = __fadd_rn(c, part[((size_t)k * splits + sp) * mn + i]);
     d = k == 0 ? c : __fadd_rn(d, c);
   }
   out[i] = d;
@@ -859,12 +1071,27 @@ int nvt_fwd_launch(const void* x, const void* res, const void* s,
                    const void* wq, const void* ws, void* y, void* part, int n,
                    int h, int w, int cin, int cout, int taps, int rch,
                    void* stream) {
-  FwdArgs args{act_of(x, res, s, t, cin, mode), in<signed char>(wq),
-               in<float>(ws), in<float>(rowmax), static_cast<bf16*>(y),
-               static_cast<float*>(part),
+  FwdArgs args{act_of(x, res, s, t, cin, mode), wq, in<float>(ws),
+               in<float>(rowmax), static_cast<bf16*>(y),
+               static_cast<float*>(part), nullptr,
                ConvGeo{n, h, w, cin, taps, cout, rch, taps == 9 ? 1 : 0}};
-  nvt_fwd_kernel<<<conv_grid(n * h * w, cout), THREADS, 0,
-                   as_stream(stream)>>>(args);
+  nvt_fwd_kernel<signed char><<<conv_grid(n * h * w, cout), THREADS, 0,
+                                as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 body: y and part as nvt_fwd_launch's, and in entry mode (1x1)
+// x_res [n, h, w, cin] = bf16(a), from wb [cout][taps * cin] bf16.
+int nvt_fwd_bf16_launch(const void* x, const void* res, const void* s,
+                        const void* t, int mode, const void* wb, void* y,
+                        void* part, void* x_res, int n, int h, int w, int cin,
+                        int cout, int taps, void* stream) {
+  FwdArgs args{act_of(x, res, s, t, cin, mode), wb, nullptr, nullptr,
+               static_cast<bf16*>(y), static_cast<float*>(part),
+               static_cast<bf16*>(x_res), ConvGeo{n, h, w, cin, taps, cout,
+                                                  h, 0}};
+  nvt_fwd_kernel<bf16><<<conv_grid(n * h * w, cout), THREADS, 0,
+                         as_stream(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,14 +1107,32 @@ int nvt_dgrad_launch(const void* dy, const void* y, const void* dzsum,
                      int mode, void* dx, void* dres, void* part, int n, int h,
                      int w, int cin, int cout, int taps, int rch,
                      void* stream) {
-  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), in<signed char>(wq),
-                 in<float>(ws_in), in<float>(rowmax), in<bf16>(x),
-                 in<bf16>(res), in<bf16>(dxout), in<float>(s), in<float>(t),
-                 mode, static_cast<bf16*>(dx), static_cast<bf16*>(dres),
+  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wq, in<float>(ws_in),
+                 in<float>(rowmax), in<bf16>(x), in<bf16>(res),
+                 in<bf16>(dxout), in<float>(s), in<float>(t), mode,
+                 static_cast<bf16*>(dx), static_cast<bf16*>(dres),
                  static_cast<float*>(part),
                  ConvGeo{n, h, w, cout, taps, cin, rch, taps == 9 ? 1 : 0}};
-  nvt_dgrad_kernel<<<conv_grid(n * h * w, cin), THREADS, 0,
-                     as_stream(stream)>>>(args);
+  nvt_dgrad_kernel<signed char><<<conv_grid(n * h * w, cin), THREADS, 0,
+                                  as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 body: dx, dres and part as nvt_dgrad_launch's, from wb
+// [cin][taps * cout] bf16 in forward tap coordinates.
+int nvt_dgrad_bf16_launch(const void* dy, const void* y, const void* dzsum,
+                          const void* dzssq, const void* wb, const void* x,
+                          const void* res, const void* dxout, const void* s,
+                          const void* t, int mode, void* dx, void* dres,
+                          void* part, int n, int h, int w, int cin, int cout,
+                          int taps, void* stream) {
+  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wb, nullptr, nullptr,
+                 in<bf16>(x), in<bf16>(res), in<bf16>(dxout), in<float>(s),
+                 in<float>(t), mode, static_cast<bf16*>(dx),
+                 static_cast<bf16*>(dres), static_cast<float*>(part),
+                 ConvGeo{n, h, w, cout, taps, cin, h, 0}};
+  nvt_dgrad_kernel<bf16><<<conv_grid(n * h * w, cin), THREADS, 0,
+                           as_stream(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -905,8 +1150,8 @@ int nvt_wgrad_launch(const void* x, const void* res, const void* s,
                      int rch, int splits, void* stream) {
   WgradArgs args{act_of(x, res, s, t, cin, mode),
                  cot_of(dy, y, dzsum, dzssq, cout), in<float>(rowmax_a),
-                 in<float>(rowmax_g), static_cast<int*>(part), n, h, w, cin,
-                 cout, taps, rch, splits};
+                 in<float>(rowmax_g), part, n, h, w, cin, cout, taps, rch,
+                 splits};
   const dim3 grid((taps * cin + BM - 1) / BM, (cout + BN - 1) / BN,
                   h / rch * splits);
   nvt_wgrad_kernel<<<grid, THREADS, 0, as_stream(stream)>>>(args);
@@ -922,6 +1167,33 @@ int nvt_wgrad_sum_launch(const void* part, const void* rowmax_a,
       in<int>(part), in<float>(rowmax_a), in<float>(rowmax_g),
       static_cast<float*>(dw), mn, h / rch, splits, h, rch,
       taps == 9 ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 body, two launches. nvt_wgrad_bf16: part [h / rch][splits]
+// [taps * cin][cout] f32 <- the per-(chunk, split) products of bf16(a) and
+// bf16(g). nvt_wgrad_bf16_sum: dW [taps * cin][cout] f32 <- per chunk its
+// splits in order, the chunks in order.
+int nvt_wgrad_bf16_launch(const void* x, const void* res, const void* s,
+                          const void* t, int mode, const void* dy,
+                          const void* y, const void* dzsum, const void* dzssq,
+                          void* part, int n, int h, int w, int cin, int cout,
+                          int taps, int rch, int splits, void* stream) {
+  WgradArgs args{act_of(x, res, s, t, cin, mode),
+                 cot_of(dy, y, dzsum, dzssq, cout), nullptr, nullptr, part,
+                 n, h, w, cin, cout, taps, rch, splits};
+  const dim3 grid((taps * cin + BM - 1) / BM, (cout + BN - 1) / BN,
+                  h / rch * splits);
+  nvt_wgrad_bf16_kernel<<<grid, THREADS, 0, as_stream(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nvt_wgrad_bf16_sum_launch(const void* part, void* dw, int h, int cin,
+                              int cout, int taps, int rch, int splits,
+                              void* stream) {
+  const long mn = (long)taps * cin * cout;
+  nvt_wgrad_bf16_sum_kernel<<<(mn + 255) / 256, 256, 0, as_stream(stream)>>>(
+      in<float>(part), static_cast<float*>(dw), mn, h / rch, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -168,14 +168,13 @@ def test_bottleneck_train_forward_with_jax_draws_matches_jax(spec, preact,
 
 
 def test_bottleneck_refusals():
-    # fully quantized training builds (the NV halves); QAT is refused
-    tm = ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
-                int8_train_bwd=True, device="cpu")
-    assert tm.get_submodule("01_stack.block1").lane_eligible(
-        (32, 8, 8, 64), True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
-               device="cpu")
+    # fully quantized training and QAT build (the NV halves)
+    for bwd in (True, False):
+        tm = ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
+                    int8_train_bwd=bwd, device="cpu")
+        block = tm.get_submodule("01_stack.block1")
+        assert block.lane_eligible((32, 8, 8, 64), True)
+        assert block.int8_train_bwd == bwd
     # option A cannot shrink channels, as in JAX
     with pytest.raises(ValueError, match="cannot SHRINK"):
         ResNet("c3,64,3,1,1 b1,32,8,1", False, False, 0.0, device="cpu")

@@ -303,15 +303,21 @@ def test_resnet50_batch128_picks():
 # --- refusals and launches ---------------------------------------------------
 
 def test_refusals():
+    """The mode, residual and batch refusals; every (quant, quant_bwd)
+    combination runs, forward and backward (the bf16 bodies:
+    tests/test_torch_bneck_nv_train_bf16.py)."""
     x = torch.zeros((32, 4, 4, 16), dtype=torch.bfloat16)
     w1 = torch.zeros((16, 16, 1, 1))
     v = torch.ones(16)
-    for kw in ({"quant_bwd": False}, {"quant": False}):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-            tnt.nv_half_1x1(x, w1, v, v, mode="affine", w_img=4, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-            tnt.nv_half_3x3(x, torch.zeros((16, 16, 3, 3)), v, v, w_img=4,
-                            **kw)
+    for quant in (True, False):
+        for quant_bwd in (True, False):
+            kw = dict(w_img=4, quant=quant, quant_bwd=quant_bwd)
+            w3 = torch.zeros((16, 16, 3, 3), requires_grad=True)
+            for out in (tnt.nv_half_1x1(x, w1, v, v, mode="affine", **kw),
+                        tnt.nv_half_3x3(x, w3, v, v, **kw)):
+                assert out[0].shape == x.shape
+            out[0].float().sum().backward()
+            assert w3.grad.shape == w3.shape
     with pytest.raises(ValueError, match="mode"):
         tnt.nv_half_1x1(x, w1, mode="bogus", w_img=4)
     with pytest.raises(ValueError, match="identity/affine"):

@@ -1,17 +1,18 @@
-"""The port's int8 fully quantized training of post-act bottleneck nets
-(``int8_train`` with ``int8_train_bwd``; models/blocks.py NVLane path)
-against the JAX package: the NV gate block for block, one whole train step
-through ``make_train_step`` on the mini spec of the JAX package's
-tests/test_nv_train_model.py, the float fallbacks, the refusals, and
-``setup`` on a small bottleneck config.
+"""The port's int8 training of post-act bottleneck nets (``int8_train``,
+fully quantized with ``int8_train_bwd``, QAT without; models/blocks.py
+NVLane path) against the JAX package: the NV gate block for block, one
+whole train step through ``make_train_step`` on the mini spec of the JAX
+package's tests/test_nv_train_model.py, the float fallbacks, and ``setup``
+on a small bottleneck config.
 
 The JAX side runs its NV halves in interpret mode from the same init
 (carried over by ``convert.load_jax_train_state``). The two sides fold
 BatchNorm from f32 sums taken in another order and their float layers
 (stem, transitions) round bf16 convs apart, so a few int8 decisions can
 land the other way: every tensor of the step is held within twice the JAX
-FQT step's own distance from the exact f32 step (plus 1e-3 of the
-tensor's norm), the criterion of tests/test_torch_int8_train.py.
+step's own distance (FQT or QAT, as the port's) from the exact f32 step
+(plus 1e-3 of the tensor's norm), the criterion of
+tests/test_torch_int8_train.py.
 """
 
 import os
@@ -53,6 +54,7 @@ from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
 from _torch_port_helpers import JaxKey
 
 FQT = dict(int8_train=True, int8_train_bwd=True)
+QAT = dict(int8_train=True, int8_train_bwd=False)
 # stage 1: a stride-1 transition (16 -> 32 channels, float path) and an
 # identity block (NV); stage 2: a stride-2 transition and an identity
 # block at 4x4 (NV)
@@ -87,18 +89,22 @@ SHAPES = [(32, 8, 8), (64, 8, 8), (48, 8, 8), (16, 8, 8), (128, 56, 56),
           (256, 56, 56), (128, 7, 7), (64, 7, 7), (32, 4, 4)]
 
 
-@pytest.mark.parametrize("c,down,preact,rate,width,out,stride", BLOCKS)
-def test_gate_matches_jax(c, down, preact, rate, width, out, stride):
+def _check_gate(c, down, preact, rate, width, out, stride, flags):
     kw = dict(channels=c, downsample=down, preact=preact, use_proj=True,
               dropout_prob=rate, width_override=width,
               out_channels_override=out, stride_override=stride)
-    jb = JaxBneck(**kw, **FQT)
-    tb = BottleneckResidualBlock(**kw, **FQT)
+    jb = JaxBneck(**kw, **flags)
+    tb = BottleneckResidualBlock(**kw, **flags)
     for b, h, w in SHAPES:
         for train in (False, True):
             shape = (b, h, w, c)
             assert tb.lane_eligible(shape, train) == jb.lane_eligible(
                 shape, train), (shape, train)
+
+
+@pytest.mark.parametrize("c,down,preact,rate,width,out,stride", BLOCKS)
+def test_gate_matches_jax(c, down, preact, rate, width, out, stride):
+    _check_gate(c, down, preact, rate, width, out, stride, FQT)
 
 
 # --- one train step ----------------------------------------------------------
@@ -135,7 +141,8 @@ def jax_steps():
 
 
 def _spy(monkeypatch, calls):
-    for name in ("fwd_conv_plain", "dgrad_conv_plain", "wgrad_plain"):
+    for name in ("fwd_conv_plain", "dgrad_conv_plain", "wgrad_plain",
+                 "dgrad_conv_bf16_plain", "wgrad_bf16_plain"):
         orig = getattr(nvt, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
@@ -151,9 +158,17 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
     backward); loss, train-mode logits, every parameter, momentum buffer
     and BatchNorm statistic lie within twice the JAX FQT step's distance
     from the exact f32 step (plus 1e-3 of the tensor's norm)."""
-    jmodel, ts0, want, exact = jax_steps
+    _check_step(jax_steps, FQT, {"fwd_conv_plain": 6, "dgrad_conv_plain": 6,
+                                 "wgrad_plain": 6}, monkeypatch)
+
+
+def _check_step(jax_side, flags, want_calls, monkeypatch):
+    """One step at ``flags`` from the JAX init against JAX's at the same
+    flags (``jax_side``: model, init, step, exact f32 step), the halves'
+    plain versions called as ``want_calls`` say."""
+    jmodel, ts0, want, exact = jax_side
     x, y = _batch()
-    model = ResNet(SPEC, False, True, 0.0, device="cpu", **FQT)
+    model = ResNet(SPEC, False, True, 0.0, device="cpu", **flags)
     for stage in ("03_stack", "04_stack"):
         for i, hw in ((0, 8), (1, 8 if stage == "03_stack" else 4)):
             block = model.get_submodule(f"{stage}.block{i}")
@@ -166,7 +181,7 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
     ts = init_train_state(model, opt)
     load_jax_train_state(ts, ts0)
 
-    probe = ResNet(SPEC, False, True, 0.0, device="cpu", **FQT).train()
+    probe = ResNet(SPEC, False, True, 0.0, device="cpu", **flags).train()
     probe.load_state_dict(model.state_dict())
     with torch.no_grad():
         logits = probe(torch.from_numpy(x[0])).numpy()
@@ -176,8 +191,7 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
     ts, metrics = make_train_step(model, opt)(
         ts, torch.from_numpy(x), torch.from_numpy(y.astype(np.int64)), LR,
         JaxKey(jax.random.key(2)))
-    assert calls == {"fwd_conv_plain": 6, "dgrad_conv_plain": 6,
-                     "wgrad_plain": 6}
+    assert calls == want_calls
     got = {"loss": float(metrics["loss"]), "logits": logits}
     for name, t in model.state_dict().items():
         got[name] = t.numpy()
@@ -246,11 +260,22 @@ def test_ineligible_nets_train_as_the_float_model(spec, preact, n):
     assert all(torch.equal(sq[k], sf[k]) for k in sf)
 
 
-def test_qat_raises():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        BottleneckResidualBlock(64, False, False, True, 0.0, int8_train=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ResNet(SPEC, False, True, 0.0, device="cpu", int8_train=True)
+def test_qat_raises(jax_steps, monkeypatch, tmp_path):
+    """QAT (``int8_train`` alone), which raised before the NV halves' bf16
+    bodies were ported, now trains: the gate agrees with JAX's block for
+    block; one step from the JAX init (the six halves on the int8 forward
+    and the bf16 dgrad and wgrad) lies within twice the JAX QAT step's
+    distance from the exact f32 step; and ``setup`` with
+    ``use_int8_train`` alone trains a bottleneck net."""
+    for block in BLOCKS:
+        _check_gate(*block, QAT)
+    jmodel, ts0, qat = _jax_side(**QAT)
+    _check_step((jmodel, ts0, qat, jax_steps[3]), QAT,
+                {"fwd_conv_plain": 6, "dgrad_conv_bf16_plain": 6,
+                 "wgrad_bf16_plain": 6}, monkeypatch)
+    _check_setup(tmp_path, {"use_int8_train": True},
+                 {"fwd_conv_plain": 12, "dgrad_conv_bf16_plain": 12,
+                  "wgrad_bf16_plain": 12})
 
 
 # --- the run's pending epilogue ----------------------------------------------
@@ -292,6 +317,12 @@ def test_setup_trains_a_bottleneck_net_with_the_flag(tmp_path):
     """The ResNet-50 recipe cut to the mini spec on Synthetic 8x8 data at
     batch 32 with use_int8_train_bwd, through setup and the pipeline: two
     steps run the NV halves, move every parameter and count every BN."""
+    _check_setup(tmp_path, {"use_int8_train_bwd": True},
+                 {"fwd_conv_plain": 12, "dgrad_conv_plain": 12,
+                  "wgrad_plain": 12})
+
+
+def _check_setup(tmp_path, flags, want_calls):
     with open(R50) as f:
         cfg = yaml.safe_load(f)
     cfg.update(
@@ -302,7 +333,7 @@ def test_setup_trains_a_bottleneck_net_with_the_flag(tmp_path):
                         "StandardizeWhiteningTransform": {}},
         data_aug_test={"ToTensorTransform": {},
                        "StandardizeWhiteningTransform": {}},
-        batch_size=32, use_int8_train_bwd=True, world_size=1)
+        batch_size=32, world_size=1, **flags)
     run = tmp_path / "models_dir" / "run"
     run.mkdir(parents=True)
     with open(run / "config.yaml", "w") as f:
@@ -311,7 +342,8 @@ def test_setup_trains_a_bottleneck_net_with_the_flag(tmp_path):
                         data_dir=str(tmp_path / "data"), verbose=False)
     ls = setup(config, device="cpu", verbose=False)
     model = ls["model"]
-    assert model.int8_train and model.int8_train_bwd
+    assert model.int8_train
+    assert model.int8_train_bwd == flags.get("use_int8_train_bwd", False)
     assert model.get_submodule("03_stack.block1").lane_eligible(
         (32, 8, 8, 32), True)
     step = ls["pipeline"].bind_train_step(
@@ -327,8 +359,7 @@ def test_setup_trains_a_bottleneck_net_with_the_flag(tmp_path):
                 0, budget=2)):
             ts, m = step(ts, *batch, 0.1, Key(0).fold_in(gs))
             assert np.isfinite(float(m["loss"]))
-    assert calls == {"fwd_conv_plain": 12, "dgrad_conv_plain": 12,
-                     "wgrad_plain": 12}
+    assert calls == want_calls
     for k, v in ts["params"].items():
         assert not torch.equal(v, before[k]), k
     counts = {int(b) for n, b in ts["model_state"].items()

@@ -27,7 +27,10 @@ s32 sums and the reference's rounding points in both versions, so int8
 and bf16 outputs are equal. The NV training halves: row absmaxes, bf16
 outputs and the weight gradient (exact s32 per chunk, chunks added in
 order) are equal; the BatchNorm sums, d(s) and d(t) are f32 sums in
-another order: 1e-5 of the largest value. The fused bf16 half: bf16
+another order: 1e-5 of the largest value. Their bf16 bodies: y, dx and
+dres (bf16(du), du carrying the product) within 2 bf16 ulps of the
+tensor's largest value, x_res equal, the sums and dW (over the tensor
+cores' accumulators) within 1e-4. The fused bf16 half: bf16
 outputs (y, dx) within 2 bf16 ulps of the tensor's largest value (f32
 against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
 of the sums of the kernel's own y, and the sums over the tensor cores'
@@ -672,6 +675,140 @@ def test_nv_train_never_falls_back(dev):
     with pytest.raises(ValueError, match="multiple of 8"):
         nvt.nv_half_1x1(x12, torch.zeros((32, 12, 1, 1), device=dev),
                         mode="identity", w_img=4)
+
+
+def _nvt_bf16_stages(ops, conv, mode, rch, plain, y_bwd=None):
+    """The bf16 forward, dgrad and wgrad of one half; the backward on
+    ``y_bwd`` (else its own forward's y), so that the kernels and the plain
+    versions can take the same y."""
+    def pick(name):
+        return getattr(nvt, f"{name}_plain" if plain else name)
+
+    x, s, t, res = ops["x"], ops["s"], ops["t"], ops["res"]
+    kw = dict(conv=conv, mode=mode)
+    y, zsum, zssq, x_res = pick("fwd_conv_bf16")(
+        x, s, t, res, nvt.pack_w_bf16(ops["w"]), rch=rch[0], **kw)
+    cts = (ops["dy"], y if y_bwd is None else y_bwd, ops["dzsum"],
+           ops["dzssq"])
+    dx, ds, dt, dres = pick("dgrad_conv_bf16")(
+        *cts, nvt.pack_w_bf16_dgrad(ops["w"]), x, s, t, res, ops["dxout"],
+        rch=rch[1], **kw)
+    dw = pick("wgrad_bf16")(*cts, x, s, t, res, rch=rch[2], **kw)
+    return dict(y=y, zsum=zsum, zssq=zssq, x_res=x_res, dx=dx, ds=ds, dt=dt,
+                dres=dres, dw=dw)
+
+
+def _nvt_bf16_agree(got, want):
+    for name, ref in want.items():
+        if ref is None:
+            assert got[name] is None, name
+        elif name == "x_res":
+            assert torch.equal(got[name], ref)
+        elif ref.dtype == torch.bfloat16:
+            _bf16_close(got[name], ref)
+        else:
+            _mma_sums(got[name], ref)
+
+
+@pytest.mark.parametrize("conv,mode", NVT_HALVES)
+@pytest.mark.parametrize("n,h,w,cin,cout,rch", NVT_SHAPES)
+def test_nv_train_bf16_kernels_match_plain(dev, conv, mode, n, h, w, cin,
+                                           cout, rch):
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, cin + h)
+    nvt.reset_launches()
+    got = _nvt_bf16_stages(ops, conv, mode, rch, plain=False)
+    torch.cuda.synchronize()
+    assert {k.split(".")[0] for k in nvt.launches} == {
+        "nv_half_fwd_bf16", "nv_half_dgrad_bf16", "nv_half_wgrad_bf16"}
+    want = _nvt_bf16_stages(ops, conv, mode, rch, plain=True,
+                            y_bwd=got["y"])
+    assert want["y"].unique().numel() > 100
+    _nvt_bf16_agree(got, want)
+
+
+@pytest.mark.parametrize("quant,quant_bwd", [(True, False), (False, False),
+                                             (False, True)])
+@pytest.mark.parametrize("conv,mode", [("1x1", "entry"), ("3x3", "affine")])
+def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
+                                                mode):
+    """The op in each (quant, quant_bwd) mode launches the kernels of its
+    bodies only, and its outputs and gradients agree with the same op's
+    on CPU copies (plain versions): int8 outputs equal, bf16 ones within
+    2 ulps, sums and gradients through the tensor cores within 1e-4 (the
+    int8 backward of the bf16 forward sees the card's y, which may round
+    apart from the CPU's: within 1e-4 too)."""
+    ops = _nvt_inputs(dev, conv, mode, 64, 8, 8, 64, 64 if conv == "3x3"
+                      else 32, 2)
+    entry = mode == "entry"
+
+    def run(device):
+        leaves = {k: ops[k].detach().to(device).requires_grad_()
+                  for k in ("x", "w", "s", "t", "res") if ops[k] is not None}
+        kw = dict(mode=mode, w_img=8, quant=quant, quant_bwd=quant_bwd)
+        out = (nvt.nv_half_1x1(leaves["x"], leaves["w"], leaves["s"],
+                               leaves["t"], leaves["res"], **kw)
+               if conv == "1x1" else
+               nvt.nv_half_3x3(leaves["x"], leaves["w"], leaves["s"],
+                               leaves["t"], **kw))
+        loss = ((out[0].float() * ops["dy"].float().to(device)).sum()
+                + (out[1] * ops["dzsum"].to(device)).sum()
+                + (out[2] * ops["dzssq"].to(device)).sum())
+        if entry:
+            loss = loss + (out[3].float()
+                           * ops["dxout"].float().to(device)).sum()
+        loss.backward()
+        return [o.detach().cpu() for o in out] + [
+            leaves[k].grad.cpu() for k in sorted(leaves)]
+
+    nvt.reset_launches()
+    got = run(dev)
+    torch.cuda.synchronize()
+    fwd = {"nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum"} if quant \
+        else {"nv_half_fwd_bf16", "nv_half_fwd_bf16.sum"}
+    bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad",
+            "nv_half_dgrad.sum", "nv_half_wgrad", "nv_half_wgrad.sum"}
+           if quant_bwd else {"nv_half_dgrad_bf16", "nv_half_dgrad_bf16.sum",
+                              "nv_half_wgrad_bf16", "nv_half_wgrad_bf16.sum"})
+    assert set(nvt.launches) == fwd | bwd
+    want = run("cpu")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (i == 0 and quant) or (i == 3 and entry):   # int8 y, x_res
+            assert torch.equal(a, b), i
+        elif a.dtype == torch.bfloat16:
+            _bf16_close(a, b)
+        else:
+            _mma_sums(a, b)
+
+
+def test_nv_train_bf16_never_falls_back(dev):
+    """The bf16 kernels raise on what they do not take (no plain version
+    on a CUDA tensor): f32 operands, channels that are not multiples of 8,
+    a 3x3 entry half."""
+    x = torch.zeros((32, 4, 4, 64), device=dev)
+    w = torch.zeros((32, 64, 1, 1), device=dev)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        nvt.nv_half_1x1(x, w, mode="identity", w_img=4, quant=False,
+                        quant_bwd=False)
+    x12 = torch.zeros((32, 4, 4, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.fwd_conv_bf16(x12, None, None, None, nvt.pack_w_bf16(
+            torch.zeros((16, 12, 1, 1), device=dev)), conv="1x1",
+            mode="identity", rch=4)
+    xb = x.to(torch.bfloat16)
+    v = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="entry mode is a 1x1 half"):
+        nvt.fwd_conv_bf16(xb, v, v, xb, nvt.pack_w_bf16(
+            torch.zeros((64, 64, 3, 3), device=dev)), conv="3x3",
+            mode="entry", rch=4)
+    dy = torch.zeros((32, 4, 4, 32), dtype=torch.bfloat16, device=dev)
+    z = torch.zeros(32, device=dev)
+    with pytest.raises(ValueError, match="weights"):
+        nvt.dgrad_conv_bf16(dy, dy, z, z, nvt.pack_w_bf16(w), xb, None,
+                            None, None, None, conv="1x1", mode="identity",
+                            rch=4)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        nvt.wgrad_bf16(dy.float(), dy, z, z, xb, None, None, None,
+                       conv="1x1", mode="identity", rch=4)
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):

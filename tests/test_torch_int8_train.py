@@ -281,17 +281,16 @@ def test_train_step_matches_jax(jax_steps, monkeypatch):
 # --- refusals and setup --------------------------------------------------------------
 
 def test_qat_and_other_kernel_flags_raise():
-    """QAT on a bottleneck net (its NV halves' bf16 bodies are a later
-    slice) and the flags still to port raise; QAT on the basic trunk
+    """The flag still to port raises on an FQT net; QAT on a bottleneck net
+    (tests/test_torch_bneck_train.py) and on the basic trunk
     (tests/test_torch_qat_train.py), lane transitions
     (tests/test_torch_transition.py) and the Pallas conv
     (tests/test_torch_conv3x3_same.py) build."""
-    bneck = "c3,64,3,1,1 b2 n a ap8,1,0 fc64,10"
-    for spec, flags, where in (
-            (bneck, {"int8_train": True}, "Queue 2 item 7b"),
-            (SPEC, {**FQT, "remat": True}, "Queue 1 item 11")):
-        with pytest.raises(NotImplementedError, match=where):
-            ResNet(spec, True, True, 0.3, device="cpu", **flags)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ResNet(SPEC, True, True, 0.3, device="cpu", **FQT, remat=True)
+    bneck = ResNet("c3,64,3,1,1 b2 n a ap8,1,0 fc64,10", False, True, 0.0,
+                   device="cpu", int8_train=True)
+    assert not bneck.get_submodule("01_stack.block1").int8_train_bwd
 
 
 def _int8_config(tmp_path, **overrides):

@@ -58,16 +58,14 @@ def test_spec_quirks():
                 device="cpu")
     assert tm.get_submodule("02_stack.block0").out_channels == 16
     assert tm.get_submodule("02_stack.block0").stride == 2
-    # bottleneck stacks build, with int8 fully quantized training too; the
-    # QAT mode is not ported yet
+    # bottleneck stacks build, with int8 fully quantized training and QAT
+    # too
     tm = ResNet("c3,64,3,1,1 b2", False, True, 0.0, device="cpu")
     assert tm.get_submodule("01_stack.block1").bottleneck_channels == 16
-    tm = ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
-                int8_train_bwd=True, device="cpu")
-    assert tm.get_submodule("01_stack.block1").int8_train_bwd
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
-               device="cpu")
+    for bwd in (True, False):
+        tm = ResNet("c3,64,3,1,1 b2", False, True, 0.0, int8_train=True,
+                    int8_train_bwd=bwd, device="cpu")
+        assert tm.get_submodule("01_stack.block1").int8_train_bwd == bwd
     with pytest.raises(ValueError):
         parse_spec("c3,8,3,1,1 q1", True, True, 0.0)
 

@@ -108,18 +108,19 @@ def test_train_mode_needs_a_key_and_updates_counts():
 
 
 def test_kernel_path_flags_raise():
-    """The flags still to port raise; QAT raises on a bottleneck net only
-    (the fused bf16, QAT and in-kernel dropout paths of the basic block
-    build: tests/test_torch_qat_train.py; so do lane transitions:
-    tests/test_torch_transition.py, and the Pallas conv:
-    tests/test_torch_conv3x3_same.py)."""
-    for spec, flag, where in (
-            ("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", "remat",
-             "Queue 1 item 11"),
-            ("c3,64,3,1,1 b2 n a ap8,1,0 fc64,10", "int8_train",
-             "Queue 2 item 7b")):
-        with pytest.raises(NotImplementedError, match=where):
-            ResNet(spec, True, True, 0.3, device="cpu", **{flag: True})
+    """The flag still to port raises; QAT builds on a bottleneck net too
+    (tests/test_torch_bneck_train.py), as do the fused bf16, QAT and
+    in-kernel dropout paths of the basic block
+    (tests/test_torch_qat_train.py), lane transitions
+    (tests/test_torch_transition.py) and the Pallas conv
+    (tests/test_torch_conv3x3_same.py)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ResNet("c3,16,3,1,1 r1 n a ap8,1,0 fc16,10", True, True, 0.3,
+               device="cpu", remat=True)
+    model = ResNet("c3,64,3,1,1 b2 n a ap8,1,0 fc64,10", False, True, 0.0,
+                   device="cpu", int8_train=True)
+    block = model.get_submodule("01_stack.block1")
+    assert block.int8_train and not block.int8_train_bwd
 
 
 def test_metrics_match_jax():
