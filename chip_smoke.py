@@ -203,12 +203,17 @@ Phases, each fatal on failure:
    BatchNorm sums also within 1e-5 of the sums of the kernel's own y).
    Each is timed beside its plain version, cuDNN's bf16 forward, input
    gradient and weight gradient (channels-last) and phase 10's int8 kernel
-   at the same shape.
+   at the same shape. The weight gradient (csrc/wgrad_staged.cuh's
+   cp.async ring after the prepass that rounds its operands once) must
+   give the same dW bit for bit in two calls, its prepass must equal its
+   plain version, and the prepass and the mainloop + ordered sum are timed
+   apart; the prepass is also a kernel row of its own.
 21. Training, the tenth main path: the ResNet-50 recipe of phase 11 with
    ``use_int8_train`` alone (QAT), through ``setup(config)``. With the
    launch counts zeroed just before, each step must launch the 30 halves'
    int8 forward (with its row absmax and sums) and their bf16 dgrad and
-   wgrad (with their sums; NV_QAT_PER_STEP): no cotangent absmax, no int8
+   wgrad (with the wgrad's prepass and both sums; NV_QAT_PER_STEP): no
+   cotangent absmax, no int8
    dgrad or wgrad, no other port kernel. The first half of each kind in
    the first step, on its live inputs and cotangents, must reproduce its
    outputs and agree with its plain versions (phase 20's tolerances for
@@ -254,6 +259,9 @@ FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
 STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
 NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
+# kernels whose code lives in a header of their own
+SOURCES = {"nv_half_wgrad_bf16":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -275,6 +283,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_fwd_bf16": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad_bf16": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad_bf16": _PALLAS + "bneck_nv_train.py:928",
+            "nv_half_wgrad_bf16.pre": _PALLAS + "bneck_nv_train.py:928",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
             "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
@@ -353,11 +362,13 @@ NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
                   "nv_half_wgrad_bf16")
 # launches of one ResNet-50 QAT train step at batch 128: the same 30 halves
 # on the int8 forward (with its row absmax) and the bf16 dgrad and wgrad,
-# which need no absmax of the cotangent
+# which need no absmax of the cotangent; the wgrad's prepass rounds its
+# operands once
 NV_QAT_PER_STEP = {
     "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
     "nv_half_dgrad_bf16": 30, "nv_half_dgrad_bf16.sum": 27,
-    "nv_half_wgrad_bf16": 30, "nv_half_wgrad_bf16.sum": 30}
+    "nv_half_wgrad_bf16.pre": 30, "nv_half_wgrad_bf16": 30,
+    "nv_half_wgrad_bf16.sum": 30}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
 # emitting BatchNorm sums (conv1 of the 10 identity blocks)
 FQT_PER_STEP = {
@@ -791,7 +802,7 @@ def serving_phase(workdir):
 KERNEL_KINDS = [
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
-    ("nv train halves (port)", ("nvt_",)),
+    ("nv train halves (port)", ("nvt_", "wgrad_staged")),
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     ("conv3x3_same wgrad (port)", ("RawRows",)),
@@ -2527,12 +2538,15 @@ def nv_train_bf16_kernel_phase(peaks, nvt_rows):
     """Rows per (bf16 stage, geometry, half) as phase 10's: max error of
     the kernel against its plain version on the same CUDA tensors, and the
     kernel / plain / cuDNN-bf16 / bound times of one call, beside phase
-    10's int8 kernel at the same shape (``int8_ms``)."""
+    10's int8 kernel at the same shape (``int8_ms``). The wgrad's rows also
+    carry its prepass's and its mainloop + sum's times (``pre_ms``,
+    ``gemm_ms``) and its bit-equal second call; its prepass has rows of
+    its own (``nv_half_wgrad_bf16.pre``, equal to its plain version)."""
     import torch
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 
-    flops_bf16, _, bw, _ = peaks
+    flops_bf16, _, bw, flops_f32 = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(20)
     rows = []
@@ -2565,6 +2579,11 @@ def nv_train_bf16_kernel_phase(peaks, nvt_rows):
                     library_ms=lib[name], int8_ms=int8["ms"],
                     ops_ms=2 * p * taps * ci * co / flops_bf16 * 1e3,
                     bytes_ms=byts[name] / bw * 1e3))
+            rows[-1].update(_wgrad_parts(nvt, o, y, conv, mode, rch[2]))
+            rows.append(_wgrad_pre_row(nvt, o, y, mode, flops_f32, bw,
+                                       dict(n=n, h=h, w=w, cin=ci, cout=co,
+                                            conv=conv, mode=mode,
+                                            rch=list(rch))))
             del o, y, kern, plain
             torch.cuda.empty_cache()
     for r in rows:
@@ -2572,6 +2591,56 @@ def nv_train_bf16_kernel_phase(peaks, nvt_rows):
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes")
     return rows
+
+
+def _wgrad_cts(o, y):
+    return (o["dy"], y, o["dzsum"], o["dzssq"], o["x"], o["s"], o["t"],
+            o["res"])
+
+
+def _wgrad_parts(nvt, o, y, conv, mode, rch):
+    """The bf16 wgrad's second call equal to its first bit for bit (the
+    splits and chunks are added in a fixed order), and its two parts timed
+    apart: the prepass, then the mainloop + ordered sum on its operands."""
+    import torch
+
+    cts = _wgrad_cts(o, y)
+    first = nvt.wgrad_bf16(*cts, conv=conv, mode=mode, rch=rch)
+    assert torch.equal(first, nvt.wgrad_bf16(*cts, conv=conv, mode=mode,
+                                             rch=rch)), (conv, mode, rch)
+    a_b, g_b = nvt.wgrad_bf16_pre(*cts, mode=mode)
+    plan = nvt.wgrad_bf16_plan(*o["x"].shape, y.shape[-1],
+                               9 if conv == "3x3" else 1, rch)
+    return dict(
+        deterministic=True, plan=list(plan[:-1]),
+        pre_ms=time_ms(lambda: nvt.wgrad_bf16_pre(*cts, mode=mode), 10),
+        gemm_ms=time_ms(lambda: nvt.wgrad_bf16_gemm(a_b, g_b, conv=conv,
+                                                    rch=rch), 10))
+
+
+def _wgrad_pre_row(nvt, o, y, mode, flops_f32, bw, geo):
+    """The wgrad's prepass as a kernel row: equal to its plain version;
+    bound by its bytes (dy, y and, unless identity, x (and res) in; g_b and
+    a_b out) or its f32 operations (three an element)."""
+    import torch
+
+    cts = _wgrad_cts(o, y)
+    got = nvt.wgrad_bf16_pre(*cts, mode=mode)
+    want = nvt.wgrad_bf16_pre_plain(*cts, mode=mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), ("nv_half_wgrad_bf16.pre", geo)
+    p = geo["n"] * geo["h"] * geo["w"]
+    ca = 0 if mode == "identity" else geo["cin"]
+    elems = p * (geo["cout"] + ca)
+    byts = 2 * p * (3 * geo["cout"] + 2 * ca
+                    + (geo["cin"] if mode == "entry" else 0))
+    return dict(
+        name="nv_half_wgrad_bf16.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: nvt.wgrad_bf16_pre(*cts, mode=mode), 10),
+        plain_ms=time_ms(lambda: nvt.wgrad_bf16_pre_plain(*cts, mode=mode),
+                         1),
+        library_ms=None, ops_ms=3 * elems / flops_f32 * 1e3,
+        bytes_ms=byts / bw * 1e3)
 
 
 class RecordNVHalves:
@@ -2767,12 +2836,14 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
     of the run's forward."""
     out = []
     for name in names:
-        stage = name[len("nv_half_"):]
+        stage = name[len("nv_half_"):].split(".")[0]
         if not any(k[0] == stage for k in training["shapes"]):
             stage = stage.split("_")[0]
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
+        tot.update({k: 0.0 for k in ("pre_ms", "gemm_ms") if k in mine[0]})
+        no_library = mine[0]["library_ms"] is None
         for (st, conv, mode, n, h, w, cin, cout), count in \
                 training["shapes"].items():
             if st != stage:
@@ -2781,13 +2852,13 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
                                            r["mode"], r["cin"], r["cout"])
                        == (n, h, conv, mode, cin, cout))
             for key in tot:
-                tot[key] += row[key] * count / training["steps"]
+                tot[key] += (row[key] or 0.0) * count / training["steps"]
         out.append(dict(
-            name=name, route="cuda", source=NVT_SOURCE,
+            name=name, route="cuda", source=SOURCES.get(name, NVT_SOURCE),
             replaces=REPLACES[name],
             launches=training["launches"].get(name, 0),
             split_launches={k: v for k, v in training["launches"].items()
-                            if k.split(".")[0] == name
+                            if k.split(".")[0] == name or k == name
                             or (stage in ("dgrad", "wgrad")
                                 and k == "nv_half_bwd.amax")},
             max_abs_err=max(r["max_abs_err"] for r in mine),
@@ -2795,7 +2866,8 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
             bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=tot["library_ms"],
+            library_ms=None if no_library else tot["library_ms"],
+            **{k: tot[k] for k in ("pre_ms", "gemm_ms") if k in tot},
             per=f"ResNet-50 {run} train step at batch {BATCH} (ms per "
                 "call summed over the step's halves; launches over the run)",
             stages=[{k: r[k] for k in ("n", "h", "conv", "mode", "cin",
@@ -3241,7 +3313,9 @@ def main() -> int:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err") + (("int8_ms",) if "int8_ms" in r else ())}))
+            "max_abs_err") + tuple(k for k in (
+                "int8_ms", "pre_ms", "gemm_ms", "plan", "deterministic")
+                if k in r)}))
     for r in aug_rows:
         print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
                                  + ("chain_max_abs_diff",)}))
@@ -3406,14 +3480,22 @@ def main() -> int:
         print("resnet-50 int8 training: NV halves per step, phase 10 "
               f"per-call times summed {sum(k['ms'] for k in nvt_kernels)} "
               f"ms, profiled {kinds.get('nv train halves (port)', 0.0)} ms")
-    nvt_bf16_kernels = nv_train_summary(nvt_bf16_rows, r50_qat,
-                                        NVT_BF16_NAMES, "QAT")
+    nvt_bf16_kernels = nv_train_summary(
+        nvt_bf16_rows, r50_qat, NVT_BF16_NAMES + ("nv_half_wgrad_bf16.pre",),
+        "QAT")
+    wg = next(k for k in nvt_bf16_kernels if k["name"] == "nv_half_wgrad_bf16")
+    print("resnet-50 QAT: bf16 wgrad per step, phase 20 per-call times "
+          "summed: " + json.dumps({k: wg[k] for k in (
+              "ms", "pre_ms", "gemm_ms", "library_ms", "bound_ms",
+              "launches", "split_launches")}))
     # the QAT step's halves: phase 10's int8 forward, phase 20's bf16
-    # dgrad and wgrad, each summed over the halves the QAT run launched
+    # dgrad and wgrad (its prepass included), each summed over the halves
+    # the QAT run launched
     qat_halves = nv_train_summary(nvt_rows, r50_qat, NVT_NAMES[:1], "QAT")
     qat_line = dict(
         halves_per_step_summed_ms=qat_halves[0]["ms"] + sum(
-            k["ms"] for k in nvt_bf16_kernels[1:]),
+            k["ms"] for k in nvt_bf16_kernels
+            if k["name"] in NVT_BF16_NAMES[1:]),
         step_ms=(r50_qat["step_ms"], r50_fqt["step_ms"],
                  r50_bf16["step_ms"]),
         img_per_s=(r50_qat["img_per_s"], r50_fqt["img_per_s"],

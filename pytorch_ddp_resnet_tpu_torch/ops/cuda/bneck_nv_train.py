@@ -67,7 +67,11 @@ launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
 - ``dgrad_conv_bf16``  (``nv_half_dgrad_bf16``, ``nv_half_dgrad_bf16.sum``
                         likewise)
 - ``wgrad``            (``nv_half_wgrad``, ``nv_half_wgrad.sum``)
-- ``wgrad_bf16``       (``nv_half_wgrad_bf16``, ``nv_half_wgrad_bf16.sum``)
+- ``wgrad_bf16``       ``wgrad_bf16_pre`` (``nv_half_wgrad_bf16.pre``: the
+                        operands rounded once into NHWC bf16 scratch), then
+                        ``wgrad_bf16_gemm`` (``nv_half_wgrad_bf16``,
+                        ``nv_half_wgrad_bf16.sum``) on the tiles and splits
+                        of ``wgrad_bf16_plan``
 
 and ``nv_half_1x1`` / ``nv_half_3x3``, the differentiable ops over them.
 ``launches`` counts each kernel launch by name and ``launch_shapes`` each
@@ -83,7 +87,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -518,19 +522,36 @@ def dgrad_conv_bf16_plain(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout,
     return _prologue_bwd(da, x, s, t, res, mode, rch)
 
 
+def wgrad_bf16_pre_plain(dy, y, dzsum, dzssq, x, s, t, res, *, mode):
+    """The bf16 weight gradient's operands, each rounded once: (a_b [N, h,
+    w, Cin] bf16 = bf16(a), x itself in identity mode; g_b [N, h, w, Cout]
+    bf16 = bf16(g))."""
+    a_b = (x if mode == "identity"
+           else prologue_plain(x, s, t, res, mode).to(torch.bfloat16))
+    return a_b, fold_plain(dy, y, dzsum, dzssq).to(torch.bfloat16)
+
+
+def wgrad_bf16_gemm_plain(a_b, g_b, *, conv, rch):
+    """dW [taps*Cin, Cout] f32 from the rounded operands: per chunk the
+    contraction of a_b (at each tap's shift) with g_b, in float64 rounded
+    to f32, added in chunk order."""
+    halo = 1 if conv == "3x3" else 0
+    acc = _wgrad_chunks(_slabs(a_b.to(f64), rch, halo),
+                        _slabs(g_b.to(f64), rch, 0), rch, halo)
+    out = acc[0].to(f32)
+    for k in range(1, acc.shape[0]):
+        out = out + acc[k].to(f32)
+    return out
+
+
 def wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode,
                      rch):
     """The bf16 weight gradient, dW [taps*Cin, Cout] f32 in the rows of
     ``wgrad_plain``: per chunk the contraction of bf16(a) with bf16(g) (in
     float64, rounded to f32), added in chunk order."""
-    halo = 1 if conv == "3x3" else 0
-    a = _bf64(prologue_plain(x, s, t, res, mode))
-    g = _bf64(fold_plain(dy, y, dzsum, dzssq))
-    acc = _wgrad_chunks(_slabs(a, rch, halo), _slabs(g, rch, 0), rch, halo)
-    out = acc[0].to(f32)
-    for k in range(1, acc.shape[0]):
-        out = out + acc[k].to(f32)
-    return out
+    a_b, g_b = wgrad_bf16_pre_plain(dy, y, dzsum, dzssq, x, s, t, res,
+                                    mode=mode)
+    return wgrad_bf16_gemm_plain(a_b, g_b, conv=conv, rch=rch)
 
 
 def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
@@ -584,9 +605,10 @@ def _library() -> ctypes.CDLL:
             + [_P],
             "nvt_dgrad_bf16_launch": [_P] * 10 + [_I] + [_P] * 3 + [_I] * 6
             + [_P],
-            "nvt_wgrad_bf16_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 8
-            + [_P],
-            "nvt_wgrad_bf16_sum_launch": [_P] * 2 + [_I] * 6 + [_P],
+            "nvt_wgrad_pre_bf16_launch": [_P] * 4 + [_I] + [_P] * 6
+            + [_I] * 5 + [_P],
+            "nvt_wgrad_staged_bf16_launch": [_P] * 3 + [_I] * 12 + [_P],
+            "nvt_wgrad_staged_bf16_sum_launch": [_P] * 2 + [_I] * 6 + [_P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -656,13 +678,75 @@ def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _wgrad_splits(n, h, w, cin, cout, taps, rch, kv=32) -> int:
-    """Blocks per chunk of the wgrad: about four waves of blocks in all
-    (two blocks on each of the card's 132 SMs a wave), so the last wave's
-    idle share stays small, at least 8 K steps of ``kv`` positions each."""
+def _wgrad_splits(n, h, w, cin, cout, taps, rch) -> int:
+    """Blocks per chunk of the int8 wgrad: about four waves of blocks in
+    all (two blocks on each of the card's 132 SMs a wave), so the last
+    wave's idle share stays small, at least 8 K steps of 32 positions
+    each."""
     tiles = -(-taps * cin // _BM) * -(-cout // 64) * (h // rch)
-    steps = -(-n * rch * w // kv)
+    steps = -(-n * rch * w // 32)
     return max(1, min(-(-4 * 264 // tiles), steps // 8))
+
+
+WGRAD_BK = 64  # positions per K step (csrc/wgrad_staged.cuh K_STEP)
+# the split picker's model of an H100 SXM (132 SMs, two blocks on each):
+# a block's K step takes _STEP_US, its ring fill and epilogue _FILL_STEPS
+# more steps, and the split tiles go out and back in at _PART_BYTES_US
+_SLOTS = 2 * 132
+_STEP_US = 2.0
+_FILL_STEPS = 2
+_PART_BYTES_US = 3.0e6
+
+
+class WgradPlan(NamedTuple):
+    """How the bf16 wgrad's mainloop cuts dW [taps*Cin, Cout] and each
+    chunk's positions: (bm, bn) tiles, m_tiles x n_tiles of them; each of
+    the ``chunks`` chunks has ``steps`` K steps of ``bk`` positions, cut
+    into ``splits`` runs of ``per`` (``ranges``: each split's [kt0,
+    kt1))."""
+    bm: int
+    bn: int
+    bk: int
+    m_tiles: int
+    n_tiles: int
+    chunks: int
+    steps: int
+    per: int
+    splits: int
+    ranges: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_bf16_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
+                    rch: int) -> WgradPlan:
+    """The bf16 wgrad's tiles and splits: 64-row tiles where taps*Cin <=
+    64 (a 1x1 with Cin = 64), 64-wide where Cout <= 64, else 128; the
+    splits that minimize the model's time (whole waves of blocks times
+    their K steps, plus the split tiles' traffic), the fewest among equals,
+    none empty. Cached: every call of the wgrad asks."""
+    m = taps * cin
+    bm = 64 if m <= 64 else 128
+    bn = 64 if cout <= 64 else 128
+    bk = WGRAD_BK
+    m_tiles, n_tiles, chunks = -(-m // bm), -(-cout // bn), h // rch
+    steps = -(-n * rch * w // bk)
+    tiles = m_tiles * n_tiles * chunks
+
+    def cost(k):
+        per = -(-steps // k)
+        k = -(-steps // per)   # the splits runs of ``per`` steps make
+        waves = -(-tiles * k // _SLOTS)
+        # f32 split tiles: 4 bytes an element, written once and read once
+        return (waves * (per + _FILL_STEPS) * _STEP_US
+                + 8 * chunks * k * m * cout / _PART_BYTES_US)
+
+    want = min(range(1, min(steps, 65535 // chunks) + 1), key=cost)
+    per = -(-steps // want)
+    splits = -(-steps // per)
+    ranges = tuple((k * per, min(steps, (k + 1) * per))
+                   for k in range(splits))
+    return WgradPlan(bm, bn, bk, m_tiles, n_tiles, chunks, steps, per,
+                     splits, ranges)
 
 
 def fwd_rowmax(x, s, t, res, *, mode):
@@ -836,32 +920,75 @@ def dgrad_conv_bf16(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout, *,
     return dx, sums[:cin], sums[cin:], dres
 
 
-def wgrad_bf16(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode, rch):
-    """The bf16 weight gradient, dW [taps*Cin, Cout] f32 in ``wgrad``'s
-    rows: each chunk's f32 contraction of bf16(a) with bf16(g), added in
-    chunk order."""
+def wgrad_bf16_pre(dy, y, dzsum, dzssq, x, s, t, res, *, mode):
+    """The bf16 wgrad's operands, each rounded once, NHWC: (a_b = bf16(a),
+    x itself in identity mode; g_b = bf16(g)). One launch writes both."""
     if on_cpu(dy):
-        return wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res,
-                                conv=conv, mode=mode, rch=rch)
-    name = "nv_half_wgrad_bf16"
-    n, h, w, cin = x.shape
-    cout, taps = dy.shape[-1], _taps(conv)
-    _check_rch(name, h, rch)
+        return wgrad_bf16_pre_plain(dy, y, dzsum, dzssq, x, s, t, res,
+                                    mode=mode)
+    name = "nv_half_wgrad_bf16.pre"
     dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
     _require_cot(name, dy, y, dzsum, dzssq)
     _require(name, x, mode, s, t, res)
-    splits = _wgrad_splits(n, h, w, cin, cout, taps, rch, kv=16)
-    part = torch.empty((h // rch * splits, taps * cin * cout), dtype=f32,
-                       device=x.device)
-    dw = torch.empty((taps * cin, cout), dtype=f32, device=x.device)
-    lib, stream = _library(), _stream(x)
-    _launch(name, lib.nvt_wgrad_bf16_launch, x.data_ptr(), _ptr(res),
-            _ptr(s), _ptr(t), MODES.index(mode), dy.data_ptr(), y.data_ptr(),
-            dzsum.data_ptr(), dzssq.data_ptr(), part.data_ptr(), n, h, w,
-            cin, cout, taps, rch, splits, stream)
-    _launch(f"{name}.sum", lib.nvt_wgrad_bf16_sum_launch, part.data_ptr(),
-            dw.data_ptr(), h, cin, cout, taps, rch, splits, stream)
+    n, h, w, cin = x.shape
+    if dy.shape[:3] != x.shape[:3]:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    a_b = x if mode == "identity" else torch.empty_like(x)
+    g_b = torch.empty_like(dy)
+    _launch(name, _library().nvt_wgrad_pre_bf16_launch, x.data_ptr(),
+            _ptr(res), _ptr(s), _ptr(t), MODES.index(mode), dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            None if mode == "identity" else a_b.data_ptr(), g_b.data_ptr(),
+            n, h, w, cin, dy.shape[-1], _stream(x))
+    return a_b, g_b
+
+
+def wgrad_bf16_gemm(a_b, g_b, *, conv, rch):
+    """dW [taps*Cin, Cout] f32 from the rounded operands a_b [N, h, w, Cin]
+    and g_b [N, h, w, Cout] bf16: each chunk's f32 contraction, split over
+    blocks by ``wgrad_bf16_plan``, the splits then the chunks added in
+    order (bit for bit the same every run)."""
+    if on_cpu(a_b):
+        return wgrad_bf16_gemm_plain(a_b, g_b, conv=conv, rch=rch)
+    name = "nv_half_wgrad_bf16"
+    n, h, w, cin = a_b.shape
+    cout, taps = g_b.shape[-1], _taps(conv)
+    if g_b.shape[:3] != a_b.shape[:3]:
+        raise ValueError(f"{name}: a {tuple(a_b.shape)} and g "
+                         f"{tuple(g_b.shape)} are not on one plane")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}: each must be a "
+                         f"multiple of 8")
+    _check_rch(name, h, rch)
+    require_cuda(name, [a_b, g_b], [torch.bfloat16] * 2)
+    plan = wgrad_bf16_plan(n, h, w, cin, cout, taps, rch)
+    if plan.chunks * plan.splits > 65535:
+        raise ValueError(f"{name}: {plan.chunks} chunks x {plan.splits} "
+                         f"splits at N={n}, h={h}, w={w} exceed the grid")
+    part = torch.empty((plan.chunks * plan.splits, taps * cin * cout),
+                       dtype=f32, device=a_b.device)
+    dw = torch.empty((taps * cin, cout), dtype=f32, device=a_b.device)
+    lib, stream = _library(), _stream(a_b)
+    _launch(name, lib.nvt_wgrad_staged_bf16_launch, a_b.data_ptr(),
+            g_b.data_ptr(), part.data_ptr(), n, h, w, cin, cout, taps, rch,
+            plan.bm, plan.bn, plan.bk, plan.per, plan.splits, stream)
+    _launch(f"{name}.sum", lib.nvt_wgrad_staged_bf16_sum_launch,
+            part.data_ptr(), dw.data_ptr(), h, cin, cout, taps, rch,
+            plan.splits, stream)
     return dw
+
+
+def wgrad_bf16(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode, rch):
+    """The bf16 weight gradient, dW [taps*Cin, Cout] f32 in ``wgrad``'s
+    rows: each chunk's f32 contraction of bf16(a) with bf16(g), added in
+    chunk order (``wgrad_bf16_pre``, then ``wgrad_bf16_gemm``)."""
+    if on_cpu(dy):
+        return wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res,
+                                conv=conv, mode=mode, rch=rch)
+    _check_rch("nv_half_wgrad_bf16", x.shape[1], rch)
+    a_b, g_b = wgrad_bf16_pre(dy, y, dzsum, dzssq, x, s, t, res, mode=mode)
+    return wgrad_bf16_gemm(a_b, g_b, conv=conv, rch=rch)
 
 
 def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,

@@ -12,7 +12,9 @@
 //   dgrad_bf16                <- the same kernels' quant_bwd=False body
 //   wgrad, wgrad_sum          <- _wgrad_call -> _wgrad1x1_kernel,
 //                                _wgrad3x3_kernel (quant_bwd=True)
-//   wgrad_bf16, wgrad_bf16_sum <- the same kernels' quant_bwd=False body
+//   wgrad_pre_bf16, then      <- the same kernels' quant_bwd=False body
+//   wgrad_staged_bf16, _sum      (the mainloop and its ordered sum live in
+//                                wgrad_staged.cuh, which says how it works)
 //   sum                       <- the TPU kernels' sums carried across
 //                                their sequential grid
 //
@@ -45,17 +47,19 @@
 //   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
 //          (r - dy + 1, c - dx + 1) against per-input-channel weights in
 //          forward tap coordinates;
-//   wgrad: M = (tap, ci), N = Cout, K = a run of the positions of one
-//          chunk (grid z = (chunk, split)). Both operands are NHWC,
+//   wgrad (int8): M = (tap, ci), N = Cout, K = a run of the positions of
+//          one chunk (grid z = (chunk, split)). Both operands are NHWC,
 //          channel-contiguous, and mma.sync wants K contiguous: each
-//          thread converts a 4 x 4 (positions x channels) block and packs
-//          each channel's four positions into one 32-bit word (int8) or
-//          one 64-bit pair (bf16), four shared stores.
+//          thread quantizes a 4 x 4 (positions x channels) block and packs
+//          each channel's four positions into one 32-bit word, four shared
+//          stores. The bf16 wgrad does not use this core: a prepass rounds
+//          its operands once into NHWC bf16 scratch, and wgrad_staged.cuh's
+//          cp.async ring feeds them to ldmatrix.trans.
 // Epilogues run on the accumulators in registers: the dequant
 // f32(acc) * f32(ws * scale) (int8 fwd, dgrad), the bf16 outputs, the
 // prologue's backward (dgrad), and per-block per-channel sums (warp
 // butterflies, then the four M-warps in order) into a partial buffer that
-// nvt_sum reduces in a fixed tree. The wgrad splits each chunk's positions
+// nvt_sum reduces in a fixed tree. The wgrads split each chunk's positions
 // over blocks; the int8 sum adds each chunk's f32(exact s32 over its
 // splits) * (amax_a * amax_g / 127^2), the bf16 sum each chunk's f32 split
 // tiles in split order, into dW in chunk order, as the TPU kernel's
@@ -68,10 +72,12 @@
 // stage-1 halves are bound by bytes. What the design does about it: each
 // operand is read once per output tile column (N / 64 times; K / 32 bytes
 // steps per tile), the quantized or rounded operands never reach device
-// memory, and no accumulator does either (but the wgrad's split tiles).
-// Left for later: the producer's synchronous loads (no cp.async/TMA
-// ring), mma.sync instead of wgmma, a 64-wide N tile that re-reads A
-// Cout/64 times, and the halo rows' recomputed prologue.
+// memory (but the bf16 wgrad's, written once by its prepass), and no
+// accumulator does either (but the wgrads' split tiles).
+// Left for later: in the int8 kernels and the bf16 fwd and dgrad, the
+// producer's synchronous loads (no cp.async/TMA ring), a 64-wide N tile
+// that re-reads A Cout/64 times, and the halo rows' recomputed prologue;
+// everywhere, mma.sync instead of wgmma, and the wgrads' second launch.
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_bneck_nv_train.py and
@@ -93,6 +99,7 @@
 
 #include "common.cuh"
 #include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
+#include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
 
 using conv3x3::ldmatrix_x4;
 using conv3x3::mma_step;
@@ -233,11 +240,6 @@ __device__ __forceinline__ uint32_t pack4(float a, float b, float c,
          ((uint32_t)(uint8_t)quant_s8(b) << 8) |
          ((uint32_t)(uint8_t)quant_s8(c) << 16) |
          ((uint32_t)(uint8_t)quant_s8(d) << 24);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // --- row absmax (and the entry mode's x_res) --------------------------------
@@ -692,7 +694,7 @@ struct WgradArgs {
   Cot cot;
   const float* rowmax_a;
   const float* rowmax_g;
-  void* part;              // [h / rch][splits][taps * cin][cout] s32 or f32
+  void* part;              // [h / rch][splits][taps * cin][cout] s32
   int n, h, w, cin, cout, taps, rch, splits;
 };
 
@@ -851,141 +853,38 @@ nvt_wgrad_sum_kernel(const int* __restrict__ part,
   out[i] = d;
 }
 
-// bf16: K = 16 positions a step. Threads 0-127 take A's 32 channel blocks
-// of 4 (the activation), threads 128-191 B's 16 (the cotangent), each at
-// the 4 position blocks of 4; each rounds its 4 x 4 block to bf16 and
-// stores each channel's four positions as one 64-bit pair.
-struct WgradLoaderBf16 {
-  WgradArgs a;
-  int k;            // chunk
-  int kb, rb;       // this thread's position block and channel block
-  bool is_a, ok;
-  int tap, ch;      // A: the block's tap and first input channel; B: channel
+// --- the bf16 weight gradient's operands -----------------------------------
 
-  struct Regs {
-    Raw<4> v[4];
-    bool vv[4];
-  };
-
-  __device__ WgradLoaderBf16(const WgradArgs& args, int k_, int m0, int n0)
-      : a(args), k(k_) {
-    const int tid = threadIdx.x;
-    kb = tid % 4;
-    is_a = tid < 128;
-    rb = is_a ? tid / 4 : (tid - 128) / 4;
-    if (is_a) {
-      const int m = m0 + 4 * rb;
-      ok = m < a.taps * a.cin;
-      tap = ok ? m / a.cin : 0;
-      ch = ok ? m - tap * a.cin : 0;
-    } else {
-      tap = 0;
-      ch = n0 + 4 * rb;
-      ok = tid < 192 && ch < a.cout;
-    }
-  }
-
-  __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
-    const int total = a.n * a.rch * a.w;
-    const int dy = a.taps == 9 ? tap / 3 : 1;
-    const int dx = a.taps == 9 ? tap % 3 : 1;
-    const int kk0 = kt * 16 + 4 * kb;
-    const int per = a.rch * a.w;
-    int img = kk0 / per;
-    const int rem = kk0 - img * per;
-    int r = rem / a.w;
-    int c = rem - r * a.w;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ry = k * a.rch + r;
-      const int iy = is_a ? ry + dy - 1 : ry, ix = is_a ? c + dx - 1 : c;
-      rg.vv[i] = ok && kk0 + i < total && (unsigned)iy < (unsigned)a.h &&
-                 (unsigned)ix < (unsigned)a.w;
-      if (rg.vv[i]) {
-        const size_t p = ((size_t)img * a.h + iy) * a.w + ix;
-        if (is_a)
-          a.act.fetch<4>(p, ch, rg.v[i]);
-        else
-          a.cot.fetch<4>(p, ch, rg.v[i]);
-      }
-      if (++c == a.w) {
-        c = 0;
-        if (++r == a.rch) {
-          r = 0;
-          ++img;
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(const Regs& rg,
-                                        unsigned char* buf) const {
-    if (threadIdx.x >= 192) return;
-    float v[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rg.vv[i]) {
-        if (is_a)
-          a.act.value<4>(rg.v[i], ch, v[i]);
-        else
-          a.cot.value<4>(rg.v[i], ch, v[i]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
-      }
-    }
-    unsigned char* base = buf + (is_a ? 0 : A_BYTES);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint2 q;
-      q.x = pack_bf16x2(v[0][j], v[1][j]);
-      q.y = pack_bf16x2(v[2][j], v[3][j]);
-      *reinterpret_cast<uint2*>(base + (4 * rb + j) * ROW + 8 * kb) = q;
-    }
-  }
-};
-
-// Grid as nvt_wgrad_kernel's: the f32 tile of split z % splits of chunk
-// z / splits goes to its slot.
-__global__ void __launch_bounds__(THREADS)
-nvt_wgrad_bf16_kernel(WgradArgs args) {
-  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = args.taps * args.cin;
-  const int k = blockIdx.z / args.splits, split = blockIdx.z % args.splits;
-  const int steps = (args.n * args.rch * args.w + 15) / 16;
-  const int per = (steps + args.splits - 1) / args.splits;
-  const int kt0 = split * per, kt1 = min(steps, kt0 + per);
-  float acc[2][4][4] = {};
-  if (kt0 < kt1) {
-    const WgradLoaderBf16 ld(args, k, m0, n0);
-    gemm(acc, ld, smem, kt0, kt1);
-  }
-  float* out = static_cast<float*>(args.part) +
-               (size_t)blockIdx.z * M * args.cout;
-  each_pair(acc, m0, n0, M, args.cout,
-            [&](int, int, int, int m, int n, float v0, float v1) {
-    *reinterpret_cast<float2*>(out + (size_t)m * args.cout + n) =
-        make_float2(v0, v1);
-  });
-}
-
-// dW[i] = sum over chunks k in order of (the chunk's split tiles added in
-// split order), in f32.
+// a_b = bf16(a) (none in identity mode, where a is x itself) and g_b =
+// bf16(g), NHWC, each 8-channel vector once: 16-byte loads, the gather's
+// f32 prologue or fold (Act::value, Cot::value), one rounding, a 16-byte
+// store. Units [0, units_a) are a's vectors, the rest g's.
 __global__ void __launch_bounds__(256)
-nvt_wgrad_bf16_sum_kernel(const float* __restrict__ part,
-                          float* __restrict__ out, long mn, int chunks,
-                          int splits) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float d = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    float c = part[(size_t)k * splits * mn + i];
-    for (int sp = 1; sp < splits; ++sp)
-      c = __fadd_rn(c, part[((size_t)k * splits + sp) * mn + i]);
-    d = k == 0 ? c : __fadd_rn(d, c);
+nvt_wgrad_pre_bf16_kernel(Act act, Cot cot, bf16* __restrict__ a_b,
+                          bf16* __restrict__ g_b, long units_a,
+                          long units_g) {
+  for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < units_a + units_g; u += (long)gridDim.x * blockDim.x) {
+    const bool is_a = u < units_a;
+    const long e = 8 * (is_a ? u : u - units_a);  // element offset
+    const int c = is_a ? act.c : cot.c;
+    const size_t p = e / c;
+    const int c0 = (int)(e - (long)p * c);
+    Raw<8> raw;
+    float v[8];
+    if (is_a) {
+      act.fetch<8>(p, c0, raw);
+      act.value<8>(raw, c0, v);
+    } else {
+      cot.fetch<8>(p, c0, raw);
+      cot.value<8>(raw, c0, v);
+    }
+    uint4 out;
+    bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
+    *reinterpret_cast<uint4*>((is_a ? a_b : g_b) + e) = out;
   }
-  out[i] = d;
 }
 
 // --- sums across blocks -----------------------------------------------------
@@ -1170,31 +1069,50 @@ int nvt_wgrad_sum_launch(const void* part, const void* rowmax_a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 body, two launches. nvt_wgrad_bf16: part [h / rch][splits]
-// [taps * cin][cout] f32 <- the per-(chunk, split) products of bf16(a) and
-// bf16(g). nvt_wgrad_bf16_sum: dW [taps * cin][cout] f32 <- per chunk its
-// splits in order, the chunks in order.
-int nvt_wgrad_bf16_launch(const void* x, const void* res, const void* s,
-                          const void* t, int mode, const void* dy,
-                          const void* y, const void* dzsum, const void* dzssq,
-                          void* part, int n, int h, int w, int cin, int cout,
-                          int taps, int rch, int splits, void* stream) {
-  WgradArgs args{act_of(x, res, s, t, cin, mode),
-                 cot_of(dy, y, dzsum, dzssq, cout), nullptr, nullptr, part,
-                 n, h, w, cin, cout, taps, rch, splits};
-  const dim3 grid((taps * cin + BM - 1) / BM, (cout + BN - 1) / BN,
-                  h / rch * splits);
-  nvt_wgrad_bf16_kernel<<<grid, THREADS, 0, as_stream(stream)>>>(args);
+// The bf16 body, three launches. nvt_wgrad_pre_bf16: a_b [n, h, w, cin]
+// bf16 = bf16(a) from x/res/s/t (a_b unused, may be null, in identity mode),
+// g_b [n, h, w, cout] bf16 = bf16(g) from dy/y/dzsum/dzssq.
+int nvt_wgrad_pre_bf16_launch(const void* x, const void* res, const void* s,
+                              const void* t, int mode, const void* dy,
+                              const void* y, const void* dzsum,
+                              const void* dzssq, void* a_b, void* g_b, int n,
+                              int h, int w, int cin, int cout,
+                              void* stream) {
+  const long p = (long)n * h * w;
+  const long units_a = mode == IDENTITY ? 0 : p * cin / 8;
+  const long units = units_a + p * cout / 8;
+  const long blocks = (units + 255) / 256 < 132L * 16 ? (units + 255) / 256
+                                                      : 132L * 16;
+  nvt_wgrad_pre_bf16_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      act_of(x, res, s, t, cin, mode), cot_of(dy, y, dzsum, dzssq, cout),
+      static_cast<bf16*>(a_b), static_cast<bf16*>(g_b), units_a,
+      units - units_a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int nvt_wgrad_bf16_sum_launch(const void* part, void* dw, int h, int cin,
-                              int cout, int taps, int rch, int splits,
-                              void* stream) {
-  const long mn = (long)taps * cin * cout;
-  nvt_wgrad_bf16_sum_kernel<<<(mn + 255) / 256, 256, 0, as_stream(stream)>>>(
-      in<float>(part), static_cast<float*>(dw), mn, h / rch, splits);
-  return static_cast<int>(cudaGetLastError());
+// nvt_wgrad_staged_bf16: part [h / rch][splits][taps * cin][cout] f32 <- the
+// per-(chunk, split) products of a_b (x itself in identity mode) and g_b on
+// a (bm, bn) tile, each split ``per`` K steps of bk positions (the plan of
+// ops/cuda/bneck_nv_train.py wgrad_bf16_plan). nvt_wgrad_staged_bf16_sum:
+// dW [taps * cin][cout] f32 <- per chunk its splits in order, the chunks in
+// order.
+int nvt_wgrad_staged_bf16_launch(const void* a_b, const void* g_b, void* part,
+                                 int n, int h, int w, int cin, int cout,
+                                 int taps, int rch, int bm, int bn, int bk,
+                                 int per, int splits, void* stream) {
+  const wgrad_staged::Args args{in<bf16>(a_b), in<bf16>(g_b),
+                                static_cast<float*>(part), n, h, w, cin,
+                                cout, taps, rch, per, splits};
+  return static_cast<int>(
+      wgrad_staged::launch(args, bm, bn, bk, as_stream(stream)));
+}
+
+int nvt_wgrad_staged_bf16_sum_launch(const void* part, void* dw, int h,
+                                     int cin, int cout, int taps, int rch,
+                                     int splits, void* stream) {
+  return static_cast<int>(wgrad_staged::launch_sum(
+      in<float>(part), static_cast<float*>(dw), (long)taps * cin * cout,
+      h / rch, splits, as_stream(stream)));
 }
 
 // out[i] = sum over k < j of part[k][i] (part [j][m] f32), fixed tree.

@@ -13,7 +13,8 @@ setup(
     # the PyTorch port's CUDA kernels are compiled with nvcc at first use
     # (pytorch_ddp_resnet_tpu_torch/ops/cuda/build.py): ship the sources
     package_data={"pytorch_ddp_resnet_tpu.native": ["*.cpp"],
-                  "pytorch_ddp_resnet_tpu_torch.ops.cuda": ["csrc/*.cu"]},
+                  "pytorch_ddp_resnet_tpu_torch.ops.cuda": ["csrc/*.cu",
+                                                            "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -30,7 +30,9 @@ order) are equal; the BatchNorm sums, d(s) and d(t) are f32 sums in
 another order: 1e-5 of the largest value. Their bf16 bodies: y, dx and
 dres (bf16(du), du carrying the product) within 2 bf16 ulps of the
 tensor's largest value, x_res equal, the sums and dW (over the tensor
-cores' accumulators) within 1e-4. The fused bf16 half: bf16
+cores' accumulators) within 1e-4; the staged bf16 wgrad's dW (its splits
+and chunks added in a fixed order) bit-equal from call to call. The fused
+bf16 half: bf16
 outputs (y, dx) within 2 bf16 ulps of the tensor's largest value (f32
 against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
 of the sums of the kernel's own y, and the sums over the tensor cores'
@@ -591,6 +593,13 @@ NVT_SHAPES = [(32, 8, 8, 64, 32, (2, 4, 1)), (64, 7, 7, 32, 64, (7, 1, 1)),
               (32, 6, 5, 40, 24, (3, 2, 6)),
               (128, 14, 14, 1024, 256, (2, 1, 2))]
 NVT_SUMS = ("zsum", "zssq", "ds", "dt")
+# the bf16 bodies also at the staged wgrad's edges: w = 7 with one chunk
+# (every K step of 32 positions crosses images), Cin = 64 3x3 halves whose
+# 128-row tiles straddle two taps, a 64-row tile (1x1, Cin = 64), Cout = 64
+# and 256 (64- and 128-wide tiles), and stage 1's 28 chunks of two rows
+NVT_BF16_SHAPES = NVT_SHAPES + [(32, 7, 7, 64, 64, (7, 7, 7)),
+                                (64, 14, 14, 64, 256, (2, 2, 2)),
+                                (32, 56, 56, 256, 64, (2, 2, 2))]
 
 
 def _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed):
@@ -711,7 +720,7 @@ def _nvt_bf16_agree(got, want):
 
 
 @pytest.mark.parametrize("conv,mode", NVT_HALVES)
-@pytest.mark.parametrize("n,h,w,cin,cout,rch", NVT_SHAPES)
+@pytest.mark.parametrize("n,h,w,cin,cout,rch", NVT_BF16_SHAPES)
 def test_nv_train_bf16_kernels_match_plain(dev, conv, mode, n, h, w, cin,
                                            cout, rch):
     ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, cin + h)
@@ -720,6 +729,8 @@ def test_nv_train_bf16_kernels_match_plain(dev, conv, mode, n, h, w, cin,
     torch.cuda.synchronize()
     assert {k.split(".")[0] for k in nvt.launches} == {
         "nv_half_fwd_bf16", "nv_half_dgrad_bf16", "nv_half_wgrad_bf16"}
+    assert [nvt.launches[f"nv_half_wgrad_bf16{k}"]
+            for k in (".pre", "", ".sum")] == [1, 1, 1]
     want = _nvt_bf16_stages(ops, conv, mode, rch, plain=True,
                             y_bwd=got["y"])
     assert want["y"].unique().numel() > 100
@@ -768,7 +779,8 @@ def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
     bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad",
             "nv_half_dgrad.sum", "nv_half_wgrad", "nv_half_wgrad.sum"}
            if quant_bwd else {"nv_half_dgrad_bf16", "nv_half_dgrad_bf16.sum",
-                              "nv_half_wgrad_bf16", "nv_half_wgrad_bf16.sum"})
+                              "nv_half_wgrad_bf16.pre", "nv_half_wgrad_bf16",
+                              "nv_half_wgrad_bf16.sum"})
     assert set(nvt.launches) == fwd | bwd
     want = run("cpu")
     for i, (a, b) in enumerate(zip(got, want)):
@@ -809,6 +821,47 @@ def test_nv_train_bf16_never_falls_back(dev):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         nvt.wgrad_bf16(dy.float(), dy, z, z, xb, None, None, None,
                        conv="1x1", mode="identity", rch=4)
+    # the staged wgrad names what it does not take, before any launch
+    nvt.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.wgrad_bf16(dy, dy, z, z, x12, None, None, None, conv="1x1",
+                       mode="identity", rch=4)
+    with pytest.raises(ValueError, match="does not divide"):
+        nvt.wgrad_bf16(dy, dy, z, z, xb, None, None, None, conv="1x1",
+                       mode="identity", rch=3)
+    with pytest.raises(ValueError, match="one plane"):
+        nvt.wgrad_bf16_gemm(xb, dy[:, :2].contiguous(), conv="1x1", rch=4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.wgrad_bf16_gemm(x12, dy, conv="3x3", rch=4)
+    assert not nvt.launches
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", [
+    ("3x3", "affine", 128, 28, 28, 128, 128, 7),
+    ("1x1", "entry", 128, 56, 56, 256, 64, 2)])
+def test_nv_wgrad_bf16_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
+                                        rch):
+    """The staged bf16 wgrad adds its split tiles, then its chunks, in a
+    fixed order with no atomics: two calls on the same inputs give the same
+    dW bit for bit (here over 4 x 15 and 28 x 10 (chunk, split) tiles), and
+    each launches the prepass, the mainloop and the sum once."""
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, 7)
+    y = torch.randn(n, h, w, cout, device=dev).to(torch.bfloat16)
+    args = (ops["dy"], y, ops["dzsum"], ops["dzssq"], ops["x"], ops["s"],
+            ops["t"], ops["res"])
+    plan = nvt.wgrad_bf16_plan(n, h, w, ops["x"].shape[-1], cout,
+                               9 if conv == "3x3" else 1, rch)
+    assert plan.chunks > 1 and plan.splits > 1, plan
+    nvt.reset_launches()
+    first = nvt.wgrad_bf16(*args, conv=conv, mode=mode, rch=rch)
+    second = nvt.wgrad_bf16(*args, conv=conv, mode=mode, rch=rch)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert dict(nvt.launches) == {"nv_half_wgrad_bf16.pre": 2,
+                                  "nv_half_wgrad_bf16": 2,
+                                  "nv_half_wgrad_bf16.sum": 2}
+    _mma_sums(first, nvt.wgrad_bf16_plain(*args, conv=conv, mode=mode,
+                                          rch=rch))
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):
