@@ -89,21 +89,30 @@ Phases, each fatal on failure:
    the JAX pickers' row chunks: row absmaxes, y, x_res, dx, dres and dW
    equal, the f32 sums within 1e-5 of their largest value. Each stage is
    timed beside its plain version and cuDNN's bf16 forward, input gradient
-   and weight gradient (channels-last) at the same shape.
+   and weight gradient (channels-last) at the same shape. The weight
+   gradient (the prepass that writes each chunk's int8 slabs K-contiguous,
+   then csrc/wgrad_staged_s8.cuh's cp.async ring into ldmatrix and s8
+   mma.sync, then the ordered sum) must give the same dW bit for bit in two
+   calls, its prepass's slabs must equal its plain version's byte for byte,
+   and the prepass and the mainloop + sum are timed apart; the prepass is
+   also a kernel row of its own.
 11. Training, the fifth main path: the ResNet-50 recipe at full width
    (Synthetic 224x224x3 data, 1,024 resident images, the training
    transforms cut to ToTensor + Flip + Standardize, batch 128) with
    ``use_int8_train_bwd``, through ``setup(config)`` as in phase 5. With the
    launch counts zeroed just before, each step must launch 30 NV halves
    (3 identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each
-   one forward, dgrad and wgrad (NV_TRAIN_PER_STEP), and no other port
-   kernel; losses finite, every parameter changed, every BatchNorm count
-   equal to the steps. The first half of each kind in the first step, on
-   its live inputs and cotangents, must reproduce its outputs and equal
-   its plain versions. The same recipe without the flag (bf16 on cuDNN)
-   runs as the yardstick; both print step time, img/s, peak memory and a
-   profile, and the halves' per-step time from phase 10's per-call times
-   is printed beside the profiled one.
+   one forward, dgrad and wgrad (the wgrad with its prepass and sum;
+   NV_TRAIN_PER_STEP), and no other port kernel; losses finite, every
+   parameter changed, every BatchNorm count equal to the steps. The first
+   half of each kind in the first step, on its live inputs and cotangents,
+   must reproduce its outputs and equal its plain versions. The same
+   recipe without the flag (bf16 on cuDNN) runs as the yardstick; both
+   print step time, img/s, peak memory and a profile, and the halves'
+   per-step time from phase 10's per-call times is printed beside the
+   profiled one, the int8 wgrad's per-step time with its prepass and
+   mainloop + sum apart, and the FQT step's wall and device time and peak
+   memory beside the bf16 run's.
 12. Fused bf16 half kernels: at every WRN-28-10 stage shape (batch 128)
    hold the bf16 forward, dgrad and wgrad (ops/cuda/csrc/
    fused_block_bf16.cu) against their plain versions on the same CUDA
@@ -261,7 +270,9 @@ NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
 # kernels whose code lives in a header of their own
 SOURCES = {"nv_half_wgrad_bf16":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
+           "nv_half_wgrad":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged_s8.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -280,6 +291,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
+            "nv_half_wgrad.pre": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_fwd_bf16": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad_bf16": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad_bf16": _PALLAS + "bneck_nv_train.py:928",
@@ -351,13 +363,14 @@ NVT_GEOMETRIES = [(128, 56, 56, 256, 64, 256), (128, 28, 28, 512, 128, 512),
 NVT_NAMES = ("nv_half_fwd", "nv_half_dgrad", "nv_half_wgrad")
 # launches of one ResNet-50 FQT train step at batch 128: 30 NV halves (3
 # identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each one
-# forward, one dgrad and one wgrad; identity-mode dgrads have no d(s)/d(t)
+# forward, one dgrad and one wgrad; identity-mode dgrads have no d(s)/d(t);
+# the wgrad's prepass writes its int8 slabs once
 NVT_HALVES_PER_STEP = {("1x1", "identity"): 3, ("1x1", "entry"): 7,
                        ("3x3", "affine"): 10, ("1x1", "affine"): 10}
 NV_TRAIN_PER_STEP = {
     "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
     "nv_half_bwd.amax": 30, "nv_half_dgrad": 30, "nv_half_dgrad.sum": 27,
-    "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
+    "nv_half_wgrad.pre": 30, "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
 NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
                   "nv_half_wgrad_bf16")
 # launches of one ResNet-50 QAT train step at batch 128: the same 30 halves
@@ -2364,10 +2377,8 @@ def _nvt_stage_fns(nvt, o, conv, mode, rch, plain):
                  else nvt.quantize_w_1x1_dgrad)(o["w"])
     x, s, t, res = o["x"], o["s"], o["t"], o["res"]
     kw = dict(conv=conv, mode=mode)
-    rowmax_a = nvt.fwd_rowmax(x, s, t, res, mode=mode)[0]
-    y = nvt.fwd_conv(x, s, t, res, rowmax_a, wq, ws, rch=rch[0], **kw)[0]
-    cts = (o["dy"], y, o["dzsum"], o["dzssq"])
-    rowmax_g = nvt.bwd_rowmax(*cts)
+    wargs = _nvt_wgrad_args(nvt, o, conv, mode, rch)
+    cts, rowmax_g, rowmax_a = wargs[:4], wargs[4], wargs[9]
 
     def fwd():
         ra = pick("fwd_rowmax")(x, s, t, res, mode=mode)[0]
@@ -2383,6 +2394,65 @@ def _nvt_stage_fns(nvt, o, conv, mode, rch, plain):
                              rch=rch[2], **kw)
 
     return dict(nv_half_fwd=fwd, nv_half_dgrad=dgrad, nv_half_wgrad=wgrad)
+
+
+def _nvt_wgrad_args(nvt, o, conv, mode, rch):
+    """The int8 wgrad's arguments (dy, y, dzsum, dzssq, rowmax_g, x, s, t,
+    res, rowmax_a) on the kernels' forward y and row maxima."""
+    x, s, t, res = o["x"], o["s"], o["t"], o["res"]
+    wq, ws = (nvt.quantize_w_3x3 if conv == "3x3"
+              else nvt.quantize_w_1x1)(o["w"])
+    rowmax_a = nvt.fwd_rowmax(x, s, t, res, mode=mode)[0]
+    y = nvt.fwd_conv(x, s, t, res, rowmax_a, wq, ws, conv=conv, mode=mode,
+                     rch=rch[0])[0]
+    cts = (o["dy"], y, o["dzsum"], o["dzssq"])
+    return cts + (nvt.bwd_rowmax(*cts), x, s, t, res, rowmax_a)
+
+
+def _wgrad_int8_parts(nvt, wargs, conv, mode, rch):
+    """The int8 wgrad's second call equal to its first bit for bit (exact
+    s32 per chunk, the chunks added in a fixed order), and its two parts
+    timed apart: the prepass, then the mainloop + ordered sum on its
+    slabs."""
+    import torch
+
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    first = nvt.wgrad(*wargs, **kw)
+    assert torch.equal(first, nvt.wgrad(*wargs, **kw)), (conv, mode, rch)
+    slabs = nvt.wgrad_pre(*wargs, **kw)
+    n, h, w, cin = wargs[5].shape
+    taps = 9 if conv == "3x3" else 1
+    lay = nvt.wgrad_int8_layout(n, h, w, taps, rch)
+    plan = nvt.wgrad_int8_plan(n, h, w, cin, wargs[0].shape[-1], taps, rch)
+    return dict(
+        deterministic=True, plan=list(plan[:-1]),
+        pre_ms=time_ms(lambda: nvt.wgrad_pre(*wargs, **kw), 10),
+        gemm_ms=time_ms(lambda: nvt.wgrad_gemm(*slabs, wargs[9], wargs[4],
+                                               lay), 10))
+
+
+def _wgrad_int8_pre_row(nvt, wargs, mode, rch, flops_f32, bw, geo):
+    """The int8 wgrad's prepass as a kernel row: its slabs equal to its
+    plain version's byte for byte; bound by its bytes (dy, y and x (and
+    res) in; the int8 slabs out, as laid out) or its f32 operations (three
+    an element of a and g)."""
+    import torch
+
+    kw = dict(conv=geo["conv"], mode=mode, rch=rch)
+    got = nvt.wgrad_pre(*wargs, **kw)
+    want = nvt.wgrad_pre_plain(*wargs, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), ("nv_half_wgrad.pre", geo)
+    p = geo["n"] * geo["h"] * geo["w"]
+    cin, cout = geo["cin"], geo["cout"]
+    byts = (2 * p * (2 * cout + cin + (cin if mode == "entry" else 0))
+            + sum(t.numel() for t in got))
+    return dict(
+        name="nv_half_wgrad.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: nvt.wgrad_pre(*wargs, **kw), 10),
+        plain_ms=time_ms(lambda: nvt.wgrad_pre_plain(*wargs, **kw), 1),
+        library_ms=None, ops_ms=3 * p * (cin + cout) / flops_f32 * 1e3,
+        bytes_ms=byts / bw * 1e3)
 
 
 def _nvt_bytes(p, ci, co, taps, mode, w_size, names):
@@ -2428,7 +2498,7 @@ def nv_train_kernel_phase(peaks):
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 
-    _, ops_int8, bw, _ = peaks
+    _, ops_int8, bw, flops_f32 = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
@@ -2456,7 +2526,14 @@ def nv_train_kernel_phase(peaks):
                     library_ms=lib[name],
                     ops_ms=2 * p * taps * ci * co / ops_int8 * 1e3,
                     bytes_ms=byts[name] / bw * 1e3))
-            del o, kern, plain
+            wargs = _nvt_wgrad_args(nvt, o, conv, mode, rch)
+            rows[-1].update(_wgrad_int8_parts(nvt, wargs, conv, mode,
+                                              rch[2]))
+            rows.append(_wgrad_int8_pre_row(
+                nvt, wargs, mode, rch[2], flops_f32, bw,
+                dict(n=n, h=h, w=w, cin=ci, cout=co, conv=conv, mode=mode,
+                     rch=list(rch))))
+            del o, kern, plain, wargs
             torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
@@ -3474,12 +3551,29 @@ def main() -> int:
                        ("resnet-50 QAT training", r50_qat)):
         print_training(label, {k: v for k, v in run.items()
                                if k != "shapes"})
-    nvt_kernels = nv_train_summary(nvt_rows, r50_fqt)
+    nvt_kernels = nv_train_summary(nvt_rows, r50_fqt,
+                                   NVT_NAMES + ("nv_half_wgrad.pre",))
     if r50_fqt["profile"] is not None:
         kinds = r50_fqt["profile"]["device_ms_per_step_by_kind"]
+        summed = sum(k["ms"] for k in nvt_kernels if k["name"] in NVT_NAMES)
         print("resnet-50 int8 training: NV halves per step, phase 10 "
-              f"per-call times summed {sum(k['ms'] for k in nvt_kernels)} "
+              f"per-call times summed {summed} "
               f"ms, profiled {kinds.get('nv train halves (port)', 0.0)} ms")
+    wg8 = next(k for k in nvt_kernels if k["name"] == "nv_half_wgrad")
+    print("resnet-50 FQT: int8 wgrad per step, phase 10 per-call times "
+          "summed: " + json.dumps({k: wg8[k] for k in (
+              "ms", "pre_ms", "gemm_ms", "library_ms", "bound_ms",
+              "launches", "split_launches")}))
+    fqt_line = dict(step_ms=(r50_fqt["step_ms"], r50_bf16["step_ms"]),
+                    img_per_s=(r50_fqt["img_per_s"], r50_bf16["img_per_s"]),
+                    peak_mem_gib=(r50_fqt["peak_mem_gib"],
+                                  r50_bf16["peak_mem_gib"]))
+    if r50_fqt["profile"] is not None and r50_bf16["profile"] is not None:
+        for key in ("device_ms_per_step", "busy_share", "kernels_per_step"):
+            fqt_line[key] = (r50_fqt["profile"][key],
+                             r50_bf16["profile"][key])
+    print("resnet-50 FQT vs phase 11's bf16 run (FQT, bf16): "
+          + json.dumps(fqt_line))
     nvt_bf16_kernels = nv_train_summary(
         nvt_bf16_rows, r50_qat, NVT_BF16_NAMES + ("nv_half_wgrad_bf16.pre",),
         "QAT")

@@ -66,7 +66,12 @@ launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
                         the mode is identity)
 - ``dgrad_conv_bf16``  (``nv_half_dgrad_bf16``, ``nv_half_dgrad_bf16.sum``
                         likewise)
-- ``wgrad``            (``nv_half_wgrad``, ``nv_half_wgrad.sum``)
+- ``wgrad``            ``wgrad_pre`` (``nv_half_wgrad.pre``: each chunk's
+                        operands quantized once into int8 slabs, K
+                        contiguous, in the layout of ``wgrad_int8_layout``),
+                        then ``wgrad_gemm`` (``nv_half_wgrad``,
+                        ``nv_half_wgrad.sum``) on the tiles and splits of
+                        ``wgrad_int8_plan``
 - ``wgrad_bf16``       ``wgrad_bf16_pre`` (``nv_half_wgrad_bf16.pre``: the
                         operands rounded once into NHWC bf16 scratch), then
                         ``wgrad_bf16_gemm`` (``nv_half_wgrad_bf16``,
@@ -554,6 +559,19 @@ def wgrad_bf16_plain(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode,
     return wgrad_bf16_gemm_plain(a_b, g_b, conv=conv, rch=rch)
 
 
+def _scaled_chunk_sum(acc, rowmax_a, rowmax_g, rch, halo):
+    """dW = sum over chunks k in order of f32(acc[k]) * ts_k in f32, acc
+    [K, taps*Cin, Cout] the exact s32 sums (float64) and ts_k = (amax_a *
+    amax_g) * f32(1/127^2): XLA reassociates (amax_a * c) * (amax_g * c)
+    into that."""
+    ts = (chunk_amax(rowmax_a, rch, halo) * chunk_amax(rowmax_g, rch, 0)
+          ) * INV_127_SQ
+    out = acc[0].to(f32) * ts[0]
+    for k in range(1, acc.shape[0]):
+        out = out + acc[k].to(f32) * ts[k]
+    return out
+
+
 def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
                 conv, mode, rch):
     """dW [taps*Cin, Cout] f32 (rows in (dy, dx, ci) order: JAX's
@@ -568,14 +586,106 @@ def wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
     gq = _q(_slabs(g, rch, 0), inv_g.reshape(-1, 1, 1, 1, 1))
     aq = _q(_slabs(a, rch, halo), inv_a.reshape(-1, 1, 1, 1, 1))
     acc = _wgrad_chunks(aq, gq, rch, halo)
-    # XLA reassociates (amax_a * c) * (amax_g * c) into (amax_a * amax_g) *
-    # f32(c * c)
-    ts = (chunk_amax(rowmax_a, rch, halo) * chunk_amax(rowmax_g, rch, 0)
-          ) * INV_127_SQ
-    out = acc[0].to(f32) * ts[0]
-    for k in range(1, acc.shape[0]):
-        out = out + acc[k].to(f32) * ts[k]
-    return out
+    return _scaled_chunk_sum(acc, rowmax_a, rowmax_g, rch, halo)
+
+
+WGRAD_S8_BK = 128  # positions per K step (csrc/wgrad_staged_s8.cuh K_STEP)
+
+
+class WgradInt8Layout(NamedTuple):
+    """Where the int8 wgrad's prepass writes each chunk's quantized
+    operands and where its mainloop reads them (one int8 a position, K
+    contiguous). Images are padded to ``n16`` (a multiple of 16) and each
+    row of w columns to ``wq = w + 1``: position (r, c, i) of a chunk sits
+    at k = (r*wq + c)*n16 + i, and the pad images and the column c = w are
+    zero. The g slab [chunks, Cout, lg] holds the chunk's ``rch`` rows, ``k``
+    positions, then zeros to ``steps`` whole K steps of ``bk``. The a slab
+    [chunks, Cin, la] holds ``guard`` zero bytes, the rch + 2*halo rows
+    from image row k*rch - halo (3x3: the halo rows at the chunk's scale,
+    zero outside the image), then ``guard`` + lg - k zero bytes. Tap t
+    reads a at k + shifts[t], ``guard + (dy*wq + dx - 1)*n16`` for the 3x3
+    (the zero column is the left neighbour of column 0 and the right one of
+    column w-1), 0 for the 1x1: every shift a multiple of 16 bytes, every
+    read inside the slab, no masks."""
+    n: int
+    h: int
+    w: int
+    taps: int
+    rch: int
+    n16: int
+    wq: int
+    halo: int
+    guard: int
+    chunks: int
+    bk: int
+    k: int
+    steps: int
+    lg: int
+    la: int
+    shifts: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_int8_layout(n: int, h: int, w: int, taps: int,
+                      rch: int) -> WgradInt8Layout:
+    """The int8 wgrad's slab layout for an [n, h, w] plane, ``taps`` 1 or 9
+    and row chunk ``rch`` (see ``WgradInt8Layout``). Cached: every call of
+    the wgrad asks."""
+    if taps not in (1, 9):
+        raise ValueError(f"taps={taps}: the halves are 1x1 or 3x3")
+    _check_rch("wgrad_int8_layout", h, rch)
+    n16 = -(-n // 16) * 16
+    wq = w + 1
+    halo = 1 if taps == 9 else 0
+    guard = halo * n16
+    k = rch * wq * n16
+    bk = WGRAD_S8_BK
+    steps = -(-k // bk)
+    lg = steps * bk
+    la = 2 * guard + (rch + 2 * halo) * wq * n16 + lg - k
+    shifts = (tuple(guard + (dy * wq + dx - 1) * n16 for dy in range(3)
+                    for dx in range(3)) if taps == 9 else (0,))
+    return WgradInt8Layout(n, h, w, taps, rch, n16, wq, halo, guard,
+                           h // rch, bk, k, steps, lg, la, shifts)
+
+
+def _slab_rows(v, inv, lay, halo):
+    """v [N, h, w, C] f32 quantized per chunk at ``inv`` [K] into the
+    layout's slab rows: int8 [K, C, row bytes], the a slab's with ``halo``
+    rows and guards, g's without."""
+    n, _, w, c = v.shape
+    q = _q(_slabs(v, lay.rch, halo), inv.reshape(-1, 1, 1, 1, 1))
+    q = F.pad(q, (0, 0, 0, lay.wq - w, 0, 0, 0, lay.n16 - n))
+    rows = q.permute(0, 4, 2, 3, 1).reshape(lay.chunks, c, -1)
+    guard = lay.guard if halo else 0
+    return F.pad(rows, (guard, guard + lay.lg - lay.k)).to(torch.int8)
+
+
+def wgrad_pre_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
+                    *, conv, mode, rch):
+    """The int8 wgrad's slabs (a_slab [h/rch, Cin, la], g_slab [h/rch,
+    Cout, lg] int8, ``wgrad_int8_layout``): each chunk's a (with its halo
+    rows for the 3x3) and g quantized at the chunk's scale, as
+    ``wgrad_plain`` quantizes them."""
+    n, h, w, _ = x.shape
+    lay = wgrad_int8_layout(n, h, w, _taps(conv), rch)
+    inv_a, _ = _quant_params(chunk_amax(rowmax_a, rch, lay.halo))
+    inv_g, _ = _quant_params(chunk_amax(rowmax_g, rch, 0))
+    return (_slab_rows(prologue_plain(x, s, t, res, mode), inv_a, lay,
+                       lay.halo),
+            _slab_rows(fold_plain(dy, y, dzsum, dzssq), inv_g, lay, 0))
+
+
+def wgrad_gemm_plain(a_slab, g_slab, rowmax_a, rowmax_g, lay):
+    """dW [taps*Cin, Cout] f32 from the slabs of layout ``lay``: per chunk
+    the exact contraction (float64) of each tap's shifted a rows with the g
+    rows over the chunk's lg positions, times its scale, added in chunk
+    order."""
+    gq = g_slab.to(f64)
+    acc = torch.cat([torch.einsum(
+        "kcp,kdp->kcd", a_slab[:, :, sh:sh + lay.lg].to(f64), gq)
+        for sh in lay.shifts], dim=1)
+    return _scaled_chunk_sum(acc, rowmax_a, rowmax_g, lay.rch, lay.halo)
 
 
 # --- kernels -----------------------------------------------------------------
@@ -597,8 +707,9 @@ def _library() -> ctypes.CDLL:
             "nvt_fwd_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
             "nvt_dgrad_launch": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7
             + [_P],
-            "nvt_wgrad_launch": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8
+            "nvt_wgrad_pre_launch": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 12
             + [_P],
+            "nvt_wgrad_s8_launch": [_P] * 4 + [_I] * 12 + [_P],
             "nvt_wgrad_sum_launch": [_P] * 4 + [_I] * 6 + [_P],
             "nvt_sum_launch": [_P, _P, _I, _I, _P],
             "nvt_fwd_bf16_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6
@@ -678,20 +789,12 @@ def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _wgrad_splits(n, h, w, cin, cout, taps, rch) -> int:
-    """Blocks per chunk of the int8 wgrad: about four waves of blocks in
-    all (two blocks on each of the card's 132 SMs a wave), so the last
-    wave's idle share stays small, at least 8 K steps of 32 positions
-    each."""
-    tiles = -(-taps * cin // _BM) * -(-cout // 64) * (h // rch)
-    steps = -(-n * rch * w // 32)
-    return max(1, min(-(-4 * 264 // tiles), steps // 8))
-
-
 WGRAD_BK = 64  # positions per K step (csrc/wgrad_staged.cuh K_STEP)
 # the split picker's model of an H100 SXM (132 SMs, two blocks on each):
-# a block's K step takes _STEP_US, its ring fill and epilogue _FILL_STEPS
-# more steps, and the split tiles go out and back in at _PART_BYTES_US
+# a block's K step (128 bytes of each operand row: 64 bf16 or 128 int8
+# positions) takes _STEP_US, its ring fill and epilogue _FILL_STEPS more
+# steps, and the split tiles (f32 or s32) go out and back in at
+# _PART_BYTES_US
 _SLOTS = 2 * 132
 _STEP_US = 2.0
 _FILL_STEPS = 2
@@ -699,7 +802,7 @@ _PART_BYTES_US = 3.0e6
 
 
 class WgradPlan(NamedTuple):
-    """How the bf16 wgrad's mainloop cuts dW [taps*Cin, Cout] and each
+    """How a staged wgrad's mainloop cuts dW [taps*Cin, Cout] and each
     chunk's positions: (bm, bn) tiles, m_tiles x n_tiles of them; each of
     the ``chunks`` chunks has ``steps`` K steps of ``bk`` positions, cut
     into ``splits`` runs of ``per`` (``ranges``: each split's [kt0,
@@ -724,19 +827,34 @@ def wgrad_bf16_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
     splits that minimize the model's time (whole waves of blocks times
     their K steps, plus the split tiles' traffic), the fewest among equals,
     none empty. Cached: every call of the wgrad asks."""
-    m = taps * cin
+    steps = -(-n * rch * w // WGRAD_BK)
+    return _split_plan(taps * cin, cout, h // rch, steps, WGRAD_BK)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_int8_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
+                    rch: int) -> WgradPlan:
+    """The int8 wgrad's tiles and splits, by ``wgrad_bf16_plan``'s rules
+    and cost model, over the K steps of ``wgrad_int8_layout`` (each 128
+    positions: the bf16 step's bytes). Cached: every call of the wgrad
+    asks."""
+    lay = wgrad_int8_layout(n, h, w, taps, rch)
+    return _split_plan(taps * cin, cout, lay.chunks, lay.steps, lay.bk)
+
+
+def _split_plan(m, cout, chunks, steps, bk) -> WgradPlan:
+    """Tiles of dW [m, Cout] and the splits of each chunk's ``steps`` K
+    steps that minimize the cost model, the fewest among equals."""
     bm = 64 if m <= 64 else 128
     bn = 64 if cout <= 64 else 128
-    bk = WGRAD_BK
-    m_tiles, n_tiles, chunks = -(-m // bm), -(-cout // bn), h // rch
-    steps = -(-n * rch * w // bk)
+    m_tiles, n_tiles = -(-m // bm), -(-cout // bn)
     tiles = m_tiles * n_tiles * chunks
 
     def cost(k):
         per = -(-steps // k)
         k = -(-steps // per)   # the splits runs of ``per`` steps make
         waves = -(-tiles * k // _SLOTS)
-        # f32 split tiles: 4 bytes an element, written once and read once
+        # split tiles: 4 bytes an element, written once and read once
         return (waves * (per + _FILL_STEPS) * _STEP_US
                 + 8 * chunks * k * m * cout / _PART_BYTES_US)
 
@@ -991,37 +1109,93 @@ def wgrad_bf16(dy, y, dzsum, dzssq, x, s, t, res, *, conv, mode, rch):
     return wgrad_bf16_gemm(a_b, g_b, conv=conv, rch=rch)
 
 
-def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,
-          mode, rch):
-    """dW [taps*Cin, Cout] f32, rows in (dy, dx, ci) order: each chunk's
-    exact s32 contraction times its scale, added in chunk order."""
+def wgrad_pre(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *,
+              conv, mode, rch):
+    """The int8 wgrad's slabs (a_slab [h/rch, Cin, la], g_slab [h/rch,
+    Cout, lg] int8, ``wgrad_int8_layout``): each chunk's a and g quantized
+    once at the chunk's scale, K contiguous. One launch writes both."""
     if on_cpu(dy):
-        return wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res,
-                           rowmax_a, conv=conv, mode=mode, rch=rch)
-    name = "nv_half_wgrad"
+        return wgrad_pre_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res,
+                               rowmax_a, conv=conv, mode=mode, rch=rch)
+    name = "nv_half_wgrad.pre"
     n, h, w, cin = x.shape
-    cout, taps = dy.shape[-1], _taps(conv)
+    cout = dy.shape[-1]
     _check_rch(name, h, rch)
     dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
     _require_cot(name, dy, y, dzsum, dzssq)
     _require(name, x, mode, s, t, res, [rowmax_a, rowmax_g], [f32, f32])
-    if h > 256:
-        raise ValueError(f"{name}: h={h} rows exceed the 256 chunks the "
-                         f"ordered sum holds")
-    splits = _wgrad_splits(n, h, w, cin, cout, taps, rch)
-    part = torch.empty((h // rch * splits, taps * cin * cout),
-                       dtype=torch.int32, device=x.device)
-    dw = torch.empty((taps * cin, cout), dtype=f32, device=x.device)
-    lib, stream = _library(), _stream(x)
-    _launch(name, lib.nvt_wgrad_launch, x.data_ptr(), _ptr(res), _ptr(s),
-            _ptr(t), MODES.index(mode), rowmax_a.data_ptr(), dy.data_ptr(),
-            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
-            rowmax_g.data_ptr(), part.data_ptr(), n, h, w, cin, cout, taps,
-            rch, splits, stream)
+    if dy.shape[:3] != x.shape[:3]:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    if rowmax_a.shape != (h,) or rowmax_g.shape != (h,):
+        raise ValueError(f"{name}: row maxima {tuple(rowmax_a.shape)}, "
+                         f"{tuple(rowmax_g.shape)} vs h={h}")
+    lay = wgrad_int8_layout(n, h, w, _taps(conv), rch)
+    a_slab = torch.empty((lay.chunks, cin, lay.la), dtype=torch.int8,
+                         device=x.device)
+    g_slab = torch.empty((lay.chunks, cout, lay.lg), dtype=torch.int8,
+                         device=x.device)
+    _launch(name, _library().nvt_wgrad_pre_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), rowmax_a.data_ptr(),
+            dy.data_ptr(), y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            rowmax_g.data_ptr(), a_slab.data_ptr(), g_slab.data_ptr(), n, h,
+            w, cin, cout, rch, lay.halo, lay.n16, lay.wq, lay.guard, lay.la,
+            lay.lg, _stream(x))
+    return a_slab, g_slab
+
+
+def wgrad_gemm(a_slab, g_slab, rowmax_a, rowmax_g, lay):
+    """dW [taps*Cin, Cout] f32 from the slabs of layout ``lay``: each
+    chunk's exact s32 contraction, split over blocks by
+    ``wgrad_int8_plan``, the splits added then scaled, the chunks added in
+    order (bit for bit the same every run)."""
+    if on_cpu(a_slab):
+        return wgrad_gemm_plain(a_slab, g_slab, rowmax_a, rowmax_g, lay)
+    name = "nv_half_wgrad"
+    chunks, cin, la = a_slab.shape
+    cout, taps = g_slab.shape[1], lay.taps
+    if (chunks, la) != (lay.chunks, lay.la) or tuple(g_slab.shape) != (
+            lay.chunks, cout, lay.lg):
+        raise ValueError(f"{name}: slabs {tuple(a_slab.shape)}, "
+                         f"{tuple(g_slab.shape)} are not of the layout "
+                         f"{lay.chunks} x C x ({lay.la}, {lay.lg})")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}: each must be a "
+                         f"multiple of 8")
+    if max(a_slab.numel(), g_slab.numel()) >= 2 ** 31:
+        raise ValueError(f"{name}: slabs {tuple(a_slab.shape)}, "
+                         f"{tuple(g_slab.shape)} exceed 2 GB")
+    require_cuda(name, [a_slab, g_slab, rowmax_a, rowmax_g],
+                 [torch.int8, torch.int8, f32, f32])
+    plan = wgrad_int8_plan(lay.n, lay.h, lay.w, cin, cout, taps, lay.rch)
+    part = torch.empty((chunks * plan.splits, taps * cin * cout),
+                       dtype=torch.int32, device=a_slab.device)
+    dw = torch.empty((taps * cin, cout), dtype=f32, device=a_slab.device)
+    shifts = (ctypes.c_int * taps)(*lay.shifts)
+    lib, stream = _library(), _stream(a_slab)
+    _launch(name, lib.nvt_wgrad_s8_launch, a_slab.data_ptr(),
+            g_slab.data_ptr(), part.data_ptr(), ctypes.addressof(shifts), cin,
+            cout, taps, la, lay.lg, chunks, plan.bm, plan.bn, plan.bk,
+            plan.steps, plan.per, plan.splits, stream)
     _launch(f"{name}.sum", lib.nvt_wgrad_sum_launch, part.data_ptr(),
-            rowmax_a.data_ptr(), rowmax_g.data_ptr(), dw.data_ptr(), h, cin,
-            cout, taps, rch, splits, stream)
+            rowmax_a.data_ptr(), rowmax_g.data_ptr(), dw.data_ptr(), lay.h,
+            cin, cout, taps, lay.rch, plan.splits, stream)
     return dw
+
+
+def wgrad(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a, *, conv,
+          mode, rch):
+    """dW [taps*Cin, Cout] f32, rows in (dy, dx, ci) order: each chunk's
+    exact s32 contraction times its scale, added in chunk order
+    (``wgrad_pre``, then ``wgrad_gemm``)."""
+    if on_cpu(dy):
+        return wgrad_plain(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res,
+                           rowmax_a, conv=conv, mode=mode, rch=rch)
+    slabs = wgrad_pre(dy, y, dzsum, dzssq, rowmax_g, x, s, t, res, rowmax_a,
+                      conv=conv, mode=mode, rch=rch)
+    n, h, w, _ = x.shape
+    return wgrad_gemm(*slabs, rowmax_a, rowmax_g,
+                      wgrad_int8_layout(n, h, w, _taps(conv), rch))
 
 
 def _stage(name: str, plain: bool):

@@ -10,8 +10,10 @@
 //   rowmax_cot, dgrad_conv    <- _dgrad_call -> _dgrad1x1_kernel,
 //                                _dgrad3x3_kernel (quant_bwd=True)
 //   dgrad_bf16                <- the same kernels' quant_bwd=False body
-//   wgrad, wgrad_sum          <- _wgrad_call -> _wgrad1x1_kernel,
-//                                _wgrad3x3_kernel (quant_bwd=True)
+//   wgrad_pre, then           <- _wgrad_call -> _wgrad1x1_kernel,
+//   wgrad_s8, wgrad_sum          _wgrad3x3_kernel (quant_bwd=True; the
+//                                mainloop lives in wgrad_staged_s8.cuh,
+//                                which says how it works)
 //   wgrad_pre_bf16, then      <- the same kernels' quant_bwd=False body
 //   wgrad_staged_bf16, _sum      (the mainloop and its ordered sum live in
 //                                wgrad_staged.cuh, which says how it works)
@@ -27,13 +29,14 @@
 // cotangent (dgrad) group adds the halo rows k*rch-1 and (k+1)*rch inside
 // the image. So one image row is quantized at two scales where two chunks
 // share it, and no single int8 copy of an operand can serve a 3x3 stage:
-// every int8 GEMM here quantizes in its gather, with the scale of the chunk
-// of the output row it computes (fwd, dgrad) or of the chunk it contracts
-// (wgrad). The absmax of a group is exact in any order: rowmax_* writes the
-// maximum of |value| per image row (atomicMax on the float's bits, which
-// order as integers for values >= 0), and each kernel reduces its group's
-// rows. The bf16 bodies have no groups: their gather rounds the prologue's
-// (or the fold's) f32 value to bf16.
+// the int8 fwd and dgrad quantize in their gather, with the scale of the
+// chunk of the output row they compute; the int8 wgrad's prepass writes
+// each chunk's operands once, at its scale, halo rows included, into slabs
+// of the chunk's own. The absmax of a group is exact in any order:
+// rowmax_* writes the maximum of |value| per image row (atomicMax on the
+// float's bits, which order as integers for values >= 0), and each kernel
+// reduces its group's rows. The bf16 bodies have no groups: their gather
+// rounds the prologue's (or the fold's) f32 value to bf16.
 //
 // The GEMM core, one template over the operand type: a 128x64 output tile
 // per block, 8 warps (4 along M x 2 along N), ldmatrix + mma.sync (s8
@@ -46,15 +49,18 @@
 //          (r + dy - 1, c + dx - 1);
 //   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
 //          (r - dy + 1, c - dx + 1) against per-input-channel weights in
-//          forward tap coordinates;
-//   wgrad (int8): M = (tap, ci), N = Cout, K = a run of the positions of
-//          one chunk (grid z = (chunk, split)). Both operands are NHWC,
-//          channel-contiguous, and mma.sync wants K contiguous: each
-//          thread quantizes a 4 x 4 (positions x channels) block and packs
-//          each channel's four positions into one 32-bit word, four shared
-//          stores. The bf16 wgrad does not use this core: a prepass rounds
-//          its operands once into NHWC bf16 scratch, and wgrad_staged.cuh's
-//          cp.async ring feeds them to ldmatrix.trans.
+//          forward tap coordinates.
+// The wgrads do not use this core (M = (tap, ci), N = Cout, K = a run of
+// the positions of one chunk, grid z = (chunk, split)). The bf16 one: a
+// prepass rounds its operands once into NHWC bf16 scratch, and
+// wgrad_staged.cuh's cp.async ring feeds them to ldmatrix.trans. The int8
+// one: mma.sync wants K contiguous, NHWC keeps channels contiguous and
+// ldmatrix.trans moves only 16-bit elements, so its prepass
+// (nvt_wgrad_pre_kernel) quantizes each chunk's operands once and writes
+// them channel-major with K contiguous (transposed through shared memory),
+// in slabs where every tap shift is one offset of a multiple of 16 bytes;
+// wgrad_staged_s8.cuh's cp.async ring copies their rows as they lie into
+// plain ldmatrix and s8 mma.sync.
 // Epilogues run on the accumulators in registers: the dequant
 // f32(acc) * f32(ws * scale) (int8 fwd, dgrad), the bf16 outputs, the
 // prologue's backward (dgrad), and per-block per-channel sums (warp
@@ -72,12 +78,13 @@
 // stage-1 halves are bound by bytes. What the design does about it: each
 // operand is read once per output tile column (N / 64 times; K / 32 bytes
 // steps per tile), the quantized or rounded operands never reach device
-// memory (but the bf16 wgrad's, written once by its prepass), and no
+// memory (but the wgrads', written once by their prepasses), and no
 // accumulator does either (but the wgrads' split tiles).
-// Left for later: in the int8 kernels and the bf16 fwd and dgrad, the
-// producer's synchronous loads (no cp.async/TMA ring), a 64-wide N tile
-// that re-reads A Cout/64 times, and the halo rows' recomputed prologue;
-// everywhere, mma.sync instead of wgmma, and the wgrads' second launch.
+// Left for later: in the int8 and bf16 fwd and dgrad, the producer's
+// synchronous loads (no cp.async/TMA ring), a 64-wide N tile that re-reads
+// A Cout/64 times, and the halo rows' recomputed prologue; everywhere,
+// mma.sync instead of wgmma, and the wgrads' second launch; in the wgrads,
+// the prepasses' bytes (their operands written once and read back).
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_bneck_nv_train.py and
@@ -100,6 +107,7 @@
 #include "common.cuh"
 #include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
 #include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
+#include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
 
 using conv3x3::ldmatrix_x4;
 using conv3x3::mma_step;
@@ -124,7 +132,6 @@ typedef __nv_bfloat16 bf16;
 // --- bf16 vectors -----------------------------------------------------------
 
 template <int VN> struct BfVec;
-template <> struct BfVec<4> { using type = uint2; };
 template <> struct BfVec<8> { using type = uint4; };
 
 template <int VN>
@@ -687,170 +694,154 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
   if (args.mode != IDENTITY) block_sums(s, n0, cin, args.part);
 }
 
-// --- weight gradient --------------------------------------------------------
+// --- the int8 weight gradient -----------------------------------------------
 
-struct WgradArgs {
-  Act act;
-  Cot cot;
-  const float* rowmax_a;
-  const float* rowmax_g;
-  void* part;              // [h / rch][splits][taps * cin][cout] s32
-  int n, h, w, cin, cout, taps, rch, splits;
+// Where ops/cuda/bneck_nv_train.py wgrad_int8_layout puts one operand's
+// positions: chunk k's slab row of channel ch is len bytes at (k * c + ch)
+// * len; past guard zero bytes, slab row ra (image row k * rch - halo + ra),
+// column col (< wq; col == w is zero) and image i (< n16; i >= n is zero)
+// sit at (ra * wq + col) * n16 + i; the rest of the row is zero.
+struct SlabGeo {
+  int n, h, w, rch, halo;
+  int n16, wq, guard;
+  int len;  // bytes of a slab row
+  int c;    // channels
 };
 
-// int8: blocks of 4 positions x 4 channels, quantized and transposed so that
-// each of the 4 channel rows holds its 4 positions in one 32-bit word.
-struct WgradLoader {
-  WgradArgs a;
-  int k;            // chunk
-  float inv_a, inv_g;
-  int kb, rb;       // this thread's position block and channel block
-  int tap, ci;      // A: the block's tap and first input channel
-  bool a_ok, b_ok;
-  int co;           // B: first output channel
+constexpr int PRE_CB = 64;    // channels a prepass block
+constexpr int PRE_POS = 128;  // slab row bytes (positions) a prepass block
 
-  struct Regs {
-    Raw<4> a[4], b[4];
-    bool av[4], bv[4];
-  };
-
-  __device__ WgradLoader(const WgradArgs& args, int k_, int m0, int n0)
-      : a(args), k(k_) {
-    const int halo = a.taps == 9 ? 1 : 0;
-    inv_a = inv_of(chunk_amax(a.rowmax_a, k, a.rch, halo, a.h));
-    inv_g = inv_of(chunk_amax(a.rowmax_g, k, a.rch, 0, a.h));
-    kb = threadIdx.x % 8;
-    rb = threadIdx.x / 8;
-    const int m = m0 + 4 * rb;
-    a_ok = m < a.taps * a.cin;
-    tap = a_ok ? m / a.cin : 0;
-    ci = a_ok ? m - tap * a.cin : 0;
-    co = n0 + 4 * rb;
-    b_ok = threadIdx.x < 16 * 8 && co < a.cout;
+// One prepass block: PRE_CB channels x PRE_POS positions of one chunk's
+// slab rows (tile id -> (chunk, position group, channel group), channel
+// group fastest, so blocks running together read whole NHWC positions).
+// Thread (cv, iq) reads the 16-byte channel vector cv of four consecutive
+// positions (four images at one row and column), reduces the chunk's
+// scale from the row maxima while those loads are in flight, runs the
+// prologue or the fold in f32 (Src::value, the gather's rounding points),
+// quantizes at the chunk's scale and packs each channel's four positions
+// into one 32-bit word of the shared transpose; then each thread writes
+// 16-byte runs of 16 positions of one channel. Positions outside the
+// image (halo rows past its edges, the zero column, pad images, the
+// guards and the K tail) are zero.
+template <typename Src>
+__device__ __forceinline__ void slab_tile(
+    const Src& src, const float* __restrict__ rowmax,
+    signed char* __restrict__ slab, const SlabGeo& s, int tile,
+    uint32_t (*words)[PRE_POS / 4 + 1]) {
+  const int ut = (s.len + PRE_POS - 1) / PRE_POS;
+  const int cgs = (s.c + PRE_CB - 1) / PRE_CB;
+  const int cg = tile % cgs;
+  const int u = tile / cgs % ut;
+  const int k = tile / cgs / ut;
+  const int cv = threadIdx.x % 8, iq = threadIdx.x / 8;
+  const int c0 = cg * PRE_CB + 8 * cv;
+  const int o = u * PRE_POS + 4 * iq - s.guard;  // past the front guard
+  const int span = (s.rch + 2 * s.halo) * s.wq * s.n16;
+  int live = 0;  // positions of the thread's four inside the image
+  Raw<8> raw[4];
+  if (c0 < s.c && o >= 0 && o < span) {
+    const int site = o / s.n16, i0 = o - site * s.n16;
+    const int ra = site / s.wq, col = site - ra * s.wq;
+    const int row = k * s.rch - s.halo + ra;
+    if (col < s.w && (unsigned)row < (unsigned)s.h) live = min(4, s.n - i0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < live)
+        src.template fetch<8>(((size_t)(i0 + e) * s.h + row) * s.w + col,
+                              c0, raw[e]);
   }
-
-  __device__ __forceinline__ void fetch(int kt, Regs& rg) const {
-    const int total = a.n * a.rch * a.w;
-    const int dy = a.taps == 9 ? tap / 3 : 1;
-    const int dx = a.taps == 9 ? tap % 3 : 1;
-    // the block's first position kk0 of the chunk -> (image, row, column),
-    // then the next three by stepping the column
-    const int kk0 = kt * BK + 4 * kb;
-    const int per = a.rch * a.w;
-    int img = kk0 / per;
-    const int rem = kk0 - img * per;
-    int r = rem / a.w;
-    int c = rem - r * a.w;
+  // the chunk's scale while the loads are in flight
+  const float inv = inv_of(chunk_amax(rowmax, k, s.rch, s.halo, s.h));
+  float v[4][8] = {};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool in_chunk = kk0 + i < total;
-      const int ry = k * a.rch + r;
-      const int iy = ry + dy - 1, ix = c + dx - 1;
-      rg.av[i] = a_ok && in_chunk && (unsigned)iy < (unsigned)a.h &&
-                 (unsigned)ix < (unsigned)a.w;
-      if (rg.av[i])
-        a.act.fetch<4>(((size_t)img * a.h + iy) * a.w + ix, ci, rg.a[i]);
-      rg.bv[i] = b_ok && in_chunk;
-      if (rg.bv[i])
-        a.cot.fetch<4>(((size_t)img * a.h + ry) * a.w + c, co, rg.b[i]);
-      if (++c == a.w) {
-        c = 0;
-        if (++r == a.rch) {
-          r = 0;
-          ++img;
-        }
-      }
-    }
+  for (int e = 0; e < 4; ++e)
+    if (e < live) src.template value<8>(raw[e], c0, v[e]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    words[8 * cv + j][iq] =
+        pack4(__fmul_rn(v[0][j], inv), __fmul_rn(v[1][j], inv),
+              __fmul_rn(v[2][j], inv), __fmul_rn(v[3][j], inv));
+  __syncthreads();
+  constexpr int RUNS = PRE_POS / 16;  // 16-byte runs of a channel's row
+#pragma unroll
+  for (int r = 0; r < PRE_CB * RUNS / 256; ++r) {
+    const int idx = threadIdx.x + 256 * r;
+    const int ch = idx / RUNS, run = idx % RUNS;
+    const int cc = cg * PRE_CB + ch;
+    const int ob = u * PRE_POS + run * 16;
+    if (cc < s.c && ob < s.len)
+      *reinterpret_cast<uint4*>(slab + ((size_t)k * s.c + cc) * s.len + ob) =
+          make_uint4(words[ch][4 * run], words[ch][4 * run + 1],
+                     words[ch][4 * run + 2], words[ch][4 * run + 3]);
   }
-
-  __device__ __forceinline__ void store(const Regs& rg,
-                                        unsigned char* buf) const {
-    float v[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rg.av[i]) {
-        a.act.value<4>(rg.a[i], ci, v[i]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint32_t*>(buf + (4 * rb + j) * ROW + 4 * kb) =
-          pack4(__fmul_rn(v[0][j], inv_a), __fmul_rn(v[1][j], inv_a),
-                __fmul_rn(v[2][j], inv_a), __fmul_rn(v[3][j], inv_a));
-    if (!(threadIdx.x < 16 * 8)) return;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rg.bv[i]) {
-        a.cot.value<4>(rg.b[i], co, v[i]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint32_t*>(buf + A_BYTES + (4 * rb + j) * ROW +
-                                   4 * kb) =
-          pack4(__fmul_rn(v[0][j], inv_g), __fmul_rn(v[1][j], inv_g),
-                __fmul_rn(v[2][j], inv_g), __fmul_rn(v[3][j], inv_g));
-  }
-};
-
-// Grid (M / BM, Cout / BN, chunks * splits): block z takes split z % splits
-// of chunk z / splits, a contiguous run of its K steps; the s32 tile goes
-// to its slot (exact: the chunk's sum in any split is the same integer).
-__global__ void __launch_bounds__(THREADS) nvt_wgrad_kernel(WgradArgs args) {
-  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = args.taps * args.cin;
-  const int k = blockIdx.z / args.splits, split = blockIdx.z % args.splits;
-  const int steps = (args.n * args.rch * args.w + BK - 1) / BK;
-  const int per = (steps + args.splits - 1) / args.splits;
-  const int kt0 = split * per, kt1 = min(steps, kt0 + per);
-  int acc[2][4][4] = {};
-  if (kt0 < kt1) {
-    const WgradLoader ld(args, k, m0, n0);
-    gemm(acc, ld, smem, kt0, kt1);
-  }
-  int* out = static_cast<int*>(args.part) +
-             (size_t)blockIdx.z * M * args.cout;
-  each_pair(acc, m0, n0, M, args.cout,
-            [&](int, int, int, int m, int n, int v0, int v1) {
-    *reinterpret_cast<int2*>(out + (size_t)m * args.cout + n) =
-        make_int2(v0, v1);
-  });
 }
 
-// dW[i] = sum over chunks k in order of f32(s32_k[i]) * ts_k, s32_k[i] the
-// exact sum of the chunk's splits and ts_k = (amax_a * amax_g) *
-// f32(1/127^2), amax_a over the chunk's rows (+ halo) of |a|.
+// The slabs of every chunk, a's (tiles [0, tiles_a)) then g's, one launch.
+// A block loads, quantizes and stores in turn, so three blocks an SM keep
+// the loads of one in flight while the others work.
+__global__ void __launch_bounds__(256, 3)
+nvt_wgrad_pre_kernel(Act act, Cot cot, const float* __restrict__ rowmax_a,
+                     const float* __restrict__ rowmax_g,
+                     signed char* __restrict__ a_slab,
+                     signed char* __restrict__ g_slab, SlabGeo sa,
+                     SlabGeo sg, int tiles_a) {
+  __shared__ uint32_t words[PRE_CB][PRE_POS / 4 + 1];
+  if ((int)blockIdx.x < tiles_a)
+    slab_tile(act, rowmax_a, a_slab, sa, blockIdx.x, words);
+  else
+    slab_tile(cot, rowmax_g, g_slab, sg, blockIdx.x - tiles_a, words);
+}
+
+// dW[i] = sum over chunks k in order of f32(S_k[i]) * ts_k, S_k[i] the
+// exact s32 sum of chunk k's split tiles (any order: integers) and ts_k =
+// (amax_a * amax_g) * f32(1/127^2), amax_a over the chunk's rows (+ halo)
+// of |a|; four consecutive elements a thread (mn % 4 == 0). Block (32, 8)
+// as wgrad_staged_sum_kernel's: the 8 rows of threads take the chunks in
+// turn (independent loads in flight), row 0 adds them in chunk order,
+// SUM_WIN chunks at a time.
 __global__ void __launch_bounds__(256)
-nvt_wgrad_sum_kernel(const int* __restrict__ part,
+nvt_wgrad_sum_kernel(const int4* __restrict__ part,
                      const float* __restrict__ rowmax_a,
                      const float* __restrict__ rowmax_g,
-                     float* __restrict__ out, long mn, int chunks, int splits,
-                     int h, int rch, int halo_a) {
-  __shared__ float ts[256];
-  if ((int)threadIdx.x < chunks)
-    ts[threadIdx.x] = __fmul_rn(
-        __fmul_rn(chunk_amax(rowmax_a, threadIdx.x, rch, halo_a, h),
-                  chunk_amax(rowmax_g, threadIdx.x, rch, 0, h)),
-        common::kInv16129);
-  __syncthreads();
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float d = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    int sum = 0;
-    for (int sp = 0; sp < splits; ++sp)
-      sum += part[((size_t)k * splits + sp) * mn + i];
-    const float c = __fmul_rn(__int2float_rn(sum), ts[k]);
-    d = k == 0 ? c : __fadd_rn(d, c);
+                     float4* __restrict__ out, long mn4, int chunks,
+                     int splits, int h, int rch, int halo_a) {
+  constexpr int WIN = wgrad_staged::SUM_WIN;
+  __shared__ float4 cs[WIN][32];
+  const int x = threadIdx.x, y = threadIdx.y;
+  const long i = (long)blockIdx.x * 32 + x;
+  const bool live = i < mn4;
+  float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < chunks; k0 += WIN) {
+    const int kn = min(WIN, chunks - k0);
+    if (live)
+      for (int k = y; k < kn; k += 8) {
+        const int chunk = k0 + k;
+        const int4* src = part + (size_t)chunk * splits * mn4 + i;
+        int4 c = src[0];
+#pragma unroll 4
+        for (int sp = 1; sp < splits; ++sp) {
+          const int4 e = src[(size_t)sp * mn4];
+          c.x += e.x;
+          c.y += e.y;
+          c.z += e.z;
+          c.w += e.w;
+        }
+        const float ts = __fmul_rn(
+            __fmul_rn(chunk_amax(rowmax_a, chunk, rch, halo_a, h),
+                      chunk_amax(rowmax_g, chunk, rch, 0, h)),
+            common::kInv16129);
+        cs[k][x] = make_float4(__fmul_rn(__int2float_rn(c.x), ts),
+                               __fmul_rn(__int2float_rn(c.y), ts),
+                               __fmul_rn(__int2float_rn(c.z), ts),
+                               __fmul_rn(__int2float_rn(c.w), ts));
+      }
+    __syncthreads();
+    if (y == 0 && live)
+      for (int k = 0; k < kn; ++k)
+        d = k0 + k == 0 ? cs[k][x] : wgrad_staged::add4(d, cs[k][x]);
+    __syncthreads();
   }
-  out[i] = d;
+  if (y == 0 && live) out[i] = d;
 }
 
 // --- the bf16 weight gradient's operands -----------------------------------
@@ -1035,37 +1026,71 @@ int nvt_dgrad_bf16_launch(const void* dy, const void* y, const void* dzsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The weight gradient, two launches. nvt_wgrad: part [h / rch][splits]
-// [taps * cin][cout] s32 <- the per-(chunk, split) products of the
-// activation (from x/res/s/t as the forward computes it) and the
-// cotangent (from dy/y/dzsum/dzssq), rowmax_a/rowmax_g [h] their row
-// absmaxes. nvt_wgrad_sum: dW [taps * cin][cout] f32 (rows (dy, dx, ci))
-// <- the chunks' scaled sums, in chunk order.
-int nvt_wgrad_launch(const void* x, const void* res, const void* s,
-                     const void* t, int mode, const void* rowmax_a,
-                     const void* dy, const void* y, const void* dzsum,
-                     const void* dzssq, const void* rowmax_g, void* part,
-                     int n, int h, int w, int cin, int cout, int taps,
-                     int rch, int splits, void* stream) {
-  WgradArgs args{act_of(x, res, s, t, cin, mode),
-                 cot_of(dy, y, dzsum, dzssq, cout), in<float>(rowmax_a),
-                 in<float>(rowmax_g), part, n, h, w, cin, cout, taps, rch,
-                 splits};
-  const dim3 grid((taps * cin + BM - 1) / BM, (cout + BN - 1) / BN,
-                  h / rch * splits);
-  nvt_wgrad_kernel<<<grid, THREADS, 0, as_stream(stream)>>>(args);
+// The weight gradient, three launches. nvt_wgrad_pre: a_slab [h / rch]
+// [cin][la] and g_slab [h / rch][cout][lg] int8 <- the activation (from
+// x/res/s/t as the forward computes it) and the cotangent (from
+// dy/y/dzsum/dzssq), each chunk's quantized at its scale (rowmax_a /
+// rowmax_g [h] their row absmaxes), in the layout (halo, n16, wq, guard,
+// la, lg) of ops/cuda/bneck_nv_train.py wgrad_int8_layout.
+int nvt_wgrad_pre_launch(const void* x, const void* res, const void* s,
+                         const void* t, int mode, const void* rowmax_a,
+                         const void* dy, const void* y, const void* dzsum,
+                         const void* dzssq, const void* rowmax_g,
+                         void* a_slab, void* g_slab, int n, int h, int w,
+                         int cin, int cout, int rch, int halo, int n16,
+                         int wq, int guard, int la, int lg, void* stream) {
+  const SlabGeo sa{n, h, w, rch, halo, n16, wq, guard, la, cin};
+  const SlabGeo sg{n, h, w, rch, 0, n16, wq, 0, lg, cout};
+  const long chunks = h / rch;
+  const long tiles_a = chunks * ((cin + PRE_CB - 1) / PRE_CB) *
+                       ((la + PRE_POS - 1) / PRE_POS);
+  const long tiles_g = chunks * ((cout + PRE_CB - 1) / PRE_CB) *
+                       ((lg + PRE_POS - 1) / PRE_POS);
+  nvt_wgrad_pre_kernel<<<(unsigned)(tiles_a + tiles_g), 256, 0,
+                         as_stream(stream)>>>(
+      act_of(x, res, s, t, cin, mode), cot_of(dy, y, dzsum, dzssq, cout),
+      in<float>(rowmax_a), in<float>(rowmax_g),
+      static_cast<signed char*>(a_slab), static_cast<signed char*>(g_slab),
+      sa, sg, (int)tiles_a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nvt_wgrad_s8: part [h / rch][splits][taps * cin][cout] s32 <- the
+// per-(chunk, split) products of the slabs, a read at shift[tap] (host
+// memory, taps values), on a (bm, bn) tile, each split ``per`` of the
+// chunk's ``steps`` K steps of bk positions (the plan of
+// ops/cuda/bneck_nv_train.py wgrad_int8_plan). nvt_wgrad_sum: dW [taps *
+// cin][cout] f32 (rows (dy, dx, ci)) <- the chunks' scaled sums, in chunk
+// order.
+int nvt_wgrad_s8_launch(const void* a_slab, const void* g_slab, void* part,
+                        const int* shift, int cin, int cout, int taps, int la,
+                        int lg, int chunks, int bm, int bn, int bk, int steps,
+                        int per, int splits, void* stream) {
+  // the 3x3's shifts are shift[0] + dy * row + dx * col
+  const int row = taps == 9 ? shift[3] - shift[0] : 0;
+  const int col = taps == 9 ? shift[1] - shift[0] : 0;
+  if (taps != 1 && taps != 9) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < taps; ++i)
+    if (shift[i] != shift[0] + i / 3 * row + i % 3 * col)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const wgrad_staged_s8::Args args{
+      in<signed char>(a_slab), in<signed char>(g_slab),
+      static_cast<int*>(part), cin, cout, taps, la, lg, steps, per, splits,
+      shift[0], row, col};
+  return static_cast<int>(
+      wgrad_staged_s8::launch(args, chunks, bm, bn, bk, as_stream(stream)));
 }
 
 int nvt_wgrad_sum_launch(const void* part, const void* rowmax_a,
                          const void* rowmax_g, void* dw, int h, int cin,
                          int cout, int taps, int rch, int splits,
                          void* stream) {
-  const long mn = (long)taps * cin * cout;
-  nvt_wgrad_sum_kernel<<<(mn + 255) / 256, 256, 0, as_stream(stream)>>>(
-      in<int>(part), in<float>(rowmax_a), in<float>(rowmax_g),
-      static_cast<float*>(dw), mn, h / rch, splits, h, rch,
-      taps == 9 ? 1 : 0);
+  const long mn4 = (long)taps * cin * cout / 4;
+  nvt_wgrad_sum_kernel<<<(unsigned)((mn4 + 31) / 32), dim3(32, 8), 0,
+                         as_stream(stream)>>>(
+      static_cast<const int4*>(part), in<float>(rowmax_a),
+      in<float>(rowmax_g), static_cast<float4*>(dw), mn4, h / rch, splits, h,
+      rch, taps == 9 ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

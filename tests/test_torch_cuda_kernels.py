@@ -31,7 +31,10 @@ another order: 1e-5 of the largest value. Their bf16 bodies: y, dx and
 dres (bf16(du), du carrying the product) within 2 bf16 ulps of the
 tensor's largest value, x_res equal, the sums and dW (over the tensor
 cores' accumulators) within 1e-4; the staged bf16 wgrad's dW (its splits
-and chunks added in a fixed order) bit-equal from call to call. The fused
+and chunks added in a fixed order) bit-equal from call to call. The staged
+int8 wgrad: its prepass's slabs equal to the plain version's byte for byte,
+dW (exact s32 per chunk) equal to ``wgrad_plain`` and bit-equal from call
+to call. The fused
 bf16 half: bf16
 outputs (y, dx) within 2 bf16 ulps of the tensor's largest value (f32
 against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
@@ -669,7 +672,7 @@ def test_nv_half_op_launches_its_kernels(dev):
     assert dict(nvt.launches) == {name: 1 for name in (
         "nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum",
         "nv_half_bwd.amax", "nv_half_dgrad", "nv_half_dgrad.sum",
-        "nv_half_wgrad", "nv_half_wgrad.sum")}
+        "nv_half_wgrad.pre", "nv_half_wgrad", "nv_half_wgrad.sum")}
     want = run("cpu")
     for i, (a, b) in enumerate(zip(got, want)):
         _same(a, b, sums=i in (1, 2, 6, 7))   # zsum, zssq, d(s), d(t)
@@ -684,6 +687,26 @@ def test_nv_train_never_falls_back(dev):
     with pytest.raises(ValueError, match="multiple of 8"):
         nvt.nv_half_1x1(x12, torch.zeros((32, 12, 1, 1), device=dev),
                         mode="identity", w_img=4)
+    # the staged int8 wgrad names what it does not take, before any launch
+    xb = x.to(torch.bfloat16)
+    dy = torch.zeros((32, 4, 4, 32), dtype=torch.bfloat16, device=dev)
+    z32, rmax = torch.zeros(32, device=dev), torch.ones(4, device=dev)
+    nvt.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.wgrad(dy, dy, z32, z32, rmax, x12, None, None, None, rmax,
+                  conv="1x1", mode="identity", rch=4)
+    with pytest.raises(ValueError, match="does not divide"):
+        nvt.wgrad(dy, dy, z32, z32, rmax, xb, None, None, None, rmax,
+                  conv="3x3", mode="identity", rch=3)
+    with pytest.raises(ValueError, match="row maxima"):
+        nvt.wgrad(dy, dy, z32, z32, rmax[:2], xb, None, None, None, rmax,
+                  conv="1x1", mode="identity", rch=4)
+    lay = nvt.wgrad_int8_layout(32, 4, 4, 9, 2)
+    slab = torch.zeros((lay.chunks, 64, lay.lg), dtype=torch.int8,
+                       device=dev)
+    with pytest.raises(ValueError, match="not of the layout"):
+        nvt.wgrad_gemm(slab, slab, rmax, rmax, lay)
+    assert not nvt.launches
 
 
 def _nvt_bf16_stages(ops, conv, mode, rch, plain, y_bwd=None):
@@ -777,7 +800,8 @@ def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
     fwd = {"nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum"} if quant \
         else {"nv_half_fwd_bf16", "nv_half_fwd_bf16.sum"}
     bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad",
-            "nv_half_dgrad.sum", "nv_half_wgrad", "nv_half_wgrad.sum"}
+            "nv_half_dgrad.sum", "nv_half_wgrad.pre", "nv_half_wgrad",
+            "nv_half_wgrad.sum"}
            if quant_bwd else {"nv_half_dgrad_bf16", "nv_half_dgrad_bf16.sum",
                               "nv_half_wgrad_bf16.pre", "nv_half_wgrad_bf16",
                               "nv_half_wgrad_bf16.sum"})
@@ -862,6 +886,73 @@ def test_nv_wgrad_bf16_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
                                   "nv_half_wgrad_bf16.sum": 2}
     _mma_sums(first, nvt.wgrad_bf16_plain(*args, conv=conv, mode=mode,
                                           rch=rch))
+
+
+# the staged int8 wgrad at its edges: w = 7 with one chunk (K steps of 128
+# positions crossing rows and images), n = 20 (padded to 32 images) with
+# several chunks, Cin = 64 (3x3 halves' 128-row tiles straddle two taps; a
+# 1x1 on a 64-row tile), Cout = 64, 24 (< the tile) and 256 (128-wide
+# tiles), and stage 3's widths at batch 128
+NVT_S8_SHAPES = [(32, 7, 7, 64, 64, 7), (20, 6, 6, 64, 24, 2),
+                 (20, 7, 7, 64, 256, 1), (128, 14, 14, 256, 256, 7)]
+
+
+def _nvt_wgrad_args(dev, conv, mode, n, h, w, cin, cout, seed):
+    """The int8 wgrad's operands, y drawn, the row maxima by the plain
+    versions (so the only launches are the wgrad's)."""
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed)
+    y = torch.randn(ops["dy"].shape, device=dev).to(torch.bfloat16)
+    x, s, t, res = ops["x"], ops["s"], ops["t"], ops["res"]
+    rowmax_a = nvt.fwd_rowmax_plain(x, s, t, res, mode=mode)[0]
+    rowmax_g = nvt.bwd_rowmax_plain(ops["dy"], y, ops["dzsum"],
+                                    ops["dzssq"])
+    return (ops["dy"], y, ops["dzsum"], ops["dzssq"], rowmax_g, x, s, t, res,
+            rowmax_a)
+
+
+@pytest.mark.parametrize("conv,mode", NVT_HALVES)
+@pytest.mark.parametrize("n,h,w,cin,cout,rch", NVT_S8_SHAPES)
+def test_nv_wgrad_int8_staged_matches_plain(dev, conv, mode, n, h, w, cin,
+                                            cout, rch):
+    """The prepass's slabs equal the plain version's byte for byte, and dW
+    equals ``wgrad_plain`` (exact s32 per chunk, the chunks in order): one
+    launch each of the prepass, the mainloop and the sum."""
+    args = _nvt_wgrad_args(dev, conv, mode, n, h, w, cin, cout, cin + h)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    nvt.reset_launches()
+    dw = nvt.wgrad(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(nvt.launches) == {"nv_half_wgrad.pre": 1,
+                                  "nv_half_wgrad": 1, "nv_half_wgrad.sum": 1}
+    assert torch.equal(dw, nvt.wgrad_plain(*args, **kw))
+    assert dw.abs().max().item() > 0
+    for got, want in zip(nvt.wgrad_pre(*args, **kw),
+                         nvt.wgrad_pre_plain(*args, **kw)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", [
+    ("3x3", "affine", 128, 28, 28, 128, 128, 7),
+    ("1x1", "entry", 128, 56, 56, 256, 64, 2)])
+def test_nv_wgrad_int8_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
+                                        rch):
+    """The staged int8 wgrad adds each chunk's s32 split tiles exactly and
+    the chunks in a fixed order, with no atomics: two calls on the same
+    inputs give the same dW bit for bit, equal to the plain version, over
+    several (chunk, split) tiles."""
+    args = _nvt_wgrad_args(dev, conv, mode, n, h, w, cin, cout, 7)
+    plan = nvt.wgrad_int8_plan(n, h, w, args[5].shape[-1], cout,
+                               9 if conv == "3x3" else 1, rch)
+    assert plan.chunks > 1 and plan.splits > 1, plan
+    nvt.reset_launches()
+    first = nvt.wgrad(*args, conv=conv, mode=mode, rch=rch)
+    second = nvt.wgrad(*args, conv=conv, mode=mode, rch=rch)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert dict(nvt.launches) == {"nv_half_wgrad.pre": 2,
+                                  "nv_half_wgrad": 2, "nv_half_wgrad.sum": 2}
+    assert torch.equal(first, nvt.wgrad_plain(*args, conv=conv, mode=mode,
+                                              rch=rch))
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):
