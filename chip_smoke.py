@@ -89,7 +89,15 @@ Phases, each fatal on failure:
    the JAX pickers' row chunks: row absmaxes, y, x_res, dx, dres and dW
    equal, the f32 sums within 1e-5 of their largest value. Each stage is
    timed beside its plain version and cuDNN's bf16 forward, input gradient
-   and weight gradient (channels-last) at the same shape. The weight
+   and weight gradient (channels-last) at the same shape. The forward (the
+   prepass that quantizes each chunk's activation once into a
+   position-major int8 slab, then csrc/fwd_staged_s8.cuh's cp.async ring
+   into ldmatrix and s8 mma.sync with a staged epilogue, then the ordered
+   sum) must give the same y and sums bit for bit in two calls, its
+   prepass's slabs must equal its plain version's byte for byte, and its
+   three parts (the row-max pass, the prepass, the mainloop + sum) are
+   timed apart beside their plain versions and byte bounds; the prepass is
+   also a kernel row of its own. The weight
    gradient (the prepass that writes each chunk's int8 slabs K-contiguous,
    then csrc/wgrad_staged_s8.cuh's cp.async ring into ldmatrix and s8
    mma.sync, then the ordered sum) must give the same dW bit for bit in two
@@ -102,8 +110,8 @@ Phases, each fatal on failure:
    ``use_int8_train_bwd``, through ``setup(config)`` as in phase 5. With the
    launch counts zeroed just before, each step must launch 30 NV halves
    (3 identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each
-   one forward, dgrad and wgrad (the wgrad with its prepass and sum;
-   NV_TRAIN_PER_STEP), and no other port kernel; losses finite, every
+   one forward, dgrad and wgrad (the forward and the wgrad each with its
+   prepass and sum; NV_TRAIN_PER_STEP), and no other port kernel; losses finite, every
    parameter changed, every BatchNorm count equal to the steps. The first
    half of each kind in the first step, on its live inputs and cotangents,
    must reproduce its outputs and equal its plain versions. The same
@@ -220,7 +228,7 @@ Phases, each fatal on failure:
 21. Training, the tenth main path: the ResNet-50 recipe of phase 11 with
    ``use_int8_train`` alone (QAT), through ``setup(config)``. With the
    launch counts zeroed just before, each step must launch the 30 halves'
-   int8 forward (with its row absmax and sums) and their bf16 dgrad and
+   int8 forward (with its row absmax, prepass and sums) and their bf16 dgrad and
    wgrad (with the wgrad's prepass and both sums; NV_QAT_PER_STEP): no
    cotangent absmax, no int8
    dgrad or wgrad, no other port kernel. The first half of each kind in
@@ -269,7 +277,9 @@ STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
 NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
 # kernels whose code lives in a header of their own
-SOURCES = {"nv_half_wgrad_bf16":
+SOURCES = {"nv_half_fwd":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
+           "nv_half_wgrad_bf16":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "nv_half_wgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged_s8.cuh"}
@@ -289,6 +299,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "bneck_block_nv": _PALLAS + "bneck_nv.py:321",
             "bneck_transition_nv": _PALLAS + "bneck_nv.py:600",
             "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
+            "nv_half_fwd.pre": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_wgrad.pre": _PALLAS + "bneck_nv_train.py:928",
@@ -364,21 +375,23 @@ NVT_NAMES = ("nv_half_fwd", "nv_half_dgrad", "nv_half_wgrad")
 # launches of one ResNet-50 FQT train step at batch 128: 30 NV halves (3
 # identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each one
 # forward, one dgrad and one wgrad; identity-mode dgrads have no d(s)/d(t);
-# the wgrad's prepass writes its int8 slabs once
+# the forward's and the wgrad's prepasses write their int8 slabs once
 NVT_HALVES_PER_STEP = {("1x1", "identity"): 3, ("1x1", "entry"): 7,
                        ("3x3", "affine"): 10, ("1x1", "affine"): 10}
 NV_TRAIN_PER_STEP = {
-    "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
+    "nv_half_fwd.amax": 30, "nv_half_fwd.pre": 30, "nv_half_fwd": 30,
+    "nv_half_fwd.sum": 30,
     "nv_half_bwd.amax": 30, "nv_half_dgrad": 30, "nv_half_dgrad.sum": 27,
     "nv_half_wgrad.pre": 30, "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
 NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
                   "nv_half_wgrad_bf16")
 # launches of one ResNet-50 QAT train step at batch 128: the same 30 halves
-# on the int8 forward (with its row absmax) and the bf16 dgrad and wgrad,
-# which need no absmax of the cotangent; the wgrad's prepass rounds its
-# operands once
+# on the int8 forward (with its row absmax and its prepass) and the bf16
+# dgrad and wgrad, which need no absmax of the cotangent; the wgrad's
+# prepass rounds its operands once
 NV_QAT_PER_STEP = {
-    "nv_half_fwd.amax": 30, "nv_half_fwd": 30, "nv_half_fwd.sum": 30,
+    "nv_half_fwd.amax": 30, "nv_half_fwd.pre": 30, "nv_half_fwd": 30,
+    "nv_half_fwd.sum": 30,
     "nv_half_dgrad_bf16": 30, "nv_half_dgrad_bf16.sum": 27,
     "nv_half_wgrad_bf16.pre": 30, "nv_half_wgrad_bf16": 30,
     "nv_half_wgrad_bf16.sum": 30}
@@ -815,7 +828,7 @@ def serving_phase(workdir):
 KERNEL_KINDS = [
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
-    ("nv train halves (port)", ("nvt_", "wgrad_staged")),
+    ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     ("conv3x3_same wgrad (port)", ("RawRows",)),
@@ -2455,6 +2468,73 @@ def _wgrad_int8_pre_row(nvt, wargs, mode, rch, flops_f32, bw, geo):
         bytes_ms=byts / bw * 1e3)
 
 
+def _fwd_int8_parts(nvt, o, conv, mode, rch, bw, ops_int8):
+    """The int8 forward's second call equal to its first bit for bit (y
+    exact, the sums in a fixed order), and its three parts timed apart
+    beside their plain versions and bounds: the row-max pass (x (and res)
+    in, x_res out), the prepass (x (and res) in, the slab out) and the
+    mainloop + ordered sum (the slab and weights in, y out, or its int8
+    operations)."""
+    import torch
+
+    x, s, t, res = o["x"], o["s"], o["t"], o["res"]
+    wq, ws = (nvt.quantize_w_3x3 if conv == "3x3"
+              else nvt.quantize_w_1x1)(o["w"])
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    rowmax = nvt.fwd_rowmax(x, s, t, res, mode=mode)[0]
+    first = nvt.fwd_conv(x, s, t, res, rowmax, wq, ws, **kw)
+    second = nvt.fwd_conv(x, s, t, res, rowmax, wq, ws, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), ("nv_half_fwd", conv, mode, rch)
+    slab = nvt.fwd_pre(x, s, t, res, rowmax, **kw)
+    n, h, w, ci = x.shape
+    co, taps = wq.shape[0], 9 if conv == "3x3" else 1
+    lay = nvt.fwd_int8_layout(n, h, w, ci, taps, rch)
+    p, entry = n * h * w, mode == "entry"
+    act = 2 * p * ci * (2 if entry else 1)
+    return dict(
+        deterministic=True,
+        amax_ms=time_ms(lambda: nvt.fwd_rowmax(x, s, t, res, mode=mode), 10),
+        amax_plain_ms=time_ms(lambda: nvt.fwd_rowmax_plain(
+            x, s, t, res, mode=mode), 1),
+        amax_bound_ms=(act + (2 * p * ci if entry else 0)) / bw * 1e3,
+        pre_ms=time_ms(lambda: nvt.fwd_pre(x, s, t, res, rowmax, **kw), 10),
+        pre_plain_ms=time_ms(lambda: nvt.fwd_pre_plain(
+            x, s, t, res, rowmax, **kw), 1),
+        pre_bound_ms=(act + slab.numel()) / bw * 1e3,
+        gemm_ms=time_ms(lambda: nvt.fwd_gemm(slab, rowmax, wq, ws, lay), 10),
+        gemm_plain_ms=time_ms(lambda: nvt.fwd_gemm_plain(
+            slab, rowmax, wq, ws, lay), 1),
+        gemm_bound_ms=max((slab.numel() + taps * ci * co + 2 * p * co) / bw,
+                          2 * p * taps * ci * co / ops_int8) * 1e3,
+        layout=dict(cp=lay.cp, bk=lay.bk, tiles=lay.tiles,
+                    chunks=lay.chunks))
+
+
+def _fwd_int8_pre_row(nvt, o, mode, rch, flops_f32, bw, geo):
+    """The int8 forward's prepass as a kernel row: its slabs equal to its
+    plain version's byte for byte; bound by its bytes (x (and res) in, the
+    int8 slab out, as laid out) or its f32 operations (three an element
+    of a)."""
+    import torch
+
+    x, s, t, res = o["x"], o["s"], o["t"], o["res"]
+    kw = dict(conv=geo["conv"], mode=mode, rch=rch)
+    rowmax = nvt.fwd_rowmax(x, s, t, res, mode=mode)[0]
+    got = nvt.fwd_pre(x, s, t, res, rowmax, **kw)
+    assert torch.equal(got, nvt.fwd_pre_plain(x, s, t, res, rowmax, **kw)), (
+        "nv_half_fwd.pre", geo)
+    p, cin = geo["n"] * geo["h"] * geo["w"], geo["cin"]
+    byts = 2 * p * cin * (2 if mode == "entry" else 1) + got.numel()
+    return dict(
+        name="nv_half_fwd.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: nvt.fwd_pre(x, s, t, res, rowmax, **kw), 10),
+        plain_ms=time_ms(lambda: nvt.fwd_pre_plain(x, s, t, res, rowmax,
+                                                   **kw), 1),
+        library_ms=None, ops_ms=3 * p * cin / flops_f32 * 1e3,
+        bytes_ms=byts / bw * 1e3)
+
+
 def _nvt_bytes(p, ci, co, taps, mode, w_size, names):
     """Bytes of each stage of a half (forward, dgrad, wgrad, named by
     ``names``) over ``p`` positions: each input read once, each output
@@ -2526,13 +2606,17 @@ def nv_train_kernel_phase(peaks):
                     library_ms=lib[name],
                     ops_ms=2 * p * taps * ci * co / ops_int8 * 1e3,
                     bytes_ms=byts[name] / bw * 1e3))
+            geo = dict(n=n, h=h, w=w, cin=ci, cout=co, conv=conv, mode=mode,
+                       rch=list(rch))
+            rows[-3].update(_fwd_int8_parts(nvt, o, conv, mode, rch[0], bw,
+                                            ops_int8))
+            rows.append(_fwd_int8_pre_row(nvt, o, mode, rch[0], flops_f32,
+                                          bw, geo))
             wargs = _nvt_wgrad_args(nvt, o, conv, mode, rch)
-            rows[-1].update(_wgrad_int8_parts(nvt, wargs, conv, mode,
+            rows[-2].update(_wgrad_int8_parts(nvt, wargs, conv, mode,
                                               rch[2]))
             rows.append(_wgrad_int8_pre_row(
-                nvt, wargs, mode, rch[2], flops_f32, bw,
-                dict(n=n, h=h, w=w, cin=ci, cout=co, conv=conv, mode=mode,
-                     rch=list(rch))))
+                nvt, wargs, mode, rch[2], flops_f32, bw, geo))
             del o, kern, plain, wargs
             torch.cuda.empty_cache()
     for r in rows:
@@ -2905,6 +2989,12 @@ def bneck_training_phase(workdir, mode: str):
         live_halves=live, profile=profile)
 
 
+# the per-part times of a staged NV kernel's rows (phases 10 and 20)
+PART_KEYS = ("amax_ms", "amax_plain_ms", "amax_bound_ms", "pre_ms",
+             "pre_plain_ms", "pre_bound_ms", "gemm_ms", "gemm_plain_ms",
+             "gemm_bound_ms")
+
+
 def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
     """One entry per NV training stage kernel: the run's launches, and the
     device time per train step: the kernel phase's per-call times summed
@@ -2919,7 +3009,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
-        tot.update({k: 0.0 for k in ("pre_ms", "gemm_ms") if k in mine[0]})
+        tot.update({k: 0.0 for k in PART_KEYS if k in mine[0]})
         no_library = mine[0]["library_ms"] is None
         for (st, conv, mode, n, h, w, cin, cout), count in \
                 training["shapes"].items():
@@ -2944,7 +3034,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=None if no_library else tot["library_ms"],
-            **{k: tot[k] for k in ("pre_ms", "gemm_ms") if k in tot},
+            **{k: tot[k] for k in PART_KEYS if k in tot},
             per=f"ResNet-50 {run} train step at batch {BATCH} (ms per "
                 "call summed over the step's halves; launches over the run)",
             stages=[{k: r[k] for k in ("n", "h", "conv", "mode", "cin",
@@ -3391,8 +3481,8 @@ def main() -> int:
             "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err") + tuple(k for k in (
-                "int8_ms", "pre_ms", "gemm_ms", "plan", "deterministic")
-                if k in r)}))
+                ("int8_ms",) + PART_KEYS + ("plan", "layout",
+                                            "deterministic")) if k in r)}))
     for r in aug_rows:
         print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
                                  + ("chain_max_abs_diff",)}))
@@ -3551,14 +3641,20 @@ def main() -> int:
                        ("resnet-50 QAT training", r50_qat)):
         print_training(label, {k: v for k, v in run.items()
                                if k != "shapes"})
-    nvt_kernels = nv_train_summary(nvt_rows, r50_fqt,
-                                   NVT_NAMES + ("nv_half_wgrad.pre",))
+    nvt_kernels = nv_train_summary(
+        nvt_rows, r50_fqt,
+        NVT_NAMES + ("nv_half_fwd.pre", "nv_half_wgrad.pre"))
     if r50_fqt["profile"] is not None:
         kinds = r50_fqt["profile"]["device_ms_per_step_by_kind"]
         summed = sum(k["ms"] for k in nvt_kernels if k["name"] in NVT_NAMES)
         print("resnet-50 int8 training: NV halves per step, phase 10 "
               f"per-call times summed {summed} "
               f"ms, profiled {kinds.get('nv train halves (port)', 0.0)} ms")
+    fw8 = next(k for k in nvt_kernels if k["name"] == "nv_half_fwd")
+    print("resnet-50 FQT: int8 forward per step, phase 10 per-call times "
+          "summed (amax + prepass + mainloop/sum parts): " + json.dumps(
+              {k: fw8[k] for k in ("ms", "library_ms", "bound_ms")
+               + PART_KEYS + ("launches", "split_launches")}))
     wg8 = next(k for k in nvt_kernels if k["name"] == "nv_half_wgrad")
     print("resnet-50 FQT: int8 wgrad per step, phase 10 per-call times "
           "summed: " + json.dumps({k: wg8[k] for k in (

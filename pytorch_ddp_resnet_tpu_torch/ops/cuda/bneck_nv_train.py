@@ -59,7 +59,11 @@ version (a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
 
 - ``fwd_rowmax``       (launches ``nv_half_fwd.amax``)
-- ``fwd_conv``         (``nv_half_fwd``, ``nv_half_fwd.sum``)
+- ``fwd_conv``         ``fwd_pre`` (``nv_half_fwd.pre``: each chunk's
+                        activation quantized once into an int8 slab,
+                        position-major, in the layout of
+                        ``fwd_int8_layout``), then ``fwd_gemm``
+                        (``nv_half_fwd``, ``nv_half_fwd.sum``)
 - ``fwd_conv_bf16``    (``nv_half_fwd_bf16``, ``nv_half_fwd_bf16.sum``)
 - ``bwd_rowmax``       (``nv_half_bwd.amax``)
 - ``dgrad_conv``       (``nv_half_dgrad``, and ``nv_half_dgrad.sum`` unless
@@ -688,6 +692,129 @@ def wgrad_gemm_plain(a_slab, g_slab, rowmax_a, rowmax_g, lay):
     return _scaled_chunk_sum(acc, rowmax_a, rowmax_g, lay.rch, lay.halo)
 
 
+FWD_BM = 128  # output positions a tile (csrc/fwd_staged_s8.cuh BM)
+
+
+class FwdInt8Layout(NamedTuple):
+    """Where the int8 forward's prepass writes each chunk's quantized
+    activation and where its mainloop reads it: position-major, ``cp``
+    bytes a position (Cin padded with zeros to a multiple of 64, so that
+    the K step ``bk`` divides it). Output position (r, c, i) of a chunk
+    (r < rch, c < wq, i < n) is M row m = (r*wq + c)*n + i for the 3x3
+    (images innermost, so that every tap is one position offset) and
+    m = (i*rch + r)*w + c for the 1x1 (runs of rch*w positions contiguous
+    in x and y); each row of w columns has ``wq`` (3x3: w + 1, the last
+    column zero; 1x1: w), and ``m_valid`` = rch*wq*n rows fill ``tiles``
+    whole tiles of ``bm`` rows, so a tile lies in one chunk. The slab
+    [chunks, slab_len, cp] of chunk k holds ``guard`` zero positions, the
+    rch + 2*halo rows from image row k*rch - halo (3x3: the halo rows at
+    the chunk's scale, zero outside the image), ``guard`` more, then
+    tiles*bm - m_valid tail positions. Tap t reads position m + shifts[t],
+    ``guard + (dy*wq + dx - 1)*n`` for the 3x3 (the zero column is the
+    left neighbour of column 0 and the right one of column w-1), 0 for the
+    1x1: every A row of every tap a 16-byte aligned read inside the slab,
+    no masks. Rows with c >= w and the tail are computed and thrown
+    away."""
+    n: int
+    h: int
+    w: int
+    cin: int
+    taps: int
+    rch: int
+    cp: int
+    bk: int
+    wq: int
+    halo: int
+    guard: int
+    chunks: int
+    bm: int
+    m_valid: int
+    tiles: int
+    slab_len: int
+    shifts: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_int8_layout(n: int, h: int, w: int, cin: int, taps: int,
+                    rch: int) -> FwdInt8Layout:
+    """The int8 forward's slab layout for an [n, h, w, cin] activation,
+    ``taps`` 1 or 9 and row chunk ``rch`` (see ``FwdInt8Layout``): K steps
+    of 128 bytes where the padded channels allow, else 64. Cached: every
+    call of the forward asks."""
+    if taps not in (1, 9):
+        raise ValueError(f"taps={taps}: the halves are 1x1 or 3x3")
+    _check_rch("fwd_int8_layout", h, rch)
+    cp = -(-cin // 64) * 64
+    bk = 128 if cp % 128 == 0 else 64
+    halo = 1 if taps == 9 else 0
+    wq = w + halo
+    guard = halo * n
+    m_valid = rch * wq * n
+    tiles = -(-m_valid // FWD_BM)
+    slab_len = (2 * guard + (rch + 2 * halo) * wq * n
+                + tiles * FWD_BM - m_valid)
+    shifts = (tuple(guard + (dy * wq + dx - 1) * n for dy in range(3)
+                    for dx in range(3)) if taps == 9 else (0,))
+    return FwdInt8Layout(n, h, w, cin, taps, rch, cp, bk, wq, halo, guard,
+                         h // rch, FWD_BM, m_valid, tiles, slab_len, shifts)
+
+
+def fwd_pre_plain(x, s, t, res, rowmax, *, conv, mode, rch):
+    """The int8 forward's slabs (int8 [h/rch, slab_len, cp],
+    ``fwd_int8_layout``): each chunk's a (with its halo rows for the 3x3)
+    quantized at the chunk's scale, as ``fwd_conv_plain`` quantizes it."""
+    n, h, w, cin = x.shape
+    lay = fwd_int8_layout(n, h, w, cin, _taps(conv), rch)
+    inv, _ = _quant_params(chunk_amax(rowmax, rch, lay.halo))
+    q = _q(_slabs(prologue_plain(x, s, t, res, mode), rch, lay.halo),
+           inv.reshape(-1, 1, 1, 1, 1))            # [K, N, rows, w, C]
+    q = F.pad(q, (0, lay.cp - cin, 0, lay.wq - w))
+    if lay.halo:   # images innermost
+        q = q.permute(0, 2, 3, 1, 4)
+    body = q.reshape(lay.chunks, -1, lay.cp)
+    tail = lay.tiles * lay.bm - lay.m_valid
+    return F.pad(body, (0, 0, lay.guard, lay.guard + tail)).to(torch.int8)
+
+
+def _pack_w_fwd(wq, lay):
+    """wq [Cout, taps*Cin] -> [Cout, taps*cp]: each tap's channels padded
+    with zeros to the slab's cp."""
+    cout = wq.shape[0]
+    if lay.cp == lay.cin:
+        return wq
+    return F.pad(wq.reshape(cout, lay.taps, lay.cin),
+                 (0, lay.cp - lay.cin)).reshape(cout, -1).contiguous()
+
+
+def fwd_tile(cout: int, lay: FwdInt8Layout):
+    """(bn, bk) of the int8 forward's mainloop: a 128-wide N tile where
+    Cout >= 128 (A read ceil(Cout/128) times), else 64; the layout's K
+    step."""
+    return (128 if cout >= 128 else 64), lay.bk
+
+
+def fwd_gemm_plain(slab, rowmax, wq, ws, lay):
+    """(y [N, h, w, Cout] bf16, zsum, zssq [Cout] f32) from the slabs of
+    layout ``lay``: per chunk the exact contraction (float64) of each tap's
+    shifted slab rows with its weights, the pad column and the tail
+    dropped, y = bf16(f32(acc) * f32(ws * scale)), the sums per chunk then
+    across chunks in order."""
+    cout, m_pad = wq.shape[0], lay.tiles * lay.bm
+    wt = _pack_w_fwd(wq, lay).to(f64).reshape(cout, lay.taps, lay.cp)
+    acc = sum(slab[:, sh:sh + m_pad].to(f64) @ wt[:, t].t()
+              for t, sh in enumerate(lay.shifts))   # [K, m_pad, Cout]
+    acc = acc[:, :lay.m_valid]
+    if lay.halo:   # (r, c, i) -> (i, r, c), the pad column dropped
+        acc = acc.reshape(lay.chunks, lay.rch, lay.wq, lay.n,
+                          cout)[:, :, :lay.w].permute(0, 3, 1, 2, 4)
+    acc = acc.reshape(lay.chunks, lay.n, lay.rch, lay.w, cout).transpose(
+        0, 1).reshape(lay.n, lay.h, lay.w, cout)
+    scale = chunk_amax(rowmax, lay.rch, lay.halo) * INV_127
+    y = _dequant(acc, ws, scale, lay.rch).to(torch.bfloat16)
+    yb = y.to(f32)
+    return y, _ordered_sum(yb, lay.rch), _ordered_sum(yb * yb, lay.rch)
+
+
 # --- kernels -----------------------------------------------------------------
 
 _lib: Optional[ctypes.CDLL] = None
@@ -704,7 +831,9 @@ def _library() -> ctypes.CDLL:
             "nvt_rowmax_act_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5
             + [_P],
             "nvt_rowmax_cot_launch": [_P] * 5 + [_I] * 5 + [_P],
-            "nvt_fwd_launch": [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P],
+            "nvt_fwd_pre_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 10
+            + [_P],
+            "nvt_fwd_s8_launch": [_P] * 7 + [_I] * 12 + [_P],
             "nvt_dgrad_launch": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7
             + [_P],
             "nvt_wgrad_pre_launch": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 12
@@ -884,30 +1013,89 @@ def fwd_rowmax(x, s, t, res, *, mode):
     return rowmax, x_res
 
 
+def fwd_pre(x, s, t, res, rowmax, *, conv, mode, rch):
+    """The int8 forward's slabs (int8 [h/rch, slab_len, cp],
+    ``fwd_int8_layout``): each chunk's activation quantized once at the
+    chunk's scale, halo rows included. One launch."""
+    if on_cpu(x):
+        return fwd_pre_plain(x, s, t, res, rowmax, conv=conv, mode=mode,
+                             rch=rch)
+    name = "nv_half_fwd.pre"
+    n, h, w, cin = x.shape
+    _check_rch(name, h, rch)
+    s, t = _vecs(s, t)
+    _require(name, x, mode, s, t, res, [rowmax], [f32])
+    if rowmax.shape != (h,):
+        raise ValueError(f"{name}: row maxima {tuple(rowmax.shape)} vs h={h}")
+    lay = fwd_int8_layout(n, h, w, cin, _taps(conv), rch)
+    if lay.slab_len * lay.cp >= 2 ** 31:
+        raise ValueError(f"{name}: a chunk's slab of {lay.slab_len} x "
+                         f"{lay.cp} bytes at N={n}, h={h}, w={w}, "
+                         f"rch={rch} exceeds 2 GB")
+    slab = torch.empty((lay.chunks, lay.slab_len, lay.cp), dtype=torch.int8,
+                       device=x.device)
+    _launch(name, _library().nvt_fwd_pre_launch, x.data_ptr(), _ptr(res),
+            _ptr(s), _ptr(t), MODES.index(mode), rowmax.data_ptr(),
+            slab.data_ptr(), n, h, w, cin, rch, lay.halo, lay.cp, lay.wq,
+            lay.guard, lay.slab_len, _stream(x))
+    return slab
+
+
+def fwd_gemm(slab, rowmax, wq, ws, lay):
+    """(y [N, h, w, Cout] bf16, zsum, zssq [Cout] f32) from the slabs of
+    layout ``lay``: the exact s32 contraction over (tap, channel) on
+    128-row tiles of one chunk each, y = bf16(f32(acc) * f32(ws * scale))
+    with the tile's one scale, and each tile's sums of y and y^2 added in a
+    fixed order (bit for bit the same every run)."""
+    if on_cpu(slab):
+        return fwd_gemm_plain(slab, rowmax, wq, ws, lay)
+    name = "nv_half_fwd"
+    cout = wq.shape[0]
+    if tuple(slab.shape) != (lay.chunks, lay.slab_len, lay.cp):
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} is not of the "
+                         f"layout ({lay.chunks}, {lay.slab_len}, {lay.cp})")
+    if tuple(wq.shape) != (cout, lay.taps * lay.cin) or cout % 8:
+        raise ValueError(f"{name}: weights {tuple(wq.shape)} vs Cin "
+                         f"{lay.cin}")
+    if rowmax.shape != (lay.h,):
+        raise ValueError(f"{name}: row maxima {tuple(rowmax.shape)} vs "
+                         f"h={lay.h}")
+    if lay.chunks * lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.chunks} chunks x {lay.tiles} tiles "
+                         f"at N={lay.n}, h={lay.h}, w={lay.w} exceed the "
+                         f"grid")
+    (ws,) = _vecs(ws)
+    require_cuda(name, [slab, rowmax, wq, ws],
+                 [torch.int8, f32, torch.int8, f32])
+    wp = _pack_w_fwd(wq, lay)
+    y = torch.empty((lay.n, lay.h, lay.w, cout), dtype=torch.bfloat16,
+                    device=slab.device)
+    part = torch.empty((lay.chunks * lay.tiles, 2 * cout), dtype=f32,
+                       device=slab.device)
+    shifts = (ctypes.c_int * lay.taps)(*lay.shifts)
+    _launch(name, _library().nvt_fwd_s8_launch, slab.data_ptr(),
+            wp.data_ptr(), ws.data_ptr(), rowmax.data_ptr(), y.data_ptr(),
+            part.data_ptr(), ctypes.addressof(shifts), lay.n, lay.h, lay.w,
+            cout, lay.taps, lay.rch, lay.cp, lay.wq, lay.tiles, lay.slab_len,
+            *fwd_tile(cout, lay), _stream(slab))
+    sums = _sums(f"{name}.sum", part)
+    return y, sums[:cout], sums[cout:]
+
+
 def fwd_conv(x, s, t, res, rowmax, wq, ws, *, conv, mode, rch):
     """The forward half on its activation's row maxima: (y [N, h, w, Cout]
-    bf16, zsum, zssq [Cout] f32)."""
+    bf16, zsum, zssq [Cout] f32) (``fwd_pre``, then ``fwd_gemm``)."""
     if on_cpu(x):
         return fwd_conv_plain(x, s, t, res, rowmax, wq, ws, conv=conv,
                               mode=mode, rch=rch)
-    name = "nv_half_fwd"
     n, h, w, cin = x.shape
     cout, taps = wq.shape[0], _taps(conv)
     if tuple(wq.shape) != (cout, taps * cin) or cout % 8:
-        raise ValueError(f"{name}: weights {tuple(wq.shape)} vs Cin {cin}")
-    _check_rch(name, h, rch)
-    s, t, ws = _vecs(s, t, ws)
-    _require(name, x, mode, s, t, res, [rowmax, wq, ws],
-             [f32, torch.int8, f32])
-    y = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((-(-n * h * w // _BM), 2 * cout), dtype=f32,
-                       device=x.device)
-    _launch(name, _library().nvt_fwd_launch, x.data_ptr(), _ptr(res),
-            _ptr(s), _ptr(t), MODES.index(mode), rowmax.data_ptr(),
-            wq.data_ptr(), ws.data_ptr(), y.data_ptr(), part.data_ptr(), n, h,
-            w, cin, cout, taps, rch, _stream(x))
-    sums = _sums(f"{name}.sum", part)
-    return y, sums[:cout], sums[cout:]
+        raise ValueError(f"nv_half_fwd: weights {tuple(wq.shape)} vs Cin "
+                         f"{cin}")
+    slab = fwd_pre(x, s, t, res, rowmax, conv=conv, mode=mode, rch=rch)
+    return fwd_gemm(slab, rowmax, wq, ws,
+                    fwd_int8_layout(n, h, w, cin, taps, rch))
 
 
 def fwd_conv_bf16(x, s, t, res, wb, *, conv, mode, rch):

@@ -4,8 +4,10 @@
 // (ops/cuda/bneck_nv_train.py loads this file's shared library with ctypes).
 //
 // What they replace (pytorch_ddp_resnet_tpu/ops/pallas/bneck_nv_train.py):
-//   rowmax_act, fwd_conv      <- _fwd_call -> _fwd1x1_kernel, _fwd3x3_kernel
-//                                (quant=True: the int8 body)
+//   rowmax_act, fwd_pre, then <- _fwd_call -> _fwd1x1_kernel, _fwd3x3_kernel
+//   fwd_s8, sum                  (quant=True: the int8 body; the mainloop
+//                                lives in fwd_staged_s8.cuh, which says how
+//                                it works)
 //   fwd_bf16                  <- the same kernels' quant=False body
 //   rowmax_cot, dgrad_conv    <- _dgrad_call -> _dgrad1x1_kernel,
 //                                _dgrad3x3_kernel (quant_bwd=True)
@@ -29,8 +31,8 @@
 // cotangent (dgrad) group adds the halo rows k*rch-1 and (k+1)*rch inside
 // the image. So one image row is quantized at two scales where two chunks
 // share it, and no single int8 copy of an operand can serve a 3x3 stage:
-// the int8 fwd and dgrad quantize in their gather, with the scale of the
-// chunk of the output row they compute; the int8 wgrad's prepass writes
+// the int8 dgrad quantizes in its gather, with the scale of the chunk of
+// the output row it computes; the int8 fwd's and wgrad's prepasses write
 // each chunk's operands once, at its scale, halo rows included, into slabs
 // of the chunk's own. The absmax of a group is exact in any order:
 // rowmax_* writes the maximum of |value| per image row (atomicMax on the
@@ -38,19 +40,25 @@
 // reduces its group's rows. The bf16 bodies have no groups: their gather
 // rounds the prologue's (or the fold's) f32 value to bf16.
 //
-// The GEMM core, one template over the operand type: a 128x64 output tile
-// per block, 8 warps (4 along M x 2 along N), ldmatrix + mma.sync (s8
-// m16n8k32 -> s32, or bf16 m16n8k16 -> f32) in registers, K walked 32
-// bytes at a time (32 int8 or 16 bf16 values) through two shared-memory
-// buffers. The producer loads step k+1's bf16 operands into registers
-// while the tensor cores run step k, then applies the prologue, quantizes
-// or rounds them and stores them:
-//   fwd:   M = positions, N = Cout, K = (tap, ci); a gathered at
-//          (r + dy - 1, c + dx - 1);
-//   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
-//          (r - dy + 1, c - dx + 1) against per-input-channel weights in
-//          forward tap coordinates.
-// The wgrads do not use this core (M = (tap, ci), N = Cout, K = a run of
+// The GEMM core of the dgrads and the bf16 fwd, one template over the
+// operand type: a 128x64 output tile per block, 8 warps (4 along M x 2
+// along N), ldmatrix + mma.sync (s8 m16n8k32 -> s32, or bf16 m16n8k16 ->
+// f32) in registers, K walked 32 bytes at a time (32 int8 or 16 bf16
+// values) through two shared-memory buffers. The producer loads step k+1's
+// bf16 operands into registers while the tensor cores run step k, then
+// applies the prologue, quantizes or rounds them and stores them:
+//   bf16 fwd: M = positions, N = Cout, K = (tap, ci); a gathered at
+//             (r + dy - 1, c + dx - 1);
+//   dgrad:    M = positions, N = Cin, K = (tap, co); g gathered at
+//             (r - dy + 1, c - dx + 1) against per-input-channel weights
+//             in forward tap coordinates.
+// The int8 fwd does not use this core: its prepass (nvt_fwd_pre_kernel)
+// quantizes each chunk's activation once into a slab, position-major with
+// each position's channels contiguous (the 3x3's images innermost, so that
+// every tap is one constant position offset), and fwd_staged_s8.cuh's
+// cp.async ring copies its rows as they lie into plain ldmatrix and s8
+// mma.sync, with one scale a 128-row tile (a tile lies in one chunk).
+// The wgrads do not use this core either (M = (tap, ci), N = Cout, K = a run of
 // the positions of one chunk, grid z = (chunk, split)). The bf16 one: a
 // prepass rounds its operands once into NHWC bf16 scratch, and
 // wgrad_staged.cuh's cp.async ring feeds them to ldmatrix.trans. The int8
@@ -61,11 +69,12 @@
 // in slabs where every tap shift is one offset of a multiple of 16 bytes;
 // wgrad_staged_s8.cuh's cp.async ring copies their rows as they lie into
 // plain ldmatrix and s8 mma.sync.
-// Epilogues run on the accumulators in registers: the dequant
-// f32(acc) * f32(ws * scale) (int8 fwd, dgrad), the bf16 outputs, the
+// The core's epilogues run on the accumulators in registers: the dequant
+// f32(acc) * f32(ws * scale) (int8 dgrad), the bf16 outputs, the
 // prologue's backward (dgrad), and per-block per-channel sums (warp
 // butterflies, then the four M-warps in order) into a partial buffer that
-// nvt_sum reduces in a fixed tree. The wgrads split each chunk's positions
+// nvt_sum reduces in a fixed tree (the int8 fwd stages its tile in shared
+// memory and sums its columns in order into the same kind of buffer). The wgrads split each chunk's positions
 // over blocks; the int8 sum adds each chunk's f32(exact s32 over its
 // splits) * (amax_a * amax_g / 127^2), the bf16 sum each chunk's f32 split
 // tiles in split order, into dW in chunk order, as the TPU kernel's
@@ -76,15 +85,17 @@
 // int8 TOP/s or 3.4-30 us at 989 bf16 TFLOP/s, against 2-4 bf16 tensors of
 // 51-205 MB in and out, 15-120 us at 3.35 TB/s: the 1x1 halves and the
 // stage-1 halves are bound by bytes. What the design does about it: each
-// operand is read once per output tile column (N / 64 times; K / 32 bytes
-// steps per tile), the quantized or rounded operands never reach device
-// memory (but the wgrads', written once by their prepasses), and no
-// accumulator does either (but the wgrads' split tiles).
-// Left for later: in the int8 and bf16 fwd and dgrad, the producer's
+// operand is read once per output tile column (N / 64 times, N / 128 in
+// the int8 fwd), the quantized or rounded operands never reach device
+// memory (but the int8 fwd's and the wgrads', written once by their
+// prepasses), and no accumulator does either (but the wgrads' split
+// tiles).
+// Left for later: in the bf16 fwd and the dgrads, the producer's
 // synchronous loads (no cp.async/TMA ring), a 64-wide N tile that re-reads
 // A Cout/64 times, and the halo rows' recomputed prologue; everywhere,
-// mma.sync instead of wgmma, and the wgrads' second launch; in the wgrads,
-// the prepasses' bytes (their operands written once and read back).
+// mma.sync instead of wgmma, and the wgrads' second launch; in the int8
+// fwd and the wgrads, the prepasses' bytes (their operands written once and
+// read back).
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_bneck_nv_train.py and
@@ -108,7 +119,9 @@
 #include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
 #include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
 #include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
+#include "fwd_staged_s8.cuh"  // the int8 forward's mainloop
 
+using common::chunk_amax;
 using conv3x3::ldmatrix_x4;
 using conv3x3::mma_step;
 using conv3x3::quant_s8;
@@ -227,15 +240,6 @@ struct Cot {
 };
 
 // --- scale groups -----------------------------------------------------------
-
-__device__ __forceinline__ float chunk_amax(const float* __restrict__ rowmax,
-                                            int k, int rch, int halo, int h) {
-  const int r0 = max(k * rch - halo, 0);
-  const int r1 = min((k + 1) * rch + halo, h);
-  float m = rowmax[r0];
-  for (int r = r0 + 1; r < r1; ++r) m = fmaxf(m, rowmax[r]);
-  return m;
-}
 
 __device__ __forceinline__ float inv_of(float amax) {
   return __fdiv_rn(127.f, fmaxf(amax, kFloor));
@@ -546,45 +550,32 @@ __device__ __forceinline__ void row_scales(float (&sc)[2][2],
 
 struct FwdArgs {
   Act act;
-  const void* w;           // [cout][taps * cin] int8 or bf16
-  const float* ws;         // int8: [cout]
-  const float* rowmax;     // int8: [h] of |a|
+  const void* w;           // [cout][taps * cin] bf16
   bf16* y;                 // [M][cout]
   float* part;             // [M / BM][2 * cout]
-  bf16* x_res;             // bf16, entry mode: [M][cin]
+  bf16* x_res;             // entry mode: [M][cin]
   ConvGeo g;
 };
 
-// int8: y = bf16(f32(acc) * f32(ws * scale)); bf16: y = bf16(acc); sums
+// The bf16 body (the int8 one is fwd_staged_s8.cuh's): y = bf16(acc); sums
 // of f32(y) and its square
 template <typename T>
 __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
+  static_assert(sizeof(T) == 2, "the bf16 forward");
   __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
   const ConvGeo g = args.g;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = g.n * g.h * g.w;
   AccT<T> acc[2][4][4] = {};
   const ConvLoader<Act, false, T> ld(args.act, static_cast<const T*>(args.w),
-                                     g, args.rowmax, m0, n0, args.x_res);
+                                     g, nullptr, m0, n0, args.x_res);
   gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
-  float rs[2][2];
-  if constexpr (sizeof(T) == 1) row_scales(rs, args.rowmax, m0, g);
   float s[2][4][2] = {};
   each_pair(acc, m0, n0, M, g.nout,
-            [&](int mi, int ni, int hr, int m, int n, AccT<T> v0,
-                AccT<T> v1) {
-    float y0, y1;
-    if constexpr (sizeof(T) == 1) {
-      const float sc = rs[mi][hr];
-      y0 = __fmul_rn(__int2float_rn(v0), __fmul_rn(args.ws[n], sc));
-      y1 = __fmul_rn(__int2float_rn(v1), __fmul_rn(args.ws[n + 1], sc));
-    } else {
-      y0 = v0;
-      y1 = v1;
-    }
-    y0 = __bfloat162float(__float2bfloat16_rn(y0));
-    y1 = __bfloat162float(__float2bfloat16_rn(y1));
+            [&](int, int ni, int, int m, int n, AccT<T> v0, AccT<T> v1) {
+    const float y0 = __bfloat162float(__float2bfloat16_rn(v0));
+    const float y1 = __bfloat162float(__float2bfloat16_rn(v1));
     *reinterpret_cast<__nv_bfloat162*>(args.y + (size_t)m * g.nout + n) =
         __floats2bfloat162_rn(y0, y1);
     s[0][ni][0] = __fadd_rn(s[0][ni][0], y0);
@@ -692,6 +683,81 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
           __floats2bfloat162_rn(du[0], du[1]);
   });
   if (args.mode != IDENTITY) block_sums(s, n0, cin, args.part);
+}
+
+// --- the int8 forward's operand ----------------------------------------------
+
+// Where ops/cuda/bneck_nv_train.py fwd_int8_layout puts the activation:
+// chunk k's slab is slab_len positions of cp bytes at k * slab_len * cp;
+// past guard zero positions, slab row ra (image row k * rch - halo + ra),
+// column col (< wq; col >= w is zero) and image i sit at position (ra * wq
+// + col) * n + i (3x3: images innermost) or (i * rch + ra) * w + col (1x1),
+// channels cin..cp zero; the rest of the slab is zero.
+struct FwdSlabGeo {
+  int n, h, w, cin, rch, halo;
+  int cp, wq, guard, slab_len;
+};
+
+constexpr int FWD_PRE_U = 4;  // slab units (8 channels of a position) a thread
+
+// Every chunk's slab, one launch: block row blockIdx.y is chunk k. A unit
+// is 8 channels of one slab position, channels fastest, so a warp reads
+// whole 16-byte vectors of consecutive channels of x (and res) and writes
+// 256 contiguous slab bytes; each thread takes FWD_PRE_U units 256 apart,
+// issues all their loads, then reduces the chunk's scale while they are in
+// flight. It runs the prologue in f32 (Act::value, the rounding points of
+// the gather it replaces: x*s + t one fma, + res on its own, then relu;
+// entry mode recomputes it from x and res, never from x_res), quantizes at
+// the chunk's scale (q = clip(rint(v * inv))) and stores 8 bytes a unit;
+// positions outside the image, the pad column, pad channels, guards and
+// the tile tail get zeros.
+__global__ void __launch_bounds__(256)
+nvt_fwd_pre_kernel(Act act, const float* __restrict__ rowmax,
+                   signed char* __restrict__ slab, FwdSlabGeo s) {
+  const int k = blockIdx.y;
+  const int groups = s.cp / 8;
+  const int units = s.slab_len * groups;
+  const int span = (s.rch + 2 * s.halo) * s.wq * s.n;
+  signed char* out = slab + (size_t)k * s.slab_len * s.cp;
+  const int u0 = blockIdx.x * 256 * FWD_PRE_U + threadIdx.x;
+  Raw<8> raw[FWD_PRE_U];
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < FWD_PRE_U; ++j) {
+    const int u = u0 + 256 * j;
+    const int c0 = 8 * (u % groups);
+    const int o = u / groups - s.guard;
+    if (u < units && c0 < s.cin && o >= 0 && o < span) {
+      // 3x3: o = (ra * wq + col) * n + i; 1x1: o = (i * rch + ra) * w + col
+      const int per = s.halo ? s.n : s.rch * s.w;
+      const int i0 = o / per, r0 = o - i0 * per;
+      const int site = s.halo ? i0 : r0, i = s.halo ? r0 : i0;
+      const int ra = site / s.wq, col = site - ra * s.wq;
+      const int row = k * s.rch - s.halo + ra;
+      if (col < s.w && (unsigned)row < (unsigned)s.h) {
+        act.fetch<8>(((size_t)i * s.h + row) * s.w + col, c0, raw[j]);
+        live |= 1u << j;
+      }
+    }
+  }
+  // the chunk's scale while the loads are in flight
+  const float inv = inv_of(chunk_amax(rowmax, k, s.rch, s.halo, s.h));
+#pragma unroll
+  for (int j = 0; j < FWD_PRE_U; ++j) {
+    const int u = u0 + 256 * j;
+    if (u >= units) break;
+    const int c0 = 8 * (u % groups);
+    uint2 q = make_uint2(0u, 0u);
+    if (live >> j & 1u) {
+      float v[8];
+      act.value<8>(raw[j], c0, v);
+      q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
+                  __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
+      q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
+                  __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
+    }
+    *reinterpret_cast<uint2*>(out + (size_t)u * 8) = q;
+  }
 }
 
 // --- the int8 weight gradient -----------------------------------------------
@@ -953,30 +1019,60 @@ int nvt_rowmax_cot_launch(const void* dy, const void* y, const void* dzsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y [n, h, w, cout] bf16 and part [ceil(n*h*w / 128)][2 * cout] f32 (the
-// per-block sums of y and y^2) <- the forward half: wq [cout][taps * cin]
-// int8, ws [cout] f32, rowmax [h] of |a|, rch the forward's row chunk.
-int nvt_fwd_launch(const void* x, const void* res, const void* s,
-                   const void* t, int mode, const void* rowmax,
-                   const void* wq, const void* ws, void* y, void* part, int n,
-                   int h, int w, int cin, int cout, int taps, int rch,
-                   void* stream) {
-  FwdArgs args{act_of(x, res, s, t, cin, mode), wq, in<float>(ws),
-               in<float>(rowmax), static_cast<bf16*>(y),
-               static_cast<float*>(part), nullptr,
-               ConvGeo{n, h, w, cin, taps, cout, rch, taps == 9 ? 1 : 0}};
-  nvt_fwd_kernel<signed char><<<conv_grid(n * h * w, cout), THREADS, 0,
-                                as_stream(stream)>>>(args);
+// The int8 forward, three launches after the row maxima. nvt_fwd_pre: slab
+// [h / rch][slab_len][cp] int8 <- the activation (from x/res/s/t), each
+// chunk's quantized at its scale (rowmax [h] of |a|), in the layout (halo,
+// cp, wq, guard, slab_len) of ops/cuda/bneck_nv_train.py fwd_int8_layout.
+int nvt_fwd_pre_launch(const void* x, const void* res, const void* s,
+                       const void* t, int mode, const void* rowmax,
+                       void* slab, int n, int h, int w, int cin, int rch,
+                       int halo, int cp, int wq, int guard, int slab_len,
+                       void* stream) {
+  const FwdSlabGeo g{n, h, w, cin, rch, halo, cp, wq, guard, slab_len};
+  const long units = (long)slab_len * (cp / 8);  // a chunk's
+  if (units >= (1L << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long per = (units + 256 * FWD_PRE_U - 1) / (256 * FWD_PRE_U);
+  nvt_fwd_pre_kernel<<<dim3((unsigned)per, h / rch), 256, 0,
+                       as_stream(stream)>>>(
+      act_of(x, res, s, t, cin, mode), in<float>(rowmax),
+      static_cast<signed char*>(slab), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 body: y and part as nvt_fwd_launch's, and in entry mode (1x1)
+// nvt_fwd_s8: y [n, h, w, cout] bf16 and part [h / rch * tiles][2 * cout]
+// f32 (each M tile's sums of y and y^2) <- the slab's products with wp
+// [cout][taps * cp] int8 (pad channels zero), a read at shift[tap] (host
+// memory, taps positions), dequantized by ws [cout] and the chunk's scale
+// from rowmax, on (128, bn) tiles with K steps of bk bytes.
+int nvt_fwd_s8_launch(const void* slab, const void* wp, const void* ws,
+                      const void* rowmax, void* y, void* part,
+                      const int* shift, int n, int h, int w, int cout,
+                      int taps, int rch, int cp, int wq, int tiles,
+                      int slab_len, int bn, int bk, void* stream) {
+  // the 3x3's shifts are shift[0] + dy * row + dx * col
+  const int row = taps == 9 ? shift[3] - shift[0] : 0;
+  const int col = taps == 9 ? shift[1] - shift[0] : 0;
+  if (taps != 1 && taps != 9) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < taps; ++i)
+    if (shift[i] != shift[0] + i / 3 * row + i % 3 * col)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const fwd_staged_s8::Args args{
+      in<signed char>(slab), in<signed char>(wp), in<float>(ws),
+      in<float>(rowmax), static_cast<bf16*>(y), static_cast<float*>(part), n,
+      h, w, cout, taps, rch, taps == 9 ? 1 : 0, cp, wq, tiles, slab_len,
+      shift[0], row, col};
+  return static_cast<int>(
+      fwd_staged_s8::launch(args, h / rch, bn, bk, as_stream(stream)));
+}
+
+// The bf16 body: y [n, h, w, cout] bf16 and part [ceil(n*h*w / 128)][2 *
+// cout] f32 (the per-block sums of y and y^2), and in entry mode (1x1)
 // x_res [n, h, w, cin] = bf16(a), from wb [cout][taps * cin] bf16.
 int nvt_fwd_bf16_launch(const void* x, const void* res, const void* s,
                         const void* t, int mode, const void* wb, void* y,
                         void* part, void* x_res, int n, int h, int w, int cin,
                         int cout, int taps, void* stream) {
-  FwdArgs args{act_of(x, res, s, t, cin, mode), wb, nullptr, nullptr,
+  FwdArgs args{act_of(x, res, s, t, cin, mode), wb,
                static_cast<bf16*>(y), static_cast<float*>(part),
                static_cast<bf16*>(x_res), ConvGeo{n, h, w, cin, taps, cout,
                                                   h, 0}};

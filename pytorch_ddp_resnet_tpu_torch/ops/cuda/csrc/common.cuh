@@ -17,6 +17,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The absmax of a scale group: the maximum of the row maxima over rows
+// [k * rch - halo, (k + 1) * rch + halo) inside the plane (exact in any
+// order).
+__device__ __forceinline__ float chunk_amax(const float* __restrict__ rowmax,
+                                            int k, int rch, int halo, int h) {
+  const int r0 = max(k * rch - halo, 0);
+  const int r1 = min((k + 1) * rch + halo, h);
+  float m = rowmax[r0];
+  for (int r = r0 + 1; r < r1; ++r) m = fmaxf(m, rowmax[r]);
+  return m;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

@@ -670,8 +670,8 @@ def test_nv_half_op_launches_its_kernels(dev):
     got = run(dev)
     torch.cuda.synchronize()
     assert dict(nvt.launches) == {name: 1 for name in (
-        "nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum",
-        "nv_half_bwd.amax", "nv_half_dgrad", "nv_half_dgrad.sum",
+        "nv_half_fwd.amax", "nv_half_fwd.pre", "nv_half_fwd",
+        "nv_half_fwd.sum", "nv_half_bwd.amax", "nv_half_dgrad", "nv_half_dgrad.sum",
         "nv_half_wgrad.pre", "nv_half_wgrad", "nv_half_wgrad.sum")}
     want = run("cpu")
     for i, (a, b) in enumerate(zip(got, want)):
@@ -706,6 +706,23 @@ def test_nv_train_never_falls_back(dev):
                        device=dev)
     with pytest.raises(ValueError, match="not of the layout"):
         nvt.wgrad_gemm(slab, slab, rmax, rmax, lay)
+    # so does the staged int8 forward
+    wq = torch.zeros((32, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nvt.fwd_conv(x12, None, None, None, rmax, wq[:, :12].contiguous(),
+                     z32, conv="1x1", mode="identity", rch=4)
+    with pytest.raises(ValueError, match="does not divide"):
+        nvt.fwd_conv(xb, None, None, None, rmax, wq, z32, conv="1x1",
+                     mode="identity", rch=3)
+    with pytest.raises(ValueError, match="row maxima"):
+        nvt.fwd_conv(xb, None, None, None, rmax[:2], wq, z32, conv="1x1",
+                     mode="identity", rch=4)
+    flay = nvt.fwd_int8_layout(32, 4, 4, 64, 9, 2)
+    with pytest.raises(ValueError, match="not of the layout"):
+        nvt.fwd_gemm(torch.zeros((flay.chunks, 64, 64), dtype=torch.int8,
+                                 device=dev), rmax,
+                     torch.zeros((32, 9 * 64), dtype=torch.int8, device=dev),
+                     z32, flay)
     assert not nvt.launches
 
 
@@ -797,8 +814,9 @@ def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
     nvt.reset_launches()
     got = run(dev)
     torch.cuda.synchronize()
-    fwd = {"nv_half_fwd.amax", "nv_half_fwd", "nv_half_fwd.sum"} if quant \
-        else {"nv_half_fwd_bf16", "nv_half_fwd_bf16.sum"}
+    fwd = ({"nv_half_fwd.amax", "nv_half_fwd.pre", "nv_half_fwd",
+            "nv_half_fwd.sum"} if quant
+           else {"nv_half_fwd_bf16", "nv_half_fwd_bf16.sum"})
     bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad",
             "nv_half_dgrad.sum", "nv_half_wgrad.pre", "nv_half_wgrad",
             "nv_half_wgrad.sum"}
@@ -953,6 +971,78 @@ def test_nv_wgrad_int8_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
                                   "nv_half_wgrad": 2, "nv_half_wgrad.sum": 2}
     assert torch.equal(first, nvt.wgrad_plain(*args, conv=conv, mode=mode,
                                               rch=rch))
+
+
+# the staged int8 forward at NVT_SHAPES (forward row chunks) and its edges:
+# stage 1 at n = 32 (56 x 56, Cin 256 -> 64 1x1 halves, the 3x3 with 4-row
+# chunks, Cin 64 -> 256), w = 7 with one chunk, Cin = 64 -> Cout = 256 at
+# 14 x 14
+NVT_FWD_CASES = [(conv, mode, n, h, w, cin, cout, rch[0])
+                 for n, h, w, cin, cout, rch in NVT_SHAPES
+                 for conv, mode in NVT_HALVES] + [
+    ("1x1", "identity", 32, 56, 56, 256, 64, 1),
+    ("1x1", "entry", 32, 56, 56, 256, 64, 2),
+    ("3x3", "affine", 32, 56, 56, 64, 64, 4),
+    ("1x1", "affine", 32, 56, 56, 64, 256, 2),
+    ("3x3", "identity", 32, 7, 7, 64, 64, 7),
+    ("1x1", "entry", 32, 7, 7, 64, 64, 7),
+    ("1x1", "affine", 64, 14, 14, 64, 256, 2)]
+
+
+def _nvt_fwd_args(dev, conv, mode, n, h, w, cin, cout, seed):
+    """The int8 forward's operands (x, s, t, res, rowmax) and weights (wq,
+    ws), the row maxima by the plain version (so the only launches are the
+    forward's)."""
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed)
+    x, s, t, res = ops["x"], ops["s"], ops["t"], ops["res"]
+    wq, ws = (nvt.quantize_w_3x3 if conv == "3x3"
+              else nvt.quantize_w_1x1)(ops["w"])
+    rowmax = nvt.fwd_rowmax_plain(x, s, t, res, mode=mode)[0]
+    return (x, s, t, res, rowmax), wq, ws
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", NVT_FWD_CASES)
+def test_nv_fwd_int8_staged_matches_plain(dev, conv, mode, n, h, w, cin,
+                                          cout, rch):
+    """The prepass's slabs equal the plain version's byte for byte, y
+    equals ``fwd_conv_plain``'s and its sums agree within 1e-5: one launch
+    each of the prepass, the mainloop and the sum."""
+    args, wq, ws = _nvt_fwd_args(dev, conv, mode, n, h, w, cin, cout,
+                                 cin + h)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    nvt.reset_launches()
+    got = nvt.fwd_conv(*args, wq, ws, **kw)
+    torch.cuda.synchronize()
+    assert dict(nvt.launches) == {"nv_half_fwd.pre": 1, "nv_half_fwd": 1,
+                                  "nv_half_fwd.sum": 1}
+    want = nvt.fwd_conv_plain(*args, wq, ws, **kw)
+    assert want[0].unique().numel() > 100
+    for i, (a, b) in enumerate(zip(got, want)):
+        _same(a, b, sums=i > 0)
+    assert torch.equal(nvt.fwd_pre(*args, **kw), nvt.fwd_pre_plain(*args,
+                                                                   **kw))
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", [
+    ("3x3", "affine", 128, 56, 56, 64, 64, 4),
+    ("1x1", "entry", 128, 28, 28, 512, 128, 2)])
+def test_nv_fwd_int8_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
+                                      rch):
+    """The staged int8 forward's y is exact s32 products dequantized, and
+    its sums are added in a fixed order with no atomics: two calls on the
+    same inputs give the same y and sums bit for bit, y equal to the plain
+    version's."""
+    args, wq, ws = _nvt_fwd_args(dev, conv, mode, n, h, w, cin, cout, 7)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    nvt.reset_launches()
+    first = nvt.fwd_conv(*args, wq, ws, **kw)
+    second = nvt.fwd_conv(*args, wq, ws, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert dict(nvt.launches) == {"nv_half_fwd.pre": 2, "nv_half_fwd": 2,
+                                  "nv_half_fwd.sum": 2}
+    assert torch.equal(first[0], nvt.fwd_conv_plain(*args, wq, ws, **kw)[0])
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):
