@@ -132,21 +132,27 @@ Phases, each fatal on failure:
    BatchNorm sums within 1e-5 of the sums of the kernel's own y. The int8
    core's quantizers and dgrad in seed mode equal their plain versions and
    themselves fed the expanded bits; ``seed_bits_expand`` is bit-equal to
-   the plain ``seed_bits`` for seeds across the int32 range. Each is timed
-   beside its plain version and cuDNN's bf16 forward, input gradient and
-   weight gradient (channels-last) at the same shape.
+   the plain ``seed_bits`` for seeds across the int32 range. The wgrad
+   (its prepass ``fused_half_bf16_wgrad.pre``, then csrc/wgrad_staged.cuh's
+   mainloop and ordered sum) is also bit-equal over two calls, and its
+   prepass has rows of its own, equal to its plain version byte for byte.
+   Each is timed beside its plain version and cuDNN's bf16 forward, input
+   gradient and weight gradient (channels-last) at the same shape; the
+   wgrad's prepass and mainloop + sum also apart.
 13. Training, the sixth main path: the bf16 recipe of phase 5 with
    ``use_fused_block: True`` through ``setup(config)``. With the launch
    counts zeroed just before, each step must launch the stem, the augment
    kernel and 8 fused bf16 halves (the 4 identity blocks of stage 1), each
-   one forward, dgrad and wgrad (FUSED_PER_STEP); losses finite, every
+   one forward, dgrad and wgrad (its prepass, mainloop and sum;
+   FUSED_PER_STEP); losses finite, every
    parameter changed, every BatchNorm count equal to the steps.
 14. Training, the seventh main path: the ``-int8`` recipe with
    ``use_int8_train: True``, ``use_int8_train_bwd: False`` (QAT) and
    ``use_inkernel_dropout: True``: 22 halves per step on the int8 forward
    and the bf16 backward (QAT_PER_STEP), 15 of them (stages 1 and 2)
-   rebuilding their dropout masks from a seed, so no uint8 bits tensor is
-   drawn for them, and the 7 at C=640 on drawn bits. In phases 13 and 14
+   rebuilding their dropout masks from a seed (in the forward's quantizer
+   and kernel, the dgrad and the wgrad's prepass), so no uint8 bits tensor
+   is drawn for them, and the 7 at C=640 on drawn bits. In phases 13 and 14
    the first half of each bits mode in the first step, on its live inputs
    and cotangents, must reproduce its output and equal its plain versions.
    Phase 12 also holds ``fused_half`` at C = 48 without dropout (the gate's
@@ -282,7 +288,9 @@ SOURCES = {"nv_half_fwd":
            "nv_half_wgrad_bf16":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "nv_half_wgrad":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged_s8.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged_s8.cuh",
+           "fused_half_bf16_wgrad":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -310,6 +318,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
             "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
+            "fused_half_bf16_wgrad.pre": _PALLAS + "fused_block.py:763",
             "conv3x3_wgrad": _PALLAS + "conv.py:412",
             "conv1x1_lanes_requant": _PALLAS + "conv1x1.py:158"}
 BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
@@ -333,24 +342,28 @@ C1_STAGES = [(56, 56, 256, 64), (28, 28, 512, 128), (14, 14, 1024, 256),
              (7, 7, 2048, 512)]
 C1_MODES = ("int8", "bf16", "bf16+res+dual")
 # launches of one fused-bf16 WRN-28-10 step: the stem, and 8 bf16 halves
-# (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums
+# (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums;
+# each wgrad is its prepass, the staged mainloop and the ordered sum
 FUSED_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
     "fused_half_bf16_fwd": 8, "fused_half_bf16_fwd.sum": 4,
     "fused_half_bf16_dgrad": 8, "fused_half_bf16_dgrad.sum": 8,
-    "fused_half_bf16_wgrad": 8, "fused_half_bf16_wgrad.sum": 8}
+    "fused_half_bf16_wgrad.pre": 8, "fused_half_bf16_wgrad": 8,
+    "fused_half_bf16_wgrad.sum": 8}
 # launches of one QAT step: 22 halves on the int8 forward and the bf16
 # backward; with in-kernel dropout the 15 halves at C = 160 and 320 rebuild
-# their masks from a seed (QAT_SEED_PER_STEP)
+# their masks from a seed (QAT_SEED_PER_STEP; in the wgrad its prepass
+# does, and the mainloop reads the rounded d_b)
 QAT_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
     "fused_half_fwd.amax": 22, "fused_half_fwd.quant": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
     "fused_half_bf16_dgrad": 22, "fused_half_bf16_dgrad.sum": 22,
-    "fused_half_bf16_wgrad": 22, "fused_half_bf16_wgrad.sum": 22}
+    "fused_half_bf16_wgrad.pre": 22, "fused_half_bf16_wgrad": 22,
+    "fused_half_bf16_wgrad.sum": 22}
 QAT_SEED_PER_STEP = {"fused_half_fwd.amax": 15, "fused_half_fwd.quant": 15,
                      "fused_half_bf16_dgrad": 15,
-                     "fused_half_bf16_wgrad": 15}
+                     "fused_half_bf16_wgrad.pre": 15}
 # (kind, h, w, cin, width, cout, stride) at batch 128: the ResNet-50
 # stages, then WRN-50-2's stage 4 (its widest operands)
 NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
@@ -832,7 +845,8 @@ KERNEL_KINDS = [
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     ("conv3x3_same wgrad (port)", ("RawRows",)),
-    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad", "WgradG")),
+    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad",
+                                "fused_wgrad_pre")),
     ("transition (port)", ("fwd_kernel<", "dgrad_kernel<",
                            "bwd_amax_kernel", "bwd_quant_kernel",
                            "bwd_fold_kernel", "wgrad_kernel<")),
@@ -846,11 +860,19 @@ KERNEL_KINDS = [
     ("copy / cast", ("copy",)),
     ("elementwise", ("elementwise", "Functor")),
 ]
+# the WRN-28-10 steps run no NV half: there the staged bf16 wgrad mainloop
+# and its sum (csrc/wgrad_staged.cuh, shared with the NV halves) are the
+# fused bf16 half's
+WRN_KERNEL_KINDS = [
+    (kind, pats + ("wgrad_staged",) if kind == "fused bf16 half (port)"
+     else pats) for kind, pats in KERNEL_KINDS
+    if kind != "nv train halves (port)"]
 
 
-def _profile_steps(run_steps, steps: int):
-    """Device time per step by kind of kernel over ``run_steps()``
-    (torch.profiler), or None when the profiler reports no device time."""
+def _profile_steps(run_steps, steps: int, kinds=KERNEL_KINDS):
+    """Device time per step by kind of kernel (``kinds``: name patterns)
+    over ``run_steps()`` (torch.profiler), or None when the profiler
+    reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -866,7 +888,7 @@ def _profile_steps(run_steps, steps: int):
     dev_ms = sum(_dev_us(e) for e in events) / 1e3
     by_kind = {}
     for e in events:
-        kind = next((k for k, pats in KERNEL_KINDS
+        kind = next((k for k, pats in kinds
                      if any(p in e.key for p in pats)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + _dev_us(e) / 1e3 / steps
     top = sorted(events, key=lambda e: -_dev_us(e))[:12]
@@ -980,7 +1002,7 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
         for gs in range(steps, steps + PROFILE_STEPS):
             ts, _ = step(ts, feeds[gs], lr, root.fold_in(gs))
 
-    profile = _profile_steps(more_steps, PROFILE_STEPS)
+    profile = _profile_steps(more_steps, PROFILE_STEPS, WRN_KERNEL_KINDS)
     main = next(r for r in aug_rows if r["b"] == BATCH and r["mirror"]
                 and r["whiten"])
     aug_ms = main["ms"] if main["ms"] is not None else main["call_ms"]
@@ -1427,16 +1449,64 @@ def _bf16_fns(fb, x, wp, wdg, scale, shift, bits, res, stats, ct, thresh,
     return f, d, wg
 
 
+def _fused_wgrad_parts(fb, args, thresh, h, w):
+    """The fused wgrad's second call equal to its first bit for bit (its
+    splits are added in a fixed order), and its two parts timed apart: the
+    prepass, then the mainloop + ordered sum on its operands."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
+
+    kw = dict(thresh=thresh, h=h, w_img=w)
+    first = fb.wgrad_bf16(*args, **kw)
+    assert torch.equal(first, fb.wgrad_bf16(*args, **kw)), (
+        "fused_half_bf16_wgrad", h, thresh)
+    d_b, g_b = fb.wgrad_bf16_pre(*args, thresh=thresh)
+    n, cin = d_b.shape
+    plan = nvt.wgrad_bf16_plan(n // (h * w), h, w, cin, g_b.shape[1], 9, h)
+    return dict(
+        deterministic=True, plan=list(plan[:-1]),
+        pre_ms=time_ms(lambda: fb.wgrad_bf16_pre(*args, thresh=thresh), 10),
+        gemm_ms=time_ms(lambda: fb.wgrad_bf16_gemm(d_b, g_b, h=h, w_img=w),
+                        10))
+
+
+def _fused_wgrad_pre_row(fb, args, thresh, geo, flops_f32, bw):
+    """The fused wgrad's prepass as a kernel row: d_b and g_b equal to its
+    plain version's byte for byte; bound by its bytes (x and dy, with y
+    and the bits where the call has them, in; d_b and g_b out) or its f32
+    operations (three an element)."""
+    import torch
+
+    got = fb.wgrad_bf16_pre(*args, thresh=thresh)
+    want = fb.wgrad_bf16_pre_plain(*args, thresh=thresh)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), ("fused_half_bf16_wgrad.pre", geo)
+    c, n = geo["c"], geo["n"]
+    y, bits = args[1], args[7]
+    byts = (8 * c * n + 8 * c + (2 * c * n + 8 * c if y is not None else 0)
+            + (c * n if bits is not None and not fb.is_seed(bits) else 0))
+    return dict(
+        name="fused_half_bf16_wgrad.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: fb.wgrad_bf16_pre(*args, thresh=thresh), 10),
+        plain_ms=time_ms(lambda: fb.wgrad_bf16_pre_plain(*args,
+                                                         thresh=thresh), 1),
+        library_ms=None, ops_ms=3 * 2 * c * n / flops_f32 * 1e3,
+        bytes_ms=byts / bw * 1e3)
+
+
 def bf16_kernel_phase(peaks):
     """Rows per (bf16 kernel, stage, mode): max error against the plain
-    version and the kernel / plain / cuDNN bf16 / bound times of one call;
-    seed rows: the int8 core's kernels in seed mode against bits mode."""
+    version and the kernel / plain / cuDNN bf16 / bound times of one call
+    (the wgrad's also bit-equal over two calls, with its prepass and its
+    mainloop + sum timed apart; its prepass has rows of its own); seed
+    rows: the int8 core's kernels in seed mode against bits mode."""
     import torch
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
     from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pack_weights
 
-    flops_bf16, _, bw, _ = peaks
+    flops_bf16, _, bw, flops_f32 = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     rows, seed_rows = [], []
@@ -1508,6 +1578,12 @@ def bf16_kernel_phase(peaks):
                                                     else ""),
                     fns[0][2], fns[1][2], lib_w,
                     4 * cn + 36 * c * c + 8 * c + bits_b + ct)
+                wargs = (*cts[stats], x, scale, shift, bits)
+                rows[-1].update(_fused_wgrad_parts(fb, wargs, thresh, h, w))
+                rows.append(_fused_wgrad_pre_row(
+                    fb, wargs, thresh, dict(c=c, h=h, w=w, n=n,
+                                            mode=rows[-1]["mode"]),
+                    flops_f32, bw))
 
         # the int8 core's kernels in seed mode: equal to their plain versions
         # and to themselves on the expanded bits; timed in both modes
@@ -1676,8 +1752,12 @@ def _bf16_mix(rows, name, halves):
     mix = [(next(r for r in mine if r["c"] == c
                  and r["mode"] == mode(res, stats, kind)), cnt)
            for (c, res, stats, kind), cnt in halves.items()]
+    # keys every row has a number for (the wgrad's parts; no library call
+    # for its prepass)
     return {k: sum(r[k] * cnt for r, cnt in mix)
-            for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms")}
+            for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms",
+                      "pre_ms", "gemm_ms")
+            if all(r.get(k) is not None for r, _ in mix)}
 
 
 def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
@@ -1686,15 +1766,21 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
     phase 12's per-call times summed over the halves one step ran (the
     forward over the fused-bf16 step's, the backward over the QAT step's)."""
     out = []
-    for name in BF16_NAMES:
+    for name in BF16_NAMES + ("fused_half_bf16_wgrad.pre",):
         fwd = name == "fused_half_bf16_fwd"
         tot = _bf16_mix(rows, name, fused_halves if fwd else qat_halves)
         runs = {"fused_bf16": fused["launches"].get(name, 0),
                 "qat_inkernel_dropout": qat["launches"].get(name, 0)}
+        if name == "fused_half_bf16_wgrad":
+            runs.update({f"{run}{part}": r["launches"].get(name + part, 0)
+                         for run, r in (("fused_bf16", fused),
+                                        ("qat_inkernel_dropout", qat))
+                         for part in (".pre", ".sum")})
         mine = [r for r in rows if r["name"] == name]
         out.append(dict(
-            name=name, route="cuda", source=BF16_SOURCE,
-            replaces=REPLACES[name], launches=sum(runs.values()),
+            name=name, route="cuda", source=SOURCES.get(name, BF16_SOURCE),
+            replaces=REPLACES[name], launches=sum(
+                v for k, v in runs.items() if "." not in k),
             split_launches=runs,
             seed_launches=qat["seed_launches"].get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in mine),
@@ -1702,7 +1788,8 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
             bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=tot["library_ms"],
+            library_ms=tot.get("library_ms"),
+            **{k: tot[k] for k in ("pre_ms", "gemm_ms") if k in tot},
             per=("fused-bf16" if fwd else "QAT + in-kernel dropout")
             + f" train step at batch {BATCH} (ms per call summed over the "
               "step's halves; launches over both runs)",
@@ -3464,7 +3551,8 @@ def main() -> int:
     for r in bf16_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err")}))
+            "bound_by", "max_abs_err") + tuple(k for k in (
+                "pre_ms", "gemm_ms", "plan", "deterministic") if k in r)}))
     for r in seed_rows:
         print("  " + json.dumps(r))
     for r in rows + fqt_rows:
@@ -3713,6 +3801,11 @@ def main() -> int:
               f"profiled {profiled} ms")
     bf16_kernels = bf16_summary(bf16_rows, fused, qat, rec_fused.halves,
                                 rec_qat.halves)
+    wg = next(k for k in bf16_kernels if k["name"] == "fused_half_bf16_wgrad")
+    print("QAT: fused bf16 wgrad per step, phase 12 per-call times summed "
+          "(prepass, mainloop + sum): " + json.dumps({k: wg[k] for k in (
+              "ms", "pre_ms", "gemm_ms", "library_ms", "bound_ms",
+              "launches", "split_launches", "seed_launches")}))
     for label, run, halves in (("fused bf16 training", fused,
                                 rec_fused.halves),
                                ("QAT + in-kernel dropout training", qat,

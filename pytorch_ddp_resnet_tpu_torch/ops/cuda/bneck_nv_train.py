@@ -952,10 +952,14 @@ class WgradPlan(NamedTuple):
 def wgrad_bf16_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
                     rch: int) -> WgradPlan:
     """The bf16 wgrad's tiles and splits: 64-row tiles where taps*Cin <=
-    64 (a 1x1 with Cin = 64), 64-wide where Cout <= 64, else 128; the
-    splits that minimize the model's time (whole waves of blocks times
-    their K steps, plus the split tiles' traffic), the fewest among equals,
-    none empty. Cached: every call of the wgrad asks."""
+    64 (a 1x1 with Cin = 64), 64-wide where Cout <= 64, else 128 (also
+    at WRN's Cout = 160 and 320, where the 128-wide tile pads more
+    columns: it ran 4% and 10% faster there on an H100,
+    tools/bench_fused_wgrad_bf16.py --tiles); the splits that minimize
+    the model's time (whole waves of blocks times their K steps, plus the
+    split tiles' traffic), the fewest among equals, none empty. Also the
+    fused half's wgrad (ops/cuda/fused_block.py: one chunk of h rows, nine
+    taps). Cached: every call of the wgrad asks."""
     steps = -(-n * rch * w // WGRAD_BK)
     return _split_plan(taps * cin, cout, h // rch, steps, WGRAD_BK)
 
@@ -971,11 +975,13 @@ def wgrad_int8_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
     return _split_plan(taps * cin, cout, lay.chunks, lay.steps, lay.bk)
 
 
-def _split_plan(m, cout, chunks, steps, bk) -> WgradPlan:
-    """Tiles of dW [m, Cout] and the splits of each chunk's ``steps`` K
-    steps that minimize the cost model, the fewest among equals."""
+def _split_plan(m, cout, chunks, steps, bk, bn=None) -> WgradPlan:
+    """Tiles of dW [m, Cout] (``bn`` wide, or of ``wgrad_bf16_plan``'s
+    width) and the splits of each chunk's ``steps`` K steps that minimize
+    the cost model, the fewest among equals."""
     bm = 64 if m <= 64 else 128
-    bn = 64 if cout <= 64 else 128
+    if bn is None:
+        bn = 64 if cout <= 64 else 128
     m_tiles, n_tiles = -(-m // bm), -(-cout // bn)
     tiles = m_tiles * n_tiles * chunks
 

@@ -350,10 +350,11 @@ def _library_wgrad() -> ctypes.CDLL:
 
 def check_wgrad_geometry(name: str, cin: int, n: int, h: int,
                          w_img: int) -> None:
-    """The bf16 wgrad kernels' own shape needs (csrc/wgrad_bf16.cuh): the
-    contraction's input channels in 32-channel blocks, image rows of at
-    most 32 positions in 8-position pieces, and whole rows or images per
-    256-position staging chunk."""
+    """``conv3x3_wgrad``'s own shape needs (csrc/wgrad_bf16.cuh, whose one
+    user it is since the fused bf16 half's wgrad moved onto
+    csrc/wgrad_staged.cuh): the contraction's input channels in 32-channel
+    blocks, image rows of at most 32 positions in 8-position pieces, and
+    whole rows or images per 256-position staging chunk."""
     if cin % 32:
         raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
     hw = h * w_img
@@ -364,9 +365,9 @@ def check_wgrad_geometry(name: str, cin: int, n: int, h: int,
 
 
 def wgrad_splits(cin: int, cout: int, n: int) -> int:
-    """Position splits of the bf16 wgrad's grid: the largest power of two
-    that divides the 256-position chunks and keeps the grid near
-    WG_SPLIT_TARGET blocks."""
+    """Position splits of ``conv3x3_wgrad``'s grid (csrc/wgrad_bf16.cuh):
+    the largest power of two that divides the 256-position chunks and
+    keeps the grid near WG_SPLIT_TARGET blocks."""
     blocks = (cin // 32) * -(-cout // 64)
     chunks = n // WG_CHUNK
     s = 1

@@ -8,7 +8,9 @@
 // of fused_half_int8 with quant_bwd=False):
 //   fwd_launch       <- _fwd_call -> _fwd_kernel
 //   dgrad_launch     <- _dgrad_call -> _dgrad_kernel
-//   wgrad_launch     <- _wgrad_call -> _wgrad_kernel
+//   wgrad_pre_launch, then  <- _wgrad_call -> _wgrad_kernel
+//   wgrad_gemm_launch,         (the mainloop and its ordered sum live in
+//   wgrad_sum_launch           wgrad_staged.cuh, shared with the NV halves)
 //   partial_sum      <- the TPU kernels' sums carried across their grid
 //   seed_bits_expand <- _seed_bits written out as [C, N] uint8, only for
 //                       the card check of seed_bits.cuh
@@ -24,7 +26,9 @@
 // What bounds them on an H100 (WRN-28-10, batch 128, C = 160/320/640):
 // each conv is 2 * 9 * C^2 * N = 60.4 GFLOP (0.061 ms at 989 TFLOP/s of
 // bf16); the operands are 6-17 MB (0.044 ms at most at 3.35 TB/s). They
-// are bound by operations.
+// are bound by operations. The weight gradient's prepass alone is bound by
+// its bytes: x, dy (and y, bits) in, d_b and g_b out, 231 MB a call at C =
+// 160 with stats and bits (0.069 ms at 3.35 TB/s).
 //
 // Design:
 // - fwd and dgrad are the row-tile implicit GEMM of conv3x3_rows.cuh (the
@@ -38,10 +42,19 @@
 //   (dgrad). The dgrad's loader also writes dres = bf16(gf) for the
 //   (channel, position) it owns. Per-block sums go to the block's slot of
 //   a partial buffer and partial_sum adds the slots in order.
-// - wgrad is the position-split GEMM of wgrad_bf16.cuh (shared with
-//   conv3x3_wgrad.cu), dW[co, (tap, ci)] = sum_n g[co, n] * d[ci, n +
-//   shift(tap)], whose operand loads compute g = bf16(gf) and the
-//   prologue's d while they stage; partial_sum adds the splits in order.
+// - wgrad is three launches. A contraction reads each operand element
+//   once per (tap, tile) that uses it, so the prologue and the fold are
+//   not recomputed there: fused_wgrad_pre_kernel computes each element of
+//   d and g = bf16(gf) once (the functors the forward and the dgrad use,
+//   so the rounding points are theirs) and writes both position-major,
+//   NHWC bf16 (d_b [N, Cin], g_b [N, Cout]), transposed through shared
+//   memory: 16-byte loads along positions, 16-byte stores along channels.
+//   Then wgrad_staged.cuh's mainloop contracts them, dW[(tap, ci), co] =
+//   sum over positions of d_b[pos + shift(tap), ci] * g_b[pos, co], with
+//   the whole image as one chunk (a cp.async ring into ldmatrix.trans and
+//   mma.sync, per-piece tap offsets and border bits: no row or width
+//   limits), split over blocks by ops/cuda/bneck_nv_train.py
+//   wgrad_bf16_plan; its ordered sum adds the split tiles in order.
 // - Dropout bits are read from a [C, N] uint8 tensor or computed in
 //   registers from a seed (seed_bits.cuh) at the element's global
 //   (channel, lane): every kernel, whatever its tiling, sees one mask.
@@ -62,7 +75,7 @@
 #include "conv3x3_rows.cuh"
 #include "fused_half.cuh"
 #include "seed_bits.cuh"
-#include "wgrad_bf16.cuh"
+#include "wgrad_staged.cuh"  // the weight gradient's mainloop and ordered sum
 
 using namespace conv3x3;
 using namespace fused_half;
@@ -160,28 +173,84 @@ struct DgradEpi {
   }
 };
 
-// the wgrad's operands: g = bf16(gf), and the recomputed prologue d
-struct WgradG {
+// g = bf16(gf), 8 positions of one channel
+struct GLoad {
   Cotangent ct;
   int n;
-  __device__ __forceinline__ V8 operator()(int co, size_t pos) const {
+  __device__ __forceinline__ void operator()(int co, int pos,
+                                             __nv_bfloat16 (&g)[8]) const {
     float gf[8];
     ct(co, n, pos, gf);
-    __nv_bfloat16 g[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) g[k] = __float2bfloat16_rn(gf[k]);
-    return pack8(g);
   }
 };
 
-struct WgradD {
-  Bf16Prologue pro;
-  __device__ __forceinline__ V8 operator()(int ci, int pos) const {
-    __nv_bfloat16 d[8];
-    pro(ci, pos, d);
-    return pack8(d);
+constexpr int PRE_C = 32;   // channels a prepass tile
+constexpr int PRE_P = 128;  // positions a prepass tile
+
+// One prepass tile: PRE_C channels x PRE_P positions of a channel-major
+// operand [c, n] (src(ch, pos, v): 8 bf16 at positions pos .. pos + 7 of
+// channel ch), written position-major to out [n, c]. Tile id -> (position
+// group, channel group), channel group fastest, so blocks running together
+// write whole position rows. Thread (cp, pg) takes channels 2cp, 2cp + 1
+// at positions 8pg .. 8pg + 7 (16 threads read 256 contiguous bytes of a
+// channel row; both channels' loads are issued before their math) and
+// keeps each position's two values as one 32-bit word of the shared tile;
+// then each thread writes 16-byte runs of 8 channels of one position.
+// c % 8 == 0 and n % 8 == 0: a run or a load is whole or out of range.
+template <typename Src>
+__device__ __forceinline__ void pre_tile(const Src& src,
+                                         __nv_bfloat16* __restrict__ out,
+                                         int c, int n, int tile,
+                                         uint32_t (*words)[PRE_C / 2 + 1]) {
+  const int cgs = (c + PRE_C - 1) / PRE_C;
+  const int c0 = tile % cgs * PRE_C;
+  const long p0 = (long)(tile / cgs) * PRE_P;
+  const int cp = threadIdx.x / 16, pg = threadIdx.x % 16;
+  const int ch = c0 + 2 * cp;
+  const long pos = p0 + 8 * pg;
+  __nv_bfloat16 v[2][8];
+  if (ch < c && pos < n) {
+    src(ch, (int)pos, v[0]);
+    src(ch + 1, (int)pos, v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[0][k] = v[1][k] = __float2bfloat16_rn(0.f);
   }
-};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    __nv_bfloat162 two;
+    two.x = v[0][k];
+    two.y = v[1][k];
+    words[8 * pg + k][cp] = *reinterpret_cast<uint32_t*>(&two);
+  }
+  __syncthreads();
+  constexpr int RUNS = PRE_C / 8;  // 16-byte runs of a position's row
+#pragma unroll
+  for (int r = 0; r < PRE_P * RUNS / 256; ++r) {
+    const int idx = threadIdx.x + 256 * r;
+    const int p = idx / RUNS, run = idx % RUNS;
+    const int cc = c0 + 8 * run;
+    if (cc < c && p0 + p < n)
+      *reinterpret_cast<uint4*>(out + (p0 + p) * c + cc) =
+          make_uint4(words[p][4 * run], words[p][4 * run + 1],
+                     words[p][4 * run + 2], words[p][4 * run + 3]);
+  }
+}
+
+// d_b (tiles [0, tiles_d)) then g_b, one launch
+__global__ void __launch_bounds__(256)
+fused_wgrad_pre_kernel(Bf16Prologue pro, GLoad gl,
+                       __nv_bfloat16* __restrict__ d_b,
+                       __nv_bfloat16* __restrict__ g_b, int cin, int cout,
+                       int n, int tiles_d) {
+  __shared__ uint32_t words[PRE_P][PRE_C / 2 + 1];
+  if ((int)blockIdx.x < tiles_d)
+    pre_tile(pro, d_b, cin, n, blockIdx.x, words);
+  else
+    pre_tile(gl, g_b, cout, n, blockIdx.x - tiles_d, words);
+}
 
 __global__ void seed_bits_kernel(const int* __restrict__ seed,
                                  unsigned char* __restrict__ out, int c,
@@ -254,20 +323,47 @@ int dgrad_launch(const void* dy, const void* y, const void* dysum,
                                               h, wi, as_stream(stream));
 }
 
-// dy/y/dysum/dyssq as the dgrad's; x/scale/shift/bits/seed as the
-// forward's; part [splits][cout][9 * cin] f32, split s covering positions
-// [s * span, (s + 1) * span). cin % 32 == 0, wi % 8 == 0, wi <= 32, span
-// a multiple of 256, and 256 a multiple of h * wi or the reverse.
-int wgrad_launch(const void* dy, const void* y, const void* dysum,
-                 const void* dyssq, const void* x, const void* scale,
-                 const void* shift, const void* bits, const void* seed,
-                 void* part, int cout, int cin, int n, int h, int wi,
-                 int splits, int thresh, float keep, void* stream) {
-  return wgrad_bf16::launch(
-      WgradG{cotangent(dy, y, dysum, dyssq), n},
-      WgradD{prologue(x, scale, shift, bits, seed, n, thresh, keep)},
-      static_cast<float*>(part), cout, cin, n, h, wi, splits,
-      as_stream(stream));
+// The weight gradient, three launches. wgrad_pre: d_b [n, cin] bf16 = the
+// prologue's d from x/scale/shift/bits/seed (as the forward's), g_b [n,
+// cout] bf16 = bf16(gf) from dy/y/dysum/dyssq (as the dgrad's), each
+// element once, position-major. cin % 8 == 0, cout % 8 == 0, n % 8 == 0.
+int wgrad_pre_launch(const void* x, const void* scale, const void* shift,
+                     const void* bits, const void* seed, const void* dy,
+                     const void* y, const void* dysum, const void* dyssq,
+                     void* d_b, void* g_b, int cin, int cout, int n,
+                     int thresh, float keep, void* stream) {
+  const long pt = (n + PRE_P - 1) / PRE_P;
+  const long tiles_d = pt * ((cin + PRE_C - 1) / PRE_C);
+  const long tiles = tiles_d + pt * ((cout + PRE_C - 1) / PRE_C);
+  fused_wgrad_pre_kernel<<<(unsigned)tiles, 256, 0, as_stream(stream)>>>(
+      prologue(x, scale, shift, bits, seed, n, thresh, keep),
+      GLoad{cotangent(dy, y, dysum, dyssq), n},
+      static_cast<__nv_bfloat16*>(d_b), static_cast<__nv_bfloat16*>(g_b),
+      cin, cout, n, (int)tiles_d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wgrad_gemm: part [splits][9 * cin][cout] f32 <- the per-split products
+// of d_b (at each tap's shift) and g_b over b images of h x wi, one chunk
+// of h rows, on a (bm, bn) tile, each split ``per`` K steps of bk positions
+// (the plan of ops/cuda/bneck_nv_train.py wgrad_bf16_plan). wgrad_sum:
+// dW [9 * cin][cout] f32 <- the splits added in order.
+int wgrad_gemm_launch(const void* d_b, const void* g_b, void* part, int b,
+                      int h, int wi, int cin, int cout, int bm, int bn,
+                      int bk, int per, int splits, void* stream) {
+  const wgrad_staged::Args args{in<__nv_bfloat16>(d_b),
+                                in<__nv_bfloat16>(g_b),
+                                static_cast<float*>(part), b, h, wi, cin,
+                                cout, 9, h, per, splits};
+  return static_cast<int>(
+      wgrad_staged::launch(args, bm, bn, bk, as_stream(stream)));
+}
+
+int wgrad_sum_launch(const void* part, void* dw, int cin, int cout,
+                     int splits, void* stream) {
+  return static_cast<int>(wgrad_staged::launch_sum(
+      in<float>(part), static_cast<float*>(dw), 9L * cin * cout, 1, splits,
+      as_stream(stream)));
 }
 
 // out [c, n] uint8: the bits seed_bits.cuh computes from *seed

@@ -1,7 +1,9 @@
 // The bf16 weight gradient of a stride-1 SAME 3x3 convolution in the
-// channel-major layout [C, B*H*W], shared by fused_block_bf16.cu (whose
-// operands are computed: the folded cotangent and the block-half's
-// prologue) and conv3x3_wgrad.cu (raw operands).
+// channel-major layout [C, B*H*W]. It has one user, conv3x3_wgrad.cu (raw
+// operands); the fused block-half's wgrad (fused_block_bf16.cu), its other
+// user until then, now writes its operands once and contracts them on
+// wgrad_staged.cuh's mainloop, where conv3x3_wgrad.cu can follow with a
+// transposing prepass.
 //
 // A GEMM over positions, dW[co, (tap, ci)] = sum_n g[co, n] * d[ci, n +
 // shift(tap)], on the tensor cores (mma.sync m16n8k16, f32 accumulators in

@@ -65,7 +65,11 @@ raises):
 - ``wgrad``         (launches ``fused_half_wgrad``, ``.sum``)
 - ``fwd_bf16``      (launches ``fused_half_bf16_fwd``, ``.sum`` with stats)
 - ``dgrad_bf16``    (launches ``fused_half_bf16_dgrad``, ``.sum``)
-- ``wgrad_bf16``    (launches ``fused_half_bf16_wgrad``, ``.sum``)
+- ``wgrad_bf16``    (``wgrad_bf16_pre``, then ``wgrad_bf16_gemm``)
+- ``wgrad_bf16_pre`` (launches ``fused_half_bf16_wgrad.pre``: d and g
+  rounded once, position-major)
+- ``wgrad_bf16_gemm`` (launches ``fused_half_bf16_wgrad``, ``.sum``: the
+  staged mainloop of ``csrc/wgrad_staged.cuh`` and its ordered sum)
 - ``seed_bits_expand`` (launches ``seed_bits_expand``: the hash written out,
   for the card check only)
 
@@ -86,6 +90,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.bneck_nv_train import (
+    wgrad_bf16_plan,
+)
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
     check_rc,
     on_cpu,
@@ -93,13 +100,11 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
 )
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
     _conv_f64,
-    check_wgrad_geometry,
     pack_weights,
     pack_weights_dgrad,
     pad_rows,
     patches_f64,
     pick_tile,
-    wgrad_splits,
 )
 
 launches: collections.Counter = collections.Counter()
@@ -437,6 +442,25 @@ def wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
     return (g.to(torch.float64) @ patches_f64(d, h, w_img).T).to(_F32)
 
 
+def wgrad_bf16_pre_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *,
+                         thresh):
+    """The weight gradient's operands, each rounded once, position-major
+    (N = B*H*W image-major: NHWC), both contiguous: (d_b [N, Cin] = the
+    prologue's d, g_b [N, Cout] = round(gf), dy itself without stats
+    cotangents)."""
+    g = (dy if y is None
+         else fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype))
+    d = prologue_bf16_plain(x, scale, shift, bits, thresh)
+    return d.t().contiguous(), g.t().contiguous()
+
+
+def wgrad_bf16_gemm_plain(d_b, g_b, *, h, w_img):
+    """dW [9*Cin, Cout] f32, rows in (dh, dw, ci) order, from the rounded
+    position-major operands: the float64 contraction over every position,
+    rounded to f32."""
+    return (patches_f64(d_b.t(), h, w_img) @ g_b.to(torch.float64)).to(_F32)
+
+
 # --- kernels -------------------------------------------------------------------------
 
 _lib: Optional[ctypes.CDLL] = None
@@ -722,7 +746,9 @@ def _library_bf16() -> ctypes.CDLL:
         sigs = {
             "fwd_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
             "dgrad_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
-            "wgrad_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+            "wgrad_pre_launch": [_P] * 11 + [_I] * 4 + [_F, _P],
+            "wgrad_gemm_launch": [_P] * 3 + [_I] * 10 + [_P],
+            "wgrad_sum_launch": [_P, _P, _I, _I, _I, _P],
             "seed_bits_expand_launch": [_P, _P, _I, _I, _P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
         }
@@ -796,6 +822,18 @@ def fwd_bf16(x, w_packed, scale, shift, bits, res, *, thresh, h, w_img,
     return y, sums[:cout], sums[cout:]
 
 
+def _cot_operands(dy, y, dysum, dyssq):
+    """The cotangent's tensors a backward launch checks, and its f32 stats
+    cotangents (contiguous): (extra, extra dtypes, dysum, dyssq)."""
+    extra, extra_dt = [dy], [torch.bfloat16]
+    if y is not None:
+        dysum = dysum.to(_F32).contiguous()
+        dyssq = dyssq.to(_F32).contiguous()
+        extra += [y, dysum, dyssq]
+        extra_dt += [torch.bfloat16, _F32, _F32]
+    return extra, extra_dt, dysum, dyssq
+
+
 def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
                h, w_img, emit_res):
     """The bf16 half's input gradient: (dx [Cin, N] bf16, d(scale),
@@ -810,12 +848,9 @@ def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
     if tuple(w_dg.shape) != (cin, 9 * cout):
         raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
     _check_bf16_geometry(name, cout, n, h, w_img)
-    extra, extra_dt = [dy, w_dg], [torch.bfloat16, torch.bfloat16]
-    if y is not None:
-        dysum = dysum.to(_F32).contiguous()
-        dyssq = dyssq.to(_F32).contiguous()
-        extra += [y, dysum, dyssq]
-        extra_dt += [torch.bfloat16, _F32, _F32]
+    extra, extra_dt, dysum, dyssq = _cot_operands(dy, y, dysum, dyssq)
+    extra.append(w_dg)
+    extra_dt.append(torch.bfloat16)
     scale, shift, bits_p, seed_p, seeded = _bf16_operands(
         name, x, scale, shift, bits, extra, extra_dt)
     dev = dy.device
@@ -835,36 +870,85 @@ def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
     return dx, sums[:cin], sums[cin:], dres
 
 
+def wgrad_bf16_pre(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh):
+    """The weight gradient's operands, each element computed once:
+    (d_b [N, Cin], g_b [N, Cout]) bf16, position-major (NHWC), d the
+    prologue's and g = bf16(gf), as the forward and the dgrad round them.
+    One launch writes both; in seed mode it rebuilds the mask."""
+    if on_cpu(dy):
+        return wgrad_bf16_pre_plain(dy, y, dysum, dyssq, x, scale, shift,
+                                    bits, thresh=thresh)
+    name = "fused_half_bf16_wgrad.pre"
+    cout, n = dy.shape
+    cin = x.shape[0]
+    if x.shape[1] != n:
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs dy "
+                         f"{tuple(dy.shape)}")
+    if cin % 8 or cout % 8 or n % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}, N={n}: each "
+                         "must be a multiple of 8")
+    extra, extra_dt, dysum, dyssq = _cot_operands(dy, y, dysum, dyssq)
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, extra, extra_dt)
+    d_b = torch.empty((n, cin), dtype=torch.bfloat16, device=dy.device)
+    g_b = torch.empty((n, cout), dtype=torch.bfloat16, device=dy.device)
+    _launch(name, _library_bf16().wgrad_pre_launch, x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            dy.data_ptr(), _ptr(y), _ptr(dysum), _ptr(dyssq),
+            d_b.data_ptr(), g_b.data_ptr(), cin, cout, n, thresh or 256,
+            inv_keep(thresh) if bits is not None else 1.0, _stream(dy),
+            seed=seeded)
+    return d_b, g_b
+
+
+def wgrad_bf16_gemm(d_b, g_b, *, h, w_img):
+    """dW [9*Cin, Cout] f32, rows in (dh, dw, ci) order, from the rounded
+    position-major operands d_b [N, Cin] and g_b [N, Cout] bf16: the f32
+    contraction over whole images (one chunk), split over blocks by
+    ``bneck_nv_train.wgrad_bf16_plan``, the splits added in order (bit for
+    bit the same every run)."""
+    if on_cpu(d_b):
+        return wgrad_bf16_gemm_plain(d_b, g_b, h=h, w_img=w_img)
+    name = "fused_half_bf16_wgrad"
+    n, cin = d_b.shape
+    cout = g_b.shape[1]
+    if g_b.shape[0] != n or n % (h * w_img):
+        raise ValueError(f"{name}: d {tuple(d_b.shape)}, g "
+                         f"{tuple(g_b.shape)} are not whole {h}x{w_img} "
+                         "images")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}: each must be a "
+                         "multiple of 8")
+    require_cuda(name, [d_b, g_b], [torch.bfloat16] * 2)
+    b = n // (h * w_img)
+    plan = wgrad_bf16_plan(b, h, w_img, cin, cout, 9, h)
+    if plan.splits > 65535:
+        raise ValueError(f"{name}: {plan.splits} splits at N={n} exceed "
+                         "the grid")
+    part = torch.empty((plan.splits, 9 * cin * cout), dtype=_F32,
+                       device=d_b.device)
+    dw = torch.empty((9 * cin, cout), dtype=_F32, device=d_b.device)
+    lib, stream = _library_bf16(), _stream(d_b)
+    _launch(name, lib.wgrad_gemm_launch, d_b.data_ptr(), g_b.data_ptr(),
+            part.data_ptr(), b, h, w_img, cin, cout, plan.bm, plan.bn,
+            plan.bk, plan.per, plan.splits, stream)
+    _launch(f"{name}.sum", lib.wgrad_sum_launch, part.data_ptr(),
+            dw.data_ptr(), cin, cout, plan.splits, stream)
+    return dw
+
+
 def wgrad_bf16(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh, h,
                w_img):
     """The bf16 half's weight gradient: dW [Cout, 9*Cin] f32, columns in
-    (dh, dw, ci) order, summed over every position."""
+    (dh, dw, ci) order, summed over every position (on the card
+    ``wgrad_bf16_pre``, then ``wgrad_bf16_gemm``, whose [9*Cin, Cout]
+    result this returns transposed)."""
     if on_cpu(dy):
         return wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits,
                                 thresh=thresh, h=h, w_img=w_img)
-    name = "fused_half_bf16_wgrad"
-    cout, n = dy.shape
-    cin = x.shape[0]
-    _check_bf16_geometry(name, cin, n, h, w_img)
-    check_wgrad_geometry(name, cin, n, h, w_img)
-    extra, extra_dt = [dy], [torch.bfloat16]
-    if y is not None:
-        dysum = dysum.to(_F32).contiguous()
-        dyssq = dyssq.to(_F32).contiguous()
-        extra += [y, dysum, dyssq]
-        extra_dt += [torch.bfloat16, _F32, _F32]
-    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
-        name, x, scale, shift, bits, extra, extra_dt)
-    splits = wgrad_splits(cin, cout, n)
-    part = torch.empty((splits, cout * 9 * cin), dtype=_F32,
-                       device=dy.device)
-    lib = _library_bf16()
-    _launch(name, lib.wgrad_launch, dy.data_ptr(), _ptr(y), _ptr(dysum),
-            _ptr(dyssq), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            bits_p, seed_p, part.data_ptr(), cout, cin, n, h, w_img, splits,
-            thresh or 256, inv_keep(thresh) if bits is not None else 1.0,
-            _stream(dy), seed=seeded)
-    return _partial_sum(f"{name}.sum", part, lib).reshape(cout, 9 * cin)
+    d_b, g_b = wgrad_bf16_pre(dy, y, dysum, dyssq, x, scale, shift, bits,
+                              thresh=thresh)
+    return wgrad_bf16_gemm(d_b, g_b, h=h, w_img=w_img).t()
 
 
 def seed_bits_expand(seed: torch.Tensor, cin: int, n: int) -> torch.Tensor:

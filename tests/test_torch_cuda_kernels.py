@@ -473,16 +473,90 @@ def test_fused_half_bf16_op_launches_its_kernels(dev):
         (y.float().sum() + ys.sum() + yq.sum()).backward()
         torch.cuda.synchronize()
         bwd = ("fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
-               "fused_half_bf16_wgrad", "fused_half_bf16_wgrad.sum")
+               "fused_half_bf16_wgrad.pre", "fused_half_bf16_wgrad",
+               "fused_half_bf16_wgrad.sum")
         fwd = (("fused_half_bf16_fwd", "fused_half_bf16_fwd.sum") if not kw
                else ("fused_half_fwd.amax", "fused_half_fwd.quant",
                      "fused_half_fwd", "fused_half_fwd.sum"))
         assert dict(fb.launches) == {name: 1 for name in fwd + bwd}
+        # the wgrad's prepass rebuilds the mask; its mainloop reads d_b
         seeded = {name for name in fwd + bwd if not name.endswith(".sum")
-                  and name != "fused_half_fwd"}
+                  and name not in ("fused_half_fwd", "fused_half_bf16_wgrad")}
         assert dict(fb.seed_launches) == {name: 1 for name in seeded}
         for t in (x, wt, scale, shift):
             assert torch.isfinite(t.grad).all()
+
+
+# (Cin, Cout, h, w, batch, bits mode) of the staged fused wgrad: geometries
+# the old kernel refused (12 x 12 images, rows of 40 and of 7, Cin = 24),
+# then WRN-28-10's first stage at a smaller batch
+FUSED_WGRAD_SHAPES = [(64, 64, 12, 12, 8, "bits"), (64, 64, 12, 12, 8, "seed"),
+                      (32, 48, 5, 40, 4, "none"), (24, 16, 7, 7, 8, "bits"),
+                      (160, 160, 32, 32, 16, "seed")]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b,mode", FUSED_WGRAD_SHAPES)
+def test_fused_wgrad_bf16_staged_matches_plain(dev, cin, cout, h, w, b,
+                                               mode):
+    """The fused bf16 wgrad on the staged mainloop, with and without the
+    stats cotangents: the prepass's d_b and g_b equal its plain version's
+    byte for byte; dW within 1e-4 of the plain version's largest value
+    (``_mma_sums``) and the same bit for bit in two calls (the splits are
+    added in a fixed order); each call launches the prepass (seeded in seed
+    mode), the mainloop and the sum once."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + w)
+    n = b * h * w
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = rn(cin, n).to(torch.bfloat16)
+    dy, y = rn(cout, n, s=1e-3).to(torch.bfloat16), rn(cout, n).to(
+        torch.bfloat16)
+    scale, shift = rn(cin).abs() + 0.5, rn(cin, s=0.3)
+    thresh, bits = _drop(mode, dev, g, cin, n)
+    names = ("fused_half_bf16_wgrad.pre", "fused_half_bf16_wgrad",
+             "fused_half_bf16_wgrad.sum")
+    for cts in ((y, rn(cout, s=1e-4), rn(cout, s=1e-4)), (None,) * 3):
+        args = (dy, *cts, x, scale, shift, bits)
+        kw = dict(thresh=thresh, h=h, w_img=w)
+        fb.reset_launches()
+        d_b, g_b = fb.wgrad_bf16_pre(*args, thresh=thresh)
+        want = fb.wgrad_bf16_pre_plain(*args, thresh=thresh)
+        first = fb.wgrad_bf16(*args, **kw)
+        second = fb.wgrad_bf16(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(d_b, want[0]) and torch.equal(g_b, want[1])
+        assert torch.equal(first, second)
+        assert dict(fb.launches) == dict(zip(names, (3, 2, 2)))
+        assert dict(fb.seed_launches) == ({names[0]: 3} if mode == "seed"
+                                          else {})
+        _mma_sums(first, fb.wgrad_bf16_plain(*args, **kw))
+
+
+def test_fused_wgrad_bf16_refuses_what_it_cannot_take(dev):
+    """The staged fused wgrad raises on what its kernels do not take
+    (channels or positions not a multiple of 8, operands that are not whole
+    images, another dtype), launching nothing."""
+    x = torch.zeros((32, 8 * 36), dtype=torch.bfloat16, device=dev)
+    one = torch.ones(32, device=dev)
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fb.wgrad_bf16_pre(x.float(), None, None, None, x, one, one, None,
+                          thresh=None)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.wgrad_bf16_pre(x[:12].contiguous(), None, None, None, x, one,
+                          one, None, thresh=None)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.wgrad_bf16_pre(x[:, :36 * 7].contiguous(), None, None, None,
+                          x[:, :36 * 7].contiguous(), one, one, None,
+                          thresh=None)
+    d_b = x.t().contiguous()
+    with pytest.raises(ValueError, match="whole 5x5 images"):
+        fb.wgrad_bf16_gemm(d_b, d_b, h=5, w_img=5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.wgrad_bf16_gemm(d_b, d_b[:, :12].contiguous(), h=6, w_img=6)
+    assert not fb.launches
 
 
 def test_fused_half_bf16_never_falls_back(dev):
