@@ -162,20 +162,27 @@ Phases, each fatal on failure:
    (160 -> 320 channels, 32x32 -> 16x16; 320 -> 640, 16x16 -> 8x8) hold
    the transition half's kernels (ops/cuda/csrc/transition.cu) against
    their plain versions on the same CUDA tensors: the forward (the fused
-   half's quantizer at the transition's scale groups, then the stride-2
-   int8 conv with the projection) with dropout bits, without, and with the
-   option-A shortcut at stage 2; the FQT quantizers and the
-   straight-through fold (the rounded cotangent and the bf16 prologue);
-   the dgrad and the wgrad (with dWp) of both bodies. Int8 codes, group
-   absmaxes, z, the fold and the FQT dW equal; res and dx within 2 bf16
-   ulps; f32 sums within 1e-5 (1e-4 over bf16 tensor-core accumulators). Each is timed beside its plain version and
-   cuDNN's bf16 stride-2 3x3 conv plus the 1x1 stride-2 projection
-   (forward, input gradient, weight gradient; channels-last).
+   half's amax pass at the transition's scale groups, the prepass that
+   quantizes each group's parity planes once into a position-major int8
+   slab and writes the raw even-even plane into a bf16 slab, then
+   csrc/fwd_staged_s8.cuh's cp.async ring into ldmatrix and s8 mma.sync at
+   nine tap shifts and its bf16 instantiation for the projection, with a
+   channel-major epilogue, then the ordered sum) with dropout bits,
+   without, and with the option-A shortcut at stage 2; the FQT quantizers
+   and the straight-through fold (the rounded cotangent and the bf16
+   prologue); the dgrad and the wgrad (with dWp) of both bodies. Int8
+   codes, group absmaxes, the forward's slabs (byte for byte), z, the fold
+   and the FQT dW equal; res and dx within 2 bf16 ulps; f32 sums within
+   1e-5 (1e-4 over bf16 tensor-core accumulators); the forward's z, res
+   and sums bit-equal over two calls. Each is timed beside its plain
+   version and cuDNN's bf16 stride-2 3x3 conv plus the 1x1 stride-2
+   projection (forward, input gradient, weight gradient; channels-last),
+   the forward's three parts (amax pass, prepass, mainloop + sum) apart
+   beside their bounds; the prepass is also a kernel row of its own.
 16. Training, the eighth main path: the ``-int8`` recipe of phase 7 with
    ``use_lane_transition: True``. With the launch counts zeroed just
    before, each step must launch the transition kernels twice each (the
-   two stage transitions), the 22 fused halves' kernels as in phase 7
-   (the quantizer twice more: it serves the transitions too), the stem
+   two stage transitions), the 22 fused halves' kernels as in phase 7, the stem
    and the augment kernel (LANE_FQT_PER_STEP); in the first step the lane
    run must stay open from the stem to the head (one NHWC -> lane entry at
    the stem, one close before the head, no block converting). Losses
@@ -418,20 +425,19 @@ FQT_PER_STEP = {
     "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
     "fused_half_wgrad": 22, "fused_half_wgrad.sum": 22}
 # launches of one lane-transition step: the 22 halves as above, plus the
-# two transition halves (each one forward, its quantizer on the fused half's
-# fused_half_fwd.amax/.quant, one backward fold or quantizer, dgrad, wgrad
+# two transition halves (each one forward: its amax pass, prepass, staged
+# mainloop and ordered sum; one backward fold or quantizer, dgrad, wgrad
 # and dWp, with their ordered sums)
-_TR_STEP = {"transition_fwd": 2, "transition_fwd.sum": 2,
+_TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
+            "transition_fwd": 2, "transition_fwd.sum": 2,
             "transition_dgrad": 2, "transition_dgrad.sum": 2,
             "transition_wgrad": 2, "transition_wgrad.sum": 2,
             "transition_wgrad.proj": 2, "transition_wgrad.proj_sum": 2}
 LANE_FQT_PER_STEP = {
-    **FQT_PER_STEP, **_TR_STEP, "fused_half_fwd.amax": 24,
-    "fused_half_fwd.quant": 24, "transition_bwd.amax": 2,
+    **FQT_PER_STEP, **_TR_STEP, "transition_bwd.amax": 2,
     "transition_bwd.quant": 2}
 LANE_QAT_PER_STEP = {
-    **QAT_PER_STEP, **_TR_STEP, "fused_half_fwd.amax": 24,
-    "fused_half_fwd.quant": 24, "transition_bwd.fold": 2}
+    **QAT_PER_STEP, **_TR_STEP, "transition_bwd.fold": 2}
 LANE_QAT_STEPS = 6
 F32_SUMS = ("ysum", "yssq", "zsum", "zssq", "ds", "dt", "db", "dw_stem")
 # dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
@@ -847,9 +853,10 @@ KERNEL_KINDS = [
     ("conv3x3_same wgrad (port)", ("RawRows",)),
     ("fused bf16 half (port)", ("FwdLoad", "DgradLoad",
                                 "fused_wgrad_pre")),
-    ("transition (port)", ("fwd_kernel<", "dgrad_kernel<",
-                           "bwd_amax_kernel", "bwd_quant_kernel",
-                           "bwd_fold_kernel", "wgrad_kernel<")),
+    ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
+                           "dgrad_kernel<", "bwd_amax_kernel",
+                           "bwd_quant_kernel", "bwd_fold_kernel",
+                           "wgrad_kernel<")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
                                 "partial_sum")),
@@ -1803,12 +1810,15 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
 # --- phases 15 and 16: lane-through stage transitions --------------------------
 
 TR_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/transition.cu"
-TR_NAMES = ("transition_fwd", "transition_bwd", "transition_dgrad",
-            "transition_wgrad")
+TR_NAMES = ("transition_fwd", "transition_fwd.pre", "transition_bwd",
+            "transition_dgrad", "transition_wgrad")
+# the forward GEMM's mainloop, shared with the NV halves' int8 forward
+TR_MAINLOOP = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh"
 # (stage, cin, cout, h, w): the inputs of WRN-28-10's two stage transitions
 TR_SHAPES = [(2, 160, 320, 32, 32), (3, 320, 640, 16, 16)]
 # the FQT step's rows of each kernel (the recipe's case: projection, bits)
-TR_STEP_MODE = {"transition_fwd": "proj+bits", "transition_bwd": "fqt",
+TR_STEP_MODE = {"transition_fwd": "proj+bits",
+                "transition_fwd.pre": "proj+bits", "transition_bwd": "fqt",
                 "transition_dgrad": "fqt+proj", "transition_wgrad": "fqt"}
 
 
@@ -1874,7 +1884,7 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
 
-    flops_bf16, ops_int8, bw, _ = peaks
+    flops_bf16, ops_int8, bw, flops_f32 = peaks
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
@@ -1914,16 +1924,76 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                 library_ms=lib_ms, ops_ms=ops_ms,
                 bytes_ms=byts / bw * 1e3))
 
-        def fwd(bits_, wp_, plain):
-            q, conv = ((fb.fwd_quantize_plain, tr.fwd_conv_plain) if plain
-                       else (fb.fwd_quantize, tr.fwd_conv))
-            th = thresh if bits_ is not None else None
-            d_q, amax = q(x, scale, shift, bits_, thresh=th, tile=4 * tile)
-            z, zs, zq, res = conv(d_q, amax, wq, ws, x, wp_, tile=tile, **kw)
-            return dict(d_q=d_q, amax=amax, z=z, zsum=zs, zssq=zq, res=res)
+        lay = tr.transition_fwd_layout(n, h, w, cin, cout, tile)
+        # the bytes the forward's function needs between its prepass and
+        # its mainloop: the int8 codes of d and the bf16 even-even plane,
+        # unpadded (the slabs' pad rows, columns, guards, tail and pad
+        # channels are this design's)
+        need_sb = cin * n + 2 * cin * n // 4
 
-        fwd_tol = dict(d_q="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5,
-                       res="ulp")
+        def fwd(bits_, wp_, plain):
+            """The forward's outputs; plain: the layout-independent
+            reference (the quantizer, then the direct stride-2 conv)."""
+            th = thresh if bits_ is not None else None
+            if plain:
+                d_q, amax = fb.fwd_quantize_plain(x, scale, shift, bits_,
+                                                  thresh=th, tile=4 * tile)
+                z, zs, zq, res = tr.fwd_conv_plain(d_q, amax, wq, ws, x, wp_,
+                                                   tile=tile, **kw)
+                return dict(amax=amax, z=z, zsum=zs, zssq=zq, res=res)
+            part = tr.fwd_amax(x, scale, shift, bits_, thresh=th, tile=tile)
+            slab, ee, amax = tr.fwd_pre(x, scale, shift, bits_, part,
+                                        thresh=th, lay=lay)
+            z, zs, zq, res = tr.fwd_gemm(slab, ee, amax, wq, ws, wp_, lay)
+            return dict(slab=slab, ee=ee, amax=amax, z=z, zsum=zs, zssq=zq,
+                        res=res)
+
+        def fwd_parts(bits_, wp_):
+            """The forward's z, res and sums bit-equal over two calls; its
+            three parts timed apart beside their plain versions and
+            bounds: the amax pass (x and the bits in), the prepass (x and
+            the bits in, the codes and the even-even plane out), the
+            mainloop + ordered sum (those and the weights in, z and res
+            out, or its operations)."""
+            first, second = fwd(bits_, wp_, False), fwd(bits_, wp_, False)
+            for k in ("z", "zsum", "zssq", "res"):
+                assert torch.equal(first[k], second[k]), (
+                    "transition_fwd", stage, k)
+            th = thresh if bits_ is not None else None
+            slab, ee, amax = first["slab"], first["ee"], first["amax"]
+            part = tr.fwd_amax(x, scale, shift, bits_, thresh=th, tile=tile)
+            xb = 2 * cin * n + (cin * n if bits_ is not None else 0)
+            sb = slab.numel() + 2 * ee.numel()
+            wb = 9 * cin * cout + (2 * cin * cout if wp_ is not None else 0)
+            out = {}
+            for key, (kern, plain) in dict(
+                    amax=(lambda: tr.fwd_amax(x, scale, shift, bits_,
+                                              thresh=th, tile=tile),
+                          lambda: tr.fwd_amax_plain(x, scale, shift, bits_,
+                                                    thresh=th, tile=tile)),
+                    pre=(lambda: tr.fwd_pre(x, scale, shift, bits_, part,
+                                            thresh=th, lay=lay),
+                         lambda: tr.fwd_pre_plain(x, scale, shift, bits_,
+                                                  part, thresh=th, lay=lay)),
+                    gemm=(lambda: tr.fwd_gemm(slab, ee, amax, wq, ws, wp_,
+                                              lay),
+                          lambda: tr.fwd_gemm_plain(slab, ee, amax, wq, ws,
+                                                    wp_, lay))).items():
+                out[f"{key}_ms"] = time_ms(kern, 10)
+                out[f"{key}_plain_ms"] = time_ms(plain, 1)
+            out["amax_bound_ms"] = xb / bw * 1e3
+            out["pre_bound_ms"] = (xb + need_sb) / bw * 1e3
+            out["gemm_bound_ms"] = max(
+                (need_sb + wb + 4 * cout * n_out) / bw,
+                2 * macs / ops_int8 + (2 * pmacs / flops_bf16
+                                       if wp_ is not None else 0)) * 1e3
+            out["layout"] = dict(cp=lay.cp, bk=lay.bk, cpb=lay.cpb,
+                                 groups=lay.groups, tiles=lay.tiles,
+                                 m_rows=lay.tiles * lay.bm, live_rows=n_out,
+                                 slab_mb=sb / 1e6, need_mb=need_sb / 1e6)
+            return out
+
+        fwd_tol = dict(amax="eq", z="eq", zsum=1e-5, zssq=1e-5, res="ulp")
         for opt_a in optas:
             for b_ in ((bits, None) if not opt_a else (bits,)):
                 wp_ = None if opt_a else wp
@@ -1940,6 +2010,22 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                     2 * macs / ops_int8 * 1e3
                     + (2 * pmacs / flops_bf16 * 1e3 if wp_ is not None
                        else 0))
+                rows[-1].update(fwd_parts(b_, wp_))
+                th = thresh if b_ is not None else None
+                part = tr.fwd_amax(x, scale, shift, b_, thresh=th, tile=tile)
+                pre_out = tr.fwd_pre(x, scale, shift, b_, part, thresh=th,
+                                     lay=lay)
+                add("transition_fwd.pre", mode,
+                    lambda b_=b_, th=th, part=part: dict(zip(
+                        ("slab", "ee", "amax"), tr.fwd_pre(
+                            x, scale, shift, b_, part, thresh=th, lay=lay))),
+                    lambda b_=b_, th=th, part=part: dict(zip(
+                        ("slab", "ee", "amax"), tr.fwd_pre_plain(
+                            x, scale, shift, b_, part, thresh=th, lay=lay))),
+                    dict(slab="eq", ee="eq", amax="eq"), None,
+                    2 * cin * n + (cin * n if b_ is not None else 0)
+                    + need_sb, 4 * cin * n / flops_f32 * 1e3)
+                del part, pre_out
 
         z = fwd(bits, wp, True)["z"]
         dz = randn(cout, n_out, s=1e-3).to(bf)
@@ -2087,9 +2173,12 @@ class RecordTransition:
 
 def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
                quant_bwd, plain):
-    """The transition half's stages as dicts: the forward (quantizer and
-    conv) and the backward of one body (quantizers or fold, dgrad, wgrad
-    and dWp), through the kernels or the plain versions."""
+    """The transition half's stages as dicts: the forward (amax pass,
+    prepass, mainloop; plain: the prepass's slabs, and z, res and the sums
+    from the quantizer and the direct stride-2 conv, which do not depend
+    on the slabs' layout) and the backward of one body (quantizers or
+    fold, dgrad, wgrad and dWp), through the kernels or the plain
+    versions."""
     cin, n = x.shape
     cout = w1.shape[0]
     tile = tr.transition_tile(h // 2, w // 2, n // 4, cin, cout)
@@ -2097,11 +2186,23 @@ def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
     wq, ws = fb.quantize_pack_weights(w1)
     wp_c = None if wp is None else wp.reshape(cout, cin).to(
         x.dtype).contiguous()
-    q, conv = ((fb.fwd_quantize_plain, tr.fwd_conv_plain) if plain
-               else (fb.fwd_quantize, tr.fwd_conv))
-    d_q, amax = q(x, scale, shift, bits, thresh=thresh, tile=4 * tile)
-    z, zs, zq, res = conv(d_q, amax, wq, ws, x, wp_c, tile=tile, **kw)
-    out = dict(d_q=d_q, amax=amax, z=z, zsum=zs, zssq=zq, res=res)
+    lay = tr.transition_fwd_layout(n, h, w, cin, cout, tile)
+    if plain:   # the slabs, and the layout-independent z, res and sums
+        slab, ee, _ = tr.fwd_pre_plain(
+            x, scale, shift, bits, tr.fwd_amax_plain(
+                x, scale, shift, bits, thresh=thresh, tile=tile),
+            thresh=thresh, lay=lay)
+        d_q, amax = fb.fwd_quantize_plain(x, scale, shift, bits,
+                                          thresh=thresh, tile=4 * tile)
+        z, zs, zq, res = tr.fwd_conv_plain(d_q, amax, wq, ws, x, wp_c,
+                                           tile=tile, **kw)
+        del d_q
+    else:
+        part = tr.fwd_amax(x, scale, shift, bits, thresh=thresh, tile=tile)
+        slab, ee, amax = tr.fwd_pre(x, scale, shift, bits, part,
+                                    thresh=thresh, lay=lay)
+        z, zs, zq, res = tr.fwd_gemm(slab, ee, amax, wq, ws, wp_c, lay)
+    out = dict(slab=slab, ee=ee, amax=amax, z=z, zsum=zs, zssq=zq, res=res)
     wpt = None if wp is None else wp_c.t().contiguous()
     dz, dzsum, dzssq, dres = ct
     cts = (dz, z, dzsum, dzssq)
@@ -2153,7 +2254,8 @@ def live_transition_check(rec, quant_bwd: bool):
                  for plain in (False, True))
     for name, live in zip(("z", "zsum", "zssq", "res"), rec["out"]):
         assert torch.equal(got[name], live), name
-    tol = dict(d_q="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5, res="ulp",
+    tol = dict(slab="eq", ee="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5,
+               res="ulp",
                g_q="eq", g_amax="eq", d_q2="eq", d_amax="eq", g="eq", d="eq",
                dx="ulp", ds=1e-5 if quant_bwd else 1e-4,
                dt=1e-5 if quant_bwd else 1e-4,
@@ -2170,6 +2272,7 @@ def transition_summary(rows, lane_fqt, lane_qat):
     the step's two transitions."""
     launch_names = {
         "transition_fwd": ("transition_fwd",),
+        "transition_fwd.pre": ("transition_fwd.pre",),
         "transition_bwd": ("transition_bwd.amax", "transition_bwd.fold"),
         "transition_dgrad": ("transition_dgrad",),
         "transition_wgrad": ("transition_wgrad",)}
@@ -2184,10 +2287,11 @@ def transition_summary(rows, lane_fqt, lane_qat):
                            for k in launch_names[name])
                 for label, run in (("lane_fqt", lane_fqt),
                                    ("lane_qat", lane_qat))}
+        fwd = name.startswith("transition_fwd")
         out.append(dict(
             name=name, route="cuda", source=TR_SOURCE,
-            replaces=_PALLAS + ("transition.py:357" if name ==
-                                "transition_fwd" else "transition.py:619"),
+            replaces=_PALLAS + ("transition.py:357" if fwd
+                                else "transition.py:619"),
             launches=sum(runs.values()), split_launches=runs,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -2202,6 +2306,15 @@ def transition_summary(rows, lane_fqt, lane_qat):
                                        "plain_ms", "library_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}
                     for r in mine]))
+        if name == "transition_fwd":   # its parts, and the shared mainloop
+            out[-1].update(
+                mainloop=TR_MAINLOOP,
+                **{k: sum(r[k] for r in step) for k in PART_KEYS},
+                part_launches={label: {k: run["launches"].get(k, 0) for k in (
+                    "transition_fwd.amax", "transition_fwd.pre",
+                    "transition_fwd", "transition_fwd.sum")}
+                    for label, run in (("lane_fqt", lane_fqt),
+                                       ("lane_qat", lane_qat))})
     return out
 
 

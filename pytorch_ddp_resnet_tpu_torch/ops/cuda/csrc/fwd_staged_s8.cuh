@@ -53,6 +53,18 @@
 // saved 3% of those halves' mainloop; three blocks an SM for the 64-wide
 // tile (80 registers, no spills) ran no faster.
 //
+// The mainloop is shared (mainloop<T, BN, BK, SPAN>): its operands are byte
+// rows; its tap shifts are the linear form above (the NV halves) or, with
+// SPAN, a table of up to 9 position offsets, each 16-byte piece of a K
+// step at its own tap (so the K step need not divide a tap's channels) and
+// the weights' K bytes past their row read as zeros; its element type only
+// picks the mma.sync (s8 m16n8k32 -> s32, or bf16 m16n8k16 -> f32: the
+// fragments are the same bytes). transition.cu's stride-2 forward runs it
+// twice a tile, on its int8 parity-plane slab and on its bf16 even-even
+// slab, with the channel-major epilogue below (stage_cm, write_cm, sums_cm:
+// outputs [Cout, lanes], each row at its own scale, each tile's live rows
+// one run of lanes).
+//
 // Left for later: wgmma and TMA (the slabs are K-major, as wgmma's s8
 // operands must be), clusters, and the slab's bytes (written once by the
 // prepass, read back).
@@ -72,13 +84,14 @@ namespace fwd_staged_s8 {
 using wgrad_staged::cp_async16;
 using wgrad_staged::cp_async_commit;
 using wgrad_staged::cp_async_wait;
+using wgrad_staged::mma_bf16;
 using wgrad_staged::smem_u32;
 using wgrad_staged::SMEM_PER_BLOCK;
 using wgrad_staged::THREADS;
 using wgrad_staged_s8::ldmatrix_x4;
 using wgrad_staged_s8::mma_s8;
 
-constexpr int BM = 128;  // output positions a tile (the layout's bm)
+constexpr int BM = 128;     // output positions a tile (the layout's bm)
 
 struct Args {
   const signed char* slab;  // [chunks][slab_len][cp] int8
@@ -92,6 +105,31 @@ struct Args {
   // tap (dy, dx)'s slab position offset: shift0 + dy * shift_row + dx *
   // shift_col (the layout's shifts; the 1x1's tap is (0, 0))
   int shift0, shift_row, shift_col;
+};
+
+// The product of the element type: s8 m16n8k32 into s32, bf16 m16n8k16
+// into f32 (the same fragment bytes).
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<signed char> {
+  using Acc = int;
+  static __device__ __forceinline__ void run(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_s8(d, a, b0, b1);
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16> {
+  using Acc = float;
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16(d, a, b0, b1);
+  }
 };
 
 // Tile geometry: BK bytes a K step, a ring of STAGES steps (4 where two
@@ -118,15 +156,138 @@ struct Tile {
   static constexpr int POS_OFF = BM * OS * 2;
   static constexpr int RED_OFF = POS_OFF + BM * 4;
   static constexpr int EPI_BYTES = RED_OFF + 2 * PARTS * BN * 4;
-  static constexpr int SMEM = STAGES * STAGE_BYTES > EPI_BYTES
-                                  ? STAGES * STAGE_BYTES
-                                  : EPI_BYTES;
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = RING > EPI_BYTES ? RING : EPI_BYTES;
   static_assert(BN == 64 || BN == 128, "BN");
   static_assert(BK == 64 || BK == 128, "BK");
   static_assert(BM % RPP == 0 && BN % RPP == 0, "whole pieces a thread");
   static_assert(WN % 16 == 0, "a warp takes pairs of n8 fragments");
   static_assert(SMEM <= SMEM_PER_BLOCK, "two blocks an SM");
 };
+
+// One mainloop's operands, in bytes: K is (tap, byte of the tap's pitch)
+// in krow / BK steps; B row n (output column n0 + n) is b + n * b_ld + kt *
+// BK (B rows at or past b_rows are zero). A row r of the tile at K byte k =
+// (tap t, byte c) is a + (r + shift(t)) * pitch + c. With SPAN (the
+// transition's forward) each 16-byte piece of a step finds its own tap in
+// the table `shift`, so a step may span taps where the pitch (a multiple
+// of 16) is not a multiple of BK; krow is the weights' b_ld bytes rounded
+// up to BK, and the pieces at K bytes at or past b_ld read zeros for B
+// (and any A row). Without SPAN (the NV halves' 3x3 and 1x1: pitch a
+// multiple of BK, krow = b_ld = taps * pitch) a step lies in one tap,
+// found by a division, its shift sh0 + dy * sh_row + dx * sh_col. Every A
+// row of every tap is one 16-byte-aligned copy: no masks.
+struct Operands {
+  const unsigned char* a;  // the tile's first row, before the tap shift
+  const unsigned char* b;  // the block's first output column's weights
+  const int* shift;        // SPAN: [taps]
+  int sh0, sh_row, sh_col;  // without SPAN
+  int pitch;               // bytes a position
+  int taps;
+  int b_rows;              // output columns from n0 to the end
+  int krow;                // K bytes walked (a multiple of BK)
+  int b_ld;                // bytes a weight row
+};
+
+// acc += the tile's products over every K step, through a cp.async ring of
+// STAGES K steps into plain ldmatrix.x4 and mma.sync; returns with every
+// copy landed and every warp past its last read of the ring.
+template <typename T, int BN, int BK, bool SPAN>
+__device__ __forceinline__ void mainloop(
+    const Operands& o, unsigned char* smem,
+    typename Mma<T>::Acc (&acc)[2][Tile<BN, BK>::NI][4]) {
+  using Tl = Tile<BN, BK>;
+  constexpr int STAGES = Tl::STAGES;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int steps = o.krow / BK;
+  const int ldb = o.b_ld;  // bytes a weight row
+
+  // This thread's copies: piece tid % PPR of rows tid / PPR + RPP * i. A
+  // row m's source is position m (+ the step's tap shift), a B row's its
+  // output column's weights; both advance with the step's K.
+  const int piece = tid % Tl::PPR, r0 = tid / Tl::PPR;
+  const unsigned char* a_src =
+      o.a + (size_t)r0 * o.pitch + (SPAN ? 0 : piece * 16);
+  const unsigned char* b_src = o.b + (size_t)r0 * ldb + piece * 16;
+  const int b_rows = o.b_rows - r0;  // piece i is live while RPP*i < this
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t a_dst = r0 * Tl::ROW + piece * 16;
+  const uint32_t b_dst = Tl::A_BYTES + a_dst;
+  // SPAN: this piece's (tap, byte of the tap) at the next step to load
+  // (the loads come in step order); else the step's tap
+  int s_tap = 0, s_c = piece * 16;
+  if (SPAN)
+    for (; s_c >= o.pitch; s_c -= o.pitch) ++s_tap;
+  const int cps = o.pitch / BK;
+
+  auto load = [&](int kt, int stage) {
+    const unsigned char* a;
+    if (SPAN) {
+      const int tap = min(s_tap, o.taps - 1);
+      a = a_src + (long)o.shift[tap] * o.pitch + s_c;
+      for (s_c += BK; s_c >= o.pitch; s_c -= o.pitch) ++s_tap;
+    } else {
+      const int tap = kt / cps;
+      const int shift = o.sh0 + tap / 3 * o.sh_row + tap % 3 * o.sh_col;
+      a = a_src + (long)shift * o.pitch + (kt - tap * cps) * BK;
+    }
+    const uint32_t st = s0 + stage * Tl::STAGE_BYTES;
+#pragma unroll
+    for (int i = 0; i < Tl::PA; ++i)
+      cp_async16(st + a_dst + i * Tl::RPP * Tl::ROW,
+                 a + (size_t)i * Tl::RPP * o.pitch, true);
+    // SPAN: K bytes past the weight row's read as zeros
+    const bool k_ok = !SPAN || kt * BK + piece * 16 < ldb;
+#pragma unroll
+    for (int i = 0; i < Tl::PB; ++i) {
+      const bool ok = Tl::RPP * i < b_rows && k_ok;
+      cp_async16(st + b_dst + i * Tl::RPP * Tl::ROW,
+                 ok ? b_src + (size_t)i * Tl::RPP * ldb + kt * BK : o.b, ok);
+    }
+  };
+
+  // ldmatrix.x4 lanes as in wgrad_staged_s8.cuh: A (m16 x k32 bytes) gives
+  // a0..a3 of the mma, B (n16 x k32 bytes) b0, b1 of two n8 fragments.
+  const int q = lane / 8, j = lane % 8;
+  const int wm = warp / Tl::WARPS_N, wn = warp % Tl::WARPS_N;
+  const uint32_t a_ld = (wm * 32 + (q & 1) * 8 + j) * Tl::ROW + (q >> 1) * 16;
+  const uint32_t b_ld =
+      Tl::A_BYTES + (wn * Tl::WN + (q >> 1) * 8 + j) * Tl::ROW + (q & 1) * 16;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt's tile landed; step kt-1's reads are done
+    const int next = kt + STAGES - 1;
+    if (next < steps) load(next, next % STAGES);
+    cp_async_commit();
+    const uint32_t st = s0 + (kt % STAGES) * Tl::STAGE_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(af[mi], st + a_ld + mi * 16 * Tl::ROW + ks * 32);
+#pragma unroll
+      for (int nj = 0; nj < Tl::NI / 2; ++nj) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, st + b_ld + nj * 16 * Tl::ROW + ks * 32);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          Mma<T>::run(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
+          Mma<T>::run(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's last reads of the ring are done
+}
 
 // The y position (image i, row chunk * rch + r, column c) of M row m of a
 // chunk, or -1 for the pad column (c == w) and the tile tail: the 3x3's
@@ -153,91 +314,26 @@ __device__ __forceinline__ int y_pos(const Args& p, int chunk, int m) {
 // columns [x * BN, x * BN + BN) of M tile y % tiles of chunk y / tiles, and
 // writes its sums to part[y].
 template <int BN, int BK>
-__global__ void __launch_bounds__(THREADS, 2) fwd_staged_s8_kernel(Args p) {
+__global__ void __launch_bounds__(THREADS, 2)
+    fwd_staged_s8_kernel(Args p) {
   using T = Tile<BN, BK>;
-  constexpr int STAGES = T::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int n0 = blockIdx.x * BN;
   const int chunk = blockIdx.y / p.tiles;
   const int m0 = (blockIdx.y - chunk * p.tiles) * BM;  // chunk-local
-  const int cps = p.cp / BK;                           // K steps a tap
-  const int steps = p.taps * cps;
-  const int krow = p.taps * p.cp;                      // bytes a weight row
-
-  // This thread's copies: piece tid % PPR of rows tid / PPR + RPP * i. A
-  // row m's source is slab position m0 + m (+ the step's tap shift), a B
-  // row's its output channel's weights; both advance with the step's K.
-  const int piece = tid % T::PPR, r0 = tid / T::PPR;
-  const signed char* a_src =
-      p.slab + ((size_t)chunk * p.slab_len + m0 + r0) * p.cp + piece * 16;
-  const signed char* b_src = p.wt + (size_t)(n0 + r0) * krow + piece * 16;
-  const int b_rows = p.cout - n0 - r0;  // piece i is live while RPP*i < this
-  const uint32_t s0 = smem_u32(smem);
-  const uint32_t a_dst = r0 * T::ROW + piece * 16;
-  const uint32_t b_dst = T::A_BYTES + a_dst;
-
-  auto load = [&](int kt, int stage) {
-    const int tap = kt / cps;
-    const int c0 = (kt - tap * cps) * BK;
-    const int shift =
-        p.shift0 + tap / 3 * p.shift_row + tap % 3 * p.shift_col;
-    const signed char* a = a_src + (long)shift * p.cp + c0;
-    const uint32_t st = s0 + stage * T::STAGE_BYTES;
-#pragma unroll
-    for (int i = 0; i < T::PA; ++i)
-      cp_async16(st + a_dst + i * T::RPP * T::ROW,
-                 a + (size_t)i * T::RPP * p.cp, true);
-#pragma unroll
-    for (int i = 0; i < T::PB; ++i) {
-      const bool ok = T::RPP * i < b_rows;
-      cp_async16(st + b_dst + i * T::RPP * T::ROW,
-                 ok ? b_src + (size_t)i * T::RPP * krow + kt * BK : p.wt, ok);
-    }
-  };
-
-  // ldmatrix.x4 lanes as in wgrad_staged_s8.cuh: A (m16 x k32 bytes) gives
-  // a0..a3 of m16n8k32, B (n16 x k32) b0, b1 of two n8 fragments.
-  const int q = lane / 8, j = lane % 8;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;  // wm < WARPS_M
-  const uint32_t a_ld = (wm * 32 + (q & 1) * 8 + j) * T::ROW + (q >> 1) * 16;
-  const uint32_t b_ld =
-      T::A_BYTES + (wn * T::WN + (q >> 1) * 8 + j) * T::ROW + (q & 1) * 16;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
 
   int acc[2][T::NI][4] = {};
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < steps; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // step kt's tile landed; step kt-1's reads are done
-    const int next = kt + STAGES - 1;
-    if (next < steps) load(next, next % STAGES);
-    cp_async_commit();
-    const uint32_t st = s0 + (kt % STAGES) * T::STAGE_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], st + a_ld + mi * 16 * T::ROW + ks * 32);
-#pragma unroll
-      for (int nj = 0; nj < T::NI / 2; ++nj) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, st + b_ld + nj * 16 * T::ROW + ks * 32);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_s8(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma_s8(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp's last reads of the ring are done
+  const Operands o{
+      reinterpret_cast<const unsigned char*>(p.slab) +
+          ((size_t)chunk * p.slab_len + m0) * p.cp,
+      reinterpret_cast<const unsigned char*>(p.wt) +
+          (size_t)n0 * p.taps * p.cp,
+      nullptr, p.shift0, p.shift_row, p.shift_col, p.cp, p.taps,
+      p.cout - n0, p.taps * p.cp, p.taps * p.cp};
+  mainloop<signed char, BN, BK, false>(o, smem, acc);
 
   // The epilogue on the ring's memory: y = bf16(f32(acc) * f32(ws * sc)),
   // sc = the chunk's amax * f32(1/127), staged as [BM][OS] bf16.
@@ -328,6 +424,128 @@ inline cudaError_t launch(const Args& p, int chunks, int bn, int bk,
   if (bn == 64 && bk == 128) return launch_tile<64, 128>(p, chunks, stream);
   if (bn == 64 && bk == 64) return launch_tile<64, 64>(p, chunks, stream);
   return cudaErrorInvalidValue;
+}
+
+// --- the channel-major epilogue (outputs [Cout, lanes]) ----------------------
+
+// A tile's live rows, in order, are one run of output lanes [lane0, lane0 +
+// count) of every output column; at[ml] is row ml's place in the run, or -1
+// (a row thrown away). The bf16 tile is staged channel-major, [BN][CM_OS],
+// each column's run from element lead = lane0 % 8, so that its 16-byte
+// vectors lie on 16-byte boundaries of device memory (rows of lanes a
+// multiple of 8). CM_OS = BM + 8: room for the lead, a row stride of 68
+// words (4 banks), so the fragment stores of a warp's 4 column pairs fall
+// in distinct banks.
+constexpr int CM_OS = BM + 8;
+
+__device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// out[n][lead + at[m]] = bf16(f32(acc(m, n)) * f32(col(n) * row[m])) for
+// the live rows, col(n) the column's factor (n < BN, block-local), row[m]
+// the row's (shared memory; null: 1). The caller syncs before reading out.
+template <int BN, int BK, typename Acc, typename Col>
+__device__ __forceinline__ void stage_cm(
+    const Acc (&acc)[2][Tile<BN, BK>::NI][4], const int* at, int lead,
+    const Col& col, const float* row, __nv_bfloat16* out) {
+  using Tl = Tile<BN, BK>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / Tl::WARPS_N, wn = warp % Tl::WARPS_N;
+  int dst[2][2];
+  float rf[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int ml = wm * 32 + mi * 16 + lane / 4 + hr * 8;
+      dst[mi][hr] = at[ml];
+      rf[mi][hr] = row != nullptr ? row[ml] : 1.f;
+    }
+#pragma unroll
+  for (int ni = 0; ni < Tl::NI; ++ni) {
+    const int nl = wn * Tl::WN + ni * 8 + (lane % 4) * 2;
+    const float c[2] = {col(nl), col(nl + 1)};
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (dst[mi][hr] < 0) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out[(nl + e) * CM_OS + lead + dst[mi][hr]] = __float2bfloat16_rn(
+              __fmul_rn(to_f32(acc[mi][ni][2 * hr + e]),
+                        __fmul_rn(c[e], rf[mi][hr])));
+      }
+  }
+}
+
+// Column n (< cols) of the staged tile to dst + n * ld, elements [lead, lead
+// + count) of dst's row (dst + lead is the run's first lane; dst 16-byte
+// aligned, ld a multiple of 8): whole vectors as 16-byte stores, the run's
+// ragged ends element by element.
+template <int BN>
+__device__ __forceinline__ void write_cm(const __nv_bfloat16* out, int lead,
+                                         int count, int cols,
+                                         __nv_bfloat16* dst, size_t ld) {
+  const int end = lead + count;
+  const int vpc = (end + 7) / 8;  // vectors a column
+  for (int idx = threadIdx.x; idx < BN * vpc; idx += THREADS) {
+    const int n = idx / vpc, j0 = (idx - n * vpc) * 8;
+    if (n >= cols) continue;
+    const __nv_bfloat16* src = out + n * CM_OS + j0;
+    __nv_bfloat16* d = dst + n * ld + j0;
+    if (j0 >= lead && j0 + 8 <= end) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8; ++e)
+        if (j0 + e >= lead && j0 + e < end) d[e] = src[e];
+    }
+  }
+}
+
+// The staged columns' sums of f32(y) and y^2 over their run, into
+// part[0][n0 + n] and part[0][cout + n0 + n] (columns n < cols): lane (c,
+// q) of warp w takes column w * 8 + c (and + 64 while < BN) and sums words
+// [17q, 17q + 17) of its staged row (the whole row: 4 x 17 words = CM_OS
+// elements), masked to the run, in order; the four parts are added by a
+// fixed butterfly. The row stride (68 words) and the part stride (17)
+// put a warp's 32 reads in 32 banks. No barrier.
+template <int BN>
+__device__ __forceinline__ void sums_cm(const __nv_bfloat16* out, int lead,
+                                        int count, int cols, float* part,
+                                        int cout, int n0) {
+  constexpr int W = CM_OS / 8;  // words a part
+  static_assert(4 * W * 2 == CM_OS, "four parts cover a staged row");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = lane % 8, q = lane / 8;
+  for (int n = warp * 8 + c; n < BN; n += THREADS / 4) {
+    const uint32_t* row =
+        reinterpret_cast<const uint32_t*>(out + n * CM_OS) + q * W;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const uint32_t two = row[k];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // outside the run a zero, which leaves the sums as they are
+        const int j = 2 * (q * W + k) + e;
+        const float v = (unsigned)(j - lead) < (unsigned)count
+                            ? __uint_as_float((two >> (16 * e)) << 16)
+                            : 0.f;
+        s1 = __fadd_rn(s1, v);
+        s2 = __fadd_rn(s2, __fmul_rn(v, v));
+      }
+    }
+#pragma unroll
+    for (int o = 8; o < 32; o *= 2) {
+      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, o));
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+    }
+    if (q == 0 && n < cols) {
+      part[n0 + n] = s1;
+      part[cout + n0 + n] = s2;
+    }
+  }
 }
 
 }  // namespace fwd_staged_s8

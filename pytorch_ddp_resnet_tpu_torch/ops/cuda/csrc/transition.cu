@@ -5,11 +5,10 @@
 //
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/transition.py,
 // transition_half_int8):
-//   fwd_launch             <- _fwd_call -> _fwd_kernel (site :357), after
-//                             the prologue's quantization, which is the
-//                             fused half's fwd_amax/fwd_quant
-//                             (fused_block.cu) run with the
-//                             transition's scale groups
+//   fwd_amax, fwd_pre,     <- _fwd_call -> _fwd_kernel (site :357): its
+//   fwd_gemm                  prologue, its joint absmax per tile over the
+//                             four parity planes, their quantization, the
+//                             int8 stride-2 conv, the shortcut and the sums
 //   bwd_amax, bwd_quant    <- the cotangent fold and the per-tile
 //                             quantizers of _bwd_kernel (site :619, FQT)
 //   bwd_fold               <- its straight-through cotangent fold and bf16
@@ -20,19 +19,49 @@
 //   partial_sum            <- the TPU kernels' sums carried across their
 //                             sequential grid
 //
-// The reference splits the input into four parity planes so that every
-// tap of the stride-2 conv becomes a lane roll on the TPU. Here the taps
-// are indexed directly:
-// - The forward is a row-tile implicit GEMM (mma.sync, as
-//   conv3x3_rows.cuh) whose block owns 64 output channels x R whole output
-//   rows of one image (64 or 128 positions, so that two blocks share an
-//   SM); it stages the 2R + 1 input rows those rows read
-//   (with zero borders) per 32-channel chunk, and output position (r, c)
-//   reads tap (dh, dw) at staged cell (2r + dh, 2c + dw): every ldmatrix
-//   row address is per lane, so the stride costs nothing but the staging.
-//   The same block then contracts the 1x1 projection of the even-even
-//   pixels (bf16, one centre tap of the same geometry), or copies them
-//   (option A), and sums z and z^2 per channel.
+// The forward keeps the reference's parity planes, as a layout in which
+// every tap of the stride-2 conv is one position offset
+// (ops/cuda/transition.py transition_fwd_layout):
+// - fwd_amax is fused_half.cuh's amax pass at the transition's scale
+//   groups (whole images: the reference's joint absmax over a tile's four
+//   planes).
+// - fwd_pre_kernel reduces each group's partial maxima, recomputes the
+//   prologue once per element, quantizes it at its group's scale and
+//   writes the four planes of the whole batch into an int8 slab,
+//   position-major with the channels contiguous (padded to cp, a multiple
+//   of 32): plane p's position (image i, padded row r', padded column c')
+//   holds input (2(r'-1) + p / 2, 2(c'-1) + p % 2), with a zero row r' = 0
+//   above and a zero column c' = 0 left of each image, a guard of zero
+//   positions before and the last 128-row tile's tail after. Tap (dh, dw)
+//   reads plane 2 * (dh != 1) + (dw != 1) at a shift of -1 row where dh ==
+//   0 and -1 column where dw == 0 (the reference's _tap_info): nine
+//   position offsets, no masks. The same blocks write the raw even-even
+//   plane once into a bf16 slab in the same position order (the
+//   projection's operand, and option A's copy).
+// - fwd_gemm_kernel is fwd_staged_s8.cuh's mainloop (cp.async ring,
+//   ldmatrix, s8 mma.sync) over the nine shifts, then the same block runs
+//   the bf16 instantiation on the even-even slab against Wp (or copies it,
+//   option A), each product through the channel-major epilogue: the tile
+//   staged in shared memory, each row at its group's scale (a tile may
+//   span groups), written [Cout, lanes] in 16-byte vectors (the pad rows
+//   and columns skipped: a tile's live rows are one run of lanes), z's
+//   sums per channel in a fixed order into part[tile].
+// What bounds it on an H100: bytes at 160 -> 320 (x and the bits in, z and
+// res out), int8 operations at 320 -> 640 (chip_smoke.py phase 15). The
+// prepass makes each operand element once (the old kernel re-staged the
+// quantized input per 32-channel chunk for every 64 output channels and
+// the raw x at all four parities for the projection), the mainloop
+// overlaps copies with tensor-core work, and the pad rows and columns
+// (13% of the M positions at 32x32 inputs, 27% at 16x16) are computed and
+// thrown away. Tried on an H100 and dropped: each scale group padded to
+// whole 128-row tiles, one scale a tile (11% more M rows at 32x32 inputs,
+// 18% more at 16x16: the mainloop + sum 10% slower at 32x32 and no faster
+// at 16x16, where both fill two waves of blocks), 64-wide N tiles
+// (slower than 128 at both WRN-28-10 transitions), K steps of 64 bytes for
+// the projection (slower than 128), the column factors prefetched into
+// shared memory (no faster).
+//
+// The backward indexes the stride-2 taps directly:
 // - The dgrad is the same contraction per parity class of input pixel
 //   (blockIdx.z = 2 * (ih % 2) + (iw % 2)): a pixel of class p receives
 //   the 1, 2, 2 or 4 taps of that class, each from the cotangent at the
@@ -57,8 +86,8 @@
 // (the reference's transition_tile of output lanes; 4x as many input
 // lanes). They are fused_half.cuh's amax and quant kernels, which
 // fused_block.cu runs too, each operand walking its own group width:
-// *_amax writes partial maxima per (group, slice) block, *_quant reduces
-// them and quantizes.
+// *_amax writes partial maxima per (group, slice) block, *_quant (or the
+// forward's prepass) reduces them and quantizes.
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_transition.py pins them): the prologue
@@ -76,6 +105,7 @@
 #include "common.cuh"
 #include "conv3x3_rows.cuh"
 #include "fused_half.cuh"
+#include "fwd_staged_s8.cuh"  // the forward's mainloop and epilogue
 #include "seed_bits.cuh"
 
 using namespace conv3x3;
@@ -275,104 +305,301 @@ struct RawLoad {
 
 // --- forward -----------------------------------------------------------------
 
-struct FwdArgs {
-  const signed char* dq;  // [cin, n] quantized prologue
-  const signed char* wq;  // [cout, 9 * cin] packed int8 weights
-  const float* amax;      // [n / 4 / tile] group absmax
-  const float* ws;        // [cout] weight scales
-  const bf16* x;          // [cin, n] raw input
-  const bf16* wp;         // [cout, cin] projection, or null (option A)
-  bf16* z;                // [cout, n / 4]
-  bf16* res;              // [cout, n / 4]
-  float* part;            // [n / 4 / BN][2 * cout]
-  int cin, cout, n, h, w, tile;
+// Where ops/cuda/transition.py transition_fwd_layout puts the four parity
+// planes: plane p is plane_len positions of cp bytes at p * plane_len * cp
+// of the int8 slab; past guard zero positions, image i (< the batch),
+// padded row r' (< oh + 1) and padded column c' (< ow + 1) sit at i * (oh
+// + 1) * (ow + 1) + r' * (ow + 1) + c', input (2(r'-1) + p / 2, 2(c'-1) + p
+// % 2) of image i where r', c' >= 1, zero elsewhere (and at channels
+// cin..cp), quantized at the scale of its group (imgs images). The bf16
+// slab holds plane 0's raw x at the same positions, plane_len positions of
+// cpb channels.
+struct PreGeo {
+  int cin, n, h, w;   // x [cin, n], images h x w
+  int oh, ow, imgs;   // output geometry, images a group
+  int groups, guard, m_valid, plane_len;
+  int cp, cpb;
 };
 
-template <int BN>
-__host__ __device__ inline int fwd_cs_bytes() {
-  return BM * (BN + 4) * 4;
-}
+constexpr int PRE_PB = 128;  // slab positions a block (2 threads each)
+constexpr int PRE_CH = 32;   // channels a block (grid z: cp / PRE_CH)
+constexpr int PRE_LD = 8;    // loads in flight a thread
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int oh = a.h / 2, ow = a.w / 2, ohw = oh * ow;
-  const int n_out = a.n / 4;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int img = n0 / ohw;
-  const int r0 = (n0 - img * ohw) / ow;
-  unsigned char* stage = smem + fwd_cs_bytes<BN>();
-  const Geo geo{2, a.h, a.w, ow};
-  constexpr int CLD = BN + 4;
+// Block (x, 0, z) writes positions [x * PRE_PB, (x + 1) * PRE_PB) of the
+// four planes at channels [z * 32, z * 32 + 32) of the int8 slab, and (for
+// channels < cpb) of the bf16 even-even slab. First the groups its
+// positions meet (a run g_lo..) reduce their partial maxima into shared
+// memory (block (0, 0, 0) also writes every group's amax). Thread (ph, k)
+// takes position k of input row parity ph: per channel one 4-byte load of
+// x (the two columns 2c' - 2, 2c' - 1 of that row: planes (ph, 0) and (ph,
+// 1)) and one 2-byte load of the bits, so a warp reads runs of consecutive
+// lanes. It runs the prologue (x * scale + shift one fma, relu, the
+// dropout's keep r * f32(256 / thresh)), quantizes at its group's scale (q
+// = clip(rint(d * (127 / max(amax, 1e-12))))), and packs 4 channels a word
+// into shared memory (rows of 9 words: conflict-free); then the block
+// writes 32 contiguous bytes a position. Pad positions, guards, the tail
+// and pad channels get zeros. On an H100 six blocks an SM (at most 42
+// registers) ran faster than five, eight (32 registers) slower, and more
+// loads in flight a thread (16, 32), with fewer blocks, slower too.
+__global__ void __launch_bounds__(256, 6)
+fwd_pre_kernel(Prologue pro, const float* __restrict__ part, int slices,
+               float* __restrict__ amax, signed char* __restrict__ slab,
+               bf16* __restrict__ ee, PreGeo s) {
+  __shared__ uint32_t qs[4][PRE_PB][PRE_CH / 4 + 1];
+  __shared__ uint32_t es[PRE_PB][PRE_CH / 2 + 1];
+  __shared__ float ginv[PRE_PB];  // 127 / max(amax, floor) of g_lo + j
+  const int c0 = blockIdx.z * PRE_CH;
+  const int tid = threadIdx.x;
+  const int ph = tid / PRE_PB, k = tid % PRE_PB;
+  const int pos0 = blockIdx.x * PRE_PB;
+  const int pos = pos0 + k;
+  const int pw = s.ow + 1, per = (s.oh + 1) * pw, gm = s.imgs * per;
 
-  {  // z = conv_s2(dq, wq) dequantized, and its sums
-    Taps taps;
-    taps.n = 9;
-    for (int t = 0; t < 9; ++t) {
-      taps.dr[t] = t / 3 - 1;
-      taps.dc[t] = t % 3 - 1;
-      taps.wcol[t] = t * a.cin;
-    }
-    int acc[2][BN / 32][4];
-    contract<signed char, BN>(RawLoad<signed char>{a.dq, a.n}, a.wq,
-                              9 * a.cin, a.cin, a.cout, m0, taps, geo, img,
-                              r0, stage, acc);
-    int* Cs = reinterpret_cast<int*>(smem);
-    store_tile<int, BN>(acc, Cs);
-    __syncthreads();
-    const float s = __fmul_rn(a.amax[n0 / a.tile], common::kInv127);
-    tile_sums(BN, m0, a.cout, BN, blockIdx.x, a.part,
-              [&](int r, int c, float& s1, float& s2) {
-      const int co = m0 + r;
-      const float v = __fmul_rn(__int2float_rn(Cs[r * CLD + c]),
-                                __fmul_rn(a.ws[co], s));
-      const bf16 o = __float2bfloat16_rn(v);
-      a.z[(size_t)co * n_out + n0 + c] = o;
-      const float f = __bfloat162float(o);
-      s1 = f;
-      s2 = __fmul_rn(f, f);
-    });
+  // the input lane of this thread's pair and its group, or -1 (a zero
+  // position)
+  int lane = -1, grp = 0;
+  const int m = pos - s.guard;
+  if (m >= 0 && m < s.m_valid) {
+    const int i = m / per, rem = m - i * per;
+    const int r = rem / pw, c = rem - r * pw;
+    grp = i / s.imgs;
+    if (r > 0 && c > 0)
+      lane = i * s.h * s.w + (2 * (r - 1) + ph) * s.w + 2 * (c - 1);
   }
+  // the groups of the block's rows: g_lo .. g_lo + ng - 1 (<= PRE_PB)
+  const int m_lo = min(max(pos0 - s.guard, 0), s.m_valid - 1);
+  const int m_hi = min(max(pos0 + PRE_PB - 1 - s.guard, 0), s.m_valid - 1);
+  const int g_lo = m_lo / gm, ng = m_hi / gm - g_lo + 1;
+  for (int j = tid; j < ng; j += 256) {
+    const float* pr = part + (size_t)(g_lo + j) * slices;
+    float a = pr[0];
+    for (int q = 1; q < slices; ++q) a = fmaxf(a, pr[q]);
+    ginv[j] = __fdiv_rn(127.f, fmaxf(a, fused_half::kFwdFloor));
+  }
+  if (blockIdx.x == 0 && blockIdx.z == 0)
+    for (int g = tid; g < s.groups; g += 256) {
+      const float* pr = part + (size_t)g * slices;
+      float a = pr[0];
+      for (int q = 1; q < slices; ++q) a = fmaxf(a, pr[q]);
+      amax[g] = a;
+    }
+  __syncthreads();
+  const float inv = lane >= 0 ? ginv[grp - g_lo] : 0.f;
+  const bool drop = pro.bits.bits != nullptr;
 
-  // the shortcut at (2 oh, 2 ow)
-  float* Ps = reinterpret_cast<float*>(smem);
-  if (a.wp != nullptr) {
-    Taps taps;
-    taps.n = 1;
-    taps.dr[0] = taps.dc[0] = taps.wcol[0] = 0;
-    float acc[2][BN / 32][4];
-    contract<bf16, BN>(RawLoad<bf16>{a.x, a.n}, a.wp, a.cin, a.cin, a.cout,
-                       m0, taps, geo, img, r0, stage, acc);
-    __syncthreads();  // the sums' reads of Cs are done
-    store_tile<float, BN>(acc, Ps);
+#pragma unroll 1
+  for (int cb = 0; cb < PRE_CH; cb += PRE_LD) {
+    uint32_t xv[PRE_LD];
+    uint32_t bv[PRE_LD];
+#pragma unroll
+    for (int u = 0; u < PRE_LD; ++u) {
+      const int ch = c0 + cb + u;
+      xv[u] = 0u;
+      bv[u] = 0u;
+      if (lane >= 0 && ch < s.cin) {
+        const size_t at = (size_t)ch * s.n + lane;
+        xv[u] = *reinterpret_cast<const uint32_t*>(pro.x + at);
+        if (drop)
+          bv[u] = *reinterpret_cast<const uint16_t*>(pro.bits.bits + at);
+      }
+    }
+    uint32_t w0[PRE_LD / 4] = {}, w1[PRE_LD / 4] = {}, e[PRE_LD / 2] = {};
+#pragma unroll
+    for (int u = 0; u < PRE_LD; ++u) {
+      const int ch = c0 + cb + u;
+      if (lane < 0 || ch >= s.cin) continue;
+      const float sc = pro.scale[ch], sh = pro.shift[ch];
+      uint32_t q[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const uint16_t raw = (uint16_t)(xv[u] >> (16 * h2));
+        const float xf = __bfloat162float(__ushort_as_bfloat16(raw));
+        float d = fmaxf(__fmaf_rn(xf, sc, sh), 0.f);
+        if (drop)
+          d = ((bv[u] >> (8 * h2)) & 0xffu) < (uint32_t)pro.thresh
+                  ? __fmul_rn(d, pro.keep)
+                  : 0.f;
+        q[h2] = (uint8_t)quant_s8(__fmul_rn(d, inv));
+      }
+      w0[u / 4] |= q[0] << (8 * (u % 4));
+      w1[u / 4] |= q[1] << (8 * (u % 4));
+      e[u / 2] |= (xv[u] & 0xffffu) << (16 * (u % 2));
+    }
+#pragma unroll
+    for (int v = 0; v < PRE_LD / 4; ++v) {
+      qs[2 * ph][k][(cb / 4) + v] = w0[v];
+      qs[2 * ph + 1][k][(cb / 4) + v] = w1[v];
+    }
+    if (ph == 0)
+#pragma unroll
+      for (int v = 0; v < PRE_LD / 2; ++v) es[k][cb / 2 + v] = e[v];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN;
-    const int c = i - r * BN;
-    const int co = m0 + r;
-    if (co >= a.cout) continue;
-    bf16 o;
-    if (a.wp != nullptr) {
-      o = __float2bfloat16_rn(Ps[r * CLD + c]);
-    } else if (co < a.cin) {
-      const int p = n0 + c - img * ohw;
-      o = a.x[(size_t)co * a.n + img * a.h * a.w + 2 * (p / ow) * a.w +
-              2 * (p % ow)];
-    } else {
-      o = __float2bfloat16_rn(0.f);
+
+  const int npos = min(PRE_PB, s.plane_len - pos0);
+  constexpr int WPP = PRE_CH / 4;  // words a position
+  for (int idx = tid; idx < 4 * PRE_PB * WPP; idx += 256) {
+    const int p = idx / (PRE_PB * WPP);
+    const int kk = idx / WPP % PRE_PB, j = idx % WPP;
+    if (kk >= npos) continue;
+    const size_t off =
+        ((size_t)p * s.plane_len + pos0 + kk) * s.cp + c0 + 4 * j;
+    *reinterpret_cast<uint32_t*>(slab + off) = qs[p][kk][j];
+  }
+  if (c0 < s.cpb) {  // cpb % 32 == 0: the whole chunk
+    constexpr int EPP = PRE_CH / 2;
+    for (int idx = tid; idx < PRE_PB * EPP; idx += 256) {
+      const int kk = idx / EPP, j = idx % EPP;
+      if (kk >= npos) continue;
+      const size_t off = ((size_t)pos0 + kk) * s.cpb + c0 + 2 * j;
+      *reinterpret_cast<uint32_t*>(ee + off) = es[kk][j];
     }
-    a.res[(size_t)co * n_out + n0 + c] = o;
   }
 }
 
-template <int BN>
-int fwd_smem_bytes(int h, int w) {
-  const int rows = BN / (w / 2);
-  const int s8 = stage_bytes<signed char>(9, 2, rows, w);
-  const int s16 = stage_bytes<bf16>(1, 2, rows, w);
-  return fwd_cs_bytes<BN>() + (s8 > s16 ? s8 : s16);
+// The forward GEMM's operands and outputs (transition_fwd_layout).
+struct GemmArgs {
+  const signed char* slab;  // [4 * plane_len][cp]
+  const signed char* wt;    // [cout][kw], pad channels zero
+  const float* ws;          // [cout]
+  const float* amax;        // [groups]
+  const bf16* ee;           // [plane_len][cpb]
+  const bf16* wp;           // [cout][kw_p / 2]; null: option A
+  bf16* z;                  // [cout][n_out]
+  bf16* res;                // [cout][n_out]
+  float* part;              // [tiles][2 * cout]
+  int cout, cp, cpb, imgs, oh, ow, b_imgs, n_out;
+  int kw, krow;      // bytes a weight row (9 * cp), K bytes walked (krow %
+                     // BK == 0)
+  int kw_p, krow_p;  // bytes a projection row, K bytes walked (% PROJ_BK)
+  int shift[9];      // tap (dh, dw)'s position offset in the int8 slab
+  int ee_shift;      // the even-even slab's (its guard)
+};
+
+// The live rows before M row m: every row m is a padded position (image
+// i, r', c'), live where r', c' >= 1 and i < b_imgs, and the live rows in
+// order are the output lanes in order.
+__device__ __forceinline__ int live_before(const GemmArgs& p, int m) {
+  const int pw = p.ow + 1, per = (p.oh + 1) * pw, ohw = p.oh * p.ow;
+  const int i = m / per;
+  if (i >= p.b_imgs) return p.n_out;
+  const int rem = m - i * per, r = rem / pw, c = rem - r * pw;
+  return i * ohw + (r == 0 ? 0 : (r - 1) * p.ow + max(c - 1, 0));
+}
+
+constexpr int PROJ_BK = 128;  // bytes a K step of the projection
+
+// Dynamic shared memory of the GEMM: the larger ring (or the staged
+// tile), then each tile row's place in the run and its scale.
+template <int BN, int BK>
+struct GemmSmem {
+  static constexpr int A = fwd_staged_s8::Tile<BN, BK>::RING;
+  static constexpr int B = fwd_staged_s8::Tile<BN, PROJ_BK>::RING;
+  static constexpr int C = BN * fwd_staged_s8::CM_OS * 2;  // staged tile
+  static constexpr int M = A > B ? A : B;
+  static constexpr int AT = M > C ? M : C;  // the tables' offset
+  static constexpr int SC = AT + fwd_staged_s8::BM * 4;
+  static constexpr int BYTES = SC + fwd_staged_s8::BM * 4;
+};
+
+// Grid (ceil(cout / BN), tiles): block (x, y) computes output channels [x
+// * BN, x * BN + BN) of M tile y: z from the int8 slab at the nine shifts
+// (K steps of BK bytes, each 16-byte piece at its own tap: cp need not be
+// a multiple of BK), each row dequantized at its group's scale, its sums
+// into part[y], then res from the bf16 slab (K steps of PROJ_BK bytes) or
+// option A's copy. A tile may span groups and images: its live rows are
+// one run of lanes.
+template <int BN, int BK>
+__global__ void __launch_bounds__(fwd_staged_s8::THREADS, 2)
+    fwd_gemm_kernel(const __grid_constant__ GemmArgs p) {
+  namespace fs = fwd_staged_s8;
+  using T = fs::Tile<BN, BK>;
+  using TB = fs::Tile<BN, PROJ_BK>;
+  constexpr int BMT = fs::BM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BMT;
+  const int cols = min(BN, p.cout - n0);
+  int* at = reinterpret_cast<int*>(smem + GemmSmem<BN, BK>::AT);
+  float* rsc = reinterpret_cast<float*>(smem + GemmSmem<BN, BK>::SC);
+  bf16* out = reinterpret_cast<bf16*>(smem);
+
+  // this tile's run of lanes [lane0, lane0 + count), each live row's place
+  // in it and its group's scale amax * f32(1/127)
+  const int lane0 = live_before(p, m0);
+  const int count = live_before(p, m0 + BMT) - lane0;
+  const int lead = lane0 % 8;
+  if (tid < BMT) {
+    const int m = m0 + tid, k = live_before(p, m + 1);
+    const bool lv = k > live_before(p, m);
+    at[tid] = lv ? k - 1 - lane0 : -1;
+    rsc[tid] = lv ? __fmul_rn(p.amax[(k - 1) / (p.imgs * p.oh * p.ow)],
+                              common::kInv127)
+                  : 0.f;
+  }
+  const size_t row0 = (size_t)lane0 - lead;
+
+  {  // z = bf16(f32(acc) * f32(ws * amax * f32(1/127)))
+    int acc[2][T::NI][4] = {};
+    const fs::Operands o{
+        reinterpret_cast<const unsigned char*>(p.slab) + (size_t)m0 * p.cp,
+        reinterpret_cast<const unsigned char*>(p.wt) + (size_t)n0 * p.kw,
+        p.shift, 0, 0, 0, p.cp, 9, p.cout - n0, p.krow, p.kw};
+    fs::mainloop<signed char, BN, BK, true>(o, smem, acc);
+    fs::stage_cm<BN, BK>(acc, at, lead, [&](int nl) {
+      return n0 + nl < p.cout ? p.ws[n0 + nl] : 0.f;
+    }, rsc, out);
+    __syncthreads();
+    fs::write_cm<BN>(out, lead, count, cols, p.z + (size_t)n0 * p.n_out + row0,
+                     p.n_out);
+    fs::sums_cm<BN>(out, lead, count, cols,
+                    p.part + (size_t)blockIdx.y * 2 * p.cout, p.cout, n0);
+    __syncthreads();  // the ring's next user overwrites the staged tile
+  }
+
+  if (p.wp != nullptr) {  // res = bf16(f32 sum of Wp x_ee)
+    float acc[2][TB::NI][4] = {};
+    const int pitch = 2 * p.cpb;
+    const fs::Operands o{
+        reinterpret_cast<const unsigned char*>(p.ee) + (size_t)m0 * pitch,
+        reinterpret_cast<const unsigned char*>(p.wp) + (size_t)n0 * p.kw_p,
+        &p.ee_shift, 0, 0, 0, pitch, 1, p.cout - n0, p.krow_p, p.kw_p};
+    fs::mainloop<bf16, BN, PROJ_BK, true>(o, smem, acc);
+    fs::stage_cm<BN, PROJ_BK>(acc, at, lead, [](int) { return 1.f; },
+                              nullptr, out);
+  } else {  // option A: x_ee's channels, zero past them
+    // thread (v, row): 8 channels of one row, read as 16 bytes (cpb % 32
+    // == 0: a group of 8 lies in the slab or past it), a warp's 2-byte
+    // stores along one staged row
+    const bf16* src = p.ee + ((size_t)p.ee_shift + m0) * p.cpb;
+    const int ml = tid % BMT, k = at[ml];
+    for (int v = tid / BMT; v < BN / 8 && k >= 0; v += fs::THREADS / BMT) {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + 8 * v < p.cpb)
+        raw = *reinterpret_cast<const uint4*>(src + (size_t)ml * p.cpb + n0 +
+                                              8 * v);
+      const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        out[(8 * v + e) * fs::CM_OS + lead + k] = e8[e];
+    }
+  }
+  __syncthreads();
+  fs::write_cm<BN>(out, lead, count, cols, p.res + (size_t)n0 * p.n_out + row0,
+                   p.n_out);
+}
+
+template <int BN, int BK>
+int launch_gemm(const GemmArgs& a, int tiles, cudaStream_t stream) {
+  constexpr int bytes = GemmSmem<BN, BK>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fwd_gemm_kernel<BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.cout + BN - 1) / BN, tiles);
+  fwd_gemm_kernel<BN, BK><<<grid, fwd_staged_s8::THREADS, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --- the straight-through fold (FQT quantizes through fused_half.cuh) -------
@@ -709,13 +936,6 @@ int launch_conv(K kernel, int bytes, dim3 grid, const Args& args,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.n / 4 / BN, (a.cout + BM - 1) / BM);
-  return launch_conv(fwd_kernel<BN>, fwd_smem_bytes<BN>(a.h, a.w), grid, a,
-                     stream);
-}
-
 template <typename T, int BN>
 int launch_dgrad(const DgradArgs& a, cudaStream_t stream) {
   const dim3 grid(a.n / 4 / BN, (a.cin + BM - 1) / BM, 4);
@@ -740,25 +960,78 @@ Cotangent cotangent(const void* dz, const void* z, const void* dzsum,
 
 extern "C" {
 
-// d_q [cin, n] int8 (the prologue quantized per group of 4 * tile input
-// lanes), w_q [cout, 9 * cin] int8, amax [n / 4 / tile], ws [cout] f32,
-// x [cin, n] bf16, wp [cout, cin] bf16 or null (option A: cout >= cin);
-// z, res [cout, n / 4] bf16, part [n / 4 / BN][2 * cout] f32. cin and
-// cout multiples of 32, h and w even, w % 16 == 0, a row tile for
-// (h / 2, w / 2).
-int fwd_launch(const void* d_q, const void* w_q, const void* amax,
-               const void* ws, const void* x, const void* wp, void* z,
-               void* res, void* part, int cin, int cout, int n, int h, int w,
-               int tile, void* stream) {
-  const FwdArgs a{in<signed char>(d_q), in<signed char>(w_q), in<float>(amax),
-                  in<float>(ws),        in<bf16>(x),          in<bf16>(wp),
-                  static_cast<bf16*>(z), static_cast<bf16*>(res),
-                  static_cast<float*>(part), cin, cout, n, h, w, tile};
-  switch (out_row_tile(h / 2, w / 2)) {
-    case 128: return launch_fwd<128>(a, as_stream(stream));
-    case 64: return launch_fwd<64>(a, as_stream(stream));
-    default: return -1;
-  }
+// The forward's amax pass: part [n / tile4][slices] f32, the partial
+// maxima of |d| (d = the prologue of x [cin, n] bf16, bits [cin, n] uint8
+// or null) per group of tile4 input lanes.
+int fwd_amax_launch(const void* x, const void* scale, const void* shift,
+                    const void* bits, void* part, int cin, int n, int tile4,
+                    int slices, int thresh, float keep, void* stream) {
+  const Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
+                     DropBits{in<unsigned char>(bits), nullptr, n}, thresh,
+                     keep};
+  const GroupWalk walk{n, tile4, slices};
+  fused_half::amax_kernel<<<dim3(slices, n / tile4, 1), 256, 0,
+                            as_stream(stream)>>>(
+      pro, cin, walk, pro, cin, walk, static_cast<float*>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's prepass: slab [4 * plane_len][cp] int8 and ee [plane_len]
+// [cpb] bf16 (transition_fwd_layout) from x [cin, n] bf16, scale/shift
+// [cin] f32, bits [cin, n] uint8 or null and part [groups][slices]
+// (fwd_amax); amax [groups] f32 out. cp % 32 == 0, cpb % 32 == 0, h and w
+// even.
+int fwd_pre_launch(const void* x, const void* scale, const void* shift,
+                   const void* bits, const void* part, void* amax, void* slab,
+                   void* ee, int cin, int n, int h, int w, int imgs,
+                   int groups, int slices, int guard, int m_valid,
+                   int plane_len, int cp, int cpb, int thresh, float keep,
+                   void* stream) {
+  if (cp % PRE_CH || cpb % PRE_CH || w % 2 || h % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
+                     DropBits{in<unsigned char>(bits), nullptr, n}, thresh,
+                     keep};
+  const PreGeo g{cin, n, h, w, h / 2, w / 2, imgs, groups, guard, m_valid,
+                 plane_len, cp, cpb};
+  const dim3 grid((plane_len + PRE_PB - 1) / PRE_PB, 1, cp / PRE_CH);
+  fwd_pre_kernel<<<grid, 256, 0, as_stream(stream)>>>(
+      pro, in<float>(part), slices, static_cast<float*>(amax),
+      static_cast<signed char*>(slab), static_cast<bf16*>(ee), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward GEMM: z, res [cout, n_out] bf16 and part [tiles][2 * cout]
+// f32 (each M tile's sums of z and z^2) from the prepass's slabs, wt
+// [cout][kw] int8 (the nine taps' cp channels, pad channels zero; kw = 9 *
+// cp) with ws [cout] and amax [groups] (groups of imgs images), and wp
+// [cout][kw_p / 2] bf16 (cin channels, kw_p % 16 == 0) or null (option A:
+// cout >= cin); krow and krow_p are the K bytes walked, kw and kw_p
+// rounded up to bk and 128, the bytes past a row reading as zeros; shift
+// [9] (host memory) the taps' offsets, ee_shift the even-even slab's;
+// (128, bn) tiles with int8 K steps of bk bytes.
+int fwd_gemm_launch(const void* slab, const void* wt, const void* ws,
+                    const void* amax, const void* ee, const void* wp, void* z,
+                    void* res, void* part, const int* shift, int ee_shift,
+                    int cout, int cp, int cpb, int kw, int krow, int kw_p,
+                    int krow_p, int tiles, int imgs, int b_imgs, int h,
+                    int w, int n_out, int bn, int bk, void* stream) {
+  if (cp % 16 || kw != 9 * cp || krow % bk || krow < kw || kw_p % 16 ||
+      kw_p > 2 * cpb || cpb % 32 || krow_p % PROJ_BK || krow_p < 2 * cpb ||
+      cout % 8 || n_out % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmArgs a{in<signed char>(slab), in<signed char>(wt), in<float>(ws),
+             in<float>(amax), in<bf16>(ee), in<bf16>(wp),
+             static_cast<bf16*>(z), static_cast<bf16*>(res),
+             static_cast<float*>(part), cout, cp, cpb, imgs, h / 2, w / 2,
+             b_imgs, n_out, kw, krow, kw_p, krow_p, {}, ee_shift};
+  for (int t = 0; t < 9; ++t) a.shift[t] = shift[t];
+  const cudaStream_t st = as_stream(stream);
+  if (bn == 128 && bk == 128) return launch_gemm<128, 128>(a, tiles, st);
+  if (bn == 128 && bk == 64) return launch_gemm<128, 64>(a, tiles, st);
+  if (bn == 64 && bk == 128) return launch_gemm<64, 128>(a, tiles, st);
+  if (bn == 64 && bk == 64) return launch_gemm<64, 64>(a, tiles, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The FQT backward's amax pass: the folded cotangent [cout, n_out] in

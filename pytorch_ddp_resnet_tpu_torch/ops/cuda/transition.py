@@ -16,8 +16,9 @@ The padding is symmetric (torch's ``Conv2d(stride=2, padding=1)``): output
 *scale group*: the images of one ``transition_tile`` of output lanes, with
 one absmax over all their pixels (the reference's joint absmax over its
 four parity planes). A group covers the same whole images at the input
-geometry with 4x as many lanes, so the forward quantizer is the fused
-half's ``fused_block.fwd_quantize`` run at ``tile = 4 * transition_tile``.
+geometry with 4x as many lanes: the forward's quantizer (``fwd_amax``,
+``fwd_pre``) is the fused half's ``fused_block.fwd_quantize`` run at
+``tile = 4 * transition_tile``, its codes laid out in planes.
 
 The backward folds the stats cotangents, ``gf = dz + dzsum + 2z * dzssq``,
 and has two bodies, as the reference's ``quant_bwd``:
@@ -34,16 +35,28 @@ add the shortcut's cotangent on the even-even pixels (``Wp^T @ dres`` in
 bf16 with f32 accumulation, or dres's first Cin rows for option A), and
 sum d(scale) and d(shift); ``dWp = dres @ x[::2, ::2]^T`` in f32.
 
-The reference lays the input out as four parity planes, a TPU lane trick;
-here the kernels index the stride-2 taps directly, and the only parity
-layout left is the dropout bits' [4*Cin, N'] (plane-major rows, the
-reference's draw), re-laid once to [Cin, N] by ``parity_unpack``.
+The reference lays the input out as four parity planes, a TPU lane trick.
+The forward keeps them as a layout (``transition_fwd_layout``): each scale
+group's planes, padded with a zero row above and a zero column left of each
+image, position-major in an int8 slab, so that every tap of the stride-2
+conv is one position offset of a GEMM's A rows. The backward indexes the
+stride-2 taps directly; its only parity layout is the dropout bits'
+[4*Cin, N'] (plane-major rows, the reference's draw), re-laid once to
+[Cin, N] by ``parity_unpack``.
 
 Layers of this module, each a CPU-or-card wrapper beside its plain version
 (a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
 kernel of ``csrc/transition.cu`` or raises):
 
-- ``fwd_conv``      (launches ``transition_fwd``, ``.sum``)
+- ``fwd_conv``      (``fwd_amax``, ``fwd_pre``, then ``fwd_gemm``)
+- ``fwd_amax``      (launches ``transition_fwd.amax``: the prologue's
+  partial absmaxes per scale group)
+- ``fwd_pre``       (launches ``transition_fwd.pre``: the prologue
+  quantized once into the parity-plane slab, the raw even-even plane into
+  a bf16 slab)
+- ``fwd_gemm``      (launches ``transition_fwd``, ``.sum``: the staged
+  mainloop of ``csrc/fwd_staged_s8.cuh`` over the slabs, z, res and the
+  ordered sums)
 - ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT)
 - ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
   the rounded cotangent and the bf16 prologue)
@@ -52,17 +65,17 @@ kernel of ``csrc/transition.cu`` or raises):
 - ``wgrad_bf16``    (launches ``transition_wgrad``, ``.sum``)
 - ``wgrad_proj``    (launches ``transition_wgrad.proj``, ``.proj_sum``)
 
-and ``transition_half_int8``, the differentiable op over them (its
-forward quantizer launches ``fused_half_fwd.amax`` and ``.quant``, counted
-in ``fused_block.launches``). Weights are the port's OIHW tensors: conv1
-[Cout, Cin, 3, 3], the projection [Cout, Cin, 1, 1].
+and ``transition_half_int8``, the differentiable op over them. Weights are
+the port's OIHW tensors: conv1 [Cout, Cin, 3, 3], the projection [Cout,
+Cin, 1, 1].
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,13 +218,13 @@ def _unpack_w_fwd(w_q: torch.Tensor) -> torch.Tensor:
     return w_q.reshape(cout, 3, 3, k // 9).permute(0, 3, 1, 2)
 
 
-def _shortcut_plain(x, wp_c, cout, h, w_img):
-    """res: bf16(f32(Wp @ x_ee)) with f32 accumulation (float64 here), or
-    x_ee with zero channels added, in x's dtype."""
-    raw0 = _even(x, h, w_img)
+def _shortcut(raw0, wp_c, cout):
+    """res from the raw even-even plane raw0 [Cin, N']: bf16(f32(Wp @
+    raw0)) with f32 accumulation (float64 here), or raw0 with zero channels
+    added, in raw0's dtype."""
     if wp_c is not None:
         acc = wp_c.to(_F64) @ raw0.to(_F64)
-        return acc.to(_F32).to(x.dtype)
+        return acc.to(_F32).to(raw0.dtype)
     return F.pad(raw0, (0, 0, 0, cout - raw0.shape[0]))
 
 
@@ -221,10 +234,185 @@ def fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, *, tile, h, w_img):
     shortcut from the raw x, and the f32 sums of z."""
     acc = _s2conv_f64(d_q, _unpack_w_fwd(w_q), h, w_img).to(_F32)
     fac = ws.to(_F32)[:, None] * (amax * fb.INV_127)[None, :]
-    z = fb._per_group(acc, tile, fac).to(x.dtype)
+    # contiguous: the sums' order does not hang on the conv's output layout
+    z = fb._per_group(acc, tile, fac).to(x.dtype).contiguous()
     zf = z.to(_F32)
-    res = _shortcut_plain(x, wp_c, w_q.shape[0], h, w_img)
+    res = _shortcut(_even(x, h, w_img), wp_c, w_q.shape[0])
     return z, fb._group_sums(zf, tile), fb._group_sums(zf * zf, tile), res
+
+
+FWD_BM = 128  # M rows a tile of the forward GEMM (csrc/fwd_staged_s8.cuh BM)
+PROJ_BK = 128  # bytes a K step of its projection (csrc/transition.cu)
+
+
+class TransitionFwdLayout(NamedTuple):
+    """Where the forward's prepass writes the quantized prologue and where
+    its GEMM reads it (``transition_fwd_layout``).
+
+    The M rows are padded output positions, image-major over the whole
+    batch: row m is image i, padded row r' < oh + 1 and padded column c' <
+    ow + 1 at m = i*per_img + r'*(ow + 1) + c' (per_img = (oh + 1)*(ow +
+    1)); r' = 0 and c' = 0 are pad rows, computed and thrown away, and the
+    live rows (r', c' >= 1: output (r' - 1, c' - 1)) in order are the
+    output lanes in order. ``m_valid`` = batch*per_img rows fill ``tiles``
+    tiles of ``bm``; a tile may span images and scale groups (``imgs``
+    images each, ``tile`` = imgs*oh*ow output lanes): each row is
+    dequantized at its own group's scale.
+
+    The int8 slab [4*plane_len, cp] holds the four parity planes, plane p
+    = 2*ph + pw over plane_len positions of cp bytes (Cin padded with
+    zeros to a multiple of 32): ``guard`` = ow + 2 zero positions, then
+    position m of plane p holds input (2(r' - 1) + ph, 2(c' - 1) + pw) of
+    the row's image, quantized at its group's scale (zero at the pad rows
+    and columns), then zeros to the end. Tap (dh, dw) reads plane 2*(dh !=
+    1) + (dw != 1) one row up where dh == 0 and one column left where dw
+    == 0 (JAX ``_tap_info``): M row m of tap t reads position m +
+    shifts[t], every A row of every tap one aligned read inside the slab,
+    no masks. The GEMM's K is (tap, channel) in steps of ``bk`` bytes,
+    each 16-byte piece at its own tap, so a step may span taps: it walks
+    ``krow`` bytes, 9*cp rounded up to bk, the weights' rows being 9*cp
+    bytes (the bytes past them read as zeros). The bf16 slab [plane_len,
+    cpb] holds the raw even-even plane (x[2(r' - 1), 2(c' - 1)]) at the
+    same positions, Cin padded to cpb (a multiple of 32); row m reads
+    position m + ee_shift."""
+    n: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    tile: int
+    oh: int
+    ow: int
+    imgs: int
+    groups: int
+    per_img: int
+    guard: int
+    bm: int
+    m_valid: int
+    tiles: int
+    plane_len: int
+    cp: int
+    bk: int
+    krow: int
+    cpb: int
+    shifts: tuple
+    ee_shift: int
+
+
+def check_fwd_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
+                       n: int, tile: int) -> None:
+    """The forward kernels' shape needs: any even H and W, scale groups of
+    whole images of 8-lane multiples (every lane tile the JAX picker
+    gives), Cout a multiple of 8; Cin any (the layout pads it)."""
+    if h % 2 or w_img % 2 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n}")
+    if tile % ((h // 2) * (w_img // 2)) or (n // 4) % tile or tile % 8:
+        raise ValueError(f"{name}: tile {tile} vs N'={n // 4} and images "
+                         f"of {(h // 2) * (w_img // 2)} output lanes")
+    if cout % 8 or cin < 1:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}")
+
+
+@functools.lru_cache(maxsize=None)
+def transition_fwd_layout(n: int, h: int, w_img: int, cin: int, cout: int,
+                          tile: int) -> TransitionFwdLayout:
+    """The forward's slab layout for x [Cin, n] of h x w_img images and
+    scale groups of ``tile`` output lanes (see ``TransitionFwdLayout``).
+    Cached: every call of the forward asks."""
+    check_fwd_geometry("transition_fwd_layout", cin, cout, h, w_img, n,
+                       tile)
+    oh, ow = h // 2, w_img // 2
+    per_img = (oh + 1) * (ow + 1)
+    guard = ow + 2
+    m_valid = n // (h * w_img) * per_img
+    tiles = -(-m_valid // FWD_BM)
+    plane_len = guard + tiles * FWD_BM
+    cp = -(-cin // 32) * 32
+    bk = 128 if cp % 128 == 0 else 64
+    shifts = tuple((2 * (dh != 1) + (dw != 1)) * plane_len + guard
+                   - (dh == 0) * (ow + 1) - (dw == 0)
+                   for dh in range(3) for dw in range(3))
+    return TransitionFwdLayout(
+        n, h, w_img, cin, cout, tile, oh, ow, tile // (oh * ow),
+        n // 4 // tile, per_img, guard, FWD_BM, m_valid, tiles, plane_len,
+        cp, bk, -(-9 * cp // bk) * bk, cp, shifts, guard)
+
+
+def _live_rows(lay: TransitionFwdLayout) -> torch.Tensor:
+    """The M rows of the live positions, in lane order."""
+    i, r, c = torch.meshgrid(torch.arange(lay.n // (lay.h * lay.w)),
+                             torch.arange(lay.oh), torch.arange(lay.ow),
+                             indexing="ij")
+    return (i * lay.per_img + (r + 1) * (lay.ow + 1) + c + 1).reshape(-1)
+
+
+def _plane_slab(v: torch.Tensor, lay: TransitionFwdLayout,
+                c_pad: int) -> torch.Tensor:
+    """v [C, n] -> [4, plane_len, c_pad]: the parity planes at their
+    padded positions, zeros elsewhere."""
+    c = v.shape[0]
+    b = lay.n // (lay.h * lay.w)
+    t = v.reshape(c, b, lay.oh, 2, lay.ow, 2)
+    t = t.permute(3, 5, 1, 2, 4, 0).reshape(4, b, lay.oh, lay.ow, c)
+    t = F.pad(t, (0, c_pad - c, 1, 0, 1, 0)).reshape(4, lay.m_valid, c_pad)
+    return F.pad(t, (0, 0, lay.guard,
+                     lay.plane_len - lay.guard - lay.m_valid))
+
+
+def fwd_amax_plain(x, scale, shift, bits, *, thresh, tile):
+    """[G, 1] f32: each scale group's absmax of the prologue (groups of
+    ``4 * tile`` input lanes)."""
+    d = fb.prologue_plain(x, scale, shift, bits, thresh)
+    return d.abs().reshape(d.shape[0], -1, 4 * tile).amax(dim=(0, 2))[:, None]
+
+
+def fwd_pre_plain(x, scale, shift, bits, part, *, thresh, lay):
+    """(slab int8 [4*plane_len, cp], ee bf16 [plane_len, cpb], amax
+    [groups] f32) of layout ``lay``: the prologue quantized per group at
+    127 / max(amax, 1e-12) (``amax`` = the maximum of ``part``'s row, the
+    group's partial absmaxes), as ``fwd_quantize_plain``; the raw even-even
+    plane of x."""
+    d = fb.prologue_plain(x, scale, shift, bits, thresh)
+    amax = part.amax(dim=1)
+    inv = torch.tensor(127.0, dtype=_F32, device=x.device) / torch.clamp_min(
+        amax, fb.FWD_FLOOR)
+    q = torch.clamp(torch.round(d.reshape(lay.cin, lay.groups, -1)
+                                * inv[None, :, None]), -127.0, 127.0)
+    slab = _plane_slab(q.to(torch.int8).reshape(lay.cin, -1), lay, lay.cp)
+    ee = _plane_slab(x, lay, lay.cpb)[0]
+    return (slab.reshape(4 * lay.plane_len, lay.cp), ee.to(
+        x.dtype).contiguous(), amax)
+
+
+def _pad_w_fwd(w_q, lay):
+    """w_q [Cout, 9*Cin] -> [Cout, 9*cp]: each tap's channels padded with
+    zeros to the slab's cp (w_q itself where cp == Cin)."""
+    if lay.cp == lay.cin:
+        return w_q.contiguous()
+    cout = w_q.shape[0]
+    return F.pad(w_q.reshape(cout, 9, lay.cin),
+                 (0, lay.cp - lay.cin)).reshape(cout, -1).contiguous()
+
+
+def fwd_gemm_plain(slab, ee, amax, w_q, ws, wp_c, lay):
+    """(z, zsum, zssq, res) from the slabs of layout ``lay``: the exact
+    contraction (float64) of each tap's shifted slab rows with its weights
+    at the live rows, z = bf16(f32(acc) * f32(ws * amax/127)) with each
+    lane's group's amax, the sums of z per group then across groups in
+    order; res from the even-even slab's live rows, as
+    ``fwd_conv_plain``."""
+    cout = w_q.shape[0]
+    wt = _pad_w_fwd(w_q, lay).to(_F64).reshape(cout, 9, lay.cp)
+    rows = _live_rows(lay)
+    acc = sum(slab[sh + rows].to(_F64) @ wt[:, t].t()
+              for t, sh in enumerate(lay.shifts))   # [N', Cout]
+    acc = acc.t().contiguous().to(_F32)
+    fac = ws.to(_F32)[:, None] * (amax * fb.INV_127)[None, :]
+    z = fb._per_group(acc, lay.tile, fac).to(ee.dtype)
+    zf = z.to(_F32)
+    raw0 = ee[lay.ee_shift + rows, :lay.cin].t().contiguous()
+    return (z, fb._group_sums(zf, lay.tile), fb._group_sums(zf * zf, lay.tile),
+            _shortcut(raw0, wp_c, cout))
 
 
 def bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *,
@@ -321,7 +509,9 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("transition")
         sigs = {
-            "fwd_launch": [_P] * 9 + [_I] * 6 + [_P],
+            "fwd_amax_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+            "fwd_pre_launch": [_P] * 8 + [_I] * 13 + [_F, _P],
+            "fwd_gemm_launch": [_P] * 10 + [_I] * 16 + [_P],
             "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
             "bwd_quant_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
             "bwd_fold_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
@@ -352,7 +542,7 @@ def _partial_sum(name: str, part: torch.Tensor) -> torch.Tensor:
 
 
 def row_tile(oh: int, ow: int) -> int:
-    """Output positions per block of the conv kernels: 64 or 128, whole
+    """Output positions per block of the dgrad kernel: 64 or 128, whole
     rows of one image (csrc/transition.cu ``out_row_tile``), or 0 for
     none."""
     if ow % 8:
@@ -367,8 +557,8 @@ def row_tile(oh: int, ow: int) -> int:
 
 def check_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
                    n: int, tile: int) -> None:
-    """The kernels' own shape needs (the block's gate admits more): the
-    contractions in 32-channel chunks (Cin for the forward and the weight
+    """The backward kernels' own shape needs (the block's gate admits
+    more): the contractions in 32-channel chunks (Cin for the weight
     gradient, Cout for the dgrad), rows of 8 output pixels and a row tile
     of whole output rows that divides the scale group ``tile``."""
     oh, ow = h // 2, w_img // 2
@@ -383,38 +573,150 @@ def check_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
                          f"tile {row_tile(oh, ow)}")
 
 
-def fwd_conv(d_q, amax, w_q, ws, x, wp_c, *, tile, h, w_img):
-    """z = bf16(conv_s2(d_q, w_q) * ws * amax/127), the shortcut res from
-    the raw x (``wp_c`` [Cout, Cin] bf16, or None for option A) and the
-    f32 sums of z."""
-    if on_cpu(d_q):
-        return fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, tile=tile, h=h,
-                              w_img=w_img)
-    name = "transition_fwd"
-    cin, n = d_q.shape
-    cout = w_q.shape[0]
-    if tuple(w_q.shape) != (cout, 9 * cin):
-        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin {cin}")
-    check_geometry(name, cin, cout, h, w_img, n, tile)
-    n_out = n // 4
-    ws = ws.to(_F32).contiguous()
-    tensors = [d_q, w_q, amax, ws, x]
-    dtypes = [torch.int8, torch.int8, _F32, _F32, torch.bfloat16]
-    if wp_c is not None:
-        tensors.append(wp_c)
-        dtypes.append(torch.bfloat16)
+def _prologue_args(name, x, scale, shift, bits, extra=(), extra_dtypes=()):
+    """scale and shift as contiguous f32, after checking x, them, the bits
+    and ``extra`` against their dtypes on the card."""
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors = [x, scale, shift, *extra]
+    dtypes = [torch.bfloat16, _F32, _F32, *extra_dtypes]
+    if bits is not None:
+        tensors.append(bits)
+        dtypes.append(torch.uint8)
     require_cuda(name, tensors, dtypes)
-    dev = d_q.device
+    return scale, shift
+
+
+def fwd_amax(x, scale, shift, bits, *, thresh, tile):
+    """The prologue's partial absmaxes per scale group of ``4 * tile``
+    input lanes: [G, slices] f32 (the group's absmax is a row's maximum;
+    the plain version has one column)."""
+    if on_cpu(x):
+        return fwd_amax_plain(x, scale, shift, bits, thresh=thresh,
+                              tile=tile)
+    name = "transition_fwd.amax"
+    cin, n = x.shape
+    if n % (4 * tile) or tile % 8:
+        raise ValueError(f"{name}: tile {tile} vs N={n}")
+    scale, shift = _prologue_args(name, x, scale, shift, bits)
+    groups = n // (4 * tile)
+    s = fb._slices(groups)
+    part = torch.empty((groups, s), dtype=_F32, device=x.device)
+    _launch(name, _library().fwd_amax_launch, x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _ptr(bits), part.data_ptr(),
+            cin, n, 4 * tile, s, thresh or 256,
+            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(x))
+    return part
+
+
+def fwd_pre(x, scale, shift, bits, part, *, thresh, lay):
+    """The forward's slabs of layout ``lay`` (``fwd_pre_plain``): the
+    prologue recomputed and quantized once per element at its group's
+    scale, the parity planes written position-major; the raw even-even
+    plane into the bf16 slab; the group absmaxes. One launch."""
+    if on_cpu(x):
+        return fwd_pre_plain(x, scale, shift, bits, part, thresh=thresh,
+                             lay=lay)
+    name = "transition_fwd.pre"
+    if tuple(x.shape) != (lay.cin, lay.n) or part.shape[0] != lay.groups:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, partial maxima "
+                         f"{tuple(part.shape)} vs the layout {lay}")
+    scale, shift = _prologue_args(name, x, scale, shift, bits, [part],
+                                  [_F32])
+    dev = x.device
+    slab = torch.empty((4 * lay.plane_len, lay.cp), dtype=torch.int8,
+                       device=dev)
+    ee = torch.empty((lay.plane_len, lay.cpb), dtype=torch.bfloat16,
+                     device=dev)
+    amax = torch.empty(lay.groups, dtype=_F32, device=dev)
+    _launch(name, _library().fwd_pre_launch, x.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), _ptr(bits), part.data_ptr(), amax.data_ptr(),
+            slab.data_ptr(), ee.data_ptr(), lay.cin, lay.n, lay.h, lay.w,
+            lay.imgs, lay.groups, part.shape[1], lay.guard, lay.m_valid,
+            lay.plane_len, lay.cp, lay.cpb, thresh or 256,
+            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(x))
+    return slab, ee, amax
+
+
+def fwd_tile(lay: TransitionFwdLayout):
+    """(bn, bk) of the forward GEMM: a 128-wide N tile where Cout >= 128
+    (A read ceil(Cout/128) times), else 64; the layout's K step."""
+    return (128 if lay.cout >= 128 else 64), lay.bk
+
+
+def fwd_gemm(slab, ee, amax, w_q, ws, wp_c, lay):
+    """(z, zsum, zssq, res) from the slabs of layout ``lay``
+    (``fwd_gemm_plain``): the exact s32 contraction over (tap, channel) on
+    128-row tiles, z = bf16(f32(acc) * f32(ws * amax * f32(1/127))) with
+    each row's group's scale; res = bf16 of the f32 sum of Wp [Cout, Cin]
+    against the even-even slab (``wp_c``), or its channels with zeros
+    added (None); each tile's sums of z and z^2 added in a fixed order (bit
+    for bit the same every run)."""
+    if on_cpu(slab):
+        return fwd_gemm_plain(slab, ee, amax, w_q, ws, wp_c, lay)
+    name = "transition_fwd"
+    cout = w_q.shape[0]
+    if tuple(slab.shape) != (4 * lay.plane_len, lay.cp) or \
+            tuple(ee.shape) != (lay.plane_len, lay.cpb):
+        raise ValueError(f"{name}: slabs {tuple(slab.shape)}, "
+                         f"{tuple(ee.shape)} are not of the layout {lay}")
+    if tuple(w_q.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin "
+                         f"{lay.cin}, Cout {lay.cout}")
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
+    ws = ws.to(_F32).contiguous()
+    wt = _pad_w_fwd(w_q, lay)
+    tensors = [slab, ee, amax, wt, ws]
+    dtypes = [torch.int8, torch.bfloat16, _F32, torch.int8, _F32]
+    wpp = None
+    # the projection's bf16 rows: cin channels (8-channel multiples: rows
+    # of whole 16-byte pieces), the K bytes past them read as zeros
+    kp = -(-lay.cin // 8) * 8
+    if wp_c is not None:
+        if tuple(wp_c.shape) != (cout, lay.cin):
+            raise ValueError(f"{name}: projection {tuple(wp_c.shape)}")
+        wpp = (wp_c if kp == lay.cin
+               else F.pad(wp_c, (0, kp - lay.cin))).contiguous()
+        tensors.append(wpp)
+        dtypes.append(torch.bfloat16)
+    elif cout < lay.cin:
+        raise ValueError(f"{name}: option A needs Cout >= Cin")
+    require_cuda(name, tensors, dtypes)
+    dev = slab.device
+    n_out = lay.n // 4
     z = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
     res = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
-    bn = row_tile(h // 2, w_img // 2)
-    part = torch.empty((n_out // bn, 2 * cout), dtype=_F32, device=dev)
-    _launch(name, _library().fwd_launch, d_q.data_ptr(), w_q.data_ptr(),
-            amax.data_ptr(), ws.data_ptr(), x.data_ptr(), _ptr(wp_c),
-            z.data_ptr(), res.data_ptr(), part.data_ptr(), cin, cout, n, h,
-            w_img, tile, _stream(d_q))
+    part = torch.empty((lay.tiles, 2 * cout), dtype=_F32, device=dev)
+    shifts = (ctypes.c_int * 9)(*lay.shifts)
+    _launch(name, _library().fwd_gemm_launch, slab.data_ptr(),
+            wt.data_ptr(), ws.data_ptr(), amax.data_ptr(),
+            ee.data_ptr(), _ptr(wpp), z.data_ptr(), res.data_ptr(),
+            part.data_ptr(), ctypes.addressof(shifts), lay.ee_shift, cout,
+            lay.cp, lay.cpb, 9 * lay.cp, lay.krow, 2 * kp,
+            -(-2 * lay.cpb // PROJ_BK) * PROJ_BK, lay.tiles, lay.imgs,
+            lay.n // (lay.h * lay.w), lay.h, lay.w, n_out, *fwd_tile(lay),
+            _stream(slab))
     sums = _partial_sum(f"{name}.sum", part)
     return z, sums[:cout], sums[cout:], res
+
+
+def fwd_conv(x, scale, shift, bits, w_q, ws, wp_c, *, thresh, tile, h,
+             w_img):
+    """The forward: (z, zsum, zssq, res) of the prologue of x quantized
+    per scale group of ``tile`` output lanes, conv1's int8 weights
+    (``w_q``, ``ws``) and the shortcut (``wp_c`` [Cout, Cin] bf16, or None
+    for option A). On the card ``fwd_amax``, ``fwd_pre``, ``fwd_gemm``."""
+    if on_cpu(x):
+        d_q, amax = fb.fwd_quantize_plain(x, scale, shift, bits,
+                                          thresh=thresh, tile=4 * tile)
+        return fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, tile=tile, h=h,
+                              w_img=w_img)
+    cin, n = x.shape
+    lay = transition_fwd_layout(n, h, w_img, cin, w_q.shape[0], tile)
+    part = fwd_amax(x, scale, shift, bits, thresh=thresh, tile=tile)
+    slab, ee, amax = fwd_pre(x, scale, shift, bits, part, thresh=thresh,
+                             lay=lay)
+    return fwd_gemm(slab, ee, amax, w_q, ws, wp_c, lay)
 
 
 def _cotangent_args(dz, z, dzsum, dzssq):
@@ -642,12 +944,11 @@ class _TransitionHalf(torch.autograd.Function):
         cout = w1.shape[0]
         # the reference's _quant_pack_w_fwd is the fused half's quantizer
         w_q, ws = fb.quantize_pack_weights(w1.detach())
-        d_q, amax = fb.fwd_quantize(x_cs, scale, shift, bits, thresh=thresh,
-                                    tile=4 * tile)
         wp_c = (None if wp is None else
                 wp.detach().reshape(cout, cin).to(x_cs.dtype).contiguous())
-        z, zsum, zssq, res = fwd_conv(d_q, amax, w_q, ws, x_cs, wp_c,
-                                      tile=tile, h=h, w_img=w_img)
+        z, zsum, zssq, res = fwd_conv(x_cs, scale, shift, bits, w_q, ws,
+                                      wp_c, thresh=thresh, tile=tile, h=h,
+                                      w_img=w_img)
         ctx.save_for_backward(x_cs, w1, wp, scale, shift, bits, z)
         ctx.cfg = (thresh, h, w_img, quant_bwd, tile)
         return z, zsum, zssq, res

@@ -42,8 +42,8 @@ of the sums of the kernel's own y, and the sums over the tensor cores'
 accumulators (BatchNorm sums, d(scale), d(shift), dW) within 1e-4 of the
 plain version's largest value (``_mma_sums`` says why); the seed expansion
 and the int8 kernels in seed mode are bit-equal. The transition half: int8
-codes, group absmaxes, z, the cotangent fold and the FQT weight gradient
-are equal; res and dx (bf16 products summed in f32 on the card) within 2
+codes, group absmaxes, the forward's slabs (byte for byte), z, the
+cotangent fold and the FQT weight gradient are equal; res and dx (bf16 products summed in f32 on the card) within 2
 bf16 ulps; the sums as the fused half's. The 3x3 weight gradient: f32
 sums over the tensor cores' accumulators, 1e-4; ``conv3x3_same``'s y, dx
 and bf16 dW within 2 bf16 ulps of the CPU op's. The int8 1x1 conv: equal.
@@ -1227,8 +1227,9 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
                                         tile=4 * tile)
     _same(d_q, pd_q)
     _same(amax, pamax)
-    got = tr.fwd_conv(d_q, amax, wq, ws, x, wp, tile=tile, **kw)
-    want = tr.fwd_conv_plain(d_q, amax, wq, ws, x, wp, tile=tile, **kw)
+    got = tr.fwd_conv(x, scale, shift, bits, wq, ws, wp, thresh=thresh,
+                      tile=tile, **kw)
+    want = tr.fwd_conv_plain(pd_q, pamax, wq, ws, x, wp, tile=tile, **kw)
     _same(got[0], want[0])
     _same(got[1], want[1], sums=True)
     _same(got[2], want[2], sums=True)
@@ -1291,12 +1292,12 @@ def test_transition_op_launches_its_kernels(dev, quant_bwd):
             bwd = (("transition_bwd.amax", "transition_bwd.quant")
                    if quant_bwd else ("transition_bwd.fold",))
             assert dict(tr.launches) == {name: 1 for name in (
+                "transition_fwd.amax", "transition_fwd.pre",
                 "transition_fwd", "transition_fwd.sum", "transition_dgrad",
                 "transition_dgrad.sum", "transition_wgrad",
                 "transition_wgrad.sum", "transition_wgrad.proj",
                 "transition_wgrad.proj_sum") + bwd}
-            assert dict(fb.launches) == {"fused_half_fwd.amax": 1,
-                                         "fused_half_fwd.quant": 1}
+            assert not fb.launches
         else:
             assert not tr.launches and not fb.launches
     got, want = res
@@ -1339,21 +1340,96 @@ def test_transition_op_pads_narrow_inputs(dev, cin, cout, use_proj):
         ).abs().max()
 
 
+# (batch, h, w, Cin, Cout): WRN-28-10's two transitions at batch 128, then
+# widths the row-tile kernel refused (output rows of 6 and 10 pixels; the
+# first in two scale groups)
+TR_FWD_SHAPES = [(128, 32, 32, 160, 320), (128, 16, 16, 320, 640),
+                 (64, 12, 12, 160, 320), (32, 20, 20, 64, 128)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", TR_FWD_SHAPES)
+@pytest.mark.parametrize("use_proj,rate", [(True, 0.3), (True, 0.0),
+                                           (False, 0.3), (False, 0.0)])
+def test_transition_fwd_staged_matches_plain(dev, b, h, w, cin, cout,
+                                             use_proj, rate):
+    """The staged forward's layers against their plain versions on the
+    same CUDA tensors: the group absmaxes equal, the slabs byte for byte,
+    z equal, res within 2 bf16 ulps (option A's equal), the sums within
+    1e-5; z, res and the sums bit-equal over two calls."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, b + h + cin)
+    x, scale, shift = t["x"], t["scale"], t["shift"]
+    bits = t["bits"] if rate > 0 else None
+    thresh = fb.dropout_thresh(rate) if rate > 0 else None
+    wp = t["wp"] if use_proj else None
+    n = x.shape[1]
+    tile = tr.transition_tile(h // 2, w // 2, n // 4, cin, cout)
+    lay = tr.transition_fwd_layout(n, h, w, cin, cout, tile)
+    wq, ws = fb.quantize_pack_weights(t["w1"])
+    tr.reset_launches()
+    part = tr.fwd_amax(x, scale, shift, bits, thresh=thresh, tile=tile)
+    ppart = tr.fwd_amax_plain(x, scale, shift, bits, thresh=thresh,
+                              tile=tile)
+    _same(part.amax(dim=1), ppart[:, 0])
+    slab, ee, amax = tr.fwd_pre(x, scale, shift, bits, part, thresh=thresh,
+                                lay=lay)
+    pslab, pee, pamax = tr.fwd_pre_plain(x, scale, shift, bits, ppart,
+                                         thresh=thresh, lay=lay)
+    _same(slab, pslab)
+    _same(ee, pee)
+    _same(amax, pamax)
+    got = tr.fwd_gemm(slab, ee, amax, wq, ws, wp, lay)
+    want = tr.fwd_gemm_plain(pslab, pee, pamax, wq, ws, wp, lay)
+    _same(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    (_bf16_close if use_proj else _same)(got[3], want[3])
+    assert want[0].float().abs().max().item() > 0
+    # and against the reference that does not depend on the slabs' layout:
+    # the quantizer, then the direct stride-2 conv
+    d_q, qamax = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                       tile=4 * tile)
+    ref = tr.fwd_conv_plain(d_q, qamax, wq, ws, x, wp, tile=tile, h=h,
+                            w_img=w)
+    _same(amax, qamax)
+    _same(got[0], ref[0])
+    _same(got[1], ref[1], sums=True)
+    _same(got[2], ref[2], sums=True)
+    (_bf16_close if use_proj else _same)(got[3], ref[3])
+    del d_q
+    first = tr.fwd_conv(x, scale, shift, bits, wq, ws, wp, thresh=thresh,
+                        tile=tile, h=h, w_img=w)
+    second = tr.fwd_conv(x, scale, shift, bits, wq, ws, wp, thresh=thresh,
+                         tile=tile, h=h, w_img=w)
+    torch.cuda.synchronize()
+    for a, b_, c in zip(first, second, got):
+        assert torch.equal(a, b_) and torch.equal(a, c)
+    assert dict(tr.launches) == {"transition_fwd.amax": 3,
+                                 "transition_fwd.pre": 3,
+                                 "transition_fwd": 3,
+                                 "transition_fwd.sum": 3}
+
+
 def test_transition_never_falls_back(dev):
-    """A CUDA tensor launches the kernels or raises: f32 activations, an
+    """A CUDA tensor launches the kernels or raises: f32 activations; an
     output width off the 32-channel chunks (the gate admits Cout % 32 only;
-    a narrow Cin is padded), rows narrower than 8 output pixels."""
+    a narrow Cin is padded) and rows narrower than 8 output pixels run the
+    forward (it takes any even width and Cout % 8) and raise in the
+    backward, whose kernels need them."""
     t = _tr_inputs(dev, 8, 16, 16, 32, 64, 4)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         tr.transition_half_int8(t["x"].float(), t["w1"], None, t["scale"],
                                 t["shift"], h=16, w_img=16)
+    w48 = t["w1"][:48].contiguous().requires_grad_()
+    out = tr.transition_half_int8(t["x"], w48, None, t["scale"], t["shift"],
+                                  h=16, w_img=16)
     with pytest.raises(ValueError, match="multiples of 32"):
-        tr.transition_half_int8(t["x"], t["w1"][:48].contiguous(), None,
-                                t["scale"], t["shift"], h=16, w_img=16)
-    x = torch.zeros((32, 32 * 64), dtype=torch.bfloat16, device=dev)
+        torch.autograd.grad(out[0].float().sum(), w48)
+    x = torch.zeros((32, 32 * 64), dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    out = tr.transition_half_int8(x, t["w1"], None, t["scale"], t["shift"],
+                                  h=8, w_img=8)
     with pytest.raises(ValueError, match="geometry"):
-        tr.transition_half_int8(x, t["w1"], None, t["scale"], t["shift"],
-                                h=8, w_img=8)
+        torch.autograd.grad(out[0].float().sum(), x)
 
 
 def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
