@@ -297,7 +297,9 @@ SOURCES = {"nv_half_fwd":
            "nv_half_wgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged_s8.cuh",
            "fused_half_bf16_wgrad":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
+           "fused_half_bf16_fwd":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_bf16.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -323,6 +325,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_wgrad_bf16": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_wgrad_bf16.pre": _PALLAS + "bneck_nv_train.py:928",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
+            "fused_half_bf16_fwd.pre": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
             "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
             "fused_half_bf16_wgrad.pre": _PALLAS + "fused_block.py:763",
@@ -350,10 +353,12 @@ C1_STAGES = [(56, 56, 256, 64), (28, 28, 512, 128), (14, 14, 1024, 256),
 C1_MODES = ("int8", "bf16", "bf16+res+dual")
 # launches of one fused-bf16 WRN-28-10 step: the stem, and 8 bf16 halves
 # (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums;
-# each wgrad is its prepass, the staged mainloop and the ordered sum
+# each forward is its prepass, the wgmma GEMM and (with sums) the ordered
+# sum; each wgrad is its prepass, the staged mainloop and the ordered sum
 FUSED_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
-    "fused_half_bf16_fwd": 8, "fused_half_bf16_fwd.sum": 4,
+    "fused_half_bf16_fwd.pre": 8, "fused_half_bf16_fwd": 8,
+    "fused_half_bf16_fwd.sum": 4,
     "fused_half_bf16_dgrad": 8, "fused_half_bf16_dgrad.sum": 8,
     "fused_half_bf16_wgrad.pre": 8, "fused_half_bf16_wgrad": 8,
     "fused_half_bf16_wgrad.sum": 8}
@@ -445,6 +450,30 @@ F32_SUMS = ("ysum", "yssq", "zsum", "zssq", "ds", "dt", "db", "dw_stem")
 PEAKS = {"SXM": (989e12, 1979e12, 3.35e12, 67e12),
          "PCIe": (756e12, 1513e12, 2.0e12, 51e12),
          "NVL": (835e12, 1671e12, 3.9e12, 60e12)}
+
+
+def ptxas_entries(log: str, pattern: str):
+    """nvcc -Xptxas -v's report of each entry function whose name holds
+    ``pattern``: (mangled name, registers, static shared bytes, spill
+    stores + loads in bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = dict(name=name, registers=None, smem=0, spill_bytes=0)
+            if pattern in name:
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            cur["spill_bytes"] = (int(words[words.index("spill") - 2])
+                                  + int(words[-4]))
+        elif cur is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                cur["smem"] = int(words[words.index("smem") - 2])
+            cur = None  # the entry's report ends with its registers
+    return out
 
 
 def card_peaks(name: str):
@@ -851,7 +880,7 @@ KERNEL_KINDS = [
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     ("conv3x3_same wgrad (port)", ("RawRows",)),
-    ("fused bf16 half (port)", ("FwdLoad", "DgradLoad",
+    ("fused bf16 half (port)", ("fused_fwd_", "DgradLoad",
                                 "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
                            "dgrad_kernel<", "bwd_amax_kernel",
@@ -1502,11 +1531,77 @@ def _fused_wgrad_pre_row(fb, args, thresh, geo, flops_f32, bw):
         bytes_ms=byts / bw * 1e3)
 
 
+def _fused_fwd_parts(fb, args, thresh, h, w, stats, peaks):
+    """The bf16 forward's second call equal to its first bit for bit, and
+    its two parts timed apart, each beside its bound: the prepass (its
+    bytes: x, a bits tensor, scale and shift in, d out, counted unpadded)
+    and the wgmma GEMM + ordered sum (its operations on the unpadded
+    operands); with the MACs the GEMM issues (pad rows, N tiles, the last
+    K step's tail) against the useful ones, and the N columns it issues
+    against Cout."""
+    import torch
+
+    flops_bf16, _, bw, flops_f32 = peaks
+    x, wp, scale, shift, bits, res = args
+    c, n = x.shape
+    cout = wp.shape[0]
+    kw = dict(thresh=thresh, h=h, w_img=w, want_stats=stats)
+    first = fb.fwd_bf16(*args, **kw)
+    for a, b in zip(first, fb.fwd_bf16(*args, **kw)):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "fused_half_bf16_fwd", c, h, stats)
+    lay = fb.fused_fwd_layout(n, h, w, c, cout)
+    slab = fb.fused_fwd_pre(x, scale, shift, bits, thresh=thresh, lay=lay)
+    bits_b = c * n if bits is not None and not fb.is_seed(bits) else 0
+    n_cols = -(-cout // lay.bn) * lay.bn
+    return dict(
+        deterministic=True, bn=lay.bn, tiles=lay.tiles,
+        pre_ms=time_ms(lambda: fb.fused_fwd_pre(x, scale, shift, bits,
+                                                thresh=thresh, lay=lay), 10),
+        gemm_ms=time_ms(lambda: fb.fused_fwd_gemm(slab, wp, res, lay=lay,
+                                                  want_stats=stats), 10),
+        pre_bound_ms=max((4 * c * n + bits_b + 8 * c) / bw,
+                         3 * c * n / flops_f32) * 1e3,
+        gemm_bound_ms=max(
+            2 * 9 * c * cout * n / flops_bf16,
+            (2 * c * n + 18 * c * cout + 2 * cout * n
+             + (2 * cout * n if res is not None else 0)
+             + (8 * cout if stats else 0)) / bw) * 1e3,
+        issued_macs=lay.tiles * lay.bm * n_cols * (-(-18 * c // 128) * 64),
+        useful_macs=n * cout * 9 * c, issued_n=n_cols, cout=cout)
+
+
+def _fused_fwd_pre_row(fb, x, scale, shift, bits, thresh, geo, peaks):
+    """The bf16 forward's prepass as a kernel row: its slab equal to the
+    plain version's byte for byte; bound by its bytes (x, the bits where
+    the call has a tensor, scale and shift in; d out, unpadded) or its f32
+    operations (three an element)."""
+    import torch
+
+    _, _, bw, flops_f32 = peaks
+    c, n = x.shape
+    lay = fb.fused_fwd_layout(n, geo["h"], geo["w"], c, c)
+    kw = dict(thresh=thresh, lay=lay)
+    assert torch.equal(fb.fused_fwd_pre(x, scale, shift, bits, **kw),
+                       fb.fused_fwd_pre_plain(x, scale, shift, bits, **kw)), (
+        "fused_half_bf16_fwd.pre", geo)
+    bits_b = c * n if bits is not None and not fb.is_seed(bits) else 0
+    return dict(
+        name="fused_half_bf16_fwd.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: fb.fused_fwd_pre(x, scale, shift, bits, **kw),
+                   10),
+        plain_ms=time_ms(lambda: fb.fused_fwd_pre_plain(x, scale, shift,
+                                                        bits, **kw), 1),
+        library_ms=None, ops_ms=3 * c * n / flops_f32 * 1e3,
+        bytes_ms=(4 * c * n + bits_b + 8 * c) / bw * 1e3)
+
+
 def bf16_kernel_phase(peaks):
     """Rows per (bf16 kernel, stage, mode): max error against the plain
     version and the kernel / plain / cuDNN bf16 / bound times of one call
-    (the wgrad's also bit-equal over two calls, with its prepass and its
-    mainloop + sum timed apart; its prepass has rows of its own); seed
+    (the forward and the wgrad also bit-equal over two calls, each with
+    its prepass and its mainloop + sum timed apart, the forward's with
+    its issued and useful MACs; each prepass has rows of its own); seed
     rows: the int8 core's kernels in seed mode against bits mode."""
     import torch
 
@@ -1571,6 +1666,13 @@ def bf16_kernel_phase(peaks):
                 add("fused_half_bf16_fwd", mode, fns[0][0], fns[1][0], lib_f,
                     4 * cn + 18 * c * c + 8 * c + bits_b
                     + (2 * cn if use_res else 0) + (8 * c if stats else 0))
+                rows[-1].update(_fused_fwd_parts(
+                    fb, (x, wp, scale, shift, bits, r), thresh, h, w, stats,
+                    peaks))
+                if not use_res and stats:
+                    rows.append(_fused_fwd_pre_row(
+                        fb, x, scale, shift, bits, thresh,
+                        dict(c=c, h=h, w=w, n=n, mode=kind), peaks))
                 if not use_res:
                     continue
                 # the backward of a half with a residual (dres = g when the
@@ -1745,6 +1847,11 @@ def live_bf16_check(rec, quant: bool):
     return out
 
 
+# the bf16 forward's part keys summed over a step (``_fused_fwd_parts``)
+FWD_PART_KEYS = ("pre_bound_ms", "gemm_bound_ms", "issued_macs",
+                 "useful_macs")
+
+
 def _bf16_mix(rows, name, halves):
     """Phase 12's per-call numbers of kernel ``name`` summed over
     ``halves`` (count per (width, residual, BatchNorm sums, bits mode));
@@ -1753,17 +1860,19 @@ def _bf16_mix(rows, name, halves):
         if name == "fused_half_bf16_fwd":
             return kind + ("+res" if res else "") + (
                 "+stats" if stats else "")
+        if name == "fused_half_bf16_fwd.pre":
+            return kind
         return kind + ("+stats" if stats else "")
 
     mine = [r for r in rows if r["name"] == name]
     mix = [(next(r for r in mine if r["c"] == c
                  and r["mode"] == mode(res, stats, kind)), cnt)
            for (c, res, stats, kind), cnt in halves.items()]
-    # keys every row has a number for (the wgrad's parts; no library call
-    # for its prepass)
+    # keys every row has a number for (the forward's and the wgrad's
+    # parts; no library call for a prepass)
     return {k: sum(r[k] * cnt for r, cnt in mix)
             for k in ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms",
-                      "pre_ms", "gemm_ms")
+                      "pre_ms", "gemm_ms") + FWD_PART_KEYS
             if all(r.get(k) is not None for r, _ in mix)}
 
 
@@ -1773,8 +1882,9 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
     phase 12's per-call times summed over the halves one step ran (the
     forward over the fused-bf16 step's, the backward over the QAT step's)."""
     out = []
-    for name in BF16_NAMES + ("fused_half_bf16_wgrad.pre",):
-        fwd = name == "fused_half_bf16_fwd"
+    for name in BF16_NAMES + ("fused_half_bf16_fwd.pre",
+                              "fused_half_bf16_wgrad.pre"):
+        fwd = name.startswith("fused_half_bf16_fwd")
         tot = _bf16_mix(rows, name, fused_halves if fwd else qat_halves)
         runs = {"fused_bf16": fused["launches"].get(name, 0),
                 "qat_inkernel_dropout": qat["launches"].get(name, 0)}
@@ -1796,7 +1906,8 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=tot.get("library_ms"),
-            **{k: tot[k] for k in ("pre_ms", "gemm_ms") if k in tot},
+            **{k: tot[k] for k in ("pre_ms", "gemm_ms") + FWD_PART_KEYS
+               if k in tot},
             per=("fused-bf16" if fwd else "QAT + in-kernel dropout")
             + f" train step at batch {BATCH} (ms per call summed over the "
               "step's halves; launches over both runs)",
@@ -3630,6 +3741,18 @@ def main() -> int:
               f"{min(regs, default=0)}-{max(regs, default=0)}, "
               f"{len(spills)} with spills")
 
+    # the bf16 forward's kernels: the GEMM's dynamic shared memory is its
+    # ring, (128 + BN) * 128 bytes a stage, three stages, and 1 KB to align
+    for e in ptxas_entries(build.build_log("fused_block_bf16"), "fused_fwd_"):
+        bn = next((b for b in (64, 128, 160) if f"ILi{b}E" in e["name"]),
+                  None)
+        dyn = 3 * (128 + bn) * 128 + 1024 if bn else 0
+        kernel = (f"fused_fwd_gemm_kernel<{bn}>" if bn
+                  else "fused_fwd_pre_kernel")
+        print(f"  ptxas {kernel}: {e['registers']} registers, {e['smem']} B "
+              f"static + {dyn} B dynamic shared memory, "
+              f"{e['spill_bytes']} B spilled")
+
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     rows = kernel_phase(peaks)
@@ -3665,7 +3788,9 @@ def main() -> int:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err") + tuple(k for k in (
-                "pre_ms", "gemm_ms", "plan", "deterministic") if k in r)}))
+                "pre_ms", "gemm_ms", "pre_bound_ms", "gemm_bound_ms",
+                "issued_macs", "useful_macs", "issued_n", "bn", "plan",
+                "deterministic") if k in r)}))
     for r in seed_rows:
         print("  " + json.dumps(r))
     for r in rows + fqt_rows:
@@ -3919,6 +4044,16 @@ def main() -> int:
           "(prepass, mainloop + sum): " + json.dumps({k: wg[k] for k in (
               "ms", "pre_ms", "gemm_ms", "library_ms", "bound_ms",
               "launches", "split_launches", "seed_launches")}))
+    fw = next(k for k in bf16_kernels if k["name"] == "fused_half_bf16_fwd")
+    print("fused bf16: bf16 forward per step, phase 12 per-call times "
+          "summed (prepass, wgmma GEMM + sum, each beside its bound; MACs "
+          "issued and useful, N columns issued and Cout): " + json.dumps(
+              {k: fw[k] for k in ("ms", "pre_ms", "gemm_ms", "library_ms",
+                                  "bound_ms") + FWD_PART_KEYS
+               + ("launches",)}) + " " + json.dumps(
+              {k: [r[k] for r in bf16_rows
+                   if r["name"] == "fused_half_bf16_fwd"][0]
+               for k in ("issued_n", "cout", "bn", "tiles")}))
     for label, run, halves in (("fused bf16 training", fused,
                                 rec_fused.halves),
                                ("QAT + in-kernel dropout training", qat,

@@ -6,7 +6,9 @@
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/fused_block.py, the
 // bf16 bodies, quant=False: fused_half, and the straight-through backward
 // of fused_half_int8 with quant_bwd=False):
-//   fwd_launch       <- _fwd_call -> _fwd_kernel
+//   fused_fwd_pre_launch, then  <- _fwd_call -> _fwd_kernel
+//   fused_fwd_gemm_launch,         (the mainloop and epilogue live in
+//   partial_sum                    fwd_wgmma_bf16.cuh)
 //   dgrad_launch     <- _dgrad_call -> _dgrad_kernel
 //   wgrad_pre_launch, then  <- _wgrad_call -> _wgrad_kernel
 //   wgrad_gemm_launch,         (the mainloop and its ordered sum live in
@@ -31,17 +33,24 @@
 // 160 with stats and bits (0.069 ms at 3.35 TB/s).
 //
 // Design:
-// - fwd and dgrad are the row-tile implicit GEMM of conv3x3_rows.cuh (the
-//   bf16 serving conv's mainloop, mma.sync m16n8k16 with f32
-//   accumulation) with an operand loader that computes the prologue (fwd:
-//   the BatchNorm affine, relu and dropout; dgrad: the cotangent fold and
-//   its bf16 rounding) while it stages the halo tile, so neither d nor g
-//   is ever written to device memory, and new epilogues on the block's
-//   accumulator tile: bf16 rounding, the residual add and the next
-//   BatchNorm's sums (fwd); the masks, dx and the d(scale)/d(shift) sums
-//   (dgrad). The dgrad's loader also writes dres = bf16(gf) for the
-//   (channel, position) it owns. Per-block sums go to the block's slot of
-//   a partial buffer and partial_sum adds the slots in order.
+// - fwd is three launches. fused_fwd_pre_kernel computes each element of
+//   d once (the Bf16Prologue the wgrad's prepass uses) and writes it
+//   position-major into a padded slab, transposed through shared memory
+//   as the wgrad's prepass does but to each pixel's slab position, and
+//   zeros into every pad position (ops/cuda/fused_block.py
+//   fused_fwd_layout: every 3x3 tap one position offset, any image
+//   width). fwd_wgmma_bf16.cuh's GEMM contracts the slab with the packed
+//   weights on wgmma and writes y channel-major with the residual added
+//   and each tile's sums; partial_sum adds the tiles' sums in order.
+// - dgrad is the row-tile implicit GEMM of conv3x3_rows.cuh (the bf16
+//   serving conv's mainloop, mma.sync m16n8k16 with f32 accumulation)
+//   with an operand loader that computes the cotangent fold and its bf16
+//   rounding while it stages the halo tile, so g is never written to
+//   device memory, and an epilogue on the block's accumulator tile: the
+//   masks, dx and the d(scale)/d(shift) sums. The loader also writes dres
+//   = bf16(gf) for the (channel, position) it owns. Per-block sums go to
+//   the block's slot of a partial buffer and partial_sum adds the slots
+//   in order.
 // - wgrad is three launches. A contraction reads each operand element
 //   once per (tap, tile) that uses it, so the prologue and the fold are
 //   not recomputed there: fused_wgrad_pre_kernel computes each element of
@@ -74,6 +83,7 @@
 #include "common.cuh"
 #include "conv3x3_rows.cuh"
 #include "fused_half.cuh"
+#include "fwd_wgmma_bf16.cuh"  // the forward's GEMM and epilogue
 #include "seed_bits.cuh"
 #include "wgrad_staged.cuh"  // the weight gradient's mainloop and ordered sum
 
@@ -84,16 +94,6 @@ using dropout::DropBits;
 namespace {
 
 using V8 = uint4;  // 8 bf16
-
-// the forward's operand: the prologue computed while the halo is staged
-struct FwdLoad {
-  Bf16Prologue pro;
-  __device__ __forceinline__ V8 operator()(int ch, int pos, bool) const {
-    __nv_bfloat16 d[8];
-    pro(ch, pos, d);
-    return pack8(d);
-  }
-};
 
 // the dgrad's operand: g = bf16(gf); the owner of each element also
 // stores it as dres (the residual's cotangent) when dres is not null
@@ -111,30 +111,6 @@ struct DgradLoad {
     if (own && dres != nullptr)
       *reinterpret_cast<V8*>(dres + (size_t)ch * n + pos) = v;
     return v;
-  }
-};
-
-// y = bf16(acc) (+ res in bf16); sums of y and y^2 of the stored values
-struct FwdEpi {
-  const __nv_bfloat16* res;
-  __nv_bfloat16* y;
-  float* part;  // [n / BN][2 * Cout] or null (no stats)
-
-  __device__ __forceinline__ void tile(const float* Cs, int cld, int bn,
-                                       int m0, int n0, int cout,
-                                       int n) const {
-    tile_sums(bn, m0, cout, n - n0, blockIdx.x, part,
-              [&](int r, int c, float& s1, float& s2) {
-      const size_t idx = (size_t)(m0 + r) * n + n0 + c;
-      __nv_bfloat16 o = __float2bfloat16_rn(Cs[r * cld + c]);
-      if (res != nullptr)
-        o = __float2bfloat16_rn(
-            __fadd_rn(__bfloat162float(res[idx]), __bfloat162float(o)));
-      y[idx] = o;
-      const float f = __bfloat162float(o);
-      s1 = f;
-      s2 = __fmul_rn(f, f);
-    });
   }
 };
 
@@ -189,9 +165,44 @@ struct GLoad {
 constexpr int PRE_C = 32;   // channels a prepass tile
 constexpr int PRE_P = 128;  // positions a prepass tile
 
+// Output positions of the prepasses: the wgrad's operands keep the input
+// position; the forward's slab puts input lane p (image i, row r, column
+// c of h x wi images) at guard + i * (h + 1) * (wi + 1) + (r + 1) * (wi +
+// 1) + c + 1 (ops/cuda/fused_block.py fused_fwd_layout).
+struct SamePos {
+  __device__ __forceinline__ long operator()(long p) const { return p; }
+};
+
+struct SlabPos {
+  int hw, wi, per, guard;
+  __device__ __forceinline__ long operator()(long p) const {
+    const long i = p / hw;
+    const int rem = (int)(p - i * hw), r = rem / wi, c = rem - r * wi;
+    return guard + i * per + (r + 1) * (wi + 1) + c + 1;
+  }
+};
+
+// The slab's k-th position that holds no pixel: the lead guard, then per
+// image its zero row (wi + 1 positions) and the zero column of rows 1..h,
+// then the tail (whole tiles and the trailing guard).
+struct PadPos {
+  int guard, wi, h, per;
+  long img_pads, m_valid;  // b * (wi + 1 + h); b * per
+  __device__ __forceinline__ long operator()(long k) const {
+    if (k < guard) return k;
+    k -= guard;
+    if (k < img_pads) {
+      const long i = k / (wi + 1 + h);
+      const int j = (int)(k - i * (wi + 1 + h));
+      return guard + i * per + (j <= wi ? j : (j - wi) * (wi + 1));
+    }
+    return guard + m_valid + (k - img_pads);
+  }
+};
+
 // One prepass tile: PRE_C channels x PRE_P positions of a channel-major
 // operand [c, n] (src(ch, pos, v): 8 bf16 at positions pos .. pos + 7 of
-// channel ch), written position-major to out [n, c]. Tile id -> (position
+// channel ch), written position-major to out [at(p), c]. Tile id -> (position
 // group, channel group), channel group fastest, so blocks running together
 // write whole position rows. Thread (cp, pg) takes channels 2cp, 2cp + 1
 // at positions 8pg .. 8pg + 7 (16 threads read 256 contiguous bytes of a
@@ -199,11 +210,12 @@ constexpr int PRE_P = 128;  // positions a prepass tile
 // keeps each position's two values as one 32-bit word of the shared tile;
 // then each thread writes 16-byte runs of 8 channels of one position.
 // c % 8 == 0 and n % 8 == 0: a run or a load is whole or out of range.
-template <typename Src>
+template <typename Src, typename At>
 __device__ __forceinline__ void pre_tile(const Src& src,
                                          __nv_bfloat16* __restrict__ out,
                                          int c, int n, int tile,
-                                         uint32_t (*words)[PRE_C / 2 + 1]) {
+                                         uint32_t (*words)[PRE_C / 2 + 1],
+                                         const At& at) {
   const int cgs = (c + PRE_C - 1) / PRE_C;
   const int c0 = tile % cgs * PRE_C;
   const long p0 = (long)(tile / cgs) * PRE_P;
@@ -233,7 +245,7 @@ __device__ __forceinline__ void pre_tile(const Src& src,
     const int p = idx / RUNS, run = idx % RUNS;
     const int cc = c0 + 8 * run;
     if (cc < c && p0 + p < n)
-      *reinterpret_cast<uint4*>(out + (p0 + p) * c + cc) =
+      *reinterpret_cast<uint4*>(out + at(p0 + p) * c + cc) =
           make_uint4(words[p][4 * run], words[p][4 * run + 1],
                      words[p][4 * run + 2], words[p][4 * run + 3]);
   }
@@ -247,9 +259,29 @@ fused_wgrad_pre_kernel(Bf16Prologue pro, GLoad gl,
                        int n, int tiles_d) {
   __shared__ uint32_t words[PRE_P][PRE_C / 2 + 1];
   if ((int)blockIdx.x < tiles_d)
-    pre_tile(pro, d_b, cin, n, blockIdx.x, words);
+    pre_tile(pro, d_b, cin, n, blockIdx.x, words, SamePos{});
   else
-    pre_tile(gl, g_b, cout, n, blockIdx.x - tiles_d, words);
+    pre_tile(gl, g_b, cout, n, blockIdx.x - tiles_d, words, SamePos{});
+}
+
+// The forward's slab, one launch: d at each pixel's slab position (tiles
+// [0, tiles_d)), then 16-byte zeros at every pad position (pad_vecs
+// vectors of 8 channels, a thread each).
+__global__ void __launch_bounds__(256)
+fused_fwd_pre_kernel(Bf16Prologue pro, __nv_bfloat16* __restrict__ slab,
+                     SlabPos live, PadPos pads, int cin, int n, int tiles_d,
+                     long pad_vecs) {
+  __shared__ uint32_t words[PRE_P][PRE_C / 2 + 1];
+  if ((int)blockIdx.x < tiles_d) {
+    pre_tile(pro, slab, cin, n, blockIdx.x, words, live);
+    return;
+  }
+  const long v = (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x;
+  if (v >= pad_vecs) return;
+  const int vpp = cin / 8;
+  const long k = v / vpp;
+  *reinterpret_cast<uint4*>(slab + pads(k) * cin + (v - k * vpp) * 8) =
+      make_uint4(0u, 0u, 0u, 0u);
 }
 
 __global__ void seed_bits_kernel(const int* __restrict__ seed,
@@ -286,20 +318,52 @@ Cotangent cotangent(const void* dy, const void* y, const void* dysum,
 
 extern "C" {
 
-// x [cin, n] bf16, w [cout, 9 * cin] bf16 (packed), scale/shift [cin] f32,
-// bits [cin, n] uint8 or null, seed one int32 on the device or null (at
-// most one of the two), res [cout, n] bf16 or null; y [cout, n] bf16,
-// part [n / BN][2 * cout] f32 or null (no stats). cin % 32 == 0,
-// wi % 8 == 0, n a multiple of h * wi.
-int fwd_launch(const void* x, const void* w, const void* scale,
-               const void* shift, const void* bits, const void* seed,
-               const void* res, void* y, void* part, int cin, int cout,
-               int n, int h, int wi, int thresh, float keep, void* stream) {
-  const FwdLoad load{prologue(x, scale, shift, bits, seed, n, thresh, keep)};
-  const FwdEpi epi{in<__nv_bfloat16>(res), static_cast<__nv_bfloat16*>(y),
-                   static_cast<float*>(part)};
-  return launch_row_tiles_with<__nv_bfloat16>(load, w, epi, cin, cout, n, h,
-                                              wi, as_stream(stream));
+// The forward, three launches. fused_fwd_pre: slab [slab_len, cin] bf16
+// (fused_fwd_layout: guard zero positions, then per image of h x wi a zero
+// row and a zero column, then zeros to slab_len) = the prologue's d from
+// x [cin, n] bf16, scale/shift [cin] f32, bits [cin, n] uint8 or null,
+// seed one int32 on the device or null (at most one of the two), each
+// element once. cin % 8 == 0, n % 8 == 0, n a multiple of h * wi.
+int fused_fwd_pre_launch(const void* x, const void* scale, const void* shift,
+                         const void* bits, const void* seed, void* slab,
+                         int cin, int n, int h, int wi, int guard,
+                         long slab_len, int thresh, float keep,
+                         void* stream) {
+  if (cin % 8 || n % 8 || h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (h + 1) * (wi + 1);
+  const long b = n / (h * wi);
+  const long pads = slab_len - n;
+  if (pads < guard + b * (wi + 1 + h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long tiles_d =
+      (long)((n + PRE_P - 1) / PRE_P) * ((cin + PRE_C - 1) / PRE_C);
+  const long pad_vecs = pads * (cin / 8);
+  const long blocks = tiles_d + (pad_vecs + 255) / 256;
+  fused_fwd_pre_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      prologue(x, scale, shift, bits, seed, n, thresh, keep),
+      static_cast<__nv_bfloat16*>(slab), SlabPos{h * wi, wi, per, guard},
+      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, cin, n,
+      (int)tiles_d, pad_vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fused_fwd_gemm: y [cout, n] bf16 = bf16(conv3x3 of the slab with w [cout,
+// 9 * cin] bf16 (packed)) (+ res [cout, n] bf16, or null), and part
+// [tiles][2 * cout] f32 (each 128-row tile's sums of y and y^2, or null:
+// no stats), on `tiles` M tiles and bn-wide N tiles (160, 128 or 64).
+int fused_fwd_gemm_launch(const void* slab, const void* w, const void* res,
+                          void* y, void* part, int cin, int cout, int n,
+                          int h, int wi, int guard, int tiles, int bn,
+                          void* stream) {
+  if (h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const fwd_wgmma_bf16::Args args{
+      in<__nv_bfloat16>(slab), in<__nv_bfloat16>(w), in<__nv_bfloat16>(res),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(part), cin, cout,
+      n, n / (h * wi), h, wi, guard};
+  return static_cast<int>(
+      fwd_wgmma_bf16::launch(args, tiles, bn, as_stream(stream)));
 }
 
 // dy [cout, n] bf16; y [cout, n] bf16, dysum/dyssq [cout] f32 or all

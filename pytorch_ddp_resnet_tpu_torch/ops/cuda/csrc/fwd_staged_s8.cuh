@@ -63,7 +63,8 @@
 // twice a tile, on its int8 parity-plane slab and on its bf16 even-even
 // slab, with the channel-major epilogue below (stage_cm, write_cm, sums_cm:
 // outputs [Cout, lanes], each row at its own scale, each tile's live rows
-// one run of lanes).
+// one run of lanes); the fused bf16 forward's wgmma GEMM
+// (fwd_wgmma_bf16.cuh) sums its staged tile with sums_cm too.
 //
 // Left for later: wgmma and TMA (the slabs are K-major, as wgmma's s8
 // operands must be), clusters, and the slab's bytes (written once by the

@@ -63,7 +63,12 @@ raises):
 - ``bwd_quantize``  (launches ``fused_half_bwd.amax``, ``.quant``)
 - ``dgrad_conv``    (launches ``fused_half_dgrad``, ``.sum``)
 - ``wgrad``         (launches ``fused_half_wgrad``, ``.sum``)
-- ``fwd_bf16``      (launches ``fused_half_bf16_fwd``, ``.sum`` with stats)
+- ``fwd_bf16``      (``fused_fwd_pre``, then ``fused_fwd_gemm``)
+- ``fused_fwd_pre`` (launches ``fused_half_bf16_fwd.pre``: d computed once,
+  written position-major into the padded slab of ``fused_fwd_layout``)
+- ``fused_fwd_gemm`` (launches ``fused_half_bf16_fwd``, ``.sum`` with
+  stats: the wgmma mainloop of ``csrc/fwd_wgmma_bf16.cuh``, y written
+  channel-major with the residual, the tiles' sums added in order)
 - ``dgrad_bf16``    (launches ``fused_half_bf16_dgrad``, ``.sum``)
 - ``wgrad_bf16``    (``wgrad_bf16_pre``, then ``wgrad_bf16_gemm``)
 - ``wgrad_bf16_pre`` (launches ``fused_half_bf16_wgrad.pre``: d and g
@@ -84,7 +89,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -418,6 +423,120 @@ def fwd_bf16_plain(x, w_packed, scale, shift, bits, res, *, thresh, h,
     return y, yf.sum(dim=1), (yf * yf).sum(dim=1)
 
 
+class FusedFwdLayout(NamedTuple):
+    """Where the bf16 forward's prepass writes d and where its GEMM reads
+    it (``fused_fwd_layout``).
+
+    The slab [slab_len, cp] bf16 is position-major, image-major, one
+    plane: ``guard`` = w + 2 zero positions, then each image's per_img =
+    (h + 1) * (w + 1) positions, a zero row above it and a zero column at
+    the start of each row, so that live pixel (i, r, c) sits at M row m =
+    i * per_img + (r + 1) * (w + 1) + c + 1, slab position guard + m; then
+    zeros to whole tiles of ``bm`` M rows and a second guard. M row m of
+    tap (dh, dw) reads slab position m + shifts[3 * dh + dw], shift =
+    guard + (dh - 1) * (w + 1) + (dw - 1): one offset for every row,
+    image and width, no masks. The live rows of a tile, in order, are one
+    run of output lanes. Channels are padded to ``cp`` (a multiple of 8;
+    Cin itself, which the forward's check makes a multiple of 8). The
+    GEMM walks K = (tap, channel) in 128-byte steps, each 16-byte piece at
+    its own tap, on ``tiles`` M tiles and N tiles of ``bn`` (160 where
+    Cout % 160 == 0, else 128, or 64 up to Cout = 64)."""
+    n: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    b: int
+    per_img: int
+    guard: int
+    bm: int
+    m_valid: int
+    tiles: int
+    slab_len: int
+    cp: int
+    bn: int
+    shifts: tuple
+
+
+FUSED_FWD_BM = 128   # M rows a tile of csrc/fwd_wgmma_bf16.cuh
+
+
+def check_fwd_bf16_geometry(name: str, cin: int, cout: int, n: int, h: int,
+                            w_img: int) -> None:
+    """The bf16 forward's own shape needs: Cin and Cout multiples of 8
+    (16-byte pieces of a position or a weight row), whole images, and N a
+    multiple of 8 (16-byte runs of lanes, as the bf16 wgrad's prepass
+    reads them too); any image width."""
+    if cin % 8 or cout % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}: each must be a "
+                         "multiple of 8")
+    if h < 1 or w_img < 1 or n % (h * w_img) or n % 8:
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "supported by the kernel (whole images, N a "
+                         "multiple of 8)")
+
+
+@functools.lru_cache(maxsize=None)
+def fused_fwd_layout(n: int, h: int, w_img: int, cin: int,
+                     cout: int) -> FusedFwdLayout:
+    """The bf16 forward's slab layout for x [Cin, n] of h x w_img images
+    (see ``FusedFwdLayout``); any whole images (the kernels' own needs are
+    ``check_fwd_bf16_geometry``'s). Cached: every call of the forward
+    asks."""
+    if h < 1 or w_img < 1 or n % (h * w_img) or cin < 1 or cout < 1:
+        raise ValueError(f"fused_fwd_layout: H={h} W={w_img} N={n} Cin="
+                         f"{cin} Cout={cout}")
+    b = n // (h * w_img)
+    per_img = (h + 1) * (w_img + 1)
+    guard = w_img + 2
+    m_valid = b * per_img
+    tiles = -(-m_valid // FUSED_FWD_BM)
+    bn = 160 if cout % 160 == 0 else (128 if cout > 64 else 64)
+    shifts = tuple(guard + (dh - 1) * (w_img + 1) + dw - 1
+                   for dh in range(3) for dw in range(3))
+    return FusedFwdLayout(n, h, w_img, cin, cout, b, per_img, guard,
+                          FUSED_FWD_BM, m_valid, tiles,
+                          guard + tiles * FUSED_FWD_BM + guard,
+                          -(-cin // 8) * 8, bn, shifts)
+
+
+def fused_fwd_live_rows(lay: FusedFwdLayout) -> torch.Tensor:
+    """The M rows of the live pixels, in lane order (image, row, column)."""
+    i, r, c = torch.meshgrid(torch.arange(lay.b), torch.arange(lay.h),
+                             torch.arange(lay.w), indexing="ij")
+    return (i * lay.per_img + (r + 1) * (lay.w + 1) + c + 1).reshape(-1)
+
+
+def fused_fwd_pre_plain(x, scale, shift, bits, *, thresh, lay):
+    """The slab [slab_len, cp] of layout ``lay`` in x's dtype: the
+    prologue's d (``prologue_bf16_plain``) at each pixel's position, zeros
+    at every pad position and pad channel."""
+    d = prologue_bf16_plain(x, scale, shift, bits, thresh)
+    t = d.reshape(lay.cin, lay.b, lay.h, lay.w).permute(1, 2, 3, 0)
+    t = F.pad(t, (0, lay.cp - lay.cin, 1, 0, 1, 0)).reshape(lay.m_valid,
+                                                            lay.cp)
+    return F.pad(t, (0, 0, lay.guard,
+                     lay.slab_len - lay.guard - lay.m_valid)).contiguous()
+
+
+def fused_fwd_gemm_plain(slab, w_packed, res, *, lay, want_stats):
+    """(y, ysum, yssq) from the slab of layout ``lay``: the contraction
+    (float64) of each tap's shifted slab rows with its packed weights at
+    the live rows, y = round(acc) (+ res, rounded) in the slab's dtype,
+    and with ``want_stats`` the per-channel f32 sums of y and y^2."""
+    rows = fused_fwd_live_rows(lay)
+    wt = w_packed.to(torch.float64).reshape(lay.cout, 9, lay.cin)
+    acc = sum(slab[rows + sh, :lay.cin].to(torch.float64) @ wt[:, t].t()
+              for t, sh in enumerate(lay.shifts))        # [N, Cout]
+    y = acc.t().contiguous().to(_F32).to(slab.dtype)
+    if res is not None:
+        y = res.to(slab.dtype) + y
+    if not want_stats:
+        return y, None, None
+    yf = y.to(_F32)
+    return y, yf.sum(dim=1), (yf * yf).sum(dim=1)
+
+
 def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
                      thresh, h, w_img, emit_res):
     """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32, dres): the
@@ -744,7 +863,9 @@ def _library_bf16() -> ctypes.CDLL:
 
         lib = build.load("fused_block_bf16")
         sigs = {
-            "fwd_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+            "fused_fwd_pre_launch": [_P] * 6 + [_I] * 5
+            + [ctypes.c_long, _I, _F, _P],
+            "fused_fwd_gemm_launch": [_P] * 5 + [_I] * 8 + [_P],
             "dgrad_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
             "wgrad_pre_launch": [_P] * 11 + [_I] * 4 + [_F, _P],
             "wgrad_gemm_launch": [_P] * 3 + [_I] * 10 + [_P],
@@ -762,8 +883,9 @@ def _library_bf16() -> ctypes.CDLL:
 
 def _check_bf16_geometry(name: str, c: int, n: int, h: int,
                          w_img: int) -> None:
-    """The conv kernels' own shape needs: the contraction in 32-channel
-    chunks, and row tiles of whole image rows."""
+    """The bf16 dgrad kernel's own shape needs: the contraction in
+    32-channel chunks, and row tiles of whole image rows of 8 pixels (the
+    forward's are ``check_fwd_bf16_geometry``'s)."""
     if c % 32:
         raise ValueError(f"{name}: C={c} is not a multiple of 32")
     if w_img % 8 or n % (h * w_img):
@@ -783,11 +905,78 @@ def _bf16_operands(name, x, scale, shift, bits, extra, extra_dtypes):
     return scale, shift, bits_p, seed_p, seeded
 
 
+def fused_fwd_pre(x, scale, shift, bits, *, thresh, lay):
+    """The bf16 forward's slab of layout ``lay`` (``fused_fwd_pre_plain``):
+    d computed once per element, written position-major at each pixel's
+    slab position, zeros at every pad position. One launch; in seed mode
+    it rebuilds the mask."""
+    if on_cpu(x):
+        return fused_fwd_pre_plain(x, scale, shift, bits, thresh=thresh,
+                                   lay=lay)
+    name = "fused_half_bf16_fwd.pre"
+    if tuple(x.shape) != (lay.cin, lay.n) or lay.cp != lay.cin:
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs the layout {lay}")
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, [], [])
+    slab = torch.empty((lay.slab_len, lay.cp), dtype=torch.bfloat16,
+                       device=x.device)
+    _launch(name, _library_bf16().fused_fwd_pre_launch, x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            slab.data_ptr(), lay.cin, lay.n, lay.h, lay.w, lay.guard,
+            lay.slab_len, thresh or 256,
+            inv_keep(thresh) if bits is not None else 1.0, _stream(x),
+            seed=seeded)
+    return slab
+
+
+def fused_fwd_gemm(slab, w_packed, res, *, lay, want_stats):
+    """(y, ysum, yssq) from the slab of layout ``lay``
+    (``fused_fwd_gemm_plain``): the f32 contraction over (tap, channel) on
+    wgmma, y = bf16(acc) (+ res: bf16(f32(res) + f32(y))) written
+    channel-major, each tile's sums of the stored y and y^2 added in a
+    fixed order (bit for bit the same every run)."""
+    if on_cpu(slab):
+        return fused_fwd_gemm_plain(slab, w_packed, res, lay=lay,
+                                    want_stats=want_stats)
+    name = "fused_half_bf16_fwd"
+    if tuple(slab.shape) != (lay.slab_len, lay.cp) or lay.cp != lay.cin:
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} is not of the "
+                         f"layout {lay}")
+    if tuple(w_packed.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{name}: weights {tuple(w_packed.shape)} vs Cin "
+                         f"{lay.cin}, Cout {lay.cout}")
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
+    tensors, dtypes = [slab, w_packed], [torch.bfloat16] * 2
+    if res is not None:
+        if tuple(res.shape) != (lay.cout, lay.n):
+            raise ValueError(f"{name}: res {tuple(res.shape)}")
+        tensors.append(res)
+        dtypes.append(torch.bfloat16)
+    require_cuda(name, tensors, dtypes)
+    dev = slab.device
+    y = torch.empty((lay.cout, lay.n), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((lay.tiles, 2 * lay.cout), dtype=_F32, device=dev)
+            if want_stats else None)
+    lib = _library_bf16()
+    _launch(name, lib.fused_fwd_gemm_launch, slab.data_ptr(),
+            w_packed.data_ptr(), _ptr(res), y.data_ptr(), _ptr(part),
+            lay.cin, lay.cout, lay.n, lay.h, lay.w, lay.guard, lay.tiles,
+            lay.bn, _stream(slab))
+    if not want_stats:
+        return y, None, None
+    sums = _partial_sum(f"{name}.sum", part, lib)
+    return y, sums[:lay.cout], sums[lay.cout:]
+
+
 def fwd_bf16(x, w_packed, scale, shift, bits, res, *, thresh, h, w_img,
              want_stats):
     """The bf16 half's forward: y = bf16(conv3x3(d)) (+ res in bf16), d =
     dropout(relu(bf16(x * scale + shift))) in bf16, and with
-    ``want_stats`` the per-channel f32 sums of y and y^2."""
+    ``want_stats`` the per-channel f32 sums of y and y^2. On the card
+    ``fused_fwd_pre`` into a slab freed at return, then
+    ``fused_fwd_gemm``; every operand is checked before the first
+    launch."""
     if on_cpu(x):
         return fwd_bf16_plain(x, w_packed, scale, shift, bits, res,
                               thresh=thresh, h=h, w_img=w_img,
@@ -798,28 +987,20 @@ def fwd_bf16(x, w_packed, scale, shift, bits, res, *, thresh, h, w_img,
     if tuple(w_packed.shape) != (cout, 9 * cin):
         raise ValueError(f"{name}: weights {tuple(w_packed.shape)} vs Cin "
                          f"{cin}")
-    _check_bf16_geometry(name, cin, n, h, w_img)
+    check_fwd_bf16_geometry(name, cin, cout, n, h, w_img)
     extra, extra_dt = [w_packed], [torch.bfloat16]
     if res is not None:
         if tuple(res.shape) != (cout, n):
             raise ValueError(f"{name}: res {tuple(res.shape)}")
         extra.append(res)
         extra_dt.append(torch.bfloat16)
-    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
-        name, x, scale, shift, bits, extra, extra_dt)
-    y = torch.empty((cout, n), dtype=torch.bfloat16, device=x.device)
-    part = (torch.empty((_conv_blocks(n, h, w_img), 2 * cout), dtype=_F32,
-                        device=x.device) if want_stats else None)
-    lib = _library_bf16()
-    _launch(name, lib.fwd_launch, x.data_ptr(), w_packed.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p, _ptr(res),
-            y.data_ptr(), _ptr(part), cin, cout, n, h, w_img, thresh or 256,
-            inv_keep(thresh) if bits is not None else 1.0, _stream(x),
-            seed=seeded)
-    if not want_stats:
-        return y, None, None
-    sums = _partial_sum(f"{name}.sum", part, lib)
-    return y, sums[:cout], sums[cout:]
+    _bf16_operands(name, x, scale, shift, bits, extra, extra_dt)
+    lay = fused_fwd_layout(n, h, w_img, cin, cout)
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
+    slab = fused_fwd_pre(x, scale, shift, bits, thresh=thresh, lay=lay)
+    return fused_fwd_gemm(slab, w_packed, res, lay=lay,
+                          want_stats=want_stats)
 
 
 def _cot_operands(dy, y, dysum, dyssq):
@@ -996,6 +1177,11 @@ class _FusedHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_cs, w, scale, shift, bits, res, thresh, h, w_img,
                 want_stats):
+        if not on_cpu(x_cs):
+            # the forward takes any width, the bf16 dgrad rows of 8: raise
+            # before the first launch, not in the backward
+            _check_bf16_geometry("fused_half_bf16_dgrad", w.shape[0],
+                                 x_cs.shape[1], h, w_img)
         wp = pack_weights(w.detach().to(x_cs.dtype))
         y, ysum, yssq = fwd_bf16(x_cs, wp, scale, shift, bits, res,
                                  thresh=thresh, h=h, w_img=w_img,

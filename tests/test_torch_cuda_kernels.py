@@ -475,13 +475,16 @@ def test_fused_half_bf16_op_launches_its_kernels(dev):
         bwd = ("fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
                "fused_half_bf16_wgrad.pre", "fused_half_bf16_wgrad",
                "fused_half_bf16_wgrad.sum")
-        fwd = (("fused_half_bf16_fwd", "fused_half_bf16_fwd.sum") if not kw
+        fwd = (("fused_half_bf16_fwd.pre", "fused_half_bf16_fwd",
+                "fused_half_bf16_fwd.sum") if not kw
                else ("fused_half_fwd.amax", "fused_half_fwd.quant",
                      "fused_half_fwd", "fused_half_fwd.sum"))
         assert dict(fb.launches) == {name: 1 for name in fwd + bwd}
-        # the wgrad's prepass rebuilds the mask; its mainloop reads d_b
+        # the bf16 forward's and the wgrad's prepasses rebuild the mask;
+        # their mainloops read the slab and d_b
         seeded = {name for name in fwd + bwd if not name.endswith(".sum")
-                  and name not in ("fused_half_fwd", "fused_half_bf16_wgrad")}
+                  and name not in ("fused_half_fwd", "fused_half_bf16_fwd",
+                                   "fused_half_bf16_wgrad")}
         assert dict(fb.seed_launches) == {name: 1 for name in seeded}
         for t in (x, wt, scale, shift):
             assert torch.isfinite(t.grad).all()
@@ -566,12 +569,100 @@ def test_fused_half_bf16_never_falls_back(dev):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         fb.fwd_bf16(x, w, one, one, None, None, thresh=None, h=8, w_img=8,
                     want_stats=True)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        fb.fwd_bf16(x[:48].to(torch.bfloat16).repeat(2, 1)[:48],
-                    torch.zeros((48, 9 * 48), dtype=torch.bfloat16,
-                                device=dev), torch.ones(48, device=dev),
-                    torch.ones(48, device=dev), None, None, thresh=None,
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.fwd_bf16(x.to(torch.bfloat16).repeat(2, 1)[:44].contiguous(),
+                    torch.zeros((44, 9 * 44), dtype=torch.bfloat16,
+                                device=dev), torch.ones(44, device=dev),
+                    torch.ones(44, device=dev), None, None, thresh=None,
                     h=8, w_img=8, want_stats=True)
+    assert not fb.launches
+
+
+# (Cin, Cout, h, w, batch) of the staged bf16 forward: the FQT shapes (the
+# WRN-28-10 stages at batch 128), then widths the old row-tile kernel
+# refused (6x6, 12x12) and Cout in {64, 96} with Cin != Cout (a 64-wide
+# and a ragged 128-wide N tile)
+FUSED_FWD_SHAPES = [(c, c, h, w, b) for c, h, w, b in FQT_SHAPES] + [
+    (32, 64, 6, 6, 64), (128, 96, 12, 12, 16), (96, 64, 6, 6, 32)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", FUSED_FWD_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "bits", "seed"])
+@pytest.mark.parametrize("use_res,stats", [(False, True), (True, False),
+                                           (True, True)])
+def test_fused_fwd_bf16_staged_matches_plain(dev, cin, cout, h, w, b, mode,
+                                             use_res, stats):
+    """The bf16 forward's prepass and wgmma GEMM: the slab equal to its
+    plain version's byte for byte; y within 2 bf16 ulps of
+    ``fwd_bf16_plain``'s largest value, the sums within 1e-4 of the
+    plain's (``_mma_sums``) and within 1e-5 of the sums of the kernel's
+    own y; two calls bit-equal; each call one prepass (seeded in seed
+    mode), one GEMM and with stats one ordered sum."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + w)
+    n = b * h * w
+    x = torch.randn(cin, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(cout, cin, 3, 3, device=dev, generator=g) * (
+        9 * cin) ** -0.5
+    wp = k.pack_weights(wt.to(torch.bfloat16))
+    scale = torch.rand(cin, device=dev, generator=g) + 0.5
+    shift = torch.randn(cin, device=dev, generator=g) * 0.3
+    thresh, bits = _drop(mode, dev, g, cin, n)
+    res = (torch.randn(cout, n, device=dev, generator=g).to(torch.bfloat16)
+           if use_res else None)
+    kw = dict(thresh=thresh, h=h, w_img=w, want_stats=stats)
+    lay = fb.fused_fwd_layout(n, h, w, cin, cout)
+    slab = fb.fused_fwd_pre(x, scale, shift, bits, thresh=thresh, lay=lay)
+    fb.reset_launches()
+    got = fb.fwd_bf16(x, wp, scale, shift, bits, res, **kw)
+    again = fb.fwd_bf16(x, wp, scale, shift, bits, res, **kw)
+    want = fb.fwd_bf16_plain(x, wp, scale, shift, bits, res, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, fb.fused_fwd_pre_plain(x, scale, shift, bits,
+                                                    thresh=thresh, lay=lay))
+    _bf16_close(got[0], want[0])
+    for a, b_ in zip(got, again):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+    if stats:
+        yd = got[0].double()
+        for s_, own, ref in ((got[1], yd.sum(1), want[1]),
+                             (got[2], (yd * yd).sum(1), want[2])):
+            _mma_sums(s_, ref)
+            d = (s_.double() - own).abs().max().item()
+            assert d <= 1e-5 * own.abs().max().item(), d
+    else:
+        assert got[1] is None and got[2] is None
+    names = ("fused_half_bf16_fwd.pre", "fused_half_bf16_fwd") + (
+        ("fused_half_bf16_fwd.sum",) if stats else ())
+    assert dict(fb.launches) == {name: 2 for name in names}
+    assert dict(fb.seed_launches) == ({names[0]: 2} if mode == "seed"
+                                      else {})
+
+
+def test_fused_fwd_takes_widths_the_dgrad_refuses_before_any_launch(dev):
+    """6x6 images at batch 64 (a geometry the fused gate admits): the bf16
+    forward runs there and equals its plain version; the differentiable
+    ``fused_half`` raises, naming the geometry, before its first launch,
+    because its bf16 dgrad tiles rows of 8."""
+    c, b, h, w = 32, 64, 6, 6
+    n = b * h * w
+    g = torch.Generator(device=dev).manual_seed(66)
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * 0.05
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    wp = k.pack_weights(wt.to(torch.bfloat16))
+    kw = dict(thresh=None, h=h, w_img=w, want_stats=True)
+    got = fb.fwd_bf16(x, wp, scale, shift, None, None, **kw)
+    want = fb.fwd_bf16_plain(x, wp, scale, shift, None, None, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(got[0], want[0])
+    _mma_sums(got[1], want[1])
+    _mma_sums(got[2], want[2])
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="geometry H=6 W=6"):
+        fb.fused_half(x.requires_grad_(), wt, scale, shift, h=h, w_img=w)
+    assert not fb.launches
 
 
 # (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,
