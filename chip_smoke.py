@@ -199,11 +199,18 @@ Phases, each fatal on failure:
    and ResNet-v1-20's first (C = 16 at 32x32, zero-padded to 32 channels
    for the kernels), batch 128, hold the op's forward and dgrad
    (``conv3x3_bf16``, bf16 within 2 ulps) and its weight gradient
-   (``conv3x3_wgrad``, ops/cuda/csrc/conv3x3_wgrad.cu, f32 within 1e-4)
-   against their plain versions on the op's own operands, each timed
-   beside its plain version and cuDNN's bf16 forward, input gradient and
-   weight gradient (channels-last); and the whole op, value and both
-   gradients, against the plain versions of the unpadded conv.
+   (``conv3x3_wgrad``: TMA reads x and dy in place, a shifter warpgroup
+   moves x by each tap's column, a wgmma mainloop,
+   ops/cuda/csrc/wgrad_wgmma_bf16.cuh, then the ordered sum; HWIO f32
+   within 1e-4, the same bits in two calls) against their plain versions
+   on the op's own operands, each timed beside its plain version and
+   cuDNN's bf16 forward, input gradient and weight gradient
+   (channels-last); the wgrad also in device time and TFLOP/s of useful
+   work, and the shared-memory route the kernel reads by (x staged
+   unswizzled and shifted in shared memory, dy in the 128-byte swizzle:
+   the card test ``test_tma_swizzle_probe`` holds both layouts). Then the
+   whole op, value and both gradients, against the plain versions of the
+   unpadded conv.
 18. The int8 1x1 conv (``conv1x1_lanes_requant``,
    ops/cuda/csrc/conv1x1.cu), a tested op no main path runs: at
    ResNet-50's 1x1 shapes at batch 128 (four stages, down and up), in the
@@ -333,7 +340,13 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv1x1_lanes_requant": _PALLAS + "conv1x1.py:158"}
 BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
               "fused_half_bf16_wgrad")
-SAME_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
+SAME_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_wgmma_bf16.cuh"
+# how conv3x3_wgrad's kernel lays its operands in shared memory (its
+# header's note; tests/test_torch_cuda_kernels.py test_tma_swizzle_probe)
+SAME_WGRAD_ROUTE = {"x": "TMA box of the step's positions, unswizzled, "
+                         "then shifted by each tap's column into the "
+                         "128-byte-swizzled A tile",
+                    "dy": "TMA box of 64 positions in the 128-byte swizzle"}
 C1_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv1x1.cu"
 # (C, H, W) of conv3x3_same's kernel phase: the WRN-28-10 stages, then
 # ResNet-v1-20's first stage (C = 16, zero-padded to 32 for the kernels)
@@ -879,7 +892,7 @@ KERNEL_KINDS = [
     ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
-    ("conv3x3_same wgrad (port)", ("RawRows",)),
+    ("conv3x3_same wgrad (port)", ("wgrad_tma_kernel", "WgradTmaSum")),
     ("fused bf16 half (port)", ("fused_fwd_", "DgradLoad",
                                 "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
@@ -3392,8 +3405,10 @@ def same_kernel_phase(peaks):
     dgrad (conv3x3_bf16) and the wgrad (conv3x3_wgrad) on the op's own
     operands against their plain versions, timed beside the plain version,
     cuDNN's bf16 forward, input gradient and weight gradient (channels-last)
-    and the bound of the unpadded conv; and the whole op, value and both
-    gradients, against the plain versions of the unpadded conv."""
+    and the bound of the unpadded conv (the wgrad also in device time and
+    TFLOP/s of useful work, and bit-equal over two calls); and the whole
+    op, value and both gradients, against the plain versions of the
+    unpadded conv. Returns the rows and the op's errors."""
     import torch
     import torch.nn.functional as F
 
@@ -3426,13 +3441,22 @@ def same_kernel_phase(peaks):
                 "wgrad": 2 * 2 * c * n + 4 * 9 * c * c}
         for name in ("fwd", "dgrad", "wgrad"):
             check = _sum_err if name == "wgrad" else _bf16_err
-            err = check(kern[name](), plain[name](), (name, c))
+            got = kern[name]()
+            err = check(got, plain[name](), (name, c))
             rows.append(dict(
                 name="conv3x3_wgrad" if name == "wgrad" else "conv3x3_bf16",
                 pass_=name, c=c, h=h, w=w, n=n, padded_c=x_cs.shape[0],
                 max_abs_err=err, ms=time_ms(kern[name], 10),
                 plain_ms=time_ms(plain[name], 1), library_ms=lib[name],
                 ops_ms=ops_ms, bytes_ms=byts[name] / bw * 1e3))
+            if name == "wgrad":
+                assert torch.equal(got, kern[name]()), ("wgrad bits", c)
+                r = rows[-1]
+                r["dev_ms"] = device_ms(kern[name], 10)
+                # useful work: the padded channels' MACs do not count
+                r["tflops"] = 2 * 9 * c * c * n / r["ms"] / 1e9
+                r["plan"] = list(k.wgrad_tma_plan(
+                    x_cs.shape[0], x_cs.shape[0], n, h, w))
 
         # the op itself, padding and slicing included, against the plain
         # versions of the unpadded conv
@@ -3443,8 +3467,8 @@ def same_kernel_phase(peaks):
         want_y = k.conv3x3_bf16_plain(xu, k.pack_weights(wt), h=h, w_img=w)
         want_dx = k.conv3x3_bf16_plain(dyu, k.pack_weights_dgrad(wt), h=h,
                                        w_img=w)
-        want_dw = k.conv3x3_wgrad_plain(xu, dyu, h=h, w_img=w).reshape(
-            c, 3, 3, c).permute(0, 3, 1, 2).to(torch.bfloat16)
+        want_dw = k.conv3x3_wgrad_plain(xu, dyu, h=h, w_img=w).permute(
+            3, 2, 0, 1).to(torch.bfloat16)
         ops.append(dict(c=c, h=h, w=w, max_abs_err=max(
             _bf16_err(k.nhwc_to_lanes(y.detach()), want_y, ("op y", c)),
             _bf16_err(k.nhwc_to_lanes(xr.grad), want_dx, ("op dx", c)),
@@ -3650,6 +3674,7 @@ def same_summary(rows, pallas, mix):
 
     keys = ("pass_", "c", "h", "w", "padded_c", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    wg_keys = keys + ("dev_ms", "tflops")
     wg = step_sum("conv3x3_wgrad", ("wgrad",))
     conv = step_sum("conv3x3_bf16", ("fwd", "dgrad"))
     per = (f"use_pallas_conv train step at batch {BATCH} (ms per call "
@@ -3662,7 +3687,11 @@ def same_summary(rows, pallas, mix):
                         if r["name"] == "conv3x3_wgrad"),
         ms=wg["ms"], plain_ms=wg["plain_ms"], bound_ms=wg["bound_ms"],
         bound_by=wg["bound_by"], library_ms=wg["library_ms"], per=per,
-        stages=[{key: r[key] for key in keys} for r in rows
+        dev_ms=(None if any(r["dev_ms"] is None for r in rows
+                            if r["name"] == "conv3x3_wgrad")
+                else sum(r["dev_ms"] * mix[r["c"]] for r in rows
+                         if r["name"] == "conv3x3_wgrad" and r["c"] in mix)),
+        stages=[{key: r[key] for key in wg_keys} for r in rows
                 if r["name"] == "conv3x3_wgrad"])
     conv_path = dict(
         launches=pallas["launches"].get("conv3x3_bf16", 0), per=per,
@@ -3753,6 +3782,13 @@ def main() -> int:
               f"static + {dyn} B dynamic shared memory, "
               f"{e['spill_bytes']} B spilled")
 
+    # the wgrad's kernels: one block of 416 threads an SM (a producer warp,
+    # a shifter warpgroup, two consumer warpgroups)
+    for e in ptxas_entries(build.build_log("conv3x3_wgrad"),
+                           "wgrad_tma_kernel"):
+        print(f"  ptxas {e['name']}: {e['registers']} registers, "
+              f"{e['spill_bytes']} B spilled")
+
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     rows = kernel_phase(peaks)
@@ -3766,10 +3802,13 @@ def main() -> int:
     same_rows, same_ops = same_kernel_phase(peaks)
     c1_rows = conv1x1_phase(peaks)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("conv3x3_wgrad shared-memory route: " + json.dumps(
+        SAME_WGRAD_ROUTE))
     for r in same_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "pass_", "c", "padded_c", "h", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "max_abs_err")}))
+            "library_ms", "bound_ms", "bound_by", "max_abs_err") + tuple(
+                k for k in ("dev_ms", "tflops", "plan") if k in r)}))
     print("conv3x3_same, the op against the unpadded plain conv: "
           + json.dumps(same_ops))
     for r in c1_rows:

@@ -107,6 +107,10 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
     on_cpu,
     require_cuda,
 )
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.wgrad_plan import (
+    WgradPlan,
+    split_plan,
+)
 
 launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
@@ -919,33 +923,6 @@ def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
 
 
 WGRAD_BK = 64  # positions per K step (csrc/wgrad_staged.cuh K_STEP)
-# the split picker's model of an H100 SXM (132 SMs, two blocks on each):
-# a block's K step (128 bytes of each operand row: 64 bf16 or 128 int8
-# positions) takes _STEP_US, its ring fill and epilogue _FILL_STEPS more
-# steps, and the split tiles (f32 or s32) go out and back in at
-# _PART_BYTES_US
-_SLOTS = 2 * 132
-_STEP_US = 2.0
-_FILL_STEPS = 2
-_PART_BYTES_US = 3.0e6
-
-
-class WgradPlan(NamedTuple):
-    """How a staged wgrad's mainloop cuts dW [taps*Cin, Cout] and each
-    chunk's positions: (bm, bn) tiles, m_tiles x n_tiles of them; each of
-    the ``chunks`` chunks has ``steps`` K steps of ``bk`` positions, cut
-    into ``splits`` runs of ``per`` (``ranges``: each split's [kt0,
-    kt1))."""
-    bm: int
-    bn: int
-    bk: int
-    m_tiles: int
-    n_tiles: int
-    chunks: int
-    steps: int
-    per: int
-    splits: int
-    ranges: tuple
 
 
 @functools.lru_cache(maxsize=None)
@@ -961,7 +938,7 @@ def wgrad_bf16_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
     fused half's wgrad (ops/cuda/fused_block.py: one chunk of h rows, nine
     taps). Cached: every call of the wgrad asks."""
     steps = -(-n * rch * w // WGRAD_BK)
-    return _split_plan(taps * cin, cout, h // rch, steps, WGRAD_BK)
+    return split_plan(taps * cin, cout, h // rch, steps, WGRAD_BK)
 
 
 @functools.lru_cache(maxsize=None)
@@ -972,34 +949,7 @@ def wgrad_int8_plan(n: int, h: int, w: int, cin: int, cout: int, taps: int,
     positions: the bf16 step's bytes). Cached: every call of the wgrad
     asks."""
     lay = wgrad_int8_layout(n, h, w, taps, rch)
-    return _split_plan(taps * cin, cout, lay.chunks, lay.steps, lay.bk)
-
-
-def _split_plan(m, cout, chunks, steps, bk, bn=None) -> WgradPlan:
-    """Tiles of dW [m, Cout] (``bn`` wide, or of ``wgrad_bf16_plan``'s
-    width) and the splits of each chunk's ``steps`` K steps that minimize
-    the cost model, the fewest among equals."""
-    bm = 64 if m <= 64 else 128
-    if bn is None:
-        bn = 64 if cout <= 64 else 128
-    m_tiles, n_tiles = -(-m // bm), -(-cout // bn)
-    tiles = m_tiles * n_tiles * chunks
-
-    def cost(k):
-        per = -(-steps // k)
-        k = -(-steps // per)   # the splits runs of ``per`` steps make
-        waves = -(-tiles * k // _SLOTS)
-        # split tiles: 4 bytes an element, written once and read once
-        return (waves * (per + _FILL_STEPS) * _STEP_US
-                + 8 * chunks * k * m * cout / _PART_BYTES_US)
-
-    want = min(range(1, min(steps, 65535 // chunks) + 1), key=cost)
-    per = -(-steps // want)
-    splits = -(-steps // per)
-    ranges = tuple((k * per, min(steps, (k + 1) * per))
-                   for k in range(splits))
-    return WgradPlan(bm, bn, bk, m_tiles, n_tiles, chunks, steps, per,
-                     splits, ranges)
+    return split_plan(taps * cin, cout, lay.chunks, lay.steps, lay.bk)
 
 
 def fwd_rowmax(x, s, t, res, *, mode):

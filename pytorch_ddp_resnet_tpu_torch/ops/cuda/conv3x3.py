@@ -9,9 +9,11 @@ so the tests compare like with like.
   calibration pass of int8 serving). Replaces ``conv3x3_lanes``.
 - ``conv3x3_int8_requant``: s8 x s8 -> s32 with the requantization
   epilogue fused in. Replaces ``conv3x3_lanes_requant``.
-- ``conv3x3_wgrad``: the weight gradient of the bf16 conv, dW [Cout,
-  9*Cin] = dy [Cout, N] @ patches(x)^T in f32 (kernel in
-  ``csrc/conv3x3_wgrad.cu``). Replaces ``conv3x3_wgrad_lanes``.
+- ``conv3x3_wgrad``: the weight gradient of the bf16 conv, dW [3, 3,
+  Cin, Cout] (HWIO) = patches(x) @ dy^T in f32 (kernel in
+  ``csrc/conv3x3_wgrad.cu`` on ``csrc/wgrad_wgmma_bf16.cuh``: TMA reads x
+  and dy in place into a wgmma mainloop). Replaces
+  ``conv3x3_wgrad_lanes``.
 - ``conv3x3_same``: the differentiable stride-1 SAME 3x3 conv of the
   ``use_pallas_conv`` flag, NHWC x OIHW -> NHWC: forward and input
   gradient on ``conv3x3_bf16``, weight gradient on ``conv3x3_wgrad``.
@@ -33,7 +35,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +46,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
     on_cpu,
     require_cuda,
 )
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.wgrad_plan import split_plan
 
 launches: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
@@ -203,11 +207,10 @@ def _wgrad_shapes(x_cs, dy_cs, h: int, w_img: int) -> Tuple[int, int, int]:
 
 def conv3x3_wgrad_plain(x_cs, dy_cs, *, h: int, w_img: int) -> torch.Tensor:
     """Plain version of ``conv3x3_wgrad``: the float64 sum over every
-    position, returned as f32 [Cout, 9*Cin], columns in (dh, dw, ci)
-    order (``pack_weights``'s)."""
-    _wgrad_shapes(x_cs, dy_cs, h, w_img)
-    return (dy_cs.to(torch.float64) @ patches_f64(x_cs, h, w_img).T).to(
-        torch.float32)
+    position, returned as f32 [3, 3, Cin, Cout] (HWIO)."""
+    cin, cout, _ = _wgrad_shapes(x_cs, dy_cs, h, w_img)
+    dw = patches_f64(x_cs, h, w_img) @ dy_cs.to(torch.float64).T
+    return dw.to(torch.float32).reshape(3, 3, cin, cout)
 
 
 # --- kernels -------------------------------------------------------------------
@@ -328,8 +331,9 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
 
 # --- the weight gradient ------------------------------------------------------
 
-WG_CHUNK = 256         # positions per staging chunk (csrc/wgrad_bf16.cuh)
-WG_SPLIT_TARGET = 528  # wgrad blocks to aim for: four per SM of an H100
+WG_BK = 64      # positions a K step (csrc/wgrad_wgmma_bf16.cuh BK)
+WG_PIECE = 32   # input channels a staged box of x (PIECE)
+WG_SLOTS = 132  # blocks in flight: one an SM of an H100
 
 _lib_wgrad: Optional[ctypes.CDLL] = None
 
@@ -340,70 +344,122 @@ def _library_wgrad() -> ctypes.CDLL:
         from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
 
         lib = build.load("conv3x3_wgrad")
-        lib.conv3x3_wgrad_launch.argtypes = [_P, _P, _P] + [_I] * 6 + [_P]
+        lib.conv3x3_wgrad_launch.argtypes = [_P, _P, _P] + [_I] * 8 + [_P]
         lib.conv3x3_wgrad_launch.restype = _I
         lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
         lib.partial_sum_launch.restype = _I
+        lib.conv3x3_wgrad_probe_launch.argtypes = [_P, _P] + [_I] * 8 + [_P]
+        lib.conv3x3_wgrad_probe_launch.restype = _I
         _lib_wgrad = lib
     return _lib_wgrad
 
 
 def check_wgrad_geometry(name: str, cin: int, n: int, h: int,
                          w_img: int) -> None:
-    """``conv3x3_wgrad``'s own shape needs (csrc/wgrad_bf16.cuh, whose one
-    user it is since the fused bf16 half's wgrad moved onto
-    csrc/wgrad_staged.cuh): the contraction's input channels in 32-channel
-    blocks, image rows of at most 32 positions in 8-position pieces, and
-    whole rows or images per 256-position staging chunk."""
-    if cin % 32:
+    """``conv3x3_wgrad``'s own shape needs (csrc/wgrad_wgmma_bf16.cuh): the
+    input channels in 32-channel boxes, and each 64-position K step inside
+    one image as whole rows (W = 8, 16 or 32 with H a multiple of 64 / W)
+    or as 64 columns of one row (W a multiple of 64), which also gives TMA
+    its 16-byte strides (2W, 2HW, 2N bytes)."""
+    if cin % WG_PIECE:
         raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
     hw = h * w_img
-    if (n % hw or n % WG_CHUNK or w_img % 8 or w_img > 32
-            or WG_CHUNK % w_img or (WG_CHUNK % hw and hw % WG_CHUNK)):
-        raise ValueError(f"{name}: N={n} / image {h}x{w_img} vs the "
-                         f"{WG_CHUNK}-position staging chunk")
+    rows = w_img in (8, 16, 32) and h % (WG_BK // w_img) == 0
+    if n % hw or not (rows or (w_img > 0 and w_img % WG_BK == 0)):
+        raise ValueError(
+            f"{name}: N={n} / image {h}x{w_img} is off the TMA reads' "
+            f"geometry (W of 8, 16 or 32 with H a multiple of 64 / W, or W "
+            f"a multiple of 64)")
 
 
-def wgrad_splits(cin: int, cout: int, n: int) -> int:
-    """Position splits of ``conv3x3_wgrad``'s grid (csrc/wgrad_bf16.cuh):
-    the largest power of two that divides the 256-position chunks and
-    keeps the grid near WG_SPLIT_TARGET blocks."""
-    blocks = (cin // 32) * -(-cout // 64)
-    chunks = n // WG_CHUNK
-    s = 1
-    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
-        s *= 2
-    return s
+class WgradTmaPlan(NamedTuple):
+    """How ``conv3x3_wgrad``'s kernel cuts dW [9*Cin, Cout] and the
+    positions: ``m_tiles`` x ``n_tiles`` tiles of 128 x ``bn``; ``steps``
+    K steps of 64 positions cut into ``splits`` runs of ``per`` (the last
+    may be shorter, none empty)."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    steps: int
+    per: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_tma_plan(cin: int, cout: int, n: int, h: int,
+                   w_img: int) -> WgradTmaPlan:
+    """``conv3x3_wgrad``'s tiles and splits: BN = 160 where Cout % 160 ==
+    0, else 128, or 64 up to Cout = 64 (the fused forward's rule,
+    csrc/fwd_wgmma_bf16.cuh); the splits of the K steps by the staged
+    wgrads' cost model of waves of blocks (``wgrad_plan.split_plan``), at
+    one block an SM. Cached: every call of the wgrad asks."""
+    check_wgrad_geometry("wgrad_tma_plan", cin, n, h, w_img)
+    bn = 160 if cout % 160 == 0 else (128 if cout > 64 else 64)
+    sp = split_plan(9 * cin, cout, 1, n // WG_BK, WG_BK, bn=bn,
+                    slots=WG_SLOTS)
+    return WgradTmaPlan(bn, sp.m_tiles, sp.n_tiles, sp.steps, sp.per,
+                        sp.splits)
 
 
 def conv3x3_wgrad(x_cs, dy_cs, *, h: int, w_img: int) -> torch.Tensor:
     """Weight gradient of the stride-1 SAME 3x3 conv: x [Cin, N], dy [Cout,
-    N] (N = B*H*W, whole images) -> dW [Cout, 9*Cin] f32, columns in (dh,
-    dw, ci) order. On the card: bf16 operands, Cin a multiple of 32, the
-    geometry of ``check_wgrad_geometry``; one kernel launch over position
-    splits and one ordered sum of the splits (``conv3x3_wgrad.sum``)."""
+    N] (N = B*H*W, whole images) -> dW [3, 3, Cin, Cout] f32 (HWIO, as
+    JAX's ``conv3x3_wgrad_lanes`` returns it). On the card: bf16 operands,
+    Cout a multiple of 8, the geometry of ``check_wgrad_geometry``; one
+    launch of the TMA + wgmma kernel over ``wgrad_tma_plan``'s splits and
+    one ordered sum of the splits (``conv3x3_wgrad.sum``)."""
     cin, cout, n = _wgrad_shapes(x_cs, dy_cs, h, w_img)
     if on_cpu(x_cs):
         return conv3x3_wgrad_plain(x_cs, dy_cs, h=h, w_img=w_img)
     name = "conv3x3_wgrad"
     require_cuda(name, [x_cs, dy_cs], [torch.bfloat16] * 2)
     check_wgrad_geometry(name, cin, n, h, w_img)
-    splits = wgrad_splits(cin, cout, n)
+    if cout % 8:
+        raise ValueError(f"{name}: Cout={cout} is not a multiple of 8")
+    plan = wgrad_tma_plan(cin, cout, n, h, w_img)
     dev = x_cs.device
-    part = torch.empty((splits, cout * 9 * cin), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty(cout * 9 * cin, dtype=torch.float32, device=dev)
+    m = 9 * cin * cout
+    part = torch.empty((plan.splits, m), dtype=torch.float32, device=dev)
+    out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _library_wgrad()
     check_rc(name, lib.conv3x3_wgrad_launch(
         x_cs.data_ptr(), dy_cs.data_ptr(), part.data_ptr(), cin, cout, n, h,
-        w_img, splits, stream))
+        w_img, plan.bn, plan.per, plan.splits, stream))
     launches[name] += 1
     launch_shapes[(name, cin, cout, n, "bf16")] += 1
     check_rc(f"{name}.sum", lib.partial_sum_launch(
-        part.data_ptr(), out.data_ptr(), splits, cout * 9 * cin, stream))
+        part.data_ptr(), out.data_ptr(), plan.splits, m, stream))
     launches[f"{name}.sum"] += 1
-    return out.reshape(cout, 9 * cin)
+    return out
+
+
+def tma_box_probe(t, *, h: int, w_img: int, dy: bool, at: Tuple[int, int],
+                  bn: int = 64) -> Tuple[torch.Tensor, bool]:
+    """One TMA load of t [C, N] bf16 (h x w_img images) through the map
+    ``conv3x3_wgrad``'s kernel reads x with (``dy`` False: positions from
+    ``at[0]`` of image ``at[1]``, channels 0-31; 64 positions, 80 where W
+    >= 64, unswizzled) or dy with (``dy`` True: 64 positions from
+    ``at[0]`` of ``bn`` channels from ``at[1]``, in the 128-byte swizzle),
+    into 1024-byte-aligned, zeroed shared memory: the box's bytes as they
+    landed (uint8 on t's card), and whether they completed the barrier's
+    transaction (the wait is bounded). No part of the gradient: the card
+    tests hold the two layouts to the ones the mainloop assumes."""
+    name = "conv3x3_wgrad.probe"
+    require_cuda(name, [t], [torch.bfloat16])
+    c, n = t.shape
+    if at[0] % 8:
+        raise ValueError(f"{name}: position {at[0]} is not a multiple of 8 "
+                         f"(TMA's 16 bytes)")
+    xpos = WG_BK if w_img < WG_BK else WG_BK + 16
+    nbytes = 2 * (WG_BK * bn if dy else xpos * WG_PIECE)
+    out = torch.empty(nbytes + 1, dtype=torch.uint8, device=t.device)
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    check_rc(name, _library_wgrad().conv3x3_wgrad_probe_launch(
+        t.data_ptr(), out.data_ptr(), c, n, h, w_img, int(dy), bn, at[0],
+        at[1], stream))
+    launches[name] += 1
+    return out[:nbytes], bool(out[nbytes].item())
 
 
 # --- the differentiable conv of ``use_pallas_conv`` ----------------------------
@@ -449,10 +505,9 @@ class _Conv3x3Same(torch.autograd.Function):
         b, h, w_img, cin, cout = ctx.dims
         dy_cs = pad_rows(nhwc_to_lanes(dy.to(x_cs.dtype)), -cout % 32)
         dx = conv3x3_bf16(dy_cs, pack_weights_dgrad(w_p), h=h, w_img=w_img)
-        dw = conv3x3_wgrad(x_cs, dy_cs, h=h, w_img=w_img)
-        # [Cout, (dh, dw, ci)] -> OIHW, rounded to the weight's dtype as
-        # the reference's VJP rounds it
-        dw = dw.reshape(w_p.shape[0], 3, 3, w_p.shape[1]).permute(0, 3, 1, 2)
+        # HWIO -> OIHW, rounded to the weight's dtype as the reference's
+        # VJP rounds it
+        dw = conv3x3_wgrad(x_cs, dy_cs, h=h, w_img=w_img).permute(3, 2, 0, 1)
         same_calls["backward"] += 1
         return (lanes_to_nhwc(dx[:cin], b, h, w_img),
                 dw[:cout, :cin].to(w_p.dtype))

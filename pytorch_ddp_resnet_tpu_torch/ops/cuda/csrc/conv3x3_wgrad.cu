@@ -5,68 +5,190 @@
 //
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/conv.py):
 //   conv3x3_wgrad_launch  <- conv3x3_wgrad_lanes, body _wgrad_kernel: dW
-//                            [Cout, 9*Cin] = dy [Cout, N] x patches(x)
-//                            [9*Cin, N]^T, f32 sums over every position
+//                            [9*Cin, Cout] (HWIO) = patches(x) [9*Cin, N] x
+//                            dy [Cout, N]^T, f32 sums over every position
 //   partial_sum_launch    <- the TPU kernel's sum carried across its grid
 //
-// What bounds it on an H100: at the WRN-28-10 shapes (C = 160, 320, 640 at
-// 32x32, 16x16, 8x8, batch 128) one call is 2 * 9 * C^2 * N = 60.4 GFLOP
-// (0.061 ms at 989 TFLOP/s of bf16) against 36-85 MB of operands and dW
-// (0.025 ms at 3.35 TB/s at most): it is bound by operations.
+// What bounds it on an H100, and the design: wgrad_wgmma_bf16.cuh (TMA
+// reads x and dy where they lie, x at each tap's row with zero fill at the
+// border; a shifter warpgroup moves x by each tap's column; a wgmma
+// mainloop; f32 split tiles). This file encodes the two tensor maps on the
+// host, with cuTensorMapEncodeTiled looked up at run time through the CUDA
+// runtime's entry-point query (so the library links no libcuda), and
+// passes them by value as __grid_constant__ kernel parameters.
 //
-// Design: the position-split GEMM of wgrad_bf16.cuh (the same mainloop as
-// the fused bf16 half's wgrad of fused_block_bf16.cu) with raw operand
-// loads: g is dy as it is, d is x as it is (no prologue, no folded
-// cotangent). The grid splits the positions so that some 500 blocks are
-// in flight; each split's f32 tile goes to its slot of a partial buffer,
-// and partial_sum adds the slots in order, so the result does not depend
-// on which block finished first. The TPU kernel's 640-lane tap groups and
-// roll-and-mask patches are MXU and VMEM choices and are not carried over.
+// conv3x3_wgrad_probe_launch is no part of the gradient: it loads one box
+// through the map the kernel reads x or dy with and copies the shared
+// memory it landed in back out, so that a test on the card can hold the
+// layout to the one the mainloop's descriptors assume.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "wgrad_bf16.cuh"
+#include "wgrad_wgmma_bf16.cuh"
 
 namespace {
 
-// 8 bf16 of one row of t [C, n], as they are
-struct RawRows {
-  const __nv_bfloat16* t;
-  int n;
-  __device__ __forceinline__ uint4 operator()(int ch, size_t pos) const {
-    return *reinterpret_cast<const uint4*>(t + (size_t)ch * n + pos);
-  }
-};
+namespace wg = wgrad_wgmma_bf16;
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+// Names the ordered sum's kernel in a profile.
+struct WgradTmaSum {};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of t [c, n = b * h * wi] bf16 viewed (HW, B, C), innermost
+// first, in boxes of x's staged rows: the step's 64 positions (80 from 8
+// before where W >= 64) of 32 channels, unswizzled. Out-of-bounds elements
+// read as zero. Returns false where the encoder is missing or refuses.
+bool encode_x(CUtensorMap* map, const void* t, int c, int n, int h, int wi) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr || wi < 1 || h < 1 || n % (h * wi)) return false;
+  const cuuint64_t hw = (cuuint64_t)h * wi;
+  const cuuint64_t dims[3] = {hw, n / hw, (cuuint64_t)c};
+  const cuuint64_t strides[2] = {2ull * hw, 2ull * n};
+  const cuuint32_t box[3] = {
+      (cuuint32_t)(wi >= wg::BK ? wg::XROW / 2 : wg::BK), 1u,
+      (cuuint32_t)wg::PIECE};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of t [c, n] bf16 viewed (N, C), in boxes of dy's rows: 64
+// positions of bn channels, in the 128-byte swizzle.
+bool encode_dy(CUtensorMap* map, const void* t, int c, int n, int bn) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)c};
+  const cuuint64_t strides[1] = {2ull * n};
+  const cuuint32_t box[2] = {(cuuint32_t)wg::BK, (cuuint32_t)bn};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One box of `map` (x's map where dy is 0, dy's where 1) at (x0, y0[, 0])
+// into zeroed shared memory, then its `bytes` bytes to out as they lie,
+// and at out[bytes] 1 if the barrier saw them land, 0 if it gave up
+// waiting. The wait is bounded, so that a box whose bytes are not `bytes`
+// cannot hang the card.
+__global__ void tma_probe_kernel(const __grid_constant__ CUtensorMap map,
+                                 int dy, unsigned char* out, int bytes,
+                                 int x0, int y0) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t pad = (wg::ALIGN - raw % wg::ALIGN) % wg::ALIGN;
+  unsigned char* buf = smem_raw + pad;
+  __shared__ uint64_t bar_mem;
+  const uint32_t bar = wg::smem_u32(&bar_mem);
+  for (int i = threadIdx.x; i < bytes; i += blockDim.x) buf[i] = 0;
+  // the zeros (generic proxy) ordered before TMA's writes (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::mbar_arrive_tx(bar, bytes);
+    if (dy)
+      wg::tma_load_2d(raw + pad, &map, bar, x0, y0);
+    else
+      wg::tma_load_3d(raw + pad, &map, bar, x0, y0, 0);
+  }
+  uint32_t done = 0;
+  for (int spin = 0; spin < (1 << 20) && !done; ++spin)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  for (int i = threadIdx.x; i < bytes; i += blockDim.x) out[i] = buf[i];
+  if (threadIdx.x == 0) out[bytes] = done;
+}
 
 }  // namespace
 
 extern "C" {
 
-// x [cin, n] bf16, dy [cout, n] bf16, part [splits][cout][9 * cin] f32,
-// split s covering positions [s * n / splits, (s + 1) * n / splits).
-// cin % 32 == 0, wi % 8 == 0, wi <= 32, n / splits a multiple of 256,
-// and 256 a multiple of h * wi or the reverse; the pointers 16-byte
-// aligned. Returns the launch's cudaError_t.
+// x [cin, n] bf16, dy [cout, n] bf16 (n = b * h * wi, 16-byte aligned),
+// part [splits][9 * cin][cout] f32, split s covering K steps [s * per,
+// min(steps, (s + 1) * per)) of 64 positions; bn the N tile. The geometry
+// is ops/cuda/conv3x3.py check_wgrad_geometry's. Returns a cudaError_t.
 int conv3x3_wgrad_launch(const void* x, const void* dy, void* part, int cin,
-                         int cout, int n, int h, int wi, int splits,
-                         void* stream) {
-  const RawRows g{static_cast<const __nv_bfloat16*>(dy), n};
-  const RawRows d{static_cast<const __nv_bfloat16*>(x), n};
-  return wgrad_bf16::launch(g, d, static_cast<float*>(part), cout, cin, n, h,
-                            wi, splits, as_stream(stream));
+                         int cout, int n, int h, int wi, int bn, int per,
+                         int splits, void* stream) {
+  CUtensorMap tx, tdy;
+  if (!encode_x(&tx, x, cin, n, h, wi) || !encode_dy(&tdy, dy, cout, n, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::Args p{static_cast<float*>(part), cin, cout, wi, h * wi,
+                   n / wg::BK, per};
+  return static_cast<int>(wg::launch(tx, tdy, p, bn, splits,
+                                     as_stream(stream)));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)
 int partial_sum_launch(const void* part, void* out, int j, int m,
                        void* stream) {
-  return common::partial_sum<RawRows>(static_cast<const float*>(part),
-                             static_cast<float*>(out), j, m,
-                             as_stream(stream));
+  return common::partial_sum<WgradTmaSum>(static_cast<const float*>(part),
+                                          static_cast<float*>(out), j, m,
+                                          as_stream(stream));
+}
+
+// One box of t [c, n] bf16 (h x wi images) through the map the kernel
+// reads x with (dy = 0: box at position x0 of image y0, channels from 0)
+// or dy with (dy = 1: box of bn channels at position x0, channel y0),
+// loaded into zeroed, 1024-byte-aligned shared memory: the box's bytes to
+// out as they landed, then a byte: 1 if they completed the barrier.
+int conv3x3_wgrad_probe_launch(const void* t, void* out, int c, int n, int h,
+                               int wi, int dy, int bn, int x0, int y0,
+                               void* stream) {
+  CUtensorMap map;
+  const int bytes = dy ? 2 * wg::BK * bn
+                       : 2 * (wi >= wg::BK ? wg::XROW / 2 : wg::BK) * wg::PIECE;
+  if (!(dy ? encode_dy(&map, t, c, n, bn) : encode_x(&map, t, c, n, h, wi)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = bytes + wg::ALIGN;
+  cudaError_t err = cudaFuncSetAttribute(
+      tma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tma_probe_kernel<<<1, 256, smem, as_stream(stream)>>>(
+      map, dy, static_cast<unsigned char*>(out), bytes, x0, y0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,0 +1,69 @@
+"""How the port's split weight gradients cut their work: dW [m, Cout] in
+(bm, bn) tiles and each chunk's K steps in runs, one run a block, the
+runs' f32 (or s32) tiles added in order afterwards. ``split_plan`` picks
+the runs by a cost model of waves of blocks on an H100; the staged NV
+wgrads (ops/cuda/bneck_nv_train.py ``wgrad_bf16_plan``,
+``wgrad_int8_plan``, also the fused bf16 half's) and ``conv3x3_wgrad``
+(ops/cuda/conv3x3.py ``wgrad_tma_plan``) plan with it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+# the split picker's model of an H100 SXM (132 SMs, two blocks on each
+# unless the caller says otherwise): a block's K step (128 bytes of each
+# operand row: 64 bf16 or 128 int8 positions) takes STEP_US, its ring
+# fill and epilogue FILL_STEPS more steps, and the split tiles (f32 or
+# s32) go out and back in at PART_BYTES_US
+SLOTS = 2 * 132
+STEP_US = 2.0
+FILL_STEPS = 2
+PART_BYTES_US = 3.0e6
+
+
+class WgradPlan(NamedTuple):
+    """How a split wgrad's mainloop cuts dW [taps*Cin, Cout] and each
+    chunk's positions: (bm, bn) tiles, m_tiles x n_tiles of them; each of
+    the ``chunks`` chunks has ``steps`` K steps of ``bk`` positions, cut
+    into ``splits`` runs of ``per`` (``ranges``: each split's [kt0,
+    kt1))."""
+    bm: int
+    bn: int
+    bk: int
+    m_tiles: int
+    n_tiles: int
+    chunks: int
+    steps: int
+    per: int
+    splits: int
+    ranges: tuple
+
+
+def split_plan(m, cout, chunks, steps, bk, bn=None,
+               slots=SLOTS) -> WgradPlan:
+    """Tiles of dW [m, Cout] (``bn`` wide, else 64 where Cout <= 64 and
+    128 above) and the splits of each chunk's ``steps`` K steps that
+    minimize the cost model on ``slots`` blocks in flight, the fewest
+    among equals, none empty."""
+    bm = 64 if m <= 64 else 128
+    if bn is None:
+        bn = 64 if cout <= 64 else 128
+    m_tiles, n_tiles = -(-m // bm), -(-cout // bn)
+    tiles = m_tiles * n_tiles * chunks
+
+    def cost(k):
+        per = -(-steps // k)
+        k = -(-steps // per)   # the splits runs of ``per`` steps make
+        waves = -(-tiles * k // slots)
+        # split tiles: 4 bytes an element, written once and read once
+        return (waves * (per + FILL_STEPS) * STEP_US
+                + 8 * chunks * k * m * cout / PART_BYTES_US)
+
+    want = min(range(1, min(steps, 65535 // chunks) + 1), key=cost)
+    per = -(-steps // want)
+    splits = -(-steps // per)
+    ranges = tuple((k * per, min(steps, (k + 1) * per))
+                   for k in range(splits))
+    return WgradPlan(bm, bn, bk, m_tiles, n_tiles, chunks, steps, per,
+                     splits, ranges)

@@ -107,8 +107,9 @@ def test_conv3x3_same_matches_jax(dtype, b, h, w, cin, cout):
 
 @pytest.mark.parametrize("cin,cout", [(32, 48), (160, 32)])
 def test_wgrad_plain_matches_jax(cin, cout):
-    """``conv3x3_wgrad_plain`` [Cout, (dh, dw, ci)] against JAX's
-    ``conv3x3_wgrad_lanes`` (HWIO) in f32."""
+    """``conv3x3_wgrad`` on the CPU (its plain version), HWIO [3, 3, Cin,
+    Cout] as JAX's ``conv3x3_wgrad_lanes`` returns it, against that in
+    f32."""
     rng = np.random.default_rng(2)
     b, h, w = 2, 8, 16
     x_cs = rng.normal(size=(cin, b * h * w)).astype(np.float32)
@@ -117,10 +118,9 @@ def test_wgrad_plain_matches_jax(cin, cout):
                                      h=h, w_img=w, interpret=True)
     got = k.conv3x3_wgrad(torch.from_numpy(x_cs), torch.from_numpy(dy_cs),
                           h=h, w_img=w)
-    assert got.shape == (cout, 9 * cin) and got.dtype == torch.float32
-    got_hwio = got.reshape(cout, 3, 3, cin).permute(1, 2, 3, 0)
-    np.testing.assert_allclose(got_hwio.numpy(), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
+    assert got.shape == (3, 3, cin, cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_dgrad_packing_matches_jax():
@@ -165,14 +165,15 @@ def test_tile_picker_refuses_as_jax(b, h, w, c, admitted):
     (128, 8, 8, 640, True),   # WRN-28-10
     (128, 32, 32, 16, True), (128, 16, 16, 32, True),
     (128, 8, 8, 64, True),    # ResNet-v1-20
-    (32, 64, 64, 64, False),  # rows wider than 32 positions
-    (32, 24, 24, 64, False),  # 576-position images vs 256-position chunks
-    (64, 12, 12, 64, False),  # rows off the 8-position pieces
+    (32, 64, 64, 64, True),   # rows of 64: one K step a row
+    (32, 24, 24, 64, False),  # rows of 24: no whole rows in a K step
+    (64, 12, 12, 64, False),  # rows of 12 likewise
 ])
 def test_card_geometry_gap_is_named(b, h, w, c, card):
     """Geometries the JAX tile picker admits: the card's wgrad kernel
-    takes the shipped ones and raises, naming the shape, for the others
-    (ROADMAP Queue 3 item 6); it never computes something else."""
+    takes the shipped ones and 64x64, and raises, naming the shape, for
+    the others (ROADMAP Queue 3 item 6); it never computes something
+    else."""
     jconv._pick_tile(h * w, b * h * w, c)
     n = b * h * w
     if card:

@@ -61,6 +61,7 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import stem as st
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import transition as tr
 from pytorch_ddp_resnet_tpu_torch.utils.rng import Key
+from _tma_layout import tma_box_probe_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -1542,24 +1543,37 @@ def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
 # --- the conv of use_pallas_conv and the int8 1x1 conv ----------------------------
 
 WGRAD_SHAPES = [(160, 160, 32, 32, 2), (320, 320, 16, 16, 4),
-                (640, 640, 8, 8, 8), (32, 48, 8, 8, 4), (96, 64, 16, 8, 2)]
+                (640, 640, 8, 8, 8), (32, 48, 8, 8, 4), (96, 64, 16, 8, 2),
+                (32, 48, 64, 64, 2), (64, 136, 16, 16, 2), (32, 32, 32, 32, 8),
+                (32, 32, 16, 16, 8), (64, 64, 8, 8, 8), (32, 48, 8, 128, 2),
+                (64, 160, 2, 192, 2)]
 
 
 @pytest.mark.parametrize("cin,cout,h,w,b", WGRAD_SHAPES)
 def test_conv3x3_wgrad_kernel_matches_plain(dev, cin, cout, h, w, b):
     """dW in f32 against the float64 plain version: within 1e-4 of its
-    largest value (sums over the tensor cores' f32 accumulators)."""
+    largest value (sums over the tensor cores' f32 accumulators), HWIO, the
+    same bits in two calls (the splits added in order), one launch of the
+    kernel and one of its sum a call. The shapes: WRN-28-10's and
+    ResNet-v1-20's widths at their image sizes, a ragged Cout at BN = 64
+    (48) and 128 (136), W = 64, and W = 128 and 192 (several 64-column
+    steps a row; the x box of row -1 on an image's first row lies wholly
+    outside the image)."""
     rng = np.random.default_rng(7)
     n = b * h * w
     x = torch.from_numpy(rng.standard_normal((cin, n), dtype=np.float32))
     dy = torch.from_numpy(rng.standard_normal((cout, n), dtype=np.float32))
     x, dy = x.to(dev, torch.bfloat16), dy.to(dev, torch.bfloat16)
-    before = k.launches["conv3x3_wgrad"]
+    before = k.launches["conv3x3_wgrad"], k.launches["conv3x3_wgrad.sum"]
     got = k.conv3x3_wgrad(x, dy, h=h, w_img=w)
+    again = k.conv3x3_wgrad(x, dy, h=h, w_img=w)
     want = k.conv3x3_wgrad_plain(x, dy, h=h, w_img=w)
     torch.cuda.synchronize()
-    assert k.launches["conv3x3_wgrad"] == before + 1
+    assert (k.launches["conv3x3_wgrad"], k.launches["conv3x3_wgrad.sum"]) == (
+        before[0] + 2, before[1] + 2)
+    assert got.shape == (3, 3, cin, cout)
     _mma_sums(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("cin,cout,h,w,b", [(16, 16, 32, 32, 2),
@@ -1596,16 +1610,54 @@ def test_conv3x3_same_on_the_card(dev, cin, cout, h, w, b):
         _bf16_close(got.cpu(), want)
 
 
+@pytest.mark.parametrize("w", [8, 16, 32, 64])
+def test_tma_swizzle_probe(dev, w):
+    """The two layouts ``conv3x3_wgrad``'s mainloop reads, through the
+    kernel's own tensor maps (``tma_box_probe``), against
+    ``tma_box_probe_plain``: dy's boxes, 64 positions of a channel a
+    128-byte row, land in the 128-byte swizzle by address (the formula of
+    the wgmma descriptors); x's staged boxes, 64 positions (80 from 8
+    before where W >= 64), land dense and unswizzled. Also where a box
+    reaches past the image, the batch or the channels (zeros), and every
+    load completes its barrier with the box's bytes."""
+    h, b, c = 8, 2, 32
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy(rng.standard_normal((c, b * h * w),
+                                             dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    hw, xw = h * w, 64 if w < 64 else 80
+    cases = [(False, (-w - (xw - 64), 1), 64),  # row -1 of image 1
+             (False, (hw - 64 + w - (xw - 64), 0), 64),  # row H of image 0
+             (True, (0, 0), 32), (True, (0, 16), 48),  # channels past C
+             (True, (b * hw - 32, 0), 32)]  # positions past N
+    for dy, at, bn in cases:
+        got, done = k.tma_box_probe(t, h=h, w_img=w, dy=dy, at=at, bn=bn)
+        torch.cuda.synchronize()
+        assert done, (dy, at, bn)
+        want = tma_box_probe_plain(t, h=h, w_img=w, dy=dy, at=at, bn=bn)
+        assert torch.equal(got.cpu(), want), (dy, at, bn)
+
+
 def test_conv3x3_same_never_falls_back(dev):
-    """f32 on the card, and geometries the wgrad kernel cannot stage
-    (image rows wider than 32, rows off the 8-position pieces), raise."""
+    """f32 on the card raises; geometries off the TMA reads' rule (rows of
+    12 and 24 positions) raise, naming the image; 64x64 computes on the
+    kernel."""
     with pytest.raises(ValueError, match="float32"):
         k.conv3x3_same(torch.zeros(2, 8, 8, 32, device=dev),
                        torch.zeros(32, 32, 3, 3, device=dev))
-    for h, w, b in ((64, 64, 2), (12, 12, 16)):
+    for h, w, b in ((12, 12, 16), (24, 24, 4)):
         x = torch.zeros((32, b * h * w), dtype=torch.bfloat16, device=dev)
-        with pytest.raises(ValueError, match="staging chunk"):
+        with pytest.raises(ValueError, match=f"image {h}x{w} is off the TMA"):
             k.conv3x3_wgrad(x, x, h=h, w_img=w)
+    x = torch.ones((32, 2 * 64 * 64), dtype=torch.bfloat16, device=dev)
+    before = k.launches["conv3x3_wgrad"]
+    dw = k.conv3x3_wgrad(x, x, h=64, w_img=64)
+    torch.cuda.synchronize()
+    assert k.launches["conv3x3_wgrad"] == before + 1
+    # all-ones operands: each tap counts the positions its shift keeps
+    keep = torch.tensor([63.0, 64.0, 63.0], device=dev)
+    want = 2 * (keep[:, None] * keep[None, :])
+    assert torch.equal(dw, want[:, :, None, None].expand(3, 3, 32, 32))
 
 
 C1_SHAPES = [(256, 64, 56 * 56 * 2), (64, 256, 56 * 56 * 2),

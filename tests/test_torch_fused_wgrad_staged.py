@@ -29,6 +29,7 @@ import torch
 
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import bneck_nv_train as nvt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.wgrad_plan import split_plan
 from test_torch_nv_wgrad_staged import MODELS, _emulate, _forced, _gate_halves
 
 
@@ -111,14 +112,14 @@ def test_plan_takes_every_k_step_once_and_covers_dw(c, h, w):
 def _nv_rule_plan(plan, m, cout):
     """``plan`` re-made with the NV halves' N tile forced (64 where Cout <=
     64, else 128): the tile the staged NV kernels were tuned on."""
-    return nvt._split_plan(m, cout, plan.chunks, plan.steps, plan.bk,
-                           bn=64 if cout <= 64 else 128)
+    return split_plan(m, cout, plan.chunks, plan.steps, plan.bk,
+                      bn=64 if cout <= 64 else 128)
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_nv_plans_are_unchanged_by_the_tile_rule(model):
     """The fused wgrad's N tile was timed at 64 and 128 (the width choice
-    ``_split_plan`` takes now); every NV plan, bf16 and int8, is still the
+    ``split_plan`` takes now); every NV plan, bf16 and int8, is still the
     plan of the NV halves' own rule."""
     halves = _gate_halves(model)
     assert len(halves) >= 40, len(halves)

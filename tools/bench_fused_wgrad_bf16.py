@@ -126,7 +126,7 @@ def main() -> int:
                     plan = nvt.wgrad_bf16_plan(BATCH, h, w, c, c, 9, h)
                     row["plan"] = list(plan[:-1])
                     if opts.tiles and kind == "bits" and stats:
-                        plans = {f"bn{bn}": nvt._split_plan(
+                        plans = {f"bn{bn}": nvt.split_plan(
                             9 * c, c, 1, plan.steps, plan.bk, bn=bn)
                             for bn in (64, 128)}
                         if c == 640:
