@@ -169,16 +169,23 @@ Phases, each fatal on failure:
    nine tap shifts and its bf16 instantiation for the projection, with a
    channel-major epilogue, then the ordered sum) with dropout bits,
    without, and with the option-A shortcut at stage 2; the FQT quantizers
-   and the straight-through fold (the rounded cotangent and the bf16
-   prologue); the dgrad and the wgrad (with dWp) of both bodies. Int8
-   codes, group absmaxes, the forward's slabs (byte for byte), z, the fold
-   and the FQT dW equal; res and dx within 2 bf16 ulps; f32 sums within
-   1e-5 (1e-4 over bf16 tensor-core accumulators); the forward's z, res
-   and sums bit-equal over two calls. Each is timed beside its plain
-   version and cuDNN's bf16 stride-2 3x3 conv plus the 1x1 stride-2
-   projection (forward, input gradient, weight gradient; channels-last),
-   the forward's three parts (amax pass, prepass, mainloop + sum) apart
-   beside their bounds; the prepass is also a kernel row of its own.
+   and the straight-through fold (the rounded cotangent, the bf16
+   prologue's four parity planes and, from both, x's even-even plane); the
+   dgrad of both bodies; the FQT wgrad (transition.cu's int8 kernel); the
+   straight-through wgrad and dWp apart, on the TMA + wgmma mainloop of
+   csrc/wgrad_wgmma_bf16.cuh (csrc/transition_wgrad.cu: each tap a parity
+   plane at its row and column shift), each bit-equal over two calls and
+   also in device time and TFLOP/s. Int8 codes, group absmaxes, the
+   forward's slabs (byte for byte), z, the fold's and the quantizer's
+   outputs and the FQT dW equal; res and dx within 2 bf16 ulps; f32 sums
+   within 1e-5 (1e-4 over bf16 tensor-core accumulators: the bf16 dW and
+   dWp); the forward's z, res and sums bit-equal over two calls. Each is
+   timed beside its plain version and cuDNN's bf16 stride-2 3x3 conv plus
+   the 1x1 stride-2 projection (forward, input gradient, weight gradient;
+   channels-last; the wgrads beside the 3x3's or the 1x1's weight
+   gradient alone), the forward's three parts (amax pass, prepass,
+   mainloop + sum) apart beside their bounds; the prepass is also a
+   kernel row of its own.
 16. Training, the eighth main path: the ``-int8`` recipe of phase 7 with
    ``use_lane_transition: True``. With the launch counts zeroed just
    before, each step must launch the transition kernels twice each (the
@@ -192,7 +199,8 @@ Phases, each fatal on failure:
    versions. Then the same in QAT with in-kernel dropout, as phase 14
    (``use_int8_train`` and ``use_inkernel_dropout``, 6 steps:
    LANE_QAT_PER_STEP, the 15 halves at C <= 320 seeded as in phase 14; the
-   transitions' bits stay drawn, as in the reference). Both print step
+   transitions' bits stay drawn, as in the reference), whose transitions'
+   dW and dWp run on the TMA wgrad (both runs' dWp do). Both print step
    time, img/s, peak memory and the profile beside phase 7's FQT and phase
    14's QAT step, which differ from them in the one flag.
 17. conv3x3_same (``use_pallas_conv``): at the three WRN-28-10 stage shapes
@@ -445,17 +453,20 @@ FQT_PER_STEP = {
 # launches of one lane-transition step: the 22 halves as above, plus the
 # two transition halves (each one forward: its amax pass, prepass, staged
 # mainloop and ordered sum; one backward fold or quantizer, dgrad, wgrad
-# and dWp, with their ordered sums)
+# and dWp, with their ordered sums: the FQT wgrad on transition.cu's int8
+# kernel, the straight-through one and dWp on the TMA wgrad)
 _TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
             "transition_fwd": 2, "transition_fwd.sum": 2,
             "transition_dgrad": 2, "transition_dgrad.sum": 2,
-            "transition_wgrad": 2, "transition_wgrad.sum": 2,
-            "transition_wgrad.proj": 2, "transition_wgrad.proj_sum": 2}
+            "transition_wgrad_tma.proj": 2,
+            "transition_wgrad_tma.proj_sum": 2}
 LANE_FQT_PER_STEP = {
     **FQT_PER_STEP, **_TR_STEP, "transition_bwd.amax": 2,
-    "transition_bwd.quant": 2}
+    "transition_bwd.quant": 2, "transition_wgrad": 2,
+    "transition_wgrad.sum": 2}
 LANE_QAT_PER_STEP = {
-    **QAT_PER_STEP, **_TR_STEP, "transition_bwd.fold": 2}
+    **QAT_PER_STEP, **_TR_STEP, "transition_bwd.fold": 2,
+    "transition_wgrad_tma": 2, "transition_wgrad_tma.sum": 2}
 LANE_QAT_STEPS = 6
 F32_SUMS = ("ysum", "yssq", "zsum", "zssq", "ds", "dt", "db", "dw_stem")
 # dense peak rates (bf16 FLOP/s, int8 OP/s, memory B/s, f32 FLOP/s outside
@@ -892,6 +903,9 @@ KERNEL_KINDS = [
     ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
+    # the lane transition's TMA wgrad shares conv3x3_same's mainloop; its
+    # instantiation and its sum carry the transition's tag
+    ("transition (port)", ("TransitionWgrad",)),
     ("conv3x3_same wgrad (port)", ("wgrad_tma_kernel", "WgradTmaSum")),
     ("fused bf16 half (port)", ("fused_fwd_", "DgradLoad",
                                 "fused_wgrad_pre")),
@@ -1935,15 +1949,26 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
 
 TR_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/transition.cu"
 TR_NAMES = ("transition_fwd", "transition_fwd.pre", "transition_bwd",
-            "transition_dgrad", "transition_wgrad")
-# the forward GEMM's mainloop, shared with the NV halves' int8 forward
-TR_MAINLOOP = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh"
+            "transition_dgrad", "transition_wgrad", "transition_wgrad_tma")
+# the straight-through wgrad and dWp: their own binding file
+TR_WGRAD_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
+                   "transition_wgrad.cu")
+# the forward GEMM's mainloop, shared with the NV halves' int8 forward; the
+# TMA wgrad's, shared with conv3x3_same's wgrad
+TR_MAINLOOP = {"transition_fwd":
+               "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
+               "transition_wgrad_tma": SAME_SOURCE}
 # (stage, cin, cout, h, w): the inputs of WRN-28-10's two stage transitions
 TR_SHAPES = [(2, 160, 320, 32, 32), (3, 320, 640, 16, 16)]
-# the FQT step's rows of each kernel (the recipe's case: projection, bits)
-TR_STEP_MODE = {"transition_fwd": "proj+bits",
-                "transition_fwd.pre": "proj+bits", "transition_bwd": "fqt",
-                "transition_dgrad": "fqt+proj", "transition_wgrad": "fqt"}
+# the lane step (FQT or QAT) whose rows each kernel's summary sums: the
+# recipe's case (projection, bits); the FQT wgrad is dW alone, the TMA
+# wgrad the straight-through dW and dWp
+TR_STEP_MODE = {"transition_fwd": ("FQT", ("proj+bits",)),
+                "transition_fwd.pre": ("FQT", ("proj+bits",)),
+                "transition_bwd": ("FQT", ("fqt",)),
+                "transition_dgrad": ("FQT", ("fqt+proj",)),
+                "transition_wgrad": ("FQT", ("fqt",)),
+                "transition_wgrad_tma": ("QAT", ("qat", "proj"))}
 
 
 def _agree_tr(got: dict, want: dict, tol: dict, what) -> float:
@@ -1974,7 +1999,8 @@ def _agree_tr(got: dict, want: dict, tol: dict, what) -> float:
 def cudnn_s2_times(g, cin, cout, h, w, batch=BATCH):
     """cuDNN bf16 channels-last stride-2 3x3 conv plus the 1x1 stride-2
     projection at batch ``batch``: ms per call of the forward, the input
-    gradient and the weight gradient."""
+    gradient and the weight gradient, and the weight gradient of each
+    alone (``wgrad3``, ``wgrad1``)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
@@ -1996,7 +2022,11 @@ def cudnn_s2_times(g, cin, cout, h, w, batch=BATCH):
             conv2d_input(x4.shape, wp4, dy4, stride=2)), 10),
         wgrad=time_ms(lambda: (
             conv2d_weight(x4, w4.shape, dy4, stride=2, padding=1),
-            conv2d_weight(x4, wp4.shape, dy4, stride=2)), 10))
+            conv2d_weight(x4, wp4.shape, dy4, stride=2)), 10),
+        wgrad3=time_ms(lambda: conv2d_weight(x4, w4.shape, dy4, stride=2,
+                                             padding=1), 10),
+        wgrad1=time_ms(lambda: conv2d_weight(x4, wp4.shape, dy4, stride=2),
+                       10))
 
 
 def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
@@ -2159,25 +2189,30 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
         scb = (x, scale, shift, bits)
 
         # FQT: the quantizers, then the int8 dgrad and wgrad on the plain
-        # version's operands (equal to the kernel's, checked first)
-        ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile)
+        # version's operands (equal to the kernel's, checked first); x_ee,
+        # x's even-even plane, is dWp's operand
+        q_keys = ("g_q", "g_amax", "d_q", "d_amax", "x_ee")
+        ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile,
+                                      **kw)
         add("transition_bwd", "fqt",
-            lambda: dict(zip(("g_q", "g_amax", "d_q", "d_amax"),
-                             tr.bwd_quantize(*ct, *scb, thresh=thresh,
-                                             tile=tile))),
-            lambda: dict(zip(("g_q", "g_amax", "d_q", "d_amax"),
-                             tr.bwd_quantize_plain(*ct, *scb, thresh=thresh,
-                                                   tile=tile))),
-            dict(g_q="eq", g_amax="eq", d_q="eq", d_amax="eq"), None,
-            4 * cout * n_out + 3 * cin * n + cout * n_out + cin * n, 0.0)
-        g_q, g_amax, d_q, d_amax = ops_p
-        gb, db = tr.bwd_fold_plain(*ct, *scb, thresh=thresh)
+            lambda: dict(zip(q_keys, tr.bwd_quantize(
+                *ct, *scb, thresh=thresh, tile=tile, **kw))),
+            lambda: dict(zip(q_keys, tr.bwd_quantize_plain(
+                *ct, *scb, thresh=thresh, tile=tile, **kw))),
+            dict.fromkeys(q_keys, "eq"), None,
+            4 * cout * n_out + 3 * cin * n + cout * n_out + cin * n
+            + cin * n // 2, 0.0)
+        g_q, g_amax, d_q, d_amax, _ = ops_p
+        # straight-through: g, the prologue's parity planes and x_ee
+        f_keys = ("g", "d", "x_ee")
+        gb, db, xee = tr.bwd_fold_plain(*ct, *scb, thresh=thresh, **kw)
         add("transition_bwd", "qat",
-            lambda: dict(zip(("g", "d"), tr.bwd_fold(*ct, *scb,
-                                                     thresh=thresh))),
-            lambda: dict(zip(("g", "d"), tr.bwd_fold_plain(
-                *ct, *scb, thresh=thresh))), dict(g="eq", d="eq"), None,
-            6 * cout * n_out + 5 * cin * n, 0.0)
+            lambda: dict(zip(f_keys, tr.bwd_fold(*ct, *scb, thresh=thresh,
+                                                 **kw))),
+            lambda: dict(zip(f_keys, tr.bwd_fold_plain(
+                *ct, *scb, thresh=thresh, **kw))),
+            dict.fromkeys(f_keys, "eq"), None,
+            6 * cout * n_out + 5 * cin * n + cin * n // 2, 0.0)
         for opt_a in optas:
             wpt_ = None if opt_a else wpt
             sfx = "+optA" if opt_a else "+proj"
@@ -2202,29 +2237,40 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                                else 0)) * 1e3)
             if opt_a:
                 continue
-
-            def wg(plain, body):
-                if body == "fqt":
-                    fn = tr.wgrad_plain if plain else tr.wgrad
-                    dw = fn(g_q, g_amax, d_q, d_amax, tile=tile, **kw)
-                else:
-                    fn = tr.wgrad_bf16_plain if plain else tr.wgrad_bf16
-                    dw = fn(gb, db, **kw)
-                fn = tr.wgrad_proj_plain if plain else tr.wgrad_proj
-                return dict(dw=dw, dwp=fn(dres, x, **kw))
-
-            for body in ("fqt", "qat"):
-                add("transition_wgrad", body,
-                    lambda body=body: wg(False, body),
-                    lambda body=body: wg(True, body),
-                    dict(dw="eq" if body == "fqt" else 1e-4, dwp=1e-4),
-                    lib["wgrad"],
-                    (cout * n_out + cin * n if body == "fqt"
-                     else 2 * cout * n_out + 2 * cin * n)
-                    + 2 * cout * n_out + 2 * cin * n_out + 40 * cin * cout,
-                    (2 * macs / (ops_int8 if body == "fqt" else flops_bf16)
-                     + 2 * pmacs / flops_bf16) * 1e3)
-        del x, bits, z, dz, dres, ops_p, gb, db, g_q, d_q
+            # the FQT dW on transition.cu's int8 wgrad
+            add("transition_wgrad", "fqt",
+                lambda: dict(dw=tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile,
+                                         **kw)),
+                lambda: dict(dw=tr.wgrad_plain(g_q, g_amax, d_q, d_amax,
+                                               tile=tile, **kw)),
+                dict(dw="eq"), lib["wgrad3"],
+                cout * n_out + cin * n + 36 * cin * cout,
+                2 * macs / ops_int8 * 1e3)
+            # the straight-through dW and dWp on the TMA wgrad: each
+            # bit-equal over two calls, also in device time and TFLOP/s
+            for mode, key, fn, plain, args, work, lib_ms, byts in (
+                    ("qat", "dw", tr.wgrad_bf16, tr.wgrad_bf16_plain,
+                     (gb, db), macs, lib["wgrad3"],
+                     2 * cout * n_out + 2 * cin * n + 36 * cin * cout),
+                    ("proj", "dwp", tr.wgrad_proj, tr.wgrad_proj_plain,
+                     (dres, xee), pmacs, lib["wgrad1"],
+                     2 * cout * n_out + 2 * cin * n_out + 4 * cin * cout)):
+                add("transition_wgrad_tma", mode,
+                    lambda fn=fn, key=key, args=args: {key: fn(*args, **kw)},
+                    lambda plain=plain, key=key, args=args: {
+                        key: plain(*args, **kw)},
+                    {key: 1e-4}, lib_ms, byts, 2 * work / flops_bf16 * 1e3)
+                first = fn(*args, **kw)
+                assert torch.equal(first, fn(*args, **kw)), (
+                    "transition_wgrad_tma", stage, mode)
+                r = rows[-1]
+                r["dev_ms"] = device_ms(lambda fn=fn, args=args: fn(
+                    *args, **kw), 10)
+                r["tflops"] = 2 * work / r["ms"] / 1e9
+                r["plan"] = list(tr.wgrad_tma_plan(
+                    9 if mode == "qat" else 1, cin, cout, n_out, h, w))
+                del first
+        del x, bits, z, dz, dres, ops_p, gb, db, xee, g_q, d_q
         torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
@@ -2331,15 +2377,15 @@ def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
     dz, dzsum, dzssq, dres = ct
     cts = (dz, z, dzsum, dzssq)
     if quant_bwd:
-        g, g_amax, d_q2, d_amax = (tr.bwd_quantize_plain if plain
-                                   else tr.bwd_quantize)(
-            *cts, x, scale, shift, bits, thresh=thresh, tile=tile)
-        out.update(g_q=g, g_amax=g_amax, d_q2=d_q2, d_amax=d_amax)
+        g, g_amax, d_q2, d_amax, x_ee = (tr.bwd_quantize_plain if plain
+                                         else tr.bwd_quantize)(
+            *cts, x, scale, shift, bits, thresh=thresh, tile=tile, **kw)
+        out.update(g_q=g, g_amax=g_amax, d_q2=d_q2, d_amax=d_amax, x_ee=x_ee)
         w_dg, ws_in = tr.quant_pack_w_dgrad(w1)
     else:
-        g, d = (tr.bwd_fold_plain if plain else tr.bwd_fold)(
-            *cts, x, scale, shift, bits, thresh=thresh)
-        out.update(g=g, d=d)
+        g, d, x_ee = (tr.bwd_fold_plain if plain else tr.bwd_fold)(
+            *cts, x, scale, shift, bits, thresh=thresh, **kw)
+        out.update(g=g, d=d, x_ee=x_ee)
         g_amax, w_dg, ws_in = None, tr.pack_w_dgrad(w1.to(x.dtype)), None
     dx, ds, dt = (tr.dgrad_plain if plain else tr.dgrad)(
         g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt,
@@ -2353,7 +2399,7 @@ def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
             g, d, **kw)
     if wp is not None:
         out["dwp"] = (tr.wgrad_proj_plain if plain else tr.wgrad_proj)(
-            dres, x, **kw)
+            dres, x_ee, **kw)
     return out
 
 
@@ -2381,6 +2427,7 @@ def live_transition_check(rec, quant_bwd: bool):
     tol = dict(slab="eq", ee="eq", amax="eq", z="eq", zsum=1e-5, zssq=1e-5,
                res="ulp",
                g_q="eq", g_amax="eq", d_q2="eq", d_amax="eq", g="eq", d="eq",
+               x_ee="eq",
                dx="ulp", ds=1e-5 if quant_bwd else 1e-4,
                dt=1e-5 if quant_bwd else 1e-4,
                dw="eq" if quant_bwd else 1e-4, dwp=1e-4)
@@ -2391,19 +2438,22 @@ def live_transition_check(rec, quant_bwd: bool):
 
 def transition_summary(rows, lane_fqt, lane_qat):
     """One entry per transition kernel: the launches of the two
-    lane-transition runs (phase 16, FQT and QAT), and the device time per FQT
-    train step: phase 15's per-call times of the recipe's case summed over
-    the step's two transitions."""
+    lane-transition runs (phase 16, FQT and QAT), and the device time per
+    train step (FQT, or QAT for the TMA wgrad): phase 15's per-call times
+    of the recipe's case summed over the step's two transitions."""
     launch_names = {
         "transition_fwd": ("transition_fwd",),
         "transition_fwd.pre": ("transition_fwd.pre",),
         "transition_bwd": ("transition_bwd.amax", "transition_bwd.fold"),
         "transition_dgrad": ("transition_dgrad",),
-        "transition_wgrad": ("transition_wgrad",)}
+        "transition_wgrad": ("transition_wgrad",),
+        "transition_wgrad_tma": ("transition_wgrad_tma",
+                                 "transition_wgrad_tma.proj")}
     out = []
     for name in TR_NAMES:
         mine = [r for r in rows if r["name"] == name]
-        step = [r for r in mine if r["mode"] == TR_STEP_MODE[name]]
+        step_run, modes = TR_STEP_MODE[name]
+        step = [r for r in mine if r["mode"] in modes]
         tot = {k: sum(r[k] for r in step)
                for k in ("ms", "plain_ms", "ops_ms", "bytes_ms")}
         libs = [r["library_ms"] for r in step]
@@ -2413,7 +2463,9 @@ def transition_summary(rows, lane_fqt, lane_qat):
                                    ("lane_qat", lane_qat))}
         fwd = name.startswith("transition_fwd")
         out.append(dict(
-            name=name, route="cuda", source=TR_SOURCE,
+            name=name, route="cuda",
+            source=(TR_WGRAD_SOURCE if name == "transition_wgrad_tma"
+                    else TR_SOURCE),
             replaces=_PALLAS + ("transition.py:357" if fwd
                                 else "transition.py:619"),
             launches=sum(runs.values()), split_launches=runs,
@@ -2423,16 +2475,22 @@ def transition_summary(rows, lane_fqt, lane_qat):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=(None if None in libs else sum(libs)),
-            per=f"FQT train step at batch {BATCH} (ms per call of the "
-                f"{TR_STEP_MODE[name]} case summed over the step's two "
+            per=f"{step_run} train step at batch {BATCH} (ms per call of the "
+                f"{' + '.join(modes)} case summed over the step's two "
                 "transitions; launches over both lane runs)",
             stages=[{k: r[k] for k in ("stage", "cin", "cout", "mode", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}
                     for r in mine]))
-        if name == "transition_fwd":   # its parts, and the shared mainloop
+        if name in TR_MAINLOOP:
+            out[-1]["mainloop"] = TR_MAINLOOP[name]
+        if name == "transition_wgrad_tma":
+            out[-1].update(dev_ms=sum(r["dev_ms"] or 0.0 for r in step),
+                           tflops={r["mode"]: [x["tflops"] for x in mine
+                                               if x["mode"] == r["mode"]]
+                                   for r in step})
+        if name == "transition_fwd":   # its parts
             out[-1].update(
-                mainloop=TR_MAINLOOP,
                 **{k: sum(r[k] for r in step) for k in PART_KEYS},
                 part_launches={label: {k: run["launches"].get(k, 0) for k in (
                     "transition_fwd.amax", "transition_fwd.pre",
@@ -3782,12 +3840,13 @@ def main() -> int:
               f"static + {dyn} B dynamic shared memory, "
               f"{e['spill_bytes']} B spilled")
 
-    # the wgrad's kernels: one block of 416 threads an SM (a producer warp,
-    # a shifter warpgroup, two consumer warpgroups)
-    for e in ptxas_entries(build.build_log("conv3x3_wgrad"),
-                           "wgrad_tma_kernel"):
-        print(f"  ptxas {e['name']}: {e['registers']} registers, "
-              f"{e['spill_bytes']} B spilled")
+    # the TMA wgrads' kernels: one block of 416 threads an SM (a producer
+    # warp, a shifter warpgroup, two consumer warpgroups)
+    for lib_name in ("conv3x3_wgrad", "transition_wgrad"):
+        for e in ptxas_entries(build.build_log(lib_name),
+                               "wgrad_tma_kernel"):
+            print(f"  ptxas {lib_name} {e['name']}: {e['registers']} "
+                  f"registers, {e['spill_bytes']} B spilled")
 
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -3819,7 +3878,8 @@ def main() -> int:
     for r in tr_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "stage", "cin", "cout", "mode", "tile", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "max_abs_err")}))
+            "library_ms", "bound_ms", "bound_by", "max_abs_err") + tuple(
+                k for k in ("dev_ms", "tflops", "plan") if k in r)}))
     print("seed_bits_expand: bit-equal to the plain seed_bits at "
           f"C x N = {[(c, BATCH * h * w) for c, h, w in STAGES]} for seeds "
           f"{list(SEED_VALUES)}")

@@ -348,7 +348,7 @@ def _library_wgrad() -> ctypes.CDLL:
         lib.conv3x3_wgrad_launch.restype = _I
         lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
         lib.partial_sum_launch.restype = _I
-        lib.conv3x3_wgrad_probe_launch.argtypes = [_P, _P] + [_I] * 8 + [_P]
+        lib.conv3x3_wgrad_probe_launch.argtypes = [_P, _P] + [_I] * 10 + [_P]
         lib.conv3x3_wgrad_probe_launch.restype = _I
         _lib_wgrad = lib
     return _lib_wgrad
@@ -386,16 +386,18 @@ class WgradTmaPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_tma_plan(cin: int, cout: int, n: int, h: int,
-                   w_img: int) -> WgradTmaPlan:
-    """``conv3x3_wgrad``'s tiles and splits: BN = 160 where Cout % 160 ==
-    0, else 128, or 64 up to Cout = 64 (the fused forward's rule,
+def wgrad_tma_plan(cin: int, cout: int, n: int, h: int, w_img: int,
+                   taps: int = 9) -> WgradTmaPlan:
+    """``conv3x3_wgrad``'s tiles and splits (and the lane transition's,
+    ``transition.wgrad_tma_plan``, whose dWp has one tap): dW [taps * Cin,
+    Cout] in tiles of 128 x BN, BN = 160 where Cout % 160 == 0, else 128,
+    or 64 up to Cout = 64 (the fused forward's rule,
     csrc/fwd_wgmma_bf16.cuh); the splits of the K steps by the staged
     wgrads' cost model of waves of blocks (``wgrad_plan.split_plan``), at
     one block an SM. Cached: every call of the wgrad asks."""
     check_wgrad_geometry("wgrad_tma_plan", cin, n, h, w_img)
     bn = 160 if cout % 160 == 0 else (128 if cout > 64 else 64)
-    sp = split_plan(9 * cin, cout, 1, n // WG_BK, WG_BK, bn=bn,
+    sp = split_plan(taps * cin, cout, 1, n // WG_BK, WG_BK, bn=bn,
                     slots=WG_SLOTS)
     return WgradTmaPlan(bn, sp.m_tiles, sp.n_tiles, sp.steps, sp.per,
                         sp.splits)
@@ -435,19 +437,24 @@ def conv3x3_wgrad(x_cs, dy_cs, *, h: int, w_img: int) -> torch.Tensor:
 
 
 def tma_box_probe(t, *, h: int, w_img: int, dy: bool, at: Tuple[int, int],
-                  bn: int = 64) -> Tuple[torch.Tensor, bool]:
-    """One TMA load of t [C, N] bf16 (h x w_img images) through the map
-    ``conv3x3_wgrad``'s kernel reads x with (``dy`` False: positions from
-    ``at[0]`` of image ``at[1]``, channels 0-31; 64 positions, 80 where W
-    >= 64, unswizzled) or dy with (``dy`` True: 64 positions from
-    ``at[0]`` of ``bn`` channels from ``at[1]``, in the 128-byte swizzle),
-    into 1024-byte-aligned, zeroed shared memory: the box's bytes as they
-    landed (uint8 on t's card), and whether they completed the barrier's
-    transaction (the wait is bounded). No part of the gradient: the card
-    tests hold the two layouts to the ones the mainloop assumes."""
+                  bn: int = 64, plane: int = 0) -> Tuple[torch.Tensor, bool]:
+    """One TMA load of t [C, N] bf16 (h x w_img images; for x's map also
+    [planes, C, N], as the lane transition's wgrad reads its parity
+    planes) through the map ``conv3x3_wgrad``'s kernel (csrc/
+    wgrad_wgmma_bf16.cuh) reads x with (``dy`` False: positions from
+    ``at[0]`` of image ``at[1]`` of plane ``plane``, channels 0-31; 64
+    positions, 80 where W >= 64, unswizzled) or dy with (``dy`` True: 64
+    positions from ``at[0]`` of ``bn`` channels from ``at[1]``, in the
+    128-byte swizzle), into 1024-byte-aligned, zeroed shared memory: the
+    box's bytes as they landed (uint8 on t's card), and whether they
+    completed the barrier's transaction (the wait is bounded). No part of
+    the gradient: the card tests hold the layouts to the ones the mainloop
+    assumes."""
     name = "conv3x3_wgrad.probe"
     require_cuda(name, [t], [torch.bfloat16])
-    c, n = t.shape
+    planes, c, n = (1, *t.shape) if t.dim() == 2 else t.shape
+    if dy and planes != 1:
+        raise ValueError(f"{name}: dy's map takes [C, N]")
     if at[0] % 8:
         raise ValueError(f"{name}: position {at[0]} is not a multiple of 8 "
                          f"(TMA's 16 bytes)")
@@ -456,8 +463,8 @@ def tma_box_probe(t, *, h: int, w_img: int, dy: bool, at: Tuple[int, int],
     out = torch.empty(nbytes + 1, dtype=torch.uint8, device=t.device)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     check_rc(name, _library_wgrad().conv3x3_wgrad_probe_launch(
-        t.data_ptr(), out.data_ptr(), c, n, h, w_img, int(dy), bn, at[0],
-        at[1], stream))
+        t.data_ptr(), out.data_ptr(), planes, c, n, h, w_img, int(dy), bn,
+        at[0], at[1], plane, stream))
     launches[name] += 1
     return out[:nbytes], bool(out[nbytes].item())
 

@@ -12,10 +12,10 @@
 // What bounds it on an H100, and the design: wgrad_wgmma_bf16.cuh (TMA
 // reads x and dy where they lie, x at each tap's row with zero fill at the
 // border; a shifter warpgroup moves x by each tap's column; a wgmma
-// mainloop; f32 split tiles). This file encodes the two tensor maps on the
-// host, with cuTensorMapEncodeTiled looked up at run time through the CUDA
-// runtime's entry-point query (so the library links no libcuda), and
-// passes them by value as __grid_constant__ kernel parameters.
+// mainloop; f32 split tiles), on one plane of x with tap (dh, dw) moved by
+// dh - 1 rows and dw - 1 columns. The header encodes the two tensor maps on
+// the host and passes them by value as __grid_constant__ kernel
+// parameters.
 //
 // conv3x3_wgrad_probe_launch is no part of the gradient: it loads one box
 // through the map the kernel reads x or dy with and copies the shared
@@ -39,74 +39,14 @@ cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 // Names the ordered sum's kernel in a profile.
 struct WgradTmaSum {};
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of t [c, n = b * h * wi] bf16 viewed (HW, B, C), innermost
-// first, in boxes of x's staged rows: the step's 64 positions (80 from 8
-// before where W >= 64) of 32 channels, unswizzled. Out-of-bounds elements
-// read as zero. Returns false where the encoder is missing or refuses.
-bool encode_x(CUtensorMap* map, const void* t, int c, int n, int h, int wi) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr || wi < 1 || h < 1 || n % (h * wi)) return false;
-  const cuuint64_t hw = (cuuint64_t)h * wi;
-  const cuuint64_t dims[3] = {hw, n / hw, (cuuint64_t)c};
-  const cuuint64_t strides[2] = {2ull * hw, 2ull * n};
-  const cuuint32_t box[3] = {
-      (cuuint32_t)(wi >= wg::BK ? wg::XROW / 2 : wg::BK), 1u,
-      (cuuint32_t)wg::PIECE};
-  const cuuint32_t unit[3] = {1u, 1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The map of t [c, n] bf16 viewed (N, C), in boxes of dy's rows: 64
-// positions of bn channels, in the 128-byte swizzle.
-bool encode_dy(CUtensorMap* map, const void* t, int c, int n, int bn) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)c};
-  const cuuint64_t strides[1] = {2ull * n};
-  const cuuint32_t box[2] = {(cuuint32_t)wg::BK, (cuuint32_t)bn};
-  const cuuint32_t unit[2] = {1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// One box of `map` (x's map where dy is 0, dy's where 1) at (x0, y0[, 0])
-// into zeroed shared memory, then its `bytes` bytes to out as they lie,
-// and at out[bytes] 1 if the barrier saw them land, 0 if it gave up
+// One box of `map` (x's map where dy is 0, dy's where 1) at (x0, y0[,
+// row0]) into zeroed shared memory, then its `bytes` bytes to out as they
+// lie, and at out[bytes] 1 if the barrier saw them land, 0 if it gave up
 // waiting. The wait is bounded, so that a box whose bytes are not `bytes`
 // cannot hang the card.
 __global__ void tma_probe_kernel(const __grid_constant__ CUtensorMap map,
                                  int dy, unsigned char* out, int bytes,
-                                 int x0, int y0) {
+                                 int x0, int y0, int row0) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t pad = (wg::ALIGN - raw % wg::ALIGN) % wg::ALIGN;
@@ -126,7 +66,7 @@ __global__ void tma_probe_kernel(const __grid_constant__ CUtensorMap map,
     if (dy)
       wg::tma_load_2d(raw + pad, &map, bar, x0, y0);
     else
-      wg::tma_load_3d(raw + pad, &map, bar, x0, y0, 0);
+      wg::tma_load_3d(raw + pad, &map, bar, x0, y0, row0);
   }
   uint32_t done = 0;
   for (int spin = 0; spin < (1 << 20) && !done; ++spin)
@@ -152,13 +92,15 @@ extern "C" {
 int conv3x3_wgrad_launch(const void* x, const void* dy, void* part, int cin,
                          int cout, int n, int h, int wi, int bn, int per,
                          int splits, void* stream) {
-  CUtensorMap tx, tdy;
-  if (!encode_x(&tx, x, cin, n, h, wi) || !encode_dy(&tdy, dy, cout, n, bn))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const wg::Args p{static_cast<float*>(part), cin, cout, wi, h * wi,
-                   n / wg::BK, per};
-  return static_cast<int>(wg::launch(tx, tdy, p, bn, splits,
-                                     as_stream(stream)));
+  int tab[3 * 9];  // tap (dh, dw): plane 0, dh - 1 rows, dw - 1 columns
+  for (int t = 0; t < 9; ++t) {
+    tab[3 * t] = 0;
+    tab[3 * t + 1] = t / 3 - 1;
+    tab[3 * t + 2] = t % 3 - 1;
+  }
+  return static_cast<int>(wg::launch_taps(
+      x, 1, dy, static_cast<float*>(part), tab, 9, cin, cout, n, h, wi, bn,
+      per, splits, as_stream(stream)));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)
@@ -169,25 +111,27 @@ int partial_sum_launch(const void* part, void* out, int j, int m,
                                           as_stream(stream));
 }
 
-// One box of t [c, n] bf16 (h x wi images) through the map the kernel
-// reads x with (dy = 0: box at position x0 of image y0, channels from 0)
-// or dy with (dy = 1: box of bn channels at position x0, channel y0),
-// loaded into zeroed, 1024-byte-aligned shared memory: the box's bytes to
-// out as they landed, then a byte: 1 if they completed the barrier.
-int conv3x3_wgrad_probe_launch(const void* t, void* out, int c, int n, int h,
-                               int wi, int dy, int bn, int x0, int y0,
-                               void* stream) {
+// One box of t [planes][c][n] bf16 (h x wi images) through the map the
+// kernels read x with (dy = 0: box at position x0 of image y0 of plane
+// `plane`, channels from 0) or of t [c][n] through dy's (dy = 1: box of bn
+// channels at position x0, channel y0), loaded into zeroed,
+// 1024-byte-aligned shared memory: the box's bytes to out as they landed,
+// then a byte: 1 if they completed the barrier.
+int conv3x3_wgrad_probe_launch(const void* t, void* out, int planes, int c,
+                               int n, int h, int wi, int dy, int bn, int x0,
+                               int y0, int plane, void* stream) {
   CUtensorMap map;
   const int bytes = dy ? 2 * wg::BK * bn
                        : 2 * (wi >= wg::BK ? wg::XROW / 2 : wg::BK) * wg::PIECE;
-  if (!(dy ? encode_dy(&map, t, c, n, bn) : encode_x(&map, t, c, n, h, wi)))
+  if (!(dy ? wg::encode_dy(&map, t, c, n, bn)
+           : wg::encode_x(&map, t, planes * c, n, h, wi)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = bytes + wg::ALIGN;
   cudaError_t err = cudaFuncSetAttribute(
       tma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   tma_probe_kernel<<<1, 256, smem, as_stream(stream)>>>(
-      map, dy, static_cast<unsigned char*>(out), bytes, x0, y0);
+      map, dy, static_cast<unsigned char*>(out), bytes, x0, y0, plane * c);
   return static_cast<int>(cudaGetLastError());
 }
 

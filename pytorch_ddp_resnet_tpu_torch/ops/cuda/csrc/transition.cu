@@ -10,12 +10,15 @@
 //                             four parity planes, their quantization, the
 //                             int8 stride-2 conv, the shortcut and the sums
 //   bwd_amax, bwd_quant    <- the cotangent fold and the per-tile
-//                             quantizers of _bwd_kernel (site :619, FQT)
+//                             quantizers of _bwd_kernel (site :619, FQT);
+//                             bwd_quant also writes x's even-even plane
 //   bwd_fold               <- its straight-through cotangent fold and bf16
-//                             prologue recomputation
+//                             prologue recomputation (as parity planes),
+//                             and the even-even plane of x for dWp
 //   dgrad_launch           <- its per-plane dgrad, masks, norm1 chain,
 //                             shortcut cotangent and d(scale)/d(shift)
-//   wgrad_launch           <- its wgrad (both bodies) and dWp
+//   wgrad_launch           <- its FQT wgrad (transition_wgrad.cu: the
+//                             straight-through wgrad and dWp)
 //   partial_sum            <- the TPU kernels' sums carried across their
 //                             sequential grid
 //
@@ -71,16 +74,19 @@
 //   adds the shortcut's cotangent on class 0 (a second bf16 contraction
 //   of Wp^T @ dres, or dres itself for option A) and sums d(scale) and
 //   d(shift).
-// - The wgrad is a GEMM over output positions, dW[co, (tap, ci)] =
+// - The FQT wgrad is a GEMM over output positions, dW[co, (tap, ci)] =
 //   sum_p g[co, p] * d[ci, src(p, tap)]: a block owns 64 output channels
 //   x (taps x 32 input channels) and walks its span of positions in
 //   chunks, staging g and gathering the taps' source values (the int8 d
-//   of the FQT quantizer, the bf16 d of the straight-through fold, or the
-//   raw even-even x for dWp) through a per-chunk table of each (tap,
+//   of the FQT quantizer) through a per-chunk table of each (tap,
 //   position)'s source lane, zero outside the image. Each span's f32 tile
-//   goes to its slot of a partial buffer (FQT: one span per scale group,
-//   its s32 sum times the group's scale) and partial_sum adds the slots
-//   in order.
+//   goes to its slot of a partial buffer (one span per scale group, its
+//   s32 sum times the group's scale) and partial_sum adds the slots in
+//   order.
+// - The straight-through wgrad and dWp run in transition_wgrad.cu on
+//   wgrad_wgmma_bf16.cuh (TMA + wgmma), on the parity planes of d and the
+//   even-even plane of x that bwd_fold_kernel writes (and, for dWp in the
+//   FQT body, bwd_quant_kernel).
 //
 // Scale groups: the quantizers take one absmax per group of whole images
 // (the reference's transition_tile of output lanes; 4x as many input
@@ -602,30 +608,102 @@ int launch_gemm(const GemmArgs& a, int tiles, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- the straight-through fold (FQT quantizes through fused_half.cuh) -------
+// --- the backward's operand passes ------------------------------------------
 
-// The straight-through backward's two bf16 operands, 8 lanes per thread:
+// The input lane of output lane q's pixel at row parity ph, column parity
+// 0 (output rows of ow pixels, images of h x w input pixels).
+__device__ __forceinline__ int in_pos(int q, int ph, int h, int w) {
+  const int ow = w / 2, ohw = (h / 2) * ow;
+  const int img = q / ohw, rem = q - img * ohw, r = rem / ow;
+  return img * h * w + (2 * r + ph) * w + 2 * (rem - r * ow);
+}
+
+// The 8 even lanes of x[off, off + 16) (bf16, 16-byte aligned).
+__device__ __forceinline__ uint4 even16(const bf16* x, size_t off) {
+  const uint4 a = *reinterpret_cast<const uint4*>(x + off);
+  const uint4 b = *reinterpret_cast<const uint4*>(x + off + 8);
+  return make_uint4(__byte_perm(a.x, a.y, 0x5410),
+                    __byte_perm(a.z, a.w, 0x5410),
+                    __byte_perm(b.x, b.y, 0x5410),
+                    __byte_perm(b.z, b.w, 0x5410));
+}
+
+// The straight-through backward's bf16 operands, 8 output lanes a thread
+// (output rows of ow % 8 == 0 pixels, so 8 lanes lie in one row):
 // blockIdx.y = 0: g = bf16((dz + dzsum) + (2z) * dzssq) [cout, n_out];
-// 1: the prologue d [cin, 4 * n_out]
+// 1: the prologue d of the 16 input pixels of row parity ph under them,
+// its even columns into parity plane 2 ph and its odd ones into 2 ph + 1
+// of d [4][cin][n_out] (ops/cuda/transition.py parity_planes), and for ph
+// = 0 the raw x of the even columns into x_ee [cin][n_out].
 __global__ void bwd_fold_kernel(Cotangent ct, int cout, int n_out,
-                                Bf16Prologue pro, int cin,
-                                bf16* __restrict__ g, bf16* __restrict__ d) {
-  const int n = blockIdx.y == 0 ? n_out : 4 * n_out;
-  const int rows = blockIdx.y == 0 ? cout : cin;
-  for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
-       u < (long)rows * (n / 8); u += (long)gridDim.x * blockDim.x) {
-    const int row = (int)(u / (n / 8));
-    const size_t off = (size_t)(u % (n / 8)) * 8;
-    bf16 o[8];
+                                Bf16Prologue pro, int cin, int h, int w,
+                                bf16* __restrict__ g, bf16* __restrict__ d,
+                                bf16* __restrict__ x_ee) {
+  const long per = n_out / 8;
+  const long units = blockIdx.y == 0 ? cout * per : 2 * cin * per;
+  for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += (long)gridDim.x * blockDim.x) {
     if (blockIdx.y == 0) {
+      const int row = (int)(u / per);
+      const size_t off = (size_t)(u % per) * 8;
       float v[8];
-      ct(row, n, off, v);
+      ct(row, n_out, off, v);
+      bf16 o[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
-      *reinterpret_cast<uint4*>(g + (size_t)row * n + off) = pack8(o);
-    } else {
-      pro(row, (int)off, o);
-      *reinterpret_cast<uint4*>(d + (size_t)row * n + off) = pack8(o);
+      *reinterpret_cast<uint4*>(g + (size_t)row * n_out + off) = pack8(o);
+      continue;
+    }
+    const int ci = (int)(u / (2 * per));
+    const long rem = u - (long)ci * 2 * per;
+    const int ph = (int)(rem / per);
+    const int q = (int)(rem - ph * per) * 8;
+    const int pos = in_pos(q, ph, h, w);
+    bf16 a[8], b[8], e[8], o[8];
+    pro(ci, pos, a);
+    pro(ci, pos + 8, b);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      e[k] = a[2 * k];
+      o[k] = a[2 * k + 1];
+      e[4 + k] = b[2 * k];
+      o[4 + k] = b[2 * k + 1];
+    }
+    const size_t at = ((size_t)2 * ph * cin + ci) * n_out + q;
+    *reinterpret_cast<uint4*>(d + at) = pack8(e);
+    *reinterpret_cast<uint4*>(d + at + (size_t)cin * n_out) = pack8(o);
+    if (ph == 0)
+      *reinterpret_cast<uint4*>(x_ee + (size_t)ci * n_out + q) =
+          even16(pro.x, (size_t)ci * 4 * n_out + pos);
+  }
+}
+
+// The FQT quantizers of fused_half.cuh (blockIdx.z 0: the folded
+// cotangent, 1: the recomputed activation), and in the same launch (z = 2)
+// the raw even-even plane of x [cin, 4 * n_out] into x_ee [cin][n_out] for
+// dWp, walking the cotangent's scale groups (8 output lanes a unit, ow % 8
+// == 0).
+template <typename Fn0, typename Fn1>
+__global__ void __launch_bounds__(256)
+bwd_quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0,
+                 Fn1 fn1, int rows1, GroupWalk walk1, QuantOut out1,
+                 const float* __restrict__ part, int h, int w,
+                 bf16* __restrict__ x_ee) {
+  const int groups = gridDim.y;
+  if (blockIdx.z == 0) {
+    fused_half::quant_body(fn0, rows0, walk0, part, out0.floor, out0.q,
+                           out0.amax, out0.copy);
+  } else if (blockIdx.z == 1) {
+    fused_half::quant_body(fn1, rows1, walk1, part + groups * walk0.slices,
+                           out1.floor, out1.q, out1.amax, out1.copy);
+  } else {
+    for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
+         u < walk0.units(rows1); u += (long)walk0.slices * blockDim.x) {
+      int ci;
+      size_t q;
+      walk0.at(u, blockIdx.y, ci, q);
+      *reinterpret_cast<uint4*>(x_ee + (size_t)ci * walk0.n + q) = even16(
+          fn1.x, (size_t)ci * walk1.n + in_pos((int)q, 0, h, w));
     }
   }
 }
@@ -757,10 +835,10 @@ constexpr int WG_KB = 128;           // bytes of positions per staged chunk
 constexpr int WG_PITCH = WG_KB + 16;  // bytes per staged row
 
 // NTAPS = 9: the 3x3 taps; 1: the projection's (dh, dw) = (1, 1). a is
-// the cotangent [cout, n_out] (g or dres), b the operand the taps read at
-// the input geometry [cin, 4 * n_out] (int8 d, the bf16 prologue d, or the
-// raw x of the projection). part[span][cout][NTAPS * cin]; FQT (T =
+// the cotangent [cout, n_out], b the operand the taps read at the input
+// geometry [cin, 4 * n_out]. part[span][cout][NTAPS * cin]; FQT (T =
 // int8): one span per scale group, scaled by (d_amax * g_amax) / 127^2.
+// Instantiated for the FQT body only (signed char, 9).
 template <typename T, int NTAPS>
 __global__ void __launch_bounds__(THREADS)
 wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b,
@@ -1055,14 +1133,18 @@ int bwd_amax_launch(const void* dz, const void* z, const void* dzsum,
 }
 
 // g_q [cout, n_out], d_q [cin, 4 * n_out] int8; g_amax, d_amax
-// [n_out / tile] f32; floor 1e-30.
+// [n_out / tile] f32; floor 1e-30; x_ee [cin][n_out] bf16, the raw x at
+// the even-even pixels (images of h x w, w % 16 == 0).
 int bwd_quant_launch(const void* dz, const void* z, const void* dzsum,
                      const void* dzssq, const void* x, const void* scale,
                      const void* shift, const void* bits, const void* part,
                      void* g_q, void* d_q, void* g_amax, void* d_amax,
-                     int cout, int cin, int n_out, int tile, int slices,
-                     int thresh, float keep, void* stream) {
+                     void* x_ee, int cout, int cin, int n_out, int tile,
+                     int slices, int h, int w, int thresh, float keep,
+                     void* stream) {
   const int n = 4 * n_out;
+  if (w % 16 || h % 2 || n % (h * w) || tile % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
                      DropBits{in<unsigned char>(bits), nullptr, n}, thresh,
                      keep};
@@ -1070,29 +1152,33 @@ int bwd_quant_launch(const void* dz, const void* z, const void* dzsum,
                        static_cast<float*>(g_amax), nullptr};
   const QuantOut d_out{kBwdFloor, static_cast<signed char*>(d_q),
                        static_cast<float*>(d_amax), nullptr};
-  fused_half::quant_kernel<<<dim3(slices, n_out / tile, 2), 256, 0,
-                             as_stream(stream)>>>(
+  bwd_quant_kernel<<<dim3(slices, n_out / tile, 3), 256, 0,
+                     as_stream(stream)>>>(
       cotangent(dz, z, dzsum, dzssq), cout, GroupWalk{n_out, tile, slices},
       g_out, pro, cin, GroupWalk{n, 4 * tile, slices}, d_out,
-      in<float>(part));
+      in<float>(part), h, w, static_cast<bf16*>(x_ee));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The straight-through operands: g [cout, n_out] bf16 = bf16((dz + dzsum)
-// + (2z) * dzssq), d [cin, 4 * n_out] bf16 = the bf16 prologue of x (bits
-// [cin, 4 * n_out] uint8 or null); n_out % 8 == 0.
+// + (2z) * dzssq), d [4][cin][n_out] bf16 = the bf16 prologue of x (bits
+// [cin, 4 * n_out] uint8 or null) as its parity planes at the output
+// geometry, x_ee [cin][n_out] bf16 = x at the even-even pixels; images of
+// h x w, w % 16 == 0 (output rows of 8-pixel multiples).
 int bwd_fold_launch(const void* dz, const void* z, const void* dzsum,
                     const void* dzssq, const void* x, const void* scale,
                     const void* shift, const void* bits, void* g, void* d,
-                    int cout, int cin, int n_out, int thresh, float keep,
-                    void* stream) {
+                    void* x_ee, int cout, int cin, int n_out, int h, int w,
+                    int thresh, float keep, void* stream) {
+  if (w % 16 || h % 2 || (4 * n_out) % (h * w))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Bf16Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
                          DropBits{in<unsigned char>(bits), nullptr,
                                   4 * n_out},
                          thresh, keep, 4 * n_out};
   bwd_fold_kernel<<<dim3(528, 2), 256, 0, as_stream(stream)>>>(
-      cotangent(dz, z, dzsum, dzssq), cout, n_out, pro, cin,
-      static_cast<bf16*>(g), static_cast<bf16*>(d));
+      cotangent(dz, z, dzsum, dzssq), cout, n_out, pro, cin, h, w,
+      static_cast<bf16*>(g), static_cast<bf16*>(d), static_cast<bf16*>(x_ee));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1131,33 +1217,16 @@ int dgrad_launch(const void* g, const void* w_dg, const void* g_amax,
   }
 }
 
-// mode 0 (FQT): a = g_q [cout, n_out] int8, b = d_q [cin, 4 * n_out]
-// int8, g_amax/d_amax [spans] (one span per scale group); mode 1
-// (straight-through): a = g, b = d, both bf16; part [spans][cout][9 *
-// cin]. mode 2 (dWp): a = dres, b = x, both bf16; part [spans][cout][cin].
-// cin % 32 == 0, w % 2 == 0, n_out a multiple of spans * (128 positions
-// for int8, 64 for bf16).
-int wgrad_launch(const void* a, const void* b, const void* g_amax,
-                 const void* d_amax, void* part, int mode, int cout, int cin,
-                 int n_out, int h, int w, int spans, void* stream) {
-  float* out = static_cast<float*>(part);
-  const cudaStream_t st = as_stream(stream);
-  switch (mode) {
-    case 0:
-      return launch_wgrad<signed char, 9>(
-          in<signed char>(a), in<signed char>(b), in<float>(g_amax),
-          in<float>(d_amax), out, cout, cin, n_out, h, w, spans, st);
-    case 1:
-      return launch_wgrad<bf16, 9>(in<bf16>(a), in<bf16>(b), nullptr,
-                                   nullptr, out, cout, cin, n_out, h, w,
-                                   spans, st);
-    case 2:
-      return launch_wgrad<bf16, 1>(in<bf16>(a), in<bf16>(b), nullptr,
-                                   nullptr, out, cout, cin, n_out, h, w,
-                                   spans, st);
-    default:
-      return -1;
-  }
+// The FQT wgrad: g_q [cout, n_out] int8, d_q [cin, 4 * n_out] int8,
+// g_amax/d_amax [spans] (one span per scale group); part [spans][cout][9 *
+// cin]. cin % 32 == 0, w % 2 == 0, n_out a multiple of spans * 128.
+int wgrad_launch(const void* g_q, const void* d_q, const void* g_amax,
+                 const void* d_amax, void* part, int cout, int cin, int n_out,
+                 int h, int w, int spans, void* stream) {
+  return launch_wgrad<signed char, 9>(
+      in<signed char>(g_q), in<signed char>(d_q), in<float>(g_amax),
+      in<float>(d_amax), static_cast<float*>(part), cout, cin, n_out, h, w,
+      spans, as_stream(stream));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

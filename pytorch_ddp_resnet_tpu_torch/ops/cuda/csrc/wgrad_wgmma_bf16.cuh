@@ -1,46 +1,57 @@
-// The bf16 weight gradient of a stride-1 SAME 3x3 convolution in the
+// The bf16 weight gradient of a 3x3 convolution whose every tap reads one
+// plane of x at a shift of at most one row and one column, in the
 // channel-major layout [C, B*H*W], written for Hopper (sm_90a): TMA reads x
-// and dy where they lie into a warp-specialized wgmma mainloop.
+// and dy where they lie into a warp-specialized wgmma mainloop. Two users:
+// - conv3x3_same's stride-1 SAME wgrad (conv3x3_wgrad.cu): one plane, tap
+//   (dh, dw) moved by dh - 1 rows and dw - 1 columns;
+// - the lane transition's stride-2 wgrad and its projection's (dWp)
+//   (transition_wgrad.cu): x is the prologue d as its four parity planes at
+//   the output geometry, tap (dh, dw) reads plane 2 [dh != 1] + [dw != 1]
+//   one row up where dh = 0 and one column left where dw = 0 (the JAX
+//   kernel's _tap_info); dWp is one tap of the raw even-even plane.
 //
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/conv.py:412,
-// conv3x3_wgrad_lanes -> _wgrad_kernel): the TPU kernel builds each lane
-// tile's patches in VMEM with rolls and masks and contracts them with dy on
-// the MXU, carrying dW across its sequential grid. Here one GEMM over
-// positions,
-//   dW[(tap, ci), co] = sum_p x[ci, p + shift(tap)] * mask * dy[co, p],
-//   M = 9 * Cin rows in (tap, ci) order, N = Cout, K = positions,
-// and both operands, x [Cin, N] and dy [Cout, N], are already K-major for
-// it: positions are contiguous. No prepass writes a slab.
+// conv3x3_wgrad_lanes -> _wgrad_kernel; ops/pallas/transition.py:619,
+// _bwd_kernel's wgrad and dWp): the TPU kernels build each lane tile's
+// patches in VMEM with rolls and masks (from the parity planes at stride 2)
+// and contract them with dy on the MXU, carrying dW across their
+// sequential grid. Here one GEMM over positions,
+//   dW[(tap, ci), co] = sum_p x[plane(tap)][ci, p + shift(tap)] * dy[co, p],
+//   M = taps * Cin rows in (tap, ci) order, N = Cout, K = positions,
+// and both operands, x [planes][Cin, N] and dy [Cout, N], are already
+// K-major for it: positions are contiguous. No prepass writes a slab.
 //
-// What bounds it on an H100: operations (2 * 9 * Cin * Cout * N: 60.4 GFLOP
-// a call at each WRN-28-10 stage, batch 128, 0.061 ms at 989 TFLOP/s; x, dy
-// and dW are 85-92 MB, 0.027 ms at 3.35 TB/s). What the design does about
-// it: the product is wgmma.mma_async m64nBNk16 f32 += bf16 * bf16 from
-// K-major, 128-byte-swizzled shared memory, fed by TMA and an mbarrier
-// ring, so that copies and MMAs overlap.
+// What bounds it on an H100: operations (conv3x3_same: 2 * 9 * Cin * Cout
+// * N, 60.4 GFLOP a call at each WRN-28-10 stage, batch 128, 0.061 ms at
+// 989 TFLOP/s; the transition: 30.2 GFLOP, and 3.4 for dWp). What the
+// design does about it: the product is wgmma.mma_async m64nBNk16 f32 +=
+// bf16 * bf16 from K-major, 128-byte-swizzled shared memory, fed by TMA
+// and an mbarrier ring, so that copies and MMAs overlap.
 // - What TMA can and cannot do here (settled on the card with a probe of
 //   boxes in each swizzle while this kernel was designed; the card test
-//   test_tma_swizzle_probe keeps holding the two layouts read below to
+//   test_tma_swizzle_probe keeps holding the layouts read below to
 //   conv3x3_wgrad_probe_launch): an innermost coordinate must be a multiple
 //   of 16 bytes (a box at column +-1 stops the kernel with an illegal
-//   instruction), so TMA cannot make the dw shift of a tap; a box whose
+//   instruction), so TMA cannot make a tap's column shift; a box whose
 //   rows are narrower than its swizzle lands each row on a line of the
 //   swizzle's width; and boxes of narrow rows are slow (rows of 16 bytes
 //   held a first version of this kernel to 146 TFLOP/s at W = 8).
-// - So TMA moves 128-byte rows and the dw shift is a copy in shared memory.
-//   A K step is 64 positions of one image: 64 / W whole rows (W = 8, 16,
-//   32; H a multiple of 64 / W) or 64 columns of one row (W a multiple of
-//   64). x is viewed as (HW, B, C), innermost first: for each 32-channel
-//   piece of A (32 rows of one tap; a 128-row M tile is four, and may
-//   straddle taps, as at Cin = 160) one box stages the step's 64 positions
-//   moved by (dh - 1) W, unswizzled; positions before the image's first or
-//   past its last read as zeros, which is the SAME border in h. Where W >=
-//   64 the box is 80 positions from 8 before the step, so that the step's
-//   neighbours ride along. A shifter warpgroup copies each 16-byte piece of
-//   each staged row into the A tile, moved by dw - 1 positions (a funnel
-//   shift with its neighbour, zero at the image's side), at the 128-byte
-//   swizzle's place. dy, viewed as (N, C), needs no shift: one box a step
-//   of BN rows of 128 bytes lands in the 128-byte swizzle as it is.
+// - So TMA moves 128-byte rows and the column shift is a copy in shared
+//   memory. A K step is 64 positions of one image: 64 / W whole rows (W =
+//   8, 16, 32; H a multiple of 64 / W) or 64 columns of one row (W a
+//   multiple of 64). x is viewed as (HW, B, planes * C), innermost first
+//   (plane p's channel c is row p * C + c): for each 32-channel piece of A
+//   (32 rows of one tap; a 128-row M tile is four, and may straddle taps,
+//   as at Cin = 160) one box stages the step's 64 positions of the tap's
+//   plane moved by its row shift times W, unswizzled; positions before the
+//   image's first or past its last read as zeros, which is the border in
+//   h. Where W >= 64 the box is 80 positions from 8 before the step, so
+//   that the step's neighbours ride along. A shifter warpgroup copies each
+//   16-byte piece of each staged row into the A tile, moved by the tap's
+//   column shift (a funnel shift with its neighbour, zero at the image's
+//   side), at the 128-byte swizzle's place. dy, viewed as (N, C), needs no
+//   shift: one box a step of BN rows of 128 bytes lands in the 128-byte
+//   swizzle as it is.
 // - Pipeline, a ring of STAGES slots (A, B, staged x), three mbarriers a
 //   slot: `load` (TMA's bytes, expect_tx by the producer warp), `full` (the
 //   128 shifters arrive after a fence.proxy.async that orders their
@@ -54,13 +65,14 @@
 //   thread would get (ptxas refused at 96), so the ring takes the shared
 //   memory instead (4 stages at BN = 160).
 // - Output: block (n tile, m tile, split) writes its f32 tile to
-//   part[split][9 * Cin][Cout] (JAX's HWIO order); common::partial_sum adds
-//   the splits in order. No atomics: dW is the same bit for bit every run.
+//   part[split][taps * Cin][Cout] (JAX's HWIO order for the 3x3s);
+//   common::partial_sum adds the splits in order. No atomics: dW is the
+//   same bit for bit every run.
 //
 // Left for later: persistent blocks, clusters and TMA multicast (each block
 // reads its boxes from L2 itself, and each x row once a tap), TMA straight
-// into A for the dw = 1 taps, one launch (the split tiles go to device
-// memory and a second kernel adds them).
+// into A for the taps without a column shift, one launch (the split tiles
+// go to device memory and a second kernel adds them).
 
 #pragma once
 
@@ -113,11 +125,17 @@ struct Tile {
   static_assert(X_OFF % ALIGN == 0 && STAGE_BYTES % ALIGN == 0, "atoms");
 };
 
+constexpr int MAX_TAPS = 9;
+
 struct Args {
-  float* part;     // [splits][9 * cin][cout] f32
+  float* part;     // [splits][taps * cin][cout] f32
   int cin, cout;   // cin % 32 == 0, cout % 8 == 0
   int wi, hw;      // image width, positions an image
   int steps, per;  // K steps in all, K steps a split (the last may have fewer)
+  int taps;        // M = taps * cin rows, in (tap, ci) order
+  // tap t reads x plane plane[t], moved by rs[t] rows and cs[t] columns
+  // (each -1, 0 or 1): x[plane][ci][(r + rs, c + cs)], zero off the image
+  int plane[MAX_TAPS], rs[MAX_TAPS], cs[MAX_TAPS];
 };
 
 // --- mbarriers and TMA ----------------------------------------------------
@@ -195,13 +213,14 @@ __device__ __forceinline__ uint4 shift8(uint4 v, int s, uint32_t side) {
   return v;
 }
 
-// Grid (ceil(cout / BN), ceil(9 * cin / BM), splits): block (x, y, z)
+// Grid (ceil(cout / BN), ceil(taps * cin / BM), splits): block (x, y, z)
 // computes output channels [x * BN, x * BN + BN) of dW rows [y * BM, y * BM
 // + BM) over the K steps of split z, and writes them to part[z]. tx: x as
-// (HW, B, C), boxes of 64 positions (80 where W >= 64) x 1 x 32 channels,
-// unswizzled; tdy: dy as (N, C), boxes of 64 positions x BN channels in
-// the 128-byte swizzle.
-template <int BN>
+// (HW, B, planes * C), boxes of 64 positions (80 where W >= 64) x 1 x 32
+// channels, unswizzled; tdy: dy as (N, C), boxes of 64 positions x BN
+// channels in the 128-byte swizzle. Tag names the user's instantiation in
+// a profile.
+template <int BN, typename Tag>
 __global__ void __launch_bounds__(THREADS, 1)
     wgrad_tma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tdy,
@@ -216,7 +235,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  empty = full + 8 * T::STAGES;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int m = 9 * p.cin, cpt = p.cin / PIECE;  // pieces a tap
+  const int m = p.taps * p.cin, cpt = p.cin / PIECE;  // pieces a tap
   const int live = min(BM, m - m0) / PIECE;      // pieces of A inside dW
   const int kt0 = blockIdx.z * p.per;
   const int nk = min(p.steps - kt0, p.per);
@@ -235,6 +254,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (tid >= CONSUMERS + SHIFTERS) {  // the producer warp: one thread
     if (tid == CONSUMERS + SHIFTERS) {
       const int bytes = live * PIECE * (wide ? XROW : ROW) + T::B_BYTES;
+      // each live piece's box: its tap's row shift in positions, and its
+      // first row of x (plane p's channel c is row p * cin + c)
+      int dpos[4], row[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int piece = m0 / PIECE + q;
+        const int tap = min(piece / cpt, p.taps - 1);
+        dpos[q] = p.rs[tap] * p.wi;
+        row[q] = p.plane[tap] * p.cin + (piece - tap * cpt) * PIECE;
+      }
       for (int i = 0; i < nk; ++i) {
         const int s = i % T::STAGES;
         const uint32_t st = ring + s * T::STAGE_BYTES, bar = load + 8 * s;
@@ -243,25 +272,25 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_arrive_tx(bar, bytes);
         const int pos = (kt0 + i) * BK, b = pos / p.hw;
         const int at = pos - b * p.hw - (wide ? 8 : 0);  // in the image
-        for (int q = 0; q < live; ++q) {
-          const int piece = m0 / PIECE + q, tap = piece / cpt;
-          tma_load_3d(st + T::X_OFF + q * XPIECE, &tx, bar,
-                      at + (tap / 3 - 1) * p.wi, b,
-                      (piece - tap * cpt) * PIECE);
-        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < live)
+            tma_load_3d(st + T::X_OFF + q * XPIECE, &tx, bar, at + dpos[q],
+                        b, row[q]);
         tma_load_2d(st + T::A_BYTES, &tdy, bar, pos, n0);
       }
     }
     return;
   }
 
-  if (tid >= CONSUMERS) {  // the shifters: staged x -> A, moved by dw - 1
+  if (tid >= CONSUMERS) {  // the shifters: staged x -> A, moved by cs[tap]
     const int u = tid - CONSUMERS, k8 = u % 8, rg = u / 8;
     // rows rg + 16 r of the tile, r < 8: piece r / 2, channel rg + 16 (r %
-    // 2); each piece's shift
+    // 2); each live piece's column shift
     int sh[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) sh[q] = (m0 / PIECE + q) / cpt % 3 - 1;
+    for (int q = 0; q < 4; ++q)
+      sh[q] = q < live ? p.cs[(m0 / PIECE + q) / cpt] : 0;
     for (int i = 0; i < nk; ++i) {
       const int s = i % T::STAGES;
       // this 16-byte piece's column, and whether it opens or ends a row
@@ -331,32 +360,128 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int BN>
+template <int BN, typename Tag>
 inline cudaError_t launch_tile(const CUtensorMap& tx, const CUtensorMap& tdy,
                                const Args& p, int splits,
                                cudaStream_t stream) {
   constexpr int smem = Tile<BN>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      wgrad_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_tma_kernel<BN, Tag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.cout + BN - 1) / BN, (9 * p.cin + BM - 1) / BM, splits);
-  wgrad_tma_kernel<BN><<<grid, THREADS, smem, stream>>>(tx, tdy, p);
+  const dim3 grid((p.cout + BN - 1) / BN, (p.taps * p.cin + BM - 1) / BM,
+                  splits);
+  wgrad_tma_kernel<BN, Tag><<<grid, THREADS, smem, stream>>>(tx, tdy, p);
   return cudaGetLastError();
 }
 
 // The mainloop on the maps of x and dy (see wgrad_tma_kernel), with a
 // bn-wide N tile (160, 128 or 64) and `splits` runs of p.per K steps.
+template <typename Tag>
 inline cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tdy,
                           const Args& p, int bn, int splits,
                           cudaStream_t stream) {
   if (p.cin % PIECE || p.cout % 8 || p.per < 1 || splits < 1 ||
-      splits > 65535 || (long)(splits - 1) * p.per >= p.steps)
+      splits > 65535 || (long)(splits - 1) * p.per >= p.steps ||
+      p.taps < 1 || p.taps > MAX_TAPS)
     return cudaErrorInvalidValue;
-  if (bn == 160) return launch_tile<160>(tx, tdy, p, splits, stream);
-  if (bn == 128) return launch_tile<128>(tx, tdy, p, splits, stream);
-  if (bn == 64) return launch_tile<64>(tx, tdy, p, splits, stream);
+  if (bn == 160) return launch_tile<160, Tag>(tx, tdy, p, splits, stream);
+  if (bn == 128) return launch_tile<128, Tag>(tx, tdy, p, splits, stream);
+  if (bn == 64) return launch_tile<64, Tag>(tx, tdy, p, splits, stream);
   return cudaErrorInvalidValue;
+}
+
+// --- the host side: tensor maps, and one call that encodes and launches ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query (so the library links no libcuda); null if missing.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of t [rows][n = b * h * wi] bf16 (the planes' channels, plane
+// after plane) viewed (HW, B, rows), innermost first, in boxes of x's
+// staged rows: the step's 64 positions (80 from 8 before where W >= 64)
+// of 32 rows, unswizzled. Out-of-bounds elements read as zero. Returns
+// false where the encoder is missing or refuses.
+inline bool encode_x(CUtensorMap* map, const void* t, int rows, int n, int h,
+                     int wi) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr || wi < 1 || h < 1 || n % (h * wi)) return false;
+  const cuuint64_t hw = (cuuint64_t)h * wi;
+  const cuuint64_t dims[3] = {hw, n / hw, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {2ull * hw, 2ull * n};
+  const cuuint32_t box[3] = {(cuuint32_t)(wi >= BK ? XROW / 2 : BK), 1u,
+                             (cuuint32_t)PIECE};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of t [c, n] bf16 viewed (N, C), in boxes of dy's rows: 64
+// positions of bn channels, in the 128-byte swizzle.
+inline bool encode_dy(CUtensorMap* map, const void* t, int c, int n, int bn) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)c};
+  const cuuint64_t strides[1] = {2ull * n};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)bn};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// dW of x [planes][cin][n] and dy [cout][n] bf16 (n = b * h * wi, 16-byte
+// aligned) into part [splits][taps * cin][cout] f32: tap t reads plane
+// tab[3 t], moved by tab[3 t + 1] rows and tab[3 t + 2] columns (host
+// memory); a bn-wide N tile, split s covering K steps [s * per, min(steps,
+// (s + 1) * per)) of 64 positions. Tag names the kernel in a profile.
+template <typename Tag = void>
+inline cudaError_t launch_taps(const void* x, int planes, const void* dy,
+                               float* part, const int* tab, int taps,
+                               int cin, int cout, int n, int h, int wi,
+                               int bn, int per, int splits,
+                               cudaStream_t stream) {
+  if (taps < 1 || taps > MAX_TAPS) return cudaErrorInvalidValue;
+  Args p{part, cin, cout, wi, h * wi, n / BK, per, taps, {}, {}, {}};
+  for (int t = 0; t < taps; ++t) {
+    p.plane[t] = tab[3 * t];
+    p.rs[t] = tab[3 * t + 1];
+    p.cs[t] = tab[3 * t + 2];
+    if (p.plane[t] < 0 || p.plane[t] >= planes || p.rs[t] < -1 ||
+        p.rs[t] > 1 || p.cs[t] < -1 || p.cs[t] > 1)
+      return cudaErrorInvalidValue;
+  }
+  CUtensorMap tx, tdy;
+  if (!encode_x(&tx, x, planes * cin, n, h, wi) ||
+      !encode_dy(&tdy, dy, cout, n, bn))
+    return cudaErrorInvalidValue;
+  return launch<Tag>(tx, tdy, p, bn, splits, stream);
 }
 
 }  // namespace wgrad_wgmma_bf16

@@ -39,10 +39,14 @@ The reference lays the input out as four parity planes, a TPU lane trick.
 The forward keeps them as a layout (``transition_fwd_layout``): each scale
 group's planes, padded with a zero row above and a zero column left of each
 image, position-major in an int8 slab, so that every tap of the stride-2
-conv is one position offset of a GEMM's A rows. The backward indexes the
-stride-2 taps directly; its only parity layout is the dropout bits'
-[4*Cin, N'] (plane-major rows, the reference's draw), re-laid once to
-[Cin, N] by ``parity_unpack``.
+conv is one position offset of a GEMM's A rows. The straight-through
+backward's fold writes the prologue d as its four planes, channel-major
+([4, Cin, N']), and x's even-even plane ([Cin, N'], also written by the
+FQT quantizer): every tap of the weight gradient then reads one plane at
+a shift of at most one row and one column (``TAP_TABLE``), and dWp one
+plane unshifted. The dgrad and the FQT wgrad index the stride-2 taps
+directly. The dropout bits' parity layout [4*Cin, N'] (plane-major rows,
+the reference's draw) is re-laid once to [Cin, N] by ``parity_unpack``.
 
 Layers of this module, each a CPU-or-card wrapper beside its plain version
 (a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
@@ -57,13 +61,18 @@ kernel of ``csrc/transition.cu`` or raises):
 - ``fwd_gemm``      (launches ``transition_fwd``, ``.sum``: the staged
   mainloop of ``csrc/fwd_staged_s8.cuh`` over the slabs, z, res and the
   ordered sums)
-- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT)
+- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT;
+  the quantizer also writes x's even-even plane)
 - ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
-  the rounded cotangent and the bf16 prologue)
+  the rounded cotangent, the bf16 prologue's parity planes and x's
+  even-even plane)
 - ``dgrad``         (launches ``transition_dgrad``, ``.sum``)
 - ``wgrad``         (launches ``transition_wgrad``, ``.sum``; FQT)
-- ``wgrad_bf16``    (launches ``transition_wgrad``, ``.sum``)
-- ``wgrad_proj``    (launches ``transition_wgrad.proj``, ``.proj_sum``)
+- ``wgrad_bf16``    (launches ``transition_wgrad_tma``, ``.sum``:
+  ``csrc/transition_wgrad.cu`` on the TMA + wgmma mainloop of
+  ``csrc/wgrad_wgmma_bf16.cuh``)
+- ``wgrad_proj``    (launches ``transition_wgrad_tma.proj``,
+  ``.proj_sum``: the same kernel, one tap)
 
 and ``transition_half_int8``, the differentiable op over them. Weights are
 the port's OIHW tensors: conv1 [Cout, Cin, 3, 3], the projection [Cout,
@@ -81,6 +90,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
+from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
     check_rc,
@@ -145,6 +155,12 @@ def _tap_plane(dh: int, dw: int) -> int:
 # the taps of each plane, row-major: the dgrad's weight blocks, in order
 PLANE_TAPS = tuple(tuple((dh, dw) for dh in range(3) for dw in range(3)
                          if _tap_plane(dh, dw) == p) for p in range(4))
+
+# (plane, row shift, column shift) of each tap (dh, dw), row-major: output
+# (r, c) of tap (dh, dw) reads plane (r + row shift, c + column shift),
+# zero off the image (JAX ``_tap_info``); the weight gradient's table
+TAP_TABLE = tuple((_tap_plane(dh, dw), -(dh == 0), -(dw == 0))
+                  for dh in range(3) for dw in range(3))
 
 
 def transition_tile(oh: int, ow: int, n_out: int, cin: int,
@@ -416,23 +432,29 @@ def fwd_gemm_plain(slab, ee, amax, w_q, ws, wp_c, lay):
 
 
 def bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *,
-                       thresh, tile):
+                       thresh, tile, h, w_img):
     """FQT operands per group: (g_q [Cout, N'], g_amax, d_q [Cin, N],
-    d_amax); the cotangent's groups are ``tile`` lanes, the activation's
-    ``4 * tile`` (the same images), both with floor 1e-30."""
+    d_amax, x_ee [Cin, N']); the cotangent's groups are ``tile`` lanes,
+    the activation's ``4 * tile`` (the same images), both with floor 1e-30;
+    x_ee is x at the even-even pixels (dWp's operand)."""
     gf = fb.fold_cotangent_plain(dz, z, dzsum, dzssq)
     g_q, g_amax = fb.quantize_groups_plain(gf, tile, fb.BWD_FLOOR)
     d_q, d_amax = fb.quantize_groups_plain(
         fb.prologue_plain(x, scale, shift, bits, thresh), 4 * tile,
         fb.BWD_FLOOR)
-    return g_q, g_amax, d_q, d_amax
+    return g_q, g_amax, d_q, d_amax, _even(x, h, w_img).contiguous()
 
 
-def bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh):
-    """The straight-through operands: g = round(gf) in dz's dtype and the
-    prologue d recomputed in x's dtype (``prologue_bf16_plain``)."""
+def bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
+                   h, w_img):
+    """The straight-through operands: g = round(gf) in dz's dtype, the
+    prologue d recomputed in x's dtype (``prologue_bf16_plain``) as its
+    parity planes [4, Cin, N'] (``parity_planes``), and x at the even-even
+    pixels [Cin, N']."""
+    d = fb.prologue_bf16_plain(x, scale, shift, bits, thresh)
     return (fb.fold_cotangent_plain(dz, z, dzsum, dzssq).to(dz.dtype),
-            fb.prologue_bf16_plain(x, scale, shift, bits, thresh))
+            torch.stack(parity_planes(d, h, w_img)),
+            _even(x, h, w_img).contiguous())
 
 
 def dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
@@ -485,21 +507,36 @@ def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
 
 
 def wgrad_bf16_plain(g, d, *, h, w_img):
-    """Straight-through dW [Cout, 9*Cin] f32: the rounded cotangent
-    against the recomputed prologue d, over every position."""
-    return _wgrad_f64(g, d, h, w_img).to(_F32)
+    """Straight-through dW [3, 3, Cin, Cout] f32 (HWIO, the layout the
+    kernel writes): the rounded cotangent g [Cout, N'] against the
+    prologue's parity planes d [4, Cin, N'] of ``bwd_fold``, each tap its
+    plane at its shift (``TAP_TABLE``), summed in float64 over every output
+    position (h x w_img: the input geometry)."""
+    cout, n_out = g.shape
+    cin = d.shape[1]
+    oh, ow = h // 2, w_img // 2
+    planes = F.pad(d.to(_F64).reshape(4, cin, n_out // (oh * ow), oh, ow),
+                   (1, 1, 1, 1))
+    g64 = g.to(_F64).t()
+    taps = [planes[p, :, :, 1 + rs:1 + rs + oh, 1 + cs:1 + cs + ow].reshape(
+        cin, n_out) @ g64 for p, rs, cs in TAP_TABLE]
+    return torch.stack(taps).to(_F32).reshape(3, 3, cin, cout)
 
 
-def wgrad_proj_plain(dres, x, *, h, w_img):
-    """dWp = dres @ x_ee^T [Cout, Cin] f32."""
-    return (dres.to(_F64) @ _even(x, h, w_img).to(_F64).t()).to(_F32)
+def wgrad_proj_plain(dres, x_ee, *, h, w_img):
+    """dWp^T = x_ee @ dres^T [Cin, Cout] f32 (the layout the kernel
+    writes), x_ee the even-even plane [Cin, N'] of ``bwd_fold`` or
+    ``bwd_quantize``; float64 sums. h and w_img, the input geometry, are
+    the kernel's (its K steps), not needed here."""
+    del h, w_img
+    return (x_ee.to(_F64) @ dres.to(_F64).t()).to(_F32)
 
 
 # --- kernels -------------------------------------------------------------------------
 
-WG_SPLIT_TARGET = 528   # wgrad blocks to aim for: four per SM of an H100
-WG_KC = {torch.int8: 128, torch.bfloat16: 64}  # positions per wgrad chunk
+WG_KC = 128   # positions per chunk of the FQT wgrad
 _lib: Optional[ctypes.CDLL] = None
+_lib_wgrad: Optional[ctypes.CDLL] = None
 
 
 def _library() -> ctypes.CDLL:
@@ -513,10 +550,10 @@ def _library() -> ctypes.CDLL:
             "fwd_pre_launch": [_P] * 8 + [_I] * 13 + [_F, _P],
             "fwd_gemm_launch": [_P] * 10 + [_I] * 16 + [_P],
             "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
-            "bwd_quant_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
-            "bwd_fold_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
+            "bwd_quant_launch": [_P] * 14 + [_I] * 8 + [_F, _P],
+            "bwd_fold_launch": [_P] * 11 + [_I] * 6 + [_F, _P],
             "dgrad_launch": [_P] * 12 + [_I] * 8 + [_F, _P],
-            "wgrad_launch": [_P] * 5 + [_I] * 7 + [_P],
+            "wgrad_launch": [_P] * 5 + [_I] * 6 + [_P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
         }
         for name, args in sigs.items():
@@ -527,16 +564,33 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _library_wgrad() -> ctypes.CDLL:
+    """csrc/transition_wgrad.cu: the straight-through wgrad and dWp."""
+    global _lib_wgrad
+    if _lib_wgrad is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("transition_wgrad")
+        lib.transition_wgrad_launch.argtypes = ([_P] * 3 + [_I, _P]
+                                                + [_I] * 9 + [_P])
+        lib.transition_wgrad_launch.restype = _I
+        lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
+        lib.partial_sum_launch.restype = _I
+        _lib_wgrad = lib
+    return _lib_wgrad
+
+
 def _launch(name: str, fn, *args) -> None:
     check_rc(name, fn(*args))
     launches[name] += 1
 
 
-def _partial_sum(name: str, part: torch.Tensor) -> torch.Tensor:
-    """out[i] = sum over j of part[j, i], in order, in f32."""
+def _partial_sum(name: str, part: torch.Tensor, lib=None) -> torch.Tensor:
+    """out[i] = sum over j of part[j, i], in order, in f32 (with ``lib``'s
+    launch, else transition.cu's)."""
     j, m = part.shape
     out = torch.empty(m, dtype=_F32, device=part.device)
-    _launch(name, _library().partial_sum_launch, part.data_ptr(),
+    _launch(name, (lib or _library()).partial_sum_launch, part.data_ptr(),
             out.data_ptr(), j, m, _stream(part))
     return out
 
@@ -726,19 +780,31 @@ def _cotangent_args(dz, z, dzsum, dzssq):
             [torch.bfloat16, torch.bfloat16, _F32, _F32], dzsum, dzssq)
 
 
+def _check_rows(name: str, h: int, w_img: int, n: int) -> None:
+    """The backward's operand passes write 8 output lanes of one output row
+    a thread: whole images of even H and W with output rows of a multiple
+    of 8 pixels."""
+    if h % 2 or w_img % 16 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n}: the "
+                         f"output rows of {w_img // 2} pixels are not a "
+                         "multiple of 8")
+
+
 def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
-                 tile):
+                 tile, h, w_img):
     """The FQT backward's operands: the folded cotangent quantized per group
     of ``tile`` output lanes, the recomputed activation per group of
-    ``4 * tile`` input lanes (floor 1e-30): (g_q, g_amax, d_q, d_amax)."""
+    ``4 * tile`` input lanes (floor 1e-30), and x's even-even plane for dWp:
+    (g_q, g_amax, d_q, d_amax, x_ee)."""
     if on_cpu(dz):
         return bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
-                                  thresh=thresh, tile=tile)
+                                  thresh=thresh, tile=tile, h=h, w_img=w_img)
     name = "transition_bwd"
     cout, n_out = dz.shape
     cin, n = x.shape
     if n != 4 * n_out or n_out % tile or tile % 8:
         raise ValueError(f"{name}: N={n}, N'={n_out}, tile {tile}")
+    _check_rows(name, h, w_img, n)
     tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
     scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
     tensors += [x, scale, shift]
@@ -762,23 +828,28 @@ def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
     d_q = torch.empty((cin, n), dtype=torch.int8, device=dev)
     g_amax = torch.empty(groups, dtype=_F32, device=dev)
     d_amax = torch.empty(groups, dtype=_F32, device=dev)
+    x_ee = torch.empty((cin, n_out), dtype=torch.bfloat16, device=dev)
     _launch(f"{name}.quant", lib.bwd_quant_launch, *ct, *pro,
             part.data_ptr(), g_q.data_ptr(), d_q.data_ptr(),
-            g_amax.data_ptr(), d_amax.data_ptr(), *common)
-    return g_q, g_amax, d_q, d_amax
+            g_amax.data_ptr(), d_amax.data_ptr(), x_ee.data_ptr(),
+            *common[:5], h, w_img, *common[5:])
+    return g_q, g_amax, d_q, d_amax, x_ee
 
 
-def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh):
-    """The straight-through operands: g = bf16(gf) [Cout, N'] and the bf16
-    prologue d [Cin, N] (dropout(relu(bf16(x * scale + shift))))."""
+def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh, h,
+             w_img):
+    """The straight-through operands: g = bf16(gf) [Cout, N'], the bf16
+    prologue d (dropout(relu(bf16(x * scale + shift)))) as its parity
+    planes [4, Cin, N'] and x's even-even plane [Cin, N']."""
     if on_cpu(dz):
         return bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
-                              thresh=thresh)
+                              thresh=thresh, h=h, w_img=w_img)
     name = "transition_bwd.fold"
     cout, n_out = dz.shape
     cin, n = x.shape
-    if n != 4 * n_out or n_out % 8:
+    if n != 4 * n_out:
         raise ValueError(f"{name}: N={n}, N'={n_out}")
+    _check_rows(name, h, w_img, n)
     tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
     scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
     tensors += [x, scale, shift]
@@ -787,14 +858,17 @@ def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh):
         tensors.append(bits)
         dtypes.append(torch.uint8)
     require_cuda(name, tensors, dtypes)
-    g = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dz.device)
-    d = torch.empty((cin, n), dtype=torch.bfloat16, device=dz.device)
+    dev = dz.device
+    g = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
+    d = torch.empty((4, cin, n_out), dtype=torch.bfloat16, device=dev)
+    x_ee = torch.empty((cin, n_out), dtype=torch.bfloat16, device=dev)
     _launch(name, _library().bwd_fold_launch, dz.data_ptr(), z.data_ptr(),
             dzsum.data_ptr(), dzssq.data_ptr(), x.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), _ptr(bits), g.data_ptr(),
-            d.data_ptr(), cout, cin, n_out, thresh or 256,
-            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(dz))
-    return g, d
+            d.data_ptr(), x_ee.data_ptr(), cout, cin, n_out, h, w_img,
+            thresh or 256, fb.inv_keep(thresh) if bits is not None else 1.0,
+            _stream(dz))
+    return g, d, x_ee
 
 
 def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
@@ -845,43 +919,6 @@ def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
     return dx, sums[:cin], sums[cin:]
 
 
-def wgrad_splits(cin: int, cout: int, n_out: int, kc: int) -> int:
-    """Position splits of a straight-through weight gradient: the largest
-    power of two that divides the chunks and keeps the grid near
-    WG_SPLIT_TARGET blocks."""
-    blocks = (cin // 32) * -(-cout // 64)
-    chunks = n_out // kc
-    s = 1
-    while chunks % (2 * s) == 0 and blocks * 2 * s <= WG_SPLIT_TARGET:
-        s *= 2
-    return s
-
-
-# wgrad_launch modes (csrc/transition.cu)
-_WG_INT8, _WG_BF16, _WG_PROJ = 0, 1, 2
-
-
-def _wgrad_launch(name, mode, a, b, g_amax, d_amax, cout, cin, n_out, h,
-                  w_img, spans):
-    """One weight-gradient launch: f32 partials per span of positions, then
-    their ordered sum: [Cout, K] with K = 9*Cin, or Cin for the
-    projection."""
-    k = cin if mode == _WG_PROJ else 9 * cin
-    part = torch.empty((spans, cout * k), dtype=_F32, device=a.device)
-    _launch(name, _library().wgrad_launch, a.data_ptr(), b.data_ptr(),
-            _ptr(g_amax), _ptr(d_amax), part.data_ptr(), mode, cout, cin,
-            n_out, h, w_img, spans, _stream(a))
-    sum_name = ("transition_wgrad.proj_sum" if mode == _WG_PROJ
-                else "transition_wgrad.sum")
-    return _partial_sum(sum_name, part).reshape(cout, k)
-
-
-def _check_wgrad(name, cin, cout, h, w_img, n_out, span):
-    check_geometry(name, cin, cout, h, w_img, 4 * n_out, None)
-    if n_out % span:
-        raise ValueError(f"{name}: N'={n_out} vs span {span}")
-
-
 def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     """FQT dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order."""
     if on_cpu(g_q):
@@ -890,45 +927,98 @@ def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     name = "transition_wgrad"
     cout, n_out = g_q.shape
     cin = d_q.shape[0]
-    _check_wgrad(name, cin, cout, h, w_img, n_out, tile)
-    if tile % WG_KC[torch.int8]:
-        raise ValueError(f"{name}: tile {tile} vs the "
-                         f"{WG_KC[torch.int8]}-position chunk")
+    check_geometry(name, cin, cout, h, w_img, 4 * n_out, None)
+    if n_out % tile or tile % WG_KC:
+        raise ValueError(f"{name}: tile {tile} vs N'={n_out} and the "
+                         f"{WG_KC}-position chunk")
     require_cuda(name, [g_q, g_amax, d_q, d_amax],
                  [torch.int8, _F32, torch.int8, _F32])
-    return _wgrad_launch(name, _WG_INT8, g_q, d_q, g_amax, d_amax, cout,
-                         cin, n_out, h, w_img, n_out // tile)
+    spans = n_out // tile
+    part = torch.empty((spans, 9 * cin * cout), dtype=_F32, device=g_q.device)
+    _launch(name, _library().wgrad_launch, g_q.data_ptr(), d_q.data_ptr(),
+            g_amax.data_ptr(), d_amax.data_ptr(), part.data_ptr(), cout, cin,
+            n_out, h, w_img, spans, _stream(g_q))
+    return _partial_sum(f"{name}.sum", part).reshape(cout, 9 * cin)
+
+
+def check_wgrad_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
+                         n_out: int) -> None:
+    """The straight-through wgrad's and dWp's own shape needs
+    (csrc/wgrad_wgmma_bf16.cuh, at the output geometry (h/2, w_img/2) of
+    ``n_out`` positions): ``conv3x3.check_wgrad_geometry``'s rule (Cin in
+    32-channel boxes, which the op's zero padding gives; output rows of W'
+    = 8, 16 or 32 with H' a multiple of 64 / W', or W' a multiple of 64),
+    and Cout a multiple of 8. The dgrad keeps its own, narrower rule
+    (``check_geometry``)."""
+    if h % 2 or w_img % 2:
+        raise ValueError(f"{name}: geometry H={h} W={w_img} is not even")
+    conv3x3.check_wgrad_geometry(name, cin, n_out, h // 2, w_img // 2)
+    if cout % 8:
+        raise ValueError(f"{name}: Cout={cout} is not a multiple of 8")
+
+
+def wgrad_tma_plan(taps: int, cin: int, cout: int, n_out: int, h: int,
+                   w_img: int) -> conv3x3.WgradTmaPlan:
+    """The TMA wgrad's tiles and splits for ``taps`` taps (9, or dWp's 1)
+    at the output geometry: ``conv3x3.wgrad_tma_plan``'s rule on M = taps *
+    Cin."""
+    return conv3x3.wgrad_tma_plan(cin, cout, n_out, h // 2, w_img // 2,
+                                  taps=taps)
+
+
+def _wgrad_tma(name: str, sum_name: str, x: torch.Tensor, g: torch.Tensor,
+               table, h: int, w_img: int) -> torch.Tensor:
+    """One launch of csrc/transition_wgrad.cu over its plan's splits, then
+    their ordered sum (``sum_name``): [taps * Cin, Cout] f32 of x [planes,
+    Cin, N'] and g [Cout, N'], tap t reading plane table[t][0] at its
+    shifts."""
+    planes, cin, n_out = x.shape
+    cout = g.shape[0]
+    if g.shape[1] != n_out:
+        raise ValueError(f"{name}: operands {tuple(x.shape)} and "
+                         f"{tuple(g.shape)}")
+    check_wgrad_geometry(name, cin, cout, h, w_img, n_out)
+    require_cuda(name, [x, g], [torch.bfloat16, torch.bfloat16])
+    taps = len(table)
+    plan = wgrad_tma_plan(taps, cin, cout, n_out, h, w_img)
+    m = taps * cin * cout
+    part = torch.empty((plan.splits, m), dtype=_F32, device=g.device)
+    tab = (ctypes.c_int * (3 * taps))(*(v for t in table for v in t))
+    lib = _library_wgrad()
+    _launch(name, lib.transition_wgrad_launch, x.data_ptr(), g.data_ptr(),
+            part.data_ptr(), planes, ctypes.addressof(tab), taps, cin, cout,
+            n_out, h // 2, w_img // 2, plan.bn, plan.per, plan.splits,
+            _stream(g))
+    return _partial_sum(sum_name, part, lib).reshape(taps * cin, cout)
 
 
 def wgrad_bf16(g, d, *, h, w_img):
-    """Straight-through dW [Cout, 9*Cin] f32: g bf16 against the bf16
-    prologue d of ``bwd_fold``."""
+    """Straight-through dW [3, 3, Cin, Cout] f32 (HWIO): g [Cout, N'] bf16
+    against the prologue's parity planes d [4, Cin, N'] of ``bwd_fold``.
+    On the card one launch of the TMA + wgmma kernel at the nine taps of
+    ``TAP_TABLE`` (``transition_wgrad_tma``) and its ordered sum
+    (``.sum``); the geometry of ``check_wgrad_geometry``."""
     if on_cpu(g):
         return wgrad_bf16_plain(g, d, h=h, w_img=w_img)
-    name = "transition_wgrad"
-    cout, n_out = g.shape
-    cin = d.shape[0]
-    kc = WG_KC[torch.bfloat16]
-    splits = wgrad_splits(cin, cout, n_out, kc)
-    _check_wgrad(name, cin, cout, h, w_img, n_out, kc * splits)
-    require_cuda(name, [g, d], [torch.bfloat16, torch.bfloat16])
-    return _wgrad_launch(name, _WG_BF16, g, d, None, None, cout, cin, n_out,
-                         h, w_img, splits)
+    name = "transition_wgrad_tma"
+    if d.dim() != 3 or d.shape[0] != 4:
+        raise ValueError(f"{name}: d {tuple(d.shape)} is not 4 parity "
+                         "planes")
+    return _wgrad_tma(name, f"{name}.sum", d, g, TAP_TABLE, h,
+                      w_img).reshape(
+        3, 3, d.shape[1], g.shape[0])
 
 
-def wgrad_proj(dres, x, *, h, w_img):
-    """dWp = dres @ x_ee^T [Cout, Cin] f32 (bf16 products, f32 sums)."""
+def wgrad_proj(dres, x_ee, *, h, w_img):
+    """dWp^T = x_ee @ dres^T [Cin, Cout] f32 (bf16 products, f32 sums), x_ee
+    the even-even plane [Cin, N'] of ``bwd_fold`` or ``bwd_quantize``. On
+    the card the TMA + wgmma kernel at one unshifted tap
+    (``transition_wgrad_tma.proj``) and its ordered sum (``.proj_sum``)."""
     if on_cpu(dres):
-        return wgrad_proj_plain(dres, x, h=h, w_img=w_img)
-    name = "transition_wgrad.proj"
-    cout, n_out = dres.shape
-    cin = x.shape[0]
-    kc = WG_KC[torch.bfloat16]
-    splits = wgrad_splits(cin, cout, n_out, kc)
-    _check_wgrad(name, cin, cout, h, w_img, n_out, kc * splits)
-    require_cuda(name, [dres, x], [torch.bfloat16, torch.bfloat16])
-    return _wgrad_launch(name, _WG_PROJ, dres, x, None, None, cout, cin,
-                         n_out, h, w_img, splits)
+        return wgrad_proj_plain(dres, x_ee, h=h, w_img=w_img)
+    return _wgrad_tma("transition_wgrad_tma.proj",
+                      "transition_wgrad_tma.proj_sum", x_ee[None], dres,
+                      ((0, 0, 0),), h, w_img)
 
 
 # --- the differentiable op --------------------------------------------------------
@@ -962,27 +1052,29 @@ class _TransitionHalf(torch.autograd.Function):
         wpt = (None if wp is None else
                wp.detach().reshape(cout, cin).t().to(x_cs.dtype).contiguous())
         kw = dict(thresh=thresh, h=h, w_img=w_img)
+        geo = dict(h=h, w_img=w_img)
         if quant_bwd:
             w_dg, ws_in = quant_pack_w_dgrad(w1.detach())
-            g, g_amax, d_q, d_amax = bwd_quantize(
-                dz, z, dzsum, dzssq, x_cs, scale, shift, bits, thresh=thresh,
-                tile=tile)
+            g, g_amax, d_q, d_amax, x_ee = bwd_quantize(
+                dz, z, dzsum, dzssq, x_cs, scale, shift, bits, tile=tile,
+                **kw)
             dx, ds, dt = dgrad(g, g_amax, w_dg, ws_in, x_cs, scale, shift,
                                bits, dres, wpt, tile=tile, **kw)
-            dw = wgrad(g, g_amax, d_q, d_amax, tile=tile, h=h, w_img=w_img)
+            dw = wgrad(g, g_amax, d_q, d_amax, tile=tile, **geo).reshape(
+                cout, 3, 3, cin).permute(0, 3, 1, 2)
         else:
-            g, d = bwd_fold(dz, z, dzsum, dzssq, x_cs, scale, shift, bits,
-                            thresh=thresh)
+            g, d, x_ee = bwd_fold(dz, z, dzsum, dzssq, x_cs, scale, shift,
+                                  bits, **kw)
             w_dg = pack_w_dgrad(w1.detach().to(x_cs.dtype))
             dx, ds, dt = dgrad(g, None, w_dg, None, x_cs, scale, shift, bits,
                                dres, wpt, tile=tile, **kw)
-            dw = wgrad_bf16(g, d, h=h, w_img=w_img)
-        dw = dw.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).to(w1.dtype)
+            # HWIO -> OIHW
+            dw = wgrad_bf16(g, d, **geo).permute(3, 2, 0, 1)
         dwp = (None if wp is None else
-               wgrad_proj(dres, x_cs, h=h, w_img=w_img).reshape(
-                   wp.shape).to(wp.dtype))
-        return (dx, dw, dwp, ds.to(scale.dtype), dt.to(shift.dtype), None,
-                None, None, None, None, None)
+               wgrad_proj(dres, x_ee, **geo).t().reshape(wp.shape).to(
+                   wp.dtype))
+        return (dx, dw.to(w1.dtype), dwp, ds.to(scale.dtype),
+                dt.to(shift.dtype), None, None, None, None, None, None)
 
 
 def transition_half_int8(x_cs: torch.Tensor, w1: torch.Tensor,

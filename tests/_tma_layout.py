@@ -20,16 +20,19 @@ def swizzle_offset(off, swizzle: int):
 
 
 def tma_box_probe_plain(t, *, h: int, w_img: int, dy: bool,
-                        at: tuple, bn: int = 64) -> torch.Tensor:
+                        at: tuple, bn: int = 64,
+                        plane: int = 0) -> torch.Tensor:
     """What ``tma_box_probe`` returns if TMA lands the box dense, channel
     rows one after another, zeros outside the view's bounds and past the
     channels, then moves each byte as the box's swizzle moves its address:
-    x's box (``dy`` False) viewed (HW, B, C), 64 positions (80 where W >=
-    64) from position ``at[0]`` of image ``at[1]``, 32 channels,
-    unswizzled; dy's box viewed (N, C), 64 positions from ``at[0]``,
-    ``bn`` channels from ``at[1]``, in the 128-byte swizzle. uint8 on the
-    CPU."""
+    x's box (``dy`` False) of t [C, N], or of plane ``plane`` of t [P, C,
+    N], viewed (HW, B, C), 64 positions (80 where W >= 64) from position
+    ``at[0]`` of image ``at[1]``, 32 channels, unswizzled; dy's box viewed
+    (N, C), 64 positions from ``at[0]``, ``bn`` channels from ``at[1]``,
+    in the 128-byte swizzle. uint8 on the CPU."""
     t = t.detach().cpu()
+    if t.dim() == 3:
+        t = t[plane]
     c, n = t.shape
     hw = h * w_img
     if dy:

@@ -6,15 +6,15 @@ csrc/wgrad_wgmma_bf16.cuh), on the CPU:
   with C = 16 padded to 32, the card tests' shapes with Cout = 48 and 136
   and W = 64): BN by the fused forward's rule, tiles covering dW, every K
   step in exactly one split, none empty;
-- a numpy model of the kernel's reads: every TMA box gathered at the
-  producer's coordinates (x viewed as (HW, B, C), dy as (N, C)) with
-  zeros out of bounds and laid into the stage as the card lays it (dense,
-  then the swizzle applied by address), the shifter warpgroup's copy of
-  each 16-byte piece of staged x into the 128-byte-swizzled A tile, moved
-  by its tap's column, and every k16 of both operands read back through
-  the consumers' wgmma descriptors (K-major, 128-byte swizzle); each
-  split's tile contracted in float64 and
-  rounded to f32, the splits added in order in f32. It matches
+- a numpy model of the kernel's reads (tests/_wgrad_tma_model.py, on
+  one plane with tap (dh, dw) moved by dh - 1 rows and dw - 1 columns):
+  every TMA box gathered at the producer's coordinates with zeros out of
+  bounds and laid into the stage as the card lays it, the shifter
+  warpgroup's copy of each 16-byte piece of staged x into the
+  128-byte-swizzled A tile, moved by its tap's column, and every k16 of
+  both operands read back through the consumers' wgmma descriptors; each
+  split's tile contracted in float64 and rounded to f32, the splits added
+  in order in f32. It matches
   ``conv3x3_wgrad_plain`` and JAX's ``conv3x3_wgrad_lanes``
   (``interpret=True``) within 1e-4 of dW's largest value at W = 8, 16, 32
   and 64, at Cin = 160 (tiles straddling taps) and with a ragged Cout, and
@@ -35,9 +35,7 @@ import torch
 from pytorch_ddp_resnet_tpu.ops.pallas import conv as jconv
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
 from _tma_layout import swizzle_offset, tma_box_probe_plain
-
-# csrc/wgrad_wgmma_bf16.cuh
-BM, BK, PIECE, ROW, XROW, XPIECE = 128, 64, 32, 128, 160, 32 * 160
+from _wgrad_tma_model import BK, BM, PIECE, dy_box, land, model, shift8, x_box
 
 # (Cin, Cout, H, W, B) the op runs on the card: WRN-28-10's stages,
 # ResNet-v1-20's (C = 16 padded to 32), the card tests' (Cout = 48 and
@@ -81,141 +79,7 @@ def test_plan_splits_fill_the_card():
     assert s3.m_tiles * s3.n_tiles == 180
 
 
-# --- the numpy model of the kernel's reads ------------------------------------
-
-def _gather(t, index, ok):
-    """t at the clipped index arrays, zeros where not ok."""
-    idx = tuple(np.clip(i, 0, d - 1) for i, d in zip(index, t.shape))
-    return np.where(ok, t[idx], 0.0)
-
-
-def _x_box(x3, coords, box):
-    """TMA's box of x viewed (HW, B, C) innermost first: x3 [C, B, HW] at
-    (position in the image, image, channel) with extents (positions, 1,
-    channels): [channels, positions], zeros outside the image. The
-    position must be a multiple of 8 (16 bytes), as the card demands."""
-    x0, b, c0 = coords
-    bw, _, bc = box
-    assert x0 % 8 == 0
-    c, nb, hw = x3.shape
-    ch = np.arange(c0, c0 + bc)[:, None]
-    q = np.arange(x0, x0 + bw)[None, :]
-    ok = (ch < c) & (q >= 0) & (q < hw) & (b < nb)
-    return _gather(x3, (ch, b, q), ok)
-
-
-def _dy_box(dy, coords, box):
-    """TMA's box of dy viewed (N, C): at (position, channel), extents
-    (positions, channels): [channels, positions], zeros out of bounds."""
-    x0, c0 = coords
-    bw, bc = box
-    assert x0 % 8 == 0
-    c, n = dy.shape
-    ch = np.arange(c0, c0 + bc)[:, None]
-    q = np.arange(x0, x0 + bw)[None, :]
-    return _gather(dy, (ch, q), (ch < c) & (q >= 0) & (q < n))
-
-
-def _land(smem, dst, vals, swizzle):
-    """A box landing at byte dst: dense in box order, each element's byte
-    address then swizzled (elements are 2 bytes; the swizzle keeps bits
-    0-3)."""
-    off = dst + 2 * np.arange(vals.size)
-    smem[swizzle_offset(off, swizzle) // 2] = vals.reshape(-1)
-
-
-def _read(smem, start, rows):
-    """A k16 (rows x 16 elements) read through a K-major 128-byte-swizzle
-    descriptor at byte ``start`` (rows 128 bytes apart, 8-row groups 1,024
-    apart; the start advanced 32 bytes a k16 within the row)."""
-    r = np.arange(rows)[:, None]
-    kk = np.arange(16)[None, :]
-    off = start + r * ROW + kk * 2
-    return smem[swizzle_offset(off, 128) // 2]
-
-
-def _shift8(v, s, side):
-    """8 elements moved by s columns, ``side`` coming in (the kernel's
-    shift8)."""
-    if s < 0:
-        return np.concatenate([[side], v[:7]])
-    if s > 0:
-        return np.concatenate([v[1:], [side]])
-    return v
-
-
-def _model(x, dy, h, w, plan):
-    """dW [9*Cin, Cout] as the kernel computes it on ``plan``: per block
-    (n tile, m tile, split) and K step, the producer's boxes into a stage,
-    the shifters' copies into A, the consumers' four k16s through the
-    descriptors, the f32 split tiles added in order."""
-    cin, n = x.shape
-    cout = dy.shape[0]
-    hw, m, bn = h * w, 9 * cin, plan.bn
-    wide = w >= BK
-    x3 = x.reshape(cin, n // hw, hw).astype(np.float64)
-    dy64 = dy.astype(np.float64)
-    a_bytes, x_off = BM * ROW, BM * ROW + bn * ROW
-    cpt = cin // PIECE
-    parts = np.zeros((plan.splits, m, cout), np.float32)
-    for z in range(plan.splits):
-        kt0 = z * plan.per
-        nk = min(plan.steps - kt0, plan.per)
-        assert nk > 0
-        for y in range(plan.m_tiles):
-            m0 = y * BM
-            live = min(BM, m - m0) // PIECE
-            taps = [(m0 // PIECE + q) // cpt for q in range(4)]
-            for xt in range(plan.n_tiles):
-                n0 = xt * bn
-                acc = np.zeros((BM, bn))
-                for i in range(nk):
-                    smem = np.full((x_off + 4 * XPIECE) // 2, np.nan)
-                    pos = (kt0 + i) * BK
-                    b = pos // hw
-                    at = pos - b * hw - (8 if wide else 0)
-                    # the producer warp's boxes
-                    for q in range(live):
-                        tap = taps[q]
-                        ci0 = (m0 // PIECE + q - tap * cpt) * PIECE
-                        vals = _x_box(x3, (at + (tap // 3 - 1) * w, b, ci0),
-                                      (80 if wide else BK, 1, PIECE))
-                        _land(smem, x_off + q * XPIECE, vals, 16)
-                    _land(smem, a_bytes, _dy_box(dy64, (pos, n0), (BK, bn)),
-                          128)
-                    # the shifters: staged x -> A, moved by dw - 1
-                    for row in range(live * PIECE):
-                        q, ch = divmod(row, PIECE)
-                        sq = taps[q] % 3 - 1
-                        for k8 in range(8):
-                            col = (pos + 8 * k8) % w
-                            src = x_off + q * XPIECE + (
-                                ch * XROW + 16 if wide else ch * ROW) + 16 * k8
-                            v = smem[src // 2:src // 2 + 8]
-                            side = 0.0
-                            if sq < 0 and col > 0:
-                                side = smem[(src - 2) // 2]
-                            if sq > 0 and col + 8 < w:
-                                side = smem[(src + 16) // 2]
-                            dst = row * ROW + ((k8 ^ (row & 7)) << 4)
-                            smem[dst // 2:dst // 2 + 8] = _shift8(v, sq,
-                                                                  side)
-                    # the consumers' k16s
-                    for wg in range(2):
-                        for kk in range(4):
-                            a = _read(smem, wg * 64 * ROW + 32 * kk, 64)
-                            bt = _read(smem, a_bytes + 32 * kk, bn)
-                            acc[wg * 64:wg * 64 + 64] += a @ bt.T
-                # pieces past M are never written: only their rows are NaN
-                rows = min(BM, m - m0)
-                cols = min(bn, cout - n0)
-                assert np.isfinite(acc[:rows]).all()
-                parts[z, m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
-    out = parts[0].copy()
-    for z in range(1, plan.splits):
-        out = out + parts[z]
-    return out
-
+# --- the numpy model of the kernel's reads (tests/_wgrad_tma_model.py) -----
 
 @functools.lru_cache(maxsize=None)
 def _operands(cin, cout, h, w, b, seed=5):
@@ -247,7 +111,7 @@ MODEL_SHAPES = [(32, 48, 8, 8, 2),     # W = 8, ragged Cout (BN = 64)
 def test_model_of_the_reads_matches_plain_and_jax(cin, cout, h, w, b):
     x, dy = _operands(cin, cout, h, w, b)
     plan = k.wgrad_tma_plan(cin, cout, b * h * w, h, w)
-    got = _model(x, dy, h, w, plan).reshape(3, 3, cin, cout)
+    got = model(x, dy, h, w, plan).reshape(3, 3, cin, cout)
     plain = _plain(x, dy, h, w)
     want = np.asarray(jconv.conv3x3_wgrad_lanes(
         jnp.asarray(x), jnp.asarray(dy), h=h, w_img=w, interpret=True))
@@ -268,7 +132,7 @@ def test_model_with_splits_of_several_steps(cin, cout, h, w, b):
     per = 3
     plan = plan._replace(per=per, splits=-(-plan.steps // per))
     assert plan.steps % per and plan.splits > 1
-    got = _model(x, dy, h, w, plan).reshape(3, 3, cin, cout)
+    got = model(x, dy, h, w, plan).reshape(3, 3, cin, cout)
     plain = _plain(x, dy, h, w)
     assert _max_err(got, plain) <= 1e-4 * np.abs(plain).max()
 
@@ -281,16 +145,11 @@ def test_model_sees_a_wrong_shift(w):
     x, dy = _operands(cin, cout, h, w, b)
     plan = k.wgrad_tma_plan(cin, cout, b * h * w, h, w)
     plain = _plain(x, dy, h, w)
-    orig = _shift8
 
     def wrong(v, s, side):
-        return orig(v, -s if s > 0 else s, side)
+        return shift8(v, -s if s > 0 else s, side)
 
-    globals()["_shift8"] = wrong
-    try:
-        got = _model(x, dy, h, w, plan).reshape(3, 3, cin, cout)
-    finally:
-        globals()["_shift8"] = orig
+    got = model(x, dy, h, w, plan, shift=wrong).reshape(3, 3, cin, cout)
     assert _max_err(got, plain) > 1e-2 * np.abs(plain).max()
 
 
@@ -370,15 +229,15 @@ def test_probe_plain_is_the_models_layout(dy, w, at, bn):
     got = tma_box_probe_plain(torch.from_numpy(x).to(torch.bfloat16), h=h,
                               w_img=w, dy=dy, at=at, bn=bn)
     if dy:
-        vals = _dy_box(x.astype(np.float64), at, (BK, bn))
+        vals = dy_box(x.astype(np.float64), at, (BK, bn))
         swizzle = 128
     else:
         xw = BK if w < BK else BK + 16
-        vals = _x_box(x.reshape(c, b, h * w).astype(np.float64),
-                      (at[0], at[1], 0), (xw, 1, PIECE))
+        vals = x_box(x.reshape(c, b, h * w).astype(np.float64),
+                     (at[0], at[1], 0), (xw, 1, PIECE))
         swizzle = 16
     smem = np.zeros(vals.size)
-    _land(smem, 0, vals, swizzle)
+    land(smem, 0, vals, swizzle)
     want = torch.from_numpy(smem.astype(np.float32)).to(
         torch.bfloat16).view(torch.uint8)
     assert torch.equal(got, want)

@@ -43,10 +43,13 @@ accumulators (BatchNorm sums, d(scale), d(shift), dW) within 1e-4 of the
 plain version's largest value (``_mma_sums`` says why); the seed expansion
 and the int8 kernels in seed mode are bit-equal. The transition half: int8
 codes, group absmaxes, the forward's slabs (byte for byte), z, the
-cotangent fold and the FQT weight gradient are equal; res and dx (bf16 products summed in f32 on the card) within 2
-bf16 ulps; the sums as the fused half's. The 3x3 weight gradient: f32
-sums over the tensor cores' accumulators, 1e-4; ``conv3x3_same``'s y, dx
-and bf16 dW within 2 bf16 ulps of the CPU op's. The int8 1x1 conv: equal.
+cotangent fold (g, the prologue's parity planes, x's even-even plane) and
+the FQT weight gradient are equal; res and dx (bf16 products summed in f32
+on the card) within 2 bf16 ulps; the sums as the fused half's; the
+straight-through dW and dWp (the TMA wgrad) within 1e-4 and bit-equal from
+call to call. The 3x3 weight gradient: f32 sums over the tensor cores'
+accumulators, 1e-4; ``conv3x3_same``'s y, dx and bf16 dW within 2 bf16 ulps
+of the CPU op's. The int8 1x1 conv: equal.
 """
 
 import numpy as np
@@ -1328,11 +1331,11 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
     (_bf16_close if use_proj else _same)(got[3], want[3])
     ct = (t["dz"], want[0], t["dzsum"], t["dzssq"])
     scb = (x, scale, shift, bits)
-    ops = tr.bwd_quantize(*ct, *scb, thresh=thresh, tile=tile)
-    ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile)
+    ops = tr.bwd_quantize(*ct, *scb, thresh=thresh, tile=tile, **kw)
+    ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile, **kw)
     for a, b_ in zip(ops, ops_p):
         _same(a, b_)
-    g_q, g_amax, dq2, d_amax = ops_p
+    g_q, g_amax, dq2, d_amax, x_ee = ops_p
     wdq, wsin = tr.quant_pack_w_dgrad(t["w1"])
     dargs = (g_q, g_amax, wdq, wsin, *scb, t["dres"], wpt)
     got = tr.dgrad(*dargs, thresh=thresh, tile=tile, **kw)
@@ -1342,10 +1345,11 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
     _same(got[2], want[2], sums=True)
     _same(tr.wgrad(g_q, g_amax, dq2, d_amax, tile=tile, **kw),
           tr.wgrad_plain(g_q, g_amax, dq2, d_amax, tile=tile, **kw))
-    gb, db = tr.bwd_fold(*ct, *scb, thresh=thresh)
-    pgb, pdb = tr.bwd_fold_plain(*ct, *scb, thresh=thresh)
-    _same(gb, pgb)
-    _same(db, pdb)
+    fold = tr.bwd_fold(*ct, *scb, thresh=thresh, **kw)
+    for a, b_ in zip(fold, tr.bwd_fold_plain(*ct, *scb, thresh=thresh,
+                                             **kw)):
+        _same(a, b_)
+    gb, db, _ = fold
     dargs = (gb, None, tr.pack_w_dgrad(t["w1"].to(torch.bfloat16)), None,
              *scb, t["dres"], wpt)
     got = tr.dgrad(*dargs, thresh=thresh, tile=tile, **kw)
@@ -1354,8 +1358,8 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
     _mma_sums(got[1], want[1])
     _mma_sums(got[2], want[2])
     _mma_sums(tr.wgrad_bf16(gb, db, **kw), tr.wgrad_bf16_plain(gb, db, **kw))
-    _mma_sums(tr.wgrad_proj(t["dres"], x, **kw),
-              tr.wgrad_proj_plain(t["dres"], x, **kw))
+    _mma_sums(tr.wgrad_proj(t["dres"], x_ee, **kw),
+              tr.wgrad_proj_plain(t["dres"], x_ee, **kw))
     torch.cuda.synchronize()
 
 
@@ -1383,12 +1387,15 @@ def test_transition_op_launches_its_kernels(dev, quant_bwd):
             torch.cuda.synchronize()
             bwd = (("transition_bwd.amax", "transition_bwd.quant")
                    if quant_bwd else ("transition_bwd.fold",))
+            # the FQT dW on transition.cu's int8 wgrad, the
+            # straight-through one on the TMA wgrad; dWp on the TMA wgrad
+            wg = (("transition_wgrad", "transition_wgrad.sum") if quant_bwd
+                  else ("transition_wgrad_tma", "transition_wgrad_tma.sum"))
             assert dict(tr.launches) == {name: 1 for name in (
                 "transition_fwd.amax", "transition_fwd.pre",
                 "transition_fwd", "transition_fwd.sum", "transition_dgrad",
-                "transition_dgrad.sum", "transition_wgrad",
-                "transition_wgrad.sum", "transition_wgrad.proj",
-                "transition_wgrad.proj_sum") + bwd}
+                "transition_dgrad.sum", "transition_wgrad_tma.proj",
+                "transition_wgrad_tma.proj_sum") + bwd + wg}
             assert not fb.launches
         else:
             assert not tr.launches and not fb.launches
@@ -1430,6 +1437,89 @@ def test_transition_op_pads_narrow_inputs(dev, cin, cout, use_proj):
         assert a.shape == b_.shape and a.dtype == b_.dtype
         assert (a.float() - b_.float()).abs().max() <= 1e-2 * b_.float(
         ).abs().max()
+
+
+# (batch, h, w, Cin, Cout, zero channels) of the straight-through wgrad on
+# the TMA + wgmma mainloop: WRN-28-10's two transitions at batch 128; Cin =
+# 16 zero-padded to 32, as the op pads WRN-28-1's 16 -> 32; widths outside
+# the WRN-28-10 shapes: Cout = 40 (a ragged 64-wide N tile, which the
+# dgrad refuses) and output rows of 192 pixels (80-position boxes, three
+# K steps a row)
+TR_WGRAD_SHAPES = [(128, 32, 32, 160, 320, 0), (128, 16, 16, 320, 640, 0),
+                   (16, 32, 32, 32, 32, 16), (8, 16, 16, 64, 40, 0),
+                   (2, 4, 384, 32, 64, 0)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,zeros", TR_WGRAD_SHAPES)
+def test_transition_wgrad_tma_matches_plain(dev, b, h, w, cin, cout, zeros):
+    """The straight-through operands and weight gradients on the card:
+    the fold's g, parity planes and even-even plane equal to the plain
+    version's; dW (HWIO) and dWp^T within 1e-4 of the float64 plain
+    versions' largest value (sums over the tensor cores' accumulators),
+    bit-equal over two calls (the splits added in order); one launch of
+    the kernel and one of its ordered sum a call."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, b + cin + w)
+    if zeros:
+        for k in ("x", "scale", "shift"):
+            t[k][cin - zeros:] = 0
+    bits = t["bits"]
+    thresh = fb.dropout_thresh(0.3)
+    kw = dict(h=h, w_img=w)
+    z = t["dz"].flip(1).contiguous()
+    ct = (t["dz"], z, t["dzsum"], t["dzssq"], t["x"], t["scale"],
+          t["shift"], bits)
+    tr.reset_launches()
+    g, d, x_ee = tr.bwd_fold(*ct, thresh=thresh, **kw)
+    for a, b_ in zip((g, d, x_ee), tr.bwd_fold_plain(*ct, thresh=thresh,
+                                                     **kw)):
+        _same(a, b_)
+    dw = tr.wgrad_bf16(g, d, **kw)
+    dwp = tr.wgrad_proj(t["dres"], x_ee, **kw)
+    assert torch.equal(dw, tr.wgrad_bf16(g, d, **kw))
+    assert torch.equal(dwp, tr.wgrad_proj(t["dres"], x_ee, **kw))
+    torch.cuda.synchronize()
+    assert dict(tr.launches) == {
+        "transition_bwd.fold": 1, "transition_wgrad_tma": 2,
+        "transition_wgrad_tma.sum": 2, "transition_wgrad_tma.proj": 2,
+        "transition_wgrad_tma.proj_sum": 2}
+    assert dw.shape == (3, 3, cin, cout) and dwp.shape == (cin, cout)
+    _mma_sums(dw, tr.wgrad_bf16_plain(g, d, **kw))
+    _mma_sums(dwp, tr.wgrad_proj_plain(t["dres"], x_ee, **kw))
+    if zeros:
+        assert not dw[:, :, cin - zeros:].any()
+        assert not dwp[cin - zeros:].any()
+
+
+def test_transition_wgrad_tma_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor launches the TMA wgrad or raises, naming the shape:
+    output rows off the TMA reads' rule (12x12 outputs), Cout off 8, f32
+    operands, d not in four planes; nothing launches, and nothing falls
+    back to a plain version or another kernel."""
+    bf = torch.bfloat16
+    tr.reset_launches()
+    g = torch.zeros((64, 2 * 144), dtype=bf, device=dev)
+    d = torch.zeros((4, 32, 2 * 144), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="image 12x12 is off the TMA"):
+        tr.wgrad_bf16(g, d, h=24, w_img=24)
+    with pytest.raises(ValueError, match="image 12x12 is off the TMA"):
+        tr.wgrad_proj(g, d[0], h=24, w_img=24)
+    g = torch.zeros((44, 2 * 64), dtype=bf, device=dev)
+    d = torch.zeros((4, 32, 2 * 64), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="Cout=44 is not a multiple of 8"):
+        tr.wgrad_bf16(g, d, h=16, w_img=16)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        tr.wgrad_bf16(g[:40].float(), d, h=16, w_img=16)
+    with pytest.raises(ValueError, match="not 4 parity planes"):
+        tr.wgrad_bf16(g[:40], d[0], h=16, w_img=16)
+    x = torch.zeros((32, 2 * 144 * 4), dtype=bf, device=dev)
+    dz = torch.zeros((64, 2 * 144), dtype=bf, device=dev)
+    one = torch.ones(32, device=dev)
+    v = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="geometry H=24 W=24"):
+        tr.bwd_fold(dz, dz, v, v, x, one, one, None, thresh=None, h=24,
+                    w_img=24)
+    torch.cuda.synchronize()
+    assert not tr.launches
 
 
 # (batch, h, w, Cin, Cout): WRN-28-10's two transitions at batch 128, then
@@ -1619,7 +1709,10 @@ def test_tma_swizzle_probe(dev, w):
     the wgmma descriptors); x's staged boxes, 64 positions (80 from 8
     before where W >= 64), land dense and unswizzled. Also where a box
     reaches past the image, the batch or the channels (zeros), and every
-    load completes its barrier with the box's bytes."""
+    load completes its barrier with the box's bytes. Then the lane
+    transition's maps: x as four parity planes [4, C, N], a box of each
+    plane at its taps' row shifts (row -1 of an image reads zeros), and
+    its even-even plane as one plane."""
     h, b, c = 8, 2, 32
     rng = np.random.default_rng(11)
     t = torch.from_numpy(rng.standard_normal((c, b * h * w),
@@ -1636,6 +1729,23 @@ def test_tma_swizzle_probe(dev, w):
         assert done, (dy, at, bn)
         want = tma_box_probe_plain(t, h=h, w_img=w, dy=dy, at=at, bn=bn)
         assert torch.equal(got.cpu(), want), (dy, at, bn)
+    planes = torch.from_numpy(rng.standard_normal(
+        (4, c, b * h * w), dtype=np.float32)).to(dev, torch.bfloat16)
+    for p, rs, _ in tr.TAP_TABLE:
+        for img in range(b):
+            at = (rs * w - (xw - 64), img)   # the step at the image's start
+            got, done = k.tma_box_probe(planes, h=h, w_img=w, dy=False,
+                                        at=at, plane=p)
+            torch.cuda.synchronize()
+            assert done, (p, rs, img)
+            want = tma_box_probe_plain(planes, h=h, w_img=w, dy=False, at=at,
+                                       plane=p)
+            assert torch.equal(got.cpu(), want), (p, rs, img)
+    got, done = k.tma_box_probe(planes[3][None], h=h, w_img=w, dy=False,
+                                at=(-(xw - 64), 1))
+    torch.cuda.synchronize()
+    assert done and torch.equal(got.cpu(), tma_box_probe_plain(
+        planes[3], h=h, w_img=w, dy=False, at=(-(xw - 64), 1)))
 
 
 def test_conv3x3_same_never_falls_back(dev):
