@@ -169,13 +169,17 @@ Phases, each fatal on failure:
    nine tap shifts and its bf16 instantiation for the projection, with a
    channel-major epilogue, then the ordered sum) with dropout bits,
    without, and with the option-A shortcut at stage 2; the FQT quantizers
-   and the straight-through fold (the rounded cotangent, the bf16
-   prologue's four parity planes and, from both, x's even-even plane); the
-   dgrad of both bodies; the FQT wgrad (transition.cu's int8 kernel); the
-   straight-through wgrad and dWp apart, on the TMA + wgmma mainloop of
-   csrc/wgrad_wgmma_bf16.cuh (csrc/transition_wgrad.cu: each tap a parity
-   plane at its row and column shift), each bit-equal over two calls and
-   also in device time and TFLOP/s. Int8 codes, group absmaxes, the
+   (the activation's codes as four parity planes) and the
+   straight-through fold (the rounded cotangent, the bf16 prologue's four
+   parity planes and, from both, x's even-even plane); the dgrad of both
+   bodies; the FQT wgrad on the TMA + s8 wgmma mainloop of
+   csrc/wgrad_wgmma_s8.cuh (csrc/transition_wgrad.cu: one launch, each
+   tap a parity plane moved by a shifter warpgroup, the scale groups
+   folded in order in each tile); the straight-through wgrad and dWp
+   apart, on the TMA + wgmma mainloop of csrc/wgrad_wgmma_bf16.cuh (each
+   tap a parity plane at its row and column shift); each wgrad bit-equal
+   over two calls and also in device time and TFLOP/s (TOP/s). Int8
+   codes, group absmaxes, the
    forward's slabs (byte for byte), z, the fold's and the quantizer's
    outputs and the FQT dW equal; res and dx within 2 bf16 ulps; f32 sums
    within 1e-5 (1e-4 over bf16 tensor-core accumulators: the bf16 dW and
@@ -453,8 +457,9 @@ FQT_PER_STEP = {
 # launches of one lane-transition step: the 22 halves as above, plus the
 # two transition halves (each one forward: its amax pass, prepass, staged
 # mainloop and ordered sum; one backward fold or quantizer, dgrad, wgrad
-# and dWp, with their ordered sums: the FQT wgrad on transition.cu's int8
-# kernel, the straight-through one and dWp on the TMA wgrad)
+# and dWp, with their ordered sums: the FQT wgrad on the TMA + s8 wgmma
+# kernel, one launch and no sum; the straight-through one and dWp on the
+# TMA wgrad)
 _TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
             "transition_fwd": 2, "transition_fwd.sum": 2,
             "transition_dgrad": 2, "transition_dgrad.sum": 2,
@@ -462,8 +467,7 @@ _TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
             "transition_wgrad_tma.proj_sum": 2}
 LANE_FQT_PER_STEP = {
     **FQT_PER_STEP, **_TR_STEP, "transition_bwd.amax": 2,
-    "transition_bwd.quant": 2, "transition_wgrad": 2,
-    "transition_wgrad.sum": 2}
+    "transition_bwd.quant": 2, "transition_wgrad_s8": 2}
 LANE_QAT_PER_STEP = {
     **QAT_PER_STEP, **_TR_STEP, "transition_bwd.fold": 2,
     "transition_wgrad_tma": 2, "transition_wgrad_tma.sum": 2}
@@ -903,16 +907,16 @@ KERNEL_KINDS = [
     ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
     ("stem (port)", ("stem_",)),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
-    # the lane transition's TMA wgrad shares conv3x3_same's mainloop; its
-    # instantiation and its sum carry the transition's tag
+    # the lane transition's TMA wgrads (the bf16 one shares
+    # conv3x3_same's mainloop): their instantiations and the sum carry the
+    # transition's tag
     ("transition (port)", ("TransitionWgrad",)),
     ("conv3x3_same wgrad (port)", ("wgrad_tma_kernel", "WgradTmaSum")),
     ("fused bf16 half (port)", ("fused_fwd_", "DgradLoad",
                                 "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
                            "dgrad_kernel<", "bwd_amax_kernel",
-                           "bwd_quant_kernel", "bwd_fold_kernel",
-                           "wgrad_kernel<")),
+                           "bwd_quant_kernel", "bwd_fold_kernel")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
                                 "partial_sum")),
@@ -1949,14 +1953,16 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
 
 TR_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/transition.cu"
 TR_NAMES = ("transition_fwd", "transition_fwd.pre", "transition_bwd",
-            "transition_dgrad", "transition_wgrad", "transition_wgrad_tma")
-# the straight-through wgrad and dWp: their own binding file
+            "transition_dgrad", "transition_wgrad_s8", "transition_wgrad_tma")
+# both bodies' wgrads and dWp: their own binding file
 TR_WGRAD_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                    "transition_wgrad.cu")
 # the forward GEMM's mainloop, shared with the NV halves' int8 forward; the
-# TMA wgrad's, shared with conv3x3_same's wgrad
+# FQT wgrad's; the TMA wgrad's, shared with conv3x3_same's wgrad
 TR_MAINLOOP = {"transition_fwd":
                "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
+               "transition_wgrad_s8":
+               "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_wgmma_s8.cuh",
                "transition_wgrad_tma": SAME_SOURCE}
 # (stage, cin, cout, h, w): the inputs of WRN-28-10's two stage transitions
 TR_SHAPES = [(2, 160, 320, 32, 32), (3, 320, 640, 16, 16)]
@@ -1967,7 +1973,7 @@ TR_STEP_MODE = {"transition_fwd": ("FQT", ("proj+bits",)),
                 "transition_fwd.pre": ("FQT", ("proj+bits",)),
                 "transition_bwd": ("FQT", ("fqt",)),
                 "transition_dgrad": ("FQT", ("fqt+proj",)),
-                "transition_wgrad": ("FQT", ("fqt",)),
+                "transition_wgrad_s8": ("FQT", ("fqt",)),
                 "transition_wgrad_tma": ("QAT", ("qat", "proj"))}
 
 
@@ -2237,15 +2243,26 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                                else 0)) * 1e3)
             if opt_a:
                 continue
-            # the FQT dW on transition.cu's int8 wgrad
-            add("transition_wgrad", "fqt",
-                lambda: dict(dw=tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile,
-                                         **kw)),
+            # the FQT dW on the TMA + s8 wgmma wgrad: one launch, equal to
+            # the plain version and bit-equal over two calls, also in
+            # device time and TOP/s; bytes: g_q and d_q's planes in, dW out
+            def fqt_dw():
+                return tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile, **kw)
+
+            add("transition_wgrad_s8", "fqt", lambda: dict(dw=fqt_dw()),
                 lambda: dict(dw=tr.wgrad_plain(g_q, g_amax, d_q, d_amax,
                                                tile=tile, **kw)),
                 dict(dw="eq"), lib["wgrad3"],
                 cout * n_out + cin * n + 36 * cin * cout,
                 2 * macs / ops_int8 * 1e3)
+            first = fqt_dw()
+            assert torch.equal(first, fqt_dw()), (
+                "transition_wgrad_s8", stage)
+            r = rows[-1]
+            r["dev_ms"] = device_ms(fqt_dw, 10)
+            r["tops"] = 2 * macs / r["ms"] / 1e9
+            r["plan"] = list(tr.wgrad_s8_plan(cin, cout, n_out, h, w, tile))
+            del first
             # the straight-through dW and dWp on the TMA wgrad: each
             # bit-equal over two calls, also in device time and TFLOP/s
             for mode, key, fn, plain, args, work, lib_ms, byts in (
@@ -2446,7 +2463,7 @@ def transition_summary(rows, lane_fqt, lane_qat):
         "transition_fwd.pre": ("transition_fwd.pre",),
         "transition_bwd": ("transition_bwd.amax", "transition_bwd.fold"),
         "transition_dgrad": ("transition_dgrad",),
-        "transition_wgrad": ("transition_wgrad",),
+        "transition_wgrad_s8": ("transition_wgrad_s8",),
         "transition_wgrad_tma": ("transition_wgrad_tma",
                                  "transition_wgrad_tma.proj")}
     out = []
@@ -2464,8 +2481,8 @@ def transition_summary(rows, lane_fqt, lane_qat):
         fwd = name.startswith("transition_fwd")
         out.append(dict(
             name=name, route="cuda",
-            source=(TR_WGRAD_SOURCE if name == "transition_wgrad_tma"
-                    else TR_SOURCE),
+            source=(TR_WGRAD_SOURCE if name.startswith(
+                "transition_wgrad") else TR_SOURCE),
             replaces=_PALLAS + ("transition.py:357" if fwd
                                 else "transition.py:619"),
             launches=sum(runs.values()), split_launches=runs,
@@ -2489,6 +2506,10 @@ def transition_summary(rows, lane_fqt, lane_qat):
                            tflops={r["mode"]: [x["tflops"] for x in mine
                                                if x["mode"] == r["mode"]]
                                    for r in step})
+        if name == "transition_wgrad_s8":
+            out[-1].update(dev_ms=sum(r["dev_ms"] or 0.0 for r in step),
+                           tops=[r["tops"] for r in step],
+                           plans=[r["plan"] for r in step])
         if name == "transition_fwd":   # its parts
             out[-1].update(
                 **{k: sum(r[k] for r in step) for k in PART_KEYS},
@@ -3841,12 +3862,17 @@ def main() -> int:
               f"{e['spill_bytes']} B spilled")
 
     # the TMA wgrads' kernels: one block of 416 threads an SM (a producer
-    # warp, a shifter warpgroup, two consumer warpgroups)
+    # warp, a shifter warpgroup, two consumer warpgroups), bf16 and the
+    # transition's s8 one; ptxas's note where it serializes the wgmmas
     for lib_name in ("conv3x3_wgrad", "transition_wgrad"):
-        for e in ptxas_entries(build.build_log(lib_name),
-                               "wgrad_tma_kernel"):
-            print(f"  ptxas {lib_name} {e['name']}: {e['registers']} "
-                  f"registers, {e['spill_bytes']} B spilled")
+        log = build.build_log(lib_name)
+        for pattern in ("wgrad_tma_kernel", "wgrad_s8_kernel"):
+            for e in ptxas_entries(log, pattern):
+                print(f"  ptxas {lib_name} {e['name']}: {e['registers']} "
+                      f"registers, {e['spill_bytes']} B spilled")
+        for line in log.splitlines():
+            if "serialized" in line:
+                print(f"  ptxas {lib_name}: {line.strip()}")
 
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
@@ -3879,7 +3905,7 @@ def main() -> int:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "stage", "cin", "cout", "mode", "tile", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err") + tuple(
-                k for k in ("dev_ms", "tflops", "plan") if k in r)}))
+                k for k in ("dev_ms", "tflops", "tops", "plan") if k in r)}))
     print("seed_bits_expand: bit-equal to the plain seed_bits at "
           f"C x N = {[(c, BATCH * h * w) for c, h, w in STAGES]} for seeds "
           f"{list(SEED_VALUES)}")

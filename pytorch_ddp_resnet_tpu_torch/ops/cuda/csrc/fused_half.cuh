@@ -172,16 +172,27 @@ __device__ __forceinline__ void amax_body(const Fn& fn, int rows,
   if (threadIdx.x == 0) part[g * walk.slices + s] = m;
 }
 
+// Where quant_body puts a unit's 8 codes (row, lanes [off, off + 8) of a
+// [rows, n] operand): in the same lane layout, q[row * n + off].
+struct LaneStore {
+  __device__ __forceinline__ void operator()(signed char* q, int row, int n,
+                                             size_t off, uint2 v) const {
+    *reinterpret_cast<uint2*>(q + (size_t)row * n + off) = v;
+  }
+};
+
 // q = s8(clip(rint(f * 127 / max(amax, floor)))) per group, the group's
-// absmax into amax[g], and bf16(f) into copy when it is not null
-template <typename Fn>
+// absmax into amax[g], and bf16(f) into copy when it is not null; each
+// unit's codes placed by `store`
+template <typename Fn, typename Store = LaneStore>
 __device__ __forceinline__ void quant_body(const Fn& fn, int rows,
                                            const GroupWalk& walk,
                                            const float* __restrict__ part,
                                            float floor,
                                            signed char* __restrict__ q,
                                            float* __restrict__ amax,
-                                           __nv_bfloat16* __restrict__ copy) {
+                                           __nv_bfloat16* __restrict__ copy,
+                                           const Store& store = Store()) {
   const int s = blockIdx.x, g = blockIdx.y;
   float a = part[g * walk.slices];
   for (int k = 1; k < walk.slices; ++k)
@@ -199,9 +210,9 @@ __device__ __forceinline__ void quant_body(const Fn& fn, int rows,
     signed char* o = reinterpret_cast<signed char*>(&packed);
 #pragma unroll
     for (int k = 0; k < 8; ++k) o[k] = conv3x3::quant_s8(__fmul_rn(v[k], inv));
-    const size_t idx = (size_t)row * walk.n + off;
-    *reinterpret_cast<uint2*>(q + idx) = packed;
+    store(q, row, walk.n, off, packed);
     if (copy != nullptr) {
+      const size_t idx = (size_t)row * walk.n + off;
       uint4 raw;
       __nv_bfloat16* c = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll

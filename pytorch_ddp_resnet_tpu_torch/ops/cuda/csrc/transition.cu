@@ -10,17 +10,17 @@
 //                             four parity planes, their quantization, the
 //                             int8 stride-2 conv, the shortcut and the sums
 //   bwd_amax, bwd_quant    <- the cotangent fold and the per-tile
-//                             quantizers of _bwd_kernel (site :619, FQT);
+//                             quantizers of _bwd_kernel (site :619, FQT;
+//                             the activation's codes as parity planes);
 //                             bwd_quant also writes x's even-even plane
 //   bwd_fold               <- its straight-through cotangent fold and bf16
 //                             prologue recomputation (as parity planes),
 //                             and the even-even plane of x for dWp
 //   dgrad_launch           <- its per-plane dgrad, masks, norm1 chain,
 //                             shortcut cotangent and d(scale)/d(shift)
-//   wgrad_launch           <- its FQT wgrad (transition_wgrad.cu: the
-//                             straight-through wgrad and dWp)
 //   partial_sum            <- the TPU kernels' sums carried across their
 //                             sequential grid
+// (its wgrad in both bodies and dWp: transition_wgrad.cu)
 //
 // The forward keeps the reference's parity planes, as a layout in which
 // every tap of the stride-2 conv is one position offset
@@ -64,29 +64,23 @@
 // the projection (slower than 128), the column factors prefetched into
 // shared memory (no faster).
 //
-// The backward indexes the stride-2 taps directly:
-// - The dgrad is the same contraction per parity class of input pixel
-//   (blockIdx.z = 2 * (ih % 2) + (iw % 2)): a pixel of class p receives
-//   the 1, 2, 2 or 4 taps of that class, each from the cotangent at the
-//   output pixel (i + sh, j + sw), sh, sw in {0, 1}; so the block is a
-//   stride-1 contraction at the output geometry over just those taps. Its
-//   epilogue recomputes the relu/dropout masks and the norm1 chain from x,
-//   adds the shortcut's cotangent on class 0 (a second bf16 contraction
-//   of Wp^T @ dres, or dres itself for option A) and sums d(scale) and
-//   d(shift).
-// - The FQT wgrad is a GEMM over output positions, dW[co, (tap, ci)] =
-//   sum_p g[co, p] * d[ci, src(p, tap)]: a block owns 64 output channels
-//   x (taps x 32 input channels) and walks its span of positions in
-//   chunks, staging g and gathering the taps' source values (the int8 d
-//   of the FQT quantizer) through a per-chunk table of each (tap,
-//   position)'s source lane, zero outside the image. Each span's f32 tile
-//   goes to its slot of a partial buffer (one span per scale group, its
-//   s32 sum times the group's scale) and partial_sum adds the slots in
-//   order.
-// - The straight-through wgrad and dWp run in transition_wgrad.cu on
-//   wgrad_wgmma_bf16.cuh (TMA + wgmma), on the parity planes of d and the
-//   even-even plane of x that bwd_fold_kernel writes (and, for dWp in the
-//   FQT body, bwd_quant_kernel).
+// The backward:
+// - The dgrad indexes the stride-2 taps directly: the same contraction
+//   per parity class of input pixel (blockIdx.z = 2 * (ih % 2) + (iw %
+//   2)): a pixel of class p receives the 1, 2, 2 or 4 taps of that
+//   class, each from the cotangent at the output pixel (i + sh, j + sw),
+//   sh, sw in {0, 1}; so the block is a stride-1 contraction at the
+//   output geometry over just those taps. Its epilogue recomputes the
+//   relu/dropout masks and the norm1 chain from x, adds the shortcut's
+//   cotangent on class 0 (a second bf16 contraction of Wp^T @ dres, or
+//   dres itself for option A) and sums d(scale) and d(shift).
+// - Both bodies' wgrad and dWp run in transition_wgrad.cu on the parity
+//   planes of d and the even-even plane of x that the operand passes write:
+//   the FQT quantizer (bwd_quant_kernel) stores the activation's int8
+//   codes as the four planes [4][Cin][N'] (the even columns of each 8-lane
+//   unit into plane 2 ph, the odd ones into 2 ph + 1: the same bytes as the
+//   lane layout, the JAX kernel's d_ref rows p * Cin + ci), the
+//   straight-through fold (bwd_fold_kernel) the bf16 prologue likewise.
 //
 // Scale groups: the quantizers take one absmax per group of whole images
 // (the reference's transition_tile of output lanes; 4x as many input
@@ -105,8 +99,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "conv3x3_rows.cuh"
@@ -678,11 +670,32 @@ __global__ void bwd_fold_kernel(Cotangent ct, int cout, int n_out,
   }
 }
 
+// Where the activation's quantizer puts a unit's 8 codes (8 input lanes of
+// one row from an even column, images of h x w, w % 16 == 0): the 4 even
+// columns' into parity plane 2 ph and the 4 odd ones' into 2 ph + 1 of d_q
+// [4][cin][n_out], at the output lanes under them (ops/cuda/transition.py
+// parity_planes).
+struct PlaneStore {
+  int h, w, cin, n_out;
+  __device__ __forceinline__ void operator()(signed char* q, int row, int,
+                                             size_t off, uint2 v) const {
+    // 32-bit index arithmetic (a lane offset is below 4 * n_out < 2^31)
+    const int o = (int)off, hw = h * w;
+    const int img = o / hw, rem = o - img * hw;
+    const int ih = rem / w, iw = rem - ih * w;
+    const size_t at = ((size_t)2 * (ih & 1) * cin + row) * n_out +
+                      img * (hw / 4) + (ih / 2) * (w / 2) + iw / 2;
+    *reinterpret_cast<uint32_t*>(q + at) = __byte_perm(v.x, v.y, 0x6420);
+    *reinterpret_cast<uint32_t*>(q + at + (size_t)cin * n_out) =
+        __byte_perm(v.x, v.y, 0x7531);
+  }
+};
+
 // The FQT quantizers of fused_half.cuh (blockIdx.z 0: the folded
-// cotangent, 1: the recomputed activation), and in the same launch (z = 2)
-// the raw even-even plane of x [cin, 4 * n_out] into x_ee [cin][n_out] for
-// dWp, walking the cotangent's scale groups (8 output lanes a unit, ow % 8
-// == 0).
+// cotangent, in the lane layout; 1: the recomputed activation, as parity
+// planes), and in the same launch (z = 2) the raw even-even plane of x
+// [cin, 4 * n_out] into x_ee [cin][n_out] for dWp, walking the cotangent's
+// scale groups (8 output lanes a unit, ow % 8 == 0).
 template <typename Fn0, typename Fn1>
 __global__ void __launch_bounds__(256)
 bwd_quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0,
@@ -695,7 +708,8 @@ bwd_quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0,
                            out0.amax, out0.copy);
   } else if (blockIdx.z == 1) {
     fused_half::quant_body(fn1, rows1, walk1, part + groups * walk0.slices,
-                           out1.floor, out1.q, out1.amax, out1.copy);
+                           out1.floor, out1.q, out1.amax, out1.copy,
+                           PlaneStore{h, w, rows1, walk0.n});
   } else {
     for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
          u < walk0.units(rows1); u += (long)walk0.slices * blockDim.x) {
@@ -826,167 +840,6 @@ int dgrad_smem_bytes(int h, int w) {
   const int s = stage_bytes<T>(4, 1, rows, ow);
   const int p = stage_bytes<bf16>(1, 1, rows, ow);
   return dgrad_cs_bytes<BN>() + (s > p ? s : p);
-}
-
-// --- wgrad: a GEMM over output positions ---------------------------------------
-
-constexpr int WG_CI = 32;            // input channels per block
-constexpr int WG_KB = 128;           // bytes of positions per staged chunk
-constexpr int WG_PITCH = WG_KB + 16;  // bytes per staged row
-
-// NTAPS = 9: the 3x3 taps; 1: the projection's (dh, dw) = (1, 1). a is
-// the cotangent [cout, n_out], b the operand the taps read at the input
-// geometry [cin, 4 * n_out]. part[span][cout][NTAPS * cin]; FQT (T =
-// int8): one span per scale group, scaled by (d_amax * g_amax) / 127^2.
-// Instantiated for the FQT body only (signed char, 9).
-template <typename T, int NTAPS>
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b,
-             const float* __restrict__ g_amax,
-             const float* __restrict__ d_amax, float* __restrict__ part,
-             int cout, int cin, int n_out, int h, int w, int span) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using AccT = typename Acc<T>::type;
-  constexpr int E = 4 / sizeof(T);          // positions per 32-bit word
-  constexpr int KC = WG_KB / sizeof(T);     // positions per chunk
-  constexpr int NROWS = NTAPS * WG_CI;      // staged B rows
-  unsigned char* As = smem;                    // [BM][WG_PITCH]
-  unsigned char* Bs = smem + BM * WG_PITCH;    // [NROWS][WG_PITCH]
-  // [NTAPS][KC]: the source lane of each (tap, position) of the chunk,
-  // or -1 outside the image
-  int* Ts = reinterpret_cast<int*>(Bs + NROWS * WG_PITCH);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int warp_m = warp / 4;
-  const int warp_n = warp % 4;
-  const int ci0 = blockIdx.x * WG_CI;
-  const int m0 = blockIdx.y * BM;
-  const int z = blockIdx.z;
-  const int oh = h / 2, ow = w / 2, ohw = oh * ow;
-  const size_t n = (size_t)4 * n_out;
-
-  const int q = lane / 8;
-  const int a_row = warp_m * 32 + (q & 1) * 8 + lane % 8;
-  const int a_byte = (q >> 1) * 16;
-
-  AccT acc[2][NTAPS][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < NTAPS; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][f][e] = 0;
-
-  for (int p0 = z * span; p0 < (z + 1) * span; p0 += KC) {
-    __syncthreads();
-    for (int i = tid; i < BM * (WG_KB / 16); i += THREADS) {
-      const int row = i / (WG_KB / 16);
-      const int piece = i % (WG_KB / 16);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + row < cout)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + row) * n_out +
-                                            p0 + piece * (16 / sizeof(T)));
-      *reinterpret_cast<uint4*>(As + row * WG_PITCH + piece * 16) = v;
-    }
-    for (int i = tid; i < NTAPS * KC; i += THREADS) {
-      const int tap = NTAPS == 9 ? i / KC : 4;
-      const int p = p0 + i % KC;
-      const int img = p / ohw;
-      const int rem = p - img * ohw;
-      const int ih = 2 * (rem / ow) + tap / 3 - 1;
-      const int iw = 2 * (rem % ow) + tap % 3 - 1;
-      Ts[i] = (ih >= 0 && ih < h && iw >= 0 && iw < w)
-                  ? img * h * w + ih * w + iw
-                  : -1;
-    }
-    __syncthreads();
-    // B rows (tap, ci): E consecutive positions per 32-bit word
-    for (int i = tid; i < NROWS * (WG_KB / 4); i += THREADS) {
-      const int wd = i % (WG_KB / 4);
-      const int nrow = i / (WG_KB / 4);
-      const int* offs = Ts + (nrow / WG_CI) * KC + wd * E;
-      // the elements' bits: zero is all-zero bits in int8 and bf16
-      using Raw = std::conditional_t<sizeof(T) == 1, uint8_t, uint16_t>;
-      const Raw* src = reinterpret_cast<const Raw*>(b) +
-                       (size_t)(ci0 + nrow % WG_CI) * n;
-      Raw v[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int off = offs[e];
-        v[e] = off >= 0 ? src[off] : Raw(0);
-      }
-      *reinterpret_cast<uint32_t*>(Bs + nrow * WG_PITCH + wd * 4) =
-          *reinterpret_cast<const uint32_t*>(v);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < WG_KB / 32; ++ks) {
-      uint32_t af[2][4];
-      const uint32_t a_base =
-          smem_addr(As + a_row * WG_PITCH + a_byte) + ks * 32;
-      ldmatrix_x4(af[0], a_base);
-      ldmatrix_x4(af[1], a_base + 16 * WG_PITCH);
-#pragma unroll
-      for (int f = 0; f < NTAPS; ++f) {
-        const int F = warp_n * NTAPS + f;
-        const unsigned char* bp =
-            Bs + (F * 8 + lane / 4) * WG_PITCH + ks * 32 + (lane % 4) * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
-        mma_step(acc[0][f], af[0], b0, b1);
-        mma_step(acc[1][f], af[1], b0, b1);
-      }
-    }
-  }
-
-  const float ts = d_amax != nullptr
-                       ? __fmul_rn(__fmul_rn(d_amax[z], g_amax[z]),
-                                   common::kInv16129)
-                       : 1.f;
-  const size_t kdim = (size_t)NTAPS * cin;
-  float* out = part + (size_t)z * cout * kdim;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < NTAPS; ++f) {
-      const int F = warp_n * NTAPS + f;
-      const int c = (F / 4) * cin + ci0 + (F % 4) * 8 + (lane % 4) * 2;
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int row = m0 + warp_m * 32 + mi * 16 + lane / 4 + hi * 8;
-        if (row < cout) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const AccT v = acc[mi][f][2 * hi + e];
-            out[row * kdim + c + e] =
-                d_amax != nullptr ? __fmul_rn(__int2float_rn((int)v), ts)
-                                  : (float)v;
-          }
-        }
-      }
-    }
-}
-
-template <typename T, int NTAPS>
-int launch_wgrad(const T* a, const T* b, const float* g_amax,
-                 const float* d_amax, float* part, int cout, int cin,
-                 int n_out, int h, int w, int spans, cudaStream_t stream) {
-  static int smem_set = 0;
-  const int bytes = (BM + NTAPS * WG_CI) * WG_PITCH +
-                    NTAPS * (WG_KB / (int)sizeof(T)) * 4;
-  if (bytes > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_kernel<T, NTAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = bytes;
-  }
-  const dim3 grid(cin / WG_CI, (cout + BM - 1) / BM, spans);
-  wgrad_kernel<T, NTAPS><<<grid, THREADS, bytes, stream>>>(
-      a, b, g_amax, d_amax, part, cout, cin, n_out, h, w, n_out / spans);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // --- launch helpers --------------------------------------------------------------
@@ -1132,9 +985,10 @@ int bwd_amax_launch(const void* dz, const void* z, const void* dzsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g_q [cout, n_out], d_q [cin, 4 * n_out] int8; g_amax, d_amax
-// [n_out / tile] f32; floor 1e-30; x_ee [cin][n_out] bf16, the raw x at
-// the even-even pixels (images of h x w, w % 16 == 0).
+// g_q [cout, n_out] int8, d_q [4][cin][n_out] int8 (the activation's
+// codes as parity planes); g_amax, d_amax [n_out / tile] f32; floor 1e-30;
+// x_ee [cin][n_out] bf16, the raw x at the even-even pixels (images of h x
+// w, w % 16 == 0).
 int bwd_quant_launch(const void* dz, const void* z, const void* dzsum,
                      const void* dzssq, const void* x, const void* scale,
                      const void* shift, const void* bits, const void* part,
@@ -1215,18 +1069,6 @@ int dgrad_launch(const void* g, const void* w_dg, const void* g_amax,
     case -64: return launch_dgrad<bf16, 64>(a, st);
     default: return -1;
   }
-}
-
-// The FQT wgrad: g_q [cout, n_out] int8, d_q [cin, 4 * n_out] int8,
-// g_amax/d_amax [spans] (one span per scale group); part [spans][cout][9 *
-// cin]. cin % 32 == 0, w % 2 == 0, n_out a multiple of spans * 128.
-int wgrad_launch(const void* g_q, const void* d_q, const void* g_amax,
-                 const void* d_amax, void* part, int cout, int cin, int n_out,
-                 int h, int w, int spans, void* stream) {
-  return launch_wgrad<signed char, 9>(
-      in<signed char>(g_q), in<signed char>(d_q), in<float>(g_amax),
-      in<float>(d_amax), static_cast<float*>(part), cout, cin, n_out, h, w,
-      spans, as_stream(stream));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

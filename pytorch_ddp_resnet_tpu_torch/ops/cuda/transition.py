@@ -26,7 +26,7 @@ and has two bodies, as the reference's ``quant_bwd``:
 - FQT: gf and the recomputed d are quantized per group (floor 1e-30); the
   dgrad runs the transposed stride-2 conv of the int8 cotangent against
   per-input-channel int8 weights, the wgrad contracts the two int8
-  operands per group;
+  operands per group exactly and adds the groups' scaled sums in order;
 - straight-through: g = bf16(gf), the original weights in bf16 and the
   bf16 prologue recomputed, f32 accumulation.
 
@@ -39,14 +39,15 @@ The reference lays the input out as four parity planes, a TPU lane trick.
 The forward keeps them as a layout (``transition_fwd_layout``): each scale
 group's planes, padded with a zero row above and a zero column left of each
 image, position-major in an int8 slab, so that every tap of the stride-2
-conv is one position offset of a GEMM's A rows. The straight-through
-backward's fold writes the prologue d as its four planes, channel-major
-([4, Cin, N']), and x's even-even plane ([Cin, N'], also written by the
-FQT quantizer): every tap of the weight gradient then reads one plane at
-a shift of at most one row and one column (``TAP_TABLE``), and dWp one
-plane unshifted. The dgrad and the FQT wgrad index the stride-2 taps
-directly. The dropout bits' parity layout [4*Cin, N'] (plane-major rows,
-the reference's draw) is re-laid once to [Cin, N] by ``parity_unpack``.
+conv is one position offset of a GEMM's A rows. Both backward bodies'
+operand passes write the prologue d as its four planes, channel-major
+([4, Cin, N']: the FQT quantizer its int8 codes, the straight-through fold
+its bf16 values), and x's even-even plane ([Cin, N']): every tap of the
+weight gradient then reads one plane at a shift of at most one row and one
+column (``TAP_TABLE``), and dWp one plane unshifted. The dgrad indexes the
+stride-2 taps directly. The dropout bits' parity layout [4*Cin, N']
+(plane-major rows, the reference's draw) is re-laid once to [Cin, N] by
+``parity_unpack``.
 
 Layers of this module, each a CPU-or-card wrapper beside its plain version
 (a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
@@ -61,13 +62,16 @@ kernel of ``csrc/transition.cu`` or raises):
 - ``fwd_gemm``      (launches ``transition_fwd``, ``.sum``: the staged
   mainloop of ``csrc/fwd_staged_s8.cuh`` over the slabs, z, res and the
   ordered sums)
-- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT;
-  the quantizer also writes x's even-even plane)
+- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT:
+  the activation's codes as parity planes, and x's even-even plane)
 - ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
   the rounded cotangent, the bf16 prologue's parity planes and x's
   even-even plane)
 - ``dgrad``         (launches ``transition_dgrad``, ``.sum``)
-- ``wgrad``         (launches ``transition_wgrad``, ``.sum``; FQT)
+- ``wgrad``         (launches ``transition_wgrad_s8``; FQT: one launch of
+  ``csrc/transition_wgrad.cu`` on the TMA + s8 wgmma mainloop of
+  ``csrc/wgrad_wgmma_s8.cuh``, the scale groups folded in order in each
+  tile)
 - ``wgrad_bf16``    (launches ``transition_wgrad_tma``, ``.sum``:
   ``csrc/transition_wgrad.cu`` on the TMA + wgmma mainloop of
   ``csrc/wgrad_wgmma_bf16.cuh``)
@@ -88,7 +92,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.nn.grad import conv2d_input, conv2d_weight
+from torch.nn.grad import conv2d_input
 
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
@@ -433,16 +437,19 @@ def fwd_gemm_plain(slab, ee, amax, w_q, ws, wp_c, lay):
 
 def bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *,
                        thresh, tile, h, w_img):
-    """FQT operands per group: (g_q [Cout, N'], g_amax, d_q [Cin, N],
+    """FQT operands per group: (g_q [Cout, N'], g_amax, d_q [4, Cin, N'],
     d_amax, x_ee [Cin, N']); the cotangent's groups are ``tile`` lanes,
     the activation's ``4 * tile`` (the same images), both with floor 1e-30;
-    x_ee is x at the even-even pixels (dWp's operand)."""
+    d_q holds the activation's codes as its parity planes
+    (``parity_planes``), x_ee is x at the even-even pixels (dWp's
+    operand)."""
     gf = fb.fold_cotangent_plain(dz, z, dzsum, dzssq)
     g_q, g_amax = fb.quantize_groups_plain(gf, tile, fb.BWD_FLOOR)
     d_q, d_amax = fb.quantize_groups_plain(
         fb.prologue_plain(x, scale, shift, bits, thresh), 4 * tile,
         fb.BWD_FLOOR)
-    return g_q, g_amax, d_q, d_amax, _even(x, h, w_img).contiguous()
+    return (g_q, g_amax, torch.stack(parity_planes(d_q, h, w_img)), d_amax,
+            _even(x, h, w_img).contiguous())
 
 
 def bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
@@ -482,28 +489,38 @@ def dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
     return (dx.to(x.dtype), (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1))
 
 
-def _wgrad_f64(g, d, h, w_img):
-    """sum over positions of g [Cout, N'] x the stride-2 patches of d
-    [Cin, N], float64, as [Cout, 9*Cin] in (dh, dw, ci) order."""
-    cout = g.shape[0]
-    cin, n = d.shape
-    b = n // (h * w_img)
-    dw = conv2d_weight(_nchw(d, h, w_img), (cout, cin, 3, 3),
-                       _nchw(g, h // 2, w_img // 2), stride=2, padding=1)
-    return dw.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+def _tap_views(d: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
+    """The nine taps' views of the parity planes d [4, Cin, N'] at the
+    output geometry, float64: [9, Cin, N'], tap t its plane moved by its
+    row and column shift (``TAP_TABLE``), zero off the image."""
+    cin, n_out = d.shape[1:]
+    oh, ow = h // 2, w_img // 2
+    planes = F.pad(d.to(_F64).reshape(4, cin, n_out // (oh * ow), oh, ow),
+                   (1, 1, 1, 1))
+    return torch.stack([planes[p, :, :, 1 + rs:1 + rs + oh,
+                               1 + cs:1 + cs + ow].reshape(cin, n_out)
+                        for p, rs, cs in TAP_TABLE])
 
 
 def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
-    """FQT dW [Cout, 9*Cin] f32: per group the exact s32 contraction times
-    (d_amax * g_amax) / 127^2, summed over the groups in order."""
+    """FQT dW [3, 3, Cin, Cout] f32 (HWIO, the layout the kernel writes):
+    the int8 cotangent g_q [Cout, N'] against the activation's codes as
+    parity planes d_q [4, Cin, N'] of ``bwd_quantize``, each tap its plane
+    at its shift (``TAP_TABLE``); per group of ``tile`` output lanes the
+    exact s32 contraction times (d_amax * g_amax) / 127^2, summed over the
+    groups in order (the reference's ``_w_init`` / ``_w_acc``)."""
+    cout = g_q.shape[0]
+    cin = d_q.shape[1]
+    taps = _tap_views(d_q, h, w_img)
+    g64 = g_q.to(_F64).t()
     out = None
     for grp in range(g_q.shape[1] // tile):
         lo, hi = grp * tile, (grp + 1) * tile
-        acc = _wgrad_f64(g_q[:, lo:hi], d_q[:, 4 * lo:4 * hi], h, w_img)
+        acc = taps[:, :, lo:hi] @ g64[lo:hi]
         contrib = acc.to(_F32) * ((d_amax[grp] * g_amax[grp])
                                   * fb.INV_16129)
         out = contrib if out is None else out + contrib
-    return out
+    return out.reshape(3, 3, cin, cout)
 
 
 def wgrad_bf16_plain(g, d, *, h, w_img):
@@ -512,15 +529,10 @@ def wgrad_bf16_plain(g, d, *, h, w_img):
     prologue's parity planes d [4, Cin, N'] of ``bwd_fold``, each tap its
     plane at its shift (``TAP_TABLE``), summed in float64 over every output
     position (h x w_img: the input geometry)."""
-    cout, n_out = g.shape
+    cout = g.shape[0]
     cin = d.shape[1]
-    oh, ow = h // 2, w_img // 2
-    planes = F.pad(d.to(_F64).reshape(4, cin, n_out // (oh * ow), oh, ow),
-                   (1, 1, 1, 1))
-    g64 = g.to(_F64).t()
-    taps = [planes[p, :, :, 1 + rs:1 + rs + oh, 1 + cs:1 + cs + ow].reshape(
-        cin, n_out) @ g64 for p, rs, cs in TAP_TABLE]
-    return torch.stack(taps).to(_F32).reshape(3, 3, cin, cout)
+    return (_tap_views(d, h, w_img) @ g.to(_F64).t()).to(_F32).reshape(
+        3, 3, cin, cout)
 
 
 def wgrad_proj_plain(dres, x_ee, *, h, w_img):
@@ -534,7 +546,6 @@ def wgrad_proj_plain(dres, x_ee, *, h, w_img):
 
 # --- kernels -------------------------------------------------------------------------
 
-WG_KC = 128   # positions per chunk of the FQT wgrad
 _lib: Optional[ctypes.CDLL] = None
 _lib_wgrad: Optional[ctypes.CDLL] = None
 
@@ -553,7 +564,6 @@ def _library() -> ctypes.CDLL:
             "bwd_quant_launch": [_P] * 14 + [_I] * 8 + [_F, _P],
             "bwd_fold_launch": [_P] * 11 + [_I] * 6 + [_F, _P],
             "dgrad_launch": [_P] * 12 + [_I] * 8 + [_F, _P],
-            "wgrad_launch": [_P] * 5 + [_I] * 6 + [_P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
         }
         for name, args in sigs.items():
@@ -565,7 +575,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _library_wgrad() -> ctypes.CDLL:
-    """csrc/transition_wgrad.cu: the straight-through wgrad and dWp."""
+    """csrc/transition_wgrad.cu: both bodies' wgrad and dWp."""
     global _lib_wgrad
     if _lib_wgrad is None:
         from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
@@ -574,6 +584,9 @@ def _library_wgrad() -> ctypes.CDLL:
         lib.transition_wgrad_launch.argtypes = ([_P] * 3 + [_I, _P]
                                                 + [_I] * 9 + [_P])
         lib.transition_wgrad_launch.restype = _I
+        lib.transition_wgrad_s8_launch.argtypes = ([_P] * 5 + [_I, _P]
+                                                   + [_I] * 8 + [_P])
+        lib.transition_wgrad_s8_launch.restype = _I
         lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
         lib.partial_sum_launch.restype = _I
         _lib_wgrad = lib
@@ -794,8 +807,9 @@ def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
                  tile, h, w_img):
     """The FQT backward's operands: the folded cotangent quantized per group
     of ``tile`` output lanes, the recomputed activation per group of
-    ``4 * tile`` input lanes (floor 1e-30), and x's even-even plane for dWp:
-    (g_q, g_amax, d_q, d_amax, x_ee)."""
+    ``4 * tile`` input lanes (floor 1e-30) as its parity planes [4, Cin,
+    N'], and x's even-even plane for dWp: (g_q, g_amax, d_q, d_amax,
+    x_ee)."""
     if on_cpu(dz):
         return bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
                                   thresh=thresh, tile=tile, h=h, w_img=w_img)
@@ -825,7 +839,7 @@ def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
     _launch(f"{name}.amax", lib.bwd_amax_launch, *ct, *pro, part.data_ptr(),
             *common)
     g_q = torch.empty((cout, n_out), dtype=torch.int8, device=dev)
-    d_q = torch.empty((cin, n), dtype=torch.int8, device=dev)
+    d_q = torch.empty((4, cin, n_out), dtype=torch.int8, device=dev)
     g_amax = torch.empty(groups, dtype=_F32, device=dev)
     d_amax = torch.empty(groups, dtype=_F32, device=dev)
     x_ee = torch.empty((cin, n_out), dtype=torch.bfloat16, device=dev)
@@ -919,26 +933,126 @@ def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
     return dx, sums[:cin], sums[cin:]
 
 
+# csrc/wgrad_wgmma_s8.cuh: M rows a tile, positions (bytes) a K step, the
+# bytes of a staged d row (the step and the 16-byte unit before it), and
+# the N tiles it is built for
+S8_BM, S8_BK, S8_XROW = 128, 128, 144
+S8_BNS = (128, 64, 32)
+# the plan's model of an H100 SXM, fitted to the kernel's times on the card
+# (PERF.md): 132 SMs, one block on each; a block's time is the bytes
+# its TMA boxes bring in (its staged d rows and its B rows) at up to 38 GB/s
+# an SM and 4.4 TB/s in all (bytes a microsecond): the boxes of 144-byte
+# rows, not the tensor cores, set the pace
+S8_SMS = 132
+S8_SM_BPUS = 3.8e4
+S8_BPUS = 4.4e6
+
+
+class WgradS8Plan(NamedTuple):
+    """How the FQT wgrad's kernel cuts dW [9*Cin, Cout]: ``m_tiles`` x
+    ``n_tiles`` tiles of 128 x ``bn``, one block each, ``waves`` waves on
+    132 SMs; every block walks all ``steps`` K steps of 128 positions,
+    ``spg`` to a scale group; ``us`` the model's time."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    steps: int
+    spg: int
+    waves: int
+    us: float
+
+
+def check_wgrad_s8_geometry(name: str, cin: int, cout: int, h: int,
+                            w_img: int, n_out: int, tile: int) -> None:
+    """The FQT wgrad's own shape needs (csrc/wgrad_wgmma_s8.cuh, at the
+    output geometry (h/2, w_img/2) of ``n_out`` positions): Cin in
+    32-channel pieces, which the op's zero padding gives; Cout a multiple
+    of 8; whole output images of a multiple of 16 positions (a 16-byte unit
+    of a K step lies in one image); scale groups of ``tile`` positions, a
+    whole number of 128-position K steps. This takes every shape of
+    ``check_wgrad_geometry`` and more; the FQT body as a whole stays bounded
+    by its operand passes (``_check_rows``) and the dgrad
+    (``check_geometry``)."""
+    if h % 2 or w_img % 2:
+        raise ValueError(f"{name}: geometry H={h} W={w_img} is not even")
+    oh, ow = h // 2, w_img // 2
+    if cin % 32:
+        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
+    if cout % 8:
+        raise ValueError(f"{name}: Cout={cout} is not a multiple of 8")
+    if (oh * ow) % 16 or n_out % (oh * ow):
+        raise ValueError(f"{name}: N'={n_out} / output image {oh}x{ow} is "
+                         "not whole images of a multiple of 16 positions")
+    if tile % S8_BK or n_out % tile:
+        raise ValueError(f"{name}: scale group of {tile} positions vs "
+                         f"N'={n_out} and the {S8_BK}-position K step")
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_s8_plan(cin: int, cout: int, n_out: int, h: int, w_img: int,
+                  tile: int) -> WgradS8Plan:
+    """The FQT wgrad's N tile, from a model of its blocks on an H100: the
+    blocks run in waves of one an SM, each bringing in its staged d rows
+    (144 bytes a 128-byte K step of each of its M rows; every N tile loads
+    them again) and its B rows (every M tile loads them again), at the
+    smaller of an SM's rate and the card's rate shared by the wave's
+    blocks; the widest tile among equals. No split over positions: the
+    scale groups are added in order inside each tile. Cached: every call
+    asks."""
+    check_wgrad_s8_geometry("wgrad_s8_plan", cin, cout, h, w_img, n_out,
+                            tile)
+    m = 9 * cin
+    m_tiles, steps = -(-m // S8_BM), n_out // S8_BK
+
+    def plan(bn):
+        n_tiles = -(-cout // bn)
+        blocks = m_tiles * n_tiles
+        waves = -(-blocks // S8_SMS)
+        # the bytes the blocks' boxes bring in: every N tile's staged d
+        # rows, every M tile's B rows
+        byts = n_tiles * m * n_out * S8_XROW / S8_BK + m_tiles * cout * n_out
+        us = sum(byts / blocks / min(S8_SM_BPUS, S8_BPUS / min(
+            S8_SMS, blocks - w * S8_SMS)) for w in range(waves))
+        return WgradS8Plan(bn, m_tiles, n_tiles, steps, tile // S8_BK,
+                           waves, us)
+
+    return min((plan(bn) for bn in S8_BNS), key=lambda p: (p.us, -p.bn))
+
+
 def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
-    """FQT dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order."""
+    """FQT dW [3, 3, Cin, Cout] f32 (HWIO): the int8 cotangent g_q [Cout,
+    N'] against the activation's parity planes d_q [4, Cin, N'] of
+    ``bwd_quantize``, per scale group of ``tile`` output lanes, the groups
+    added in order. On the card one launch of the TMA + s8 wgmma kernel
+    (``transition_wgrad_s8``) on ``wgrad_s8_plan``'s tiles, bit-equal to
+    the plain version; the geometry of ``check_wgrad_s8_geometry``."""
     if on_cpu(g_q):
         return wgrad_plain(g_q, g_amax, d_q, d_amax, tile=tile, h=h,
                            w_img=w_img)
-    name = "transition_wgrad"
+    name = "transition_wgrad_s8"
+    if d_q.dim() != 3 or d_q.shape[0] != 4:
+        raise ValueError(f"{name}: d {tuple(d_q.shape)} is not 4 parity "
+                         "planes")
     cout, n_out = g_q.shape
-    cin = d_q.shape[0]
-    check_geometry(name, cin, cout, h, w_img, 4 * n_out, None)
-    if n_out % tile or tile % WG_KC:
-        raise ValueError(f"{name}: tile {tile} vs N'={n_out} and the "
-                         f"{WG_KC}-position chunk")
+    cin = d_q.shape[1]
+    if d_q.shape[2] != n_out:
+        raise ValueError(f"{name}: operands {tuple(d_q.shape)} and "
+                         f"{tuple(g_q.shape)}")
+    check_wgrad_s8_geometry(name, cin, cout, h, w_img, n_out, tile)
+    groups = n_out // tile
+    if tuple(g_amax.shape) != (groups,) or tuple(d_amax.shape) != (groups,):
+        raise ValueError(f"{name}: absmaxes {tuple(g_amax.shape)}, "
+                         f"{tuple(d_amax.shape)} vs {groups} scale groups")
     require_cuda(name, [g_q, g_amax, d_q, d_amax],
                  [torch.int8, _F32, torch.int8, _F32])
-    spans = n_out // tile
-    part = torch.empty((spans, 9 * cin * cout), dtype=_F32, device=g_q.device)
-    _launch(name, _library().wgrad_launch, g_q.data_ptr(), d_q.data_ptr(),
-            g_amax.data_ptr(), d_amax.data_ptr(), part.data_ptr(), cout, cin,
-            n_out, h, w_img, spans, _stream(g_q))
-    return _partial_sum(f"{name}.sum", part).reshape(cout, 9 * cin)
+    plan = wgrad_s8_plan(cin, cout, n_out, h, w_img, tile)
+    dw = torch.empty((9 * cin, cout), dtype=_F32, device=g_q.device)
+    tab = (ctypes.c_int * 27)(*(v for t in TAP_TABLE for v in t))
+    _launch(name, _library_wgrad().transition_wgrad_s8_launch,
+            d_q.data_ptr(), g_q.data_ptr(), g_amax.data_ptr(),
+            d_amax.data_ptr(), dw.data_ptr(), 4, ctypes.addressof(tab), 9,
+            cin, cout, n_out, h // 2, w_img // 2, tile, plan.bn, _stream(g_q))
+    return dw.reshape(3, 3, cin, cout)
 
 
 def check_wgrad_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
@@ -1060,8 +1174,9 @@ class _TransitionHalf(torch.autograd.Function):
                 **kw)
             dx, ds, dt = dgrad(g, g_amax, w_dg, ws_in, x_cs, scale, shift,
                                bits, dres, wpt, tile=tile, **kw)
-            dw = wgrad(g, g_amax, d_q, d_amax, tile=tile, **geo).reshape(
-                cout, 3, 3, cin).permute(0, 3, 1, 2)
+            # HWIO -> OIHW
+            dw = wgrad(g, g_amax, d_q, d_amax, tile=tile, **geo).permute(
+                3, 2, 0, 1)
         else:
             g, d, x_ee = bwd_fold(dz, z, dzsum, dzssq, x_cs, scale, shift,
                                   bits, **kw)

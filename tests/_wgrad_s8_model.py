@@ -1,0 +1,234 @@
+"""A numpy model of the lane transition's FQT weight gradient on the card
+(ops/cuda/csrc/wgrad_wgmma_s8.cuh ``wgrad_s8_kernel``) and of the
+quantizer's parity-plane store (ops/cuda/csrc/transition.cu
+``PlaneStore``), for tests/test_torch_transition_wgrad_s8.py.
+
+Per block (n tile, m tile) and K step of 128 positions: the producer's box
+of each live 32-channel piece through the flat [4 * Cin, N'] map (144
+bytes from the step's start moved by the tap's shift rounded down to 16
+bytes, zeros out of bounds), landing dense; the shifter warp of that piece
+taking each output unit's 16 bytes at the shift's remainder from two
+staged units (the kernel's byte permutes at the shift's word offset),
+zeroing the bytes whose source falls off the image (the kernel's mask of
+each unit, from the place in the image and the column carried from step
+to step as the kernel carries them), storing at the 128-byte swizzle's
+place; B's box landing in the 128-byte swizzle; every k32 of both operands
+read back through the consumers' K-major descriptors; the s32 tile exact
+within a scale group, and at each group's end folded into the f32 tile as
+the kernel folds it (int to f32, times the group's scale, added in group
+order, each rounded to f32). Numpy only (with ``_tma_layout``'s swizzle).
+"""
+
+import numpy as np
+
+from _tma_layout import swizzle_offset
+
+# csrc/wgrad_wgmma_s8.cuh
+BM, BK, PIECE, XROW = 128, 128, 32, 144
+INV_16129 = np.float32(1.0 / (127.0 * 127.0))   # common::kInv16129
+
+
+def byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 arrays: byte k of the result is byte
+    (s >> 4k) & 7 of the 8 bytes y:x (x the low four)."""
+    pool = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(
+        x, np.uint64)
+    out = np.zeros(np.shape(pool), np.uint64)
+    for k in range(4):
+        sel = np.uint64((s >> (4 * k)) & 7)
+        out |= ((pool >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << (
+            np.uint64(8 * k))
+    return out.astype(np.uint32)
+
+
+def bytes_at(lo, hi, off):
+    """The kernel's bytes_at on rows of 16-byte units lo, hi ([rows, 16]
+    uint8): the 16 bytes at byte ``off`` (0-15) of lo:hi, by a word select
+    and four byte permutes."""
+    v = np.concatenate([lo, hi], axis=1).view(np.uint32)   # [rows, 8]
+    w, sel = off >> 2, 0x3210 + 0x1111 * (off & 3)
+    t = v[:, w:w + 5]
+    out = np.stack([byte_perm(t[:, i], t[:, i + 1], sel) for i in range(4)],
+                   axis=1)
+    return np.ascontiguousarray(out).view(np.uint8)
+
+
+def lead(rs, cs, ow):
+    """Where the producer's box starts against the step: the tap's shift
+    rs * ow + cs (<= 0) rounded down to 16 bytes."""
+    return -((ow * -rs - cs + 15) & ~15)
+
+
+def d_box(flat, x0, row0):
+    """TMA's box of d flat [rows, N'] (uint8) at (position x0, row row0):
+    [32, 144], zeros out of bounds. x0 must be a multiple of 16 bytes, as
+    the card demands."""
+    assert x0 % 16 == 0
+    n = flat.shape[1]
+    q = np.arange(x0, x0 + XROW)
+    ok = (q >= 0) & (q < n)
+    out = np.zeros((PIECE, XROW), np.uint8)
+    out[:, ok] = flat[row0:row0 + PIECE, q[ok]]
+    return out
+
+
+def unit_mask(t, c, rs, cs, ow):
+    """The kernel's mask of one 16-byte unit (first position at place t in
+    its image, column c), branch-free as the kernel computes it: which of
+    its 16 positions read a source off the image (row 0 where rs < 0,
+    every ow-th byte from the first at column 0 where cs < 0)."""
+    colpat = sum(1 << j for j in range(0, 16, ow))
+    j0 = 0 if c == 0 else ow - c
+    z = ((((0xFFFF if ow - t >= 16 else (1 << (ow - t)) - 1))
+          if rs < 0 and t < ow else 0)
+         | ((colpat << j0) & 0xFFFF if cs < 0 and j0 < 16 else 0))
+    return np.array([(z >> j) & 1 for j in range(16)], bool)
+
+
+class Shifter:
+    """One shifter warp (one piece: 32 rows of one tap) across the K steps
+    in order: the lane of unit k carries the place in the image and the
+    column of the unit's first position from step to step as the kernel
+    does (starting from 16 k, moved BK on a step, one conditional
+    subtraction). ``masks`` False: the shifter without its zeroing (a
+    test's mutation)."""
+
+    def __init__(self, rs, cs, ow, ohw, masks=True):
+        self.rs, self.cs, self.ow, self.ohw = rs, cs, ow, ohw
+        self.off = rs * ow + cs - lead(rs, cs, ow)
+        self.t = [(16 * k) % ohw for k in range(BK // 16)]
+        self.c = [(16 * k) % ow for k in range(BK // 16)]
+        self.masks = masks
+
+    def step(self, staged):
+        """[32, 144] staged bytes -> the piece's [32, 128] A rows."""
+        out = np.empty((PIECE, BK), np.uint8)
+        for k in range(BK // 16):
+            v = bytes_at(staged[:, 16 * k:16 * k + 16],
+                         staged[:, 16 * k + 16:16 * k + 32], self.off)
+            if self.masks:
+                v[:, unit_mask(self.t[k], self.c[k], self.rs, self.cs,
+                               self.ow)] = 0
+            out[:, 16 * k:16 * k + 16] = v
+            self.t[k] += BK % self.ohw
+            if self.t[k] >= self.ohw:
+                self.t[k] -= self.ohw
+            self.c[k] += BK % self.ow
+            if self.c[k] >= self.ow:
+                self.c[k] -= self.ow
+        return out
+
+
+def a_rows(d, table, oh, ow, masks=True, lead_fn=lead):
+    """The A operand as the producer and the shifters build it, every K
+    step in order, unswizzled: [taps * Cin, N'] int8 from d [4, Cin, N']
+    int8 (``lead_fn``: the producer's box start, a test's mutation)."""
+    planes, cin, n = d.shape
+    flat = np.ascontiguousarray(d).view(np.uint8).reshape(planes * cin, n)
+    out = np.empty((len(table) * cin, n), np.uint8)
+    for tap, (plane, rs, cs) in enumerate(table):
+        for ci0 in range(0, cin, PIECE):
+            sh = Shifter(rs, cs, ow, oh * ow, masks)
+            row0 = plane * cin + ci0
+            for i in range(n // BK):
+                out[tap * cin + ci0:tap * cin + ci0 + PIECE,
+                    i * BK:(i + 1) * BK] = sh.step(
+                        d_box(flat, i * BK + lead_fn(rs, cs, ow), row0))
+    return out.view(np.int8)
+
+
+def _read(smem, start, rows):
+    """A k32 (rows x 32 bytes) read through a K-major 128-byte-swizzle
+    descriptor at byte ``start`` (rows 128 bytes apart, 8-row groups 1,024
+    apart; the start advanced 32 bytes a k32 within the row)."""
+    r = np.arange(rows)[:, None]
+    off = start + r * BK + np.arange(32)[None, :]
+    return smem[swizzle_offset(off, 128)]
+
+
+def model(d, g, g_amax, d_amax, tile, oh, ow, plan, table):
+    """dW [taps * Cin, Cout] f32 as the kernel computes it on ``plan``
+    (``transition.wgrad_s8_plan``): d [4, Cin, N'] and g [Cout, N'] int8,
+    g_amax and d_amax [N' / tile] f32."""
+    planes, cin, n = d.shape
+    cout = g.shape[0]
+    m, bn, spg = len(table) * cin, plan.bn, tile // BK
+    assert plan.spg == spg and plan.steps * BK == n
+    flat = np.ascontiguousarray(d).view(np.uint8).reshape(planes * cin, n)
+    gb = np.ascontiguousarray(g).view(np.uint8)
+    rng = np.random.default_rng(0)
+    dw = np.zeros((m, cout), np.float32)
+    for y in range(plan.m_tiles):
+        m0 = y * BM
+        live = min(BM, m - m0) // PIECE
+        pieces = []
+        for q in range(live):
+            tap, ci0 = divmod(m0 + q * PIECE, cin)
+            plane, rs, cs = table[tap]
+            pieces.append((plane * cin + ci0, lead(rs, cs, ow),
+                           (rs, cs)))
+        for x in range(plan.n_tiles):
+            n0 = x * bn
+            shifters = [Shifter(rs, cs, ow, oh * ow)
+                        for _, _, (rs, cs) in pieces]
+            acc = np.zeros((BM, bn), np.int64)
+            out = np.zeros((BM, bn), np.float32)
+            for i in range(plan.steps):
+                # rows past dW's are never written: garbage there
+                a_smem = rng.integers(0, 256, BM * BK).astype(np.uint8)
+                for q, ((row0, ld, _), sh) in enumerate(zip(pieces,
+                                                            shifters)):
+                    rows = sh.step(d_box(flat, i * BK + ld, row0))
+                    r = q * PIECE + np.arange(PIECE)[:, None]
+                    k = np.arange(BK)[None, :]
+                    a_smem[r * BK + (((k // 16) ^ (r & 7)) << 4)
+                           + k % 16] = rows
+                box = np.zeros((bn, BK), np.uint8)
+                hi = min(bn, cout - n0)
+                box[:hi] = gb[n0:n0 + hi, i * BK:(i + 1) * BK]
+                b_smem = np.empty(bn * BK, np.uint8)
+                b_smem[swizzle_offset(np.arange(bn * BK), 128)] = \
+                    box.reshape(-1)
+                if i % spg == 0:
+                    acc[:] = 0
+                for wg in range(2):
+                    for kk in range(BK // 32):
+                        a = _read(a_smem, wg * 64 * BK + 32 * kk, 64)
+                        bt = _read(b_smem, 32 * kk, bn)
+                        acc[wg * 64:wg * 64 + 64] += (
+                            a.view(np.int8).astype(np.int64)
+                            @ bt.view(np.int8).astype(np.int64).T)
+                if (i + 1) % spg == 0:
+                    grp = i // spg
+                    ts = np.float32(np.float32(d_amax[grp] * g_amax[grp])
+                                    * INV_16129)
+                    c = acc.astype(np.float32) * ts
+                    out = c if grp == 0 else out + c
+            rows, cols = min(BM, m - m0), min(bn, cout - n0)
+            dw[m0:m0 + rows, n0:n0 + cols] = out[:rows, :cols]
+    return dw
+
+
+def plane_store(q, h, w):
+    """The quantizer's PlaneStore over every 8-lane unit of the codes q
+    [Cin, N] int8 (images of h x w, w % 16 == 0): d_q [4, Cin, N / 4], each
+    unit's even columns' bytes (__byte_perm 0x6420) into plane 2 ph, the
+    odd ones' (0x7531) into 2 ph + 1, at the index arithmetic of the
+    kernel."""
+    cin, n = q.shape
+    n_out, hw = n // 4, h * w
+    out = np.zeros(4 * cin * n_out, np.uint8)
+    words = np.ascontiguousarray(q).view(np.uint8).reshape(cin, n // 8, 8)
+    words = words.copy().view(np.uint32).reshape(cin, n // 8, 2)
+    off = np.arange(0, n, 8)
+    img, rem = off // hw, off % hw
+    ih, iw = rem // w, rem % w
+    col = img * (hw // 4) + (ih // 2) * (w // 2) + iw // 2
+    for row in range(cin):
+        at = (2 * (ih & 1) * cin + row) * n_out + col
+        for sel, extra in ((0x6420, 0), (0x7531, cin * n_out)):
+            v = byte_perm(words[row, :, 0], words[row, :, 1], sel)
+            b = v.view(np.uint8).reshape(-1, 4)
+            for k in range(4):
+                out[at + extra + k] = b[:, k]
+    return out.view(np.int8).reshape(4, cin, n_out)

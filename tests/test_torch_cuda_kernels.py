@@ -1387,9 +1387,10 @@ def test_transition_op_launches_its_kernels(dev, quant_bwd):
             torch.cuda.synchronize()
             bwd = (("transition_bwd.amax", "transition_bwd.quant")
                    if quant_bwd else ("transition_bwd.fold",))
-            # the FQT dW on transition.cu's int8 wgrad, the
-            # straight-through one on the TMA wgrad; dWp on the TMA wgrad
-            wg = (("transition_wgrad", "transition_wgrad.sum") if quant_bwd
+            # the FQT dW on the TMA + s8 wgmma wgrad (one launch, no
+            # sum), the straight-through one on the TMA wgrad; dWp on the
+            # TMA wgrad
+            wg = (("transition_wgrad_s8",) if quant_bwd
                   else ("transition_wgrad_tma", "transition_wgrad_tma.sum"))
             assert dict(tr.launches) == {name: 1 for name in (
                 "transition_fwd.amax", "transition_fwd.pre",
@@ -1518,6 +1519,71 @@ def test_transition_wgrad_tma_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="geometry H=24 W=24"):
         tr.bwd_fold(dz, dz, v, v, x, one, one, None, thresh=None, h=24,
                     w_img=24)
+    torch.cuda.synchronize()
+    assert not tr.launches
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,zeros", TR_WGRAD_SHAPES)
+def test_transition_wgrad_s8_matches_plain(dev, b, h, w, cin, cout, zeros):
+    """The FQT operands and weight gradient on the card: the quantizer's
+    g_q, absmaxes, d_q's parity planes and x_ee equal to the plain
+    version's; dW (HWIO) on the TMA + s8 wgmma kernel bit-equal to the
+    plain version (each group's exact s32 sum scaled and added in group
+    order) and over two calls; one launch a call, no partial buffer and no
+    sum."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, b + cin + w + 1)
+    if zeros:
+        for k in ("x", "scale", "shift"):
+            t[k][cin - zeros:] = 0
+    thresh = fb.dropout_thresh(0.3)
+    kw = dict(h=h, w_img=w)
+    n_out = b * h * w // 4
+    tile = tr.transition_tile(h // 2, w // 2, n_out, cin - zeros, cout)
+    z = t["dz"].flip(1).contiguous()
+    ct = (t["dz"], z, t["dzsum"], t["dzssq"], t["x"], t["scale"],
+          t["shift"], t["bits"])
+    tr.reset_launches()
+    ops = tr.bwd_quantize(*ct, thresh=thresh, tile=tile, **kw)
+    for a, b_ in zip(ops, tr.bwd_quantize_plain(*ct, thresh=thresh,
+                                                tile=tile, **kw)):
+        _same(a, b_)
+    g_q, g_amax, d_q, d_amax, _ = ops
+    assert d_q.shape == (4, cin, n_out)
+    dw = tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile, **kw)
+    assert torch.equal(dw, tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile,
+                                    **kw))
+    torch.cuda.synchronize()
+    assert dict(tr.launches) == {"transition_bwd.amax": 1,
+                                 "transition_bwd.quant": 1,
+                                 "transition_wgrad_s8": 2}
+    assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
+    _same(dw, tr.wgrad_plain(g_q, g_amax, d_q, d_amax, tile=tile, **kw))
+    if zeros:
+        assert not dw[:, :, cin - zeros:].any()
+
+
+def test_transition_wgrad_s8_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor launches the FQT wgrad or raises, naming the shape:
+    d not in four planes, Cout off 8, a scale group off the 128-position K
+    step, absmaxes of the wrong length, f32 codes; nothing launches, and
+    nothing falls back to a plain version or another kernel."""
+    i8 = torch.int8
+    tr.reset_launches()
+    g = torch.zeros((64, 2 * 64), dtype=i8, device=dev)
+    d = torch.zeros((4, 32, 2 * 64), dtype=i8, device=dev)
+    a1 = torch.ones(1, device=dev)
+    with pytest.raises(ValueError, match="not 4 parity planes"):
+        tr.wgrad(g, a1, d[0], a1, tile=128, h=16, w_img=16)
+    with pytest.raises(ValueError, match="Cout=44 is not a multiple of 8"):
+        tr.wgrad(g[:44], a1, d, a1, tile=128, h=16, w_img=16)
+    with pytest.raises(ValueError, match="scale group of 64 positions"):
+        tr.wgrad(g, torch.ones(2, device=dev), d, torch.ones(2, device=dev),
+                 tile=64, h=16, w_img=16)
+    with pytest.raises(ValueError, match="vs 1 scale groups"):
+        tr.wgrad(g, torch.ones(2, device=dev), d, a1, tile=128, h=16,
+                 w_img=16)
+    with pytest.raises(ValueError, match="expected torch.int8"):
+        tr.wgrad(g.float(), a1, d, a1, tile=128, h=16, w_img=16)
     torch.cuda.synchronize()
     assert not tr.launches
 

@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.nn.grad import conv2d_weight
 
 from pytorch_ddp_resnet_tpu.ops.pallas import transition as jt
 from pytorch_ddp_resnet_tpu_torch.ops.cuda import fused_block as fb
@@ -77,6 +78,16 @@ def _fold(cin, cout, h, w, b, rate=0.3):
     return tr.bwd_fold_plain(*args, thresh=thresh, h=h, w_img=w)
 
 
+def _lane_wgrad_f64(g, d, h, w_img):
+    """sum over positions of g [Cout, N'] x the stride-2 patches of the
+    lane-order d [Cin, N], float64, as [Cout, 9*Cin] in (dh, dw, ci)
+    order."""
+    cout, cin = g.shape[0], d.shape[0]
+    dw = conv2d_weight(tr._nchw(d, h, w_img), (cout, cin, 3, 3),
+                       tr._nchw(g, h // 2, w_img // 2), stride=2, padding=1)
+    return dw.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+
+
 def _max_err(got, want):
     return (torch.as_tensor(got).double()
             - torch.as_tensor(want).double()).abs().max().item()
@@ -95,8 +106,10 @@ def test_tap_table_matches_jax():
 def test_fold_writes_the_parity_planes(rate):
     """bwd_fold_plain: g the rounded fold; d the lane prologue's four
     parity planes, plane-major, which interleave back to it; x_ee x's
-    even-even plane. bwd_quantize_plain's x_ee is the same plane and its
-    int8 operands are the FQT quantizer's as before."""
+    even-even plane. bwd_quantize_plain's x_ee is the same plane, its g_q
+    and absmaxes are the FQT quantizer's, and its d_q is the quantizer's
+    codes of the lane prologue as their four parity planes, the layout of
+    the fold's d."""
     h, w, b = 16, 16, 2
     args, thresh = _operands(32, 64, h, w, b, rate)
     g, d, x_ee = tr.bwd_fold_plain(*args, thresh=thresh, h=h, w_img=w)
@@ -122,8 +135,11 @@ def test_fold_writes_the_parity_planes(rate):
         fb.fold_cotangent_plain(*args[:4]), tile, fb.BWD_FLOOR)
     d_q, d_amax = fb.quantize_groups_plain(
         fb.prologue_plain(x, *args[5:], thresh), 4 * tile, fb.BWD_FLOOR)
-    for a, b_ in zip(q[:4], (g_q, g_amax, d_q, d_amax)):
+    planes = torch.stack(tr.parity_planes(d_q, h, w))
+    for a, b_ in zip(q[:4], (g_q, g_amax, planes, d_amax)):
         assert torch.equal(a, b_)
+    assert q[2].shape == d.shape and q[2].is_contiguous()
+    assert torch.equal(tr.parity_interleave(tuple(q[2]), h, w), d_q)
 
 
 @pytest.mark.parametrize("cin,cout,h,w,b", [(32, 64, 16, 16, 2),
@@ -138,7 +154,7 @@ def test_plain_on_planes_equals_lane_order(cin, cout, h, w, b):
     g, d, x_ee = tr.bwd_fold_plain(*args, thresh=thresh, h=h, w_img=w)
     lane_d = tr.parity_interleave(tuple(d), h, w)
     got = tr.wgrad_bf16_plain(g, d, h=h, w_img=w)
-    want = tr._wgrad_f64(g, lane_d, h, w).to(torch.float32).reshape(
+    want = _lane_wgrad_f64(g, lane_d, h, w).to(torch.float32).reshape(
         cout, 3, 3, cin).permute(1, 2, 3, 0)
     assert got.shape == (3, 3, cin, cout) and got.dtype == torch.float32
     assert _max_err(got, want) <= 1e-6 * want.abs().max().item()

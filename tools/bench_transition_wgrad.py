@@ -2,24 +2,30 @@
 two stage transitions (160 -> 320 at 32x32, 320 -> 640 at 16x16, batch
 128): the straight-through body (``transition.bwd_fold``, timed apart,
 then ``wgrad_bf16`` and ``wgrad_proj``) and the FQT body's dW with dWp
-(``wgrad`` and ``wgrad_proj``), beside cuDNN's bf16 weight gradient of the
-stride-2 3x3 conv plus the 1x1 stride-2 projection's (channels-last) and
-the function's bound.
+(``wgrad`` on its quantizer's operands, and ``wgrad_proj``), beside
+cuDNN's bf16 weight gradient of the stride-2 3x3 conv plus the 1x1
+stride-2 projection's (channels-last) and the function's bound. Then
+``conv3x3_same``'s wgrad (``conv3x3.conv3x3_wgrad``) at WRN-28-10's three
+stages, the other user of the bf16 TMA mainloop.
 
     python tools/bench_transition_wgrad.py [--repo DIR] [--parts]
 
 ``--repo`` imports the port from another checkout (an unpacked parent
 commit, to compare two versions in one call: run parent, change, change,
-parent); a checkout whose fold writes lane-order d (no ``TAP_TABLE``) is
-timed through its own signatures (dWp from x). ``--parts`` also times
-the 3x3's dW (mainloop + ordered sum) and dWp (with its sum) apart, each
-beside its bound. Every time is given by CUDA events (``*ms``: 10
-back-to-back calls, the wrappers' host time included where the card waits
-on it) and in device time (``*dev_ms``: the kernels' summed device time
-per call, torch.profiler); TFLOP/s counts the useful 2 * (9 + 1) * Cin *
-Cout * N' (dW and dWp; the fold excluded). Prints one JSON line per
+parent); each version's quantizer feeds its own ``wgrad`` (the FQT codes
+as lanes or as parity planes), and a checkout whose fold writes
+lane-order d (no ``TAP_TABLE``) is timed through its own signatures (dWp
+from x). ``--parts`` also times each body's dW and dWp apart, each beside
+its bound (the FQT dW's TOP/s as ``wgrad_tflops``), and the FQT body's
+quantizer (``bwd_quantize``) beside its bound. Every time is given
+by CUDA events (``*ms``: 10 back-to-back calls, the wrappers' host time
+included where the card waits on it) and in device time (``*dev_ms``:
+the kernels' summed device time per call, torch.profiler); TFLOP/s counts
+the useful 2 * (9 + 1) * Cin * Cout * N' (dW and dWp; the fold
+excluded). Prints one JSON line per
 (stage, body), then one line with the times summed over a lane step's two
-transitions for each body, beside cuDNN's; every line carries the card's
+transitions for each body, beside cuDNN's, then one line per
+``conv3x3_same`` stage and their sum; every line carries the card's
 name and power limit. Needs a CUDA card; exits 1 without one.
 """
 
@@ -37,6 +43,8 @@ from bench_nv_wgrad_bf16 import BF16, BW, REPO, time_ms
 INT8 = 1979e12   # H100 SXM: dense int8 OP/s
 # (stage, batch, h, w, Cin, Cout): WRN-28-10's stage transitions
 SHAPES = [(2, 128, 32, 32, 160, 320), (3, 128, 16, 16, 320, 640)]
+# (C, H = W) of conv3x3_same's wgrad at WRN-28-10's stages, batch 128
+SAME_SHAPES = [(160, 32), (320, 16), (640, 8)]
 
 
 def card() -> str:
@@ -148,6 +156,16 @@ def main() -> int:
                 # dz, z, x and the bits in, g, d and x_ee out
                 row["fold_bound_ms"] = (6 * cout * n_out + 5 * cin * n
                                         + cin * n // 2) / BW * 1e3
+            if opts.parts and body == "fqt":   # its quantizer
+                def quant():
+                    return tr.bwd_quantize(*ct, thresh=thresh, tile=tile,
+                                           **(geo if planes else {}))
+
+                row["quant_ms"] = time_ms(quant)
+                row["quant_dev_ms"] = device_ms(quant)
+                # dz, z, x and the bits in; g_q, d_q and x_ee out
+                row["quant_bound_ms"] = (5 * cout * n_out + 4 * cin * n
+                                         + cin * n // 2) / BW * 1e3
             if opts.parts:
                 parts = dict(wgrad=dw_bf16, proj=proj(xee)) \
                     if body == "qat" else dict(
@@ -188,7 +206,38 @@ def main() -> int:
     print(json.dumps({"step_ms": step, "per": "lane step (both "
                       "transitions; dW + dWp, the fold apart)",
                       "repo": opts.repo or ".", "card": name}), flush=True)
+    same_wgrad(name, opts.repo or ".")
     return 0
+
+
+def same_wgrad(name: str, repo: str) -> None:
+    """conv3x3_same's wgrad, x [C, N] and dy [C, N] bf16 at each WRN-28-10
+    stage (batch 128): events and device time per call, and their sum."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    total = {}
+    for c, hw in SAME_SHAPES:
+        n = 128 * hw * hw
+        x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+        dy = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+
+        def fn():
+            return k.conv3x3_wgrad(x, dy, h=hw, w_img=hw)
+
+        row = dict(same_wgrad_c=c, h=hw, ms=time_ms(fn), dev_ms=device_ms(fn),
+                   card=name)
+        print(json.dumps(row), flush=True)
+        for key in ("ms", "dev_ms"):
+            if row[key] is not None:
+                total[key] = total.get(key, 0.0) + row[key]
+        del x, dy
+    print(json.dumps({"same_wgrad_ms": total, "per": "one call at each of "
+                      "the three stages", "repo": repo, "card": name}),
+          flush=True)
 
 
 if __name__ == "__main__":
