@@ -46,7 +46,14 @@ Phases, each fatal on failure:
    Int8 codes, group absmaxes, bf16 outputs and the weight gradient must
    be equal, f32 sums over positions within 1e-5 of their largest value.
    Each is timed beside its plain version and cuDNN's bf16 forward, input
-   gradient and weight gradient (channels-last) at the same shape.
+   gradient and weight gradient (channels-last) at the same shape. The
+   forward (the amax pass, the prepass that writes the codes into the
+   padded slab, then csrc/fwd_wgmma_s8.cuh's TMA-fed s8 wgmma GEMM and
+   the ordered sum) must give the same y and sums bit for bit in two
+   calls, its slab must equal the plain prepass's byte for byte, and its
+   parts are timed apart beside their bounds: the amax pass + prepass and
+   the GEMM + sum (CUDA events), and each kernel's device time
+   (torch.profiler); the prepass is also a kernel row of its own.
 7. Training, the third main path: the recipe
    models_dir/wrn-28-10-dropout_synthspectral-hard-int8/config.yaml (int8
    fully quantized training) plus ``use_pallas_augment: True``, through
@@ -318,7 +325,9 @@ SOURCES = {"nv_half_fwd":
            "fused_half_bf16_wgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "fused_half_bf16_fwd":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_bf16.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_bf16.cuh",
+           "fused_half_fwd":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -328,6 +337,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "stem_fwd": _PALLAS + "stem.py:119",
             "stem_wgrad": _PALLAS + "stem.py:149",
             "fused_half_fwd": _PALLAS + "fused_block.py:380",
+            "fused_half_fwd.pre": _PALLAS + "fused_block.py:380",
             "fused_half_dgrad": _PALLAS + "fused_block.py:588, "
                                 + _PALLAS + "fused_block.py:992",
             "fused_half_wgrad": _PALLAS + "fused_block.py:763, "
@@ -393,12 +403,12 @@ FUSED_PER_STEP = {
 # does, and the mainloop reads the rounded d_b)
 QAT_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
-    "fused_half_fwd.amax": 22, "fused_half_fwd.quant": 22,
+    "fused_half_fwd.amax": 22, "fused_half_fwd.pre": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
     "fused_half_bf16_dgrad": 22, "fused_half_bf16_dgrad.sum": 22,
     "fused_half_bf16_wgrad.pre": 22, "fused_half_bf16_wgrad": 22,
     "fused_half_bf16_wgrad.sum": 22}
-QAT_SEED_PER_STEP = {"fused_half_fwd.amax": 15, "fused_half_fwd.quant": 15,
+QAT_SEED_PER_STEP = {"fused_half_fwd.amax": 15, "fused_half_fwd.pre": 15,
                      "fused_half_bf16_dgrad": 15,
                      "fused_half_bf16_wgrad.pre": 15}
 # (kind, h, w, cin, width, cout, stride) at batch 128: the ResNet-50
@@ -449,7 +459,7 @@ NV_QAT_PER_STEP = {
 # emitting BatchNorm sums (conv1 of the 10 identity blocks)
 FQT_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
-    "fused_half_fwd.amax": 22, "fused_half_fwd.quant": 22,
+    "fused_half_fwd.amax": 22, "fused_half_fwd.pre": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
     "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
     "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
@@ -548,10 +558,10 @@ def _cuda_events(prof):
             if e.device_type.name == "CUDA" and _dev_us(e) > 0]
 
 
-def device_ms(fn, reps: int):
-    """Mean device time per call of ``fn``: the summed device time of every
-    kernel it launches (torch.profiler), over ``reps`` calls after one
-    warm-up call. None when the profiler reports no device time."""
+def kernel_split_ms(fn, reps: int, keys):
+    """Device time per call of ``fn`` by kernel: {key: ms} summed over the
+    kernels whose name holds ``key`` (torch.profiler, ``reps`` calls after
+    one warm-up call); None when the profiler reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -561,8 +571,20 @@ def device_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(_dev_us(e) for e in _cuda_events(prof))
-    return total / 1e3 / reps if total else None
+    out = {key: 0.0 for key in keys}
+    for e in _cuda_events(prof):
+        for key in keys:
+            if key in e.key:
+                out[key] += _dev_us(e) / 1e3 / reps
+    return out if any(out.values()) else None
+
+
+def device_ms(fn, reps: int):
+    """Mean device time per call of ``fn``: the summed device time of every
+    kernel it launches (``kernel_split_ms`` over all kernels). None when
+    the profiler reports no device time."""
+    split = kernel_split_ms(fn, reps, ("",))
+    return split[""] if split else None
 
 
 def port_modules():
@@ -919,7 +941,8 @@ KERNEL_KINDS = [
                            "bwd_quant_kernel", "bwd_fold_kernel")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "wgrad_kernel",
-                                "partial_sum")),
+                                "partial_sum", "fwd_slab_kernel",
+                                "fwd_s8_kernel", "tile_sum_kernel")),
     ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm")),
     ("matmul", ("gemm", "cublas")),
     ("reduction", ("reduce_kernel",)),
@@ -1086,13 +1109,84 @@ def training_phase(workdir, aug_rows, recipe=TRAIN_CONFIG,
 
 def _half_fwd(fb, x, wq, ws, scale, shift, bits, res, thresh, tile, h, w,
               want_stats, plain):
-    """The fused half's forward through its kernels or plain versions."""
-    quant, conv = ((fb.fwd_quantize_plain, fb.fwd_conv_plain) if plain
-                   else (fb.fwd_quantize, fb.fwd_conv))
-    d_q, amax = quant(x, scale, shift, bits, thresh=thresh, tile=tile)
-    y, ysum, yssq = conv(d_q, amax, wq, ws, res, tile=tile, h=h, w_img=w,
-                         want_stats=want_stats)
-    return dict(d_q=d_q, amax=amax, y=y, ysum=ysum, yssq=yssq)
+    """The fused half's int8 forward through its kernels (the amax pass,
+    the prepass into the slab, the s8 wgmma GEMM and its ordered sum) or
+    its plain versions (the channel-major quantizer and conv)."""
+    if plain:
+        d_q, amax = fb.fwd_quantize_plain(x, scale, shift, bits,
+                                          thresh=thresh, tile=tile)
+        y, ysum, yssq = fb.fwd_conv_plain(d_q, amax, wq, ws, res, tile=tile,
+                                          h=h, w_img=w,
+                                          want_stats=want_stats)
+    else:
+        y, ysum, yssq = fb.fwd_int8(x, wq, ws, scale, shift, bits, res,
+                                    thresh=thresh, tile=tile, h=h, w_img=w,
+                                    want_stats=want_stats)
+    return dict(y=y, ysum=ysum, yssq=yssq)
+
+
+# the int8 forward's kernels by name: the amax pass, the prepass, the GEMM
+# and the tiles' ordered sum
+FWD_INT8_KERNELS = {"amax": "amax_kernel", "prepass": "fwd_slab_kernel",
+                    "gemm": "fwd_s8_kernel", "sum": "tile_sum_kernel"}
+
+
+def _fused_fwd_int8_parts(fb, args, thresh, tile, h, w, stats, peaks):
+    """The int8 forward's second call equal to its first bit for bit, its
+    slab and group absmax equal to the plain prepass's byte for byte, and
+    its parts timed apart beside their bounds: the amax pass + prepass
+    (CUDA events; the function's bytes: x and the bits read once, the slab
+    written; ``pre_traffic_ms`` is the two passes' own traffic, x and the
+    bits read by each),
+    the GEMM + ordered sum (CUDA events; its operations, or its bytes: the
+    slab, the weights and y, res), and each kernel's device time
+    (torch.profiler)."""
+    import torch
+
+    _, ops_int8, bw, _ = peaks
+    x, wq, ws, scale, shift, bits, res = args
+    c, n = x.shape
+    cout = wq.shape[0]
+    kw = dict(thresh=thresh, tile=tile, h=h, w_img=w, want_stats=stats)
+    first = fb.fwd_int8(x, wq, ws, scale, shift, bits, res, **kw)
+    for a, b in zip(first, fb.fwd_int8(x, wq, ws, scale, shift, bits, res,
+                                       **kw)):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "fused_half_fwd", c, h, stats)
+    plan = fb.fused_fwd_int8_plan(n, h, w, c, cout)
+    pre = dict(thresh=thresh, tile=tile, plan=plan)
+    slab, amax = fb.fwd_int8_pre(x, scale, shift, bits, **pre)
+    for a, b in zip((slab, amax), fb.fwd_int8_pre_plain(x, scale, shift,
+                                                        bits, **pre)):
+        assert torch.equal(a, b), ("fused_half_fwd.pre", c, h)
+    bits_b = c * n if bits is not None and not fb.is_seed(bits) else 0
+    slab_b = plan.lay.slab_len * c
+    split = kernel_split_ms(
+        lambda: fb.fwd_int8(x, wq, ws, scale, shift, bits, res, **kw), 5,
+        FWD_INT8_KERNELS.values())
+    return dict(
+        deterministic=True, bn=plan.bn, tiles=plan.lay.tiles,
+        boxes=[b[1] for b in plan.boxes],
+        pre_ms=time_ms(lambda: fb.fwd_int8_pre(x, scale, shift, bits,
+                                               **pre), 10),
+        gemm_ms=time_ms(lambda: fb.fwd_int8_gemm(
+            slab, amax, wq, ws, res, tile=tile, plan=plan,
+            want_stats=stats), 10),
+        **{f"{part}_dev_ms": (split[key] if split else None)
+           for part, key in FWD_INT8_KERNELS.items()},
+        amax_bound_ms=(2 * c * n + bits_b) / bw * 1e3,
+        pre_bound_ms=(2 * c * n + bits_b + slab_b) / bw * 1e3,
+        pre_traffic_ms=(4 * c * n + 2 * bits_b + slab_b) / bw * 1e3,
+        gemm_bound_ms=max(
+            2 * 9 * c * cout * n / ops_int8,
+            (slab_b + 9 * c * cout + 2 * cout * n
+             + (2 * cout * n if res is not None else 0)) / bw) * 1e3)
+
+
+# the int8 forward's part keys a phase 6 row carries, summed per step
+FWD_INT8_PART_KEYS = ("pre_ms", "gemm_ms", "amax_dev_ms", "prepass_dev_ms",
+                      "gemm_dev_ms", "sum_dev_ms", "amax_bound_ms",
+                      "pre_bound_ms", "pre_traffic_ms", "gemm_bound_ms")
 
 
 def _half_dgrad(fb, dy, y, dysum, dyssq, x, wdg, wsin, scale, shift, bits,
@@ -1212,7 +1306,26 @@ def fqt_kernel_phase(peaks):
                 ("res" if use_res else "") + ("+stats" if stats else ""),
                 err, lambda: _half_fwd(fb, *args, plain=False),
                 lambda: _half_fwd(fb, *args, plain=True), lib_f, 2 * macs,
-                5 * cn + 36 * c * c + (2 * cn if use_res else 0), ops_int8)
+                5 * cn + 9 * c * c + 4 * c + (2 * cn if use_res else 0),
+                ops_int8)
+            rows[-1].update(_fused_fwd_int8_parts(
+                fb, (x, wq, ws, scale, shift, bits, r), thresh, tile, h, w,
+                stats, peaks))
+        # the prepass (with its amax pass) as a kernel row of its own: its
+        # slab equal to the plain version's byte for byte; bound by the
+        # function's bytes (x and the bits read once, the slab written)
+        plan = fb.fused_fwd_int8_plan(n, h, w, c, c)
+        pre = dict(thresh=thresh, tile=tile, plan=plan)
+        err = _agree(
+            dict(zip(("slab", "amax"),
+                     fb.fwd_int8_pre(x, scale, shift, bits, **pre))),
+            dict(zip(("slab", "amax"),
+                     fb.fwd_int8_pre_plain(x, scale, shift, bits, **pre))),
+            ("fwd pre", c))
+        row("fused_half_fwd.pre", c, h, w, "", err,
+            lambda: fb.fwd_int8_pre(x, scale, shift, bits, **pre),
+            lambda: fb.fwd_int8_pre_plain(x, scale, shift, bits, **pre),
+            None, 3 * cn, 3 * cn + plan.lay.slab_len * c, ops_int8)
         y = _half_fwd(fb, x, wq, ws, scale, shift, bits, None, thresh, tile,
                       h, w, True, plain=True)["y"]
         dy = randn(c, n, s=1e-3).to(torch.bfloat16)
@@ -1416,35 +1529,44 @@ def fqt_summary(rows, training, halves):
     def mode(name, res, stats):
         if name == "fused_half_fwd":
             return ("res" if res else "") + ("+stats" if stats else "")
+        if name == "fused_half_fwd.pre":
+            return ""
         return "stats" if stats else ""
 
     out = []
     for name in ("stem_fwd", "stem_wgrad", "fused_half_fwd",
-                 "fused_half_dgrad", "fused_half_wgrad"):
+                 "fused_half_fwd.pre", "fused_half_dgrad",
+                 "fused_half_wgrad"):
         mine = [r for r in rows if r["name"] == name]
         mix = [(mine[0], 1)] if name.startswith("stem") else [
             (next(r for r in mine
                   if r["c"] == c and r["mode"] == mode(name, res, stats)),
              count)
             for (c, res, stats, _), count in halves.items()]
+        # keys every row has a number for (no library call for the
+        # prepass; the forward's parts only on its rows)
         tot = {k: sum(r[k] * cnt for r, cnt in mix)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "ops_ms", "bytes_ms")}
+                         "ops_ms", "bytes_ms") + FWD_INT8_PART_KEYS
+               if all(r.get(k) is not None for r, _ in mix)}
         out.append(dict(
             name=name, route="cuda",
-            source=STEM_SOURCE if name.startswith("stem") else FQT_SOURCE,
+            source=(STEM_SOURCE if name.startswith("stem")
+                    else SOURCES.get(name, FQT_SOURCE)),
             replaces=REPLACES[name], launches=training["launches"].get(
                 name, 0),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=tot["library_ms"],
+            library_ms=tot.get("library_ms"),
+            **{k: tot[k] for k in FWD_INT8_PART_KEYS if k in tot},
             per=f"training step of {BATCH} (ms per call summed over the "
                 "step's calls; launches over the run)",
-            stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
-                                       "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by", "max_abs_err")}
+            stages=[{k: r.get(k) for k in (
+                "c", "h", "w", "mode", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err") + FWD_INT8_PART_KEYS
+                + ("bn", "boxes", "tiles") if k in r}
                     for r in mine]))
     return out
 
@@ -1728,13 +1850,14 @@ def bf16_kernel_phase(peaks):
         # the int8 core's kernels in seed mode: equal to their plain versions
         # and to themselves on the expanded bits; timed in both modes
         tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+        plan = fb.fused_fwd_int8_plan(n, h, w, c, c)
         wdq, wsin = fb.quantize_pack_weights_dgrad(wt)
         expanded = fb.seed_bits(drops["seed"], c, n, 0, n)
         outs = {}
         for kind, bits in (("seed", drops["seed"]), ("bits", expanded)):
             def fq(bits=bits):
-                return fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
-                                       tile=tile)
+                return fb.fwd_int8_pre(x, scale, shift, bits, thresh=thresh,
+                                       tile=tile, plan=plan)
 
             def bq(bits=bits):
                 return fb.bwd_quantize(dy, None, None, None, x, scale, shift,
@@ -1749,8 +1872,9 @@ def bf16_kernel_phase(peaks):
                                      w_img=w)
 
             outs[kind] = [*fq(), *bq()[:4], *dg()]
-            plain = [*fb.fwd_quantize_plain(x, scale, shift, bits,
-                                            thresh=thresh, tile=tile),
+            plain = [*fb.fwd_int8_pre_plain(x, scale, shift, bits,
+                                            thresh=thresh, tile=tile,
+                                            plan=plan),
                      *fb.dgrad_conv_plain(g_q, g_amax, wdq, wsin, x, scale,
                                           shift, bits, thresh=thresh,
                                           tile=btile, h=h, w_img=w)]
@@ -1763,7 +1887,7 @@ def bf16_kernel_phase(peaks):
                     assert torch.equal(a, b), (c, kind, i)
             seed_rows.append(dict(
                 name="int8 quantizers + dgrad", c=c, mode=kind,
-                fwd_quantize_ms=time_ms(fq, 10),
+                fwd_int8_pre_ms=time_ms(fq, 10),
                 bwd_quantize_ms=time_ms(bq, 10), dgrad_conv_ms=time_ms(dg,
                                                                        10)))
         for a, b in zip(outs["seed"], outs["bits"]):
@@ -3861,6 +3985,19 @@ def main() -> int:
               f"static + {dyn} B dynamic shared memory, "
               f"{e['spill_bytes']} B spilled")
 
+    # the int8 forward's GEMM: 256 threads (two warpgroups, thread 0 also
+    # starting the TMA loads), two blocks an SM; ptxas's note where it
+    # serializes the wgmmas
+    log = build.build_log("fused_block")
+    for e in ptxas_entries(log, "fwd_s8_kernel") + ptxas_entries(
+            log, "fwd_slab_kernel"):
+        print(f"  ptxas fused_block {e['name']}: {e['registers']} "
+              f"registers, {e['smem']} B static shared memory, "
+              f"{e['spill_bytes']} B spilled")
+    for line in log.splitlines():
+        if "serialized" in line:
+            print(f"  ptxas fused_block: {line.strip()}")
+
     # the TMA wgrads' kernels: one block of 416 threads an SM (a producer
     # warp, a shifter warpgroup, two consumer warpgroups), bf16 and the
     # transition's s8 one; ptxas's note where it serializes the wgmmas
@@ -3921,7 +4058,10 @@ def main() -> int:
     for r in rows + fqt_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "c", "mode", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err")}))
+            "bound_by", "max_abs_err") + tuple(
+                k for k in FWD_INT8_PART_KEYS + ("bn", "boxes",
+                                                 "tiles", "deterministic")
+                if k in r)}))
     for r in nv_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "h", "cin", "wdt", "cout", "stride", "out_int8", "ms",

@@ -5,7 +5,8 @@
 //
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/fused_block.py,
 // fused_half_int8 with quant_bwd=True):
-//   fwd_amax, fwd_quant, fwd_conv   <- _fwd_call -> _fwd_kernel (quant)
+//   fwd_amax, fwd_pre, fwd_gemm,    <- _fwd_call -> _fwd_kernel (quant)
+//   tile_sum                           (the GEMM lives in fwd_wgmma_s8.cuh)
 //   bwd_amax, bwd_quant             <- the cotangent fold and per-tile
 //                                      quantization that _bwd_kernel,
 //                                      _dgrad_kernel and _wgrad_kernel
@@ -22,24 +23,33 @@
 // absmax. An absmax must be complete before any element of its group is
 // quantized, and the card has no sequential grid, so each quantization is
 // two launches: *_amax writes one partial maximum per (group, slice) block,
-// *_quant reduces its group's partials, quantizes into an int8 buffer and
-// records the group's absmax. The convs then read int8.
+// then fwd_pre (the forward) or bwd_quant (the backward) reduces its
+// group's partials, quantizes into an int8 buffer and records the group's
+// absmax. The convs then read int8.
 //
 // What bounds them on an H100 (WRN-28-10, batch 128, C = 160/320/640):
 // each conv is 60.4 G int8 operations (30.5 us at 1,979 TOP/s) against
-// 30-45 MB of operands; the amax/quant passes are memory passes over
-// x (bf16), bits (uint8) and the int8 result.
+// 21-45 MB of operands; the amax and quantizing passes are memory passes
+// over x (bf16), bits (uint8) and the int8 result.
 //
 // Design:
-// - fwd_conv and dgrad_conv are the row-tile implicit GEMM of
-//   conv3x3_rows.cuh (the serving kernel's mainloop, s8 x s8 -> s32 with
-//   mma.sync) with new epilogues on the block's accumulator tile in shared
-//   memory: the dequantization, bf16 output and residual add, and the
-//   next BatchNorm's sums (fwd); the relu/dropout masks recomputed from
-//   (x, scale, shift, bits), dx, and the d(scale)/d(shift) sums (dgrad).
-//   A block's per-channel sums go to its own slot of a partial buffer
-//   (warp butterflies, then the warps in order), and partial_sum adds the
-//   slots in order: deterministic.
+// - The forward is four launches: fwd_amax; fwd_pre (fwd_slab_kernel),
+//   which reduces each group's partials, computes each element of the
+//   prologue once, quantizes it at its group's scale and writes the codes
+//   position-major into the padded slab of ops/cuda/fused_block.py
+//   fused_fwd_layout (the bf16 forward's, one byte a channel: every 3x3
+//   tap one row offset, any image width), transposed through shared
+//   memory, with zeros at every pad position; fwd_gemm, fwd_wgmma_s8.cuh's
+//   TMA-fed s8 wgmma GEMM with the dequantization, bf16 output, residual
+//   add and each tile's sums in its epilogue; and tile_sum over the tiles'
+//   sums, in a fixed order.
+// - dgrad_conv is the row-tile implicit GEMM of conv3x3_rows.cuh (the
+//   serving kernel's mainloop, s8 x s8 -> s32 with mma.sync) with an
+//   epilogue on the block's accumulator tile in shared memory: the
+//   relu/dropout masks recomputed from (x, scale, shift, bits), dx, and the
+//   d(scale)/d(shift) sums. A block's per-channel sums go to its own slot
+//   of a partial buffer (warp butterflies, then the warps in order), and
+//   partial_sum adds the slots in order: deterministic.
 // - wgrad is a GEMM over positions: dW[co, (tap, ci)] = sum_n g[co, n] *
 //   d[ci, n + shift(tap)], masked at the image borders. A block owns 64
 //   output channels x (9 taps x 32 input channels) of one scale group and
@@ -75,6 +85,7 @@
 #include "common.cuh"
 #include "conv3x3_rows.cuh"
 #include "fused_half.cuh"
+#include "fwd_wgmma_s8.cuh"  // the forward's GEMM and epilogue
 
 using namespace conv3x3;
 using namespace fused_half;
@@ -83,37 +94,6 @@ using dropout::DropBits;
 namespace {
 
 // --- conv epilogues ------------------------------------------------------
-
-// y = bf16(f32(acc) * (ws[co] * (amax * 1/127))) (+ res in bf16); sums of
-// y and y^2 of the stored bf16 values
-struct FwdEpi {
-  const float* amax;  // [G] forward group absmax
-  const float* ws;    // [Cout] per-output-channel weight scales
-  const __nv_bfloat16* res;
-  __nv_bfloat16* y;
-  float* part;        // [n / BN][2 * Cout] or null (no stats)
-  int lanes;          // lanes per forward scale group
-
-  __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
-                                       int n0, int cout, int n) const {
-    const float a = __fmul_rn(amax[n0 / lanes], common::kInv127);
-    tile_sums(bn, m0, cout, n - n0, blockIdx.x, part,
-              [&](int r, int c, float& s1, float& s2) {
-      const int co = m0 + r;
-      const size_t idx = (size_t)co * n + n0 + c;
-      const float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
-                                __fmul_rn(ws[co], a));
-      __nv_bfloat16 o = __float2bfloat16_rn(v);
-      if (res != nullptr)
-        o = __float2bfloat16_rn(
-            __fadd_rn(__bfloat162float(res[idx]), __bfloat162float(o)));
-      y[idx] = o;
-      const float f = __bfloat162float(o);
-      s1 = f;
-      s2 = __fmul_rn(f, f);
-    });
-  }
-};
 
 // acc_f = f32(acc) * (ws_in[ci] * (g_amax * 1/127)); the masks recomputed
 // from x: live = x * scale + shift > 0 (one fma) and bits < thresh;
@@ -153,6 +133,98 @@ struct DgradEpi {
     });
   }
 };
+
+// --- the forward's prepass: the codes into the padded slab -----------------
+
+constexpr int PRE_G = PRE_P / 8 + 1;  // scale groups a tile may touch
+
+// The forward's int8 slab, one launch. Blocks [0, tiles_d) each take PRE_C
+// channels x PRE_P positions (channel group fastest): first each scale
+// group the tile touches has its amax partials reduced (exact in any
+// order) and its inverse scale 127 / max(amax, floor) kept (the block that
+// holds a group's first lane in its first channels records amax[g]); then
+// thread (cp, pg) computes the prologue of channels 2cp, 2cp + 1 at
+// positions 8pg .. 8pg + 7 (one group: tile % 8 == 0), quantizes them
+// (quant_body's rounding: s8(clip(rint(d * inv)))) and keeps each
+// position's two codes as one 16-bit word of the shared tile; each thread
+// then writes one 16-byte run of a position's 32 codes to the position's
+// slab row (store_runs). The other blocks write 16-byte zeros at every pad
+// position (zero_pad_vec: pad_vecs vectors of 16 channels, a thread each).
+__global__ void __launch_bounds__(256)
+fwd_slab_kernel(Prologue pro, const float* __restrict__ part, int slices,
+                int lanes, signed char* __restrict__ slab,
+                float* __restrict__ amax, SlabPos live, PadPos pads, int cin,
+                int n, int tiles_d, long pad_vecs) {
+  if ((int)blockIdx.x >= tiles_d) {
+    zero_pad_vec(slab, pads, cin,
+                 (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x, pad_vecs);
+    return;
+  }
+  __shared__ float inv[PRE_G];
+  // a position's 32 codes, 16-bit words of two channels; 9 words a row
+  __shared__ __align__(16) unsigned short codes[PRE_P][PRE_C / 2 + 2];
+  const int cgs = cin / PRE_C;
+  const int c0 = blockIdx.x % cgs * PRE_C;
+  const long p0 = (long)(blockIdx.x / cgs) * PRE_P;
+  const int g0 = (int)(p0 / lanes);
+  const int g1 = (int)((min(p0 + PRE_P, (long)n) - 1) / lanes);
+  for (int g = g0; g <= g1; ++g) {
+    float a = 0.f;
+    for (int k = threadIdx.x; k < slices; k += blockDim.x)
+      a = fmaxf(a, part[g * slices + k]);
+    a = block_max(a);
+    if (threadIdx.x == 0) {
+      inv[g - g0] = __fdiv_rn(127.f, fmaxf(a, kFwdFloor));
+      if (c0 == 0 && (long)g * lanes >= p0) amax[g] = a;
+    }
+    __syncthreads();  // block_max's scratch is taken again
+  }
+  const int cp = threadIdx.x / 16, pg = threadIdx.x % 16;
+  const long pos = p0 + 8 * pg;
+  if (pos < n) {
+    float v[2][8];
+    pro(c0 + 2 * cp, n, pos, v[0]);
+    pro(c0 + 2 * cp + 1, n, pos, v[1]);
+    const float s = inv[pos / lanes - g0];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      codes[8 * pg + k][cp] =
+          (unsigned short)((unsigned char)quant_s8(__fmul_rn(v[0][k], s)) |
+                           ((unsigned char)quant_s8(__fmul_rn(v[1][k], s))
+                            << 8));
+  }
+  __syncthreads();
+  store_runs(codes, slab, cin, c0, p0, n, live);
+}
+
+// The forward's sums over its M tiles: out[i] = sum over the SUM_RUNS runs
+// of consecutive tiles, in order, of each run's sum of part[t][i], in
+// order. A fixed order, so the sums are the same bit for bit every run;
+// SUM_RUNS threads a column walk the 1,089 tiles of C = 160 (a thread a
+// column walking them all took 0.03 ms a call, 8 threads 0.017). Block:
+// SUM_COLS columns x SUM_RUNS runs.
+constexpr int SUM_COLS = 8;
+constexpr int SUM_RUNS = 32;
+
+__global__ void __launch_bounds__(SUM_COLS * SUM_RUNS)
+tile_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                int tiles, int m) {
+  __shared__ float run[SUM_RUNS][SUM_COLS];
+  const int c = threadIdx.x % SUM_COLS, q = threadIdx.x / SUM_COLS;
+  const int col = blockIdx.x * SUM_COLS + c;
+  const int per = (tiles + SUM_RUNS - 1) / SUM_RUNS;
+  float s = 0.f;
+  if (col < m)
+    for (int t = q * per; t < min(tiles, (q + 1) * per); ++t)
+      s = __fadd_rn(s, part[(size_t)t * m + col]);
+  run[q][c] = s;
+  __syncthreads();
+  if (q == 0 && col < m) {
+    float v = run[0][c];
+    for (int k = 1; k < SUM_RUNS; ++k) v = __fadd_rn(v, run[k][c]);
+    out[col] = v;
+  }
+}
 
 // --- wgrad: a GEMM over the positions of each scale group ------------------
 
@@ -375,32 +447,55 @@ int fwd_amax_launch(const void* x, const void* scale, const void* shift,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [c, n] int8, amax [n / tile] f32
-int fwd_quant_launch(const void* x, const void* scale, const void* shift,
-                     const void* bits, const void* seed, const void* part,
-                     void* q, void* amax, int c, int n, int tile, int slices,
-                     int thresh, float keep, void* stream) {
-  const Prologue pr = prologue(x, scale, shift, bits, seed, n, thresh, keep);
-  const QuantOut out{kFwdFloor, static_cast<signed char*>(q),
-                     static_cast<float*>(amax), nullptr};
-  const GroupWalk walk{n, tile, slices};
-  quant_kernel<<<dim3(slices, n / tile, 1), 256, 0, as_stream(stream)>>>(
-      pr, c, walk, out, pr, c, walk, out, in<float>(part));
+// The forward's slab: slab [slab_len, c] int8 (fused_fwd_layout: guard
+// zero positions, then per image of h x wi a zero row and a zero column,
+// then zeros to slab_len) = the prologue of x quantized at each lane's
+// group scale (the group's partials from fwd_amax), amax [n / tile] f32.
+// c % 32 == 0, tile % 8 == 0, n a multiple of tile and of h * wi.
+int fwd_pre_launch(const void* x, const void* scale, const void* shift,
+                   const void* bits, const void* seed, const void* part,
+                   void* slab, void* amax, int c, int n, int tile,
+                   int slices, int h, int wi, int guard, long slab_len,
+                   int thresh, float keep, void* stream) {
+  if (c % PRE_C || tile % 8 || tile < 8 || n % tile || h < 1 || wi < 1 ||
+      n % (h * wi) || guard != wi + 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (h + 1) * (wi + 1);
+  const long b = n / (h * wi);
+  const long pads = slab_len - n;
+  if (pads < guard + b * (wi + 1 + h) + guard)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long tiles_d = (long)((n + PRE_P - 1) / PRE_P) * (c / PRE_C);
+  const long pad_vecs = pads * (c / 16);
+  const long blocks = tiles_d + (pad_vecs + 255) / 256;
+  fwd_slab_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      prologue(x, scale, shift, bits, seed, n, thresh, keep), in<float>(part),
+      slices, tile, static_cast<signed char*>(slab),
+      static_cast<float*>(amax), SlabPos{h * wi, wi, per, guard},
+      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, c, n,
+      (int)tiles_d, pad_vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [cin, n] int8, w [cout, 9 * cin] int8, amax [n / tile], ws [cout] f32,
-// res [cout, n] bf16 or null, y [cout, n] bf16, part [n / BN][2 * cout]
-// f32 or null (no stats); cin % 32 == 0, wi % 8 == 0, tile a multiple of
-// h * wi.
-int fwd_conv_launch(const void* q, const void* w, const void* amax,
+// The forward's GEMM (fwd_wgmma_s8.cuh): y [cout, n] bf16 =
+// bf16(f32(conv3x3 of the slab with w [cout, 9 * cin] int8 (packed)) *
+// (ws[co] * amax[g] / 127)) (+ res [cout, n] bf16, or null), part [tiles][2
+// * cout] f32 (each 128-row tile's sums of y and y^2, or null: no stats),
+// on `tiles` M tiles and bn-wide N tiles (160, 128 or 64); g = lane /
+// tile.
+int fwd_gemm_launch(const void* slab, const void* w, const void* amax,
                     const void* ws, const void* res, void* y, void* part,
                     int cin, int cout, int n, int h, int wi, int tile,
-                    void* stream) {
-  FwdEpi epi{in<float>(amax), in<float>(ws), in<__nv_bfloat16>(res),
-             static_cast<__nv_bfloat16*>(y), static_cast<float*>(part), tile};
-  return launch_row_tiles<signed char>(q, w, epi, cin, cout, n, h, wi,
-                                       as_stream(stream));
+                    long slab_len, int tiles, int bn, void* stream) {
+  if (h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const fwd_wgmma_s8::Args args{
+      in<float>(amax), in<float>(ws), in<__nv_bfloat16>(res),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(part), cin, cout,
+      n, n / (h * wi), h, wi, tile, {}};
+  return static_cast<int>(fwd_wgmma_s8::launch(slab, w, args, slab_len,
+                                               wi + 2, tiles, bn,
+                                               as_stream(stream)));
 }
 
 // The backward's amax pass over both quantized operands: the cotangent
@@ -472,6 +567,16 @@ int wgrad_launch(const void* g_q, const void* g_amax, const void* d_q,
                       in<signed char>(d_q), in<float>(d_amax),
                       static_cast<float*>(part), cout, cin, n, h, wi, tile,
                       as_stream(stream));
+}
+
+// out[i] = the tiles' sums of part [tiles][m] f32 in tile_sum_kernel's
+// fixed order (the forward's `.sum`)
+int tile_sum_launch(const void* part, void* out, int tiles, int m,
+                    void* stream) {
+  tile_sum_kernel<<<(m + SUM_COLS - 1) / SUM_COLS, SUM_COLS * SUM_RUNS, 0,
+                    as_stream(stream)>>>(in<float>(part),
+                                         static_cast<float*>(out), tiles, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

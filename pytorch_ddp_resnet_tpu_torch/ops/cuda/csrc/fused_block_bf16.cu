@@ -162,42 +162,11 @@ struct GLoad {
   }
 };
 
-constexpr int PRE_C = 32;   // channels a prepass tile
-constexpr int PRE_P = 128;  // positions a prepass tile
-
 // Output positions of the prepasses: the wgrad's operands keep the input
-// position; the forward's slab puts input lane p (image i, row r, column
-// c of h x wi images) at guard + i * (h + 1) * (wi + 1) + (r + 1) * (wi +
-// 1) + c + 1 (ops/cuda/fused_block.py fused_fwd_layout).
+// position; the forward's slab puts each at its slab position (SlabPos,
+// PadPos: fused_half.cuh).
 struct SamePos {
   __device__ __forceinline__ long operator()(long p) const { return p; }
-};
-
-struct SlabPos {
-  int hw, wi, per, guard;
-  __device__ __forceinline__ long operator()(long p) const {
-    const long i = p / hw;
-    const int rem = (int)(p - i * hw), r = rem / wi, c = rem - r * wi;
-    return guard + i * per + (r + 1) * (wi + 1) + c + 1;
-  }
-};
-
-// The slab's k-th position that holds no pixel: the lead guard, then per
-// image its zero row (wi + 1 positions) and the zero column of rows 1..h,
-// then the tail (whole tiles and the trailing guard).
-struct PadPos {
-  int guard, wi, h, per;
-  long img_pads, m_valid;  // b * (wi + 1 + h); b * per
-  __device__ __forceinline__ long operator()(long k) const {
-    if (k < guard) return k;
-    k -= guard;
-    if (k < img_pads) {
-      const long i = k / (wi + 1 + h);
-      const int j = (int)(k - i * (wi + 1 + h));
-      return guard + i * per + (j <= wi ? j : (j - wi) * (wi + 1));
-    }
-    return guard + m_valid + (k - img_pads);
-  }
 };
 
 // One prepass tile: PRE_C channels x PRE_P positions of a channel-major
@@ -238,17 +207,7 @@ __device__ __forceinline__ void pre_tile(const Src& src,
     words[8 * pg + k][cp] = *reinterpret_cast<uint32_t*>(&two);
   }
   __syncthreads();
-  constexpr int RUNS = PRE_C / 8;  // 16-byte runs of a position's row
-#pragma unroll
-  for (int r = 0; r < PRE_P * RUNS / 256; ++r) {
-    const int idx = threadIdx.x + 256 * r;
-    const int p = idx / RUNS, run = idx % RUNS;
-    const int cc = c0 + 8 * run;
-    if (cc < c && p0 + p < n)
-      *reinterpret_cast<uint4*>(out + at(p0 + p) * c + cc) =
-          make_uint4(words[p][4 * run], words[p][4 * run + 1],
-                     words[p][4 * run + 2], words[p][4 * run + 3]);
-  }
+  store_runs(words, out, c, c0, p0, n, at);
 }
 
 // d_b (tiles [0, tiles_d)) then g_b, one launch
@@ -276,12 +235,8 @@ fused_fwd_pre_kernel(Bf16Prologue pro, __nv_bfloat16* __restrict__ slab,
     pre_tile(pro, slab, cin, n, blockIdx.x, words, live);
     return;
   }
-  const long v = (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x;
-  if (v >= pad_vecs) return;
-  const int vpp = cin / 8;
-  const long k = v / vpp;
-  *reinterpret_cast<uint4*>(slab + pads(k) * cin + (v - k * vpp) * 8) =
-      make_uint4(0u, 0u, 0u, 0u);
+  zero_pad_vec(slab, pads, cin,
+               (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x, pad_vecs);
 }
 
 __global__ void seed_bits_kernel(const int* __restrict__ seed,

@@ -2,7 +2,8 @@
 // conv core; fused_block_bf16.cu, the bf16 one) and the stage-transition
 // half (transition.cu): 8-wide bf16 loads, the stats-cotangent fold, the
 // deterministic per-channel sums of an epilogue tile, the f32 and bf16
-// prologues, and the per-group int8 quantizer (amax pass, quant pass).
+// prologues, the per-group int8 quantizer (amax pass, quant pass), and
+// where the forwards' prepasses put each lane in their padded slab.
 
 #pragma once
 
@@ -257,6 +258,83 @@ quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0, Fn1 fn1,
   else
     quant_body(fn1, rows1, walk1, part + groups * walk0.slices, out1.floor,
                out1.q, out1.amax, out1.copy);
+}
+
+// Where the forward's prepasses (the bf16 one in fused_block_bf16.cu, the
+// int8 one in fused_block.cu) write: input lane p (image i, row r, column
+// c of h x wi images) at slab position guard + i * (h + 1) * (wi + 1) + (r
+// + 1) * (wi + 1) + c + 1 (ops/cuda/fused_block.py fused_fwd_layout).
+struct SlabPos {
+  int hw, wi, per, guard;
+  __device__ __forceinline__ long operator()(long p) const {
+    const long i = p / hw;
+    const int rem = (int)(p - i * hw), r = rem / wi, c = rem - r * wi;
+    return guard + i * per + (r + 1) * (wi + 1) + c + 1;
+  }
+};
+
+// The slab's k-th position that holds no pixel: the lead guard, then per
+// image its zero row (wi + 1 positions) and the zero column of rows 1..h,
+// then the tail (whole tiles and the trailing guard).
+struct PadPos {
+  int guard, wi, h, per;
+  long img_pads, m_valid;  // b * (wi + 1 + h); b * per
+  __device__ __forceinline__ long operator()(long k) const {
+    if (k < guard) return k;
+    k -= guard;
+    if (k < img_pads) {
+      const long i = k / (wi + 1 + h);
+      const int j = (int)(k - i * (wi + 1 + h));
+      return guard + i * per + (j <= wi ? j : (j - wi) * (wi + 1));
+    }
+    return guard + m_valid + (k - img_pads);
+  }
+};
+
+// The prepasses' tiles: PRE_C channels x PRE_P positions, 256 threads
+constexpr int PRE_C = 32;
+constexpr int PRE_P = 128;
+
+// Pad vector v of the slab [.., c] of T (16 bytes of channels of the
+// pads(v / vectors a position)-th pad position) set to zero, a thread
+// each; v >= pad_vecs does nothing. c * sizeof(T) % 16 == 0.
+template <typename T>
+__device__ __forceinline__ void zero_pad_vec(T* __restrict__ slab,
+                                             const PadPos& pads, int c,
+                                             long v, long pad_vecs) {
+  if (v >= pad_vecs) return;
+  constexpr int PER = 16 / sizeof(T);
+  const int vpp = c / PER;
+  const long k = v / vpp;
+  *reinterpret_cast<uint4*>(slab + pads(k) * c + (v - k * vpp) * PER) =
+      make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A prepass tile's second half: the shared tile holds position p's PRE_C
+// channels of T in row words[p], two channels a Word (sizeof(Word) == 2 *
+// sizeof(T)); each thread writes 16-byte runs of a position's row to out
+// [at(p0 + p), c] at channel c0 + run * 16 / sizeof(T). A run or position
+// past c or n is skipped. Call after the tile's writes are synced.
+template <typename T, typename Word, int PITCH, typename At>
+__device__ __forceinline__ void store_runs(Word (*words)[PITCH],
+                                           T* __restrict__ out, int c,
+                                           int c0, long p0, int n,
+                                           const At& at) {
+  static_assert(sizeof(Word) == 2 * sizeof(T), "two channels a word");
+  constexpr int PER = 16 / sizeof(T);      // channels a run
+  constexpr int RUNS = PRE_C / PER;        // runs a position
+#pragma unroll
+  for (int r = 0; r < PRE_P * RUNS / 256; ++r) {
+    const int idx = threadIdx.x + 256 * r;
+    const int p = idx / RUNS, run = idx % RUNS;
+    const int cc = c0 + PER * run;
+    if (cc < c && p0 + p < n) {
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(words[p]) + 4 * run;
+      *reinterpret_cast<uint4*>(out + at(p0 + p) * c + cc) =
+          make_uint4(src[0], src[1], src[2], src[3]);
+    }
+  }
 }
 
 constexpr float kFwdFloor = 1e-12f;

@@ -233,12 +233,17 @@ __device__ __forceinline__ void wgmma<160>(float (&d)[80], uint64_t a,
 // row r, column c) of m = i * (h + 1) * (wi + 1) + r * (wi + 1) + c, live
 // where r, c >= 1 and i < b, and the live rows in order are the output
 // lanes in order.
-__device__ __forceinline__ int live_before(const Args& p, int m) {
-  const int wp = p.wi + 1, per = (p.h + 1) * wp;
+__device__ __forceinline__ int live_before(int m, int b, int h, int wi,
+                                           int n) {
+  const int wp = wi + 1, per = (h + 1) * wp;
   const int i = m / per;
-  if (i >= p.b) return p.n;
+  if (i >= b) return n;
   const int rem = m - i * per, r = rem / wp, c = rem - r * wp;
-  return i * p.h * p.wi + (r == 0 ? 0 : (r - 1) * p.wi + max(c - 1, 0));
+  return i * h * wi + (r == 0 ? 0 : (r - 1) * wi + max(c - 1, 0));
+}
+
+__device__ __forceinline__ int live_before(const Args& p, int m) {
+  return live_before(m, p.b, p.h, p.wi, p.n);
 }
 
 // acc += the tile's products over every K step (see the head of the file);

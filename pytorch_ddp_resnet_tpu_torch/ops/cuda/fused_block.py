@@ -58,8 +58,14 @@ Layers of this module, each a CPU-or-card wrapper beside its plain version
 kernel of ``csrc/fused_block.cu`` or ``csrc/fused_block_bf16.cu`` or
 raises):
 
-- ``fwd_quantize``  (launches ``fused_half_fwd.amax``, ``.quant``)
-- ``fwd_conv``      (launches ``fused_half_fwd``, ``.sum`` with stats)
+- ``fwd_int8``      (``fwd_int8_pre``, then ``fwd_int8_gemm``)
+- ``fwd_int8_pre``  (launches ``fused_half_fwd.amax``, ``.pre``: the
+  prologue quantized once per group, the codes written position-major
+  into the padded slab of ``fused_fwd_layout``)
+- ``fwd_int8_gemm`` (launches ``fused_half_fwd``, ``.sum`` with stats:
+  the TMA-fed s8 wgmma GEMM of ``csrc/fwd_wgmma_s8.cuh`` on the K steps
+  of ``fused_fwd_int8_plan``, dequantized per row, y written
+  channel-major with the residual, the tiles' sums added in order)
 - ``bwd_quantize``  (launches ``fused_half_bwd.amax``, ``.quant``)
 - ``dgrad_conv``    (launches ``fused_half_dgrad``, ``.sum``)
 - ``wgrad``         (launches ``fused_half_wgrad``, ``.sum``)
@@ -507,16 +513,28 @@ def fused_fwd_live_rows(lay: FusedFwdLayout) -> torch.Tensor:
     return (i * lay.per_img + (r + 1) * (lay.w + 1) + c + 1).reshape(-1)
 
 
-def fused_fwd_pre_plain(x, scale, shift, bits, *, thresh, lay):
-    """The slab [slab_len, cp] of layout ``lay`` in x's dtype: the
-    prologue's d (``prologue_bf16_plain``) at each pixel's position, zeros
-    at every pad position and pad channel."""
-    d = prologue_bf16_plain(x, scale, shift, bits, thresh)
+def _to_slab(d: torch.Tensor, lay: FusedFwdLayout) -> torch.Tensor:
+    """d [Cin, N] written into the slab [slab_len, cp] of layout ``lay``,
+    each pixel at its position, zeros at every pad position and pad
+    channel, in d's dtype."""
     t = d.reshape(lay.cin, lay.b, lay.h, lay.w).permute(1, 2, 3, 0)
     t = F.pad(t, (0, lay.cp - lay.cin, 1, 0, 1, 0)).reshape(lay.m_valid,
                                                             lay.cp)
     return F.pad(t, (0, 0, lay.guard,
                      lay.slab_len - lay.guard - lay.m_valid)).contiguous()
+
+
+def _from_slab(slab: torch.Tensor, lay: FusedFwdLayout) -> torch.Tensor:
+    """The inverse of ``_to_slab``: [Cin, N] from the live positions."""
+    rows = fused_fwd_live_rows(lay) + lay.guard
+    return slab[rows.to(slab.device), :lay.cin].t().contiguous()
+
+
+def fused_fwd_pre_plain(x, scale, shift, bits, *, thresh, lay):
+    """The slab [slab_len, cp] of layout ``lay`` in x's dtype: the
+    prologue's d (``prologue_bf16_plain``) at each pixel's position, zeros
+    at every pad position and pad channel."""
+    return _to_slab(prologue_bf16_plain(x, scale, shift, bits, thresh), lay)
 
 
 def fused_fwd_gemm_plain(slab, w_packed, res, *, lay, want_stats):
@@ -535,6 +553,100 @@ def fused_fwd_gemm_plain(slab, w_packed, res, *, lay, want_stats):
         return y, None, None
     yf = y.to(_F32)
     return y, yf.sum(dim=1), (yf * yf).sum(dim=1)
+
+
+class FusedFwdInt8Plan(NamedTuple):
+    """How the int8 forward's GEMM walks the slab (``fused_fwd_int8_plan``).
+
+    ``lay`` is the bf16 forward's ``FusedFwdLayout`` with one byte a
+    channel (cp = Cin). A K step is one TMA box of one tap, so no step
+    spans two taps: ``boxes`` cut a tap's Cin bytes into (offset, width,
+    swizzle) boxes, 128-byte ones, then one of 64 and one of 32 for the
+    rest, each landing in the swizzle of its own width. ``steps`` are the
+    K steps of every tile in order, (tap, A column, A row shift, B column,
+    width): M tile y's step reads the A box of 128 slab rows from row y *
+    128 + shift at that byte column, and the B box of ``bn`` weight rows
+    from row x * bn at column tap * Cin + offset. ``grid`` is (N tiles, M
+    tiles)."""
+    lay: FusedFwdLayout
+    boxes: tuple
+    steps: tuple
+    bn: int
+    grid: tuple
+
+
+# csrc/fwd_wgmma_s8.cuh's widest K step (bytes), and the runs of tiles of
+# the forward's `.sum` (csrc/fused_block.cu tile_sum)
+FWD_INT8_BOX = 128
+FWD_SUM_RUNS = 32
+
+
+def fwd_int8_boxes(cin: int) -> tuple:
+    """One tap's Cin bytes as (offset, width, swizzle) boxes: 128-byte
+    ones, then one of 64 and one of 32 for the rest (Cin % 32 == 0)."""
+    if cin < 32 or cin % 32:
+        raise ValueError(f"fwd_int8_boxes: Cin={cin} is not a positive "
+                         "multiple of 32")
+    whole = cin - cin % FWD_INT8_BOX
+    out = [(o, FWD_INT8_BOX) for o in range(0, whole, FWD_INT8_BOX)]
+    for width in (64, 32):
+        if cin % FWD_INT8_BOX & width:
+            out.append((whole, width))
+            whole += width
+    return tuple((o, wd, wd) for o, wd in out)
+
+
+def check_fwd_int8_geometry(name: str, cin: int, cout: int, n: int, h: int,
+                            w_img: int, tile: int) -> None:
+    """The int8 forward's own shape needs: Cin a multiple of 32 (32-byte
+    K steps), Cout a multiple of 8 (16-byte weight rows and output runs),
+    whole images, N a multiple of 8 (16-byte runs of lanes), and scale
+    groups of whole images, a multiple of 8 lanes, tiling N (the amax
+    pass's 8-lane units); any image width."""
+    if cin % 32 or cout % 8:
+        raise ValueError(f"{name}: Cin={cin}, Cout={cout}: Cin must be a "
+                         "multiple of 32 and Cout of 8")
+    if h < 1 or w_img < 1 or n % (h * w_img) or n % 8:
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "supported by the kernel (whole images, N a "
+                         "multiple of 8)")
+    if tile < 8 or tile % 8 or tile % (h * w_img) or n % tile:
+        raise ValueError(f"{name}: scale group of {tile} lanes at H={h} "
+                         f"W={w_img} N={n}: whole images, a multiple of 8 "
+                         "lanes, tiling N")
+
+
+@functools.lru_cache(maxsize=None)
+def fused_fwd_int8_plan(n: int, h: int, w_img: int, cin: int,
+                        cout: int) -> FusedFwdInt8Plan:
+    """The int8 forward's walk (see ``FusedFwdInt8Plan``) for x [Cin, n]
+    of h x w_img images and Cout outputs. Cached: every call of the
+    forward asks."""
+    lay = fused_fwd_layout(n, h, w_img, cin, cout)
+    boxes = fwd_int8_boxes(cin)
+    steps = tuple((t, o, lay.shifts[t], t * cin + o, wd)
+                  for t in range(9) for o, wd, _ in boxes)
+    return FusedFwdInt8Plan(lay, boxes, steps, lay.bn,
+                            (-(-cout // lay.bn), lay.tiles))
+
+
+def fwd_int8_pre_plain(x, scale, shift, bits, *, thresh, tile, plan):
+    """(slab [slab_len, Cin] int8 of ``plan``'s layout, amax [G] f32): the
+    codes of ``fwd_quantize_plain`` at each pixel's slab position, zeros
+    at every pad position."""
+    d_q, amax = fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                   tile=tile)
+    return _to_slab(d_q, plan.lay), amax
+
+
+def fwd_int8_gemm_plain(slab, amax, w_q, ws, res, *, tile, plan,
+                        want_stats):
+    """``fwd_conv_plain`` of the codes the slab of ``plan``'s layout holds
+    at its live positions."""
+    lay = plan.lay
+    return fwd_conv_plain(_from_slab(slab, lay), amax, w_q, ws, res,
+                          tile=tile, h=lay.h, w_img=lay.w,
+                          want_stats=want_stats)
 
 
 def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
@@ -593,13 +705,16 @@ def _library() -> ctypes.CDLL:
         lib = build.load("fused_block")
         sigs = {
             "fwd_amax_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
-            "fwd_quant_launch": [_P] * 8 + [_I] * 5 + [_F, _P],
-            "fwd_conv_launch": [_P] * 7 + [_I] * 6 + [_P],
+            "fwd_pre_launch": [_P] * 8 + [_I] * 7
+            + [ctypes.c_long, _I, _F, _P],
+            "fwd_gemm_launch": [_P] * 7 + [_I] * 6
+            + [ctypes.c_long] + [_I] * 2 + [_P],
             "bwd_amax_launch": [_P] * 10 + [_I] * 6 + [_F, _P],
             "bwd_quant_launch": [_P] * 15 + [_I] * 6 + [_F, _P],
             "dgrad_conv_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
             "wgrad_launch": [_P] * 5 + [_I] * 6 + [_P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
+            "tile_sum_launch": [_P, _P, _I, _I, _P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -664,71 +779,157 @@ def _drop_args(bits, tensors: list, dtypes: list):
     return bits.data_ptr(), None, False
 
 
-def fwd_quantize(x, scale, shift, bits, *, thresh, tile):
-    """The prologue d = dropout(relu(x * scale + shift)) quantized per
-    forward scale group: (d_q [Cin, N] int8, amax [G] f32)."""
+def fwd_int8_pre(x, scale, shift, bits, *, thresh, tile, plan):
+    """The int8 forward's slab of ``plan``'s layout and the groups' absmax
+    (``fwd_int8_pre_plain``): the amax pass, then the prepass that
+    computes the prologue once per element, quantizes it at its group's
+    scale and writes the codes position-major, zeros at every pad
+    position. Two launches; in seed mode both rebuild the mask."""
     if on_cpu(x):
-        return fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
-                                  tile=tile)
+        return fwd_int8_pre_plain(x, scale, shift, bits, thresh=thresh,
+                                  tile=tile, plan=plan)
     name = "fused_half_fwd"
-    cin, n = x.shape
+    lay = plan.lay
+    if tuple(x.shape) != (lay.cin, lay.n):
+        raise ValueError(f"{name}.pre: x {tuple(x.shape)} vs the layout "
+                         f"{lay}")
+    check_fwd_int8_geometry(name, lay.cin, lay.cout, lay.n, lay.h, lay.w,
+                            tile)
     scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
     tensors, dtypes = [x, scale, shift], [torch.bfloat16, _F32, _F32]
-    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
+    drop = _drop_args(bits, tensors, dtypes)
     require_cuda(name, tensors, dtypes)
-    if n % tile or tile % 8:
-        raise ValueError(f"{name}: tile {tile} vs N={n}")
-    groups = n // tile
-    s = _slices(groups)
-    part = torch.empty(groups * s, dtype=_F32, device=x.device)
-    keep = inv_keep(thresh) if bits is not None else 1.0
-    st = _stream(x)
-    _launch(f"{name}.amax", _library().fwd_amax_launch, x.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
-            part.data_ptr(), cin, n, tile, s, thresh or 256, keep, st,
-            seed=seeded)
-    d_q = torch.empty((cin, n), dtype=torch.int8, device=x.device)
-    amax = torch.empty(groups, dtype=_F32, device=x.device)
-    _launch(f"{name}.quant", _library().fwd_quant_launch, x.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
-            part.data_ptr(), d_q.data_ptr(), amax.data_ptr(), cin, n, tile,
-            s, thresh or 256, keep, st, seed=seeded)
-    return d_q, amax
+    return _fwd_int8_pre_launch(x, scale, shift, bits, drop, thresh, tile,
+                                lay)
 
 
-def fwd_conv(d_q, amax, w_q, ws, res, *, tile, h, w_img, want_stats):
-    """y = bf16(f32(conv(d_q, w_q)) * ws * amax/127) (+ res in bf16), and
-    with ``want_stats`` the per-channel f32 sums of y and y^2."""
-    if on_cpu(d_q):
-        return fwd_conv_plain(d_q, amax, w_q, ws, res, tile=tile, h=h,
-                              w_img=w_img, want_stats=want_stats)
+def _fwd_int8_pre_launch(x, scale, shift, bits, drop, thresh, tile, lay):
+    """``fwd_int8_pre``'s two launches on operands already checked;
+    ``drop`` is ``_drop_args`` of the bits."""
     name = "fused_half_fwd"
-    cin, n = d_q.shape
-    cout = w_q.shape[0]
-    if tuple(w_q.shape) != (cout, 9 * cin):
-        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin {cin}")
-    _check_geometry(name, cin, n, tile, h, w_img)
+    bits_p, seed_p, seeded = drop
+    groups = lay.n // tile
+    s = _slices(groups)
+    dev = x.device
+    part = torch.empty(groups * s, dtype=_F32, device=dev)
+    keep = inv_keep(thresh) if bits is not None else 1.0
+    lib, st = _library(), _stream(x)
+    _launch(f"{name}.amax", lib.fwd_amax_launch, x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            part.data_ptr(), lay.cin, lay.n, tile, s, thresh or 256, keep,
+            st, seed=seeded)
+    slab = torch.empty((lay.slab_len, lay.cin), dtype=torch.int8,
+                       device=dev)
+    amax = torch.empty(groups, dtype=_F32, device=dev)
+    _launch(f"{name}.pre", lib.fwd_pre_launch, x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            part.data_ptr(), slab.data_ptr(), amax.data_ptr(), lay.cin,
+            lay.n, tile, s, lay.h, lay.w, lay.guard, lay.slab_len,
+            thresh or 256, keep, st, seed=seeded)
+    return slab, amax
+
+
+def _check_fwd_int8_operands(name, w_q, ws, res, lay):
+    """The GEMM's weights, scales and residual against the layout."""
+    if tuple(w_q.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin "
+                         f"{lay.cin}, Cout {lay.cout}")
+    if tuple(ws.shape) != (lay.cout,):
+        raise ValueError(f"{name}: weight scales {tuple(ws.shape)}")
+    if res is not None and tuple(res.shape) != (lay.cout, lay.n):
+        raise ValueError(f"{name}: res {tuple(res.shape)}")
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
+
+
+def fwd_int8_gemm(slab, amax, w_q, ws, res, *, tile, plan, want_stats):
+    """(y, ysum, yssq) from the slab of ``plan``'s layout
+    (``fwd_int8_gemm_plain``): the exact s32 contraction over (tap,
+    channel) on s8 wgmma, y = bf16(f32(acc) * (ws[co] * (amax_g * 1/127)))
+    (+ res: bf16(f32(res) + f32(y))) written channel-major, each tile's
+    sums of the stored y and y^2 added in a fixed order (``FWD_SUM_RUNS``
+    runs of consecutive tiles, each in order, then the runs in order: bit
+    for bit the same every run)."""
+    if on_cpu(slab):
+        return fwd_int8_gemm_plain(slab, amax, w_q, ws, res, tile=tile,
+                                   plan=plan, want_stats=want_stats)
+    name = "fused_half_fwd"
+    lay = plan.lay
+    if tuple(slab.shape) != (lay.slab_len, lay.cin):
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} is not of the "
+                         f"layout {lay}")
+    check_fwd_int8_geometry(name, lay.cin, lay.cout, lay.n, lay.h, lay.w,
+                            tile)
+    _check_fwd_int8_operands(name, w_q, ws, res, lay)
     ws = ws.to(_F32).contiguous()
-    tensors = [d_q, w_q, amax, ws]
+    tensors = [slab, w_q, amax, ws]
     dtypes = [torch.int8, torch.int8, _F32, _F32]
     if res is not None:
-        if tuple(res.shape) != (cout, n):
-            raise ValueError(f"{name}: res {tuple(res.shape)}")
         tensors.append(res)
         dtypes.append(torch.bfloat16)
     require_cuda(name, tensors, dtypes)
-    y = torch.empty((cout, n), dtype=torch.bfloat16, device=d_q.device)
-    nblk = _conv_blocks(n, h, w_img)
-    part = (torch.empty((nblk, 2 * cout), dtype=_F32, device=d_q.device)
+    if amax.numel() != lay.n // tile:
+        raise ValueError(f"{name}: {amax.numel()} group scales vs "
+                         f"{lay.n // tile} groups")
+    return _fwd_int8_gemm_launch(slab, amax, w_q, ws, res, tile, plan,
+                                 want_stats)
+
+
+def _fwd_int8_gemm_launch(slab, amax, w_q, ws, res, tile, plan, want_stats):
+    """``fwd_int8_gemm``'s launches on operands already checked."""
+    name = "fused_half_fwd"
+    lay = plan.lay
+    dev = slab.device
+    lib, st = _library(), _stream(slab)
+    y = torch.empty((lay.cout, lay.n), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((lay.tiles, 2 * lay.cout), dtype=_F32, device=dev)
             if want_stats else None)
-    _launch(name, _library().fwd_conv_launch, d_q.data_ptr(),
-            w_q.data_ptr(), amax.data_ptr(), ws.data_ptr(), _ptr(res),
-            y.data_ptr(), _ptr(part), cin, cout, n, h, w_img, tile,
-            _stream(d_q))
+    _launch(name, lib.fwd_gemm_launch, slab.data_ptr(), w_q.data_ptr(),
+            amax.data_ptr(), ws.data_ptr(), _ptr(res), y.data_ptr(),
+            _ptr(part), lay.cin, lay.cout, lay.n, lay.h, lay.w, tile,
+            lay.slab_len, lay.tiles, plan.bn, st)
     if not want_stats:
         return y, None, None
-    sums = _partial_sum(f"{name}.sum", part)
-    return y, sums[:cout], sums[cout:]
+    sums = torch.empty(2 * lay.cout, dtype=_F32, device=dev)
+    _launch(f"{name}.sum", lib.tile_sum_launch, part.data_ptr(),
+            sums.data_ptr(), lay.tiles, 2 * lay.cout, st)
+    return y, sums[:lay.cout], sums[lay.cout:]
+
+
+def fwd_int8(x, w_q, ws, scale, shift, bits, res, *, thresh, tile, h,
+             w_img, want_stats):
+    """The int8 half's forward: the prologue d = dropout(relu(x * scale +
+    shift)) quantized per forward scale group of ``tile`` lanes, y =
+    bf16(f32(conv(d_q, w_q)) * ws * amax/127) (+ res in bf16), and with
+    ``want_stats`` the per-channel f32 sums of y and y^2. On the CPU
+    ``fwd_conv_plain`` of ``fwd_quantize_plain``; on the card the launches
+    of ``fwd_int8_pre`` into a slab freed at return, then those of
+    ``fwd_int8_gemm``; every operand is checked once, before the first
+    launch."""
+    if on_cpu(x):
+        d_q, amax = fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                       tile=tile)
+        return fwd_conv_plain(d_q, amax, w_q, ws, res, tile=tile, h=h,
+                              w_img=w_img, want_stats=want_stats)
+    name = "fused_half_fwd"
+    cin, n = x.shape
+    cout = w_q.shape[0]
+    check_fwd_int8_geometry(name, cin, cout, n, h, w_img, tile)
+    plan = fused_fwd_int8_plan(n, h, w_img, cin, cout)
+    _check_fwd_int8_operands(name, w_q, ws, res, plan.lay)
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    ws = ws.to(_F32).contiguous()
+    tensors = [x, scale, shift, w_q, ws]
+    dtypes = [torch.bfloat16, _F32, _F32, torch.int8, _F32]
+    if res is not None:
+        tensors.append(res)
+        dtypes.append(torch.bfloat16)
+    drop = _drop_args(bits, tensors, dtypes)
+    require_cuda(name, tensors, dtypes)
+    slab, amax = _fwd_int8_pre_launch(x, scale, shift, bits, drop, thresh,
+                                      tile, plan.lay)
+    return _fwd_int8_gemm_launch(slab, amax, w_q, ws, res, tile, plan,
+                                 want_stats)
 
 
 def _conv_blocks(n: int, h: int, w_img: int) -> int:
@@ -827,6 +1028,17 @@ def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
     return dx, sums[:cin], sums[cin:]
 
 
+def _check_wgrad_geometry(cin: int, n: int, tile: int, h: int,
+                          w_img: int) -> None:
+    """The int8 wgrad kernel's own shape needs."""
+    name = "fused_half_wgrad"
+    _check_geometry(name, cin, n, tile, h, w_img)
+    if (tile % KCHUNK or w_img > 32 or KCHUNK % w_img
+            or (KCHUNK % (h * w_img) and (h * w_img) % KCHUNK)):
+        raise ValueError(f"{name}: tile {tile} / image {h}x{w_img} vs the "
+                         f"{KCHUNK}-position staging chunk")
+
+
 def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     """dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order."""
     if on_cpu(g_q):
@@ -835,11 +1047,7 @@ def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
     name = "fused_half_wgrad"
     cout, n = g_q.shape
     cin = d_q.shape[0]
-    _check_geometry(name, cin, n, tile, h, w_img)
-    if (tile % KCHUNK or w_img > 32 or KCHUNK % w_img
-            or (KCHUNK % (h * w_img) and (h * w_img) % KCHUNK)):
-        raise ValueError(f"{name}: tile {tile} / image {h}x{w_img} vs the "
-                         f"{KCHUNK}-position staging chunk")
+    _check_wgrad_geometry(cin, n, tile, h, w_img)
     require_cuda(name, [g_q, g_amax, d_q, d_amax],
                  [torch.int8, _F32, torch.int8, _F32])
     groups = n // tile
@@ -1262,6 +1470,21 @@ def fused_half(x_cs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 
+@functools.lru_cache(maxsize=None)
+def _check_int8_backward(quant_bwd: bool, cin: int, cout: int, n: int,
+                         h: int, w_img: int) -> None:
+    """The shape needs of the backward an int8 half will run: the int8
+    quantizer, dgrad and wgrad (FQT) or the bf16 dgrad (QAT). Cached per
+    shape; a shape that raises is checked again at each call."""
+    if not quant_bwd:
+        _check_bf16_geometry("fused_half_bf16_dgrad", cout, n, h, w_img)
+        return
+    tile = bwd_tile(h, w_img, n, cin, cout)
+    _check_geometry("fused_half_dgrad", cout, n, tile, h, w_img)
+    _conv_blocks(n, h, w_img)
+    _check_wgrad_geometry(cin, n, tile, h, w_img)
+
+
 class _FusedHalfInt8(torch.autograd.Function):
     """Forward of one int8 half, and its backward: fully quantized with
     ``quant_bwd``, else the bf16 straight-through backward at the
@@ -1274,10 +1497,13 @@ class _FusedHalfInt8(torch.autograd.Function):
         cin, n = x_cs.shape
         cout = w.shape[0]
         tile = lane_tile(h, w_img, n, cin, cout)
+        if not on_cpu(x_cs):
+            # the forward takes any width; raise before its first launch
+            # where the backward's kernels refuse the shape
+            _check_int8_backward(quant_bwd, cin, cout, n, h, w_img)
         w_q, ws = quantize_pack_weights(w.detach())
-        d_q, amax = fwd_quantize(x_cs, scale, shift, bits, thresh=thresh,
-                                 tile=tile)
-        y, ysum, yssq = fwd_conv(d_q, amax, w_q, ws, res, tile=tile, h=h,
+        y, ysum, yssq = fwd_int8(x_cs, w_q, ws, scale, shift, bits, res,
+                                 thresh=thresh, tile=tile, h=h,
                                  w_img=w_img, want_stats=want_stats)
         ctx.save_for_backward(x_cs, w, scale, shift, bits,
                               y if want_stats else None)

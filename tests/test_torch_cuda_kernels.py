@@ -233,14 +233,18 @@ def test_fused_half_kernels_match_plain(dev, c, h, w, b, rate, use_res,
            if use_res else None)
     tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
     wq, ws = fb.quantize_pack_weights(wt)
-    got = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh, tile=tile)
-    want = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
-                                 tile=tile)
-    for a, b_ in zip(got, want):
+    plan = fb.fused_fwd_int8_plan(n, h, w, c, c)
+    got = fb.fwd_int8_pre(x, scale, shift, bits, thresh=thresh, tile=tile,
+                          plan=plan)
+    for a, b_ in zip(got, fb.fwd_int8_pre_plain(x, scale, shift, bits,
+                                                thresh=thresh, tile=tile,
+                                                plan=plan)):
         _same(a, b_)
-    y = fb.fwd_conv(*want, wq, ws, res, tile=tile, h=h, w_img=w,
-                    want_stats=stats)
-    y_p = fb.fwd_conv_plain(*want, wq, ws, res, tile=tile, h=h, w_img=w,
+    y = fb.fwd_int8(x, wq, ws, scale, shift, bits, res, thresh=thresh,
+                    tile=tile, h=h, w_img=w, want_stats=stats)
+    y_p = fb.fwd_conv_plain(*fb.fwd_quantize_plain(x, scale, shift, bits,
+                                                   thresh=thresh, tile=tile),
+                            wq, ws, res, tile=tile, h=h, w_img=w,
                             want_stats=stats)
     _same(y[0], y_p[0])
     if stats:
@@ -287,7 +291,7 @@ def test_fused_half_op_launches_its_kernels(dev):
     torch.cuda.synchronize()
     assert dict(fb.launches) == {
         name: 1 for name in (
-            "fused_half_fwd.amax", "fused_half_fwd.quant", "fused_half_fwd",
+            "fused_half_fwd.amax", "fused_half_fwd.pre", "fused_half_fwd",
             "fused_half_fwd.sum", "fused_half_bwd.amax",
             "fused_half_bwd.quant", "fused_half_dgrad", "fused_half_dgrad.sum",
             "fused_half_wgrad", "fused_half_wgrad.sum")}
@@ -315,12 +319,14 @@ def test_stem_kernels_match_plain(dev, cin, cout, h, w, b):
 
 
 def test_fused_and_stem_never_fall_back(dev):
-    q = torch.zeros((48, 8192), dtype=torch.int8, device=dev)
+    x = torch.zeros((48, 8192), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((48, 9 * 48), dtype=torch.int8, device=dev)
-    a = torch.ones(2, device=dev)
+    one = torch.ones(48, device=dev)
+    fb.reset_launches()
     with pytest.raises(ValueError, match="multiple of 32"):
-        fb.fwd_conv(q, a, w, torch.ones(48, device=dev), None, tile=4096,
+        fb.fwd_int8(x, w, one, one, one, None, None, thresh=None, tile=4096,
                     h=8, w_img=8, want_stats=True)
+    assert not fb.launches
     x = torch.zeros((3, 8192), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         st.stem_fwd(x, torch.zeros((16, 27), device=dev),
@@ -424,8 +430,9 @@ def test_fused_half_bf16_kernels_match_plain(dev, c, h, w, b, mode, use_res,
 
 @pytest.mark.parametrize("c,h,w,b", FQT_SHAPES)
 def test_int8_kernels_in_seed_mode_match_plain(dev, c, h, w, b):
-    """The int8 core's quantizers and dgrad rebuild the mask from a seed: equal to
-    their plain versions, and to themselves fed the expanded bits."""
+    """The int8 core's quantizers (the forward's writes the slab) and dgrad
+    rebuild the mask from a seed: equal to their plain versions, and to
+    themselves fed the expanded bits."""
     g = torch.Generator(device=dev).manual_seed(c + b + 2)
     n = b * h * w
     x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
@@ -435,10 +442,11 @@ def test_int8_kernels_in_seed_mode_match_plain(dev, c, h, w, b):
     thresh, seed = _drop("seed", dev, g, c, n)
     expanded = fb.seed_bits(seed, c, n, 0, n)
     tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+    plan = fb.fused_fwd_int8_plan(n, h, w, c, c)
     outs = []
     for bits in (seed, expanded):
-        d_q, amax = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
-                                    tile=tile)
+        d_q, amax = fb.fwd_int8_pre(x, scale, shift, bits, thresh=thresh,
+                                    tile=tile, plan=plan)
         dy = (torch.randn(c, n, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(
                               7)) * 1e-3).to(torch.bfloat16)
@@ -448,8 +456,8 @@ def test_int8_kernels_in_seed_mode_match_plain(dev, c, h, w, b):
         dg = fb.dgrad_conv(ops[0], ops[1], wdg, wsin, x, scale, shift, bits,
                            thresh=thresh, tile=btile, h=h, w_img=w)
         outs.append([d_q, amax, *ops[:4], *dg])
-        want = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
-                                     tile=tile)
+        want = fb.fwd_int8_pre_plain(x, scale, shift, bits, thresh=thresh,
+                                     tile=tile, plan=plan)
         _same(d_q, want[0])
         _same(amax, want[1])
         want = fb.dgrad_conv_plain(ops[0], ops[1], wdg, wsin, x, scale,
@@ -481,7 +489,7 @@ def test_fused_half_bf16_op_launches_its_kernels(dev):
                "fused_half_bf16_wgrad.sum")
         fwd = (("fused_half_bf16_fwd.pre", "fused_half_bf16_fwd",
                 "fused_half_bf16_fwd.sum") if not kw
-               else ("fused_half_fwd.amax", "fused_half_fwd.quant",
+               else ("fused_half_fwd.amax", "fused_half_fwd.pre",
                      "fused_half_fwd", "fused_half_fwd.sum"))
         assert dict(fb.launches) == {name: 1 for name in fwd + bwd}
         # the bf16 forward's and the wgrad's prepasses rebuild the mask;
@@ -667,6 +675,104 @@ def test_fused_fwd_takes_widths_the_dgrad_refuses_before_any_launch(dev):
     with pytest.raises(ValueError, match="geometry H=6 W=6"):
         fb.fused_half(x.requires_grad_(), wt, scale, shift, h=h, w_img=w)
     assert not fb.launches
+
+
+# (Cin, Cout, h, w, batch) of the staged int8 forward: the FQT shapes (the
+# WRN-28-10 stages at batch 128), then 6x6 images at Cin 96 (64- and
+# 32-byte K steps) and Cout 40 (a ragged 64-wide N tile), and 12x12 at
+# Cout 136 (a ragged 128-wide one)
+FUSED_FWD_INT8_SHAPES = [(c, c, h, w, b) for c, h, w, b in FQT_SHAPES] + [
+    (96, 40, 6, 6, 32), (64, 136, 12, 12, 8)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", FUSED_FWD_INT8_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "bits", "seed"])
+@pytest.mark.parametrize("use_res,stats", [(False, True), (True, False),
+                                           (True, True)])
+def test_fused_fwd_int8_staged_matches_plain(dev, cin, cout, h, w, b, mode,
+                                             use_res, stats):
+    """The int8 forward's amax pass, prepass and TMA-fed s8 wgmma GEMM: the
+    slab and the groups' absmax equal to the plain prepass's byte for
+    byte, y equal to ``fwd_conv_plain`` of ``fwd_quantize_plain``, the sums
+    within 1e-5 of its largest value; two calls bit-equal; each call one
+    amax pass and one prepass (both seeded in seed mode), one GEMM and
+    with stats one ordered sum."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + w + 1)
+    n = b * h * w
+    x = torch.randn(cin, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(cout, cin, 3, 3, device=dev, generator=g) * (
+        9 * cin) ** -0.5
+    wq, ws = fb.quantize_pack_weights(wt)
+    scale = torch.rand(cin, device=dev, generator=g) + 0.5
+    shift = torch.randn(cin, device=dev, generator=g) * 0.3
+    thresh, bits = _drop(mode, dev, g, cin, n)
+    res = (torch.randn(cout, n, device=dev, generator=g).to(torch.bfloat16)
+           if use_res else None)
+    tile = fb.lane_tile(h, w, n, cin, cout)
+    plan = fb.fused_fwd_int8_plan(n, h, w, cin, cout)
+    kw = dict(thresh=thresh, tile=tile, h=h, w_img=w, want_stats=stats)
+    slab, amax = fb.fwd_int8_pre(x, scale, shift, bits, thresh=thresh,
+                                 tile=tile, plan=plan)
+    fb.reset_launches()
+    got = fb.fwd_int8(x, wq, ws, scale, shift, bits, res, **kw)
+    again = fb.fwd_int8(x, wq, ws, scale, shift, bits, res, **kw)
+    d_q, pamax = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
+                                       tile=tile)
+    want = fb.fwd_conv_plain(d_q, pamax, wq, ws, res, tile=tile, h=h,
+                             w_img=w, want_stats=stats)
+    torch.cuda.synchronize()
+    pslab, pamax2 = fb.fwd_int8_pre_plain(x, scale, shift, bits,
+                                          thresh=thresh, tile=tile,
+                                          plan=plan)
+    _same(slab, pslab)
+    _same(amax, pamax2)
+    assert want[0].float().abs().max().item() > 0
+    _same(got[0], want[0])
+    if stats:
+        _same(got[1], want[1], sums=True)
+        _same(got[2], want[2], sums=True)
+    else:
+        assert got[1] is None and got[2] is None
+    for a, b_ in zip(got, again):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+    names = ("fused_half_fwd.amax", "fused_half_fwd.pre",
+             "fused_half_fwd") + (("fused_half_fwd.sum",) if stats else ())
+    assert dict(fb.launches) == {name: 2 for name in names}
+    assert dict(fb.seed_launches) == ({names[0]: 2, names[1]: 2}
+                                      if mode == "seed" else {})
+
+
+def test_fused_fwd_int8_takes_widths_the_backward_refuses_before_any_launch(
+        dev):
+    """6x6 images at batch 64 (a geometry the fused gate admits): the int8
+    forward runs there and equals its plain version; ``fused_half_int8``
+    raises, naming the geometry, before its first launch, in FQT (its int8
+    dgrad and wgrad) and in QAT (its bf16 dgrad), whose kernels tile rows
+    of 8."""
+    c, b, h, w = 32, 64, 6, 6
+    n = b * h * w
+    g = torch.Generator(device=dev).manual_seed(67)
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * 0.05
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    wq, ws = fb.quantize_pack_weights(wt)
+    tile = fb.lane_tile(h, w, n, c, c)
+    kw = dict(thresh=None, tile=tile, h=h, w_img=w, want_stats=True)
+    got = fb.fwd_int8(x, wq, ws, scale, shift, None, None, **kw)
+    want = fb.fwd_conv_plain(*fb.fwd_quantize_plain(
+        x, scale, shift, None, thresh=None, tile=tile), wq, ws, None,
+        tile=tile, h=h, w_img=w, want_stats=True)
+    torch.cuda.synchronize()
+    _same(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    for quant_bwd in (True, False):
+        fb.reset_launches()
+        with pytest.raises(ValueError, match="geometry H=6 W=6"):
+            fb.fused_half_int8(x.clone().requires_grad_(), wt, scale, shift,
+                               h=h, w_img=w, quant_bwd=quant_bwd)
+        assert not fb.launches
 
 
 # (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,
@@ -1316,12 +1422,8 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
     tile = tr.transition_tile(h // 2, w // 2, n // 4, cin, cout)
     kw = dict(h=h, w_img=w)
     wq, ws = fb.quantize_pack_weights(t["w1"])
-    d_q, amax = fb.fwd_quantize(x, scale, shift, bits, thresh=thresh,
-                                tile=4 * tile)
     pd_q, pamax = fb.fwd_quantize_plain(x, scale, shift, bits, thresh=thresh,
                                         tile=4 * tile)
-    _same(d_q, pd_q)
-    _same(amax, pamax)
     got = tr.fwd_conv(x, scale, shift, bits, wq, ws, wp, thresh=thresh,
                       tile=tile, **kw)
     want = tr.fwd_conv_plain(pd_q, pamax, wq, ws, x, wp, tile=tile, **kw)

@@ -206,8 +206,8 @@ def test_shared_quantizer_is_the_joint_parity_quantizer(floor, b, h, cin,
         got = packed[:, g * tile:(g + 1) * tile].numpy()
         np.testing.assert_array_equal(got, wq)
         assert float(amax[g]) == wa
-    if floor == fb.FWD_FLOOR:  # the forward's own entry point
-        q2, a2 = fb.fwd_quantize(
+    if floor == fb.FWD_FLOOR:  # the fused half's forward quantizer
+        q2, a2 = fb.fwd_quantize_plain(
             _t(x, torch.bfloat16), _t(scale), _t(shift),
             tr.parity_unpack(torch.from_numpy(bits), h, h), thresh=thresh,
             tile=4 * tile)
