@@ -41,10 +41,17 @@ Phases, each fatal on failure:
    fused block-half kernels (ops/cuda/csrc/fused_block.cu) against their
    plain versions on the same CUDA tensors: the forward in all four
    (residual, BatchNorm sums) modes, the backward's shared quantization
-   and dgrad and the wgrad with and without stats cotangents; and the
-   stem kernels (ops/cuda/csrc/stem.cu) at 3 -> 160 channels, 32x32.
+   and dgrad and the wgrad with and without stats cotangents (the wgrad on
+   csrc/fused_wgrad_s8.cu: the TMA + s8 wgmma mainloop of
+   csrc/wgrad_wgmma_s8.cuh at the nine stride-1 taps, its scale groups
+   split into runs whose slots are added in group order where its plan
+   says so); and the stem kernels (ops/cuda/csrc/stem.cu, the weight
+   gradient a tensor-core GEMM over positions, its blocks' slots added in
+   a fixed order) at 3 -> 160 channels, 32x32.
    Int8 codes, group absmaxes, bf16 outputs and the weight gradient must
-   be equal, f32 sums over positions within 1e-5 of their largest value.
+   be equal, f32 sums over positions within 1e-5 of their largest value;
+   both weight gradients must give the same bits in two calls and are also
+   timed in device time (torch.profiler).
    Each is timed beside its plain version and cuDNN's bf16 forward, input
    gradient and weight gradient (channels-last) at the same shape. The
    forward (the amax pass, the prepass that writes the codes into the
@@ -312,6 +319,8 @@ STAGES = [(160, 32, 32), (320, 16, 16), (640, 8, 8)]  # (C, H, W)
 SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 AUG_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/augment.cu"
 FQT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu"
+FQT_WGRAD_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
+                    "fused_wgrad_s8.cu")
 STEM_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/stem.cu"
 NV_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv.cu"
 NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
@@ -327,7 +336,8 @@ SOURCES = {"nv_half_fwd":
            "fused_half_bf16_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_bf16.cuh",
            "fused_half_fwd":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
+           "fused_half_wgrad": FQT_WGRAD_SOURCE}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -456,14 +466,18 @@ NV_QAT_PER_STEP = {
     "nv_half_wgrad_bf16.pre": 30, "nv_half_wgrad_bf16": 30,
     "nv_half_wgrad_bf16.sum": 30}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
-# emitting BatchNorm sums (conv1 of the 10 identity blocks)
+# emitting BatchNorm sums (conv1 of the 10 identity blocks); the int8
+# wgrad's plan splits the scale groups of the 15 halves at C = 160 and 320
+# (a sum over their slots each) and folds them in the block at C = 640
+# (FQT_WGRAD_SPLIT; phase 6 asserts the plan agrees)
+FQT_WGRAD_SPLIT = {160: True, 320: True, 640: False}
 FQT_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
     "fused_half_fwd.amax": 22, "fused_half_fwd.pre": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
     "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
     "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
-    "fused_half_wgrad": 22, "fused_half_wgrad.sum": 22}
+    "fused_half_wgrad": 22, "fused_half_wgrad.sum": 15}
 # launches of one lane-transition step: the 22 halves as above, plus the
 # two transition halves (each one forward: its amax pass, prepass, staged
 # mainloop and ordered sum; one backward fold or quantizer, dgrad, wgrad
@@ -927,7 +941,7 @@ KERNEL_KINDS = [
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
-    ("stem (port)", ("stem_",)),
+    ("stem (port)", ("stem_", "StemWgradSum")),
     ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     # the lane transition's TMA wgrads (the bf16 one shares
     # conv3x3_same's mainloop): their instantiations and the sum carry the
@@ -940,7 +954,7 @@ KERNEL_KINDS = [
                            "dgrad_kernel<", "bwd_amax_kernel",
                            "bwd_quant_kernel", "bwd_fold_kernel")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
-                                "quant_kernel", "wgrad_kernel",
+                                "quant_kernel", "FusedWgradS8",
                                 "partial_sum", "fwd_slab_kernel",
                                 "fwd_s8_kernel", "tile_sum_kernel")),
     ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm")),
@@ -1343,8 +1357,10 @@ def fqt_kernel_phase(peaks):
                 lambda: _half_dgrad(fb, *args, plain=True), lib_d, 2 * macs,
                 ins + 2 * cn + 36 * c * c + (2 * cn if ct else 0), ops_int8)
             wargs = (ops_p, btile, h, w)
-            err = _agree(_half_wgrad(fb, *wargs, plain=False),
-                         _half_wgrad(fb, *wargs, plain=True),
+            first = _half_wgrad(fb, *wargs, plain=False)
+            assert torch.equal(first["dw"], _half_wgrad(
+                fb, *wargs, plain=False)["dw"]), ("wgrad bits", c, ct)
+            err = _agree(first, _half_wgrad(fb, *wargs, plain=True),
                          ("wgrad", c, ct))
             # the wgrad reads the int8 operands the dgrad row's
             # quantization wrote (charged there once) and writes f32 dW
@@ -1352,6 +1368,12 @@ def fqt_kernel_phase(peaks):
                 lambda: _half_wgrad(fb, *wargs, plain=False),
                 lambda: _half_wgrad(fb, *wargs, plain=True), lib_w, 2 * macs,
                 2 * cn + 36 * c * c, ops_int8)
+            wplan = fb.fused_wgrad_s8_plan(c, c, n, h, w, btile)
+            assert (wplan.runs > 1) == FQT_WGRAD_SPLIT[c], (c, wplan)
+            rows[-1].update(
+                bn=wplan.bn, runs=wplan.runs, bits_equal_two_calls=True,
+                dev_ms=device_ms(
+                    lambda: _half_wgrad(fb, *wargs, plain=False), 10))
         del x, bits, res, y, dy
         torch.cuda.empty_cache()
 
@@ -1372,12 +1394,18 @@ def fqt_kernel_phase(peaks):
         2 * (c_in + c) * n + 2 * 27 * c, flops_bf16)
     got, want = (st.stem_wgrad(dy, x, h=h, w_img=w),
                  st.stem_wgrad_plain(dy, x, h=h, w_img=w))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        got, st.stem_wgrad(dy, x, h=h, w_img=w))), "stem wgrad bits"
     err = _agree({"dw_stem": got[0], "db": got[1]},
                  {"dw_stem": want[0], "db": want[1]}, "stem wgrad")
     row("stem_wgrad", c, h, w, "cin=3", err,
         lambda: st.stem_wgrad(dy, x, h=h, w_img=w),
         lambda: st.stem_wgrad_plain(dy, x, h=h, w_img=w), lib_w, ops,
         2 * (c_in + c) * n + 4 * 28 * c, flops_bf16)
+    rows[-1].update(
+        blocks=st.stem_wgrad_plan(n, c, h, w).blocks,
+        bits_equal_two_calls=True,
+        dev_ms=device_ms(lambda: st.stem_wgrad(dy, x, h=h, w_img=w), 10))
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
@@ -1547,7 +1575,7 @@ def fqt_summary(rows, training, halves):
         # prepass; the forward's parts only on its rows)
         tot = {k: sum(r[k] * cnt for r, cnt in mix)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "ops_ms", "bytes_ms") + FWD_INT8_PART_KEYS
+                         "ops_ms", "bytes_ms", "dev_ms") + FWD_INT8_PART_KEYS
                if all(r.get(k) is not None for r, _ in mix)}
         out.append(dict(
             name=name, route="cuda",
@@ -1560,13 +1588,15 @@ def fqt_summary(rows, training, halves):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=tot.get("library_ms"),
-            **{k: tot[k] for k in FWD_INT8_PART_KEYS if k in tot},
+            **{k: tot[k] for k in FWD_INT8_PART_KEYS + ("dev_ms",)
+               if k in tot},
             per=f"training step of {BATCH} (ms per call summed over the "
                 "step's calls; launches over the run)",
             stages=[{k: r.get(k) for k in (
                 "c", "h", "w", "mode", "ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "max_abs_err") + FWD_INT8_PART_KEYS
-                + ("bn", "boxes", "tiles") if k in r}
+                + ("bn", "boxes", "tiles", "runs", "blocks", "dev_ms",
+                   "bits_equal_two_calls") if k in r}
                     for r in mine]))
     return out
 
@@ -4001,7 +4031,7 @@ def main() -> int:
     # the TMA wgrads' kernels: one block of 416 threads an SM (a producer
     # warp, a shifter warpgroup, two consumer warpgroups), bf16 and the
     # transition's s8 one; ptxas's note where it serializes the wgmmas
-    for lib_name in ("conv3x3_wgrad", "transition_wgrad"):
+    for lib_name in ("conv3x3_wgrad", "transition_wgrad", "fused_wgrad_s8"):
         log = build.build_log(lib_name)
         for pattern in ("wgrad_tma_kernel", "wgrad_s8_kernel"):
             for e in ptxas_entries(log, pattern):
@@ -4010,6 +4040,11 @@ def main() -> int:
         for line in log.splitlines():
             if "serialized" in line:
                 print(f"  ptxas {lib_name}: {line.strip()}")
+
+    # the stem's weight gradient: mma.sync bf16 over a cp.async ring
+    for e in ptxas_entries(build.build_log("stem"), "stem_wgrad_tc_kernel"):
+        print(f"  ptxas stem {e['name']}: {e['registers']} registers, "
+              f"{e['spill_bytes']} B spilled")
 
     peaks = card_peaks(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()

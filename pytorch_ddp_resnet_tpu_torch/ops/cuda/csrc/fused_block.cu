@@ -13,8 +13,6 @@
 //                                      each begin with (one shared copy)
 //   dgrad_conv                      <- _dgrad_call -> _dgrad_kernel, and
 //                                      the dgrad half of _bwd_kernel
-//   wgrad                           <- _wgrad_call -> _wgrad_kernel, and
-//                                      the wgrad half of _bwd_kernel
 //   partial_sum                     <- the TPU kernels' sums carried
 //                                      across their sequential grid
 //
@@ -50,18 +48,8 @@
 //   d(scale)/d(shift) sums. A block's per-channel sums go to its own slot
 //   of a partial buffer (warp butterflies, then the warps in order), and
 //   partial_sum adds the slots in order: deterministic.
-// - wgrad is a GEMM over positions: dW[co, (tap, ci)] = sum_n g[co, n] *
-//   d[ci, n + shift(tap)], masked at the image borders. A block owns 64
-//   output channels x (9 taps x 32 input channels) of one scale group and
-//   walks the group in chunks of 256 positions. Per chunk it stages g
-//   [64][256] and, for its 32 input channels, three copies of the chunk's
-//   rows of d plus a halo row above and below, each shifted by one column
-//   (dw = 0, 1, 2) with zeros where the column leaves the image; every tap
-//   is then an aligned 4-byte read at a row offset, and the group's sum
-//   stays exact in s32. At the end of the group the s32 tile times the
-//   group's scale goes to the group's slot of a partial buffer, and
-//   partial_sum adds the groups in order, as the TPU kernel's sequential
-//   accumulation does.
+// - The weight gradient, the other consumer of bwd_quant's codes, is
+//   fused_wgrad_s8.cu (the TMA + s8 wgmma mainloop of wgrad_wgmma_s8.cuh).
 //
 // Dropout bits are read from a [C, N] uint8 tensor or, in seed mode,
 // computed in registers from one int32 seed at the element's global
@@ -197,219 +185,6 @@ fwd_slab_kernel(Prologue pro, const float* __restrict__ part, int slices,
   store_runs(codes, slab, cin, c0, p0, n, live);
 }
 
-// The forward's sums over its M tiles: out[i] = sum over the SUM_RUNS runs
-// of consecutive tiles, in order, of each run's sum of part[t][i], in
-// order. A fixed order, so the sums are the same bit for bit every run;
-// SUM_RUNS threads a column walk the 1,089 tiles of C = 160 (a thread a
-// column walking them all took 0.03 ms a call, 8 threads 0.017). Block:
-// SUM_COLS columns x SUM_RUNS runs.
-constexpr int SUM_COLS = 8;
-constexpr int SUM_RUNS = 32;
-
-__global__ void __launch_bounds__(SUM_COLS * SUM_RUNS)
-tile_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                int tiles, int m) {
-  __shared__ float run[SUM_RUNS][SUM_COLS];
-  const int c = threadIdx.x % SUM_COLS, q = threadIdx.x / SUM_COLS;
-  const int col = blockIdx.x * SUM_COLS + c;
-  const int per = (tiles + SUM_RUNS - 1) / SUM_RUNS;
-  float s = 0.f;
-  if (col < m)
-    for (int t = q * per; t < min(tiles, (q + 1) * per); ++t)
-      s = __fadd_rn(s, part[(size_t)t * m + col]);
-  run[q][c] = s;
-  __syncthreads();
-  if (q == 0 && col < m) {
-    float v = run[0][c];
-    for (int k = 1; k < SUM_RUNS; ++k) v = __fadd_rn(v, run[k][c]);
-    out[col] = v;
-  }
-}
-
-// --- wgrad: a GEMM over the positions of each scale group ------------------
-
-constexpr int WG_CI = 32;             // input channels per block
-constexpr int WG_KC = 256;            // positions per staging chunk
-constexpr int WG_APITCH = WG_KC + 16; // bytes per row of the g tile
-
-// Chunk geometry: rc image rows of ic images (rc * wi * ic == WG_KC).
-struct Chunk {
-  int rc, ic;
-};
-
-__host__ __device__ inline Chunk chunk_of(int h, int wi) {
-  const int hw = h * wi;
-  return hw >= WG_KC ? Chunk{WG_KC / wi, 1} : Chunk{h, WG_KC / hw};
-}
-
-// bytes per (dw, ci) row of the shifted copies: ic * (rc + 2) rows of wi,
-// padded to 4 mod 32 words so the fragment reads of a warp hit distinct
-// banks
-__host__ __device__ inline int copy_pitch(Chunk k, int wi) {
-  int words = (k.ic * (k.rc + 2) * wi + 3) / 4;
-  words += (4 - words % 32 + 32) % 32;
-  return words * 4;
-}
-
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const signed char* __restrict__ g,
-             const float* __restrict__ g_amax,
-             const signed char* __restrict__ d,
-             const float* __restrict__ d_amax, float* __restrict__ part,
-             int cout, int cin, int n, int h, int wi, int tile) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Chunk ck = chunk_of(h, wi);
-  const int bpitch = copy_pitch(ck, wi);
-  unsigned char* As = smem;                          // [BM][WG_APITCH]
-  unsigned char* Bs = smem + BM * WG_APITCH;         // [3][WG_CI][bpitch]
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int warp_m = warp / 4;
-  const int warp_n = warp % 4;
-  const int ci0 = blockIdx.x * WG_CI;
-  const int m0 = blockIdx.y * BM;
-  const int grp = blockIdx.z;
-  const int hw = h * wi;
-  const int slot_rows = ck.rc + 2;
-
-  // ldmatrix rows of A (as conv3x3_rows.cuh) and the shifted-copy address
-  // of each of this warp's 9 B fragments (fragment F = tap * 4 + ci octet)
-  const int q = lane / 8;
-  const int a_row = warp_m * 32 + (q & 1) * 8 + lane % 8;
-  const int a_byte = (q >> 1) * 16;
-  int b_base[9];
-#pragma unroll
-  for (int f = 0; f < 9; ++f) {
-    const int F = warp_n * 9 + f;
-    const int tap = F / 4;
-    const int dh = tap / 3, dw = tap % 3;
-    b_base[f] = (dw * WG_CI + (F % 4) * 8 + lane / 4) * bpitch + dh * wi +
-                (lane % 4) * 4;
-  }
-
-  int acc[2][9][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < 9; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][f][e] = 0;
-
-  for (int p0 = grp * tile; p0 < (grp + 1) * tile; p0 += WG_KC) {
-    __syncthreads();
-    // g chunk: [64 output channels][256 positions], 16 bytes per load
-    for (int i = tid; i < BM * (WG_KC / 16); i += THREADS) {
-      const int row = i / (WG_KC / 16);
-      const int piece = i % (WG_KC / 16);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + row < cout)
-        v = *reinterpret_cast<const uint4*>(g + (size_t)(m0 + row) * n + p0 +
-                                            piece * 16);
-      *reinterpret_cast<uint4*>(As + row * WG_APITCH + piece * 16) = v;
-    }
-    // shifted copies of d: unit = (ci, image slot row); each loads one image
-    // row (wi bytes) and writes it shifted by dw - 1 columns, zero-filled
-    const int img0 = p0 / hw;
-    const int row0 = (p0 - img0 * hw) / wi;
-    const int nw = wi / 4;
-    const int units = WG_CI * ck.ic * slot_rows;
-    for (int i = tid; i < units; i += THREADS) {
-      const int sr = i % (ck.ic * slot_rows);
-      const int ci = i / (ck.ic * slot_rows);
-      const int img = img0 + sr / slot_rows;
-      const int ir = row0 - 1 + sr % slot_rows;
-      // w[1 + k] = columns 4k .. 4k+3 of the row; w[0], w[nw + 1] = 0
-      uint32_t w[10];
-#pragma unroll
-      for (int k = 0; k < 10; ++k) w[k] = 0;
-      if (ir >= 0 && ir < h) {
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            d + (size_t)(ci0 + ci) * n + (size_t)img * hw + ir * wi);
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (k < nw) w[k + 1] = src[k];
-      }
-      unsigned char* dst = Bs + ci * bpitch + sr * wi;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (k < nw) {
-          // dw = 0 reads column c - 1, dw = 2 column c + 1 (little endian:
-          // byte j of a word is column 4k + j)
-          *reinterpret_cast<uint32_t*>(dst + 4 * k) =
-              __funnelshift_l(w[k], w[k + 1], 8);
-          *reinterpret_cast<uint32_t*>(dst + WG_CI * bpitch + 4 * k) = w[k + 1];
-          *reinterpret_cast<uint32_t*>(dst + 2 * WG_CI * bpitch + 4 * k) =
-              __funnelshift_r(w[k + 1], w[k + 2], 8);
-        }
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int ks = 0; ks < WG_KC / 32; ++ks) {
-      // positions ks*32 .. ks*32+31 lie in one image slot of the copies
-      const int koff = ks * 32 + ((ks * 32) / (ck.rc * wi)) * 2 * wi;
-      uint32_t a[2][4];
-      const uint32_t a_base = smem_addr(As + a_row * WG_APITCH + a_byte) +
-                              ks * 32;
-      ldmatrix_x4(a[0], a_base);
-      ldmatrix_x4(a[1], a_base + 16 * WG_APITCH);
-#pragma unroll
-      for (int f = 0; f < 9; ++f) {
-        const unsigned char* bp = Bs + b_base[f] + koff;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
-        mma_step(acc[0][f], a[0], b0, b1);
-        mma_step(acc[1][f], a[1], b0, b1);
-      }
-    }
-  }
-
-  // the group's tile: f32(s32) * (d_amax * g_amax) / 127^2, into the
-  // group's slot of the partial buffer; columns (dh, dw, ci) as JAX's
-  // [Cout, 9 * Cin] weight-gradient layout
-  const float ts = __fmul_rn(__fmul_rn(d_amax[grp], g_amax[grp]),
-                             common::kInv16129);
-  const size_t kdim = (size_t)9 * cin;
-  float* out = part + (size_t)grp * cout * kdim;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < 9; ++f) {
-      const int F = warp_n * 9 + f;
-      const int col = (F / 4) * cin + ci0 + (F % 4) * 8 + (lane % 4) * 2;
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int row = m0 + warp_m * 32 + mi * 16 + lane / 4 + hi * 8;
-        if (row < cout) {
-          out[row * kdim + col] =
-              __fmul_rn(__int2float_rn(acc[mi][f][2 * hi]), ts);
-          out[row * kdim + col + 1] =
-              __fmul_rn(__int2float_rn(acc[mi][f][2 * hi + 1]), ts);
-        }
-      }
-    }
-}
-
-int launch_wgrad(const signed char* g, const float* g_amax,
-                 const signed char* d, const float* d_amax, float* part,
-                 int cout, int cin, int n, int h, int wi, int tile,
-                 cudaStream_t stream) {
-  static int smem_set = 0;
-  const int bytes = BM * WG_APITCH +
-                    3 * WG_CI * copy_pitch(chunk_of(h, wi), wi);
-  if (bytes > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = bytes;
-  }
-  const dim3 grid(cin / WG_CI, (cout + BM - 1) / BM, n / tile);
-  wgrad_kernel<<<grid, THREADS, bytes, stream>>>(g, g_amax, d, d_amax, part,
-                                                 cout, cin, n, h, wi, tile);
-  return static_cast<int>(cudaGetLastError());
-}
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
@@ -557,26 +332,12 @@ int dgrad_conv_launch(const void* g_q, const void* w_dg, const void* g_amax,
                                        as_stream(stream));
 }
 
-// g_q [cout, n], d_q [cin, n] int8, g_amax/d_amax [n / tile]; part
-// [n / tile][cout][9 * cin] f32. cin % 32 == 0, wi % 8 == 0, wi <= 32,
-// tile a multiple of 256, and 256 a multiple of h * wi or the reverse.
-int wgrad_launch(const void* g_q, const void* g_amax, const void* d_q,
-                 const void* d_amax, void* part, int cout, int cin, int n,
-                 int h, int wi, int tile, void* stream) {
-  return launch_wgrad(in<signed char>(g_q), in<float>(g_amax),
-                      in<signed char>(d_q), in<float>(d_amax),
-                      static_cast<float*>(part), cout, cin, n, h, wi, tile,
-                      as_stream(stream));
-}
-
-// out[i] = the tiles' sums of part [tiles][m] f32 in tile_sum_kernel's
+// out[i] = the tiles' sums of part [tiles][m] f32 in common::tile_sum's
 // fixed order (the forward's `.sum`)
 int tile_sum_launch(const void* part, void* out, int tiles, int m,
                     void* stream) {
-  tile_sum_kernel<<<(m + SUM_COLS - 1) / SUM_COLS, SUM_COLS * SUM_RUNS, 0,
-                    as_stream(stream)>>>(in<float>(part),
-                                         static_cast<float*>(out), tiles, m);
-  return static_cast<int>(cudaGetLastError());
+  return common::tile_sum(in<float>(part), static_cast<float*>(out), tiles,
+                          m, as_stream(stream));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

@@ -81,7 +81,7 @@ int transition_wgrad_s8_launch(const void* d, const void* g,
   return static_cast<int>(wgrad_wgmma_s8::launch_taps<TransitionWgradS8>(
       d, planes, g, static_cast<const float*>(g_amax),
       static_cast<const float*>(d_amax), static_cast<float*>(dw), tab, taps,
-      cin, cout, n, oh, ow, tile, bn, static_cast<cudaStream_t>(stream)));
+      cin, cout, n, oh, ow, tile, bn, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

@@ -68,7 +68,10 @@ raises):
   channel-major with the residual, the tiles' sums added in order)
 - ``bwd_quantize``  (launches ``fused_half_bwd.amax``, ``.quant``)
 - ``dgrad_conv``    (launches ``fused_half_dgrad``, ``.sum``)
-- ``wgrad``         (launches ``fused_half_wgrad``, ``.sum``)
+- ``wgrad``         (launches ``fused_half_wgrad``, and ``.sum`` where
+  ``fused_wgrad_s8_plan`` splits the scale groups: the TMA + s8 wgmma
+  mainloop of ``csrc/wgrad_wgmma_s8.cuh`` at the nine stride-1 taps,
+  ``csrc/fused_wgrad_s8.cu``; dW HWIO)
 - ``fwd_bf16``      (``fused_fwd_pre``, then ``fused_fwd_gemm``)
 - ``fused_fwd_pre`` (launches ``fused_half_bf16_fwd.pre``: d computed once,
   written position-major into the padded slab of ``fused_fwd_layout``)
@@ -117,6 +120,12 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
     patches_f64,
     pick_tile,
 )
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.wgrad_plan import (
+    PART_BYTES_US,
+    S8_BK,
+    S8_BM,
+    s8_model,
+)
 
 launches: collections.Counter = collections.Counter()
 seed_launches: collections.Counter = collections.Counter()
@@ -126,7 +135,10 @@ INV_127 = float(np.float32(1.0 / 127.0))
 INV_16129 = float(np.float32(1.0 / (127.0 * 127.0)))
 FWD_FLOOR = 1e-12   # absmax floor of the forward's activation groups
 BWD_FLOOR = 1e-30   # ... and of the backward's cotangent/activation groups
-KCHUNK = 256        # positions per wgrad staging chunk (csrc/fused_block.cu)
+# the int8 wgrad's N tiles (csrc/fused_wgrad_s8.cu): folding the scale
+# groups in each block, and split over them into slots
+WGRAD_FOLD_BNS = (128, 64, 32)
+WGRAD_SLOT_BNS = (160, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -387,9 +399,9 @@ def _masked(a, x, scale, shift, bits, thresh):
 
 
 def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
-    """dW [Cout, 9*Cin] f32: per group the exact s32 contraction (in
-    float64), times (d_amax * g_amax) / 127^2, summed over the groups in
-    order."""
+    """dW [3, 3, Cin, Cout] f32 (HWIO): per group the exact s32
+    contraction (in float64), times (d_amax * g_amax) / 127^2, summed over
+    the groups in order."""
     cout, n = g_q.shape
     out = None
     for g in range(n // tile):
@@ -399,7 +411,7 @@ def wgrad_plain(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
         ts = (d_amax[g] * g_amax[g]) * INV_16129
         contrib = acc.to(_F32) * ts
         out = contrib if out is None else out + contrib
-    return out
+    return out.t().reshape(3, 3, d_q.shape[0], cout)
 
 
 def prologue_bf16_plain(x, scale, shift, bits, thresh: Optional[int]):
@@ -576,7 +588,7 @@ class FusedFwdInt8Plan(NamedTuple):
 
 
 # csrc/fwd_wgmma_s8.cuh's widest K step (bytes), and the runs of tiles of
-# the forward's `.sum` (csrc/fused_block.cu tile_sum)
+# the forward's `.sum` (csrc/common.cuh tile_sum)
 FWD_INT8_BOX = 128
 FWD_SUM_RUNS = 32
 
@@ -712,7 +724,6 @@ def _library() -> ctypes.CDLL:
             "bwd_amax_launch": [_P] * 10 + [_I] * 6 + [_F, _P],
             "bwd_quant_launch": [_P] * 15 + [_I] * 6 + [_F, _P],
             "dgrad_conv_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
-            "wgrad_launch": [_P] * 5 + [_I] * 6 + [_P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
             "tile_sum_launch": [_P, _P, _I, _I, _P],
         }
@@ -1028,35 +1039,130 @@ def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
     return dx, sums[:cin], sums[cin:]
 
 
-def _check_wgrad_geometry(cin: int, n: int, tile: int, h: int,
-                          w_img: int) -> None:
-    """The int8 wgrad kernel's own shape needs."""
-    name = "fused_half_wgrad"
-    _check_geometry(name, cin, n, tile, h, w_img)
-    if (tile % KCHUNK or w_img > 32 or KCHUNK % w_img
-            or (KCHUNK % (h * w_img) and (h * w_img) % KCHUNK)):
-        raise ValueError(f"{name}: tile {tile} / image {h}x{w_img} vs the "
-                         f"{KCHUNK}-position staging chunk")
+class FusedWgradS8Plan(NamedTuple):
+    """How the int8 wgrad's kernel cuts dW [9*Cin, Cout]: ``m_tiles`` x
+    ``n_tiles`` tiles of 128 x ``bn``, ``runs`` blocks a tile, each taking
+    ``gpb`` of the ``groups`` scale groups (``spg`` of the ``steps`` K
+    steps of 128 positions a group); ``runs`` 1: each block folds its
+    tile's groups in order, else each group's contribution goes to a slot
+    and ``.sum`` adds the slots in group order. ``blocks``, ``waves`` of
+    132 SMs and ``us``, the model's time with the slots' traffic."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    steps: int
+    spg: int
+    groups: int
+    gpb: int
+    runs: int
+    blocks: int
+    waves: int
+    us: float
+
+
+def check_wgrad_s8_geometry(name: str, cin: int, cout: int, n: int, h: int,
+                            w_img: int, tile: int) -> None:
+    """The int8 wgrad's own shape needs (csrc/wgrad_wgmma_s8.cuh): Cin in
+    32-channel pieces, Cout a multiple of 8, whole images of a multiple of
+    16 positions (a 16-byte unit of a K step lies in one image), scale
+    groups of ``tile`` positions a whole number of 128-position K steps.
+    Any image width: the taps are shifts of a channel's row of positions."""
+    if cin % 32:
+        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
+    if cout % 8:
+        raise ValueError(f"{name}: Cout={cout} is not a multiple of 8")
+    if (h * w_img) % 16 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "whole images of a multiple of 16 positions")
+    if tile % S8_BK or n % tile:
+        raise ValueError(f"{name}: scale group of {tile} positions vs N={n} "
+                         f"and the {S8_BK}-position K step")
+
+
+@functools.lru_cache(maxsize=None)
+def fused_wgrad_s8_plan(cin: int, cout: int, n: int, h: int, w_img: int,
+                        tile: int) -> FusedWgradS8Plan:
+    """The int8 wgrad's tiles and split, from ``wgrad_plan.s8_model`` (the
+    lane transition's model of the mainloop's blocks, paced by the bytes
+    their TMA boxes bring in) plus, when split, the slots written and read
+    again at PART_BYTES_US: every fold-in-block width, and every split of
+    the groups into runs of the slot widths; the cheapest, the fewest runs
+    and the widest tile among equals. Cached: every call asks."""
+    check_wgrad_s8_geometry("fused_half_wgrad", cin, cout, n, h, w_img, tile)
+    m = 9 * cin
+    m_tiles, steps, groups = -(-m // S8_BM), n // S8_BK, n // tile
+
+    def plan(bn, gpb):
+        runs = -(-groups // gpb)
+        blocks, waves, us = s8_model(m, cout, n, bn, runs, gpb / groups)
+        if runs > 1:
+            n_tiles = -(-cout // bn)
+            us += 8 * groups * m_tiles * S8_BM * n_tiles * bn / PART_BYTES_US
+        return FusedWgradS8Plan(bn, m_tiles, -(-cout // bn), steps,
+                                tile // S8_BK, groups, gpb, runs, blocks,
+                                waves, us)
+
+    plans = [plan(bn, groups) for bn in WGRAD_FOLD_BNS] + [
+        plan(bn, gpb) for bn in WGRAD_SLOT_BNS
+        for gpb in range(1, groups) if -(-groups // gpb) > 1]
+    return min(plans, key=lambda p: (p.us, p.runs, -p.bn))
 
 
 def wgrad(g_q, g_amax, d_q, d_amax, *, tile, h, w_img):
-    """dW [Cout, 9*Cin] f32, columns in (dh, dw, ci) order."""
+    """dW [3, 3, Cin, Cout] f32 (HWIO) from the codes g_q [Cout, N] and d_q
+    [Cin, N] of ``bwd_quantize``, per scale group of ``tile`` lanes, the
+    groups added in order. On the card one launch of the TMA + s8 wgmma
+    kernel (``fused_half_wgrad``) on ``fused_wgrad_s8_plan``'s tiles, and
+    where the plan splits the groups, ``.sum`` over their slots in group
+    order; bit-equal to the plain version."""
     if on_cpu(g_q):
         return wgrad_plain(g_q, g_amax, d_q, d_amax, tile=tile, h=h,
                            w_img=w_img)
     name = "fused_half_wgrad"
     cout, n = g_q.shape
     cin = d_q.shape[0]
-    _check_wgrad_geometry(cin, n, tile, h, w_img)
+    if d_q.shape[1] != n:
+        raise ValueError(f"{name}: operands {tuple(d_q.shape)} and "
+                         f"{tuple(g_q.shape)}")
+    plan = fused_wgrad_s8_plan(cin, cout, n, h, w_img, tile)
+    if (tuple(g_amax.shape) != (plan.groups,)
+            or tuple(d_amax.shape) != (plan.groups,)):
+        raise ValueError(f"{name}: absmaxes {tuple(g_amax.shape)}, "
+                         f"{tuple(d_amax.shape)} vs {plan.groups} scale "
+                         "groups")
     require_cuda(name, [g_q, g_amax, d_q, d_amax],
                  [torch.int8, _F32, torch.int8, _F32])
-    groups = n // tile
-    part = torch.empty((groups, cout * 9 * cin), dtype=_F32,
-                       device=g_q.device)
-    _launch(name, _library().wgrad_launch, g_q.data_ptr(),
-            g_amax.data_ptr(), d_q.data_ptr(), d_amax.data_ptr(),
-            part.data_ptr(), cout, cin, n, h, w_img, tile, _stream(g_q))
-    return _partial_sum(f"{name}.sum", part).reshape(cout, 9 * cin)
+    dev, lib, st = g_q.device, _library_wgrad(), _stream(g_q)
+    dw = torch.empty((9 * cin, cout), dtype=_F32, device=dev)
+    split = plan.runs > 1
+    out = (torch.empty((plan.groups, plan.m_tiles * plan.n_tiles,
+                        S8_BM * plan.bn), dtype=_F32, device=dev)
+           if split else dw)
+    _launch(name, lib.fused_wgrad_s8_launch, d_q.data_ptr(), g_q.data_ptr(),
+            g_amax.data_ptr(), d_amax.data_ptr(), out.data_ptr(), cin, cout,
+            n, h, w_img, tile, plan.bn, plan.gpb if split else 0, st)
+    if split:
+        _launch(f"{name}.sum", lib.fused_wgrad_s8_sum_launch, out.data_ptr(),
+                dw.data_ptr(), plan.groups, cin, cout, plan.bn, st)
+    return dw.reshape(3, 3, cin, cout)
+
+
+_lib_wgrad: Optional[ctypes.CDLL] = None
+
+
+def _library_wgrad() -> ctypes.CDLL:
+    """csrc/fused_wgrad_s8.cu: the int8 wgrad and its slots' sum."""
+    global _lib_wgrad
+    if _lib_wgrad is None:
+        from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
+
+        lib = build.load("fused_wgrad_s8")
+        lib.fused_wgrad_s8_launch.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+        lib.fused_wgrad_s8_sum_launch.argtypes = [_P, _P] + [_I] * 4 + [_P]
+        for fn in (lib.fused_wgrad_s8_launch, lib.fused_wgrad_s8_sum_launch):
+            fn.restype = _I
+        _lib_wgrad = lib
+    return _lib_wgrad
 
 
 # --- bf16 kernels -----------------------------------------------------------------
@@ -1482,7 +1588,7 @@ def _check_int8_backward(quant_bwd: bool, cin: int, cout: int, n: int,
     tile = bwd_tile(h, w_img, n, cin, cout)
     _check_geometry("fused_half_dgrad", cout, n, tile, h, w_img)
     _conv_blocks(n, h, w_img)
-    _check_wgrad_geometry(cin, n, tile, h, w_img)
+    check_wgrad_s8_geometry("fused_half_wgrad", cin, cout, n, h, w_img, tile)
 
 
 class _FusedHalfInt8(torch.autograd.Function):
@@ -1533,7 +1639,7 @@ class _FusedHalfInt8(torch.autograd.Function):
                                 shift, bits, thresh=thresh, tile=tile, h=h,
                                 w_img=w_img)
         dw = wgrad(g_q, g_amax, d_q, d_amax, tile=tile, h=h, w_img=w_img)
-        dw = dw.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).to(w.dtype)
+        dw = dw.permute(3, 2, 0, 1).to(w.dtype)
         if use_res and not emit_res:
             dres = dy
         return (dx, dw, ds.to(scale.dtype), dt.to(shift.dtype), None,

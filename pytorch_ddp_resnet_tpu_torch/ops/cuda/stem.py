@@ -8,8 +8,10 @@ bias added in the compute dtype. Its gradient reaches (w, b) only: the
 input is the data batch (the reference returns zeros there).
 
 - ``stem_fwd`` (launches ``stem_fwd``) and ``stem_wgrad`` (launches
-  ``stem_wgrad``, ``stem_wgrad.sum``) run ``csrc/stem.cu`` for a CUDA
-  tensor, or raise; a CPU tensor runs the plain version beside each.
+  ``stem_wgrad``, ``stem_wgrad.sum``: a tensor-core GEMM over positions on
+  the K runs of ``stem_wgrad_plan``, then the blocks' slots added in a
+  fixed order) run ``csrc/stem.cu`` for a CUDA tensor, or raise; a CPU
+  tensor runs the plain version beside each.
 - ``stem_lane_tile``: copy of the JAX picker. The reference's tile orders
   its f32 sums only; here it serves as the eligibility gate.
 
@@ -22,7 +24,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +43,13 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import (
 launches: collections.Counter = collections.Counter()
 
 CIN_MAX = 8
-WG_POS = 4096  # positions per weight-gradient block (csrc/stem.cu)
+# the weight gradient's kernel (csrc/stem.cu): K steps of WG_KC positions,
+# at most WG_COUT_MAX output channels (8 warps of two 16-row tiles); its
+# plan aims at WG_BLOCKS_PER_SM blocks on each of an H100's SMS
+WG_KC = 64
+WG_COUT_MAX = 256
+SMS = 132
+WG_BLOCKS_PER_SM = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +64,39 @@ def stem_lane_tile(h: int, w_img: int, n: int, cout: int) -> int:
     """The JAX lane-tile pick (raises ValueError for a geometry it cannot
     tile: the layer treats that as not eligible)."""
     return pick_tile(h * w_img, n, cout // 2, max_tile=4096)
+
+
+class StemWgradPlan(NamedTuple):
+    """How the weight gradient's kernel splits K: ``blocks`` blocks, each
+    a contiguous run of ``per`` of the ``steps`` K steps of WG_KC positions
+    (the last may have fewer); each block's sums take one slot of the
+    partial buffer, and the sum adds the slots in order."""
+    steps: int
+    per: int
+    blocks: int
+
+
+def check_wgrad_geometry(cout: int, n: int, h: int, w_img: int) -> None:
+    """The weight gradient's kernel's own shape needs: N whole images and a
+    whole number of K steps (the stem's gate, ``stem_lane_tile``, already
+    asks for a 128-position tile), Cout <= WG_COUT_MAX."""
+    name = "stem_wgrad"
+    if n % (h * w_img) or n % WG_KC:
+        raise ValueError(f"{name}: N={n} of {h}x{w_img} images is not a "
+                         f"multiple of the {WG_KC}-position K step")
+    if not 1 <= cout <= WG_COUT_MAX:
+        raise ValueError(f"{name}: Cout={cout} is not in 1..{WG_COUT_MAX}")
+
+
+@functools.lru_cache(maxsize=None)
+def stem_wgrad_plan(n: int, cout: int, h: int, w_img: int) -> StemWgradPlan:
+    """Runs of K steps so that WG_BLOCKS_PER_SM blocks fall on every SM
+    (the kernel streams dy: every SM has to read). Cached: every call
+    asks."""
+    check_wgrad_geometry(cout, n, h, w_img)
+    steps = n // WG_KC
+    per = -(-steps // (SMS * WG_BLOCKS_PER_SM))
+    return StemWgradPlan(steps, per, -(-steps // per))
 
 
 def _taps(x_cs: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
@@ -111,10 +153,10 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("stem")
         lib.stem_fwd_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-        lib.stem_wgrad_launch.argtypes = [_P] * 3 + [_I] * 5 + [_P]
-        lib.partial_sum_launch.argtypes = [_P, _P, _I, _I, _P]
+        lib.stem_wgrad_launch.argtypes = [_P] * 3 + [_I] * 6 + [_P]
+        lib.stem_wgrad_sum_launch.argtypes = [_P, _P, _I, _I, _P]
         for fn in (lib.stem_fwd_launch, lib.stem_wgrad_launch,
-                   lib.partial_sum_launch):
+                   lib.stem_wgrad_sum_launch):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -158,19 +200,19 @@ def stem_wgrad(dy, x_cs, *, h: int, w_img: int):
     name = "stem_wgrad"
     cout, n = dy.shape
     cin = x_cs.shape[0]
+    plan = stem_wgrad_plan(n, cout, h, w_img)
     require_cuda(name, [dy, x_cs], [torch.bfloat16, torch.bfloat16])
     k = 9 * cin + 1
-    blocks = -(-n // WG_POS)
-    part = torch.empty((blocks, cout * k), dtype=_F32, device=dy.device)
+    part = torch.empty((plan.blocks, cout * k), dtype=_F32, device=dy.device)
     out = torch.empty(cout * k, dtype=_F32, device=dy.device)
     lib = _library()
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     check_rc(name, lib.stem_wgrad_launch(
         dy.data_ptr(), x_cs.data_ptr(), part.data_ptr(), cin, cout, n, h,
-        w_img, stream))
+        w_img, plan.per, stream))
     launches[name] += 1
-    check_rc(f"{name}.sum", lib.partial_sum_launch(
-        part.data_ptr(), out.data_ptr(), blocks, cout * k, stream))
+    check_rc(f"{name}.sum", lib.stem_wgrad_sum_launch(
+        part.data_ptr(), out.data_ptr(), plan.blocks, cout * k, stream))
     launches[f"{name}.sum"] += 1
     out = out.reshape(cout, k)
     return out[:, :-1], out[:, -1]

@@ -103,6 +103,12 @@ from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import (
 )
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import _ptr, _stream
 from pytorch_ddp_resnet_tpu_torch.ops.cuda.conv3x3 import pad_rows, pick_tile
+from pytorch_ddp_resnet_tpu_torch.ops.cuda.wgrad_plan import (  # noqa: F401
+    S8_BK,
+    S8_BM,
+    S8_SMS,    # the SMs ``WgradS8Plan.waves`` counts against
+    s8_model,
+)
 
 launches: collections.Counter = collections.Counter()
 
@@ -933,19 +939,8 @@ def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
     return dx, sums[:cin], sums[cin:]
 
 
-# csrc/wgrad_wgmma_s8.cuh: M rows a tile, positions (bytes) a K step, the
-# bytes of a staged d row (the step and the 16-byte unit before it), and
-# the N tiles it is built for
-S8_BM, S8_BK, S8_XROW = 128, 128, 144
+# the N tiles csrc/wgrad_wgmma_s8.cuh is built for without a split
 S8_BNS = (128, 64, 32)
-# the plan's model of an H100 SXM, fitted to the kernel's times on the card
-# (PERF.md): 132 SMs, one block on each; a block's time is the bytes
-# its TMA boxes bring in (its staged d rows and its B rows) at up to 38 GB/s
-# an SM and 4.4 TB/s in all (bytes a microsecond): the boxes of 144-byte
-# rows, not the tensor cores, set the pace
-S8_SMS = 132
-S8_SM_BPUS = 3.8e4
-S8_BPUS = 4.4e6
 
 
 class WgradS8Plan(NamedTuple):
@@ -1005,16 +1000,9 @@ def wgrad_s8_plan(cin: int, cout: int, n_out: int, h: int, w_img: int,
     m_tiles, steps = -(-m // S8_BM), n_out // S8_BK
 
     def plan(bn):
-        n_tiles = -(-cout // bn)
-        blocks = m_tiles * n_tiles
-        waves = -(-blocks // S8_SMS)
-        # the bytes the blocks' boxes bring in: every N tile's staged d
-        # rows, every M tile's B rows
-        byts = n_tiles * m * n_out * S8_XROW / S8_BK + m_tiles * cout * n_out
-        us = sum(byts / blocks / min(S8_SM_BPUS, S8_BPUS / min(
-            S8_SMS, blocks - w * S8_SMS)) for w in range(waves))
-        return WgradS8Plan(bn, m_tiles, n_tiles, steps, tile // S8_BK,
-                           waves, us)
+        _, waves, us = s8_model(m, cout, n_out, bn)
+        return WgradS8Plan(bn, m_tiles, -(-cout // bn), steps,
+                           tile // S8_BK, waves, us)
 
     return min((plan(bn) for bn in S8_BNS), key=lambda p: (p.us, -p.bn))
 

@@ -279,6 +279,9 @@ def test_fused_half_kernels_match_plain(dev, c, h, w, b, rate, use_res,
 
 def test_fused_half_op_launches_its_kernels(dev):
     c, h, w, n = 32, 8, 8, 8192
+    # the wgrad splits this shape's two scale groups: a slot each, then .sum
+    assert fb.fused_wgrad_s8_plan(c, c, n, h, w,
+                                  fb.bwd_tile(h, w, n, c, c)).runs == 2
     x = torch.randn(c, n, device=dev).to(torch.bfloat16).requires_grad_()
     wt = (torch.randn(c, c, 3, 3, device=dev) * 0.05).requires_grad_()
     scale = (torch.rand(c, device=dev) + 0.5).requires_grad_()
@@ -299,9 +302,10 @@ def test_fused_half_op_launches_its_kernels(dev):
         assert torch.isfinite(t.grad).all()
 
 
-@pytest.mark.parametrize("cin,cout,h,w,b", [(3, 32, 8, 8, 8),
-                                            (3, 160, 32, 32, 128),
-                                            (1, 16, 16, 16, 4)])
+STEM_SHAPES = [(3, 32, 8, 8, 8), (3, 160, 32, 32, 128), (1, 16, 16, 16, 4)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", STEM_SHAPES)
 def test_stem_kernels_match_plain(dev, cin, cout, h, w, b):
     g = torch.Generator(device=dev).manual_seed(cout)
     n = b * h * w
@@ -316,6 +320,87 @@ def test_stem_kernels_match_plain(dev, cin, cout, h, w, b):
                      st.stem_wgrad_plain(dy, x, h=h, w_img=w)):
         _same(a, b_, sums=True)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", STEM_SHAPES + [
+    (8, 64, 16, 16, 8), (5, 256, 8, 8, 4), (3, 20, 8, 8, 8)])
+def test_stem_wgrad_tc_matches_plain(dev, cin, cout, h, w, b):
+    """The stem's weight gradient on the tensor cores (its K runs from
+    stem_wgrad_plan, each step's MMA sums rounded to nearest into f32, the
+    blocks' slots added in a fixed order): dW and db within 1e-5 of the
+    largest value of the plain version (f32 sums in another order), the
+    same bits in two calls, one launch and one sum a call; Cin up to 8,
+    Cout up to 256 and off the 16-row tiles."""
+    g = torch.Generator(device=dev).manual_seed(cout + cin)
+    n = b * h * w
+    x = torch.randn(cin, n, device=dev, generator=g).to(torch.bfloat16)
+    dy = torch.randn(cout, n, device=dev, generator=g).to(torch.bfloat16)
+    st.reset_launches()
+    got = st.stem_wgrad(dy, x, h=h, w_img=w)
+    again = st.stem_wgrad(dy, x, h=h, w_img=w)
+    torch.cuda.synchronize()
+    assert dict(st.launches) == {"stem_wgrad": 2, "stem_wgrad.sum": 2}
+    want = st.stem_wgrad_plain(dy, x, h=h, w_img=w)
+    for a, a2, b_ in zip(got, again, want):
+        assert torch.equal(a, a2)
+        _same(a, b_, sums=True)
+
+
+@pytest.mark.parametrize("c,h,w,b", FQT_SHAPES + [(32, 4, 64, 16)])
+def test_fused_wgrad_s8_matches_plain(dev, c, h, w, b):
+    """The fused half's int8 weight gradient on the TMA + s8 wgmma kernel,
+    on the quantizer's codes: dW (HWIO) bit-equal to the plain version and
+    over two calls; a launch a call and, where fused_wgrad_s8_plan splits
+    the scale groups, a sum over their slots; rows of 64 pixels (which the
+    staging chunk of the kernel it replaced refused) included."""
+    g = torch.Generator(device=dev).manual_seed(c + h + b)
+    n = b * h * w
+    x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    shift = torch.randn(c, device=dev, generator=g) * 0.3
+    bits = torch.randint(0, 256, (c, n), device=dev, generator=g,
+                         dtype=torch.uint8)
+    dy = (torch.randn(c, n, device=dev, generator=g) * 1e-3).to(
+        torch.bfloat16)
+    tile = fb.bwd_tile(h, w, n, c, c)
+    g_q, g_amax, d_q, d_amax, _ = fb.bwd_quantize_plain(
+        dy, None, None, None, x, scale, shift, bits,
+        thresh=fb.dropout_thresh(0.3), tile=tile, emit_res=False)
+    plan = fb.fused_wgrad_s8_plan(c, c, n, h, w, tile)
+    fb.reset_launches()
+    kw = dict(tile=tile, h=h, w_img=w)
+    dw = fb.wgrad(g_q, g_amax, d_q, d_amax, **kw)
+    again = fb.wgrad(g_q, g_amax, d_q, d_amax, **kw)
+    torch.cuda.synchronize()
+    want = {"fused_half_wgrad": 2}
+    if plan.runs > 1:
+        want["fused_half_wgrad.sum"] = 2
+    assert dict(fb.launches) == want
+    assert dw.shape == (3, 3, c, c) and dw.dtype == torch.float32
+    assert torch.equal(dw, again)
+    _same(dw, fb.wgrad_plain(g_q, g_amax, d_q, d_amax, **kw))
+
+
+def test_fused_wgrad_s8_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor launches the int8 wgrad or raises, naming the shape:
+    Cout off 8, a scale group off the 128-position K step, absmaxes of the
+    wrong length, f32 codes; nothing launches, nothing falls back."""
+    i8 = torch.int8
+    fb.reset_launches()
+    g = torch.zeros((64, 1024), dtype=i8, device=dev)
+    d = torch.zeros((32, 1024), dtype=i8, device=dev)
+    a2 = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="Cout=44 is not a multiple of 8"):
+        fb.wgrad(g[:44], a2, d, a2, tile=512, h=8, w_img=8)
+    with pytest.raises(ValueError, match="scale group of 64 positions"):
+        fb.wgrad(g, torch.ones(16, device=dev), d, torch.ones(16, device=dev),
+                 tile=64, h=8, w_img=8)
+    with pytest.raises(ValueError, match="vs 2 scale groups"):
+        fb.wgrad(g, torch.ones(1, device=dev), d, a2, tile=512, h=8, w_img=8)
+    with pytest.raises(ValueError, match="expected torch.int8"):
+        fb.wgrad(g.float(), a2, d, a2, tile=512, h=8, w_img=8)
+    torch.cuda.synchronize()
+    assert not fb.launches
 
 
 def test_fused_and_stem_never_fall_back(dev):
