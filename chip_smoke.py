@@ -146,26 +146,30 @@ Phases, each fatal on failure:
    BatchNorm sums within 1e-5 of the sums of the kernel's own y. The int8
    core's quantizers and dgrad in seed mode equal their plain versions and
    themselves fed the expanded bits; ``seed_bits_expand`` is bit-equal to
-   the plain ``seed_bits`` for seeds across the int32 range. The wgrad
-   (its prepass ``fused_half_bf16_wgrad.pre``, then csrc/wgrad_staged.cuh's
-   mainloop and ordered sum) is also bit-equal over two calls, and its
-   prepass has rows of its own, equal to its plain version byte for byte.
-   Each is timed beside its plain version and cuDNN's bf16 forward, input
-   gradient and weight gradient (channels-last) at the same shape; the
-   wgrad's prepass and mainloop + sum also apart.
+   the plain ``seed_bits`` for seeds across the int32 range. The dgrad
+   (its prepass ``fused_half_bf16_dgrad.pre``, then csrc/
+   dgrad_wgmma_bf16.cuh's wgmma GEMM with its masking epilogue and the
+   ordered sum) and the wgrad (its prepass ``fused_half_bf16_wgrad.pre``,
+   then csrc/wgrad_staged.cuh's mainloop and ordered sum) are also
+   bit-equal over two calls, and each prepass has rows of its own, equal
+   to its plain version byte for byte. Each is timed beside its plain
+   version and cuDNN's bf16 forward, input gradient and weight gradient
+   (channels-last) at the same shape; the dgrad's and the wgrad's prepass
+   and mainloop + sum also apart.
 13. Training, the sixth main path: the bf16 recipe of phase 5 with
    ``use_fused_block: True`` through ``setup(config)``. With the launch
    counts zeroed just before, each step must launch the stem, the augment
    kernel and 8 fused bf16 halves (the 4 identity blocks of stage 1), each
-   one forward, dgrad and wgrad (its prepass, mainloop and sum;
-   FUSED_PER_STEP); losses finite, every
+   one forward, dgrad and wgrad (each its prepass, GEMM or mainloop and
+   sum; FUSED_PER_STEP); losses finite, every
    parameter changed, every BatchNorm count equal to the steps.
 14. Training, the seventh main path: the ``-int8`` recipe with
    ``use_int8_train: True``, ``use_int8_train_bwd: False`` (QAT) and
    ``use_inkernel_dropout: True``: 22 halves per step on the int8 forward
    and the bf16 backward (QAT_PER_STEP), 15 of them (stages 1 and 2)
    rebuilding their dropout masks from a seed (in the forward's quantizer
-   and kernel, the dgrad and the wgrad's prepass), so no uint8 bits tensor
+   and kernel, the dgrad's GEMM and the wgrad's prepass), so no uint8 bits
+   tensor
    is drawn for them, and the 7 at C=640 on drawn bits. In phases 13 and 14
    the first half of each bits mode in the first step, on its live inputs
    and cotangents, must reproduce its output and equal its plain versions.
@@ -335,6 +339,8 @@ SOURCES = {"nv_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "fused_half_bf16_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_bf16.cuh",
+           "fused_half_bf16_dgrad":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_bf16.cuh",
            "fused_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
            "fused_half_wgrad": FQT_WGRAD_SOURCE}
@@ -366,6 +372,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_fwd.pre": _PALLAS + "fused_block.py:380",
             "fused_half_bf16_dgrad": _PALLAS + "fused_block.py:588",
+            "fused_half_bf16_dgrad.pre": _PALLAS + "fused_block.py:588",
             "fused_half_bf16_wgrad": _PALLAS + "fused_block.py:763",
             "fused_half_bf16_wgrad.pre": _PALLAS + "fused_block.py:763",
             "conv3x3_wgrad": _PALLAS + "conv.py:412",
@@ -399,23 +406,27 @@ C1_MODES = ("int8", "bf16", "bf16+res+dual")
 # launches of one fused-bf16 WRN-28-10 step: the stem, and 8 bf16 halves
 # (the 4 identity blocks of stage 1), 4 of them emitting BatchNorm sums;
 # each forward is its prepass, the wgmma GEMM and (with sums) the ordered
-# sum; each wgrad is its prepass, the staged mainloop and the ordered sum
+# sum; each dgrad its prepass, the wgmma GEMM and the ordered sum; each
+# wgrad its prepass, the staged mainloop and the ordered sum
 FUSED_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
     "fused_half_bf16_fwd.pre": 8, "fused_half_bf16_fwd": 8,
     "fused_half_bf16_fwd.sum": 4,
-    "fused_half_bf16_dgrad": 8, "fused_half_bf16_dgrad.sum": 8,
+    "fused_half_bf16_dgrad.pre": 8, "fused_half_bf16_dgrad": 8,
+    "fused_half_bf16_dgrad.sum": 8,
     "fused_half_bf16_wgrad.pre": 8, "fused_half_bf16_wgrad": 8,
     "fused_half_bf16_wgrad.sum": 8}
 # launches of one QAT step: 22 halves on the int8 forward and the bf16
 # backward; with in-kernel dropout the 15 halves at C = 160 and 320 rebuild
-# their masks from a seed (QAT_SEED_PER_STEP; in the wgrad its prepass
-# does, and the mainloop reads the rounded d_b)
+# their masks from a seed (QAT_SEED_PER_STEP; in the dgrad its GEMM's
+# epilogue does, its prepass writes g, which no mask touches; in the wgrad
+# its prepass does, and the mainloop reads the rounded d_b)
 QAT_PER_STEP = {
     "augment_batch": 1, "stem_fwd": 1, "stem_wgrad": 1, "stem_wgrad.sum": 1,
     "fused_half_fwd.amax": 22, "fused_half_fwd.pre": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
-    "fused_half_bf16_dgrad": 22, "fused_half_bf16_dgrad.sum": 22,
+    "fused_half_bf16_dgrad.pre": 22, "fused_half_bf16_dgrad": 22,
+    "fused_half_bf16_dgrad.sum": 22,
     "fused_half_bf16_wgrad.pre": 22, "fused_half_bf16_wgrad": 22,
     "fused_half_bf16_wgrad.sum": 22}
 QAT_SEED_PER_STEP = {"fused_half_fwd.amax": 15, "fused_half_fwd.pre": 15,
@@ -948,8 +959,8 @@ KERNEL_KINDS = [
     # transition's tag
     ("transition (port)", ("TransitionWgrad",)),
     ("conv3x3_same wgrad (port)", ("wgrad_tma_kernel", "WgradTmaSum")),
-    ("fused bf16 half (port)", ("fused_fwd_", "DgradLoad",
-                                "fused_wgrad_pre")),
+    ("fused bf16 half (port)", ("fused_fwd_", "fused_dgrad_",
+                                "FusedDgrad", "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
                            "dgrad_kernel<", "bwd_amax_kernel",
                            "bwd_quant_kernel", "bwd_fold_kernel")),
@@ -1714,6 +1725,71 @@ def _fused_wgrad_pre_row(fb, args, thresh, geo, flops_f32, bw):
         bytes_ms=byts / bw * 1e3)
 
 
+def _fused_dgrad_parts(fb, args, thresh, h, w, emit_res, peaks):
+    """The bf16 dgrad's second call equal to its first bit for bit (its
+    tiles' sums are added in a fixed order), and its two parts timed apart,
+    each beside its bound: the prepass (its bytes: dy, with y and the stats
+    cotangents where the call has them, in; g unpadded and dres out) and
+    the wgmma GEMM + masking epilogue + ordered sum (its operations on the
+    unpadded operands, or its bytes: g, the weights, x, a bits tensor,
+    scale and shift in, dx and the sums out)."""
+    import torch
+
+    flops_bf16, _, bw, flops_f32 = peaks
+    dy, y, dysum, dyssq, wdg, x, scale, shift, bits = args
+    cout, n = dy.shape
+    cin = x.shape[0]
+    kw = dict(thresh=thresh, h=h, w_img=w, emit_res=emit_res)
+    first = fb.dgrad_bf16(*args, **kw)
+    for a, b in zip(first, fb.dgrad_bf16(*args, **kw)):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "fused_half_bf16_dgrad", cin, h, emit_res)
+    lay = fb.fused_fwd_layout(n, h, w, cout, cin)
+    slab, _ = fb.dgrad_bf16_pre(dy, y, dysum, dyssq, lay=lay,
+                                emit_res=emit_res)
+    bits_b = cin * n if bits is not None and not fb.is_seed(bits) else 0
+    ct_b = 2 * cout * n + 8 * cout if y is not None else 0
+    return dict(
+        deterministic=True, bn=lay.bn, tiles=lay.tiles,
+        pre_ms=time_ms(lambda: fb.dgrad_bf16_pre(
+            dy, y, dysum, dyssq, lay=lay, emit_res=emit_res), 10),
+        gemm_ms=time_ms(lambda: fb.dgrad_bf16_gemm(
+            slab, wdg, x, scale, shift, bits, thresh=thresh, lay=lay), 10),
+        pre_bound_ms=max((4 * cout * n + ct_b
+                          + (2 * cout * n if emit_res else 0)) / bw,
+                         3 * cout * n / flops_f32) * 1e3,
+        gemm_bound_ms=max(
+            2 * 9 * cin * cout * n / flops_bf16,
+            (2 * cout * n + 18 * cin * cout + 4 * cin * n + bits_b
+             + 16 * cin) / bw) * 1e3)
+
+
+def _fused_dgrad_pre_row(fb, cts, emit_res, geo, peaks):
+    """The bf16 dgrad's prepass as a kernel row: its slab and dres equal
+    to the plain version's byte for byte; bound by its bytes (dy, with y
+    and the stats cotangents where the call has them, in; g unpadded and
+    dres out) or its f32 operations (three an element)."""
+    import torch
+
+    _, _, bw, flops_f32 = peaks
+    dy, y = cts[0], cts[1]
+    c, n = dy.shape
+    lay = fb.fused_fwd_layout(n, geo["h"], geo["w"], c, c)
+    kw = dict(lay=lay, emit_res=emit_res)
+    for a, b in zip(fb.dgrad_bf16_pre(*cts, **kw),
+                    fb.dgrad_bf16_pre_plain(*cts, **kw)):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "fused_half_bf16_dgrad.pre", geo)
+    byts = (4 * c * n + (2 * c * n + 8 * c if y is not None else 0)
+            + (2 * c * n if emit_res else 0))
+    return dict(
+        name="fused_half_bf16_dgrad.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: fb.dgrad_bf16_pre(*cts, **kw), 10),
+        plain_ms=time_ms(lambda: fb.dgrad_bf16_pre_plain(*cts, **kw), 1),
+        library_ms=None, ops_ms=3 * c * n / flops_f32 * 1e3,
+        bytes_ms=byts / bw * 1e3)
+
+
 def _fused_fwd_parts(fb, args, thresh, h, w, stats, peaks):
     """The bf16 forward's second call equal to its first bit for bit, and
     its two parts timed apart, each beside its bound: the prepass (its
@@ -1866,6 +1942,13 @@ def bf16_kernel_phase(peaks):
                     fns[0][1], fns[1][1], lib_d,
                     6 * cn + 18 * c * c + 16 * c + bits_b + ct
                     + (2 * cn if stats else 0))
+                rows[-1].update(_fused_dgrad_parts(
+                    fb, (*cts[stats], wdg, x, scale, shift, bits), thresh,
+                    h, w, stats, peaks))
+                rows.append(_fused_dgrad_pre_row(
+                    fb, cts[stats], stats, dict(c=c, h=h, w=w, n=n,
+                                                mode=rows[-1]["mode"]),
+                    peaks))
                 add("fused_half_bf16_wgrad", kind + ("+stats" if stats
                                                     else ""),
                     fns[0][2], fns[1][2], lib_w,
@@ -2068,12 +2151,13 @@ def bf16_summary(rows, fused, qat, fused_halves, qat_halves):
     forward over the fused-bf16 step's, the backward over the QAT step's)."""
     out = []
     for name in BF16_NAMES + ("fused_half_bf16_fwd.pre",
+                              "fused_half_bf16_dgrad.pre",
                               "fused_half_bf16_wgrad.pre"):
         fwd = name.startswith("fused_half_bf16_fwd")
         tot = _bf16_mix(rows, name, fused_halves if fwd else qat_halves)
         runs = {"fused_bf16": fused["launches"].get(name, 0),
                 "qat_inkernel_dropout": qat["launches"].get(name, 0)}
-        if name == "fused_half_bf16_wgrad":
+        if name in ("fused_half_bf16_dgrad", "fused_half_bf16_wgrad"):
             runs.update({f"{run}{part}": r["launches"].get(name + part, 0)
                          for run, r in (("fused_bf16", fused),
                                         ("qat_inkernel_dropout", qat))
@@ -4344,6 +4428,13 @@ def main() -> int:
           "(prepass, mainloop + sum): " + json.dumps({k: wg[k] for k in (
               "ms", "pre_ms", "gemm_ms", "library_ms", "bound_ms",
               "launches", "split_launches", "seed_launches")}))
+    dg = next(k for k in bf16_kernels if k["name"] == "fused_half_bf16_dgrad")
+    print("QAT: fused bf16 dgrad per step, phase 12 per-call times summed "
+          "(prepass, wgmma GEMM + sum, each beside its bound): "
+          + json.dumps({k: dg[k] for k in (
+              "ms", "pre_ms", "gemm_ms", "pre_bound_ms", "gemm_bound_ms",
+              "library_ms", "bound_ms", "launches", "split_launches",
+              "seed_launches")}))
     fw = next(k for k in bf16_kernels if k["name"] == "fused_half_bf16_fwd")
     print("fused bf16: bf16 forward per step, phase 12 per-call times "
           "summed (prepass, wgmma GEMM + sum, each beside its bound; MACs "

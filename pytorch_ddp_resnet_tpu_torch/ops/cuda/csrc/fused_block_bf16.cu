@@ -9,7 +9,9 @@
 //   fused_fwd_pre_launch, then  <- _fwd_call -> _fwd_kernel
 //   fused_fwd_gemm_launch,         (the mainloop and epilogue live in
 //   partial_sum                    fwd_wgmma_bf16.cuh)
-//   dgrad_launch     <- _dgrad_call -> _dgrad_kernel
+//   dgrad_pre_launch, then      <- _dgrad_call -> _dgrad_kernel
+//   dgrad_gemm_launch,             (the forward's mainloop with a masking
+//   dgrad_sum_launch               epilogue: dgrad_wgmma_bf16.cuh)
 //   wgrad_pre_launch, then  <- _wgrad_call -> _wgrad_kernel
 //   wgrad_gemm_launch,         (the mainloop and its ordered sum live in
 //   wgrad_sum_launch           wgrad_staged.cuh, shared with the NV halves)
@@ -28,9 +30,11 @@
 // What bounds them on an H100 (WRN-28-10, batch 128, C = 160/320/640):
 // each conv is 2 * 9 * C^2 * N = 60.4 GFLOP (0.061 ms at 989 TFLOP/s of
 // bf16); the operands are 6-17 MB (0.044 ms at most at 3.35 TB/s). They
-// are bound by operations. The weight gradient's prepass alone is bound by
-// its bytes: x, dy (and y, bits) in, d_b and g_b out, 231 MB a call at C =
-// 160 with stats and bits (0.069 ms at 3.35 TB/s).
+// are bound by operations. The prepasses alone are bound by their bytes:
+// the weight gradient's (x, dy (and y, bits) in, d_b and g_b out) 231 MB
+// a call at C = 160 with stats and bits (0.069 ms at 3.35 TB/s); the
+// dgrad's (dy and y in, the slab and dres out) 128-170 MB (0.038-0.051
+// ms).
 //
 // Design:
 // - fwd is three launches. fused_fwd_pre_kernel computes each element of
@@ -42,15 +46,16 @@
 //   width). fwd_wgmma_bf16.cuh's GEMM contracts the slab with the packed
 //   weights on wgmma and writes y channel-major with the residual added
 //   and each tile's sums; partial_sum adds the tiles' sums in order.
-// - dgrad is the row-tile implicit GEMM of conv3x3_rows.cuh (the bf16
-//   serving conv's mainloop, mma.sync m16n8k16 with f32 accumulation)
-//   with an operand loader that computes the cotangent fold and its bf16
-//   rounding while it stages the halo tile, so g is never written to
-//   device memory, and an epilogue on the block's accumulator tile: the
-//   masks, dx and the d(scale)/d(shift) sums. The loader also writes dres
-//   = bf16(gf) for the (channel, position) it owns. Per-block sums go to
-//   the block's slot of a partial buffer and partial_sum adds the slots
-//   in order.
+// - dgrad is three launches. The input gradient is the forward conv of g
+//   with the dgrad-packed weights, so fused_dgrad_pre_kernel writes g =
+//   bf16(gf) once per element into the forward's slab (the layout at Cin
+//   = the half's Cout; dres = g channel-major from the same read where
+//   asked), and dgrad_wgmma_bf16.cuh runs the forward's mainloop on it
+//   with an epilogue that applies the masks (x and the bits read, or the
+//   bits rebuilt from the seed), writes dx and each tile's sums of dn * x
+//   and dn; the sum adds the tiles in common::tile_sum's fixed order.
+//   The masks act on the contraction's result, so the prepass needs
+//   neither x nor the bits.
 // - wgrad is three launches. A contraction reads each operand element
 //   once per (tap, tile) that uses it, so the prologue and the fold are
 //   not recomputed there: fused_wgrad_pre_kernel computes each element of
@@ -81,84 +86,31 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3x3_rows.cuh"
+#include "dgrad_wgmma_bf16.cuh"  // the dgrad's GEMM and masking epilogue
 #include "fused_half.cuh"
 #include "fwd_wgmma_bf16.cuh"  // the forward's GEMM and epilogue
 #include "seed_bits.cuh"
 #include "wgrad_staged.cuh"  // the weight gradient's mainloop and ordered sum
 
-using namespace conv3x3;
 using namespace fused_half;
 using dropout::DropBits;
 
 namespace {
 
-using V8 = uint4;  // 8 bf16
-
-// the dgrad's operand: g = bf16(gf); the owner of each element also
-// stores it as dres (the residual's cotangent) when dres is not null
-struct DgradLoad {
-  Cotangent ct;
-  __nv_bfloat16* dres;
-  int n;
-  __device__ __forceinline__ V8 operator()(int ch, int pos, bool own) const {
-    float gf[8];
-    ct(ch, n, pos, gf);
-    __nv_bfloat16 g[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) g[k] = __float2bfloat16_rn(gf[k]);
-    const V8 v = pack8(g);
-    if (own && dres != nullptr)
-      *reinterpret_cast<V8*>(dres + (size_t)ch * n + pos) = v;
-    return v;
-  }
-};
-
-// live = x * scale + shift > 0 (one fma, f32, unrounded) and bits <
-// thresh; dn = live ? acc * keep : 0; dx = bf16(dn * scale); sums of
-// dn * x and dn
-struct DgradEpi {
-  const __nv_bfloat16* x;
-  const float* scale;
-  const float* shift;
-  DropBits bits;
-  __nv_bfloat16* dx;
-  float* part;  // [n / BN][2 * Cin]
-  int thresh;
-  float keep;
-
-  __device__ __forceinline__ void tile(const float* Cs, int cld, int bn,
-                                       int m0, int n0, int cin,
-                                       int n) const {
-    tile_sums(bn, m0, cin, n - n0, blockIdx.x, part,
-              [&](int r, int c, float& s1, float& s2) {
-      const int ci = m0 + r;
-      const size_t idx = (size_t)ci * n + n0 + c;
-      float v = Cs[r * cld + c];
-      const float xf = __bfloat162float(x[idx]);
-      bool live = __fmaf_rn(xf, scale[ci], shift[ci]) > 0.f;
-      if (bits.active()) {
-        live = live && bits.at(ci, n0 + c) < thresh;
-        v = __fmul_rn(v, keep);
-      }
-      const float dn = live ? v : 0.f;
-      dx[idx] = __float2bfloat16_rn(__fmul_rn(dn, scale[ci]));
-      s1 = __fmul_rn(dn, xf);
-      s2 = dn;
-    });
-  }
-};
-
-// g = bf16(gf), 8 positions of one channel
+// g = bf16(gf), 8 positions of one channel; also written channel-major
+// to dres (the residual's cotangent) when dres is not null
 struct GLoad {
   Cotangent ct;
   int n;
+  __nv_bfloat16* dres;  // [cout][n] or null
   __device__ __forceinline__ void operator()(int co, int pos,
                                              __nv_bfloat16 (&g)[8]) const {
     float gf[8];
     ct(co, n, pos, gf);
 #pragma unroll
     for (int k = 0; k < 8; ++k) g[k] = __float2bfloat16_rn(gf[k]);
+    if (dres != nullptr)
+      *reinterpret_cast<uint4*>(dres + (size_t)co * n + pos) = pack8(g);
   }
 };
 
@@ -223,20 +175,38 @@ fused_wgrad_pre_kernel(Bf16Prologue pro, GLoad gl,
     pre_tile(gl, g_b, cout, n, blockIdx.x - tiles_d, words, SamePos{});
 }
 
-// The forward's slab, one launch: d at each pixel's slab position (tiles
-// [0, tiles_d)), then 16-byte zeros at every pad position (pad_vecs
-// vectors of 8 channels, a thread each).
+// The forward's or the dgrad's slab, one launch: src's operand at each
+// pixel's slab position (tiles [0, tiles_d)), then 16-byte zeros at every
+// pad position (pad_vecs vectors of 8 channels, a thread each).
+template <typename Src>
+__device__ __forceinline__ void slab_pre(const Src& src,
+                                         __nv_bfloat16* __restrict__ slab,
+                                         const SlabPos& live,
+                                         const PadPos& pads, int c, int n,
+                                         int tiles_d, long pad_vecs) {
+  __shared__ uint32_t words[PRE_P][PRE_C / 2 + 1];
+  if ((int)blockIdx.x < tiles_d) {
+    pre_tile(src, slab, c, n, blockIdx.x, words, live);
+    return;
+  }
+  zero_pad_vec(slab, pads, c,
+               (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x, pad_vecs);
+}
+
+// d, the prologue's
 __global__ void __launch_bounds__(256)
 fused_fwd_pre_kernel(Bf16Prologue pro, __nv_bfloat16* __restrict__ slab,
                      SlabPos live, PadPos pads, int cin, int n, int tiles_d,
                      long pad_vecs) {
-  __shared__ uint32_t words[PRE_P][PRE_C / 2 + 1];
-  if ((int)blockIdx.x < tiles_d) {
-    pre_tile(pro, slab, cin, n, blockIdx.x, words, live);
-    return;
-  }
-  zero_pad_vec(slab, pads, cin,
-               (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x, pad_vecs);
+  slab_pre(pro, slab, live, pads, cin, n, tiles_d, pad_vecs);
+}
+
+// g = bf16(gf), and dres = g where gl.dres is not null
+__global__ void __launch_bounds__(256)
+fused_dgrad_pre_kernel(GLoad gl, __nv_bfloat16* __restrict__ slab,
+                       SlabPos live, PadPos pads, int cout, int n,
+                       int tiles_g, long pad_vecs) {
+  slab_pre(gl, slab, live, pads, cout, n, tiles_g, pad_vecs);
 }
 
 __global__ void seed_bits_kernel(const int* __restrict__ seed,
@@ -246,6 +216,9 @@ __global__ void seed_bits_kernel(const int* __restrict__ seed,
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < (size_t)c * n) out[i] = (unsigned char)b.at((int)(i / n), (int)(i % n));
 }
+
+// names the dgrad's tile sum in a profile
+struct FusedDgradSum {};
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
@@ -269,38 +242,51 @@ Cotangent cotangent(const void* dy, const void* y, const void* dysum,
                    in<float>(dysum), in<float>(dyssq)};
 }
 
-}  // namespace
-
-extern "C" {
-
-// The forward, three launches. fused_fwd_pre: slab [slab_len, cin] bf16
-// (fused_fwd_layout: guard zero positions, then per image of h x wi a zero
-// row and a zero column, then zeros to slab_len) = the prologue's d from
-// x [cin, n] bf16, scale/shift [cin] f32, bits [cin, n] uint8 or null,
-// seed one int32 on the device or null (at most one of the two), each
-// element once. cin % 8 == 0, n % 8 == 0, n a multiple of h * wi.
-int fused_fwd_pre_launch(const void* x, const void* scale, const void* shift,
-                         const void* bits, const void* seed, void* slab,
-                         int cin, int n, int h, int wi, int guard,
-                         long slab_len, int thresh, float keep,
-                         void* stream) {
-  if (cin % 8 || n % 8 || h < 1 || wi < 1 || n % (h * wi))
+// One launch of a slab prepass (fused_fwd_layout: guard zero positions,
+// then per image of h x wi a zero row and a zero column, then zeros to
+// slab_len) over src's [c, n] operand. c % 8 == 0, n % 8 == 0, n a
+// multiple of h * wi.
+template <typename Src>
+int slab_pre_launch(void (*kernel)(Src, __nv_bfloat16*, SlabPos, PadPos,
+                                   int, int, int, long),
+                    const Src& src, void* slab, int c, int n, int h, int wi,
+                    int guard, long slab_len, void* stream) {
+  if (c % 8 || n % 8 || h < 1 || wi < 1 || n % (h * wi))
     return static_cast<int>(cudaErrorInvalidValue);
   const int per = (h + 1) * (wi + 1);
   const long b = n / (h * wi);
   const long pads = slab_len - n;
   if (pads < guard + b * (wi + 1 + h))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long tiles_d =
-      (long)((n + PRE_P - 1) / PRE_P) * ((cin + PRE_C - 1) / PRE_C);
-  const long pad_vecs = pads * (cin / 8);
-  const long blocks = tiles_d + (pad_vecs + 255) / 256;
-  fused_fwd_pre_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
-      prologue(x, scale, shift, bits, seed, n, thresh, keep),
-      static_cast<__nv_bfloat16*>(slab), SlabPos{h * wi, wi, per, guard},
-      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, cin, n,
-      (int)tiles_d, pad_vecs);
+  const long tiles =
+      (long)((n + PRE_P - 1) / PRE_P) * ((c + PRE_C - 1) / PRE_C);
+  const long pad_vecs = pads * (c / 8);
+  const long blocks = tiles + (pad_vecs + 255) / 256;
+  kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      src, static_cast<__nv_bfloat16*>(slab), SlabPos{h * wi, wi, per, guard},
+      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, c, n, (int)tiles,
+      pad_vecs);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The forward, three launches. fused_fwd_pre: slab [slab_len, cin] bf16
+// (fused_fwd_layout) = the prologue's d from x [cin, n] bf16, scale/shift
+// [cin] f32, bits [cin, n] uint8 or null, seed one int32 on the device or
+// null (at most one of the two), each element once. cin % 8 == 0, n % 8
+// == 0, n a multiple of h * wi.
+int fused_fwd_pre_launch(const void* x, const void* scale, const void* shift,
+                         const void* bits, const void* seed, void* slab,
+                         int cin, int n, int h, int wi, int guard,
+                         long slab_len, int thresh, float keep,
+                         void* stream) {
+  return slab_pre_launch(fused_fwd_pre_kernel,
+                         prologue(x, scale, shift, bits, seed, n, thresh,
+                                  keep),
+                         slab, cin, n, h, wi, guard, slab_len, stream);
 }
 
 // fused_fwd_gemm: y [cout, n] bf16 = bf16(conv3x3 of the slab with w [cout,
@@ -321,25 +307,52 @@ int fused_fwd_gemm_launch(const void* slab, const void* w, const void* res,
       fwd_wgmma_bf16::launch(args, tiles, bn, as_stream(stream)));
 }
 
-// dy [cout, n] bf16; y [cout, n] bf16, dysum/dyssq [cout] f32 or all
-// null (no stats cotangents); w_dg [cin, 9 * cout] bf16 (dgrad-packed);
-// x [cin, n] bf16, scale/shift [cin], bits or seed as above; dx [cin, n]
-// bf16, part [n / BN][2 * cin] f32, dres [cout, n] bf16 = bf16(gf) or
-// null. cout % 32 == 0, wi % 8 == 0.
-int dgrad_launch(const void* dy, const void* y, const void* dysum,
-                 const void* dyssq, const void* w_dg, const void* x,
-                 const void* scale, const void* shift, const void* bits,
-                 const void* seed, void* dx, void* part, void* dres,
-                 int cout, int cin, int n, int h, int wi, int thresh,
-                 float keep, void* stream) {
-  const DgradLoad load{cotangent(dy, y, dysum, dyssq),
-                       static_cast<__nv_bfloat16*>(dres), n};
-  const DgradEpi epi{in<__nv_bfloat16>(x), in<float>(scale), in<float>(shift),
-                     DropBits{in<unsigned char>(bits), in<int>(seed), n},
-                     static_cast<__nv_bfloat16*>(dx),
-                     static_cast<float*>(part), thresh, keep};
-  return launch_row_tiles_with<__nv_bfloat16>(load, w_dg, epi, cout, cin, n,
-                                              h, wi, as_stream(stream));
+// The input gradient, three launches. dgrad_pre: slab [slab_len, cout]
+// bf16 (fused_fwd_layout at Cin = cout) = g = bf16(gf) from dy [cout, n]
+// bf16 and y [cout, n] bf16, dysum/dyssq [cout] f32 (or all three null:
+// no stats cotangents), each element once; dres [cout, n] bf16 = g, or
+// null. cout % 8 == 0, n % 8 == 0, n a multiple of h * wi.
+int dgrad_pre_launch(const void* dy, const void* y, const void* dysum,
+                     const void* dyssq, void* slab, void* dres, int cout,
+                     int n, int h, int wi, int guard, long slab_len,
+                     void* stream) {
+  return slab_pre_launch(
+      fused_dgrad_pre_kernel,
+      GLoad{cotangent(dy, y, dysum, dyssq), n,
+            static_cast<__nv_bfloat16*>(dres)},
+      slab, cout, n, h, wi, guard, slab_len, stream);
+}
+
+// dgrad_gemm: dx [cin, n] bf16 and part [tiles][2 * cin] f32 (each
+// 128-row tile's sums of dn * x and dn) from the slab and w_dg [cin, 9 *
+// cout] bf16 (dgrad-packed), through the masks of x [cin, n] bf16,
+// scale/shift [cin] f32 and bits [cin, n] uint8 or seed (or neither), on
+// `tiles` M tiles and bn-wide N tiles (160, 128 or 64). dgrad_sum: out
+// [m] f32 = the tiles' sums of part [tiles][m] in common::tile_sum's order.
+int dgrad_gemm_launch(const void* slab, const void* w_dg, const void* x,
+                      const void* scale, const void* shift, const void* bits,
+                      const void* seed, void* dx, void* part, int cout,
+                      int cin, int n, int h, int wi, int guard, int tiles,
+                      int bn, int thresh, float keep, void* stream) {
+  if (h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const fwd_wgmma_bf16::Args args{
+      in<__nv_bfloat16>(slab), in<__nv_bfloat16>(w_dg), nullptr, nullptr,
+      nullptr, cout, cin, n, n / (h * wi), h, wi, guard};
+  const dgrad_wgmma_bf16::Epi epi{
+      in<__nv_bfloat16>(x), in<float>(scale), in<float>(shift),
+      DropBits{in<unsigned char>(bits), in<int>(seed), n},
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part), thresh,
+      keep};
+  return static_cast<int>(
+      dgrad_wgmma_bf16::launch(args, epi, tiles, bn, as_stream(stream)));
+}
+
+int dgrad_sum_launch(const void* part, void* out, int tiles, int m,
+                     void* stream) {
+  return common::tile_sum<FusedDgradSum>(in<float>(part),
+                                         static_cast<float*>(out), tiles, m,
+                                         as_stream(stream));
 }
 
 // The weight gradient, three launches. wgrad_pre: d_b [n, cin] bf16 = the
@@ -356,7 +369,7 @@ int wgrad_pre_launch(const void* x, const void* scale, const void* shift,
   const long tiles = tiles_d + pt * ((cout + PRE_C - 1) / PRE_C);
   fused_wgrad_pre_kernel<<<(unsigned)tiles, 256, 0, as_stream(stream)>>>(
       prologue(x, scale, shift, bits, seed, n, thresh, keep),
-      GLoad{cotangent(dy, y, dysum, dyssq), n},
+      GLoad{cotangent(dy, y, dysum, dyssq), n, nullptr},
       static_cast<__nv_bfloat16*>(d_b), static_cast<__nv_bfloat16*>(g_b),
       cin, cout, n, (int)tiles_d);
   return static_cast<int>(cudaGetLastError());

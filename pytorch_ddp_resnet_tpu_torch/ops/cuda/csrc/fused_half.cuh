@@ -261,7 +261,8 @@ quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0, Fn1 fn1,
 }
 
 // Where the forward's prepasses (the bf16 one in fused_block_bf16.cu, the
-// int8 one in fused_block.cu) write: input lane p (image i, row r, column
+// int8 one in fused_block.cu) and the bf16 dgrad's (fused_block_bf16.cu,
+// g at Cin = the half's Cout) write: input lane p (image i, row r, column
 // c of h x wi images) at slab position guard + i * (h + 1) * (wi + 1) + (r
 // + 1) * (wi + 1) + c + 1 (ops/cuda/fused_block.py fused_fwd_layout).
 struct SlabPos {

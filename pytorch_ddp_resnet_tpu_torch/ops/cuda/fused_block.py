@@ -78,7 +78,14 @@ raises):
 - ``fused_fwd_gemm`` (launches ``fused_half_bf16_fwd``, ``.sum`` with
   stats: the wgmma mainloop of ``csrc/fwd_wgmma_bf16.cuh``, y written
   channel-major with the residual, the tiles' sums added in order)
-- ``dgrad_bf16``    (launches ``fused_half_bf16_dgrad``, ``.sum``)
+- ``dgrad_bf16``    (``dgrad_bf16_pre``, then ``dgrad_bf16_gemm``)
+- ``dgrad_bf16_pre`` (launches ``fused_half_bf16_dgrad.pre``: g =
+  bf16(gf) computed once, written position-major into the padded slab of
+  ``fused_fwd_layout`` at Cin = the half's Cout, and dres = g where asked)
+- ``dgrad_bf16_gemm`` (launches ``fused_half_bf16_dgrad``, ``.sum``: the
+  forward's wgmma mainloop on the slab and the dgrad-packed weights, a
+  masking epilogue in ``csrc/dgrad_wgmma_bf16.cuh`` writing dx
+  channel-major and each tile's sums, the tiles' sums added in order)
 - ``wgrad_bf16``    (``wgrad_bf16_pre``, then ``wgrad_bf16_gemm``)
 - ``wgrad_bf16_pre`` (launches ``fused_half_bf16_wgrad.pre``: d and g
   rounded once, position-major)
@@ -482,9 +489,12 @@ FUSED_FWD_BM = 128   # M rows a tile of csrc/fwd_wgmma_bf16.cuh
 def check_fwd_bf16_geometry(name: str, cin: int, cout: int, n: int, h: int,
                             w_img: int) -> None:
     """The bf16 forward's own shape needs: Cin and Cout multiples of 8
-    (16-byte pieces of a position or a weight row), whole images, and N a
+    (16-byte pieces of a position or a weight row), whole images, N a
     multiple of 8 (16-byte runs of lanes, as the bf16 wgrad's prepass
-    reads them too); any image width."""
+    reads them too) and at most 65,535 M tiles of the slab (the grid's y);
+    any image width. The bf16 dgrad, the forward's GEMM on the transposed
+    conv, has the same needs with Cin and Cout swapped, and so has the
+    bf16 backward as a whole (the wgrad's are a subset)."""
     if cin % 8 or cout % 8:
         raise ValueError(f"{name}: Cin={cin}, Cout={cout}: each must be a "
                          "multiple of 8")
@@ -492,6 +502,9 @@ def check_fwd_bf16_geometry(name: str, cin: int, cout: int, n: int, h: int,
         raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
                          "supported by the kernel (whole images, N a "
                          "multiple of 8)")
+    tiles = -(-(n // (h * w_img)) * (h + 1) * (w_img + 1) // FUSED_FWD_BM)
+    if tiles > 65535:
+        raise ValueError(f"{name}: {tiles} tiles exceed the grid")
 
 
 @functools.lru_cache(maxsize=None)
@@ -549,16 +562,23 @@ def fused_fwd_pre_plain(x, scale, shift, bits, *, thresh, lay):
     return _to_slab(prologue_bf16_plain(x, scale, shift, bits, thresh), lay)
 
 
+def _slab_conv_f64(slab, w_packed, lay: FusedFwdLayout) -> torch.Tensor:
+    """acc [Cout, N] float64: each tap's shifted slab rows at the live rows
+    contracted with its packed weights ([Cout, 9 * Cin], K in (dh, dw, ci)
+    order)."""
+    rows = fused_fwd_live_rows(lay)
+    wt = w_packed.to(torch.float64).reshape(lay.cout, 9, lay.cin)
+    acc = sum(slab[rows + sh, :lay.cin].to(torch.float64) @ wt[:, t].t()
+              for t, sh in enumerate(lay.shifts))        # [N, Cout]
+    return acc.t().contiguous()
+
+
 def fused_fwd_gemm_plain(slab, w_packed, res, *, lay, want_stats):
     """(y, ysum, yssq) from the slab of layout ``lay``: the contraction
     (float64) of each tap's shifted slab rows with its packed weights at
     the live rows, y = round(acc) (+ res, rounded) in the slab's dtype,
     and with ``want_stats`` the per-channel f32 sums of y and y^2."""
-    rows = fused_fwd_live_rows(lay)
-    wt = w_packed.to(torch.float64).reshape(lay.cout, 9, lay.cin)
-    acc = sum(slab[rows + sh, :lay.cin].to(torch.float64) @ wt[:, t].t()
-              for t, sh in enumerate(lay.shifts))        # [N, Cout]
-    y = acc.t().contiguous().to(_F32).to(slab.dtype)
+    y = _slab_conv_f64(slab, w_packed, lay).to(_F32).to(slab.dtype)
     if res is not None:
         y = res.to(slab.dtype) + y
     if not want_stats:
@@ -661,6 +681,14 @@ def fwd_int8_gemm_plain(slab, amax, w_q, ws, res, *, tile, plan,
                           want_stats=want_stats)
 
 
+def _dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh):
+    """(dx in x's dtype, d(scale), d(shift) f32) from the transposed conv's
+    f32 acc [Cin, N] through the masks (``_masked``)."""
+    dn = _masked(acc, x, scale, shift, bits, thresh)
+    dx = (dn * _vec(scale)).to(x.dtype)
+    return dx, (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1)
+
+
 def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
                      thresh, h, w_img, emit_res):
     """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32, dres): the
@@ -668,10 +696,28 @@ def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
     ``emit_res``."""
     g = fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype)
     acc = _conv_f64(g, w_dg, h, w_img).to(_F32)
-    dn = _masked(acc, x, scale, shift, bits, thresh)
-    dx = (dn * _vec(scale)).to(x.dtype)
-    return (dx, (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1),
+    return (*_dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh),
             g if emit_res else None)
+
+
+def dgrad_bf16_pre_plain(dy, y, dysum, dyssq, *, lay, emit_res):
+    """The dgrad's operand: (the slab [slab_len, Cout] of layout ``lay``,
+    the forward's layout of the transposed conv (``lay.cin`` = Cout,
+    ``lay.cout`` = Cin), holding g = round(gf) at each pixel's position and
+    zeros at every pad position; dres = g [Cout, N] when ``emit_res``, else
+    None)."""
+    g = fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype)
+    return _to_slab(g, lay), (g if emit_res else None)
+
+
+def dgrad_bf16_gemm_plain(slab, w_dg, x, scale, shift, bits, *, thresh,
+                          lay):
+    """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32) from the
+    slab of ``lay``: the contraction (float64) of each tap's shifted slab
+    rows with the dgrad-packed weights at the live rows, rounded to f32,
+    through the masks."""
+    acc = _slab_conv_f64(slab, w_dg, lay).to(_F32)
+    return _dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh)
 
 
 def wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
@@ -1180,7 +1226,9 @@ def _library_bf16() -> ctypes.CDLL:
             "fused_fwd_pre_launch": [_P] * 6 + [_I] * 5
             + [ctypes.c_long, _I, _F, _P],
             "fused_fwd_gemm_launch": [_P] * 5 + [_I] * 8 + [_P],
-            "dgrad_launch": [_P] * 13 + [_I] * 6 + [_F, _P],
+            "dgrad_pre_launch": [_P] * 6 + [_I] * 5 + [ctypes.c_long, _P],
+            "dgrad_gemm_launch": [_P] * 9 + [_I] * 9 + [_F, _P],
+            "dgrad_sum_launch": [_P, _P, _I, _I, _P],
             "wgrad_pre_launch": [_P] * 11 + [_I] * 4 + [_F, _P],
             "wgrad_gemm_launch": [_P] * 3 + [_I] * 10 + [_P],
             "wgrad_sum_launch": [_P, _P, _I, _I, _I, _P],
@@ -1193,19 +1241,6 @@ def _library_bf16() -> ctypes.CDLL:
             fn.restype = _I
         _lib_bf16 = lib
     return _lib_bf16
-
-
-def _check_bf16_geometry(name: str, c: int, n: int, h: int,
-                         w_img: int) -> None:
-    """The bf16 dgrad kernel's own shape needs: the contraction in
-    32-channel chunks, and row tiles of whole image rows of 8 pixels (the
-    forward's are ``check_fwd_bf16_geometry``'s)."""
-    if c % 32:
-        raise ValueError(f"{name}: C={c} is not a multiple of 32")
-    if w_img % 8 or n % (h * w_img):
-        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
-                         "supported by the kernel")
-    _conv_blocks(n, h, w_img)
 
 
 def _bf16_operands(name, x, scale, shift, bits, extra, extra_dtypes):
@@ -1310,8 +1345,6 @@ def fwd_bf16(x, w_packed, scale, shift, bits, res, *, thresh, h, w_img,
         extra_dt.append(torch.bfloat16)
     _bf16_operands(name, x, scale, shift, bits, extra, extra_dt)
     lay = fused_fwd_layout(n, h, w_img, cin, cout)
-    if lay.tiles > 65535:
-        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
     slab = fused_fwd_pre(x, scale, shift, bits, thresh=thresh, lay=lay)
     return fused_fwd_gemm(slab, w_packed, res, lay=lay,
                           want_stats=want_stats)
@@ -1329,10 +1362,100 @@ def _cot_operands(dy, y, dysum, dyssq):
     return extra, extra_dt, dysum, dyssq
 
 
+def dgrad_bf16_pre(dy, y, dysum, dyssq, *, lay, emit_res):
+    """The dgrad's slab of layout ``lay`` (``fused_fwd_layout`` at Cin =
+    the half's Cout) and dres (``dgrad_bf16_pre_plain``): g = bf16(gf)
+    computed once per element, written position-major at each pixel's slab
+    position, zeros at every pad position, and channel-major into dres
+    from the same read where ``emit_res``. One launch."""
+    if on_cpu(dy):
+        return dgrad_bf16_pre_plain(dy, y, dysum, dyssq, lay=lay,
+                                    emit_res=emit_res)
+    name = "fused_half_bf16_dgrad.pre"
+    if tuple(dy.shape) != (lay.cin, lay.n) or lay.cp != lay.cin:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} vs the layout "
+                         f"{lay}")
+    check_fwd_bf16_geometry(name, lay.cin, lay.cout, lay.n, lay.h, lay.w)
+    extra, extra_dt, dysum, dyssq = _cot_operands(dy, y, dysum, dyssq)
+    require_cuda(name, extra, extra_dt)
+    return _dgrad_pre_launch(dy, y, dysum, dyssq, lay, emit_res)
+
+
+def _dgrad_pre_launch(dy, y, dysum, dyssq, lay, emit_res):
+    """``dgrad_bf16_pre``'s launch on operands already checked."""
+    dev = dy.device
+    slab = torch.empty((lay.slab_len, lay.cp), dtype=torch.bfloat16,
+                       device=dev)
+    dres = (torch.empty((lay.cin, lay.n), dtype=torch.bfloat16, device=dev)
+            if emit_res else None)
+    _launch("fused_half_bf16_dgrad.pre", _library_bf16().dgrad_pre_launch,
+            dy.data_ptr(), _ptr(y), _ptr(dysum), _ptr(dyssq),
+            slab.data_ptr(), _ptr(dres), lay.cin, lay.n, lay.h, lay.w,
+            lay.guard, lay.slab_len, _stream(dy))
+    return slab, dres
+
+
+def _check_dgrad_operands(name, w_dg, x, lay):
+    """The dgrad GEMM's weights and input against the layout."""
+    if tuple(w_dg.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{name}: weights {tuple(w_dg.shape)} vs Cin "
+                         f"{lay.cout}, Cout {lay.cin}")
+    if tuple(x.shape) != (lay.cout, lay.n):
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs the layout {lay}")
+
+
+def dgrad_bf16_gemm(slab, w_dg, x, scale, shift, bits, *, thresh, lay):
+    """(dx [Cin, N] bf16, d(scale), d(shift) [Cin] f32) from the slab of
+    ``lay`` (``dgrad_bf16_gemm_plain``): the f32 contraction over (tap,
+    Cout channel) on wgmma, through the masks recomputed from x (and the
+    bits, or the mask rebuilt from the seed), dx written channel-major,
+    each tile's sums of dn * x and dn added in a fixed order (bit for bit
+    the same every run). Two launches; in seed mode the GEMM rebuilds the
+    mask."""
+    if on_cpu(slab):
+        return dgrad_bf16_gemm_plain(slab, w_dg, x, scale, shift, bits,
+                                     thresh=thresh, lay=lay)
+    name = "fused_half_bf16_dgrad"
+    if tuple(slab.shape) != (lay.slab_len, lay.cp) or lay.cp != lay.cin:
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} is not of the "
+                         f"layout {lay}")
+    _check_dgrad_operands(name, w_dg, x, lay)
+    check_fwd_bf16_geometry(name, lay.cin, lay.cout, lay.n, lay.h, lay.w)
+    scale, shift, bits_p, seed_p, seeded = _bf16_operands(
+        name, x, scale, shift, bits, [slab, w_dg], [torch.bfloat16] * 2)
+    return _dgrad_gemm_launch(slab, w_dg, x, scale, shift,
+                              (bits_p, seed_p, seeded), thresh, lay)
+
+
+def _dgrad_gemm_launch(slab, w_dg, x, scale, shift, drop, thresh, lay):
+    """``dgrad_bf16_gemm``'s two launches on operands already checked;
+    ``drop`` is ``_drop_args`` of the bits."""
+    name = "fused_half_bf16_dgrad"
+    bits_p, seed_p, seeded = drop
+    cin, dev = lay.cout, slab.device
+    lib, st = _library_bf16(), _stream(slab)
+    dx = torch.empty((cin, lay.n), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((lay.tiles, 2 * cin), dtype=_F32, device=dev)
+    masked = bits_p is not None or seed_p is not None
+    _launch(name, lib.dgrad_gemm_launch, slab.data_ptr(), w_dg.data_ptr(),
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), bits_p,
+            seed_p, dx.data_ptr(), part.data_ptr(), lay.cin, cin, lay.n,
+            lay.h, lay.w, lay.guard, lay.tiles, lay.bn, thresh or 256,
+            inv_keep(thresh) if masked else 1.0, st, seed=seeded)
+    sums = torch.empty(2 * cin, dtype=_F32, device=dev)
+    _launch(f"{name}.sum", lib.dgrad_sum_launch, part.data_ptr(),
+            sums.data_ptr(), lay.tiles, 2 * cin, st)
+    return dx, sums[:cin], sums[cin:]
+
+
 def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
                h, w_img, emit_res):
     """The bf16 half's input gradient: (dx [Cin, N] bf16, d(scale),
-    d(shift) [Cin] f32, dres = bf16(gf) [Cout, N] or None)."""
+    d(shift) [Cin] f32, dres = bf16(gf) [Cout, N] or None). On the card
+    ``dgrad_bf16_pre`` into a slab freed at return, then
+    ``dgrad_bf16_gemm``; every operand is checked once, before the first
+    launch, and any image width runs (``check_fwd_bf16_geometry`` with
+    Cin and Cout swapped)."""
     if on_cpu(dy):
         return dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift,
                                 bits, thresh=thresh, h=h, w_img=w_img,
@@ -1340,29 +1463,18 @@ def dgrad_bf16(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *, thresh,
     name = "fused_half_bf16_dgrad"
     cout, n = dy.shape
     cin = x.shape[0]
-    if tuple(w_dg.shape) != (cin, 9 * cout):
-        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
-    _check_bf16_geometry(name, cout, n, h, w_img)
+    check_fwd_bf16_geometry(name, cout, cin, n, h, w_img)
+    lay = fused_fwd_layout(n, h, w_img, cout, cin)
+    _check_dgrad_operands(name, w_dg, x, lay)
     extra, extra_dt, dysum, dyssq = _cot_operands(dy, y, dysum, dyssq)
     extra.append(w_dg)
     extra_dt.append(torch.bfloat16)
     scale, shift, bits_p, seed_p, seeded = _bf16_operands(
         name, x, scale, shift, bits, extra, extra_dt)
-    dev = dy.device
-    dx = torch.empty((cin, n), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((_conv_blocks(n, h, w_img), 2 * cin), dtype=_F32,
-                       device=dev)
-    dres = (torch.empty((cout, n), dtype=torch.bfloat16, device=dev)
-            if emit_res else None)
-    lib = _library_bf16()
-    _launch(name, lib.dgrad_launch, dy.data_ptr(), _ptr(y), _ptr(dysum),
-            _ptr(dyssq), w_dg.data_ptr(), x.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), bits_p, seed_p, dx.data_ptr(), part.data_ptr(),
-            _ptr(dres), cout, cin, n, h, w_img, thresh or 256,
-            inv_keep(thresh) if bits is not None else 1.0, _stream(dy),
-            seed=seeded)
-    sums = _partial_sum(f"{name}.sum", part, lib)
-    return dx, sums[:cin], sums[cin:], dres
+    slab, dres = _dgrad_pre_launch(dy, y, dysum, dyssq, lay, emit_res)
+    dx, ds, dt = _dgrad_gemm_launch(slab, w_dg, x, scale, shift,
+                                    (bits_p, seed_p, seeded), thresh, lay)
+    return dx, ds, dt, dres
 
 
 def wgrad_bf16_pre(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh):
@@ -1491,11 +1603,9 @@ class _FusedHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_cs, w, scale, shift, bits, res, thresh, h, w_img,
                 want_stats):
-        if not on_cpu(x_cs):
-            # the forward takes any width, the bf16 dgrad rows of 8: raise
-            # before the first launch, not in the backward
-            _check_bf16_geometry("fused_half_bf16_dgrad", w.shape[0],
-                                 x_cs.shape[1], h, w_img)
+        # the forward's own check is the backward's rule too
+        # (check_fwd_bf16_geometry): a shape the backward refuses raises
+        # before the first launch
         wp = pack_weights(w.detach().to(x_cs.dtype))
         y, ysum, yssq = fwd_bf16(x_cs, wp, scale, shift, bits, res,
                                  thresh=thresh, h=h, w_img=w_img,
@@ -1553,7 +1663,7 @@ def fused_half(x_cs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     Returns (y [Cout, N], ysum, yssq), or (y, None, None) when
     ``want_stats`` is False (a block's last conv). Widths that are not
     multiples of 32 (the gate admits C % 16 without dropout) run zero-padded
-    to the next multiple: the kernels contract in 32-channel chunks."""
+    to the next multiple of 32, exactly (zero channels add nothing)."""
     thresh, bits = _check_bits(dropout_rate, bits, x_cs, h, w_img)
     cin, cout = x_cs.shape[0], w.shape[0]
     pin, pout = -cin % 32, -cout % 32
@@ -1583,7 +1693,8 @@ def _check_int8_backward(quant_bwd: bool, cin: int, cout: int, n: int,
     quantizer, dgrad and wgrad (FQT) or the bf16 dgrad (QAT). Cached per
     shape; a shape that raises is checked again at each call."""
     if not quant_bwd:
-        _check_bf16_geometry("fused_half_bf16_dgrad", cout, n, h, w_img)
+        check_fwd_bf16_geometry("fused_half_bf16_dgrad", cout, cin, n, h,
+                                w_img)
         return
     tile = bwd_tile(h, w_img, n, cin, cout)
     _check_geometry("fused_half_dgrad", cout, n, tile, h, w_img)

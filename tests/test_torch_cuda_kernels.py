@@ -499,7 +499,11 @@ def test_fused_half_bf16_kernels_match_plain(dev, c, h, w, b, mode, use_res,
             torch.randn(c, device=dev, generator=g) * 1e-4) if stats
            else (None, None, None))
     args = (dy, *cts, wdg, x, scale, shift, bits)
+    fb.reset_launches()
     got = fb.dgrad_bf16(*args, emit_res=stats and use_res, **kw)
+    assert dict(fb.launches) == {
+        "fused_half_bf16_dgrad.pre": 1, "fused_half_bf16_dgrad": 1,
+        "fused_half_bf16_dgrad.sum": 1}
     want = fb.dgrad_bf16_plain(*args, emit_res=stats and use_res, **kw)
     _bf16_close(got[0], want[0])
     _mma_sums(got[1], want[1])
@@ -569,22 +573,115 @@ def test_fused_half_bf16_op_launches_its_kernels(dev):
                        w_img=w, **kw)
         (y.float().sum() + ys.sum() + yq.sum()).backward()
         torch.cuda.synchronize()
-        bwd = ("fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
-               "fused_half_bf16_wgrad.pre", "fused_half_bf16_wgrad",
-               "fused_half_bf16_wgrad.sum")
+        bwd = ("fused_half_bf16_dgrad.pre", "fused_half_bf16_dgrad",
+               "fused_half_bf16_dgrad.sum", "fused_half_bf16_wgrad.pre",
+               "fused_half_bf16_wgrad", "fused_half_bf16_wgrad.sum")
         fwd = (("fused_half_bf16_fwd.pre", "fused_half_bf16_fwd",
                 "fused_half_bf16_fwd.sum") if not kw
                else ("fused_half_fwd.amax", "fused_half_fwd.pre",
                      "fused_half_fwd", "fused_half_fwd.sum"))
         assert dict(fb.launches) == {name: 1 for name in fwd + bwd}
-        # the bf16 forward's and the wgrad's prepasses rebuild the mask;
-        # their mainloops read the slab and d_b
+        # the bf16 forward's and the wgrad's prepasses rebuild the mask
+        # (their mainloops read the slab and d_b), the dgrad's GEMM in its
+        # epilogue (its prepass writes g, which no mask touches)
         seeded = {name for name in fwd + bwd if not name.endswith(".sum")
                   and name not in ("fused_half_fwd", "fused_half_bf16_fwd",
-                                   "fused_half_bf16_wgrad")}
+                                   "fused_half_bf16_wgrad",
+                                   "fused_half_bf16_dgrad.pre")}
         assert dict(fb.seed_launches) == {name: 1 for name in seeded}
         for t in (x, wt, scale, shift):
             assert torch.isfinite(t.grad).all()
+
+
+# (Cin, Cout, h, w, batch) of the half for the wgmma bf16 dgrad: the
+# WRN-28-10 stages at batch 128, then widths the old row-tile kernel
+# refused (6x6, 5x7, 12x12) with Cin != Cout: the GEMM's N is the half's
+# Cin, so 48 is a ragged 64-wide N tile and 136 a ragged second 128-wide one
+FUSED_DGRAD_SHAPES = [(160, 160, 32, 32, 128), (320, 320, 16, 16, 128),
+                      (640, 640, 8, 8, 128), (48, 32, 6, 6, 64),
+                      (32, 48, 5, 7, 8), (64, 96, 12, 12, 16),
+                      (136, 64, 12, 12, 8)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", FUSED_DGRAD_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "bits", "seed"])
+@pytest.mark.parametrize("stats", [True, False])
+def test_fused_dgrad_bf16_wgmma_matches_plain(dev, cin, cout, h, w, b, mode,
+                                              stats):
+    """The bf16 dgrad's prepass and wgmma GEMM: the slab equal to its plain
+    version's byte for byte; dx within 2 bf16 ulps of
+    ``dgrad_bf16_plain``'s largest value, d(scale) and d(shift) by
+    ``_mma_sums``, dres equal; two calls bit-equal; each call one prepass,
+    one GEMM (seeded in seed mode: the mask is rebuilt in its epilogue) and
+    one ordered sum."""
+    g = torch.Generator(device=dev).manual_seed(cin + 3 * cout + w)
+    n = b * h * w
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = rn(cin, n).to(torch.bfloat16)
+    wt = rn(cout, cin, 3, 3, s=(9 * cin) ** -0.5)
+    wdg = fb.pack_weights_dgrad(wt.to(torch.bfloat16))
+    scale, shift = rn(cin).abs() + 0.5, rn(cin, s=0.3)
+    thresh, bits = _drop(mode, dev, g, cin, n)
+    dy = rn(cout, n, s=1e-3).to(torch.bfloat16)
+    cts = ((rn(cout, n).to(torch.bfloat16), rn(cout, s=1e-4),
+            rn(cout, s=1e-4)) if stats else (None,) * 3)
+    args = (dy, *cts, wdg, x, scale, shift, bits)
+    kw = dict(thresh=thresh, h=h, w_img=w, emit_res=stats)
+    lay = fb.fused_fwd_layout(n, h, w, cout, cin)
+    slab, dres = fb.dgrad_bf16_pre(dy, *cts, lay=lay, emit_res=stats)
+    fb.reset_launches()
+    got = fb.dgrad_bf16(*args, **kw)
+    again = fb.dgrad_bf16(*args, **kw)
+    torch.cuda.synchronize()
+    pslab, pdres = fb.dgrad_bf16_pre_plain(dy, *cts, lay=lay,
+                                           emit_res=stats)
+    assert torch.equal(slab, pslab)
+    assert (dres is None and pdres is None) or torch.equal(dres, pdres)
+    want = fb.dgrad_bf16_plain(*args, **kw)
+    _bf16_close(got[0], want[0])
+    _mma_sums(got[1], want[1])
+    _mma_sums(got[2], want[2])
+    if stats:
+        _same(got[3], want[3])
+    else:
+        assert got[3] is None and want[3] is None
+    for a, b_ in zip(got, again):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+    names = ("fused_half_bf16_dgrad.pre", "fused_half_bf16_dgrad",
+             "fused_half_bf16_dgrad.sum")
+    assert dict(fb.launches) == {name: 2 for name in names}
+    assert dict(fb.seed_launches) == ({names[1]: 2} if mode == "seed"
+                                      else {})
+
+
+def test_fused_dgrad_bf16_refuses_what_it_cannot_take(dev):
+    """The wgmma bf16 dgrad raises on what its kernels do not take
+    (channels or positions not a multiple of 8, a slab of another layout,
+    another dtype), launching nothing."""
+    c, h, w, n = 32, 6, 6, 8 * 36
+    dy = torch.zeros((c, n), dtype=torch.bfloat16, device=dev)
+    wdg = torch.zeros((c, 9 * c), dtype=torch.bfloat16, device=dev)
+    one = torch.ones(c, device=dev)
+    kw = dict(thresh=None, h=h, w_img=w, emit_res=False)
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fb.dgrad_bf16(dy, None, None, None, wdg, dy.float(), one, one, None,
+                      **kw)
+    with pytest.raises(ValueError, match="Cin=12"):
+        fb.dgrad_bf16(dy[:12].contiguous(), None, None, None,
+                      wdg[:, :9 * 12].contiguous(), dy, one, one, None, **kw)
+    with pytest.raises(ValueError, match="geometry H=6 W=6 N=252"):
+        fb.dgrad_bf16(dy[:, :252].contiguous(), None, None, None, wdg,
+                      dy[:, :252].contiguous(), one, one, None, **kw)
+    lay = fb.fused_fwd_layout(n, h, w, c, c)
+    with pytest.raises(ValueError, match="is not of the layout"):
+        fb.dgrad_bf16_gemm(torch.zeros((lay.slab_len - 1, c),
+                                       dtype=torch.bfloat16, device=dev),
+                           wdg, dy, one, one, None, thresh=None, lay=lay)
+    assert not fb.launches
 
 
 # (Cin, Cout, h, w, batch, bits mode) of the staged fused wgrad: geometries
@@ -736,30 +833,58 @@ def test_fused_fwd_bf16_staged_matches_plain(dev, cin, cout, h, w, b, mode,
                                       else {})
 
 
-def test_fused_fwd_takes_widths_the_dgrad_refuses_before_any_launch(dev):
-    """6x6 images at batch 64 (a geometry the fused gate admits): the bf16
-    forward runs there and equals its plain version; the differentiable
-    ``fused_half`` raises, naming the geometry, before its first launch,
-    because its bf16 dgrad tiles rows of 8."""
+def _half_6x6(dev, seed):
+    """x, w (OIHW), scale, shift of a C = 32 half on 6x6 images at batch
+    64 (a geometry the fused gate admits), and the loss's cotangents of
+    (y, ysum, yssq)."""
     c, b, h, w = 32, 64, 6, 6
     n = b * h * w
-    g = torch.Generator(device=dev).manual_seed(66)
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
     wt = torch.randn(c, c, 3, 3, device=dev, generator=g) * 0.05
     scale = torch.rand(c, device=dev, generator=g) + 0.5
     shift = torch.randn(c, device=dev, generator=g) * 0.3
-    wp = k.pack_weights(wt.to(torch.bfloat16))
-    kw = dict(thresh=None, h=h, w_img=w, want_stats=True)
-    got = fb.fwd_bf16(x, wp, scale, shift, None, None, **kw)
-    want = fb.fwd_bf16_plain(x, wp, scale, shift, None, None, **kw)
-    torch.cuda.synchronize()
-    _bf16_close(got[0], want[0])
-    _mma_sums(got[1], want[1])
-    _mma_sums(got[2], want[2])
+    cy = (torch.randn(c, n, device=dev, generator=g) * 1e-2).to(
+        torch.bfloat16)
+    cs = torch.randn(c, device=dev, generator=g) * 1e-3
+    cq = torch.randn(c, device=dev, generator=g) * 1e-3
+    return (x, wt, scale, shift), (cy, cs, cq), (h, w)
+
+
+def test_fused_half_runs_6x6_forward_and_backward(dev):
+    """6x6 images at batch 64 (widths the old bf16 dgrad's rows of 8
+    refused): ``fused_half`` runs forward and backward on its kernels, the
+    dgrad's three among them, and equals the plain versions: y within 2
+    bf16 ulps of ``fwd_bf16_plain``, the sums by ``_mma_sums``; dx within 2
+    ulps and d(scale), d(shift), dW by ``_mma_sums`` of the plain backward
+    on the kernel's own y."""
+    ins, (cy, cs, cq), (h, w) = _half_6x6(dev, 66)
+    x, wt, scale, shift = ins
+    leaves = [t.clone().requires_grad_() for t in ins]
     fb.reset_launches()
-    with pytest.raises(ValueError, match="geometry H=6 W=6"):
-        fb.fused_half(x.requires_grad_(), wt, scale, shift, h=h, w_img=w)
-    assert not fb.launches
+    y, ys, yq = fb.fused_half(*leaves, h=h, w_img=w)
+    ((y.float() * cy.float()).sum() + (ys * cs).sum()
+     + (yq * cq).sum()).backward()
+    torch.cuda.synchronize()
+    for name in ("fused_half_bf16_fwd", "fused_half_bf16_dgrad.pre",
+                 "fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
+                 "fused_half_bf16_wgrad"):
+        assert fb.launches[name] == 1, name
+    kw = dict(thresh=None, h=h, w_img=w)
+    want = fb.fwd_bf16_plain(x, k.pack_weights(wt.to(torch.bfloat16)), scale,
+                             shift, None, None, want_stats=True, **kw)
+    _bf16_close(y.detach(), want[0])
+    _mma_sums(ys.detach(), want[1])
+    _mma_sums(yq.detach(), want[2])
+    ct = (cy, y.detach(), cs, cq)
+    dx, ds, dt, _ = fb.dgrad_bf16_plain(
+        *ct, fb.pack_weights_dgrad(wt.to(torch.bfloat16)), x, scale, shift,
+        None, emit_res=False, **kw)
+    dw = fb.wgrad_bf16_plain(*ct, x, scale, shift, None, **kw)
+    _bf16_close(leaves[0].grad, dx)
+    _mma_sums(leaves[2].grad, ds)
+    _mma_sums(leaves[3].grad, dt)
+    _mma_sums(leaves[1].grad, dw.reshape(32, 3, 3, 32).permute(0, 3, 1, 2))
 
 
 # (Cin, Cout, h, w, batch) of the staged int8 forward: the FQT shapes (the
@@ -831,9 +956,9 @@ def test_fused_fwd_int8_takes_widths_the_backward_refuses_before_any_launch(
         dev):
     """6x6 images at batch 64 (a geometry the fused gate admits): the int8
     forward runs there and equals its plain version; ``fused_half_int8``
-    raises, naming the geometry, before its first launch, in FQT (its int8
-    dgrad and wgrad) and in QAT (its bf16 dgrad), whose kernels tile rows
-    of 8."""
+    in FQT raises, naming the geometry, before its first launch (its int8
+    dgrad tiles rows of 8); in QAT its bf16 backward runs there, the
+    dgrad's three kernels among its launches, with finite gradients."""
     c, b, h, w = 32, 64, 6, 6
     n = b * h * w
     g = torch.Generator(device=dev).manual_seed(67)
@@ -852,12 +977,22 @@ def test_fused_fwd_int8_takes_widths_the_backward_refuses_before_any_launch(
     _same(got[0], want[0])
     _same(got[1], want[1], sums=True)
     _same(got[2], want[2], sums=True)
-    for quant_bwd in (True, False):
-        fb.reset_launches()
-        with pytest.raises(ValueError, match="geometry H=6 W=6"):
-            fb.fused_half_int8(x.clone().requires_grad_(), wt, scale, shift,
-                               h=h, w_img=w, quant_bwd=quant_bwd)
-        assert not fb.launches
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="geometry H=6 W=6"):
+        fb.fused_half_int8(x.clone().requires_grad_(), wt, scale, shift,
+                           h=h, w_img=w, quant_bwd=True)
+    assert not fb.launches
+    leaves = [t.clone().requires_grad_() for t in (x, wt, scale, shift)]
+    y, ys, yq = fb.fused_half_int8(*leaves, h=h, w_img=w, quant_bwd=False)
+    (y.float().sum() + ys.sum() + yq.sum()).backward()
+    torch.cuda.synchronize()
+    _same(y.detach(), want[0])
+    for name in ("fused_half_fwd", "fused_half_bf16_dgrad.pre",
+                 "fused_half_bf16_dgrad", "fused_half_bf16_dgrad.sum",
+                 "fused_half_bf16_wgrad"):
+        assert fb.launches[name] == 1, name
+    for t in leaves:
+        assert torch.isfinite(t.grad).all()
 
 
 # (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,
@@ -1869,8 +2004,9 @@ def test_transition_never_falls_back(dev):
 
 def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
     """The fused gate admits 6x6 images at batch 64 (a 2,304-lane tile);
-    the half kernels tile whole rows of 8 and raise, naming the geometry
-    (ROADMAP Queue 3 item 6), instead of computing something else."""
+    the FQT half's int8 dgrad tiles whole rows of 8 and raises, naming the
+    geometry (ROADMAP Queue 3 item 6), instead of computing something
+    else."""
     from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
 
     c, b, h, w = 32, 64, 6, 6

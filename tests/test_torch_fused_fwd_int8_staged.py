@@ -379,7 +379,8 @@ def test_the_checks_take_any_width_and_the_op_keeps_its_backwards_rules():
     """The forward's check takes whole images of any width and refuses
     channels, positions and scale groups its kernels cannot take; the
     op's check of its backward raises, naming the geometry, where the
-    int8 dgrad (FQT) or the bf16 dgrad (QAT) tiles rows of 8."""
+    int8 dgrad (FQT) tiles rows of 8, and passes where the bf16 backward
+    (QAT) takes any width."""
     for h, w, n, tile in ((6, 6, 32 * 36, 1152), (5, 7, 8 * 35, 280),
                           (8, 8, 4 * 64, 128)):
         fb.check_fwd_int8_geometry("fwd", 96, 40, n, h, w, tile)
@@ -396,9 +397,10 @@ def test_the_checks_take_any_width_and_the_op_keeps_its_backwards_rules():
     with pytest.raises(ValueError, match="Cin=40"):
         fb.fwd_int8_boxes(40)
     # the op's backward checks: 6x6 at batch 64 (the gate admits it)
+    with pytest.raises(ValueError, match="geometry H=6 W=6"):
+        fb._check_int8_backward(True, 32, 32, 64 * 36, 6, 6)
+    fb._check_int8_backward(False, 32, 32, 64 * 36, 6, 6)
     for quant_bwd in (True, False):
-        with pytest.raises(ValueError, match="geometry H=6 W=6"):
-            fb._check_int8_backward(quant_bwd, 32, 32, 64 * 36, 6, 6)
         fb._check_int8_backward(quant_bwd, 32, 32, 8 * 64, 8, 8)
 
 

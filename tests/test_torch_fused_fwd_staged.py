@@ -282,12 +282,16 @@ def test_plain_parts_and_the_card_walk_equal_fwd_bf16_plain(
 
 def test_the_checks_take_any_width_and_keep_the_dgrads_rule():
     """The forward's check takes widths that are not multiples of 8 and
-    refuses channels or positions that are not; the bf16 dgrad's check
+    refuses channels, positions or grids it cannot take; the bf16 dgrad
+    (the forward's GEMM on the transposed conv) takes those widths too, so
+    the QAT backward's check passes them, and the int8 (FQT) dgrad's check
     keeps its rows of 8."""
     for h, w, n in ((6, 6, 64 * 36), (5, 7, 8 * 35), (12, 12, 8 * 144)):
         fb.check_fwd_bf16_geometry("fwd", 32, 64, n, h, w)
+        fb._check_int8_backward.cache_clear()
+        fb._check_int8_backward(False, 32, 64, n, h, w)
         with pytest.raises(ValueError, match="geometry"):
-            fb._check_bf16_geometry("dgrad", 32, n, h, w)
+            fb._check_geometry("dgrad", 32, n, n, h, w)
     with pytest.raises(ValueError, match="multiple of 8"):
         fb.check_fwd_bf16_geometry("fwd", 12, 64, 8 * 36, 6, 6)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -296,6 +300,9 @@ def test_the_checks_take_any_width_and_keep_the_dgrads_rule():
         fb.check_fwd_bf16_geometry("fwd", 32, 32, 3 * 35, 5, 7)
     with pytest.raises(ValueError, match="geometry"):
         fb.check_fwd_bf16_geometry("fwd", 32, 32, 100, 6, 6)
+    # 8,192 images of 32x32: 69,696 M tiles of the slab, past the grid
+    with pytest.raises(ValueError, match="69696 tiles exceed the grid"):
+        fb.check_fwd_bf16_geometry("fwd", 32, 32, 8192 * 1024, 32, 32)
 
 
 # (h, w, batch): widths that are not multiples of 8, at the smallest batch

@@ -294,11 +294,12 @@ def test_refuses_what_the_reference_refuses():
 @pytest.mark.parametrize("c", [16, 48, 80, 112])
 def test_every_width_the_gate_admits_reaches_the_kernels_whole(c,
                                                                monkeypatch):
-    """The gate admits C % 16 without dropout (ROADMAP Queue 2 item 7a);
-    the card's kernels contract in 32-channel chunks. ``fused_half`` pads
-    such a width with zero channels, so every kernel-facing stage gets a
-    shape the card's own check accepts, and the padded half's output and
-    gradients equal the unpadded half's."""
+    """The gate admits C % 16 without dropout (ROADMAP Queue 2 item 7a).
+    ``fused_half`` pads such a width with zero channels to a multiple of
+    32, so every kernel-facing stage gets a shape the card's own check
+    (``check_fwd_bf16_geometry``, the rule of the bf16 forward, dgrad and
+    wgrad) accepts, and the padded half's output and gradients equal the
+    unpadded half's."""
     from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
 
     b, h, w = 4, 16, 16
@@ -326,7 +327,8 @@ def test_every_width_the_gate_admits_reaches_the_kernels_whole(c,
             rows = [t.shape[0] for t in a
                     if isinstance(t, torch.Tensor) and t.dim() == 2]
             for r in rows:
-                fb._check_bf16_geometry(_name, r, n, h, w)
+                assert r % 32 == 0, (_name, r)
+                fb.check_fwd_bf16_geometry(_name, r, r, n, h, w)
             seen.append(_name)
             return _orig(*a, **k)
 
