@@ -343,12 +343,17 @@ SOURCES = {"nv_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_bf16.cuh",
            "fused_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
-           "fused_half_wgrad": FQT_WGRAD_SOURCE}
+           "fused_half_wgrad": FQT_WGRAD_SOURCE,
+           "conv3x3_int8_requant":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/requant_wgmma_s8.cuh",
+           "conv3x3_int8_requant.pre":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/requant_wgmma_s8.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
 REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv3x3_int8_requant": _PALLAS + "conv.py:314",
+            "conv3x3_int8_requant.pre": _PALLAS + "conv.py:314",
             "augment_batch": _PALLAS + "augment.py:156",
             "stem_fwd": _PALLAS + "stem.py:119",
             "stem_wgrad": _PALLAS + "stem.py:149",
@@ -379,6 +384,11 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "conv1x1_lanes_requant": _PALLAS + "conv1x1.py:158"}
 BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
               "fused_half_bf16_wgrad")
+# the int8 serving conv's two kernels by part, for the device-time split
+REQUANT_KERNELS = {"pre": "pre_kernel", "gemm": "requant_s8_kernel"}
+# the int8 serving conv's launches of one WRN-28-10 serving batch
+REQUANT_PER_BATCH = {"conv3x3_int8_requant.pre": 22,
+                     "conv3x3_int8_requant": 22}
 SAME_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_wgmma_bf16.cuh"
 # how conv3x3_wgrad's kernel lays its operands in shared memory (its
 # header's note; tests/test_torch_cuda_kernels.py test_tma_swizzle_probe)
@@ -697,7 +707,9 @@ def kernel_phase(peaks):
             library_ms=lib_ms,
             ops_ms=2 * macs / flops_bf16 * 1e3, bytes_ms=byts / bw * 1e3))
 
-        # int8 conv + requant epilogue, every mode
+        # int8 conv + requant epilogue, every mode: the op (its prepass,
+        # then its GEMM) against the plain version, two calls bit-equal;
+        # each part timed apart (CUDA events) and in device time
         xq = torch.randint(-127, 128, (c, n), device=dev, generator=g,
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (c, 9 * c), device=dev, generator=g,
@@ -717,17 +729,42 @@ def kernel_phase(peaks):
             "bf16+res": ((res, None), dict(relu=False)),
             "bf16+res+dual": ((res, dual), dict(relu=False)),
         }
+        plan = k.requant_plan(n, h, w, c, c)
+        slab = k.conv3x3_int8_requant_pre(xq, plan=plan)
+        assert torch.equal(slab, k.conv3x3_int8_requant_pre_plain(
+            xq, plan=plan)), ("conv3x3_int8_requant.pre", c)
+        slab_b = plan.lay.slab_len * c
+        # the prepass: bound by its bytes (x_q read, the slab written)
+        rows.append(dict(
+            name="conv3x3_int8_requant.pre", c=c, h=h, w=w, n=n, mode="",
+            max_abs_err=0.0, bn=plan.bn, tiles=plan.lay.tiles,
+            ms=time_ms(lambda: k.conv3x3_int8_requant_pre(xq, plan=plan),
+                       20),
+            plain_ms=time_ms(
+                lambda: k.conv3x3_int8_requant_pre_plain(xq, plan=plan), 3),
+            library_ms=None, ops_ms=0.0, bytes_ms=(c * n + slab_b) / bw * 1e3))
         for mode, ((r, du), kw) in modes.items():
             def run(fn=k.conv3x3_int8_requant):
                 return fn(xq, wq, scale, shift, r, du, h=h, w_img=w, **kw)
+
+            def gemm():
+                return k.conv3x3_int8_requant_gemm(slab, wq, scale, shift, r,
+                                                   du, plan=plan, **kw)
 
             outs = run()
             refs = run(k.conv3x3_int8_requant_plain)
             outs = outs if isinstance(outs, tuple) else (outs,)
             refs = refs if isinstance(refs, tuple) else (refs,)
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            # the GEMM on the checked slab: the op's outputs bit for bit
+            parts = gemm()
+            parts = parts if isinstance(parts, tuple) else (parts,)
             err = 0.0
-            for o, rf in zip(outs, refs):
+            for o, rf, o2, og in zip(outs, refs, again, parts):
                 assert o.dtype == rf.dtype and o.shape == rf.shape
+                assert torch.equal(o, o2), (c, mode, "two calls")
+                assert torch.equal(o, og), (c, mode, "the GEMM alone")
                 d = (o.float() - rf.float()).abs()
                 if o.dtype == torch.int8:
                     flips = (d > 0).float().mean().item()
@@ -741,14 +778,19 @@ def kernel_phase(peaks):
                     + c * n * (1 if "int8" in mode else 2)
                     + (2 * c * n if r is not None else 0)
                     + (c * n if du else 0))
+            split = kernel_split_ms(run, 5, REQUANT_KERNELS.values())
             rows.append(dict(
                 name="conv3x3_int8_requant", c=c, h=h, w=w, n=n, mode=mode,
                 max_abs_err=err, ms=time_ms(run, 20),
+                gemm_ms=time_ms(gemm, 20),
+                **{f"{part}_dev_ms": (split[key] if split else None)
+                   for part, key in REQUANT_KERNELS.items()},
+                dev_ms=(sum(split.values()) if split else None),
                 plain_ms=time_ms(
                     lambda: run(k.conv3x3_int8_requant_plain), 3),
                 library_ms=lib_ms,
                 ops_ms=2 * macs / ops_int8 * 1e3, bytes_ms=byts / bw * 1e3))
-        del x, xq, wq, res
+        del x, xq, wq, res, slab
         torch.cuda.empty_cache()
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
@@ -899,10 +941,11 @@ def serving_phase(workdir):
     shapes = dict(conv3x3.launch_shapes)
 
     assert qp.n_quantized == 22, qp.n_quantized
-    assert set(launches) == {"conv3x3_bf16", "conv3x3_int8_requant"}, \
+    assert set(launches) == {"conv3x3_bf16"} | set(REQUANT_PER_BATCH), \
         launches
     assert launches.get("conv3x3_bf16") == 22 * n_calib, launches
-    assert launches.get("conv3x3_int8_requant") == 22 * n_serve, launches
+    for name, per in REQUANT_PER_BATCH.items():
+        assert launches.get(name) == per * n_serve, launches
     for a, b, r in zip(fl, ql, requests):
         assert a.shape == b.shape == (len(r), 10)
         assert np.isfinite(a).all() and np.isfinite(b).all()
@@ -1527,35 +1570,46 @@ def augment_summary(aug_rows, training):
 def kernel_summary(rows, serving):
     """One entry per conv kernel: the serving path's launches, and
     per-batch times (calibration batch for the bf16 conv, serving batch for
-    the int8 conv) summed over the (shape, mode) mix that path launched."""
-    per_batch = {"conv3x3_bf16": serving["n_calib"],
-                 "conv3x3_int8_requant": serving["n_serve"]}
+    the int8 conv's prepass and GEMM) summed over the (shape, mode) mix
+    that path launched. The int8 conv's ``ms`` is the op's (its two
+    launches), ``gemm_ms`` its GEMM's alone, ``*_dev_ms`` the device time
+    by part (torch.profiler)."""
+    names = ("conv3x3_bf16", "conv3x3_int8_requant.pre",
+             "conv3x3_int8_requant")
+    per_batch = {name: serving["n_serve"] for name in names}
+    per_batch["conv3x3_bf16"] = serving["n_calib"]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+            "bytes_ms", "gemm_ms", "pre_dev_ms", "gemm_dev_ms", "dev_ms")
     out = []
-    for name in ("conv3x3_bf16", "conv3x3_int8_requant"):
+    for name in names:
         mine = [r for r in rows if r["name"] == name]
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   ops_ms=0.0, bytes_ms=0.0)
+        mix = []
         for (kname, cin, cout, n, mode), count in serving["shapes"].items():
-            if kname != name:
-                continue
-            row = next(r for r in mine if r["c"] == cin and r["n"] == n
-                       and r["mode"] == mode)
-            for key in tot:
-                tot[key] += row[key] * count / per_batch[name]
+            if kname == name:
+                mix.append((next(r for r in mine if r["c"] == cin
+                                 and r["n"] == n and r["mode"] == mode),
+                            count / per_batch[name]))
+        # a key summed where every row of the mix has a number for it
+        tot = {key: sum(r[key] * cnt for r, cnt in mix) for key in keys
+               if all(r.get(key) is not None for r, _ in mix)}
         out.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES.get(name, SOURCE),
+            replaces=REPLACES[name],
             launches=serving["launches"].get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=tot["library_ms"],
+            library_ms=tot.get("library_ms"),
+            **{key: tot.get(key) for key in keys[6:] if key in mine[0]},
             per=("calibration batch" if name == "conv3x3_bf16"
                  else "serving batch") + f" of {BATCH}",
             stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by", "max_abs_err")}
+                                       "bound_by", "max_abs_err") + tuple(
+                                           key for key in keys[6:]
+                                           if key in r)}
                     for r in mine]))
     return out
 

@@ -8,7 +8,12 @@ so the tests compare like with like.
 - ``conv3x3_bf16``: bf16 in, f32 accumulate, bf16 out (the float
   calibration pass of int8 serving). Replaces ``conv3x3_lanes``.
 - ``conv3x3_int8_requant``: s8 x s8 -> s32 with the requantization
-  epilogue fused in. Replaces ``conv3x3_lanes_requant``.
+  epilogue fused in. Replaces ``conv3x3_lanes_requant``. Two launches on
+  the card (``csrc/requant_wgmma_s8.cuh``): ``conv3x3_int8_requant_pre``
+  lays x_q's codes into the fused int8 forward's padded position-major slab
+  (``requant_plan``), then ``conv3x3_int8_requant_gemm`` runs that
+  forward's TMA-fed s8 wgmma mainloop with a requantizing epilogue; any
+  image width and N (``check_requant_geometry``).
 - ``conv3x3_wgrad``: the weight gradient of the bf16 conv, dW [3, 3,
   Cin, Cout] (HWIO) = patches(x) @ dy^T in f32 (kernel in
   ``csrc/conv3x3_wgrad.cu`` on ``csrc/wgrad_wgmma_bf16.cuh``: TMA reads x
@@ -185,6 +190,69 @@ def conv3x3_int8_requant_plain(x_q, w_q, scale, shift, res=None, dual=None,
                             inv_out_scale=inv_out_scale)
 
 
+REQUANT_BM = 128  # M rows a tile (csrc/fwd_wgmma_s8.cuh BM)
+
+
+def check_requant_geometry(name: str, cin: int, cout: int, n: int, h: int,
+                           w_img: int) -> None:
+    """The int8 conv's own shape needs on the card: Cin a positive multiple
+    of 32 (32-byte K steps), whole images, and the slab's rows and the
+    grid's blocks within 32-bit indices; any Cout, any image width, any N
+    (each channel's run of lanes is written from its own 16-byte
+    alignment)."""
+    if cin < 32 or cin % 32:
+        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
+    if cout < 1:
+        raise ValueError(f"{name}: Cout={cout}")
+    if h < 1 or w_img < 1 or n < 1 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "whole images")
+    per_img = (h + 1) * (w_img + 1)
+    tiles = -(-(n // (h * w_img)) * per_img // REQUANT_BM)
+    if (tiles * REQUANT_BM + 2 * (w_img + 2) >= 2 ** 31
+            or tiles * -(-cout // 64) >= 2 ** 31):
+        raise ValueError(f"{name}: N={n} at H={h} W={w_img}, Cout={cout}: "
+                         f"{tiles} M tiles exceed 32-bit indices")
+
+
+def requant_plan(n: int, h: int, w_img: int, cin: int, cout: int):
+    """The int8 conv's slab layout and GEMM walk: the fused int8 forward's
+    (``fused_block.fused_fwd_int8_plan``: one byte a channel, every tap one
+    slab row offset, TMA boxes of 128, 64 and 32 bytes a tap, BN = 160
+    where Cout % 160 == 0, else 128 or 64). Cached there."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import (
+        fused_fwd_int8_plan,
+    )
+
+    return fused_fwd_int8_plan(n, h, w_img, cin, cout)
+
+
+def conv3x3_int8_requant_pre_plain(x_q, *, plan) -> torch.Tensor:
+    """Plain version of ``conv3x3_int8_requant_pre``: the slab
+    [slab_len, Cin] int8 of ``plan``'s layout, x_q's codes at each pixel's
+    position, zeros at every pad position."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import _to_slab
+
+    return _to_slab(x_q, plan.lay)
+
+
+def conv3x3_int8_requant_gemm_plain(slab, w_q, scale, shift, res=None,
+                                    dual=None, *, plan, relu: bool = False,
+                                    inv_out_scale: Optional[float] = None):
+    """Plain version of ``conv3x3_int8_requant_gemm``: the exact s32
+    contraction of each tap's shifted slab rows with its packed weights at
+    the live rows, then ``requant_epilogue``."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import (
+        _slab_conv_f64,
+    )
+
+    if dual is not None and inv_out_scale is not None:
+        raise ValueError("dual output requires the bf16-carrier mode")
+    acc = _slab_conv_f64(slab, w_q, plan.lay).to(torch.int32)
+    return requant_epilogue(acc, scale, shift, res, dual, relu=relu,
+                            inv_out_scale=inv_out_scale)
+
+
 def patches_f64(q: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
     """[C, T] whole images -> the 3x3 SAME patch matrix [9*C, T] in
     float64, rows in (dh, dw, c) order."""
@@ -227,10 +295,13 @@ def _library() -> ctypes.CDLL:
         lib.conv3x3_bf16_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
                                             _P]
         lib.conv3x3_bf16_launch.restype = _I
-        lib.conv3x3_int8_requant_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        lib.conv3x3_int8_requant_pre_launch.argtypes = [
+            _P, _P, _I, _I, _I, _I, ctypes.c_long, _P]
+        lib.conv3x3_int8_requant_pre_launch.restype = _I
+        lib.conv3x3_int8_requant_gemm_launch.argtypes = [
+            _P] * 9 + [_I] * 5 + [ctypes.c_long] + [_I] * 4 + [
             ctypes.c_float, _P]
-        lib.conv3x3_int8_requant_launch.restype = _I
+        lib.conv3x3_int8_requant_gemm_launch.restype = _I
         _lib = lib
     return _lib
 
@@ -266,6 +337,129 @@ def _requant_mode(res, dual, inv_out_scale) -> str:
     return mode
 
 
+REQUANT = "conv3x3_int8_requant"
+
+
+def _requant_operands(name, w_q, scale, shift, res, dual, lay):
+    """The GEMM's operands checked against the layout, as the kernel reads
+    them: (tensors, dtypes, scale, shift, res, sb, tb)."""
+    if tuple(w_q.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{name}: weights {tuple(w_q.shape)} vs Cin "
+                         f"{lay.cin}, Cout {lay.cout}")
+    f32 = torch.float32
+    scale = scale.to(f32).contiguous()
+    shift = shift.to(f32).contiguous()
+    tensors = [w_q, scale, shift]
+    dtypes = [torch.int8, f32, f32]
+    if tuple(scale.shape) != (lay.cout,) or tuple(shift.shape) != (
+            lay.cout,):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)}, shift "
+                         f"{tuple(shift.shape)} vs Cout {lay.cout}")
+    if res is not None:
+        res = res.to(torch.bfloat16).contiguous()
+        if tuple(res.shape) != (lay.cout, lay.n):
+            raise ValueError(f"{name}: res {tuple(res.shape)} vs "
+                             f"{(lay.cout, lay.n)}")
+        tensors.append(res)
+        dtypes.append(torch.bfloat16)
+    sb = tb = None
+    if dual is not None:
+        sb, tb = (v.to(f32).contiguous() for v in dual)
+        if tuple(sb.shape) != (lay.cout,) or tuple(tb.shape) != (lay.cout,):
+            raise ValueError(f"{name}: dual {tuple(sb.shape)}, "
+                             f"{tuple(tb.shape)} vs Cout {lay.cout}")
+        tensors += [sb, tb]
+        dtypes += [f32, f32]
+    return tensors, dtypes, scale, shift, res, sb, tb
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _pre_launch(x_q, lay) -> torch.Tensor:
+    """``conv3x3_int8_requant_pre``'s launch on an operand already
+    checked."""
+    name = f"{REQUANT}.pre"
+    slab = torch.empty((lay.slab_len, lay.cin), dtype=torch.int8,
+                       device=x_q.device)
+    check_rc(name, _library().conv3x3_int8_requant_pre_launch(
+        x_q.data_ptr(), slab.data_ptr(), lay.cin, lay.n, lay.h, lay.w,
+        lay.slab_len, _stream(x_q)))
+    launches[name] += 1
+    launch_shapes[(name, lay.cin, lay.cout, lay.n, "")] += 1
+    return slab
+
+
+def _gemm_launch(slab, w_q, scale, shift, res, sb, tb, plan, relu,
+                 inv_out_scale):
+    """``conv3x3_int8_requant_gemm``'s launch on operands already
+    checked."""
+    lay = plan.lay
+    out_int8 = inv_out_scale is not None
+    dev = slab.device
+    out = torch.empty((lay.cout, lay.n), device=dev,
+                      dtype=torch.int8 if out_int8 else torch.bfloat16)
+    out2 = (torch.empty((lay.cout, lay.n), dtype=torch.int8, device=dev)
+            if sb is not None else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    check_rc(REQUANT, _library().conv3x3_int8_requant_gemm_launch(
+        slab.data_ptr(), w_q.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        ptr(res), ptr(sb), ptr(tb), out.data_ptr(), ptr(out2), lay.cin,
+        lay.cout, lay.n, lay.h, lay.w, lay.slab_len, lay.tiles, plan.bn,
+        int(relu), int(out_int8),
+        float(inv_out_scale) if out_int8 else 0.0, _stream(slab)))
+    launches[REQUANT] += 1
+    mode = _requant_mode(res, None if sb is None else (sb, tb),
+                         inv_out_scale)
+    launch_shapes[(REQUANT, lay.cin, lay.cout, lay.n, mode)] += 1
+    return out if out2 is None else (out, out2)
+
+
+def conv3x3_int8_requant_pre(x_q, *, plan) -> torch.Tensor:
+    """The int8 conv's prepass: x_q [Cin, N] int8 copied, unchanged, into
+    the slab [slab_len, Cin] of ``plan``'s layout (``requant_plan``), each
+    pixel at its position, zeros at every pad position. One launch."""
+    lay = plan.lay
+    if tuple(x_q.shape) != (lay.cin, lay.n):
+        raise ValueError(f"{REQUANT}.pre: x_q {tuple(x_q.shape)} vs the "
+                         f"layout {lay}")
+    if on_cpu(x_q):
+        return conv3x3_int8_requant_pre_plain(x_q, plan=plan)
+    check_requant_geometry(f"{REQUANT}.pre", lay.cin, lay.cout, lay.n,
+                           lay.h, lay.w)
+    require_cuda(f"{REQUANT}.pre", [x_q], [torch.int8])
+    return _pre_launch(x_q, lay)
+
+
+def conv3x3_int8_requant_gemm(slab, w_q, scale, shift, res=None, dual=None,
+                              *, plan, relu: bool = False,
+                              inv_out_scale: Optional[float] = None):
+    """The int8 conv's GEMM from the slab of ``plan``'s layout: the exact
+    s32 contraction over (tap, channel) on s8 wgmma, then the
+    requantization epilogue (``requant_epilogue``) in registers, out (and
+    out2) written channel-major. One launch."""
+    lay = plan.lay
+    if dual is not None and inv_out_scale is not None:
+        raise ValueError("dual output requires the bf16-carrier mode")
+    if tuple(slab.shape) != (lay.slab_len, lay.cin):
+        raise ValueError(f"{REQUANT}: slab {tuple(slab.shape)} is not of "
+                         f"the layout {lay}")
+    if on_cpu(slab):
+        return conv3x3_int8_requant_gemm_plain(
+            slab, w_q, scale, shift, res, dual, plan=plan, relu=relu,
+            inv_out_scale=inv_out_scale)
+    check_requant_geometry(REQUANT, lay.cin, lay.cout, lay.n, lay.h, lay.w)
+    tensors, dtypes, scale, shift, res, sb, tb = _requant_operands(
+        REQUANT, w_q, scale, shift, res, dual, lay)
+    require_cuda(REQUANT, [slab] + tensors, [torch.int8] + dtypes)
+    return _gemm_launch(slab, w_q, scale, shift, res, sb, tb, plan, relu,
+                        inv_out_scale)
+
+
 def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
                          h: int, w_img: int, relu: bool = False,
                          inv_out_scale: Optional[float] = None):
@@ -278,7 +472,8 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
 
     x_q [Cin, N] int8, w_q [Cout, 9*Cin] int8, scale/shift [Cout] f32,
     res [Cout, N] (cast to bf16), inv_out_scale a Python float or None.
-    Returns out, or (out, out2) in dual mode (bf16-carrier mode only)."""
+    Returns out, or (out, out2) in dual mode (bf16-carrier mode only).
+    On the card: the prepass, then the GEMM (two launches)."""
     cin, cout, n = _shapes(x_q, w_q, h, w_img)
     if dual is not None and inv_out_scale is not None:
         raise ValueError("dual output requires the bf16-carrier mode")
@@ -286,47 +481,14 @@ def conv3x3_int8_requant(x_q, w_q, scale, shift, res=None, dual=None, *,
         return conv3x3_int8_requant_plain(
             x_q, w_q, scale, shift, res, dual, h=h, w_img=w_img, relu=relu,
             inv_out_scale=inv_out_scale)
-    name = "conv3x3_int8_requant"
-    if cin % 32:
-        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
-    f32 = torch.float32
-    scale = scale.to(f32).contiguous()
-    shift = shift.to(f32).contiguous()
-    tensors = [x_q, w_q, scale, shift]
-    dtypes = [torch.int8, torch.int8, f32, f32]
-    if res is not None:
-        res = res.to(torch.bfloat16).contiguous()
-        if tuple(res.shape) != (cout, n):
-            raise ValueError(f"{name}: res {tuple(res.shape)} vs "
-                             f"{(cout, n)}")
-        tensors.append(res)
-        dtypes.append(torch.bfloat16)
-    sb = tb = None
-    if dual is not None:
-        sb, tb = (v.to(f32).contiguous() for v in dual)
-        tensors += [sb, tb]
-        dtypes += [f32, f32]
-    require_cuda(name, tensors, dtypes)
-    out_int8 = inv_out_scale is not None
-    out = torch.empty((cout, n), device=x_q.device,
-                      dtype=torch.int8 if out_int8 else torch.bfloat16)
-    out2 = (torch.empty((cout, n), dtype=torch.int8, device=x_q.device)
-            if dual is not None else None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    rc = _library().conv3x3_int8_requant_launch(
-        x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        ptr(res), ptr(sb), ptr(tb), out.data_ptr(), ptr(out2), cin, cout, n,
-        h, w_img, int(relu), int(out_int8),
-        float(inv_out_scale) if out_int8 else 0.0, stream)
-    check_rc(name, rc)
-    launches[name] += 1
-    launch_shapes[(name, cin, cout, n,
-                   _requant_mode(res, dual, inv_out_scale))] += 1
-    return out if out2 is None else (out, out2)
+    check_requant_geometry(REQUANT, cin, cout, n, h, w_img)
+    plan = requant_plan(n, h, w_img, cin, cout)
+    tensors, dtypes, scale, shift, res, sb, tb = _requant_operands(
+        REQUANT, w_q, scale, shift, res, dual, plan.lay)
+    require_cuda(REQUANT, [x_q] + tensors, [torch.int8] + dtypes)
+    slab = _pre_launch(x_q, plan.lay)
+    return _gemm_launch(slab, w_q, scale, shift, res, sb, tb, plan, relu,
+                        inv_out_scale)
 
 
 # --- the weight gradient ------------------------------------------------------

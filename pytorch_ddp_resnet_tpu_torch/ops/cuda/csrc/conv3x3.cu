@@ -5,8 +5,11 @@
 // What they replace (pytorch_ddp_resnet_tpu/ops/pallas/conv.py):
 //   conv3x3_bf16_launch          <- conv3x3_lanes, body _conv_kernel
 //                                   (bf16 in, f32 accumulate, bf16 out; the
-//                                   float calibration pass of int8 serving)
-//   conv3x3_int8_requant_launch  <- conv3x3_lanes_requant, body
+//                                   float calibration pass of int8 serving
+//                                   and conv3x3_same's forward and dgrad)
+//   conv3x3_int8_requant_pre_launch,
+//   conv3x3_int8_requant_gemm_launch
+//                                <- conv3x3_lanes_requant, body
 //                                   _requant_kernel (s8 x s8 -> s32, then
 //                                   y = acc*scale + shift (+res), relu,
 //                                   int8 requantize or bf16 out, and the
@@ -20,13 +23,17 @@
 // its int8-out mode and by bytes once the bf16 residual, bf16 carrier and
 // dual int8 output are streamed (38 us of bytes vs 31 us of int8 ops).
 //
-// What the design does about it (the row-tile mainloop lives in
-// conv3x3_rows.cuh, shared with fused_block.cu): an implicit GEMM, out[Cout, N] =
+// The int8 conv (requant_wgmma_s8.cuh): a prepass lays x_q's codes into
+// the fused int8 forward's padded position-major slab (every tap one row
+// offset, any image width), then fwd_wgmma_s8.cuh's TMA-fed s8 wgmma
+// mainloop with a requantizing epilogue in registers, each channel's run
+// of lanes written in 16-byte vectors from its own lead (any N).
+//
+// The bf16 conv (the row-tile mainloop lives in conv3x3_rows.cuh, shared
+// with fused_block.cu's int8 dgrad): an implicit GEMM, out[Cout, N] =
 // W[Cout, 9*Cin] x patches[9*Cin, N], on the tensor cores (mma.sync, f32
-// or s32 accumulators in registers); the patch matrix is never written,
-// and the whole epilogue runs on the accumulator tile in shared memory, so
-// the s32 accumulator never reaches device memory (the round trip the TPU
-// kernel's fused epilogue also removes). Two tilings:
+// accumulators in registers); the patch matrix is never written, and the
+// epilogue runs on the accumulator tile in shared memory. Two tilings:
 //
 // - Row tiles (the WRN shapes: W % 8 == 0). A block owns 64 output
 //   channels x R whole image rows (64, 128 or 256 positions). For each
@@ -42,8 +49,8 @@
 //   element (WMMA 16x16x16 tiles). Measured far slower (PERF.md).
 //
 // The TPU kernel's 640-lane tap grouping and roll-and-mask patches are MXU
-// and VMEM choices and are not carried over. Not done yet (later work):
-// wgmma, TMA and a multi-stage shared-memory pipeline.
+// and VMEM choices and are not carried over. Not done yet for the bf16
+// conv (later work): wgmma, TMA and a multi-stage shared-memory pipeline.
 //
 // Rounding follows the JAX reference at its rounding points (requant.cuh).
 
@@ -53,7 +60,8 @@
 #include <stdint.h>
 
 #include "conv3x3_rows.cuh"
-#include "requant.cuh"
+#include "requant.cuh"           // PerElement (the bf16 conv's epilogue)
+#include "requant_wgmma_s8.cuh"  // the int8 conv's prepass and GEMM
 
 using namespace nvcuda;
 using namespace conv3x3;
@@ -91,7 +99,6 @@ template <typename T> __device__ __forceinline__ T zero_of();
 template <> __device__ __forceinline__ __nv_bfloat16 zero_of() {
   return __float2bfloat16_rn(0.f);
 }
-template <> __device__ __forceinline__ signed char zero_of() { return 0; }
 
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(THREADS)
@@ -212,19 +219,51 @@ int conv3x3_bf16_launch(const void* x, const void* w, void* out, int cin,
   return launch<__nv_bfloat16>(x, w, epi, cin, cout, n, h, wi, stream);
 }
 
-// x [cin, n] int8, w [cout, 9*cin] int8, scale/shift [cout] f32, res
-// [cout, n] bf16 or null, sb/tb [cout] f32 or null (dual mode: out2
-// [cout, n] int8), out [cout, n] int8 when out_int8 else bf16.
-int conv3x3_int8_requant_launch(const void* x, const void* w,
-                                const void* scale, const void* shift,
-                                const void* res, const void* sb,
-                                const void* tb, void* out, void* out2,
-                                int cin, int cout, int n, int h, int wi,
-                                int relu, int out_int8, float inv_out_scale,
-                                void* stream) {
-  const Requant epi = make_requant(scale, shift, res, sb, tb, out, out2,
-                                   relu, out_int8, inv_out_scale);
-  return launch<signed char>(x, w, epi, cin, cout, n, h, wi, stream);
+// The int8 conv's prepass: slab [slab_len, cin] int8 (fused_fwd_layout:
+// guard = wi + 2 zero positions, per image of h x wi a zero row and a zero
+// column, zeros to slab_len) from x [cin, n] int8; cin % 32 == 0, n a
+// multiple of h * wi. Returns the launch's cudaError_t.
+int conv3x3_int8_requant_pre_launch(const void* x, void* slab, int cin,
+                                    int n, int h, int wi, long slab_len,
+                                    void* stream) {
+  return static_cast<int>(requant_wgmma_s8::pre_launch(
+      x, slab, cin, n, h, wi, slab_len, static_cast<cudaStream_t>(stream)));
+}
+
+// The int8 conv's GEMM from the prepass's slab and w [cout, 9*cin] int8
+// (taps row-major in (dh, dw), then input channel): scale/shift [cout]
+// f32, res [cout, n] bf16 or null, sb/tb [cout] f32 or null (dual mode:
+// out2 [cout, n] int8), out [cout, n] int8 when out_int8 else bf16; on
+// `tiles` 128-row M tiles and bn-wide N tiles (160, 128 or 64).
+int conv3x3_int8_requant_gemm_launch(const void* slab, const void* w,
+                                     const void* scale, const void* shift,
+                                     const void* res, const void* sb,
+                                     const void* tb, void* out, void* out2,
+                                     int cin, int cout, int n, int h, int wi,
+                                     long slab_len, int tiles, int bn,
+                                     int relu, int out_int8,
+                                     float inv_out_scale, void* stream) {
+  if (h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  requant_wgmma_s8::Args args{};
+  args.scale = static_cast<const float*>(scale);
+  args.shift = static_cast<const float*>(shift);
+  args.res = static_cast<const __nv_bfloat16*>(res);
+  args.sb = static_cast<const float*>(sb);
+  args.tb = static_cast<const float*>(tb);
+  args.out = out;
+  args.out2 = static_cast<signed char*>(out2);
+  args.cin = cin;
+  args.cout = cout;
+  args.n = n;
+  args.b = n / (h * wi);
+  args.h = h;
+  args.wi = wi;
+  args.relu = relu;
+  args.out_int8 = out_int8;
+  args.inv_out_scale = inv_out_scale;
+  return static_cast<int>(requant_wgmma_s8::launch(
+      slab, w, args, slab_len, tiles, bn, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

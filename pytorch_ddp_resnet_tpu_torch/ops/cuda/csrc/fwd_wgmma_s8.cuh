@@ -69,6 +69,10 @@
 //   runs): y is bit-equal to the plain version and its sums the same bit
 //   for bit every run.
 //
+// The mainloop (mainloop<BN, REM>, with tap_rows and encode_maps on the
+// host) is shared with the int8 serving conv, requant_wgmma_s8.cuh, which
+// runs it on the same slab layout with a requantizing epilogue.
+//
 // Left for later: persistent blocks, clusters and TMA multicast of the A
 // boxes across the N tiles of one M tile, the pad rows (6.3% at 32x32).
 
@@ -239,16 +243,18 @@ __device__ __forceinline__ void step_at(int k, int n128, int& t, int& o,
   sel = j < n128 ? 0 : ((REM & 64) && j == n128 ? 1 : 2);
 }
 
-// Thread 0 starts step k's two TMA loads into its slot.
+// Thread 0 starts step k's two TMA loads into its slot (shift[t]: the
+// slab row of tap t for M row 0).
 template <int BN, int A_BYTES, int REM>
-__device__ __forceinline__ void issue(const Maps& mp, const Args& p, int k,
-                                      int n128, uint32_t st, uint32_t bar,
-                                      int m0, int n0) {
+__device__ __forceinline__ void issue(const Maps& mp, int cin,
+                                      const int (&shift)[9], int k, int n128,
+                                      uint32_t st, uint32_t bar, int m0,
+                                      int n0) {
   int t, o, sel;
   step_at<REM>(k, n128, t, o, sel);
   mbar_arrive_tx(bar, (BM + BN) * (BK >> sel));
-  tma_load_2d(st, &mp.a[sel], bar, o, m0 + p.shift[t]);
-  tma_load_2d(st + A_BYTES, &mp.b[sel], bar, t * p.cin + o, n0);
+  tma_load_2d(st, &mp.a[sel], bar, o, m0 + shift[t]);
+  tma_load_2d(st + A_BYTES, &mp.b[sel], bar, t * cin + o, n0);
 }
 
 // One K step of W bytes (W / 32 k32 wgmmas in the W-byte swizzle): wait
@@ -261,8 +267,9 @@ template <int BN, int W, int S, int STAGE_BYTES, int A_BYTES, int REM>
 __device__ __forceinline__ void k_step(int (&acc)[BN / 2], int& i,
                                        int steps, int n128, uint32_t ring,
                                        uint32_t full, uint32_t empty,
-                                       const Maps& mp, const Args& p,
-                                       int m0, int n0) {
+                                       const Maps& mp, int cin,
+                                       const int (&shift)[9], int m0,
+                                       int n0) {
   constexpr int SEL = W == 128 ? 0 : (W == 64 ? 1 : 2);
   const int s = i % S;
   mbar_wait(full + 8 * s, (i / S) & 1);
@@ -280,11 +287,62 @@ __device__ __forceinline__ void k_step(int (&acc)[BN / 2], int& i,
     mbar_arrive(empty + 8 * sj);
     if (threadIdx.x == 0 && j + S < steps) {
       mbar_wait(empty + 8 * sj, (j / S) & 1);  // both warpgroups' too
-      issue<BN, A_BYTES, REM>(mp, p, j + S, n128, ring + sj * STAGE_BYTES,
-                              full + 8 * sj, m0, n0);
+      issue<BN, A_BYTES, REM>(mp, cin, shift, j + S, n128,
+                              ring + sj * STAGE_BYTES, full + 8 * sj, m0,
+                              n0);
     }
   }
   ++i;
+}
+
+// acc = the products of M tile m0 (128 slab rows from m0) and the BN
+// weight rows from n0 over every K step of a tap's boxes (REM = Cin % 128
+// names the tap's last boxes; shift[t], the slab row of tap t for M row
+// 0): the mbarriers set up at ring + RING, thread 0 starting the first
+// STAGES steps' loads, then k_step after k_step. Returns with every wgmma
+// of both warpgroups retired and every thread past its last read of the
+// ring, which the epilogue may then reuse.
+template <int BN, int REM>
+__device__ __forceinline__ void mainloop(const Maps& mp, int cin,
+                                         const int (&shift)[9],
+                                         uint32_t ring, int m0, int n0,
+                                         int (&acc)[BN / 2]) {
+  using T = Tile<BN>;
+  constexpr int S = T::STAGES;
+  const uint32_t full = ring + T::RING, empty = full + 8 * S;
+  const int n128 = cin / BK;
+  const int steps = 9 * (n128 + ((REM & 64) != 0) + ((REM & 32) != 0));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < S && k < steps; ++k)
+      issue<BN, T::A_BYTES, REM>(mp, cin, shift, k, n128,
+                                 ring + k * T::STAGE_BYTES, full + 8 * k, m0,
+                                 n0);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) acc[i] = 0;
+  int i = 0;
+  for (int t = 0; t < 9; ++t) {
+    for (int j = 0; j < n128; ++j)
+      k_step<BN, 128, S, T::STAGE_BYTES, T::A_BYTES, REM>(
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+    if constexpr ((REM & 64) != 0)
+      k_step<BN, 64, S, T::STAGE_BYTES, T::A_BYTES, REM>(
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+    if constexpr ((REM & 32) != 0)
+      k_step<BN, 32, S, T::STAGE_BYTES, T::A_BYTES, REM>(
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  __syncthreads();  // every wgmma of both warpgroups retired: the ring is free
 }
 
 // Grid (ceil(cout / BN), tiles): block (x, y) computes output channels [x *
@@ -296,49 +354,15 @@ __global__ void __launch_bounds__(THREADS, 2)
     fwd_s8_kernel(const __grid_constant__ Maps mp,
                   const __grid_constant__ Args p) {
   using T = Tile<BN>;
-  constexpr int S = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
   unsigned char* ring_p = smem_raw + pad;
   const uint32_t ring = raw + pad;
-  const uint32_t full = ring + T::RING, empty = full + 8 * S;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int n128 = p.cin / BK;
-  const int steps =
-      9 * (n128 + ((REM & 64) != 0) + ((REM & 32) != 0));
-
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, THREADS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int k = 0; k < S && k < steps; ++k)
-      issue<BN, T::A_BYTES, REM>(mp, p, k, n128, ring + k * T::STAGE_BYTES,
-                                 full + 8 * k, m0, n0);
-  }
-  __syncthreads();
-
   int acc[T::NACC];
-#pragma unroll
-  for (int i = 0; i < T::NACC; ++i) acc[i] = 0;
-  int i = 0;
-  for (int t = 0; t < 9; ++t) {
-    for (int j = 0; j < n128; ++j)
-      k_step<BN, 128, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, p, m0, n0);
-    if constexpr ((REM & 64) != 0)
-      k_step<BN, 64, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, p, m0, n0);
-    if constexpr ((REM & 32) != 0)
-      k_step<BN, 32, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, p, m0, n0);
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  __syncthreads();  // every wgmma of both warpgroups retired: the ring is free
+  mainloop<BN, REM>(mp, p.cin, p.shift, ring, m0, n0, acc);
 
   // this tile's run of lanes [lane0, lane0 + count) (its residual's
   // vectors start on their way to res_s), each row's place in it or -1 (a
@@ -465,6 +489,30 @@ inline bool encode(CUtensorMap* map, const void* t, long rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Slab row of tap t for M row 0 (guard = wi + 2): one row offset for every
+// M row, image and width.
+inline void tap_rows(int (&shift)[9], int wi) {
+  for (int t = 0; t < 9; ++t)
+    shift[t] = wi + 2 + (t / 3 - 1) * (wi + 1) + t % 3 - 1;
+}
+
+// The maps of one launch over the slab [slab_len][cin] and the weights
+// [cout][9 * cin] in boxes of BM and bn rows: only the widths the K steps
+// take (a box wider than the channels is never encoded); the others stay
+// zero and are never read. False where the encoder is missing or refuses.
+inline bool encode_maps(Maps* mp, const void* slab, long slab_len,
+                        const void* w, int cin, int cout, int bn) {
+  *mp = Maps{};
+  for (int sel = 0; sel < 3; ++sel) {
+    const int wd = BK >> sel;
+    const bool used = sel == 0 ? cin >= BK : ((cin % BK) & wd) != 0;
+    if (used && (!encode(&mp->a[sel], slab, slab_len, cin, BM, wd) ||
+                 !encode(&mp->b[sel], w, cout, 9 * cin, bn, wd)))
+      return false;
+  }
+  return true;
+}
+
 // y [cout][n] bf16 (+ res), part [tiles][2 * cout] f32 or null, from the
 // slab [slab_len][cin] int8 of fused_fwd_layout (guard, h x wi images) and
 // w [cout][9 * cin] int8 (packed), amax [n / lanes], ws [cout] f32, on
@@ -478,18 +526,10 @@ inline cudaError_t launch(const void* slab, const void* w, const Args& args,
       tiles > 65535 || guard != p.wi + 2 ||
       slab_len < 2L * guard + (long)tiles * BM)
     return cudaErrorInvalidValue;
-  for (int t = 0; t < 9; ++t)
-    p.shift[t] = guard + (t / 3 - 1) * (p.wi + 1) + t % 3 - 1;
-  // only the widths the K steps take (a box wider than the channels is
-  // never encoded); the others stay zero and are never read
-  Maps mp = {};
-  for (int sel = 0; sel < 3; ++sel) {
-    const int wd = BK >> sel;
-    const bool used = sel == 0 ? p.cin >= BK : ((p.cin % BK) & wd) != 0;
-    if (used && (!encode(&mp.a[sel], slab, slab_len, p.cin, BM, wd) ||
-                 !encode(&mp.b[sel], w, p.cout, 9 * p.cin, bn, wd)))
-      return cudaErrorInvalidValue;
-  }
+  tap_rows(p.shift, p.wi);
+  Maps mp;
+  if (!encode_maps(&mp, slab, slab_len, w, p.cin, p.cout, bn))
+    return cudaErrorInvalidValue;
   if (bn == 160) return launch_tile<160>(mp, p, tiles, stream);
   if (bn == 128) return launch_tile<128>(mp, p, tiles, stream);
   if (bn == 64) return launch_tile<64>(mp, p, tiles, stream);

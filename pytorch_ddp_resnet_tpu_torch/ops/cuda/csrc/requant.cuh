@@ -1,5 +1,6 @@
 // The requantization epilogue of the int8 convolutions, one output element
-// from its s32 accumulator, shared by conv3x3.cu (serving) and conv1x1.cu:
+// from its s32 accumulator, shared by conv3x3.cu's serving conv (its GEMM's
+// epilogue in requant_wgmma_s8.cuh) and conv1x1.cu:
 //
 //   y = acc * scale[co] + shift[co] (+ res)
 //   if relu: y = max(y, 0)
@@ -11,7 +12,8 @@
 // tests/test_torch_conv3x3.py): acc * scale + shift and y * sb + tb are
 // each one fused multiply-add (__fmaf_rn), the residual add and the output
 // scaling round on their own (__fadd_rn, __fmul_rn), rint rounds half to
-// even as jnp.round, and s32 -> f32 rounds to nearest.
+// even as jnp.round, and s32 -> f32 rounds to nearest. requant_y,
+// requant_q and requant_dual are the one copy of those rounding points.
 
 #pragma once
 
@@ -21,6 +23,28 @@
 #include "conv3x3_rows.cuh"
 
 namespace conv3x3 {
+
+// y = acc * scale + shift (one fma) (+ res, f32 of the bf16 residual: its
+// own rounding), then relu
+__device__ __forceinline__ float requant_y(int acc, float scale, float shift,
+                                           bool has_res, float res,
+                                           bool relu) {
+  float y = __fmaf_rn(__int2float_rn(acc), scale, shift);
+  if (has_res) y = __fadd_rn(y, res);
+  return relu ? fmaxf(y, 0.f) : y;
+}
+
+// the int8 output: s8(clip(rint(y * inv_out_scale)))
+__device__ __forceinline__ signed char requant_q(float y,
+                                                 float inv_out_scale) {
+  return quant_s8(__fmul_rn(y, inv_out_scale));
+}
+
+// the dual output: s8(clip(rint(max(y * sb + tb, 0)))) (one fma)
+__device__ __forceinline__ signed char requant_dual(float y, float sb,
+                                                   float tb) {
+  return quant_s8(fmaxf(__fmaf_rn(y, sb, tb), 0.f));
+}
 
 // The tile epilogue (conv3x3_rows.cuh ``epilogue``) of a per-element
 // functor.
@@ -48,17 +72,15 @@ struct Requant : PerElement<Requant> {
 
   __device__ __forceinline__ void operator()(int acc, int co,
                                              size_t idx) const {
-    float y = __fmaf_rn(__int2float_rn(acc), scale[co], shift[co]);
-    if (res != nullptr) y = __fadd_rn(y, __bfloat162float(res[idx]));
-    if (relu) y = fmaxf(y, 0.f);
+    const float y = requant_y(
+        acc, scale[co], shift[co], res != nullptr,
+        res != nullptr ? __bfloat162float(res[idx]) : 0.f, relu);
     if (out_int8) {
-      static_cast<signed char*>(out)[idx] =
-          quant_s8(__fmul_rn(y, inv_out_scale));
+      static_cast<signed char*>(out)[idx] = requant_q(y, inv_out_scale);
     } else {
       static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
     }
-    if (out2 != nullptr)
-      out2[idx] = quant_s8(fmaxf(__fmaf_rn(y, sb[co], tb[co]), 0.f));
+    if (out2 != nullptr) out2[idx] = requant_dual(y, sb[co], tb[co]);
   }
 };
 

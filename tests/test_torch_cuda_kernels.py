@@ -124,13 +124,21 @@ def test_requant_kernel_matches_plain(dev, cin, cout, h, w, b, mode):
         args.append((vec(30.0).to(dev), vec(3.0).to(dev)))
     if mode == "int8":
         kw["inv_out_scale"] = 1.0 / 0.05
-    before = k.launches["conv3x3_int8_requant"]
+    names = ("conv3x3_int8_requant.pre", "conv3x3_int8_requant")
+    before = [k.launches[name] for name in names]
     got = k.conv3x3_int8_requant(*args, **kw)
     ref = k.conv3x3_int8_requant_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert k.launches["conv3x3_int8_requant"] == before + 1
+    assert [k.launches[name] for name in names] == [v + 1 for v in before]
+    _requant_outputs_agree(got, ref)
+
+
+def _requant_outputs_agree(got, ref):
+    """int8 outputs within one level on at most 1e-3 of elements (the
+    plain version's float64 double roundings), bf16 outputs equal."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         d = (g.float() - r.float()).abs()
@@ -139,6 +147,50 @@ def test_requant_kernel_matches_plain(dev, cin, cout, h, w, b, mode):
             assert (d > 0).float().mean().item() <= 1e-3
         else:
             assert torch.equal(g, r), d.max().item()
+
+
+# (Cin, Cout, H, W, batch): the WRN-28-10 stages at small batches, and
+# widths whose channel rows start off 16 bytes (N = 108, 105) with a Cout
+# that is not a multiple of 8 or of the N tile
+PARTS_SHAPES = [(160, 160, 32, 32, 2), (320, 320, 16, 16, 4),
+                (640, 640, 8, 8, 8), (32, 64, 6, 6, 3), (64, 36, 5, 7, 3)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", PARTS_SHAPES)
+@pytest.mark.parametrize("mode", ["int8", "bf16", "bf16+res", "dual"])
+def test_conv3x3_int8_wgmma_parts_match_plain(dev, cin, cout, h, w, b, mode):
+    """The prepass's slab equals its plain version byte for byte; the
+    GEMM's outputs equal ``conv3x3_int8_requant_gemm_plain``'s on that slab
+    (int8 within one level on <= 1e-3 of elements, bf16 equal); two calls
+    of the op are bit-equal."""
+    xq, wq, _, _, vec, res = _inputs(cin, cout, h, w, b, seed=2)
+    xq, wq = xq.to(dev), wq.to(dev)
+    n = b * h * w
+    plan = k.requant_plan(n, h, w, cin, cout)
+    args = [wq, (vec(1.0).abs() * 1e-5).to(dev), vec(0.5).to(dev)]
+    kw = dict(relu=mode != "bf16")
+    if mode in ("bf16+res", "dual"):
+        args.append(res.to(dev, torch.bfloat16))
+    if mode == "dual":
+        args.append((vec(30.0).to(dev), vec(3.0).to(dev)))
+    if mode == "int8":
+        kw["inv_out_scale"] = 1.0 / 0.05
+    slab = k.conv3x3_int8_requant_pre(xq, plan=plan)
+    assert torch.equal(slab, k.conv3x3_int8_requant_pre_plain(xq,
+                                                              plan=plan))
+    got = k.conv3x3_int8_requant_gemm(slab, *args, plan=plan, **kw)
+    _requant_outputs_agree(got, k.conv3x3_int8_requant_gemm_plain(
+        slab, *args, plan=plan, **kw))
+    first = k.conv3x3_int8_requant(xq, *args, h=h, w_img=w, **kw)
+    second = k.conv3x3_int8_requant(xq, *args, h=h, w_img=w, **kw)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    got = got if isinstance(got, tuple) else (got,)
+    for a, c in zip(first, got):
+        assert torch.equal(a, c)
 
 
 def test_cuda_tensor_never_falls_back(dev):
