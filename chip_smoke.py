@@ -190,7 +190,14 @@ Phases, each fatal on failure:
    (the activation's codes as four parity planes) and the
    straight-through fold (the rounded cotangent, the bf16 prologue's four
    parity planes and, from both, x's even-even plane); the dgrad of both
-   bodies; the FQT wgrad on the TMA + s8 wgmma mainloop of
+   bodies (its prepass writing g, and dres where a projection runs, once
+   into the fused forward's padded slab at the output geometry, then each
+   parity class of input pixel a tap range on csrc/fwd_wgmma_s8.cuh's
+   TMA-fed s8 wgmma mainloop or csrc/fwd_wgmma_bf16.cuh's bf16 one, both
+   column classes of a row parity in one block, the projection's shortcut
+   on the bf16 mainloop, a masking epilogue in whole runs of input lanes,
+   then the tiles' sum: bit-equal over two calls, the prepass byte for
+   byte, its three parts apart in device time); the FQT wgrad on the TMA + s8 wgmma mainloop of
    csrc/wgrad_wgmma_s8.cuh (csrc/transition_wgrad.cu: one launch, each
    tap a parity plane moved by a shifter warpgroup, the scale groups
    folded in order in each tile); the straight-through wgrad and dWp
@@ -502,12 +509,14 @@ FQT_PER_STEP = {
 # launches of one lane-transition step: the 22 halves as above, plus the
 # two transition halves (each one forward: its amax pass, prepass, staged
 # mainloop and ordered sum; one backward fold or quantizer, dgrad, wgrad
-# and dWp, with their ordered sums: the FQT wgrad on the TMA + s8 wgmma
+# and dWp, with their ordered sums: the dgrad's prepass into its slabs,
+# its wgmma GEMM and its tiles' sum; the FQT wgrad on the TMA + s8 wgmma
 # kernel, one launch and no sum; the straight-through one and dWp on the
 # TMA wgrad)
 _TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
             "transition_fwd": 2, "transition_fwd.sum": 2,
-            "transition_dgrad": 2, "transition_dgrad.sum": 2,
+            "transition_dgrad.pre": 2, "transition_dgrad": 2,
+            "transition_dgrad.sum": 2,
             "transition_wgrad_tma.proj": 2,
             "transition_wgrad_tma.proj_sum": 2}
 LANE_FQT_PER_STEP = {
@@ -593,25 +602,35 @@ def _cuda_events(prof):
             if e.device_type.name == "CUDA" and _dev_us(e) > 0]
 
 
-def kernel_split_ms(fn, reps: int, keys):
+def kernel_split_ms(fn, reps: int, keys, need=(), tries: int = 3):
     """Device time per call of ``fn`` by kernel: {key: ms} summed over the
     kernels whose name holds ``key`` (torch.profiler, ``reps`` calls after
-    one warm-up call); None when the profiler reports no device time."""
+    one warm-up call). The profiler can lose a kernel's events in a
+    window, so a window with no device time, or none for a key of ``need``
+    (kernels that every call launches), is profiled again, up to ``tries``
+    windows. None when the profiler reports no device time, or still
+    misses a kernel of ``need``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {key: 0.0 for key in keys}
-    for e in _cuda_events(prof):
-        for key in keys:
-            if key in e.key:
-                out[key] += _dev_us(e) / 1e3 / reps
-    return out if any(out.values()) else None
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {key: 0.0 for key in keys}
+        for e in _cuda_events(prof):
+            for key in keys:
+                if key in e.key:
+                    out[key] += _dev_us(e) / 1e3 / reps
+        if any(out.values()) and all(out[key] > 0 for key in need):
+            return out
+        missing = [key for key in need if not out[key]] or "any kernel"
+        print(f"kernel_split_ms: profiler window {attempt} of {tries} held "
+              f"no device time for {missing}", file=sys.stderr)
+    return None
 
 
 def device_ms(fn, reps: int):
@@ -778,7 +797,8 @@ def kernel_phase(peaks):
                     + c * n * (1 if "int8" in mode else 2)
                     + (2 * c * n if r is not None else 0)
                     + (c * n if du else 0))
-            split = kernel_split_ms(run, 5, REQUANT_KERNELS.values())
+            split = kernel_split_ms(run, 5, REQUANT_KERNELS.values(),
+                                    need=REQUANT_KERNELS.values())
             rows.append(dict(
                 name="conv3x3_int8_requant", c=c, h=h, w=w, n=n, mode=mode,
                 max_abs_err=err, ms=time_ms(run, 20),
@@ -1000,12 +1020,13 @@ KERNEL_KINDS = [
     # the lane transition's TMA wgrads (the bf16 one shares
     # conv3x3_same's mainloop): their instantiations and the sum carry the
     # transition's tag
-    ("transition (port)", ("TransitionWgrad",)),
+    ("transition (port)", ("TransitionWgrad", "TransitionDgradSum")),
     ("conv3x3_same wgrad (port)", ("wgrad_tma_kernel", "WgradTmaSum")),
     ("fused bf16 half (port)", ("fused_fwd_", "fused_dgrad_",
                                 "FusedDgrad", "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
-                           "dgrad_kernel<", "bwd_amax_kernel",
+                           "dgrad_kernel<", "dgrad_pre_kernel",
+                           "bwd_amax_kernel",
                            "bwd_quant_kernel", "bwd_fold_kernel")),
     ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
                                 "quant_kernel", "FusedWgradS8",
@@ -1231,7 +1252,8 @@ def _fused_fwd_int8_parts(fb, args, thresh, tile, h, w, stats, peaks):
     slab_b = plan.lay.slab_len * c
     split = kernel_split_ms(
         lambda: fb.fwd_int8(x, wq, ws, scale, shift, bits, res, **kw), 5,
-        FWD_INT8_KERNELS.values())
+        FWD_INT8_KERNELS.values(),
+        need=[FWD_INT8_KERNELS[k] for k in ("amax", "prepass", "gemm")])
     return dict(
         deterministic=True, bn=plan.bn, tiles=plan.lay.tiles,
         boxes=[b[1] for b in plan.boxes],
@@ -2253,6 +2275,8 @@ TR_WGRAD_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
 # FQT wgrad's; the TMA wgrad's, shared with conv3x3_same's wgrad
 TR_MAINLOOP = {"transition_fwd":
                "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
+               "transition_dgrad":
+               "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
                "transition_wgrad_s8":
                "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_wgmma_s8.cuh",
                "transition_wgrad_tma": SAME_SOURCE}
@@ -2325,6 +2349,61 @@ def cudnn_s2_times(g, cin, cout, h, w, batch=BATCH):
                                              padding=1), 10),
         wgrad1=time_ms(lambda: conv2d_weight(x4, wp4.shape, dy4, stride=2),
                        10))
+
+
+def dgrad_parts(tr, dargs, tol, quant, thresh, tile, h, w, bw):
+    """The transition dgrad's parts on its layout: dx and the sums
+    bit-equal over two calls; the prepass (g and, with a projection, dres
+    into their slabs) byte for byte and the GEMM + sum against their plain
+    versions, each timed beside its plain version and bound; the dgrad's
+    device time split by kernel (prepass, GEMM, sum) and the GEMM's
+    TOP/s."""
+    import torch
+
+    g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt = dargs
+    kw = dict(thresh=thresh, tile=tile, h=h, w_img=w)
+    first, second = tr.dgrad(*dargs, **kw), tr.dgrad(*dargs, **kw)
+    for k, a, b_ in zip(("dx", "ds", "dt"), first, second):
+        assert torch.equal(a, b_), ("transition_dgrad", k)
+    cin, n = x.shape
+    cout, n_out = g.shape
+    lay = tr.transition_dgrad_layout(n, h, w, cin, cout, tile, quant)
+    d_in = dres if wpt is not None else None
+    slabs = tr.dgrad_pre(g, d_in, lay)
+    want = tr.dgrad_pre_plain(g, d_in, lay)
+    for a, b_ in zip(slabs, want):
+        assert (a is None and b_ is None) or torch.equal(a, b_), (
+            "transition_dgrad.pre", quant)
+    gargs = (*slabs, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt)
+    _agree_tr(dict(zip(("dx", "ds", "dt"), tr.dgrad_gemm(
+        *gargs, thresh=thresh, lay=lay))), dict(zip(
+            ("dx", "ds", "dt"), tr.dgrad_gemm_plain(
+                *gargs, thresh=thresh, lay=lay))), tol,
+        ("transition_dgrad gemm", quant))
+    el = g.element_size()
+    out = dict(
+        pre_ms=time_ms(lambda: tr.dgrad_pre(g, d_in, lay), 10),
+        pre_plain_ms=time_ms(lambda: tr.dgrad_pre_plain(g, d_in, lay), 1),
+        # g (and dres) read, their live slab rows written
+        pre_bound_ms=2 * (el + (2 if d_in is not None else 0)) * cout
+        * n_out / bw * 1e3,
+        gemm_ms=time_ms(lambda: tr.dgrad_gemm(*gargs, thresh=thresh,
+                                              lay=lay), 10),
+        gemm_plain_ms=time_ms(lambda: tr.dgrad_gemm_plain(
+            *gargs, thresh=thresh, lay=lay), 1),
+        tiles=lay.tiles, cp=lay.cp,
+        dev_ms=device_ms(lambda: tr.dgrad(*dargs, **kw), 10))
+    parts = ("dgrad_pre_kernel", "dgrad_kernel<", "TransitionDgradSum")
+    split = kernel_split_ms(lambda: tr.dgrad(*dargs, **kw), 10, parts,
+                            need=parts)
+    if split:
+        out.update(pre_dev_ms=split["dgrad_pre_kernel"],
+                   gemm_dev_ms=split["dgrad_kernel<"],
+                   sum_dev_ms=split["TransitionDgradSum"])
+        out["gemm_tops"] = (2 * (9 + (wpt is not None)) * cin * cout
+                            * n_out / out["gemm_dev_ms"] / 1e9)
+    del first, second, slabs, want
+    return out
 
 
 def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
@@ -2520,19 +2599,22 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                     ("qat", (gb, None, wdb, None), 2 * macs / flops_bf16,
                      2 * cout * n_out + 18 * cin * cout)):
                 dargs = (*args, *scb, dres, wpt_)
+                dtol = dict(dx="ulp", ds=1e-5 if body == "fqt" else 1e-4,
+                            dt=1e-5 if body == "fqt" else 1e-4)
                 add("transition_dgrad", body + sfx,
                     lambda dargs=dargs: dict(zip(("dx", "ds", "dt"), tr.dgrad(
                         *dargs, thresh=thresh, tile=tile, **kw))),
                     lambda dargs=dargs: dict(zip(
                         ("dx", "ds", "dt"), tr.dgrad_plain(
                             *dargs, thresh=thresh, tile=tile, **kw))),
-                    dict(dx="ulp", ds=1e-5 if body == "fqt" else 1e-4,
-                         dt=1e-5 if body == "fqt" else 1e-4),
-                    lib["dgrad"] if not opt_a else None,
+                    dtol, lib["dgrad"] if not opt_a else None,
                     gbytes + 5 * cin * n + 2 * cout * n_out
                     + (2 * cin * cout if wpt_ is not None else 0),
                     (ops_ms + (2 * pmacs / flops_bf16 if wpt_ is not None
                                else 0)) * 1e3)
+                rows[-1].update(dgrad_parts(
+                    tr, dargs, dtol, body == "fqt", thresh, tile, h, w,
+                    bw))
             if opt_a:
                 continue
             # the FQT dW on the TMA + s8 wgmma wgrad: one launch, equal to
@@ -2802,6 +2884,21 @@ def transition_summary(rows, lane_fqt, lane_qat):
             out[-1].update(dev_ms=sum(r["dev_ms"] or 0.0 for r in step),
                            tops=[r["tops"] for r in step],
                            plans=[r["plan"] for r in step])
+        if name == "transition_dgrad":   # its parts, in device time
+            out[-1].update(
+                **{k: sum(r.get(k) or 0.0 for r in step) for k in (
+                    "dev_ms", "pre_dev_ms", "gemm_dev_ms", "sum_dev_ms",
+                    "pre_ms", "pre_bound_ms", "gemm_ms")},
+                qat_step={k: sum(r.get(k) or 0.0 for r in mine
+                                 if r["mode"] == "qat+proj")
+                          for k in ("ms", "dev_ms", "library_ms",
+                                    "bound_ms")},
+                gemm_tops=[r.get("gemm_tops") for r in mine],
+                part_launches={label: {k: run["launches"].get(k, 0) for k in (
+                    "transition_dgrad.pre", "transition_dgrad",
+                    "transition_dgrad.sum")}
+                    for label, run in (("lane_fqt", lane_fqt),
+                                       ("lane_qat", lane_qat))})
         if name == "transition_fwd":   # its parts
             out[-1].update(
                 **{k: sum(r[k] for r in step) for k in PART_KEYS},

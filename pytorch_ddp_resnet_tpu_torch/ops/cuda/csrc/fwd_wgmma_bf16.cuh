@@ -48,6 +48,11 @@
 // part[tile] (fwd_staged_s8.cuh's sums_cm); partial_sum adds the tiles in
 // order, so y and its sums are the same bit for bit every run.
 //
+// The mainloop walks a range of taps (TapWalk): the nine of the 3x3 conv
+// here and in dgrad_wgmma_bf16.cuh; in the lane transition's
+// straight-through dgrad (transition.cu) one parity class's taps of the
+// plane-major weights at BN = 80, and its projection's one unshifted tap.
+//
 // Left for later: TMA and an mbarrier producer warp, persistent blocks,
 // clusters; the pad rows (6.3% at 32x32 images) and the slab's bytes
 // (written once, read back).
@@ -79,18 +84,19 @@ static_assert(BM == fwd_staged_s8::BM, "the staged tile's rows");
 // One BN-wide tile's shared memory: a ring of STAGES steps of A (BM rows)
 // then B (BN rows), 128 bytes a row; after the mainloop the staged bf16
 // tile [BN][CM_OS] and each row's place in the run (at[]) reuse it. Each
-// thread copies piece tid % 8 of rows tid / 8 + 32 i: PA of A, PB of B.
+// thread copies piece tid % 8 of rows tid / 8 + 32 i: PA of A, PB of B
+// (the last of B only up to row BN: 80 is the transition dgrad's width).
 template <int BN>
 struct Tile {
   static constexpr int A_BYTES = BM * BK;
   static constexpr int STAGE_BYTES = (BM + BN) * BK;
   static constexpr int RING = STAGES * STAGE_BYTES;
   static constexpr int PA = BM / 32;
-  static constexpr int PB = BN / 32;
+  static constexpr int PB = (BN + 31) / 32;
   static constexpr int NACC = BN / 2;  // f32 accumulators a thread
   static constexpr int AT_OFF = BN * CM_OS * 2;
   static constexpr int SMEM = RING + ALIGN;  // room to align the ring
-  static_assert(BN % 32 == 0 && BN <= 256, "BN");
+  static_assert(BN % 16 == 0 && BN <= 256, "BN");
   static_assert(AT_OFF + BM * 4 <= RING, "the epilogue fits in the ring");
   static_assert(SMEM <= wgrad_staged::SMEM_PER_BLOCK, "two blocks an SM");
 };
@@ -161,6 +167,28 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<80>(float (&d)[40], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -246,26 +274,49 @@ __device__ __forceinline__ int live_before(const Args& p, int m) {
   return live_before(m, p.b, p.h, p.wi, p.n);
 }
 
-// acc += the tile's products over every K step (see the head of the file);
-// returns with every copy landed, every wgmma retired and every warp past
-// its last read of the ring.
-template <int BN>
-__device__ __forceinline__ void mainloop(const Args& p, uint32_t ring,
-                                         int m0, int n0,
+// The taps a mainloop walks: `count` taps from weight tap `first` (weight
+// rows of `row_taps` taps of Cin channels each), the walk's tap t reading
+// the slab rows from guard + m + off(t) for M row m. The 3x3 conv walks
+// its nine taps (Conv3x3Taps); the stride-2 transition's dgrad one parity
+// class's range of its plane-major weights, and its projection one
+// unshifted tap of Wp^T.
+template <typename Off>
+struct TapWalk {
+  int first, count, row_taps;
+  Off off;
+};
+
+// tap t = (dh, dw) row-major of the 3x3 conv: one row offset for every
+// row, image and width
+struct Conv3x3Taps {
+  int wi;
+  __device__ __forceinline__ int operator()(int t) const {
+    return (t / 3 - 1) * (wi + 1) + t % 3 - 1;
+  }
+};
+
+// acc += the tile's products over every K step (see the head of the file)
+// of the taps of `walk`; returns with every copy landed, every wgmma
+// retired and every warp past its last read of the ring.
+template <int BN, typename Off>
+__device__ __forceinline__ void mainloop(const Args& p,
+                                         const TapWalk<Off>& walk,
+                                         uint32_t ring, int m0, int n0,
                                          float (&acc)[BN / 2]) {
   using T = Tile<BN>;
   const int tid = threadIdx.x;
   const int piece = tid % 8, r0 = tid / 8;
   // rows r0 + 32 i all have r0 % 8 as their row in the swizzle atom
   const uint32_t dst = r0 * BK + ((piece ^ (r0 % 8)) << 4);
-  const int pitch = 2 * p.cin;  // bytes a slab position
-  const int ldb = 9 * pitch;    // bytes a weight row
-  const int steps = (ldb + BK - 1) / BK;
-  const int wp = p.wi + 1;
+  const int pitch = 2 * p.cin;                 // bytes a slab position
+  const int ldb = walk.row_taps * pitch;       // bytes a weight row
+  const int kbytes = walk.count * pitch;       // K bytes walked
+  const int steps = (kbytes + BK - 1) / BK;
   const unsigned char* a_src = reinterpret_cast<const unsigned char*>(p.slab) +
                                (size_t)(p.guard + m0 + r0) * pitch;
   const unsigned char* w0 = reinterpret_cast<const unsigned char*>(p.w);
-  const unsigned char* b_src = w0 + (size_t)(n0 + r0) * ldb + piece * 16;
+  const unsigned char* b_src = w0 + (size_t)(n0 + r0) * ldb +
+                               (size_t)walk.first * pitch + piece * 16;
   const int b_rows = p.cout - n0 - r0;  // B piece i is live while 32 i < this
   // this piece's (tap, byte of the tap) at the next step to load (the
   // loads come in step order)
@@ -273,19 +324,20 @@ __device__ __forceinline__ void mainloop(const Args& p, uint32_t ring,
   for (; s_c >= pitch; s_c -= pitch) ++s_tap;
 
   auto load = [&](int kt, int stage) {
-    // past the weights' row (the last step's tail) the A piece reads tap
-    // 8's slab bytes, finite, against zeros
-    const int tap = min(s_tap, 8);
-    const long off = (long)(tap / 3 * wp + tap % 3 - wp - 1) * pitch + s_c;
+    // past the walk's last tap (the last step's tail) the A piece reads the
+    // last tap's slab bytes, finite, against zeros
+    const int tap = min(s_tap, walk.count - 1);
+    const long off = (long)walk.off(tap) * pitch + s_c;
     for (s_c += BK; s_c >= pitch; s_c -= pitch) ++s_tap;
     const uint32_t st = ring + stage * T::STAGE_BYTES;
 #pragma unroll
     for (int i = 0; i < T::PA; ++i)
       cp_async16(st + dst + i * 32 * BK, a_src + off + (size_t)i * 32 * pitch,
                  true);
-    const bool k_ok = kt * BK + piece * 16 < ldb;
+    const bool k_ok = kt * BK + piece * 16 < kbytes;
 #pragma unroll
     for (int i = 0; i < T::PB; ++i) {
+      if (BN % 32 != 0 && 32 * i + r0 >= BN) continue;  // past the tile
       const bool ok = 32 * i < b_rows && k_ok;
       cp_async16(st + T::A_BYTES + dst + i * 32 * BK,
                  ok ? b_src + (size_t)i * 32 * ldb + kt * BK : w0, ok);
@@ -319,6 +371,14 @@ __device__ __forceinline__ void mainloop(const Args& p, uint32_t ring,
   fence_acc(acc);
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for the epilogue
+}
+
+// The 3x3 conv's mainloop: its nine taps.
+template <int BN>
+__device__ __forceinline__ void mainloop(const Args& p, uint32_t ring,
+                                         int m0, int n0,
+                                         float (&acc)[BN / 2]) {
+  mainloop<BN>(p, TapWalk<Conv3x3Taps>{0, 9, 9, {p.wi}}, ring, m0, n0, acc);
 }
 
 // Column n (< cols) of the staged tile, its run [lead, lead + count), to

@@ -71,7 +71,9 @@
 //
 // The mainloop (mainloop<BN, REM>, with tap_rows and encode_maps on the
 // host) is shared with the int8 serving conv, requant_wgmma_s8.cuh, which
-// runs it on the same slab layout with a requantizing epilogue.
+// runs it on the same slab layout with a requantizing epilogue, and with
+// the lane transition's FQT dgrad (transition.cu), which walks one parity
+// class's range of taps at a time at BN = 80 (two accumulators a thread).
 //
 // Left for later: persistent blocks, clusters and TMA multicast of the A
 // boxes across the N tiles of one M tile, the pad rows (6.3% at 32x32).
@@ -244,17 +246,17 @@ __device__ __forceinline__ void step_at(int k, int n128, int& t, int& o,
 }
 
 // Thread 0 starts step k's two TMA loads into its slot (shift[t]: the
-// slab row of tap t for M row 0).
+// slab row of the walk's tap t for M row 0; its weights are tap t0 + t's).
 template <int BN, int A_BYTES, int REM>
 __device__ __forceinline__ void issue(const Maps& mp, int cin,
-                                      const int (&shift)[9], int k, int n128,
-                                      uint32_t st, uint32_t bar, int m0,
-                                      int n0) {
+                                      const int* shift, int t0, int k,
+                                      int n128, uint32_t st, uint32_t bar,
+                                      int m0, int n0) {
   int t, o, sel;
   step_at<REM>(k, n128, t, o, sel);
   mbar_arrive_tx(bar, (BM + BN) * (BK >> sel));
   tma_load_2d(st, &mp.a[sel], bar, o, m0 + shift[t]);
-  tma_load_2d(st + A_BYTES, &mp.b[sel], bar, t * cin + o, n0);
+  tma_load_2d(st + A_BYTES, &mp.b[sel], bar, (t0 + t) * cin + o, n0);
 }
 
 // One K step of W bytes (W / 32 k32 wgmmas in the W-byte swizzle): wait
@@ -268,7 +270,7 @@ __device__ __forceinline__ void k_step(int (&acc)[BN / 2], int& i,
                                        int steps, int n128, uint32_t ring,
                                        uint32_t full, uint32_t empty,
                                        const Maps& mp, int cin,
-                                       const int (&shift)[9], int m0,
+                                       const int* shift, int t0, int m0,
                                        int n0) {
   constexpr int SEL = W == 128 ? 0 : (W == 64 ? 1 : 2);
   const int s = i % S;
@@ -287,7 +289,7 @@ __device__ __forceinline__ void k_step(int (&acc)[BN / 2], int& i,
     mbar_arrive(empty + 8 * sj);
     if (threadIdx.x == 0 && j + S < steps) {
       mbar_wait(empty + 8 * sj, (j / S) & 1);  // both warpgroups' too
-      issue<BN, A_BYTES, REM>(mp, cin, shift, j + S, n128,
+      issue<BN, A_BYTES, REM>(mp, cin, shift, t0, j + S, n128,
                               ring + sj * STAGE_BYTES, full + 8 * sj, m0,
                               n0);
     }
@@ -296,22 +298,28 @@ __device__ __forceinline__ void k_step(int (&acc)[BN / 2], int& i,
 }
 
 // acc = the products of M tile m0 (128 slab rows from m0) and the BN
-// weight rows from n0 over every K step of a tap's boxes (REM = Cin % 128
-// names the tap's last boxes; shift[t], the slab row of tap t for M row
-// 0): the mbarriers set up at ring + RING, thread 0 starting the first
-// STAGES steps' loads, then k_step after k_step. Returns with every wgmma
-// of both warpgroups retired and every thread past its last read of the
-// ring, which the epilogue may then reuse.
+// weight rows from n0 over every K step of a tap range's boxes: ntaps
+// taps, the walk's tap t reading slab rows from shift[t] (for M row 0)
+// against the weight columns of tap t0 + t (REM = Cin % 128 names a tap's
+// last boxes). The 3x3 convs walk all nine taps (t0 = 0, ntaps = 9, a
+// count the compiler sees); the stride-2 transition's dgrad walks one
+// parity class's taps, a range of the plane-major weights. The mbarriers
+// are set up at ring + RING (a block that runs the mainloop again on the
+// ring ends them first: ring_inval), thread 0 starts the first STAGES
+// steps' loads, then k_step after k_step. Returns with every wgmma of both
+// warpgroups retired and every thread past its last read of the ring,
+// which the epilogue may then reuse.
 template <int BN, int REM>
 __device__ __forceinline__ void mainloop(const Maps& mp, int cin,
-                                         const int (&shift)[9],
-                                         uint32_t ring, int m0, int n0,
-                                         int (&acc)[BN / 2]) {
+                                         const int* shift, uint32_t ring,
+                                         int m0, int n0, int (&acc)[BN / 2],
+                                         int t0 = 0, int ntaps = 9) {
   using T = Tile<BN>;
   constexpr int S = T::STAGES;
   const uint32_t full = ring + T::RING, empty = full + 8 * S;
   const int n128 = cin / BK;
-  const int steps = 9 * (n128 + ((REM & 64) != 0) + ((REM & 32) != 0));
+  const int steps =
+      ntaps * (n128 + ((REM & 64) != 0) + ((REM & 32) != 0));
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -320,7 +328,7 @@ __device__ __forceinline__ void mainloop(const Maps& mp, int cin,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int k = 0; k < S && k < steps; ++k)
-      issue<BN, T::A_BYTES, REM>(mp, cin, shift, k, n128,
+      issue<BN, T::A_BYTES, REM>(mp, cin, shift, t0, k, n128,
                                  ring + k * T::STAGE_BYTES, full + 8 * k, m0,
                                  n0);
   }
@@ -329,20 +337,36 @@ __device__ __forceinline__ void mainloop(const Maps& mp, int cin,
 #pragma unroll
   for (int i = 0; i < T::NACC; ++i) acc[i] = 0;
   int i = 0;
-  for (int t = 0; t < 9; ++t) {
+  for (int t = 0; t < ntaps; ++t) {
     for (int j = 0; j < n128; ++j)
       k_step<BN, 128, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, t0, m0,
+          n0);
     if constexpr ((REM & 64) != 0)
       k_step<BN, 64, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, t0, m0,
+          n0);
     if constexpr ((REM & 32) != 0)
       k_step<BN, 32, S, T::STAGE_BYTES, T::A_BYTES, REM>(
-          acc, i, steps, n128, ring, full, empty, mp, cin, shift, m0, n0);
+          acc, i, steps, n128, ring, full, empty, mp, cin, shift, t0, m0,
+          n0);
   }
   wgmma_wait<0>();
   fence_acc(acc);
   __syncthreads();  // every wgmma of both warpgroups retired: the ring is free
+}
+
+// Ends the ring's mbarriers after a mainloop (every thread past it, every
+// load landed), so that a second mainloop on the same ring may set them up
+// again.
+template <int BN>
+__device__ __forceinline__ void ring_inval(uint32_t ring) {
+  using T = Tile<BN>;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 2 * T::STAGES; ++s)
+      asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(
+                       ring + T::RING + 8 * s)
+                   : "memory");
 }
 
 // Grid (ceil(cout / BN), tiles): block (x, y) computes output channels [x *

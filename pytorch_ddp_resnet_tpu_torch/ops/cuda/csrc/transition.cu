@@ -16,8 +16,8 @@
 //   bwd_fold               <- its straight-through cotangent fold and bf16
 //                             prologue recomputation (as parity planes),
 //                             and the even-even plane of x for dWp
-//   dgrad_launch           <- its per-plane dgrad, masks, norm1 chain,
-//                             shortcut cotangent and d(scale)/d(shift)
+//   dgrad_pre, dgrad_gemm, <- its per-plane dgrad, masks, norm1 chain,
+//   dgrad_sum                 shortcut cotangent and d(scale)/d(shift)
 //   partial_sum            <- the TPU kernels' sums carried across their
 //                             sequential grid
 // (its wgrad in both bodies and dWp: transition_wgrad.cu)
@@ -65,15 +65,42 @@
 // shared memory (no faster).
 //
 // The backward:
-// - The dgrad indexes the stride-2 taps directly: the same contraction
-//   per parity class of input pixel (blockIdx.z = 2 * (ih % 2) + (iw %
-//   2)): a pixel of class p receives the 1, 2, 2 or 4 taps of that
-//   class, each from the cotangent at the output pixel (i + sh, j + sw),
-//   sh, sw in {0, 1}; so the block is a stride-1 contraction at the
-//   output geometry over just those taps. Its epilogue recomputes the
-//   relu/dropout masks and the norm1 chain from x, adds the shortcut's
-//   cotangent on class 0 (a second bf16 contraction of Wp^T @ dres, or
-//   dres itself for option A) and sums d(scale) and d(shift).
+// - The dgrad is three launches (ops/cuda/transition.py
+//   transition_dgrad_layout). Input pixel (2r + ph, 2c + pw) is of parity
+//   class p = 2 ph + pw and receives the 1, 2, 2 or 4 taps (dh, dw) of
+//   that class, each from the cotangent at output pixel (r + sh, c + sw),
+//   sh = (ph == 1 && dh == 0), sw = (pw == 1 && dw == 0): a stride-1
+//   contraction at the output geometry over the class's taps, which are
+//   consecutive in the plane-major weights w_dg [Cin, 9 * Cout].
+//   dgrad_pre_kernel writes g (int8 codes, or bf16 for the straight-
+//   through body) once into the fused forward's padded slab at the output
+//   geometry (fused_block.py fused_fwd_layout: a zero row above and a zero
+//   column left of each image, guards of ow + 2 zero positions), Cout
+//   padded to 32 channels for the int8 body's 32-byte K steps; where a
+//   projection runs, dres into a bf16 slab of the same layout. Output
+//   pixel (r, c)'s M row m then reads tap (dh, dw) at slab row guard + m +
+//   sh * (ow + 1) + sw: past the image that is the next image's zero row
+//   or the next row's zero column, so no masks and any even H and W.
+//   dgrad_kernel (grid: 2 row parities x Cin / 80 N tiles x 128-row M
+//   tiles) runs a row parity's two column classes as tap ranges on
+//   fwd_wgmma_s8.cuh's TMA-fed s8 mainloop (FQT) or fwd_wgmma_bf16.cuh's
+//   cp.async one (straight-through), one accumulator each (80 registers a
+//   thread at BN = 80: two blocks an SM), the ring's mbarriers ended
+//   between the two s8 walks. On the even-even pixels (ph = 0) the block
+//   first runs the shortcut sc = Wp^T dres as one unshifted tap of the
+//   bf16 mainloop over the dres slab and parks it, f32, in a [Cin, N']
+//   scratch at its lanes: sc stays apart from dn (dx = fma(dn, scale,
+//   sc)), and three accumulators would not fit two blocks an SM. The
+//   epilogue stages both classes' values (FQT: f32(acc) * f32(ws_in *
+//   f32(g_amax / 127)), each row at its own group's scale) as pairs,
+//   channel-major from the run's lead, so that a unit of 4 output lanes is
+//   8 consecutive input lanes of one input row; a thread a unit reads x
+//   and the bits as 16 and 8 bytes and writes dx as 16 (pair by pair
+//   where rows of ow % 4 != 0 pixels split a unit), recomputes the
+//   relu/dropout masks, and sums dn * x and dn per unit in lane order,
+//   then per channel over the units into part[tile, ph]; dgrad_sum adds
+//   the slots in common::tile_sum's fixed order. dx and the sums are the
+//   same bit for bit every run.
 // - Both bodies' wgrad and dWp run in transition_wgrad.cu on the parity
 //   planes of d and the even-even plane of x that the operand passes write:
 //   the FQT quantizer (bwd_quant_kernel) stores the activation's int8
@@ -100,206 +127,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
-#include "conv3x3_rows.cuh"
+#include "conv3x3_rows.cuh"  // quant_s8, the forward prepass's rounding
 #include "fused_half.cuh"
 #include "fwd_staged_s8.cuh"  // the forward's mainloop and epilogue
+#include "fwd_wgmma_s8.cuh"   // the dgrad's mainloops (s8 and bf16)
 #include "seed_bits.cuh"
 
-using namespace conv3x3;
+using conv3x3::quant_s8;
 using dropout::DropBits;
 using fused_half::Bf16Prologue;
 using fused_half::Cotangent;
 using fused_half::GroupWalk;
 using fused_half::kBwdFloor;
-using fused_half::load8;
 using fused_half::pack8;
 using fused_half::Prologue;
 using fused_half::QuantOut;
-using fused_half::tile_sums;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-// --- the strided implicit-GEMM contraction ----------------------------------
-
-// Output position (r, c) of the block's grid reads tap t of the source
-// image (sh x sw) at (S * (r0 + r) + dr[t], S * c + dc[t]); the tap's
-// weights start at column wcol[t] of w (rows of kdim elements).
-struct Taps {
-  int n;
-  int dr[9], dc[9], wcol[9];
-};
-
-struct Geo {
-  int S;       // stride of the output grid in the source
-  int sh, sw;  // source image
-  int ow;      // output grid width
-};
-
-// staged source rows and the bytes of one contraction's shared memory
-__host__ __device__ inline int staged_rows(int S, int rows) {
-  return S * (rows - 1) + 3;
-}
-
-template <typename T>
-__host__ __device__ inline int stage_bytes(int ntaps, int S, int rows,
-                                           int sw) {
-  return ntaps * BM * row_bytes<T>() +
-         staged_rows(S, rows) * (sw + 2) * row_bytes<T>();
-}
-
-// acc[mi][f][e] += the block's tile of sum over taps and channels of
-// w[m0 + row][wcol[t] + k] * src[k][cell(position, t)], the 64 x BN tile of
-// rows m0.. of w against the block's BN positions (R = BN / ow rows from
-// row r0 of image img), staged through smem (weights, then the halo).
-template <typename T, int BN, typename Load>
-__device__ __forceinline__ void contract(
-    const Load& load, const T* __restrict__ w, int kdim, int ck, int m_rows,
-    int m0, const Taps& taps, const Geo& g, int img, int r0,
-    unsigned char* smem, typename Acc<T>::type (&acc)[2][BN / 32][4]) {
-  constexpr int ROW = row_bytes<T>();
-  constexpr int NF = BN / 32;
-  constexpr int KSTEPS = BK * sizeof(T) / 32;
-  constexpr int CPW = 4 / sizeof(T);
-  unsigned char* As = smem;
-  unsigned char* Xs = smem + taps.n * BM * ROW;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int warp_m = warp / 4;
-  const int warp_n = warp % 4;
-  const int rows = BN / g.ow;
-  const int srows = staged_rows(g.S, rows);
-  const int pw = g.sw + 2;
-  const int row_lo = g.S * r0 - 1;  // source row of staged row 0
-  const int img_pos = img * g.sh * g.sw;
-
-  __syncthreads();  // the previous user of smem is done
-  const int x_bytes = srows * pw * ROW;
-  for (int i = tid * 16; i < x_bytes; i += THREADS * 16)
-    *reinterpret_cast<uint4*>(Xs + i) = make_uint4(0, 0, 0, 0);
-
-  const int q = lane / 8;
-  const int j = lane % 8;
-  const int a_row = warp_m * 32 + (q & 1) * 8 + j;
-  const int a_byte = (q >> 1) * 16;
-  const int b_byte = (q & 1) * 16;
-  int b_pos[NF / 2];
-#pragma unroll
-  for (int f2 = 0; f2 < NF / 2; ++f2) {
-    const int p = warp_n * (BN / 4) + (2 * f2 + (q >> 1)) * 8 + j;
-    b_pos[f2] = g.S * (p / g.ow) * pw + g.S * (p % g.ow);
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][f][e] = 0;
-
-  for (int c0 = 0; c0 < ck; c0 += BK) {
-    __syncthreads();
-    constexpr int PIECES = BK * sizeof(T) / 16;
-    for (int i = tid; i < taps.n * BM * PIECES; i += THREADS) {
-      const int piece = i % PIECES;
-      const int row = (i / PIECES) % BM;
-      const int t = i / (PIECES * BM);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + row < m_rows)
-        v = *(reinterpret_cast<const uint4*>(
-                  w + (size_t)(m0 + row) * kdim + taps.wcol[t] + c0) +
-              piece);
-      *reinterpret_cast<uint4*>(As + (t * BM + row) * ROW + piece * 16) = v;
-    }
-    const int segs = g.sw / 8;
-    const int units = (BK / CPW) * srows * segs;
-    for (int i = tid; i < units; i += THREADS) {
-      const int seg = i % segs;
-      const int pr = (i / segs) % srows;
-      const int grp = i / (segs * srows);
-      const int ir = row_lo + pr;
-      if (ir < 0 || ir >= g.sh) continue;  // stays zero
-      const int pos = img_pos + ir * g.sw + seg * 8;
-      uint32_t word[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-      for (int c = 0; c < CPW; ++c) {
-        const typename Vec8<T>::type v = load(c0 + grp * CPW + c, pos);
-        const unsigned char* e = reinterpret_cast<const unsigned char*>(&v);
-#pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          uint32_t bits = 0;
-#pragma unroll
-          for (int b = 0; b < (int)sizeof(T); ++b)
-            bits |= (uint32_t)e[p * sizeof(T) + b] << (8 * b);
-          word[p] |= bits << (8 * sizeof(T) * c);
-        }
-      }
-      unsigned char* dst = Xs + (pr * pw + 1 + seg * 8) * ROW + grp * 4;
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-        *reinterpret_cast<uint32_t*>(dst + p * ROW) = word[p];
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int t = 0; t < taps.n; ++t) {
-      const int shift = (taps.dr[t] + 1) * pw + taps.dc[t] + 1;
-      const uint32_t a_base = smem_addr(As + (t * BM + a_row) * ROW + a_byte);
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t a[2][4];
-        ldmatrix_x4(a[0], a_base + ks * 32);
-        ldmatrix_x4(a[1], a_base + 16 * ROW + ks * 32);
-#pragma unroll
-        for (int f2 = 0; f2 < NF / 2; ++f2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, smem_addr(Xs + (b_pos[f2] + shift) * ROW + b_byte) +
-                             ks * 32);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_step(acc[mi][2 * f2], a[mi], b[0], b[1]);
-            mma_step(acc[mi][2 * f2 + 1], a[mi], b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// the accumulators into the tile Cs [BM][BN + 4]
-template <typename AccT, int BN>
-__device__ __forceinline__ void store_tile(const AccT (&acc)[2][BN / 32][4],
-                                           AccT* Cs) {
-  constexpr int CLD = BN + 4;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
-  const int t2 = (lane % 4) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int f = 0; f < BN / 32; ++f) {
-      const int row = (warp / 4) * 32 + mi * 16 + g;
-      const int col = (warp % 4) * (BN / 4) + f * 8 + t2;
-      Cs[row * CLD + col] = acc[mi][f][0];
-      Cs[row * CLD + col + 1] = acc[mi][f][1];
-      Cs[(row + 8) * CLD + col] = acc[mi][f][2];
-      Cs[(row + 8) * CLD + col + 1] = acc[mi][f][3];
-    }
-}
-
-template <typename T>
-struct RawLoad {
-  const T* x;
-  int n;
-  __device__ __forceinline__ typename Vec8<T>::type operator()(int ch,
-                                                               int pos) const {
-    return *reinterpret_cast<const typename Vec8<T>::type*>(
-        x + (size_t)ch * n + pos);
-  }
-};
 
 // --- forward -----------------------------------------------------------------
 
@@ -722,157 +571,443 @@ bwd_quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0,
   }
 }
 
-// --- dgrad -----------------------------------------------------------------
+// --- dgrad --------------------------------------------------------------------
+//
+// The input gradient, three launches (ops/cuda/transition.py dgrad):
+// dgrad_pre_kernel writes g (and dres, where a projection runs) once
+// into the fused forward's padded slab at the output geometry
+// (transition_dgrad_layout); dgrad_kernel runs each parity class of input
+// pixel as a range of taps on the wgmma mainloops and writes dx through
+// the masks with each tile's sums; dgrad_sum adds the tiles' sums in
+// common::tile_sum's fixed order.
 
-struct DgradArgs {
-  const void* g;          // [cout, n / 4] int8 (FQT) or bf16
-  const void* wdg;        // [cin, 9 * cout] plane-major, int8 or bf16
-  const float* g_amax;    // [groups] (FQT)
-  const float* ws_in;     // [cin] (FQT)
-  const bf16* x;          // [cin, n]
-  const float* scale;
-  const float* shift;
-  DropBits bits;          // [cin, n] lane order
-  const bf16* dres;       // [cout, n / 4]
-  const bf16* wpt;        // [cin, cout] or null (option A)
-  bf16* dx;               // [cin, n]
-  float* part;            // [4 * n / 4 / BN][2 * cin]
-  int cout, cin, n, h, w, tile, thresh;
-  float keep;
+namespace dgrad {
+
+namespace wb = fwd_wgmma_bf16;
+namespace ws8 = fwd_wgmma_s8;
+using fused_half::PadPos;
+using fused_half::PRE_C;
+using fused_half::PRE_P;
+using fused_half::SlabPos;
+
+constexpr int BN = 80;        // input channels a block
+constexpr int BM = 128;       // M rows a tile, 64 a warpgroup
+constexpr int THREADS = 256;  // two consumer warpgroups
+constexpr int ALIGN = 1024;   // a 128-byte swizzle atom
+// f32 words a staged channel: the tile's run of pairs after a lead of up
+// to 3 output lanes; 2 * VP % 32 == 8 puts a warp's float2 stores (4
+// column pairs x 4 rows a half-warp) in 32 distinct banks
+constexpr int VP = 276;
+static_assert(ws8::BM == BM && wb::BM == BM && ws8::THREADS == THREADS &&
+                  wb::THREADS == THREADS,
+              "the mainloops' tiles and threads");
+static_assert(VP >= 2 * (3 + BM) && VP % 16 == 4, "the staged row");
+
+// Shared memory: the ring (the s8 one is the larger: four slots of 128 +
+// 80 rows of 128 bytes, then its mbarriers), which the staged pairs [BN]
+// [VP] f32 reuse after the mainloops; past both, each M row's place in
+// the tile's run (at), its scale (rs), the block's channels' scale, shift
+// and int8 weight scale (par), its two classes' slab rows (rows) and the
+// epilogue's units' input lanes (ulane).
+struct Smem {
+  static constexpr int RING =
+      ws8::Tile<BN>::RING + 16 * ws8::Tile<BN>::STAGES;
+  static constexpr int STAGED = BN * VP * 4;
+  static constexpr int AT = RING;
+  static constexpr int RS = AT + BM * 4;
+  static constexpr int PAR = RS + BM * 4;
+  static constexpr int ROWS = PAR + 3 * BN * 4;
+  static constexpr int ULANE = ROWS + 8 * 4;
+  static constexpr int BYTES = ULANE + (BM + 8) / 4 * 4 + ALIGN;
+  static_assert(STAGED <= ws8::Tile<BN>::RING &&
+                    wb::Tile<BN>::RING <= ws8::Tile<BN>::RING,
+                "the staged pairs and the bf16 ring fit the s8 ring");
+  static_assert(BYTES <= wgrad_staged::SMEM_PER_BLOCK, "two blocks an SM");
 };
 
-template <int BN>
-__host__ __device__ inline int dgrad_cs_bytes() {
-  return 2 * BM * (BN + 4) * 4;
+struct Args {
+  const bf16* x;                // [cin, n]
+  const float* scale;           // [cin]
+  const float* shift;           // [cin]
+  const unsigned char* bits;    // [cin, n] or null
+  const float* g_amax;          // [n_out / tile] (FQT)
+  const float* ws_in;           // [cin] (FQT)
+  const bf16* dres;             // [cout, n_out]: option A's shortcut
+  float* sc;                    // [cin, n_out] the projection's, or null
+  bf16* dx;                     // [cin, n]
+  float* part;                  // [2 * tiles][2 * cin]
+  int cin, cp, n_out, b, oh, ow, tile, thresh;
+  float keep;                   // f32(256 / thresh)
+  int first[4], count[4];       // class p's weight taps first[p] ..
+  int off[4][4];                // its tap j at slab row guard + m + off
+};
+
+// slab row offsets of a class's (at most four) taps, in registers
+struct TableOff {
+  int o0, o1, o2, o3;
+  __device__ __forceinline__ int operator()(int t) const {
+    return t == 0 ? o0 : (t == 1 ? o1 : (t == 2 ? o2 : o3));
+  }
+};
+
+// the projection's one unshifted tap
+struct NoOff {
+  __device__ __forceinline__ int operator()(int) const { return 0; }
+};
+
+// acc = class cls's contraction of the M tile at m0 with input channels
+// n0.. : its taps, a range of the plane-major weights, on the s8 (FQT, TMA
+// maps mp; rows, the taps' slab rows in shared memory) or the bf16 (gp)
+// mainloop.
+template <bool QUANT, int REM, typename A>
+__device__ __forceinline__ void class_gemm(const ws8::Maps& mp,
+                                           const wb::Args& gp, const Args& a,
+                                           int cls, const int* rows,
+                                           uint32_t ring, int m0, int n0,
+                                           A (&acc)[BN / 2]) {
+  if constexpr (QUANT) {
+    ws8::mainloop<BN, REM>(mp, a.cp, rows, ring, m0, n0, acc, a.first[cls],
+                           a.count[cls]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int* o = a.off[cls];
+    wb::mainloop<BN>(gp, wb::TapWalk<TableOff>{a.first[cls], a.count[cls],
+                                               9, {o[0], o[1], o[2], o[3]}},
+                     ring, m0, n0, acc);
+  }
 }
 
-template <typename T, int BN>
-__global__ void __launch_bounds__(THREADS) dgrad_kernel(DgradArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using AccT = typename Acc<T>::type;
-  constexpr int CLD = BN + 4;
-  constexpr bool kQuant = sizeof(T) == 1;
-  const int oh = a.h / 2, ow = a.w / 2, ohw = oh * ow;
-  const int n_out = a.n / 4;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int cls = blockIdx.z;
-  const int ph = cls / 2, pw = cls % 2;
-  const int img = n0 / ohw;
-  const int r0 = (n0 - img * ohw) / ow;
-  AccT* Cs = reinterpret_cast<AccT*>(smem);
-  float* Ps = reinterpret_cast<float*>(smem + BM * CLD * 4);
-  unsigned char* stage = smem + dgrad_cs_bytes<BN>();
-  const Geo geo{1, oh, ow, ow};
+// Grid (2 * ceil(cin / BN), tiles): block (x, y) computes input channels
+// [x / 2 * BN, + BN) of M tile y for the input pixels of row parity ph = x
+// % 2, both column parities (classes 2 ph and 2 ph + 1), and writes their
+// sums to part[2 y + ph]. The blocks of one M tile neighbour, so they read
+// its slab rows through L2.
+template <bool QUANT, int REM>
+__global__ void __launch_bounds__(THREADS, 2)
+    dgrad_kernel(const __grid_constant__ ws8::Maps mp,
+                 const __grid_constant__ wb::Args gp,
+                 const __grid_constant__ wb::Args pp,
+                 const __grid_constant__ Args a) {
+  using Acc = typename std::conditional<QUANT, int, float>::type;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wgrad_staged::smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* sm = smem_raw + pad;
+  const uint32_t ring = raw + pad;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ph = blockIdx.x % 2;
+  const int n0 = (int)(blockIdx.x / 2) * BN, m0 = blockIdx.y * BM;
+  // the launch's scalars and pointers, read once (the mainloops take the
+  // parameter by address)
+  const int cin = a.cin, n_out = a.n_out, oh = a.oh, ow = a.ow, b = a.b;
+  const int thresh = a.thresh;
+  const float keep = a.keep;
+  const bf16* const xg = a.x;
+  const unsigned char* const bits = a.bits;
+  const bf16* const dres = a.dres;
+  float* const sc_g = a.sc;
+  bf16* const dx = a.dx;
+  const int cols = min(BN, cin - n0);
+  int* at = reinterpret_cast<int*>(sm + Smem::AT);
+  float* rs = reinterpret_cast<float*>(sm + Smem::RS);
+  float* par = reinterpret_cast<float*>(sm + Smem::PAR);
+  int* rows = reinterpret_cast<int*>(sm + Smem::ROWS);
+  int* ulane = reinterpret_cast<int*>(sm + Smem::ULANE);
 
-  // the taps of this class, row-major, and the column of each in the
-  // plane-major weights (classes hold 1, 2, 2, 4 taps)
-  Taps taps;
-  taps.n = 0;
-  int col = 0;
-  for (int dh = 0; dh < 3; ++dh)
-    for (int dw = 0; dw < 3; ++dw) {
-      const int c = 2 * (dh != 1) + (dw != 1);
-      if (c < cls) {
-        ++col;
-      } else if (c == cls) {
-        taps.dr[taps.n] = (ph == 1 && dh == 0) ? 1 : 0;
-        taps.dc[taps.n] = (pw == 1 && dw == 0) ? 1 : 0;
-        ++taps.n;
+  // the tile's run of output lanes [lane0, lane0 + count), each M row's
+  // place in it or -1 (a pad row or column, or the tail), each live row's
+  // scale g_amax * (1/127) (its own group's: a tile may span groups)
+  const int lane0 = wb::live_before(m0, b, oh, ow, n_out);
+  const int count = wb::live_before(m0 + BM, b, oh, ow, n_out) -
+                    lane0;
+  const int lead = lane0 % 4;
+  if (tid < BM) {
+    const int m = m0 + tid, k = wb::live_before(m, b, oh, ow, n_out);
+    const bool live = wb::live_before(m + 1, b, oh, ow, n_out) > k;
+    at[tid] = live ? k - lane0 : -1;
+    rs[tid] = QUANT && live
+                  ? __fmul_rn(a.g_amax[k / a.tile], common::kInv127)
+                  : 0.f;
+  }
+  if (tid < BN) {
+    const bool ok = tid < cols;
+    par[tid] = ok ? a.scale[n0 + tid] : 0.f;
+    par[BN + tid] = ok ? a.shift[n0 + tid] : 0.f;
+    par[2 * BN + tid] = ok && QUANT ? a.ws_in[n0 + tid] : 0.f;
+  }
+  if (tid < 8) rows[tid] = ow + 2 + a.off[2 * ph + tid / 4][tid % 4];
+  __syncthreads();
+  // acc[4 j + 2 h + e] is row 16 w + l / 4 + 8 h of the warpgroup's 64,
+  // column 8 j + 2 (l % 4) + e
+  const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+  const int at_h[2] = {at[row], at[row + 8]};
+
+  if (ph == 0 && sc_g != nullptr) {
+    // the shortcut sc = Wp^T dres of the even-even pixels, f32, kept apart
+    // from the masked dn (dx = fma(dn, scale, sc)): one unshifted tap of
+    // the bf16 mainloop over the dres slab, into the scratch at its lanes
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    wb::mainloop<BN>(pp, wb::TapWalk<NoOff>{0, 1, 1, {}}, ring, m0, n0, acc);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * (lane % 4) + e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (at_h[h] >= 0 && col < cols)
+            sc_g[(size_t)(n0 + col) * n_out + lane0 + at_h[h]] =
+                acc[4 * j + 2 * h + e];
+      }
+    if constexpr (QUANT) {  // the ring's cp.async bytes, then TMA's writes
+      wb::fence_async_shared();
+      __syncthreads();
+    }
+  }
+  Acc acc0[BN / 2], acc1[BN / 2];
+  class_gemm<QUANT, REM>(mp, gp, a, 2 * ph, rows, ring, m0, n0, acc0);
+  if constexpr (QUANT) ws8::ring_inval<BN>(ring);
+  class_gemm<QUANT, REM>(mp, gp, a, 2 * ph + 1, rows + 4, ring, m0, n0,
+                         acc1);
+
+  // v (FQT: f32(acc) * (ws_in * rowscale), the reference's order) of both
+  // classes staged as pairs, channel-major from the lead: vs[col][2 (lead +
+  // at) + pw], pw the column parity (input lanes 2c and 2c + 1)
+  float* vs = reinterpret_cast<float*>(sm);
+  const float rs_h[2] = {rs[row], rs[row + 8]};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane % 4) + e;
+      const float wsc = par[2 * BN + col];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (at_h[h] < 0) continue;
+        const int i = 4 * j + 2 * h + e;
+        float v0, v1;
+        if constexpr (QUANT) {
+          const float f = __fmul_rn(wsc, rs_h[h]);
+          v0 = __fmul_rn(__int2float_rn(acc0[i]), f);
+          v1 = __fmul_rn(__int2float_rn(acc1[i]), f);
+        } else {
+          v0 = acc0[i];
+          v1 = acc1[i];
+        }
+        *reinterpret_cast<float2*>(vs + col * VP + 2 * (lead + at_h[h])) =
+            make_float2(v0, v1);
       }
     }
-  for (int t = 0; t < taps.n; ++t) taps.wcol[t] = (col + t) * a.cout;
+  __syncthreads();
 
-  {
-    AccT acc[2][BN / 32][4];
-    contract<T, BN>(RawLoad<T>{static_cast<const T*>(a.g), n_out},
-                    static_cast<const T*>(a.wdg), 9 * a.cout, a.cout, a.cin,
-                    m0, taps, geo, img, r0, stage, acc);
-    store_tile<AccT, BN>(acc, Cs);
-  }
-  const bool proj = cls == 0 && a.wpt != nullptr;
-  if (proj) {
-    Taps t1;
-    t1.n = 1;
-    t1.dr[0] = t1.dc[0] = t1.wcol[0] = 0;
-    float acc[2][BN / 32][4];
-    contract<bf16, BN>(RawLoad<bf16>{a.dres, n_out}, a.wpt, a.cout, a.cout,
-                       a.cin, m0, t1, geo, img, r0, stage, acc);
-    store_tile<float, BN>(acc, Ps);
+  // Units of 4 output lanes (8 input lanes of one input row where the
+  // output rows hold whole units: ow % 4 == 0), neighbouring threads on
+  // neighbouring units of one channel: x, the bits and dx move as 16, 8
+  // and 16 bytes, elsewhere pair by pair (4, 2 and 4 bytes); live =
+  // fma(x, scale, shift) > 0 and bits < thresh, dn = live ? v * keep : 0,
+  // dx = bf16(dn * scale), or bf16(fma(dn, scale, sc)) on the even-even
+  // pixels; the unit's sums of dn * x and dn, in lane order, into its first
+  // two staged words. A whole unit's input lane is the same for every
+  // channel: the table ulane holds it (-1: the unit is not whole), so the
+  // walk over (channel, unit) divides nothing.
+  const int vpc = (lead + count + 3) / 4;
+  const int h = 2 * oh, w = 2 * ow;
+  const size_t n = (size_t)4 * n_out;
+  const bool drop = bits != nullptr, proj = sc_g != nullptr;
+  for (int u = tid; u < vpc; u += THREADS) {
+    const int k0 = 4 * u;
+    ulane[u] = ow % 4 == 0 && k0 >= lead && k0 + 4 <= lead + count
+                   ? in_pos(lane0 - lead + k0, ph, h, w)
+                   : -1;
   }
   __syncthreads();
-  const float gs = kQuant ? __fmul_rn(a.g_amax[n0 / a.tile], common::kInv127)
-                          : 0.f;
-  tile_sums(BN, m0, a.cin, BN, (size_t)cls * gridDim.x + blockIdx.x, a.part,
-            [&](int r, int c, float& s1, float& s2) {
-    const int ci = m0 + r;
-    const int p = n0 + c - img * ohw;
-    const size_t idx = (size_t)ci * a.n + (size_t)img * a.h * a.w +
-                       (2 * (p / ow) + ph) * a.w + 2 * (p % ow) + pw;
-    float v = kQuant ? __fmul_rn(__int2float_rn((int)Cs[r * CLD + c]),
-                                 __fmul_rn(a.ws_in[ci], gs))
-                     : (float)Cs[r * CLD + c];
-    const float xf = __bfloat162float(a.x[idx]);
-    bool live = __fmaf_rn(xf, a.scale[ci], a.shift[ci]) > 0.f;
-    if (a.bits.active()) {
-      live = live && a.bits.at(ci, (int)(idx - (size_t)ci * a.n)) < a.thresh;
-      v = __fmul_rn(v, a.keep);
+  int c = vpc > 0 ? tid / vpc : cols, u = vpc > 0 ? tid % vpc : 0;
+  const int dc = vpc > 0 ? THREADS / vpc : 0, du = vpc > 0 ? THREADS % vpc : 0;
+  for (; c < cols; c += dc, u += du) {
+    if (u >= vpc) {
+      u -= vpc;
+      if (++c >= cols) break;
     }
-    const float dn = live ? v : 0.f;
-    float dxv;
-    if (cls != 0) {
-      dxv = __fmul_rn(dn, a.scale[ci]);
+    const int ci = n0 + c;
+    float* st = vs + c * VP + 8 * u;
+    const float4 lo = *reinterpret_cast<const float4*>(st);
+    const float4 hi = *reinterpret_cast<const float4*>(st + 4);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const float scl = par[c], shf = par[BN + c];
+    const int k0 = 4 * u, q0 = lane0 - lead + k0;
+    float s1 = 0.f, s2 = 0.f;
+    // element e = 2 i + pw of the unit (output lane q0 + i)
+    auto elem = [&](int e, float xf, int bt, float sc) {
+      bool live = __fmaf_rn(xf, scl, shf) > 0.f;
+      float vv = v[e];
+      if (drop) {
+        live = live && bt < thresh;
+        vv = __fmul_rn(vv, keep);
+      }
+      const float dn = live ? vv : 0.f;
+      s1 = __fadd_rn(s1, __fmul_rn(dn, xf));
+      s2 = __fadd_rn(s2, dn);
+      return __float2bfloat16_rn(ph == 0 && (e & 1) == 0
+                                     ? __fmaf_rn(dn, scl, sc)
+                                     : __fmul_rn(dn, scl));
+    };
+    // the shortcut's cotangent at output lane q (the even-even pixels)
+    auto shortcut = [&](int q) {
+      const size_t i = (size_t)ci * n_out + q;
+      return proj ? sc_g[i] : __bfloat162float(dres[i]);
+    };
+    const int base = ulane[u];
+    if (base >= 0) {
+      const size_t gi = (size_t)ci * n + base;
+      const uint4 xr = *reinterpret_cast<const uint4*>(xg + gi);
+      const uint2 br =
+          drop ? *reinterpret_cast<const uint2*>(bits + gi) : make_uint2(0u, 0u);
+      float scv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ph == 0 && proj) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            sc_g + (size_t)ci * n_out + q0);
+        scv[0] = t.x, scv[1] = t.y, scv[2] = t.z, scv[3] = t.w;
+      } else if (ph == 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) scv[k] = shortcut(q0 + k);
+      }
+      const bf16* x8 = reinterpret_cast<const bf16*>(&xr);
+      const unsigned char* b8 = reinterpret_cast<const unsigned char*>(&br);
+      bf16 d[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = elem(e, __bfloat162float(x8[e]), b8[e], scv[e / 2]);
+      *reinterpret_cast<uint4*>(dx + gi) = pack8(d);
     } else {
-      const float sc =
-          proj ? Ps[r * CLD + c]
-               : __bfloat162float(a.dres[(size_t)ci * n_out + n0 + c]);
-      dxv = __fmaf_rn(dn, a.scale[ci], sc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + i;
+        if (k < lead || k >= lead + count) continue;
+        const int q = q0 + i;
+        const size_t gi = (size_t)ci * n + in_pos(q, ph, h, w);
+        const __nv_bfloat162 x2 =
+            *reinterpret_cast<const __nv_bfloat162*>(xg + gi);
+        const int b0 = drop ? bits[gi] : 0, b1 = drop ? bits[gi + 1] : 0;
+        const float sc = ph == 0 ? shortcut(q) : 0.f;
+        __nv_bfloat162 o;
+        o.x = elem(2 * i, __low2float(x2), b0, sc);
+        o.y = elem(2 * i + 1, __high2float(x2), b1, sc);
+        *reinterpret_cast<__nv_bfloat162*>(dx + gi) = o;
+      }
     }
-    a.dx[idx] = __float2bfloat16_rn(dxv);
-    s1 = __fmul_rn(dn, xf);
-    s2 = dn;
-  });
-}
-
-template <typename T, int BN>
-int dgrad_smem_bytes(int h, int w) {
-  const int ow = w / 2, rows = BN / ow;
-  const int s = stage_bytes<T>(4, 1, rows, ow);
-  const int p = stage_bytes<bf16>(1, 1, rows, ow);
-  return dgrad_cs_bytes<BN>() + (s > p ? s : p);
-}
-
-// --- launch helpers --------------------------------------------------------------
-
-// Largest row tile (64 or 128 output positions of whole rows of one
-// image), or 0 when there is none (ops/cuda/transition.py row_tile). 128
-// positions keep two blocks of the forward and the dgrad on an SM.
-inline int out_row_tile(int oh, int ow) {
-  if (ow % 8 != 0) return 0;
-  int best = 0;
-  for (int r = 1; r <= oh; ++r) {
-    const int bn = r * ow;
-    if (oh % r == 0 && (bn == 64 || bn == 128) && bn > best) best = bn;
+    st[0] = s1;
+    st[1] = s2;
   }
-  return best;
+  __syncthreads();
+
+  // each channel's units' sums, in lane order
+  if (tid < cols) {
+    const float* col = vs + tid * VP;
+    float s1 = 0.f, s2 = 0.f;
+    for (int u = 0; u < vpc; ++u) {
+      s1 = __fadd_rn(s1, col[8 * u]);
+      s2 = __fadd_rn(s2, col[8 * u + 1]);
+    }
+    float* pt = a.part + (size_t)(2 * blockIdx.y + ph) * 2 * cin + n0 + tid;
+    pt[0] = s1;
+    pt[cin] = s2;
+  }
 }
 
-template <typename K, typename Args>
-int launch_conv(K kernel, int bytes, dim3 grid, const Args& args,
-                cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, bytes, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+template <bool QUANT, int REM>
+cudaError_t launch_kernel(const ws8::Maps& mp, const wb::Args& gp,
+                          const wb::Args& pp, const Args& a, int tiles,
+                          cudaStream_t stream) {
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dgrad_kernel<QUANT, REM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem::BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(2 * ((a.cin + BN - 1) / BN), tiles);
+  dgrad_kernel<QUANT, REM><<<grid, THREADS, Smem::BYTES, stream>>>(mp, gp,
+                                                                    pp, a);
+  return cudaGetLastError();
 }
 
-template <typename T, int BN>
-int launch_dgrad(const DgradArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.n / 4 / BN, (a.cin + BM - 1) / BM, 4);
-  return launch_conv(dgrad_kernel<T, BN>, dgrad_smem_bytes<T, BN>(a.h, a.w),
-                     grid, a, stream);
+// One prepass tile of PRE_C channels x PRE_P positions of src [c_src][n]
+// (U: the element's bits, 1 or 2 bytes; channels past c_src read as
+// zeros) into the slab [.., c] at each pixel's position (live): thread
+// (ch, g) reads 16 positions of one channel (16-byte loads where the run
+// lies whole in n and is aligned, else element by element), the tile is
+// transposed through shared memory, and fused_half.cuh's store_runs
+// writes each position's channels as 16-byte runs of its slab row.
+template <typename U>
+__device__ __forceinline__ void copy_tile(const U* __restrict__ src,
+                                          int c_src, U* __restrict__ slab,
+                                          int c, int n, long tile,
+                                          const SlabPos& live,
+                                          uint32_t* buf) {
+  static_assert(PRE_C == 32 && PRE_P == 8 * 16, "the threads' runs");
+  // a position's PRE_C channels, two a Word, and a spare Word a row
+  using Word = typename std::conditional<sizeof(U) == 1, unsigned short,
+                                         uint32_t>::type;
+  constexpr int PITCH = PRE_C / 2 + 2;
+  Word(*words)[PITCH] = reinterpret_cast<Word(*)[PITCH]>(buf);
+  const int cgs = (c + PRE_C - 1) / PRE_C;
+  const int c0 = (int)(tile % cgs) * PRE_C;
+  const long p0 = tile / cgs * PRE_P;
+  const int ch = threadIdx.x / 8, g = threadIdx.x % 8;
+  const long pos = p0 + 16 * g;
+  const bool in = c0 + ch < c_src;
+  const U* s = src + (size_t)(in ? c0 + ch : 0) * n + pos;
+  U v[16];
+  if (in && pos + 16 <= n && reinterpret_cast<uintptr_t>(s) % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < (int)sizeof(U); ++k)
+      reinterpret_cast<uint4*>(v)[k] = reinterpret_cast<const uint4*>(s)[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = in && pos + k < n ? s[k] : U(0);
+  }
+  U* t = reinterpret_cast<U*>(&words[0][0]);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[(16 * g + k) * 2 * PITCH + ch] = v[k];
+  __syncthreads();
+  fused_half::store_runs(words, slab, c, c0, p0, n, live);
 }
+
+// Blocks [0, tiles_g): g [cout][n] into its slab [.., cp] (cp - cout zero
+// channels); then [tiles_g, + tiles_d): dres [cout][n] bf16 into its slab;
+// then 16-byte zeros at every pad position of each slab, a thread each.
+template <typename U>
+__global__ void __launch_bounds__(256)
+    dgrad_pre_kernel(const U* __restrict__ g, U* __restrict__ gslab,
+                     const unsigned short* __restrict__ dres,
+                     unsigned short* __restrict__ dslab, SlabPos live,
+                     PadPos pads, int cout, int cp, int n, int tiles_g,
+                     int tiles_d, long pad_g, long pad_d) {
+  __shared__ __align__(16) uint32_t buf[PRE_P * (PRE_C / 2 + 2)];
+  const long blk = blockIdx.x;
+  if (blk < tiles_g) {
+    copy_tile(g, cout, gslab, cp, n, blk, live, buf);
+    return;
+  }
+  if (blk < tiles_g + tiles_d) {
+    copy_tile(dres, cout, dslab, cout, n, blk - tiles_g, live, buf);
+    return;
+  }
+  const long v = (blk - tiles_g - tiles_d) * 256 + threadIdx.x;
+  if (v < pad_g)
+    fused_half::zero_pad_vec(gslab, pads, cp, v, pad_g);
+  else
+    fused_half::zero_pad_vec(dslab, pads, cout, v - pad_g, pad_d);
+}
+
+// names the dgrad's tile sum in a profile
+struct TransitionDgradSum {};
+
+}  // namespace dgrad
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
@@ -1036,39 +1171,126 @@ int bwd_fold_launch(const void* dz, const void* z, const void* dzsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g [cout, n / 4] and w_dg [cin, 9 * cout] (plane-major) int8 with g_amax
-// [n / 4 / tile] and ws_in [cin] (quant = 1), or both bf16 (quant = 0);
-// x [cin, n] bf16, scale/shift [cin] f32, bits [cin, n] uint8 or null;
-// dres [cout, n / 4] bf16, wpt [cin, cout] bf16 or null (option A); dx
-// [cin, n] bf16, part [4 * (n / 4 / BN)][2 * cin] f32. Shape needs as
-// fwd_launch's, and tile a multiple of BN.
-int dgrad_launch(const void* g, const void* w_dg, const void* g_amax,
-                 const void* ws_in, const void* x, const void* scale,
-                 const void* shift, const void* bits, const void* dres,
-                 const void* wpt, void* dx, void* part, int quant, int cout,
-                 int cin, int n, int h, int w, int tile, int thresh,
-                 float keep, void* stream) {
-  const DgradArgs a{g,
-                    w_dg,
-                    in<float>(g_amax),
-                    in<float>(ws_in),
-                    in<bf16>(x),
-                    in<float>(scale),
-                    in<float>(shift),
-                    DropBits{in<unsigned char>(bits), nullptr, n},
-                    in<bf16>(dres),
-                    in<bf16>(wpt),
-                    static_cast<bf16*>(dx),
-                    static_cast<float*>(part),
-                    cout, cin, n, h, w, tile, thresh, keep};
-  const cudaStream_t st = as_stream(stream);
-  switch (out_row_tile(h / 2, w / 2) * (quant ? 1 : -1)) {
-    case 128: return launch_dgrad<signed char, 128>(a, st);
-    case 64: return launch_dgrad<signed char, 64>(a, st);
-    case -128: return launch_dgrad<bf16, 128>(a, st);
-    case -64: return launch_dgrad<bf16, 64>(a, st);
-    default: return -1;
+// The dgrad's prepass: gslab [slab_len][cp] (g [cout][n_out], int8 where
+// quant, else bf16; zero channels cout..cp) and, where dres is not null,
+// dslab [slab_len][cout] bf16 (dres [cout][n_out]), both in the fused
+// forward's padded layout at the output geometry (oh x ow images, guard =
+// ow + 2 zero positions, a zero row and column an image, zeros to
+// slab_len). cout % 8 == 0; cp % 32 == 0 where quant, else cp == cout.
+int dgrad_pre_launch(const void* g, const void* dres, void* gslab,
+                     void* dslab, int quant, int cout, int cp, int n_out,
+                     int oh, int ow, long slab_len, void* stream) {
+  using namespace dgrad;
+  if (cout < 8 || cout % 8 || cp < cout || (quant ? cp % 32 : cp != cout) ||
+      oh < 1 || ow < 1 || n_out < 1 || n_out % (oh * ow))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int guard = ow + 2, per = (oh + 1) * (ow + 1);
+  const long b = n_out / (oh * ow);
+  const long pads = slab_len - n_out;
+  if (pads < guard + b * (ow + 1 + oh) + guard)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long pos_tiles = (n_out + PRE_P - 1) / PRE_P;
+  const long tiles_g = pos_tiles * ((cp + PRE_C - 1) / PRE_C);
+  const long tiles_d = dres != nullptr ? pos_tiles * ((cout + PRE_C - 1) /
+                                                      PRE_C)
+                                       : 0;
+  const long pad_g = pads * (cp / (quant ? 16 : 8));
+  const long pad_d = dres != nullptr ? pads * (cout / 8) : 0;
+  const long blocks = tiles_g + tiles_d + (pad_g + pad_d + 255) / 256;
+  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  const SlabPos live{oh * ow, ow, per, guard};
+  const PadPos pp{guard, ow, oh, per, b * (ow + 1 + oh), b * per};
+  const auto* d = static_cast<const unsigned short*>(dres);
+  auto* ds = static_cast<unsigned short*>(dslab);
+  if (quant)
+    dgrad_pre_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+        static_cast<const unsigned char*>(g),
+        static_cast<unsigned char*>(gslab), d, ds, live, pp, cout, cp,
+        n_out, (int)tiles_g, (int)tiles_d, pad_g, pad_d);
+  else
+    dgrad_pre_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+        static_cast<const unsigned short*>(g),
+        static_cast<unsigned short*>(gslab), d, ds, live, pp, cout, cp,
+        n_out, (int)tiles_g, (int)tiles_d, pad_g, pad_d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dgrad's GEMM: dx [cin, 4 * n_out] bf16 and part [2 * tiles][2 * cin]
+// f32 (each (M tile, row parity)'s sums of dn * x and dn) from gslab
+// [slab_len][cp] (dgrad_pre) and w_dg [cin][9 * cp] (plane-major, each
+// tap's channels padded to cp), int8 with g_amax [n_out / tile] and ws_in
+// [cin] (quant), or bf16 (cp == cout); through the masks of x [cin, 4 *
+// n_out] bf16, scale/shift [cin] f32 and bits [cin, 4 * n_out] uint8 or
+// null; the even-even pixels' shortcut from dslab [slab_len][cout] bf16
+// and wpt [cin][cout] bf16 through the scratch sc [cin][n_out] f32, or
+// (all three null, option A) from dres [cout][n_out] bf16. table [4][6]
+// (host memory): each class's first weight tap, tap count and up to four
+// slab row offsets (past guard + m). cin % 8 == 0, cout % 8 == 0.
+int dgrad_gemm_launch(const void* gslab, const void* dslab, const void* w_dg,
+                      const void* wpt, const void* g_amax,
+                      const void* ws_in, const void* x, const void* scale,
+                      const void* shift, const void* bits, const void* dres,
+                      void* sc, void* dx, void* part, const int* table,
+                      int quant, int cin, int cout, int cp, int n_out,
+                      int oh, int ow, int tile, int tiles, long slab_len,
+                      int thresh, float keep, void* stream) {
+  using namespace dgrad;
+  const int guard = ow + 2;
+  if (cin < 1 || cin % 8 || cout % 8 || cp < cout ||
+      (quant ? cp % 32 : cp != cout) || oh < 1 || ow < 1 ||
+      n_out % (oh * ow) || tile < 1 || n_out % tile || tiles < 1 ||
+      tiles > 65535 || slab_len < 2L * guard + (long)tiles * BM ||
+      (wpt == nullptr) != (sc == nullptr) ||
+      (wpt == nullptr) != (dslab == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{in<bf16>(x), in<float>(scale), in<float>(shift),
+         in<unsigned char>(bits), in<float>(g_amax), in<float>(ws_in),
+         in<bf16>(dres), static_cast<float*>(sc), static_cast<bf16*>(dx),
+         static_cast<float*>(part), cin, cp, n_out, n_out / (oh * ow), oh,
+         ow, tile, thresh, keep, {}, {}, {}};
+  for (int p = 0; p < 4; ++p) {
+    const int* t = table + 6 * p;
+    if (t[1] < 1 || t[1] > 4 || t[0] < 0 || t[0] + t[1] > 9)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.first[p] = t[0];
+    a.count[p] = t[1];
+    for (int j = 0; j < 4; ++j) {
+      if (j < t[1] && (t[2 + j] < 0 || t[2 + j] > ow + 2))
+        return static_cast<int>(cudaErrorInvalidValue);
+      a.off[p][j] = j < t[1] ? t[2 + j] : 0;
+    }
   }
+  const int b = n_out / (oh * ow);
+  const fwd_wgmma_bf16::Args gp{in<bf16>(gslab), in<bf16>(w_dg), nullptr,
+                                nullptr, nullptr, cp, cin, n_out, b, oh, ow,
+                                guard};
+  const fwd_wgmma_bf16::Args pp{in<bf16>(dslab), in<bf16>(wpt), nullptr,
+                                nullptr, nullptr, cout, cin, n_out, b, oh,
+                                ow, guard};
+  const cudaStream_t st = as_stream(stream);
+  fwd_wgmma_s8::Maps mp{};
+  if (!quant) return static_cast<int>(
+      launch_kernel<false, 0>(mp, gp, pp, a, tiles, st));
+  if (!fwd_wgmma_s8::encode_maps(&mp, gslab, slab_len, w_dg, cp, cin, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (cp % 128) {
+    case 0: return static_cast<int>(launch_kernel<true, 0>(mp, gp, pp, a,
+                                                            tiles, st));
+    case 32: return static_cast<int>(launch_kernel<true, 32>(mp, gp, pp, a,
+                                                              tiles, st));
+    case 64: return static_cast<int>(launch_kernel<true, 64>(mp, gp, pp, a,
+                                                              tiles, st));
+    default: return static_cast<int>(launch_kernel<true, 96>(mp, gp, pp, a,
+                                                              tiles, st));
+  }
+}
+
+// out[i] = the sum over the slots of part [slots][m] f32 in
+// common::tile_sum's fixed order (the dgrad's d(scale) and d(shift))
+int dgrad_sum_launch(const void* part, void* out, int slots, int m,
+                     void* stream) {
+  return common::tile_sum<dgrad::TransitionDgradSum>(
+      in<float>(part), static_cast<float*>(out), slots, m, as_stream(stream));
 }
 
 // out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)

@@ -44,8 +44,12 @@ operand passes write the prologue d as its four planes, channel-major
 ([4, Cin, N']: the FQT quantizer its int8 codes, the straight-through fold
 its bf16 values), and x's even-even plane ([Cin, N']): every tap of the
 weight gradient then reads one plane at a shift of at most one row and one
-column (``TAP_TABLE``), and dWp one plane unshifted. The dgrad indexes the
-stride-2 taps directly. The dropout bits' parity layout [4*Cin, N']
+column (``TAP_TABLE``), and dWp one plane unshifted. The dgrad takes
+each parity class of input pixel as a stride-1 contraction over the
+class's taps at the output geometry: g (and dres) written once into the
+fused forward's padded slab (``transition_dgrad_layout``), each class a
+range of the plane-major weights' taps, every tap one row offset. The
+dropout bits' parity layout [4*Cin, N']
 (plane-major rows, the reference's draw) is re-laid once to [Cin, N] by
 ``parity_unpack``.
 
@@ -67,7 +71,13 @@ kernel of ``csrc/transition.cu`` or raises):
 - ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
   the rounded cotangent, the bf16 prologue's parity planes and x's
   even-even plane)
-- ``dgrad``         (launches ``transition_dgrad``, ``.sum``)
+- ``dgrad``         (``dgrad_pre`` then ``dgrad_gemm``)
+- ``dgrad_pre``     (launches ``transition_dgrad.pre``: g, and dres where a
+  projection runs, into their padded slabs)
+- ``dgrad_gemm``    (launches ``transition_dgrad``, ``.sum``: each parity
+  class a tap range on the s8 (FQT, TMA-fed) or bf16 wgmma mainloop of
+  ``csrc/fwd_wgmma_s8.cuh`` / ``csrc/fwd_wgmma_bf16.cuh``, a masking
+  epilogue, the tiles' sums in order)
 - ``wgrad``         (launches ``transition_wgrad_s8``; FQT: one launch of
   ``csrc/transition_wgrad.cu`` on the TMA + s8 wgmma mainloop of
   ``csrc/wgrad_wgmma_s8.cuh``, the scale groups folded in order in each
@@ -470,6 +480,26 @@ def bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
             _even(x, h, w_img).contiguous())
 
 
+def _dgrad_epilogue(acc, x, scale, shift, bits, thresh, sc, h, w_img):
+    """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32) from the
+    dequantized input gradient acc [Cin, N] f32: through the masks
+    (``fb._masked``), dx = dn * scale, and on the even-even pixels
+    fma(dn, scale, sc) with the shortcut's cotangent sc [Cin, N'] f32."""
+    dn = fb._masked(acc, x, scale, shift, bits, thresh)
+    planes = parity_planes(dn * fb._vec(scale), h, w_img)
+    ee = fb._fma(parity_planes(dn, h, w_img)[0], fb._vec(scale), sc)
+    dx = parity_interleave((ee,) + planes[1:], h, w_img)
+    return (dx.to(x.dtype), (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1))
+
+
+def _shortcut_cotangent(dres, wpt, cin):
+    """sc [Cin, N'] f32: ``wpt`` [Cin, Cout] @ dres (float64 sums), or
+    dres's first Cin rows (``wpt`` None, option A)."""
+    if wpt is not None:
+        return (wpt.to(_F64) @ dres.to(_F64)).to(_F32)
+    return dres[:cin].to(_F32)
+
+
 def dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
                 thresh, tile, h, w_img):
     """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32). g is the
@@ -484,15 +514,149 @@ def dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
     if g_amax is not None:
         acc = fb._per_group(acc, 4 * tile, ws_in.to(_F32)[:, None]
                             * (g_amax * fb.INV_127)[None, :])
-    dn = fb._masked(acc, x, scale, shift, bits, thresh)
+    return _dgrad_epilogue(acc, x, scale, shift, bits, thresh,
+                           _shortcut_cotangent(dres, wpt, cin), h, w_img)
+
+
+class TransitionDgradLayout(NamedTuple):
+    """Where the dgrad's prepass writes g (and dres) and how its GEMM walks
+    them (``transition_dgrad_layout``).
+
+    The slabs are the fused forward's layout (``fused_block.fused_fwd_
+    layout``) at the output geometry (oh, ow) = (h/2, w/2): ``guard`` = ow
+    + 2 zero positions, then each image's per_img = (oh + 1) * (ow + 1)
+    positions, a zero row above it and a zero column at the start of each
+    row, output pixel (i, r, c) at M row m = i * per_img + (r + 1) * (ow +
+    1) + c + 1 (slab position guard + m), zeros to whole tiles of ``bm`` M
+    rows and a second guard. g's slab has ``cp`` channels (Cout, padded
+    with zeros to a multiple of 32 for the int8 body, whose K steps are
+    32-byte boxes), dres's (where a projection runs) Cout.
+
+    Input pixel (2r + ph, 2c + pw) is of parity class p = 2 ph + pw and
+    takes the 1, 2, 2 or 4 taps (dh, dw) of ``PLANE_TAPS[p]``, each from
+    the cotangent at output pixel (r + sh, c + sw), sh = (ph == 1 and dh
+    == 0), sw = (pw == 1 and dw == 0), zero past the image: M row m of
+    output pixel (r, c) reads slab row guard + m + sh * (ow + 1) + sw (the
+    next image's zero row or the next row's zero column past the image).
+    ``classes[p]`` = (first, count, offs): the class's taps are the
+    plane-major weights' taps first .. first + count - 1 (columns (first +
+    j) * Cout ..), tap j at slab row offset offs[j] past guard + m. The
+    GEMM's block takes an M tile, 80 input channels and a row parity ph:
+    classes 2 ph and 2 ph + 1, whose M row m maps to the input
+    lanes (``_class_lanes``) of output lane q at row 2r + ph, columns 2c
+    and 2c + 1. A tile may span images and scale groups (``tile`` output
+    lanes, whole images): each M row takes its own group's scale."""
+    n: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    tile: int
+    oh: int
+    ow: int
+    b: int
+    per_img: int
+    guard: int
+    bm: int
+    m_valid: int
+    tiles: int
+    slab_len: int
+    cp: int
+    quant: bool
+    classes: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def transition_dgrad_layout(n: int, h: int, w_img: int, cin: int, cout: int,
+                            tile: int, quant: bool) -> TransitionDgradLayout:
+    """The dgrad's layout for x [Cin, n] of h x w_img images, Cout outputs
+    and scale groups of ``tile`` output lanes (see
+    ``TransitionDgradLayout``); the forward's geometry rule
+    (``check_fwd_geometry``: any even H and W). Cached: every call of the
+    backward asks."""
+    check_fwd_geometry("transition_dgrad", cin, cout, h, w_img, n, tile)
+    oh, ow = h // 2, w_img // 2
+    lay = fb.fused_fwd_layout(n // 4, oh, ow, cout, cin)
+    if lay.tiles > 65535:
+        raise ValueError(f"transition_dgrad: {lay.tiles} tiles exceed the "
+                         "grid")
+    classes, first = [], 0
+    for p, taps in enumerate(PLANE_TAPS):
+        ph, pw = divmod(p, 2)
+        offs = tuple(int(ph == 1 and dh == 0) * (ow + 1)
+                     + int(pw == 1 and dw == 0) for dh, dw in taps)
+        classes.append((first, len(taps), offs))
+        first += len(taps)
+    return TransitionDgradLayout(
+        n, h, w_img, cin, cout, tile, oh, ow, lay.b, lay.per_img, lay.guard,
+        lay.bm, lay.m_valid, lay.tiles, lay.slab_len,
+        -(-cout // 32) * 32 if quant else cout, bool(quant), tuple(classes))
+
+
+def _out_rows(lay: TransitionDgradLayout) -> torch.Tensor:
+    """The M rows of the output pixels, in output-lane order."""
+    i, r, c = torch.meshgrid(torch.arange(lay.b), torch.arange(lay.oh),
+                             torch.arange(lay.ow), indexing="ij")
+    return (i * lay.per_img + (r + 1) * (lay.ow + 1) + c + 1).reshape(-1)
+
+
+def _class_lanes(lay: TransitionDgradLayout, p: int) -> torch.Tensor:
+    """The input lane of each output lane's pixel of class p = 2 ph + pw:
+    image i, row 2r + ph, column 2c + pw (the GEMM epilogue's map)."""
+    ph, pw = divmod(p, 2)
+    q = torch.arange(lay.n // 4)
+    i, rem = q // (lay.oh * lay.ow), q % (lay.oh * lay.ow)
+    r, c = rem // lay.ow, rem % lay.ow
+    return i * lay.h * lay.w + (2 * r + ph) * lay.w + 2 * c + pw
+
+
+def _out_slab(v: torch.Tensor, lay: TransitionDgradLayout,
+              c_pad: int) -> torch.Tensor:
+    """v [C, N'] written into a slab [slab_len, c_pad] of ``lay``: each
+    output pixel at its position, zeros at every pad position and pad
+    channel, in v's dtype."""
+    c = v.shape[0]
+    t = v.reshape(c, lay.b, lay.oh, lay.ow).permute(1, 2, 3, 0)
+    t = F.pad(t, (0, c_pad - c, 1, 0, 1, 0)).reshape(lay.m_valid, c_pad)
+    return F.pad(t, (0, 0, lay.guard, lay.slab_len - lay.guard
+                     - lay.m_valid)).contiguous()
+
+
+def dgrad_pre_plain(g, dres, lay):
+    """(g's slab [slab_len, cp] in g's dtype, dres's slab [slab_len, Cout]
+    or None where ``dres`` is None) of layout ``lay``."""
+    return (_out_slab(g, lay, lay.cp),
+            None if dres is None else _out_slab(dres, lay, lay.cout))
+
+
+def dgrad_gemm_plain(gslab, dslab, g_amax, w_dg, ws_in, x, scale, shift,
+                     bits, dres, wpt, *, thresh, lay):
+    """(dx, d(scale), d(shift)) from the slabs of layout ``lay``, walked as
+    the card's GEMM walks them: per parity class, each tap's shifted slab
+    rows at the output pixels' M rows against its weight columns (float64
+    sums), dequantized at each output lane's group (FQT: f32(acc) *
+    f32(ws_in * f32(g_amax / 127))), put at the class's input lanes; the
+    shortcut's cotangent from dres's slab (``wpt`` @ its rows) or dres
+    (option A); then ``dgrad_plain``'s epilogue."""
+    cin, cout = lay.cin, lay.cout
+    dev = x.device
+    rows = (_out_rows(lay) + lay.guard).to(dev)
+    wt = w_dg.to(_F64)
+    acc = torch.zeros((cin, lay.n), dtype=_F32, device=dev)
+    for p, (first, count, offs) in enumerate(lay.classes):
+        a = sum(gslab[rows + off, :cout].to(_F64)
+                @ wt[:, (first + j) * cout:(first + j + 1) * cout].t()
+                for j, off in enumerate(offs)).t().to(_F32)   # [Cin, N']
+        if g_amax is not None:
+            a = fb._per_group(a, lay.tile, ws_in.to(_F32)[:, None]
+                              * (g_amax * fb.INV_127)[None, :])
+        acc[:, _class_lanes(lay, p).to(dev)] = a
     if wpt is not None:
-        sc = (wpt.to(_F64) @ dres.to(_F64)).to(_F32)
+        sc = (wpt.to(_F64) @ dslab[rows, :cout].to(_F64).t()).to(_F32)
     else:
-        sc = dres[:cin].to(_F32)
-    planes = parity_planes(dn * fb._vec(scale), h, w_img)
-    ee = fb._fma(parity_planes(dn, h, w_img)[0], fb._vec(scale), sc)
-    dx = parity_interleave((ee,) + planes[1:], h, w_img)
-    return (dx.to(x.dtype), (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1))
+        sc = _shortcut_cotangent(dres, None, cin)
+    return _dgrad_epilogue(acc, x, scale, shift, bits, thresh, sc, lay.h,
+                           lay.w)
 
 
 def _tap_views(d: torch.Tensor, h: int, w_img: int) -> torch.Tensor:
@@ -569,7 +733,10 @@ def _library() -> ctypes.CDLL:
             "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
             "bwd_quant_launch": [_P] * 14 + [_I] * 8 + [_F, _P],
             "bwd_fold_launch": [_P] * 11 + [_I] * 6 + [_F, _P],
-            "dgrad_launch": [_P] * 12 + [_I] * 8 + [_F, _P],
+            "dgrad_pre_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_long, _P],
+            "dgrad_gemm_launch": ([_P] * 15 + [_I] * 9
+                                  + [ctypes.c_long, _I, _F, _P]),
+            "dgrad_sum_launch": [_P, _P, _I, _I, _P],
             "partial_sum_launch": [_P, _P, _I, _I, _P],
         }
         for name, args in sigs.items():
@@ -612,38 +779,6 @@ def _partial_sum(name: str, part: torch.Tensor, lib=None) -> torch.Tensor:
     _launch(name, (lib or _library()).partial_sum_launch, part.data_ptr(),
             out.data_ptr(), j, m, _stream(part))
     return out
-
-
-def row_tile(oh: int, ow: int) -> int:
-    """Output positions per block of the dgrad kernel: 64 or 128, whole
-    rows of one image (csrc/transition.cu ``out_row_tile``), or 0 for
-    none."""
-    if ow % 8:
-        return 0
-    best = 0
-    for r in range(1, oh + 1):
-        bn = r * ow
-        if oh % r == 0 and bn in (64, 128) and bn > best:
-            best = bn
-    return best
-
-
-def check_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
-                   n: int, tile: int) -> None:
-    """The backward kernels' own shape needs (the block's gate admits
-    more): the contractions in 32-channel chunks (Cin for the weight
-    gradient, Cout for the dgrad), rows of 8 output pixels and a row tile
-    of whole output rows that divides the scale group ``tile``."""
-    oh, ow = h // 2, w_img // 2
-    if cin % 32 or cout % 32:
-        raise ValueError(f"{name}: Cin={cin}, Cout={cout} are not multiples "
-                         "of 32")
-    if h % 2 or w_img % 2 or n % (h * w_img) or row_tile(oh, ow) == 0:
-        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
-                         "supported by the kernel")
-    if tile is not None and ((n // 4) % tile or tile % row_tile(oh, ow)):
-        raise ValueError(f"{name}: tile {tile} vs N'={n // 4} and the row "
-                         f"tile {row_tile(oh, ow)}")
 
 
 def _prologue_args(name, x, scale, shift, bits, extra=(), extra_dtypes=()):
@@ -891,52 +1026,124 @@ def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh, h,
     return g, d, x_ee
 
 
+def _pad_w_dgrad(w_dg, lay):
+    """w_dg [Cin, 9*Cout] -> [Cin, 9*cp]: each tap's channels padded with
+    zeros to g's slab's cp (w_dg itself where cp == Cout)."""
+    if lay.cp == lay.cout:
+        return w_dg.contiguous()
+    return F.pad(w_dg.reshape(lay.cin, 9, lay.cout),
+                 (0, lay.cp - lay.cout)).reshape(lay.cin, -1).contiguous()
+
+
+def dgrad_pre(g, dres, lay):
+    """g [Cout, N'] (int8 for the FQT layout, else bf16) and, where a
+    projection runs, dres [Cout, N'] bf16 into their slabs of layout
+    ``lay`` (``dgrad_pre_plain``): (gslab, dslab or None). One launch."""
+    if on_cpu(g):
+        return dgrad_pre_plain(g, dres, lay)
+    name = "transition_dgrad.pre"
+    n_out = lay.n // 4
+    el = torch.int8 if lay.quant else torch.bfloat16
+    if tuple(g.shape) != (lay.cout, n_out) or (
+            dres is not None and tuple(dres.shape) != (lay.cout, n_out)):
+        raise ValueError(f"{name}: g {tuple(g.shape)} vs the layout {lay}")
+    tensors, dtypes = [g], [el]
+    if dres is not None:
+        tensors.append(dres)
+        dtypes.append(torch.bfloat16)
+    require_cuda(name, tensors, dtypes)
+    gslab = torch.empty((lay.slab_len, lay.cp), dtype=el, device=g.device)
+    dslab = (None if dres is None else torch.empty(
+        (lay.slab_len, lay.cout), dtype=torch.bfloat16, device=g.device))
+    _launch(name, _library().dgrad_pre_launch, g.data_ptr(), _ptr(dres),
+            gslab.data_ptr(), _ptr(dslab), int(lay.quant), lay.cout, lay.cp,
+            n_out, lay.oh, lay.ow, lay.slab_len, _stream(g))
+    return gslab, dslab
+
+
+def dgrad_gemm(gslab, dslab, g_amax, w_dg, ws_in, x, scale, shift, bits,
+               dres, wpt, *, thresh, lay):
+    """(dx [Cin, N] bf16, d(scale), d(shift) [Cin] f32) from the slabs of
+    layout ``lay`` (``dgrad_gemm_plain``): on the card each parity class a
+    range of taps on the s8 (FQT, TMA-fed) or bf16 wgmma mainloop, two
+    classes a block, the projection's shortcut on the bf16 one; dx written
+    through the masks and each tile's sums in a fixed order
+    (``transition_dgrad``), then the tiles' sums in order
+    (``transition_dgrad.sum``): bit for bit the same every run."""
+    if on_cpu(gslab):
+        return dgrad_gemm_plain(gslab, dslab, g_amax, w_dg, ws_in, x, scale,
+                                shift, bits, dres, wpt, thresh=thresh,
+                                lay=lay)
+    name = "transition_dgrad"
+    cin, cout, n_out = lay.cin, lay.cout, lay.n // 4
+    el = torch.int8 if lay.quant else torch.bfloat16
+    if tuple(gslab.shape) != (lay.slab_len, lay.cp) or (
+            (dslab is None) != (wpt is None)) or (
+            dslab is not None and tuple(dslab.shape) != (lay.slab_len, cout)):
+        raise ValueError(f"{name}: slabs do not match the layout {lay}")
+    if tuple(w_dg.shape) != (cin, 9 * cout) or tuple(x.shape) != (cin,
+                                                                  lay.n):
+        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}, x "
+                         f"{tuple(x.shape)} vs the layout {lay}")
+    if (g_amax is not None) != lay.quant:
+        raise ValueError(f"{name}: the layout's body and g_amax disagree")
+    if wpt is None and cout < cin:
+        raise ValueError(f"{name}: option A needs Cout >= Cin")
+    if tuple(dres.shape) != (cout, n_out):
+        raise ValueError(f"{name}: dres {tuple(dres.shape)}")
+    w_p = _pad_w_dgrad(w_dg, lay)
+    extra, dtypes = [gslab, w_p, dres], [el, el, torch.bfloat16]
+    if lay.quant:
+        ws_in = ws_in.to(_F32).contiguous()
+        extra += [g_amax, ws_in]
+        dtypes += [_F32, _F32]
+    if wpt is not None:
+        extra += [dslab, wpt]
+        dtypes += [torch.bfloat16, torch.bfloat16]
+    scale, shift = _prologue_args(name, x, scale, shift, bits, extra, dtypes)
+    dev = x.device
+    dx = torch.empty((cin, lay.n), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((2 * lay.tiles, 2 * cin), dtype=_F32, device=dev)
+    sc = (None if wpt is None else
+          torch.empty((cin, n_out), dtype=_F32, device=dev))
+    table = (ctypes.c_int * 24)(*(
+        v for first, count, offs in lay.classes
+        for v in (first, count, *offs, *(0,) * (4 - count))))
+    _launch(name, _library().dgrad_gemm_launch, gslab.data_ptr(),
+            _ptr(dslab), w_p.data_ptr(), _ptr(wpt), _ptr(g_amax),
+            _ptr(ws_in if lay.quant else None), x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _ptr(bits), dres.data_ptr(),
+            _ptr(sc), dx.data_ptr(), part.data_ptr(),
+            ctypes.addressof(table), int(lay.quant), cin, cout, lay.cp,
+            n_out, lay.oh, lay.ow, lay.tile, lay.tiles, lay.slab_len,
+            thresh or 256, fb.inv_keep(thresh) if bits is not None else 1.0,
+            _stream(x))
+    sums = torch.empty(2 * cin, dtype=_F32, device=dev)
+    _launch(f"{name}.sum", _library().dgrad_sum_launch, part.data_ptr(),
+            sums.data_ptr(), 2 * lay.tiles, 2 * cin, _stream(x))
+    return dx, sums[:cin], sums[cin:]
+
+
 def dgrad(g, g_amax, w_dg, ws_in, x, scale, shift, bits, dres, wpt, *,
           thresh, tile, h, w_img):
     """The input gradient through the masks, plus the shortcut's cotangent
     on the even-even pixels: (dx [Cin, N] bf16, d(scale), d(shift) [Cin]
     f32). FQT: g int8 with ``g_amax`` and ``ws_in``; straight-through: g
-    bf16, both None."""
+    bf16, both None. On the card ``dgrad_pre`` then ``dgrad_gemm`` on
+    ``transition_dgrad_layout`` (any geometry of ``check_fwd_geometry``)."""
     if on_cpu(g):
         return dgrad_plain(g, g_amax, w_dg, ws_in, x, scale, shift, bits,
                            dres, wpt, thresh=thresh, tile=tile, h=h,
                            w_img=w_img)
-    name = "transition_dgrad"
     cout, n_out = g.shape
     cin, n = x.shape
-    quant = g_amax is not None
-    if tuple(w_dg.shape) != (cin, 9 * cout):
-        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
     if n != 4 * n_out:
-        raise ValueError(f"{name}: N={n} vs N'={n_out}")
-    check_geometry(name, cin, cout, h, w_img, n, tile)
-    el = torch.int8 if quant else torch.bfloat16
-    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
-    tensors = [g, w_dg, x, scale, shift, dres]
-    dtypes = [el, el, torch.bfloat16, _F32, _F32, torch.bfloat16]
-    if quant:
-        ws_in = ws_in.to(_F32).contiguous()
-        tensors += [g_amax, ws_in]
-        dtypes += [_F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
-    if wpt is not None:
-        tensors.append(wpt)
-        dtypes.append(torch.bfloat16)
-    require_cuda(name, tensors, dtypes)
-    dev = g.device
-    dx = torch.empty((cin, n), dtype=torch.bfloat16, device=dev)
-    bn = row_tile(h // 2, w_img // 2)
-    part = torch.empty((4 * (n_out // bn), 2 * cin), dtype=_F32, device=dev)
-    keep = fb.inv_keep(thresh) if bits is not None else 1.0
-    _launch(name, _library().dgrad_launch, g.data_ptr(), w_dg.data_ptr(),
-            _ptr(g_amax), _ptr(ws_in if quant else None), x.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), _ptr(bits), dres.data_ptr(),
-            _ptr(wpt), dx.data_ptr(), part.data_ptr(), int(quant), cout,
-            cin, n, h, w_img, tile, thresh or 256, keep, _stream(g))
-    sums = _partial_sum(f"{name}.sum", part)
-    return dx, sums[:cin], sums[cin:]
+        raise ValueError(f"transition_dgrad: N={n} vs N'={n_out}")
+    lay = transition_dgrad_layout(n, h, w_img, cin, cout, tile,
+                                  g_amax is not None)
+    gslab, dslab = dgrad_pre(g, dres if wpt is not None else None, lay)
+    return dgrad_gemm(gslab, dslab, g_amax, w_dg, ws_in, x, scale, shift,
+                      bits, dres, wpt, thresh=thresh, lay=lay)
 
 
 # the N tiles csrc/wgrad_wgmma_s8.cuh is built for without a split
@@ -966,8 +1173,7 @@ def check_wgrad_s8_geometry(name: str, cin: int, cout: int, h: int,
     of a K step lies in one image); scale groups of ``tile`` positions, a
     whole number of 128-position K steps. This takes every shape of
     ``check_wgrad_geometry`` and more; the FQT body as a whole stays bounded
-    by its operand passes (``_check_rows``) and the dgrad
-    (``check_geometry``)."""
+    by its operand passes (``_check_rows``)."""
     if h % 2 or w_img % 2:
         raise ValueError(f"{name}: geometry H={h} W={w_img} is not even")
     oh, ow = h // 2, w_img // 2
@@ -1050,8 +1256,8 @@ def check_wgrad_geometry(name: str, cin: int, cout: int, h: int, w_img: int,
     ``n_out`` positions): ``conv3x3.check_wgrad_geometry``'s rule (Cin in
     32-channel boxes, which the op's zero padding gives; output rows of W'
     = 8, 16 or 32 with H' a multiple of 64 / W', or W' a multiple of 64),
-    and Cout a multiple of 8. The dgrad keeps its own, narrower rule
-    (``check_geometry``)."""
+    and Cout a multiple of 8. The dgrad takes the forward's wider rule
+    (``check_fwd_geometry``)."""
     if h % 2 or w_img % 2:
         raise ValueError(f"{name}: geometry H={h} W={w_img} is not even")
     conv3x3.check_wgrad_geometry(name, cin, n_out, h // 2, w_img // 2)

@@ -1766,9 +1766,12 @@ def test_transition_op_launches_its_kernels(dev, quant_bwd):
             # TMA wgrad
             wg = (("transition_wgrad_s8",) if quant_bwd
                   else ("transition_wgrad_tma", "transition_wgrad_tma.sum"))
+            # the dgrad: g and dres into their slabs, the wgmma GEMM of
+            # the four parity classes, its tiles' sums
             assert dict(tr.launches) == {name: 1 for name in (
                 "transition_fwd.amax", "transition_fwd.pre",
-                "transition_fwd", "transition_fwd.sum", "transition_dgrad",
+                "transition_fwd", "transition_fwd.sum",
+                "transition_dgrad.pre", "transition_dgrad",
                 "transition_dgrad.sum", "transition_wgrad_tma.proj",
                 "transition_wgrad_tma.proj_sum") + bwd + wg}
             assert not fb.launches
@@ -2032,26 +2035,91 @@ def test_transition_fwd_staged_matches_plain(dev, b, h, w, cin, cout,
 
 
 def test_transition_never_falls_back(dev):
-    """A CUDA tensor launches the kernels or raises: f32 activations; an
-    output width off the 32-channel chunks (the gate admits Cout % 32 only;
-    a narrow Cin is padded) and rows narrower than 8 output pixels run the
-    forward (it takes any even width and Cout % 8) and raise in the
-    backward, whose kernels need them."""
+    """A CUDA tensor launches the kernels or raises: f32 activations raise;
+    an output width off the 32-channel chunks (Cout = 48; a narrow Cin is
+    padded) runs the forward and the whole backward on the card (the dgrad
+    takes the forward's geometry since its wgmma rebuild); rows narrower
+    than 8 output pixels run the forward and raise at the backward's
+    operand passes, which still need them."""
     t = _tr_inputs(dev, 8, 16, 16, 32, 64, 4)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         tr.transition_half_int8(t["x"].float(), t["w1"], None, t["scale"],
                                 t["shift"], h=16, w_img=16)
     w48 = t["w1"][:48].contiguous().requires_grad_()
-    out = tr.transition_half_int8(t["x"], w48, None, t["scale"], t["shift"],
-                                  h=16, w_img=16)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        torch.autograd.grad(out[0].float().sum(), w48)
-    x = torch.zeros((32, 32 * 64), dtype=torch.bfloat16, device=dev,
-                    requires_grad=True)
-    out = tr.transition_half_int8(x, t["w1"], None, t["scale"], t["shift"],
-                                  h=8, w_img=8)
-    with pytest.raises(ValueError, match="geometry"):
-        torch.autograd.grad(out[0].float().sum(), x)
+    for quant_bwd in (True, False):
+        out = tr.transition_half_int8(t["x"], w48, None, t["scale"],
+                                      t["shift"], h=16, w_img=16,
+                                      quant_bwd=quant_bwd)
+        tr.reset_launches()
+        gw = torch.autograd.grad(out[0].float().sum(), w48)[0]
+        assert gw.shape == w48.shape and torch.isfinite(gw).all()
+        assert tr.launches["transition_dgrad"] == 1
+    for hw in (8, 12):
+        x = torch.zeros((32, 32 * hw * hw), dtype=torch.bfloat16,
+                        device=dev, requires_grad=True)
+        out = tr.transition_half_int8(x, t["w1"], None, t["scale"],
+                                      t["shift"], h=hw, w_img=hw)
+        with pytest.raises(ValueError, match="geometry"):
+            torch.autograd.grad(out[0].float().sum(), x)
+
+
+# (batch, h, w, Cin, Cout) of the dgrad's wgmma route: WRN-28-10's two
+# transitions at batch 128; 24x24 and 12x12 inputs (output rows of 12 and
+# 6 pixels) at Cout = 40, at three scale groups each
+TR_DGRAD_SHAPES = [(128, 32, 32, 160, 320), (128, 16, 16, 320, 640),
+                   (48, 24, 24, 32, 40), (96, 12, 12, 32, 40)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", TR_DGRAD_SHAPES)
+@pytest.mark.parametrize("quant", [True, False])
+def test_transition_dgrad_wgmma_matches_plain(dev, b, h, w, cin, cout,
+                                              quant):
+    """The dgrad's prepass, GEMM and sum (each parity class a tap range on
+    the s8 or bf16 wgmma mainloop, two classes a block) against the plain
+    versions on the same CUDA tensors, both bodies, the projection and
+    option A, with and without the bits: the slabs byte for byte; dx
+    within 2 bf16 ulps; d(scale), d(shift) within 1e-4 (f32 sums taken
+    per unit, per tile, then over the tiles); two calls bit-equal. Some M
+    tile spans two scale groups."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, 11)
+    n = b * h * w
+    n_out = n // 4
+    tile = tr.transition_tile(h // 2, w // 2, n_out, cin, cout)
+    lay = tr.transition_dgrad_layout(n, h, w, cin, cout, tile, quant)
+    assert n_out // tile >= 3 and any(
+        len({min(m, lay.m_valid - 1) // lay.per_img * lay.oh * lay.ow // tile
+             for m in range(m0, m0 + 128)}) > 1
+        for m0 in range(0, lay.m_valid, 128))
+    gf = t["dz"].float()
+    if quant:
+        g, g_amax = fb.quantize_groups_plain(gf, tile, fb.BWD_FLOOR)
+        w_dg, ws_in = tr.quant_pack_w_dgrad(t["w1"])
+    else:
+        g, g_amax = gf.to(torch.bfloat16), None
+        w_dg, ws_in = tr.pack_w_dgrad(t["w1"].to(torch.bfloat16)), None
+    wpt = t["wp"].t().contiguous()
+    thresh = fb.dropout_thresh(0.3)
+    for proj, bits in ((True, t["bits"]), (True, None), (False, t["bits"])):
+        wpt_ = wpt if proj else None
+        th = thresh if bits is not None else None
+        dres = t["dres"]
+        slabs = tr.dgrad_pre(g, dres if proj else None, lay)
+        want = tr.dgrad_pre_plain(g, dres if proj else None, lay)
+        for a, b_ in zip(slabs, want):
+            assert (a is None) == (b_ is None)
+            if a is not None:
+                assert torch.equal(a, b_)
+        args = (g_amax, w_dg, ws_in, t["x"], t["scale"], t["shift"], bits,
+                dres, wpt_)
+        got = tr.dgrad_gemm(*slabs, *args, thresh=th, lay=lay)
+        again = tr.dgrad_gemm(*slabs, *args, thresh=th, lay=lay)
+        for a, b_ in zip(got, again):
+            assert torch.equal(a, b_)
+        want = tr.dgrad_plain(g, *args, thresh=th, tile=tile, h=h, w_img=w)
+        _bf16_close(got[0], want[0])
+        _mma_sums(got[1], want[1])
+        _mma_sums(got[2], want[2])
+    torch.cuda.synchronize()
 
 
 def test_fused_gate_geometry_the_kernels_refuse_raises(dev):

@@ -705,6 +705,7 @@ def test_full_width_transitions():
             if got:
                 tile = tr.transition_tile(hw, hw, 128 * hw * hw, cin, c)
                 assert tile == {16: 1024, 8: 512}[hw]
-                tr.check_geometry("gate", cin, c, size, size,
-                                  128 * size * size, tile)
+                tr.transition_dgrad_layout(128 * size * size, size, size,
+                                           cin, c, tile, True)
+                tr._check_rows("gate", size, size, 128 * size * size)
     assert sum(through) == 2

@@ -14,9 +14,9 @@ csrc/wgrad_wgmma_bf16.cuh), on the CPU:
   replace (the stride-2 ``conv2d_weight`` of the lane prologue, and
   ``dres @ x[::2, ::2]^T``) to f32 rounding;
 - the plan and the geometry check are pure functions: tiles covering dW,
-  the splits partitioning the K steps; the wgrad takes shapes the dgrad
-  refuses (Cout = 40, output rows of 192 pixels) and refuses, naming them,
-  shapes off its rule;
+  the splits partitioning the K steps; the wgrad takes shapes the old
+  row-tile dgrad refused (Cout = 40, output rows of 192 pixels), as the
+  rebuilt dgrad now does, and refuses, naming them, shapes off its rule;
 - tests/_wgrad_tma_model.py's numpy model of the kernel's reads, run with
   this table on the fold's planes, matches the plain versions within
   1e-4 of dW's largest value (narrow and wide rows, tiles straddling
@@ -202,14 +202,24 @@ def test_plan_at_the_wrn_transitions():
 
 
 @pytest.mark.parametrize("cin,cout,h,w", [(32, 40, 16, 16),
-                                          (32, 64, 2, 384)])
+                                          (32, 64, 2, 384),
+                                          (32, 40, 24, 24)])
 def test_wgrad_takes_what_the_dgrad_refuses(cin, cout, h, w):
-    """Cout = 40 (the dgrad contracts Cout in 32-channel chunks) and output
-    rows of 192 pixels (no 64- or 128-position row tile of whole rows):
-    the dgrad's check refuses, the wgrad's takes them."""
-    n = 4 * h * w
-    with pytest.raises(ValueError):
-        tr.check_geometry("transition_dgrad", cin, cout, h, w, n, None)
+    """Cout = 40 (the old row-tile dgrad contracted Cout in 32-channel
+    chunks) and output rows of 192 pixels (no 64- or 128-position row
+    tile of whole rows): the old dgrad refused them; since its wgmma
+    rebuild the dgrad takes them (the forward's geometry), as the wgrads
+    do. What still refuses output rows off 8 pixels (12 at 24x24) is the
+    backward's operand passes, which the FQT wgrad's rule admits."""
+    n = 8 * h * w
+    tr.transition_dgrad_layout(n, h, w, cin, cout, n // 4, True)
+    if (w // 2) % 8:
+        with pytest.raises(ValueError, match=f"geometry H={h} W={w}"):
+            tr._check_rows("transition_bwd", h, w, n)
+        tr.check_wgrad_s8_geometry("transition_wgrad_s8", cin, cout, h, w,
+                                   n // 4, n // 4)
+        return
+    tr._check_rows("transition_bwd", h, w, n)
     tr.check_wgrad_geometry("transition_wgrad_tma", cin, cout, h, w, n // 4)
     tr.wgrad_tma_plan(9, cin, cout, n // 4, h, w)
 
