@@ -60,14 +60,24 @@ Phases, each fatal on failure:
    calls, its slab must equal the plain prepass's byte for byte, and its
    parts are timed apart beside their bounds: the amax pass + prepass and
    the GEMM + sum (CUDA events), and each kernel's device time
-   (torch.profiler); the prepass is also a kernel row of its own.
+   (torch.profiler); the prepass is also a kernel row of its own. The
+   dgrad (the backward's amax pass and quantizer, then the prepass that
+   copies g's codes into the padded slab, csrc/dgrad_wgmma_s8.cuh's s8
+   wgmma GEMM on that mainloop with a dequantizing, masking epilogue, and
+   the ordered sum) must give the same dx and sums bit for bit in two
+   calls; its slab must equal the plain prepass's byte for byte and its
+   GEMM on that slab the plain GEMM's (dx equal, sums within 1e-5); each
+   part's device time (amax, quant, pre, GEMM, sum) is printed beside its
+   bound and cuDNN's bf16 input gradient; the prepass is a kernel row of
+   its own.
 7. Training, the third main path: the recipe
    models_dir/wrn-28-10-dropout_synthspectral-hard-int8/config.yaml (int8
    fully quantized training) plus ``use_pallas_augment: True``, through
    ``setup(config)`` as in phase 5. With the launch counts zeroed just
    before, each step must launch the stem forward and weight gradient
-   once, the fused half's forward, backward quantization, dgrad and wgrad
-   22 times each (FQT_PER_STEP), the augment kernel once and no serving
+   once, the fused half's forward, backward quantization, dgrad (its
+   prepass, GEMM and sum) and wgrad 22 times each (FQT_PER_STEP), the
+   augment kernel once and no serving
    kernel; losses finite, every parameter changed, every BatchNorm count
    equal to the steps. The first fused half of the first step, on its live
    inputs and cotangents, must reproduce its output and equal its plain
@@ -350,11 +360,15 @@ SOURCES = {"nv_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_bf16.cuh",
            "fused_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
+           "fused_half_dgrad":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_s8.cuh",
+           "fused_half_dgrad.pre":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_half.cuh",
            "fused_half_wgrad": FQT_WGRAD_SOURCE,
            "conv3x3_int8_requant":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/requant_wgmma_s8.cuh",
            "conv3x3_int8_requant.pre":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/requant_wgmma_s8.cuh"}
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_half.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
@@ -368,6 +382,8 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "fused_half_fwd.pre": _PALLAS + "fused_block.py:380",
             "fused_half_dgrad": _PALLAS + "fused_block.py:588, "
                                 + _PALLAS + "fused_block.py:992",
+            "fused_half_dgrad.pre": _PALLAS + "fused_block.py:588, "
+                                    + _PALLAS + "fused_block.py:992",
             "fused_half_wgrad": _PALLAS + "fused_block.py:763, "
                                 + _PALLAS + "fused_block.py:992",
             "bneck_block_nv": _PALLAS + "bneck_nv.py:321",
@@ -392,7 +408,9 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
 BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
               "fused_half_bf16_wgrad")
 # the int8 serving conv's two kernels by part, for the device-time split
-REQUANT_KERNELS = {"pre": "pre_kernel", "gemm": "requant_s8_kernel"}
+# (its prepass is csrc/fused_half.cuh's slab copy, shared with the FQT
+# dgrad's)
+REQUANT_KERNELS = {"pre": "slab_copy_kernel", "gemm": "requant_s8_kernel"}
 # the int8 serving conv's launches of one WRN-28-10 serving batch
 REQUANT_PER_BATCH = {"conv3x3_int8_requant.pre": 22,
                      "conv3x3_int8_requant": 22}
@@ -504,7 +522,8 @@ FQT_PER_STEP = {
     "fused_half_fwd.amax": 22, "fused_half_fwd.pre": 22,
     "fused_half_fwd": 22, "fused_half_fwd.sum": 10,
     "fused_half_bwd.amax": 22, "fused_half_bwd.quant": 22,
-    "fused_half_dgrad": 22, "fused_half_dgrad.sum": 22,
+    "fused_half_dgrad.pre": 22, "fused_half_dgrad": 22,
+    "fused_half_dgrad.sum": 22,
     "fused_half_wgrad": 22, "fused_half_wgrad.sum": 15}
 # launches of one lane-transition step: the 22 halves as above, plus the
 # two transition halves (each one forward: its amax pass, prepass, staged
@@ -1028,10 +1047,13 @@ KERNEL_KINDS = [
                            "dgrad_kernel<", "dgrad_pre_kernel",
                            "bwd_amax_kernel",
                            "bwd_quant_kernel", "bwd_fold_kernel")),
-    ("fused int8 half (port)", ("conv3x3_rows_kernel", "amax_kernel",
-                                "quant_kernel", "FusedWgradS8",
-                                "partial_sum", "fwd_slab_kernel",
-                                "fwd_s8_kernel", "tile_sum_kernel")),
+    # the FQT dgrad's prepass (csrc/fused_half.cuh's slab copy, which the
+    # int8 serving conv also launches) and GEMM
+    ("fused int8 half (port)", ("amax_kernel", "quant_kernel",
+                                "FusedWgradS8", "partial_sum",
+                                "fwd_slab_kernel", "fwd_s8_kernel",
+                                "slab_copy_kernel", "dgrad_s8_kernel",
+                                "tile_sum_kernel")),
     ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm")),
     ("matmul", ("gemm", "cublas")),
     ("reduction", ("reduce_kernel",)),
@@ -1046,6 +1068,13 @@ WRN_KERNEL_KINDS = [
     (kind, pats + ("wgrad_staged",) if kind == "fused bf16 half (port)"
      else pats) for kind, pats in KERNEL_KINDS
     if kind != "nv train halves (port)"]
+
+
+def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
+    """The kind of a kernel by its (demangled) name: the first kind one of
+    whose patterns the name holds, else "other"."""
+    return next((k for k, pats in kinds if any(p in name for p in pats)),
+                "other")
 
 
 def _profile_steps(run_steps, steps: int, kinds=KERNEL_KINDS):
@@ -1067,8 +1096,7 @@ def _profile_steps(run_steps, steps: int, kinds=KERNEL_KINDS):
     dev_ms = sum(_dev_us(e) for e in events) / 1e3
     by_kind = {}
     for e in events:
-        kind = next((k for k, pats in kinds
-                     if any(p in e.key for p in pats)), "other")
+        kind = kernel_kind(e.key, kinds)
         by_kind[kind] = by_kind.get(kind, 0.0) + _dev_us(e) / 1e3 / steps
     top = sorted(events, key=lambda e: -_dev_us(e))[:12]
     host = sorted((e for e in prof.key_averages()
@@ -1277,6 +1305,75 @@ def _fused_fwd_int8_parts(fb, args, thresh, tile, h, w, stats, peaks):
 FWD_INT8_PART_KEYS = ("pre_ms", "gemm_ms", "amax_dev_ms", "prepass_dev_ms",
                       "gemm_dev_ms", "sum_dev_ms", "amax_bound_ms",
                       "pre_bound_ms", "pre_traffic_ms", "gemm_bound_ms")
+# the FQT dgrad's kernels by part (the backward's amax pass and quantizer,
+# the slab copy, the s8 wgmma GEMM, the tiles' ordered sum), and the keys
+# its rows carry beyond the forward's
+DGRAD_INT8_KERNELS = {"amax": "amax_kernel", "quant": "quant_kernel",
+                      "pre": "slab_copy_kernel", "gemm": "dgrad_s8_kernel",
+                      "sum": "tile_sum_kernel"}
+DGRAD_INT8_PART_KEYS = ("quant_dev_ms", "pre_dev_ms", "quant_bound_ms")
+INT8_PART_KEYS = FWD_INT8_PART_KEYS + DGRAD_INT8_PART_KEYS
+
+
+def _fused_dgrad_int8_parts(fb, args, thresh, tile, h, w, peaks):
+    """The FQT dgrad (the backward's quantization, then ``dgrad_conv``):
+    its second call equal to its first bit for bit; its slab equal to the
+    plain prepass's byte for byte and its GEMM on that slab equal to the
+    plain GEMM's (dx equal, sums within 1e-5); its parts in device time
+    (torch.profiler), each beside its bound: the amax pass (dy, y and the
+    stats cotangents where the call folds them, x and the bits read), the
+    quantizer (those again, g_q and d_q written), the prepass (g_q read,
+    the slab's live rows written), the GEMM (its operations, or the codes,
+    the weights, x, the bits, dx and the sums once); and the prepass and
+    GEMM + sum wrappers timed apart (CUDA events)."""
+    import torch
+
+    _, ops_int8, bw, _ = peaks
+    dy, y, dysum, dyssq, x, wdg, wsin, scale, shift, bits = args
+    c, n = dy.shape
+    cin = x.shape[0]
+    qkw = dict(thresh=thresh, tile=tile, emit_res=False)
+
+    def call():
+        g_q, g_amax = fb.bwd_quantize(dy, y, dysum, dyssq, x, scale, shift,
+                                      bits, **qkw)[:2]
+        return fb.dgrad_conv(g_q, g_amax, wdg, wsin, x, scale, shift, bits,
+                             thresh=thresh, tile=tile, h=h, w_img=w)
+
+    for a, b in zip(call(), call()):
+        assert torch.equal(a, b), ("fused_half_dgrad", c, h)
+    g_q, g_amax = fb.bwd_quantize(dy, y, dysum, dyssq, x, scale, shift,
+                                  bits, **qkw)[:2]
+    plan = fb.fused_fwd_int8_plan(n, h, w, c, cin)
+    slab = fb.dgrad_int8_pre(g_q, plan=plan)
+    assert torch.equal(slab, fb.dgrad_int8_pre_plain(g_q, plan=plan)), (
+        "fused_half_dgrad.pre", c, h)
+    gkw = dict(thresh=thresh, tile=tile, plan=plan)
+    gargs = (slab, g_amax, wdg, wsin, x, scale, shift, bits)
+    _agree(dict(zip(("dx", "ds", "dt"), fb.dgrad_int8_gemm(*gargs, **gkw))),
+           dict(zip(("dx", "ds", "dt"),
+                    fb.dgrad_int8_gemm_plain(*gargs, **gkw))),
+           ("fused_half_dgrad gemm", c, h))
+    split = kernel_split_ms(call, 5, DGRAD_INT8_KERNELS.values(),
+                            need=list(DGRAD_INT8_KERNELS.values()))
+    bits_b = cin * n if bits is not None and not fb.is_seed(bits) else 0
+    ins = 2 * c * n + 2 * cin * n + bits_b + (
+        2 * c * n + 8 * c if y is not None else 0)
+    return dict(
+        deterministic=True, bn=plan.bn, tiles=plan.lay.tiles,
+        boxes=[b[1] for b in plan.boxes],
+        pre_ms=time_ms(lambda: fb.dgrad_int8_pre(g_q, plan=plan), 10),
+        gemm_ms=time_ms(lambda: fb.dgrad_int8_gemm(*gargs, **gkw), 10),
+        **{f"{part}_dev_ms": (split[key] if split else None)
+           for part, key in DGRAD_INT8_KERNELS.items()},
+        dev_ms=sum(split.values()) if split else None,
+        amax_bound_ms=ins / bw * 1e3,
+        quant_bound_ms=(ins + c * n + cin * n) / bw * 1e3,
+        pre_bound_ms=2 * c * n / bw * 1e3,
+        gemm_bound_ms=max(
+            2 * 9 * c * cin * n / ops_int8,
+            (c * n + 9 * c * cin + 4 * cin * n + bits_b + 8 * cin) / bw)
+        * 1e3)
 
 
 def _half_dgrad(fb, dy, y, dysum, dyssq, x, wdg, wsin, scale, shift, bits,
@@ -1432,6 +1529,9 @@ def fqt_kernel_phase(peaks):
                 lambda: _half_dgrad(fb, *args, plain=False),
                 lambda: _half_dgrad(fb, *args, plain=True), lib_d, 2 * macs,
                 ins + 2 * cn + 36 * c * c + (2 * cn if ct else 0), ops_int8)
+            rows[-1].update(_fused_dgrad_int8_parts(
+                fb, (dy, *cts, x, wdg, wsin, scale, shift, bits), thresh,
+                btile, h, w, peaks))
             wargs = (ops_p, btile, h, w)
             first = _half_wgrad(fb, *wargs, plain=False)
             assert torch.equal(first["dw"], _half_wgrad(
@@ -1450,7 +1550,20 @@ def fqt_kernel_phase(peaks):
                 bn=wplan.bn, runs=wplan.runs, bits_equal_two_calls=True,
                 dev_ms=device_ms(
                     lambda: _half_wgrad(fb, *wargs, plain=False), 10))
-        del x, bits, res, y, dy
+        # the dgrad's prepass as a kernel row of its own: its slab equal to
+        # the plain version's byte for byte; bound by its bytes (g_q read,
+        # the slab written)
+        g_q = fb.bwd_quantize(dy, None, None, None, x, scale, shift, bits,
+                              thresh=thresh, tile=btile, emit_res=False)[0]
+        dplan = fb.fused_fwd_int8_plan(n, h, w, c, c)
+        err = _agree({"slab": fb.dgrad_int8_pre(g_q, plan=dplan)},
+                     {"slab": fb.dgrad_int8_pre_plain(g_q, plan=dplan)},
+                     ("dgrad pre", c))
+        row("fused_half_dgrad.pre", c, h, w, "", err,
+            lambda: fb.dgrad_int8_pre(g_q, plan=dplan),
+            lambda: fb.dgrad_int8_pre_plain(g_q, plan=dplan), None, 0,
+            cn + dplan.lay.slab_len * c, ops_int8)
+        del x, bits, res, y, dy, g_q
         torch.cuda.empty_cache()
 
     # the stem: 3 -> 160 channels at 32x32
@@ -1644,14 +1757,14 @@ def fqt_summary(rows, training, halves):
     def mode(name, res, stats):
         if name == "fused_half_fwd":
             return ("res" if res else "") + ("+stats" if stats else "")
-        if name == "fused_half_fwd.pre":
+        if name in ("fused_half_fwd.pre", "fused_half_dgrad.pre"):
             return ""
         return "stats" if stats else ""
 
     out = []
     for name in ("stem_fwd", "stem_wgrad", "fused_half_fwd",
                  "fused_half_fwd.pre", "fused_half_dgrad",
-                 "fused_half_wgrad"):
+                 "fused_half_dgrad.pre", "fused_half_wgrad"):
         mine = [r for r in rows if r["name"] == name]
         mix = [(mine[0], 1)] if name.startswith("stem") else [
             (next(r for r in mine
@@ -1659,10 +1772,10 @@ def fqt_summary(rows, training, halves):
              count)
             for (c, res, stats, _), count in halves.items()]
         # keys every row has a number for (no library call for the
-        # prepass; the forward's parts only on its rows)
+        # prepasses; the forward's and the dgrad's parts only on theirs)
         tot = {k: sum(r[k] * cnt for r, cnt in mix)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "ops_ms", "bytes_ms", "dev_ms") + FWD_INT8_PART_KEYS
+                         "ops_ms", "bytes_ms", "dev_ms") + INT8_PART_KEYS
                if all(r.get(k) is not None for r, _ in mix)}
         out.append(dict(
             name=name, route="cuda",
@@ -1675,13 +1788,12 @@ def fqt_summary(rows, training, halves):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=tot.get("library_ms"),
-            **{k: tot[k] for k in FWD_INT8_PART_KEYS + ("dev_ms",)
-               if k in tot},
+            **{k: tot[k] for k in INT8_PART_KEYS + ("dev_ms",) if k in tot},
             per=f"training step of {BATCH} (ms per call summed over the "
                 "step's calls; launches over the run)",
             stages=[{k: r.get(k) for k in (
                 "c", "h", "w", "mode", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_abs_err") + FWD_INT8_PART_KEYS
+                "bound_ms", "bound_by", "max_abs_err") + INT8_PART_KEYS
                 + ("bn", "boxes", "tiles", "runs", "blocks", "dev_ms",
                    "bits_equal_two_calls") if k in r}
                     for r in mine]))
@@ -4254,8 +4366,9 @@ def main() -> int:
     # starting the TMA loads), two blocks an SM; ptxas's note where it
     # serializes the wgmmas
     log = build.build_log("fused_block")
-    for e in ptxas_entries(log, "fwd_s8_kernel") + ptxas_entries(
-            log, "fwd_slab_kernel"):
+    for e in (ptxas_entries(log, "fwd_s8_kernel")
+              + ptxas_entries(log, "fwd_slab_kernel")
+              + ptxas_entries(log, "dgrad_s8_kernel")):
         print(f"  ptxas fused_block {e['name']}: {e['registers']} "
               f"registers, {e['smem']} B static shared memory, "
               f"{e['spill_bytes']} B spilled")
@@ -4572,6 +4685,15 @@ def main() -> int:
         print("int8 training: port kernels per step, phase 6 per-call "
               f"times summed {sum(k['ms'] for k in fqt_kernels)} ms, "
               f"profiled {profiled} ms")
+    dg = next(k for k in fqt_kernels if k["name"] == "fused_half_dgrad")
+    print("FQT: fused int8 dgrad per step, phase 6 per-call times summed "
+          "(device time by part: amax pass, quantizer, prepass, s8 wgmma "
+          "GEMM, sum; each beside its bound; cuDNN's bf16 input gradient): "
+          + json.dumps({k: dg.get(k) for k in (
+              "ms", "dev_ms", "amax_dev_ms", "quant_dev_ms", "pre_dev_ms",
+              "gemm_dev_ms", "sum_dev_ms", "amax_bound_ms",
+              "quant_bound_ms", "pre_bound_ms", "gemm_bound_ms", "pre_ms",
+              "gemm_ms", "library_ms", "bound_ms", "launches")}))
     bf16_kernels = bf16_summary(bf16_rows, fused, qat, rec_fused.halves,
                                 rec_qat.halves)
     wg = next(k for k in bf16_kernels if k["name"] == "fused_half_bf16_wgrad")

@@ -10,6 +10,13 @@ namespace common {
 constexpr float kInv127 = 0x1.020408p-7f;      // f32(1 / 127)
 constexpr float kInv16129 = 0x1.040c2p-14f;    // f32(1 / (127 * 127))
 
+// s8(clip(rint(v), -127, 127)): rint rounds half to even, as jnp.round;
+// every int8 quantizer of the package rounds through it.
+__device__ __forceinline__ signed char quant_s8(float v) {
+  const float q = fminf(fmaxf(rintf(v), -127.f), 127.f);
+  return (signed char)__float2int_rn(q);
+}
+
 // Sum over the warp with a fixed butterfly: the same order every run.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

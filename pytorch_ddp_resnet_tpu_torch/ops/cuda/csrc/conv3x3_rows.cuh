@@ -1,10 +1,11 @@
 // The row-tile implicit-GEMM mainloop of the stride-1 SAME 3x3 convolution
-// in the channel-major layout [C, B*H*W] (W % 8 == 0), shared by
-// conv3x3.cu (serving) and fused_block.cu (int8 training). See conv3x3.cu
-// for the design: a block owns 64 output channels x R whole image rows,
-// stages each 32-channel chunk of those rows plus a one-row halo in shared
-// memory (channels innermost, zero border columns), reads every tap as an
-// address shift with ldmatrix, and accumulates with mma.sync in registers.
+// in the channel-major layout [C, B*H*W] (W % 8 == 0), the mainloop of
+// conv3x3.cu's bf16 conv (conv1x1.cu and the NV files take its helpers).
+// See conv3x3.cu for the design: a block owns 64 output channels x R
+// whole image rows, stages each 32-channel chunk of those rows plus a
+// one-row halo in shared memory (channels innermost, zero border columns),
+// reads every tap as an address shift with ldmatrix, and accumulates with
+// mma.sync in registers.
 //
 // The epilogue is a functor: after the contraction the block's accumulator
 // tile [64][BN] sits in shared memory and the kernel calls
@@ -25,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"  // quant_s8
+
 namespace conv3x3 {
 
 constexpr int BM = 64;        // output channels per block
@@ -40,10 +43,7 @@ template <typename T> struct Vec8;
 template <> struct Vec8<__nv_bfloat16> { using type = uint4; };
 template <> struct Vec8<signed char> { using type = uint2; };
 
-__device__ __forceinline__ signed char quant_s8(float v) {
-  const float q = fminf(fmaxf(rintf(v), -127.f), 127.f);
-  return (signed char)__float2int_rn(q);
-}
+using common::quant_s8;
 
 // The default operand load: 8 contiguous elements of x [C, n].
 template <typename T>

@@ -40,6 +40,8 @@
 //   part[tile]; fused_block_bf16.cu's sum adds the tiles in a fixed order
 //   (common::tile_sum), so dx and the sums are the same bit for bit every
 //   run.
+// The fused int8 dgrad (dgrad_wgmma_s8.cuh) runs the same epilogue
+// (mask_units, channel_sums) on its dequantized accumulators.
 //
 // Left for later: TMA and a producer warp, persistent blocks, the pad rows
 // (6.3% at 32x32 images), the wave tails (1,089 / 289 / 81 M tiles at the
@@ -141,6 +143,25 @@ __device__ __forceinline__ void mask_units(float* out, int lead, int count,
   }
 }
 
+// After mask_units (and a sync): each channel c < cols of the staged tile
+// adds its units' sums in lane order into part[c] and part[cout + c] (the
+// tile's row of [tiles][2 * cout], from channel n0), a thread a channel.
+__device__ __forceinline__ void channel_sums(const float* out, int lead,
+                                             int count, int cols,
+                                             float* part, int cout) {
+  const int tid = threadIdx.x;
+  if (tid >= cols) return;
+  const int vpc = (lead + count + 7) / 8;
+  const float* col = out + tid * CF_OS;
+  float s1 = 0.f, s2 = 0.f;
+  for (int u = 0; u < vpc; ++u) {
+    s1 = __fadd_rn(s1, col[8 * u]);
+    s2 = __fadd_rn(s2, col[8 * u + 1]);
+  }
+  part[tid] = s1;
+  part[cout + tid] = s2;
+}
+
 // Grid (ceil(cout / BN), tiles): block (x, y) computes input channels [x *
 // BN, x * BN + BN) of M tile y (the N tiles of one M tile neighbours, so
 // they read its A rows through L2) and writes their sums to part[y].
@@ -193,20 +214,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int cols = min(BN, p.cout - n0);
   mask_units<BN>(out, lead, count, cols, n0, lane0 - lead, p.n, e);
   __syncthreads();
-
-  // each channel's units' sums, in lane order
-  if (tid < cols) {
-    const int vpc = (lead + count + 7) / 8;
-    const float* col = out + tid * CF_OS;
-    float s1 = 0.f, s2 = 0.f;
-    for (int u = 0; u < vpc; ++u) {
-      s1 = __fadd_rn(s1, col[8 * u]);
-      s2 = __fadd_rn(s2, col[8 * u + 1]);
-    }
-    float* part = e.part + (size_t)blockIdx.y * 2 * p.cout + n0 + tid;
-    part[0] = s1;
-    part[p.cout] = s2;
-  }
+  channel_sums(out, lead, count, cols,
+               e.part + (size_t)blockIdx.y * 2 * p.cout + n0, p.cout);
 }
 
 template <int BN>

@@ -11,10 +11,9 @@
 //                                      quantization that _bwd_kernel,
 //                                      _dgrad_kernel and _wgrad_kernel
 //                                      each begin with (one shared copy)
-//   dgrad_conv                      <- _dgrad_call -> _dgrad_kernel, and
-//                                      the dgrad half of _bwd_kernel
-//   partial_sum                     <- the TPU kernels' sums carried
-//                                      across their sequential grid
+//   dgrad_pre, dgrad_gemm,          <- _dgrad_call -> _dgrad_kernel, and
+//   tile_sum                           the dgrad half of _bwd_kernel (the
+//                                      GEMM lives in dgrad_wgmma_s8.cuh)
 //
 // Scale groups: the activations and cotangents are quantized per group of
 // `tile` lanes (whole images, the JAX pickers' tile), each with its own
@@ -41,13 +40,13 @@
 //   TMA-fed s8 wgmma GEMM with the dequantization, bf16 output, residual
 //   add and each tile's sums in its epilogue; and tile_sum over the tiles'
 //   sums, in a fixed order.
-// - dgrad_conv is the row-tile implicit GEMM of conv3x3_rows.cuh (the
-//   serving kernel's mainloop, s8 x s8 -> s32 with mma.sync) with an
-//   epilogue on the block's accumulator tile in shared memory: the
-//   relu/dropout masks recomputed from (x, scale, shift, bits), dx, and the
-//   d(scale)/d(shift) sums. A block's per-channel sums go to its own slot
-//   of a partial buffer (warp butterflies, then the warps in order), and
-//   partial_sum adds the slots in order: deterministic.
+// - The dgrad is three launches on the forward's layout of the transposed
+//   conv (Cin = the half's Cout): dgrad_pre, fused_half.cuh's slab_copy
+//   (g_q's codes copied once, unchanged, into the padded slab: every tap
+//   one row offset, any image width); dgrad_gemm, the forward's TMA-fed s8
+//   wgmma mainloop with a dequantizing, masking epilogue
+//   (dgrad_wgmma_s8.cuh: dx, each tile's sums of dn * x and dn); and
+//   tile_sum over the tiles' sums, in a fixed order.
 // - The weight gradient, the other consumer of bwd_quant's codes, is
 //   fused_wgrad_s8.cu (the TMA + s8 wgmma mainloop of wgrad_wgmma_s8.cuh).
 //
@@ -71,56 +70,15 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3x3_rows.cuh"
-#include "fused_half.cuh"
-#include "fwd_wgmma_s8.cuh"  // the forward's GEMM and epilogue
+#include "dgrad_wgmma_s8.cuh"  // the dgrad's GEMM and epilogue
+#include "fused_half.cuh"      // the quantizers, slab_copy
+#include "fwd_wgmma_s8.cuh"    // the forward's GEMM and epilogue
 
-using namespace conv3x3;
+using common::quant_s8;
 using namespace fused_half;
 using dropout::DropBits;
 
 namespace {
-
-// --- conv epilogues ------------------------------------------------------
-
-// acc_f = f32(acc) * (ws_in[ci] * (g_amax * 1/127)); the masks recomputed
-// from x: live = x * scale + shift > 0 (one fma) and bits < thresh;
-// dn = live ? acc_f * keep : 0; dx = bf16(dn * scale); sums of dn * x, dn
-struct DgradEpi {
-  const float* g_amax;  // [G] backward group absmax of the cotangent
-  const float* ws_in;   // [Cin] per-input-channel weight scales
-  const __nv_bfloat16* x;
-  const float* scale;
-  const float* shift;
-  DropBits bits;
-  __nv_bfloat16* dx;
-  float* part;          // [n / BN][2 * Cin]
-  int lanes;            // lanes per backward scale group
-  int thresh;
-  float keep;
-
-  __device__ __forceinline__ void tile(const int* Cs, int cld, int bn, int m0,
-                                       int n0, int cin, int n) const {
-    const float a = __fmul_rn(g_amax[n0 / lanes], common::kInv127);
-    tile_sums(bn, m0, cin, n - n0, blockIdx.x, part,
-              [&](int r, int c, float& s1, float& s2) {
-      const int ci = m0 + r;
-      const size_t idx = (size_t)ci * n + n0 + c;
-      float v = __fmul_rn(__int2float_rn(Cs[r * cld + c]),
-                          __fmul_rn(ws_in[ci], a));
-      const float xf = __bfloat162float(x[idx]);
-      bool live = __fmaf_rn(xf, scale[ci], shift[ci]) > 0.f;
-      if (bits.active()) {
-        live = live && bits.at(ci, n0 + c) < thresh;
-        v = __fmul_rn(v, keep);
-      }
-      const float dn = live ? v : 0.f;
-      dx[idx] = __float2bfloat16_rn(__fmul_rn(dn, scale[ci]));
-      s1 = __fmul_rn(dn, xf);
-      s2 = dn;
-    });
-  }
-};
 
 // --- the forward's prepass: the codes into the padded slab -----------------
 
@@ -315,36 +273,49 @@ int bwd_quant_launch(const void* dy, const void* y, const void* dysum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g_q [cout, n] int8, w_dg [cin, 9 * cout] int8 (dgrad-packed), g_amax
-// [n / tile], ws_in [cin], x [cin, n] bf16, scale/shift [cin], bits
-// [cin, n] or null, seed or null; dx [cin, n] bf16, part [n / BN][2 * cin].
-int dgrad_conv_launch(const void* g_q, const void* w_dg, const void* g_amax,
+// The dgrad's prepass: slab [slab_len, cout] int8 (fused_fwd_layout of the
+// transposed conv, Cin = the half's Cout: guard zero positions, then per
+// image of h x wi a zero row and a zero column, then zeros to slab_len) =
+// g_q [cout, n]'s codes at each pixel's position. cout % 32 == 0, n a
+// multiple of h * wi.
+int dgrad_pre_launch(const void* g_q, void* slab, int cout, int n, int h,
+                     int wi, long slab_len, void* stream) {
+  return static_cast<int>(slab_copy(in<signed char>(g_q),
+                                    static_cast<signed char*>(slab), cout,
+                                    cout, n, h, wi, slab_len,
+                                    as_stream(stream)));
+}
+
+// The dgrad's GEMM (dgrad_wgmma_s8.cuh): dx [cin, n] bf16 = bf16(dn *
+// scale), dn = the masks of (x [cin, n] bf16, scale/shift [cin], bits
+// [cin, n] uint8 or null, seed or null) applied to f32(conv3x3 of the slab
+// with w_dg [cin, 9 * cout] int8) * (ws_in[ci] * g_amax[g] / 127), g =
+// lane / tile; part [tiles][2 * cin] f32, each 128-row tile's sums of dn *
+// x and dn; on `tiles` M tiles and bn-wide N tiles (160, 128 or 64).
+int dgrad_gemm_launch(const void* slab, const void* w_dg, const void* g_amax,
                       const void* ws_in, const void* x, const void* scale,
                       const void* shift, const void* bits, const void* seed,
                       void* dx, void* part, int cout, int cin, int n, int h,
-                      int wi, int tile, int thresh, float keep,
-                      void* stream) {
-  DgradEpi epi{in<float>(g_amax), in<float>(ws_in), in<__nv_bfloat16>(x),
-               in<float>(scale), in<float>(shift), drop_bits(bits, seed, n),
-               static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part),
-               tile, thresh, keep};
-  return launch_row_tiles<signed char>(g_q, w_dg, epi, cout, cin, n, h, wi,
-                                       as_stream(stream));
+                      int wi, int tile, long slab_len, int tiles, int bn,
+                      int thresh, float keep, void* stream) {
+  if (h < 1 || wi < 1 || n % (h * wi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dgrad_wgmma_s8::Args args{in<float>(g_amax), in<float>(ws_in), cout,
+                                  cin, n, n / (h * wi), h, wi, tile, {}};
+  const dgrad_wgmma_bf16::Epi epi{
+      in<__nv_bfloat16>(x), in<float>(scale), in<float>(shift),
+      drop_bits(bits, seed, n), static_cast<__nv_bfloat16*>(dx),
+      static_cast<float*>(part), thresh, keep};
+  return static_cast<int>(dgrad_wgmma_s8::launch(
+      slab, w_dg, args, epi, slab_len, tiles, bn, as_stream(stream)));
 }
 
 // out[i] = the tiles' sums of part [tiles][m] f32 in common::tile_sum's
-// fixed order (the forward's `.sum`)
+// fixed order (the forward's and the dgrad's `.sum`)
 int tile_sum_launch(const void* part, void* out, int tiles, int m,
                     void* stream) {
   return common::tile_sum(in<float>(part), static_cast<float*>(out), tiles,
                           m, as_stream(stream));
-}
-
-// out[i] = sum over k < j of part[k][i], in order (part [j][m] f32)
-int partial_sum_launch(const void* part, void* out, int j, int m,
-                       void* stream) {
-  return common::partial_sum(in<float>(part), static_cast<float*>(out), j, m,
-                             as_stream(stream));
 }
 
 }  // extern "C"

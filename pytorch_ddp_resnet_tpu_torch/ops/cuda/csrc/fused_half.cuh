@@ -1,9 +1,10 @@
 // Pieces shared by the fused block-half kernels (fused_block.cu, the int8
-// conv core; fused_block_bf16.cu, the bf16 one) and the stage-transition
-// half (transition.cu): 8-wide bf16 loads, the stats-cotangent fold, the
-// deterministic per-channel sums of an epilogue tile, the f32 and bf16
-// prologues, the per-group int8 quantizer (amax pass, quant pass), and
-// where the forwards' prepasses put each lane in their padded slab.
+// conv core; fused_block_bf16.cu, the bf16 one), the stage-transition
+// half (transition.cu) and the int8 serving conv (requant_wgmma_s8.cuh):
+// 8-wide bf16 loads, the stats-cotangent fold, the f32 and bf16
+// prologues, the per-group int8 quantizer (amax pass, quant pass), where
+// the forwards' prepasses put each lane in their padded slab, and the one
+// copy of codes (or bf16) into that slab.
 
 #pragma once
 
@@ -11,14 +12,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
-#include "conv3x3_rows.cuh"
 #include "seed_bits.cuh"
 
 namespace fused_half {
-
-using conv3x3::BM;
-using conv3x3::THREADS;
 
 // 8 consecutive bf16 as f32
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, size_t off,
@@ -58,46 +57,6 @@ struct Cotangent {
       v[k] = __fmaf_rn(2.f * yv[k], q, __fadd_rn(v[k], s));
   }
 };
-
-// Per-channel sums of two values over the block's [BM, bn] tile,
-// deterministically: each warp's 32 consecutive elements lie in one row
-// (bn % 32 == 0), so a warp butterfly and then the warps' slots in order.
-// elem(r, c, s1, s2) runs for rows m0 + r < rows and columns c < cols; row
-// r's sums go to slot `slot` of part ([slots][2 * rows]): part[slot][m0 +
-// r] and part[slot][rows + m0 + r]. part null: elem runs, no sums. The
-// caller syncs the block before, when elem reads what other threads wrote.
-template <typename Elem>
-__device__ __forceinline__ void tile_sums(int bn, int m0, int rows, int cols,
-                                          size_t slot,
-                                          float* __restrict__ part,
-                                          const Elem& elem) {
-  __shared__ float red[2][BM][8];
-  const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < BM * bn; i += THREADS) {
-    const int r = i / bn;
-    const int c = i - r * bn;
-    float s1 = 0.f, s2 = 0.f;
-    if (m0 + r < rows && c < cols) elem(r, c, s1, s2);
-    s1 = common::warp_sum(s1);
-    s2 = common::warp_sum(s2);
-    if (lane == 0 && part != nullptr) {
-      red[0][r][c / 32] = s1;
-      red[1][r][c / 32] = s2;
-    }
-  }
-  if (part == nullptr) return;
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < BM && m0 + r < rows) {
-    float s1 = red[0][r][0], s2 = red[1][r][0];
-    for (int k = 1; k < bn / 32; ++k) {
-      s1 = __fadd_rn(s1, red[0][r][k]);
-      s2 = __fadd_rn(s2, red[1][r][k]);
-    }
-    part[slot * 2 * rows + m0 + r] = s1;
-    part[slot * 2 * rows + rows + m0 + r] = s2;
-  }
-}
 
 // --- elementwise operands of the quantizers ------------------------------
 
@@ -210,7 +169,8 @@ __device__ __forceinline__ void quant_body(const Fn& fn, int rows,
     uint2 packed;
     signed char* o = reinterpret_cast<signed char*>(&packed);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = conv3x3::quant_s8(__fmul_rn(v[k], inv));
+    for (int k = 0; k < 8; ++k)
+      o[k] = common::quant_s8(__fmul_rn(v[k], inv));
     store(q, row, walk.n, off, packed);
     if (copy != nullptr) {
       const size_t idx = (size_t)row * walk.n + off;
@@ -261,10 +221,11 @@ quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0, Fn1 fn1,
 }
 
 // Where the forward's prepasses (the bf16 one in fused_block_bf16.cu, the
-// int8 one in fused_block.cu) and the bf16 dgrad's (fused_block_bf16.cu,
-// g at Cin = the half's Cout) write: input lane p (image i, row r, column
-// c of h x wi images) at slab position guard + i * (h + 1) * (wi + 1) + (r
-// + 1) * (wi + 1) + c + 1 (ops/cuda/fused_block.py fused_fwd_layout).
+// int8 one in fused_block.cu) and the dgrads' (fused_block_bf16.cu and
+// fused_block.cu, g at Cin = the half's Cout; slab_copy) write: input
+// lane p (image i, row r, column c of h x wi images) at slab position
+// guard + i * (h + 1) * (wi + 1) + (r + 1) * (wi + 1) + c + 1
+// (ops/cuda/fused_block.py fused_fwd_layout).
 struct SlabPos {
   int hw, wi, per, guard;
   __device__ __forceinline__ long operator()(long p) const {
@@ -336,6 +297,100 @@ __device__ __forceinline__ void store_runs(Word (*words)[PITCH],
           make_uint4(src[0], src[1], src[2], src[3]);
     }
   }
+}
+
+// Shared bytes of one copy_tile of U: a position's PRE_C channels, two a
+// word, and a spare word a row
+template <typename U>
+constexpr int kCopyTileBytes = PRE_P * (PRE_C / 2 + 2) * 2 * sizeof(U);
+
+// One prepass tile of PRE_C channels x PRE_P positions of src [c_src][n]
+// (U: the element's bits, 1 or 2 bytes; channels past c_src read as
+// zeros) into the slab [.., c] at each pixel's position (live): thread
+// (ch, g) reads 16 positions of one channel (16-byte loads where the run
+// lies whole in n and is aligned, else element by element), the tile is
+// transposed through shared memory (buf, kCopyTileBytes<U> bytes, 16-byte
+// aligned), and store_runs writes each position's channels as 16-byte
+// runs of its slab row. Tiles run channel group fastest (tile t: group t
+// % ceil(c / PRE_C), positions from t / ceil(c / PRE_C) * PRE_P), so
+// blocks running together write whole slab rows.
+template <typename U>
+__device__ __forceinline__ void copy_tile(const U* __restrict__ src,
+                                          int c_src, U* __restrict__ slab,
+                                          int c, int n, long tile,
+                                          const SlabPos& live, void* buf) {
+  static_assert(PRE_C == 32 && PRE_P == 8 * 16, "the threads' runs");
+  using Word = typename std::conditional<sizeof(U) == 1, unsigned short,
+                                         uint32_t>::type;
+  constexpr int PITCH = PRE_C / 2 + 2;
+  Word(*words)[PITCH] = reinterpret_cast<Word(*)[PITCH]>(buf);
+  const int cgs = (c + PRE_C - 1) / PRE_C;
+  const int c0 = (int)(tile % cgs) * PRE_C;
+  const long p0 = tile / cgs * PRE_P;
+  const int ch = threadIdx.x / 8, g = threadIdx.x % 8;
+  const long pos = p0 + 16 * g;
+  const bool in = c0 + ch < c_src;
+  const U* s = src + (size_t)(in ? c0 + ch : 0) * n + pos;
+  alignas(16) U v[16];
+  if (in && pos + 16 <= n && reinterpret_cast<uintptr_t>(s) % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < (int)sizeof(U); ++k)
+      reinterpret_cast<uint4*>(v)[k] = reinterpret_cast<const uint4*>(s)[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = in && pos + k < n ? s[k] : U(0);
+  }
+  U* t = reinterpret_cast<U*>(&words[0][0]);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[(16 * g + k) * 2 * PITCH + ch] = v[k];
+  __syncthreads();
+  store_runs(words, slab, c, c0, p0, n, live);
+}
+
+// The one copy of an operand into the padded slab: blocks [0, tiles) each
+// copy_tile one tile of src [c_src][n] into slab [.., c]; the others
+// write 16-byte zeros at every pad position (zero_pad_vec), a thread
+// each. The int8 serving conv's prepass (codes x_q) and the fused int8
+// dgrad's (g's codes) launch it as it is.
+template <typename U>
+__global__ void __launch_bounds__(256)
+    slab_copy_kernel(const U* __restrict__ src, U* __restrict__ slab,
+                     SlabPos live, PadPos pads, int c_src, int c, int n,
+                     int tiles, long pad_vecs) {
+  __shared__ __align__(16) unsigned char buf[kCopyTileBytes<U>];
+  if ((long)blockIdx.x < tiles) {
+    copy_tile(src, c_src, slab, c, n, blockIdx.x, live, buf);
+    return;
+  }
+  zero_pad_vec(slab, pads, c, (long)(blockIdx.x - tiles) * 256 + threadIdx.x,
+               pad_vecs);
+}
+
+// slab [slab_len][c] of ops/cuda/fused_block.py fused_fwd_layout (guard =
+// wi + 2 zero positions, per image of h x wi a zero row and a zero column,
+// zeros to slab_len; channels past c_src zero) from src [c_src][n]: each
+// pixel's channels at its position. c a multiple of PRE_C, c_src <= c, n
+// whole images. One launch.
+template <typename U>
+inline cudaError_t slab_copy(const U* src, U* slab, int c_src, int c, int n,
+                             int h, int wi, long slab_len,
+                             cudaStream_t stream) {
+  if (c < PRE_C || c % PRE_C || c_src < 1 || c_src > c || h < 1 || wi < 1 ||
+      n < 1 || n % (h * wi))
+    return cudaErrorInvalidValue;
+  const int guard = wi + 2, per = (h + 1) * (wi + 1);
+  const long b = n / (h * wi);
+  const long pads = slab_len - n;
+  if (pads < guard + b * (wi + 1 + h) + guard) return cudaErrorInvalidValue;
+  const long tiles = (long)((n + PRE_P - 1) / PRE_P) * (c / PRE_C);
+  const long pad_vecs = pads * (c * (long)sizeof(U) / 16);
+  const long blocks = tiles + (pad_vecs + 255) / 256;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  slab_copy_kernel<U><<<(unsigned)blocks, 256, 0, stream>>>(
+      src, slab, SlabPos{h * wi, wi, per, guard},
+      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, c_src, c, n,
+      (int)tiles, pad_vecs);
+  return cudaGetLastError();
 }
 
 constexpr float kFwdFloor = 1e-12f;

@@ -2,13 +2,14 @@
 // Hopper (sm_90a): out [Cout, N] = requant(conv3x3(x_q, w_q)) in the
 // channel-major layout, int8 or bf16, and out2 [Cout, N] int8 in dual mode
 // (requant.cuh says what requant computes and where it rounds). Two
-// launches: pre_kernel, then requant_s8_kernel.
+// launches: fused_half.cuh's slab_copy_kernel, then requant_s8_kernel.
 //
 // What it replaces (pytorch_ddp_resnet_tpu/ops/pallas/conv.py:314,
 // conv3x3_lanes_requant -> _requant_kernel): per lane tile the TPU kernel
 // contracts x_q at the nine taps with rolls and masks of the tile on the
 // MXU into s32 and applies the epilogue in VMEM. Here:
-// - pre_kernel copies x_q's codes, unchanged, into the padded
+// - the prepass (fused_half.cuh's slab_copy, shared with the fused int8
+//   dgrad's) copies x_q's codes, unchanged, into the padded
 //   position-major slab of ops/cuda/fused_block.py fused_fwd_layout (the
 //   fused int8 forward's, one byte a channel): each pixel at its position,
 //   zeros at every guard, pad row, pad column and tail position, so every
@@ -16,9 +17,9 @@
 //   A block takes 32 channels x 128 positions; thread (c, g) reads 16
 //   positions of channel c as one 16-byte load where the run is aligned
 //   (byte loads where N leaves a channel's row off 16 bytes), the tile is
-//   transposed through shared memory, and fused_half.cuh's store_runs
-//   writes each position's 32 codes as two 16-byte runs of its slab row;
-//   zero_pad_vec zeros the pad positions in 16-byte vectors.
+//   transposed through shared memory, and store_runs writes each
+//   position's 32 codes as two 16-byte runs of its slab row; zero_pad_vec
+//   zeros the pad positions in 16-byte vectors.
 // - requant_s8_kernel is fwd_wgmma_s8.cuh's mainloop, unchanged (TMA boxes
 //   of 128, 64 and 32 bytes a tap in their own swizzles, s8 wgmma
 //   m64nBNk32 from two consumer warpgroups, two blocks an SM, BN by the
@@ -66,7 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fused_half.cuh"     // SlabPos, PadPos, store_runs, zero_pad_vec
+#include "fused_half.cuh"     // slab_copy
 #include "fwd_wgmma_s8.cuh"   // the mainloop, Tile, Maps, encode
 #include "requant.cuh"        // requant_y, requant_q, requant_dual
 
@@ -75,10 +76,6 @@ namespace requant_wgmma_s8 {
 using conv3x3::requant_dual;
 using conv3x3::requant_q;
 using conv3x3::requant_y;
-using fused_half::PadPos;
-using fused_half::PRE_C;
-using fused_half::PRE_P;
-using fused_half::SlabPos;
 using fwd_staged_s8::CM_OS;
 using fwd_wgmma_bf16::live_before;
 using fwd_wgmma_s8::ALIGN;
@@ -132,74 +129,16 @@ struct Args {
 
 // --- the prepass: x_q's codes into the padded slab ---------------------------
 
-// Blocks [0, tiles_d) each take PRE_C channels x PRE_P positions (channel
-// group fastest, so blocks running together write whole slab rows): thread
-// (c, g) loads channel c0 + c at positions p0 + 16 g .. + 15 (one 16-byte
-// load where the run lies whole in N and is aligned, else byte by byte),
-// puts them in the shared tile position-major, and store_runs writes each
-// position's 32 codes to its slab row in two 16-byte runs. The other blocks
-// write 16-byte zeros at every pad position, a thread each.
-__global__ void __launch_bounds__(256)
-pre_kernel(const signed char* __restrict__ x, signed char* __restrict__ slab,
-           SlabPos live, PadPos pads, int cin, int n, int tiles_d,
-           long pad_vecs) {
-  if ((int)blockIdx.x >= tiles_d) {
-    fused_half::zero_pad_vec(
-        slab, pads, cin, (long)(blockIdx.x - tiles_d) * 256 + threadIdx.x,
-        pad_vecs);
-    return;
-  }
-  // a position's 32 codes, two channels a 16-bit word; 36 bytes a row
-  __shared__ __align__(16) unsigned short codes[PRE_P][PRE_C / 2 + 2];
-  static_assert(PRE_C == 32 && PRE_P == 8 * 16, "the threads' runs");
-  constexpr int PITCH = (PRE_C / 2 + 2) * 2;
-  const int cgs = cin / PRE_C;
-  const int c0 = blockIdx.x % cgs * PRE_C;
-  const long p0 = (long)(blockIdx.x / cgs) * PRE_P;
-  const int c = threadIdx.x / 8, g = threadIdx.x % 8;
-  const long pos = p0 + 16 * g;
-  const signed char* src = x + (size_t)(c0 + c) * n + pos;
-  unsigned char v[16];
-  if (pos + 16 <= n && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const uint4 q = *reinterpret_cast<const uint4*>(src);
-    const unsigned char* b = reinterpret_cast<const unsigned char*>(&q);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = b[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      v[k] = pos + k < n ? static_cast<unsigned char>(src[k]) : 0;
-  }
-  unsigned char* tile = reinterpret_cast<unsigned char*>(&codes[0][0]);
-#pragma unroll
-  for (int k = 0; k < 16; ++k) tile[(16 * g + k) * PITCH + c] = v[k];
-  __syncthreads();
-  fused_half::store_runs(codes, slab, cin, c0, p0, n, live);
-}
-
 // slab [slab_len][cin] int8 (fused_fwd_layout: guard = wi + 2 zero
 // positions, per image of h x wi a zero row and a zero column, zeros to
-// slab_len) from x [cin][n] int8. cin % 32 == 0, n a multiple of h * wi.
+// slab_len) from x [cin][n] int8: fused_half.cuh's slab_copy, one launch.
+// cin % 32 == 0, n a multiple of h * wi.
 inline cudaError_t pre_launch(const void* x, void* slab, int cin, int n,
                               int h, int wi, long slab_len,
                               cudaStream_t stream) {
-  if (cin < PRE_C || cin % PRE_C || h < 1 || wi < 1 || n < 1 ||
-      n % (h * wi))
-    return cudaErrorInvalidValue;
-  const int guard = wi + 2, per = (h + 1) * (wi + 1);
-  const long b = n / (h * wi);
-  const long pads = slab_len - n;
-  if (pads < guard + b * (wi + 1 + h) + guard) return cudaErrorInvalidValue;
-  const long tiles_d = (long)((n + PRE_P - 1) / PRE_P) * (cin / PRE_C);
-  const long pad_vecs = pads * (cin / 16);
-  const long blocks = tiles_d + (pad_vecs + 255) / 256;
-  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  pre_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
-      static_cast<const signed char*>(x), static_cast<signed char*>(slab),
-      SlabPos{h * wi, wi, per, guard},
-      PadPos{guard, wi, h, per, b * (wi + 1 + h), b * per}, cin, n,
-      (int)tiles_d, pad_vecs);
-  return cudaGetLastError();
+  return fused_half::slab_copy(static_cast<const signed char*>(x),
+                               static_cast<signed char*>(slab), cin, cin, n,
+                               h, wi, slab_len, stream);
 }
 
 // --- the GEMM's epilogue ------------------------------------------------------

@@ -130,13 +130,12 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "conv3x3_rows.cuh"  // quant_s8, the forward prepass's rounding
 #include "fused_half.cuh"
 #include "fwd_staged_s8.cuh"  // the forward's mainloop and epilogue
 #include "fwd_wgmma_s8.cuh"   // the dgrad's mainloops (s8 and bf16)
 #include "seed_bits.cuh"
 
-using conv3x3::quant_s8;
+using common::quant_s8;
 using dropout::DropBits;
 using fused_half::Bf16Prologue;
 using fused_half::Cotangent;
@@ -935,48 +934,6 @@ cudaError_t launch_kernel(const ws8::Maps& mp, const wb::Args& gp,
   return cudaGetLastError();
 }
 
-// One prepass tile of PRE_C channels x PRE_P positions of src [c_src][n]
-// (U: the element's bits, 1 or 2 bytes; channels past c_src read as
-// zeros) into the slab [.., c] at each pixel's position (live): thread
-// (ch, g) reads 16 positions of one channel (16-byte loads where the run
-// lies whole in n and is aligned, else element by element), the tile is
-// transposed through shared memory, and fused_half.cuh's store_runs
-// writes each position's channels as 16-byte runs of its slab row.
-template <typename U>
-__device__ __forceinline__ void copy_tile(const U* __restrict__ src,
-                                          int c_src, U* __restrict__ slab,
-                                          int c, int n, long tile,
-                                          const SlabPos& live,
-                                          uint32_t* buf) {
-  static_assert(PRE_C == 32 && PRE_P == 8 * 16, "the threads' runs");
-  // a position's PRE_C channels, two a Word, and a spare Word a row
-  using Word = typename std::conditional<sizeof(U) == 1, unsigned short,
-                                         uint32_t>::type;
-  constexpr int PITCH = PRE_C / 2 + 2;
-  Word(*words)[PITCH] = reinterpret_cast<Word(*)[PITCH]>(buf);
-  const int cgs = (c + PRE_C - 1) / PRE_C;
-  const int c0 = (int)(tile % cgs) * PRE_C;
-  const long p0 = tile / cgs * PRE_P;
-  const int ch = threadIdx.x / 8, g = threadIdx.x % 8;
-  const long pos = p0 + 16 * g;
-  const bool in = c0 + ch < c_src;
-  const U* s = src + (size_t)(in ? c0 + ch : 0) * n + pos;
-  U v[16];
-  if (in && pos + 16 <= n && reinterpret_cast<uintptr_t>(s) % 16 == 0) {
-#pragma unroll
-    for (int k = 0; k < (int)sizeof(U); ++k)
-      reinterpret_cast<uint4*>(v)[k] = reinterpret_cast<const uint4*>(s)[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) v[k] = in && pos + k < n ? s[k] : U(0);
-  }
-  U* t = reinterpret_cast<U*>(&words[0][0]);
-#pragma unroll
-  for (int k = 0; k < 16; ++k) t[(16 * g + k) * 2 * PITCH + ch] = v[k];
-  __syncthreads();
-  fused_half::store_runs(words, slab, c, c0, p0, n, live);
-}
-
 // Blocks [0, tiles_g): g [cout][n] into its slab [.., cp] (cp - cout zero
 // channels); then [tiles_g, + tiles_d): dres [cout][n] bf16 into its slab;
 // then 16-byte zeros at every pad position of each slab, a thread each.
@@ -987,14 +944,16 @@ __global__ void __launch_bounds__(256)
                      unsigned short* __restrict__ dslab, SlabPos live,
                      PadPos pads, int cout, int cp, int n, int tiles_g,
                      int tiles_d, long pad_g, long pad_d) {
-  __shared__ __align__(16) uint32_t buf[PRE_P * (PRE_C / 2 + 2)];
+  __shared__ __align__(16) unsigned char buf[
+      fused_half::kCopyTileBytes<unsigned short>];
   const long blk = blockIdx.x;
   if (blk < tiles_g) {
-    copy_tile(g, cout, gslab, cp, n, blk, live, buf);
+    fused_half::copy_tile(g, cout, gslab, cp, n, blk, live, buf);
     return;
   }
   if (blk < tiles_g + tiles_d) {
-    copy_tile(dres, cout, dslab, cout, n, blk - tiles_g, live, buf);
+    fused_half::copy_tile(dres, cout, dslab, cout, n, blk - tiles_g, live,
+                          buf);
     return;
   }
   const long v = (blk - tiles_g - tiles_d) * 256 + threadIdx.x;

@@ -67,7 +67,15 @@ raises):
   of ``fused_fwd_int8_plan``, dequantized per row, y written
   channel-major with the residual, the tiles' sums added in order)
 - ``bwd_quantize``  (launches ``fused_half_bwd.amax``, ``.quant``)
-- ``dgrad_conv``    (launches ``fused_half_dgrad``, ``.sum``)
+- ``dgrad_conv``    (``dgrad_int8_pre``, then ``dgrad_int8_gemm``)
+- ``dgrad_int8_pre`` (launches ``fused_half_dgrad.pre``: g_q's codes copied
+  once into the padded slab of ``fused_fwd_int8_plan`` at Cin = the half's
+  Cout)
+- ``dgrad_int8_gemm`` (launches ``fused_half_dgrad``, ``.sum``: the
+  forward's TMA-fed s8 wgmma mainloop on the slab and the dgrad-packed
+  weights, a dequantizing, masking epilogue in ``csrc/dgrad_wgmma_s8.cuh``
+  writing dx channel-major and each tile's sums, the tiles' sums added in
+  order)
 - ``wgrad``         (launches ``fused_half_wgrad``, and ``.sum`` where
   ``fused_wgrad_s8_plan`` splits the scale groups: the TMA + s8 wgmma
   mainloop of ``csrc/wgrad_wgmma_s8.cuh`` at the nine stride-1 taps,
@@ -634,7 +642,9 @@ def check_fwd_int8_geometry(name: str, cin: int, cout: int, n: int, h: int,
     K steps), Cout a multiple of 8 (16-byte weight rows and output runs),
     whole images, N a multiple of 8 (16-byte runs of lanes), and scale
     groups of whole images, a multiple of 8 lanes, tiling N (the amax
-    pass's 8-lane units); any image width."""
+    pass's 8-lane units); any image width. The int8 dgrad, the forward's
+    GEMM on the transposed conv, has the same needs with Cin and Cout
+    swapped."""
     if cin % 32 or cout % 8:
         raise ValueError(f"{name}: Cin={cin}, Cout={cout}: Cin must be a "
                          "multiple of 32 and Cout of 8")
@@ -681,9 +691,33 @@ def fwd_int8_gemm_plain(slab, amax, w_q, ws, res, *, tile, plan,
                           want_stats=want_stats)
 
 
-def _dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh):
-    """(dx in x's dtype, d(scale), d(shift) f32) from the transposed conv's
-    f32 acc [Cin, N] through the masks (``_masked``)."""
+def dgrad_int8_pre_plain(g_q, *, plan):
+    """The int8 dgrad's operand: the slab [slab_len, Cout] int8 of
+    ``plan``'s layout (``fused_fwd_int8_plan`` of the transposed conv:
+    ``lay.cin`` = the half's Cout, ``lay.cout`` = its Cin) holding g_q's
+    codes [Cout, N] at each pixel's position, zeros at every pad
+    position."""
+    return _to_slab(g_q, plan.lay)
+
+
+def dgrad_int8_gemm_plain(slab, g_amax, w_dg, ws_in, x, scale, shift, bits,
+                          *, thresh, tile, plan):
+    """(dx [Cin, N] in x's dtype, d(scale), d(shift) [Cin] f32) from the
+    slab of ``plan``'s layout: the exact contraction (float64) of each
+    tap's shifted slab rows with the dgrad-packed weights w_dg [Cin,
+    9 * Cout] at the live rows, rounded to f32, dequantized as
+    ``dgrad_conv_plain`` (acc * (ws_in[ci] * (g_amax_g * 1/127)), g the
+    lane's group of ``tile`` lanes), through the masks."""
+    acc = _slab_conv_f64(slab, w_dg, plan.lay).to(_F32)
+    a = _per_group(acc, tile, ws_in.to(_F32)[:, None]
+                   * (g_amax * INV_127)[None, :])
+    return _dgrad_epilogue(a, x, scale, shift, bits, thresh)
+
+
+def _dgrad_epilogue(acc, x, scale, shift, bits, thresh):
+    """(dx in x's dtype, d(scale), d(shift) f32, each sum over every lane at
+    once) from the transposed conv's f32 acc [Cin, N] through the masks
+    (``_masked``)."""
     dn = _masked(acc, x, scale, shift, bits, thresh)
     dx = (dn * _vec(scale)).to(x.dtype)
     return dx, (dn * x.to(_F32)).sum(dim=1), dn.sum(dim=1)
@@ -696,7 +730,7 @@ def dgrad_bf16_plain(dy, y, dysum, dyssq, w_dg, x, scale, shift, bits, *,
     ``emit_res``."""
     g = fold_cotangent_plain(dy, y, dysum, dyssq).to(dy.dtype)
     acc = _conv_f64(g, w_dg, h, w_img).to(_F32)
-    return (*_dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh),
+    return (*_dgrad_epilogue(acc, x, scale, shift, bits, thresh),
             g if emit_res else None)
 
 
@@ -717,7 +751,7 @@ def dgrad_bf16_gemm_plain(slab, w_dg, x, scale, shift, bits, *, thresh,
     rows with the dgrad-packed weights at the live rows, rounded to f32,
     through the masks."""
     acc = _slab_conv_f64(slab, w_dg, lay).to(_F32)
-    return _dgrad_bf16_epilogue(acc, x, scale, shift, bits, thresh)
+    return _dgrad_epilogue(acc, x, scale, shift, bits, thresh)
 
 
 def wgrad_bf16_plain(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
@@ -769,8 +803,9 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_long] + [_I] * 2 + [_P],
             "bwd_amax_launch": [_P] * 10 + [_I] * 6 + [_F, _P],
             "bwd_quant_launch": [_P] * 15 + [_I] * 6 + [_F, _P],
-            "dgrad_conv_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
-            "partial_sum_launch": [_P, _P, _I, _I, _P],
+            "dgrad_pre_launch": [_P] * 2 + [_I] * 4 + [ctypes.c_long, _P],
+            "dgrad_gemm_launch": [_P] * 11 + [_I] * 6 + [ctypes.c_long]
+            + [_I] * 3 + [_F, _P],
             "tile_sum_launch": [_P, _P, _I, _I, _P],
         }
         for name, args in sigs.items():
@@ -795,30 +830,11 @@ def _slices(groups: int) -> int:
     return max(1, -(-528 // groups))
 
 
-def _check_geometry(name: str, c: int, n: int, tile: int, h: int,
-                    w_img: int) -> None:
-    """The kernels' own shape needs (the JAX gates admit more)."""
-    if c % 32:
-        raise ValueError(f"{name}: C={c} is not a multiple of 32")
-    if w_img % 8 or tile % (h * w_img) or n % tile or tile % 8:
-        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} tile="
-                         f"{tile} is not supported by the kernel")
-
-
 def _launch(name: str, fn, *args, seed: bool = False) -> None:
     check_rc(name, fn(*args))
     launches[name] += 1
     if seed:
         seed_launches[name] += 1
-
-
-def _partial_sum(name: str, part: torch.Tensor, lib=None) -> torch.Tensor:
-    """out[i] = sum over j of part[j, i], in order, in f32."""
-    j, m = part.shape
-    out = torch.empty(m, dtype=_F32, device=part.device)
-    _launch(name, (lib or _library()).partial_sum_launch, part.data_ptr(),
-            out.data_ptr(), j, m, _stream(part))
-    return out
 
 
 def _drop_args(bits, tensors: list, dtypes: list):
@@ -989,19 +1005,6 @@ def fwd_int8(x, w_q, ws, scale, shift, bits, res, *, thresh, tile, h,
                                  want_stats)
 
 
-def _conv_blocks(n: int, h: int, w_img: int) -> int:
-    """Position tiles of the conv kernel's grid (whole rows of one image:
-    256 or fewer positions; csrc/conv3x3_rows.cuh ``row_tile``)."""
-    best = 0
-    for r in range(1, h + 1):
-        bn = r * w_img
-        if h % r == 0 and bn in (64, 128, 256) and bn > best:
-            best = bn
-    if best == 0:
-        raise ValueError(f"no row tile for H={h} W={w_img}")
-    return n // best
-
-
 def bwd_quantize(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
                  tile, emit_res):
     """The backward's shared operands, per backward scale group (floor
@@ -1052,10 +1055,121 @@ def bwd_quantize(dy, y, dysum, dyssq, x, scale, shift, bits, *, thresh,
     return g_q, g_amax, d_q, d_amax, dres
 
 
+def _check_dgrad_int8_operands(name, g_amax, w_dg, ws_in, x, tile, lay):
+    """The int8 dgrad's operands against the layout of the transposed conv
+    (``lay.cin`` = the half's Cout, ``lay.cout`` = its Cin)."""
+    _check_dgrad_operands(name, w_dg, x, lay)
+    if tuple(ws_in.shape) != (lay.cout,):
+        raise ValueError(f"{name}: weight scales {tuple(ws_in.shape)} vs "
+                         f"Cin {lay.cout}")
+    if g_amax.numel() != lay.n // tile:
+        raise ValueError(f"{name}: {g_amax.numel()} group scales vs "
+                         f"{lay.n // tile} groups")
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles exceed the grid")
+
+
+def _dgrad_int8_tensors(g_amax, w_dg, ws_in, x, scale, shift, bits):
+    """The int8 dgrad GEMM's f32 operands made contiguous, its tensors and
+    their dtypes for ``require_cuda``, and ``_drop_args`` of the bits:
+    (ws_in, scale, shift, tensors, dtypes, drop)."""
+    ws_in = ws_in.to(_F32).contiguous()
+    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
+    tensors = [w_dg, g_amax, ws_in, x, scale, shift]
+    dtypes = [torch.int8, _F32, _F32, torch.bfloat16, _F32, _F32]
+    drop = _drop_args(bits, tensors, dtypes)
+    return ws_in, scale, shift, tensors, dtypes, drop
+
+
+def dgrad_int8_pre(g_q, *, plan):
+    """The int8 dgrad's slab of ``plan``'s layout (``dgrad_int8_pre_plain``):
+    g_q's codes copied once, unchanged, position-major at each pixel's slab
+    position, zeros at every pad position. One launch."""
+    if on_cpu(g_q):
+        return dgrad_int8_pre_plain(g_q, plan=plan)
+    name = "fused_half_dgrad.pre"
+    lay = plan.lay
+    if tuple(g_q.shape) != (lay.cin, lay.n):
+        raise ValueError(f"{name}: g_q {tuple(g_q.shape)} vs the layout "
+                         f"{lay}")
+    if lay.cin % 32:
+        raise ValueError(f"{name}: Cout={lay.cin} is not a multiple of 32")
+    require_cuda(name, [g_q], [torch.int8])
+    return _dgrad_int8_pre_launch(g_q, lay)
+
+
+def _dgrad_int8_pre_launch(g_q, lay):
+    """``dgrad_int8_pre``'s launch on an operand already checked."""
+    slab = torch.empty((lay.slab_len, lay.cin), dtype=torch.int8,
+                       device=g_q.device)
+    _launch("fused_half_dgrad.pre", _library().dgrad_pre_launch,
+            g_q.data_ptr(), slab.data_ptr(), lay.cin, lay.n, lay.h, lay.w,
+            lay.slab_len, _stream(g_q))
+    return slab
+
+
+def dgrad_int8_gemm(slab, g_amax, w_dg, ws_in, x, scale, shift, bits, *,
+                    thresh, tile, plan):
+    """(dx [Cin, N] bf16, d(scale), d(shift) [Cin] f32) from the slab of
+    ``plan``'s layout (``dgrad_int8_gemm_plain``): the exact s32
+    contraction over (tap, Cout channel) on s8 wgmma, each lane's value
+    f32(acc) * (ws_in[ci] * (g_amax_g * 1/127)), through the masks
+    recomputed from x (and the bits, or the mask rebuilt from the seed), dx
+    written channel-major, each tile's sums of dn * x and dn added in a
+    fixed order (dx bit-equal to the plain version, the sums the same bits
+    every run). Two launches; in seed mode the GEMM rebuilds the mask."""
+    if on_cpu(slab):
+        return dgrad_int8_gemm_plain(slab, g_amax, w_dg, ws_in, x, scale,
+                                     shift, bits, thresh=thresh, tile=tile,
+                                     plan=plan)
+    name = "fused_half_dgrad"
+    lay = plan.lay
+    if tuple(slab.shape) != (lay.slab_len, lay.cin):
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} is not of the "
+                         f"layout {lay}")
+    check_fwd_int8_geometry(name, lay.cin, lay.cout, lay.n, lay.h, lay.w,
+                            tile)
+    _check_dgrad_int8_operands(name, g_amax, w_dg, ws_in, x, tile, lay)
+    ws_in, scale, shift, tensors, dtypes, drop = _dgrad_int8_tensors(
+        g_amax, w_dg, ws_in, x, scale, shift, bits)
+    require_cuda(name, [slab] + tensors, [torch.int8] + dtypes)
+    return _dgrad_int8_gemm_launch(slab, g_amax, w_dg, ws_in, x, scale,
+                                   shift, drop, thresh, tile, plan)
+
+
+def _dgrad_int8_gemm_launch(slab, g_amax, w_dg, ws_in, x, scale, shift,
+                            drop, thresh, tile, plan):
+    """``dgrad_int8_gemm``'s two launches on operands already checked;
+    ``drop`` is ``_drop_args`` of the bits."""
+    name = "fused_half_dgrad"
+    bits_p, seed_p, seeded = drop
+    lay = plan.lay
+    cin, dev = lay.cout, slab.device
+    lib, st = _library(), _stream(slab)
+    dx = torch.empty((cin, lay.n), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((lay.tiles, 2 * cin), dtype=_F32, device=dev)
+    masked = bits_p is not None or seed_p is not None
+    _launch(name, lib.dgrad_gemm_launch, slab.data_ptr(), w_dg.data_ptr(),
+            g_amax.data_ptr(), ws_in.data_ptr(), x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
+            dx.data_ptr(), part.data_ptr(), lay.cin, cin, lay.n, lay.h,
+            lay.w, tile, lay.slab_len, lay.tiles, plan.bn, thresh or 256,
+            inv_keep(thresh) if masked else 1.0, st, seed=seeded)
+    sums = torch.empty(2 * cin, dtype=_F32, device=dev)
+    _launch(f"{name}.sum", lib.tile_sum_launch, part.data_ptr(),
+            sums.data_ptr(), lay.tiles, 2 * cin, st)
+    return dx, sums[:cin], sums[cin:]
+
+
 def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
                tile, h, w_img):
     """The input gradient through the masks: (dx [Cin, N] bf16, d(scale),
-    d(shift) [Cin] f32)."""
+    d(shift) [Cin] f32) from the codes g_q [Cout, N] of ``bwd_quantize``
+    and the dgrad-packed weights (``quantize_pack_weights_dgrad``). On the
+    CPU ``dgrad_conv_plain``; on the card ``dgrad_int8_pre`` into a slab
+    freed at return, then ``dgrad_int8_gemm``; every operand is checked
+    once, before the first launch, and any image width runs
+    (``check_fwd_int8_geometry`` with Cin and Cout swapped)."""
     if on_cpu(g_q):
         return dgrad_conv_plain(g_q, g_amax, w_dg, ws_in, x, scale, shift,
                                 bits, thresh=thresh, tile=tile, h=h,
@@ -1063,26 +1177,15 @@ def dgrad_conv(g_q, g_amax, w_dg, ws_in, x, scale, shift, bits, *, thresh,
     name = "fused_half_dgrad"
     cout, n = g_q.shape
     cin = w_dg.shape[0]
-    if tuple(w_dg.shape) != (cin, 9 * cout):
-        raise ValueError(f"{name}: weights {tuple(w_dg.shape)}")
-    _check_geometry(name, cout, n, tile, h, w_img)
-    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
-    ws_in = ws_in.to(_F32).contiguous()
-    tensors = [g_q, w_dg, g_amax, ws_in, x, scale, shift]
-    dtypes = [torch.int8, torch.int8, _F32, _F32, torch.bfloat16, _F32, _F32]
-    bits_p, seed_p, seeded = _drop_args(bits, tensors, dtypes)
-    require_cuda(name, tensors, dtypes)
-    dx = torch.empty((cin, n), dtype=torch.bfloat16, device=g_q.device)
-    part = torch.empty((_conv_blocks(n, h, w_img), 2 * cin), dtype=_F32,
-                       device=g_q.device)
-    keep = inv_keep(thresh) if bits is not None else 1.0
-    _launch(name, _library().dgrad_conv_launch, g_q.data_ptr(),
-            w_dg.data_ptr(), g_amax.data_ptr(), ws_in.data_ptr(),
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), bits_p, seed_p,
-            dx.data_ptr(), part.data_ptr(), cout, cin, n, h, w_img, tile,
-            thresh or 256, keep, _stream(g_q), seed=seeded)
-    sums = _partial_sum(f"{name}.sum", part)
-    return dx, sums[:cin], sums[cin:]
+    check_fwd_int8_geometry(name, cout, cin, n, h, w_img, tile)
+    plan = fused_fwd_int8_plan(n, h, w_img, cout, cin)
+    _check_dgrad_int8_operands(name, g_amax, w_dg, ws_in, x, tile, plan.lay)
+    ws_in, scale, shift, tensors, dtypes, drop = _dgrad_int8_tensors(
+        g_amax, w_dg, ws_in, x, scale, shift, bits)
+    require_cuda(name, [g_q] + tensors, [torch.int8] + dtypes)
+    slab = _dgrad_int8_pre_launch(g_q, plan.lay)
+    return _dgrad_int8_gemm_launch(slab, g_amax, w_dg, ws_in, x, scale,
+                                   shift, drop, thresh, tile, plan)
 
 
 class FusedWgradS8Plan(NamedTuple):
@@ -1314,7 +1417,9 @@ def fused_fwd_gemm(slab, w_packed, res, *, lay, want_stats):
             lay.bn, _stream(slab))
     if not want_stats:
         return y, None, None
-    sums = _partial_sum(f"{name}.sum", part, lib)
+    sums = torch.empty(2 * lay.cout, dtype=_F32, device=dev)
+    _launch(f"{name}.sum", lib.partial_sum_launch, part.data_ptr(),
+            sums.data_ptr(), lay.tiles, 2 * lay.cout, _stream(slab))
     return y, sums[:lay.cout], sums[lay.cout:]
 
 
@@ -1697,8 +1802,7 @@ def _check_int8_backward(quant_bwd: bool, cin: int, cout: int, n: int,
                                 w_img)
         return
     tile = bwd_tile(h, w_img, n, cin, cout)
-    _check_geometry("fused_half_dgrad", cout, n, tile, h, w_img)
-    _conv_blocks(n, h, w_img)
+    check_fwd_int8_geometry("fused_half_dgrad", cout, cin, n, h, w_img, tile)
     check_wgrad_s8_geometry("fused_half_wgrad", cin, cout, n, h, w_img, tile)
 
 

@@ -348,8 +348,9 @@ def test_fused_half_op_launches_its_kernels(dev):
         name: 1 for name in (
             "fused_half_fwd.amax", "fused_half_fwd.pre", "fused_half_fwd",
             "fused_half_fwd.sum", "fused_half_bwd.amax",
-            "fused_half_bwd.quant", "fused_half_dgrad", "fused_half_dgrad.sum",
-            "fused_half_wgrad", "fused_half_wgrad.sum")}
+            "fused_half_bwd.quant", "fused_half_dgrad.pre",
+            "fused_half_dgrad", "fused_half_dgrad.sum", "fused_half_wgrad",
+            "fused_half_wgrad.sum")}
     for t in (x, wt, scale, shift):
         assert torch.isfinite(t.grad).all()
 
@@ -736,6 +737,161 @@ def test_fused_dgrad_bf16_refuses_what_it_cannot_take(dev):
     assert not fb.launches
 
 
+# (Cin, Cout, h, w, batch, scale group) of the half for the wgmma int8
+# (FQT) dgrad: the WRN-28-10 stages at batch 128 (their own scale groups:
+# Cout % 128 = 32, 64, 0), then widths the old row-tile kernel refused
+# (6x6, 5x7, 12x12) at Cout = 32 and 96 (96 % 128: a 64- and a 32-byte
+# box a tap) with Cin = 40 (a ragged 64-wide N tile) and 96; groups of 2
+# images of 6x6 (72 lanes) and of 12x12 (288) put a group boundary inside
+# most 128-row tiles
+FUSED_DGRAD_INT8_SHAPES = [(160, 160, 32, 32, 128, None),
+                           (320, 320, 16, 16, 128, None),
+                           (640, 640, 8, 8, 128, None),
+                           (40, 32, 6, 6, 64, 72), (96, 96, 5, 7, 8, 280),
+                           (40, 96, 12, 12, 8, 288), (96, 32, 12, 12, 16, 144)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b,tile", FUSED_DGRAD_INT8_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "bits", "seed"])
+def test_fused_dgrad_int8_wgmma_matches_plain(dev, cin, cout, h, w, b, tile,
+                                              mode):
+    """The int8 (FQT) dgrad's prepass and s8 wgmma GEMM: the slab equal to
+    its plain version's byte for byte; dx equal to ``dgrad_conv_plain``'s
+    bit for bit, d(scale) and d(shift) within 1e-5; two calls bit-equal,
+    and the GEMM on the slab alone the same; each call one prepass, one
+    GEMM (seeded in seed mode: the mask is rebuilt in its epilogue) and one
+    ordered sum."""
+    g = torch.Generator(device=dev).manual_seed(cin + 5 * cout + w)
+    n = b * h * w
+    tile = tile or fb.bwd_tile(h, w, n, cin, cout)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = rn(cin, n).to(torch.bfloat16)
+    wdg, wsin = fb.quantize_pack_weights_dgrad(
+        rn(cout, cin, 3, 3, s=(9 * cin) ** -0.5))
+    scale, shift = rn(cin).abs() + 0.5, rn(cin, s=0.3)
+    thresh, bits = _drop(mode, dev, g, cin, n)
+    g_q, g_amax = fb.quantize_groups_plain(rn(cout, n, s=1e-3), tile,
+                                           fb.BWD_FLOOR)
+    args = (g_q, g_amax, wdg, wsin, x, scale, shift, bits)
+    kw = dict(thresh=thresh, tile=tile, h=h, w_img=w)
+    plan = fb.fused_fwd_int8_plan(n, h, w, cout, cin)
+    slab = fb.dgrad_int8_pre(g_q, plan=plan)
+    fb.reset_launches()
+    got = fb.dgrad_conv(*args, **kw)
+    again = fb.dgrad_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, fb.dgrad_int8_pre_plain(g_q, plan=plan))
+    want = fb.dgrad_conv_plain(*args, **kw)
+    _same(got[0], want[0])
+    _same(got[1], want[1], sums=True)
+    _same(got[2], want[2], sums=True)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    names = ("fused_half_dgrad.pre", "fused_half_dgrad",
+             "fused_half_dgrad.sum")
+    assert dict(fb.launches) == {name: 2 for name in names}
+    assert dict(fb.seed_launches) == ({names[1]: 2} if mode == "seed"
+                                      else {})
+    alone = fb.dgrad_int8_gemm(slab, *args[1:], thresh=thresh, tile=tile,
+                               plan=plan)
+    for a, b_ in zip(alone, got):
+        assert torch.equal(a, b_)
+
+
+def test_fused_dgrad_int8_refuses_what_it_cannot_take(dev):
+    """The wgmma int8 dgrad raises on what its kernels do not take (Cout
+    not a multiple of 32, Cin not a multiple of 8, scale groups that are
+    not whole images of a multiple of 8 lanes, a slab of another layout,
+    another dtype), launching nothing."""
+    cin, cout, h, w, b = 32, 32, 6, 6, 8
+    n = b * h * w
+    g_q = torch.zeros((cout, n), dtype=torch.int8, device=dev)
+    wdg = torch.zeros((cin, 9 * cout), dtype=torch.int8, device=dev)
+    x = torch.zeros((cin, n), dtype=torch.bfloat16, device=dev)
+    one = torch.ones(cin, device=dev)
+    amax = torch.ones(n // 72, device=dev)
+    kw = dict(thresh=None, tile=72, h=h, w_img=w)
+    fb.reset_launches()
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fb.dgrad_conv(g_q, amax, wdg, one, x.float(), one, one, None, **kw)
+    with pytest.raises(ValueError, match="Cin=48, Cout=32"):
+        fb.dgrad_conv(torch.zeros((48, n), dtype=torch.int8, device=dev),
+                      amax, torch.zeros((cin, 9 * 48), dtype=torch.int8,
+                                        device=dev), one, x, one, one, None,
+                      **kw)
+    with pytest.raises(ValueError, match="Cin=32, Cout=36"):
+        fb.dgrad_conv(g_q, amax, torch.zeros((36, 9 * cout),
+                                             dtype=torch.int8, device=dev),
+                      torch.ones(36, device=dev),
+                      torch.zeros((36, n), dtype=torch.bfloat16, device=dev),
+                      torch.ones(36, device=dev), torch.ones(36, device=dev),
+                      None, **kw)
+    with pytest.raises(ValueError, match="scale group of 36 lanes"):
+        fb.dgrad_conv(g_q, torch.ones(n // 36, device=dev), wdg, one, x,
+                      one, one, None, **dict(kw, tile=36))
+    plan = fb.fused_fwd_int8_plan(n, h, w, cout, cin)
+    with pytest.raises(ValueError, match="is not of the layout"):
+        fb.dgrad_int8_gemm(torch.zeros((plan.lay.slab_len - 1, cout),
+                                       dtype=torch.int8, device=dev),
+                           amax, wdg, one, x, one, one, None, thresh=None,
+                           tile=72, plan=plan)
+    assert not fb.launches
+
+
+def test_fused_half_int8_fqt_runs_12x12(dev):
+    """12x12 images at batch 8 (a width the old FQT dgrad's rows of 8
+    refused: ROADMAP Queue 3 item 6): ``fused_half_int8`` in FQT runs
+    forward and backward on its kernels, the dgrad's three among them, and
+    equals the plain chain: y equal and its sums within 1e-5; dx and dW
+    equal, d(scale) and d(shift) within 1e-5 of the plain quantizer, dgrad
+    and wgrad on the same cotangents."""
+    c, b, h, w = 32, 8, 12, 12
+    n = b * h * w
+    g = torch.Generator(device=dev).manual_seed(1212)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = rn(c, n).to(torch.bfloat16)
+    wt = rn(c, c, 3, 3, s=0.05)
+    scale, shift = rn(c).abs() + 0.5, rn(c, s=0.3)
+    cy, cs, cq = rn(c, n, s=1e-2).to(torch.bfloat16), rn(c, s=1e-3), rn(
+        c, s=1e-3)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, scale, shift)]
+    fb.reset_launches()
+    y, ys, yq = fb.fused_half_int8(*leaves, h=h, w_img=w, quant_bwd=True)
+    ((y.float() * cy.float()).sum() + (ys * cs).sum()
+     + (yq * cq).sum()).backward()
+    torch.cuda.synchronize()
+    for name in ("fused_half_fwd", "fused_half_bwd.quant",
+                 "fused_half_dgrad.pre", "fused_half_dgrad",
+                 "fused_half_dgrad.sum", "fused_half_wgrad"):
+        assert fb.launches[name] == 1, name
+    tile, btile = fb.lane_tile(h, w, n, c, c), fb.bwd_tile(h, w, n, c, c)
+    wq, ws = fb.quantize_pack_weights(wt)
+    want = fb.fwd_conv_plain(*fb.fwd_quantize_plain(
+        x, scale, shift, None, thresh=None, tile=tile), wq, ws, None,
+        tile=tile, h=h, w_img=w, want_stats=True)
+    _same(y.detach(), want[0])
+    _same(ys.detach(), want[1], sums=True)
+    _same(yq.detach(), want[2], sums=True)
+    g_q, g_amax, d_q, d_amax, _ = fb.bwd_quantize_plain(
+        cy, y.detach(), cs, cq, x, scale, shift, None, thresh=None,
+        tile=btile, emit_res=False)
+    wdg, wsin = fb.quantize_pack_weights_dgrad(wt)
+    dx, ds, dt = fb.dgrad_conv_plain(g_q, g_amax, wdg, wsin, x, scale, shift,
+                                     None, thresh=None, tile=btile, h=h,
+                                     w_img=w)
+    dw = fb.wgrad_plain(g_q, g_amax, d_q, d_amax, tile=btile, h=h, w_img=w)
+    _same(leaves[0].grad, dx)
+    _same(leaves[2].grad, ds, sums=True)
+    _same(leaves[3].grad, dt, sums=True)
+    _same(leaves[1].grad, dw.permute(3, 2, 0, 1))
+
+
 # (Cin, Cout, h, w, batch, bits mode) of the staged fused wgrad: geometries
 # the old kernel refused (12 x 12 images, rows of 40 and of 7, Cin = 24),
 # then WRN-28-10's first stage at a smaller batch
@@ -1009,8 +1165,9 @@ def test_fused_fwd_int8_takes_widths_the_backward_refuses_before_any_launch(
     """6x6 images at batch 64 (a geometry the fused gate admits): the int8
     forward runs there and equals its plain version; ``fused_half_int8``
     in FQT raises, naming the geometry, before its first launch (its int8
-    dgrad tiles rows of 8); in QAT its bf16 backward runs there, the
-    dgrad's three kernels among its launches, with finite gradients."""
+    wgrad takes whole images of a multiple of 16 positions); in QAT its
+    bf16 backward runs there, the dgrad's three kernels among its
+    launches, with finite gradients."""
     c, b, h, w = 32, 64, 6, 6
     n = b * h * w
     g = torch.Generator(device=dev).manual_seed(67)
@@ -2124,9 +2281,9 @@ def test_transition_dgrad_wgmma_matches_plain(dev, b, h, w, cin, cout,
 
 def test_fused_gate_geometry_the_kernels_refuse_raises(dev):
     """The fused gate admits 6x6 images at batch 64 (a 2,304-lane tile);
-    the FQT half's int8 dgrad tiles whole rows of 8 and raises, naming the
-    geometry (ROADMAP Queue 3 item 6), instead of computing something
-    else."""
+    the FQT half's int8 wgrad takes whole images of a multiple of 16
+    positions (its dgrad takes any width) and raises, naming the geometry
+    (ROADMAP Queue 3 item 6), instead of computing something else."""
     from pytorch_ddp_resnet_tpu_torch.models.blocks import ResidualBlock
 
     c, b, h, w = 32, 64, 6, 6

@@ -379,8 +379,9 @@ def test_the_checks_take_any_width_and_the_op_keeps_its_backwards_rules():
     """The forward's check takes whole images of any width and refuses
     channels, positions and scale groups its kernels cannot take; the
     op's check of its backward raises, naming the geometry, where the
-    int8 dgrad (FQT) tiles rows of 8, and passes where the bf16 backward
-    (QAT) takes any width."""
+    int8 wgrad (FQT) needs whole images of a multiple of 16 positions
+    (6x6: the FQT dgrad takes any width), and passes where the bf16
+    backward (QAT) takes any width."""
     for h, w, n, tile in ((6, 6, 32 * 36, 1152), (5, 7, 8 * 35, 280),
                           (8, 8, 4 * 64, 128)):
         fb.check_fwd_int8_geometry("fwd", 96, 40, n, h, w, tile)

@@ -284,14 +284,20 @@ def test_the_checks_take_any_width_and_keep_the_dgrads_rule():
     """The forward's check takes widths that are not multiples of 8 and
     refuses channels, positions or grids it cannot take; the bf16 dgrad
     (the forward's GEMM on the transposed conv) takes those widths too, so
-    the QAT backward's check passes them, and the int8 (FQT) dgrad's check
-    keeps its rows of 8."""
+    the QAT backward's check passes them; so does the int8 (FQT) dgrad's
+    (the int8 forward's rule, Cin and Cout swapped), and the FQT backward
+    keeps its int8 wgrad's rule: whole images of a multiple of 16
+    positions (12x12 passes it, 6x6 and 5x7 do not)."""
     for h, w, n in ((6, 6, 64 * 36), (5, 7, 8 * 35), (12, 12, 8 * 144)):
         fb.check_fwd_bf16_geometry("fwd", 32, 64, n, h, w)
         fb._check_int8_backward.cache_clear()
         fb._check_int8_backward(False, 32, 64, n, h, w)
-        with pytest.raises(ValueError, match="geometry"):
-            fb._check_geometry("dgrad", 32, n, n, h, w)
+        fb.check_fwd_int8_geometry("dgrad", 64, 32, n, h, w, n)
+        if (h * w) % 16:
+            with pytest.raises(ValueError, match="geometry"):
+                fb.check_wgrad_s8_geometry("wgrad", 32, 64, n, h, w, n)
+        else:
+            fb.check_wgrad_s8_geometry("wgrad", 32, 64, n, h, w, n)
     with pytest.raises(ValueError, match="multiple of 8"):
         fb.check_fwd_bf16_geometry("fwd", 12, 64, 8 * 36, 6, 6)
     with pytest.raises(ValueError, match="multiple of 8"):

@@ -46,8 +46,11 @@ from bench_nv_wgrad_bf16 import BF16, BW, REPO, time_ms
 BATCH = 128
 STAGES = [(160, 32, 32), (320, 16, 16), (640, 8, 8)]   # (C, H, W)
 MODES = ("int8", "bf16", "bf16+res", "bf16+res+dual")
-# the slab route's kernels by part, for the device-time split
-KERNELS = {"pre": "pre_kernel", "gemm": "requant_s8_kernel"}
+# the slab route's kernels by part, for the device-time split: the
+# prepass is csrc/fused_half.cuh's slab copy (before it moved there,
+# requant_wgmma_s8.cuh's own pre_kernel; a tree has one or the other)
+KERNELS = {"pre": "slab_copy_kernel", "pre_own": "requant_wgmma_s8::pre_",
+           "gemm": "requant_s8_kernel"}
 
 
 def _timed(row, key, fn):
@@ -171,8 +174,10 @@ def main() -> int:
                 plan = k.requant_plan(n, h, w, c, c)
                 slab = k.conv3x3_int8_requant_pre(xq, plan=plan)
                 slab_b = plan.lay.slab_len * c
-                row.update({f"{part}_split_dev_ms": v for part, v in
-                            split_ms(call, KERNELS).items()})
+                split = split_ms(call, KERNELS)
+                split["pre"] += split.pop("pre_own")
+                row.update({f"{part}_split_dev_ms": v
+                            for part, v in split.items()})
                 _timed(row, "pre",
                        lambda: k.conv3x3_int8_requant_pre(xq, plan=plan))
                 _timed(row, "gemm", lambda: k.conv3x3_int8_requant_gemm(
