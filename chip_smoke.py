@@ -10,7 +10,11 @@ Phases, each fatal on failure:
    16x16, 8x8; batch 128) hold each kernel against its plain PyTorch
    version on the same CUDA tensors, every epilogue mode of the int8
    kernel included, and time the kernel, the plain version and cuDNN's
-   bf16 ``F.conv2d`` (channels-last) at the same shape.
+   bf16 ``F.conv2d`` (channels-last) at the same shape. Both convs are a
+   prepass into the padded slab and a wgmma GEMM: each op must give the
+   same bits in two calls and equal its GEMM run alone on its checked
+   slab, each slab must equal its plain version byte for byte, and each
+   part is timed apart (CUDA events) and in device time (torch.profiler).
    The augment kernel (ops/cuda/csrc/augment.cu) against its plain version
    at batch 128 and 512, mirror and zero padding, with and without
    whitening (bit-equal), timed beside the plain version and the port's
@@ -20,8 +24,9 @@ Phases, each fatal on failure:
    weights from the config's seed, Synthetic CIFAR-shaped data), served
    through ``load_predictor(config)`` and ``load_predictor(config,
    quantize="int8")``, answering requests that include ragged batches.
-   The launch counts, zeroed just before, must show 22 bf16-conv launches
-   per calibration batch and 22 int8-conv launches per serving batch.
+   The launch counts, zeroed just before, must show 22 launches of each
+   bf16-conv part (prepass, GEMM) per calibration batch and 22 of each
+   int8-conv part per serving batch.
    Logits must be finite; int8 serving through the kernels must match the
    same int8 walk through the plain versions with the same scales; the
    float walk through the bf16 kernel must match the float model.
@@ -245,7 +250,9 @@ Phases, each fatal on failure:
 17. conv3x3_same (``use_pallas_conv``): at the three WRN-28-10 stage shapes
    and ResNet-v1-20's first (C = 16 at 32x32, zero-padded to 32 channels
    for the kernels), batch 128, hold the op's forward and dgrad
-   (``conv3x3_bf16``, bf16 within 2 ulps) and its weight gradient
+   (``conv3x3_bf16``: its prepass's slab byte for byte, then the wgmma
+   GEMM, bf16 within 2 ulps, the same bits in two calls, the two parts
+   timed apart in device time) and its weight gradient
    (``conv3x3_wgrad``: TMA reads x and dy in place, a shifter warpgroup
    moves x by each tap's column, a wgmma mainloop,
    ops/cuda/csrc/wgrad_wgmma_bf16.cuh, then the ordered sum; HWIO f32
@@ -268,15 +275,18 @@ Phases, each fatal on failure:
 19. Training, the ninth main path: the bf16 recipe of phase 5 with
    ``use_pallas_conv: True``. With the launch counts zeroed just before,
    each step must make 22 conv3x3_same calls, each one forward and one
-   dgrad on ``conv3x3_bf16`` and one wgrad with its ordered sum
+   dgrad on ``conv3x3_bf16`` (each its prepass and its GEMM) and one wgrad
+   with its ordered sum
    (PALLAS_PER_STEP, PALLAS_CALLS_PER_STEP: 8 at C = 160, 7 at 320, 7 at
    640); the first step leaves only the stem, the two stride-2 conv1s and
    the two projections on ``F.conv2d``. The first conv's live forward and
    the dgrad and wgrad of the first conv the backward reaches, on their
    live operands, reproduce their outputs and agree with their plain
-   versions. Losses finite, every parameter changed, every BatchNorm count
-   equal to the steps; prints the step time, img/s, peak memory and the
-   profile beside phase 5's.
+   versions (the conv passes' slabs byte for byte). Losses finite, every
+   parameter changed, every BatchNorm count equal to the steps; the
+   profile files the bf16 conv's kernels under conv3x3_same's forward and
+   dgrad; prints the step time, img/s, peak memory and the profile beside
+   phase 5's.
 20. NV training bf16 bodies: at every geometry and kind of half of phase
    10, with the same non-zero stats cotangents and dx_res, hold the bf16
    forward, dgrad and wgrad of ops/cuda/csrc/bneck_nv_train.cu against
@@ -368,11 +378,16 @@ SOURCES = {"nv_half_fwd":
            "conv3x3_int8_requant":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/requant_wgmma_s8.cuh",
            "conv3x3_int8_requant.pre":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_half.cuh",
+           "conv3x3_bf16":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv3x3_wgmma_bf16.cuh",
+           "conv3x3_bf16.pre":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_half.cuh"}
 BF16_SOURCE = ("pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/"
                "fused_block_bf16.cu")
 _PALLAS = "pytorch_ddp_resnet_tpu/ops/pallas/"
 REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
+            "conv3x3_bf16.pre": _PALLAS + "conv.py:185",
             "conv3x3_int8_requant": _PALLAS + "conv.py:314",
             "conv3x3_int8_requant.pre": _PALLAS + "conv.py:314",
             "augment_batch": _PALLAS + "augment.py:156",
@@ -411,6 +426,11 @@ BF16_NAMES = ("fused_half_bf16_fwd", "fused_half_bf16_dgrad",
 # (its prepass is csrc/fused_half.cuh's slab copy, shared with the FQT
 # dgrad's)
 REQUANT_KERNELS = {"pre": "slab_copy_kernel", "gemm": "requant_s8_kernel"}
+# the bf16 conv's two kernels by part (its prepass: the same slab copy's
+# bf16 instantiation; its GEMM on the fused bf16 forward's wgmma mainloop)
+BF16_KERNELS = {"pre": "slab_copy_kernel", "gemm": "conv3x3_bf16_kernel"}
+# the bf16 conv's launches of one WRN-28-10 calibration batch
+CALIB_PER_BATCH = {"conv3x3_bf16.pre": 22, "conv3x3_bf16": 22}
 # the int8 serving conv's launches of one WRN-28-10 serving batch
 REQUANT_PER_BATCH = {"conv3x3_int8_requant.pre": 22,
                      "conv3x3_int8_requant": 22}
@@ -427,9 +447,11 @@ C1_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/conv1x1.cu"
 SAME_SHAPES = STAGES + [(16, 32, 32)]
 # launches of one use_pallas_conv WRN-28-10 step: 22 conv3x3_same calls
 # (the blocks' stride-1 3x3 convs), each a forward and a dgrad on
-# conv3x3_bf16 and one wgrad with its ordered sum
-PALLAS_PER_STEP = {"augment_batch": 1, "conv3x3_bf16": 44,
-                   "conv3x3_wgrad": 22, "conv3x3_wgrad.sum": 22}
+# conv3x3_bf16 (its prepass and its GEMM) and one wgrad with its ordered
+# sum
+PALLAS_PER_STEP = {"augment_batch": 1, "conv3x3_bf16.pre": 44,
+                   "conv3x3_bf16": 44, "conv3x3_wgrad": 22,
+                   "conv3x3_wgrad.sum": 22}
 PALLAS_CALLS_PER_STEP = {"forward": 22, "backward": 22}
 PALLAS_MIX = {160: 8, 320: 7, 640: 7}  # conv3x3_same calls per step by C
 # ResNet-50's 1x1 convs at batch 128 (tools/bench_conv1x1.py "r50"): (h,
@@ -725,25 +747,56 @@ def kernel_phase(peaks):
 
         lib_ms = cudnn_ms()
 
-        # bf16 conv: bf16 in, f32 accumulate, bf16 out
+        # bf16 conv: bf16 in, f32 accumulate, bf16 out; the op (its
+        # prepass, then its wgmma GEMM) against the plain version, two
+        # calls bit-equal, the prepass's slab byte for byte; each part
+        # timed apart (CUDA events) and in device time
         x = torch.randn(c, n, device=dev, generator=g).to(torch.bfloat16)
         wp = (torch.randn(c, 9 * c, device=dev, generator=g)
               / (9 * c) ** 0.5).to(torch.bfloat16)
-        got = k.conv3x3_bf16(x, wp, h=h, w_img=w).float()
-        ref = k.conv3x3_bf16_plain(x, wp, h=h, w_img=w).float()
+        lay = k.conv3x3_bf16_plan(n, h, w, c, c)
+
+        def run_bf16():
+            return k.conv3x3_bf16(x, wp, h=h, w_img=w)
+
+        got = run_bf16()
+        assert torch.equal(got, run_bf16()), (c, "bf16 two calls")
+        ref = k.conv3x3_bf16_plain(x, wp, h=h, w_img=w)
+        _bf16_err(got, ref, ("conv3x3_bf16", c))
+        slab16 = k.conv3x3_bf16_pre(x, lay=lay)
+        assert torch.equal(slab16, k.conv3x3_bf16_pre_plain(x, lay=lay)), \
+            ("conv3x3_bf16.pre", c)
+        assert torch.equal(k.conv3x3_bf16_gemm(slab16, wp, lay=lay), got)
+        got, ref = got.float(), ref.float()
         d = (got - ref).abs()
         beyond = (d > bf16_ulp(ref)).float().mean().item()
-        assert beyond <= 1e-3 and d.max().item() <= 2 ** -6 * \
-            ref.abs().max().item(), (c, beyond, d.max().item())
+        assert beyond <= 1e-3, (c, beyond, d.max().item())
         byts = 2 * (2 * c * n + 9 * c * c)
+        split = kernel_split_ms(run_bf16, 5, BF16_KERNELS.values(),
+                                need=BF16_KERNELS.values())
         rows.append(dict(
             name="conv3x3_bf16", c=c, h=h, w=w, n=n, mode="bf16",
             max_abs_err=d.max().item(), share_beyond_1ulp=beyond,
-            ms=time_ms(lambda: k.conv3x3_bf16(x, wp, h=h, w_img=w), 20),
+            bn=lay.bn, tiles=lay.tiles, ms=time_ms(run_bf16, 20),
+            gemm_ms=time_ms(
+                lambda: k.conv3x3_bf16_gemm(slab16, wp, lay=lay), 20),
+            **{f"{part}_dev_ms": (split[key] if split else None)
+               for part, key in BF16_KERNELS.items()},
+            dev_ms=(sum(split.values()) if split else None),
             plain_ms=time_ms(
                 lambda: k.conv3x3_bf16_plain(x, wp, h=h, w_img=w), 3),
             library_ms=lib_ms,
             ops_ms=2 * macs / flops_bf16 * 1e3, bytes_ms=byts / bw * 1e3))
+        # its prepass: bound by its bytes (x read, the slab written)
+        rows.append(dict(
+            name="conv3x3_bf16.pre", c=c, h=h, w=w, n=n, mode="",
+            max_abs_err=0.0, bn=lay.bn, tiles=lay.tiles,
+            ms=time_ms(lambda: k.conv3x3_bf16_pre(x, lay=lay), 20),
+            plain_ms=time_ms(
+                lambda: k.conv3x3_bf16_pre_plain(x, lay=lay), 3),
+            library_ms=None, ops_ms=0.0,
+            bytes_ms=2 * (c * n + lay.slab_len * c) / bw * 1e3))
+        del slab16
 
         # int8 conv + requant epilogue, every mode: the op (its prepass,
         # then its GEMM) against the plain version, two calls bit-equal;
@@ -980,9 +1033,10 @@ def serving_phase(workdir):
     shapes = dict(conv3x3.launch_shapes)
 
     assert qp.n_quantized == 22, qp.n_quantized
-    assert set(launches) == {"conv3x3_bf16"} | set(REQUANT_PER_BATCH), \
+    assert set(launches) == set(CALIB_PER_BATCH) | set(REQUANT_PER_BATCH), \
         launches
-    assert launches.get("conv3x3_bf16") == 22 * n_calib, launches
+    for name, per in CALIB_PER_BATCH.items():
+        assert launches.get(name) == per * n_calib, launches
     for name, per in REQUANT_PER_BATCH.items():
         assert launches.get(name) == per * n_serve, launches
     for a, b, r in zip(fl, ql, requests):
@@ -1031,11 +1085,15 @@ def serving_phase(workdir):
 
 # kernel-name patterns of the train step's kinds of device work
 KERNEL_KINDS = [
+    # the bf16 conv's GEMM (its argument type is the fused bf16 forward's)
+    # and the bf16 instantiation of the slab copy (the int8 one is the
+    # fused int8 half's), first
+    ("conv3x3_same fwd + dgrad (port)", ("conv3x3_bf16_kernel",
+                                         "slab_copy_kernel<__nv_bfloat16>")),
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
     ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
     ("stem (port)", ("stem_", "StemWgradSum")),
-    ("conv3x3_same fwd + dgrad (port)", ("Bf16Out",)),
     # the lane transition's TMA wgrads (the bf16 one shares
     # conv3x3_same's mainloop): their instantiations and the sum carry the
     # transition's tag
@@ -1704,15 +1762,16 @@ def augment_summary(aug_rows, training):
 
 def kernel_summary(rows, serving):
     """One entry per conv kernel: the serving path's launches, and
-    per-batch times (calibration batch for the bf16 conv, serving batch for
-    the int8 conv's prepass and GEMM) summed over the (shape, mode) mix
-    that path launched. The int8 conv's ``ms`` is the op's (its two
+    per-batch times (calibration batch for the bf16 conv's prepass and
+    GEMM, serving batch for the int8 conv's) summed over the (shape, mode)
+    mix that path launched. Each conv's ``ms`` is the op's (its two
     launches), ``gemm_ms`` its GEMM's alone, ``*_dev_ms`` the device time
     by part (torch.profiler)."""
-    names = ("conv3x3_bf16", "conv3x3_int8_requant.pre",
+    names = ("conv3x3_bf16", "conv3x3_bf16.pre", "conv3x3_int8_requant.pre",
              "conv3x3_int8_requant")
     per_batch = {name: serving["n_serve"] for name in names}
-    per_batch["conv3x3_bf16"] = serving["n_calib"]
+    for name in CALIB_PER_BATCH:
+        per_batch[name] = serving["n_calib"]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
             "bytes_ms", "gemm_ms", "pre_dev_ms", "gemm_dev_ms", "dev_ms")
     out = []
@@ -1738,7 +1797,7 @@ def kernel_summary(rows, serving):
                       else "bytes"),
             library_ms=tot.get("library_ms"),
             **{key: tot.get(key) for key in keys[6:] if key in mine[0]},
-            per=("calibration batch" if name == "conv3x3_bf16"
+            per=("calibration batch" if name in CALIB_PER_BATCH
                  else "serving batch") + f" of {BATCH}",
             stages=[{k: r[k] for k in ("c", "h", "w", "mode", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
@@ -3983,12 +4042,13 @@ def _same_passes(k, x_cs, dy_cs, w_pad, h, w, plain):
 def same_kernel_phase(peaks):
     """Rows per (pass, shape) of conv3x3_same at batch 128: the forward and
     dgrad (conv3x3_bf16) and the wgrad (conv3x3_wgrad) on the op's own
-    operands against their plain versions, timed beside the plain version,
-    cuDNN's bf16 forward, input gradient and weight gradient (channels-last)
-    and the bound of the unpadded conv (the wgrad also in device time and
-    TFLOP/s of useful work, and bit-equal over two calls); and the whole
-    op, value and both gradients, against the plain versions of the
-    unpadded conv. Returns the rows and the op's errors."""
+    operands against their plain versions, bit-equal over two calls, timed
+    beside the plain version, cuDNN's bf16 forward, input gradient and
+    weight gradient (channels-last) and the bound of the unpadded conv (the
+    forward and dgrad also by part in device time, their prepass's slab
+    byte for byte; the wgrad also in device time and TFLOP/s of useful
+    work); and the whole op, value and both gradients, against the plain
+    versions of the unpadded conv. Returns the rows and the op's errors."""
     import torch
     import torch.nn.functional as F
 
@@ -4029,14 +4089,29 @@ def same_kernel_phase(peaks):
                 max_abs_err=err, ms=time_ms(kern[name], 10),
                 plain_ms=time_ms(plain[name], 1), library_ms=lib[name],
                 ops_ms=ops_ms, bytes_ms=byts[name] / bw * 1e3))
+            assert torch.equal(got, kern[name]()), (name, "bits", c)
+            r = rows[-1]
             if name == "wgrad":
-                assert torch.equal(got, kern[name]()), ("wgrad bits", c)
-                r = rows[-1]
                 r["dev_ms"] = device_ms(kern[name], 10)
                 # useful work: the padded channels' MACs do not count
                 r["tflops"] = 2 * 9 * c * c * n / r["ms"] / 1e9
                 r["plan"] = list(k.wgrad_tma_plan(
                     x_cs.shape[0], x_cs.shape[0], n, h, w))
+            else:
+                # the conv's route: its prepass's slab byte for byte, then
+                # the prepass and the GEMM apart in device time
+                src = x_cs if name == "fwd" else dy_cs
+                cp = src.shape[0]
+                lay = k.conv3x3_bf16_plan(n, h, w, cp, cp)
+                assert torch.equal(k.conv3x3_bf16_pre(src, lay=lay),
+                                   k.conv3x3_bf16_pre_plain(src, lay=lay)), \
+                    (name, "slab", c)
+                split = kernel_split_ms(kern[name], 5, BF16_KERNELS.values(),
+                                        need=BF16_KERNELS.values())
+                for part, key in BF16_KERNELS.items():
+                    r[f"{part}_dev_ms"] = split[key] if split else None
+                r["dev_ms"] = sum(split.values()) if split else None
+                r["pre_bound_ms"] = 2 * (cp * n + lay.slab_len * cp) / bw * 1e3
 
         # the op itself, padding and slicing included, against the plain
         # versions of the unpadded conv
@@ -4215,7 +4290,8 @@ class RecordSame:
 
 def live_same_check(rec):
     """The recorded passes through the kernels on their live operands: each
-    reproduces its live output and agrees with its plain version."""
+    reproduces its live output and agrees with its plain version (the
+    conv passes' prepass slab byte for byte)."""
     import torch
 
     from pytorch_ddp_resnet_tpu_torch.ops.cuda import conv3x3 as k
@@ -4229,6 +4305,12 @@ def live_same_check(rec):
                        else (k.conv3x3_bf16, k.conv3x3_bf16_plain))
         got = kern(*r["args"], **kw)
         assert torch.equal(got, r["out"]), name
+        if name != "wgrad":  # the conv's prepass on the live operand
+            src, wp = r["args"]
+            lay = k.conv3x3_bf16_plan(src.shape[1], r["h"], r["w"],
+                                      src.shape[0], wp.shape[0])
+            assert torch.equal(k.conv3x3_bf16_pre(src, lay=lay),
+                               k.conv3x3_bf16_pre_plain(src, lay=lay)), name
         check = _sum_err if name == "wgrad" else _bf16_err
         out[name] = dict(c=r["args"][0].shape[0], n=r["args"][0].shape[1],
                          max_abs_err=check(got, plain(*r["args"], **kw),
@@ -4239,14 +4321,18 @@ def live_same_check(rec):
 def same_summary(rows, pallas, mix):
     """The entries of conv3x3_wgrad (new) and of conv3x3_bf16 on the
     use_pallas_conv path: phase 17's per-call times summed over the step's
-    22 calls (``mix``: calls per step by width), launches of phase 19."""
+    22 calls (``mix``: calls per step by width; the bf16 conv's forward and
+    dgrad also in device time by part), launches of phase 19."""
     def step_sum(name, passes):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
-                   bytes_ms=0.0)
+                   bytes_ms=0.0, dev_ms=0.0, pre_dev_ms=0.0, gemm_dev_ms=0.0)
         for r in rows:
             if r["name"] == name and r["pass_"] in passes and r["c"] in mix:
                 for key in tot:
-                    tot[key] += r[key] * mix[r["c"]]
+                    if tot[key] is not None:
+                        tot[key] = (None if r.get(key, 0.0) is None
+                                    else tot[key] + r.get(key, 0.0)
+                                    * mix[r["c"]])
         tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
         tot["bound_by"] = ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                            else "bytes")
@@ -4277,8 +4363,11 @@ def same_summary(rows, pallas, mix):
         launches=pallas["launches"].get("conv3x3_bf16", 0), per=per,
         ms=conv["ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
         bound_by=conv["bound_by"], library_ms=conv["library_ms"],
-        stages=[{key: r[key] for key in keys} for r in rows
-                if r["name"] == "conv3x3_bf16"])
+        dev_ms=conv["dev_ms"], pre_dev_ms=conv["pre_dev_ms"],
+        gemm_dev_ms=conv["gemm_dev_ms"],
+        stages=[{key: r[key] for key in keys + (
+            "dev_ms", "pre_dev_ms", "gemm_dev_ms", "pre_bound_ms")}
+                for r in rows if r["name"] == "conv3x3_bf16"])
     return wgrad_entry, conv_path
 
 
@@ -4413,7 +4502,8 @@ def main() -> int:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "pass_", "c", "padded_c", "h", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err") + tuple(
-                k for k in ("dev_ms", "tflops", "plan") if k in r)}))
+                k for k in ("dev_ms", "pre_dev_ms", "gemm_dev_ms",
+                            "pre_bound_ms", "tflops", "plan") if k in r)}))
     print("conv3x3_same, the op against the unpadded plain conv: "
           + json.dumps(same_ops))
     for r in c1_rows:
@@ -4556,6 +4646,11 @@ def main() -> int:
         pallas["library_convs_first_step"] = [
             list(key) + [v] for key, v in sorted(rec_same.library.items())]
         pallas["live_conv"] = live_same_check(rec_same.rec)
+        if pallas["profile"] is not None:
+            kinds = pallas["profile"]["device_ms_per_step_by_kind"]
+            assert kinds.get("conv3x3_same fwd + dgrad (port)", 0) > 0, kinds
+            assert "fused int8 half (port)" not in kinds, kinds
+            assert "fused bf16 half (port)" not in kinds, kinds
         print(f"pallas-conv training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -4739,12 +4834,17 @@ def main() -> int:
               f"{wgrad_entry['ms']} ms, profiled "
               f"{kinds.get('conv3x3_same fwd + dgrad (port)', 0.0)} + "
               f"{kinds.get('conv3x3_same wgrad (port)', 0.0)} ms")
-    entry = conv_kernels[0]
-    assert entry["name"] == "conv3x3_bf16"
-    entry["split_launches"] = {"serving": entry["launches"],
-                               "pallas_conv_training": conv_path["launches"]}
-    entry["launches"] = sum(entry["split_launches"].values())
-    entry["pallas_conv_step"] = conv_path
+    # the bf16 conv's prepass and GEMM run in serving's calibration and in
+    # the pallas-conv step
+    for entry in conv_kernels:
+        if entry["name"] in CALIB_PER_BATCH:
+            entry["split_launches"] = {
+                "serving": entry["launches"],
+                "pallas_conv_training": pallas["launches"].get(
+                    entry["name"], 0)}
+            entry["launches"] = sum(entry["split_launches"].values())
+    conv_kernels[0]["pallas_conv_step"] = conv_path
+    assert conv_kernels[0]["name"] == "conv3x3_bf16"
     print(f"card: {nvidia_smi()}")
     print(json.dumps({"kernels": conv_kernels
                       + [augment_summary(aug_rows, training)]

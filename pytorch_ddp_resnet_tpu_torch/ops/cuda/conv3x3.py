@@ -6,7 +6,13 @@ weights ``[Cout, 9*Cin]``, taps row-major in (dh, dw) then input channel),
 so the tests compare like with like.
 
 - ``conv3x3_bf16``: bf16 in, f32 accumulate, bf16 out (the float
-  calibration pass of int8 serving). Replaces ``conv3x3_lanes``.
+  calibration pass of int8 serving, and ``conv3x3_same``'s forward and
+  input gradient). Replaces ``conv3x3_lanes``. Two launches on the card
+  (``csrc/conv3x3_wgmma_bf16.cuh``): ``conv3x3_bf16_pre`` copies x into
+  the fused bf16 forward's padded position-major slab
+  (``conv3x3_bf16_plan``), then ``conv3x3_bf16_gemm`` runs that forward's
+  wgmma mainloop with a plain bf16 epilogue; any image width, N and Cout
+  (``check_conv3x3_bf16_geometry``).
 - ``conv3x3_int8_requant``: s8 x s8 -> s32 with the requantization
   epilogue fused in. Replaces ``conv3x3_lanes_requant``. Two launches on
   the card (``csrc/requant_wgmma_s8.cuh``): ``conv3x3_int8_requant_pre``
@@ -25,7 +31,7 @@ so the tests compare like with like.
   Counterpart of the JAX ``conv3x3_same`` (custom VJP).
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to
-the plain PyTorch version beside it; a CUDA tensor launches the kernel in
+the plain PyTorch version beside it; a CUDA tensor launches the kernels in
 ``csrc/conv3x3.cu`` (built at first use, ops/cuda/build.py) or raises.
 ``launches`` counts kernel launches per kernel name and
 ``launch_shapes`` per (name, Cin, Cout, N, epilogue mode); plain calls
@@ -135,6 +141,39 @@ def conv3x3_bf16_plain(x_cs, w_packed, *, h: int, w_img: int):
         x_cs.dtype)
 
 
+def conv3x3_bf16_plan(n: int, h: int, w_img: int, cin: int, cout: int):
+    """The bf16 conv's slab layout and GEMM walk: the fused bf16 forward's
+    (``fused_block.fused_fwd_layout``: every tap one slab row offset, 128
+    M rows a tile, BN = 160 where Cout % 160 == 0, else 128, or 64 up to
+    Cout = 64). Cached there."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import (
+        fused_fwd_layout,
+    )
+
+    return fused_fwd_layout(n, h, w_img, cin, cout)
+
+
+def conv3x3_bf16_pre_plain(x_cs, *, lay) -> torch.Tensor:
+    """Plain version of ``conv3x3_bf16_pre``: the slab [slab_len, Cin] of
+    layout ``lay`` in x's dtype, x's values at each pixel's position, zeros
+    at every pad position."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import _to_slab
+
+    return _to_slab(x_cs, lay)
+
+
+def conv3x3_bf16_gemm_plain(slab, w_packed, *, lay) -> torch.Tensor:
+    """Plain version of ``conv3x3_bf16_gemm``: each tap's shifted slab rows
+    at the live rows contracted with its packed weights in float64, rounded
+    to f32, then to the slab's dtype."""
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.fused_block import (
+        _slab_conv_f64,
+    )
+
+    return _slab_conv_f64(slab, w_packed, lay).to(torch.float32).to(
+        slab.dtype)
+
+
 def conv3x3_s32_plain(x_q, w_q, *, h: int, w_img: int) -> torch.Tensor:
     """The int8 conv's exact s32 accumulator."""
     _shapes(x_q, w_q, h, w_img)
@@ -215,6 +254,17 @@ def check_requant_geometry(name: str, cin: int, cout: int, n: int, h: int,
                          f"{tiles} M tiles exceed 32-bit indices")
 
 
+def check_conv3x3_bf16_geometry(name: str, cin: int, cout: int, n: int,
+                                h: int, w_img: int) -> None:
+    """The bf16 conv's own shape needs on the card: the int8 conv's
+    (``check_requant_geometry``; its Cin % 32 here for the slab copy's
+    32-channel tiles), as both run a prepass into the padded slab and a
+    GEMM on a one-dimensional grid of 128-row M tiles by N tiles of at
+    least 64. Every shape the bf16 conv took before it ran on the slab
+    passes."""
+    check_requant_geometry(name, cin, cout, n, h, w_img)
+
+
 def requant_plan(n: int, h: int, w_img: int, cin: int, cout: int):
     """The int8 conv's slab layout and GEMM walk: the fused int8 forward's
     (``fused_block.fused_fwd_int8_plan``: one byte a channel, every tap one
@@ -292,9 +342,12 @@ def _library() -> ctypes.CDLL:
         from pytorch_ddp_resnet_tpu_torch.ops.cuda import build
 
         lib = build.load("conv3x3")
-        lib.conv3x3_bf16_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                            _P]
-        lib.conv3x3_bf16_launch.restype = _I
+        lib.conv3x3_bf16_pre_launch.argtypes = [
+            _P, _P, _I, _I, _I, _I, ctypes.c_long, _P]
+        lib.conv3x3_bf16_pre_launch.restype = _I
+        lib.conv3x3_bf16_gemm_launch.argtypes = [
+            _P, _P, _P] + [_I] * 5 + [ctypes.c_long, _I, _I, _P]
+        lib.conv3x3_bf16_gemm_launch.restype = _I
         lib.conv3x3_int8_requant_pre_launch.argtypes = [
             _P, _P, _I, _I, _I, _I, ctypes.c_long, _P]
         lib.conv3x3_int8_requant_pre_launch.restype = _I
@@ -306,25 +359,84 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+BF16 = "conv3x3_bf16"
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bf16_pre_launch(x_cs, lay) -> torch.Tensor:
+    """``conv3x3_bf16_pre``'s launch on an operand already checked."""
+    name = f"{BF16}.pre"
+    slab = torch.empty((lay.slab_len, lay.cin), dtype=torch.bfloat16,
+                       device=x_cs.device)
+    check_rc(name, _library().conv3x3_bf16_pre_launch(
+        x_cs.data_ptr(), slab.data_ptr(), lay.cin, lay.n, lay.h, lay.w,
+        lay.slab_len, _stream(x_cs)))
+    launches[name] += 1
+    launch_shapes[(name, lay.cin, lay.cout, lay.n, "")] += 1
+    return slab
+
+
+def _bf16_gemm_launch(slab, w_packed, lay) -> torch.Tensor:
+    """``conv3x3_bf16_gemm``'s launch on operands already checked."""
+    out = torch.empty((lay.cout, lay.n), dtype=torch.bfloat16,
+                      device=slab.device)
+    check_rc(BF16, _library().conv3x3_bf16_gemm_launch(
+        slab.data_ptr(), w_packed.data_ptr(), out.data_ptr(), lay.cin,
+        lay.cout, lay.n, lay.h, lay.w, lay.slab_len, lay.tiles, lay.bn,
+        _stream(slab)))
+    launches[BF16] += 1
+    launch_shapes[(BF16, lay.cin, lay.cout, lay.n, "bf16")] += 1
+    return out
+
+
+def conv3x3_bf16_pre(x_cs, *, lay) -> torch.Tensor:
+    """The bf16 conv's prepass: x [Cin, N] copied, unchanged, into the slab
+    [slab_len, Cin] of layout ``lay`` (``conv3x3_bf16_plan``), each pixel
+    at its position, zeros at every pad position. One launch."""
+    if tuple(x_cs.shape) != (lay.cin, lay.n):
+        raise ValueError(f"{BF16}.pre: x {tuple(x_cs.shape)} vs the layout "
+                         f"{lay}")
+    if on_cpu(x_cs):
+        return conv3x3_bf16_pre_plain(x_cs, lay=lay)
+    check_conv3x3_bf16_geometry(f"{BF16}.pre", lay.cin, lay.cout, lay.n,
+                                lay.h, lay.w)
+    require_cuda(f"{BF16}.pre", [x_cs], [torch.bfloat16])
+    return _bf16_pre_launch(x_cs, lay)
+
+
+def conv3x3_bf16_gemm(slab, w_packed, *, lay) -> torch.Tensor:
+    """The bf16 conv's GEMM from the slab of layout ``lay``: the f32
+    contraction over (tap, channel) on wgmma, y = bf16(acc) written
+    channel-major [Cout, N]. One launch."""
+    if tuple(slab.shape) != (lay.slab_len, lay.cin):
+        raise ValueError(f"{BF16}: slab {tuple(slab.shape)} is not of the "
+                         f"layout {lay}")
+    if tuple(w_packed.shape) != (lay.cout, 9 * lay.cin):
+        raise ValueError(f"{BF16}: weights {tuple(w_packed.shape)} vs Cin "
+                         f"{lay.cin}, Cout {lay.cout}")
+    if on_cpu(slab):
+        return conv3x3_bf16_gemm_plain(slab, w_packed, lay=lay)
+    check_conv3x3_bf16_geometry(BF16, lay.cin, lay.cout, lay.n, lay.h,
+                                lay.w)
+    require_cuda(BF16, [slab, w_packed], [torch.bfloat16] * 2)
+    return _bf16_gemm_launch(slab, w_packed, lay)
+
+
 def conv3x3_bf16(x_cs, w_packed, *, h: int, w_img: int) -> torch.Tensor:
     """Stride-1 SAME 3x3 conv, x [Cin, N] x w [Cout, 9*Cin] -> [Cout, N].
-    On the card: bf16 only, Cin a multiple of 32."""
+    On the card: bf16 only, the geometry of
+    ``check_conv3x3_bf16_geometry``; the prepass, then the GEMM (two
+    launches)."""
     cin, cout, n = _shapes(x_cs, w_packed, h, w_img)
     if on_cpu(x_cs):
         return conv3x3_bf16_plain(x_cs, w_packed, h=h, w_img=w_img)
-    name = "conv3x3_bf16"
-    require_cuda(name, [x_cs, w_packed], [torch.bfloat16] * 2)
-    if cin % 32:
-        raise ValueError(f"{name}: Cin={cin} is not a multiple of 32")
-    out = torch.empty((cout, n), dtype=torch.bfloat16, device=x_cs.device)
-    stream = torch.cuda.current_stream(x_cs.device).cuda_stream
-    rc = _library().conv3x3_bf16_launch(
-        x_cs.data_ptr(), w_packed.data_ptr(), out.data_ptr(), cin, cout, n,
-        h, w_img, stream)
-    check_rc(name, rc)
-    launches[name] += 1
-    launch_shapes[(name, cin, cout, n, "bf16")] += 1
-    return out
+    require_cuda(BF16, [x_cs, w_packed], [torch.bfloat16] * 2)
+    check_conv3x3_bf16_geometry(BF16, cin, cout, n, h, w_img)
+    lay = conv3x3_bf16_plan(n, h, w_img, cin, cout)
+    return _bf16_gemm_launch(_bf16_pre_launch(x_cs, lay), w_packed, lay)
 
 
 def _requant_mode(res, dual, inv_out_scale) -> str:
@@ -371,10 +483,6 @@ def _requant_operands(name, w_q, scale, shift, res, dual, lay):
         tensors += [sb, tb]
         dtypes += [f32, f32]
     return tensors, dtypes, scale, shift, res, sb, tb
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _pre_launch(x_q, lay) -> torch.Tensor:

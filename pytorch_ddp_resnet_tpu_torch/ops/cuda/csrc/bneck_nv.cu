@@ -49,7 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
+#include "mma_sync.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
 
 using conv3x3::ldmatrix_x4;
 using conv3x3::mma_step;

@@ -116,7 +116,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3x3_rows.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
+#include "mma_sync.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
 #include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
 #include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
 #include "fwd_staged_s8.cuh"  // the int8 forward's mainloop

@@ -35,7 +35,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "conv3x3_rows.cuh"  // BM, THREADS, ldmatrix_x4, mma_step, epilogue
+#include "mma_sync.cuh"  // BM, THREADS, ldmatrix_x4, mma_step, epilogue
 #include "requant.cuh"
 
 using namespace conv3x3;
@@ -119,7 +119,7 @@ conv1x1_kernel(const signed char* __restrict__ x,
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
 
-  // this lane's ldmatrix rows (as conv3x3_rows.cuh): A rows, B positions
+  // this lane's ldmatrix rows: A rows, B positions
   const int q = lane / 8;
   const int j = lane % 8;
   const int a_off = (warp_m * 32 + (q & 1) * 8 + j) * ROW + (q >> 1) * 16;

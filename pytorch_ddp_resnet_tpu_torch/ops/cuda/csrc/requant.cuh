@@ -20,7 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv3x3_rows.cuh"
+#include "mma_sync.cuh"
 
 namespace conv3x3 {
 
@@ -46,7 +46,7 @@ __device__ __forceinline__ signed char requant_dual(float y, float sb,
   return quant_s8(fmaxf(__fmaf_rn(y, sb, tb), 0.f));
 }
 
-// The tile epilogue (conv3x3_rows.cuh ``epilogue``) of a per-element
+// The tile epilogue (mma_sync.cuh ``epilogue``) of a per-element
 // functor.
 template <typename Derived>
 struct PerElement {

@@ -200,6 +200,50 @@ def test_cuda_tensor_never_falls_back(dev):
         k.conv3x3_bf16(x, w, h=8, w_img=8)
 
 
+# (Cin, Cout, H, W, batch): the WRN-28-10 stages, and the widths only the
+# WMMA gather kernel took before the slab route (6x6, 5x7, 12x12), whose
+# channel rows start off 16 bytes (N = 108, 105), with a Cout that is not
+# a multiple of 8 or of the N tile
+BF16_PARTS_SHAPES = [(160, 160, 32, 32, 2), (320, 320, 16, 16, 4),
+                     (640, 640, 8, 8, 8), (32, 48, 6, 6, 3),
+                     (64, 36, 5, 7, 3), (32, 10, 12, 12, 4)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", BF16_PARTS_SHAPES)
+@pytest.mark.parametrize("packing", ["fwd", "dgrad"])
+def test_conv3x3_bf16_wgmma_parts_match_plain(dev, cin, cout, h, w, b,
+                                              packing):
+    """The prepass's slab equals its plain version byte for byte; the
+    GEMM's output is within 2 bf16 ulps of ``conv3x3_bf16_gemm_plain``'s
+    on that slab and of the plain op's; the op is one launch of each part
+    and two calls are bit-equal. ``dgrad``: the weights packed for the
+    input gradient (``pack_weights_dgrad``), as conv3x3_same's backward
+    runs them."""
+    rng = np.random.default_rng(3)
+    n = b * h * w
+    x = torch.from_numpy(rng.standard_normal((cin, n), dtype=np.float32))
+    wt = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3),
+                                              dtype=np.float32) * 0.05)
+    if packing == "dgrad":   # w' [cin', 9 * cout'] for dy [cout', N]
+        wt = wt.transpose(0, 1).contiguous()
+        wp = k.pack_weights_dgrad(wt)
+    else:
+        wp = k.pack_weights(wt)
+    x, wp = x.to(dev, torch.bfloat16), wp.to(dev, torch.bfloat16)
+    lay = k.conv3x3_bf16_plan(n, h, w, cin, wp.shape[0])
+    slab = k.conv3x3_bf16_pre(x, lay=lay)
+    assert torch.equal(slab, k.conv3x3_bf16_pre_plain(x, lay=lay))
+    got = k.conv3x3_bf16_gemm(slab, wp, lay=lay)
+    _bf16_close(got, k.conv3x3_bf16_gemm_plain(slab, wp, lay=lay))
+    k.reset_launches()
+    first = k.conv3x3_bf16(x, wp, h=h, w_img=w)
+    assert dict(k.launches) == {"conv3x3_bf16.pre": 1, "conv3x3_bf16": 1}
+    second = k.conv3x3_bf16(x, wp, h=h, w_img=w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, got)
+    _bf16_close(first, k.conv3x3_bf16_plain(x, wp, h=h, w_img=w))
+
+
 def _augment_inputs(dev, b, n=600, hw=32, c=3, pad=4, crop=32, seed=0):
     rng = np.random.default_rng(seed)
     data = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, c),
@@ -2358,7 +2402,8 @@ def test_conv3x3_same_on_the_card(dev, cin, cout, h, w, b):
         outs[str(d)] = (y.detach(), xt.grad, wd.grad)
         if d == dev:
             torch.cuda.synchronize()
-            assert dict(k.launches) == {"conv3x3_bf16": 2,
+            assert dict(k.launches) == {"conv3x3_bf16.pre": 2,
+                                        "conv3x3_bf16": 2,
                                         "conv3x3_wgrad": 1,
                                         "conv3x3_wgrad.sum": 1}
             assert k.same_calls == {"forward": 1, "backward": 1}
