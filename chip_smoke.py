@@ -126,6 +126,14 @@ Phases, each fatal on failure:
    prepass's slabs must equal its plain version's byte for byte, and its
    three parts (the row-max pass, the prepass, the mainloop + sum) are
    timed apart beside their plain versions and byte bounds; the prepass is
+   also a kernel row of its own. The input gradient (the prepass that
+   quantizes each chunk's cotangent once into the forward's slab layout,
+   then csrc/nv_dgrad_wgmma_s8.cuh's TMA-fed s8 wgmma GEMM at the mirrored
+   taps with the prologue's backward in its epilogue, then the tiles' sum)
+   must give the same dx, dres and sums bit for bit in two calls, its
+   prepass's slabs must equal its plain version's byte for byte, and its
+   parts (the row-max pass, the prepass, the GEMM + sum, the sum alone)
+   are timed apart beside their plain versions and bounds; the prepass is
    also a kernel row of its own. The weight
    gradient (the prepass that writes each chunk's int8 slabs K-contiguous,
    then csrc/wgrad_staged_s8.cuh's cp.async ring into ldmatrix and s8
@@ -139,8 +147,9 @@ Phases, each fatal on failure:
    ``use_int8_train_bwd``, through ``setup(config)`` as in phase 5. With the
    launch counts zeroed just before, each step must launch 30 NV halves
    (3 identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each
-   one forward, dgrad and wgrad (the forward and the wgrad each with its
-   prepass and sum; NV_TRAIN_PER_STEP), and no other port kernel; losses finite, every
+   one forward, dgrad and wgrad (each with its prepass and sum, the
+   identity-mode dgrads without d(s)/d(t) and their sum;
+   NV_TRAIN_PER_STEP), and no other port kernel; losses finite, every
    parameter changed, every BatchNorm count equal to the steps. The first
    half of each kind in the first step, on its live inputs and cotangents,
    must reproduce its outputs and equal its plain versions. The same
@@ -358,6 +367,8 @@ NVT_SOURCE = "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/bneck_nv_train.cu"
 # kernels whose code lives in a header of their own
 SOURCES = {"nv_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
+           "nv_half_dgrad":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/nv_dgrad_wgmma_s8.cuh",
            "nv_half_wgrad_bf16":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "nv_half_wgrad":
@@ -369,7 +380,7 @@ SOURCES = {"nv_half_fwd":
            "fused_half_bf16_dgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_bf16.cuh",
            "fused_half_fwd":
-           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_wgmma_s8.cuh",
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fused_block.cu",
            "fused_half_dgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/dgrad_wgmma_s8.cuh",
            "fused_half_dgrad.pre":
@@ -406,6 +417,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_fwd": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_fwd.pre": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad": _PALLAS + "bneck_nv_train.py:866",
+            "nv_half_dgrad.pre": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_wgrad.pre": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_fwd_bf16": _PALLAS + "bneck_nv_train.py:797",
@@ -513,13 +525,15 @@ NVT_NAMES = ("nv_half_fwd", "nv_half_dgrad", "nv_half_wgrad")
 # launches of one ResNet-50 FQT train step at batch 128: 30 NV halves (3
 # identity-mode conv1, 7 entry-mode conv1, 10 conv2, 10 conv3), each one
 # forward, one dgrad and one wgrad; identity-mode dgrads have no d(s)/d(t);
-# the forward's and the wgrad's prepasses write their int8 slabs once
+# the forward's, the dgrad's and the wgrad's prepasses write their int8
+# slabs once
 NVT_HALVES_PER_STEP = {("1x1", "identity"): 3, ("1x1", "entry"): 7,
                        ("3x3", "affine"): 10, ("1x1", "affine"): 10}
 NV_TRAIN_PER_STEP = {
     "nv_half_fwd.amax": 30, "nv_half_fwd.pre": 30, "nv_half_fwd": 30,
     "nv_half_fwd.sum": 30,
-    "nv_half_bwd.amax": 30, "nv_half_dgrad": 30, "nv_half_dgrad.sum": 27,
+    "nv_half_bwd.amax": 30, "nv_half_dgrad.pre": 30, "nv_half_dgrad": 30,
+    "nv_half_dgrad.sum": 27,
     "nv_half_wgrad.pre": 30, "nv_half_wgrad": 30, "nv_half_wgrad.sum": 30}
 NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
                   "nv_half_wgrad_bf16")
@@ -1092,7 +1106,9 @@ KERNEL_KINDS = [
                                          "slab_copy_kernel<__nv_bfloat16>")),
     ("augment", ("augment",)),
     ("bneck nv (port)", ("bneck_gemm_kernel",)),
-    ("nv train halves (port)", ("nvt_", "wgrad_staged", "fwd_staged")),
+    # (the int8 dgrad's tile sum is common::tile_sum under its own tag)
+    ("nv train halves (port)", ("nvt_", "NvtDgradSum", "wgrad_staged",
+                                "fwd_staged")),
     ("stem (port)", ("stem_", "StemWgradSum")),
     # the lane transition's TMA wgrads (the bf16 one shares
     # conv3x3_same's mainloop): their instantiations and the sum carry the
@@ -3410,8 +3426,9 @@ def _wgrad_int8_parts(nvt, wargs, conv, mode, rch):
 def _wgrad_int8_pre_row(nvt, wargs, mode, rch, flops_f32, bw, geo):
     """The int8 wgrad's prepass as a kernel row: its slabs equal to its
     plain version's byte for byte; bound by its bytes (dy, y and x (and
-    res) in; the int8 slabs out, as laid out) or its f32 operations (three
-    an element of a and g)."""
+    res) in; the codes out: g's once, a's chunk rows as the forward's
+    ``FwdInt8Layout.codes``, not the slabs' pads) or its f32 operations
+    (three an element of a and g)."""
     import torch
 
     kw = dict(conv=geo["conv"], mode=mode, rch=rch)
@@ -3421,8 +3438,10 @@ def _wgrad_int8_pre_row(nvt, wargs, mode, rch, flops_f32, bw, geo):
         assert torch.equal(a, b), ("nv_half_wgrad.pre", geo)
     p = geo["n"] * geo["h"] * geo["w"]
     cin, cout = geo["cin"], geo["cout"]
+    lay = nvt.fwd_int8_layout(geo["n"], geo["h"], geo["w"], cin,
+                              9 if geo["conv"] == "3x3" else 1, rch)
     byts = (2 * p * (2 * cout + cin + (cin if mode == "entry" else 0))
-            + sum(t.numel() for t in got))
+            + lay.codes + p * cout)
     return dict(
         name="nv_half_wgrad.pre", **geo, max_abs_err=0.0,
         ms=time_ms(lambda: nvt.wgrad_pre(*wargs, **kw), 10),
@@ -3435,9 +3454,10 @@ def _fwd_int8_parts(nvt, o, conv, mode, rch, bw, ops_int8):
     """The int8 forward's second call equal to its first bit for bit (y
     exact, the sums in a fixed order), and its three parts timed apart
     beside their plain versions and bounds: the row-max pass (x (and res)
-    in, x_res out), the prepass (x (and res) in, the slab out) and the
-    mainloop + ordered sum (the slab and weights in, y out, or its int8
-    operations)."""
+    in, x_res out), the prepass (x (and res) in, the codes out) and the
+    mainloop + ordered sum (the codes and weights in, y out, or its int8
+    operations); the codes are ``FwdInt8Layout.codes``, not the slab's
+    pads."""
     import torch
 
     x, s, t, res = o["x"], o["s"], o["t"], o["res"]
@@ -3464,11 +3484,11 @@ def _fwd_int8_parts(nvt, o, conv, mode, rch, bw, ops_int8):
         pre_ms=time_ms(lambda: nvt.fwd_pre(x, s, t, res, rowmax, **kw), 10),
         pre_plain_ms=time_ms(lambda: nvt.fwd_pre_plain(
             x, s, t, res, rowmax, **kw), 1),
-        pre_bound_ms=(act + slab.numel()) / bw * 1e3,
+        pre_bound_ms=(act + lay.codes) / bw * 1e3,
         gemm_ms=time_ms(lambda: nvt.fwd_gemm(slab, rowmax, wq, ws, lay), 10),
         gemm_plain_ms=time_ms(lambda: nvt.fwd_gemm_plain(
             slab, rowmax, wq, ws, lay), 1),
-        gemm_bound_ms=max((slab.numel() + taps * ci * co + 2 * p * co) / bw,
+        gemm_bound_ms=max((lay.codes + taps * ci * co + 2 * p * co) / bw,
                           2 * p * taps * ci * co / ops_int8) * 1e3,
         layout=dict(cp=lay.cp, bk=lay.bk, tiles=lay.tiles,
                     chunks=lay.chunks))
@@ -3477,8 +3497,8 @@ def _fwd_int8_parts(nvt, o, conv, mode, rch, bw, ops_int8):
 def _fwd_int8_pre_row(nvt, o, mode, rch, flops_f32, bw, geo):
     """The int8 forward's prepass as a kernel row: its slabs equal to its
     plain version's byte for byte; bound by its bytes (x (and res) in, the
-    int8 slab out, as laid out) or its f32 operations (three an element
-    of a)."""
+    codes out: ``FwdInt8Layout.codes``, not the slab's pads) or its f32
+    operations (three an element of a)."""
     import torch
 
     x, s, t, res = o["x"], o["s"], o["t"], o["res"]
@@ -3488,7 +3508,9 @@ def _fwd_int8_pre_row(nvt, o, mode, rch, flops_f32, bw, geo):
     assert torch.equal(got, nvt.fwd_pre_plain(x, s, t, res, rowmax, **kw)), (
         "nv_half_fwd.pre", geo)
     p, cin = geo["n"] * geo["h"] * geo["w"], geo["cin"]
-    byts = 2 * p * cin * (2 if mode == "entry" else 1) + got.numel()
+    codes = nvt.fwd_int8_layout(geo["n"], geo["h"], geo["w"], cin,
+                                9 if geo["conv"] == "3x3" else 1, rch).codes
+    byts = 2 * p * cin * (2 if mode == "entry" else 1) + codes
     return dict(
         name="nv_half_fwd.pre", **geo, max_abs_err=0.0,
         ms=time_ms(lambda: nvt.fwd_pre(x, s, t, res, rowmax, **kw), 10),
@@ -3496,6 +3518,95 @@ def _fwd_int8_pre_row(nvt, o, mode, rch, flops_f32, bw, geo):
                                                    **kw), 1),
         library_ms=None, ops_ms=3 * p * cin / flops_f32 * 1e3,
         bytes_ms=byts / bw * 1e3)
+
+
+def _dgrad_int8_parts(nvt, o, wargs, conv, mode, rch, bw, ops_int8):
+    """The int8 input gradient's second call equal to its first bit for bit
+    (dx and dres exact, the sums in a fixed order), and its parts timed
+    apart beside their plain versions and bounds: the row-max pass (dy and
+    y in), the prepass (dy and y in, the codes out: ``FwdInt8Layout.codes``,
+    not the slab's pads), the GEMM with its tiles' sum (the codes, weights,
+    x (and res, dx_res) in, dx (and dres) out, or its int8 operations) and the tiles' sum alone (the tiles'
+    partial sums in, d(s) and d(t) out; none in identity mode)."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import check_rc
+
+    cts, rowmax = wargs[:4], wargs[4]
+    x, s, t, res, dxout = o["x"], o["s"], o["t"], o["res"], o["dxout"]
+    wq_dg, ws_in = (nvt.quantize_w_3x3_dgrad if conv == "3x3"
+                    else nvt.quantize_w_1x1_dgrad)(o["w"])
+    args = (rowmax, wq_dg, ws_in, x, s, t, res, dxout)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    first = nvt.dgrad_conv(*cts, *args, **kw)
+    second = nvt.dgrad_conv(*cts, *args, **kw)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "nv_half_dgrad", conv, mode, rch)
+    slab = nvt.dgrad_pre(*cts, rowmax, conv=conv, rch=rch)
+    n, h, w, ci = x.shape
+    co, taps = cts[0].shape[-1], 9 if conv == "3x3" else 1
+    lay = nvt.fwd_int8_layout(n, h, w, co, taps, rch)
+    p, entry, affine = n * h * w, mode == "entry", mode != "identity"
+    cot = 4 * p * co
+    act = 2 * p * ci * ((1 if affine else 0) + (2 if entry else 0))
+    out = 2 * p * ci * (2 if entry else 1)
+    sum_ms = sum_bound_ms = 0.0
+    if affine:
+        slots = lay.chunks * lay.tiles
+        part = torch.zeros((slots, 2 * ci), device=x.device)
+        sums = torch.empty(2 * ci, device=x.device)
+        lib = nvt._library()
+
+        def tile_sum():
+            check_rc("nv_half_dgrad.sum", lib.nvt_dgrad_sum_launch(
+                part.data_ptr(), sums.data_ptr(), slots, 2 * ci,
+                torch.cuda.current_stream().cuda_stream))
+
+        sum_ms = time_ms(tile_sum, 10)
+        sum_bound_ms = (part.numel() + sums.numel()) * 4 / bw * 1e3
+    return dict(
+        deterministic=True,
+        amax_ms=time_ms(lambda: nvt.bwd_rowmax(*cts), 10),
+        amax_plain_ms=time_ms(lambda: nvt.bwd_rowmax_plain(*cts), 1),
+        amax_bound_ms=cot / bw * 1e3,
+        pre_ms=time_ms(lambda: nvt.dgrad_pre(*cts, rowmax, conv=conv,
+                                             rch=rch), 10),
+        pre_plain_ms=time_ms(lambda: nvt.dgrad_pre_plain(
+            *cts, rowmax, conv=conv, rch=rch), 1),
+        pre_bound_ms=(cot + lay.codes) / bw * 1e3,
+        gemm_ms=time_ms(lambda: nvt.dgrad_gemm(slab, *args, lay, mode=mode),
+                        10),
+        gemm_plain_ms=time_ms(lambda: nvt.dgrad_gemm_plain(
+            slab, *args, lay, mode=mode), 1),
+        gemm_bound_ms=max((lay.codes + taps * ci * co + act + out) / bw,
+                          2 * p * taps * ci * co / ops_int8) * 1e3,
+        sum_ms=sum_ms, sum_bound_ms=sum_bound_ms,
+        layout=dict(cp=lay.cp, tiles=lay.tiles, chunks=lay.chunks,
+                    bn=nvt.dgrad_tile(ci)))
+
+
+def _dgrad_int8_pre_row(nvt, wargs, rch, flops_f32, bw, geo):
+    """The int8 input gradient's prepass as a kernel row: its slabs equal to
+    its plain version's byte for byte; bound by its bytes (dy and y in, the
+    codes out: ``FwdInt8Layout.codes``, not the slab's pads) or its f32
+    operations (four an element of g: the fold and the quantization)."""
+    import torch
+
+    cts, rowmax = wargs[:4], wargs[4]
+    kw = dict(conv=geo["conv"], rch=rch)
+    got = nvt.dgrad_pre(*cts, rowmax, **kw)
+    assert torch.equal(got, nvt.dgrad_pre_plain(*cts, rowmax, **kw)), (
+        "nv_half_dgrad.pre", geo)
+    p, cout = geo["n"] * geo["h"] * geo["w"], geo["cout"]
+    codes = nvt.fwd_int8_layout(geo["n"], geo["h"], geo["w"], cout,
+                                9 if geo["conv"] == "3x3" else 1, rch).codes
+    return dict(
+        name="nv_half_dgrad.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: nvt.dgrad_pre(*cts, rowmax, **kw), 10),
+        plain_ms=time_ms(lambda: nvt.dgrad_pre_plain(*cts, rowmax, **kw), 1),
+        library_ms=None, ops_ms=4 * p * cout / flops_f32 * 1e3,
+        bytes_ms=(4 * p * cout + codes) / bw * 1e3)
 
 
 def _nvt_bytes(p, ci, co, taps, mode, w_size, names):
@@ -3571,13 +3682,18 @@ def nv_train_kernel_phase(peaks):
                     bytes_ms=byts[name] / bw * 1e3))
             geo = dict(n=n, h=h, w=w, cin=ci, cout=co, conv=conv, mode=mode,
                        rch=list(rch))
-            rows[-3].update(_fwd_int8_parts(nvt, o, conv, mode, rch[0], bw,
-                                            ops_int8))
+            fwd_row, dgrad_row, wgrad_row = rows[-3:]
+            fwd_row.update(_fwd_int8_parts(nvt, o, conv, mode, rch[0], bw,
+                                           ops_int8))
             rows.append(_fwd_int8_pre_row(nvt, o, mode, rch[0], flops_f32,
                                           bw, geo))
             wargs = _nvt_wgrad_args(nvt, o, conv, mode, rch)
-            rows[-2].update(_wgrad_int8_parts(nvt, wargs, conv, mode,
-                                              rch[2]))
+            dgrad_row.update(_dgrad_int8_parts(nvt, o, wargs, conv, mode,
+                                               rch[1], bw, ops_int8))
+            rows.append(_dgrad_int8_pre_row(nvt, wargs, rch[1], flops_f32,
+                                            bw, geo))
+            wgrad_row.update(_wgrad_int8_parts(nvt, wargs, conv, mode,
+                                               rch[2]))
             rows.append(_wgrad_int8_pre_row(
                 nvt, wargs, mode, rch[2], flops_f32, bw, geo))
             del o, kern, plain, wargs
@@ -3837,6 +3953,12 @@ def live_nv_check(rec, quant_bwd=True):
             assert torch.equal(got["x_res"], r["out"][3])
         err = _agree_nv_train(got, nvt.half_stages(**ops, **kw, plain=True),
                               ("live", conv, mode), True, quant_bwd)
+        if quant_bwd:   # the dgrad's slab of the live cotangent, byte for byte
+            cts = (ops["dy"], got["y"], ops["dzsum"], ops["dzssq"],
+                   got["rowmax_g"])
+            pre = dict(conv=conv, rch=rch[1])
+            assert torch.equal(nvt.dgrad_pre(*cts, **pre),
+                               nvt.dgrad_pre_plain(*cts, **pre)), (conv, mode)
         out.append(dict(conv=conv, mode=mode, n=n, h=h, w=w, cin=ci,
                         cout=co, rch=list(rch), max_abs_err=err))
     return out
@@ -3952,10 +4074,12 @@ def bneck_training_phase(workdir, mode: str):
         live_halves=live, profile=profile)
 
 
-# the per-part times of a staged NV kernel's rows (phases 10 and 20)
+# the per-part times of a staged NV kernel's rows (phases 10 and 20; the
+# transition forward's, phase 15), and the int8 dgrad's sum alone
 PART_KEYS = ("amax_ms", "amax_plain_ms", "amax_bound_ms", "pre_ms",
              "pre_plain_ms", "pre_bound_ms", "gemm_ms", "gemm_plain_ms",
              "gemm_bound_ms")
+NV_PART_KEYS = PART_KEYS + ("sum_ms", "sum_bound_ms")
 
 
 def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
@@ -3972,7 +4096,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
-        tot.update({k: 0.0 for k in PART_KEYS if k in mine[0]})
+        tot.update({k: 0.0 for k in NV_PART_KEYS if k in mine[0]})
         no_library = mine[0]["library_ms"] is None
         for (st, conv, mode, n, h, w, cin, cout), count in \
                 training["shapes"].items():
@@ -3997,7 +4121,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
             library_ms=None if no_library else tot["library_ms"],
-            **{k: tot[k] for k in PART_KEYS if k in tot},
+            **{k: tot[k] for k in NV_PART_KEYS if k in tot},
             per=f"ResNet-50 {run} train step at batch {BATCH} (ms per "
                 "call summed over the step's halves; launches over the run)",
             stages=[{k: r[k] for k in ("n", "h", "conv", "mode", "cin",
@@ -4545,8 +4669,8 @@ def main() -> int:
             "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err") + tuple(k for k in (
-                ("int8_ms",) + PART_KEYS + ("plan", "layout",
-                                            "deterministic")) if k in r)}))
+                ("int8_ms",) + NV_PART_KEYS + ("plan", "layout",
+                                               "deterministic")) if k in r)}))
     for r in aug_rows:
         print("  " + json.dumps({k: r[k] for k in ("name",) + AUG_KEYS
                                  + ("chain_max_abs_diff",)}))
@@ -4712,7 +4836,8 @@ def main() -> int:
                                if k != "shapes"})
     nvt_kernels = nv_train_summary(
         nvt_rows, r50_fqt,
-        NVT_NAMES + ("nv_half_fwd.pre", "nv_half_wgrad.pre"))
+        NVT_NAMES + ("nv_half_fwd.pre", "nv_half_dgrad.pre",
+                     "nv_half_wgrad.pre"))
     if r50_fqt["profile"] is not None:
         kinds = r50_fqt["profile"]["device_ms_per_step_by_kind"]
         summed = sum(k["ms"] for k in nvt_kernels if k["name"] in NVT_NAMES)
@@ -4724,6 +4849,11 @@ def main() -> int:
           "summed (amax + prepass + mainloop/sum parts): " + json.dumps(
               {k: fw8[k] for k in ("ms", "library_ms", "bound_ms")
                + PART_KEYS + ("launches", "split_launches")}))
+    dg8 = next(k for k in nvt_kernels if k["name"] == "nv_half_dgrad")
+    print("resnet-50 FQT: int8 dgrad per step, phase 10 per-call times "
+          "summed (amax + prepass + GEMM/sum parts, the sum alone): "
+          + json.dumps({k: dg8[k] for k in ("ms", "library_ms", "bound_ms")
+                        + NV_PART_KEYS + ("launches", "split_launches")}))
     wg8 = next(k for k in nvt_kernels if k["name"] == "nv_half_wgrad")
     print("resnet-50 FQT: int8 wgrad per step, phase 10 per-call times "
           "summed: " + json.dumps({k: wg8[k] for k in (

@@ -66,8 +66,11 @@ launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
                         (``nv_half_fwd``, ``nv_half_fwd.sum``)
 - ``fwd_conv_bf16``    (``nv_half_fwd_bf16``, ``nv_half_fwd_bf16.sum``)
 - ``bwd_rowmax``       (``nv_half_bwd.amax``)
-- ``dgrad_conv``       (``nv_half_dgrad``, and ``nv_half_dgrad.sum`` unless
-                        the mode is identity)
+- ``dgrad_conv``       ``dgrad_pre`` (``nv_half_dgrad.pre``: each chunk's
+                        cotangent quantized once into an int8 slab in the
+                        layout of ``fwd_int8_layout`` at Cin = the half's
+                        Cout), then ``dgrad_gemm`` (``nv_half_dgrad``, and
+                        ``nv_half_dgrad.sum`` unless the mode is identity)
 - ``dgrad_conv_bf16``  (``nv_half_dgrad_bf16``, ``nv_half_dgrad_bf16.sum``
                         likewise)
 - ``wgrad``            ``wgrad_pre`` (``nv_half_wgrad.pre``: each chunk's
@@ -701,9 +704,12 @@ FWD_BM = 128  # output positions a tile (csrc/fwd_staged_s8.cuh BM)
 
 class FwdInt8Layout(NamedTuple):
     """Where the int8 forward's prepass writes each chunk's quantized
-    activation and where its mainloop reads it: position-major, ``cp``
-    bytes a position (Cin padded with zeros to a multiple of 64, so that
-    the K step ``bk`` divides it). Output position (r, c, i) of a chunk
+    activation and where its mainloop reads it (and, at Cin = the half's
+    Cout, where the int8 input gradient's prepass writes the cotangent:
+    the layout is symmetric, so its mainloop reads tap t's mirror at
+    ``shifts[taps - 1 - t]``): position-major, ``cp`` bytes a position
+    (Cin padded with zeros to a multiple of 64, so that the K step ``bk``
+    divides it). Output position (r, c, i) of a chunk
     (r < rch, c < wq, i < n) is M row m = (r*wq + c)*n + i for the 3x3
     (images innermost, so that every tap is one position offset) and
     m = (i*rch + r)*w + c for the 1x1 (runs of rch*w positions contiguous
@@ -737,6 +743,15 @@ class FwdInt8Layout(NamedTuple):
     slab_len: int
     shifts: tuple
 
+    @property
+    def codes(self) -> int:
+        """Bytes of the codes a prepass must write: each chunk's image rows
+        (a halo row inside the image once in each chunk that reads it), w
+        columns, the real channels; not the pad column, pad channels,
+        guards or tail."""
+        return (self.h + 2 * self.halo * (self.chunks - 1)) * self.n \
+            * self.w * self.cin
+
 
 @functools.lru_cache(maxsize=None)
 def fwd_int8_layout(n: int, h: int, w: int, cin: int, taps: int,
@@ -763,21 +778,28 @@ def fwd_int8_layout(n: int, h: int, w: int, cin: int, taps: int,
                          h // rch, FWD_BM, m_valid, tiles, slab_len, shifts)
 
 
-def fwd_pre_plain(x, s, t, res, rowmax, *, conv, mode, rch):
-    """The int8 forward's slabs (int8 [h/rch, slab_len, cp],
-    ``fwd_int8_layout``): each chunk's a (with its halo rows for the 3x3)
-    quantized at the chunk's scale, as ``fwd_conv_plain`` quantizes it."""
-    n, h, w, cin = x.shape
-    lay = fwd_int8_layout(n, h, w, cin, _taps(conv), rch)
-    inv, _ = _quant_params(chunk_amax(rowmax, rch, lay.halo))
-    q = _q(_slabs(prologue_plain(x, s, t, res, mode), rch, lay.halo),
+def _fwd_slab(v, rowmax, lay):
+    """v [N, h, w, C] f32 quantized per chunk at its scale (halo rows
+    included for the 3x3) into the slabs of layout ``lay``: int8 [h/rch,
+    slab_len, cp]."""
+    inv, _ = _quant_params(chunk_amax(rowmax, lay.rch, lay.halo))
+    q = _q(_slabs(v, lay.rch, lay.halo),
            inv.reshape(-1, 1, 1, 1, 1))            # [K, N, rows, w, C]
-    q = F.pad(q, (0, lay.cp - cin, 0, lay.wq - w))
+    q = F.pad(q, (0, lay.cp - lay.cin, 0, lay.wq - lay.w))
     if lay.halo:   # images innermost
         q = q.permute(0, 2, 3, 1, 4)
     body = q.reshape(lay.chunks, -1, lay.cp)
     tail = lay.tiles * lay.bm - lay.m_valid
     return F.pad(body, (0, 0, lay.guard, lay.guard + tail)).to(torch.int8)
+
+
+def fwd_pre_plain(x, s, t, res, rowmax, *, conv, mode, rch):
+    """The int8 forward's slabs (int8 [h/rch, slab_len, cp],
+    ``fwd_int8_layout``): each chunk's a (with its halo rows for the 3x3)
+    quantized at the chunk's scale, as ``fwd_conv_plain`` quantizes it."""
+    n, h, w, cin = x.shape
+    return _fwd_slab(prologue_plain(x, s, t, res, mode), rowmax,
+                     fwd_int8_layout(n, h, w, cin, _taps(conv), rch))
 
 
 def _pack_w_fwd(wq, lay):
@@ -797,26 +819,60 @@ def fwd_tile(cout: int, lay: FwdInt8Layout):
     return (128 if cout >= 128 else 64), lay.bk
 
 
+def _slab_conv(slab, wq, lay, shifts):
+    """[N, h, w, Nout] float64: per chunk the exact contraction of the
+    slabs of layout ``lay``, tap t's rows read at ``shifts[t]``, with the
+    weights wq [Nout, taps*Cin] (tap t's columns), the pad column and the
+    tail dropped."""
+    nout, m_pad = wq.shape[0], lay.tiles * lay.bm
+    wt = _pack_w_fwd(wq, lay).to(f64).reshape(nout, lay.taps, lay.cp)
+    acc = sum(slab[:, sh:sh + m_pad].to(f64) @ wt[:, t].t()
+              for t, sh in enumerate(shifts))   # [K, m_pad, Nout]
+    acc = acc[:, :lay.m_valid]
+    if lay.halo:   # (r, c, i) -> (i, r, c), the pad column dropped
+        acc = acc.reshape(lay.chunks, lay.rch, lay.wq, lay.n,
+                          nout)[:, :, :lay.w].permute(0, 3, 1, 2, 4)
+    return acc.reshape(lay.chunks, lay.n, lay.rch, lay.w, nout).transpose(
+        0, 1).reshape(lay.n, lay.h, lay.w, nout)
+
+
 def fwd_gemm_plain(slab, rowmax, wq, ws, lay):
     """(y [N, h, w, Cout] bf16, zsum, zssq [Cout] f32) from the slabs of
     layout ``lay``: per chunk the exact contraction (float64) of each tap's
     shifted slab rows with its weights, the pad column and the tail
     dropped, y = bf16(f32(acc) * f32(ws * scale)), the sums per chunk then
     across chunks in order."""
-    cout, m_pad = wq.shape[0], lay.tiles * lay.bm
-    wt = _pack_w_fwd(wq, lay).to(f64).reshape(cout, lay.taps, lay.cp)
-    acc = sum(slab[:, sh:sh + m_pad].to(f64) @ wt[:, t].t()
-              for t, sh in enumerate(lay.shifts))   # [K, m_pad, Cout]
-    acc = acc[:, :lay.m_valid]
-    if lay.halo:   # (r, c, i) -> (i, r, c), the pad column dropped
-        acc = acc.reshape(lay.chunks, lay.rch, lay.wq, lay.n,
-                          cout)[:, :, :lay.w].permute(0, 3, 1, 2, 4)
-    acc = acc.reshape(lay.chunks, lay.n, lay.rch, lay.w, cout).transpose(
-        0, 1).reshape(lay.n, lay.h, lay.w, cout)
+    acc = _slab_conv(slab, wq, lay, lay.shifts)
     scale = chunk_amax(rowmax, lay.rch, lay.halo) * INV_127
     y = _dequant(acc, ws, scale, lay.rch).to(torch.bfloat16)
     yb = y.to(f32)
     return y, _ordered_sum(yb, lay.rch), _ordered_sum(yb * yb, lay.rch)
+
+
+def dgrad_pre_plain(dy, y, dzsum, dzssq, rowmax_g, *, conv, rch):
+    """The int8 input gradient's slabs (int8 [h/rch, slab_len, cp],
+    ``fwd_int8_layout`` at Cin = the half's Cout): each chunk's g (with its
+    halo rows for the 3x3) quantized at the chunk's scale, as
+    ``dgrad_conv_plain`` quantizes it."""
+    n, h, w, cout = dy.shape
+    return _fwd_slab(fold_plain(dy, y, dzsum, dzssq), rowmax_g,
+                     fwd_int8_layout(n, h, w, cout, _taps(conv), rch))
+
+
+def dgrad_gemm_plain(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, lay,
+                     *, mode):
+    """(dx, ds, dt, dres) as ``dgrad_conv_plain``'s, from the cotangent's
+    slabs of layout ``lay``: per chunk the exact contraction (float64) of
+    the slab rows at each forward tap's mirrored shift (tap t reads
+    ``shifts[taps - 1 - t]``: g at (r - dy + 1, c - dx + 1)) with wq_dg
+    [Cin, taps*Cout] (forward tap coordinates), da = f32(acc) * f32(ws_in
+    * scale) (entry mode: one fused multiply-add with dx_res), then the
+    prologue's backward."""
+    acc = _slab_conv(slab, wq_dg, lay, lay.shifts[::-1])
+    scale = chunk_amax(rowmax_g, lay.rch, lay.halo) * INV_127
+    da = _dequant(acc, ws_in, scale, lay.rch,
+                  add=dxout.to(f32) if mode == "entry" else None)
+    return _prologue_bwd(da, x, s, t, res, mode, lay.rch)
 
 
 # --- kernels -----------------------------------------------------------------
@@ -838,8 +894,10 @@ def _library() -> ctypes.CDLL:
             "nvt_fwd_pre_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 10
             + [_P],
             "nvt_fwd_s8_launch": [_P] * 7 + [_I] * 12 + [_P],
-            "nvt_dgrad_launch": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7
+            "nvt_dgrad_pre_launch": [_P] * 6 + [_I] * 10 + [_P],
+            "nvt_dgrad_s8_launch": [_P] * 9 + [_I] + [_P] * 4 + [_I] * 11
             + [_P],
+            "nvt_dgrad_sum_launch": [_P, _P, _I, _I, _P],
             "nvt_wgrad_pre_launch": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 12
             + [_P],
             "nvt_wgrad_s8_launch": [_P] * 4 + [_I] * 12 + [_P],
@@ -1106,43 +1164,135 @@ def bwd_rowmax(dy, y, dzsum, dzssq):
     return rowmax
 
 
-def dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t, res,
-               dxout, *, conv, mode, rch):
-    """The input gradient through the prologue: (dx [N, h, w, Cin] bf16,
-    ds, dt [Cin] f32 (None in identity mode), dres bf16 (entry mode))."""
+def dgrad_pre(dy, y, dzsum, dzssq, rowmax_g, *, conv, rch):
+    """The int8 input gradient's slabs (int8 [h/rch, slab_len, cp],
+    ``fwd_int8_layout`` at Cin = the half's Cout): each chunk's cotangent g
+    = (dy + dzsum) + (2y) * dzssq quantized once at the chunk's scale, halo
+    rows included. One launch."""
     if on_cpu(dy):
-        return dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in,
-                                x, s, t, res, dxout, conv=conv, mode=mode,
-                                rch=rch)
+        return dgrad_pre_plain(dy, y, dzsum, dzssq, rowmax_g, conv=conv,
+                               rch=rch)
+    name = "nv_half_dgrad.pre"
+    n, h, w, cout = dy.shape
+    _check_rch(name, h, rch)
+    dzsum, dzssq = _vecs(dzsum, dzssq)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    require_cuda(name, [rowmax_g], [f32])
+    if rowmax_g.shape != (h,):
+        raise ValueError(f"{name}: row maxima {tuple(rowmax_g.shape)} vs "
+                         f"h={h}")
+    lay = fwd_int8_layout(n, h, w, cout, _taps(conv), rch)
+    if lay.slab_len * lay.cp >= 2 ** 31:
+        raise ValueError(f"{name}: a chunk's slab of {lay.slab_len} x "
+                         f"{lay.cp} bytes at N={n}, h={h}, w={w}, "
+                         f"rch={rch} exceeds 2 GB")
+    slab = torch.empty((lay.chunks, lay.slab_len, lay.cp), dtype=torch.int8,
+                       device=dy.device)
+    _launch(name, _library().nvt_dgrad_pre_launch, dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            rowmax_g.data_ptr(), slab.data_ptr(), n, h, w, cout, rch,
+            lay.halo, lay.cp, lay.wq, lay.guard, lay.slab_len, _stream(dy))
+    return slab
+
+
+def dgrad_tile(cin: int) -> int:
+    """The int8 input gradient's N tile: 128 where Cin >= 128 (the slab
+    read ceil(Cin/128) times), else 64."""
+    return 128 if cin >= 128 else 64
+
+
+def _dgrad_checked(rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, lay, mode):
+    """The int8 GEMM's operands but the slab, checked before any launch of
+    the input gradient: (s, t, ws_in) f32, contiguous and aligned."""
     name = "nv_half_dgrad"
     n, h, w, cin = x.shape
-    cout, taps = dy.shape[-1], _taps(conv)
-    if tuple(wq_dg.shape) != (cin, taps * cout):
+    if (n, h, w) != (lay.n, lay.h, lay.w):
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs the layout's "
+                         f"({lay.n}, {lay.h}, {lay.w})")
+    if tuple(wq_dg.shape) != (cin, lay.taps * lay.cin):
         raise ValueError(f"{name}: weights {tuple(wq_dg.shape)} vs Cout "
-                         f"{cout}")
-    _check_rch(name, h, rch)
-    dzsum, dzssq, s, t, ws_in = _vecs(dzsum, dzssq, s, t, ws_in)
-    _require_cot(name, dy, y, dzsum, dzssq)
+                         f"{lay.cin}")
+    if rowmax_g.shape != (lay.h,):
+        raise ValueError(f"{name}: row maxima {tuple(rowmax_g.shape)} vs "
+                         f"h={lay.h}")
+    if lay.chunks * lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.chunks} chunks x {lay.tiles} tiles "
+                         f"at N={n}, h={h}, w={w} exceed the grid")
+    s, t, ws_in = _vecs(s, t, ws_in)
     extra, dts = [rowmax_g, wq_dg, ws_in], [f32, torch.int8, f32]
     if mode == "entry":
         extra.append(dxout)
         dts.append(torch.bfloat16)
     _require(name, x, mode, s, t, res, extra, dts)
-    dev = x.device
+    return s, t, ws_in
+
+
+def _dgrad_launch(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, lay,
+                  mode):
+    """The int8 GEMM and its sum on checked operands."""
+    name = "nv_half_dgrad"
+    n, h, w, cin = x.shape
+    wp = _pack_w_fwd(wq_dg, lay)
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if mode == "entry" else None
-    part = (torch.empty((-(-n * h * w // _BM), 2 * cin), dtype=f32,
-                        device=dev) if mode != "identity" else None)
-    _launch(name, _library().nvt_dgrad_launch, dy.data_ptr(), y.data_ptr(),
-            dzsum.data_ptr(), dzssq.data_ptr(), rowmax_g.data_ptr(),
-            wq_dg.data_ptr(), ws_in.data_ptr(), x.data_ptr(), _ptr(res),
-            _ptr(dxout), _ptr(s), _ptr(t), MODES.index(mode), dx.data_ptr(),
-            _ptr(dres), _ptr(part), n, h, w, cin, cout, taps, rch,
+    part = (torch.empty((lay.chunks * lay.tiles, 2 * cin), dtype=f32,
+                        device=x.device) if mode != "identity" else None)
+    shifts = (ctypes.c_int * lay.taps)(*lay.shifts[::-1])
+    _launch(name, _library().nvt_dgrad_s8_launch, slab.data_ptr(),
+            wp.data_ptr(), ws_in.data_ptr(), rowmax_g.data_ptr(),
+            x.data_ptr(), _ptr(res), _ptr(dxout), _ptr(s), _ptr(t),
+            MODES.index(mode), dx.data_ptr(), _ptr(dres), _ptr(part),
+            ctypes.addressof(shifts), n, h, w, cin, lay.cp, lay.taps,
+            lay.rch, lay.wq, lay.tiles, lay.slab_len, dgrad_tile(cin),
             _stream(x))
     if mode == "identity":
         return dx, None, None, None
-    sums = _sums(f"{name}.sum", part)
+    sums = torch.empty(2 * cin, dtype=f32, device=x.device)
+    _launch(f"{name}.sum", _library().nvt_dgrad_sum_launch, part.data_ptr(),
+            sums.data_ptr(), part.shape[0], 2 * cin, _stream(x))
     return dx, sums[:cin], sums[cin:], dres
+
+
+def dgrad_gemm(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, lay, *,
+               mode):
+    """(dx [N, h, w, Cin] bf16, ds, dt [Cin] f32 (None in identity mode),
+    dres bf16 (entry mode)) from the cotangent's slabs of layout ``lay``:
+    the exact s32 contraction over (mirrored tap, channel) on 128-row tiles
+    of one chunk each, da = f32(acc) * f32(ws_in * scale) with the tile's
+    one scale (entry mode: one fused multiply-add with dx_res), then the
+    prologue's backward; each tile's sums of du * x and du added in a fixed
+    order (bit for bit the same every run)."""
+    if on_cpu(slab):
+        return dgrad_gemm_plain(slab, rowmax_g, wq_dg, ws_in, x, s, t, res,
+                                dxout, lay, mode=mode)
+    if tuple(slab.shape) != (lay.chunks, lay.slab_len, lay.cp):
+        raise ValueError(f"nv_half_dgrad: slab {tuple(slab.shape)} is not "
+                         f"of the layout ({lay.chunks}, {lay.slab_len}, "
+                         f"{lay.cp})")
+    require_cuda("nv_half_dgrad", [slab], [torch.int8])
+    s, t, ws_in = _dgrad_checked(rowmax_g, wq_dg, ws_in, x, s, t, res, dxout,
+                                 lay, mode)
+    return _dgrad_launch(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout,
+                         lay, mode)
+
+
+def dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t, res,
+               dxout, *, conv, mode, rch):
+    """The input gradient through the prologue: (dx [N, h, w, Cin] bf16,
+    ds, dt [Cin] f32 (None in identity mode), dres bf16 (entry mode))
+    (``dgrad_pre``, then ``dgrad_gemm``; every operand checked before the
+    first launch)."""
+    if on_cpu(dy):
+        return dgrad_conv_plain(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in,
+                                x, s, t, res, dxout, conv=conv, mode=mode,
+                                rch=rch)
+    n, h, w, cout = dy.shape
+    lay = fwd_int8_layout(n, h, w, cout, _taps(conv), rch)
+    s, t, ws_in = _dgrad_checked(rowmax_g, wq_dg, ws_in, x, s, t, res, dxout,
+                                 lay, mode)
+    slab = dgrad_pre(dy, y, dzsum, dzssq, rowmax_g, conv=conv, rch=rch)
+    return _dgrad_launch(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout,
+                         lay, mode)
 
 
 def dgrad_conv_bf16(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout, *,

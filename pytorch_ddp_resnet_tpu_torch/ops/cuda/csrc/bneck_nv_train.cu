@@ -9,8 +9,10 @@
 //                                lives in fwd_staged_s8.cuh, which says how
 //                                it works)
 //   fwd_bf16                  <- the same kernels' quant=False body
-//   rowmax_cot, dgrad_conv    <- _dgrad_call -> _dgrad1x1_kernel,
-//                                _dgrad3x3_kernel (quant_bwd=True)
+//   rowmax_cot, dgrad_pre,    <- _dgrad_call -> _dgrad1x1_kernel,
+//   then dgrad_s8, dgrad_sum     _dgrad3x3_kernel (quant_bwd=True; the
+//                                GEMM lives in nv_dgrad_wgmma_s8.cuh,
+//                                which says how it works)
 //   dgrad_bf16                <- the same kernels' quant_bwd=False body
 //   wgrad_pre, then           <- _wgrad_call -> _wgrad1x1_kernel,
 //   wgrad_s8, wgrad_sum          _wgrad3x3_kernel (quant_bwd=True; the
@@ -31,33 +33,35 @@
 // cotangent (dgrad) group adds the halo rows k*rch-1 and (k+1)*rch inside
 // the image. So one image row is quantized at two scales where two chunks
 // share it, and no single int8 copy of an operand can serve a 3x3 stage:
-// the int8 dgrad quantizes in its gather, with the scale of the chunk of
-// the output row it computes; the int8 fwd's and wgrad's prepasses write
-// each chunk's operands once, at its scale, halo rows included, into slabs
-// of the chunk's own. The absmax of a group is exact in any order:
+// the int8 fwd's, dgrad's and wgrad's prepasses write each chunk's
+// operands once, at its scale, halo rows included, into slabs of the
+// chunk's own. The absmax of a group is exact in any order:
 // rowmax_* writes the maximum of |value| per image row (atomicMax on the
 // float's bits, which order as integers for values >= 0), and each kernel
 // reduces its group's rows. The bf16 bodies have no groups: their gather
 // rounds the prologue's (or the fold's) f32 value to bf16.
 //
-// The GEMM core of the dgrads and the bf16 fwd, one template over the
-// operand type: a 128x64 output tile per block, 8 warps (4 along M x 2
-// along N), ldmatrix + mma.sync (s8 m16n8k32 -> s32, or bf16 m16n8k16 ->
-// f32) in registers, K walked 32 bytes at a time (32 int8 or 16 bf16
-// values) through two shared-memory buffers. The producer loads step k+1's
-// bf16 operands into registers while the tensor cores run step k, then
-// applies the prologue, quantizes or rounds them and stores them:
-//   bf16 fwd: M = positions, N = Cout, K = (tap, ci); a gathered at
-//             (r + dy - 1, c + dx - 1);
-//   dgrad:    M = positions, N = Cin, K = (tap, co); g gathered at
-//             (r - dy + 1, c - dx + 1) against per-input-channel weights
-//             in forward tap coordinates.
-// The int8 fwd does not use this core: its prepass (nvt_fwd_pre_kernel)
-// quantizes each chunk's activation once into a slab, position-major with
-// each position's channels contiguous (the 3x3's images innermost, so that
-// every tap is one constant position offset), and fwd_staged_s8.cuh's
-// cp.async ring copies its rows as they lie into plain ldmatrix and s8
-// mma.sync, with one scale a 128-row tile (a tile lies in one chunk).
+// The GEMM core of the bf16 fwd and dgrad (the template's operand type is
+// bf16 alone): a 128x64 output tile per block, 8 warps (4 along M x 2
+// along N), ldmatrix + mma.sync bf16 m16n8k16 -> f32 in registers, K
+// walked 32 bytes (16 values) at a time through two shared-memory
+// buffers. The producer loads step k+1's bf16 operands into registers
+// while the tensor cores run step k, then applies the prologue or the
+// fold, rounds them and stores them:
+//   fwd:   M = positions, N = Cout, K = (tap, ci); a gathered at
+//          (r + dy - 1, c + dx - 1);
+//   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
+//          (r - dy + 1, c - dx + 1) against per-input-channel weights in
+//          forward tap coordinates.
+// The int8 fwd and dgrad do not use this core: their prepass
+// (nvt_fwd_pre_kernel<Act>, <Cot>) quantizes each chunk's activation or
+// cotangent once into a slab, position-major with each position's channels
+// contiguous (the 3x3's images innermost, so that every tap is one
+// constant position offset; fwd_int8_layout), and a tile of 128 rows has
+// one scale (it lies in one chunk). The fwd's GEMM is fwd_staged_s8.cuh's
+// cp.async ring into plain ldmatrix and s8 mma.sync; the dgrad's,
+// nv_dgrad_wgmma_s8.cuh, runs fwd_wgmma_s8.cuh's TMA-fed s8 wgmma mainloop
+// with the 3x3's taps mirrored (the layout is symmetric).
 // The wgrads do not use this core either (M = (tap, ci), N = Cout, K = a run of
 // the positions of one chunk, grid z = (chunk, split)). The bf16 one: a
 // prepass rounds its operands once into NHWC bf16 scratch, and
@@ -69,13 +73,13 @@
 // in slabs where every tap shift is one offset of a multiple of 16 bytes;
 // wgrad_staged_s8.cuh's cp.async ring copies their rows as they lie into
 // plain ldmatrix and s8 mma.sync.
-// The core's epilogues run on the accumulators in registers: the dequant
-// f32(acc) * f32(ws * scale) (int8 dgrad), the bf16 outputs, the
-// prologue's backward (dgrad), and per-block per-channel sums (warp
-// butterflies, then the four M-warps in order) into a partial buffer that
-// nvt_sum reduces in a fixed tree (the int8 fwd stages its tile in shared
-// memory and sums its columns in order into the same kind of buffer). The wgrads split each chunk's positions
-// over blocks; the int8 sum adds each chunk's f32(exact s32 over its
+// The core's epilogues run on the accumulators in registers: the bf16
+// outputs, the prologue's backward (dgrad), and per-block per-channel sums
+// (warp butterflies, then the four M-warps in order) into a partial buffer
+// that nvt_sum reduces in a fixed tree (the int8 fwd and dgrad stage their
+// tiles in shared memory and sum them in a fixed order into the same kind
+// of buffer; the int8 dgrad's tiles go to common::tile_sum). The wgrads
+// split each chunk's positions over blocks; the int8 sum adds each chunk's f32(exact s32 over its
 // splits) * (amax_a * amax_g / 127^2), the bf16 sum each chunk's f32 split
 // tiles in split order, into dW in chunk order, as the TPU kernel's
 // sequential grid does: dW is reproducible bit for bit.
@@ -86,16 +90,15 @@
 // 51-205 MB in and out, 15-120 us at 3.35 TB/s: the 1x1 halves and the
 // stage-1 halves are bound by bytes. What the design does about it: each
 // operand is read once per output tile column (N / 64 times, N / 128 in
-// the int8 fwd), the quantized or rounded operands never reach device
-// memory (but the int8 fwd's and the wgrads', written once by their
-// prepasses), and no accumulator does either (but the wgrads' split
-// tiles).
-// Left for later: in the bf16 fwd and the dgrads, the producer's
-// synchronous loads (no cp.async/TMA ring), a 64-wide N tile that re-reads
-// A Cout/64 times, and the halo rows' recomputed prologue; everywhere,
-// mma.sync instead of wgmma, and the wgrads' second launch; in the int8
-// fwd and the wgrads, the prepasses' bytes (their operands written once and
-// read back).
+// the int8 fwd and dgrad where N >= 128), the rounded operands of the bf16
+// fwd and dgrad never reach device memory, the int8 operands do once
+// (written by the prepasses, read back), and no accumulator does (but the
+// wgrads' split tiles).
+// Left for later: in the bf16 fwd and dgrad, the producer's synchronous
+// loads (no cp.async/TMA ring), a 64-wide N tile that re-reads A Cout/64
+// times, and the halo rows' recomputed prologue; mma.sync instead of wgmma
+// but in the int8 dgrad; the wgrads' second launch; the prepasses' bytes
+// (their operands written once and read back).
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_bneck_nv_train.py and
@@ -120,6 +123,7 @@
 #include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
 #include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
 #include "fwd_staged_s8.cuh"  // the int8 forward's mainloop
+#include "nv_dgrad_wgmma_s8.cuh"  // the int8 input gradient's GEMM
 
 using common::chunk_amax;
 using conv3x3::ldmatrix_x4;
@@ -138,7 +142,9 @@ constexpr int A_BYTES = BM * ROW;
 constexpr int TILE_BYTES = (BM + BN) * ROW;  // one buffer: A then B
 constexpr float kFloor = 1e-30f;
 
-enum Mode { IDENTITY = 0, AFFINE = 1, ENTRY = 2 };
+// the halves' modes: one enum for every kernel of the file and the header
+using nv_dgrad_wgmma_s8::ENTRY;
+using nv_dgrad_wgmma_s8::IDENTITY;
 
 typedef __nv_bfloat16 bf16;
 
@@ -361,17 +367,17 @@ struct ConvGeo {
   int c;       // channels of the gathered operand (the contraction's)
   int taps;    // 1 or 9
   int nout;    // output channels (rows of the weights)
-  int rch, halo;
 };
 
 __device__ __forceinline__ int conv_steps(const ConvGeo& g, int kv) {
   return g.taps * ((g.c + kv - 1) / kv);
 }
 
-// Each row of a step holds 32 bytes of K, two threads 16 bytes each: two
-// 8-channel vectors quantized to int8, or one rounded to bf16.
+// Each row of a step holds 32 bytes of K, two threads 16 bytes each: one
+// 8-channel vector rounded to bf16 a thread.
 template <typename Src, bool MIRROR, typename T>
 struct ConvLoader {
+  static_assert(sizeof(T) == 2, "the bf16 bodies");
   static constexpr int KV = kvals<T>();
   static constexpr int NV = 2 / (int)sizeof(T);  // 8-channel vectors a thread
   using WVec = typename conv3x3::Vec8<T>::type;
@@ -382,7 +388,6 @@ struct ConvLoader {
   // per thread
   int img, oy, ox, r, half;
   bool row_ok;
-  float inv;
   const T* b_row;
   bool b_ok;
   int csteps;
@@ -394,9 +399,8 @@ struct ConvLoader {
     WVec b[NV];
   };
 
-  __device__ ConvLoader(const Src& s, const T* w, const ConvGeo& geo,
-                        const float* rowmax, int m0, int n0,
-                        bf16* copy_ = nullptr)
+  __device__ ConvLoader(const Src& s, const T* w, const ConvGeo& geo, int m0,
+                        int n0, bf16* copy_ = nullptr)
       : src(s), wt(w), g(geo), copy(copy_) {
     const int tid = threadIdx.x;
     r = tid >> 1;
@@ -409,8 +413,6 @@ struct ConvLoader {
     const int rem = mm - img * g.h * g.w;
     oy = rem / g.w;
     ox = rem - oy * g.w;
-    if constexpr (sizeof(T) == 1)
-      inv = inv_of(chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h));
     const int rb = n0 + r;
     b_ok = tid < 2 * BN && rb < g.nout;
     b_row = wt + (size_t)(b_ok ? rb : 0) * g.taps * g.c;
@@ -447,21 +449,14 @@ struct ConvLoader {
       if (rg.av[j]) {
         float v[8];
         src.template value<8>(rg.a[j], rg.c0 + 8 * j, v);
-        if constexpr (sizeof(T) == 1) {
-          q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
-                      __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
-          q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
-                      __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
-        } else {
-          bf16* e = reinterpret_cast<bf16*>(&q);
+        bf16* e = reinterpret_cast<bf16*>(&q);
 #pragma unroll
-          for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
-          // the 1x1 gathers each position once per column of blocks
-          if (copy != nullptr && blockIdx.y == 0)
-            *reinterpret_cast<WVec*>(
-                copy + (((size_t)img * g.h + oy) * g.w + ox) * g.c + rg.c0) =
-                q;
-        }
+        for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16_rn(v[k]);
+        // the 1x1 gathers each position once per column of blocks
+        if (copy != nullptr && blockIdx.y == 0)
+          *reinterpret_cast<WVec*>(
+              copy + (((size_t)img * g.h + oy) * g.w + ox) * g.c + rg.c0) =
+              q;
       }
       const int off = r * ROW + half * 16 + j * (int)sizeof(WVec);
       *reinterpret_cast<WVec*>(buf + off) = q;
@@ -528,24 +523,6 @@ __device__ __forceinline__ void block_sums(float (&s)[2][4][2], int n0,
   }
 }
 
-// scale = amax * f32(1/127) of the chunk of each of the thread's 4 rows
-__device__ __forceinline__ void row_scales(float (&sc)[2][2],
-                                           const float* __restrict__ rowmax,
-                                           int m0, const ConvGeo& g) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + (warp / 2) * 32 + mi * 16 + lane / 4 + hr * 8;
-      const int oy = (m / g.w) % g.h;
-      sc[mi][hr] = __fmul_rn(
-          chunk_amax(rowmax, oy / g.rch, g.rch, g.halo, g.h),
-          common::kInv127);
-    }
-}
-
 // --- forward ----------------------------------------------------------------
 
 struct FwdArgs {
@@ -568,7 +545,7 @@ __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
   const int M = g.n * g.h * g.w;
   AccT<T> acc[2][4][4] = {};
   const ConvLoader<Act, false, T> ld(args.act, static_cast<const T*>(args.w),
-                                     g, nullptr, m0, n0, args.x_res);
+                                     g, m0, n0, args.x_res);
   gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
   float s[2][4][2] = {};
@@ -590,9 +567,7 @@ __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
 
 struct DgradArgs {
   Cot cot;
-  const void* w;           // [cin][taps * cout] int8 or bf16, forward taps
-  const float* ws_in;      // int8: [cin]
-  const float* rowmax;     // int8: [h] of |g|
+  const void* w;           // [cin][taps * cout] bf16, forward taps
   const bf16* x;           // [M][cin] (the half's input)
   const bf16* res;         // entry: [M][cin]
   const bf16* dxout;       // entry: the x_res cotangent [M][cin]
@@ -605,12 +580,13 @@ struct DgradArgs {
   ConvGeo g;               // c = cout (contracted), nout = cin
 };
 
-// da = f32(acc) * f32(ws_in * scale) (int8) or acc (bf16); identity: dx =
-// bf16(da); else u = fma(x, s, t) (+ res), da (entry, int8: fma(f32(acc),
-// ws_in * scale, dxout); entry, bf16: da + dxout), du = u > 0 ? da : 0,
-// dx = bf16(du * s), dres = bf16(du); sums of du * x and du
+// The bf16 body (the int8 one is nv_dgrad_wgmma_s8.cuh's): da = acc;
+// identity: dx = bf16(da); else u = fma(x, s, t) (+ res), da (+ dxout in
+// entry mode), du = u > 0 ? da : 0, dx = bf16(du * s), dres = bf16(du);
+// sums of du * x and du
 template <typename T>
 __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
+  static_assert(sizeof(T) == 2, "the bf16 input gradient");
   __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
   const ConvGeo g = args.g;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -618,29 +594,14 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
   const int cin = g.nout;
   AccT<T> acc[2][4][4] = {};
   const ConvLoader<Cot, true, T> ld(args.cot, static_cast<const T*>(args.w),
-                                    g, args.rowmax, m0, n0);
+                                    g, m0, n0);
   gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
-  float rs[2][2];
-  if constexpr (sizeof(T) == 1) row_scales(rs, args.rowmax, m0, g);
   float s[2][4][2] = {};
   each_pair(acc, m0, n0, M, cin,
-            [&](int mi, int ni, int hr, int m, int n, AccT<T> v0,
-                AccT<T> v1) {
+            [&](int, int ni, int, int m, int n, AccT<T> v0, AccT<T> v1) {
     const size_t i = (size_t)m * cin + n;
-    float acc_f[2], fac[2], da[2];
-    if constexpr (sizeof(T) == 1) {
-      const float sc = rs[mi][hr];
-      fac[0] = __fmul_rn(args.ws_in[n], sc);
-      fac[1] = __fmul_rn(args.ws_in[n + 1], sc);
-      acc_f[0] = __int2float_rn(v0);
-      acc_f[1] = __int2float_rn(v1);
-      da[0] = __fmul_rn(acc_f[0], fac[0]);
-      da[1] = __fmul_rn(acc_f[1], fac[1]);
-    } else {
-      da[0] = v0;
-      da[1] = v1;
-    }
+    const float da[2] = {v0, v1};
     if (args.mode == IDENTITY) {
       *reinterpret_cast<__nv_bfloat162*>(args.dx + i) =
           __floats2bfloat162_rn(da[0], da[1]);
@@ -667,10 +628,7 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
       float d = da[e];
       if (args.mode == ENTRY) {
         u = __fadd_rn(u, rv[e]);
-        if constexpr (sizeof(T) == 1)
-          d = __fmaf_rn(acc_f[e], fac[e], ov[e]);
-        else
-          d = __fadd_rn(d, ov[e]);
+        d = __fadd_rn(d, ov[e]);
       }
       du[e] = u > 0.f ? d : 0.f;
       s[0][ni][e] = __fadd_rn(s[0][ni][e], __fmul_rn(du[e], xv[e]));
@@ -685,14 +643,16 @@ __global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
   if (args.mode != IDENTITY) block_sums(s, n0, cin, args.part);
 }
 
-// --- the int8 forward's operand ----------------------------------------------
+// --- the int8 forward's and input gradient's operand -----------------------
 
-// Where ops/cuda/bneck_nv_train.py fwd_int8_layout puts the activation:
-// chunk k's slab is slab_len positions of cp bytes at k * slab_len * cp;
-// past guard zero positions, slab row ra (image row k * rch - halo + ra),
-// column col (< wq; col >= w is zero) and image i sit at position (ra * wq
-// + col) * n + i (3x3: images innermost) or (i * rch + ra) * w + col (1x1),
-// channels cin..cp zero; the rest of the slab is zero.
+// Where ops/cuda/bneck_nv_train.py fwd_int8_layout puts the quantized
+// operand (the forward's activation, the dgrad's cotangent, cin its
+// channels): chunk k's slab is slab_len positions of cp bytes at k *
+// slab_len * cp; past guard zero positions, slab row ra (image row k * rch
+// - halo + ra), column col (< wq; col >= w is zero) and image i sit at
+// position (ra * wq + col) * n + i (3x3: images innermost) or (i * rch +
+// ra) * w + col (1x1), channels cin..cp zero; the rest of the slab is
+// zero.
 struct FwdSlabGeo {
   int n, h, w, cin, rch, halo;
   int cp, wq, guard, slab_len;
@@ -702,17 +662,20 @@ constexpr int FWD_PRE_U = 4;  // slab units (8 channels of a position) a thread
 
 // Every chunk's slab, one launch: block row blockIdx.y is chunk k. A unit
 // is 8 channels of one slab position, channels fastest, so a warp reads
-// whole 16-byte vectors of consecutive channels of x (and res) and writes
-// 256 contiguous slab bytes; each thread takes FWD_PRE_U units 256 apart,
-// issues all their loads, then reduces the chunk's scale while they are in
-// flight. It runs the prologue in f32 (Act::value, the rounding points of
-// the gather it replaces: x*s + t one fma, + res on its own, then relu;
-// entry mode recomputes it from x and res, never from x_res), quantizes at
-// the chunk's scale (q = clip(rint(v * inv))) and stores 8 bytes a unit;
-// positions outside the image, the pad column, pad channels, guards and
-// the tile tail get zeros.
+// whole 16-byte vectors of consecutive channels of the source's tensors
+// and writes 256 contiguous slab bytes; each thread takes FWD_PRE_U units
+// 256 apart, issues all their loads, then reduces the chunk's scale while
+// they are in flight. It computes the value in f32 (Src::value: Act the
+// forward's prologue, x*s + t one fma, + res on its own, then relu, entry
+// mode recomputing it from x and res, never from x_res; Cot the dgrad's
+// fold, (dy + dzsum) + (2y)*dzssq one fma), quantizes at the chunk's
+// scale (q = clip(rint(v * inv))) and stores 8 bytes a unit; positions
+// outside the image, the pad column, pad channels, guards and the tile
+// tail get zeros. A 3x3 image row that two chunks share is written into
+// both slabs, at their two scales.
+template <typename Src>
 __global__ void __launch_bounds__(256)
-nvt_fwd_pre_kernel(Act act, const float* __restrict__ rowmax,
+nvt_fwd_pre_kernel(Src src, const float* __restrict__ rowmax,
                    signed char* __restrict__ slab, FwdSlabGeo s) {
   const int k = blockIdx.y;
   const int groups = s.cp / 8;
@@ -735,7 +698,8 @@ nvt_fwd_pre_kernel(Act act, const float* __restrict__ rowmax,
       const int ra = site / s.wq, col = site - ra * s.wq;
       const int row = k * s.rch - s.halo + ra;
       if (col < s.w && (unsigned)row < (unsigned)s.h) {
-        act.fetch<8>(((size_t)i * s.h + row) * s.w + col, c0, raw[j]);
+        src.template fetch<8>(((size_t)i * s.h + row) * s.w + col, c0,
+                              raw[j]);
         live |= 1u << j;
       }
     }
@@ -750,7 +714,7 @@ nvt_fwd_pre_kernel(Act act, const float* __restrict__ rowmax,
     uint2 q = make_uint2(0u, 0u);
     if (live >> j & 1u) {
       float v[8];
-      act.value<8>(raw[j], c0, v);
+      src.template value<8>(raw[j], c0, v);
       q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
                   __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
       q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
@@ -967,6 +931,23 @@ __global__ void nvt_sum_kernel(const float* __restrict__ part,
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
+// nvt_fwd_pre_kernel over every chunk's slab of the layout g
+template <typename Src>
+int fwd_pre_launch(const Src& src, const void* rowmax, void* slab,
+                   const FwdSlabGeo& g, cudaStream_t stream) {
+  const long units = (long)g.slab_len * (g.cp / 8);  // a chunk's
+  if (units >= (1L << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long per = (units + 256 * FWD_PRE_U - 1) / (256 * FWD_PRE_U);
+  nvt_fwd_pre_kernel<<<dim3((unsigned)per, g.h / g.rch), 256, 0, stream>>>(
+      src, static_cast<const float*>(rowmax),
+      static_cast<signed char*>(slab), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tile sums of the int8 input gradient (a tag of its own, so that a
+// profile can tell whose sum it is)
+struct NvtDgradSum {};
+
 template <typename T>
 const T* in(const void* p) {
   return static_cast<const T*>(p);
@@ -1028,15 +1009,10 @@ int nvt_fwd_pre_launch(const void* x, const void* res, const void* s,
                        void* slab, int n, int h, int w, int cin, int rch,
                        int halo, int cp, int wq, int guard, int slab_len,
                        void* stream) {
-  const FwdSlabGeo g{n, h, w, cin, rch, halo, cp, wq, guard, slab_len};
-  const long units = (long)slab_len * (cp / 8);  // a chunk's
-  if (units >= (1L << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const long per = (units + 256 * FWD_PRE_U - 1) / (256 * FWD_PRE_U);
-  nvt_fwd_pre_kernel<<<dim3((unsigned)per, h / rch), 256, 0,
-                       as_stream(stream)>>>(
-      act_of(x, res, s, t, cin, mode), in<float>(rowmax),
-      static_cast<signed char*>(slab), g);
-  return static_cast<int>(cudaGetLastError());
+  return fwd_pre_launch(act_of(x, res, s, t, cin, mode), rowmax, slab,
+                        FwdSlabGeo{n, h, w, cin, rch, halo, cp, wq, guard,
+                                   slab_len},
+                        as_stream(stream));
 }
 
 // nvt_fwd_s8: y [n, h, w, cout] bf16 and part [h / rch * tiles][2 * cout]
@@ -1074,37 +1050,76 @@ int nvt_fwd_bf16_launch(const void* x, const void* res, const void* s,
                         int cout, int taps, void* stream) {
   FwdArgs args{act_of(x, res, s, t, cin, mode), wb,
                static_cast<bf16*>(y), static_cast<float*>(part),
-               static_cast<bf16*>(x_res), ConvGeo{n, h, w, cin, taps, cout,
-                                                  h, 0}};
+               static_cast<bf16*>(x_res), ConvGeo{n, h, w, cin, taps, cout}};
   nvt_fwd_kernel<bf16><<<conv_grid(n * h * w, cout), THREADS, 0,
                          as_stream(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dx [n, h, w, cin] bf16 (dres likewise in entry mode; part
-// [ceil(n*h*w / 128)][2 * cin] the per-block sums of du * x and du unless
-// identity) <- the input gradient: dy/y [n, h, w, cout] bf16, dzsum/dzssq
-// [cout], rowmax [h] of |g|, wq [cin][taps * cout] int8 in forward tap
-// coordinates, ws_in [cin]; x/res/dxout [n, h, w, cin], s/t [cin].
-int nvt_dgrad_launch(const void* dy, const void* y, const void* dzsum,
-                     const void* dzssq, const void* rowmax, const void* wq,
-                     const void* ws_in, const void* x, const void* res,
-                     const void* dxout, const void* s, const void* t,
-                     int mode, void* dx, void* dres, void* part, int n, int h,
-                     int w, int cin, int cout, int taps, int rch,
-                     void* stream) {
-  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wq, in<float>(ws_in),
-                 in<float>(rowmax), in<bf16>(x), in<bf16>(res),
-                 in<bf16>(dxout), in<float>(s), in<float>(t), mode,
-                 static_cast<bf16*>(dx), static_cast<bf16*>(dres),
-                 static_cast<float*>(part),
-                 ConvGeo{n, h, w, cout, taps, cin, rch, taps == 9 ? 1 : 0}};
-  nvt_dgrad_kernel<signed char><<<conv_grid(n * h * w, cin), THREADS, 0,
-                                  as_stream(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+// The int8 input gradient, four launches after the row maxima of |g|
+// (nvt_rowmax_cot). nvt_dgrad_pre: slab [h / rch][slab_len][cp] int8 <-
+// the cotangent g = fma(2y, dzssq, dy + dzsum) (dy/y [n, h, w, cout] bf16,
+// dzsum/dzssq [cout] f32), each chunk's quantized at its scale (rowmax [h]
+// of |g|), in the layout (halo, cp, wq, guard, slab_len) of
+// ops/cuda/bneck_nv_train.py fwd_int8_layout at Cin = cout.
+int nvt_dgrad_pre_launch(const void* dy, const void* y, const void* dzsum,
+                         const void* dzssq, const void* rowmax, void* slab,
+                         int n, int h, int w, int cout, int rch, int halo,
+                         int cp, int wq, int guard, int slab_len,
+                         void* stream) {
+  return fwd_pre_launch(cot_of(dy, y, dzsum, dzssq, cout), rowmax, slab,
+                        FwdSlabGeo{n, h, w, cout, rch, halo, cp, wq, guard,
+                                   slab_len},
+                        as_stream(stream));
 }
 
-// The bf16 body: dx, dres and part as nvt_dgrad_launch's, from wb
+// nvt_dgrad_s8: dx [n, h, w, cin] bf16 (dres likewise in entry mode; part
+// [h / rch * tiles][2 * cin] f32, each M tile's sums of du * x and du,
+// unless identity) <- the slab's products with wp [cin][taps * cp] int8
+// (forward tap coordinates, pad channels zero), the walk's tap t reading
+// the slab at shift[t] (host memory, taps positions: the layout's shifts
+// mirrored), dequantized by ws_in [cin] and the chunk's scale from rowmax,
+// then the prologue's backward from x/res/dxout [n, h, w, cin] and s/t
+// [cin], on (128, bn) tiles.
+int nvt_dgrad_s8_launch(const void* slab, const void* wp, const void* ws_in,
+                        const void* rowmax, const void* x, const void* res,
+                        const void* dxout, const void* s, const void* t,
+                        int mode, void* dx, void* dres, void* part,
+                        const int* shift, int n, int h, int w, int cin,
+                        int cp, int taps, int rch, int wq, int tiles,
+                        int slab_len, int bn, void* stream) {
+  if ((taps != 1 && taps != 9) || rch < 1 || h % rch)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int halo = taps == 9 ? 1 : 0;
+  nv_dgrad_wgmma_s8::Args args{
+      in<float>(ws_in), in<float>(rowmax), in<bf16>(x), in<bf16>(res),
+      in<bf16>(dxout), in<float>(s), in<float>(t), static_cast<bf16*>(dx),
+      static_cast<bf16*>(dres), static_cast<float*>(part), {}, cin, cp,
+      taps, tiles, slab_len, mode, {}};
+  args.rows.n = n;
+  args.rows.h = h;
+  args.rows.w = w;
+  args.rows.rch = rch;
+  args.rows.halo = halo;
+  args.rows.wq = wq;
+  for (int i = 0; i < taps; ++i) args.shift[i] = shift[i];
+  return static_cast<int>(nv_dgrad_wgmma_s8::launch(
+      slab, wp, args, h / rch, bn, as_stream(stream)));
+}
+
+// nvt_dgrad_sum: out [m] f32 = the tiles' sums of part [tiles][m] in
+// common::tile_sum's fixed order (d(s) then d(t)).
+int nvt_dgrad_sum_launch(const void* part, void* out, int tiles, int m,
+                         void* stream) {
+  return common::tile_sum<NvtDgradSum>(in<float>(part),
+                                       static_cast<float*>(out), tiles, m,
+                                       as_stream(stream));
+}
+
+// The bf16 body: dx [n, h, w, cin] bf16 (dres likewise in entry mode;
+// part [ceil(n*h*w / 128)][2 * cin] the per-block sums of du * x and du
+// unless identity) <- the input gradient of dy/y [n, h, w, cout] bf16,
+// dzsum/dzssq [cout], x/res/dxout [n, h, w, cin], s/t [cin], from wb
 // [cin][taps * cout] bf16 in forward tap coordinates.
 int nvt_dgrad_bf16_launch(const void* dy, const void* y, const void* dzsum,
                           const void* dzssq, const void* wb, const void* x,
@@ -1112,11 +1127,11 @@ int nvt_dgrad_bf16_launch(const void* dy, const void* y, const void* dzsum,
                           const void* t, int mode, void* dx, void* dres,
                           void* part, int n, int h, int w, int cin, int cout,
                           int taps, void* stream) {
-  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wb, nullptr, nullptr,
-                 in<bf16>(x), in<bf16>(res), in<bf16>(dxout), in<float>(s),
+  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wb, in<bf16>(x),
+                 in<bf16>(res), in<bf16>(dxout), in<float>(s),
                  in<float>(t), mode, static_cast<bf16*>(dx),
                  static_cast<bf16*>(dres), static_cast<float*>(part),
-                 ConvGeo{n, h, w, cout, taps, cin, h, 0}};
+                 ConvGeo{n, h, w, cout, taps, cin}};
   nvt_dgrad_kernel<bf16><<<conv_grid(n * h * w, cin), THREADS, 0,
                            as_stream(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());

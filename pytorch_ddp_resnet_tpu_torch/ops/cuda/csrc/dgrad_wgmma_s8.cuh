@@ -245,7 +245,8 @@ inline cudaError_t launch(const void* slab, const void* w, const Args& args,
     return cudaErrorInvalidValue;
   fwd_wgmma_s8::tap_rows(p.tap, p.wi);
   Maps mp;
-  if (!fwd_wgmma_s8::encode_maps(&mp, slab, slab_len, w, p.cin, p.cout, bn))
+  if (!fwd_wgmma_s8::encode_maps(&mp, slab, slab_len, w, p.cin, p.cout, bn,
+                                 9))
     return cudaErrorInvalidValue;
   if (bn == 160) return launch_tile<160>(mp, p, e, tiles, stream);
   if (bn == 128) return launch_tile<128>(mp, p, e, tiles, stream);

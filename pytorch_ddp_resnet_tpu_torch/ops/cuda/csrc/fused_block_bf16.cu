@@ -92,6 +92,39 @@
 #include "seed_bits.cuh"
 #include "wgrad_staged.cuh"  // the weight gradient's mainloop and ordered sum
 
+// The bf16 forward GEMM's launchers (its kernel is fwd_wgmma_bf16.cuh's
+// fused_fwd_gemm_kernel): here, in its one caller's file, so that the
+// files that include that header for the mainloop do not build the
+// kernel.
+namespace fwd_wgmma_bf16 {
+
+template <int BN>
+inline cudaError_t launch_tile(const Args& p, int tiles,
+                               cudaStream_t stream) {
+  constexpr int smem = Tile<BN>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_fwd_gemm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.cout + BN - 1) / BN, tiles);
+  fused_fwd_gemm_kernel<BN><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The GEMM on `tiles` 128-row M tiles with a bn-wide N tile (160, 128 or
+// 64). cin % 8 == 0, cout % 8 == 0, n % 8 == 0.
+inline cudaError_t launch(const Args& p, int tiles, int bn,
+                          cudaStream_t stream) {
+  if (p.cin % 8 || p.cout % 8 || p.n % 8 || tiles < 1 || tiles > 65535)
+    return cudaErrorInvalidValue;
+  if (bn == 160) return launch_tile<160>(p, tiles, stream);
+  if (bn == 128) return launch_tile<128>(p, tiles, stream);
+  if (bn == 64) return launch_tile<64>(p, tiles, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fwd_wgmma_bf16
+
 using namespace fused_half;
 using dropout::DropBits;
 

@@ -48,8 +48,10 @@
 // part[tile] (fwd_staged_s8.cuh's sums_cm); partial_sum adds the tiles in
 // order, so y and its sums are the same bit for bit every run.
 //
-// The mainloop walks a range of taps (TapWalk): the nine of the 3x3 conv
-// here and in dgrad_wgmma_bf16.cuh; in the lane transition's
+// The kernel's launchers live in fused_block_bf16.cu, its one caller, so
+// that the files that include this header for the mainloop do not build
+// the kernel. The mainloop walks a range of taps (TapWalk): the nine of
+// the 3x3 conv here and in dgrad_wgmma_bf16.cuh; in the lane transition's
 // straight-through dgrad (transition.cu) one parity class's taps of the
 // plane-major weights at BN = 80, and its projection's one unshifted tap.
 //
@@ -489,31 +491,6 @@ __global__ void __launch_bounds__(THREADS, 2)
                                p.part + (size_t)blockIdx.y * 2 * p.cout,
                                p.cout, n0);
   }
-}
-
-template <int BN>
-inline cudaError_t launch_tile(const Args& p, int tiles,
-                               cudaStream_t stream) {
-  constexpr int smem = Tile<BN>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_fwd_gemm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.cout + BN - 1) / BN, tiles);
-  fused_fwd_gemm_kernel<BN><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The GEMM on `tiles` 128-row M tiles with a bn-wide N tile (160, 128 or
-// 64). cin % 8 == 0, cout % 8 == 0, n % 8 == 0.
-inline cudaError_t launch(const Args& p, int tiles, int bn,
-                          cudaStream_t stream) {
-  if (p.cin % 8 || p.cout % 8 || p.n % 8 || tiles < 1 || tiles > 65535)
-    return cudaErrorInvalidValue;
-  if (bn == 160) return launch_tile<160>(p, tiles, stream);
-  if (bn == 128) return launch_tile<128>(p, tiles, stream);
-  if (bn == 64) return launch_tile<64>(p, tiles, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace fwd_wgmma_bf16

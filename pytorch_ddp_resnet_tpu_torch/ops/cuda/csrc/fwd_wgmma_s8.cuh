@@ -69,11 +69,16 @@
 //   runs): y is bit-equal to the plain version and its sums the same bit
 //   for bit every run.
 //
-// The mainloop (mainloop<BN, REM>, with tap_rows and encode_maps on the
-// host) is shared with the int8 serving conv, requant_wgmma_s8.cuh, which
-// runs it on the same slab layout with a requantizing epilogue, and with
-// the lane transition's FQT dgrad (transition.cu), which walks one parity
-// class's range of taps at a time at BN = 80 (two accumulators a thread).
+// The kernel with that epilogue (fwd_s8_kernel) and its launchers live in
+// fused_block.cu, their one caller, so that the files that include this
+// header for its mainloop do not build them. The mainloop (mainloop<BN,
+// REM>, with tap_rows and encode_maps on the host) is shared with the int8
+// serving conv, requant_wgmma_s8.cuh, which runs it on the same slab
+// layout with a requantizing epilogue; with the lane transition's FQT
+// dgrad (transition.cu), which walks one parity class's range of taps at a
+// time at BN = 80 (two accumulators a thread); and with the NV halves' FQT
+// dgrad (nv_dgrad_wgmma_s8.cuh), which walks the 3x3's taps mirrored, or
+// the 1x1's one tap, over all the row chunks' slabs of one map.
 //
 // Left for later: persistent blocks, clusters and TMA multicast of the A
 // boxes across the N tiles of one M tile, the pad rows (6.3% at 32x32).
@@ -145,17 +150,6 @@ struct Tile {
                 "the epilogue fits the ring");
 };
 
-struct Args {
-  const float* amax;          // [groups] the forward groups' absmax
-  const float* ws;            // [cout] per-output-channel weight scales
-  const __nv_bfloat16* res;   // [cout][n] or null
-  __nv_bfloat16* y;           // [cout][n]
-  float* part;                // [tiles][2 * cout] or null (no stats)
-  int cin, cout, n, b, h, wi;
-  int lanes;                  // lanes a scale group
-  int shift[9];               // slab row of tap t for M row 0
-};
-
 // The maps of one launch, a pair for each K-step width (128, 64, 32
 // bytes: index 0, 1, 2).
 struct Maps {
@@ -170,65 +164,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int sel) {
   const uint64_t sbo = (uint64_t)(64 >> sel);  // 8 * w / 16
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (sbo << 32) |
          ((uint64_t)(sel + 1) << 62);
-}
-
-// The residual's whole 16-byte vectors of the tile's run, copied by
-// cp.async into res_s, a tile [BN][CM_OS] shaped as the staged one, while
-// the accumulators are staged: no registers held, every copy in flight at
-// once (read one vector after another, each a trip to device memory, they
-// took a quarter of the GEMM's time at C = 160).
-template <int BN>
-__device__ __forceinline__ void load_res(uint32_t res_s, int lead, int count,
-                                         int cols, const __nv_bfloat16* res,
-                                         size_t ld) {
-  const int end = lead + count;
-  const int vpc = (end + 7) / 8;  // vectors a column
-  for (int idx = threadIdx.x; idx < BN * vpc; idx += THREADS) {
-    const int n = idx / vpc, j0 = (idx - n * vpc) * 8;
-    if (n < cols && j0 >= lead && j0 + 8 <= end)
-      cp_async16(res_s + (n * CM_OS + j0) * 2, res + n * ld + j0, true);
-  }
-  cp_async_commit();
-}
-
-// fwd_wgmma_bf16.cuh's write_res_cm with the residual's whole vectors
-// from res_s (load_res; the caller waited for them and synced): column n
-// (< cols) of the staged tile, its run [lead, lead + count), to dst + n *
-// ld as bf16(f32(res) + f32(y)), written back to the staged tile for the
-// sums; the run's ragged ends element by element from res.
-template <int BN>
-__device__ __forceinline__ void write_res_staged(
-    __nv_bfloat16* out, const __nv_bfloat16* res_s, int lead, int count,
-    int cols, __nv_bfloat16* dst, const __nv_bfloat16* res, size_t ld) {
-  const int end = lead + count;
-  const int vpc = (end + 7) / 8;
-  for (int idx = threadIdx.x; idx < BN * vpc; idx += THREADS) {
-    const int n = idx / vpc, j0 = (idx - n * vpc) * 8;
-    if (n >= cols) continue;
-    __nv_bfloat16* src = out + n * CM_OS + j0;
-    __nv_bfloat16* d = dst + n * ld + j0;
-    if (j0 >= lead && j0 + 8 <= end) {
-      uint4 v = *reinterpret_cast<const uint4*>(src);
-      const uint4 r =
-          *reinterpret_cast<const uint4*>(res_s + n * CM_OS + j0);
-      __nv_bfloat16* ve = reinterpret_cast<__nv_bfloat16*>(&v);
-      const __nv_bfloat16* re = reinterpret_cast<const __nv_bfloat16*>(&r);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        ve[e] = __float2bfloat16_rn(
-            __fadd_rn(__bfloat162float(re[e]), __bfloat162float(ve[e])));
-      *reinterpret_cast<uint4*>(src) = v;
-      *reinterpret_cast<uint4*>(d) = v;
-    } else {
-      for (int e = 0; e < 8; ++e) {
-        if (j0 + e < lead || j0 + e >= end) continue;
-        const __nv_bfloat16 o = __float2bfloat16_rn(__fadd_rn(
-            __bfloat162float(res[n * ld + j0 + e]), __bfloat162float(src[e])));
-        src[e] = o;
-        d[e] = o;
-      }
-    }
-  }
 }
 
 // The K steps of a tile: tap after tap, each tap's Cin bytes in n128
@@ -369,127 +304,7 @@ __device__ __forceinline__ void ring_inval(uint32_t ring) {
                    : "memory");
 }
 
-// Grid (ceil(cout / BN), tiles): block (x, y) computes output channels [x *
-// BN, x * BN + BN) of M tile y (the N tiles of one M tile neighbours, so
-// they read its A boxes through L2) and writes its sums to part[y]. REM =
-// Cin % 128 names the tap's last boxes; RES, whether p.res is added.
-template <int BN, int REM, bool RES>
-__global__ void __launch_bounds__(THREADS, 2)
-    fwd_s8_kernel(const __grid_constant__ Maps mp,
-                  const __grid_constant__ Args p) {
-  using T = Tile<BN>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
-  unsigned char* ring_p = smem_raw + pad;
-  const uint32_t ring = raw + pad;
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  int acc[T::NACC];
-  mainloop<BN, REM>(mp, p.cin, p.shift, ring, m0, n0, acc);
-
-  // this tile's run of lanes [lane0, lane0 + count) (its residual's
-  // vectors start on their way to res_s), each row's place in it or -1 (a
-  // pad row or column, or the tail), and each live row's scale amax_g *
-  // (1/127), g the scale group of its lane
-  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(ring_p);
-  int* at = reinterpret_cast<int*>(ring_p + T::AT_OFF);
-  float* rowscale = reinterpret_cast<float*>(ring_p + T::AT_OFF + BM * 4);
-  const int lane0 = live_before(m0, p.b, p.h, p.wi, p.n);
-  const int count = live_before(m0 + BM, p.b, p.h, p.wi, p.n) - lane0;
-  const int lead = lane0 % 8;
-  const int cols = min(BN, p.cout - n0);
-  const size_t off = (size_t)n0 * p.n + lane0 - lead;
-  if constexpr (RES)
-    load_res<BN>(ring + T::RES_OFF, lead, count, cols, p.res + off, p.n);
-  if (tid < BM) {
-    const int m = m0 + tid, k = live_before(m, p.b, p.h, p.wi, p.n);
-    const bool live = live_before(m + 1, p.b, p.h, p.wi, p.n) > k;
-    at[tid] = live ? k - lane0 : -1;
-    rowscale[tid] =
-        live ? __fmul_rn(p.amax[k / p.lanes], common::kInv127) : 0.f;
-  }
-  __syncthreads();
-
-  // y = bf16(f32(acc) * (ws[co] * rowscale)), staged channel-major:
-  // out[n][lead + at[row]]; acc[4 j + 2 h + e] is row 16 w + l / 4 + 8 h of
-  // the warpgroup's 64, column 8 j + 2 (l % 4) + e
-  const int warp = tid / 32, lane = tid % 32;
-  const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
-  const int at0 = at[row], at1 = at[row + 8];
-  const float rs0 = rowscale[row], rs1 = rowscale[row + 8];
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = 8 * j + 2 * (lane % 4);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = n0 + col + e;
-      const float wsc = co < p.cout ? p.ws[co] : 0.f;
-      if (at0 >= 0)
-        out[(col + e) * CM_OS + lead + at0] = __float2bfloat16_rn(
-            __fmul_rn(__int2float_rn(acc[4 * j + e]), __fmul_rn(wsc, rs0)));
-      if (at1 >= 0)
-        out[(col + e) * CM_OS + lead + at1] =
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 + e]),
-                                          __fmul_rn(wsc, rs1)));
-    }
-  }
-  if constexpr (RES) cp_async_wait<0>();  // this thread's res copies
-  __syncthreads();
-
-  if constexpr (RES)
-    write_res_staged<BN>(
-        out,
-        reinterpret_cast<const __nv_bfloat16*>(ring_p + T::RES_OFF), lead,
-        count, cols, p.y + off, p.res + off, p.n);
-  else
-    fwd_wgmma_bf16::write_res_cm<BN>(out, lead, count, cols, p.y + off,
-                                     nullptr, p.n);
-  if (p.part != nullptr) {
-    __syncthreads();  // the residual's sums read what the writes staged
-    fwd_staged_s8::sums_cm<BN>(out, lead, count, cols,
-                               p.part + (size_t)blockIdx.y * 2 * p.cout,
-                               p.cout, n0);
-  }
-}
-
-template <int BN, int REM, bool RES>
-inline cudaError_t launch_kernel(const Maps& mp, const Args& p, int tiles,
-                                 cudaStream_t stream) {
-  constexpr int smem = Tile<BN>::SMEM;
-  static bool smem_set = false;  // once per instantiation
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fwd_s8_kernel<BN, REM, RES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const dim3 grid((p.cout + BN - 1) / BN, tiles);
-  fwd_s8_kernel<BN, REM, RES><<<grid, THREADS, smem, stream>>>(mp, p);
-  return cudaGetLastError();
-}
-
-template <int BN, int REM>
-inline cudaError_t launch_rem(const Maps& mp, const Args& p, int tiles,
-                              cudaStream_t stream) {
-  return p.res != nullptr
-             ? launch_kernel<BN, REM, true>(mp, p, tiles, stream)
-             : launch_kernel<BN, REM, false>(mp, p, tiles, stream);
-}
-
-template <int BN>
-inline cudaError_t launch_tile(const Maps& mp, const Args& p, int tiles,
-                               cudaStream_t stream) {
-  switch (p.cin % BK) {
-    case 0: return launch_rem<BN, 0>(mp, p, tiles, stream);
-    case 32: return launch_rem<BN, 32>(mp, p, tiles, stream);
-    case 64: return launch_rem<BN, 64>(mp, p, tiles, stream);
-    default: return launch_rem<BN, 96>(mp, p, tiles, stream);
-  }
-}
-
-// --- the host side: tensor maps, and one call that encodes and launches ----
+// --- the host side: tensor maps --------------------------------------------
 
 // The map of t [rows][cols] int8 (row-major, cols % 16 == 0) in boxes of
 // box_rows rows x w bytes in the w-byte swizzle (w = 128, 64 or 32).
@@ -521,43 +336,22 @@ inline void tap_rows(int (&shift)[9], int wi) {
 }
 
 // The maps of one launch over the slab [slab_len][cin] and the weights
-// [cout][9 * cin] in boxes of BM and bn rows: only the widths the K steps
-// take (a box wider than the channels is never encoded); the others stay
-// zero and are never read. False where the encoder is missing or refuses.
+// [cout][taps * cin] in boxes of BM and bn rows: only the widths the K
+// steps take (a box wider than the channels is never encoded); the others
+// stay zero and are never read. False where the encoder is missing or
+// refuses.
 inline bool encode_maps(Maps* mp, const void* slab, long slab_len,
-                        const void* w, int cin, int cout, int bn) {
+                        const void* w, int cin, int cout, int bn,
+                        int taps) {
   *mp = Maps{};
   for (int sel = 0; sel < 3; ++sel) {
     const int wd = BK >> sel;
     const bool used = sel == 0 ? cin >= BK : ((cin % BK) & wd) != 0;
     if (used && (!encode(&mp->a[sel], slab, slab_len, cin, BM, wd) ||
-                 !encode(&mp->b[sel], w, cout, 9 * cin, bn, wd)))
+                 !encode(&mp->b[sel], w, cout, taps * cin, bn, wd)))
       return false;
   }
   return true;
-}
-
-// y [cout][n] bf16 (+ res), part [tiles][2 * cout] f32 or null, from the
-// slab [slab_len][cin] int8 of fused_fwd_layout (guard, h x wi images) and
-// w [cout][9 * cin] int8 (packed), amax [n / lanes], ws [cout] f32, on
-// `tiles` 128-row M tiles and bn-wide N tiles (160, 128 or 64). cin % 32
-// == 0, cout % 8 == 0, n % 8 == 0.
-inline cudaError_t launch(const void* slab, const void* w, const Args& args,
-                          long slab_len, int guard, int tiles, int bn,
-                          cudaStream_t stream) {
-  Args p = args;
-  if (p.cin % 32 || p.cout % 8 || p.n % 8 || p.lanes < 1 || tiles < 1 ||
-      tiles > 65535 || guard != p.wi + 2 ||
-      slab_len < 2L * guard + (long)tiles * BM)
-    return cudaErrorInvalidValue;
-  tap_rows(p.shift, p.wi);
-  Maps mp;
-  if (!encode_maps(&mp, slab, slab_len, w, p.cin, p.cout, bn))
-    return cudaErrorInvalidValue;
-  if (bn == 160) return launch_tile<160>(mp, p, tiles, stream);
-  if (bn == 128) return launch_tile<128>(mp, p, tiles, stream);
-  if (bn == 64) return launch_tile<64>(mp, p, tiles, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace fwd_wgmma_s8

@@ -1230,7 +1230,8 @@ int dgrad_gemm_launch(const void* gslab, const void* dslab, const void* w_dg,
   fwd_wgmma_s8::Maps mp{};
   if (!quant) return static_cast<int>(
       launch_kernel<false, 0>(mp, gp, pp, a, tiles, st));
-  if (!fwd_wgmma_s8::encode_maps(&mp, gslab, slab_len, w_dg, cp, cin, BN))
+  if (!fwd_wgmma_s8::encode_maps(&mp, gslab, slab_len, w_dg, cp, cin, BN,
+                                   9))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (cp % 128) {
     case 0: return static_cast<int>(launch_kernel<true, 0>(mp, gp, pp, a,

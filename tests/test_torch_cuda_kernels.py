@@ -34,7 +34,9 @@ cores' accumulators) within 1e-4; the staged bf16 wgrad's dW (its splits
 and chunks added in a fixed order) bit-equal from call to call. The staged
 int8 wgrad: its prepass's slabs equal to the plain version's byte for byte,
 dW (exact s32 per chunk) equal to ``wgrad_plain`` and bit-equal from call
-to call. The fused
+to call. The int8 dgrad likewise: its prepass's slab byte for byte, dx
+and dres equal to ``dgrad_conv_plain``'s and bit-equal from call to call,
+d(s) and d(t) within 1e-5. The fused
 bf16 half: bf16
 outputs (y, dx) within 2 bf16 ulps of the tensor's largest value (f32
 against float64 accumulation), dres equal, the BatchNorm sums within 1e-5
@@ -1419,7 +1421,8 @@ def test_nv_half_op_launches_its_kernels(dev):
     torch.cuda.synchronize()
     assert dict(nvt.launches) == {name: 1 for name in (
         "nv_half_fwd.amax", "nv_half_fwd.pre", "nv_half_fwd",
-        "nv_half_fwd.sum", "nv_half_bwd.amax", "nv_half_dgrad", "nv_half_dgrad.sum",
+        "nv_half_fwd.sum", "nv_half_bwd.amax", "nv_half_dgrad.pre",
+        "nv_half_dgrad", "nv_half_dgrad.sum",
         "nv_half_wgrad.pre", "nv_half_wgrad", "nv_half_wgrad.sum")}
     want = run("cpu")
     for i, (a, b) in enumerate(zip(got, want)):
@@ -1565,9 +1568,9 @@ def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
     fwd = ({"nv_half_fwd.amax", "nv_half_fwd.pre", "nv_half_fwd",
             "nv_half_fwd.sum"} if quant
            else {"nv_half_fwd_bf16", "nv_half_fwd_bf16.sum"})
-    bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad",
-            "nv_half_dgrad.sum", "nv_half_wgrad.pre", "nv_half_wgrad",
-            "nv_half_wgrad.sum"}
+    bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad.pre",
+            "nv_half_dgrad", "nv_half_dgrad.sum", "nv_half_wgrad.pre",
+            "nv_half_wgrad", "nv_half_wgrad.sum"}
            if quant_bwd else {"nv_half_dgrad_bf16", "nv_half_dgrad_bf16.sum",
                               "nv_half_wgrad_bf16.pre", "nv_half_wgrad_bf16",
                               "nv_half_wgrad_bf16.sum"})
@@ -1791,6 +1794,120 @@ def test_nv_fwd_int8_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
     assert dict(nvt.launches) == {"nv_half_fwd.pre": 2, "nv_half_fwd": 2,
                                   "nv_half_fwd.sum": 2}
     assert torch.equal(first[0], nvt.fwd_conv_plain(*args, wq, ws, **kw)[0])
+
+
+# the int8 input gradient at NVT_SHAPES (dgrad row chunks) and its edges:
+# stage 1 at n = 32 (56 x 56: Cin 256 <- Cout 64 1x1 halves on 128-wide N
+# tiles and 64-byte K boxes, the 3x3 at 64 channels with 2-row chunks, Cin
+# 64 <- Cout 256), w = 7 with one chunk, Cin = 1024 <- Cout = 256 at 14 x
+# 14 (eight N tiles)
+NVT_DGRAD_CASES = [(conv, mode, n, h, w, cin, cout, rch[1])
+                   for n, h, w, cin, cout, rch in NVT_SHAPES
+                   for conv, mode in NVT_HALVES] + [
+    ("1x1", "identity", 32, 56, 56, 256, 64, 2),
+    ("1x1", "entry", 32, 56, 56, 256, 64, 1),
+    ("3x3", "affine", 32, 56, 56, 64, 64, 2),
+    ("1x1", "affine", 32, 56, 56, 64, 256, 2),
+    ("3x3", "identity", 32, 7, 7, 64, 64, 7),
+    ("1x1", "entry", 32, 7, 7, 64, 64, 7),
+    ("1x1", "affine", 64, 14, 14, 256, 1024, 2)]
+
+
+def _nvt_dgrad_args(dev, conv, mode, n, h, w, cin, cout, seed):
+    """The int8 input gradient's arguments (dy, y, dzsum, dzssq, rowmax_g,
+    wq_dg, ws_in, x, s, t, res, dxout), y drawn, the row maxima by the
+    plain version (so the only launches are the dgrad's)."""
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed)
+    y = torch.randn(ops["dy"].shape, device=dev).to(torch.bfloat16)
+    wq_dg, ws_in = (nvt.quantize_w_3x3_dgrad if conv == "3x3"
+                    else nvt.quantize_w_1x1_dgrad)(ops["w"])
+    rowmax_g = nvt.bwd_rowmax_plain(ops["dy"], y, ops["dzsum"],
+                                    ops["dzssq"])
+    return (ops["dy"], y, ops["dzsum"], ops["dzssq"], rowmax_g, wq_dg, ws_in,
+            ops["x"], ops["s"], ops["t"], ops["res"], ops["dxout"])
+
+
+def _nvt_dgrad_same(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+        else:
+            _same(a, b, sums=i in (1, 2))   # d(s), d(t)
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", NVT_DGRAD_CASES)
+def test_nv_dgrad_int8_wgmma_matches_plain(dev, conv, mode, n, h, w, cin,
+                                           cout, rch):
+    """The prepass's slabs equal the plain version's byte for byte; dx and
+    dres equal ``dgrad_conv_plain``'s, d(s) and d(t) within 1e-5; two calls
+    bit-equal: one launch each of the prepass, the wgmma GEMM and (but in
+    identity mode) the tiles' sum."""
+    args = _nvt_dgrad_args(dev, conv, mode, n, h, w, cin, cout, cin + h)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    nvt.reset_launches()
+    got = nvt.dgrad_conv(*args, **kw)
+    torch.cuda.synchronize()
+    want_launches = {"nv_half_dgrad.pre": 1, "nv_half_dgrad": 1}
+    if mode != "identity":
+        want_launches["nv_half_dgrad.sum"] = 1
+    assert dict(nvt.launches) == want_launches
+    want = nvt.dgrad_conv_plain(*args, **kw)
+    assert want[0].unique().numel() > 100
+    _nvt_dgrad_same(got, want)
+    again = nvt.dgrad_conv(*args, **kw)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    pre = dict(conv=conv, rch=rch)
+    assert torch.equal(nvt.dgrad_pre(*args[:5], **pre),
+                       nvt.dgrad_pre_plain(*args[:5], **pre))
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", [
+    ("3x3", "affine", 128, 28, 28, 128, 128, 4),
+    ("1x1", "entry", 128, 56, 56, 256, 64, 1)])
+def test_nv_dgrad_int8_is_deterministic(dev, conv, mode, n, h, w, cin, cout,
+                                        rch):
+    """At ResNet-50's stage shapes (batch 128, many chunks and tiles) the
+    int8 input gradient's dx is exact s32 products dequantized, and its
+    sums are added in a fixed order with no atomics: two calls on the same
+    inputs give the same outputs bit for bit, dx and dres equal to the
+    plain version's."""
+    args = _nvt_dgrad_args(dev, conv, mode, n, h, w, cin, cout, 7)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    first = nvt.dgrad_conv(*args, **kw)
+    second = nvt.dgrad_conv(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+    _nvt_dgrad_same(first, nvt.dgrad_conv_plain(*args, **kw))
+
+
+def test_nv_dgrad_int8_never_falls_back(dev):
+    """The int8 input gradient names what its kernels do not take, before
+    any launch."""
+    args = list(_nvt_dgrad_args(dev, "1x1", "affine", 32, 4, 4, 64, 32, 3))
+    kw = dict(conv="1x1", mode="affine", rch=2)
+    nvt.reset_launches()
+    with pytest.raises(ValueError, match="does not divide"):
+        nvt.dgrad_conv(*args, conv="1x1", mode="affine", rch=3)
+    bad = list(args)
+    bad[4] = args[4][:2].contiguous()
+    with pytest.raises(ValueError, match="row maxima"):
+        nvt.dgrad_conv(*bad, **kw)
+    bad = list(args)
+    bad[5] = args[5][:, :16].contiguous()
+    with pytest.raises(ValueError, match="weights"):
+        nvt.dgrad_conv(*bad, **kw)
+    bad = list(args)
+    bad[7] = args[7].float()
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        nvt.dgrad_conv(*bad, **kw)
+    lay = nvt.fwd_int8_layout(32, 4, 4, 32, 1, 2)
+    with pytest.raises(ValueError, match="not of the layout"):
+        nvt.dgrad_gemm(torch.zeros((lay.chunks, 64, lay.cp),
+                                   dtype=torch.int8, device=dev), args[4],
+                       *args[5:], lay, mode="affine")
+    assert not nvt.launches
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):

@@ -132,9 +132,9 @@ def main() -> int:
                     nvt.fwd_tile = chosen
                 row["amax_bound_ms"] = (act + (2 * p * ci if entry else 0)
                                         ) / BW * 1e3
-                row["pre_bound_ms"] = (act + slab.numel()) / BW * 1e3
+                row["pre_bound_ms"] = (act + lay.codes) / BW * 1e3
                 row["gemm_bound_ms"] = max(
-                    (slab.numel() + taps * ci * co + 2 * p * co) / BW,
+                    (lay.codes + taps * ci * co + 2 * p * co) / BW,
                     2 * p * taps * ci * co / INT8) * 1e3
                 row["layout"] = dict(cp=lay.cp, bk=lay.bk, tiles=lay.tiles,
                                      chunks=lay.chunks,
