@@ -306,25 +306,34 @@ Phases, each fatal on failure:
    BatchNorm sums also within 1e-5 of the sums of the kernel's own y).
    Each is timed beside its plain version, cuDNN's bf16 forward, input
    gradient and weight gradient (channels-last) and phase 10's int8 kernel
-   at the same shape. The weight gradient (csrc/wgrad_staged.cuh's
-   cp.async ring after the prepass that rounds its operands once) must
-   give the same dW bit for bit in two calls, its prepass must equal its
-   plain version, and the prepass and the mainloop + ordered sum are timed
+   at the same shape. The input gradient (the prepass rounding the folded
+   cotangent once into a bf16 slab, csrc/nv_dgrad_wgmma_bf16.cuh's wgmma
+   GEMM at the mirrored taps, the tiles' sum) must give the same bits in
+   two calls and its slab must equal its plain version bit for bit; the
+   prepass, the GEMM and the sum are timed apart beside their bounds (the
+   slab counted as its values, not its pads), and the prepass is a kernel
+   row of its own. The weight gradient (csrc/wgrad_staged.cuh's cp.async
+   ring after the prepass that rounds its operands once) must give the
+   same dW bit for bit in two calls, its prepass must equal its plain
+   version, and the prepass and the mainloop + ordered sum are timed
    apart; the prepass is also a kernel row of its own.
 21. Training, the tenth main path: the ResNet-50 recipe of phase 11 with
    ``use_int8_train`` alone (QAT), through ``setup(config)``. With the
    launch counts zeroed just before, each step must launch the 30 halves'
-   int8 forward (with its row absmax, prepass and sums) and their bf16 dgrad and
-   wgrad (with the wgrad's prepass and both sums; NV_QAT_PER_STEP): no
-   cotangent absmax, no int8
-   dgrad or wgrad, no other port kernel. The first half of each kind in
-   the first step, on its live inputs and cotangents, must reproduce its
-   outputs and agree with its plain versions (phase 20's tolerances for
-   the bf16 backward). Losses finite, every parameter changed, every
-   BatchNorm count equal to the steps. Prints the step time, img/s, peak
-   memory and the profile, and the halves' per-step time from phases 10
-   and 20 beside the profiled one, next to phase 11's FQT and bf16 runs
-   (not rerun).
+   int8 forward (with its row absmax, prepass and sums) and their bf16
+   dgrad (its prepass, GEMM and, but for the 3 identity halves, its sum)
+   and wgrad (with the wgrad's prepass and both sums; NV_QAT_PER_STEP): no
+   cotangent absmax, no int8 dgrad or wgrad, no other port kernel. The
+   first half of each kind in the first step, on its live inputs and
+   cotangents, must reproduce its outputs and agree with its plain
+   versions (phase 20's tolerances for the bf16 backward), the dgrad's
+   slab of the live cotangent must equal its plain version bit for bit and
+   two dgrad calls must give the same bits. Losses finite, every parameter
+   changed, every BatchNorm count equal to the steps. Prints the step
+   time, img/s, peak memory and the profile by kind of kernel, the
+   halves' per-step time from phases 10 and 20 beside the profiled one,
+   and the bf16 dgrad's per-step parts, next to phase 11's FQT and bf16
+   runs (not rerun).
 22. Print one JSON line of per-kernel numbers, then the result line.
 """
 
@@ -369,6 +378,8 @@ SOURCES = {"nv_half_fwd":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/fwd_staged_s8.cuh",
            "nv_half_dgrad":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/nv_dgrad_wgmma_s8.cuh",
+           "nv_half_dgrad_bf16":
+           "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/nv_dgrad_wgmma_bf16.cuh",
            "nv_half_wgrad_bf16":
            "pytorch_ddp_resnet_tpu_torch/ops/cuda/csrc/wgrad_staged.cuh",
            "nv_half_wgrad":
@@ -422,6 +433,7 @@ REPLACES = {"conv3x3_bf16": _PALLAS + "conv.py:185",
             "nv_half_wgrad.pre": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_fwd_bf16": _PALLAS + "bneck_nv_train.py:797",
             "nv_half_dgrad_bf16": _PALLAS + "bneck_nv_train.py:866",
+            "nv_half_dgrad_bf16.pre": _PALLAS + "bneck_nv_train.py:866",
             "nv_half_wgrad_bf16": _PALLAS + "bneck_nv_train.py:928",
             "nv_half_wgrad_bf16.pre": _PALLAS + "bneck_nv_train.py:928",
             "fused_half_bf16_fwd": _PALLAS + "fused_block.py:380",
@@ -539,12 +551,14 @@ NVT_BF16_NAMES = ("nv_half_fwd_bf16", "nv_half_dgrad_bf16",
                   "nv_half_wgrad_bf16")
 # launches of one ResNet-50 QAT train step at batch 128: the same 30 halves
 # on the int8 forward (with its row absmax and its prepass) and the bf16
-# dgrad and wgrad, which need no absmax of the cotangent; the wgrad's
-# prepass rounds its operands once
+# dgrad and wgrad, which need no absmax of the cotangent; the dgrad's
+# prepass rounds the folded cotangent once into its slab, the wgrad's its
+# operands; identity-mode dgrads have no sum
 NV_QAT_PER_STEP = {
     "nv_half_fwd.amax": 30, "nv_half_fwd.pre": 30, "nv_half_fwd": 30,
     "nv_half_fwd.sum": 30,
-    "nv_half_dgrad_bf16": 30, "nv_half_dgrad_bf16.sum": 27,
+    "nv_half_dgrad_bf16.pre": 30, "nv_half_dgrad_bf16": 30,
+    "nv_half_dgrad_bf16.sum": 27,
     "nv_half_wgrad_bf16.pre": 30, "nv_half_wgrad_bf16": 30,
     "nv_half_wgrad_bf16.sum": 30}
 # launches of one WRN-28-10 FQT train step: 22 fused halves, 10 of them
@@ -3819,11 +3833,14 @@ def nv_train_bf16_kernel_phase(peaks, nvt_rows):
                     library_ms=lib[name], int8_ms=int8["ms"],
                     ops_ms=2 * p * taps * ci * co / flops_bf16 * 1e3,
                     bytes_ms=byts[name] / bw * 1e3))
-            rows[-1].update(_wgrad_parts(nvt, o, y, conv, mode, rch[2]))
-            rows.append(_wgrad_pre_row(nvt, o, y, mode, flops_f32, bw,
-                                       dict(n=n, h=h, w=w, cin=ci, cout=co,
-                                            conv=conv, mode=mode,
-                                            rch=list(rch))))
+            geo = dict(n=n, h=h, w=w, cin=ci, cout=co, conv=conv, mode=mode,
+                       rch=list(rch))
+            _, dgrad_row, wgrad_row = rows[-3:]
+            dgrad_row.update(_dgrad_bf16_parts(nvt, o, y, conv, mode, rch[1],
+                                               bw, flops_bf16))
+            wgrad_row.update(_wgrad_parts(nvt, o, y, conv, mode, rch[2]))
+            rows.append(_wgrad_pre_row(nvt, o, y, mode, flops_f32, bw, geo))
+            rows.append(_dgrad_bf16_pre_row(nvt, o, y, flops_f32, bw, geo))
             del o, y, kern, plain
             torch.cuda.empty_cache()
     for r in rows:
@@ -3831,6 +3848,101 @@ def nv_train_bf16_kernel_phase(peaks, nvt_rows):
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes")
     return rows
+
+
+def _dgrad_bf16_args(nvt, o, y):
+    """The bf16 input gradient's arguments (dy, y, dzsum, dzssq, wb_dg, x,
+    s, t, res, dxout) on the kernel's forward y."""
+    return (o["dy"], y, o["dzsum"], o["dzssq"],
+            nvt.pack_w_bf16_dgrad(o["w"]), o["x"], o["s"], o["t"], o["res"],
+            o["dxout"])
+
+
+def _dgrad_bf16_parts(nvt, o, y, conv, mode, rch, bw, flops_bf16):
+    """The bf16 input gradient's second call equal to its first bit for
+    bit, its slab equal to its plain version's bit for bit, and its parts
+    timed apart beside their plain versions and bounds: the prepass (dy
+    and y in, the slab's values out: ``FwdInt8Layout.codes`` bf16
+    elements, not its pads), the GEMM with its tiles' sum (the slab's
+    values, the weights, x (and res, dx_res) in, dx (and dres) out, or its
+    bf16 operations) and the tiles' sum alone (the tiles' partial sums in,
+    d(s) and d(t) out; none in identity mode)."""
+    import torch
+
+    from pytorch_ddp_resnet_tpu_torch.ops.cuda.checks import check_rc
+
+    args = _dgrad_bf16_args(nvt, o, y)
+    cts, rest = args[:4], args[4:]
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    first = nvt.dgrad_conv_bf16(*args, **kw)
+    second = nvt.dgrad_conv_bf16(*args, **kw)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            "nv_half_dgrad_bf16", conv, mode)
+    slab = nvt.dgrad_bf16_pre(*cts, conv=conv)
+    assert torch.equal(slab, nvt.dgrad_bf16_pre_plain(*cts, conv=conv)), (
+        "nv_half_dgrad_bf16.pre", conv, mode)
+    x = o["x"]
+    n, h, w, ci = x.shape
+    co, taps = cts[0].shape[-1], 9 if conv == "3x3" else 1
+    lay = nvt.dgrad_bf16_layout(n, h, w, co, taps)
+    p, entry, affine = n * h * w, mode == "entry", mode != "identity"
+    cot, vals = 4 * p * co, 2 * lay.codes
+    act = 2 * p * ci * ((1 if affine else 0) + (2 if entry else 0))
+    out = 2 * p * ci * (2 if entry else 1)
+    sum_ms = sum_bound_ms = 0.0
+    if affine:
+        part = torch.zeros((lay.tiles, 2 * ci), device=x.device)
+        sums = torch.empty(2 * ci, device=x.device)
+        lib = nvt._library()
+
+        def tile_sum():
+            check_rc("nv_half_dgrad_bf16.sum", lib.nvt_dgrad_bf16_sum_launch(
+                part.data_ptr(), sums.data_ptr(), lay.tiles, 2 * ci,
+                torch.cuda.current_stream().cuda_stream))
+
+        sum_ms = time_ms(tile_sum, 10)
+        sum_bound_ms = (part.numel() + sums.numel()) * 4 / bw * 1e3
+    return dict(
+        deterministic=True,
+        pre_ms=time_ms(lambda: nvt.dgrad_bf16_pre(*cts, conv=conv), 10),
+        pre_plain_ms=time_ms(lambda: nvt.dgrad_bf16_pre_plain(
+            *cts, conv=conv), 1),
+        pre_bound_ms=(cot + vals) / bw * 1e3,
+        gemm_ms=time_ms(lambda: nvt.dgrad_bf16_gemm(slab, *rest, lay,
+                                                    mode=mode), 10),
+        gemm_plain_ms=time_ms(lambda: nvt.dgrad_bf16_gemm_plain(
+            slab, *rest, lay, mode=mode), 1),
+        gemm_bound_ms=max((vals + 2 * taps * ci * co + act + out) / bw,
+                          2 * p * taps * ci * co / flops_bf16) * 1e3,
+        sum_ms=sum_ms, sum_bound_ms=sum_bound_ms,
+        layout=dict(cp=lay.cp, tiles=lay.tiles, bn=nvt.dgrad_tile(ci),
+                    slab_mb=slab.numel() * 2 / 1e6))
+
+
+def _dgrad_bf16_pre_row(nvt, o, y, flops_f32, bw, geo):
+    """The bf16 input gradient's prepass as a kernel row: its slab equal to
+    its plain version's bit for bit; bound by its bytes (dy and y in, the
+    slab's values out: ``FwdInt8Layout.codes`` bf16 elements, not its pads)
+    or its f32 operations (four an element of g: the fold's add and
+    multiply and its fused multiply-add)."""
+    import torch
+
+    cts = _dgrad_bf16_args(nvt, o, y)[:4]
+    conv = geo["conv"]
+    got = nvt.dgrad_bf16_pre(*cts, conv=conv)
+    assert torch.equal(got, nvt.dgrad_bf16_pre_plain(*cts, conv=conv)), (
+        "nv_half_dgrad_bf16.pre", geo)
+    p, cout = geo["n"] * geo["h"] * geo["w"], geo["cout"]
+    vals = nvt.dgrad_bf16_layout(geo["n"], geo["h"], geo["w"], cout,
+                                 9 if conv == "3x3" else 1).codes
+    return dict(
+        name="nv_half_dgrad_bf16.pre", **geo, max_abs_err=0.0,
+        ms=time_ms(lambda: nvt.dgrad_bf16_pre(*cts, conv=conv), 10),
+        plain_ms=time_ms(lambda: nvt.dgrad_bf16_pre_plain(*cts, conv=conv),
+                         1),
+        library_ms=None, ops_ms=4 * p * cout / flops_f32 * 1e3,
+        bytes_ms=(4 * p * cout + 2 * vals) / bw * 1e3)
 
 
 def _wgrad_cts(o, y):
@@ -3959,6 +4071,18 @@ def live_nv_check(rec, quant_bwd=True):
             pre = dict(conv=conv, rch=rch[1])
             assert torch.equal(nvt.dgrad_pre(*cts, **pre),
                                nvt.dgrad_pre_plain(*cts, **pre)), (conv, mode)
+        else:   # the bf16 dgrad's slab bit for bit, two calls the same bits
+            cts = (ops["dy"], got["y"], ops["dzsum"], ops["dzssq"])
+            assert torch.equal(nvt.dgrad_bf16_pre(*cts, conv=conv),
+                               nvt.dgrad_bf16_pre_plain(*cts, conv=conv)), (
+                                   conv, mode)
+            dargs = cts + (nvt.pack_w_bf16_dgrad(ops["w"]), ops["x"],
+                           ops["s"], ops["t"], ops["res"], ops["dxout"])
+            dkw = dict(conv=conv, mode=mode, rch=rch[1])
+            for a, b in zip(nvt.dgrad_conv_bf16(*dargs, **dkw),
+                            nvt.dgrad_conv_bf16(*dargs, **dkw)):
+                assert (a is None and b is None) or torch.equal(a, b), (
+                    conv, mode)
         out.append(dict(conv=conv, mode=mode, n=n, h=h, w=w, cin=ci,
                         cout=co, rch=list(rch), max_abs_err=err))
     return out
@@ -4870,8 +4994,15 @@ def main() -> int:
     print("resnet-50 FQT vs phase 11's bf16 run (FQT, bf16): "
           + json.dumps(fqt_line))
     nvt_bf16_kernels = nv_train_summary(
-        nvt_bf16_rows, r50_qat, NVT_BF16_NAMES + ("nv_half_wgrad_bf16.pre",),
-        "QAT")
+        nvt_bf16_rows, r50_qat, NVT_BF16_NAMES + (
+            "nv_half_dgrad_bf16.pre", "nv_half_wgrad_bf16.pre"), "QAT")
+    dg = next(k for k in nvt_bf16_kernels if k["name"] == "nv_half_dgrad_bf16")
+    print("resnet-50 QAT: bf16 dgrad per step, phase 20 per-call times "
+          "summed (prepass, GEMM + sum, the sum alone, each beside its "
+          "bound): " + json.dumps({k: dg[k] for k in (
+              "ms", "library_ms", "bound_ms", "pre_ms", "pre_bound_ms",
+              "gemm_ms", "gemm_bound_ms", "sum_ms", "sum_bound_ms",
+              "launches", "split_launches")}))
     wg = next(k for k in nvt_bf16_kernels if k["name"] == "nv_half_wgrad_bf16")
     print("resnet-50 QAT: bf16 wgrad per step, phase 20 per-call times "
           "summed: " + json.dumps({k: wg[k] for k in (

@@ -71,8 +71,13 @@ launches the kernels of ``csrc/bneck_nv_train.cu`` or raises):
                         layout of ``fwd_int8_layout`` at Cin = the half's
                         Cout), then ``dgrad_gemm`` (``nv_half_dgrad``, and
                         ``nv_half_dgrad.sum`` unless the mode is identity)
-- ``dgrad_conv_bf16``  (``nv_half_dgrad_bf16``, ``nv_half_dgrad_bf16.sum``
-                        likewise)
+- ``dgrad_conv_bf16``  ``dgrad_bf16_pre`` (``nv_half_dgrad_bf16.pre``: the
+                        cotangent rounded to bf16 once into a bf16 slab of
+                        ``dgrad_bf16_layout``, the int8 layout at one chunk
+                        of h rows), then ``dgrad_bf16_gemm``
+                        (``nv_half_dgrad_bf16``, and
+                        ``nv_half_dgrad_bf16.sum`` unless the mode is
+                        identity)
 - ``wgrad``            ``wgrad_pre`` (``nv_half_wgrad.pre``: each chunk's
                         operands quantized once into int8 slabs, K
                         contiguous, in the layout of ``wgrad_int8_layout``),
@@ -778,6 +783,19 @@ def fwd_int8_layout(n: int, h: int, w: int, cin: int, taps: int,
                          h // rch, FWD_BM, m_valid, tiles, slab_len, shifts)
 
 
+def _place(q, lay):
+    """Each chunk's rows [K, N, rows, w, C] (rows with the halo, zero
+    outside the image) laid out as the slabs of layout ``lay`` [K,
+    slab_len, cp]: the pad column, pad channels, guards and tile tail
+    zero."""
+    q = F.pad(q, (0, lay.cp - lay.cin, 0, lay.wq - lay.w))
+    if lay.halo:   # images innermost
+        q = q.permute(0, 2, 3, 1, 4)
+    body = q.reshape(lay.chunks, -1, lay.cp)
+    tail = lay.tiles * lay.bm - lay.m_valid
+    return F.pad(body, (0, 0, lay.guard, lay.guard + tail))
+
+
 def _fwd_slab(v, rowmax, lay):
     """v [N, h, w, C] f32 quantized per chunk at its scale (halo rows
     included for the 3x3) into the slabs of layout ``lay``: int8 [h/rch,
@@ -785,12 +803,7 @@ def _fwd_slab(v, rowmax, lay):
     inv, _ = _quant_params(chunk_amax(rowmax, lay.rch, lay.halo))
     q = _q(_slabs(v, lay.rch, lay.halo),
            inv.reshape(-1, 1, 1, 1, 1))            # [K, N, rows, w, C]
-    q = F.pad(q, (0, lay.cp - lay.cin, 0, lay.wq - lay.w))
-    if lay.halo:   # images innermost
-        q = q.permute(0, 2, 3, 1, 4)
-    body = q.reshape(lay.chunks, -1, lay.cp)
-    tail = lay.tiles * lay.bm - lay.m_valid
-    return F.pad(body, (0, 0, lay.guard, lay.guard + tail)).to(torch.int8)
+    return _place(q, lay).to(torch.int8)
 
 
 def fwd_pre_plain(x, s, t, res, rowmax, *, conv, mode, rch):
@@ -875,6 +888,43 @@ def dgrad_gemm_plain(slab, rowmax_g, wq_dg, ws_in, x, s, t, res, dxout, lay,
     return _prologue_bwd(da, x, s, t, res, mode, lay.rch)
 
 
+def dgrad_bf16_layout(n: int, h: int, w: int, cout: int,
+                      taps: int) -> FwdInt8Layout:
+    """Where the bf16 input gradient's prepass writes bf16(g) and where its
+    GEMM reads it: ``fwd_int8_layout`` at Cin = the half's Cout and one
+    chunk of h rows (the bf16 body has no scale groups), its ``cp``
+    channels a position of bf16 elements: the 3x3's images innermost with
+    a zero column after each row and guards of n positions, no halo row
+    twice; the 1x1 plain NHWC and the tile tail."""
+    return fwd_int8_layout(n, h, w, cout, taps, h)
+
+
+def dgrad_bf16_pre_plain(dy, y, dzsum, dzssq, *, conv):
+    """The bf16 input gradient's slab (bf16 [1, slab_len, cp],
+    ``dgrad_bf16_layout``): g = (dy + dzsum) + (2y) * dzssq rounded to
+    bf16 once, as ``dgrad_conv_bf16_plain`` rounds it; zeros at the pad
+    column, pad channels, guards, the rows outside the image and the tile
+    tail."""
+    n, h, w, cout = dy.shape
+    lay = dgrad_bf16_layout(n, h, w, cout, _taps(conv))
+    g = fold_plain(dy, y, dzsum, dzssq).to(torch.bfloat16)
+    return _place(_slabs(g, h, lay.halo), lay).contiguous()
+
+
+def dgrad_bf16_gemm_plain(slab, wb_dg, x, s, t, res, dxout, lay, *, mode):
+    """(dx, ds, dt, dres) as ``dgrad_conv_bf16_plain``'s, from the bf16
+    slab of layout ``lay`` (``dgrad_bf16_layout``): the contraction
+    (float64, each bf16 product exact) of the slab rows at each forward
+    tap's mirrored shift (tap t reads ``shifts[taps - 1 - t]``: g at (r -
+    dy + 1, c - dx + 1)) with wb_dg [Cin, taps*Cout] (forward tap
+    coordinates), rounded to f32, dx_res added in entry mode, then the
+    prologue's backward (the sums in one chunk)."""
+    da = _slab_conv(slab, wb_dg, lay, lay.shifts[::-1]).to(f32)
+    if mode == "entry":
+        da = da + dxout.to(f32)
+    return _prologue_bwd(da, x, s, t, res, mode, lay.rch)
+
+
 # --- kernels -----------------------------------------------------------------
 
 _lib: Optional[ctypes.CDLL] = None
@@ -905,8 +955,10 @@ def _library() -> ctypes.CDLL:
             "nvt_sum_launch": [_P, _P, _I, _I, _P],
             "nvt_fwd_bf16_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6
             + [_P],
-            "nvt_dgrad_bf16_launch": [_P] * 10 + [_I] + [_P] * 3 + [_I] * 6
+            "nvt_dgrad_pre_bf16_launch": [_P] * 5 + [_I] * 9 + [_P],
+            "nvt_dgrad_bf16_launch": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 11
             + [_P],
+            "nvt_dgrad_bf16_sum_launch": [_P, _P, _I, _I, _P],
             "nvt_wgrad_pre_bf16_launch": [_P] * 4 + [_I] + [_P] * 6
             + [_I] * 5 + [_P],
             "nvt_wgrad_staged_bf16_launch": [_P] * 3 + [_I] * 12 + [_P],
@@ -969,6 +1021,15 @@ def _taps(conv: str) -> int:
 def _check_rch(name: str, h: int, rch: int) -> None:
     if rch < 1 or h % rch:
         raise ValueError(f"{name}: row chunk {rch} does not divide h={h}")
+
+
+def _slab_bytes(name, lay, elem, n, h, w):
+    """Raises where one slab of layout ``lay`` would pass 2 GB (the
+    kernels' 32-bit unit counts)."""
+    if lay.slab_len * lay.cp * elem >= 2 ** 31:
+        raise ValueError(f"{name}: a chunk's slab of {lay.slab_len} x "
+                         f"{lay.cp} x {elem} bytes at N={n}, h={h}, w={w}, "
+                         f"rch={lay.rch} exceeds 2 GB")
 
 
 def _sums(name: str, part: torch.Tensor) -> torch.Tensor:
@@ -1042,10 +1103,7 @@ def fwd_pre(x, s, t, res, rowmax, *, conv, mode, rch):
     if rowmax.shape != (h,):
         raise ValueError(f"{name}: row maxima {tuple(rowmax.shape)} vs h={h}")
     lay = fwd_int8_layout(n, h, w, cin, _taps(conv), rch)
-    if lay.slab_len * lay.cp >= 2 ** 31:
-        raise ValueError(f"{name}: a chunk's slab of {lay.slab_len} x "
-                         f"{lay.cp} bytes at N={n}, h={h}, w={w}, "
-                         f"rch={rch} exceeds 2 GB")
+    _slab_bytes(name, lay, 1, n, h, w)
     slab = torch.empty((lay.chunks, lay.slab_len, lay.cp), dtype=torch.int8,
                        device=x.device)
     _launch(name, _library().nvt_fwd_pre_launch, x.data_ptr(), _ptr(res),
@@ -1182,10 +1240,7 @@ def dgrad_pre(dy, y, dzsum, dzssq, rowmax_g, *, conv, rch):
         raise ValueError(f"{name}: row maxima {tuple(rowmax_g.shape)} vs "
                          f"h={h}")
     lay = fwd_int8_layout(n, h, w, cout, _taps(conv), rch)
-    if lay.slab_len * lay.cp >= 2 ** 31:
-        raise ValueError(f"{name}: a chunk's slab of {lay.slab_len} x "
-                         f"{lay.cp} bytes at N={n}, h={h}, w={w}, "
-                         f"rch={rch} exceeds 2 GB")
+    _slab_bytes(name, lay, 1, n, h, w)
     slab = torch.empty((lay.chunks, lay.slab_len, lay.cp), dtype=torch.int8,
                        device=dy.device)
     _launch(name, _library().nvt_dgrad_pre_launch, dy.data_ptr(),
@@ -1196,8 +1251,8 @@ def dgrad_pre(dy, y, dzsum, dzssq, rowmax_g, *, conv, rch):
 
 
 def dgrad_tile(cin: int) -> int:
-    """The int8 input gradient's N tile: 128 where Cin >= 128 (the slab
-    read ceil(Cin/128) times), else 64."""
+    """The input gradients' N tile (int8 and bf16 bodies): 128 where Cin >=
+    128 (the slab read ceil(Cin/128) times), else 64."""
     return 128 if cin >= 128 else 64
 
 
@@ -1295,41 +1350,111 @@ def dgrad_conv(dy, y, dzsum, dzssq, rowmax_g, wq_dg, ws_in, x, s, t, res,
                          lay, mode)
 
 
-def dgrad_conv_bf16(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout, *,
-                    conv, mode, rch):
-    """The bf16 input gradient through the prologue: (dx, ds, dt, dres) as
-    ``dgrad_conv``'s, from wb_dg [Cin, taps*Cout] bf16."""
+def dgrad_bf16_pre(dy, y, dzsum, dzssq, *, conv):
+    """The bf16 input gradient's slab (bf16 [1, slab_len, cp],
+    ``dgrad_bf16_layout``): the cotangent g = (dy + dzsum) + (2y) * dzssq
+    rounded to bf16 once. One launch."""
     if on_cpu(dy):
-        return dgrad_conv_bf16_plain(dy, y, dzsum, dzssq, wb_dg, x, s, t,
-                                     res, dxout, conv=conv, mode=mode,
-                                     rch=rch)
+        return dgrad_bf16_pre_plain(dy, y, dzsum, dzssq, conv=conv)
+    name = "nv_half_dgrad_bf16.pre"
+    n, h, w, cout = dy.shape
+    dzsum, dzssq = _vecs(dzsum, dzssq)
+    _require_cot(name, dy, y, dzsum, dzssq)
+    lay = dgrad_bf16_layout(n, h, w, cout, _taps(conv))
+    _slab_bytes(name, lay, 2, n, h, w)
+    slab = torch.empty((1, lay.slab_len, lay.cp), dtype=torch.bfloat16,
+                       device=dy.device)
+    _launch(name, _library().nvt_dgrad_pre_bf16_launch, dy.data_ptr(),
+            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
+            slab.data_ptr(), n, h, w, cout, lay.halo, lay.cp, lay.wq,
+            lay.guard, lay.slab_len, _stream(dy))
+    return slab
+
+
+def _dgrad_bf16_checked(wb_dg, x, s, t, res, dxout, lay, mode):
+    """The bf16 GEMM's operands but the slab, checked before any launch of
+    the input gradient: (s, t) f32, contiguous and aligned."""
     name = "nv_half_dgrad_bf16"
     n, h, w, cin = x.shape
-    cout, taps = dy.shape[-1], _taps(conv)
-    if tuple(wb_dg.shape) != (cin, taps * cout):
+    if (n, h, w) != (lay.n, lay.h, lay.w):
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs the layout's "
+                         f"({lay.n}, {lay.h}, {lay.w})")
+    if tuple(wb_dg.shape) != (cin, lay.taps * lay.cin):
         raise ValueError(f"{name}: weights {tuple(wb_dg.shape)} vs Cout "
-                         f"{cout}")
-    _check_rch(name, h, rch)
-    dzsum, dzssq, s, t = _vecs(dzsum, dzssq, s, t)
-    _require_cot(name, dy, y, dzsum, dzssq)
+                         f"{lay.cin}")
+    if lay.tiles > 65535:
+        raise ValueError(f"{name}: {lay.tiles} tiles at N={n}, h={h}, "
+                         f"w={w} exceed the grid")
+    _slab_bytes(name, lay, 2, n, h, w)
+    s, t = _vecs(s, t)
     extra, dts = [wb_dg], [torch.bfloat16]
     if mode == "entry":
         extra.append(dxout)
         dts.append(torch.bfloat16)
     _require(name, x, mode, s, t, res, extra, dts)
+    return s, t
+
+
+def _dgrad_bf16_launch(slab, wb_dg, x, s, t, res, dxout, lay, mode):
+    """The bf16 GEMM and its sum on checked operands."""
+    name = "nv_half_dgrad_bf16"
+    n, h, w, cin = x.shape
+    wp = _pack_w_fwd(wb_dg, lay)
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if mode == "entry" else None
-    part = (torch.empty((-(-n * h * w // _BM), 2 * cin), dtype=f32,
-                        device=x.device) if mode != "identity" else None)
-    _launch(name, _library().nvt_dgrad_bf16_launch, dy.data_ptr(),
-            y.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(),
-            wb_dg.data_ptr(), x.data_ptr(), _ptr(res), _ptr(dxout), _ptr(s),
+    part = (torch.empty((lay.tiles, 2 * cin), dtype=f32, device=x.device)
+            if mode != "identity" else None)
+    _launch(name, _library().nvt_dgrad_bf16_launch, slab.data_ptr(),
+            wp.data_ptr(), x.data_ptr(), _ptr(res), _ptr(dxout), _ptr(s),
             _ptr(t), MODES.index(mode), dx.data_ptr(), _ptr(dres),
-            _ptr(part), n, h, w, cin, cout, taps, _stream(x))
+            _ptr(part), n, h, w, cin, lay.cp, lay.taps, lay.wq, lay.guard,
+            lay.tiles, lay.slab_len, dgrad_tile(cin), _stream(x))
     if mode == "identity":
         return dx, None, None, None
-    sums = _sums(f"{name}.sum", part)
+    sums = torch.empty(2 * cin, dtype=f32, device=x.device)
+    _launch(f"{name}.sum", _library().nvt_dgrad_bf16_sum_launch,
+            part.data_ptr(), sums.data_ptr(), lay.tiles, 2 * cin,
+            _stream(x))
     return dx, sums[:cin], sums[cin:], dres
+
+
+def dgrad_bf16_gemm(slab, wb_dg, x, s, t, res, dxout, lay, *, mode):
+    """(dx [N, h, w, Cin] bf16, ds, dt [Cin] f32 (None in identity mode),
+    dres bf16 (entry mode)) from the bf16 slab of layout ``lay``
+    (``dgrad_bf16_layout``): the f32 contraction over (mirrored tap,
+    channel) on 128-row tiles, da = acc (entry mode: + dx_res), then the
+    prologue's backward; each tile's sums of du * x and du added in a
+    fixed order (the same bits every run)."""
+    if on_cpu(slab):
+        return dgrad_bf16_gemm_plain(slab, wb_dg, x, s, t, res, dxout, lay,
+                                     mode=mode)
+    if tuple(slab.shape) != (1, lay.slab_len, lay.cp) or lay.chunks != 1:
+        raise ValueError(f"nv_half_dgrad_bf16: slab {tuple(slab.shape)} is "
+                         f"not of the layout (1, {lay.slab_len}, {lay.cp})")
+    require_cuda("nv_half_dgrad_bf16", [slab], [torch.bfloat16])
+    s, t = _dgrad_bf16_checked(wb_dg, x, s, t, res, dxout, lay, mode)
+    return _dgrad_bf16_launch(slab, wb_dg, x, s, t, res, dxout, lay, mode)
+
+
+def dgrad_conv_bf16(dy, y, dzsum, dzssq, wb_dg, x, s, t, res, dxout, *,
+                    conv, mode, rch):
+    """The bf16 input gradient through the prologue: (dx, ds, dt, dres) as
+    ``dgrad_conv``'s, from wb_dg [Cin, taps*Cout] bf16 (``dgrad_bf16_pre``,
+    then ``dgrad_bf16_gemm``; every operand checked before the first
+    launch). ``rch`` orders the plain version's sums; the kernels have one
+    chunk."""
+    if on_cpu(dy):
+        return dgrad_conv_bf16_plain(dy, y, dzsum, dzssq, wb_dg, x, s, t,
+                                     res, dxout, conv=conv, mode=mode,
+                                     rch=rch)
+    n, h, w, cout = dy.shape
+    _check_rch("nv_half_dgrad_bf16", h, rch)
+    dzsum, dzssq = _vecs(dzsum, dzssq)
+    _require_cot("nv_half_dgrad_bf16", dy, y, dzsum, dzssq)
+    lay = dgrad_bf16_layout(n, h, w, cout, _taps(conv))
+    s, t = _dgrad_bf16_checked(wb_dg, x, s, t, res, dxout, lay, mode)
+    slab = dgrad_bf16_pre(dy, y, dzsum, dzssq, conv=conv)
+    return _dgrad_bf16_launch(slab, wb_dg, x, s, t, res, dxout, lay, mode)
 
 
 def wgrad_bf16_pre(dy, y, dzsum, dzssq, x, s, t, res, *, mode):

@@ -13,7 +13,9 @@
 //   then dgrad_s8, dgrad_sum     _dgrad3x3_kernel (quant_bwd=True; the
 //                                GEMM lives in nv_dgrad_wgmma_s8.cuh,
 //                                which says how it works)
-//   dgrad_bf16                <- the same kernels' quant_bwd=False body
+//   dgrad_pre_bf16, then      <- the same kernels' quant_bwd=False body
+//   dgrad_bf16, dgrad_bf16_sum   (the GEMM lives in nv_dgrad_wgmma_bf16.cuh,
+//                                which says how it works)
 //   wgrad_pre, then           <- _wgrad_call -> _wgrad1x1_kernel,
 //   wgrad_s8, wgrad_sum          _wgrad3x3_kernel (quant_bwd=True; the
 //                                mainloop lives in wgrad_staged_s8.cuh,
@@ -38,30 +40,30 @@
 // chunk's own. The absmax of a group is exact in any order:
 // rowmax_* writes the maximum of |value| per image row (atomicMax on the
 // float's bits, which order as integers for values >= 0), and each kernel
-// reduces its group's rows. The bf16 bodies have no groups: their gather
-// rounds the prologue's (or the fold's) f32 value to bf16.
+// reduces its group's rows. The bf16 bodies have no groups: they round
+// the prologue's (or the fold's) f32 value to bf16 once.
 //
-// The GEMM core of the bf16 fwd and dgrad (the template's operand type is
-// bf16 alone): a 128x64 output tile per block, 8 warps (4 along M x 2
-// along N), ldmatrix + mma.sync bf16 m16n8k16 -> f32 in registers, K
-// walked 32 bytes (16 values) at a time through two shared-memory
-// buffers. The producer loads step k+1's bf16 operands into registers
-// while the tensor cores run step k, then applies the prologue or the
-// fold, rounds them and stores them:
-//   fwd:   M = positions, N = Cout, K = (tap, ci); a gathered at
-//          (r + dy - 1, c + dx - 1);
-//   dgrad: M = positions, N = Cin, K = (tap, co); g gathered at
-//          (r - dy + 1, c - dx + 1) against per-input-channel weights in
-//          forward tap coordinates.
-// The int8 fwd and dgrad do not use this core: their prepass
-// (nvt_fwd_pre_kernel<Act>, <Cot>) quantizes each chunk's activation or
-// cotangent once into a slab, position-major with each position's channels
-// contiguous (the 3x3's images innermost, so that every tap is one
-// constant position offset; fwd_int8_layout), and a tile of 128 rows has
-// one scale (it lies in one chunk). The fwd's GEMM is fwd_staged_s8.cuh's
-// cp.async ring into plain ldmatrix and s8 mma.sync; the dgrad's,
-// nv_dgrad_wgmma_s8.cuh, runs fwd_wgmma_s8.cuh's TMA-fed s8 wgmma mainloop
-// with the 3x3's taps mirrored (the layout is symmetric).
+// The GEMM core of the bf16 fwd (the template's operand type is bf16
+// alone; a tested op that no path runs is its last user): a 128x64 output
+// tile per block, 8 warps (4 along M x 2 along N), ldmatrix + mma.sync
+// bf16 m16n8k16 -> f32 in registers, K walked 32 bytes (16 values) at a
+// time through two shared-memory buffers. The producer loads step k+1's
+// bf16 operands into registers while the tensor cores run step k, then
+// applies the prologue, rounds them and stores them: M = positions, N =
+// Cout, K = (tap, ci); a gathered at (r + dy - 1, c + dx - 1).
+// The int8 fwd and both dgrads do not use this core: their prepass
+// (nvt_fwd_pre_kernel<Act or Cot, CodesOut or Bf16Out>) writes each
+// chunk's activation or cotangent once into a slab, position-major with
+// each position's channels contiguous (the 3x3's images innermost, so
+// that every tap is one constant position offset; fwd_int8_layout):
+// int8 codes at the chunk's scale (a tile of 128 rows lies in one chunk,
+// so it has one scale), or for the bf16 dgrad bf16(g) in one chunk of h
+// rows. The fwd's GEMM is fwd_staged_s8.cuh's cp.async ring into plain
+// ldmatrix and s8 mma.sync; the int8 dgrad's, nv_dgrad_wgmma_s8.cuh, runs
+// fwd_wgmma_s8.cuh's TMA-fed s8 wgmma mainloop and the bf16 dgrad's,
+// nv_dgrad_wgmma_bf16.cuh, fwd_wgmma_bf16.cuh's cp.async-fed bf16 one,
+// both with the 3x3's taps mirrored (the layout is symmetric) and the
+// prologue's backward of nv_dgrad_epilogue.cuh.
 // The wgrads do not use this core either (M = (tap, ci), N = Cout, K = a run of
 // the positions of one chunk, grid z = (chunk, split)). The bf16 one: a
 // prepass rounds its operands once into NHWC bf16 scratch, and
@@ -73,12 +75,12 @@
 // in slabs where every tap shift is one offset of a multiple of 16 bytes;
 // wgrad_staged_s8.cuh's cp.async ring copies their rows as they lie into
 // plain ldmatrix and s8 mma.sync.
-// The core's epilogues run on the accumulators in registers: the bf16
-// outputs, the prologue's backward (dgrad), and per-block per-channel sums
-// (warp butterflies, then the four M-warps in order) into a partial buffer
-// that nvt_sum reduces in a fixed tree (the int8 fwd and dgrad stage their
-// tiles in shared memory and sum them in a fixed order into the same kind
-// of buffer; the int8 dgrad's tiles go to common::tile_sum). The wgrads
+// The core's epilogue runs on the accumulators in registers: the bf16
+// outputs and per-block per-channel sums (warp butterflies, then the four
+// M-warps in order) into a partial buffer that nvt_sum reduces in a fixed
+// tree (the int8 fwd and the dgrads stage their tiles in shared memory and
+// sum them in a fixed order into the same kind of buffer; the dgrads'
+// tiles go to common::tile_sum). The wgrads
 // split each chunk's positions over blocks; the int8 sum adds each chunk's f32(exact s32 over its
 // splits) * (amax_a * amax_g / 127^2), the bf16 sum each chunk's f32 split
 // tiles in split order, into dW in chunk order, as the TPU kernel's
@@ -90,15 +92,15 @@
 // 51-205 MB in and out, 15-120 us at 3.35 TB/s: the 1x1 halves and the
 // stage-1 halves are bound by bytes. What the design does about it: each
 // operand is read once per output tile column (N / 64 times, N / 128 in
-// the int8 fwd and dgrad where N >= 128), the rounded operands of the bf16
-// fwd and dgrad never reach device memory, the int8 operands do once
-// (written by the prepasses, read back), and no accumulator does (but the
-// wgrads' split tiles).
-// Left for later: in the bf16 fwd and dgrad, the producer's synchronous
-// loads (no cp.async/TMA ring), a 64-wide N tile that re-reads A Cout/64
-// times, and the halo rows' recomputed prologue; mma.sync instead of wgmma
-// but in the int8 dgrad; the wgrads' second launch; the prepasses' bytes
-// (their operands written once and read back).
+// the int8 fwd and the dgrads where N >= 128), the rounded operands of the
+// bf16 fwd never reach device memory, the prepasses' slabs do once
+// (written, read back), and no accumulator does (but the wgrads' split
+// tiles).
+// Left for later: in the bf16 fwd, the producer's synchronous loads (no
+// cp.async/TMA ring), a 64-wide N tile that re-reads A Cout/64 times, and
+// the halo rows' recomputed prologue; mma.sync instead of wgmma but in the
+// dgrads; the wgrads' second launch; the prepasses' bytes (their operands
+// written once and read back).
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_bneck_nv_train.py and
@@ -124,6 +126,7 @@
 #include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
 #include "fwd_staged_s8.cuh"  // the int8 forward's mainloop
 #include "nv_dgrad_wgmma_s8.cuh"  // the int8 input gradient's GEMM
+#include "nv_dgrad_wgmma_bf16.cuh"  // the bf16 input gradient's GEMM
 
 using common::chunk_amax;
 using conv3x3::ldmatrix_x4;
@@ -143,8 +146,8 @@ constexpr int TILE_BYTES = (BM + BN) * ROW;  // one buffer: A then B
 constexpr float kFloor = 1e-30f;
 
 // the halves' modes: one enum for every kernel of the file and the header
-using nv_dgrad_wgmma_s8::ENTRY;
-using nv_dgrad_wgmma_s8::IDENTITY;
+using nv_dgrad::ENTRY;
+using nv_dgrad::IDENTITY;
 
 typedef __nv_bfloat16 bf16;
 
@@ -360,7 +363,7 @@ __device__ __forceinline__ void gemm(Acc (&acc)[2][4][4], const Loader& ld,
   }
 }
 
-// --- conv loader (fwd, dgrad): M = positions, K = (tap, channel) ------------
+// --- conv loader (the bf16 fwd): M = positions, K = (tap, channel) ---------
 
 struct ConvGeo {
   int n, h, w;
@@ -374,14 +377,15 @@ __device__ __forceinline__ int conv_steps(const ConvGeo& g, int kv) {
 }
 
 // Each row of a step holds 32 bytes of K, two threads 16 bytes each: one
-// 8-channel vector rounded to bf16 a thread.
-template <typename Src, bool MIRROR, typename T>
+// 8-channel vector of the prologue's a rounded to bf16 a thread, gathered
+// at (r + dy - 1, c + dx - 1).
+template <typename T>
 struct ConvLoader {
   static_assert(sizeof(T) == 2, "the bf16 bodies");
   static constexpr int KV = kvals<T>();
   static constexpr int NV = 2 / (int)sizeof(T);  // 8-channel vectors a thread
   using WVec = typename conv3x3::Vec8<T>::type;
-  Src src;
+  Act src;
   const T* wt;  // [nout][taps * c]
   ConvGeo g;
   bf16* copy;   // bf16 forward, entry mode: x_res = bf16(a) (1x1 only)
@@ -399,7 +403,7 @@ struct ConvLoader {
     WVec b[NV];
   };
 
-  __device__ ConvLoader(const Src& s, const T* w, const ConvGeo& geo, int m0,
+  __device__ ConvLoader(const Act& s, const T* w, const ConvGeo& geo, int m0,
                         int n0, bf16* copy_ = nullptr)
       : src(s), wt(w), g(geo), copy(copy_) {
     const int tid = threadIdx.x;
@@ -424,8 +428,8 @@ struct ConvLoader {
     const int cs = kt - tap * csteps;
     const int dy = g.taps == 9 ? tap / 3 : 1;
     const int dx = g.taps == 9 ? tap % 3 : 1;
-    const int iy = MIRROR ? oy - dy + 1 : oy + dy - 1;
-    const int ix = MIRROR ? ox - dx + 1 : ox + dx - 1;
+    const int iy = oy + dy - 1;
+    const int ix = ox + dx - 1;
     const bool ok = row_ok && (unsigned)iy < (unsigned)g.h &&
                     (unsigned)ix < (unsigned)g.w;
     const size_t p = ((size_t)img * g.h + iy) * g.w + ix;
@@ -544,8 +548,8 @@ __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = g.n * g.h * g.w;
   AccT<T> acc[2][4][4] = {};
-  const ConvLoader<Act, false, T> ld(args.act, static_cast<const T*>(args.w),
-                                     g, m0, n0, args.x_res);
+  const ConvLoader<T> ld(args.act, static_cast<const T*>(args.w), g, m0, n0,
+                         args.x_res);
   gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
 
   float s[2][4][2] = {};
@@ -563,92 +567,13 @@ __global__ void __launch_bounds__(THREADS) nvt_fwd_kernel(FwdArgs args) {
   block_sums(s, n0, g.nout, args.part);
 }
 
-// --- input gradient ---------------------------------------------------------
-
-struct DgradArgs {
-  Cot cot;
-  const void* w;           // [cin][taps * cout] bf16, forward taps
-  const bf16* x;           // [M][cin] (the half's input)
-  const bf16* res;         // entry: [M][cin]
-  const bf16* dxout;       // entry: the x_res cotangent [M][cin]
-  const float* s;
-  const float* t;
-  int mode;
-  bf16* dx;
-  bf16* dres;              // entry
-  float* part;             // [M / BM][2 * cin] (not identity)
-  ConvGeo g;               // c = cout (contracted), nout = cin
-};
-
-// The bf16 body (the int8 one is nv_dgrad_wgmma_s8.cuh's): da = acc;
-// identity: dx = bf16(da); else u = fma(x, s, t) (+ res), da (+ dxout in
-// entry mode), du = u > 0 ? da : 0, dx = bf16(du * s), dres = bf16(du);
-// sums of du * x and du
-template <typename T>
-__global__ void __launch_bounds__(THREADS) nvt_dgrad_kernel(DgradArgs args) {
-  static_assert(sizeof(T) == 2, "the bf16 input gradient");
-  __shared__ __align__(128) unsigned char smem[2 * TILE_BYTES];
-  const ConvGeo g = args.g;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = g.n * g.h * g.w;
-  const int cin = g.nout;
-  AccT<T> acc[2][4][4] = {};
-  const ConvLoader<Cot, true, T> ld(args.cot, static_cast<const T*>(args.w),
-                                    g, m0, n0);
-  gemm(acc, ld, smem, 0, conv_steps(g, kvals<T>()));
-
-  float s[2][4][2] = {};
-  each_pair(acc, m0, n0, M, cin,
-            [&](int, int ni, int, int m, int n, AccT<T> v0, AccT<T> v1) {
-    const size_t i = (size_t)m * cin + n;
-    const float da[2] = {v0, v1};
-    if (args.mode == IDENTITY) {
-      *reinterpret_cast<__nv_bfloat162*>(args.dx + i) =
-          __floats2bfloat162_rn(da[0], da[1]);
-      return;
-    }
-    const __nv_bfloat162 x2 =
-        *reinterpret_cast<const __nv_bfloat162*>(args.x + i);
-    const float xv[2] = {__low2float(x2), __high2float(x2)};
-    float rv[2] = {0.f, 0.f}, ov[2] = {0.f, 0.f};
-    if (args.mode == ENTRY) {
-      const __nv_bfloat162 r2 =
-          *reinterpret_cast<const __nv_bfloat162*>(args.res + i);
-      const __nv_bfloat162 o2 =
-          *reinterpret_cast<const __nv_bfloat162*>(args.dxout + i);
-      rv[0] = __low2float(r2);
-      rv[1] = __high2float(r2);
-      ov[0] = __low2float(o2);
-      ov[1] = __high2float(o2);
-    }
-    float du[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float u = __fmaf_rn(xv[e], args.s[n + e], args.t[n + e]);
-      float d = da[e];
-      if (args.mode == ENTRY) {
-        u = __fadd_rn(u, rv[e]);
-        d = __fadd_rn(d, ov[e]);
-      }
-      du[e] = u > 0.f ? d : 0.f;
-      s[0][ni][e] = __fadd_rn(s[0][ni][e], __fmul_rn(du[e], xv[e]));
-      s[1][ni][e] = __fadd_rn(s[1][ni][e], du[e]);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(args.dx + i) = __floats2bfloat162_rn(
-        __fmul_rn(du[0], args.s[n]), __fmul_rn(du[1], args.s[n + 1]));
-    if (args.mode == ENTRY)
-      *reinterpret_cast<__nv_bfloat162*>(args.dres + i) =
-          __floats2bfloat162_rn(du[0], du[1]);
-  });
-  if (args.mode != IDENTITY) block_sums(s, n0, cin, args.part);
-}
-
 // --- the int8 forward's and input gradient's operand -----------------------
 
 // Where ops/cuda/bneck_nv_train.py fwd_int8_layout puts the quantized
 // operand (the forward's activation, the dgrad's cotangent, cin its
-// channels): chunk k's slab is slab_len positions of cp bytes at k *
-// slab_len * cp; past guard zero positions, slab row ra (image row k * rch
+// channels; the bf16 dgrad's rounded cotangent in one chunk of h rows):
+// chunk k's slab is slab_len positions of cp elements at k * slab_len *
+// cp; past guard zero positions, slab row ra (image row k * rch
 // - halo + ra), column col (< wq; col >= w is zero) and image i sit at
 // position (ra * wq + col) * n + i (3x3: images innermost) or (i * rch +
 // ra) * w + col (1x1), channels cin..cp zero; the rest of the slab is
@@ -660,28 +585,64 @@ struct FwdSlabGeo {
 
 constexpr int FWD_PRE_U = 4;  // slab units (8 channels of a position) a thread
 
+// The prepass's output, 8 channels a unit: int8 codes at the chunk's scale
+// (q = clip(rint(v * inv)), 8 bytes), or bf16 (16 bytes, no scale).
+struct CodesOut {
+  using Unit = uint2;
+  signed char* slab;
+  const float* rowmax;
+  float inv;
+  __device__ __forceinline__ Unit* chunk(int k, const FwdSlabGeo& s) const {
+    return reinterpret_cast<Unit*>(slab + (size_t)k * s.slab_len * s.cp);
+  }
+  __device__ __forceinline__ void begin(int k, const FwdSlabGeo& s) {
+    inv = inv_of(chunk_amax(rowmax, k, s.rch, s.halo, s.h));
+  }
+  __device__ __forceinline__ Unit pack(const float (&v)[8]) const {
+    return make_uint2(pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
+                            __fmul_rn(v[2], inv), __fmul_rn(v[3], inv)),
+                      pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
+                            __fmul_rn(v[6], inv), __fmul_rn(v[7], inv)));
+  }
+};
+
+struct Bf16Out {
+  using Unit = uint4;
+  bf16* slab;
+  __device__ __forceinline__ Unit* chunk(int k, const FwdSlabGeo& s) const {
+    return reinterpret_cast<Unit*>(slab + (size_t)k * s.slab_len * s.cp);
+  }
+  __device__ __forceinline__ void begin(int, const FwdSlabGeo&) {}
+  __device__ __forceinline__ Unit pack(const float (&v)[8]) const {
+    Unit out;
+    bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(v[k]);
+    return out;
+  }
+};
+
 // Every chunk's slab, one launch: block row blockIdx.y is chunk k. A unit
 // is 8 channels of one slab position, channels fastest, so a warp reads
 // whole 16-byte vectors of consecutive channels of the source's tensors
 // and writes 256 contiguous slab bytes; each thread takes FWD_PRE_U units
-// 256 apart, issues all their loads, then reduces the chunk's scale while
-// they are in flight. It computes the value in f32 (Src::value: Act the
-// forward's prologue, x*s + t one fma, + res on its own, then relu, entry
-// mode recomputing it from x and res, never from x_res; Cot the dgrad's
-// fold, (dy + dzsum) + (2y)*dzssq one fma), quantizes at the chunk's
-// scale (q = clip(rint(v * inv))) and stores 8 bytes a unit; positions
-// outside the image, the pad column, pad channels, guards and the tile
-// tail get zeros. A 3x3 image row that two chunks share is written into
-// both slabs, at their two scales.
-template <typename Src>
+// 256 apart, issues all their loads, then (CodesOut) reduces the chunk's
+// scale while they are in flight. It computes the value in f32
+// (Src::value: Act the forward's prologue, x*s + t one fma, + res on its
+// own, then relu, entry mode recomputing it from x and res, never from
+// x_res; Cot the dgrad's fold, (dy + dzsum) + (2y)*dzssq one fma), then
+// Out::pack quantizes it at the chunk's scale (8 bytes a unit) or rounds
+// it to bf16 (16 bytes); positions outside the image, the pad column, pad
+// channels, guards and the tile tail get zeros. A 3x3 image row that two
+// chunks share is written into both slabs, at their two scales.
+template <typename Src, typename Out>
 __global__ void __launch_bounds__(256)
-nvt_fwd_pre_kernel(Src src, const float* __restrict__ rowmax,
-                   signed char* __restrict__ slab, FwdSlabGeo s) {
+nvt_fwd_pre_kernel(Src src, Out dst, FwdSlabGeo s) {
   const int k = blockIdx.y;
   const int groups = s.cp / 8;
   const int units = s.slab_len * groups;
   const int span = (s.rch + 2 * s.halo) * s.wq * s.n;
-  signed char* out = slab + (size_t)k * s.slab_len * s.cp;
+  typename Out::Unit* out = dst.chunk(k, s);
   const int u0 = blockIdx.x * 256 * FWD_PRE_U + threadIdx.x;
   Raw<8> raw[FWD_PRE_U];
   unsigned live = 0;
@@ -704,23 +665,20 @@ nvt_fwd_pre_kernel(Src src, const float* __restrict__ rowmax,
       }
     }
   }
-  // the chunk's scale while the loads are in flight
-  const float inv = inv_of(chunk_amax(rowmax, k, s.rch, s.halo, s.h));
+  // the chunk's scale (int8) while the loads are in flight
+  dst.begin(k, s);
 #pragma unroll
   for (int j = 0; j < FWD_PRE_U; ++j) {
     const int u = u0 + 256 * j;
     if (u >= units) break;
     const int c0 = 8 * (u % groups);
-    uint2 q = make_uint2(0u, 0u);
+    typename Out::Unit q{};
     if (live >> j & 1u) {
       float v[8];
       src.template value<8>(raw[j], c0, v);
-      q.x = pack4(__fmul_rn(v[0], inv), __fmul_rn(v[1], inv),
-                  __fmul_rn(v[2], inv), __fmul_rn(v[3], inv));
-      q.y = pack4(__fmul_rn(v[4], inv), __fmul_rn(v[5], inv),
-                  __fmul_rn(v[6], inv), __fmul_rn(v[7], inv));
+      q = dst.pack(v);
     }
-    *reinterpret_cast<uint2*>(out + (size_t)u * 8) = q;
+    out[u] = q;
   }
 }
 
@@ -932,21 +890,22 @@ __global__ void nvt_sum_kernel(const float* __restrict__ part,
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 // nvt_fwd_pre_kernel over every chunk's slab of the layout g
-template <typename Src>
-int fwd_pre_launch(const Src& src, const void* rowmax, void* slab,
-                   const FwdSlabGeo& g, cudaStream_t stream) {
+template <typename Src, typename Out>
+int fwd_pre_launch(const Src& src, const Out& dst, const FwdSlabGeo& g,
+                   cudaStream_t stream) {
   const long units = (long)g.slab_len * (g.cp / 8);  // a chunk's
-  if (units >= (1L << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (units >= (1L << 31) || g.rch < 1 || g.h % g.rch)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long per = (units + 256 * FWD_PRE_U - 1) / (256 * FWD_PRE_U);
   nvt_fwd_pre_kernel<<<dim3((unsigned)per, g.h / g.rch), 256, 0, stream>>>(
-      src, static_cast<const float*>(rowmax),
-      static_cast<signed char*>(slab), g);
+      src, dst, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the tile sums of the int8 input gradient (a tag of its own, so that a
-// profile can tell whose sum it is)
+// the tile sums of the int8 and the bf16 input gradient (tags of their
+// own, so that a profile can tell whose sum it is)
 struct NvtDgradSum {};
+struct NvtDgradSumBf16 {};
 
 template <typename T>
 const T* in(const void* p) {
@@ -1009,7 +968,9 @@ int nvt_fwd_pre_launch(const void* x, const void* res, const void* s,
                        void* slab, int n, int h, int w, int cin, int rch,
                        int halo, int cp, int wq, int guard, int slab_len,
                        void* stream) {
-  return fwd_pre_launch(act_of(x, res, s, t, cin, mode), rowmax, slab,
+  return fwd_pre_launch(act_of(x, res, s, t, cin, mode),
+                        CodesOut{static_cast<signed char*>(slab),
+                                 in<float>(rowmax), 0.f},
                         FwdSlabGeo{n, h, w, cin, rch, halo, cp, wq, guard,
                                    slab_len},
                         as_stream(stream));
@@ -1067,7 +1028,9 @@ int nvt_dgrad_pre_launch(const void* dy, const void* y, const void* dzsum,
                          int n, int h, int w, int cout, int rch, int halo,
                          int cp, int wq, int guard, int slab_len,
                          void* stream) {
-  return fwd_pre_launch(cot_of(dy, y, dzsum, dzssq, cout), rowmax, slab,
+  return fwd_pre_launch(cot_of(dy, y, dzsum, dzssq, cout),
+                        CodesOut{static_cast<signed char*>(slab),
+                                 in<float>(rowmax), 0.f},
                         FwdSlabGeo{n, h, w, cout, rch, halo, cp, wq, guard,
                                    slab_len},
                         as_stream(stream));
@@ -1116,25 +1079,74 @@ int nvt_dgrad_sum_launch(const void* part, void* out, int tiles, int m,
                                        as_stream(stream));
 }
 
-// The bf16 body: dx [n, h, w, cin] bf16 (dres likewise in entry mode;
-// part [ceil(n*h*w / 128)][2 * cin] the per-block sums of du * x and du
-// unless identity) <- the input gradient of dy/y [n, h, w, cout] bf16,
-// dzsum/dzssq [cout], x/res/dxout [n, h, w, cin], s/t [cin], from wb
-// [cin][taps * cout] bf16 in forward tap coordinates.
-int nvt_dgrad_bf16_launch(const void* dy, const void* y, const void* dzsum,
-                          const void* dzssq, const void* wb, const void* x,
+// The bf16 input gradient, three launches. nvt_dgrad_pre_bf16: slab
+// [slab_len][cp] bf16 <- bf16(g), g = fma(2y, dzssq, dy + dzsum) (dy/y [n,
+// h, w, cout] bf16, dzsum/dzssq [cout] f32), in the layout (halo, cp, wq,
+// guard, slab_len) of ops/cuda/bneck_nv_train.py fwd_int8_layout at Cin =
+// cout and one chunk of h rows.
+int nvt_dgrad_pre_bf16_launch(const void* dy, const void* y,
+                              const void* dzsum, const void* dzssq,
+                              void* slab, int n, int h, int w, int cout,
+                              int halo, int cp, int wq, int guard,
+                              int slab_len, void* stream) {
+  return fwd_pre_launch(cot_of(dy, y, dzsum, dzssq, cout),
+                        Bf16Out{static_cast<bf16*>(slab)},
+                        FwdSlabGeo{n, h, w, cout, h, halo, cp, wq, guard,
+                                   slab_len},
+                        as_stream(stream));
+}
+
+// nvt_dgrad_bf16: dx [n, h, w, cin] bf16 (dres likewise in entry mode;
+// part [tiles][2 * cin] f32, each M tile's sums of du * x and du, unless
+// identity) <- the slab's f32 products with wb [cin][taps * cp] bf16
+// (forward tap coordinates, pad channels zero), the walk's tap t at the
+// mirror of forward tap t (guard + ((2 - t / 3) * wq + 1 - t % 3) * n for
+// the 3x3), dx_res added in entry mode, then the prologue's backward from
+// x/res/dxout [n, h, w, cin] and s/t [cin], on (128, bn) tiles.
+int nvt_dgrad_bf16_launch(const void* slab, const void* wb, const void* x,
                           const void* res, const void* dxout, const void* s,
                           const void* t, int mode, void* dx, void* dres,
-                          void* part, int n, int h, int w, int cin, int cout,
-                          int taps, void* stream) {
-  DgradArgs args{cot_of(dy, y, dzsum, dzssq, cout), wb, in<bf16>(x),
-                 in<bf16>(res), in<bf16>(dxout), in<float>(s),
-                 in<float>(t), mode, static_cast<bf16*>(dx),
-                 static_cast<bf16*>(dres), static_cast<float*>(part),
-                 ConvGeo{n, h, w, cout, taps, cin}};
-  nvt_dgrad_kernel<bf16><<<conv_grid(n * h * w, cin), THREADS, 0,
-                           as_stream(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+                          void* part, int n, int h, int w, int cin, int cp,
+                          int taps, int wq, int guard, int tiles,
+                          int slab_len, int bn, void* stream) {
+  if (taps != 1 && taps != 9) return static_cast<int>(cudaErrorInvalidValue);
+  nv_dgrad_wgmma_bf16::Args args{};
+  args.gemm.slab = in<bf16>(slab);
+  args.gemm.w = in<bf16>(wb);
+  args.gemm.cin = cp;
+  args.gemm.cout = cin;
+  args.gemm.guard = guard;
+  args.x = in<bf16>(x);
+  args.res = in<bf16>(res);
+  args.dxout = in<bf16>(dxout);
+  args.s = in<float>(s);
+  args.t = in<float>(t);
+  args.dx = static_cast<bf16*>(dx);
+  args.dres = static_cast<bf16*>(dres);
+  args.part = static_cast<float*>(part);
+  args.rows.n = n;
+  args.rows.h = h;
+  args.rows.w = w;
+  args.rows.rch = h;
+  args.rows.halo = taps == 9 ? 1 : 0;
+  args.rows.wq = wq;
+  args.cin = cin;
+  args.taps = taps;
+  args.tiles = tiles;
+  args.mode = mode;
+  args.mirror = taps == 9 ? nv_dgrad_wgmma_bf16::MirrorTaps{wq * n, n}
+                          : nv_dgrad_wgmma_bf16::MirrorTaps{0, 0};
+  return static_cast<int>(nv_dgrad_wgmma_bf16::launch(
+      args, slab_len, bn, as_stream(stream)));
+}
+
+// nvt_dgrad_bf16_sum: out [m] f32 = the tiles' sums of part [tiles][m] in
+// common::tile_sum's fixed order (d(s) then d(t)).
+int nvt_dgrad_bf16_sum_launch(const void* part, void* out, int tiles, int m,
+                              void* stream) {
+  return common::tile_sum<NvtDgradSumBf16>(in<float>(part),
+                                           static_cast<float*>(out), tiles,
+                                           m, as_stream(stream));
 }
 
 // The weight gradient, three launches. nvt_wgrad_pre: a_slab [h / rch]

@@ -1522,6 +1522,8 @@ def test_nv_train_bf16_kernels_match_plain(dev, conv, mode, n, h, w, cin,
         "nv_half_fwd_bf16", "nv_half_dgrad_bf16", "nv_half_wgrad_bf16"}
     assert [nvt.launches[f"nv_half_wgrad_bf16{k}"]
             for k in (".pre", "", ".sum")] == [1, 1, 1]
+    assert [nvt.launches[f"nv_half_dgrad_bf16{k}"]
+            for k in (".pre", "", ".sum")] == [1, 1, int(mode != "identity")]
     want = _nvt_bf16_stages(ops, conv, mode, rch, plain=True,
                             y_bwd=got["y"])
     assert want["y"].unique().numel() > 100
@@ -1571,7 +1573,8 @@ def test_nv_half_op_runs_every_body_on_the_card(dev, quant, quant_bwd, conv,
     bwd = ({"nv_half_fwd.amax", "nv_half_bwd.amax", "nv_half_dgrad.pre",
             "nv_half_dgrad", "nv_half_dgrad.sum", "nv_half_wgrad.pre",
             "nv_half_wgrad", "nv_half_wgrad.sum"}
-           if quant_bwd else {"nv_half_dgrad_bf16", "nv_half_dgrad_bf16.sum",
+           if quant_bwd else {"nv_half_dgrad_bf16.pre", "nv_half_dgrad_bf16",
+                              "nv_half_dgrad_bf16.sum",
                               "nv_half_wgrad_bf16.pre", "nv_half_wgrad_bf16",
                               "nv_half_wgrad_bf16.sum"})
     assert set(nvt.launches) == fwd | bwd
@@ -1607,10 +1610,29 @@ def test_nv_train_bf16_never_falls_back(dev):
             mode="entry", rch=4)
     dy = torch.zeros((32, 4, 4, 32), dtype=torch.bfloat16, device=dev)
     z = torch.zeros(32, device=dev)
+    nvt.reset_launches()
     with pytest.raises(ValueError, match="weights"):
         nvt.dgrad_conv_bf16(dy, dy, z, z, nvt.pack_w_bf16(w), xb, None,
                             None, None, None, conv="1x1", mode="identity",
                             rch=4)
+    # the slab route names what it does not take, before any launch
+    wdg = nvt.pack_w_bf16_dgrad(w)
+    with pytest.raises(ValueError, match="does not divide"):
+        nvt.dgrad_conv_bf16(dy, dy, z, z, wdg, xb, None, None, None, None,
+                            conv="1x1", mode="identity", rch=3)
+    with pytest.raises(ValueError, match="the layout's"):
+        nvt.dgrad_conv_bf16(dy, dy, z, z, wdg, xb[:, :2].contiguous(), None,
+                            None, None, None, conv="1x1", mode="identity",
+                            rch=4)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        nvt.dgrad_conv_bf16(dy, dy, z, z, wdg, x, None, None, None, None,
+                            conv="1x1", mode="identity", rch=4)
+    lay = nvt.dgrad_bf16_layout(32, 4, 4, 32, 1)
+    with pytest.raises(ValueError, match="not of the layout"):
+        nvt.dgrad_bf16_gemm(torch.zeros((1, 64, lay.cp), dtype=torch.bfloat16,
+                                        device=dev), wdg, xb, None, None,
+                            None, None, lay, mode="identity")
+    assert not nvt.launches
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         nvt.wgrad_bf16(dy.float(), dy, z, z, xb, None, None, None,
                        conv="1x1", mode="identity", rch=4)
@@ -1908,6 +1930,53 @@ def test_nv_dgrad_int8_never_falls_back(dev):
                                    dtype=torch.int8, device=dev), args[4],
                        *args[5:], lay, mode="affine")
     assert not nvt.launches
+
+
+def _nvt_dgrad_bf16_args(dev, conv, mode, n, h, w, cin, cout, seed):
+    """The bf16 input gradient's arguments (dy, y, dzsum, dzssq, wb_dg, x,
+    s, t, res, dxout), y drawn."""
+    ops = _nvt_inputs(dev, conv, mode, n, h, w, cin, cout, seed)
+    y = torch.randn(ops["dy"].shape, device=dev).to(torch.bfloat16)
+    return (ops["dy"], y, ops["dzsum"], ops["dzssq"],
+            nvt.pack_w_bf16_dgrad(ops["w"]), ops["x"], ops["s"], ops["t"],
+            ops["res"], ops["dxout"])
+
+
+def _nvt_dgrad_bf16_close(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+        elif i in (1, 2):   # d(s), d(t): over the tensor cores' accumulators
+            _mma_sums(a, b)
+        else:
+            _bf16_close(a, b)
+
+
+@pytest.mark.parametrize("conv,mode,n,h,w,cin,cout,rch", NVT_DGRAD_CASES)
+def test_nv_dgrad_bf16_wgmma_matches_plain(dev, conv, mode, n, h, w, cin,
+                                           cout, rch):
+    """The bf16 input gradient's slab equals its plain version's bit for
+    bit; dx and dres within 2 bf16 ulps of ``dgrad_conv_bf16_plain``'s,
+    d(s) and d(t) within 1e-4; two calls bit-equal: one launch each of the
+    prepass, the wgmma GEMM and (but in identity mode) the tiles' sum."""
+    args = _nvt_dgrad_bf16_args(dev, conv, mode, n, h, w, cin, cout,
+                                cin + h)
+    kw = dict(conv=conv, mode=mode, rch=rch)
+    nvt.reset_launches()
+    got = nvt.dgrad_conv_bf16(*args, **kw)
+    torch.cuda.synchronize()
+    want_launches = {"nv_half_dgrad_bf16.pre": 1, "nv_half_dgrad_bf16": 1}
+    if mode != "identity":
+        want_launches["nv_half_dgrad_bf16.sum"] = 1
+    assert dict(nvt.launches) == want_launches
+    want = nvt.dgrad_conv_bf16_plain(*args, **kw)
+    assert want[0].unique().numel() > 100
+    _nvt_dgrad_bf16_close(got, want)
+    again = nvt.dgrad_conv_bf16(*args, **kw)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(nvt.dgrad_bf16_pre(*args[:4], conv=conv),
+                       nvt.dgrad_bf16_pre_plain(*args[:4], conv=conv))
 
 
 def test_weight_scales_on_the_card_equal_the_cpu(dev):
