@@ -526,6 +526,16 @@ NV_SHAPES = [("identity", 56, 56, 256, 64, 256, 1),
              ("identity", 7, 7, 2048, 1024, 2048, 1),
              ("transition", 14, 14, 1024, 1024, 2048, 2)]
 NV_NAMES = ("bneck_block_nv", "bneck_transition_nv")
+# the identity block's three kernels by part (csrc/bneck_nv.cu, namespace
+# bneck_wgmma), for the device-time split
+NV_ID_PARTS = {"conv1": "bneck_wgmma::conv1_kernel",
+               "conv2": "bneck_wgmma::conv2_kernel",
+               "out": "bneck_wgmma::out_kernel"}
+NV_ID_DESIGN = ("conv1 writes a1 straight into the padded slab "
+                "(serve_slab_layout, every pad byte zero in the same launch); "
+                "conv2 at nine slab row offsets and the output on "
+                "fwd_wgmma_s8.cuh's TMA-fed s8 wgmma mainloop; 16-byte NHWC "
+                "epilogues")
 # ResNet-50: 12 identity and 4 transition blocks per serving batch
 NV_PER_BATCH = {"bneck_block_nv": 12, "bneck_transition_nv": 4}
 # (batch, h, w, cin, width, cout): the identity bottleneck blocks of
@@ -1119,7 +1129,7 @@ KERNEL_KINDS = [
     ("conv3x3_same fwd + dgrad (port)", ("conv3x3_bf16_kernel",
                                          "slab_copy_kernel<__nv_bfloat16>")),
     ("augment", ("augment",)),
-    ("bneck nv (port)", ("bneck_gemm_kernel",)),
+    ("bneck nv (port)", ("bneck_gemm_kernel", "bneck_wgmma")),
     # (the int8 dgrad's tile sum is common::tile_sum under its own tag)
     ("nv train halves (port)", ("nvt_", "NvtDgradSum", "wgrad_staged",
                                 "fwd_staged")),
@@ -3116,7 +3126,8 @@ def transition_summary(rows, lane_fqt, lane_qat):
 def nv_kernel_phase(peaks):
     """Rows per (NV kernel, shape, output type): max error against the
     plain version, and the kernel / plain / cuDNN-bf16-block / bound times
-    of one block."""
+    of one block; for the identity block also its three launches' device
+    times apart (``NV_ID_PARTS``), each beside its own bound."""
     import torch
     import torch.nn.functional as F
 
@@ -3208,6 +3219,11 @@ def nv_kernel_phase(peaks):
                 plain_ms=time_ms(lambda: run(plain), 2),
                 library_ms=lib_ms, ops_ms=2 * macs / ops_int8 * 1e3,
                 bytes_ms=byts / bw * 1e3))
+            if not proj:
+                rows[-1].update(nv_identity_parts(
+                    lambda: run(kernel), nv.identity_plan(
+                        BATCH, h, w, cin, wdt, cout), cin, wdt, cout,
+                    out_int8, ops_int8, bw))
             del got, ref
         del x, ws
         torch.cuda.empty_cache()
@@ -3216,6 +3232,30 @@ def nv_kernel_phase(peaks):
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
                          else "bytes")
     return rows
+
+
+def nv_identity_parts(call, plan, cin, wdt, cout, out_int8, ops_int8, bw):
+    """The identity block's launches apart, in device time per call
+    (torch.profiler; None where it sees no device time), each beside its
+    own bound: conv1 by bytes (x read, a1's codes written), conv2 by
+    operations or bytes (a1's codes read once, a2 written), the output by
+    bytes (a2 and x read, the output written); weights and vectors once.
+    a1 counts its n*h*w*W codes (``lay.codes``), not the slab's pads."""
+    split = kernel_split_ms(call, 10, tuple(NV_ID_PARTS.values()),
+                            need=tuple(NV_ID_PARTS.values()))
+    m, a1 = plan.m, plan.lay.codes
+    conv2_ops = 2 * m * 9 * wdt * wdt / ops_int8 * 1e3
+    conv2_bytes = (a1 + m * wdt + 9 * wdt * wdt + 8 * wdt) / bw * 1e3
+    out = dict(
+        dev_ms=sum(split.values()) if split else None,
+        conv1_bound_ms=(m * cin + a1 + wdt * cin + 8 * wdt) / bw * 1e3,
+        conv2_bound_ms=max(conv2_ops, conv2_bytes),
+        conv2_bound_by="operations" if conv2_ops >= conv2_bytes else "bytes",
+        out_bound_ms=(m * wdt + m * cout * (2 if out_int8 else 3)
+                      + cout * wdt + 8 * cout) / bw * 1e3)
+    for part, key in NV_ID_PARTS.items():
+        out[f"{part}_dev_ms"] = split[key] if split else None
+    return out
 
 
 def bneck_serving_phase(workdir):
@@ -3300,16 +3340,34 @@ def bneck_serving_phase(workdir):
         n_quantized=qp.n_quantized, profile=profile)
 
 
+def add_scaled(tot, row, scale):
+    """tot[key] += row[key] * scale for every key of ``tot``; a key that a
+    row lacks a measurement of (None) stays None: a sum over shapes is
+    reported only where every shape was measured."""
+    for key in tot:
+        tot[key] = (None if tot[key] is None or row[key] is None
+                    else tot[key] + row[key] * scale)
+
+
+NV_ID_ROW_KEYS = ("dev_ms", "conv1_dev_ms", "conv2_dev_ms", "out_dev_ms",
+                  "conv1_bound_ms", "conv2_bound_ms", "conv2_bound_by",
+                  "out_bound_ms")
+
+
 def nv_summary(rows, serving):
     """One entry per NV kernel: the serving path's launches of its output
     kernel (its conv1 and conv2 launches beside), and per-batch times:
     the kernel phase's per-block times summed over the (shape, output
     type) mix the main path launched, per serving batch."""
     out = []
+    part_keys = [f"{p}_{k}" for p in NV_ID_PARTS for k in ("dev_ms",
+                                                            "bound_ms")]
     for name in NV_NAMES:
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
+        if name == "bneck_block_nv":
+            tot.update({k: 0.0 for k in ["dev_ms"] + part_keys})
         for (kname, _, h, w, cin, wdt, cout, stride, out_int8), count in \
                 serving["shapes"].items():
             if kname != name:
@@ -3317,8 +3375,7 @@ def nv_summary(rows, serving):
             row = next(r for r in mine if (r["h"], r["cin"], r["wdt"],
                                            r["stride"], r["out_int8"])
                        == (h, cin, wdt, stride, out_int8))
-            for key in tot:
-                tot[key] += row[key] * count / serving["n_serve"]
+            add_scaled(tot, row, count / serving["n_serve"])
         out.append(dict(
             name=name, route="cuda", source=NV_SOURCE,
             replaces=REPLACES[name],
@@ -3336,8 +3393,12 @@ def nv_summary(rows, serving):
             stages=[{k: r[k] for k in ("kind", "h", "cin", "wdt", "cout",
                                        "stride", "out_int8", "ms",
                                        "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by", "max_abs_err")}
+                                       "bound_by", "max_abs_err")
+                     + NV_ID_ROW_KEYS if k in r}
                     for r in mine]))
+        if name == "bneck_block_nv":
+            out[-1].update(design=NV_ID_DESIGN, parts_per_batch={
+                k: tot[k] for k in ["dev_ms"] + part_keys})
     return out
 
 
@@ -4221,7 +4282,6 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
         tot.update({k: 0.0 for k in NV_PART_KEYS if k in mine[0]})
-        no_library = mine[0]["library_ms"] is None
         for (st, conv, mode, n, h, w, cin, cout), count in \
                 training["shapes"].items():
             if st != stage:
@@ -4229,8 +4289,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
             row = next(r for r in mine if (r["n"], r["h"], r["conv"],
                                            r["mode"], r["cin"], r["cout"])
                        == (n, h, conv, mode, cin, cout))
-            for key in tot:
-                tot[key] += (row[key] or 0.0) * count / training["steps"]
+            add_scaled(tot, row, count / training["steps"])
         out.append(dict(
             name=name, route="cuda", source=SOURCES.get(name, NVT_SOURCE),
             replaces=REPLACES[name],
@@ -4244,7 +4303,7 @@ def nv_train_summary(rows, training, names=NVT_NAMES, run="FQT"):
             bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=None if no_library else tot["library_ms"],
+            library_ms=tot["library_ms"],
             **{k: tot[k] for k in NV_PART_KEYS if k in tot},
             per=f"ResNet-50 {run} train step at batch {BATCH} (ms per "
                 "call summed over the step's halves; launches over the run)",
@@ -4726,6 +4785,11 @@ def main() -> int:
             if "serialized" in line:
                 print(f"  ptxas {lib_name}: {line.strip()}")
 
+    # the NV identity block's kernels on the s8 wgmma mainloop
+    for e in ptxas_entries(build.build_log("bneck_nv"), "bneck_wgmma"):
+        print(f"  ptxas bneck_nv {e['name']}: {e['registers']} registers, "
+              f"{e['spill_bytes']} B spilled")
+
     # the stem's weight gradient: mma.sync bf16 over a cp.async ring
     for e in ptxas_entries(build.build_log("stem"), "stem_wgrad_tc_kernel"):
         print(f"  ptxas stem {e['name']}: {e['registers']} registers, "
@@ -4787,7 +4851,7 @@ def main() -> int:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "h", "cin", "wdt", "cout", "stride", "out_int8", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")}))
+            "max_abs_err") + NV_ID_ROW_KEYS if k in r}))
     for r in nvt_rows + nvt_bf16_rows:
         print("  " + json.dumps({k: r[k] for k in (
             "name", "n", "h", "conv", "mode", "cin", "cout", "rch", "ms",

@@ -760,16 +760,19 @@ class FwdInt8Layout(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def fwd_int8_layout(n: int, h: int, w: int, cin: int, taps: int,
-                    rch: int) -> FwdInt8Layout:
+                    rch: int, pad: bool = True) -> FwdInt8Layout:
     """The int8 forward's slab layout for an [n, h, w, cin] activation,
     ``taps`` 1 or 9 and row chunk ``rch`` (see ``FwdInt8Layout``): K steps
-    of 128 bytes where the padded channels allow, else 64. Cached: every
-    call of the forward asks."""
+    of 128 bytes where the padded channels allow, else 64. ``pad=False``
+    keeps cp = cin (a mainloop whose boxes of 128, 64 and 32 bytes take any
+    cin % 32, as the serving identity block's slab, ``bneck_nv``; its K
+    step then 32 where 64 does not divide cin). Cached: every call of the
+    forward asks."""
     if taps not in (1, 9):
         raise ValueError(f"taps={taps}: the halves are 1x1 or 3x3")
     _check_rch("fwd_int8_layout", h, rch)
-    cp = -(-cin // 64) * 64
-    bk = 128 if cp % 128 == 0 else 64
+    cp = -(-cin // 64) * 64 if pad else cin
+    bk = 128 if cp % 128 == 0 else 64 if cp % 64 == 0 else 32
     halo = 1 if taps == 9 else 0
     wq = w + halo
     guard = halo * n

@@ -8,12 +8,11 @@
 //   bneck_transition_nv  <- bneck_transition_nv, body
 //                           _nv_transition_kernel with _sel_stride2
 //                           (stride 1 or 2, 1x1 projection shortcut)
-// Each block is three launches of one int8 GEMM kernel template:
+// Each block is three launches:
 //   conv1: a1 = requant(x[M, Cin] . w1[W, Cin]^T, p1, q1), every input
 //          position;
-//   conv2: a2 = requant(conv3x3(a1, w2, stride, padding 1), p2, q2), an
-//          implicit GEMM whose gather zero-fills positions outside the
-//          image (conv2's padding is zeros of a1, not requant of zero);
+//   conv2: a2 = requant(conv3x3(a1, w2, stride, padding 1), p2, q2)
+//          (conv2's padding is zeros of a1, not requant of zero);
 //   out:   y = acc3*p3 + q3 (acc3 = a2 . w3^T), then relu(x*r + y) for
 //          the identity block or relu(accP*pp + y) for the transition
 //          (accP = x[::s, ::s] . wp^T, a second contraction in the same
@@ -23,21 +22,53 @@
 // kernel's NV layout, halo slivers, row-parity selects and tile pickers
 // serve Mosaic's layout and VMEM and are not carried over.
 //
-// What bounds them on an H100: at ResNet-50's stage shapes (batch 128) a
-// block is 2*N*(h*w*Cin*W + oh*ow*(9*W^2 + W*Cout [+ Cin*Cout])) int8
-// operations, 0.05-0.20 ms at 1979 TOP/s, against 1-2 B per position and
-// channel of int8 carrier in and out, 0.01-0.06 ms at 3.35 TB/s: the
-// tensor cores bound the block, as they bind a GEMM of these sizes.
+// What bounds them on an H100: at ResNet-50's stage shapes (batch 128) an
+// identity block is 55.9 GOP (0.028 ms at 1979 TOP/s) against about M *
+// (3 * Cin + 4 * W) bytes on the route below (x read twice, a1 and a2
+// written and read once each, the output written: 411 / 206 / 103 / 51 MB,
+// 0.123 / 0.061 / 0.031 / 0.015 ms at 3.35 TB/s at stages 1-4): the bytes
+// bound it; conv1 and conv3 are short-K GEMMs (one to sixteen K steps of
+// 128 bytes), mostly epilogue.
 //
-// What the design does about it: the products run on the tensor cores
-// (ldmatrix + mma.sync m16n8k32 s8, s32 accumulators in registers), fed
-// by a 4-stage cp.async pipeline of 128x32 and 64x32 byte tiles, and every
-// epilogue runs on the accumulators in registers, so no s32 accumulator
-// reaches device memory. What is left on the table (later work): a1 and
-// a2 make one int8 round trip each through device memory (the TPU kernel
-// keeps them in VMEM and recomputes conv1 on the halo rows); wgmma, TMA
-// and larger tiles; the stage-1 conv1 re-reads its input once per 64
-// output channels.
+// The identity block (namespace bneck_wgmma) runs all three products on
+// fwd_wgmma_s8.cuh's mainloop, unchanged (TMA boxes of 128, 64 and 32
+// bytes in their own swizzles, s8 wgmma m64nBNk32 from two consumer
+// warpgroups, thread 0 starting the loads, two blocks an SM), each with an
+// epilogue of its own that stages the tile in the drained ring and writes
+// it in 16-byte vectors:
+// - conv1 reads x [n*h*w, Cin] (one tap, rows past M read as zeros) and
+//   writes a1 straight into the padded slab of ops/cuda/bneck_nv.py
+//   serve_slab_layout: images innermost, a zero column after each row (wq
+//   = w + 1), a zero halo row above and below, n guard rows at each end,
+//   zeros to whole 128-row tiles, W bytes a position. Position (y, x) of
+//   image i is slab row guard + ((y + 1) * wq + x) * n + i. The same
+//   launch writes every pad byte of the slab, zero, exactly once: each
+//   position also writes the pads attached to it (its right-hand pad
+//   column where x = w - 1, its halo-row twins where y = 0 or h - 1, guard
+//   slot i at (0, 0), its share of the back guard and tail at (h - 1, w -
+//   1)), each N tile its own channels. No memset, no zeroed buffer kept
+//   across calls.
+// - conv2 walks the nine taps over the slab: tap (dy, dx) of M row m is
+//   slab row m + guard + (dy * wq + dx - 1) * n for every row, image and
+//   border (the zero column is the left neighbour of column 0 and the
+//   right one of column w - 1). M is the slab's padded positions, m = (r *
+//   wq + c) * n + i, in whole tiles; the epilogue writes the live rows (c
+//   < w, r < h) to a2 [n, h, w, W] and drops the pad column and the tail.
+// - out reads a2 [n*h*w, W] (one tap); its epilogue stages y = fma(f32(
+//   acc3), p3, q3) as f32 row-major and each thread takes 16 channels of a
+//   row: one 16-byte load of x, then 16 int8 bytes or 32 bf16 bytes.
+// BN = 64 where the N extent is at most 64, else 128 (a masked ragged last
+// tile); the grid is one dimension with the N tiles of one M tile
+// neighbours, so that they read its A boxes through L2. Left for later: a1
+// and a2 kept on chip (the TPU kernel keeps them in VMEM and recomputes
+// conv1 on the halo rows), conv2 and conv3 fused, persistent blocks.
+//
+// The transition block still runs the first design until it moves too
+// (namespace anonymous): one mma.sync template (ldmatrix + mma.sync
+// m16n8k32 s8, s32 accumulators in registers) fed by a 4-stage cp.async
+// pipeline of 128x32 and 64x32 byte tiles, every epilogue on the
+// accumulators in registers; conv2's gather zero-fills positions outside
+// the image.
 //
 // Rounding follows the reference (tests/test_torch_bneck_nv.py pins each
 // point): s32 -> f32 with __int2float_rn; acc*p + q, x*r + y and
@@ -45,10 +76,16 @@
 // half to even (rintf) and clip to +-127; the bf16 exit with
 // __float2bfloat16_rn.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
+#include <type_traits>
+
+#include "fwd_wgmma_s8.cuh"  // mainloop, Tile, Maps, encode_maps
 #include "mma_sync.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
 
 using conv3x3::ldmatrix_x4;
@@ -326,10 +363,431 @@ AOp plane(const void* ptr, int k, int c, int h, int w, int stride) {
 
 }  // namespace
 
+// --- the identity block on the TMA-fed s8 wgmma mainloop -------------------
+
+namespace bneck_wgmma {
+
+using fwd_wgmma_s8::ALIGN;
+using fwd_wgmma_s8::BK;
+using fwd_wgmma_s8::BM;
+using fwd_wgmma_s8::Maps;
+using fwd_wgmma_s8::THREADS;
+using fwd_wgmma_s8::Tile;
+using wgrad_staged::smem_u32;
+
+// The slab's geometry (ops/cuda/bneck_nv.py serve_slab_layout): position
+// (y, x) of image i at row guard + ((y + 1) * wq + x) * n + i; `back`
+// rows of back guard and tail from row `end`.
+struct Geo {
+  int n, h, w, wq, guard, end, back;
+};
+
+struct Conv1Args {
+  const float* p;      // [wdt]
+  const float* q;
+  signed char* slab;   // [slab_len][wdt]
+  Geo g;
+  int m;               // n * h * w rows of x
+  int cin, wdt, n_tiles;
+  int shift[1];        // the one tap's row offset: 0
+};
+
+struct Conv2Args {
+  const float* p;      // [wdt]
+  const float* q;
+  signed char* a2;     // [n, h, w, wdt]
+  Geo g;
+  int wdt, n_tiles;
+  int shift[9];        // slab row of tap t for M row 0
+};
+
+struct OutArgs {
+  const float* p3;        // [cout]
+  const float* q3;
+  const signed char* x;   // [m][cout]: the block input
+  void* out;              // [m][cout] int8 (out_int8) or bf16
+  float r;
+  int m, wdt, cout, out_int8, n_tiles;
+  int shift[1];           // the one tap's row offset: 0
+};
+
+// The int8 epilogues' use of the drained ring: the requantized tile [BM]
+// [OS] (OS = BN + 16 bytes: a warp's char2 fragment stores of 8 rows fall
+// in distinct banks, and each row's vectors stay 16-byte aligned), the
+// channels' p and q [2][BN], each row's target row (at) and pad flags.
+template <int BN>
+struct Stage8 {
+  static constexpr int OS = BN + 16;
+  static constexpr int PAR_OFF = BM * OS;
+  static constexpr int AT_OFF = PAR_OFF + 2 * BN * 4;
+  static constexpr int FLAG_OFF = AT_OFF + BM * 4;
+  static constexpr int BYTES = FLAG_OFF + BM * 4;
+  static_assert(PAR_OFF % 16 == 0, "vectors");
+  static_assert(BYTES <= Tile<BN>::RING, "the epilogue fits the ring");
+};
+
+// The output epilogue's: y [BM][OS] f32, p3 and q3 [2][BN]. Column c of
+// a row lies at word at(c) = c + 4 (c / 16): the 16-channel vectors that
+// 8 lanes read at once start 20 words apart, in distinct banks; OS = BN +
+// BN / 4 + 8 words puts a half-warp's float2 fragment stores of 4 rows in
+// distinct banks too.
+template <int BN>
+struct StageOut {
+  static constexpr int OS = BN + BN / 4 + 8;
+  static constexpr int PAR_OFF = BM * OS * 4;
+  static constexpr int BYTES = PAR_OFF + 2 * BN * 4;
+  static constexpr int VPR = BN / 16;        // 16-channel vectors a row
+  static constexpr int RS = THREADS / VPR;   // rows the block takes at once
+  static constexpr int ROWS = BM / RS;       // rows a thread
+  static_assert(BM % RS == 0 && OS % 4 == 0, "whole rows, aligned vectors");
+  static_assert(BYTES <= Tile<BN>::RING, "the epilogue fits the ring");
+  __device__ static __forceinline__ int at(int c) { return c + 4 * (c / 16); }
+};
+
+__device__ __forceinline__ signed char requant1(int acc, float p, float q) {
+  return quant_s8(fmaxf(__fmaf_rn(__int2float_rn(acc), p, q), 0.f));
+}
+
+// The channels [n0, n0 + BN) of p and q into par[2][BN] (zero past cols).
+template <int BN>
+__device__ __forceinline__ void load_par(float* par, const float* p,
+                                         const float* q, int n0, int cols) {
+  const int tid = threadIdx.x;
+  if (tid < BN) {
+    par[tid] = tid < cols ? p[n0 + tid] : 0.f;
+    par[BN + tid] = tid < cols ? q[n0 + tid] : 0.f;
+  }
+}
+
+// requant(acc) staged int8 row-major: acc[4 j + 2 h + e] of thread t (warp
+// w, lane l) is row 64 (w / 4) + 16 (w % 4) + l / 4 + 8 h of the tile,
+// column 8 j + 2 (l % 4) + e.
+template <int BN>
+__device__ __forceinline__ void stage_requant(const int (&acc)[BN / 2],
+                                              const float* par,
+                                              signed char* tile) {
+  using S = Stage8<BN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    const float p0 = par[col], p1 = par[col + 1];
+    const float q0 = par[BN + col], q1 = par[BN + col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      char2 v;
+      v.x = requant1(acc[4 * j + 2 * h], p0, q0);
+      v.y = requant1(acc[4 * j + 2 * h + 1], p1, q1);
+      *reinterpret_cast<char2*>(tile + (row + 8 * h) * S::OS + col) = v;
+    }
+  }
+}
+
+__device__ __forceinline__ void put16(signed char* base, int row, int wdt,
+                                      uint4 v) {
+  *reinterpret_cast<uint4*>(base + (size_t)row * wdt) = v;
+}
+
+// Pad flags of a position: the pads it writes besides its own row
+enum Pads { RIGHT = 1, TOP = 2, BOTTOM = 4, FRONT = 8, BACK = 16 };
+
+// Grid (n_tiles * ceil(m / BM)): block i computes channels [j * BN, j * BN
+// + BN) of a1 at the NHWC rows [k * BM, k * BM + BM), j = i % n_tiles, k =
+// i / n_tiles, and writes them and their attached pads to the slab. REM =
+// Cin % 128 names the tap's last boxes.
+template <int BN, int REM>
+__global__ void __launch_bounds__(THREADS, 2)
+    conv1_kernel(const __grid_constant__ Maps mp,
+                 const __grid_constant__ Conv1Args p) {
+  using S = Stage8<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  const int tid = threadIdx.x;
+  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
+  const int m0 = (int)(blockIdx.x / p.n_tiles) * BM;
+  int acc[BN / 2];
+  fwd_wgmma_s8::mainloop<BN, REM>(mp, p.cin, p.shift, raw + pad, m0, n0, acc,
+                                  0, 1);
+
+  signed char* tile = reinterpret_cast<signed char*>(ring);
+  float* par = reinterpret_cast<float*>(ring + S::PAR_OFF);
+  int* at = reinterpret_cast<int*>(ring + S::AT_OFF);
+  int* flags = reinterpret_cast<int*>(ring + S::FLAG_OFF);
+  const Geo& g = p.g;
+  const int cols = min(BN, p.wdt - n0);
+  load_par<BN>(par, p.p, p.q, n0, cols);
+  if (tid < BM) {
+    const int m = m0 + tid;
+    int row = -1, f = 0;
+    if (m < p.m) {
+      const int hw = g.h * g.w, i = m / hw, rem = m - i * hw;
+      const int y = rem / g.w, x = rem - y * g.w;
+      row = g.guard + ((y + 1) * g.wq + x) * g.n + i;
+      f = (x == g.w - 1 ? RIGHT : 0) | (y == 0 ? TOP : 0) |
+          (y == g.h - 1 ? BOTTOM : 0) | (x == 0 && y == 0 ? FRONT : 0) |
+          (x == g.w - 1 && y == g.h - 1 ? BACK : 0);
+    }
+    at[tid] = row;
+    flags[tid] = f;
+  }
+  __syncthreads();
+  stage_requant<BN>(acc, par, tile);
+  __syncthreads();
+
+  // each row's vectors to its slab row, and zeros to its pads
+  constexpr int VPR = BN / 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int up = g.wq * g.n;  // rows between vertical neighbours
+  for (int idx = tid; idx < BM * VPR; idx += THREADS) {
+    const int r = idx / VPR, v = idx - r * VPR;
+    const int row = at[r];
+    if (row < 0 || 16 * v >= cols) continue;
+    signed char* base = p.slab + n0 + 16 * v;
+    put16(base, row, p.wdt,
+          *reinterpret_cast<const uint4*>(tile + r * S::OS + 16 * v));
+    const int f = flags[r];
+    if (f == 0) continue;
+    if (f & RIGHT) put16(base, row + g.n, p.wdt, zero);
+    if (f & TOP) {
+      put16(base, row - up, p.wdt, zero);
+      if (f & RIGHT) put16(base, row - up + g.n, p.wdt, zero);
+    }
+    if (f & BOTTOM) {
+      put16(base, row + up, p.wdt, zero);
+      if (f & RIGHT) put16(base, row + up + g.n, p.wdt, zero);
+    }
+    if (f & FRONT) put16(base, row - up - g.guard, p.wdt, zero);
+    if (f & BACK)
+      for (int j = (row - g.guard) % g.n; j < g.back; j += g.n)
+        put16(base, g.end + j, p.wdt, zero);
+  }
+}
+
+// The NHWC row of conv2's M row m (slab position (r, c, i), m = (r * wq +
+// c) * n + i), or -1 for the pad column and the tail: fwd_staged_s8.cuh
+// y_pos's rule at one chunk of h rows.
+__device__ __forceinline__ int nhwc_row(const Geo& g, int m) {
+  const int site = m / g.n, i = m - site * g.n;
+  const int r = site / g.wq, c = site - r * g.wq;
+  return (r < g.h && c < g.w) ? (i * g.h + r) * g.w + c : -1;
+}
+
+// Grid (n_tiles * tiles): block i computes channels [j * BN, j * BN + BN)
+// of a2 at the slab's M rows [k * BM, k * BM + BM). REM = W % 128.
+template <int BN, int REM>
+__global__ void __launch_bounds__(THREADS, 2)
+    conv2_kernel(const __grid_constant__ Maps mp,
+                 const __grid_constant__ Conv2Args p) {
+  using S = Stage8<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  const int tid = threadIdx.x;
+  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
+  const int m0 = (int)(blockIdx.x / p.n_tiles) * BM;
+  int acc[BN / 2];
+  fwd_wgmma_s8::mainloop<BN, REM>(mp, p.wdt, p.shift, raw + pad, m0, n0,
+                                  acc);
+
+  signed char* tile = reinterpret_cast<signed char*>(ring);
+  float* par = reinterpret_cast<float*>(ring + S::PAR_OFF);
+  int* at = reinterpret_cast<int*>(ring + S::AT_OFF);
+  const int cols = min(BN, p.wdt - n0);
+  load_par<BN>(par, p.p, p.q, n0, cols);
+  if (tid < BM) at[tid] = nhwc_row(p.g, m0 + tid);
+  __syncthreads();
+  stage_requant<BN>(acc, par, tile);
+  __syncthreads();
+
+  constexpr int VPR = BN / 16;
+  for (int idx = tid; idx < BM * VPR; idx += THREADS) {
+    const int r = idx / VPR, v = idx - r * VPR;
+    const int row = at[r];
+    if (row >= 0 && 16 * v < cols)
+      put16(p.a2 + n0 + 16 * v, row, p.wdt,
+            *reinterpret_cast<const uint4*>(tile + r * S::OS + 16 * v));
+  }
+}
+
+// Grid (n_tiles * ceil(m / BM)): block i computes output channels [j * BN,
+// j * BN + BN) of the rows [k * BM, k * BM + BM). REM = W % 128.
+template <int BN, int REM>
+__global__ void __launch_bounds__(THREADS, 2)
+    out_kernel(const __grid_constant__ Maps mp,
+               const __grid_constant__ OutArgs p) {
+  using S = StageOut<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  const int tid = threadIdx.x;
+  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
+  const int m0 = (int)(blockIdx.x / p.n_tiles) * BM;
+  int acc[BN / 2];
+  fwd_wgmma_s8::mainloop<BN, REM>(mp, p.wdt, p.shift, raw + pad, m0, n0, acc,
+                                  0, 1);
+
+  // y = fma(f32(acc), p3, q3) staged f32 row-major
+  float* ys = reinterpret_cast<float*>(ring);
+  float* par = reinterpret_cast<float*>(ring + S::PAR_OFF);
+  const int cols = min(BN, p.cout - n0);
+  load_par<BN>(par, p.p3, p.q3, n0, cols);
+  __syncthreads();
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float p0 = par[col], p1 = par[col + 1];
+      const float q0 = par[BN + col], q1 = par[BN + col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* y = ys + (row + 8 * h) * S::OS + S::at(col);
+        *reinterpret_cast<float2*>(y) = make_float2(
+            __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h]), p0, q0),
+            __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), p1, q1));
+      }
+    }
+  }
+  __syncthreads();
+
+  // thread (r0, v): channels n0 + 16 v of rows r0 + RS k; the x loads of
+  // its rows issued together, then relu(fma(f32(x), r, y)) stored as 16
+  // int8 or bf16
+  const int v = tid % S::VPR, r0 = tid / S::VPR;
+  if (16 * v >= cols) return;
+  const int c0 = n0 + 16 * v;
+  int m[S::ROWS];
+  uint4 xr[S::ROWS];
+#pragma unroll
+  for (int k = 0; k < S::ROWS; ++k) {
+    m[k] = m0 + r0 + S::RS * k;
+    if (m[k] < p.m)
+      xr[k] = *reinterpret_cast<const uint4*>(p.x + (size_t)m[k] * p.cout +
+                                              c0);
+  }
+#pragma unroll
+  for (int k = 0; k < S::ROWS; ++k) {
+    if (m[k] >= p.m) continue;
+    const float* y = ys + (r0 + S::RS * k) * S::OS + S::at(16 * v);
+    const signed char* xb = reinterpret_cast<const signed char*>(&xr[k]);
+    float o[16];
+#pragma unroll
+    for (int e = 0; e < 16; e += 4) {
+      const float4 yv = *reinterpret_cast<const float4*>(y + e);
+      o[e] = fmaxf(__fmaf_rn((float)xb[e], p.r, yv.x), 0.f);
+      o[e + 1] = fmaxf(__fmaf_rn((float)xb[e + 1], p.r, yv.y), 0.f);
+      o[e + 2] = fmaxf(__fmaf_rn((float)xb[e + 2], p.r, yv.z), 0.f);
+      o[e + 3] = fmaxf(__fmaf_rn((float)xb[e + 3], p.r, yv.w), 0.f);
+    }
+    const size_t at = (size_t)m[k] * p.cout + c0;
+    if (p.out_int8) {
+      uint4 q;
+      signed char* qb = reinterpret_cast<signed char*>(&q);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) qb[e] = quant_s8(o[e]);
+      *reinterpret_cast<uint4*>(static_cast<signed char*>(p.out) + at) = q;
+    } else {
+      uint4 b[2];
+      __nv_bfloat16* bb = reinterpret_cast<__nv_bfloat16*>(b);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) bb[e] = __float2bfloat16_rn(o[e]);
+      uint4* dst = reinterpret_cast<uint4*>(
+          static_cast<__nv_bfloat16*>(p.out) + at);
+      dst[0] = b[0];
+      dst[1] = b[1];
+    }
+  }
+}
+
+// --- the host side ---------------------------------------------------------
+
+// The three launches' maps, encoded before the first launch.
+struct Plan {
+  Maps conv1;  // x [m][cin], w1 [wdt][cin]
+  Maps conv2;  // the slab [slab_len][wdt], w2 [wdt][9 * wdt]
+  Maps out;    // a2 [m][wdt], w3 [cout][wdt]
+};
+
+// One launch of kernel (its dynamic shared memory raised once: smem_set)
+template <typename K, typename A>
+inline cudaError_t start(K kernel, int smem, bool& smem_set, const Maps& mp,
+                         const A& a, long blocks, cudaStream_t stream) {
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(mp, a);
+  return cudaGetLastError();
+}
+
+// fn(BN, REM) at compile time for bn (64 or 128) and k % 128 (k % 32 ==
+// 0): every wgmma has its width and every tap its boxes at compile time.
+template <typename Fn>
+inline cudaError_t dispatch(int bn, int k, Fn&& fn) {
+  using std::integral_constant;
+  using B64 = integral_constant<int, 64>;
+  using B128 = integral_constant<int, 128>;
+  using R0 = integral_constant<int, 0>;
+  using R32 = integral_constant<int, 32>;
+  using R64 = integral_constant<int, 64>;
+  using R96 = integral_constant<int, 96>;
+  const int rem = k % BK;
+  if (bn == 64) {
+    switch (rem) {
+      case 0: return fn(B64{}, R0{});
+      case 32: return fn(B64{}, R32{});
+      case 64: return fn(B64{}, R64{});
+      default: return fn(B64{}, R96{});
+    }
+  }
+  switch (rem) {
+    case 0: return fn(B128{}, R0{});
+    case 32: return fn(B128{}, R32{});
+    case 64: return fn(B128{}, R64{});
+    default: return fn(B128{}, R96{});
+  }
+}
+
+inline bool tile_ok(int bn) { return bn == 64 || bn == 128; }
+
+inline bool chans_ok(int c) { return c >= 32 && c % 32 == 0; }
+
+// The slab's geometry and row count from (n, h, w, wdt), or false where
+// the rows would pass 32-bit indices.
+inline bool geometry(int n, int h, int w, Geo* g, long* slab_len,
+                     int* tiles) {
+  if (n < 1 || h < 1 || w < 1) return false;
+  const long wq = w + 1, m_valid = (long)h * wq * n;
+  const long t = (m_valid + BM - 1) / BM;
+  const long len = 2L * n + (h + 2L) * wq * n + t * BM - m_valid;
+  if (len >= 0x7fffffffL || (long)n * h * w >= 0x7fffffffL) return false;
+  *g = Geo{n, h, w, (int)wq, n, (int)(n + (h + 2L) * wq * n),
+           (int)(len - (n + (h + 2L) * wq * n))};
+  *slab_len = len;
+  *tiles = (int)t;
+  return true;
+}
+
+inline void tile_copy(Maps* dst, const void* plan, size_t off) {
+  memcpy(dst, static_cast<const unsigned char*>(plan) + off, sizeof(Maps));
+}
+
+}  // namespace bneck_wgmma
+
 extern "C" {
 
 // Every channel count is a multiple of 32; every pointer 16-byte aligned;
-// tensors contiguous. Each returns the launch's cudaError_t.
+// tensors contiguous. Each returns the launch's cudaError_t. The first
+// design's three launches now serve the transition block alone (the
+// identity block's are below).
 
 // conv1: x [m, cin] int8, w [wdt, cin] int8, p/q [wdt] f32 -> out [m, wdt]
 // int8.
@@ -357,12 +815,12 @@ int bneck_conv2_launch(const void* a1, const void* w2, const void* p,
                                 stream);
 }
 
-// conv3 and the block's output: a2 [nimg, oh, ow, wdt] int8, w3 [cout,
-// wdt], p3/q3 [cout]; x [nimg, h, w, cin] int8 the block input. Identity
-// (wp null): cin == cout, stride 1, out = relu(x*r + y). Transition: wp
-// [cout, cin] int8, pp [cout] f32, out = relu(accP*pp + y) with accP over
-// x[::stride, ::stride]. out [nimg, oh, ow, cout], int8 when out_int8
-// else bf16.
+// conv3 and the transition block's output: a2 [nimg, oh, ow, wdt] int8,
+// w3 [cout, wdt], p3/q3 [cout]; x [nimg, h, w, cin] int8 the block input,
+// wp [cout, cin] int8, pp [cout] f32: out = relu(accP*pp + y) with accP
+// over x[::stride, ::stride]. out [nimg, oh, ow, cout], int8 when
+// out_int8 else bf16. A null wp is refused (the identity block runs on
+// bneck_id_out_launch).
 int bneck_out_launch(const void* a2, const void* w3, const void* p3,
                      const void* q3, const void* x, const void* wp,
                      const void* pp, float r, void* out, int nimg, int h,
@@ -375,9 +833,143 @@ int bneck_out_launch(const void* a2, const void* w3, const void* p3,
                      static_cast<const float*>(q3),
                      static_cast<const signed char*>(x),
                      static_cast<const float*>(pp), r, out, cout, out_int8};
-  if (wp == nullptr) return launch<DENSE, false>(a, w3, a, w3, m, cout, epi,
-                                                 stream);
+  if (wp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<DENSE, true>(a, w3, ap, wp, m, cout, epi, stream);
+}
+
+// --- the identity block: four calls, the maps first -----------------------
+//
+// x [n, h, w, cin] int8; w1 [wdt][cin], w2 [wdt][9 * wdt] (taps row-major
+// in (dy, dx), then input channel), w3 [cout][wdt] int8; the slab
+// [slab_len][wdt] int8 (serve_slab_layout), a2 [n, h, w, wdt] int8, out
+// [n, h, w, cout] int8 or bf16; cin, wdt, cout multiples of 32, cout ==
+// cin; bn1, bn2, bn3 the N tiles (64 or 128) of conv1 (wdt), conv2 (wdt)
+// and out (cout). Each returns a cudaError_t: cudaErrorInvalidValue where
+// the arguments do not fit or the map encoder is missing or refuses.
+
+int bneck_id_plan_bytes(void) {
+  return static_cast<int>(sizeof(bneck_wgmma::Plan));
+}
+
+// Encodes the three launches' maps into plan (a host buffer of
+// bneck_id_plan_bytes() bytes).
+int bneck_id_plan(void* plan, const void* x, const void* w1,
+                  const void* slab, const void* w2, const void* a2,
+                  const void* w3, int n, int h, int w, int cin, int wdt,
+                  int cout, int bn1, int bn2, int bn3) {
+  using namespace bneck_wgmma;
+  Geo g;
+  long slab_len;
+  int tiles;
+  if (!geometry(n, h, w, &g, &slab_len, &tiles) || !chans_ok(cin) ||
+      !chans_ok(wdt) || cout != cin || !tile_ok(bn1) || !tile_ok(bn2) ||
+      !tile_ok(bn3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long m = (long)n * h * w;
+  Plan pl;
+  if (!fwd_wgmma_s8::encode_maps(&pl.conv1, x, m, w1, cin, wdt, bn1, 1) ||
+      !fwd_wgmma_s8::encode_maps(&pl.conv2, slab, slab_len, w2, wdt, wdt,
+                                 bn2, 9) ||
+      !fwd_wgmma_s8::encode_maps(&pl.out, a2, m, w3, wdt, cout, bn3, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  memcpy(plan, &pl, sizeof(Plan));
+  return 0;
+}
+
+// conv1: a1 = requant(x . w1^T, p1, q1) into the slab, every pad byte
+// zero.
+int bneck_id_conv1_launch(const void* plan, const void* p1, const void* q1,
+                          void* slab, int n, int h, int w, int cin, int wdt,
+                          int bn, void* stream) {
+  using namespace bneck_wgmma;
+  Conv1Args a;
+  long slab_len;
+  int tiles;
+  if (!geometry(n, h, w, &a.g, &slab_len, &tiles) || !chans_ok(cin) ||
+      !chans_ok(wdt) || !tile_ok(bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.p = static_cast<const float*>(p1);
+  a.q = static_cast<const float*>(q1);
+  a.slab = static_cast<signed char*>(slab);
+  a.m = n * h * w;
+  a.cin = cin;
+  a.wdt = wdt;
+  a.n_tiles = (wdt + bn - 1) / bn;
+  a.shift[0] = 0;
+  Maps mp;
+  tile_copy(&mp, plan, offsetof(Plan, conv1));
+  const long blocks = (long)a.n_tiles * ((a.m + bneck_wgmma::BM - 1) /
+                                         bneck_wgmma::BM);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(bn, cin, [&](auto b, auto r) {
+    constexpr int B = decltype(b)::value, R = decltype(r)::value;
+    static bool smem_set = false;  // once per kernel
+    return start(conv1_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
+                 st);
+  }));
+}
+
+// conv2: a2 = requant(conv3x3(a1, w2), p2, q2) from the slab.
+int bneck_id_conv2_launch(const void* plan, const void* p2, const void* q2,
+                          void* a2, int n, int h, int w, int wdt, int bn,
+                          void* stream) {
+  using namespace bneck_wgmma;
+  Conv2Args a;
+  long slab_len;
+  int tiles;
+  if (!geometry(n, h, w, &a.g, &slab_len, &tiles) || !chans_ok(wdt) ||
+      !tile_ok(bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.p = static_cast<const float*>(p2);
+  a.q = static_cast<const float*>(q2);
+  a.a2 = static_cast<signed char*>(a2);
+  a.wdt = wdt;
+  a.n_tiles = (wdt + bn - 1) / bn;
+  for (int t = 0; t < 9; ++t)
+    a.shift[t] = a.g.guard + ((t / 3) * a.g.wq + t % 3 - 1) * n;
+  Maps mp;
+  tile_copy(&mp, plan, offsetof(Plan, conv2));
+  const long blocks = (long)a.n_tiles * tiles;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(bn, wdt, [&](auto b, auto r) {
+    constexpr int B = decltype(b)::value, R = decltype(r)::value;
+    static bool smem_set = false;  // once per kernel
+    return start(conv2_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
+                 st);
+  }));
+}
+
+// out = relu(x * r + fma(f32(a2 . w3^T), p3, q3)), int8 when out_int8
+// else bf16; m = n * h * w rows.
+int bneck_id_out_launch(const void* plan, const void* p3, const void* q3,
+                        const void* x, float r, void* out, int m, int wdt,
+                        int cout, int out_int8, int bn, void* stream) {
+  using namespace bneck_wgmma;
+  if (m < 1 || !chans_ok(wdt) || !chans_ok(cout) || !tile_ok(bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  OutArgs a;
+  a.p3 = static_cast<const float*>(p3);
+  a.q3 = static_cast<const float*>(q3);
+  a.x = static_cast<const signed char*>(x);
+  a.out = out;
+  a.r = r;
+  a.m = m;
+  a.wdt = wdt;
+  a.cout = cout;
+  a.out_int8 = out_int8;
+  a.n_tiles = (cout + bn - 1) / bn;
+  a.shift[0] = 0;
+  Maps mp;
+  tile_copy(&mp, plan, offsetof(Plan, out));
+  const long blocks = (long)a.n_tiles * ((m + bneck_wgmma::BM - 1) /
+                                         bneck_wgmma::BM);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(bn, wdt, [&](auto b, auto rr) {
+    constexpr int B = decltype(b)::value, R = decltype(rr)::value;
+    static bool smem_set = false;  // once per kernel
+    return start(out_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
+                 st);
+  }));
 }
 
 }  // extern "C"

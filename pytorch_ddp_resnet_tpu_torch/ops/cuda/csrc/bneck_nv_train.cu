@@ -122,7 +122,7 @@
 
 #include "common.cuh"
 #include "mma_sync.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
-#include "wgrad_staged.cuh"  // the bf16 wgrad's mainloop and ordered sum
+#include "wgrad_staged_launch.cuh"  // the bf16 wgrad and its ordered sum
 #include "wgrad_staged_s8.cuh"  // the int8 wgrad's mainloop
 #include "fwd_staged_s8.cuh"  // the int8 forward's mainloop
 #include "nv_dgrad_wgmma_s8.cuh"  // the int8 input gradient's GEMM
@@ -133,6 +133,68 @@ using conv3x3::ldmatrix_x4;
 using conv3x3::mma_step;
 using conv3x3::quant_s8;
 using conv3x3::smem_addr;
+
+// The launchers of the staged int8 mainloops, here with their only caller
+// (in their headers they would build every instantiation wherever the
+// headers reach).
+namespace fwd_staged_s8 {
+
+template <int BN, int BK>
+inline cudaError_t launch_tile(const Args& p, int chunks,
+                               cudaStream_t stream) {
+  constexpr int smem = Tile<BN, BK>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_staged_s8_kernel<BN, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.cout + BN - 1) / BN, chunks * p.tiles);
+  fwd_staged_s8_kernel<BN, BK><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The GEMM with the tile the caller planned: bn in {64, 128}, K steps of bk
+// in {64, 128} bytes (cp a multiple of bk).
+inline cudaError_t launch(const Args& p, int chunks, int bn, int bk,
+                          cudaStream_t stream) {
+  if (p.cp % bk) return cudaErrorInvalidValue;
+  if (bn == 128 && bk == 128) return launch_tile<128, 128>(p, chunks, stream);
+  if (bn == 128 && bk == 64) return launch_tile<128, 64>(p, chunks, stream);
+  if (bn == 64 && bk == 128) return launch_tile<64, 128>(p, chunks, stream);
+  if (bn == 64 && bk == 64) return launch_tile<64, 64>(p, chunks, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fwd_staged_s8
+
+namespace wgrad_staged_s8 {
+
+template <int BM, int BN>
+inline cudaError_t launch_tile(const Args& p, int chunks,
+                               cudaStream_t stream) {
+  constexpr int smem = Tile<BM, BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_staged_s8_kernel<BM, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.taps * p.cin + BM - 1) / BM, (p.cout + BN - 1) / BN,
+                  chunks * p.splits);
+  wgrad_staged_s8_kernel<BM, BN><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The GEMM with the tile the caller planned: bm, bn in {64, 128}, K steps
+// of bk = K_STEP positions.
+inline cudaError_t launch(const Args& p, int chunks, int bm, int bn, int bk,
+                          cudaStream_t stream) {
+  if (bk != K_STEP) return cudaErrorInvalidValue;
+  if (bm == 128 && bn == 128) return launch_tile<128, 128>(p, chunks, stream);
+  if (bm == 128 && bn == 64) return launch_tile<128, 64>(p, chunks, stream);
+  if (bm == 64 && bn == 128) return launch_tile<64, 128>(p, chunks, stream);
+  if (bm == 64 && bn == 64) return launch_tile<64, 64>(p, chunks, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wgrad_staged_s8
 
 namespace {
 

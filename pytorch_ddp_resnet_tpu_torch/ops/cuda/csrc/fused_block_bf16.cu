@@ -90,7 +90,7 @@
 #include "fused_half.cuh"
 #include "fwd_wgmma_bf16.cuh"  // the forward's GEMM and epilogue
 #include "seed_bits.cuh"
-#include "wgrad_staged.cuh"  // the weight gradient's mainloop and ordered sum
+#include "wgrad_staged_launch.cuh"  // the weight gradient, its ordered sum
 
 // The bf16 forward GEMM's launchers (its kernel is fwd_wgmma_bf16.cuh's
 // fused_fwd_gemm_kernel): here, in its one caller's file, so that the

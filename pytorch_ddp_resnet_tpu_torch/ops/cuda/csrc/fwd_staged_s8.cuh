@@ -402,31 +402,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <int BN, int BK>
-inline cudaError_t launch_tile(const Args& p, int chunks,
-                               cudaStream_t stream) {
-  constexpr int smem = Tile<BN, BK>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_staged_s8_kernel<BN, BK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.cout + BN - 1) / BN, chunks * p.tiles);
-  fwd_staged_s8_kernel<BN, BK><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The GEMM with the tile the caller planned: bn in {64, 128}, K steps of bk
-// in {64, 128} bytes (cp a multiple of bk).
-inline cudaError_t launch(const Args& p, int chunks, int bn, int bk,
-                          cudaStream_t stream) {
-  if (p.cp % bk) return cudaErrorInvalidValue;
-  if (bn == 128 && bk == 128) return launch_tile<128, 128>(p, chunks, stream);
-  if (bn == 128 && bk == 64) return launch_tile<128, 64>(p, chunks, stream);
-  if (bn == 64 && bk == 128) return launch_tile<64, 128>(p, chunks, stream);
-  if (bn == 64 && bk == 64) return launch_tile<64, 64>(p, chunks, stream);
-  return cudaErrorInvalidValue;
-}
-
 // --- the channel-major epilogue (outputs [Cout, lanes]) ----------------------
 
 // A tile's live rows, in order, are one run of output lanes [lane0, lane0 +

@@ -239,30 +239,4 @@ __global__ void __launch_bounds__(THREADS, 2) wgrad_staged_s8_kernel(Args p) {
     }
 }
 
-template <int BM, int BN>
-inline cudaError_t launch_tile(const Args& p, int chunks,
-                               cudaStream_t stream) {
-  constexpr int smem = Tile<BM, BN>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_staged_s8_kernel<BM, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.taps * p.cin + BM - 1) / BM, (p.cout + BN - 1) / BN,
-                  chunks * p.splits);
-  wgrad_staged_s8_kernel<BM, BN><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The GEMM with the tile the caller planned: bm, bn in {64, 128}, K steps
-// of bk = K_STEP positions.
-inline cudaError_t launch(const Args& p, int chunks, int bm, int bn, int bk,
-                          cudaStream_t stream) {
-  if (bk != K_STEP) return cudaErrorInvalidValue;
-  if (bm == 128 && bn == 128) return launch_tile<128, 128>(p, chunks, stream);
-  if (bm == 128 && bn == 64) return launch_tile<128, 64>(p, chunks, stream);
-  if (bm == 64 && bn == 128) return launch_tile<64, 128>(p, chunks, stream);
-  if (bm == 64 && bn == 64) return launch_tile<64, 64>(p, chunks, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace wgrad_staged_s8

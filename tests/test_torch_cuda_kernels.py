@@ -1251,12 +1251,16 @@ def test_fused_fwd_int8_takes_widths_the_backward_refuses_before_any_launch(
 
 
 # (h, w, cin, width, cout, stride, batch): small shapes (a 7-wide plane,
-# 32-channel widths, a batch that is not a power of two), then ResNet-50
-# stage shapes at batch 128
+# 32-channel widths, a batch that is not a power of two, 2x4x4x32), then
+# ResNet-50 stage shapes at batch 128 (its four identity blocks and two
+# transitions) and WRN-50-2's stage-4 identity block
 NV_SHAPES = [(6, 5, 32, 32, 32, 1, 3), (7, 7, 64, 32, 64, 1, 8),
              (6, 6, 32, 32, 96, 2, 4), (5, 7, 64, 32, 128, 2, 2),
-             (8, 8, 32, 64, 64, 1, 2),
-             (28, 28, 512, 128, 512, 1, 128), (7, 7, 2048, 512, 2048, 1, 128),
+             (8, 8, 32, 64, 64, 1, 2), (4, 4, 32, 32, 32, 1, 2),
+             (56, 56, 256, 64, 256, 1, 128), (28, 28, 512, 128, 512, 1, 128),
+             (14, 14, 1024, 256, 1024, 1, 128),
+             (7, 7, 2048, 512, 2048, 1, 128),
+             (7, 7, 2048, 1024, 2048, 1, 128),
              (56, 56, 64, 64, 256, 1, 128), (14, 14, 1024, 512, 2048, 2, 128)]
 
 
@@ -1298,6 +1302,47 @@ def test_nv_kernels_match_plain(dev, h, w, cin, wdt, cout, stride, b,
                                  name: 1}
     assert want.unique().numel() > 20
     _same(got, want)
+    if not proj:   # the identity block: bit-equal, and from call to call
+        assert torch.equal(got, want)
+        assert torch.equal(nv.bneck_block_nv(*args, out_int8=out_int8), got)
+
+
+@pytest.mark.parametrize("b,h,w,cin,wdt", [(3, 6, 5, 32, 32),
+                                           (2, 4, 7, 96, 96),
+                                           (128, 14, 14, 1024, 256)])
+def test_nv_identity_conv1_writes_every_pad(dev, b, h, w, cin, wdt):
+    """The identity block's slab, filled with nonzero bytes before conv1
+    (the wrapper's test hook), comes out equal to its plain build: every
+    pad byte zero, every position a1."""
+    g = torch.Generator(device=dev).manual_seed(b + cin)
+    x = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=g,
+                      dtype=torch.int8)
+    ws = [torch.randint(-127, 128, s, device=dev, generator=g,
+                        dtype=torch.int8)
+          for s in ((wdt, cin), (wdt, 9 * wdt), (cin, wdt))]
+    vecs = []
+    for c, fan in ((wdt, cin), (wdt, 9 * wdt), (cin, wdt)):
+        vecs += [(torch.rand(c, device=dev, generator=g) + 0.5) * 40
+                 / (fan ** 0.5 * 127 ** 2 / 3),
+                 torch.rand(c, device=dev, generator=g) * 4 - 2]
+    slabs = []
+
+    def fill(slab):
+        slab.fill_(90)
+        slabs.append(slab)
+
+    nv._slab_hook = fill
+    try:
+        got = nv.bneck_block_nv(x, *ws, *vecs, 0.37)
+    finally:
+        nv._slab_hook = None
+    torch.cuda.synchronize()
+    assert len(slabs) == 1
+    lay = nv.identity_plan(b, h, w, cin, wdt, cin).lay
+    want = nv.identity_slab_plain(x, ws[0], vecs[0], vecs[1], lay)
+    assert want.shape == slabs[0].shape
+    assert torch.equal(slabs[0], want)
+    assert torch.equal(got, nv.bneck_block_nv_plain(x, *ws, *vecs, 0.37))
 
 
 def test_nv_cuda_tensor_never_falls_back(dev):
@@ -1312,6 +1357,10 @@ def test_nv_cuda_tensor_never_falls_back(dev):
            for s in ((32, 32), (32, 9 * 32), (32, 32))]
     with pytest.raises(ValueError, match="contiguous"):
         nv.bneck_block_nv(x32.transpose(1, 2), *w32, *[v[:32]] * 6, 1.0)
+    nv.reset_launches()
+    with pytest.raises(ValueError, match="vectors"):
+        nv.bneck_block_nv(x32, *w32, v[:16], *[v[:32]] * 5, 1.0)
+    assert not nv.launches   # raised before the first launch
 
 
 def test_bneck_nhwc_int8_products_match_plain(dev):

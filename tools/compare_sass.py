@@ -4,9 +4,11 @@ only one build has, which are the same instruction for instruction, which
 differ only in the offsets of their kernel parameters (``c[0x0][...]``:
 an argument struct that changed its layout), which only changed their
 name (the same code under a new symbol), and which differ (with their
-first differing lines). Names in an anonymous namespace carry a hash of
-the file's path, which differs between checkouts; it is masked before
-comparing.
+first differing lines). Names in an anonymous namespace carry two
+hashes (``_GLOBAL__N__<hash>_<len>_<file>_cu_<hash>``) that differ
+between builds; both are masked before comparing, in the kernels' names
+and in their code (a kernel whose code names its own shared memory or a
+sibling carries them there too).
 
 Run on a machine with the CUDA toolkit, from the root of one checkout:
 
@@ -29,7 +31,7 @@ import subprocess
 import sys
 import time
 
-_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_(\d+_\w+?_cu)_[0-9a-f]{8}")
 _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 _ENCODING = re.compile(r"/\* 0x[0-9a-f]{16} \*/")
 
@@ -76,7 +78,7 @@ def kernels(path: str, cuobjdump: str) -> dict:
                           text=True, check=True).stdout
     out, name = {}, None
     for line in text.splitlines():
-        line = _HASH.sub("_GLOBAL__N__X_", line)
+        line = _HASH.sub(r"_GLOBAL__N__X_\1_H", line)
         if "Function : " in line:
             name = line.split("Function : ", 1)[1].strip()
             out[name] = []
@@ -122,7 +124,10 @@ def main() -> int:
               f"under a new name, {len(differ)} differ, {len(only_a)} only "
               f"in a, {len(only_b)} only in b", flush=True)
         for k in params:
-            print(f"  parameter offsets: {k[:160]}")
+            first = next(i for i, (x, y) in enumerate(zip(ka[k], kb[k]))
+                         if x != y)
+            print(f"  parameter offsets: {k[:160]} (first at line {first})")
+            print(f"    a: {ka[k][first][:140]}\n    b: {kb[k][first][:140]}")
         for a, b in renamed:
             print(f"  renamed: {a[:120]}\n        -> {b[:120]}")
         for k in only_a:
