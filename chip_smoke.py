@@ -96,7 +96,8 @@ Phases, each fatal on failure:
    bneck_nv.cu) against their plain versions on the same CUDA tensors,
    int8 and bf16 outputs (equal), and time each beside its plain version
    and the same block in bf16 on cuDNN (channels-last convs, f32 BN
-   affines: the JAX tools/bench_bneck.py yardstick).
+   affines: the JAX tools/bench_bneck.py yardstick); each block's three
+   launches apart in device time, each beside its own bound.
 9. Serving, the fourth main path: a run directory with the ResNet-50
    recipe (models_dir/resnet-50_ilsvrc2012/config.yaml at full width,
    random weights from the config's seed, Synthetic 224x224x3 data with
@@ -531,6 +532,18 @@ NV_NAMES = ("bneck_block_nv", "bneck_transition_nv")
 NV_ID_PARTS = {"conv1": "bneck_wgmma::conv1_kernel",
                "conv2": "bneck_wgmma::conv2_kernel",
                "out": "bneck_wgmma::out_kernel"}
+# the transition's (conv1 is conv1_kernel at stride 1, conv1_planes_kernel
+# at stride 2)
+NV_TR_PARTS = {"conv1": "bneck_wgmma::conv1",
+               "conv2": "bneck_wgmma::conv2_kernel",
+               "out": "bneck_wgmma::out_proj_kernel"}
+NV_TR_DESIGN = ("conv1 writes a1 into the padded slab, at stride 2 into four "
+                "parity planes of serve_slab_layout at the output size (every "
+                "pad byte zero in the same launch) and copies x[:, ::2, ::2] "
+                "for the projection; conv2 at nine plane row offsets and the "
+                "output (conv3 and the projection as two mainloops on one "
+                "ring, BN 64) on fwd_wgmma_s8.cuh's TMA-fed s8 wgmma "
+                "mainloop; 16-byte NHWC epilogues")
 NV_ID_DESIGN = ("conv1 writes a1 straight into the padded slab "
                 "(serve_slab_layout, every pad byte zero in the same launch); "
                 "conv2 at nine slab row offsets and the output on "
@@ -1129,7 +1142,7 @@ KERNEL_KINDS = [
     ("conv3x3_same fwd + dgrad (port)", ("conv3x3_bf16_kernel",
                                          "slab_copy_kernel<__nv_bfloat16>")),
     ("augment", ("augment",)),
-    ("bneck nv (port)", ("bneck_gemm_kernel", "bneck_wgmma")),
+    ("bneck nv (port)", ("bneck_wgmma",)),
     # (the int8 dgrad's tile sum is common::tile_sum under its own tag)
     ("nv train halves (port)", ("nvt_", "NvtDgradSum", "wgrad_staged",
                                 "fwd_staged")),
@@ -3126,8 +3139,8 @@ def transition_summary(rows, lane_fqt, lane_qat):
 def nv_kernel_phase(peaks):
     """Rows per (NV kernel, shape, output type): max error against the
     plain version, and the kernel / plain / cuDNN-bf16-block / bound times
-    of one block; for the identity block also its three launches' device
-    times apart (``NV_ID_PARTS``), each beside its own bound."""
+    of one block; also its three launches' device times apart
+    (``NV_ID_PARTS``, ``NV_TR_PARTS``), each beside its own bound."""
     import torch
     import torch.nn.functional as F
 
@@ -3224,6 +3237,11 @@ def nv_kernel_phase(peaks):
                     lambda: run(kernel), nv.identity_plan(
                         BATCH, h, w, cin, wdt, cout), cin, wdt, cout,
                     out_int8, ops_int8, bw))
+            else:
+                rows[-1].update(nv_transition_parts(
+                    lambda: run(kernel), nv.transition_plan(
+                        BATCH, h, w, cin, wdt, cout, stride), cin, wdt,
+                    cout, out_int8, ops_int8, bw))
             del got, ref
         del x, ws
         torch.cuda.empty_cache()
@@ -3255,6 +3273,36 @@ def nv_identity_parts(call, plan, cin, wdt, cout, out_int8, ops_int8, bw):
                       + cout * wdt + 8 * cout) / bw * 1e3)
     for part, key in NV_ID_PARTS.items():
         out[f"{part}_dev_ms"] = split[key] if split else None
+    return out
+
+
+def nv_transition_parts(call, plan, cin, wdt, cout, out_int8, ops_int8,
+                        bw):
+    """The transition's launches apart, in device time per call
+    (torch.profiler; None where it sees no device time), each beside its
+    own bound, the larger of its operations and its bytes: conv1 (x read,
+    a1's m*W codes written, not the slab's or planes' pads, and at stride 2
+    xs, x's m_out even-even rows, written), conv2 (a1's codes read, a2
+    written), the output (a2 and x or xs read, the output written);
+    weights and vectors once."""
+    split = kernel_split_ms(call, 10, tuple(NV_TR_PARTS.values()),
+                            need=tuple(NV_TR_PARTS.values()))
+    m, m_out = plan.m, plan.m_out
+    xs = m_out * cin if plan.planes == 4 else 0
+    ob = 1 if out_int8 else 2
+    parts = dict(
+        conv1=(2 * m * cin * wdt,
+               m * cin + m * wdt + xs + wdt * cin + 8 * wdt),
+        conv2=(2 * m_out * 9 * wdt * wdt,
+               m * wdt + m_out * wdt + 9 * wdt * wdt + 8 * wdt),
+        out=(2 * m_out * cout * (wdt + cin),
+             m_out * (wdt + cin + cout * ob) + cout * (wdt + cin) + 12 * cout))
+    out = dict(dev_ms=sum(split.values()) if split else None)
+    for part, (ops, byts) in parts.items():
+        o, b = ops / ops_int8 * 1e3, byts / bw * 1e3
+        out[f"{part}_bound_ms"] = max(o, b)
+        out[f"{part}_bound_by"] = "operations" if o >= b else "bytes"
+        out[f"{part}_dev_ms"] = split[NV_TR_PARTS[part]] if split else None
     return out
 
 
@@ -3350,8 +3398,8 @@ def add_scaled(tot, row, scale):
 
 
 NV_ID_ROW_KEYS = ("dev_ms", "conv1_dev_ms", "conv2_dev_ms", "out_dev_ms",
-                  "conv1_bound_ms", "conv2_bound_ms", "conv2_bound_by",
-                  "out_bound_ms")
+                  "conv1_bound_ms", "conv1_bound_by", "conv2_bound_ms",
+                  "conv2_bound_by", "out_bound_ms", "out_bound_by")
 
 
 def nv_summary(rows, serving):
@@ -3366,8 +3414,7 @@ def nv_summary(rows, serving):
         mine = [r for r in rows if r["name"] == name]
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0)
-        if name == "bneck_block_nv":
-            tot.update({k: 0.0 for k in ["dev_ms"] + part_keys})
+        tot.update({k: 0.0 for k in ["dev_ms"] + part_keys})
         for (kname, _, h, w, cin, wdt, cout, stride, out_int8), count in \
                 serving["shapes"].items():
             if kname != name:
@@ -3396,9 +3443,9 @@ def nv_summary(rows, serving):
                                        "bound_by", "max_abs_err")
                      + NV_ID_ROW_KEYS if k in r}
                     for r in mine]))
-        if name == "bneck_block_nv":
-            out[-1].update(design=NV_ID_DESIGN, parts_per_batch={
-                k: tot[k] for k in ["dev_ms"] + part_keys})
+        out[-1].update(design=NV_ID_DESIGN if name == "bneck_block_nv"
+                       else NV_TR_DESIGN, parts_per_batch={
+                           k: tot[k] for k in ["dev_ms"] + part_keys})
     return out
 
 
@@ -4785,7 +4832,7 @@ def main() -> int:
             if "serialized" in line:
                 print(f"  ptxas {lib_name}: {line.strip()}")
 
-    # the NV identity block's kernels on the s8 wgmma mainloop
+    # the NV blocks' kernels on the s8 wgmma mainloop
     for e in ptxas_entries(build.build_log("bneck_nv"), "bneck_wgmma"):
         print(f"  ptxas bneck_nv {e['name']}: {e['registers']} registers, "
               f"{e['spill_bytes']} B spilled")

@@ -28,9 +28,10 @@
 // written and read once each, the output written: 411 / 206 / 103 / 51 MB,
 // 0.123 / 0.061 / 0.031 / 0.015 ms at 3.35 TB/s at stages 1-4): the bytes
 // bound it; conv1 and conv3 are short-K GEMMs (one to sixteen K steps of
-// 128 bytes), mostly epilogue.
+// 128 bytes), mostly epilogue. A stride-2 transition also writes and reads
+// x's even-even positions once (xs, below).
 //
-// The identity block (namespace bneck_wgmma) runs all three products on
+// Both blocks (namespace bneck_wgmma) run every product on
 // fwd_wgmma_s8.cuh's mainloop, unchanged (TMA boxes of 128, 64 and 32
 // bytes in their own swizzles, s8 wgmma m64nBNk32 from two consumer
 // warpgroups, thread 0 starting the loads, two blocks an SM), each with an
@@ -48,27 +49,39 @@
 //   slot i at (0, 0), its share of the back guard and tail at (h - 1, w -
 //   1)), each N tile its own channels. No memset, no zeroed buffer kept
 //   across calls.
+// - At stride 2 (conv1_planes_kernel) the slab is four parity planes, each
+//   serve_slab_layout's at the output size (oh, ow) = (ceil(h / 2),
+//   ceil(w / 2)), one after another: input position (y, x) lies in plane
+//   2 (y % 2) + x % 2 at plane position (y / 2, x / 2), and the rule of
+//   attached pads holds in each plane. Where h or w is odd, the odd
+//   planes' last row or column lies past the image: the position of plane
+//   0 or 1 (or 0) at the same plane position writes it, zero, with its
+//   attached pads. The same launch copies xs = x[:, ::2, ::2] [n*oh*ow,
+//   Cin] for the projection: each even-even row's Cin bytes, read again
+//   just after its boxes landed, split over the M tile's N tiles.
 // - conv2 walks the nine taps over the slab: tap (dy, dx) of M row m is
 //   slab row m + guard + (dy * wq + dx - 1) * n for every row, image and
 //   border (the zero column is the left neighbour of column 0 and the
-//   right one of column w - 1). M is the slab's padded positions, m = (r *
-//   wq + c) * n + i, in whole tiles; the epilogue writes the live rows (c
-//   < w, r < h) to a2 [n, h, w, W] and drops the pad column and the tail.
-// - out reads a2 [n*h*w, W] (one tap); its epilogue stages y = fma(f32(
-//   acc3), p3, q3) as f32 row-major and each thread takes 16 channels of a
-//   row: one 16-byte load of x, then 16 int8 bytes or 32 bf16 bytes.
+//   right one of column w - 1). At stride 2 it is row m + p * slab_len +
+//   guard + ([dy != 0] * wq - [dx == 0]) * n of plane p = 2 [dy != 1] +
+//   [dx != 1]: the zero column is the left neighbour that dx = 0 needs, the
+//   top halo row the row above that dy = 0 needs. M is one plane's padded
+//   positions, m = (r * wq + c) * n + i, in whole tiles; the epilogue
+//   writes the live rows (c < ow, r < oh) to a2 [n, oh, ow, W] and drops
+//   the pad column and the tail.
+// - The identity's out reads a2 [n*h*w, W] (one tap); its epilogue stages
+//   y = fma(f32(acc3), p3, q3) as f32 row-major and each thread takes 16
+//   channels of a row: one 16-byte load of x, then 16 int8 bytes or 32 bf16
+//   bytes. The transition's (out_proj_kernel) runs two mainloops on one
+//   ring, conv3 over a2 [n*oh*ow, W], then the projection over x (stride
+//   1) or xs, both accumulators in registers (BN = 64: 32 + 32 s32 a
+//   thread, as many as one BN = 128 tile), and stages fma(f32(accP), pp,
+//   y) in the same epilogue.
 // BN = 64 where the N extent is at most 64, else 128 (a masked ragged last
 // tile); the grid is one dimension with the N tiles of one M tile
 // neighbours, so that they read its A boxes through L2. Left for later: a1
 // and a2 kept on chip (the TPU kernel keeps them in VMEM and recomputes
 // conv1 on the halo rows), conv2 and conv3 fused, persistent blocks.
-//
-// The transition block still runs the first design until it moves too
-// (namespace anonymous): one mma.sync template (ldmatrix + mma.sync
-// m16n8k32 s8, s32 accumulators in registers) fed by a 4-stage cp.async
-// pipeline of 128x32 and 64x32 byte tiles, every epilogue on the
-// accumulators in registers; conv2's gather zero-fills positions outside
-// the image.
 //
 // Rounding follows the reference (tests/test_torch_bneck_nv.py pins each
 // point): s32 -> f32 with __int2float_rn; acc*p + q, x*r + y and
@@ -85,288 +98,12 @@
 
 #include <type_traits>
 
-#include "fwd_wgmma_s8.cuh"  // mainloop, Tile, Maps, encode_maps
-#include "mma_sync.cuh"  // ldmatrix_x4, mma_step, smem_addr, quant_s8
-
-using conv3x3::ldmatrix_x4;
-using conv3x3::mma_step;
-using conv3x3::quant_s8;
-using conv3x3::smem_addr;
-
-namespace {
-
-constexpr int BM = 128;       // output positions per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // contraction bytes per pipeline stage
-constexpr int ROW = BK + 16;  // smem row stride: conflict-free ldmatrix
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;  // 8 warps: 4 along positions x 2 along channels
-constexpr int A_BYTES = BM * ROW;
-constexpr int STAGE_BYTES = (BM + BN) * ROW;
-
-enum AMode { DENSE = 0, CONV3X3 = 1, SUBSAMPLE = 2 };
-
-// The A operand of one contraction: row m of the GEMM is output position
-// m of an [nimg, oh, ow] plane; K is the contraction length in bytes.
-struct AOp {
-  const signed char* ptr;
-  int k;       // DENSE: row length; CONV3X3: 9*c; SUBSAMPLE: c
-  int c;       // channels of the NHWC source (CONV3X3, SUBSAMPLE)
-  int h, w;    // source plane
-  int oh, ow;  // output plane
-  int stride;
-};
-
-__device__ __forceinline__ void cp_async16(unsigned char* dst,
-                                           const void* src, bool valid) {
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One thread's 16-byte piece of the A tile: row tid / 2, half tid % 2.
-template <int MODE>
-struct ALoader {
-  const signed char* base;  // DENSE / SUBSAMPLE: the row's first byte
-  int img, oy, ox;          // CONV3X3: the output position
-  bool row_ok;
-
-  __device__ ALoader(const AOp& a, int m, int M, int half) {
-    row_ok = m < M;
-    const int mm = row_ok ? m : 0;
-    const int plane = a.oh * a.ow;
-    img = mm / plane;
-    const int rem = mm - img * plane;
-    oy = rem / a.ow;
-    ox = rem - oy * a.ow;
-    if (MODE == DENSE) {
-      base = a.ptr + (size_t)mm * a.k + half * 16;
-    } else if (MODE == SUBSAMPLE) {
-      base = a.ptr +
-             ((size_t)(img * a.h + oy * a.stride) * a.w + ox * a.stride) *
-                 a.c +
-             half * 16;
-    } else {
-      base = a.ptr + half * 16;
-    }
-  }
-
-  __device__ __forceinline__ const signed char* src(const AOp& a, int k0,
-                                                    bool& ok) const {
-    if (MODE != CONV3X3) {
-      ok = row_ok;
-      return base + k0;
-    }
-    const int tap = k0 / a.c;
-    const int c0 = k0 - tap * a.c;
-    const int iy = oy * a.stride + tap / 3 - 1;
-    const int ix = ox * a.stride + tap % 3 - 1;
-    ok = row_ok && (unsigned)iy < (unsigned)a.h && (unsigned)ix < (unsigned)a.w;
-    if (!ok) return a.ptr;
-    return base + ((size_t)(img * a.h + iy) * a.w + ix) * a.c + c0;
-  }
-};
-
-// acc[mi][ni][e] += A[m0 + 128 rows, K] . B[n0 + 64 rows, K]^T over the
-// whole contraction, through the STAGES-deep cp.async ring in smem.
-template <int MODE>
-__device__ __forceinline__ void mainloop(int (&acc)[2][4][4],
-                                         unsigned char* smem, const AOp& a,
-                                         const signed char* __restrict__ b,
-                                         int M, int nout, int m0, int n0) {
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp / 2;  // 32-row slice of the tile
-  const int wn = warp % 2;  // 32-channel slice of the tile
-  const int half = tid & 1;
-  const int r = tid >> 1;
-  const ALoader<MODE> al(a, m0 + r, M, half);
-  const bool b_thread = r < BN;
-  const bool b_ok = b_thread && n0 + r < nout;
-  const signed char* b_src =
-      b + (size_t)(b_ok ? n0 + r : 0) * a.k + half * 16;
-  const int kt_total = a.k / BK;
-
-  auto load = [&](int stage, int kt) {
-    unsigned char* st = smem + stage * STAGE_BYTES;
-    bool ok;
-    const signed char* s = al.src(a, kt * BK, ok);
-    cp_async16(st + r * ROW + half * 16, s, ok);
-    if (b_thread)
-      cp_async16(st + A_BYTES + r * ROW + half * 16, b_src + kt * BK, b_ok);
-  };
-
-  // ldmatrix lanes: A rows (two m16 tiles), B rows (two n8 pairs)
-  const int q = lane / 8;
-  const int j = lane % 8;
-  const int a_off = (wm * 32 + (q & 1) * 8 + j) * ROW + (q >> 1) * 16;
-  const int b_off = A_BYTES + (wn * 32 + (q >> 1) * 8 + j) * ROW +
-                    (q & 1) * 16;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_total) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_total; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < kt_total) load(nk % STAGES, nk);
-    cp_async_commit();
-    const uint32_t st = smem_addr(smem + (kt % STAGES) * STAGE_BYTES);
-    uint32_t af[2][4];
-    ldmatrix_x4(af[0], st + a_off);
-    ldmatrix_x4(af[1], st + a_off + 16 * ROW);
-#pragma unroll
-    for (int f2 = 0; f2 < 2; ++f2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, st + b_off + f2 * 16 * ROW);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_step(acc[mi][2 * f2], af[mi], bf[0], bf[1]);
-        mma_step(acc[mi][2 * f2 + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for a second contraction
-}
-
-// --- epilogues: two adjacent channels (n, n + 1) of output row m ----------
-
-struct Requant {  // conv1 / conv2: int8 a = requant(acc, p, q)
-  const float* p;
-  const float* q;
-  signed char* out;
-  int nout;
-
-  __device__ __forceinline__ signed char one(int acc, int n) const {
-    return quant_s8(fmaxf(__fmaf_rn(__int2float_rn(acc), p[n], q[n]), 0.f));
-  }
-  __device__ __forceinline__ void operator()(int m, int n, int v0, int v1,
-                                             int, int) const {
-    char2 o;
-    o.x = one(v0, n);
-    o.y = one(v1, n + 1);
-    *reinterpret_cast<char2*>(out + (size_t)m * nout + n) = o;
-  }
-};
-
-struct BlockOut {  // conv3 + residual or projection, relu, int8 or bf16
-  const float* p3;
-  const float* q3;
-  const signed char* x;  // identity: the block input [M, nout]
-  const float* pp;       // transition: the projection dequant [nout]
-  float r;
-  void* out;
-  int nout;
-  int out_int8;
-
-  __device__ __forceinline__ float one(int m, int n, int acc,
-                                       int accp) const {
-    const float y = __fmaf_rn(__int2float_rn(acc), p3[n], q3[n]);
-    const float o =
-        pp != nullptr
-            ? __fmaf_rn(__int2float_rn(accp), pp[n], y)
-            : __fmaf_rn((float)x[(size_t)m * nout + n], r, y);
-    return fmaxf(o, 0.f);
-  }
-  __device__ __forceinline__ void operator()(int m, int n, int v0, int v1,
-                                             int p0, int p1) const {
-    const float o0 = one(m, n, v0, p0);
-    const float o1 = one(m, n + 1, v1, p1);
-    const size_t i = (size_t)m * nout + n;
-    if (out_int8) {
-      char2 o;
-      o.x = quant_s8(o0);
-      o.y = quant_s8(o1);
-      *reinterpret_cast<char2*>(static_cast<signed char*>(out) + i) = o;
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
-                                         i) =
-          __halves2bfloat162(__float2bfloat16_rn(o0),
-                             __float2bfloat16_rn(o1));
-    }
-  }
-};
-
-// out[M, nout] = epi(A . B^T [, Ap . Bp^T]): grid (M / BM, nout / BN)
-template <int MODE, bool PROJ, typename Epi>
-__global__ void __launch_bounds__(THREADS)
-bneck_gemm_kernel(AOp a, const signed char* __restrict__ b, AOp ap,
-                  const signed char* __restrict__ bp, int M, int nout,
-                  Epi epi) {
-  __shared__ __align__(128) unsigned char smem[STAGES * STAGE_BYTES];
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  int acc[2][4][4] = {};
-  int accp[2][4][4] = {};
-  mainloop<MODE>(acc, smem, a, b, M, nout, m0, n0);
-  if constexpr (PROJ)
-    mainloop<SUBSAMPLE>(accp, smem, ap, bp, M, nout, m0, n0);
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
-  const int t2 = (lane % 4) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + (warp % 2) * 32 + ni * 8 + t2;
-      if (n >= nout) continue;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int m = m0 + (warp / 2) * 32 + mi * 16 + g + hr * 8;
-        if (m < M)
-          epi(m, n, acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1],
-              accp[mi][ni][2 * hr], accp[mi][ni][2 * hr + 1]);
-      }
-    }
-}
-
-template <int MODE, bool PROJ, typename Epi>
-int launch(const AOp& a, const void* b, const AOp& ap, const void* bp,
-           int M, int nout, const Epi& epi, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (nout + BN - 1) / BN);
-  bneck_gemm_kernel<MODE, PROJ, Epi>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, static_cast<const signed char*>(b), ap,
-          static_cast<const signed char*>(bp), M, nout, epi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-AOp plane(const void* ptr, int k, int c, int h, int w, int stride) {
-  AOp a;
-  a.ptr = static_cast<const signed char*>(ptr);
-  a.k = k;
-  a.c = c;
-  a.h = h;
-  a.w = w;
-  a.stride = stride;
-  a.oh = (h - 1) / stride + 1;
-  a.ow = (w - 1) / stride + 1;
-  return a;
-}
-
-}  // namespace
-
-// --- the identity block on the TMA-fed s8 wgmma mainloop -------------------
+#include "common.cuh"        // quant_s8
+#include "fwd_wgmma_s8.cuh"  // mainloop, ring_inval, Tile, Maps, encode_maps
 
 namespace bneck_wgmma {
 
+using common::quant_s8;
 using fwd_wgmma_s8::ALIGN;
 using fwd_wgmma_s8::BK;
 using fwd_wgmma_s8::BM;
@@ -392,6 +129,21 @@ struct Conv1Args {
   int shift[1];        // the one tap's row offset: 0
 };
 
+// conv1 at stride 2: a1 into the four parity planes, xs besides
+struct Conv1PlanesArgs {
+  const float* p;          // [wdt]
+  const float* q;
+  signed char* slab;       // [4 * plane][wdt]: the planes one after another
+  const signed char* x;    // [m][cin]
+  signed char* xs;         // [n * g.h * g.w][cin]: x[:, ::2, ::2]
+  Geo g;                   // one plane's, at the output size (oh, ow)
+  int plane;               // rows a plane (its slab_len)
+  int h, w;                // the input image
+  int m;                   // n * h * w rows of x
+  int cin, wdt, n_tiles;
+  int shift[1];            // the one tap's row offset: 0
+};
+
 struct Conv2Args {
   const float* p;      // [wdt]
   const float* q;
@@ -408,6 +160,15 @@ struct OutArgs {
   void* out;              // [m][cout] int8 (out_int8) or bf16
   float r;
   int m, wdt, cout, out_int8, n_tiles;
+  int shift[1];           // the one tap's row offset: 0
+};
+
+struct OutProjArgs {
+  const float* p3;        // [cout]
+  const float* q3;
+  const float* pp;        // [cout]: the projection's dequant
+  void* out;              // [m][cout] int8 (out_int8) or bf16
+  int m, wdt, cin, cout, out_int8, n_tiles;
   int shift[1];           // the one tap's row offset: 0
 };
 
@@ -492,6 +253,33 @@ __device__ __forceinline__ void put16(signed char* base, int row, int wdt,
 // Pad flags of a position: the pads it writes besides its own row
 enum Pads { RIGHT = 1, TOP = 2, BOTTOM = 4, FRONT = 8, BACK = 16 };
 
+// The pads attached to position (y, x) of a slab of geometry g.
+__device__ __forceinline__ int pad_flags(const Geo& g, int y, int x) {
+  return (x == g.w - 1 ? RIGHT : 0) | (y == 0 ? TOP : 0) |
+         (y == g.h - 1 ? BOTTOM : 0) | (x == 0 && y == 0 ? FRONT : 0) |
+         (x == g.w - 1 && y == g.h - 1 ? BACK : 0);
+}
+
+// Zeros to the pads (flags f) attached to slab row `row`, base the slab's
+// first row at the vector's channels.
+__device__ __forceinline__ void put_pads(signed char* base, int row, int wdt,
+                                         int f, const Geo& g, uint4 zero) {
+  const int up = g.wq * g.n;  // rows between vertical neighbours
+  if (f & RIGHT) put16(base, row + g.n, wdt, zero);
+  if (f & TOP) {
+    put16(base, row - up, wdt, zero);
+    if (f & RIGHT) put16(base, row - up + g.n, wdt, zero);
+  }
+  if (f & BOTTOM) {
+    put16(base, row + up, wdt, zero);
+    if (f & RIGHT) put16(base, row + up + g.n, wdt, zero);
+  }
+  if (f & FRONT) put16(base, row - up - g.guard, wdt, zero);
+  if (f & BACK)
+    for (int j = (row - g.guard) % g.n; j < g.back; j += g.n)
+      put16(base, g.end + j, wdt, zero);
+}
+
 // Grid (n_tiles * ceil(m / BM)): block i computes channels [j * BN, j * BN
 // + BN) of a1 at the NHWC rows [k * BM, k * BM + BM), j = i % n_tiles, k =
 // i / n_tiles, and writes them and their attached pads to the slab. REM =
@@ -526,9 +314,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int hw = g.h * g.w, i = m / hw, rem = m - i * hw;
       const int y = rem / g.w, x = rem - y * g.w;
       row = g.guard + ((y + 1) * g.wq + x) * g.n + i;
-      f = (x == g.w - 1 ? RIGHT : 0) | (y == 0 ? TOP : 0) |
-          (y == g.h - 1 ? BOTTOM : 0) | (x == 0 && y == 0 ? FRONT : 0) |
-          (x == g.w - 1 && y == g.h - 1 ? BACK : 0);
+      f = pad_flags(g, y, x);
     }
     at[tid] = row;
     flags[tid] = f;
@@ -540,7 +326,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   // each row's vectors to its slab row, and zeros to its pads
   constexpr int VPR = BN / 16;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int up = g.wq * g.n;  // rows between vertical neighbours
   for (int idx = tid; idx < BM * VPR; idx += THREADS) {
     const int r = idx / VPR, v = idx - r * VPR;
     const int row = at[r];
@@ -550,19 +335,99 @@ __global__ void __launch_bounds__(THREADS, 2)
           *reinterpret_cast<const uint4*>(tile + r * S::OS + 16 * v));
     const int f = flags[r];
     if (f == 0) continue;
-    if (f & RIGHT) put16(base, row + g.n, p.wdt, zero);
-    if (f & TOP) {
-      put16(base, row - up, p.wdt, zero);
-      if (f & RIGHT) put16(base, row - up + g.n, p.wdt, zero);
+    put_pads(base, row, p.wdt, f, g, zero);
+  }
+}
+
+// Plane flags of an input position at stride 2 (above the Pads bits): its
+// plane (2 bits) and the planes past an odd w (BESIDE: plane + 1) and an
+// odd h (BELOW: plane + 2) that it also writes at its plane position.
+enum PlaneFlags { PLANE_SHIFT = 5, BESIDE = 1 << 7, BELOW = 1 << 8 };
+
+// conv1_kernel at stride 2: the same blocks and product; each row's
+// vectors to its plane's slab row with the pads attached to its plane
+// position, and zeros (with their pads) to the positions past an odd h or
+// w that it stands for; then the M tile's even-even rows of x copied to xs,
+// each N tile its share of their 16-byte vectors.
+template <int BN, int REM>
+__global__ void __launch_bounds__(THREADS, 2)
+    conv1_planes_kernel(const __grid_constant__ Maps mp,
+                        const __grid_constant__ Conv1PlanesArgs p) {
+  using S = Stage8<BN>;
+  static_assert(S::BYTES + BM * 4 <= Tile<BN>::RING, "xs rows fit");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  const int tid = threadIdx.x;
+  const int nt = (int)(blockIdx.x % p.n_tiles);
+  const int n0 = nt * BN;
+  const int m0 = (int)(blockIdx.x / p.n_tiles) * BM;
+  int acc[BN / 2];
+  fwd_wgmma_s8::mainloop<BN, REM>(mp, p.cin, p.shift, raw + pad, m0, n0, acc,
+                                  0, 1);
+
+  signed char* tile = reinterpret_cast<signed char*>(ring);
+  float* par = reinterpret_cast<float*>(ring + S::PAR_OFF);
+  int* at = reinterpret_cast<int*>(ring + S::AT_OFF);
+  int* flags = reinterpret_cast<int*>(ring + S::FLAG_OFF);
+  int* xs_at = reinterpret_cast<int*>(ring + S::BYTES);
+  const Geo& g = p.g;
+  const int cols = min(BN, p.wdt - n0);
+  load_par<BN>(par, p.p, p.q, n0, cols);
+  if (tid < BM) {
+    const int m = m0 + tid;
+    int row = -1, f = 0, xr = -1;
+    if (m < p.m) {
+      const int hw = p.h * p.w, i = m / hw, rem = m - i * hw;
+      const int y = rem / p.w, x = rem - y * p.w;
+      const int r = y >> 1, c = x >> 1;
+      row = g.guard + ((r + 1) * g.wq + c) * g.n + i;
+      f = pad_flags(g, r, c) | ((2 * (y & 1) + (x & 1)) << PLANE_SHIFT) |
+          ((x & 1) == 0 && x == p.w - 1 ? BESIDE : 0) |
+          ((y & 1) == 0 && y == p.h - 1 ? BELOW : 0);
+      if (((y | x) & 1) == 0) xr = (i * g.h + r) * g.w + c;
     }
-    if (f & BOTTOM) {
-      put16(base, row + up, p.wdt, zero);
-      if (f & RIGHT) put16(base, row + up + g.n, p.wdt, zero);
+    at[tid] = row;
+    flags[tid] = f;
+    xs_at[tid] = xr;
+  }
+  __syncthreads();
+  stage_requant<BN>(acc, par, tile);
+  __syncthreads();
+
+  constexpr int VPR = BN / 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = tid; idx < BM * VPR; idx += THREADS) {
+    const int r = idx / VPR, v = idx - r * VPR;
+    const int row = at[r];
+    if (row < 0 || 16 * v >= cols) continue;
+    const int f = flags[r];
+    const int ext = (f & BESIDE ? 1 : 0) | (f & BELOW ? 2 : 0);
+    signed char* base = p.slab + n0 + 16 * v +
+                        (size_t)((f >> PLANE_SHIFT) & 3) * p.plane * p.wdt;
+    const uint4 val =
+        *reinterpret_cast<const uint4*>(tile + r * S::OS + 16 * v);
+    for (int k = 0; k < 4; ++k) {  // plane + k: itself, then past w or h
+      if ((k & ext) != k) continue;
+      signed char* b = base + (size_t)k * p.plane * p.wdt;
+      put16(b, row, p.wdt, k == 0 ? val : zero);
+      put_pads(b, row, p.wdt, f, g, zero);
     }
-    if (f & FRONT) put16(base, row - up - g.guard, p.wdt, zero);
-    if (f & BACK)
-      for (int j = (row - g.guard) % g.n; j < g.back; j += g.n)
-        put16(base, g.end + j, p.wdt, zero);
+  }
+
+  // xs: this N tile's share [v0, v1) of each even-even row's Cin / 16
+  // vectors
+  const int vecs = p.cin / 16, per = (vecs + p.n_tiles - 1) / p.n_tiles;
+  const int v0 = nt * per, v1 = min(vecs, v0 + per);
+  if (v0 >= v1) return;
+  for (int idx = tid; idx < BM * (v1 - v0); idx += THREADS) {
+    const int r = idx / (v1 - v0), v = v0 + idx - r * (v1 - v0);
+    const int xr = xs_at[r];
+    if (xr >= 0)
+      *reinterpret_cast<uint4*>(p.xs + (size_t)xr * p.cin + 16 * v) =
+          __ldg(reinterpret_cast<const uint4*>(
+              p.x + (size_t)(m0 + r) * p.cin + 16 * v));
   }
 }
 
@@ -705,55 +570,146 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// The transition's output. Grid (n_tiles * ceil(m / BM)): block i computes
+// output channels [j * BN, j * BN + BN) of the rows [k * BM, k * BM + BM):
+// conv3 on mp3 (a2, w3; REM3 = W % 128), then on the same ring the
+// projection on mpp (x or xs, wp; REMP = Cin % 128), both accumulators in
+// registers; o = fma(f32(accP), pp, fma(f32(acc3), p3, q3)) staged f32 as
+// out_kernel stages y, then relu(o) stored as 16 int8 or bf16 a thread.
+template <int BN, int REM3, int REMP>
+__global__ void __launch_bounds__(THREADS, 2)
+    out_proj_kernel(const __grid_constant__ Maps mp3,
+                    const __grid_constant__ Maps mpp,
+                    const __grid_constant__ OutProjArgs p) {
+  using S = StageOut<BN>;
+  static_assert(S::PAR_OFF + 3 * BN * 4 <= Tile<BN>::RING, "pp fits");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - raw % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  const int tid = threadIdx.x;
+  const int n0 = (int)(blockIdx.x % p.n_tiles) * BN;
+  const int m0 = (int)(blockIdx.x / p.n_tiles) * BM;
+  int acc3[BN / 2], accp[BN / 2];
+  fwd_wgmma_s8::mainloop<BN, REM3>(mp3, p.wdt, p.shift, raw + pad, m0, n0,
+                                   acc3, 0, 1);
+  fwd_wgmma_s8::ring_inval<BN>(raw + pad);
+  fwd_wgmma_s8::mainloop<BN, REMP>(mpp, p.cin, p.shift, raw + pad, m0, n0,
+                                   accp, 0, 1);
+
+  float* os = reinterpret_cast<float*>(ring);
+  float* par = reinterpret_cast<float*>(ring + S::PAR_OFF);
+  const int cols = min(BN, p.cout - n0);
+  load_par<BN>(par, p.p3, p.q3, n0, cols);
+  if (tid < BN) par[2 * BN + tid] = tid < cols ? p.pp[n0 + tid] : 0.f;
+  __syncthreads();
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float p0 = par[col], p1 = par[col + 1];
+      const float q0 = par[BN + col], q1 = par[BN + col + 1];
+      const float s0 = par[2 * BN + col], s1 = par[2 * BN + col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        float* o = os + (row + 8 * h) * S::OS + S::at(col);
+        *reinterpret_cast<float2*>(o) = make_float2(
+            __fmaf_rn(__int2float_rn(accp[i]), s0,
+                      __fmaf_rn(__int2float_rn(acc3[i]), p0, q0)),
+            __fmaf_rn(__int2float_rn(accp[i + 1]), s1,
+                      __fmaf_rn(__int2float_rn(acc3[i + 1]), p1, q1)));
+      }
+    }
+  }
+  __syncthreads();
+
+  // thread (r0, v): channels n0 + 16 v of rows r0 + RS k
+  const int v = tid % S::VPR, r0 = tid / S::VPR;
+  if (16 * v >= cols) return;
+  const int c0 = n0 + 16 * v;
+#pragma unroll
+  for (int k = 0; k < S::ROWS; ++k) {
+    const int m = m0 + r0 + S::RS * k;
+    if (m >= p.m) continue;
+    const float* ov = os + (r0 + S::RS * k) * S::OS + S::at(16 * v);
+    float o[16];
+#pragma unroll
+    for (int e = 0; e < 16; e += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(ov + e);
+      o[e] = fmaxf(f.x, 0.f);
+      o[e + 1] = fmaxf(f.y, 0.f);
+      o[e + 2] = fmaxf(f.z, 0.f);
+      o[e + 3] = fmaxf(f.w, 0.f);
+    }
+    const size_t at = (size_t)m * p.cout + c0;
+    if (p.out_int8) {
+      uint4 q;
+      signed char* qb = reinterpret_cast<signed char*>(&q);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) qb[e] = quant_s8(o[e]);
+      *reinterpret_cast<uint4*>(static_cast<signed char*>(p.out) + at) = q;
+    } else {
+      uint4 b[2];
+      __nv_bfloat16* bb = reinterpret_cast<__nv_bfloat16*>(b);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) bb[e] = __float2bfloat16_rn(o[e]);
+      uint4* dst = reinterpret_cast<uint4*>(
+          static_cast<__nv_bfloat16*>(p.out) + at);
+      dst[0] = b[0];
+      dst[1] = b[1];
+    }
+  }
+}
+
 // --- the host side ---------------------------------------------------------
 
-// The three launches' maps, encoded before the first launch.
+// The launches' maps, encoded before the first launch.
 struct Plan {
   Maps conv1;  // x [m][cin], w1 [wdt][cin]
-  Maps conv2;  // the slab [slab_len][wdt], w2 [wdt][9 * wdt]
-  Maps out;    // a2 [m][wdt], w3 [cout][wdt]
+  Maps conv2;  // the slab [planes * slab_len][wdt], w2 [wdt][9 * wdt]
+  Maps out;    // a2 [m_out][wdt], w3 [cout][wdt]
+  Maps proj;   // the transition's: x or xs [m_out][cin], wp [cout][cin]
 };
 
 // One launch of kernel (its dynamic shared memory raised once: smem_set)
-template <typename K, typename A>
-inline cudaError_t start(K kernel, int smem, bool& smem_set, const Maps& mp,
-                         const A& a, long blocks, cudaStream_t stream) {
+template <typename K, typename... A>
+inline cudaError_t start(K kernel, int smem, bool& smem_set, long blocks,
+                         cudaStream_t stream, const A&... args) {
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(mp, a);
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// fn(BN, REM) at compile time for bn (64 or 128) and k % 128 (k % 32 ==
-// 0): every wgmma has its width and every tap its boxes at compile time.
+// fn(REM) at compile time for k % 128 (k % 32 == 0): every tap its boxes
+// at compile time.
+template <typename Fn>
+inline cudaError_t dispatch_rem(int k, Fn&& fn) {
+  using std::integral_constant;
+  switch (k % BK) {
+    case 0: return fn(integral_constant<int, 0>{});
+    case 32: return fn(integral_constant<int, 32>{});
+    case 64: return fn(integral_constant<int, 64>{});
+    default: return fn(integral_constant<int, 96>{});
+  }
+}
+
+// fn(BN, REM) at compile time for bn (64 or 128) and k % 128: every wgmma
+// has its width too.
 template <typename Fn>
 inline cudaError_t dispatch(int bn, int k, Fn&& fn) {
   using std::integral_constant;
-  using B64 = integral_constant<int, 64>;
-  using B128 = integral_constant<int, 128>;
-  using R0 = integral_constant<int, 0>;
-  using R32 = integral_constant<int, 32>;
-  using R64 = integral_constant<int, 64>;
-  using R96 = integral_constant<int, 96>;
-  const int rem = k % BK;
-  if (bn == 64) {
-    switch (rem) {
-      case 0: return fn(B64{}, R0{});
-      case 32: return fn(B64{}, R32{});
-      case 64: return fn(B64{}, R64{});
-      default: return fn(B64{}, R96{});
-    }
-  }
-  switch (rem) {
-    case 0: return fn(B128{}, R0{});
-    case 32: return fn(B128{}, R32{});
-    case 64: return fn(B128{}, R64{});
-    default: return fn(B128{}, R96{});
-  }
+  return dispatch_rem(k, [&](auto r) {
+    return bn == 64 ? fn(integral_constant<int, 64>{}, r)
+                    : fn(integral_constant<int, 128>{}, r);
+  });
 }
 
 inline bool tile_ok(int bn) { return bn == 64 || bn == 128; }
@@ -776,157 +732,155 @@ inline bool geometry(int n, int h, int w, Geo* g, long* slab_len,
   return true;
 }
 
+// A block of input (h, w) at stride 1 or 2: one plane's geometry (the
+// slab's at the output size), its rows and tiles, and the planes (1, or 4
+// at stride 2); false where the planes' rows or the input's would pass
+// 32-bit indices.
+inline bool block_geometry(int n, int h, int w, int stride, Geo* g,
+                           long* plane, int* tiles, int* planes) {
+  if ((stride != 1 && stride != 2) || h < 1 || w < 1) return false;
+  *planes = stride == 1 ? 1 : 4;
+  return geometry(n, (h - 1) / stride + 1, (w - 1) / stride + 1, g, plane,
+                  tiles) &&
+         *planes * *plane < 0x7fffffffL && (long)n * h * w < 0x7fffffffL;
+}
+
+// conv2's slab row of tap t for M row 0 (ops/cuda/bneck_nv.py
+// _block_plan's shifts): at stride 1 the tap's neighbour in the one slab,
+// at stride 2 in its parity plane.
+inline void conv2_shifts(const Geo& g, long plane, int stride,
+                         int (&shift)[9]) {
+  for (int t = 0; t < 9; ++t) {
+    const int dy = t / 3, dx = t % 3;
+    shift[t] = stride == 1
+                   ? g.guard + (dy * g.wq + dx - 1) * g.n
+                   : (2 * (dy != 1) + (dx != 1)) * (int)plane + g.guard +
+                         ((dy != 0) * g.wq - (dx == 0)) * g.n;
+  }
+}
+
 inline void tile_copy(Maps* dst, const void* plan, size_t off) {
   memcpy(dst, static_cast<const unsigned char*>(plan) + off, sizeof(Maps));
 }
+
+inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
 }  // namespace bneck_wgmma
 
 extern "C" {
 
-// Every channel count is a multiple of 32; every pointer 16-byte aligned;
-// tensors contiguous. Each returns the launch's cudaError_t. The first
-// design's three launches now serve the transition block alone (the
-// identity block's are below).
-
-// conv1: x [m, cin] int8, w [wdt, cin] int8, p/q [wdt] f32 -> out [m, wdt]
-// int8.
-int bneck_conv1_launch(const void* x, const void* w, const void* p,
-                       const void* q, void* out, int m, int cin, int wdt,
-                       void* stream) {
-  const AOp a = plane(x, cin, cin, m, 1, 1);
-  const Requant epi{static_cast<const float*>(p),
-                    static_cast<const float*>(q),
-                    static_cast<signed char*>(out), wdt};
-  return launch<DENSE, false>(a, w, a, w, m, wdt, epi, stream);
-}
-
-// conv2: a1 [nimg, h, w, wdt] int8, w2 [wdt, 9*wdt] int8 (taps row-major
-// in (dy, dx), then input channel), p/q [wdt] -> out [nimg, oh, ow, wdt]
-// int8, oh = (h - 1) / stride + 1.
-int bneck_conv2_launch(const void* a1, const void* w2, const void* p,
-                       const void* q, void* out, int nimg, int h, int w,
-                       int wdt, int stride, void* stream) {
-  const AOp a = plane(a1, 9 * wdt, wdt, h, w, stride);
-  const Requant epi{static_cast<const float*>(p),
-                    static_cast<const float*>(q),
-                    static_cast<signed char*>(out), wdt};
-  return launch<CONV3X3, false>(a, w2, a, w2, nimg * a.oh * a.ow, wdt, epi,
-                                stream);
-}
-
-// conv3 and the transition block's output: a2 [nimg, oh, ow, wdt] int8,
-// w3 [cout, wdt], p3/q3 [cout]; x [nimg, h, w, cin] int8 the block input,
-// wp [cout, cin] int8, pp [cout] f32: out = relu(accP*pp + y) with accP
-// over x[::stride, ::stride]. out [nimg, oh, ow, cout], int8 when
-// out_int8 else bf16. A null wp is refused (the identity block runs on
-// bneck_id_out_launch).
-int bneck_out_launch(const void* a2, const void* w3, const void* p3,
-                     const void* q3, const void* x, const void* wp,
-                     const void* pp, float r, void* out, int nimg, int h,
-                     int w, int cin, int wdt, int cout, int stride,
-                     int out_int8, void* stream) {
-  AOp a = plane(a2, wdt, wdt, h, w, stride);
-  const AOp ap = plane(x, cin, cin, h, w, stride);
-  const int m = nimg * a.oh * a.ow;
-  const BlockOut epi{static_cast<const float*>(p3),
-                     static_cast<const float*>(q3),
-                     static_cast<const signed char*>(x),
-                     static_cast<const float*>(pp), r, out, cout, out_int8};
-  if (wp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<DENSE, true>(a, w3, ap, wp, m, cout, epi, stream);
-}
-
-// --- the identity block: four calls, the maps first -----------------------
+// --- both blocks: the maps first, then three launches ----------------------
 //
 // x [n, h, w, cin] int8; w1 [wdt][cin], w2 [wdt][9 * wdt] (taps row-major
-// in (dy, dx), then input channel), w3 [cout][wdt] int8; the slab
-// [slab_len][wdt] int8 (serve_slab_layout), a2 [n, h, w, wdt] int8, out
-// [n, h, w, cout] int8 or bf16; cin, wdt, cout multiples of 32, cout ==
-// cin; bn1, bn2, bn3 the N tiles (64 or 128) of conv1 (wdt), conv2 (wdt)
-// and out (cout). Each returns a cudaError_t: cudaErrorInvalidValue where
-// the arguments do not fit or the map encoder is missing or refuses.
+// in (dy, dx), then input channel), w3 [cout][wdt] int8; stride 1 or 2,
+// (oh, ow) = ((h - 1) / stride + 1, (w - 1) / stride + 1); the slab
+// [planes * slab_len][wdt] int8 (ops/cuda/bneck_nv.py _block_plan:
+// serve_slab_layout(n, oh, ow, wdt), four parity planes at stride 2), a2
+// [n, oh, ow, wdt] int8, out [n, oh, ow, cout] int8 or bf16; the
+// transition's wp [cout][cin] int8 and pp [cout] f32, and xp its input
+// [n * oh * ow][cin] (x at stride 1, xs at stride 2, which conv1 writes);
+// cin, wdt, cout multiples of 32; bn1, bn2, bn3 the N tiles (64 or 128)
+// of conv1 (wdt), conv2 (wdt) and out (cout; the transition's 64). Each
+// returns a cudaError_t: cudaErrorInvalidValue where the arguments do not
+// fit or the map encoder is missing or refuses.
 
-int bneck_id_plan_bytes(void) {
+int bneck_block_plan_bytes(void) {
   return static_cast<int>(sizeof(bneck_wgmma::Plan));
 }
 
-// Encodes the three launches' maps into plan (a host buffer of
-// bneck_id_plan_bytes() bytes).
-int bneck_id_plan(void* plan, const void* x, const void* w1,
-                  const void* slab, const void* w2, const void* a2,
-                  const void* w3, int n, int h, int w, int cin, int wdt,
-                  int cout, int bn1, int bn2, int bn3) {
+// Encodes the launches' maps into plan (a host buffer of
+// bneck_block_plan_bytes() bytes): conv1, conv2 and conv3, and for the
+// transition (wp not null) the projection's; the identity block (wp null)
+// has cout == cin and stride 1.
+int bneck_block_plan(void* plan, const void* x, const void* w1,
+                     const void* slab, const void* w2, const void* a2,
+                     const void* w3, const void* xp, const void* wp, int n,
+                     int h, int w, int cin, int wdt, int cout, int stride,
+                     int bn1, int bn2, int bn3) {
   using namespace bneck_wgmma;
   Geo g;
-  long slab_len;
-  int tiles;
-  if (!geometry(n, h, w, &g, &slab_len, &tiles) || !chans_ok(cin) ||
-      !chans_ok(wdt) || cout != cin || !tile_ok(bn1) || !tile_ok(bn2) ||
-      !tile_ok(bn3))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long m = (long)n * h * w;
-  Plan pl;
+  long plane;
+  int tiles, planes;
+  if (!block_geometry(n, h, w, stride, &g, &plane, &tiles, &planes) ||
+      !chans_ok(cin) || !chans_ok(wdt) || !chans_ok(cout) ||
+      !tile_ok(bn1) || !tile_ok(bn2) || !tile_ok(bn3) ||
+      (wp == nullptr && (cout != cin || stride != 1)) ||
+      (wp != nullptr && bn3 != 64))
+    return invalid();
+  const long m = (long)n * h * w, m_out = (long)n * g.h * g.w;
+  Plan pl{};
   if (!fwd_wgmma_s8::encode_maps(&pl.conv1, x, m, w1, cin, wdt, bn1, 1) ||
-      !fwd_wgmma_s8::encode_maps(&pl.conv2, slab, slab_len, w2, wdt, wdt,
-                                 bn2, 9) ||
-      !fwd_wgmma_s8::encode_maps(&pl.out, a2, m, w3, wdt, cout, bn3, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+      !fwd_wgmma_s8::encode_maps(&pl.conv2, slab, planes * plane, w2, wdt,
+                                 wdt, bn2, 9) ||
+      !fwd_wgmma_s8::encode_maps(&pl.out, a2, m_out, w3, wdt, cout, bn3,
+                                 1) ||
+      (wp != nullptr && !fwd_wgmma_s8::encode_maps(&pl.proj, xp, m_out, wp,
+                                                   cin, cout, bn3, 1)))
+    return invalid();
   memcpy(plan, &pl, sizeof(Plan));
   return 0;
 }
 
-// conv1: a1 = requant(x . w1^T, p1, q1) into the slab, every pad byte
-// zero.
-int bneck_id_conv1_launch(const void* plan, const void* p1, const void* q1,
-                          void* slab, int n, int h, int w, int cin, int wdt,
-                          int bn, void* stream) {
+// conv1: a1 = requant(x . w1^T, p1, q1) into the slab (stride 1) or the
+// four planes (stride 2), every pad byte zero; at stride 2 also xs [n *
+// oh * ow][cin] = x[:, ::2, ::2].
+int bneck_block_conv1_launch(const void* plan, const void* p1,
+                             const void* q1, void* slab, const void* x,
+                             void* xs, int n, int h, int w, int cin, int wdt,
+                             int stride, int bn, void* stream) {
   using namespace bneck_wgmma;
-  Conv1Args a;
-  long slab_len;
-  int tiles;
-  if (!geometry(n, h, w, &a.g, &slab_len, &tiles) || !chans_ok(cin) ||
-      !chans_ok(wdt) || !tile_ok(bn))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.p = static_cast<const float*>(p1);
-  a.q = static_cast<const float*>(q1);
-  a.slab = static_cast<signed char*>(slab);
-  a.m = n * h * w;
-  a.cin = cin;
-  a.wdt = wdt;
-  a.n_tiles = (wdt + bn - 1) / bn;
-  a.shift[0] = 0;
+  Geo g;
+  long plane;
+  int tiles, planes;
+  if (!block_geometry(n, h, w, stride, &g, &plane, &tiles, &planes) ||
+      !chans_ok(cin) || !chans_ok(wdt) || !tile_ok(bn))
+    return invalid();
+  const int m = n * h * w, n_tiles = (wdt + bn - 1) / bn;
+  const long blocks = (long)n_tiles * ((m + BM - 1) / BM);
   Maps mp;
   tile_copy(&mp, plan, offsetof(Plan, conv1));
-  const long blocks = (long)a.n_tiles * ((a.m + bneck_wgmma::BM - 1) /
-                                         bneck_wgmma::BM);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(p1);
+  const float* q = static_cast<const float*>(q1);
+  signed char* s = static_cast<signed char*>(slab);
+  if (stride == 1) {
+    const Conv1Args a{p, q, s, g, m, cin, wdt, n_tiles, {0}};
+    return static_cast<int>(dispatch(bn, cin, [&](auto b, auto r) {
+      constexpr int B = decltype(b)::value, R = decltype(r)::value;
+      static bool smem_set = false;  // once per kernel
+      return start(conv1_kernel<B, R>, Tile<B>::SMEM, smem_set, blocks, st,
+                   mp, a);
+    }));
+  }
+  const Conv1PlanesArgs a{p, q, s, static_cast<const signed char*>(x),
+                          static_cast<signed char*>(xs), g, (int)plane, h, w,
+                          m, cin, wdt, n_tiles, {0}};
   return static_cast<int>(dispatch(bn, cin, [&](auto b, auto r) {
     constexpr int B = decltype(b)::value, R = decltype(r)::value;
     static bool smem_set = false;  // once per kernel
-    return start(conv1_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
-                 st);
+    return start(conv1_planes_kernel<B, R>, Tile<B>::SMEM, smem_set, blocks,
+                 st, mp, a);
   }));
 }
 
-// conv2: a2 = requant(conv3x3(a1, w2), p2, q2) from the slab.
-int bneck_id_conv2_launch(const void* plan, const void* p2, const void* q2,
-                          void* a2, int n, int h, int w, int wdt, int bn,
-                          void* stream) {
+// conv2: a2 = requant(conv3x3(a1, w2, stride), p2, q2) from the slab or
+// the planes.
+int bneck_block_conv2_launch(const void* plan, const void* p2,
+                             const void* q2, void* a2, int n, int h, int w,
+                             int wdt, int stride, int bn, void* stream) {
   using namespace bneck_wgmma;
   Conv2Args a;
-  long slab_len;
-  int tiles;
-  if (!geometry(n, h, w, &a.g, &slab_len, &tiles) || !chans_ok(wdt) ||
-      !tile_ok(bn))
-    return static_cast<int>(cudaErrorInvalidValue);
+  long plane;
+  int tiles, planes;
+  if (!block_geometry(n, h, w, stride, &a.g, &plane, &tiles, &planes) ||
+      !chans_ok(wdt) || !tile_ok(bn))
+    return invalid();
   a.p = static_cast<const float*>(p2);
   a.q = static_cast<const float*>(q2);
   a.a2 = static_cast<signed char*>(a2);
   a.wdt = wdt;
   a.n_tiles = (wdt + bn - 1) / bn;
-  for (int t = 0; t < 9; ++t)
-    a.shift[t] = a.g.guard + ((t / 3) * a.g.wq + t % 3 - 1) * n;
+  conv2_shifts(a.g, plane, stride, a.shift);
   Maps mp;
   tile_copy(&mp, plan, offsetof(Plan, conv2));
   const long blocks = (long)a.n_tiles * tiles;
@@ -934,19 +888,19 @@ int bneck_id_conv2_launch(const void* plan, const void* p2, const void* q2,
   return static_cast<int>(dispatch(bn, wdt, [&](auto b, auto r) {
     constexpr int B = decltype(b)::value, R = decltype(r)::value;
     static bool smem_set = false;  // once per kernel
-    return start(conv2_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
-                 st);
+    return start(conv2_kernel<B, R>, Tile<B>::SMEM, smem_set, blocks, st,
+                 mp, a);
   }));
 }
 
-// out = relu(x * r + fma(f32(a2 . w3^T), p3, q3)), int8 when out_int8
-// else bf16; m = n * h * w rows.
+// The identity block's output: out = relu(x * r + fma(f32(a2 . w3^T), p3,
+// q3)), int8 when out_int8 else bf16; m = n * h * w rows.
 int bneck_id_out_launch(const void* plan, const void* p3, const void* q3,
                         const void* x, float r, void* out, int m, int wdt,
                         int cout, int out_int8, int bn, void* stream) {
   using namespace bneck_wgmma;
   if (m < 1 || !chans_ok(wdt) || !chans_ok(cout) || !tile_ok(bn))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return invalid();
   OutArgs a;
   a.p3 = static_cast<const float*>(p3);
   a.q3 = static_cast<const float*>(q3);
@@ -961,14 +915,50 @@ int bneck_id_out_launch(const void* plan, const void* p3, const void* q3,
   a.shift[0] = 0;
   Maps mp;
   tile_copy(&mp, plan, offsetof(Plan, out));
-  const long blocks = (long)a.n_tiles * ((m + bneck_wgmma::BM - 1) /
-                                         bneck_wgmma::BM);
+  const long blocks = (long)a.n_tiles * ((m + BM - 1) / BM);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(bn, wdt, [&](auto b, auto rr) {
     constexpr int B = decltype(b)::value, R = decltype(rr)::value;
     static bool smem_set = false;  // once per kernel
-    return start(out_kernel<B, R>, Tile<B>::SMEM, smem_set, mp, a, blocks,
-                 st);
+    return start(out_kernel<B, R>, Tile<B>::SMEM, smem_set, blocks, st, mp,
+                 a);
+  }));
+}
+
+// The transition's output: out = relu(fma(f32(accP), pp, fma(f32(a2 .
+// w3^T), p3, q3))), accP = xp . wp^T, int8 when out_int8 else bf16; m = n *
+// oh * ow rows; bn 64.
+int bneck_tr_out_launch(const void* plan, const void* p3, const void* q3,
+                        const void* pp, void* out, int m, int wdt, int cin,
+                        int cout, int out_int8, int bn, void* stream) {
+  using namespace bneck_wgmma;
+  if (m < 1 || !chans_ok(wdt) || !chans_ok(cin) || !chans_ok(cout) ||
+      bn != 64)
+    return invalid();
+  OutProjArgs a;
+  a.p3 = static_cast<const float*>(p3);
+  a.q3 = static_cast<const float*>(q3);
+  a.pp = static_cast<const float*>(pp);
+  a.out = out;
+  a.m = m;
+  a.wdt = wdt;
+  a.cin = cin;
+  a.cout = cout;
+  a.out_int8 = out_int8;
+  a.n_tiles = (cout + bn - 1) / bn;
+  a.shift[0] = 0;
+  Maps m3, mpj;
+  tile_copy(&m3, plan, offsetof(Plan, out));
+  tile_copy(&mpj, plan, offsetof(Plan, proj));
+  const long blocks = (long)a.n_tiles * ((m + BM - 1) / BM);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch_rem(wdt, [&](auto r3) {
+    return dispatch_rem(cin, [&](auto rp) {
+      constexpr int R3 = decltype(r3)::value, RP = decltype(rp)::value;
+      static bool smem_set = false;  // once per kernel
+      return start(out_proj_kernel<64, R3, RP>, Tile<64>::SMEM, smem_set,
+                   blocks, st, m3, mpj, a);
+    });
   }));
 }
 

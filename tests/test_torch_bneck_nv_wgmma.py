@@ -409,7 +409,7 @@ def test_plan_refuses_32_bit_overflow():
 
 def test_profile_kinds_count_the_new_kernels_as_the_nv_blocks():
     """chip_smoke.py's kernel kinds by demangled name: the identity block's
-    three wgmma kernels and the transition's template are the NV
+    three wgmma kernels and the transition's output kernel are the NV
     blocks'."""
     import chip_smoke
 
@@ -420,10 +420,8 @@ def test_profile_kinds_count_the_new_kernels_as_the_nv_blocks():
             "bneck_wgmma::Conv2Args)",
             "void bneck_wgmma::out_kernel<128, 64>(fwd_wgmma_s8::Maps, "
             "bneck_wgmma::OutArgs)",
-            "void (anonymous namespace)::bneck_gemm_kernel<1, false, "
-            "(anonymous namespace)::Requant>((anonymous namespace)::AOp, "
-            "signed char const*, (anonymous namespace)::AOp, signed char "
-            "const*, int, int, (anonymous namespace)::Requant)"):
+            "void bneck_wgmma::out_proj_kernel<64, 0, 0>(fwd_wgmma_s8::Maps, "
+            "fwd_wgmma_s8::Maps, bneck_wgmma::OutProjArgs)"):
         assert chip_smoke.kernel_kind(name) == "bneck nv (port)", name
     assert set(chip_smoke.NV_ID_PARTS) == {"conv1", "conv2", "out"}
 

@@ -1302,9 +1302,11 @@ def test_nv_kernels_match_plain(dev, h, w, cin, wdt, cout, stride, b,
                                  name: 1}
     assert want.unique().numel() > 20
     _same(got, want)
-    if not proj:   # the identity block: bit-equal, and from call to call
-        assert torch.equal(got, want)
-        assert torch.equal(nv.bneck_block_nv(*args, out_int8=out_int8), got)
+    # bit-equal, and from call to call
+    assert torch.equal(got, want)
+    again = (nv.bneck_transition_nv(*args, **kw) if proj
+             else nv.bneck_block_nv(*args, out_int8=out_int8))
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("b,h,w,cin,wdt", [(3, 6, 5, 32, 32),
@@ -1345,6 +1347,52 @@ def test_nv_identity_conv1_writes_every_pad(dev, b, h, w, cin, wdt):
     assert torch.equal(got, nv.bneck_block_nv_plain(x, *ws, *vecs, 0.37))
 
 
+@pytest.mark.parametrize("b,h,w,cin,wdt,cout,stride", [
+    (3, 6, 5, 32, 32, 64, 1), (2, 5, 7, 64, 32, 128, 2),
+    (3, 6, 6, 32, 96, 64, 2), (2, 7, 4, 96, 64, 32, 2),
+    (128, 28, 28, 512, 256, 1024, 2)])
+def test_nv_transition_conv1_writes_every_pad(dev, b, h, w, cin, wdt, cout,
+                                              stride):
+    """The transition's slab (stride 1) or four parity planes (stride 2,
+    odd h and w included), filled with nonzero bytes before conv1 (the
+    wrapper's test hook), come out equal to their plain build: every pad
+    byte zero, every position a1."""
+    g = torch.Generator(device=dev).manual_seed(b + cin + stride)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+
+    x = i8(b, h, w, cin)
+    ws = [i8(wdt, cin), i8(wdt, 9 * wdt), i8(cout, wdt), i8(cout, cin)]
+    vecs = []
+    for c, fan in ((wdt, cin), (wdt, 9 * wdt), (cout, wdt)):
+        vecs += [(torch.rand(c, device=dev, generator=g) + 0.5) * 40
+                 / (fan ** 0.5 * 127 ** 2 / 3),
+                 torch.rand(c, device=dev, generator=g) * 4 - 2]
+    pp = (torch.rand(cout, device=dev, generator=g) + 0.5) * 40 / (
+        cin ** 0.5 * 127 ** 2 / 3)
+    slabs = []
+
+    def fill(slab):
+        slab.fill_(90)
+        slabs.append(slab)
+
+    nv._slab_hook = fill
+    try:
+        got = nv.bneck_transition_nv(x, *ws, *vecs, pp, stride=stride)
+    finally:
+        nv._slab_hook = None
+    torch.cuda.synchronize()
+    assert len(slabs) == 1
+    plan = nv.transition_plan(b, h, w, cin, wdt, cout, stride)
+    want = nv.transition_slab_plain(x, ws[0], vecs[0], vecs[1], plan)
+    assert want.shape == slabs[0].shape == (plan.slab_rows, wdt)
+    assert torch.equal(slabs[0], want)
+    assert torch.equal(got, nv.bneck_transition_nv_plain(
+        x, *ws, *vecs, pp, stride=stride))
+
+
 def test_nv_cuda_tensor_never_falls_back(dev):
     x = torch.zeros((2, 4, 4, 48), dtype=torch.int8, device=dev)
     ws = [torch.zeros(s, dtype=torch.int8, device=dev)
@@ -1361,6 +1409,28 @@ def test_nv_cuda_tensor_never_falls_back(dev):
     with pytest.raises(ValueError, match="vectors"):
         nv.bneck_block_nv(x32, *w32, v[:16], *[v[:32]] * 5, 1.0)
     assert not nv.launches   # raised before the first launch
+    # the transition, at both strides: bad channels, a non-contiguous x,
+    # wrong vectors (the folded ones or pp), all before the first launch
+    v64 = torch.ones(64, device=dev)
+    for stride in (1, 2):
+        wt = [torch.zeros(s, dtype=torch.int8, device=dev)
+              for s in ((48, 48), (48, 9 * 48), (64, 48), (64, 48))]
+        with pytest.raises(ValueError, match="multiples of 32"):
+            nv.bneck_transition_nv(x, *wt, *[v] * 4, v64, v64, v64,
+                                   stride=stride)
+        wt = [torch.zeros(s, dtype=torch.int8, device=dev)
+              for s in ((32, 32), (32, 9 * 32), (64, 32), (64, 32))]
+        x6 = torch.zeros((2, 6, 6, 32), dtype=torch.int8, device=dev)
+        with pytest.raises(ValueError, match="contiguous"):
+            nv.bneck_transition_nv(x6.transpose(1, 2), *wt, *[v[:32]] * 4,
+                                   v64, v64, v64, stride=stride)
+        with pytest.raises(ValueError, match="vectors"):
+            nv.bneck_transition_nv(x6, *wt, v[:16], *[v[:32]] * 3, v64,
+                                   v64, v64, stride=stride)
+        with pytest.raises(ValueError, match="vectors"):
+            nv.bneck_transition_nv(x6, *wt, *[v[:32]] * 4, v64, v64,
+                                   v[:32], stride=stride)
+    assert not nv.launches
 
 
 def test_bneck_nhwc_int8_products_match_plain(dev):

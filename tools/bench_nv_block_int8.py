@@ -1,32 +1,33 @@
-"""Time the port's int8 NV identity bottleneck block
-(``bneck_nv.bneck_block_nv``) on the card at ResNet-50's four identity
-shapes and WRN-50-2's stage-4 block (batch 128), int8 and bf16 out, beside
-the same block in bf16 on cuDNN and the block's bound, then summed over a
-ResNet-50 int8 serving batch; and the transition block
+"""Time the port's int8 NV bottleneck blocks on the card: the identity
+block (``bneck_nv.bneck_block_nv``) at ResNet-50's four identity shapes and
+WRN-50-2's stage-4 block, and the transition block
 (``bneck_transition_nv``) at ResNet-50's four transitions and WRN-50-2's
-last, to show whether it moved.
+last (batch 128), each beside the same block in bf16 on cuDNN and its
+bound, then summed over a ResNet-50 int8 serving batch.
 
     python tools/bench_nv_block_int8.py [--repo DIR] [--parts]
 
 ``--repo`` imports the port from another checkout (an unpacked parent
 commit, to compare two versions in one call: run parent, change, change,
-parent). The identity block is what the checkout has: conv1 into the
-padded slab, conv2 and the output on the TMA-fed s8 wgmma mainloop
-(``route`` "wgmma"), or, before it, three launches of the mma.sync template
-(``route`` "mma_sync"). ``--parts`` also times its three launches apart
-(``conv1``, ``conv2``, ``out``; the wgmma route's through the wrapper's own
-launch closures, the first design's through its C functions on buffers of
-its own), each beside its bound: conv1 by bytes (x read, a1's n*h*w*W
-codes written, not the slab's pads), conv2 by operations or bytes (a1's
-codes read once, a2 written), the output by bytes (a2 and x read, the
-output written); weights once. Every time is a CUDA-event mean of
-back-to-back calls (``ms``), the kernels' summed device time per call
-(``dev_ms``, torch.profiler; a window that lost a part's kernels is
-profiled again, and a time still missing is null, as is every batch sum
-that needs it) and the host's time to issue one call (``host_ms``: wall
-clock over 20 calls issued back to back, before the card is waited for).
-Each identity shape's output is checked equal to ``bneck_block_nv_plain``
-first.
+parent). The transition is what the checkout has: conv1 into the slab or
+four parity planes, conv2 and the output (conv3 and the projection as two
+mainloops of one kernel) on the TMA-fed s8 wgmma mainloop (``route``
+"wgmma"), or, before it, three launches of the ``mma.sync`` template
+(``route`` "mma_sync"). ``--parts`` also times each block's three launches
+apart (``conv1``, ``conv2``, ``out``), each beside its bound (the larger
+of its operations at the int8 peak and its bytes: x read, a1's n*h*w*W
+codes and at stride 2 xs written by conv1, not the slab's pads; a1's codes
+read and a2 written by conv2; a2 and x or xs read and the output written
+by the output; weights once): the wgmma route's through the wrapper's own
+launch closures, the first design's transition by the profiler's split of
+its kernels' names (``KERNELS["mma_sync"]``) in one call of the block.
+Every time is a CUDA-event mean of back-to-back calls (``ms``), the
+kernels' summed device time per call (``dev_ms``, torch.profiler; a window
+that lost a part's kernels is profiled again, and a time still missing is
+null, as is every batch sum that needs it) and the host's time to issue
+one call (``host_ms``: wall clock over 20 calls issued back to back, before
+the card is waited for). Each block's int8 output is checked equal to its
+plain version first.
 
 The serving batch is ResNet-50's at batch 128: 2 / 3 / 5 / 2 identity
 blocks at stages 1-4, the last of them emitting bf16 (the run's exit), and
@@ -60,10 +61,15 @@ TRANSITION = [(56, 56, 64, 64, 256, 1, 1), (56, 56, 256, 128, 512, 2, 1),
               (14, 14, 1024, 1024, 2048, 2, 0)]
 
 
-# the kernels each part launches, by route (their names in torch.profiler)
+# the kernels each part launches, by block and route (their names in
+# torch.profiler); the transition's conv1 is conv1_kernel at stride 1 and
+# conv1_planes_kernel at stride 2
 KERNELS = {"wgmma": {"conv1": "bneck_wgmma::conv1_kernel",
                      "conv2": "bneck_wgmma::conv2_kernel",
                      "out": "bneck_wgmma::out_kernel"},
+           "transition": {"conv1": "bneck_wgmma::conv1",
+                          "conv2": "bneck_wgmma::conv2_kernel",
+                          "out": "bneck_wgmma::out_proj_kernel"},
            "mma_sync": {"conv1": "bneck_gemm_kernel<0, false, "
                                  "(anonymous namespace)::Requant>",
                         "conv2": "bneck_gemm_kernel<1, false",
@@ -99,6 +105,35 @@ def device_ms(fn, need=(), reps=10, tries=3):
     return None
 
 
+def split_ms(fn, keys, reps=10, tries=3):
+    """{key: device ms per call} of the kernels ``fn`` launches, summed by
+    the key their name holds (torch.profiler over ``reps`` calls after one
+    warm-up call); a window that lost a key's kernels is profiled again, up
+    to ``tries`` windows; None if it still misses one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(keys, 0.0)
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA":
+                continue
+            for key in keys:
+                if key in e.key:
+                    out[key] += getattr(e, "self_device_time_total", getattr(
+                        e, "self_cuda_time_total", 0.0)) / reps / 1e3
+        if all(v > 0 for v in out.values()):
+            return out
+        print(f"split_ms: a profiler window missed {keys}", file=sys.stderr)
+    return None
+
+
 def _timed(row, key, fn, need=()):
     """row[key_ms], row[key_dev_ms], row[key_host_ms] (``ms``, ``dev_ms``,
     ``host_ms`` for key None); ``need``: the kernels ``fn`` launches
@@ -107,6 +142,34 @@ def _timed(row, key, fn, need=()):
     row[f"{pre}ms"] = time_ms(fn)
     row[f"{pre}dev_ms"] = device_ms(fn, need)
     row[f"{pre}host_ms"] = host_ms(fn)
+
+
+def _bound(ops, byts):
+    """(ms, "operations" or "bytes"): the larger of ops at the int8 peak
+    and bytes at the memory rate."""
+    o, b = ops / INT8 * 1e3, byts / BW * 1e3
+    return (o, "operations") if o >= b else (b, "bytes")
+
+
+def part_bounds(m, m_out, cin, wdt, cout, stride, out_int8):
+    """{part_bound_ms, part_bound_by}: each of the transition's launches'
+    own bound. a1 counts as its m*W codes, x as read once by conv1 and, for
+    the output, as the m_out rows it reads (x at stride 1, xs at stride 2,
+    which conv1 writes too); weights and the folded vectors once."""
+    ob = 1 if out_int8 else 2
+    xs = m_out * cin if stride == 2 else 0
+    parts = dict(
+        conv1=_bound(2 * m * cin * wdt,
+                     m * cin + m * wdt + xs + wdt * cin + 8 * wdt),
+        conv2=_bound(2 * m_out * 9 * wdt * wdt,
+                     m * wdt + m_out * wdt + 9 * wdt * wdt + 8 * wdt),
+        out=_bound(2 * m_out * cout * (wdt + cin),
+                   m_out * wdt + m_out * cin + m_out * cout * ob + cout * wdt
+                   + cout * cin + 12 * cout))
+    out = {}
+    for part, (ms, by) in parts.items():
+        out[f"{part}_bound_ms"], out[f"{part}_bound_by"] = ms, by
+    return out
 
 
 def _operands(g, dev, cin, wdt, cout, proj):
@@ -165,43 +228,18 @@ def _cudnn_block(g, dev, h, w, cin, wdt, cout, stride, proj):
     return block
 
 
-def _parts(nv, route, x, ws, vecs, r, out_int8):
+def _parts(nv, x, ws, vecs, res, out_int8, stride=None):
     """{part: a callable that launches that part alone}, on buffers the
-    block's earlier parts have filled."""
-    import torch
-
-    if route == "wgmma":
-        calls, _ = nv._identity_launches(x, *ws, *vecs, r, out_int8)
-        for c in calls:
-            c()
-        return dict(zip(("conv1", "conv2", "out"), calls))
-    n, h, w, cin = x.shape
-    wdt, cout = ws[0].shape[0], ws[2].shape[0]
-    lib = nv._library()
-    stream = torch.cuda.current_stream().cuda_stream
-    a1 = torch.empty((n, h, w, wdt), dtype=torch.int8, device=x.device)
-    a2 = torch.empty_like(a1)
-    out = torch.empty((n, h, w, cout), device=x.device,
-                      dtype=torch.int8 if out_int8 else torch.bfloat16)
-    p1, q1, p2, q2, p3, q3 = (v.float().contiguous() for v in vecs)
-
-    def run(rc):
-        assert rc == 0, rc
-
-    calls = dict(
-        conv1=lambda: run(lib.bneck_conv1_launch(
-            x.data_ptr(), ws[0].data_ptr(), p1.data_ptr(), q1.data_ptr(),
-            a1.data_ptr(), n * h * w, cin, wdt, stream)),
-        conv2=lambda: run(lib.bneck_conv2_launch(
-            a1.data_ptr(), ws[1].data_ptr(), p2.data_ptr(), q2.data_ptr(),
-            a2.data_ptr(), n, h, w, wdt, 1, stream)),
-        out=lambda: run(lib.bneck_out_launch(
-            a2.data_ptr(), ws[2].data_ptr(), p3.data_ptr(), q3.data_ptr(),
-            x.data_ptr(), None, None, float(r), out.data_ptr(), n, h, w,
-            cin, wdt, cout, 1, int(out_int8), stream)))
-    for c in calls.values():
+    block's earlier parts have filled (the wrapper's launch closures; the
+    transition's where ``stride`` is given)."""
+    if stride is None:
+        calls, _ = nv._identity_launches(x, *ws, *vecs, res, out_int8)
+    else:
+        calls, _ = nv._transition_launches(x, *ws, *vecs, res, stride,
+                                           out_int8)
+    for c in calls:
         c()
-    return calls
+    return dict(zip(("conv1", "conv2", "out"), calls))
 
 
 def main() -> int:
@@ -220,7 +258,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(29)
-    route = "wgmma" if hasattr(nv, "identity_plan") else "mma_sync"
+    route = "wgmma" if hasattr(nv, "transition_plan") else "mma_sync"
     batch = {}
 
     def add(row, count):
@@ -252,11 +290,11 @@ def main() -> int:
             assert torch.equal(call(), want), (h, wdt, out_int8)
             del want
             ob = 1 if out_int8 else 2
-            row = dict(name="bneck_block_nv", route=route, h=h, cin=cin,
+            row = dict(name="bneck_block_nv", route="wgmma", h=h, cin=cin,
                        wdt=wdt, cout=cout, out_int8=out_int8, **cudnn,
                        bound_ms=max(ops / INT8, (m * cin + m * cout * ob
                                                  + wbytes) / BW) * 1e3)
-            _timed(row, None, call, tuple(KERNELS[route].values()))
+            _timed(row, None, call, tuple(KERNELS["wgmma"].values()))
             if opts.parts:
                 c2_ops = 2 * m * 9 * wdt * wdt / INT8 * 1e3
                 c2_bytes = (2 * m * wdt + 9 * wdt * wdt) / BW * 1e3
@@ -268,25 +306,46 @@ def main() -> int:
                                     else "bytes"),
                     out_bound_ms=(m * wdt + m * cout * (1 + ob)
                                   + cout * wdt) / BW * 1e3)
-                for part, fn in _parts(nv, route, x, ws, vecs, r,
+                for part, fn in _parts(nv, x, ws, vecs, r,
                                        out_int8).items():
-                    _timed(row, part, fn, (KERNELS[route][part],))
+                    _timed(row, part, fn, (KERNELS["wgmma"][part],))
             print(json.dumps(row), flush=True)
             add(row, n_int8 if out_int8 else n_bf16)
         del x, ws
         torch.cuda.empty_cache()
 
+    keys = KERNELS["transition" if route == "wgmma" else "mma_sync"]
     for h, w, cin, wdt, cout, stride, count in TRANSITION:
         ws, vecs, pp = _operands(g, dev, cin, wdt, cout, True)
         x = torch.randint(-127, 128, (BATCH, h, w, cin), device=dev,
                           generator=g, dtype=torch.int8)
+        m = BATCH * h * w
+        m_out = BATCH * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
 
         def call():
             return nv.bneck_transition_nv(x, *ws, *vecs, pp, stride=stride)
 
-        row = dict(name="bneck_transition_nv", h=h, cin=cin, wdt=wdt,
-                   cout=cout, stride=stride, out_int8=True)
-        _timed(row, None, call, tuple(KERNELS["mma_sync"].values()))
+        want = nv.bneck_transition_nv_plain(x, *ws, *vecs, pp, stride=stride)
+        assert torch.equal(call(), want), (h, wdt, stride)
+        del want
+        ops = 2 * (m * cin * wdt + m_out * (9 * wdt * wdt + wdt * cout
+                                            + cin * cout))
+        byts = m * cin + m_out * cout + wdt * cin + 9 * wdt * wdt + cout * (
+            wdt + cin) + 4 * (4 * wdt + 3 * cout)
+        row = dict(name="bneck_transition_nv", route=route, h=h, cin=cin,
+                   wdt=wdt, cout=cout, stride=stride, out_int8=True,
+                   bound_ms=_bound(ops, byts)[0])
+        _timed(row, None, call, tuple(keys.values()))
+        if opts.parts:
+            row.update(part_bounds(m, m_out, cin, wdt, cout, stride, True))
+            if route == "wgmma":
+                for part, fn in _parts(nv, x, ws, vecs, pp, True,
+                                       stride).items():
+                    _timed(row, part, fn, (keys[part],))
+            else:   # the first design: its kernels' split of one call
+                split = split_ms(call, tuple(keys.values()))
+                for part, key in keys.items():
+                    row[f"{part}_dev_ms"] = split[key] if split else None
         print(json.dumps(row), flush=True)
         add({f"transition_{k}": v for k, v in row.items()}, count)
         del x, ws
