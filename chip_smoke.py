@@ -211,10 +211,16 @@ Phases, each fatal on failure:
    csrc/fwd_staged_s8.cuh's cp.async ring into ldmatrix and s8 mma.sync at
    nine tap shifts and its bf16 instantiation for the projection, with a
    channel-major epilogue, then the ordered sum) with dropout bits,
-   without, and with the option-A shortcut at stage 2; the FQT quantizers
-   (the activation's codes as four parity planes) and the
-   straight-through fold (the rounded cotangent, the bf16 prologue's four
-   parity planes and, from both, x's even-even plane); the dgrad of both
+   without, and with the option-A shortcut at stage 2; the FQT operands
+   in one launch (a thread-block cluster per scale group of the folded
+   cotangent; the activation's codes as four parity planes at the
+   forward's group absmax, which must equal the plain version's own) and
+   the straight-through fold (the rounded cotangent, the bf16 prologue's
+   four parity planes and, from both, x's even-even plane; the fold also
+   with every output lane loading its own input pair, as the FQT pass
+   always loads and both load at output rows off 8 pixels), both also at
+   a 24x24 input (Cin 32, Cout 64, three scale groups: output rows of 12
+   pixels); the dgrad of both
    bodies (its prepass writing g, and dres where a projection runs, once
    into the fused forward's padded slab at the output geometry, then each
    parity class of input pixel a tap range on csrc/fwd_wgmma_s8.cuh's
@@ -612,8 +618,8 @@ _TR_STEP = {"transition_fwd.amax": 2, "transition_fwd.pre": 2,
             "transition_wgrad_tma.proj": 2,
             "transition_wgrad_tma.proj_sum": 2}
 LANE_FQT_PER_STEP = {
-    **FQT_PER_STEP, **_TR_STEP, "transition_bwd.amax": 2,
-    "transition_bwd.quant": 2, "transition_wgrad_s8": 2}
+    **FQT_PER_STEP, **_TR_STEP, "transition_bwd.quant": 2,
+    "transition_wgrad_s8": 2}
 LANE_QAT_PER_STEP = {
     **QAT_PER_STEP, **_TR_STEP, "transition_bwd.fold": 2,
     "transition_wgrad_tma": 2, "transition_wgrad_tma.sum": 2}
@@ -1156,7 +1162,6 @@ KERNEL_KINDS = [
                                 "FusedDgrad", "fused_wgrad_pre")),
     ("transition (port)", ("fwd_pre_kernel", "fwd_gemm_kernel",
                            "dgrad_kernel<", "dgrad_pre_kernel",
-                           "bwd_amax_kernel",
                            "bwd_quant_kernel", "bwd_fold_kernel")),
     # the FQT dgrad's prepass (csrc/fused_half.cuh's slab copy, which the
     # int8 serving conv also launches) and GEMM
@@ -2630,6 +2635,106 @@ def dgrad_parts(tr, dargs, tol, quant, thresh, tile, h, w, bw):
     return out
 
 
+# (batch, h, w, Cin, Cout) of the operand passes' row at output rows off 8
+# pixels: a 24x24 input (rows of 12), three scale groups
+TR_OPERAND_OFF8 = (24, 24, 24, 32, 64)
+
+
+def operand_rows(tr, stage, cin, cout, h, w, batch, ct, scb, amax_f, thresh,
+                 tile, bw, mode_sfx=""):
+    """Rows of the backward's two operand passes at one shape: the FQT
+    operands (``bwd_quantize``, one launch, the activation at the
+    forward's group absmax ``amax_f``) and the straight-through fold
+    (``bwd_fold``), each against its plain version (every output equal),
+    bit-equal over two calls, timed beside its plain version and its
+    bound (bytes: each operand read once, each output written once), also
+    in device time; the fold, where output rows hold whole units of 8
+    lanes, also with each lane loading its own input pair (``lanes``,
+    equal and timed; the FQT pass always loads so)."""
+    import torch
+
+    n = batch * h * w
+    n_out = n // 4
+    kw = dict(h=h, w_img=w)
+    q_keys = ("g_q", "g_amax", "d_q", "d_amax", "x_ee")
+    f_keys = ("g", "d", "x_ee")
+    passes = (
+        ("fqt", q_keys,
+         lambda: tr.bwd_quantize(*ct, *scb, amax_f, thresh=thresh, tile=tile,
+                                 **kw),
+         lambda: tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile,
+                                       **kw),
+         # dz, z, x and the bits in; g_q, d_q's planes and x_ee out
+         4 * cout * n_out + 3 * cin * n + cout * n_out + cin * n
+         + cin * n // 2),
+        ("qat", f_keys,
+         lambda: tr.bwd_fold(*ct, *scb, thresh=thresh, **kw),
+         lambda: tr.bwd_fold_plain(*ct, *scb, thresh=thresh, **kw),
+         # dz, z, x and the bits in; g, d's planes and x_ee out
+         6 * cout * n_out + 5 * cin * n + cin * n // 2))
+    out = []
+    for mode, keys, kern, plain, byts in passes:
+        want = dict(zip(keys, plain()))
+        got = kern()
+        err = _agree_tr(dict(zip(keys, got)), want, dict.fromkeys(keys, "eq"),
+                        ("transition_bwd", stage, mode))
+        for a, b_ in zip(got, kern()):
+            assert torch.equal(a, b_), ("transition_bwd", stage, mode)
+        if mode == "fqt":
+            assert got[3] is amax_f, "bwd_quantize returns the forward's amax"
+        row = dict(name="transition_bwd", stage=stage, cin=cin, cout=cout,
+                   h=h, w=w, n=n, mode=mode + mode_sfx, tile=tile,
+                   max_abs_err=err, ms=time_ms(kern, 10),
+                   plain_ms=time_ms(plain, 1), library_ms=None, ops_ms=0.0,
+                   bytes_ms=byts / bw * 1e3, dev_ms=device_ms(kern, 10),
+                   rows=mode == "qat" and tr.operand_rows(w))
+        if mode == "qat" and tr.operand_rows(w):
+            tr._fold_rows = False   # each lane loads its own pair
+            try:
+                _agree_tr(dict(zip(keys, kern())), want,
+                          dict.fromkeys(keys, "eq"),
+                          ("transition_bwd lanes", stage, mode))
+                row["lanes_ms"] = time_ms(kern, 10)
+            finally:
+                tr._fold_rows = None
+        out.append(row)
+        del want, got
+    return out
+
+
+def operand_rows_off8(tr, fb, bw):
+    """The operand passes' rows at TR_OPERAND_OFF8 (output rows of 12
+    pixels: each lane loads its own input pair), at least three scale
+    groups, the dropout bits on; modes ``fqt@24x24`` and ``qat@24x24``
+    (the step sums leave them out)."""
+    import torch
+
+    b, h, w, cin, cout = TR_OPERAND_OFF8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    n, n_out = b * h * w, b * h * w // 4
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    x = randn(cin, n).to(torch.bfloat16)
+    scale, shift = randn(cin).abs() + 0.5, randn(cin, s=0.3)
+    bits = torch.randint(0, 256, (cin, n), device=dev, generator=g,
+                         dtype=torch.uint8)
+    thresh = fb.dropout_thresh(0.3)
+    tile = tr.transition_tile(h // 2, w // 2, n_out, cin, cout)
+    assert n_out // tile >= 3 and not tr.operand_rows(w)
+    lay = tr.transition_fwd_layout(n, h, w, cin, cout, tile)
+    scb = (x, scale, shift, bits)
+    amax_f = tr.fwd_pre(*scb, tr.fwd_amax(*scb, thresh=thresh, tile=tile),
+                        thresh=thresh, lay=lay)[2]
+    ct = (randn(cout, n_out, s=1e-3).to(torch.bfloat16),
+          randn(cout, n_out).to(torch.bfloat16), randn(cout, s=1e-4),
+          randn(cout, s=1e-4))
+    return operand_rows(tr, f"{h}x{w}", cin, cout, h, w, b, ct, scb, amax_f,
+                        thresh, tile, bw, mode_sfx=f"@{h}x{w}")
+
+
 def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
     """Rows per (transition kernel, stage, mode): max error against the
     plain version on the same CUDA tensors, and the kernel / plain / cuDNN
@@ -2789,31 +2894,18 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
         ct = (dz, z, dzsum, dzssq)
         scb = (x, scale, shift, bits)
 
-        # FQT: the quantizers, then the int8 dgrad and wgrad on the plain
+        # FQT: the operands in one launch, the activation at the forward
+        # kernel's group absmax (returned as d_amax, which must equal the
+        # plain version's own); then the int8 dgrad and wgrad on the plain
         # version's operands (equal to the kernel's, checked first); x_ee,
         # x's even-even plane, is dWp's operand
-        q_keys = ("g_q", "g_amax", "d_q", "d_amax", "x_ee")
+        amax_f = fwd(bits, wp, False)["amax"]
         ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile,
                                       **kw)
-        add("transition_bwd", "fqt",
-            lambda: dict(zip(q_keys, tr.bwd_quantize(
-                *ct, *scb, thresh=thresh, tile=tile, **kw))),
-            lambda: dict(zip(q_keys, tr.bwd_quantize_plain(
-                *ct, *scb, thresh=thresh, tile=tile, **kw))),
-            dict.fromkeys(q_keys, "eq"), None,
-            4 * cout * n_out + 3 * cin * n + cout * n_out + cin * n
-            + cin * n // 2, 0.0)
+        rows.extend(operand_rows(tr, stage, cin, cout, h, w, batch, ct, scb,
+                                 amax_f, thresh, tile, bw))
         g_q, g_amax, d_q, d_amax, _ = ops_p
-        # straight-through: g, the prologue's parity planes and x_ee
-        f_keys = ("g", "d", "x_ee")
         gb, db, xee = tr.bwd_fold_plain(*ct, *scb, thresh=thresh, **kw)
-        add("transition_bwd", "qat",
-            lambda: dict(zip(f_keys, tr.bwd_fold(*ct, *scb, thresh=thresh,
-                                                 **kw))),
-            lambda: dict(zip(f_keys, tr.bwd_fold_plain(
-                *ct, *scb, thresh=thresh, **kw))),
-            dict.fromkeys(f_keys, "eq"), None,
-            6 * cout * n_out + 5 * cin * n + cin * n // 2, 0.0)
         for opt_a in optas:
             wpt_ = None if opt_a else wpt
             sfx = "+optA" if opt_a else "+proj"
@@ -2885,8 +2977,9 @@ def transition_kernel_phase(peaks, shapes=TR_SHAPES, batch=BATCH):
                 r["plan"] = list(tr.wgrad_tma_plan(
                     9 if mode == "qat" else 1, cin, cout, n_out, h, w))
                 del first
-        del x, bits, z, dz, dres, ops_p, gb, db, xee, g_q, d_q
+        del x, bits, z, dz, dres, ops_p, gb, db, xee, g_q, d_q, amax_f
         torch.cuda.empty_cache()
+    rows.extend(operand_rows_off8(tr, fb, bw))
     for r in rows:
         r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
         r["bound_by"] = ("operations" if r["ops_ms"] >= r["bytes_ms"]
@@ -2991,10 +3084,12 @@ def _tr_stages(tr, fb, x, w1, wp, scale, shift, bits, thresh, h, w, ct,
     wpt = None if wp is None else wp_c.t().contiguous()
     dz, dzsum, dzssq, dres = ct
     cts = (dz, z, dzsum, dzssq)
-    if quant_bwd:
-        g, g_amax, d_q2, d_amax, x_ee = (tr.bwd_quantize_plain if plain
-                                         else tr.bwd_quantize)(
-            *cts, x, scale, shift, bits, thresh=thresh, tile=tile, **kw)
+    if quant_bwd:   # the card's quantizer takes the forward's absmax
+        g, g_amax, d_q2, d_amax, x_ee = (
+            tr.bwd_quantize_plain(*cts, x, scale, shift, bits,
+                                  thresh=thresh, tile=tile, **kw) if plain
+            else tr.bwd_quantize(*cts, x, scale, shift, bits, amax,
+                                 thresh=thresh, tile=tile, **kw))
         out.update(g_q=g, g_amax=g_amax, d_q2=d_q2, d_amax=d_amax, x_ee=x_ee)
         w_dg, ws_in = tr.quant_pack_w_dgrad(w1)
     else:
@@ -3051,6 +3146,14 @@ def live_transition_check(rec, quant_bwd: bool):
                 quant_bwd=quant_bwd, max_abs_err=err)
 
 
+def _measured_sum(rows, key):
+    """The rows' ``key`` summed, or None where a row lacks a measurement
+    of it (a step's sum is reported only where every shape was
+    measured)."""
+    vals = [r.get(key) for r in rows]
+    return None if None in vals else sum(vals)
+
+
 def transition_summary(rows, lane_fqt, lane_qat):
     """One entry per transition kernel: the launches of the two
     lane-transition runs (phase 16, FQT and QAT), and the device time per
@@ -3059,7 +3162,7 @@ def transition_summary(rows, lane_fqt, lane_qat):
     launch_names = {
         "transition_fwd": ("transition_fwd",),
         "transition_fwd.pre": ("transition_fwd.pre",),
-        "transition_bwd": ("transition_bwd.amax", "transition_bwd.fold"),
+        "transition_bwd": ("transition_bwd.quant", "transition_bwd.fold"),
         "transition_dgrad": ("transition_dgrad",),
         "transition_wgrad_s8": ("transition_wgrad_s8",),
         "transition_wgrad_tma": ("transition_wgrad_tma",
@@ -3071,7 +3174,6 @@ def transition_summary(rows, lane_fqt, lane_qat):
         step = [r for r in mine if r["mode"] in modes]
         tot = {k: sum(r[k] for r in step)
                for k in ("ms", "plain_ms", "ops_ms", "bytes_ms")}
-        libs = [r["library_ms"] for r in step]
         runs = {label: sum(run["launches"].get(k, 0)
                            for k in launch_names[name])
                 for label, run in (("lane_fqt", lane_fqt),
@@ -3089,7 +3191,7 @@ def transition_summary(rows, lane_fqt, lane_qat):
             bound_ms=max(tot["ops_ms"], tot["bytes_ms"]),
             bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                       else "bytes"),
-            library_ms=(None if None in libs else sum(libs)),
+            library_ms=_measured_sum(step, "library_ms"),
             per=f"{step_run} train step at batch {BATCH} (ms per call of the "
                 f"{' + '.join(modes)} case summed over the step's two "
                 "transitions; launches over both lane runs)",
@@ -3100,23 +3202,30 @@ def transition_summary(rows, lane_fqt, lane_qat):
         if name in TR_MAINLOOP:
             out[-1]["mainloop"] = TR_MAINLOOP[name]
         if name == "transition_wgrad_tma":
-            out[-1].update(dev_ms=sum(r["dev_ms"] or 0.0 for r in step),
+            out[-1].update(dev_ms=_measured_sum(step, "dev_ms"),
                            tflops={r["mode"]: [x["tflops"] for x in mine
                                                if x["mode"] == r["mode"]]
                                    for r in step})
         if name == "transition_wgrad_s8":
-            out[-1].update(dev_ms=sum(r["dev_ms"] or 0.0 for r in step),
+            out[-1].update(dev_ms=_measured_sum(step, "dev_ms"),
                            tops=[r["tops"] for r in step],
                            plans=[r["plan"] for r in step])
+        if name == "transition_bwd":   # each body's step, in device time
+            body = {m: [r for r in mine if r["mode"] == m]
+                    for m in ("fqt", "qat")}
+            out[-1].update(
+                fqt_step={k: _measured_sum(body["fqt"], k)
+                          for k in ("ms", "dev_ms", "bound_ms")},
+                qat_step={k: _measured_sum(body["qat"], k)
+                          for k in ("ms", "dev_ms", "lanes_ms", "bound_ms")})
         if name == "transition_dgrad":   # its parts, in device time
             out[-1].update(
-                **{k: sum(r.get(k) or 0.0 for r in step) for k in (
+                **{k: _measured_sum(step, k) for k in (
                     "dev_ms", "pre_dev_ms", "gemm_dev_ms", "sum_dev_ms",
                     "pre_ms", "pre_bound_ms", "gemm_ms")},
-                qat_step={k: sum(r.get(k) or 0.0 for r in mine
-                                 if r["mode"] == "qat+proj")
-                          for k in ("ms", "dev_ms", "library_ms",
-                                    "bound_ms")},
+                qat_step={k: _measured_sum(
+                    [r for r in mine if r["mode"] == "qat+proj"], k)
+                    for k in ("ms", "dev_ms", "library_ms", "bound_ms")},
                 gemm_tops=[r.get("gemm_tops") for r in mine],
                 part_launches={label: {k: run["launches"].get(k, 0) for k in (
                     "transition_dgrad.pre", "transition_dgrad",

@@ -2,7 +2,8 @@
 // conv core; fused_block_bf16.cu, the bf16 one), the stage-transition
 // half (transition.cu) and the int8 serving conv (requant_wgmma_s8.cuh):
 // 8-wide bf16 loads, the stats-cotangent fold, the f32 and bf16
-// prologues, the per-group int8 quantizer (amax pass, quant pass), where
+// prologues, the per-group int8 quantizer (amax pass, quant pass; and one
+// scale group a thread-block cluster, in one pass), where
 // the forwards' prepasses put each lane in their padded slab, and the one
 // copy of codes (or bf16) into that slab.
 
@@ -69,6 +70,16 @@ struct Prologue {
   int thresh;
   float keep;  // f32(256 / thresh)
 
+  // One lane: xv of a channel of scale sc and shift sh, at dropout byte b
+  // (read only where drop, bits.active()). The one place the prologue
+  // rounds: operator() below and the transition's backward units, whose
+  // codes are scaled by the absmax that operator() took in the forward.
+  __device__ __forceinline__ float one(float xv, float sc, float sh,
+                                       bool drop, int b) const {
+    const float r = fmaxf(__fmaf_rn(xv, sc, sh), 0.f);
+    return !drop ? r : (b < thresh ? __fmul_rn(r, keep) : 0.f);
+  }
+
   __device__ __forceinline__ void operator()(int row, int n, size_t off,
                                              float (&v)[8]) const {
     float xv[8];
@@ -78,10 +89,7 @@ struct Prologue {
     const float sc = scale[row], sh = shift[row];
     const bool drop = bits.active();
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float r = fmaxf(__fmaf_rn(xv[k], sc, sh), 0.f);
-      v[k] = !drop ? r : (b[k] < thresh ? __fmul_rn(r, keep) : 0.f);
-    }
+    for (int k = 0; k < 8; ++k) v[k] = one(xv[k], sc, sh, drop, b[k]);
   }
 };
 
@@ -205,6 +213,111 @@ struct QuantOut {
   float* amax;
   __nv_bfloat16* copy;
 };
+
+// --- one scale group quantized by one thread-block cluster ------------------
+//
+// The amax pass and the quant pass above are two launches, and the second
+// reads every operand again from device memory. A cluster of kClusterCtas
+// blocks, co-scheduled on one GPC, quantizes a whole group in one launch
+// that reads its operands from device memory once (the second pass finds
+// them in L2): each block folds its share of the group's units (fn) and
+// takes its partial absmax, the cluster reduces the partial maxima through
+// distributed shared memory (barrier.cluster, ld.shared::cluster), then
+// each block quantizes its share at the group's scale. No block waits on
+// a flag in global memory: only a cluster's blocks are sure to run
+// together.
+
+constexpr int kClusterCtas = 8;
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// barrier.cluster's two halves: arrive (release) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// the float at `p` (this block's shared memory) in block `rank` of the
+// cluster
+__device__ __forceinline__ float cluster_load(const float* p, int rank) {
+  const uint32_t local = (uint32_t)__cvta_generic_to_shared(p);
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Group g quantized by the calling block's cluster, as quant_body
+// quantizes it after amax_body: block rank s of the cluster's
+// kClusterCtas takes units s * blockDim + t, + kClusterCtas * blockDim,
+// ... (amax_body's split at slices = kClusterCtas; walk.slices is not
+// read), folds each (fn) and takes the absmax of its share;
+// the cluster's maximum is the group's absmax, written to amax[g] by rank
+// 0; then each unit's codes s8(clip(rint(f * (127 / max(amax, floor)))))
+// are placed by `store`. The second pass calls fn again on the block's
+// units, whose operands the first pass brought into L2 a moment before.
+// Tried on an H100 and dropped: holding the fold in the cluster's shared
+// memory (160 KiB a block at WRN-28-10's groups) left the launch's other
+// blocks one an SM, 1.8x slower; four or eight units' loads in flight a
+// thread raised the registers of every block of the launch (64, 74 from
+// 40) and ran 8% and 25% slower. Every thread of the cluster calls it.
+template <typename Fn, typename Store = LaneStore>
+__device__ __forceinline__ void cluster_quant_body(
+    const Fn& fn, int rows, const GroupWalk& walk, int g, float floor,
+    signed char* __restrict__ q, float* __restrict__ amax,
+    const Store& store = Store()) {
+  __shared__ float slot;
+  const int s = cluster_rank();
+  const long units = walk.units(rows);
+  const long step = (long)kClusterCtas * blockDim.x;
+  const long u0 = (long)s * blockDim.x + threadIdx.x;
+  float m = 0.f;
+  for (long u = u0; u < units; u += step) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) slot = m;
+  cluster_arrive();
+  cluster_wait();  // every block's slot is written
+  float a = 0.f;
+  for (int r = 0; r < kClusterCtas; ++r)
+    a = fmaxf(a, cluster_load(&slot, r));
+  cluster_arrive();  // this block has read its peers' slots
+  const float inv = __fdiv_rn(127.f, fmaxf(a, floor));
+  if (s == 0 && threadIdx.x == 0) amax[g] = a;
+  for (long u = u0; u < units; u += step) {
+    int row;
+    size_t off;
+    walk.at(u, g, row, off);
+    float v[8];
+    fn(row, walk.n, off, v);
+    uint2 packed;
+    signed char* o = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[k] = common::quant_s8(__fmul_rn(v[k], inv));
+    store(q, row, walk.n, off, packed);
+  }
+  cluster_wait();  // no block leaves while a peer may still read its slot
+}
 
 template <typename Fn0, typename Fn1>
 __global__ void __launch_bounds__(256)
@@ -405,6 +518,19 @@ struct Bf16Prologue {
   int thresh;
   float keep;  // f32(256 / thresh)
   int n;
+
+  // One lane of operator()'s prologue at the same rounding points, for
+  // the transition's straight-through units (held bit-equal to
+  // bwd_fold_plain on the card). operator() keeps its own loop: routed
+  // through one(), two of fused_block_bf16.cu's kernels compiled to other
+  // SASS (tools/compare_sass.py on an H100).
+  __device__ __forceinline__ __nv_bfloat16 one(float xv, float sc, float sh,
+                                               bool drop, int b) const {
+    const float r = fmaxf(
+        __bfloat162float(__float2bfloat16_rn(__fmaf_rn(xv, sc, sh))), 0.f);
+    return __float2bfloat16_rn(
+        !drop ? r : (b < thresh ? __fmul_rn(r, keep) : 0.f));
+  }
 
   __device__ __forceinline__ void operator()(int ch, int pos,
                                              __nv_bfloat16 (&d)[8]) const {

@@ -9,10 +9,11 @@
 //   fwd_gemm                  prologue, its joint absmax per tile over the
 //                             four parity planes, their quantization, the
 //                             int8 stride-2 conv, the shortcut and the sums
-//   bwd_amax, bwd_quant    <- the cotangent fold and the per-tile
+//   bwd_quant              <- the cotangent fold and the per-tile
 //                             quantizers of _bwd_kernel (site :619, FQT;
-//                             the activation's codes as parity planes);
-//                             bwd_quant also writes x's even-even plane
+//                             the activation's codes as parity planes, at
+//                             the forward's absmax); it also writes x's
+//                             even-even plane
 //   bwd_fold               <- its straight-through cotangent fold and bf16
 //                             prologue recomputation (as parity planes),
 //                             and the even-even plane of x for dWp
@@ -104,17 +105,29 @@
 // - Both bodies' wgrad and dWp run in transition_wgrad.cu on the parity
 //   planes of d and the even-even plane of x that the operand passes write:
 //   the FQT quantizer (bwd_quant_kernel) stores the activation's int8
-//   codes as the four planes [4][Cin][N'] (the even columns of each 8-lane
-//   unit into plane 2 ph, the odd ones into 2 ph + 1: the same bytes as the
-//   lane layout, the JAX kernel's d_ref rows p * Cin + ci), the
-//   straight-through fold (bwd_fold_kernel) the bf16 prologue likewise.
+//   codes as the four planes [4][Cin][N'] (the JAX kernel's d_ref rows p *
+//   Cin + ci), the straight-through fold (bwd_fold_kernel) the bf16
+//   prologue likewise. Both walk the activation in units of 8 output lanes
+//   of one plane row, each lane reading its own input pair (one 4-byte
+//   load of x, two bytes of bits), so any even H and W; where the output
+//   rows hold whole units (ow % 8 == 0) a unit's 16 input pixels are
+//   consecutive and move as 16-byte vectors. x_ee comes from the same
+//   loads.
 //
 // Scale groups: the quantizers take one absmax per group of whole images
 // (the reference's transition_tile of output lanes; 4x as many input
-// lanes). They are fused_half.cuh's amax and quant kernels, which
-// fused_block.cu runs too, each operand walking its own group width:
-// *_amax writes partial maxima per (group, slice) block, *_quant (or the
-// forward's prepass) reduces them and quantizes.
+// lanes). The forward's is fused_half.cuh's amax pass and the prepass
+// above. The FQT backward is one launch (bwd_quant_kernel) that reads each
+// operand from device memory once, with two kinds of blocks: a
+// thread-block cluster per group of the folded cotangent (fused_half.cuh
+// cluster_quant_body: each block folds its share and takes its partial
+// absmax, the cluster reduces them through distributed shared memory,
+// then each block folds its share again from L2 and quantizes it), and
+// blocks that quantize the recomputed activation at the forward's group
+// absmax, the same number bit for bit (the same f32 prologue, bits and
+// groups; a maximum is exact in any order), so no pass recomputes it. What
+// bounds it on an H100: bytes (dz, z, x and the bits in once; g_q, d_q's
+// planes and x_ee out once; chip_smoke.py phase 15).
 //
 // Rounding points (the reference as XLA computes it on the CPU, where the
 // tests run it; tests/test_torch_transition.py pins them): the prologue
@@ -143,7 +156,6 @@ using fused_half::GroupWalk;
 using fused_half::kBwdFloor;
 using fused_half::pack8;
 using fused_half::Prologue;
-using fused_half::QuantOut;
 
 namespace {
 
@@ -458,29 +470,106 @@ __device__ __forceinline__ int in_pos(int q, int ph, int h, int w) {
   return img * h * w + (2 * r + ph) * w + 2 * (rem - r * ow);
 }
 
-// The 8 even lanes of x[off, off + 16) (bf16, 16-byte aligned).
-__device__ __forceinline__ uint4 even16(const bf16* x, size_t off) {
-  const uint4 a = *reinterpret_cast<const uint4*>(x + off);
-  const uint4 b = *reinterpret_cast<const uint4*>(x + off + 8);
-  return make_uint4(__byte_perm(a.x, a.y, 0x5410),
-                    __byte_perm(a.z, a.w, 0x5410),
-                    __byte_perm(b.x, b.y, 0x5410),
-                    __byte_perm(b.z, b.w, 0x5410));
+// The activation's units: unit u is 8 consecutive output lanes q0 .. q0 +
+// 7 (q0 % 8 == 0) of input channel ci at row parity ph, u = (ci * 2 + ph)
+// * (n_out / 8) + q0 / 8, neighbouring threads on neighbouring units of
+// one plane row. Output lane q (image i, output row r, column c) reads the
+// input pair (2r + ph, 2c .. 2c + 1) of image i: plane 2 ph + 0 takes the
+// pair's first pixel, plane 2 ph + 1 its second (ops/cuda/transition.py
+// parity_planes). n_out % 8 == 0, so a unit lies in one plane row, and in
+// one scale group (tile % 8 == 0).
+struct UnitGeo {
+  int cin, n_out, h, w;
+  __host__ __device__ __forceinline__ long units() const {
+    return (long)cin * 2 * (n_out / 8);
+  }
+  __device__ __forceinline__ void at(long u, int& ci, int& ph,
+                                     int& q0) const {
+    const long per = n_out / 8;
+    ci = (int)(u / (2 * per));
+    const long rem = u - (long)ci * 2 * per;
+    ph = (int)(rem / per);
+    q0 = (int)(rem - ph * per) * 8;
+  }
+};
+
+// The unit's 8 input pairs of channel ci (x [cin, 4 * n_out] bf16, bits
+// [cin, 4 * n_out] uint8 or null): xv[k] the pair of output lane q0 + k as
+// one bf16x2 word (its first pixel in the low half), bv[k] its two bits
+// (the first in the low byte). ROWS (output rows of ow % 8 == 0 pixels:
+// the unit's 8 lanes lie in one output row, its 16 input pixels are
+// consecutive): two 16-byte loads of x and one of the bits. Else each
+// lane walks its own (image, row, column), one 4-byte load of x and one
+// 2-byte load of the bits a lane.
+template <bool ROWS>
+__device__ __forceinline__ void load_unit(const bf16* __restrict__ x,
+                                          const unsigned char* __restrict__
+                                              bits,
+                                          const UnitGeo& s, int ci, int ph,
+                                          int q0, uint32_t (&xv)[8],
+                                          uint32_t (&bv)[8]) {
+  const size_t row = (size_t)ci * 4 * s.n_out;
+  if constexpr (ROWS) {
+    const size_t at = row + in_pos(q0, ph, s.h, s.w);
+    const uint4 a = *reinterpret_cast<const uint4*>(x + at);
+    const uint4 b = *reinterpret_cast<const uint4*>(x + at + 8);
+    xv[0] = a.x, xv[1] = a.y, xv[2] = a.z, xv[3] = a.w;
+    xv[4] = b.x, xv[5] = b.y, xv[6] = b.z, xv[7] = b.w;
+    const uint4 m = bits != nullptr
+                        ? *reinterpret_cast<const uint4*>(bits + at)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t mw[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) bv[k] = (mw[k / 2] >> (16 * (k % 2))) & 0xffffu;
+  } else {
+    const int ow = s.w / 2, oh = s.h / 2, ohw = oh * ow;
+    int img = q0 / ohw;
+    const int rem = q0 - img * ohw;
+    int r = rem / ow, c = rem - r * ow;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const size_t at =
+          row + (size_t)img * s.h * s.w + (2 * r + ph) * s.w + 2 * c;
+      xv[k] = *reinterpret_cast<const uint32_t*>(x + at);
+      bv[k] = bits != nullptr ? *reinterpret_cast<const uint16_t*>(bits + at)
+                              : 0u;
+      if (++c == ow) {
+        c = 0;
+        if (++r == oh) {
+          r = 0;
+          ++img;
+        }
+      }
+    }
+  }
 }
 
-// The straight-through backward's bf16 operands, 8 output lanes a thread
-// (output rows of ow % 8 == 0 pixels, so 8 lanes lie in one row):
-// blockIdx.y = 0: g = bf16((dz + dzsum) + (2z) * dzssq) [cout, n_out];
-// 1: the prologue d of the 16 input pixels of row parity ph under them,
-// its even columns into parity plane 2 ph and its odd ones into 2 ph + 1
-// of d [4][cin][n_out] (ops/cuda/transition.py parity_planes), and for ph
-// = 0 the raw x of the even columns into x_ee [cin][n_out].
+// x_ee's 8 values of a unit at row parity 0: each pair's first pixel
+__device__ __forceinline__ uint4 even_of(const uint32_t (&xv)[8]) {
+  return make_uint4(__byte_perm(xv[0], xv[1], 0x5410),
+                    __byte_perm(xv[2], xv[3], 0x5410),
+                    __byte_perm(xv[4], xv[5], 0x5410),
+                    __byte_perm(xv[6], xv[7], 0x5410));
+}
+
+__device__ __forceinline__ float bf16_half(uint32_t w, int h) {
+  return __bfloat162float(__ushort_as_bfloat16((uint16_t)(w >> (16 * h))));
+}
+
+// The straight-through backward's bf16 operands: blockIdx.y = 0: g =
+// bf16((dz + dzsum) + (2z) * dzssq) [cout, n_out], 8 lanes of a row a
+// thread; 1: the activation's units (UnitGeo, load_unit), the bf16
+// prologue d = bf16(dropout(relu(bf16(x * scale + shift)))) of each pair
+// into parity planes 2 ph and 2 ph + 1 of d [4][cin][n_out], and at ph = 0
+// the pairs' first pixels' raw x into x_ee [cin][n_out].
+template <bool ROWS>
 __global__ void bwd_fold_kernel(Cotangent ct, int cout, int n_out,
-                                Bf16Prologue pro, int cin, int h, int w,
+                                Bf16Prologue pro, UnitGeo s,
                                 bf16* __restrict__ g, bf16* __restrict__ d,
                                 bf16* __restrict__ x_ee) {
   const long per = n_out / 8;
-  const long units = blockIdx.y == 0 ? cout * per : 2 * cin * per;
+  const long units = blockIdx.y == 0 ? cout * per : s.units();
+  const bool drop = pro.bits.active();
   for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x; u < units;
        u += (long)gridDim.x * blockDim.x) {
     if (blockIdx.y == 0) {
@@ -494,80 +583,80 @@ __global__ void bwd_fold_kernel(Cotangent ct, int cout, int n_out,
       *reinterpret_cast<uint4*>(g + (size_t)row * n_out + off) = pack8(o);
       continue;
     }
-    const int ci = (int)(u / (2 * per));
-    const long rem = u - (long)ci * 2 * per;
-    const int ph = (int)(rem / per);
-    const int q = (int)(rem - ph * per) * 8;
-    const int pos = in_pos(q, ph, h, w);
-    bf16 a[8], b[8], e[8], o[8];
-    pro(ci, pos, a);
-    pro(ci, pos + 8, b);
+    int ci, ph, q0;
+    s.at(u, ci, ph, q0);
+    uint32_t xv[8], bv[8];
+    load_unit<ROWS>(pro.x, pro.bits.bits, s, ci, ph, q0, xv, bv);
+    const float sc = pro.scale[ci], sh = pro.shift[ci];
+    bf16 e[2][8];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      e[k] = a[2 * k];
-      o[k] = a[2 * k + 1];
-      e[4 + k] = b[2 * k];
-      o[4 + k] = b[2 * k + 1];
-    }
-    const size_t at = ((size_t)2 * ph * cin + ci) * n_out + q;
-    *reinterpret_cast<uint4*>(d + at) = pack8(e);
-    *reinterpret_cast<uint4*>(d + at + (size_t)cin * n_out) = pack8(o);
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int pw = 0; pw < 2; ++pw)
+        e[pw][k] = pro.one(bf16_half(xv[k], pw), sc, sh, drop,
+                           (int)((bv[k] >> (8 * pw)) & 0xffu));
+    const size_t at = ((size_t)2 * ph * s.cin + ci) * n_out + q0;
+    *reinterpret_cast<uint4*>(d + at) = pack8(e[0]);
+    *reinterpret_cast<uint4*>(d + at + (size_t)s.cin * n_out) = pack8(e[1]);
     if (ph == 0)
-      *reinterpret_cast<uint4*>(x_ee + (size_t)ci * n_out + q) =
-          even16(pro.x, (size_t)ci * 4 * n_out + pos);
+      *reinterpret_cast<uint4*>(x_ee + (size_t)ci * n_out + q0) = even_of(xv);
   }
 }
 
-// Where the activation's quantizer puts a unit's 8 codes (8 input lanes of
-// one row from an even column, images of h x w, w % 16 == 0): the 4 even
-// columns' into parity plane 2 ph and the 4 odd ones' into 2 ph + 1 of d_q
-// [4][cin][n_out], at the output lanes under them (ops/cuda/transition.py
-// parity_planes).
-struct PlaneStore {
-  int h, w, cin, n_out;
-  __device__ __forceinline__ void operator()(signed char* q, int row, int,
-                                             size_t off, uint2 v) const {
-    // 32-bit index arithmetic (a lane offset is below 4 * n_out < 2^31)
-    const int o = (int)off, hw = h * w;
-    const int img = o / hw, rem = o - img * hw;
-    const int ih = rem / w, iw = rem - ih * w;
-    const size_t at = ((size_t)2 * (ih & 1) * cin + row) * n_out +
-                      img * (hw / 4) + (ih / 2) * (w / 2) + iw / 2;
-    *reinterpret_cast<uint32_t*>(q + at) = __byte_perm(v.x, v.y, 0x6420);
-    *reinterpret_cast<uint32_t*>(q + at + (size_t)cin * n_out) =
-        __byte_perm(v.x, v.y, 0x7531);
+// The FQT operands in one launch (clusters of kClusterCtas blocks, 256
+// threads each). Clusters 0 .. groups - 1: the folded cotangent's scale
+// group of that index (cout rows x tile lanes), fused_half.cuh's
+// cluster_quant_body: g_q [cout][n_out] int8 and g_amax [groups]. The
+// other blocks: one activation unit a thread (UnitGeo, load_unit), the f32
+// prologue d = dropout(relu(x * scale + shift)) of each pair quantized at
+// its group's scale from the forward's absmax (d_amax [groups], groups of
+// 4 * tile input lanes: the same images), q = s8(clip(rint(d * (127 /
+// max(amax, 1e-30))))), the pairs' first pixels' codes into parity plane
+// 2 ph of d_q [4][cin][n_out] and their second's into 2 ph + 1 (8 bytes
+// each), and at ph = 0 the first pixels' raw x into x_ee [cin][n_out]
+// from the same loads (16 bytes). Each lane loads its own pair at every
+// geometry: at WRN-28-10's transitions, whose output rows hold whole
+// units, the 16-byte row loads ran 2-3% slower here on an H100 (the fold
+// keeps them: 15% faster there).
+__global__ void __cluster_dims__(fused_half::kClusterCtas, 1, 1)
+    __launch_bounds__(256)
+    bwd_quant_kernel(Cotangent ct, int cout, GroupWalk walk, int groups,
+                     signed char* __restrict__ g_q, float* __restrict__ g_amax,
+                     Prologue pro, UnitGeo s, const float* __restrict__ d_amax,
+                     signed char* __restrict__ d_q, bf16* __restrict__ x_ee) {
+  constexpr int CL = fused_half::kClusterCtas;
+  const int cl = blockIdx.x / CL;
+  if (cl < groups) {
+    fused_half::cluster_quant_body(ct, cout, walk, cl, kBwdFloor, g_q,
+                                   g_amax);
+    return;
   }
-};
-
-// The FQT quantizers of fused_half.cuh (blockIdx.z 0: the folded
-// cotangent, in the lane layout; 1: the recomputed activation, as parity
-// planes), and in the same launch (z = 2) the raw even-even plane of x
-// [cin, 4 * n_out] into x_ee [cin][n_out] for dWp, walking the cotangent's
-// scale groups (8 output lanes a unit, ow % 8 == 0).
-template <typename Fn0, typename Fn1>
-__global__ void __launch_bounds__(256)
-bwd_quant_kernel(Fn0 fn0, int rows0, GroupWalk walk0, QuantOut out0,
-                 Fn1 fn1, int rows1, GroupWalk walk1, QuantOut out1,
-                 const float* __restrict__ part, int h, int w,
-                 bf16* __restrict__ x_ee) {
-  const int groups = gridDim.y;
-  if (blockIdx.z == 0) {
-    fused_half::quant_body(fn0, rows0, walk0, part, out0.floor, out0.q,
-                           out0.amax, out0.copy);
-  } else if (blockIdx.z == 1) {
-    fused_half::quant_body(fn1, rows1, walk1, part + groups * walk0.slices,
-                           out1.floor, out1.q, out1.amax, out1.copy,
-                           PlaneStore{h, w, rows1, walk0.n});
-  } else {
-    for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
-         u < walk0.units(rows1); u += (long)walk0.slices * blockDim.x) {
-      int ci;
-      size_t q;
-      walk0.at(u, blockIdx.y, ci, q);
-      *reinterpret_cast<uint4*>(x_ee + (size_t)ci * walk0.n + q) = even16(
-          fn1.x, (size_t)ci * walk1.n + in_pos((int)q, 0, h, w));
+  const long u = (long)(blockIdx.x - groups * CL) * blockDim.x + threadIdx.x;
+  if (u >= s.units()) return;
+  int ci, ph, q0;
+  s.at(u, ci, ph, q0);
+  uint32_t xv[8], bv[8];
+  load_unit<false>(pro.x, pro.bits.bits, s, ci, ph, q0, xv, bv);
+  const float sc = pro.scale[ci], sh = pro.shift[ci];
+  const float inv =
+      __fdiv_rn(127.f, fmaxf(d_amax[q0 / walk.tile], kBwdFloor));
+  const bool drop = pro.bits.active();
+  uint32_t q[2][2] = {};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int pw = 0; pw < 2; ++pw) {
+      const float v = pro.one(bf16_half(xv[k], pw), sc, sh, drop,
+                              (int)((bv[k] >> (8 * pw)) & 0xffu));
+      q[pw][k / 4] |= (uint32_t)(uint8_t)quant_s8(__fmul_rn(v, inv))
+                      << (8 * (k % 4));
     }
-  }
+  const size_t at = ((size_t)2 * ph * s.cin + ci) * s.n_out + q0;
+  *reinterpret_cast<uint2*>(d_q + at) = make_uint2(q[0][0], q[0][1]);
+  *reinterpret_cast<uint2*>(d_q + at + (size_t)s.cin * s.n_out) =
+      make_uint2(q[1][0], q[1][1]);
+  if (ph == 0)
+    *reinterpret_cast<uint4*>(x_ee + (size_t)ci * s.n_out + q0) = even_of(xv);
 }
 
 // --- dgrad --------------------------------------------------------------------
@@ -1059,52 +1148,37 @@ int fwd_gemm_launch(const void* slab, const void* wt, const void* ws,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The FQT backward's amax pass: the folded cotangent [cout, n_out] in
-// groups of tile lanes and the recomputed activation [cin, 4 * n_out] in
-// groups of 4 * tile lanes (bits [cin, 4 * n_out] uint8 or null); part
-// [2][n_out / tile][slices].
-int bwd_amax_launch(const void* dz, const void* z, const void* dzsum,
-                    const void* dzssq, const void* x, const void* scale,
-                    const void* shift, const void* bits, void* part, int cout,
-                    int cin, int n_out, int tile, int slices, int thresh,
-                    float keep, void* stream) {
-  const int n = 4 * n_out;
-  const Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
-                     DropBits{in<unsigned char>(bits), nullptr, n}, thresh,
-                     keep};
-  fused_half::amax_kernel<<<dim3(slices, n_out / tile, 2), 256, 0,
-                            as_stream(stream)>>>(
-      cotangent(dz, z, dzsum, dzssq), cout, GroupWalk{n_out, tile, slices},
-      pro, cin, GroupWalk{n, 4 * tile, slices}, static_cast<float*>(part));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// g_q [cout, n_out] int8, d_q [4][cin][n_out] int8 (the activation's
-// codes as parity planes); g_amax, d_amax [n_out / tile] f32; floor 1e-30;
-// x_ee [cin][n_out] bf16, the raw x at the even-even pixels (images of h x
-// w, w % 16 == 0).
+// The FQT operands, one launch: g_q [cout, n_out] int8 and g_amax
+// [n_out / tile] f32 (the folded cotangent's groups of tile lanes, floor
+// 1e-30); d_q [4][cin][n_out] int8 (the activation's codes as parity
+// planes) at the forward's group absmax d_amax [n_out / tile] (groups of 4
+// * tile input lanes, floor 1e-30), read only; x_ee [cin][n_out] bf16, the
+// raw x at the even-even pixels. x [cin, 4 * n_out] bf16 of h x w images
+// (h, w even), bits [cin, 4 * n_out] uint8 or null.
 int bwd_quant_launch(const void* dz, const void* z, const void* dzsum,
                      const void* dzssq, const void* x, const void* scale,
-                     const void* shift, const void* bits, const void* part,
-                     void* g_q, void* d_q, void* g_amax, void* d_amax,
-                     void* x_ee, int cout, int cin, int n_out, int tile,
-                     int slices, int h, int w, int thresh, float keep,
-                     void* stream) {
+                     const void* shift, const void* bits, const void* d_amax,
+                     void* g_q, void* d_q, void* g_amax, void* x_ee, int cout,
+                     int cin, int n_out, int tile, int h, int w, int thresh,
+                     float keep, void* stream) {
   const int n = 4 * n_out;
-  if (w % 16 || h % 2 || n % (h * w) || tile % 8)
+  if (cout < 1 || cin < 1 || h % 2 || w % 2 || h < 2 || w < 2 ||
+      n % (h * w) || tile < 8 || tile % 8 || n_out % tile)
     return static_cast<int>(cudaErrorInvalidValue);
   const Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
                      DropBits{in<unsigned char>(bits), nullptr, n}, thresh,
                      keep};
-  const QuantOut g_out{kBwdFloor, static_cast<signed char*>(g_q),
-                       static_cast<float*>(g_amax), nullptr};
-  const QuantOut d_out{kBwdFloor, static_cast<signed char*>(d_q),
-                       static_cast<float*>(d_amax), nullptr};
-  bwd_quant_kernel<<<dim3(slices, n_out / tile, 3), 256, 0,
-                     as_stream(stream)>>>(
-      cotangent(dz, z, dzsum, dzssq), cout, GroupWalk{n_out, tile, slices},
-      g_out, pro, cin, GroupWalk{n, 4 * tile, slices}, d_out,
-      in<float>(part), h, w, static_cast<bf16*>(x_ee));
+  const UnitGeo s{cin, n_out, h, w};
+  const int groups = n_out / tile;
+  constexpr int CL = fused_half::kClusterCtas;
+  const long act = (s.units() + 255) / 256;
+  const long blocks = (long)groups * CL + (act + CL - 1) / CL * CL;
+  if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  bwd_quant_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      cotangent(dz, z, dzsum, dzssq), cout,
+      GroupWalk{n_out, tile, CL}, groups, static_cast<signed char*>(g_q),
+      static_cast<float*>(g_amax), pro, s, in<float>(d_amax),
+      static_cast<signed char*>(d_q), static_cast<bf16*>(x_ee));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1112,21 +1186,32 @@ int bwd_quant_launch(const void* dz, const void* z, const void* dzsum,
 // + (2z) * dzssq), d [4][cin][n_out] bf16 = the bf16 prologue of x (bits
 // [cin, 4 * n_out] uint8 or null) as its parity planes at the output
 // geometry, x_ee [cin][n_out] bf16 = x at the even-even pixels; images of
-// h x w, w % 16 == 0 (output rows of 8-pixel multiples).
+// h x w (h, w even), n_out % 8 == 0; rows: the 16-byte unit loads (output
+// rows of ow % 8 == 0 pixels).
 int bwd_fold_launch(const void* dz, const void* z, const void* dzsum,
                     const void* dzssq, const void* x, const void* scale,
                     const void* shift, const void* bits, void* g, void* d,
                     void* x_ee, int cout, int cin, int n_out, int h, int w,
-                    int thresh, float keep, void* stream) {
-  if (w % 16 || h % 2 || (4 * n_out) % (h * w))
+                    int rows, int thresh, float keep, void* stream) {
+  if (h % 2 || w % 2 || h < 2 || w < 2 || (4 * n_out) % (h * w) ||
+      n_out % 8 || (rows && (w / 2) % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bf16Prologue pro{in<bf16>(x), in<float>(scale), in<float>(shift),
                          DropBits{in<unsigned char>(bits), nullptr,
                                   4 * n_out},
                          thresh, keep, 4 * n_out};
-  bwd_fold_kernel<<<dim3(528, 2), 256, 0, as_stream(stream)>>>(
-      cotangent(dz, z, dzsum, dzssq), cout, n_out, pro, cin, h, w,
-      static_cast<bf16*>(g), static_cast<bf16*>(d), static_cast<bf16*>(x_ee));
+  const UnitGeo s{cin, n_out, h, w};
+  const dim3 grid(528, 2);
+  if (rows)
+    bwd_fold_kernel<true><<<grid, 256, 0, as_stream(stream)>>>(
+        cotangent(dz, z, dzsum, dzssq), cout, n_out, pro, s,
+        static_cast<bf16*>(g), static_cast<bf16*>(d),
+        static_cast<bf16*>(x_ee));
+  else
+    bwd_fold_kernel<false><<<grid, 256, 0, as_stream(stream)>>>(
+        cotangent(dz, z, dzsum, dzssq), cout, n_out, pro, s,
+        static_cast<bf16*>(g), static_cast<bf16*>(d),
+        static_cast<bf16*>(x_ee));
   return static_cast<int>(cudaGetLastError());
 }
 

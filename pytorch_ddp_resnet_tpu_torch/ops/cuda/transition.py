@@ -66,8 +66,10 @@ kernel of ``csrc/transition.cu`` or raises):
 - ``fwd_gemm``      (launches ``transition_fwd``, ``.sum``: the staged
   mainloop of ``csrc/fwd_staged_s8.cuh`` over the slabs, z, res and the
   ordered sums)
-- ``bwd_quantize``  (launches ``transition_bwd.amax``, ``.quant``; FQT:
-  the activation's codes as parity planes, and x's even-even plane)
+- ``bwd_quantize``  (launches ``transition_bwd.quant``, once; FQT: the
+  cotangent's codes, a thread-block cluster per scale group, and the
+  activation's codes as parity planes at the forward's group absmax, and
+  x's even-even plane)
 - ``bwd_fold``      (launches ``transition_bwd.fold``; straight-through:
   the rounded cotangent, the bf16 prologue's parity planes and x's
   even-even plane)
@@ -730,9 +732,8 @@ def _library() -> ctypes.CDLL:
             "fwd_amax_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
             "fwd_pre_launch": [_P] * 8 + [_I] * 13 + [_F, _P],
             "fwd_gemm_launch": [_P] * 10 + [_I] * 16 + [_P],
-            "bwd_amax_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
-            "bwd_quant_launch": [_P] * 14 + [_I] * 8 + [_F, _P],
-            "bwd_fold_launch": [_P] * 11 + [_I] * 6 + [_F, _P],
+            "bwd_quant_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
+            "bwd_fold_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
             "dgrad_pre_launch": [_P] * 4 + [_I] * 6 + [ctypes.c_long, _P],
             "dgrad_gemm_launch": ([_P] * 15 + [_I] * 9
                                   + [ctypes.c_long, _I, _F, _P]),
@@ -910,21 +911,24 @@ def fwd_gemm(slab, ee, amax, w_q, ws, wp_c, lay):
 
 def fwd_conv(x, scale, shift, bits, w_q, ws, wp_c, *, thresh, tile, h,
              w_img):
-    """The forward: (z, zsum, zssq, res) of the prologue of x quantized
-    per scale group of ``tile`` output lanes, conv1's int8 weights
-    (``w_q``, ``ws``) and the shortcut (``wp_c`` [Cout, Cin] bf16, or None
-    for option A). On the card ``fwd_amax``, ``fwd_pre``, ``fwd_gemm``."""
+    """The forward: (z, zsum, zssq, res, amax) of the prologue of x
+    quantized per scale group of ``tile`` output lanes, conv1's int8
+    weights (``w_q``, ``ws``) and the shortcut (``wp_c`` [Cout, Cin] bf16,
+    or None for option A); ``amax`` [G] f32 is each group's raw absmax of
+    the prologue, which the FQT backward's activation quantizer takes
+    (``bwd_quantize``). On the card ``fwd_amax``, ``fwd_pre``,
+    ``fwd_gemm``."""
     if on_cpu(x):
         d_q, amax = fb.fwd_quantize_plain(x, scale, shift, bits,
                                           thresh=thresh, tile=4 * tile)
-        return fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, tile=tile, h=h,
-                              w_img=w_img)
+        return (*fwd_conv_plain(d_q, amax, w_q, ws, x, wp_c, tile=tile, h=h,
+                                w_img=w_img), amax)
     cin, n = x.shape
     lay = transition_fwd_layout(n, h, w_img, cin, w_q.shape[0], tile)
     part = fwd_amax(x, scale, shift, bits, thresh=thresh, tile=tile)
     slab, ee, amax = fwd_pre(x, scale, shift, bits, part, thresh=thresh,
                              lay=lay)
-    return fwd_gemm(slab, ee, amax, w_q, ws, wp_c, lay)
+    return (*fwd_gemm(slab, ee, amax, w_q, ws, wp_c, lay), amax)
 
 
 def _cotangent_args(dz, z, dzsum, dzssq):
@@ -934,60 +938,88 @@ def _cotangent_args(dz, z, dzsum, dzssq):
             [torch.bfloat16, torch.bfloat16, _F32, _F32], dzsum, dzssq)
 
 
-def _check_rows(name: str, h: int, w_img: int, n: int) -> None:
-    """The backward's operand passes write 8 output lanes of one output row
-    a thread: whole images of even H and W with output rows of a multiple
-    of 8 pixels."""
-    if h % 2 or w_img % 16 or n % (h * w_img):
-        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n}: the "
-                         f"output rows of {w_img // 2} pixels are not a "
-                         "multiple of 8")
+def check_operand_geometry(name: str, h: int, w_img: int, n: int,
+                           tile: int) -> None:
+    """The backward's operand passes' shape needs: whole images of even H
+    and W (each output lane reads its own input pair) and scale groups of
+    ``tile`` output lanes, a multiple of 8 (a unit of the passes), that
+    fill N' (the fold takes tile = 8: its units alone)."""
+    if h % 2 or w_img % 2 or h < 2 or w_img < 2 or n % (h * w_img):
+        raise ValueError(f"{name}: geometry H={h} W={w_img} N={n} is not "
+                         "whole images of even H and W")
+    if tile < 8 or tile % 8 or (n // 4) % tile:
+        raise ValueError(f"{name}: scale group of {tile} output lanes vs "
+                         f"N'={n // 4}")
 
 
-def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh,
-                 tile, h, w_img):
+def operand_rows(w_img: int) -> bool:
+    """Whether the fold takes a unit's 16 input pixels as 16-byte vectors:
+    output rows of a multiple of 8 pixels, so that a unit's 8 output lanes
+    lie in one row (else each lane loads its own pair; the FQT quantizer
+    always does, which ran faster there on an H100)."""
+    return (w_img // 2) % 8 == 0
+
+
+# The fold's unit load where a test or a bench holds both loads against
+# each other (True: 16-byte rows, False: a pair a lane); None, the
+# wrapper's own choice (``operand_rows``).
+_fold_rows: Optional[bool] = None
+
+
+def _operand_args(name, dz, z, dzsum, dzssq, x, scale, shift, bits, extra=(),
+                  extra_dtypes=()):
+    """dzsum, dzssq, scale and shift as contiguous f32, after checking the
+    cotangent, x, the bits and ``extra`` against their dtypes on the
+    card."""
+    tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
+    scale, shift = _prologue_args(name, x, scale, shift, bits,
+                                  [*tensors, *extra],
+                                  [*dtypes, *extra_dtypes])
+    return dzsum, dzssq, scale, shift
+
+
+def bwd_quantize(dz, z, dzsum, dzssq, x, scale, shift, bits, d_amax, *,
+                 thresh, tile, h, w_img):
     """The FQT backward's operands: the folded cotangent quantized per group
     of ``tile`` output lanes, the recomputed activation per group of
-    ``4 * tile`` input lanes (floor 1e-30) as its parity planes [4, Cin,
-    N'], and x's even-even plane for dWp: (g_q, g_amax, d_q, d_amax,
-    x_ee)."""
+    ``4 * tile`` input lanes at the forward's group absmax ``d_amax`` [G]
+    f32 (``fwd_conv``'s; floor 1e-30) as its parity planes [4, Cin, N'],
+    and x's even-even plane for dWp: (g_q, g_amax, d_q, d_amax, x_ee),
+    ``d_amax`` returned as it came. On the card one launch
+    (``transition_bwd.quant``): a thread-block cluster per group of the
+    cotangent, whose blocks fold it, reduce their partial maxima through
+    distributed shared memory, fold it again from L2 and quantize, and
+    blocks that quantize the activation, one unit of 8 output lanes a
+    thread, each lane loading its own input pair. On the CPU
+    ``bwd_quantize_plain``, whose own absmax equals the forward's bit for
+    bit."""
     if on_cpu(dz):
         return bwd_quantize_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
                                   thresh=thresh, tile=tile, h=h, w_img=w_img)
     name = "transition_bwd"
     cout, n_out = dz.shape
     cin, n = x.shape
-    if n != 4 * n_out or n_out % tile or tile % 8:
-        raise ValueError(f"{name}: N={n}, N'={n_out}, tile {tile}")
-    _check_rows(name, h, w_img, n)
-    tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
-    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
-    tensors += [x, scale, shift]
-    dtypes += [torch.bfloat16, _F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
-    require_cuda(name, tensors, dtypes)
+    if n != 4 * n_out:
+        raise ValueError(f"{name}: N={n}, N'={n_out}")
+    check_operand_geometry(name, h, w_img, n, tile)
     groups = n_out // tile
-    s = fb._slices(groups)
+    if tuple(d_amax.shape) != (groups,):
+        raise ValueError(f"{name}: the forward's absmax "
+                         f"{tuple(d_amax.shape)} vs {groups} scale groups")
+    dzsum, dzssq, scale, shift = _operand_args(
+        name, dz, z, dzsum, dzssq, x, scale, shift, bits, [d_amax], [_F32])
     dev = dz.device
-    part = torch.empty(2 * groups * s, dtype=_F32, device=dev)
-    keep = fb.inv_keep(thresh) if bits is not None else 1.0
-    lib, st = _library(), _stream(dz)
-    ct = (dz.data_ptr(), z.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr())
-    pro = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), _ptr(bits))
-    common = (cout, cin, n_out, tile, s, thresh or 256, keep, st)
-    _launch(f"{name}.amax", lib.bwd_amax_launch, *ct, *pro, part.data_ptr(),
-            *common)
     g_q = torch.empty((cout, n_out), dtype=torch.int8, device=dev)
     d_q = torch.empty((4, cin, n_out), dtype=torch.int8, device=dev)
     g_amax = torch.empty(groups, dtype=_F32, device=dev)
-    d_amax = torch.empty(groups, dtype=_F32, device=dev)
     x_ee = torch.empty((cin, n_out), dtype=torch.bfloat16, device=dev)
-    _launch(f"{name}.quant", lib.bwd_quant_launch, *ct, *pro,
-            part.data_ptr(), g_q.data_ptr(), d_q.data_ptr(),
-            g_amax.data_ptr(), d_amax.data_ptr(), x_ee.data_ptr(),
-            *common[:5], h, w_img, *common[5:])
+    _launch(f"{name}.quant", _library().bwd_quant_launch, dz.data_ptr(),
+            z.data_ptr(), dzsum.data_ptr(), dzssq.data_ptr(), x.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), _ptr(bits),
+            d_amax.data_ptr(), g_q.data_ptr(), d_q.data_ptr(),
+            g_amax.data_ptr(), x_ee.data_ptr(), cout, cin, n_out, tile, h,
+            w_img, thresh or 256,
+            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(dz))
     return g_q, g_amax, d_q, d_amax, x_ee
 
 
@@ -995,7 +1027,10 @@ def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh, h,
              w_img):
     """The straight-through operands: g = bf16(gf) [Cout, N'], the bf16
     prologue d (dropout(relu(bf16(x * scale + shift)))) as its parity
-    planes [4, Cin, N'] and x's even-even plane [Cin, N']."""
+    planes [4, Cin, N'] and x's even-even plane [Cin, N']. On the card one
+    launch (``transition_bwd.fold``), the activation in units of 8 output
+    lanes as ``bwd_quantize`` walks it (their 16 input pixels as 16-byte
+    vectors where ``operand_rows``; else each lane loads its own pair)."""
     if on_cpu(dz):
         return bwd_fold_plain(dz, z, dzsum, dzssq, x, scale, shift, bits,
                               thresh=thresh, h=h, w_img=w_img)
@@ -1004,15 +1039,10 @@ def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh, h,
     cin, n = x.shape
     if n != 4 * n_out:
         raise ValueError(f"{name}: N={n}, N'={n_out}")
-    _check_rows(name, h, w_img, n)
-    tensors, dtypes, dzsum, dzssq = _cotangent_args(dz, z, dzsum, dzssq)
-    scale, shift = scale.to(_F32).contiguous(), shift.to(_F32).contiguous()
-    tensors += [x, scale, shift]
-    dtypes += [torch.bfloat16, _F32, _F32]
-    if bits is not None:
-        tensors.append(bits)
-        dtypes.append(torch.uint8)
-    require_cuda(name, tensors, dtypes)
+    check_operand_geometry(name, h, w_img, n, 8)
+    rows = operand_rows(w_img) if _fold_rows is None else _fold_rows
+    dzsum, dzssq, scale, shift = _operand_args(
+        name, dz, z, dzsum, dzssq, x, scale, shift, bits)
     dev = dz.device
     g = torch.empty((cout, n_out), dtype=torch.bfloat16, device=dev)
     d = torch.empty((4, cin, n_out), dtype=torch.bfloat16, device=dev)
@@ -1021,8 +1051,8 @@ def bwd_fold(dz, z, dzsum, dzssq, x, scale, shift, bits, *, thresh, h,
             dzsum.data_ptr(), dzssq.data_ptr(), x.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), _ptr(bits), g.data_ptr(),
             d.data_ptr(), x_ee.data_ptr(), cout, cin, n_out, h, w_img,
-            thresh or 256, fb.inv_keep(thresh) if bits is not None else 1.0,
-            _stream(dz))
+            int(rows), thresh or 256,
+            fb.inv_keep(thresh) if bits is not None else 1.0, _stream(dz))
     return g, d, x_ee
 
 
@@ -1172,8 +1202,8 @@ def check_wgrad_s8_geometry(name: str, cin: int, cout: int, h: int,
     of 8; whole output images of a multiple of 16 positions (a 16-byte unit
     of a K step lies in one image); scale groups of ``tile`` positions, a
     whole number of 128-position K steps. This takes every shape of
-    ``check_wgrad_geometry`` and more; the FQT body as a whole stays bounded
-    by its operand passes (``_check_rows``)."""
+    ``check_wgrad_geometry`` and more, and bounds the FQT body as a whole:
+    its operand passes and dgrad take any whole images of even H and W."""
     if h % 2 or w_img % 2:
         raise ValueError(f"{name}: geometry H={h} W={w_img} is not even")
     oh, ow = h // 2, w_img // 2
@@ -1344,16 +1374,19 @@ class _TransitionHalf(torch.autograd.Function):
         w_q, ws = fb.quantize_pack_weights(w1.detach())
         wp_c = (None if wp is None else
                 wp.detach().reshape(cout, cin).to(x_cs.dtype).contiguous())
-        z, zsum, zssq, res = fwd_conv(x_cs, scale, shift, bits, w_q, ws,
-                                      wp_c, thresh=thresh, tile=tile, h=h,
-                                      w_img=w_img)
-        ctx.save_for_backward(x_cs, w1, wp, scale, shift, bits, z)
+        z, zsum, zssq, res, amax = fwd_conv(x_cs, scale, shift, bits, w_q,
+                                            ws, wp_c, thresh=thresh,
+                                            tile=tile, h=h, w_img=w_img)
+        # the FQT backward quantizes the activation at the forward's group
+        # absmax
+        ctx.save_for_backward(x_cs, w1, wp, scale, shift, bits, z,
+                              amax if quant_bwd else None)
         ctx.cfg = (thresh, h, w_img, quant_bwd, tile)
         return z, zsum, zssq, res
 
     @staticmethod
     def backward(ctx, dz, dzsum, dzssq, dres):
-        x_cs, w1, wp, scale, shift, bits, z = ctx.saved_tensors
+        x_cs, w1, wp, scale, shift, bits, z, amax = ctx.saved_tensors
         thresh, h, w_img, quant_bwd, tile = ctx.cfg
         cout, cin = w1.shape[:2]
         dz, dres = dz.contiguous(), dres.contiguous()
@@ -1364,8 +1397,8 @@ class _TransitionHalf(torch.autograd.Function):
         if quant_bwd:
             w_dg, ws_in = quant_pack_w_dgrad(w1.detach())
             g, g_amax, d_q, d_amax, x_ee = bwd_quantize(
-                dz, z, dzsum, dzssq, x_cs, scale, shift, bits, tile=tile,
-                **kw)
+                dz, z, dzsum, dzssq, x_cs, scale, shift, bits, amax,
+                tile=tile, **kw)
             dx, ds, dt = dgrad(g, g_amax, w_dg, ws_in, x_cs, scale, shift,
                                bits, dres, wpt, tile=tile, **kw)
             # HWIO -> OIHW

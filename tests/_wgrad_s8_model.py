@@ -3,8 +3,10 @@
 transition's on four parity planes, the fused int8 half's on one plane at
 the nine stride-1 taps, its scale groups folded in each block or split into
 runs whose slots ``slot_sum_kernel`` adds in group order) and of the
-quantizer's parity-plane store (ops/cuda/csrc/transition.cu
-``PlaneStore``), for tests/test_torch_transition_wgrad_s8.py and
+quantizer's parity-plane stores (ops/cuda/csrc/transition.cu
+``bwd_quant_kernel``, its units of 8 output lanes through ``load_unit``),
+for tests/test_torch_transition_wgrad_s8.py,
+tests/test_torch_transition_operands.py and
 tests/test_torch_fused_wgrad_s8.py.
 
 Per block (n tile, m tile) and K step of 128 positions: the producer's box
@@ -277,26 +279,61 @@ def model(d, g, g_amax, d_amax, tile, oh, ow, plan, table):
     return dw
 
 
-def plane_store(q, h, w):
-    """The quantizer's PlaneStore over every 8-lane unit of the codes q
-    [Cin, N] int8 (images of h x w, w % 16 == 0): d_q [4, Cin, N / 4], each
-    unit's even columns' bytes (__byte_perm 0x6420) into plane 2 ph, the
-    odd ones' (0x7531) into 2 ph + 1, at the index arithmetic of the
-    kernel."""
+def in_pos(q, ph, h, w):
+    """csrc/transition.cu ``in_pos``: output lane q's input lane at row
+    parity ph, column parity 0."""
+    ow, ohw = w // 2, (h // 2) * (w // 2)
+    img, rem = q // ohw, q % ohw
+    r = rem // ow
+    return img * h * w + (2 * r + ph) * w + 2 * (rem - r * ow)
+
+
+def unit_pair_lanes(h, w, ph, q0, rows):
+    """csrc/transition.cu ``load_unit``: the input lane of the first pixel
+    of each unit's 8 pairs [units, 8] (unit: output lanes q0 .. q0 + 7 at
+    row parity ph). ``rows`` (output rows of ow % 8 == 0 pixels): the
+    unit's 16 consecutive pixels from in_pos(q0), which starts on 16 (the
+    16-byte loads); else each lane from its own (image, row, column),
+    stepped lane by lane as the kernel steps them."""
+    oh, ow = h // 2, w // 2
+    q0 = np.asarray(q0)
+    ph = np.broadcast_to(ph, q0.shape)
+    if rows:
+        base = in_pos(q0, ph, h, w)
+        assert ow % 8 == 0 and (base % 16 == 0).all()
+        return base[:, None] + 2 * np.arange(8)[None, :]
+    at = np.empty((len(q0), 8), dtype=np.int64)
+    img = q0 // (oh * ow)
+    rem = q0 - img * oh * ow
+    r, c = rem // ow, rem % ow
+    for k in range(8):
+        at[:, k] = img * h * w + (2 * r + ph) * w + 2 * c
+        c = c + 1
+        wrap = c == ow
+        c[wrap] = 0
+        r = r + wrap
+        wrap = r == oh
+        r[wrap] = 0
+        img = img + wrap
+    return at
+
+
+def plane_store(q, h, w, rows=False):
+    """The operand passes' parity-plane stores (csrc/transition.cu
+    ``bwd_quant_kernel``'s, each lane loading its own pair, and
+    ``bwd_fold_kernel``'s, also with the 16-byte row loads: ``rows``),
+    here of the lane-layout codes q [Cin, N] int8 (images of h x w, h and
+    w even): each unit of 8 output lanes q0 .. of a channel at row parity
+    ph takes its lanes' input pairs (``unit_pair_lanes``), the first
+    pixels' codes into plane 2 ph and the second's into 2 ph + 1 at the
+    unit's lanes; d_q [4, Cin, N / 4]."""
     cin, n = q.shape
-    n_out, hw = n // 4, h * w
-    out = np.zeros(4 * cin * n_out, np.uint8)
-    words = np.ascontiguousarray(q).view(np.uint8).reshape(cin, n // 8, 8)
-    words = words.copy().view(np.uint32).reshape(cin, n // 8, 2)
-    off = np.arange(0, n, 8)
-    img, rem = off // hw, off % hw
-    ih, iw = rem // w, rem % w
-    col = img * (hw // 4) + (ih // 2) * (w // 2) + iw // 2
-    for row in range(cin):
-        at = (2 * (ih & 1) * cin + row) * n_out + col
-        for sel, extra in ((0x6420, 0), (0x7531, cin * n_out)):
-            v = byte_perm(words[row, :, 0], words[row, :, 1], sel)
-            b = v.view(np.uint8).reshape(-1, 4)
-            for k in range(4):
-                out[at + extra + k] = b[:, k]
-    return out.view(np.int8).reshape(4, cin, n_out)
+    n_out = n // 4
+    q0 = np.arange(0, n_out, 8)
+    lanes = q0[:, None] + np.arange(8)[None, :]
+    out = np.zeros((4, cin, n_out), np.int8)
+    for ph in (0, 1):
+        at = unit_pair_lanes(h, w, ph, q0, rows)
+        out[2 * ph][:, lanes] = q[:, at]
+        out[2 * ph + 1][:, lanes] = q[:, at + 1]
+    return out

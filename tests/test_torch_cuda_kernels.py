@@ -2209,9 +2209,11 @@ def test_transition_kernels_match_plain(dev, b, h, w, cin, cout, use_proj,
     _same(got[1], want[1], sums=True)
     _same(got[2], want[2], sums=True)
     (_bf16_close if use_proj else _same)(got[3], want[3])
+    _same(got[4], pamax)
     ct = (t["dz"], want[0], t["dzsum"], t["dzssq"])
     scb = (x, scale, shift, bits)
-    ops = tr.bwd_quantize(*ct, *scb, thresh=thresh, tile=tile, **kw)
+    # the activation quantized at the forward's group absmax
+    ops = tr.bwd_quantize(*ct, *scb, got[4], thresh=thresh, tile=tile, **kw)
     ops_p = tr.bwd_quantize_plain(*ct, *scb, thresh=thresh, tile=tile, **kw)
     for a, b_ in zip(ops, ops_p):
         _same(a, b_)
@@ -2265,8 +2267,9 @@ def test_transition_op_launches_its_kernels(dev, quant_bwd):
                    + [v.cpu() for v in grads])
         if dvc == dev:
             torch.cuda.synchronize()
-            bwd = (("transition_bwd.amax", "transition_bwd.quant")
-                   if quant_bwd else ("transition_bwd.fold",))
+            # the FQT operands in one launch
+            bwd = (("transition_bwd.quant",) if quant_bwd
+                   else ("transition_bwd.fold",))
             # the FQT dW on the TMA + s8 wgmma wgrad (one launch, no
             # sum), the straight-through one on the TMA wgrad; dWp on the
             # TMA wgrad
@@ -2377,8 +2380,10 @@ def test_transition_wgrad_tma_matches_plain(dev, b, h, w, cin, cout, zeros):
 def test_transition_wgrad_tma_refuses_what_it_cannot_take(dev):
     """A CUDA tensor launches the TMA wgrad or raises, naming the shape:
     output rows off the TMA reads' rule (12x12 outputs), Cout off 8, f32
-    operands, d not in four planes; nothing launches, and nothing falls
-    back to a plain version or another kernel."""
+    operands, d not in four planes; the fold raises at an odd width (it
+    takes 24x24 inputs since each output lane reads its own pair: see
+    test_transition_operand_passes_match_plain); nothing launches, and
+    nothing falls back to a plain version or another kernel."""
     bf = torch.bfloat16
     tr.reset_launches()
     g = torch.zeros((64, 2 * 144), dtype=bf, device=dev)
@@ -2399,9 +2404,9 @@ def test_transition_wgrad_tma_refuses_what_it_cannot_take(dev):
     dz = torch.zeros((64, 2 * 144), dtype=bf, device=dev)
     one = torch.ones(32, device=dev)
     v = torch.zeros(64, device=dev)
-    with pytest.raises(ValueError, match="geometry H=24 W=24"):
+    with pytest.raises(ValueError, match="geometry H=24 W=23"):
         tr.bwd_fold(dz, dz, v, v, x, one, one, None, thresh=None, h=24,
-                    w_img=24)
+                    w_img=23)
     torch.cuda.synchronize()
     assert not tr.launches
 
@@ -2425,8 +2430,10 @@ def test_transition_wgrad_s8_matches_plain(dev, b, h, w, cin, cout, zeros):
     z = t["dz"].flip(1).contiguous()
     ct = (t["dz"], z, t["dzsum"], t["dzssq"], t["x"], t["scale"],
           t["shift"], t["bits"])
+    # the forward's group absmax (its plain version: no launch)
+    amax = tr.fwd_amax_plain(*ct[4:], thresh=thresh, tile=tile)[:, 0]
     tr.reset_launches()
-    ops = tr.bwd_quantize(*ct, thresh=thresh, tile=tile, **kw)
+    ops = tr.bwd_quantize(*ct, amax, thresh=thresh, tile=tile, **kw)
     for a, b_ in zip(ops, tr.bwd_quantize_plain(*ct, thresh=thresh,
                                                 tile=tile, **kw)):
         _same(a, b_)
@@ -2436,8 +2443,7 @@ def test_transition_wgrad_s8_matches_plain(dev, b, h, w, cin, cout, zeros):
     assert torch.equal(dw, tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile,
                                     **kw))
     torch.cuda.synchronize()
-    assert dict(tr.launches) == {"transition_bwd.amax": 1,
-                                 "transition_bwd.quant": 1,
+    assert dict(tr.launches) == {"transition_bwd.quant": 1,
                                  "transition_wgrad_s8": 2}
     assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
     _same(dw, tr.wgrad_plain(g_q, g_amax, d_q, d_amax, tile=tile, **kw))
@@ -2545,8 +2551,11 @@ def test_transition_never_falls_back(dev):
     an output width off the 32-channel chunks (Cout = 48; a narrow Cin is
     padded) runs the forward and the whole backward on the card (the dgrad
     takes the forward's geometry since its wgmma rebuild); rows narrower
-    than 8 output pixels run the forward and raise at the backward's
-    operand passes, which still need them."""
+    than 8 output pixels, which the operand passes take since each output
+    lane reads its own pair, run the backward where its wgrad admits them
+    (FQT at 8x8 inputs: output images of 16 positions) and raise naming
+    the wgrad where it does not (FQT at 12x12: 36 positions; the
+    straight-through TMA wgrad at both)."""
     t = _tr_inputs(dev, 8, 16, 16, 32, 64, 4)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         tr.transition_half_int8(t["x"].float(), t["w1"], None, t["scale"],
@@ -2560,13 +2569,119 @@ def test_transition_never_falls_back(dev):
         gw = torch.autograd.grad(out[0].float().sum(), w48)[0]
         assert gw.shape == w48.shape and torch.isfinite(gw).all()
         assert tr.launches["transition_dgrad"] == 1
-    for hw in (8, 12):
+    for hw, quant_bwd, refuser in ((8, True, None),
+                                   (12, True, "transition_wgrad_s8"),
+                                   (8, False, "transition_wgrad_tma"),
+                                   (12, False, "transition_wgrad_tma")):
         x = torch.zeros((32, 32 * hw * hw), dtype=torch.bfloat16,
                         device=dev, requires_grad=True)
         out = tr.transition_half_int8(x, t["w1"], None, t["scale"],
-                                      t["shift"], h=hw, w_img=hw)
-        with pytest.raises(ValueError, match="geometry"):
+                                      t["shift"], h=hw, w_img=hw,
+                                      quant_bwd=quant_bwd)
+        if refuser is None:
+            gx = torch.autograd.grad(out[0].float().sum(), x)[0]
+            assert gx.shape == x.shape and torch.isfinite(gx.float()).all()
+            continue
+        with pytest.raises(ValueError, match=refuser):
             torch.autograd.grad(out[0].float().sum(), x)
+
+
+# (batch, h, w, Cin, Cout) of the backward's operand passes: WRN-28-10's two
+# transitions at batch 128 (output rows of 16 and 8 pixels: both unit
+# loads); 24x24, 12x12 and 8x8 inputs (rows of 12, 6 and 4 pixels: each
+# lane its own pair) at three scale groups
+TR_OPERAND_SHAPES = [(128, 32, 32, 160, 320), (128, 16, 16, 320, 640),
+                     (24, 24, 24, 32, 64), (96, 12, 12, 32, 64),
+                     (24, 8, 8, 32, 64)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", TR_OPERAND_SHAPES)
+def test_transition_operand_passes_match_plain(dev, b, h, w, cin, cout):
+    """The FQT operands (one launch: the cotangent's clusters, the
+    activation at the forward's group absmax) and the straight-through
+    fold against their plain versions on the same CUDA tensors, with and
+    without the bits: every output equal, d_amax the forward's (the
+    kernel forward's ``fwd_pre``) and equal to the plain version's own;
+    the fold with each unit load the shape admits (16-byte rows where
+    output rows hold whole units, a pair a lane always); two calls
+    bit-equal; one launch a call."""
+    t = _tr_inputs(dev, b, h, w, cin, cout, b + h + cin)
+    n_out = b * h * w // 4
+    tile = tr.transition_tile(h // 2, w // 2, n_out, cin, cout)
+    assert n_out // tile >= 3 or b == 128
+    lay = tr.transition_fwd_layout(b * h * w, h, w, cin, cout, tile)
+    kw = dict(h=h, w_img=w)
+    z = t["dz"].flip(1).contiguous()
+    routes = sorted({False, tr.operand_rows(w)})
+    for rate in (0.3, 0.0):
+        bits = t["bits"] if rate else None
+        thresh = fb.dropout_thresh(rate) if rate else None
+        scb = (t["x"], t["scale"], t["shift"], bits)
+        ct = (t["dz"], z, t["dzsum"], t["dzssq"], *scb)
+        part = tr.fwd_amax(*scb, thresh=thresh, tile=tile)
+        amax = tr.fwd_pre(*scb, part, thresh=thresh, lay=lay)[2]
+        want = tr.bwd_quantize_plain(*ct, thresh=thresh, tile=tile, **kw)
+        _same(amax, want[3])
+        tr.reset_launches()
+        got = tr.bwd_quantize(*ct, amax, thresh=thresh, tile=tile, **kw)
+        again = tr.bwd_quantize(*ct, amax, thresh=thresh, tile=tile, **kw)
+        torch.cuda.synchronize()
+        assert dict(tr.launches) == {"transition_bwd.quant": 2}
+        assert got[3] is amax
+        for a, a2, b_ in zip(got, again, want):
+            _same(a, b_)
+            assert torch.equal(a, a2)
+        for rows in routes:
+            tr.reset_launches()
+            tr._fold_rows = rows
+            try:
+                got = tr.bwd_fold(*ct, thresh=thresh, **kw)
+                again = tr.bwd_fold(*ct, thresh=thresh, **kw)
+            finally:
+                tr._fold_rows = None
+            torch.cuda.synchronize()
+            assert dict(tr.launches) == {"transition_bwd.fold": 2}
+            for a, a2, b_ in zip(got, again,
+                                 tr.bwd_fold_plain(*ct, thresh=thresh, **kw)):
+                _same(a, b_)
+                assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("hw", [24, 8])
+def test_transition_fqt_op_computes_at_rows_off_8(dev, hw):
+    """The whole FQT op at 24x24 and 8x8 inputs (output rows of 12 and 4
+    pixels; output images of 144 and 16 positions, which the FQT wgrad
+    admits) on the card, with option A's shortcut (dWp runs on the TMA
+    wgrad, whose rule refuses these outputs): its kernels launch, and its
+    outputs and gradients are as the same op's on the CPU (the plain
+    versions, held to JAX at these shapes by
+    tests/test_torch_transition.py)."""
+    b, cin, cout = 24, 32, 64
+    t = _tr_inputs(dev, b, hw, hw, cin, cout, hw)
+    bits = tr.parity_pack(t["bits"], hw, hw)
+    res = []
+    for dvc in (dev, torch.device("cpu")):
+        ins = [v.to(dvc).clone().requires_grad_() for v in (
+            t["x"], t["w1"], t["scale"], t["shift"])]
+        tr.reset_launches()
+        out = tr.transition_half_int8(ins[0], ins[1], None, *ins[2:],
+                                      bits.to(dvc), dropout_rate=0.3,
+                                      h=hw, w_img=hw, quant_bwd=True)
+        cts = [t[k].to(dvc) for k in ("dz", "dzsum", "dzssq", "dres")]
+        grads = torch.autograd.grad(out, ins, cts)
+        res.append([v.detach().cpu() for v in out]
+                   + [v.cpu() for v in grads])
+        if dvc == dev:
+            torch.cuda.synchronize()
+            for name in ("transition_bwd.quant", "transition_dgrad",
+                         "transition_wgrad_s8"):
+                assert tr.launches[name] == 1, name
+    got, want = res
+    _same(got[0], want[0])
+    for a, b_ in zip(got[1:], want[1:]):
+        assert a.shape == b_.shape and a.dtype == b_.dtype
+        assert (a.float() - b_.float()).abs().max() <= 1e-2 * b_.float(
+        ).abs().max()
 
 
 # (batch, h, w, Cin, Cout) of the dgrad's wgmma route: WRN-28-10's two

@@ -216,13 +216,15 @@ def test_shared_quantizer_is_the_joint_parity_quantizer(floor, b, h, cin,
 
 # --- the op ---------------------------------------------------------------------
 
-def _run_jax(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None):
-    """(outputs, grads or None) of JAX's op; grads in JAX's layouts."""
+def _run_jax(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None, h=H,
+             w=W):
+    """(outputs, grads or None) of JAX's op at h x w inputs; grads in JAX's
+    layouts."""
     jb = jnp.asarray(bits) if rate > 0 else None
 
     def f(x_, w_, wp_, s_, t_):
         return jt.transition_half_int8(x_, w_, wp_, s_, t_, jb,
-                                       dropout_rate=rate, h=H, w_img=W,
+                                       dropout_rate=rate, h=h, w_img=w,
                                        quant_bwd=quant_bwd, interpret=True)
 
     args = (jnp.asarray(x, jnp.bfloat16), jnp.asarray(w1),
@@ -236,8 +238,10 @@ def _run_jax(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None):
     return out, vjp(jcts)
 
 
-def _run_port(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None):
-    """(outputs, grads in JAX's layouts or None) of the port's op."""
+def _run_port(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None,
+              h=H, w=W):
+    """(outputs, grads in JAX's layouts or None) of the port's op at h x w
+    inputs."""
     cin, cout = w1.shape[2:]
     xt = _t(x, torch.bfloat16).requires_grad_()
     wt = _oihw(w1).requires_grad_()
@@ -246,7 +250,7 @@ def _run_port(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts=None):
     st, sh = _t(scale).requires_grad_(), _t(shift).requires_grad_()
     tb = torch.from_numpy(bits) if rate > 0 else None
     out = tr.transition_half_int8(xt, wt, wpt, st, sh, tb, dropout_rate=rate,
-                                  h=H, w_img=W, quant_bwd=quant_bwd)
+                                  h=h, w_img=w, quant_bwd=quant_bwd)
     if cts is None:
         return out, None
     ins = [xt, wt] + ([wpt] if wpt is not None else []) + [st, sh]
@@ -296,15 +300,15 @@ def test_forward_matches_jax(rate, use_proj):
     _check_forward(rate, use_proj)
 
 
-def _cotangents(seed=5, cout=COUT):
+def _cotangents(seed=5, cout=COUT, n=N):
     rng = np.random.default_rng(seed)
-    return (_bf(rng.standard_normal((cout, N // 4)) * 1e-2),
+    return (_bf(rng.standard_normal((cout, n // 4)) * 1e-2),
             (rng.standard_normal(cout) * 1e-3).astype(np.float32),
             (rng.standard_normal(cout) * 1e-4).astype(np.float32),
-            _bf(rng.standard_normal((cout, N // 4)) * 1e-2))
+            _bf(rng.standard_normal((cout, n // 4)) * 1e-2))
 
 
-def _exact_grads(x, w1, wp, scale, shift, bits, rate, cts):
+def _exact_grads(x, w1, wp, scale, shift, bits, rate, cts, h=H, w=W):
     """The float backward at the same point, in float64: the unquantized
     prologue and conv, the cotangents on all four outputs."""
     f64 = torch.float64
@@ -317,11 +321,11 @@ def _exact_grads(x, w1, wp, scale, shift, bits, rate, cts):
     d = torch.clamp_min(xt * st[:, None] + sh[:, None], 0)
     thresh = fb.dropout_thresh(rate)
     if thresh < 256:
-        lb = tr.parity_unpack(torch.from_numpy(bits), H, W).to(torch.int32)
+        lb = tr.parity_unpack(torch.from_numpy(bits), h, w).to(torch.int32)
         d = torch.where(lb < thresh, d * (256.0 / thresh), 0 * d)
     z = tr._lanes(torch.nn.functional.conv2d(
-        tr._nchw(d, H, W), wt, stride=2, padding=1))
-    ee = tr.parity_planes(xt, H, W)[0]
+        tr._nchw(d, h, w), wt, stride=2, padding=1))
+    ee = tr.parity_planes(xt, h, w)[0]
     res = (wpt.t() @ ee if wpt is not None
            else torch.nn.functional.pad(ee, (0, 0, 0, w1.shape[3]
                                              - w1.shape[2])))
@@ -340,15 +344,20 @@ def _exact_grads(x, w1, wp, scale, shift, bits, rate, cts):
 NAMES = ("dx", "dw1", "dwp", "dscale", "dshift")
 
 
-def _check_backward(rate, use_proj, quant_bwd, cin=CIN, cout=COUT):
-    x, w1, wp, scale, shift, bits = _inputs(cin=cin, cout=cout)
+def _check_backward(rate, use_proj, quant_bwd, cin=CIN, cout=COUT, b=B, h=H,
+                    w=W):
+    n = b * h * w
+    x, w1, wp, scale, shift, bits = _inputs(cin=cin, cout=cout, n=n)
     wp = wp if use_proj else None
-    cts = _cotangents(cout=cout)
-    _, jg = _run_jax(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts)
-    _, tg = _run_port(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts)
+    cts = _cotangents(cout=cout, n=n)
+    geo = dict(h=h, w=w)
+    _, jg = _run_jax(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts,
+                     **geo)
+    _, tg = _run_port(x, w1, wp, scale, shift, bits, rate, quant_bwd, cts,
+                      **geo)
     jg = [None if a is None else np.asarray(a, np.float32) for a in jg]
     tg = [None if t is None else _np(t) for t in tg]
-    exact = (_exact_grads(x, w1, wp, scale, shift, bits, rate, cts)
+    exact = (_exact_grads(x, w1, wp, scale, shift, bits, rate, cts, **geo)
              if quant_bwd else None)
     for name, got, want, i in zip(NAMES, tg, jg, range(5)):
         if want is None:
@@ -377,6 +386,19 @@ def test_backward_matches_jax(rate, use_proj, quant_bwd):
     backward (plus 1e-3 of its norm), and in fact equal but for dx's
     projection sum."""
     _check_backward(rate, use_proj, quant_bwd)
+
+
+@pytest.mark.parametrize("b,h,w", [(24, 24, 24), (24, 8, 8)])
+@pytest.mark.parametrize("quant_bwd", [True, False])
+def test_backward_at_rows_off_8_matches_jax(b, h, w, quant_bwd):
+    """Output rows off 8 pixels (12 at 24x24 inputs, 4 at 8x8), which the
+    backward's operand passes take since each output lane reads its own
+    input pair: the op's backward in both bodies (projection, dropout,
+    three scale groups) holds to JAX as at 16x16."""
+    cin, cout = CIN, COUT
+    assert tr.transition_tile(h // 2, w // 2, b * h * w // 4, cin,
+                              cout) * 3 == b * h * w // 4
+    _check_backward(RATE, True, quant_bwd, cin, cout, b=b, h=h, w=w)
 
 
 @pytest.mark.parametrize("cin,cout", [(16, 32), (8, 64)])
@@ -707,5 +729,6 @@ def test_full_width_transitions():
                 assert tile == {16: 1024, 8: 512}[hw]
                 tr.transition_dgrad_layout(128 * size * size, size, size,
                                            cin, c, tile, True)
-                tr._check_rows("gate", size, size, 128 * size * size)
+                tr.check_operand_geometry("gate", size, size,
+                                          128 * size * size, tile)
     assert sum(through) == 2

@@ -462,12 +462,19 @@ def test_dgrad_geometry_refusals_name_the_shape(cin, cout, h, w, tile,
 
 
 def test_operand_passes_still_refuse_rows_off_8():
-    """The op as a whole still refuses output rows off 8 pixels at its
-    backward's operand passes (ROADMAP Queue 3 item 6), which the dgrad
-    now takes."""
+    """Output rows off 8 pixels (6 at 12x12 inputs): the dgrad takes them,
+    and since each of their lanes reads its own input pair so do the
+    backward's operand passes; what still refuses the shape is the wgrads'
+    rule (ROADMAP Queue 3 item 6): the FQT wgrad's at output images off 16
+    positions, the TMA wgrad's."""
     tr.transition_dgrad_layout(32 * 144, 12, 12, 32, 64, 1152, True)
-    with pytest.raises(ValueError, match="geometry H=12 W=12"):
-        tr._check_rows("transition_bwd", 12, 12, 32 * 144)
+    tr.check_operand_geometry("transition_bwd", 12, 12, 32 * 144, 1152)
+    with pytest.raises(ValueError, match="output image 6x6"):
+        tr.check_wgrad_s8_geometry("transition_wgrad_s8", 32, 64, 12, 12,
+                                   32 * 36, 1152)
+    with pytest.raises(ValueError, match="image 6x6 is off the TMA"):
+        tr.check_wgrad_geometry("transition_wgrad_tma", 32, 64, 12, 12,
+                                32 * 36)
 
 
 def test_cpu_dgrad_is_the_plain_version():

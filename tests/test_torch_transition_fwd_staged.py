@@ -109,12 +109,10 @@ def test_layout_reads_are_aligned_inside_the_slab_and_tiles_in_a_group(
                 want = (i, ih, iw) if 0 <= ih < h and 0 <= iw < w else None
                 assert _tap_source(lay, rows[lane] + sh) == want
     if ow % 8:   # the row-tile kernels refused it; this forward takes it,
-        # and so does the dgrad since its wgmma rebuild; the backward's
-        # operand passes, which write 8 output lanes of a row a thread,
-        # still refuse it
+        # and so does the dgrad since its wgmma rebuild, and the backward's
+        # operand passes since each output lane reads its own input pair
         tr.transition_dgrad_layout(n, h, w, cin, cout, tile, True)
-        with pytest.raises(ValueError):
-            tr._check_rows("old", h, w, n)
+        tr.check_operand_geometry("transition_bwd", h, w, n, tile)
     tr.check_fwd_geometry("new", cin, cout, h, w, n, tile)
 
 

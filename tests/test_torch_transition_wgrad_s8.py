@@ -1,14 +1,14 @@
 """The lane transition's FQT weight gradient on the TMA + s8 wgmma mainloop
 (ops/cuda/transition.py ``bwd_quantize``, ``wgrad``, ``wgrad_plain``,
 ``wgrad_s8_plan``, ``check_wgrad_s8_geometry``; kernels in
-csrc/transition.cu ``bwd_quant_kernel`` (``PlaneStore``) and
+csrc/transition.cu ``bwd_quant_kernel`` (its unit stores) and
 csrc/transition_wgrad.cu on csrc/wgrad_wgmma_s8.cuh), on the CPU:
 
 - the quantizer's codes as parity planes [4, Cin, N']: per scale group they
   are the rows p * Cin + ci of JAX's ``d_ref`` (the reference kernel's
   lines, jitted as its interpret mode runs them), and a model of the
-  kernel's ``PlaneStore`` (its index arithmetic and byte permutes) writes
-  them from the lane-layout codes;
+  kernel's unit stores (each output lane's input pair, both unit loads)
+  writes them from the lane-layout codes;
 - the plain version on planes (HWIO) is bit-equal to the lane-order
   contraction it replaces (the exact stride-2 ``conv2d_weight`` of the
   lane codes per group, scaled, added in order);
@@ -139,15 +139,18 @@ def test_quantizer_planes_are_jax_d_ref(rate, cin, cout, h, w, b, groups):
 
 
 @pytest.mark.parametrize("cin,h,w,b", [(32, 16, 16, 2), (64, 4, 64, 2),
-                                       (32, 32, 32, 1)])
+                                       (32, 32, 32, 1), (32, 24, 24, 2),
+                                       (32, 8, 8, 4)])
 def test_plane_store_model_writes_the_planes(cin, h, w, b):
-    """The kernel's PlaneStore (index arithmetic, __byte_perm 0x6420 and
-    0x7531) over every 8-lane unit of the lane-layout codes gives the plain
-    version's planes."""
+    """The kernel's unit stores (each of a unit's 8 output lanes from its
+    own input pair; also the 16-byte row loads where output rows hold
+    whole units) give the plain version's planes, at output rows of 8, 2,
+    16, 12 and 4 pixels."""
     rng = np.random.default_rng(cin + w)
     q = rng.integers(-127, 128, (cin, b * h * w)).astype(np.int8)
     want = torch.stack(tr.parity_planes(torch.from_numpy(q), h, w)).numpy()
-    np.testing.assert_array_equal(plane_store(q, h, w), want)
+    for rows in {False, tr.operand_rows(w)}:
+        np.testing.assert_array_equal(plane_store(q, h, w, rows), want)
 
 
 # --- the plain version on planes ---------------------------------------------
@@ -377,9 +380,11 @@ def test_cpu_path_is_the_plain_version():
     """On the CPU the wrappers run the plain versions and launch
     nothing; the quantizer's d_q is the planes."""
     args, thresh, tile = _operands(32, 48, 16, 16, 4, 2)
+    fwd_amax = tr.fwd_amax_plain(*args[4:], thresh=thresh, tile=tile)[:, 0]
     tr.reset_launches()
     g_q, g_amax, d_q, d_amax, _ = tr.bwd_quantize(
-        *args, thresh=thresh, tile=tile, h=16, w_img=16)
+        *args, fwd_amax, thresh=thresh, tile=tile, h=16, w_img=16)
+    assert torch.equal(d_amax, fwd_amax)
     dw = tr.wgrad(g_q, g_amax, d_q, d_amax, tile=tile, h=16, w_img=16)
     assert not tr.launches
     assert d_q.shape == (4, 32, 4 * 64)

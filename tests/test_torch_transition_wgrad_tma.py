@@ -209,17 +209,20 @@ def test_wgrad_takes_what_the_dgrad_refuses(cin, cout, h, w):
     chunks) and output rows of 192 pixels (no 64- or 128-position row
     tile of whole rows): the old dgrad refused them; since its wgmma
     rebuild the dgrad takes them (the forward's geometry), as the wgrads
-    do. What still refuses output rows off 8 pixels (12 at 24x24) is the
-    backward's operand passes, which the FQT wgrad's rule admits."""
+    do. Output rows off 8 pixels (12 at 24x24), which the backward's
+    operand passes refused while a thread wrote 8 output lanes of one row,
+    they take since each lane reads its own input pair, as the FQT wgrad's
+    rule does; the TMA wgrad (straight-through) refuses them."""
     n = 8 * h * w
     tr.transition_dgrad_layout(n, h, w, cin, cout, n // 4, True)
+    tr.check_operand_geometry("transition_bwd", h, w, n, n // 4)
     if (w // 2) % 8:
-        with pytest.raises(ValueError, match=f"geometry H={h} W={w}"):
-            tr._check_rows("transition_bwd", h, w, n)
         tr.check_wgrad_s8_geometry("transition_wgrad_s8", cin, cout, h, w,
                                    n // 4, n // 4)
+        with pytest.raises(ValueError, match="off the TMA"):
+            tr.check_wgrad_geometry("transition_wgrad_tma", cin, cout, h, w,
+                                    n // 4)
         return
-    tr._check_rows("transition_bwd", h, w, n)
     tr.check_wgrad_geometry("transition_wgrad_tma", cin, cout, h, w, n // 4)
     tr.wgrad_tma_plan(9, cin, cout, n // 4, h, w)
 
@@ -240,12 +243,19 @@ def test_wgrad_geometry_refusals_name_the_shape(cin, cout, h, w, match):
 
 
 def test_fold_geometry_refusal_names_the_shape():
-    """The operand passes write 8 output lanes of one row a thread: rows of
-    6 output pixels raise on the card, naming the geometry; the plain
-    version (CPU) takes them."""
-    with pytest.raises(ValueError, match="geometry H=12 W=12"):
-        tr._check_rows("transition_bwd.fold", 12, 12, 2 * 144)
-    tr._check_rows("transition_bwd.fold", 16, 16, 2 * 256)
+    """The operand passes take whole images of even H and W, each output
+    lane reading its own input pair: rows of 6 output pixels (12x12
+    inputs) pass the rule as rows of 8 do; an odd width, a partial image
+    and units off 8 output lanes raise, naming the shape; the plain
+    version (CPU) takes rows of 6."""
+    tr.check_operand_geometry("transition_bwd.fold", 12, 12, 2 * 144, 8)
+    tr.check_operand_geometry("transition_bwd.fold", 16, 16, 2 * 256, 8)
+    with pytest.raises(ValueError, match="geometry H=12 W=13"):
+        tr.check_operand_geometry("transition_bwd.fold", 12, 13, 2 * 156, 8)
+    with pytest.raises(ValueError, match="geometry H=12 W=12 N=300"):
+        tr.check_operand_geometry("transition_bwd.fold", 12, 12, 300, 8)
+    with pytest.raises(ValueError, match="scale group of 12 output lanes"):
+        tr.check_operand_geometry("transition_bwd", 12, 12, 2 * 144, 12)
     args, thresh = _operands(32, 32, 12, 12, 2)
     g, d, x_ee = tr.bwd_fold_plain(*args, thresh=thresh, h=12, w_img=12)
     assert d.shape == (4, 32, 72) and x_ee.shape == (32, 72)

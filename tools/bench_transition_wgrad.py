@@ -32,6 +32,7 @@ name and power limit. Needs a CUDA card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -98,13 +99,18 @@ def main() -> int:
         ct = (dz, z, dzsum, dzssq, x, scale, shift, bits)
         tile = tr.transition_tile(oh, ow, n_out, cin, cout)
         macs, pmacs = 9 * cin * cout * n_out, cin * cout * n_out
+        # the forward's group absmax, where the quantizer takes it
+        amax = ((tr.fwd_amax_plain(x, scale, shift, bits, thresh=thresh,
+                                   tile=tile)[:, 0],) if "d_amax" in
+                inspect.signature(tr.bwd_quantize).parameters else ())
 
         def fold():
             return tr.bwd_fold(*ct, thresh=thresh, **(geo if planes else {}))
 
         if planes:
             gb, db, xee = fold()
-            qt = tr.bwd_quantize(*ct, thresh=thresh, tile=tile, **geo)
+            qt = tr.bwd_quantize(*ct, *amax, thresh=thresh, tile=tile,
+                                 **geo)
         else:
             (gb, db), xee = fold(), x
             qt = tr.bwd_quantize(*ct, thresh=thresh, tile=tile)
@@ -158,7 +164,8 @@ def main() -> int:
                                         + cin * n // 2) / BW * 1e3
             if opts.parts and body == "fqt":   # its quantizer
                 def quant():
-                    return tr.bwd_quantize(*ct, thresh=thresh, tile=tile,
+                    return tr.bwd_quantize(*ct, *amax, thresh=thresh,
+                                           tile=tile,
                                            **(geo if planes else {}))
 
                 row["quant_ms"] = time_ms(quant)
